@@ -1,14 +1,23 @@
 """aehmc_tpu_torch: the PyTorch / CUDA port of :mod:`aehmc_tpu`.
 
-The first slice of the port: the flagship fused-NUTS path (Stan window
-adaptation driving a per-transition NUTS kernel, then the whole sampling run
-in one kernel launch) on the logistic-regression posterior, with both NUTS
-kernels hand-written in CUDA for the H100 (``csrc/``) and a plain PyTorch
-version of each beside it.  This package imports no JAX.
+What is ported: the fused NUTS route (Stan window adaptation driving a
+per-transition NUTS kernel, then the whole sampling run in one kernel
+launch), the fused MALA and GHMC routes (warmup through the GHMC transition
+kernel, sampling in segments of the GHMC segment kernel), and the two
+leapfrog entry points of :mod:`aehmc_tpu_torch.ops` (``fused_logistic_hmc``,
+``batched_leapfrog``).  Every kernel is hand-written CUDA for the H100
+(``csrc/``) with a plain PyTorch version beside it.  This package imports no
+JAX.
 """
 
-from aehmc_tpu_torch import diagnostics
+from aehmc_tpu_torch import diagnostics, ops
 from aehmc_tpu_torch.api import sample
+from aehmc_tpu_torch.ops import (
+    batched_leapfrog,
+    fused_logistic_hmc,
+    sample_fused_ghmc,
+    sample_fused_mala,
+)
 from aehmc_tpu_torch.sampling import SampleResult
 from aehmc_tpu_torch.types import (
     ChainState,
@@ -23,6 +32,11 @@ __all__ = [
     "DualAveragingState",
     "SampleResult",
     "WelfordState",
+    "batched_leapfrog",
     "diagnostics",
+    "fused_logistic_hmc",
+    "ops",
     "sample",
+    "sample_fused_ghmc",
+    "sample_fused_mala",
 ]

@@ -1,29 +1,36 @@
-"""The front door: ``sample(...)`` (port of :mod:`aehmc_tpu.api`, the route
-``algorithm="nuts", path="fused"``).
+"""The front door: ``sample(...)`` (port of :mod:`aehmc_tpu.api`, the fused
+routes of ``algorithm="nuts"``, ``"mala"`` and ``"ghmc"``).
 
-The fused route runs Stan warmup through the per-transition NUTS kernel and
-then the whole sampling phase through the whole-run kernel (one launch), as
-the JAX package's benchmark does; the two sampling paths are bitwise equal by
-construction.  Every other algorithm and path raises ``NotImplementedError``
-naming its ROADMAP.md item.
+The fused NUTS route runs Stan warmup through the per-transition NUTS kernel
+and then the whole sampling phase through the whole-run kernel (one launch),
+as the JAX package's benchmark does; the two sampling paths are bitwise equal
+by construction.  The fused MALA and GHMC routes run warmup through the GHMC
+transition kernel and sampling through the GHMC segment kernel, one launch
+per ``segment_draws`` draws.  Every other algorithm and path raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from typing import Callable, Optional, Sequence
 
 import torch
 
-from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
+from aehmc_tpu_torch.ops.fused_driver import (
+    sample_fused_adaptive,
+    sample_fused_ghmc,
+)
 from aehmc_tpu_torch.sampling import SampleResult
 from aehmc_tpu_torch.types import Diagnostics
 
 ALGORITHMS = ("nuts", "hmc", "chees", "meads", "ghmc", "mala")
 PATHS = ("auto", "xla", "pooled", "fused")
+_FUSED_ALGORITHMS = ("nuts", "mala", "ghmc")
 
 
 def _fused_nuts_result(out) -> SampleResult:
     """The fused driver's return as a ``SampleResult``: stats columns
     ``[energy, accept, doublings, leaves, diverging, turning]`` are the
-    fields of ``Diagnostics``."""
+    fields of ``Diagnostics`` (GHMC's are ``[energy, accept, 0, steps,
+    diverging, 0]``: no doublings, never turning)."""
     final_positions, positions, stats, eps, imm = out
     diag = Diagnostics(
         acceptance_probability=stats[..., 1],
@@ -65,8 +72,10 @@ def sample(
     transposed ``potential_fn_t(q_t, *data)`` and/or
     ``potential_and_grad_t(q_t, *data) -> (u, g)``; on a CUDA device the
     kernels take ``models.logistic_pg_t``.  ``kwargs`` go to
-    :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive`
-    (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True).
+    :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
+    (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True) and to
+    :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and
+    GHMC (``ghmc_alpha``, the GHMC momentum persistence, defaults to 0.9).
 
     Returns a ``SampleResult`` with ``positions`` ``(draws, chains, dim)``.
     """
@@ -74,7 +83,7 @@ def sample(
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
     if path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    if algorithm != "nuts":
+    if algorithm not in _FUSED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algorithm!r} is not ported yet (ROADMAP.md items "
             "1.9-1.11)"
@@ -94,6 +103,28 @@ def sample(
             "the fused path needs a (chains, dim) initial_position, got shape "
             f"{tuple(initial_position.shape)}"
         )
+    if algorithm in ("mala", "ghmc"):
+        if algorithm == "mala":
+            if "ghmc_alpha" in kwargs:
+                raise TypeError(
+                    "ghmc_alpha= with algorithm='mala' (MALA IS alpha=0); "
+                    "use algorithm='ghmc' for persistent momentum"
+                )
+            alpha = 0.0
+        else:
+            alpha = kwargs.pop("ghmc_alpha", 0.9)
+        out = sample_fused_ghmc(
+            generator,
+            potential_fn_t,
+            tuple(data),
+            initial_position.to(torch.float32),
+            num_samples,
+            num_warmup,
+            alpha=alpha,
+            potential_and_grad_t=potential_and_grad_t,
+            **kwargs,
+        )
+        return _fused_nuts_result(out)
     kwargs.setdefault("max_num_expansions", 6)
     kwargs.setdefault("loop_in_kernel", True)
     out = sample_fused_adaptive(

@@ -1,9 +1,9 @@
 """Carry state across from the JAX package.
 
 The JAX package's arrays, given as numpy arrays (or anything ``np.asarray``
-reads), become the port's tensors on a given device, dtypes kept.  The tests
-use this to start both packages from the same state; the port imports no
-JAX for it.
+reads), become the port's tensors on a given device (the card unless the
+caller passes ``device="cpu"``), dtypes kept.  The tests use this to start
+both packages from the same state; the port imports no JAX for it.
 """
 
 import numpy as np
@@ -13,22 +13,28 @@ from aehmc_tpu_torch.types import DualAveragingState, WelfordState
 from aehmc_tpu_torch.window_adaptation import WindowAdaptationState
 
 
-def to_tensor(x, device=None) -> torch.Tensor:
+def to_tensor(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=device)
 
 
-def model_data(X, XT, y_col, device=None):
+def model_data(X, XT, y_col, device="cuda"):
     """``(X, Xᵀ, y_col)`` of ``logistic_regression_pg_t``, float32."""
     return tuple(to_tensor(a, device).to(torch.float32).contiguous()
                  for a in (X, XT, y_col))
 
 
-def chain_state(q, u, g, device=None):
+def chain_state(q, u, g, device="cuda"):
     """``(q (chains, dim), u (chains, 1), g (chains, dim))``."""
     return tuple(to_tensor(a, device) for a in (q, u, g))
 
 
-def window_adaptation_state(state, device=None) -> WindowAdaptationState:
+def ghmc_state(q, u, g, p, device="cuda"):
+    """A JAX GHMC carry with its persistent momentum: ``(q (chains, dim),
+    u (chains, 1), g (chains, dim), p (chains, dim))``."""
+    return tuple(to_tensor(a, device) for a in (q, u, g, p))
+
+
+def window_adaptation_state(state, device="cuda") -> WindowAdaptationState:
     """A JAX ``WindowAdaptationState`` (any object with its fields) as the
     port's, field by field."""
     return WindowAdaptationState(
@@ -45,6 +51,6 @@ def window_adaptation_state(state, device=None) -> WindowAdaptationState:
     )
 
 
-def tuned_parameters(step_size, inverse_mass_matrix, device=None):
+def tuned_parameters(step_size, inverse_mass_matrix, device="cuda"):
     """``(step_size, inverse_mass_matrix)`` as returned by the JAX drivers."""
     return to_tensor(step_size, device), to_tensor(inverse_mass_matrix, device)

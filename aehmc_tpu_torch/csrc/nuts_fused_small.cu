@@ -22,37 +22,30 @@
 // other consumer of shared memory, and it caps the chains per block.
 //
 // Design.  The potential and gradient are a device functor, a template
-// parameter of the core and of both kernels; LogisticPG is the one
-// instantiated.  A block of CB = 8 warps owns 8 chains, one warp per chain, and
-// keeps all of their NUTS state in shared memory (107 KB at dim 100, K 6:
-// two blocks per SM).  Every per-chain decision is warp-uniform, so the tree
-// walk has no divergence inside a warp; a warp whose chain has stopped idles
-// through the rest of the block's tree, the early exit being block-wide as
-// on the TPU.  The gradient is computed by the whole block for its 8 chains
-// at once: points in chunks of 256, one thread per point for X·q (Xᵀ read
-// coalesced from L2, q from shared memory as float4 broadcasts), then one
-// thread per (dimension, half-chunk) for Xᵀ·r.  Reductions run in a fixed
-// order and products use explicit fmaf with -fmad=false elsewhere, so a
-// result does not depend on timing or on where the core is inlined: the
-// whole-run kernel equals one launch per draw bit for bit.
+// parameter of the core and of both kernels; LogisticPG (logistic_pg.cuh,
+// shared with the GHMC and fused-HMC kernels) is the one instantiated.  A
+// block of CB = 8 warps owns 8 chains, one warp per chain, and keeps all of
+// their NUTS state in shared memory (107 KB at dim 100, K 6: two blocks per
+// SM).  Every per-chain decision is warp-uniform, so the tree walk has no
+// divergence inside a warp; a warp whose chain has stopped idles through
+// the rest of the block's tree, the early exit being block-wide as on the
+// TPU.  The gradient is computed by the whole block for its 8 chains at
+// once.  Reductions run in a fixed order and products use explicit fmaf
+// with -fmad=false elsewhere, so a result does not depend on timing or on
+// where the core is inlined: the whole-run kernel equals one launch per
+// draw bit for bit.
 //
 // Randomness is external (tensors, for parity with the NumPy oracle) or
 // Philox4x32-10 keyed by the draw's seed with counter (chain, index, stream,
 // 0); the plain version computes the same streams (ops/philox.py).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "logistic_pg.cuh"
+
+using namespace aehmc;
 
 namespace {
-
-constexpr int CB = 8;          // chains per block = warps per block
-constexpr int NT = CB * 32;    // threads per block = points per chunk
-constexpr int HALF = NT / 2;
-constexpr float NEG_INF = -1e30f;
-constexpr float TWO_PI = 6.283185307179586f;
-constexpr uint32_t DRAW_SEED_STRIDE = 104729u;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Params {
   const float* im;  // inverse mass: (dim,) or (dim, dim)
@@ -121,42 +114,8 @@ __device__ inline Smem carve(float* base, int ds, int K) {
   return s;
 }
 
-__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1, uint32_t c2,
-                                        uint32_t key) {
-  uint32_t c3 = 0, k0 = key, k1 = 0;
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-__device__ __forceinline__ float u01(uint32_t w) {
-  return (float)((w >> 8) + 1u) * (1.0f / 16777216.0f);
-}
-
-// clip to +-1e30 that keeps NaN (jnp.clip / torch.clamp semantics)
-__device__ __forceinline__ float clip(float x) {
-  return x != x ? x : fminf(fmaxf(x, NEG_INF), -NEG_INF);
-}
-
 __device__ __forceinline__ float logaddexp(float a, float b) {
   return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
-}
-
-// sum over the warp in a fixed order, the result broadcast from lane 0
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-  return __shfl_sync(FULL, v, 0);
 }
 
 // out = M^{-1} v for one chain's row (dense metric); the warp's lanes own
@@ -220,127 +179,6 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src,
   for (int d = lane; d < dim; d += 32) dst[d] = src[d];
 }
 
-// The potential and gradient are a device functor, a template parameter of
-// the NUTS core: the whole block calls pg(P, S, q, grad, pot) with the
-// block's CB rows of q and gets CB gradient rows and CB potentials back.
-//
-// LogisticPG: the Bayesian logistic regression posterior,
-// U(q) = -sum_n [y_n x_n·q - softplus(x_n·q)] + |q|^2/2 and
-// ∇U(q) = Xᵀ(σ(X q) - y) + q, both data products written out here.
-struct LogisticPG {
-  const float* X;   // (N, dim)
-  const float* XT;  // (dim, N)
-  const float* y;   // (N,)
-  int N;
-  __device__ void operator()(const Params& P, const Smem& S, const float* q,
-                             float* grad, float* pot) const;
-};
-
-__device__ void LogisticPG::operator()(const Params& P, const Smem& S,
-                                       const float* q, float* grad,
-                                       float* pot) const {
-  const int t = threadIdx.x;
-  const int dim = P.dim, ds = P.ds;
-  float lik[CB];
-#pragma unroll
-  for (int c = 0; c < CB; ++c) lik[c] = 0.f;
-  for (int e = t; e < 2 * CB * ds; e += NT) S.gpart[e] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += NT) {
-    // X·q for point n0 + t, all 8 chains; then σ − y into rbuf
-    const int n = n0 + t;
-    if (n < N) {
-      float acc[CB];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = 0.f;
-      int d = 0;
-      for (; d + 4 <= dim; d += 4) {
-        const float x0 = __ldg(XT + (size_t)d * N + n);
-        const float x1 = __ldg(XT + (size_t)(d + 1) * N + n);
-        const float x2 = __ldg(XT + (size_t)(d + 2) * N + n);
-        const float x3 = __ldg(XT + (size_t)(d + 3) * N + n);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          const float4 qv = *reinterpret_cast<const float4*>(q + c * ds + d);
-          acc[c] = fmaf(x0, qv.x, acc[c]);
-          acc[c] = fmaf(x1, qv.y, acc[c]);
-          acc[c] = fmaf(x2, qv.z, acc[c]);
-          acc[c] = fmaf(x3, qv.w, acc[c]);
-        }
-      }
-      for (; d < dim; ++d) {
-        const float x = __ldg(XT + (size_t)d * N + n);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) acc[c] = fmaf(x, q[c * ds + d], acc[c]);
-      }
-      const float yv = __ldg(y + n);
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        const float lg = acc[c];
-        const float sp = fmaxf(lg, 0.f) + log1pf(expf(-fabsf(lg)));
-        lik[c] += yv * lg - sp;
-        S.rbuf[c * NT + t] = 1.f / (1.f + expf(-lg)) - yv;
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < CB; ++c) S.rbuf[c * NT + t] = 0.f;
-    }
-    __syncthreads();
-
-    // Xᵀ·r over this chunk: thread (half, dl) sums half the chunk's points
-    const int half = t / HALF, dl = t % HALF;
-    const int nb = n0 + half * HALF, ne = min(nb + HALF, N);
-    for (int dd = dl; dd < dim; dd += HALF) {
-      float acc[CB];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = 0.f;
-      int m = nb;
-      for (; m + 4 <= ne; m += 4) {
-        const float x0 = __ldg(X + (size_t)m * dim + dd);
-        const float x1 = __ldg(X + (size_t)(m + 1) * dim + dd);
-        const float x2 = __ldg(X + (size_t)(m + 2) * dim + dd);
-        const float x3 = __ldg(X + (size_t)(m + 3) * dim + dd);
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          const float4 rv =
-              *reinterpret_cast<const float4*>(S.rbuf + c * NT + (m - n0));
-          acc[c] = fmaf(x0, rv.x, acc[c]);
-          acc[c] = fmaf(x1, rv.y, acc[c]);
-          acc[c] = fmaf(x2, rv.z, acc[c]);
-          acc[c] = fmaf(x3, rv.w, acc[c]);
-        }
-      }
-      for (; m < ne; ++m) {
-        const float x = __ldg(X + (size_t)m * dim + dd);
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          acc[c] = fmaf(x, S.rbuf[c * NT + (m - n0)], acc[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < CB; ++c) S.gpart[(half * CB + c) * ds + dd] += acc[c];
-    }
-    __syncthreads();
-  }
-
-  for (int e = t; e < CB * dim; e += NT) {
-    const int c = e / dim, d = e - c * dim;
-    grad[c * ds + d] =
-        (S.gpart[c * ds + d] + S.gpart[(CB + c) * ds + d]) + q[c * ds + d];
-  }
-#pragma unroll
-  for (int c = 0; c < CB; ++c) S.rbuf[c * NT + t] = lik[c];
-  __syncthreads();
-  const int w = t / 32, lane = t % 32;
-  float s = 0.f;
-  for (int k = lane; k < NT; k += 32) s += S.rbuf[w * NT + k];
-  s = warp_sum(s);
-  float qq = 0.f;
-  for (int d = lane; d < dim; d += 32) qq += q[w * ds + d] * q[w * ds + d];
-  qq = warp_sum(qq);
-  if (lane == 0) pot[w] = -s + 0.5f * qq;
-  __syncthreads();
-}
-
 // momentum of warp w's chain into row p: external, or Box-Muller from Philox
 __device__ void draw_momentum(const Params& P, const Smem& S, const Rand& R,
                               int w, int lane, int chain, float* p) {
@@ -350,15 +188,7 @@ __device__ void draw_momentum(const Params& P, const Smem& S, const Rand& R,
     return;
   }
   float* z = S.tmp + w * P.ds;
-  for (int j = lane; j < (dim + 3) / 4; j += 32) {
-    const uint4 b = philox((uint32_t)chain, (uint32_t)j, 0u, R.seed);
-    const float r0 = sqrtf(-2.0f * logf(u01(b.x))), a0 = TWO_PI * u01(b.y);
-    const float r1 = sqrtf(-2.0f * logf(u01(b.z))), a1 = TWO_PI * u01(b.w);
-    const float v[4] = {r0 * cosf(a0), r0 * sinf(a0), r1 * cosf(a1),
-                        r1 * sinf(a1)};
-    for (int k = 0; k < 4; ++k)
-      if (4 * j + k < dim) z[4 * j + k] = v[k];
-  }
+  normal_row((uint32_t)chain, R.seed, dim, lane, z);
   __syncwarp();
   if (P.dense) {
     apply_dense(P, P.ms, z, p, lane);
@@ -370,23 +200,25 @@ __device__ void draw_momentum(const Params& P, const Smem& S, const Rand& R,
 
 __device__ __forceinline__ float rand_dir(const Rand& R, int C, int chain,
                                           int d) {
-  if (R.seeded)
-    return u01(philox((uint32_t)chain, (uint32_t)d, 1u, R.seed).x) < 0.5f
-               ? -1.f
-               : 1.f;
+  if (R.seeded) {
+    const float u = u01(philox((uint32_t)chain, (uint32_t)d, DIRECTION,
+                               R.seed).x);
+    return u < 0.5f ? -1.f : 1.f;
+  }
   return R.dirs[(size_t)d * C + chain];
 }
 
 __device__ __forceinline__ float rand_bias(const Rand& R, int C, int chain,
                                            int d) {
-  if (R.seeded) return u01(philox((uint32_t)chain, (uint32_t)d, 2u, R.seed).x);
+  if (R.seeded)
+    return u01(philox((uint32_t)chain, (uint32_t)d, BIAS, R.seed).x);
   return R.ub[(size_t)d * C + chain];
 }
 
 __device__ __forceinline__ float rand_leaf(const Rand& R, int C, int chain,
                                            int idx) {
   if (R.seeded)
-    return u01(philox((uint32_t)chain, (uint32_t)idx, 3u, R.seed).x);
+    return u01(philox((uint32_t)chain, (uint32_t)idx, LEAF, R.seed).x);
   return R.ul[(size_t)idx * C + chain];
 }
 
@@ -472,7 +304,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn, const Smem& S,
         }
       }
       __syncthreads();
-      pg_fn(P, S, S.last_q, S.ngrad, S.nu);
+      pg_fn(P.dim, P.ds, S.rbuf, S.gpart, S.last_q, S.ngrad, S.nu);
       if (!live) continue;
 
       float un = S.nu[w];
@@ -694,10 +526,6 @@ cudaError_t prepare(Kernel kernel, const Params& P, int N, size_t* smem) {
 
 extern "C" {
 
-const char* error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 // Kernel 1: one transition.  q, g, p: (dim, C); u: (C,); dirs, ub: (K, C);
 // ul: (2^K, C); stats: (8, C).  use_seed selects Philox randomness keyed by
 // seed (p, dirs, ub and ul are then unused).
@@ -710,7 +538,7 @@ int nuts_transition_launch(const float* q, const float* u, const float* g,
                            float* q_out, float* u_out, float* g_out,
                            float* stats, void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, XT, y, N};
+  const LogisticPG pg = {X, XT, y, N, 1.0f};
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   size_t smem = 0;
   cudaError_t err = prepare(nuts_transition_kernel<LogisticPG>, P, N, &smem);
@@ -732,7 +560,7 @@ int nuts_sampling_launch(const float* q, const float* u, const float* g,
                          float* stats, float* q_out, float* u_out,
                          float* g_out, void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, XT, y, N};
+  const LogisticPG pg = {X, XT, y, N, 1.0f};
   size_t smem = 0;
   const int blocks = (C + CB - 1) / CB;
   cudaError_t err;

@@ -1,7 +1,8 @@
 """Bayesian logistic regression, the flagship posterior (port of
 :mod:`aehmc_tpu.models.regression`).
 
-The data come from numpy, so both packages get bit-identical ``X, y``.
+The data come from numpy, so both packages get bit-identical ``X, y``.  The
+builders put them on the card unless the caller passes ``device="cpu"``.
 :func:`logistic_pg_t` is the plain PyTorch potential and gradient in the
 transposed ``(dim, chains)`` layout; the CUDA NUTS kernels recognise it by
 identity and compute the same two data products in their own body.
@@ -14,7 +15,7 @@ import torch
 
 
 def logistic_regression_data(
-    dim: int = 100, num_points: int = 1_000, seed: int = 42, device=None
+    dim: int = 100, num_points: int = 1_000, seed: int = 42, device="cuda"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The synthetic ``(X (points, dim), y (points,))`` dataset, float32."""
     rng = np.random.default_rng(seed)
@@ -35,7 +36,7 @@ def _softplus(logits: torch.Tensor) -> torch.Tensor:
 
 
 def logistic_regression(
-    dim: int = 100, num_points: int = 1_000, seed: int = 42, device=None
+    dim: int = 100, num_points: int = 1_000, seed: int = 42, device="cuda"
 ) -> Tuple[Callable, torch.Tensor]:
     """``(logprob_fn, example_position)`` for one chain: ``logprob_fn(w)`` is
     the Bernoulli log-likelihood plus a standard-normal prior."""
@@ -72,7 +73,7 @@ def logistic_regression_pg_t(
     num_points: int = 1_000,
     seed: int = 42,
     matmul_dtype=torch.float32,
-    device=None,
+    device="cuda",
 ):
     """``(potential_t, potential_and_grad_t, data, example_position)`` with
     ``data = (X, Xᵀ, y_col)``, as the JAX builder returns them.

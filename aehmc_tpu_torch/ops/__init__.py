@@ -1,16 +1,36 @@
-"""Fused NUTS kernels of the port: plain PyTorch versions beside the CUDA
-kernels (``aehmc_tpu_torch/csrc``) that replace the TPU's Pallas kernels."""
+"""Fused kernels of the port: plain PyTorch versions beside the CUDA kernels
+(``aehmc_tpu_torch/csrc``) that replace the TPU's Pallas kernels."""
 
+from aehmc_tpu_torch.ops.fused_driver import sample_fused_ghmc, sample_fused_mala
+from aehmc_tpu_torch.ops.fused_hmc import (
+    fused_logistic_hmc,
+    fused_logistic_hmc_reference,
+)
+from aehmc_tpu_torch.ops.ghmc_fused import (
+    fused_ghmc_segment,
+    make_fused_ghmc_transition,
+)
+from aehmc_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
+from aehmc_tpu_torch.ops.leapfrog import (
+    batched_leapfrog,
+    batched_leapfrog_reference,
+)
 from aehmc_tpu_torch.ops.nuts_fused_small import (
-    LAUNCHES,
     make_fused_nuts_transition_small,
-    reset_launch_counts,
     sample_fused_small,
 )
 
 __all__ = [
     "LAUNCHES",
+    "batched_leapfrog",
+    "batched_leapfrog_reference",
+    "fused_ghmc_segment",
+    "fused_logistic_hmc",
+    "fused_logistic_hmc_reference",
+    "make_fused_ghmc_transition",
     "make_fused_nuts_transition_small",
     "reset_launch_counts",
+    "sample_fused_ghmc",
+    "sample_fused_mala",
     "sample_fused_small",
 ]

@@ -1,10 +1,13 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles the sources for ``sm_90a`` into a shared library with a
-plain C interface, which is loaded with ``ctypes``.  The library lives in
-``aehmc_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
-a hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the library.  Nothing is built when the module is imported.
+``nvcc`` compiles each source for ``sm_90a`` into a shared library of its
+own with a plain C interface, which ``load_kernels(source)`` loads with
+``ctypes``; ``build_all`` compiles every source in parallel, one ``nvcc``
+each, all started together.  The libraries
+live in ``aehmc_tpu_torch/_build/`` (listed in ``.gitignore``) under names
+keyed by a hash of the source, the shared headers and the flags, so an edit
+rebuilds and an unchanged tree reuses them.  Nothing is built when the
+module is imported.
 
 Compile flags: no ``--use_fast_math`` (the kernels keep IEEE ``expf``,
 ``logf``, divisions and square roots), and ``-fmad=false`` so the compiler
@@ -25,25 +28,39 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("nuts_fused_small.cu",)
+HEADERS = ("common.cuh", "logistic_pg.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# seconds and compiler output of the build this process ran (empty when the
-# library was already built)
-BUILD_INFO = {}
-
-_lib = None
-
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-_SIGNATURES = {
-    "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P] * 5
-    + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5,
-    "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 5
-    + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5,
+# source -> {C function: argtypes}
+SIGNATURES = {
+    "nuts_fused_small.cu": {
+        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P] * 5
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5,
+        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 5
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5,
+    },
+    "ghmc_fused.cu": {
+        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P] * 6
+        + [_I, _F, _I, _I, _I, _I] + [_P] * 6,
+        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P] * 6
+        + [_I, _F, _I, _I, _I, _I] + [_P] * 7,
+    },
+    "fused_hmc.cu": {
+        "fused_hmc_launch": [_P] * 6 + [_F, _I, _F, _I, _I, _I] + [_P] * 3,
+    },
+    "leapfrog.cu": {
+        "batched_leapfrog_launch": [_P] * 4 + [_F, _I, _I, _I] + [_P] * 3,
+    },
 }
+
+# seconds and compiler output of the builds this process ran (empty when
+# every library was already built)
+BUILD_INFO = {}
+_libs = {}  # source -> loaded library
 
 
 def _nvcc() -> str:
@@ -59,46 +76,65 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in (*HEADERS, source):
         digest.update((CSRC / name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libaehmc_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
-def load_kernels() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
-    if not out.exists():
+def _build_missing(sources) -> None:
+    """Start one nvcc per library of ``sources`` not built yet, all at once,
+    and wait."""
+    jobs = {}
+    t0 = time.perf_counter()
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC / s) for s in SOURCES)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        if res.returncode:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        jobs[source] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = [], []
+    for source, (out, tmp, proc) in jobs.items():
+        text, _ = proc.communicate()
+        logs.append(f"== {source}\n{text}")
+        if proc.returncode:
+            failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    if jobs:
         BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                          log=res.stdout + res.stderr)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.error_string.argtypes = [ctypes.c_int]
-    lib.error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+                          log="\n".join(logs))
 
 
-def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+def build_all() -> None:
+    """Build every library not built yet, the sources in parallel."""
+    _build_missing(SIGNATURES)
+
+
+def load_kernels(source: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load the library of ``source``."""
+    if source not in _libs:
+        _build_missing((source,))
+        lib = ctypes.CDLL(str(library_path(source)))
+        for name, argtypes in SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _libs[source] = lib
+    return _libs[source]
+
+
+def check_launch(lib, err: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error (a refused launch never runs,
     and a later synchronize would not report it)."""
     if err:

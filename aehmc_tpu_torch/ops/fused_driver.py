@@ -1,15 +1,16 @@
-"""End-to-end driver of the fused NUTS kernels: Stan window adaptation driving
-the per-transition kernel, then sampling (port of the main-path subset of
-:mod:`aehmc_tpu.ops.fused_driver`).
+"""End-to-end drivers of the fused kernels: Stan window adaptation driving
+the per-transition kernel, then sampling (port of the NUTS and GHMC/MALA
+drivers of :mod:`aehmc_tpu.ops.fused_driver`).
 
 Step size and inverse mass matrix are runtime inputs of the kernels, so
 adaptation changes them every step.  The pooled statistics are the JAX
 package's: the fixed-tree pairwise mean of the per-chain acceptance, and the
-batched Welford fold of the positions.  Supported: diagonal or dense M⁻¹,
-scalar ε, Philox (``use_internal_prng``) or external randomness, the
-whole-run kernel (``loop_in_kernel``), ``collect_dtype`` float32 or
-bfloat16.  The other options of the JAX driver raise ``NotImplementedError``
-naming their ROADMAP.md item.
+batched Welford fold of the positions.  Supported: diagonal or dense M⁻¹
+(NUTS; GHMC and MALA take a diagonal), scalar ε, Philox
+(``use_internal_prng``) or external randomness, the whole-run NUTS kernel
+(``loop_in_kernel``), GHMC segments of ``segment_draws`` draws,
+``collect_dtype`` float32 or bfloat16.  The other options of the JAX driver
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from typing import Callable, Sequence
@@ -17,6 +18,10 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.algorithms import pairwise_mean, welford_update_batch
+from aehmc_tpu_torch.ops.ghmc_fused import (
+    fused_ghmc_segment,
+    make_fused_ghmc_transition,
+)
 from aehmc_tpu_torch.ops.nuts_fused import derive_draw_seeds
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     _draw_loop,
@@ -36,6 +41,7 @@ _NOT_PORTED = {
     "step_size_factors": "1.5",
     "per_chain_step_size": "1.5",
     "per_chain_quantiles": "1.5",
+    "per_chain_quantile_stat": "1.5",
     "search_initial_step_size": "1.5",
     "mesh": "1.12",
     "checkpoint_every": "1.10",
@@ -265,3 +271,260 @@ def sample_fused_adaptive(
         collect_positions, cdt,
     )
     return qf, positions, stats, eps, imm
+
+
+def _generator_ghmc_streams(generator, shape, device):
+    """``streams(i) -> (z, u)``: raw standard normals of ``shape`` (the last
+    axis is dim) and uniforms of ``shape[:-1]``, drawn from a
+    ``torch.Generator``."""
+    def streams(_):
+        kw = dict(generator=generator, device=generator.device)
+        z = torch.randn(shape, **kw)
+        return z.to(device), torch.rand(shape[:-1], **kw).to(device)
+
+    return streams
+
+
+def _diag_im(imm, dim, device) -> torch.Tensor:
+    imm = torch.as_tensor(imm, dtype=torch.float32, device=device)
+    if imm.ndim == 2:
+        raise ValueError(
+            "MALA supports scalar or diagonal preconditioners only "
+            "(aehmc_tpu/mala.py contract)"
+        )
+    return imm.reshape(-1).expand(dim)
+
+
+def ghmc_warmup(
+    generator: torch.Generator,
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor],
+    initial_positions: torch.Tensor,
+    num_warmup: int,
+    *,
+    potential_and_grad_t: Callable = None,
+    divergence_threshold: float = 1000.0,
+    initial_step_size: float = 0.1,
+    target_acceptance_rate: float = 0.8,
+    use_internal_prng: bool = True,
+    warmup_streams: Callable = None,
+):
+    """The warmup of :func:`sample_fused_ghmc`: Stan window adaptation of ε
+    and the diagonal M⁻¹ over the α = 0 GHMC transition (kernel 5 on the
+    card).  Returns ``((q_t, u, g_t), (step_size, inverse_mass_matrix))``
+    with the chain state in the kernels' ``(dim, chains)`` layout."""
+    num_chains, dim = initial_positions.shape
+    device = initial_positions.device
+    data = tuple(data)
+    ghmc_tr = make_fused_ghmc_transition(
+        potential_fn_t, data, divergence_threshold=divergence_threshold,
+        potential_and_grad_t=potential_and_grad_t, transposed_io=True,
+    )
+    zero_p = torch.zeros((dim, num_chains), dtype=torch.float32, device=device)
+
+    def transition(q_t, u, g_t, p, dirs, ub, ul, imm, eps, seed=None):
+        # the α = 0 GHMC transition under the NUTS warmup's contract: the
+        # momentum is refreshed in full every step, so a zero placeholder
+        # carries no state; with external randomness p ~ N(0, M) is the
+        # refresh noise and the first uniform row the MH draw
+        rand = (dict(seed=seed) if seed is not None
+                else dict(noise=p, u_accept=ub[:1]))
+        qn, un, gn, _, stats = ghmc_tr(q_t, u, g_t, zero_p, eps, 0.0,
+                                       _diag_im(imm, dim, device), **rand)
+        return qn, un, gn, stats
+
+    if use_internal_prng:
+        warmup_raw = None
+    else:
+        per_step = warmup_streams or _generator_ghmc_streams(
+            generator, (num_chains, dim), device)
+
+        def warmup_raw(step):
+            z, u = per_step(step)
+            return z, None, torch.as_tensor(u).reshape(num_chains, 1), None
+
+    q0_t = initial_positions.T.to(torch.float32).contiguous()
+    u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
+                                   data)(q0_t)
+    init, segment, finish = warmup_fused_hooks(
+        transition, num_chains, dim, num_warmup,
+        max_num_expansions=1,
+        initial_step_size=initial_step_size,
+        target_acceptance_rate=target_acceptance_rate,
+        use_internal_prng=use_internal_prng,
+        streams=warmup_raw,
+    )
+    wcarry = init(generator, (q0_t, u0.reshape(1, num_chains), g0_t))
+    wcarry, _ = segment(wcarry, range(num_warmup))
+    return finish(wcarry)
+
+
+def ghmc_sampling(
+    generator: torch.Generator,
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor],
+    state_t,
+    step_size,
+    inverse_mass_matrix,
+    num_samples: int,
+    *,
+    alpha: float = 0.9,
+    potential_and_grad_t: Callable = None,
+    divergence_threshold: float = 1000.0,
+    collect_positions: bool = True,
+    collect_dtype=None,
+    use_internal_prng: bool = True,
+    segment_draws: int = 32,
+    segment_streams: Callable = None,
+    momentum_z: torch.Tensor = None,
+):
+    """The sampling of :func:`sample_fused_ghmc` from a tuned state
+    ``state_t = (q_t, u, g_t)`` (the layout :func:`ghmc_warmup` returns):
+    ``⌈num_samples / segment_draws⌉`` segments, one launch of kernel 6 each
+    on the card, trimmed to ``num_samples``.  Returns ``(final_positions,
+    positions, stats)`` in the ``(chains, ...)`` layout."""
+    q_t, u, g_t = state_t
+    dim, num_chains = q_t.shape
+    device = q_t.device
+    im = _diag_im(inverse_mass_matrix, dim, device)
+    noise_scale = torch.sqrt(1.0 / im).reshape(dim, 1)
+    segment = fused_ghmc_segment(
+        potential_fn_t, tuple(data), divergence_threshold=divergence_threshold,
+        potential_and_grad_t=potential_and_grad_t, transposed_io=True,
+    )
+    num_segments = -(-num_samples // segment_draws)
+    total = num_segments * segment_draws
+    seeds = (derive_draw_seeds(generator, total)[::segment_draws]
+             if use_internal_prng else None)
+    if alpha:
+        # persistent momentum: seed it from N(0, M) under the tuned metric
+        if momentum_z is None:
+            momentum_z = torch.randn((num_chains, dim), generator=generator,
+                                     device=generator.device)
+        z = torch.as_tensor(momentum_z, dtype=torch.float32, device=device)
+        p_t = (noise_scale * z.T).contiguous()
+    else:  # full refresh every draw: the initial momentum is not read
+        p_t = torch.zeros_like(q_t)
+    if not use_internal_prng:
+        per_segment = segment_streams or _generator_ghmc_streams(
+            generator, (segment_draws, num_chains, dim), device)
+
+    positions, stats = [], []
+    for s in range(num_segments):
+        if use_internal_prng:
+            rand = dict(seed=seeds[s])
+        else:
+            z, u_acc = per_segment(s)
+            z = torch.as_tensor(z, dtype=torch.float32, device=device)
+            rand = dict(noise=(noise_scale * z.transpose(1, 2)).contiguous(),
+                        u_accept=torch.as_tensor(u_acc, dtype=torch.float32,
+                                                 device=device))
+        pos_t, st, q_t, u, g_t, p_t = segment(
+            q_t, u, g_t, p_t, step_size, alpha, im, segment_draws,
+            collect_positions=collect_positions, **rand,
+        )
+        if collect_positions:
+            pos = pos_t.transpose(1, 2)
+            positions.append(pos if collect_dtype is None
+                             else pos.to(collect_dtype))
+        stats.append(st.transpose(1, 2))
+    positions = (torch.cat(positions)[:num_samples] if collect_positions
+                 else None)
+    return q_t.T, positions, torch.cat(stats)[:num_samples]
+
+
+def sample_fused_ghmc(
+    generator: torch.Generator,
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor],
+    initial_positions: torch.Tensor,
+    num_samples: int = 1000,
+    num_warmup: int = 400,
+    *,
+    alpha: float = 0.9,
+    potential_and_grad_t: Callable = None,
+    divergence_threshold: float = 1000.0,
+    initial_step_size: float = 0.1,
+    target_acceptance_rate: float = 0.8,
+    collect_positions: bool = True,
+    collect_dtype=None,
+    use_internal_prng: bool = True,
+    segment_draws: int = 32,
+    warmup_streams: Callable = None,
+    segment_streams: Callable = None,
+    momentum_z: torch.Tensor = None,
+    **options,
+):
+    """Fused GHMC: Stan warmup through the GHMC transition kernel, then
+    sampling in segments of ``segment_draws`` draws, one launch of the
+    segment kernel each (port of the JAX ``sample_fused_ghmc``; the two
+    phases are :func:`ghmc_warmup` and :func:`ghmc_sampling`).
+
+    ``alpha`` is the momentum persistence, in [0, 1); ``alpha = 0`` is MALA
+    (:func:`sample_fused_mala`).  Warmup tunes ε and the diagonal M⁻¹ under
+    the full-refresh (α = 0) transition; sampling then seeds the momentum
+    from ``N(0, M)`` under the tuned metric (α > 0) and carries it across
+    draws and segments.  The draw ``t`` of sampling takes the Philox key
+    ``base + t·DRAW_SEED_STRIDE`` with ``t`` the absolute draw index, so the
+    segmentation does not change a chain's bits.
+
+    With ``use_internal_prng=False`` the randomness is external: raw
+    standard normals ``z`` (the refresh noise is ``√(1/M⁻¹)·z`` under the
+    current metric) and uniforms, from ``warmup_streams(step) -> (z (chains,
+    dim), u (chains,))``, ``segment_streams(segment) -> (z (draws, chains,
+    dim), u (draws, chains))`` and ``momentum_z (chains, dim)`` for the
+    α > 0 initial momentum, each drawn from ``generator`` when not given.
+
+    Returns ``(final_positions, positions (draws, chains, dim), stats
+    (draws, chains, 8), step_size, inverse_mass_matrix)``; stats columns are
+    ``[energy, accept, 0, 1, diverging, 0, 0, 0]``.
+    """
+    _reject_unported(options)
+    alpha_f = float(alpha)
+    if not 0.0 <= alpha_f < 1.0:
+        raise ValueError(
+            f"alpha must be in [0, 1) (momentum persistence), got {alpha}"
+        )
+    common = dict(potential_and_grad_t=potential_and_grad_t,
+                  divergence_threshold=divergence_threshold,
+                  use_internal_prng=use_internal_prng)
+    state_t, (eps, imm) = ghmc_warmup(
+        generator, potential_fn_t, data, initial_positions, num_warmup,
+        initial_step_size=initial_step_size,
+        target_acceptance_rate=target_acceptance_rate,
+        warmup_streams=warmup_streams, **common,
+    )
+    final, positions, stats = ghmc_sampling(
+        generator, potential_fn_t, data, state_t, eps, imm, num_samples,
+        alpha=alpha_f, collect_positions=collect_positions,
+        collect_dtype=collect_dtype, segment_draws=segment_draws,
+        segment_streams=segment_streams, momentum_z=momentum_z, **common,
+    )
+    return final, positions, stats, eps, imm
+
+
+def sample_fused_mala(
+    generator: torch.Generator,
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor],
+    initial_positions: torch.Tensor,
+    num_samples: int = 1000,
+    num_warmup: int = 400,
+    **kwargs,
+):
+    """Fused MALA: :func:`sample_fused_ghmc` at ``alpha = 0``.
+
+    One leapfrog step from a fully refreshed momentum is the MALA proposal
+    with preconditioner M⁻¹, and the one-step energy ratio equals MALA's
+    Metropolis-Hastings ratio.  Takes every keyword of
+    :func:`sample_fused_ghmc` except ``alpha``.
+    """
+    if "alpha" in kwargs:
+        raise TypeError(
+            "sample_fused_mala IS alpha=0 — call sample_fused_ghmc for "
+            "persistent momentum"
+        )
+    return sample_fused_ghmc(
+        generator, potential_fn_t, data, initial_positions,
+        num_samples, num_warmup, alpha=0.0, **kwargs,
+    )

@@ -1,0 +1,97 @@
+"""L leapfrog steps on the Bayesian logistic regression potential for a batch
+of chains (port of :mod:`aehmc_tpu.ops.fused_hmc`, kernel 8 of the port's
+table): the plain PyTorch version and the wrapper of the CUDA kernel
+(``csrc/fused_hmc.cu``).
+
+:func:`fused_logistic_hmc` launches the kernel on a CUDA tensor and runs
+:func:`fused_logistic_hmc_reference` on a CPU tensor.  The kernel masks the
+ragged last block itself, so every chain count runs on the card.
+"""
+
+from typing import Tuple
+
+import torch
+
+from aehmc_tpu_torch.ops.launches import LAUNCHES
+
+
+def _logistic_grad(q, X, XT, y_row, prior_precision):
+    """∇U(q) for U = −log-likelihood − log-prior; q: (chains, dim)."""
+    resid = torch.sigmoid(q @ XT) - y_row
+    return resid @ X + prior_precision * q
+
+
+def fused_logistic_hmc_reference(
+    q: torch.Tensor,
+    p: torch.Tensor,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    inverse_mass: torch.Tensor,
+    step_size,
+    num_steps: int,
+    prior_precision: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: ``num_steps`` velocity-Verlet steps on the logistic
+    regression potential.  ``q, p``: (chains, dim); ``X``: (points, dim);
+    ``y``: (points,); ``inverse_mass``: (dim,).  Returns ``(q, p)``."""
+    eps = torch.as_tensor(step_size, dtype=q.dtype, device=q.device)
+    half = 0.5 * eps
+    XT, y_row = X.T, y.reshape(1, -1)
+    g = _logistic_grad(q, X, XT, y_row, prior_precision)
+    for _ in range(int(num_steps)):
+        p_half = p - half * g
+        q = q + eps * (inverse_mass * p_half)
+        g = _logistic_grad(q, X, XT, y_row, prior_precision)
+        p = p_half - half * g
+    return q, p
+
+
+def fused_logistic_hmc(
+    q: torch.Tensor,
+    p: torch.Tensor,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    inverse_mass: torch.Tensor,
+    step_size,
+    num_steps: int,
+    prior_precision: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused trajectory: kernel 8 on a CUDA tensor, the plain version on
+    the CPU.  Arguments as :func:`fused_logistic_hmc_reference`."""
+    if q.is_cuda:
+        return fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size,
+                                       num_steps, prior_precision)
+    return fused_logistic_hmc_reference(q, p, X, y, inverse_mass, step_size,
+                                        num_steps, prior_precision)
+
+
+def fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size, num_steps,
+                            prior_precision=1.0):
+    """Launch kernel 8 (``fused_logistic_hmc``) on CUDA tensors."""
+    from aehmc_tpu_torch.ops._build import (
+        check_launch,
+        load_kernels,
+        require_f32_cuda,
+    )
+
+    num_chains, dim = q.shape
+    num_points = X.shape[0]
+    device = q.device
+    operands = dict(q=(q, (num_chains, dim)), p=(p, (num_chains, dim)),
+                    X=(X, (num_points, dim)), y=(y, (num_points,)),
+                    inverse_mass=(inverse_mass, (dim,)))
+    for name, (t, shape) in operands.items():
+        require_f32_cuda(name, t, shape, device)
+    XT = X.T.contiguous()
+    q_out, p_out = torch.empty_like(q), torch.empty_like(p)
+    lib = load_kernels("fused_hmc.cu")
+    err = lib.fused_hmc_launch(
+        q.data_ptr(), p.data_ptr(), X.data_ptr(), XT.data_ptr(), y.data_ptr(),
+        inverse_mass.data_ptr(), float(step_size), int(num_steps),
+        float(prior_precision), dim, num_points, num_chains,
+        q_out.data_ptr(), p_out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    check_launch(lib, err, "fused_logistic_hmc")
+    LAUNCHES["fused_logistic_hmc"] += 1
+    return q_out, p_out

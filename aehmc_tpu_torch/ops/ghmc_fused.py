@@ -1,0 +1,397 @@
+"""Fused GHMC in the chains-in-lanes layout: plain PyTorch versions and the
+wrappers of the two CUDA kernels (``csrc/ghmc_fused.cu``).
+
+Port of :mod:`aehmc_tpu.ops.ghmc_fused` (kernels 5 and 6 of the port's
+table).  One transition is a partial momentum refresh ``p0 = α p +
+√(1−α²) ξ`` with ``ξ ~ N(0, M)``, ``num_steps`` leapfrog steps and
+Metropolis-Hastings with the momentum flipped on rejection
+(:func:`aehmc_tpu.ghmc.new_noise_kernel`).  At ``α = 0`` and one step it is
+MALA.  Chain state is ``(dim, chains)`` inside, ``(chains, dim)`` at the
+builders' boundary; stats rows are ``[energy, accept_prob, 0, num_steps,
+is_diverging, 0, 0, 0]``.
+
+``step_size`` and ``alpha`` are scalars or per-chain ``(chains,)``;
+``inverse_mass`` is a diagonal, ``(dim,)`` shared or ``(chains, dim)`` per
+chain.  Randomness is external (``noise`` and ``u_accept``) or a Philox key
+(``seed``): the kernels and the plain versions draw the same streams
+(:func:`aehmc_tpu_torch.ops.philox.ghmc_streams`), the segment's draw ``t``
+taking the key ``seed + t·DRAW_SEED_STRIDE``.
+
+Dispatch is by the device of the chain state: a CPU tensor runs the plain
+version, a CUDA tensor launches the kernel or raises.  The kernels compute
+the logistic-regression potential (:func:`models.logistic_pg_t`); a CUDA
+tensor with any other potential raises ``NotImplementedError``.  The
+``shard_*`` and MEADS adapters of the JAX module wait for ROADMAP.md items
+1.10-1.12.
+"""
+
+from typing import Callable, Sequence
+
+import torch
+
+from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.launches import LAUNCHES
+from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, NEG_INF
+from aehmc_tpu_torch.ops.nuts_fused_small import _clamped, _pot_grad_builder_t
+from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
+
+
+def _ghmc_core_t(q0, u0, g0, p_prev, noise, u_acc, eps, alpha, im, pot_grad,
+                 *, num_steps: int, divergence_threshold: float):
+    """One GHMC transition of a batch of chains (plain PyTorch).
+
+    ``q0, g0, p_prev, noise`` are ``(dim, C)``; ``u0, u_acc, eps, alpha``
+    ``(1, C)``; ``im`` the diagonal ``M⁻¹`` as ``(dim, C)`` or ``(dim, 1)``;
+    ``pot_grad(q) -> (u (1, C), g (dim, C))`` already clamped.  Returns
+    ``(q, u, g, p, stats (8, C))``.  The operations are those of the JAX
+    package's ``_ghmc_core_t`` in the same order.
+    """
+    def ke(p):
+        return 0.5 * torch.sum(p * (im * p), dim=0, keepdim=True)
+
+    p0 = alpha * p_prev + torch.sqrt(1.0 - alpha * alpha) * noise
+    e0 = u0 + ke(p0)
+    q, p, u, g = q0, p0, u0, g0
+    for _ in range(num_steps):
+        p = p - 0.5 * eps * g
+        q = q + eps * (im * p)
+        u, g = pot_grad(q)
+        p = p - 0.5 * eps * g
+    # the kinetic energy is even in p: the flipped proposal has e1 too
+    e1 = torch.clamp(u + ke(p), NEG_INF, -NEG_INF)
+    delta = e0 - e1
+    delta = torch.clamp(torch.where(torch.isnan(delta), NEG_INF, delta),
+                        NEG_INF, -NEG_INF)
+    div = (torch.abs(delta) > divergence_threshold).to(q0.dtype)
+    p_acc = torch.clamp(torch.exp(delta), max=1.0)
+    acc = u_acc < p_acc
+    zero = torch.zeros_like(u0)
+    stats = torch.cat([torch.where(acc, e1, e0), p_acc, zero,
+                       zero + float(num_steps), div, zero, zero, zero], dim=0)
+    # true selects: a rejected proposal may carry inf positions
+    return (torch.where(acc, q, q0), torch.where(acc, u, u0),
+            torch.where(acc, g, g0), torch.where(acc, p, -p0), stats)
+
+
+def _row(x, num_chains, device) -> torch.Tensor:
+    """A scalar or per-chain ``(chains,)`` parameter as a ``(1, C)`` row.
+    A scalar from the host is filled on the device: copying it there would
+    synchronize the stream on every launch."""
+    on_device = isinstance(x, torch.Tensor) and x.device == device
+    if not on_device and torch.as_tensor(x).numel() == 1:
+        return torch.full((1, num_chains), float(x), dtype=torch.float32,
+                          device=device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if x.numel() == 1:
+        return x.reshape(1, 1).expand(1, num_chains)
+    return x.reshape(1, num_chains)
+
+
+def _im_t(inverse_mass, dim, num_chains, device) -> torch.Tensor:
+    """The diagonal ``M⁻¹`` as a ``(dim, 1)`` column (shared) or
+    ``(dim, C)`` (per chain, given as ``(chains, dim)``)."""
+    im = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)
+    if im.ndim == 2:
+        if tuple(im.shape) != (num_chains, dim):
+            raise ValueError(
+                f"a 2-d inverse_mass is a per-chain diagonal (chains, dim) = "
+                f"{(num_chains, dim)}, got {tuple(im.shape)}; the GHMC kernels "
+                "take no dense metric"
+            )
+        return im.T
+    return im.reshape(dim, 1)
+
+
+def ghmc_transition_plain(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
+                          pot_grad, *, num_steps: int = 1,
+                          divergence_threshold: float = 1000.0, noise=None,
+                          u_accept=None, seed=None):
+    """Plain version of kernel 5, transposed layout on any device.
+
+    Either ``noise (dim, C) ~ N(0, M)`` and ``u_accept (1, C)``, or a Philox
+    ``seed`` (u32), whose streams are :func:`ghmc_streams`.  Returns ``(q_t,
+    u (1, C), g_t, p_t, stats (8, C))``.
+    """
+    dim, num_chains = q_t.shape
+    device = q_t.device
+    im = _im_t(inverse_mass, dim, num_chains, device)
+    if seed is not None:
+        z, u_accept = ghmc_streams(seed, num_chains, dim, device=device)
+        noise = torch.sqrt(1.0 / im) * z
+    return _ghmc_core_t(
+        q_t, u.reshape(1, num_chains), g_t, p_t, noise,
+        u_accept.reshape(1, num_chains), _row(step_size, num_chains, device),
+        _row(alpha, num_chains, device), im,
+        _clamped(pot_grad, num_chains), num_steps=num_steps,
+        divergence_threshold=divergence_threshold,
+    )
+
+
+def ghmc_segment_plain(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
+                       pot_grad, num_draws: int, *, num_steps: int = 1,
+                       divergence_threshold: float = 1000.0, noise=None,
+                       u_accept=None, seed=None, collect_positions=True):
+    """Plain version of kernel 6: ``num_draws`` plain transitions, draw ``t``
+    taking ``noise[t] (dim, C)`` and ``u_accept[t] (C,)`` or the key ``seed
+    + t·DRAW_SEED_STRIDE``.  Returns ``(positions_t (draws, dim, C) or None,
+    stats (draws, 8, C), q_t, u, g_t, p_t)``."""
+    positions, stats = [], []
+    for t in range(num_draws):
+        rand = (dict(seed=(seed + t * DRAW_SEED_STRIDE) & MASK32)
+                if seed is not None
+                else dict(noise=noise[t], u_accept=u_accept[t]))
+        q_t, u, g_t, p_t, st = ghmc_transition_plain(
+            q_t, u, g_t, p_t, step_size, alpha, inverse_mass, pot_grad,
+            num_steps=num_steps, divergence_threshold=divergence_threshold,
+            **rand,
+        )
+        if collect_positions:
+            positions.append(q_t)
+        stats.append(st)
+    pos = torch.stack(positions) if collect_positions else None
+    return pos, torch.stack(stats), q_t, u, g_t, p_t
+
+
+def _check_cuda_args(potential_and_grad_t, data, q_t):
+    if potential_and_grad_t is not logistic_pg_t:
+        raise NotImplementedError(
+            "the CUDA GHMC kernels compute the logistic-regression potential "
+            "(models.logistic_pg_t) only; other potentials on the card are "
+            "ROADMAP.md item 1.4"
+        )
+    if q_t.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
+    if len(data) != 3:
+        raise ValueError("logistic data is (X, Xᵀ, y_col)")
+
+
+def _to_kernel_layout(transposed_io: bool) -> Callable:
+    """A ``(chains, dim)`` tensor (or None) to the kernels' ``(dim,
+    chains)``; the identity with ``transposed_io``."""
+    if transposed_io:
+        return lambda x: x
+    return lambda x: None if x is None else x.T.contiguous()
+
+
+def make_fused_ghmc_transition(
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor] = (),
+    *,
+    divergence_threshold: float = 1000.0,
+    num_integration_steps: int = 1,
+    potential_and_grad_t: Callable = None,
+    transposed_io: bool = False,
+) -> Callable:
+    """Fused whole-transition GHMC (kernel 5 on the card).
+
+    Returns ``transition(q, potential, grad, momentum, step_size, alpha,
+    inverse_mass, noise=None, u_accept=None, seed=None) -> (q', potential',
+    grad', momentum', stats)`` like the JAX builder: ``(chains, dim)``
+    state, ``potential (chains, 1)`` out, ``noise ~ N(0, M)`` ``(chains,
+    dim)``, ``u_accept (chains,)``, stats ``(chains, 8)``.  ``seed`` (a u32
+    int) selects Philox randomness.  ``transposed_io=True`` keeps the
+    kernel's own layout throughout (``(dim, chains)`` state and noise,
+    ``(1, chains)`` potential and ``u_accept``, stats ``(8, chains)``).
+    """
+    data = tuple(data)
+    pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
+    to_t = _to_kernel_layout(transposed_io)
+
+    def transition(q, potential, grad, momentum, step_size, alpha,
+                   inverse_mass, noise=None, u_accept=None, seed=None):
+        q_t, g_t, p_t, noise_t = (to_t(x) for x in (q, grad, momentum, noise))
+        num_chains = q_t.shape[1]
+        rand = dict(noise=noise_t, u_accept=u_accept, seed=seed)
+        if q_t.is_cuda:
+            _check_cuda_args(potential_and_grad_t, data, q_t)
+            out = ghmc_transition_cuda(
+                q_t, potential, g_t, p_t, step_size, alpha, inverse_mass,
+                data, num_steps=num_integration_steps,
+                divergence_threshold=divergence_threshold, **rand,
+            )
+        else:
+            out = ghmc_transition_plain(
+                q_t, potential, g_t, p_t, step_size, alpha, inverse_mass,
+                pot_grad, num_steps=num_integration_steps,
+                divergence_threshold=divergence_threshold, **rand,
+            )
+        qn, un, gn, pn, stats = out
+        if transposed_io:
+            return out
+        return qn.T, un.reshape(num_chains, 1), gn.T, pn.T, stats.T
+
+    return transition
+
+
+def fused_ghmc_segment(
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor] = (),
+    *,
+    divergence_threshold: float = 1000.0,
+    num_integration_steps: int = 1,
+    potential_and_grad_t: Callable = None,
+    transposed_io: bool = False,
+) -> Callable:
+    """The multi-draw fused GHMC sampler (kernel 6 on the card).
+
+    Returns ``segment(q, potential, grad, momentum, step_size, alpha,
+    inverse_mass, num_draws, noise=None, u_accept=None, seed=None,
+    collect_positions=True) -> (positions, stats, q', potential', grad',
+    momentum')`` like the JAX builder: ``positions (draws, chains, dim)``,
+    ``stats (draws, chains, 8)``, ``noise (draws, chains, dim)``,
+    ``u_accept (draws, chains)``.  The final state equals ``num_draws``
+    transitions of :func:`make_fused_ghmc_transition`.  ``transposed_io``
+    keeps the kernel's layout: ``noise (draws, dim, chains)``, positions
+    ``(draws, dim, chains)``, stats ``(draws, 8, chains)``.
+    """
+    data = tuple(data)
+    pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
+    to_t = _to_kernel_layout(transposed_io)
+
+    def segment(q, potential, grad, momentum, step_size, alpha, inverse_mass,
+                num_draws, noise=None, u_accept=None, seed=None,
+                collect_positions=True):
+        q_t, g_t, p_t = (to_t(x) for x in (q, grad, momentum))
+        if noise is not None and not transposed_io:
+            noise = noise.transpose(1, 2).contiguous()
+        num_chains = q_t.shape[1]
+        kw = dict(num_steps=num_integration_steps,
+                  divergence_threshold=divergence_threshold, noise=noise,
+                  u_accept=u_accept, seed=seed,
+                  collect_positions=collect_positions)
+        if q_t.is_cuda:
+            _check_cuda_args(potential_and_grad_t, data, q_t)
+            out = ghmc_segment_cuda(q_t, potential, g_t, p_t, step_size,
+                                    alpha, inverse_mass, data, num_draws, **kw)
+        else:
+            out = ghmc_segment_plain(q_t, potential, g_t, p_t, step_size,
+                                     alpha, inverse_mass, pot_grad, num_draws,
+                                     **kw)
+        if transposed_io:
+            return out
+        pos_t, stats, qn, un, gn, pn = out
+        pos = None if pos_t is None else pos_t.transpose(1, 2)
+        return (pos, stats.transpose(1, 2), qn.T, un.reshape(num_chains, 1),
+                gn.T, pn.T)
+
+    return segment
+
+
+# ---------------------------------------------------------------- CUDA ----
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
+    """Validate and normalise the operands shared by both kernels; returns
+    ``(operands, im_per_chain, (dim, points, chains))``."""
+    from aehmc_tpu_torch.ops._build import require_f32_cuda
+
+    dim, num_chains = q_t.shape
+    X, XT, y = data
+    num_points = X.shape[0]
+    device = q_t.device
+    im = _im_t(inverse_mass, dim, num_chains, device)
+    per_chain = im.shape[1] > 1
+    ops = dict(
+        q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t,
+        X=X, XT=XT, y=y.reshape(num_points),
+        eps=_row(step_size, num_chains, device).reshape(num_chains)
+        .contiguous(),
+        alpha=_row(alpha, num_chains, device).reshape(num_chains)
+        .contiguous(),
+        im=im.contiguous() if per_chain else im.reshape(dim).contiguous(),
+    )
+    shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
+                  p=(dim, num_chains), X=(num_points, dim),
+                  XT=(dim, num_points), y=(num_points,), eps=(num_chains,),
+                  alpha=(num_chains,),
+                  im=(dim, num_chains) if per_chain else (dim,))
+    for name, t in ops.items():
+        require_f32_cuda(name, t, shapes[name], device)
+    return ops, per_chain, (dim, num_points, num_chains)
+
+
+def _external(noise, u_accept, shape, seed, device):
+    """Pointers of the external streams (null under a Philox seed)."""
+    from aehmc_tpu_torch.ops._build import require_f32_cuda
+
+    if seed is not None:
+        return None, None
+    require_f32_cuda("noise", noise, shape, device)
+    u_accept = u_accept.reshape(*shape[:-2], shape[-1])
+    require_f32_cuda("u_accept", u_accept, u_accept.shape, device)
+    return noise.data_ptr(), u_accept.data_ptr()
+
+
+def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
+                         data, *, num_steps: int = 1,
+                         divergence_threshold: float = 1000.0, noise=None,
+                         u_accept=None, seed=None):
+    """Launch kernel 5 (``ghmc_transition``) on CUDA tensors; returns
+    ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
+    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+
+    ops, per_chain, (dim, num_points, num_chains) = _cuda_operands(
+        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
+    )
+    device = q_t.device
+    noise_p, ua_p = _external(noise, u_accept, (dim, num_chains), seed, device)
+    q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
+    u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
+    stats = torch.empty((8, num_chains), dtype=torch.float32, device=device)
+    lib = load_kernels("ghmc_fused.cu")
+    err = lib.ghmc_transition_launch(
+        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
+        noise_p, ua_p, int(seed is not None),
+        0 if seed is None else int(seed) & MASK32,
+        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
+        float(divergence_threshold), dim, num_points, num_chains,
+        int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(p_out),
+        _ptr(stats), torch.cuda.current_stream(device).cuda_stream,
+    )
+    check_launch(lib, err, "ghmc_transition")
+    LAUNCHES["ghmc_transition"] += 1
+    return q_out, u_out, g_out, p_out, stats
+
+
+def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
+                      num_draws: int, *, num_steps: int = 1,
+                      divergence_threshold: float = 1000.0, noise=None,
+                      u_accept=None, seed=None, collect_positions=True):
+    """Launch kernel 6 (``ghmc_segment``): ``num_draws`` transitions in one
+    launch.  Positions are written as ``(draws, C, dim)`` (a chain's row
+    contiguous) and returned as the ``(draws, dim, C)`` view of the
+    transposed contract; stats are ``(draws, 8, C)``."""
+    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+
+    ops, per_chain, (dim, num_points, num_chains) = _cuda_operands(
+        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
+    )
+    device = q_t.device
+    noise_p, ua_p = _external(noise, u_accept, (num_draws, dim, num_chains),
+                              seed, device)
+    pos = (torch.empty((num_draws, num_chains, dim), dtype=torch.float32,
+                       device=device) if collect_positions else None)
+    stats = torch.empty((num_draws, 8, num_chains), dtype=torch.float32,
+                        device=device)
+    q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
+    u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
+    lib = load_kernels("ghmc_fused.cu")
+    err = lib.ghmc_segment_launch(
+        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
+        noise_p, ua_p, int(seed is not None),
+        0 if seed is None else int(seed) & MASK32, int(num_draws),
+        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
+        float(divergence_threshold), dim, num_points, num_chains,
+        int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
+        _ptr(g_out), _ptr(p_out),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    check_launch(lib, err, "ghmc_segment")
+    LAUNCHES["ghmc_segment"] += 1
+    pos_t = None if pos is None else pos.permute(0, 2, 1)
+    return pos_t, stats, q_out, u_out, g_out, p_out

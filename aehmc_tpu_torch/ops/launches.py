@@ -1,0 +1,19 @@
+"""Launch counts of the port's CUDA kernels.
+
+Each wrapper adds one to its kernel's count where it launches the kernel,
+and nowhere else, so a run can show that its path went through the kernels.
+"""
+
+LAUNCHES = {
+    "nuts_transition": 0,
+    "nuts_sampling": 0,
+    "ghmc_transition": 0,
+    "ghmc_segment": 0,
+    "fused_logistic_hmc": 0,
+    "batched_leapfrog": 0,
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

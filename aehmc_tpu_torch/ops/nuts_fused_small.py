@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused import (
     DRAW_SEED_STRIDE,
     NEG_INF,
@@ -33,19 +34,25 @@ from aehmc_tpu_torch.ops.nuts_fused import (
 )
 from aehmc_tpu_torch.ops.philox import MASK32, nuts_streams
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches.
-LAUNCHES = {"nuts_transition": 0, "nuts_sampling": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 def _logaddexp(a, b):
     # the finite-input formula of jnp.logaddexp (log-weights are clamped to
     # +-1e30, never inf); the CUDA kernels use the same expression
     return torch.maximum(a, b) + torch.log1p(torch.exp(-torch.abs(a - b)))
+
+
+def _clamped(pot_grad: Callable, num_chains: int) -> Callable:
+    """The kernels' guard on the potential: a NaN potential becomes +1e30, a
+    NaN gradient 0, both clipped to ±1e30; ``u`` comes back ``(1, C)``."""
+    def pg(q):
+        u, g = pot_grad(q)
+        u = u.reshape(1, num_chains)
+        u = torch.clamp(torch.where(torch.isnan(u), -NEG_INF, u),
+                        NEG_INF, -NEG_INF)
+        g = torch.clamp(torch.where(torch.isnan(g), 0.0, g), NEG_INF, -NEG_INF)
+        return u, g
+
+    return pg
 
 
 def _transition_core_t(q0, u0, g0, p0, dirs, u_bias, u_leaf, apply_im, eps,
@@ -68,13 +75,7 @@ def _transition_core_t(q0, u0, g0, p0, dirs, u_bias, u_leaf, apply_im, eps,
     dtype, device = q0.dtype, q0.device
     dim, num_chains = q0.shape
     where = torch.where
-
-    def pg(q):
-        u, g = pot_grad(q)
-        u = u.reshape(1, num_chains)
-        u = torch.clamp(where(torch.isnan(u), -NEG_INF, u), NEG_INF, -NEG_INF)
-        g = torch.clamp(where(torch.isnan(g), 0.0, g), NEG_INF, -NEG_INF)
-        return u, g
+    pg = _clamped(pot_grad, num_chains)
 
     def ke(p):
         return 0.5 * torch.sum(p * apply_im(p), dim=0, keepdim=True)
@@ -474,8 +475,10 @@ def _external_randomness(raw, inverse_mass, device):
     """Transposed ``(p, dirs, u_bias, u_leaf)`` from one draw of raw streams
     ``(z, dirs, u_bias, u_leaf)`` in the standard layout: the momentum is
     ``N(0, M)`` for the current metric (``fused_driver._external_randomness``
-    of the JAX package, with the draws given)."""
-    z, dirs, ub, ul = (torch.as_tensor(s, dtype=torch.float32,
+    of the JAX package, with the draws given).  A stream given as None stays
+    None."""
+    z, dirs, ub, ul = (None if s is None else
+                       torch.as_tensor(s, dtype=torch.float32,
                                        device=device).T.contiguous()
                        for s in raw)
     dim = z.shape[0]
@@ -583,7 +586,7 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=q_t.device)
     g_out = torch.empty_like(q_t)
     stats = torch.empty((8, num_chains), dtype=torch.float32, device=q_t.device)
-    lib = load_kernels()
+    lib = load_kernels("nuts_fused_small.cu")
     err = lib.nuts_transition_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
@@ -622,7 +625,7 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     q_out = torch.empty_like(q_t)
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
     g_out = torch.empty_like(q_t)
-    lib = load_kernels()
+    lib = load_kernels("nuts_fused_small.cu")
     err = lib.nuts_sampling_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
         num_draws, _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]),

@@ -1,16 +1,17 @@
 """Philox4x32-10 on int64 tensors that hold unsigned 32-bit values.
 
 The port's counter-based generator: it takes the place of the TPU's
-``pltpu.prng_random_bits`` inside the NUTS kernels.  This plain PyTorch
-version and the CUDA kernels (``csrc/nuts_fused_small.cu``) compute the same
+``pltpu.prng_random_bits`` inside the NUTS and GHMC kernels.  This plain
+PyTorch version and the CUDA kernels (``csrc/common.cuh``) compute the same
 bits, so the generator's randomness is an ordinary tensor that the plain
 transition can be fed.  Known-answer values are Random123's.
 
-Stream layout of one NUTS transition (key = the per-draw seed): chain ``c``
+Stream layout of one transition (key = the per-draw seed): chain ``c``
 uses counter ``(c, index, stream, 0)``, where ``stream`` is
-:data:`MOMENTUM` (index = group of four normals), :data:`DIRECTION`
-(index = doubling), :data:`BIAS` (index = doubling) or :data:`LEAF`
-(index = ``2**d - 1 + i``, the row of the external ``u_leaf`` stream).
+:data:`MOMENTUM` (index = group of four Box-Muller normals),
+:data:`DIRECTION` (index = doubling), :data:`BIAS` (index = doubling),
+:data:`LEAF` (index = ``2**d - 1 + i``, the row of the external ``u_leaf``
+stream) or :data:`ACCEPT` (index 0, GHMC's Metropolis-Hastings uniform).
 """
 
 import math
@@ -21,7 +22,7 @@ MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 
-MOMENTUM, DIRECTION, BIAS, LEAF = 0, 1, 2, 3
+MOMENTUM, DIRECTION, BIAS, LEAF, ACCEPT = 0, 1, 2, 3, 4
 
 
 def _mulhilo(m: int, b: torch.Tensor):
@@ -54,11 +55,9 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8) + 1).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def nuts_streams(seed: int, num_chains: int, dim: int, max_exp: int,
-                 device=None, chain_offset: int = 0):
-    """The Philox-filled randomness of one NUTS transition, transposed:
-    ``z (dim, C)`` standard normals, ``dirs (K, C)`` of ±1, ``u_bias (K, C)``
-    and ``u_leaf (2**K, C)`` uniforms in (0, 1].  ``seed`` is the u32 key."""
+def _stream_words(seed, num_chains, device, chain_offset):
+    """``words(stream, rows)``: the four output words of counters
+    ``(chain, 0..rows-1, stream, 0)``, each ``(rows, C)``."""
     chains = torch.arange(chain_offset, chain_offset + num_chains,
                           dtype=torch.int64, device=device)
     key = (int(seed) & MASK32, 0)
@@ -68,17 +67,43 @@ def nuts_streams(seed: int, num_chains: int, dim: int, max_exp: int,
         zero = torch.zeros((), dtype=torch.int64, device=device)
         return philox4x32((chains[None, :], idx, zero + stream, zero), key)
 
+    return words
+
+
+def _normals(words, dim, num_chains):
+    """``(dim, C)`` standard normals of the :data:`MOMENTUM` stream: group
+    ``j`` of four is two Box-Muller pairs from one counter."""
     groups = -(-dim // 4)
     w0, w1, w2, w3 = (uniform_from_bits(w) for w in words(MOMENTUM, groups))
     two_pi = 2.0 * math.pi
     r0, a0 = torch.sqrt(-2.0 * torch.log(w0)), two_pi * w1
     r1, a1 = torch.sqrt(-2.0 * torch.log(w2)), two_pi * w3
-    z = torch.stack(
+    return torch.stack(
         [r0 * torch.cos(a0), r0 * torch.sin(a0),
          r1 * torch.cos(a1), r1 * torch.sin(a1)], dim=1,
     ).reshape(4 * groups, num_chains)[:dim]
+
+
+def nuts_streams(seed: int, num_chains: int, dim: int, max_exp: int,
+                 device=None, chain_offset: int = 0):
+    """The Philox-filled randomness of one NUTS transition, transposed:
+    ``z (dim, C)`` standard normals, ``dirs (K, C)`` of ±1, ``u_bias (K, C)``
+    and ``u_leaf (2**K, C)`` uniforms in (0, 1].  ``seed`` is the u32 key."""
+    words = _stream_words(seed, num_chains, device, chain_offset)
+    z = _normals(words, dim, num_chains)
     u_dir = uniform_from_bits(words(DIRECTION, max_exp)[0])
     dirs = torch.where(u_dir < 0.5, -1.0, 1.0).to(torch.float32)
     u_bias = uniform_from_bits(words(BIAS, max_exp)[0])
     u_leaf = uniform_from_bits(words(LEAF, 2**max_exp)[0])
     return z, dirs, u_bias, u_leaf
+
+
+def ghmc_streams(seed: int, num_chains: int, dim: int, device=None,
+                 chain_offset: int = 0):
+    """The Philox-filled randomness of one GHMC transition, transposed:
+    ``z (dim, C)`` standard normals (the refresh noise is ``√(1/M⁻¹)·z``)
+    and ``u_accept (1, C)``, the Metropolis-Hastings uniform in (0, 1].
+    ``seed`` is the u32 key."""
+    words = _stream_words(seed, num_chains, device, chain_offset)
+    z = _normals(words, dim, num_chains)
+    return z, uniform_from_bits(words(ACCEPT, 1)[0])

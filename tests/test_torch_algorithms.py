@@ -106,11 +106,11 @@ def test_window_adaptation_state_machine_equals_jax(full):
     q0 = positions[0]
     js = jinit(JaxChainState(jnp.asarray(q0), None, None))
     ts = tinit(ChainState(torch.tensor(q0), None, None))
-    for a, b in zip(ts, convert.window_adaptation_state(js)):
+    for a, b in zip(ts, convert.window_adaptation_state(js, device="cpu")):
         for x, y in zip(a if isinstance(a, tuple) else (a,),
                         b if isinstance(b, tuple) else (b,)):
             _close(x, y)
-    ts = convert.window_adaptation_state(js)
+    ts = convert.window_adaptation_state(js, device="cpu")
     for step in range(num_steps):
         jinfo = JaxDiagnostics(jnp.asarray(accepts[step]), *[None] * 5)
         tinfo = Diagnostics(torch.tensor(accepts[step]), *[None] * 5)

@@ -1,6 +1,7 @@
-"""The port's front door: aehmc_tpu_torch.sample(algorithm="nuts",
-path="fused") runs the plain versions on the CPU (its run on a card is in
-``test_torch_cuda.py``); every unported route raises NotImplementedError."""
+"""The port's front door: aehmc_tpu_torch.sample(algorithm="nuts" | "mala" |
+"ghmc", path="fused") runs the plain versions on the CPU (its run on a card
+is in ``test_torch_cuda.py``); every unported route raises
+NotImplementedError."""
 
 import subprocess
 import sys
@@ -59,11 +60,60 @@ def test_front_door_is_reproducible_from_the_generator():
     assert torch.equal(a.final_state, b.final_state)
 
 
-@pytest.mark.parametrize("algorithm", ["hmc", "chees", "meads", "ghmc", "mala"])
+@pytest.mark.parametrize("algorithm", ["hmc", "chees", "meads"])
 def test_unported_algorithms_raise(algorithm):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         aehmc_tpu_torch.sample(None, None, torch.zeros(8, 4), algorithm=algorithm,
                                path="fused", potential_and_grad_t=_gaussian_pg)
+
+
+def _ghmc_route(algorithm, seed=0, draws=40, **kw):
+    gen = torch.Generator().manual_seed(seed)
+    q0 = 0.1 * torch.randn(16, 4, generator=gen)
+    return aehmc_tpu_torch.sample(
+        gen, None, q0, draws, 30, algorithm=algorithm, path="fused",
+        data=(VAR.reshape(-1, 1),), potential_and_grad_t=_gaussian_pg,
+        segment_draws=16, **kw,
+    )
+
+
+@pytest.mark.parametrize("algorithm", ["mala", "ghmc"])
+def test_mala_and_ghmc_routes_shapes_and_diagnostics(algorithm):
+    res = _ghmc_route(algorithm)
+    assert isinstance(res, aehmc_tpu_torch.SampleResult)
+    assert res.positions.shape == (40, 16, 4) and res.final_state.shape == (16, 4)
+    diag = res.diagnostics
+    assert diag.acceptance_probability.shape == (40, 16)
+    assert int(diag.num_doublings.abs().sum()) == 0
+    assert not bool(diag.is_turning.any())
+    assert bool((diag.num_integration_steps == 1).all())
+    assert diag.num_integration_steps.dtype == torch.int32
+    assert diag.is_diverging.dtype == torch.bool
+    assert res.step_size.ndim == 0 and res.inverse_mass_matrix.shape == (4,)
+    assert bool(torch.isfinite(res.positions).all())
+    b = _ghmc_route(algorithm)
+    assert torch.equal(res.positions, b.positions)
+
+
+def test_ghmc_alpha_is_the_momentum_persistence():
+    default = _ghmc_route("ghmc", seed=2, draws=8)
+    explicit = _ghmc_route("ghmc", seed=2, draws=8, ghmc_alpha=0.9)
+    mala = _ghmc_route("mala", seed=2, draws=8)
+    zero = _ghmc_route("ghmc", seed=2, draws=8, ghmc_alpha=0.0)
+    assert torch.equal(default.positions, explicit.positions)
+    assert torch.equal(mala.positions, zero.positions)
+    assert not torch.equal(default.positions, mala.positions)
+
+
+def test_mala_and_ghmc_route_errors():
+    with pytest.raises(TypeError, match="ghmc_alpha"):
+        _ghmc_route("mala", ghmc_alpha=0.5)
+    with pytest.raises(ValueError, match="alpha"):
+        _ghmc_route("ghmc", ghmc_alpha=1.5)
+    with pytest.raises(NotImplementedError, match="item 1.12"):
+        _ghmc_route("mala", mesh=object())
+    with pytest.raises(TypeError, match="unexpected"):
+        _ghmc_route("mala", max_num_expansions=6)
 
 
 @pytest.mark.parametrize("path", ["xla", "pooled"])

@@ -1,14 +1,15 @@
-"""The port's CUDA NUTS kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card.  Every test here is marked ``gpu`` and skips without an NVIDIA GPU: a
 CUDA kernel has no CPU mode.  This file imports no JAX, so it runs on a
 machine with only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
-Decisions (doublings, leaves, divergent, turning) must be equal; positions
-agree to 1e-4 (float32 products summed in another order than the plain
-version's matmuls).  The whole-run kernel equals one launch per draw bit for
-bit.
+Decisions (NUTS: doublings, leaves, divergent, turning; GHMC: accepted,
+divergent) must be equal; positions agree to 1e-4 (float32 products summed
+in another order than the plain version's matmuls).  The whole-run NUTS
+kernel equals one launch per draw bit for bit, the GHMC segment kernel its
+transitions, and the batched leapfrog kernel its plain version.
 """
 
 import numpy as np
@@ -24,6 +25,13 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     make_fused_nuts_transition_small,
     nuts_transition_plain,
 )
+from aehmc_tpu_torch.ops.ghmc_fused import (
+    ghmc_segment_cuda,
+    ghmc_transition_cuda,
+    ghmc_transition_plain,
+)
+from aehmc_tpu_torch.ops.fused_hmc import fused_logistic_hmc_reference
+from aehmc_tpu_torch.ops.leapfrog import batched_leapfrog_reference
 from aehmc_tpu_torch.ops.philox import MASK32
 
 DIM, POINTS, CHAINS, MAX_EXP = 8, 64, 64, 5
@@ -133,6 +141,111 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
         gen, None, q0, 50, 30, data=data, potential_fn_t=pot,
         potential_and_grad_t=pg, collect_dtype=torch.bfloat16,
     )
-    assert LAUNCHES == {"nuts_transition": 30, "nuts_sampling": 1}
+    assert LAUNCHES == {"nuts_transition": 30, "nuts_sampling": 1,
+                        "ghmc_transition": 0, "ghmc_segment": 0,
+                        "fused_logistic_hmc": 0, "batched_leapfrog": 0}
     assert res.positions.dtype == torch.bfloat16 and res.positions.is_cuda
     assert bool(torch.isfinite(res.positions.float()).all())
+
+
+def _ghmc_case(device, per_chain):
+    _, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=device)
+    rng = np.random.default_rng(1)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    q_t = f32(0.3 * rng.normal(size=(DIM, CHAINS)))
+    p_t = f32(rng.normal(size=(DIM, CHAINS)))
+    u0, g0 = pg(q_t, *data)
+    if per_chain:
+        params = (f32(rng.uniform(0.2, 0.8, size=CHAINS)),
+                  f32(rng.uniform(0.0, 0.95, size=CHAINS)),
+                  f32(rng.uniform(0.5, 1.5, size=(CHAINS, DIM))))
+    else:
+        params = (0.5, 0.9, f32(np.full(DIM, 0.8)))
+    ext = dict(noise=f32(rng.normal(size=(DIM, CHAINS))),
+               u_accept=f32(rng.uniform(size=(1, CHAINS))))
+    return pg, data, (q_t, u0, g0, p_t), params, ext
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_chain", [False, True])
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_ghmc_transition_matches_plain(cuda_device, per_chain, philox):
+    pg, data, state, params, ext = _ghmc_case(cuda_device, per_chain)
+    rand = dict(seed=91) if philox else ext
+    kern = ghmc_transition_cuda(*state, *params, data, **rand)
+    plain = ghmc_transition_plain(*state, *params, lambda x: pg(x, *data),
+                                  **rand)
+    torch.cuda.synchronize()
+    moved_k = (kern[0] != state[0]).any(dim=0)
+    moved_p = (plain[0] != state[0]).any(dim=0)
+    assert torch.equal(moved_k, moved_p) and bool(moved_k.any())
+    assert torch.equal(kern[4][2:5], plain[4][2:5])
+    for a, b in zip(kern, plain):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_ghmc_segment_equals_transition_launches(cuda_device, philox):
+    pg, data, state, params, _ = _ghmc_case(cuda_device, True)
+    draws, seed = 5, 17
+    rng = np.random.default_rng(2)
+    noise = torch.tensor(rng.normal(size=(draws, DIM, CHAINS)),
+                         dtype=torch.float32, device=cuda_device)
+    ua = torch.tensor(rng.uniform(size=(draws, CHAINS)), dtype=torch.float32,
+                      device=cuda_device)
+    rand = dict(seed=seed) if philox else dict(noise=noise, u_accept=ua)
+    pos, stats, *final = ghmc_segment_cuda(*state, *params, data, draws,
+                                           **rand)
+    for t in range(draws):
+        rand = (dict(seed=(seed + t * DRAW_SEED_STRIDE) & MASK32) if philox
+                else dict(noise=noise[t].contiguous(), u_accept=ua[t]))
+        *state, st = ghmc_transition_cuda(*state, *params, data, **rand)
+        assert torch.equal(st, stats[t]) and torch.equal(state[0], pos[t])
+    for a, b in zip(final, state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [64, 13])
+def test_cuda_leapfrog_kernels_match_plain(cuda_device, chains):
+    rng = np.random.default_rng(3)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    q, p = f32(rng.normal(size=(chains, DIM))), f32(rng.normal(size=(chains, DIM)))
+    lam, im = f32(np.linspace(0.5, 2.0, DIM)), f32(np.linspace(0.8, 1.2, DIM))
+    reset_launch_counts()
+    out = aehmc_tpu_torch.ops.batched_leapfrog(q, p, lam, im, 0.05, 7)
+    ref = batched_leapfrog_reference(q, p, lam, im, 0.05, 7)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    X, y = logistic_regression_pg_t(DIM, POINTS, device=cuda_device)[2][::2]
+    out = aehmc_tpu_torch.ops.fused_logistic_hmc(q, p, X, y.reshape(-1), im,
+                                                 0.05, 5, 2.0)
+    ref = fused_logistic_hmc_reference(q, p, X, y.reshape(-1), im, 0.05, 5,
+                                       2.0)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+    assert LAUNCHES["batched_leapfrog"] == 1
+    assert LAUNCHES["fused_logistic_hmc"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["mala", "ghmc"])
+def test_front_door_mala_and_ghmc_on_the_card(cuda_device, algorithm):
+    pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    q0 = (0.1 * torch.randn(256, 16, generator=gen)).to(cuda_device)
+    reset_launch_counts()
+    res = aehmc_tpu_torch.sample(
+        gen, None, q0, 50, 30, algorithm=algorithm, path="fused", data=data,
+        potential_fn_t=pot, potential_and_grad_t=pg, segment_draws=16,
+    )
+    assert LAUNCHES["ghmc_transition"] == 30 and LAUNCHES["ghmc_segment"] == 4
+    assert res.positions.shape == (50, 256, 16) and res.positions.is_cuda
+    assert bool(torch.isfinite(res.positions).all())

@@ -19,7 +19,7 @@ from aehmc_tpu_torch.models import (
 
 @pytest.mark.parametrize("dim, points", [(100, 1000), (8, 64)])
 def test_logistic_data_bit_identical(dim, points):
-    X, y = logistic_regression_data(dim, points)
+    X, y = logistic_regression_data(dim, points, device="cpu")
     Xj, yj = jax_data(dim, points)
     assert X.dtype == torch.float32 and y.dtype == torch.float32
     np.testing.assert_array_equal(X.numpy(), np.asarray(Xj))
@@ -28,7 +28,7 @@ def test_logistic_data_bit_identical(dim, points):
 
 def test_pg_t_equals_jax_float32():
     dim, points, chains = 16, 200, 24
-    pot, pg, data, ex = logistic_regression_pg_t(dim, points)
+    pot, pg, data, ex = logistic_regression_pg_t(dim, points, device="cpu")
     pot_j, pg_j, data_j, _ = jax_pg_builder(dim, points,
                                             matmul_dtype=jnp.float32)
     q_t = np.random.default_rng(0).normal(size=(dim, chains)).astype(np.float32)
@@ -43,7 +43,7 @@ def test_pg_t_equals_jax_float32():
 
 
 def test_logprob_equals_jax():
-    logprob, q0 = logistic_regression(10, 100)
+    logprob, q0 = logistic_regression(10, 100, device="cpu")
     logprob_j, _ = jax_logistic(10, 100)
     w = np.random.default_rng(1).normal(size=10).astype(np.float32)
     np.testing.assert_allclose(float(logprob(torch.tensor(w))),
@@ -53,21 +53,43 @@ def test_logprob_equals_jax():
 
 def test_bf16_operands_not_ported_yet():
     with pytest.raises(NotImplementedError, match="1.4"):
-        logistic_regression_pg_t(8, 64, matmul_dtype=torch.bfloat16)
+        logistic_regression_pg_t(8, 64, matmul_dtype=torch.bfloat16,
+                                 device="cpu")
 
 
 def test_convert_carries_data_state_and_parameters():
     _, _, data_j, _ = jax_pg_builder(8, 64, matmul_dtype=jnp.float32)
-    X, XT, y = convert.model_data(*[np.asarray(d) for d in data_j])
-    _, _, data_t, _ = logistic_regression_pg_t(8, 64)
+    X, XT, y = convert.model_data(*[np.asarray(d) for d in data_j],
+                                  device="cpu")
+    _, _, data_t, _ = logistic_regression_pg_t(8, 64, device="cpu")
     for a, b in zip((X, XT, y), data_t):
         assert torch.equal(a, b) and a.is_contiguous()
     rng = np.random.default_rng(2)
     q, u, g = (rng.normal(size=s).astype(np.float32)
                for s in ((5, 8), (5, 1), (5, 8)))
     for a, b in zip(convert.chain_state(jnp.asarray(q), jnp.asarray(u),
-                                        jnp.asarray(g)), (q, u, g)):
+                                        jnp.asarray(g), device="cpu"),
+                    (q, u, g)):
         np.testing.assert_array_equal(a.numpy(), b)
     eps, imm = convert.tuned_parameters(jnp.asarray(0.5, jnp.float32),
-                                        jnp.ones(8, jnp.float32))
+                                        jnp.ones(8, jnp.float32), device="cpu")
     assert eps.dtype == torch.float32 and eps.ndim == 0 and imm.shape == (8,)
+
+
+@pytest.mark.parametrize("build", [
+    lambda **kw: logistic_regression_data(8, 64, **kw)[0],
+    lambda **kw: logistic_regression(8, 64, **kw)[1],
+    lambda **kw: logistic_regression_pg_t(8, 64, **kw)[2][0],
+    lambda **kw: convert.to_tensor(np.ones(3, np.float32), **kw),
+    lambda **kw: convert.ghmc_state(*[np.ones((2, 3), np.float32)] * 4,
+                                    **kw)[3],
+])
+def test_builders_and_converters_default_to_the_card(build):
+    """With no ``device=`` the tensors go to the card: on a machine without
+    one that raises, and ``device="cpu"`` is the explicit way to the host."""
+    assert build(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()

@@ -126,7 +126,8 @@ def test_plain_transition_matches_jax_and_oracle_logistic_dense(eps):
 
     _, pg_j, data_j, _ = jax_pg_builder(dim=dim, num_points=points,
                                         matmul_dtype=jnp.float32)
-    _, pg_t, data_t, _ = logistic_regression_pg_t(dim=dim, num_points=points)
+    _, pg_t, data_t, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                                  device="cpu")
     u0, g0 = pg_t(torch.tensor(q).T.contiguous(), *data_t)
     args = (q, u0.numpy().reshape(-1, 1), g0.T.numpy(), p, dirs, ub, ul, imm)
 
@@ -184,7 +185,8 @@ def test_philox_streams_are_per_chain():
 
 
 def _logistic_case(chains=16, dim=6, points=48, seed=3):
-    _, pg, data, _ = logistic_regression_pg_t(dim=dim, num_points=points)
+    _, pg, data, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                              device="cpu")
     gen = torch.Generator().manual_seed(seed)
     q0 = 0.1 * torch.randn(chains, dim, generator=gen)
     return pg, data, q0
