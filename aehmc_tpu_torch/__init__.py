@@ -3,11 +3,13 @@
 What is ported: the fused NUTS route (Stan window adaptation driving a
 per-transition NUTS kernel, then the whole sampling run in one kernel
 launch), the fused MALA and GHMC routes (warmup through the GHMC transition
-kernel, sampling in segments of the GHMC segment kernel), and the two
-leapfrog entry points of :mod:`aehmc_tpu_torch.ops` (``fused_logistic_hmc``,
-``batched_leapfrog``).  Every kernel is hand-written CUDA for the H100
-(``csrc/``) with a plain PyTorch version beside it.  This package imports no
-JAX.
+kernel, sampling in segments of the GHMC segment kernel), the fused ChEES
+route (the ChEES adaptation over the ChEES transition kernel), the
+standard-layout NUTS entry points of :mod:`aehmc_tpu_torch.ops.nuts_fused`,
+and the two leapfrog entry points of :mod:`aehmc_tpu_torch.ops`
+(``fused_logistic_hmc``, ``batched_leapfrog``).  Every kernel is
+hand-written CUDA for the H100 (``csrc/``) with a plain PyTorch version
+beside it.  This package imports no JAX.
 """
 
 from aehmc_tpu_torch import diagnostics, ops

@@ -1,29 +1,36 @@
 """The front door: ``sample(...)`` (port of :mod:`aehmc_tpu.api`, the fused
-routes of ``algorithm="nuts"``, ``"mala"`` and ``"ghmc"``).
+routes of ``algorithm="nuts"``, ``"mala"``, ``"ghmc"`` and ``"chees"``).
 
 The fused NUTS route runs Stan warmup through the per-transition NUTS kernel
 and then the whole sampling phase through the whole-run kernel (one launch),
 as the JAX package's benchmark does; the two sampling paths are bitwise equal
 by construction.  The fused MALA and GHMC routes run warmup through the GHMC
 transition kernel and sampling through the GHMC segment kernel, one launch
-per ``segment_draws`` draws.  Every other algorithm and path raises
-``NotImplementedError`` naming its ROADMAP.md item.
+per ``segment_draws`` draws.  The fused ChEES route runs the pooled ChEES
+driver (:func:`aehmc_tpu_torch.parallel.sample_sharded`) over the ChEES
+transition kernel, warmup and sampling one launch per step.  Every other
+algorithm and path raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from typing import Callable, Optional, Sequence
 
 import torch
 
+from aehmc_tpu_torch.ops.chees_fused import make_fused_chees_kernel
 from aehmc_tpu_torch.ops.fused_driver import (
     sample_fused_adaptive,
     sample_fused_ghmc,
 )
+from aehmc_tpu_torch.parallel.pooled import sample_sharded
 from aehmc_tpu_torch.sampling import SampleResult
 from aehmc_tpu_torch.types import Diagnostics
 
 ALGORITHMS = ("nuts", "hmc", "chees", "meads", "ghmc", "mala")
 PATHS = ("auto", "xla", "pooled", "fused")
-_FUSED_ALGORITHMS = ("nuts", "mala", "ghmc")
+_FUSED_ALGORITHMS = ("nuts", "mala", "ghmc", "chees")
+# keyword arguments of the ChEES route that build its kernel
+_CHEES_KERNEL_KWARGS = ("block_chains", "use_internal_prng", "step_size_factors")
 
 
 def _fused_nuts_result(out) -> SampleResult:
@@ -76,6 +83,13 @@ def sample(
     (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True) and to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and
     GHMC (``ghmc_alpha``, the GHMC momentum persistence, defaults to 0.9).
+    ChEES needs ``logprob_fn`` (one position ``(dim,)`` -> log-density) to
+    start its chain states; ``block_chains``, ``use_internal_prng``,
+    ``step_size_factors`` and ``divergence_threshold`` build its kernel
+    (:func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`), the
+    others go to :func:`aehmc_tpu_torch.parallel.sample_sharded`
+    (``initial_step_size`` 1.0 and ``search_initial_step_size`` True by
+    default, ``streams`` to replay given randomness).
 
     Returns a ``SampleResult`` with ``positions`` ``(draws, chains, dim)``.
     """
@@ -87,6 +101,12 @@ def sample(
         raise NotImplementedError(
             f"algorithm={algorithm!r} is not ported yet (ROADMAP.md items "
             "1.9-1.11)"
+        )
+    if algorithm == "chees" and logprob_fn is None:
+        raise ValueError(
+            "logprob_fn may be None only on the fused NUTS/MALA/GHMC routes "
+            "with an explicit potential_fn_t/potential_and_grad_t binding: "
+            "ChEES starts its chain states from logprob_fn"
         )
     if path in ("xla", "pooled"):
         raise NotImplementedError(
@@ -102,6 +122,22 @@ def sample(
         raise ValueError(
             "the fused path needs a (chains, dim) initial_position, got shape "
             f"{tuple(initial_position.shape)}"
+        )
+    if algorithm == "chees":
+        kernel_kwargs = {k: kwargs.pop(k) for k in _CHEES_KERNEL_KWARGS
+                         if k in kwargs}
+        if "divergence_threshold" in kwargs:
+            # the threshold parameterizes both the kernel and the driver
+            kernel_kwargs["divergence_threshold"] = kwargs[
+                "divergence_threshold"]
+        kernel_fn = make_fused_chees_kernel(
+            potential_fn_t, tuple(data),
+            potential_and_grad_t=potential_and_grad_t, **kernel_kwargs,
+        )
+        return sample_sharded(
+            generator, logprob_fn, initial_position.to(torch.float32),
+            num_samples, num_warmup, algorithm="chees",
+            chees_kernel_fn=kernel_fn, **kwargs,
         )
     if algorithm in ("mala", "ghmc"):
         if algorithm == "mala":

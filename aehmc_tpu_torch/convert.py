@@ -9,7 +9,8 @@ both packages from the same state; the port imports no JAX for it.
 import numpy as np
 import torch
 
-from aehmc_tpu_torch.types import DualAveragingState, WelfordState
+from aehmc_tpu_torch.chees import CheesWarmupResult
+from aehmc_tpu_torch.types import ChainState, DualAveragingState, WelfordState
 from aehmc_tpu_torch.window_adaptation import WindowAdaptationState
 
 
@@ -54,3 +55,15 @@ def window_adaptation_state(state, device="cuda") -> WindowAdaptationState:
 def tuned_parameters(step_size, inverse_mass_matrix, device="cuda"):
     """``(step_size, inverse_mass_matrix)`` as returned by the JAX drivers."""
     return to_tensor(step_size, device), to_tensor(inverse_mass_matrix, device)
+
+
+def chees_warmup_result(result, device="cuda") -> CheesWarmupResult:
+    """A JAX ``CheesWarmupResult`` (any object with its fields, its states a
+    ``ChainState``) as the port's, field by field."""
+    return CheesWarmupResult(
+        states=ChainState(*(to_tensor(getattr(result.states, f), device)
+                            for f in ChainState._fields)),
+        step_size=to_tensor(result.step_size, device),
+        trajectory_length=to_tensor(result.trajectory_length, device),
+        inverse_mass_matrix=to_tensor(result.inverse_mass_matrix, device),
+    )

@@ -23,23 +23,47 @@
 // inlined.
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace aehmc {
 
-struct LogisticPG {
+// x rounded to the nearest bfloat16, back in float32
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// BF16 = true rounds the operands of the two data products to bfloat16, as
+// aehmc_tpu/ops/nuts_fused.py:_logistic_pot_grad_builder (:878) does with
+// matmul_dtype=bfloat16: q and Xᵀ for the logits, σ − y and X for the
+// gradient.  A product of two bfloat16 values is exact in float32, the sums
+// stay float32, and so do the prior terms (on the unrounded q).
+template <bool BF16>
+struct LogisticPGT {
   const float* X;   // (N, dim)
   const float* XT;  // (dim, N)
   const float* y;   // (N,)
   int N;
   float prior_precision;
+  static __device__ __forceinline__ float op(float x) {
+    if constexpr (BF16) {
+      return bf16_round(x);
+    } else {
+      return x;
+    }
+  }
   __device__ void operator()(int dim, int ds, float* rbuf, float* gpart,
                              const float* q, float* grad, float* pot) const;
 };
 
-__device__ void LogisticPG::operator()(int dim, int ds, float* rbuf,
-                                       float* gpart, const float* q,
-                                       float* grad, float* pot) const {
+using LogisticPG = LogisticPGT<false>;
+
+template <bool BF16>
+__device__ void LogisticPGT<BF16>::operator()(int dim, int ds, float* rbuf,
+                                             float* gpart, const float* q,
+                                             float* grad,
+                                             float* pot) const {
   const int t = threadIdx.x;
   float lik[CB];
 #pragma unroll
@@ -55,23 +79,24 @@ __device__ void LogisticPG::operator()(int dim, int ds, float* rbuf,
       for (int c = 0; c < CB; ++c) acc[c] = 0.f;
       int d = 0;
       for (; d + 4 <= dim; d += 4) {
-        const float x0 = __ldg(XT + (size_t)d * N + n);
-        const float x1 = __ldg(XT + (size_t)(d + 1) * N + n);
-        const float x2 = __ldg(XT + (size_t)(d + 2) * N + n);
-        const float x3 = __ldg(XT + (size_t)(d + 3) * N + n);
+        const float x0 = op(__ldg(XT + (size_t)d * N + n));
+        const float x1 = op(__ldg(XT + (size_t)(d + 1) * N + n));
+        const float x2 = op(__ldg(XT + (size_t)(d + 2) * N + n));
+        const float x3 = op(__ldg(XT + (size_t)(d + 3) * N + n));
 #pragma unroll
         for (int c = 0; c < CB; ++c) {
           const float4 qv = *reinterpret_cast<const float4*>(q + c * ds + d);
-          acc[c] = fmaf(x0, qv.x, acc[c]);
-          acc[c] = fmaf(x1, qv.y, acc[c]);
-          acc[c] = fmaf(x2, qv.z, acc[c]);
-          acc[c] = fmaf(x3, qv.w, acc[c]);
+          acc[c] = fmaf(x0, op(qv.x), acc[c]);
+          acc[c] = fmaf(x1, op(qv.y), acc[c]);
+          acc[c] = fmaf(x2, op(qv.z), acc[c]);
+          acc[c] = fmaf(x3, op(qv.w), acc[c]);
         }
       }
       for (; d < dim; ++d) {
-        const float x = __ldg(XT + (size_t)d * N + n);
+        const float x = op(__ldg(XT + (size_t)d * N + n));
 #pragma unroll
-        for (int c = 0; c < CB; ++c) acc[c] = fmaf(x, q[c * ds + d], acc[c]);
+        for (int c = 0; c < CB; ++c)
+          acc[c] = fmaf(x, op(q[c * ds + d]), acc[c]);
       }
       const float yv = __ldg(y + n);
 #pragma unroll
@@ -79,7 +104,7 @@ __device__ void LogisticPG::operator()(int dim, int ds, float* rbuf,
         const float lg = acc[c];
         const float sp = fmaxf(lg, 0.f) + log1pf(expf(-fabsf(lg)));
         lik[c] += yv * lg - sp;
-        rbuf[c * NT + t] = 1.f / (1.f + expf(-lg)) - yv;
+        rbuf[c * NT + t] = op(1.f / (1.f + expf(-lg)) - yv);
       }
     } else {
 #pragma unroll
@@ -96,10 +121,10 @@ __device__ void LogisticPG::operator()(int dim, int ds, float* rbuf,
       for (int c = 0; c < CB; ++c) acc[c] = 0.f;
       int m = nb;
       for (; m + 4 <= ne; m += 4) {
-        const float x0 = __ldg(X + (size_t)m * dim + dd);
-        const float x1 = __ldg(X + (size_t)(m + 1) * dim + dd);
-        const float x2 = __ldg(X + (size_t)(m + 2) * dim + dd);
-        const float x3 = __ldg(X + (size_t)(m + 3) * dim + dd);
+        const float x0 = op(__ldg(X + (size_t)m * dim + dd));
+        const float x1 = op(__ldg(X + (size_t)(m + 1) * dim + dd));
+        const float x2 = op(__ldg(X + (size_t)(m + 2) * dim + dd));
+        const float x3 = op(__ldg(X + (size_t)(m + 3) * dim + dd));
 #pragma unroll
         for (int c = 0; c < CB; ++c) {
           const float4 rv =
@@ -111,7 +136,7 @@ __device__ void LogisticPG::operator()(int dim, int ds, float* rbuf,
         }
       }
       for (; m < ne; ++m) {
-        const float x = __ldg(X + (size_t)m * dim + dd);
+        const float x = op(__ldg(X + (size_t)m * dim + dd));
 #pragma unroll
         for (int c = 0; c < CB; ++c)
           acc[c] = fmaf(x, rbuf[c * NT + (m - n0)], acc[c]);

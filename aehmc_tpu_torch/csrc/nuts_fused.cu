@@ -1,0 +1,114 @@
+// Fused NUTS for the NVIDIA H100 (sm_90a) in the standard layout: one whole
+// NUTS transition per chain (kernel `nuts_transition_std`) and the whole
+// sampling run in one launch (kernel `nuts_sampling_std`), chain state
+// (C, dim), external streams (C, rows), stats (C, 8).  Both run the core of
+// nuts_core.cuh (its design notes and bounds) with STD = true, so with the
+// same Philox key kernel 3 on q equals kernel 1 on qᵀ bit for bit.
+//
+// Replaces the TPU kernels of aehmc_tpu/ops/nuts_fused.py:
+//   _make_kernel (:452), launched by _fused_call for fused_nuts_transition
+//     and make_fused_nuts_transition,
+//   _make_sampling_kernel (:507), launched by _fused_sampling_call for
+//     sample_fused and sample_fused_logistic(loop_in_kernel=True),
+// with their core _transition_core (:117) and the logistic potential of
+// _logistic_pot_grad_builder (:878), whose bfloat16 operands
+// (matmul_dtype=bfloat16) are the functor's template flag.  The metric is a
+// diagonal M⁻¹, as in the TPU kernels.  The plain PyTorch version of both
+// kernels is aehmc_tpu_torch/ops/nuts_fused.py.
+//
+// What bounds it: as kernels 1 and 2, the two data products of every
+// gradient (2·N·dim FMAs per chain).  Layout changes nothing in the core;
+// a warp's loads and stores of a chain's row are contiguous here, where the
+// transposed layout strides them by C.
+
+#include "nuts_core.cuh"
+
+using namespace aehmc;
+using namespace aehmc::nuts;
+
+namespace {
+
+template <bool BF16>
+cudaError_t launch_transition(const Params& P, const LogisticPGT<BF16>& pg,
+                              const Rand& R, int N, const float* q,
+                              const float* u, const float* g, float* q_out,
+                              float* u_out, float* g_out, float* stats,
+                              cudaStream_t stream) {
+  auto kernel = nuts_transition_kernel<LogisticPGT<BF16>, true>;
+  size_t smem = 0;
+  cudaError_t err = prepare(kernel, P, N, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(P.C + CB - 1) / CB, NT, smem, stream>>>(P, pg, R, q, u, g, q_out,
+                                                    u_out, g_out, stats);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_sampling(const Params& P, const LogisticPGT<BF16>& pg,
+                            uint32_t seed, int num_draws, int N,
+                            const float* q, const float* u, const float* g,
+                            float* pos, float* stats, float* q_out,
+                            float* u_out, float* g_out, cudaStream_t stream) {
+  auto kernel = nuts_sampling_kernel<LogisticPGT<BF16>, float, true>;
+  size_t smem = 0;
+  cudaError_t err = prepare(kernel, P, N, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(P.C + CB - 1) / CB, NT, smem, stream>>>(
+      P, pg, seed, num_draws, q, u, g, pos, stats, q_out, u_out, g_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel 3: one transition.  q, g, p: (C, dim); u: (C,); dirs, ub: (C, K);
+// ul: (C, 2^K); im: (dim,); stats: (C, 8).  use_seed selects Philox
+// randomness keyed by seed (p, dirs, ub and ul are then unused); bf16
+// rounds the data products' operands to bfloat16.
+int nuts_transition_std_launch(const float* q, const float* u, const float* g,
+                               const float* p, const float* dirs,
+                               const float* ub, const float* ul, int use_seed,
+                               unsigned int seed, const float* X,
+                               const float* XT, const float* y,
+                               const float* im, float eps, float thr,
+                               float prior_precision, int bf16, int dim,
+                               int N, int C, int K, float* q_out,
+                               float* u_out, float* g_out, float* stats,
+                               void* stream) {
+  const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
+  const Rand R = {p, dirs, ub, ul, seed, use_seed};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bf16) {
+    const LogisticPGT<true> pg = {X, XT, y, N, prior_precision};
+    return (int)launch_transition(P, pg, R, N, q, u, g, q_out, u_out, g_out,
+                                  stats, s);
+  }
+  const LogisticPGT<false> pg = {X, XT, y, N, prior_precision};
+  return (int)launch_transition(P, pg, R, N, q, u, g, q_out, u_out, g_out,
+                                stats, s);
+}
+
+// Kernel 4: num_draws transitions, draw t keyed by seed + t*DRAW_SEED_STRIDE.
+// pos: (draws, C, dim) float32 or null; stats: (draws, C, 8).
+int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
+                             unsigned int seed, int num_draws, const float* X,
+                             const float* XT, const float* y, const float* im,
+                             float eps, float thr, float prior_precision,
+                             int bf16, int dim, int N, int C, int K,
+                             float* pos, float* stats, float* q_out,
+                             float* u_out, float* g_out, void* stream) {
+  const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (num_draws < 1) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    const LogisticPGT<true> pg = {X, XT, y, N, prior_precision};
+    return (int)launch_sampling(P, pg, seed, num_draws, N, q, u, g, pos,
+                                stats, q_out, u_out, g_out, s);
+  }
+  const LogisticPGT<false> pg = {X, XT, y, N, prior_precision};
+  return (int)launch_sampling(P, pg, seed, num_draws, N, q, u, g, pos, stats,
+                              q_out, u_out, g_out, s);
+}
+
+}  // extern "C"

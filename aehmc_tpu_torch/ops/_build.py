@@ -28,7 +28,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-HEADERS = ("common.cuh", "logistic_pg.cuh")
+HEADERS = ("common.cuh", "logistic_pg.cuh", "nuts_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -42,6 +42,16 @@ SIGNATURES = {
         + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5,
         "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 5
         + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5,
+    },
+    "nuts_fused.cu": {
+        "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 4
+        + [_F, _F, _F] + [_I] * 5 + [_P] * 5,
+        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 4
+        + [_F, _F, _F] + [_I] * 5 + [_P] * 6,
+    },
+    "chees_fused.cu": {
+        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P] * 6
+        + [_I, _P, _F] + [_I] * 3 + [_P] * 7,
     },
     "ghmc_fused.cu": {
         "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P] * 6

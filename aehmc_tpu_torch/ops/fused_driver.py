@@ -8,7 +8,8 @@ package's: the fixed-tree pairwise mean of the per-chain acceptance, and the
 batched Welford fold of the positions.  Supported: diagonal or dense M⁻¹
 (NUTS; GHMC and MALA take a diagonal), scalar ε, Philox
 (``use_internal_prng``) or external randomness, the whole-run NUTS kernel
-(``loop_in_kernel``), GHMC segments of ``segment_draws`` draws,
+(``loop_in_kernel``), the standard-layout NUTS kernel (``potential_fn``
+alone), GHMC segments of ``segment_draws`` draws,
 ``collect_dtype`` float32 or bfloat16.  The other options of the JAX driver
 raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
@@ -22,7 +23,11 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
     fused_ghmc_segment,
     make_fused_ghmc_transition,
 )
-from aehmc_tpu_torch.ops.nuts_fused import derive_draw_seeds
+from aehmc_tpu_torch.ops.nuts_fused import (
+    _generic_model,
+    derive_draw_seeds,
+    make_fused_nuts_transition,
+)
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     _draw_loop,
     _external_randomness,
@@ -178,6 +183,41 @@ def warmup_fused(
     return (q_t.T, u.reshape(num_chains, 1), g_t.T), eps, imm
 
 
+def _standard_as_transposed(transition: Callable) -> Callable:
+    """A standard-layout transition (:mod:`aehmc_tpu_torch.ops.nuts_fused`)
+    under the transposed contract of :func:`warmup_fused_hooks` and
+    ``_draw_loop``: the state crosses as transposed views, so a ``(dim, C)``
+    view of a contiguous ``(C, dim)`` state costs no copy."""
+    def t(x):
+        return None if x is None else x.T
+
+    def transposed(q_t, u, g_t, p, dirs, ub, ul, imm, eps, seed=None):
+        q, un, g, stats = transition(q_t.T, u.reshape(-1, 1), g_t.T, t(p),
+                                     t(dirs), t(ub), t(ul), imm, eps, seed=seed)
+        return q.T, un.reshape(1, -1), g.T, stats.T
+
+    return transposed
+
+
+def _standard_branch_errors(is_mass_matrix_full, loop_in_kernel, options):
+    """The JAX driver's rules for the standard-layout kernel."""
+    rules = (
+        (is_mass_matrix_full, "dense-metric self-tuning requires the "
+         "transposed kernel — pass potential_fn_t (the standard-layout "
+         "megakernel has no dense metric path)"),
+        (options.get("step_size_factors") is not None, "step_size_factors "
+         "requires the transposed kernel — pass potential_fn_t"),
+        (options.get("per_chain_step_size"), "per_chain_step_size requires "
+         "the transposed kernel — pass potential_fn_t"),
+        (loop_in_kernel, "loop_in_kernel requires the transposed kernel — "
+         "pass potential_fn_t (the standard-layout megakernel has its own "
+         "loop via ops.nuts_fused.sample_fused)"),
+    )
+    for broken, message in rules:
+        if broken:
+            raise ValueError(message)
+
+
 def sample_fused_adaptive(
     generator: torch.Generator,
     potential_fn: Callable,
@@ -197,28 +237,34 @@ def sample_fused_adaptive(
     collect_dtype=None,
     use_internal_prng: bool = True,
     loop_in_kernel: bool = False,
+    block_chains: int = None,
+    warmup_streams: Callable = None,
+    sample_streams: Callable = None,
     **options,
 ):
     """One-call driver: fused warmup, then fused sampling.
 
     The model is the transposed ``potential_fn_t(q_t, *data)`` and/or the
-    pre-differentiated ``potential_and_grad_t(q_t, *data) -> (u, g)``;
-    ``potential_fn`` (the standard-layout kernel's contract) is not ported.
-    ``loop_in_kernel`` runs the whole sampling phase as one call of the
-    whole-run kernel, bitwise equal to one transition per draw.  With
-    ``use_internal_prng=False`` the external streams are drawn from
-    ``generator``.
+    pre-differentiated ``potential_and_grad_t(q_t, *data) -> (u, g)``
+    (kernels 1 and 2 on the card); without either, the standard-layout
+    ``potential_fn(q, *data) -> (chains,)`` (kernel 3 on the card, one
+    launch per warmup step and per draw, when it is
+    :func:`aehmc_tpu_torch.ops.nuts_fused.logistic_potential`), which takes
+    a diagonal metric, a scalar ε and no ``loop_in_kernel``, as in the JAX
+    driver.  ``loop_in_kernel`` runs the transposed sampling phase as one
+    call of the whole-run kernel, bitwise equal to one transition per draw.
+    With ``use_internal_prng=False`` the external streams are
+    ``warmup_streams(step)`` and ``sample_streams(draw) -> (z, dirs, u_bias,
+    u_leaf)`` in the standard layout, drawn from ``generator`` when not
+    given.  ``block_chains`` has no effect (a CUDA block holds 8 chains).
 
     Returns ``(final_positions, positions (draws, chains, dim),
     stats (draws, chains, 8), step_size, inverse_mass_matrix)``.
     """
+    standard = potential_fn_t is None and potential_and_grad_t is None
+    if standard:
+        _standard_branch_errors(is_mass_matrix_full, loop_in_kernel, options)
     _reject_unported(options)
-    if potential_fn_t is None and potential_and_grad_t is None:
-        raise NotImplementedError(
-            "the standard-layout fused kernel (potential_fn) is not ported "
-            "yet (ROADMAP.md, kernels 3-4); pass potential_fn_t or "
-            "potential_and_grad_t"
-        )
     if loop_in_kernel and not use_internal_prng:
         raise ValueError(
             "loop_in_kernel draws all randomness in the kernel — it requires "
@@ -226,16 +272,25 @@ def sample_fused_adaptive(
         )
     num_chains, dim = initial_positions.shape
     data = tuple(data)
-    transition = make_fused_nuts_transition_small(
-        potential_fn_t, data,
-        max_num_expansions=max_num_expansions,
-        divergence_threshold=divergence_threshold,
-        potential_and_grad_t=potential_and_grad_t,
-        transposed_io=True,
-    )
-    q0_t = initial_positions.T.to(torch.float32).contiguous()
-    u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
-                                   data)(q0_t)
+    if standard:
+        transition = _standard_as_transposed(make_fused_nuts_transition(
+            potential_fn, data, max_num_expansions=max_num_expansions,
+            divergence_threshold=divergence_threshold,
+        ))
+        q0 = initial_positions.to(torch.float32).contiguous()
+        u0, g0 = _generic_model(potential_fn, data).pot_grad(q0)
+        q0_t, g0_t = q0.T, g0.T
+    else:
+        transition = make_fused_nuts_transition_small(
+            potential_fn_t, data,
+            max_num_expansions=max_num_expansions,
+            divergence_threshold=divergence_threshold,
+            potential_and_grad_t=potential_and_grad_t,
+            transposed_io=True,
+        )
+        q0_t = initial_positions.T.to(torch.float32).contiguous()
+        u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
+                                       data)(q0_t)
     init, segment, finish = warmup_fused_hooks(
         transition, num_chains, dim, num_warmup,
         max_num_expansions=max_num_expansions,
@@ -243,6 +298,7 @@ def sample_fused_adaptive(
         initial_step_size=initial_step_size,
         target_acceptance_rate=target_acceptance_rate,
         use_internal_prng=use_internal_prng,
+        streams=warmup_streams,
     )
     wcarry = init(generator, (q0_t, u0.reshape(1, num_chains), g0_t))
     wcarry, _ = segment(wcarry, range(num_warmup))
@@ -264,8 +320,8 @@ def sample_fused_adaptive(
     if use_internal_prng:
         randomness = derive_draw_seeds(generator, num_samples)
     else:
-        randomness = _generator_streams(generator, num_chains, dim,
-                                        max_num_expansions, q_t.device)
+        randomness = sample_streams or _generator_streams(
+            generator, num_chains, dim, max_num_expansions, q_t.device)
     qf, positions, stats = _draw_loop(
         transition, q_t, u, g_t, imm, eps, num_samples, randomness,
         collect_positions, cdt,

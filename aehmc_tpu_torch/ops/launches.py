@@ -7,6 +7,9 @@ and nowhere else, so a run can show that its path went through the kernels.
 LAUNCHES = {
     "nuts_transition": 0,
     "nuts_sampling": 0,
+    "nuts_transition_std": 0,
+    "nuts_sampling_std": 0,
+    "chees_transition": 0,
     "ghmc_transition": 0,
     "ghmc_segment": 0,
     "fused_logistic_hmc": 0,

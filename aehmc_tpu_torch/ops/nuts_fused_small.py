@@ -4,7 +4,10 @@ versions and the wrappers of the two CUDA kernels
 
 Port of :mod:`aehmc_tpu.ops.nuts_fused_small`.  Chain state is ``(dim,
 chains)``, per-chain scalars ``(1, chains)``, stats ``(8, chains)`` with rows
-``[energy, accept, doublings, leaves, div, turn, 0, 0]``.
+``[energy, accept, doublings, leaves, div, turn, 0, 0]``.  The plain core
+:func:`_transition_core_t` also serves the standard-layout module
+(:mod:`aehmc_tpu_torch.ops.nuts_fused`), which re-exports the helpers below
+under the JAX module's names.
 
 Dispatch is by the device of the chain state and nothing else: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.  The
@@ -25,14 +28,32 @@ import torch
 
 from aehmc_tpu_torch.models.regression import logistic_pg_t
 from aehmc_tpu_torch.ops.launches import LAUNCHES
-from aehmc_tpu_torch.ops.nuts_fused import (
-    DRAW_SEED_STRIDE,
-    NEG_INF,
-    _popcount_scalar,
-    _trailing_ones_scalar,
-    derive_draw_seeds,
-)
 from aehmc_tpu_torch.ops.philox import MASK32, nuts_streams
+
+NEG_INF = -1e30  # finite stand-in for -inf in log-weights
+
+# Stream of draw t = base + t * DRAW_SEED_STRIDE (mod 2^32).  The JAX
+# package also offsets each chain block by BLOCK_SEED_STRIDE; the port's
+# Philox counter carries the global chain index instead, so per-chain
+# results do not depend on the block size.
+DRAW_SEED_STRIDE = 104729
+
+
+def derive_draw_seeds(generator: torch.Generator, num_draws: int) -> list:
+    """Per-draw Philox keys: one random base from ``generator`` plus the
+    fixed per-draw stride, as Python ints in [0, 2^32)."""
+    base = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                             device=generator.device))
+    return [(base + t * DRAW_SEED_STRIDE) & MASK32 for t in range(num_draws)]
+
+
+def _popcount_scalar(x: int) -> int:
+    return bin(int(x)).count("1")
+
+
+def _trailing_ones_scalar(x: int) -> int:
+    # popcount(x ^ (x+1)) - 1
+    return _popcount_scalar(x ^ (x + 1)) - 1
 
 
 def _logaddexp(a, b):
@@ -205,9 +226,10 @@ def _apply_im_fn(inverse_mass: torch.Tensor, dim: int) -> Callable:
 def _mass_sqrt(inverse_mass: torch.Tensor) -> torch.Tensor:
     """``sqrt(M)`` such that ``p = z·sqrt(M)ᵀ ~ N(0, M)`` for standard-normal
     ``z``: ``L^{-T}`` with ``L = chol(M^{-1})`` when dense, else
-    ``sqrt(1/M^{-1})``."""
+    ``sqrt(1/M^{-1})``.  The unchecked factorisation does not synchronise
+    the stream."""
     if inverse_mass.ndim == 2:
-        chol = torch.linalg.cholesky(inverse_mass)
+        chol = torch.linalg.cholesky_ex(inverse_mass).L
         eye = torch.eye(inverse_mass.shape[0], dtype=inverse_mass.dtype,
                         device=inverse_mass.device)
         return torch.linalg.solve_triangular(chol.mT, eye, upper=True)

@@ -1,6 +1,9 @@
-"""Step-size adaptation by dual averaging (port of :mod:`aehmc_tpu.step_size`)."""
+"""Step-size adaptation by dual averaging, and the initial step-size search
+(port of :mod:`aehmc_tpu.step_size`)."""
 
 from typing import Callable, Tuple
+
+import torch
 
 from aehmc_tpu_torch import algorithms
 from aehmc_tpu_torch.config import DualAveragingConfig
@@ -23,3 +26,52 @@ def dual_averaging_adaptation(
         return da_update(target_acceptance_rate - acceptance_probability, state)
 
     return da_init, update
+
+
+def find_reasonable_step_size(
+    kernel_step: Callable,
+    state,
+    inverse_mass_matrix,
+    initial_step_size=1.0,
+    target_accept: float = 0.65,
+    max_iters: int = 32,
+    reduce_fn: Callable = None,
+):
+    """Double or halve the step size until the acceptance probability crosses
+    ``target_accept`` (Stan's initial heuristic; port of
+    :func:`aehmc_tpu.step_size.find_reasonable_step_size`).
+
+    ``kernel_step(probe, state, step_size, inverse_mass_matrix)`` returns
+    ``(state, info)`` with ``info.acceptance_probability``; ``probe`` is the
+    probe's index (0, 1, ...), which the caller maps to its randomness as the
+    JAX version splits a key.  ``reduce_fn`` pools a chain batch's
+    acceptance into one scalar.  Each probe reads the pooled acceptance on
+    the host: at most ``max_iters`` synchronisations.
+
+    The search has crossed only when two successive nonzero directions
+    disagree; it returns the step size *at* the crossing (the first probed
+    value whose acceptance landed on the other side of the target), and the
+    user's value when the result is not finite or not positive.
+    """
+    if reduce_fn is None:
+        reduce_fn = lambda a: a  # noqa: E731
+    initial = torch.as_tensor(initial_step_size)
+    last = probed = initial
+    direction = previous = 0
+    i = 0
+
+    def crossed():
+        return previous != 0 and direction != previous
+
+    def usable(x):
+        return bool(torch.isfinite(x) & (x > 0))
+
+    while i < max_iters and not crossed() and usable(last):
+        _, info = kernel_step(i, state, last, inverse_mass_matrix)
+        accept = reduce_fn(info.acceptance_probability)
+        new_direction = 1 if bool(accept > target_accept) else -1
+        factor = 2.0 if new_direction > 0 else 0.5
+        i, last, probed = i + 1, last * factor, last
+        direction, previous = new_direction, direction
+    result = probed if crossed() else last
+    return result if usable(result) else initial

@@ -14,7 +14,16 @@ logistic regression.  Then it drives the port's front door
   the two leapfrog kernels (``fused_logistic_hmc``, ``batched_leapfrog``);
 - phase 11, fused MALA: 150 warmup steps from ε 0.1 and 600 float32 draws
   in segments of 32 (the JAX benchmark's ``mala_10k_fused`` cell);
-- phase 12, fused GHMC at α 0.9: 150 warmup steps and 200 draws.
+- phase 12, fused GHMC at α 0.9: 150 warmup steps and 200 draws;
+- phase 13: the ChEES kernel (``chees_transition``) against its plain
+  version and against the GHMC kernel at α 0;
+- phase 14, the fused ChEES front door: 150 warmup steps from ε 0.05 and
+  200 draws, one launch per step (the JAX benchmark's ``chees_fused`` leg);
+- phases 15-16: the standard-layout NUTS kernels (``nuts_transition_std``,
+  ``nuts_sampling_std``) against their plain versions and kernel 1, then the
+  standard branch of the adaptive driver (150 + 200 launches of kernel 3)
+  and ``sample_fused_logistic`` with bfloat16 operands (one launch of
+  kernel 4).
 
 Launch counts are reset just before each front-door run and read just after.
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one CUDA
@@ -42,7 +51,20 @@ Q_ATOL = 1e-3                 # |q_kernel - q_plain| on those chains
 MCSE_Z = 4.5                  # phases 6, 11, 12: per-dimension mean agreement
 PHASE6_CHAINS = 1024
 MALA_DRAWS, GHMC_DRAWS, SEGMENT, GHMC_ALPHA = 600, 200, 32, 0.9
-LEAPFROG_STEPS = 10           # phase 10
+LEAPFROG_STEPS = 10           # phases 10 and 13
+CHEES_EPS0 = 0.05             # phase 14: initial step size of the search
+CHEES_ACCEPT = (0.55, 0.80)   # phase 14: ChEES targets 0.651
+MAX_L = 1024                  # ChEES trip-count cap
+K7_SHARE = 0.999              # phase 13: kernel 7 vs kernel 5 at alpha 0
+# phase 15: with bfloat16 operands an f32 difference in the last bit can
+# move a bfloat16 rounding of one gradient operand by one step (2^-8
+# relative), so kernel 3 and its plain version agree on q to 1e-2 there
+Q_ATOL_BF16 = 1e-2
+# phase 16: with bfloat16 operands the chains target exp(-U) of the rounded
+# potential, whose means sit a fixed distance from the float32 posterior's
+# (7.6 combined MCSE, under 0.01 posterior sd, in the first run): the bf16
+# run's means are held to BF16_BIAS_SD posterior sd of phase 5's
+BF16_BIAS_SD = 0.02
 # Split R-hat of a stationary chain with autocorrelation time tau and n
 # draws per split chain is about sqrt((n - 1) / (n - tau)), 1.027 for MALA's
 # tau of about 16.5 at 600 draws.  MALA and GHMC are held, per dimension, to
@@ -450,14 +472,446 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
     ]
 
 
-def front_door_checks(torch, diagnostics, res, nuts_mean, what):
-    """The limits of a MALA or GHMC front-door run, set before the run:
-    acceptance, divergences, finite draws, each dimension's split R-hat
+def chees_compare(torch, q_in, kern, plain, what):
+    """ChEES decisions (accepted, divergent, and the kept energy to 1e-5
+    relative) equal on >= 99% of chains; q, the proposed position and the
+    proposed velocity within 1e-3 on those.  Outputs are ``(q, u, g, stats
+    (C, 8), q_proposed, v_proposed)``.  Returns (share, max_abs_err, chains
+    that differ)."""
+    moved_k, moved_p = ((o[0] != q_in).any(dim=1) for o in (kern, plain))
+    sk, sp = kern[3], plain[3]
+    energy = (sk[:, 0] - sp[:, 0]).abs() <= 1e-5 * sp[:, 0].abs().clamp(min=1.0)
+    same = (moved_k == moved_p) & (sk[:, 4] == sp[:, 4]) & energy
+    share = float(same.float().mean())
+    err = max(float((kern[i] - plain[i]).abs()[same].max()) for i in (0, 4, 5))
+    check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
+    check(err <= Q_ATOL, f"{what}: max |q|, |qp|, |vp| error {err:.3g}")
+    return share, err, int((~same).sum())
+
+
+def chees_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
+                 card):
+    """Phases 13-14: the ChEES kernel against its plain version and the GHMC
+    kernel, then the ChEES front door.  Returns kernel 7's entry."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch import chees, hmc
+    from aehmc_tpu_torch.models import logistic_regression
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+
+    dev = q0.device
+    rng = np.random.default_rng(13)
+    pot_grad = lambda q_t: pg(q_t, *data)  # noqa: E731
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    u_t, g_t = pg(q0.T.contiguous(), *data)
+    state = (q0, u_t.reshape(-1), g_t.T.contiguous())
+    im = torch.full((DIM,), IMM, device=dev)
+    steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+    ext = dict(momentum=f32(np.sqrt(1.0 / IMM) * rng.standard_normal((CHAINS, DIM))),
+               u_accept=f32(rng.uniform(size=CHAINS)))
+
+    # ---- phase 13: kernel 7 against its plain version and kernel 5
+    cases = []
+    for rand in (ext, dict(seed=131313)):
+        kern = cf.chees_transition_cuda(*state, im, EPS, steps, data, **rand)
+        plain = cf.chees_transition_plain(*state, im, EPS, LEAPFROG_STEPS,
+                                          pot_grad, **rand)
+        torch.cuda.synchronize()
+        what = f"kernel 7 ({'Philox' if 'seed' in rand else 'external'})"
+        cases.append(chees_compare(torch, q0, kern, plain, what))
+    n = PHASE6_CHAINS
+    A = rng.standard_normal((DIM, DIM))
+    dense = f32(IMM * (A @ A.T / (4 * DIM) + np.eye(DIM)))
+    eps_c = f32(rng.uniform(0.3, 0.6, size=n))
+    small = tuple(x[:n].contiguous() for x in state)
+    small_ext = dict(momentum=ext["momentum"][:n].contiguous(),
+                     u_accept=ext["u_accept"][:n].contiguous())
+    for rand in (small_ext, dict(seed=4242)):
+        kern = cf.chees_transition_cuda(*small, dense, eps_c, steps, data, **rand)
+        plain = cf.chees_transition_plain(*small, dense, eps_c, LEAPFROG_STEPS,
+                                          pot_grad, **rand)
+        torch.cuda.synchronize()
+        what = (f"kernel 7, {n} chains, per-chain eps, dense M^-1 "
+                f"({'Philox' if 'seed' in rand else 'external'})")
+        cases.append(chees_compare(torch, small[0], kern, plain, what))
+    share7 = min(sh for sh, _, _ in cases)
+    err7 = max(e for _, e, _ in cases)
+    k7 = cf.chees_transition_cuda(*state, im, EPS, steps, data, seed=99)
+    k5 = gf.ghmc_transition_cuda(q0.T.contiguous(), u_t, g_t, torch.zeros_like(g_t),
+                                 EPS, 0.0, im, data, num_steps=LEAPFROG_STEPS,
+                                 seed=99)
+    torch.cuda.synchronize()
+    same75 = float((((k7[0] != q0).any(dim=1) == (k5[0].T != q0).any(dim=1))
+                    & (k7[3][:, 4] == k5[4][4])).float().mean())
+    check(same75 >= K7_SHARE,
+          f"kernel 7 vs kernel 5 at alpha 0: decisions agree on {same75:.4f}")
+    bitwise75 = bool(torch.equal(k7[0], k5[0].T))
+
+    def k7_run():
+        return cf.chees_transition_cuda(*state, im, EPS, steps, data, seed=7)
+
+    def p7_run():
+        return cf.chees_transition_plain(*state, im, EPS, LEAPFROG_STEPS,
+                                         pot_grad, seed=7)
+
+    ms7, plain_ms7 = cuda_ms(torch, k7_run, 10), cuda_ms(torch, p7_run, 3)
+    out7 = k7_run()
+    bound7 = bound(LEAPFROG_STEPS * CHAINS * GRAD_FLOP,
+                   nbytes(*state, im, *data, *out7) + 4 + 4)  # eps and L
+    log(f"phase 13: chees_transition vs plain at {CHAINS}x{DIM}, L "
+        f"{LEAPFROG_STEPS}, eps {EPS}, external and Philox, and {n} chains "
+        f"with per-chain eps and a dense M^-1: decisions equal on >= "
+        f"{share7:.4%} of chains ({sum(d for _, _, d in cases)} chain-cases "
+        f"differ), max |q|, |qp|, |vp| err {err7:.3g}; vs ghmc_transition at "
+        f"alpha 0, same seed: decisions equal on {same75:.4%} (positions bit "
+        f"for bit: {bitwise75}); kernel {ms7:.3f} ms, plain {plain_ms7:.3f} "
+        f"ms per transition, bound {bound7[0]:.3f} ms ({bound7[1]}) [{card}]")
+    record["phase13"] = dict(min_share=share7, max_abs_err=err7,
+                             share_vs_kernel5=same75,
+                             bitwise_vs_kernel5=bitwise75, ms=ms7,
+                             plain_ms=plain_ms7, bound_ms=bound7[0])
+
+    # ---- phase 14: the ChEES front door at full width
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+    new_states = torch.func.vmap(lambda q: hmc.new_state(q, logprob_fn))
+    t_first, _ = timed(torch, lambda r: new_states(q0), 1)
+    t_state, _ = timed(torch, lambda r: new_states(q0), 3)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(14), logprob_fn, q0, DRAWS, WARMUP,
+        algorithm="chees", path="fused", data=data, potential_and_grad_t=pg,
+        initial_step_size=CHEES_EPS0)
+    torch.cuda.synchronize()
+    wall14 = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    probes = launches["chees_transition"] - WARMUP - DRAWS
+    check(1 <= probes <= 32 and sum(launches.values())
+          == launches["chees_transition"],
+          f"ChEES front door launches {launches}")
+    steps14 = res.diagnostics.num_integration_steps[:, 0]
+    check(bool((steps14 >= 1).all() & (steps14 <= MAX_L).all()),
+          f"ChEES trip counts out of [1, {MAX_L}]")
+    chees_stats = front_door_checks(torch, diagnostics, res, nuts_mean,
+                                    "ChEES", accept_range=CHEES_ACCEPT)
+    del res
+
+    chees_kernel = cf.make_fused_chees_kernel(None, data,
+                                              potential_and_grad_t=pg)
+    warm_steps = []  # the trip count of every warmup launch, on the card
+
+    def kernel_fn(key, states_, eps, num_steps, imm):
+        warm_steps.append(num_steps)
+        return chees_kernel(key, states_, eps, num_steps, imm)
+
+    states = cf.initial_states(None, pg, data, q0)
+
+    def warmup_run(r):
+        warm_steps.clear()
+        return chees.warmup(torch.Generator().manual_seed(140 + r), None,
+                            states, WARMUP, initial_step_size=CHEES_EPS0,
+                            kernel_fn=kernel_fn)
+
+    t_warm, wres = timed(torch, warmup_run, 3)
+    warm_l = float(torch.stack(warm_steps).sum())
+    warm_launches = len(warm_steps)
+    # the warmup's kernel time at phase 13's rate per leapfrog step
+    warm_kernel_s = warm_l * ms7 / LEAPFROG_STEPS / 1e3
+    eps14, h14 = float(wres.step_size), float(wres.trajectory_length)
+    check(h14 > eps14, f"ChEES h {h14} not above eps {eps14}")
+    t_samp, (_, pos14, info14) = timed(torch, lambda r: chees.sample(
+        torch.Generator().manual_seed(150 + r), None, wres.states, DRAWS,
+        wres.step_size, wres.trajectory_length, wres.inverse_mass_matrix,
+        kernel_fn=kernel_fn), 5)
+    steps_sum = float(info14.num_integration_steps.sum())
+    evals = steps_sum * CHAINS
+    bulk, tail = bulk_tail_ess(torch, diagnostics, pos14.transpose(0, 1))
+    ess = float(torch.minimum(bulk, tail).clamp(max=CHAINS * DRAWS).sum())
+    ess_s, e2e = ess / t_samp, ess / (t_warm + t_samp)
+    del pos14
+    log(f"phase 14: ChEES front door {CHAINS}x{DIM}, {WARMUP} warmup from eps "
+        f"{CHEES_EPS0} + {DRAWS} draws in {wall14:.2f} s (chain states by "
+        f"hmc.new_state {t_state:.3f} s, its first call in the process "
+        f"{t_first:.3f} s); launches {probes} "
+        f"probes + {WARMUP} + {DRAWS} = {launches['chees_transition']}; "
+        f"accept {chees_stats['accept']:.4f}, divergent "
+        f"{chees_stats['divergent_share']:.2e}, eps "
+        f"{chees_stats['step_size']:.4f}, mean L {float(steps14.float().mean()):.2f}, "
+        f"max R-hat {chees_stats['max_rhat']:.4f} (max excess over stationary "
+        f"{chees_stats['max_rhat_excess']:.4f}, tau max "
+        f"{chees_stats['tau_max']:.2f}), means within "
+        f"{chees_stats['max_z_vs_nuts']:.2f} MCSE of NUTS; timed: warmup "
+        f"{t_warm:.3f} s (eps {eps14:.4f}, h {h14:.3f}; {warm_launches} "
+        f"launches, sum of L {warm_l:.0f}, kernel time at phase 13's rate "
+        f"{warm_kernel_s:.3f} s), sampling "
+        f"{t_samp:.3f} s, mean L {steps_sum / DRAWS:.2f}, "
+        f"{evals / t_samp / 1e6:.2f}M grad-evals/s, {ess_s / 1e6:.2f}M ESS/s "
+        f"sampling, {e2e / 1e6:.2f}M ESS/s end to end, bulk ESS min "
+        f"{float(bulk.min()):.0f} median {float(bulk.median()):.0f} of "
+        f"{CHAINS * DRAWS} [{card}]")
+    record["phase14"] = dict(wall_s=wall14, new_state_s=t_state,
+                             new_state_first_s=t_first,
+                             launches=launches, probes=probes,
+                             mean_steps_front_door=float(steps14.float().mean()),
+                             **chees_stats, warmup_wall_s=t_warm,
+                             sampling_wall_s=t_samp, timed_step_size=eps14,
+                             warmup_launches=warm_launches,
+                             warmup_sum_steps=warm_l,
+                             warmup_kernel_s=warm_kernel_s,
+                             timed_trajectory_length=h14,
+                             mean_steps=steps_sum / DRAWS,
+                             grad_evals_per_s=evals / t_samp,
+                             sampling_ess_per_s=ess_s, e2e_ess_per_s=e2e,
+                             bulk_ess_min=float(bulk.min()),
+                             bulk_ess_median=float(bulk.median()),
+                             tail_ess_min=float(tail.min()))
+    return kernel_entry("chees_transition", "chees_fused.cu",
+                        "aehmc_tpu/ops/chees_fused.py:61",
+                        launches["chees_transition"], err7, ms7, plain_ms7,
+                        bound7)
+
+
+def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
+                         card):
+    """Phases 15-16: the standard-layout NUTS kernels against their plain
+    versions and kernel 1, then the standard branch of the adaptive driver
+    and ``sample_fused_logistic``.  Returns kernels 3 and 4's entries."""
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
+    from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
+    from aehmc_tpu_torch.ops.philox import MASK32
+
+    dev = q0.device
+    rng = np.random.default_rng(15)
+    X, y = data[0], data[2].reshape(-1)
+    im = torch.full((DIM,), IMM, device=dev)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    models = {cdt: nf._logistic_model(X, y, 1.0, cdt)
+              for cdt in (torch.float32, torch.bfloat16)}
+    u0, g0 = models[torch.float32].pot_grad(q0)
+    ext = dict(momentum=f32(np.sqrt(1.0 / IMM) * rng.standard_normal((CHAINS, DIM))),
+               directions=f32(np.where(rng.uniform(size=(CHAINS, K)) < 0.5, -1.0, 1.0)),
+               u_bias=f32(rng.uniform(size=(CHAINS, K))),
+               u_leaf=f32(rng.uniform(size=(CHAINS, 2**K))))
+
+    # ---- phase 15: kernel 3 against its plain version (f32, bf16), against
+    # kernel 1, and kernel 4 against 20 launches of kernel 3
+    shares, errs = {}, {}
+    for cdt, atol in ((torch.float32, Q_ATOL), (torch.bfloat16, Q_ATOL_BF16)):
+        model = models[cdt]
+        for rand in (ext, dict(seed=515151)):
+            kern = nf.nuts_transition_std_cuda(q0, u0, g0, im, EPS, model.data,
+                                               max_exp=K, card=model.card, **rand)
+            plain = nf.nuts_transition_std_plain(
+                q0, u0, g0, im, EPS, model.pot_grad,
+                max_exp=K, **rand)
+            torch.cuda.synchronize()
+            same = same_decisions(kern[3].T, plain[3].T)
+            share = float(same.float().mean())
+            err = float((kern[0] - plain[0]).abs()[same].max())
+            what = (f"kernel 3 ({'bf16' if model.card[1] else 'f32'}, "
+                    f"{'Philox' if 'seed' in rand else 'external'})")
+            check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
+            check(err <= atol, f"{what}: max |q| error {err:.3g}")
+            key = "bf16" if model.card[1] else "f32"
+            shares[key] = min(shares.get(key, 1.0), share)
+            errs[key] = max(errs.get(key, 0.0), err)
+    f32m, b16m = models[torch.float32], models[torch.bfloat16]
+    k3 = nf.nuts_transition_std_cuda(q0, u0, g0, im, EPS, f32m.data, max_exp=K,
+                                     seed=2468)
+    k1 = nfs.nuts_transition_cuda(q0.T.contiguous(), u0.T.contiguous(),
+                                  g0.T.contiguous(), im, EPS, data, max_exp=K,
+                                  seed=2468)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b.T.reshape(a.shape)) for a, b in zip(k3, k1)),
+          "kernel 3 on q differs from kernel 1 on q^T")
+    n4, seed = 20, 97531
+    pos, stats, *final = nf.nuts_sampling_std_cuda(
+        q0, u0, g0, im, EPS, b16m.data, seed, n4, max_exp=K, card=b16m.card)
+    st_k = (q0, u0, g0)
+    for t in range(n4):
+        *st_k, st = nf.nuts_transition_std_cuda(
+            *st_k, im, EPS, b16m.data, max_exp=K, card=b16m.card,
+            seed=(seed + t * DRAW_SEED_STRIDE) & MASK32)
+        check(torch.equal(st, stats[t]) and torch.equal(st_k[0], pos[t]),
+              f"kernel 4 draw {t} differs from kernel 3")
+    check(all(torch.equal(a, b) for a, b in zip(final, st_k)),
+          "kernel 4 final state differs from kernel 3")
+    # against the plain version with float32 operands: over 20 draws a
+    # bf16 rounding step (see Q_ATOL_BF16) compounds into other decisions
+    pos32, stats32, *_ = nf.nuts_sampling_std_cuda(
+        q0, u0, g0, im, EPS, f32m.data, seed, n4, max_exp=K, card=f32m.card)
+    pos_p, stats_p, *_ = nf._sampling_plain(
+        f32m, q0, u0, g0, im, EPS, seed, n4, max_exp=K,
+        divergence_threshold=1000.0, collect_positions=True)
+    same4 = same_decisions(stats32.transpose(1, 2), stats_p.transpose(1, 2))
+    share4 = float(same4.float().mean())
+    err4 = float((pos32 - pos_p).abs()[:, same4].max())
+    check(share4 >= DECISION_SHARE,
+          f"kernel 4 vs plain: decisions agree on {share4:.4f}")
+    check(err4 <= Q_ATOL, f"kernel 4 vs plain: max |q| error {err4:.3g}")
+    del pos32, pos_p
+
+    def k3_run():
+        return nf.nuts_transition_std_cuda(q0, u0, g0, im, EPS, f32m.data,
+                                           max_exp=K, seed=11)
+
+    def p3_run():
+        return nf.nuts_transition_std_plain(
+            q0, u0, g0, im, EPS, f32m.pot_grad,
+            max_exp=K, seed=11)
+
+    def k4_run():
+        return nf.nuts_sampling_std_cuda(q0, u0, g0, im, EPS, b16m.data, seed,
+                                         n4, max_exp=K, card=b16m.card)
+
+    def p4_run():
+        return nf._sampling_plain(b16m, q0, u0, g0, im, EPS, seed, n4,
+                                  max_exp=K, divergence_threshold=1000.0,
+                                  collect_positions=True)
+
+    ms3, plain_ms3 = cuda_ms(torch, k3_run, 5), cuda_ms(torch, p3_run, 3)
+    ms4, plain_ms4 = cuda_ms(torch, k4_run, 3), cuda_ms(torch, p4_run, 1)
+    ms4_f32 = cuda_ms(torch, lambda: nf.nuts_sampling_std_cuda(
+        q0, u0, g0, im, EPS, f32m.data, seed, n4, max_exp=K), 3)
+    out3 = k3_run()
+    bound3 = bound(float(out3[3][:, 3].sum()) * GRAD_FLOP,
+                   nbytes(q0, u0, g0, im, *f32m.data, *out3))
+    bound4 = bound(float(stats[:, :, 3].sum()) * GRAD_FLOP,
+                   nbytes(q0, u0, g0, im, *b16m.data, pos, stats, *final))
+    log(f"phase 15: nuts_transition_std vs plain at {CHAINS}x{DIM}, K={K}: "
+        f"decisions equal on >= {shares['f32']:.4%} (f32) and "
+        f"{shares['bf16']:.4%} (bf16 operands) of chains, max |q| err "
+        f"{errs['f32']:.3g} / {errs['bf16']:.3g}; Philox kernel 3 on q == "
+        f"kernel 1 on q^T bit for bit; nuts_sampling_std over {n4} draws == "
+        f"{n4} kernel 3 launches bit for bit (bf16 operands), vs plain "
+        f"(f32 operands): decisions equal on {share4:.4%}, max |q| err "
+        f"{err4:.3g}; kernel 3 {ms3:.3f} ms (plain {plain_ms3:.3f}, bound "
+        f"{bound3[0]:.3f} ms {bound3[1]}), kernel 4 {ms4:.2f} ms per {n4} "
+        f"draws with bf16 operands, {ms4_f32:.2f} ms with f32 (plain "
+        f"{plain_ms4:.2f}, bound {bound4[0]:.3f} ms {bound4[1]}) [{card}]")
+    record["phase15"] = dict(share_f32=shares["f32"], share_bf16=shares["bf16"],
+                             max_abs_err_f32=errs["f32"],
+                             max_abs_err_bf16=errs["bf16"], share4=share4,
+                             max_abs_err4=err4, ms3=ms3, plain_ms3=plain_ms3,
+                             bound_ms3=bound3[0], ms4=ms4, ms4_f32=ms4_f32,
+                             plain_ms4=plain_ms4, bound_ms4=bound4[0])
+    del pos
+
+    # ---- phase 16: the standard-layout path at full width
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qf, pos16, stats16, eps16, imm16 = sample_fused_adaptive(
+        torch.Generator().manual_seed(16), nf.logistic_potential,
+        f32m.data, q0, DRAWS, WARMUP, max_num_expansions=K,
+        initial_step_size=0.1)
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    launches3 = dict(ops.LAUNCHES)
+    check(launches3["nuts_transition_std"] == WARMUP + DRAWS
+          and sum(launches3.values()) == WARMUP + DRAWS,
+          f"standard driver launches {launches3}")
+    std_stats = nuts_limits(torch, diagnostics, pos16, stats16, eps16,
+                            nuts_mean, "standard-layout NUTS")
+    del pos16
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pos16b, stats16b = nf.sample_fused_logistic(
+        torch.Generator().manual_seed(161), X, y, qf, DRAWS, eps16, imm16,
+        max_num_expansions=K, loop_in_kernel=True)
+    torch.cuda.synchronize()
+    wall16b = time.perf_counter() - t0
+    launches4 = dict(ops.LAUNCHES)
+    check(launches4["nuts_sampling_std"] == 1 and sum(launches4.values()) == 1,
+          f"sample_fused_logistic launches {launches4}")
+    bf16_stats = nuts_limits(torch, diagnostics, pos16b, stats16b, eps16,
+                             nuts_mean, "sample_fused_logistic (bf16)",
+                             bias_sd=BF16_BIAS_SD)
+    evals16b = float(stats16b[:, :, 3].sum())
+    del pos16b
+    log(f"phase 16: standard driver {CHAINS}x{DIM}, {WARMUP} warmup + {DRAWS} "
+        f"draws in {wall16:.2f} s, launches {launches3['nuts_transition_std']} "
+        f"nuts_transition_std; eps {float(eps16):.4f}, accept "
+        f"{std_stats['accept']:.4f}, divergent {std_stats['divergent_share']:.2e}, "
+        f"max R-hat {std_stats['max_rhat']:.4f}, means within "
+        f"{std_stats['max_z_vs_nuts']:.2f} MCSE of NUTS; then "
+        f"sample_fused_logistic (bf16 operands) {DRAWS} draws in one "
+        f"nuts_sampling_std launch, {wall16b:.3f} s, "
+        f"{evals16b / wall16b / 1e6:.2f}M grad-evals/s, accept "
+        f"{bf16_stats['accept']:.4f}, divergent "
+        f"{bf16_stats['divergent_share']:.2e}, max R-hat "
+        f"{bf16_stats['max_rhat']:.4f}, means within "
+        f"{bf16_stats['max_z_vs_nuts']:.2f} MCSE "
+        f"({bf16_stats['max_mean_shift_sd']:.4f} posterior sd) of NUTS "
+        f"[{card}]")
+    record["phase16"] = dict(wall_s=wall16, launches=launches3,
+                             step_size=float(eps16), **std_stats,
+                             bf16=dict(wall_s=wall16b, launches=launches4,
+                                       grad_evals_per_s=evals16b / wall16b,
+                                       **bf16_stats))
+    return [
+        kernel_entry("nuts_transition_std", "nuts_fused.cu",
+                     "aehmc_tpu/ops/nuts_fused.py:452",
+                     launches3["nuts_transition_std"], errs["f32"], ms3,
+                     plain_ms3, bound3),
+        kernel_entry("nuts_sampling_std", "nuts_fused.cu",
+                     "aehmc_tpu/ops/nuts_fused.py:507",
+                     launches4["nuts_sampling_std"], err4, ms4, plain_ms4,
+                     bound4),
+    ]
+
+
+def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
+                what, bias_sd=None):
+    """Phase 5's limits on a NUTS run (stats ``(draws, chains, 8)``), and its
+    means within MCSE_Z combined MCSE of phase 5's, or within ``bias_sd``
+    posterior standard deviations when given."""
+    draws = positions.float().transpose(0, 1)  # (chains, draws, dim)
+    rhat = float(chunked(torch, lambda v: diagnostics.potential_scale_reduction(
+        v, rank_normalized=True), draws, 20).max())
+    mean, mcse = mean_mcse(torch, diagnostics, draws)
+    z = float(((mean - nuts_mean[0]).abs()
+               / torch.sqrt(mcse**2 + nuts_mean[1]**2)).max())
+    sd = draws.reshape(-1, draws.shape[2]).std(dim=0)
+    shift_sd = float(((mean - nuts_mean[0]).abs() / sd).max())
+    out = dict(accept=float(stats[:, :, 1].mean()),
+               divergent_share=float(stats[:, :, 4].mean()), max_rhat=rhat,
+               max_z_vs_nuts=z, max_mean_shift_sd=shift_sd,
+               finite=bool(torch.isfinite(draws).all()))
+    eps = float(step_size)
+    check(0.7 <= out["accept"] <= 0.9, f"{what} mean acceptance {out['accept']}")
+    check(out["divergent_share"] < 1e-4,
+          f"{what} divergent share {out['divergent_share']}")
+    check(0.4 <= eps <= 0.65, f"{what} tuned step size {eps}")
+    check(rhat < 1.01, f"{what} max R-hat {rhat}")
+    if bias_sd is None:
+        check(z < MCSE_Z, f"{what} posterior means differ from NUTS by {z} MCSE")
+    else:
+        check(shift_sd < bias_sd, f"{what} posterior means differ from NUTS "
+              f"by {shift_sd} posterior sd ({z} MCSE)")
+    check(out["finite"], f"{what}: non-finite draws")
+    return out
+
+
+def front_door_checks(torch, diagnostics, res, nuts_mean, what,
+                      accept_range=(0.7, 0.9)):
+    """The limits of a MALA, GHMC or ChEES front-door run, set before the
+    run: acceptance, divergences, finite draws, each dimension's split R-hat
     within RHAT_EXCESS of its stationary value, and each posterior mean
     within MCSE_Z combined MCSE of the NUTS run's (``nuts_mean``: means and
     MCSE)."""
     diag = res.diagnostics
-    x = res.positions.transpose(0, 1)  # (chains, draws, dim)
+    x = res.positions.float().transpose(0, 1)  # (chains, draws, dim)
     rhat = chunked(torch, lambda v: diagnostics.potential_scale_reduction(
         v, rank_normalized=True), x, 20)
     ess = chunked(torch, diagnostics.effective_sample_size, x, 10)
@@ -476,7 +930,8 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what):
         max_z_vs_nuts=float(z.max()),
         finite=bool(torch.isfinite(res.positions).all()),
     )
-    check(0.7 <= out["accept"] <= 0.9, f"{what} mean acceptance {out['accept']}")
+    check(accept_range[0] <= out["accept"] <= accept_range[1],
+          f"{what} mean acceptance {out['accept']}")
     check(out["divergent_share"] < 1e-4,
           f"{what} divergent share {out['divergent_share']}")
     check(out["max_rhat_excess"] < RHAT_EXCESS,
@@ -758,6 +1213,10 @@ def main():
     record["phase4"]["bound_ms"] = bound2[0]
     ghmc = ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                        nuts_mean, card)
+    chees_entry = chees_phases(torch, ops, diagnostics, data, pg, q0, record,
+                               nuts_mean, card)
+    standard = standard_nuts_phases(torch, ops, diagnostics, data, q0, record,
+                                    nuts_mean, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -767,7 +1226,10 @@ def main():
         kernel_entry("nuts_sampling", "nuts_fused_small.cu",
                      "aehmc_tpu/ops/nuts_fused_small.py:545",
                      launches["nuts_sampling"], err4, ms2, plain_ms2, bound2),
-        *ghmc,
+        *standard,
+        *ghmc[:2],
+        chees_entry,
+        *ghmc[2:],
     ]
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -5,10 +5,14 @@ machine with only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 
-Decisions (NUTS: doublings, leaves, divergent, turning; GHMC: accepted,
-divergent) must be equal; positions agree to 1e-4 (float32 products summed
-in another order than the plain version's matmuls).  The whole-run NUTS
-kernel equals one launch per draw bit for bit, the GHMC segment kernel its
+Decisions (NUTS: doublings, leaves, divergent, turning; GHMC and ChEES:
+accepted, divergent) must be equal; positions agree to 1e-4 (float32
+products summed in another order than the plain version's matmuls).  With
+bfloat16 operands an f32 difference in the last bit can move a bfloat16
+rounding by one step (2^-8 relative) in one operand of the gradient, so the
+standard NUTS kernel's positions agree to 1e-2 there.  The whole-run NUTS
+kernels equal one launch per draw bit for bit, the standard-layout
+transition of q the transposed one of qᵀ, the GHMC segment kernel its
 transitions, and the batched leapfrog kernel its plain version.
 """
 
@@ -30,6 +34,8 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
     ghmc_transition_cuda,
     ghmc_transition_plain,
 )
+from aehmc_tpu_torch.ops import chees_fused, nuts_fused
+from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
 from aehmc_tpu_torch.ops.fused_hmc import fused_logistic_hmc_reference
 from aehmc_tpu_torch.ops.leapfrog import batched_leapfrog_reference
 from aehmc_tpu_torch.ops.philox import MASK32
@@ -142,8 +148,10 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
         potential_and_grad_t=pg, collect_dtype=torch.bfloat16,
     )
     assert LAUNCHES == {"nuts_transition": 30, "nuts_sampling": 1,
-                        "ghmc_transition": 0, "ghmc_segment": 0,
-                        "fused_logistic_hmc": 0, "batched_leapfrog": 0}
+                        "nuts_transition_std": 0, "nuts_sampling_std": 0,
+                        "chees_transition": 0, "ghmc_transition": 0,
+                        "ghmc_segment": 0, "fused_logistic_hmc": 0,
+                        "batched_leapfrog": 0}
     assert res.positions.dtype == torch.bfloat16 and res.positions.is_cuda
     assert bool(torch.isfinite(res.positions.float()).all())
 
@@ -249,3 +257,146 @@ def test_front_door_mala_and_ghmc_on_the_card(cuda_device, algorithm):
     assert LAUNCHES["ghmc_transition"] == 30 and LAUNCHES["ghmc_segment"] == 4
     assert res.positions.shape == (50, 256, 16) and res.positions.is_cuda
     assert bool(torch.isfinite(res.positions).all())
+
+
+def _std_case(device, chains=13):
+    """A ragged block of the standard layout: 13 chains, 8 a block."""
+    _, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=device)
+    rng = np.random.default_rng(4)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    q = f32(0.3 * rng.normal(size=(chains, DIM)))
+    u_t, g_t = pg(q.T.contiguous(), *data)
+    ext = dict(momentum=f32(rng.normal(size=(chains, DIM))),
+               directions=f32(np.where(rng.uniform(size=(chains, MAX_EXP)) < 0.5,
+                                       -1.0, 1.0)),
+               u_bias=f32(rng.uniform(size=(chains, MAX_EXP))),
+               u_leaf=f32(rng.uniform(size=(chains, 2**MAX_EXP))))
+    return pg, data, q, u_t.reshape(-1), g_t.T.contiguous(), ext
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("philox", [False, True])
+@pytest.mark.parametrize("num_steps", [1, 6])
+def test_cuda_chees_transition_matches_plain(cuda_device, dense, philox,
+                                             num_steps):
+    pg, data, q, u, g, ext = _std_case(cuda_device)
+    rng = np.random.default_rng(5)
+    if dense:
+        A = rng.normal(size=(DIM, DIM))
+        imm = A @ A.T / DIM + np.eye(DIM)
+        eps = torch.tensor(rng.uniform(0.2, 0.5, size=13), dtype=torch.float32,
+                           device=cuda_device)
+    else:
+        imm, eps = np.full(DIM, 0.8), 0.4
+    imm = torch.tensor(imm, dtype=torch.float32, device=cuda_device)
+    rand = (dict(seed=33) if philox else
+            dict(momentum=ext["momentum"], u_accept=ext["u_bias"][:, 0].contiguous()))
+    steps = torch.full((), num_steps, dtype=torch.int32, device=cuda_device)
+    reset_launch_counts()
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, eps, steps, data,
+                                             **rand)
+    plain = chees_fused.chees_transition_plain(
+        q, u, g, imm, eps, num_steps, lambda x: pg(x, *data), **rand)
+    torch.cuda.synchronize()
+    assert LAUNCHES["chees_transition"] == 1
+    moved_k, moved_p = ((o[0] != q).any(dim=1) for o in (kern, plain))
+    assert torch.equal(moved_k, moved_p) and bool(moved_k.any())
+    assert torch.equal(kern[3][:, 2:5], plain[3][:, 2:5])
+    assert bool((kern[3][:, 3] == num_steps).all())
+    for a, b in zip(kern, plain):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_standard_nuts_transition_matches_plain(cuda_device, bf16, philox):
+    pg, data, q, u, g, ext = _std_case(cuda_device)
+    X, y = data[0], data[2].reshape(-1)
+    mdt = torch.bfloat16 if bf16 else torch.float32
+    streams = dict(seed=71) if philox else ext
+    full = {**dict.fromkeys(("momentum", "directions", "u_bias", "u_leaf")),
+            **streams}
+    imm = torch.full((DIM,), 0.9, device=cuda_device)
+    reset_launch_counts()
+    kern = nuts_fused.fused_nuts_transition(
+        q, u.reshape(-1, 1), g, full["momentum"], full["directions"],
+        full["u_bias"], full["u_leaf"], X, y, imm, 0.3, MAX_EXP,
+        matmul_dtype=mdt, seed=streams.get("seed"))
+    model = nuts_fused._logistic_model(X, y, 1.0, mdt)
+    plain = nuts_fused.nuts_transition_std_plain(
+        q, u, g, imm, 0.3, model.pot_grad,
+        max_exp=MAX_EXP, **streams)
+    torch.cuda.synchronize()
+    assert LAUNCHES["nuts_transition_std"] == 1
+    np.testing.assert_array_equal(kern[3][:, 2:6].cpu(), plain[3][:, 2:6].cpu())
+    tol = 1e-2 if bf16 else 1e-4
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_standard_kernels_are_the_transposed_ones_and_the_whole_run(
+        cuda_device, bf16):
+    pg, data, q, u, g, _ = _std_case(cuda_device)
+    imm = torch.full((DIM,), 0.9, device=cuda_device)
+    model = nuts_fused._logistic_model(data[0], data[2].reshape(-1), 1.0,
+                                       torch.bfloat16 if bf16 else torch.float32)
+    if not bf16:  # kernel 3 on q is kernel 1 on qᵀ
+        std = nuts_fused.nuts_transition_std_cuda(
+            q, u, g, imm, 0.3, model.data, max_exp=MAX_EXP, seed=8)
+        tr = make_fused_nuts_transition_small(
+            None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+            transposed_io=True)(q.T.contiguous(), u.reshape(1, -1),
+                                g.T.contiguous(), None, None, None, None, imm,
+                                0.3, seed=8)
+        for a, b in zip(std, tr):
+            assert torch.equal(a, b.T.reshape(a.shape))
+    draws, seed = 4, 19
+    pos, stats, *final = nuts_fused.nuts_sampling_std_cuda(
+        q, u, g, imm, 0.3, model.data, seed, draws, max_exp=MAX_EXP,
+        card=model.card)
+    state = (q, u.reshape(-1, 1), g)
+    for t in range(draws):
+        *state, st = nuts_fused.nuts_transition_std_cuda(
+            *state, imm, 0.3, model.data, max_exp=MAX_EXP, card=model.card,
+            seed=(seed + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(state[0], pos[t])
+    for a, b in zip(final, state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_front_door_chees_and_standard_driver_on_the_card(cuda_device):
+    pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                device=cuda_device)
+    X = data[0]
+
+    def logprob_fn(w):
+        logits = X @ w
+        return (torch.sum(data[2].reshape(-1) * logits
+                          - torch.nn.functional.softplus(logits))
+                - 0.5 * torch.sum(w * w))
+
+    gen = torch.Generator().manual_seed(0)
+    q0 = (0.1 * torch.randn(256, 16, generator=gen)).to(cuda_device)
+    reset_launch_counts()
+    res = aehmc_tpu_torch.sample(
+        gen, logprob_fn, q0, 40, 30, algorithm="chees", path="fused",
+        data=data, potential_and_grad_t=pg)
+    probes = LAUNCHES["chees_transition"] - 70
+    assert 1 <= probes <= 32
+    assert res.positions.shape == (40, 256, 16) and res.positions.is_cuda
+    assert bool(torch.isfinite(res.positions).all())
+    reset_launch_counts()
+    out = sample_fused_adaptive(
+        gen, nuts_fused.logistic_potential,
+        (X, data[1], data[2].reshape(1, -1)), q0, 20, 30,
+        max_num_expansions=MAX_EXP)
+    assert LAUNCHES["nuts_transition_std"] == 50
+    assert out[1].shape == (20, 256, 16) and bool(torch.isfinite(out[1]).all())
