@@ -89,7 +89,8 @@ def sample(
     (:func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`), the
     others go to :func:`aehmc_tpu_torch.parallel.sample_sharded`
     (``initial_step_size`` 1.0 and ``search_initial_step_size`` True by
-    default, ``streams`` to replay given randomness).
+    default); its ``generator`` may be a key source ``(phase, index) ->
+    key`` that replays given randomness.
 
     Returns a ``SampleResult`` with ``positions`` ``(draws, chains, dim)``.
     """

@@ -2,7 +2,9 @@
 // `chees_transition`, one whole transition per chain (momentum draw, L
 // velocity-Verlet steps, Metropolis-Hastings), returning besides the kept
 // state the proposed endpoint position and velocity of every chain, which
-// the ChEES criterion's cross-chain gradient reads.
+// the ChEES criterion's cross-chain gradient reads.  It instantiates the HMC
+// core of hmc_core.cuh (the GHMC kernels' core) at α 0, in the standard
+// (C, dim) layout, with a diagonal or dense M⁻¹.
 //
 // Replaces the TPU kernel aehmc_tpu/ops/chees_fused.py:_make_chees_kernel_t
 // (:61), launched by make_fused_chees_transition (:314), with the logistic
@@ -10,226 +12,15 @@
 // its body on the flagship.  The plain PyTorch version is
 // aehmc_tpu_torch/ops/chees_fused.py:chees_transition_plain.
 //
-// What bounds it on the card: the L gradients, each 2·N·dim float32
-// multiply-adds per chain; X and Xᵀ stream from L2 for every gradient of a
-// block, as in the NUTS and GHMC kernels.  The momentum draw, the
-// trajectory updates and the accept test are a few passes over dim floats.
-//
-// Design.  The GHMC kernel's layout: one warp per chain, CB = 8 chains per
-// block, the potential computed by the whole block for its 8 chains.  Every
-// chain takes the same L (ChEES shares the trip count), so no warp idles.
-// L is read from a device int32, so the driver computes it on the card
-// (clip(ceil(jitter·h/ε), 1, max)) and nothing synchronises the stream.  The
-// chain state is (C, dim) in global memory, a warp reading and writing its
-// chain's rows contiguously; in shared memory a block keeps q, ∇U, the
-// trajectory's q, p, ∇U and a scratch row per chain, the diagonal M⁻¹ once,
-// and the functor's scratch (about 37 KB at dim 100).  A dense M⁻¹ and its
-// square root are read from global memory (L1/L2).  The kinetic energy is a
-// warp sum in a fixed order and products use explicit fmaf or none
-// (-fmad=false).  A rejected proposal may hold inf positions: the outputs
-// are true selects.
-//
-// Randomness is external (p ~ N(0, M) and the MH uniform as tensors) or
-// Philox keyed by the call's seed with GHMC's streams: the MOMENTUM stream's
-// normals z (p = √(1/M⁻¹)·z, or L⁻ᵀ z with a dense M⁻¹) and the ACCEPT
-// uniform (ops/philox.py:ghmc_streams), on the global chain index.
+// The trip count L, shared by every chain, is read from a device int32: the
+// driver computes it on the card, so nothing synchronises the stream.  The
+// momentum is external (p ~ N(0, M)) or drawn from Philox with GHMC's
+// streams, so at α 0 this kernel equals `ghmc_transition` bit for bit.
 
-#include "logistic_pg.cuh"
+#include "hmc_core.cuh"
 
 using namespace aehmc;
-
-namespace {
-
-struct Params {
-  const float* eps;  // (C,)
-  const float* im;   // M⁻¹: (dim,) diagonal or (dim, dim) dense
-  const float* ms;   // L⁻ᵀ (dim, dim): dense metric with Philox only
-  int dense;
-  const int* L;      // the shared trip count, a device int32
-  float thr;
-  int dim, C;
-  int ds;            // row stride in shared memory: dim rounded up to 4
-};
-
-// randomness of one transition: external tensors or a Philox key
-struct Rand {
-  const float* p;   // (C, dim): p ~ N(0, M)
-  const float* ua;  // (C,)
-  uint32_t seed;
-  int seeded;
-};
-
-struct Smem {
-  float *q, *g, *tq, *tp, *tg, *tmp, *im, *rbuf, *gpart, *nu;
-};
-
-constexpr int NUM_ROWS = 6;  // per-chain row arrays of Smem
-// blocks per SM the register allocation must allow, as the GHMC kernels
-constexpr int MIN_BLOCKS = 3;
-
-__host__ __device__ inline size_t smem_floats(int ds) {
-  const size_t V = (size_t)CB * ds;
-  return (NUM_ROWS + 2) * V + ds + (size_t)CB * NT + CB;
-}
-
-__device__ inline Smem carve(float* base, int ds) {
-  const size_t V = (size_t)CB * ds;
-  Smem s;
-  s.q = base;
-  s.g = s.q + V;
-  s.tq = s.g + V;
-  s.tp = s.tq + V;
-  s.tg = s.tp + V;
-  s.tmp = s.tg + V;
-  s.im = s.tmp + V;
-  s.rbuf = s.im + ds;
-  s.gpart = s.rbuf + (size_t)CB * NT;
-  s.nu = s.gpart + 2 * V;
-  return s;
-}
-
-// out = mat v for one chain's row; the warp's lanes own the output
-// dimensions
-__device__ void apply_dense(const float* mat, const float* v, float* out,
-                            int dim, int lane) {
-  __syncwarp();
-  for (int d = lane; d < dim; d += 32) {
-    float acc = 0.f;
-    for (int j = 0; j < dim; ++j)
-      acc = fmaf(__ldg(mat + (size_t)d * dim + j), v[j], acc);
-    out[d] = acc;
-  }
-  __syncwarp();
-}
-
-// out = M⁻¹ p
-__device__ void apply_im(const Params& P, const float* im, const float* p,
-                         float* out, int lane) {
-  if (P.dense) {
-    apply_dense(P.im, p, out, P.dim, lane);
-  } else {
-    for (int d = lane; d < P.dim; d += 32) out[d] = im[d] * p[d];
-    __syncwarp();
-  }
-}
-
-// 0.5 pᵀ M⁻¹ p, tmp a scratch row
-__device__ float kinetic(const Params& P, const float* im, const float* p,
-                         float* tmp, int lane) {
-  float acc = 0.f;
-  if (P.dense) {
-    apply_dense(P.im, p, tmp, P.dim, lane);
-    for (int d = lane; d < P.dim; d += 32) acc += p[d] * tmp[d];
-  } else {
-    for (int d = lane; d < P.dim; d += 32) acc += p[d] * (im[d] * p[d]);
-  }
-  return 0.5f * warp_sum(acc);
-}
-
-template <class PG>
-__global__ void __launch_bounds__(NT, MIN_BLOCKS)
-    chees_transition_kernel(Params P, PG pg_fn, Rand R, const float* q,
-                            const float* u, const float* g, float* q_out,
-                            float* u_out, float* g_out, float* stats,
-                            float* qp_out, float* vp_out) {
-  extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds);
-  const int t = threadIdx.x, w = t / 32, lane = t % 32;
-  const int chain = blockIdx.x * CB + w;
-  const bool valid = chain < P.C;
-  const int dim = P.dim, ds = P.ds;
-  float* const cq = S.q + w * ds;
-  float* const cg = S.g + w * ds;
-  float* const tq = S.tq + w * ds;
-  float* const tp = S.tp + w * ds;
-  float* const tg = S.tg + w * ds;
-  float* const tmp = S.tmp + w * ds;
-  const float* const im = S.im;
-  const int L = *P.L;
-
-  if (!P.dense)
-    for (int d = t; d < dim; d += NT) S.im[d] = P.im[d];
-  const size_t row = (size_t)chain * dim;
-  for (int d = lane; d < dim; d += 32) {
-    cq[d] = tq[d] = valid ? q[row + d] : 0.f;
-    cg[d] = tg[d] = valid ? g[row + d] : 0.f;
-    tp[d] = 0.f;
-  }
-  __syncthreads();
-  const float eps = valid ? P.eps[chain] : 0.f;
-  const float h = 0.5f * eps;
-  const float u0 = valid ? u[chain] : 0.f;
-  float e0 = 0.f, un = u0;
-
-  if (valid) {  // the momentum p0 into tp
-    if (R.seeded) {
-      normal_row((uint32_t)chain, R.seed, dim, lane, tmp);
-      __syncwarp();
-      if (P.dense) {
-        apply_dense(P.ms, tmp, tp, dim, lane);
-      } else {
-        for (int d = lane; d < dim; d += 32)
-          tp[d] = sqrtf(1.0f / im[d]) * tmp[d];
-      }
-    } else {
-      for (int d = lane; d < dim; d += 32) tp[d] = R.p[row + d];
-    }
-    __syncwarp();
-    e0 = u0 + kinetic(P, im, tp, tmp, lane);
-  }
-  for (int s = 0; s < L; ++s) {  // every chain of the block takes L steps
-    if (valid) {
-      for (int d = lane; d < dim; d += 32) tp[d] = tp[d] - h * tg[d];
-      if (P.dense) {
-        apply_dense(P.im, tp, tmp, dim, lane);
-        for (int d = lane; d < dim; d += 32) tq[d] = tq[d] + eps * tmp[d];
-      } else {
-        for (int d = lane; d < dim; d += 32)
-          tq[d] = tq[d] + eps * (im[d] * tp[d]);
-      }
-    }
-    __syncthreads();
-    pg_fn(dim, ds, S.rbuf, S.gpart, S.tq, S.tg, S.nu);
-    if (valid) {
-      un = S.nu[w];
-      un = un != un ? -NEG_INF : clip(un);
-      for (int d = lane; d < dim; d += 32) {
-        float gd = tg[d];
-        gd = gd != gd ? 0.f : clip(gd);
-        tg[d] = gd;
-        tp[d] = tp[d] - h * gd;
-      }
-      __syncwarp();
-    }
-  }
-  if (!valid) return;
-
-  // Metropolis-Hastings on the energy error; a divergence does not veto
-  const float e1 = clip(un + kinetic(P, im, tp, tmp, lane));
-  float delta = e0 - e1;
-  delta = delta != delta ? NEG_INF : clip(delta);
-  const float div = fabsf(delta) > P.thr ? 1.f : 0.f;
-  const float accept = fminf(1.0f, expf(delta));
-  const float ua = R.seeded
-                       ? u01(philox((uint32_t)chain, 0u, ACCEPT, R.seed).x)
-                       : R.ua[chain];
-  const bool acc = ua < accept;
-  apply_im(P, im, tp, tmp, lane);
-  for (int d = lane; d < dim; d += 32) {
-    q_out[row + d] = acc ? tq[d] : cq[d];
-    g_out[row + d] = acc ? tg[d] : cg[d];
-    qp_out[row + d] = tq[d];
-    vp_out[row + d] = tmp[d];
-  }
-  if (lane == 0) u_out[chain] = acc ? un : u0;
-  if (lane < 8) {  // [energy, accept_prob, 0, L, div, 0, 0, 0]
-    const float v[8] = {acc ? e1 : e0, accept, 0.f, (float)L,
-                        div,           0.f,    0.f, 0.f};
-    stats[(size_t)chain * 8 + lane] = v[lane];
-  }
-}
-
-}  // namespace
+using namespace aehmc::hmc;
 
 extern "C" {
 
@@ -246,27 +37,29 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
                             float thr, int dim, int N, int C, float* q_out,
                             float* u_out, float* g_out, float* stats,
                             float* qp_out, float* vp_out, void* stream) {
-  if (dim < 1 || N < 1 || C < 1 || (dense && use_seed && !ms))
-    return (int)cudaErrorInvalidValue;
+  if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
   Params P;
   P.eps = eps;
+  P.alpha = nullptr;
   P.im = im;
   P.ms = ms;
-  P.dense = dense;
-  P.L = L;
+  P.im_per_chain = 0;
+  P.Ld = L;
+  P.L = 0;
   P.thr = thr;
   P.dim = dim;
   P.C = C;
   P.ds = (dim + 3) / 4 * 4;
   const LogisticPG pg = {X, XT, y, N, 1.0f};
   const Rand R = {p, ua, seed, use_seed};
-  auto kernel = chees_transition_kernel<LogisticPG>;
-  const size_t smem = smem_floats(P.ds) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = dense ? transition_kernel<LogisticPG, true, true, true>
+                      : transition_kernel<LogisticPG, true, false, true>;
+  size_t smem = 0;
+  cudaError_t err = prepare(kernel, P, N, &smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      P, pg, R, q, u, g, q_out, u_out, g_out, stats, qp_out, vp_out);
+      P, pg, R, q, u, g, nullptr, q_out, u_out, g_out, nullptr, stats, qp_out,
+      vp_out);
   return (int)cudaGetLastError();
 }
 

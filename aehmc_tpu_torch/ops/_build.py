@@ -28,7 +28,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-HEADERS = ("common.cuh", "logistic_pg.cuh", "nuts_core.cuh")
+HEADERS = ("common.cuh", "logistic_pg.cuh", "nuts_core.cuh", "hmc_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",

@@ -25,6 +25,8 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
 )
 from aehmc_tpu_torch.ops.nuts_fused import (
     _generic_model,
+    _is_key_source,
+    _sample_phase,
     derive_draw_seeds,
     make_fused_nuts_transition,
 )
@@ -238,8 +240,6 @@ def sample_fused_adaptive(
     use_internal_prng: bool = True,
     loop_in_kernel: bool = False,
     block_chains: int = None,
-    warmup_streams: Callable = None,
-    sample_streams: Callable = None,
     **options,
 ):
     """One-call driver: fused warmup, then fused sampling.
@@ -253,10 +253,11 @@ def sample_fused_adaptive(
     a diagonal metric, a scalar ε and no ``loop_in_kernel``, as in the JAX
     driver.  ``loop_in_kernel`` runs the transposed sampling phase as one
     call of the whole-run kernel, bitwise equal to one transition per draw.
-    With ``use_internal_prng=False`` the external streams are
-    ``warmup_streams(step)`` and ``sample_streams(draw) -> (z, dirs, u_bias,
-    u_leaf)`` in the standard layout, drawn from ``generator`` when not
-    given.  ``block_chains`` has no effect (a CUDA block holds 8 chains).
+    With ``use_internal_prng=False`` the external streams are drawn from
+    ``generator``, or ``generator`` is a key source ``(phase, index) ->
+    (z, dirs, u_bias, u_leaf)`` (standard layout, ``phase`` ``"warmup"`` or
+    ``"sample"``), as :mod:`aehmc_tpu_torch.chees` takes one.
+    ``block_chains`` has no effect (a CUDA block holds 8 chains).
 
     Returns ``(final_positions, positions (draws, chains, dim),
     stats (draws, chains, 8), step_size, inverse_mass_matrix)``.
@@ -270,6 +271,17 @@ def sample_fused_adaptive(
             "loop_in_kernel draws all randomness in the kernel — it requires "
             "use_internal_prng=True"
         )
+    warmup_streams = sample_streams = None
+    if _is_key_source(generator):
+        if use_internal_prng:
+            raise TypeError("a key source replays external streams — it "
+                            "requires use_internal_prng=False")
+        key_source = generator
+
+        def warmup_streams(step):
+            return key_source("warmup", step)
+
+        sample_streams = _sample_phase(key_source)
     num_chains, dim = initial_positions.shape
     data = tuple(data)
     if standard:

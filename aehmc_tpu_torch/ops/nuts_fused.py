@@ -294,20 +294,35 @@ def _fused_sampling_call(model: _Model, q, potential, grad, inverse_mass,
     )
 
 
+def _is_key_source(generator) -> bool:
+    """Whether ``generator`` is a key source ``(phase, index) -> key``
+    rather than a ``torch.Generator``."""
+    return callable(generator) and not isinstance(generator, torch.Generator)
+
+
+def _sample_phase(key_source) -> Callable:
+    """``streams(t)`` of the ``"sample"`` phase of a key source."""
+    return lambda t: key_source("sample", t)
+
+
 def _sampling_loop(model: _Model, generator, initial_positions, u0, g0,
                    num_samples, step_size, inverse_mass, *, max_exp,
                    divergence_threshold, collect_positions, internal_prng,
-                   loop_in_kernel, streams):
+                   loop_in_kernel):
     """The three randomness modes of the JAX sampling loops: one call of
     kernel 4 (``loop_in_kernel``), per-draw Philox keys
-    (``internal_prng``), or per-draw external streams ``streams(t) -> (z,
-    dirs, u_bias, u_leaf)`` in the standard layout, drawn from ``generator``
-    when not given.  Returns ``(final_positions, positions, stats)``."""
+    (``internal_prng``), or per-draw external streams in the standard
+    layout, drawn from a ``torch.Generator`` or given by a key source
+    ``generator("sample", t) -> (z, dirs, u_bias, u_leaf)``.  Returns
+    ``(final_positions, positions, stats)``."""
     num_chains, dim = initial_positions.shape
     device = initial_positions.device
     imm = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)
     q = initial_positions.to(torch.float32).contiguous()
     kw = dict(max_exp=max_exp, divergence_threshold=divergence_threshold)
+    if _is_key_source(generator) and (internal_prng or loop_in_kernel):
+        raise TypeError("a key source replays external streams — it requires "
+                        "internal_prng=False and loop_in_kernel=False")
     if loop_in_kernel:
         seed = derive_draw_seeds(generator, 1)[0]
         pos, stats, qf, _, _ = _fused_sampling_call(
@@ -320,8 +335,9 @@ def _sampling_loop(model: _Model, generator, initial_positions, u0, g0,
     if internal_prng:
         seeds = derive_draw_seeds(generator, num_samples)
     else:
-        streams = streams or _generator_streams(generator, num_chains, dim,
-                                                max_exp, device)
+        streams = (_sample_phase(generator) if _is_key_source(generator) else
+                   _generator_streams(generator, num_chains, dim, max_exp,
+                                      device))
         mass_sqrt = torch.sqrt(1.0 / imm).reshape(-1).expand(dim)
     positions, stats = [], []
     u, g = u0, g0
@@ -356,13 +372,13 @@ def sample_fused(
     collect_positions: bool = True,
     internal_prng: bool = False,
     loop_in_kernel: bool = False,
-    streams: Callable = None,
 ):
     """Sampling loop over the generic transition
     (:func:`make_fused_nuts_transition`).  Randomness: per-draw Philox keys
     from ``generator`` (``internal_prng``), one call of the whole-run kernel
-    (``loop_in_kernel``), or external streams (``streams(t) -> (z, dirs,
-    u_bias, u_leaf)``, drawn from ``generator`` when not given).  Returns
+    (``loop_in_kernel``), or external streams drawn from ``generator``, or
+    given by a key source ``generator("sample", t) -> (z, dirs, u_bias,
+    u_leaf)`` as :mod:`aehmc_tpu_torch.chees` takes one.  Returns
     ``(final_positions, positions (draws, C, dim), stats (draws, C, 8))``.
     """
     model = _generic_model(potential_fn, data)
@@ -372,7 +388,7 @@ def sample_fused(
         inverse_mass, max_exp=max_num_expansions,
         divergence_threshold=divergence_threshold,
         collect_positions=collect_positions, internal_prng=internal_prng,
-        loop_in_kernel=loop_in_kernel, streams=streams,
+        loop_in_kernel=loop_in_kernel,
     )
 
 
@@ -392,7 +408,6 @@ def sample_fused_logistic(
     matmul_dtype=torch.bfloat16,
     internal_prng: bool = False,
     loop_in_kernel: bool = False,
-    streams: Callable = None,
 ):
     """Sampling loop over :func:`fused_nuts_transition` (kernels 3 and 4 on
     the card), the data products' operands in ``matmul_dtype`` (bfloat16 by
@@ -407,7 +422,7 @@ def sample_fused_logistic(
         inverse_mass, max_exp=max_num_expansions,
         divergence_threshold=divergence_threshold,
         collect_positions=collect_positions, internal_prng=internal_prng,
-        loop_in_kernel=loop_in_kernel, streams=streams,
+        loop_in_kernel=loop_in_kernel,
     )
 
 

@@ -53,7 +53,6 @@ def sample_sharded(
     checkpoint_every: int = 0,
     checkpoint_path: Optional[str] = None,
     resume: bool = False,
-    streams: Callable = None,
 ) -> SampleResult:
     """Pooled warmup and sampling of ``initial_positions (chains, dim)``.
 
@@ -63,9 +62,9 @@ def sample_sharded(
     (``max(num_warmup, 1)`` steps, target acceptance 0.651) and
     :func:`aehmc_tpu_torch.chees.sample` run ``chees_kernel_fn`` (e.g.
     :func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`).  The
-    options of the JAX driver's other algorithms are not taken.  Randomness
-    comes from ``generator``, or from ``streams(phase, index) -> key`` when
-    given (:mod:`aehmc_tpu_torch.chees`).
+    options of the JAX driver's other algorithms are not taken.
+    ``generator`` is a ``torch.Generator`` or a key source ``(phase, index)
+    -> key`` (:mod:`aehmc_tpu_torch.chees`).
 
     Returns a ``SampleResult`` whose ``final_state`` is the ``ChainState``,
     ``positions`` ``(draws, chains, dim)`` and ``diagnostics`` every field
@@ -89,17 +88,16 @@ def sample_sharded(
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
                                   "1.12)")
-    rng = generator if streams is None else streams
     states = vmap(lambda q: hmc.new_state(q, logprob_fn))(initial_positions)
     result = chees.warmup(
-        rng, logprob_fn, states, num_steps=max(num_warmup, 1),
+        generator, logprob_fn, states, num_steps=max(num_warmup, 1),
         initial_step_size=initial_step_size,
         divergence_threshold=divergence_threshold,
         search_initial_step_size=search_initial_step_size,
         kernel_fn=chees_kernel_fn,
     )
     final_states, positions, info = chees.sample(
-        rng, logprob_fn, result.states, num_samples, result.step_size,
+        generator, logprob_fn, result.states, num_samples, result.step_size,
         result.trajectory_length, result.inverse_mass_matrix,
         divergence_threshold=divergence_threshold,
         collect_positions=collect_positions, kernel_fn=chees_kernel_fn,

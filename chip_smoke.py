@@ -61,10 +61,14 @@ K7_SHARE = 0.999              # phase 13: kernel 7 vs kernel 5 at alpha 0
 # relative), so kernel 3 and its plain version agree on q to 1e-2 there
 Q_ATOL_BF16 = 1e-2
 # phase 16: with bfloat16 operands the chains target exp(-U) of the rounded
-# potential, whose means sit a fixed distance from the float32 posterior's
-# (7.6 combined MCSE, under 0.01 posterior sd, in the first run): the bf16
-# run's means are held to BF16_BIAS_SD posterior sd of phase 5's
+# potential.  Two kernel 4 runs (two seeds) are held within MCSE_Z combined
+# MCSE of the plain bf16 sampler's means (the same rounded target), and
+# within BF16_BIAS_SD posterior sd of phase 5's float32 means, which the
+# rounded target's means miss by a fixed amount (7.6 combined MCSE, under
+# 0.01 posterior sd, in the first run)
 BF16_BIAS_SD = 0.02
+BF16_SEEDS = (161, 162)         # phase 16: kernel 4's two runs
+BF16_PLAIN_SEED = 163           # phase 16: the plain bf16 witness
 # Split R-hat of a stationary chain with autocorrelation time tau and n
 # draws per split chain is about sqrt((n - 1) / (n - tau)), 1.027 for MALA's
 # tau of about 16.5 at 600 draws.  MALA and GHMC are held, per dimension, to
@@ -73,7 +77,9 @@ RHAT_EXCESS = 0.005
 # lag-1 autocorrelation of the draw-to-draw moves: near 0 for MALA (-0.073
 # on an H100), high when the momentum persists (0.558 at alpha 0.9)
 MALA_MOVE_AC, GHMC_MOVE_AC = 0.1, 0.3
-PEAK_F32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: f32 FLOP/s (no tensor cores), HBM B/s
+# H100 SXM: f32 FLOP/s (no tensor cores), dense bf16 tensor-core FLOP/s
+# (f32 accumulation), HBM B/s
+PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 GRAD_FLOP = 4 * DIM * POINTS  # X·q and Xᵀ·r, 2 FLOP per multiply-add
 DEVICE = "cuda:0"
 
@@ -143,10 +149,11 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flop, moved):
-    """(ms, what binds): the larger of the FLOP over the float32 peak and the
-    bytes over the memory rate."""
-    t_op, t_mem = flop / PEAK_F32, moved / PEAK_BYTES
+def bound(flop, moved, peak=PEAK_F32):
+    """(ms, what binds): the larger of the FLOP over the peak of their
+    operands' type (float32 unless given) and the bytes over the memory
+    rate."""
+    t_op, t_mem = flop / peak, moved / PEAK_BYTES
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
 
 
@@ -736,17 +743,30 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     n4, seed = 20, 97531
     pos, stats, *final = nf.nuts_sampling_std_cuda(
         q0, u0, g0, im, EPS, b16m.data, seed, n4, max_exp=K, card=b16m.card)
+    # each draw of kernel 4 (bf16 operands) against the plain bf16
+    # transition from the kernel's own state: over a whole run one bf16
+    # rounding step (see Q_ATOL_BF16) compounds into other decisions
     st_k = (q0, u0, g0)
+    share4b, err4b = 1.0, 0.0
     for t in range(n4):
+        seed_t = (seed + t * DRAW_SEED_STRIDE) & MASK32
+        plain_t = nf.nuts_transition_std_plain(
+            *st_k, im, EPS, b16m.pot_grad, max_exp=K, seed=seed_t)
         *st_k, st = nf.nuts_transition_std_cuda(
             *st_k, im, EPS, b16m.data, max_exp=K, card=b16m.card,
-            seed=(seed + t * DRAW_SEED_STRIDE) & MASK32)
+            seed=seed_t)
         check(torch.equal(st, stats[t]) and torch.equal(st_k[0], pos[t]),
               f"kernel 4 draw {t} differs from kernel 3")
+        same = same_decisions(st.T, plain_t[3].T)
+        share4b = min(share4b, float(same.float().mean()))
+        err4b = max(err4b, float((st_k[0] - plain_t[0]).abs()[same].max()))
     check(all(torch.equal(a, b) for a, b in zip(final, st_k)),
           "kernel 4 final state differs from kernel 3")
-    # against the plain version with float32 operands: over 20 draws a
-    # bf16 rounding step (see Q_ATOL_BF16) compounds into other decisions
+    check(share4b >= DECISION_SHARE,
+          f"kernel 4 (bf16) vs plain per draw: decisions agree on {share4b:.4f}")
+    check(err4b <= Q_ATOL_BF16,
+          f"kernel 4 (bf16) vs plain per draw: max |q| error {err4b:.3g}")
+    # the whole run against the plain version with float32 operands
     pos32, stats32, *_ = nf.nuts_sampling_std_cuda(
         q0, u0, g0, im, EPS, f32m.data, seed, n4, max_exp=K, card=f32m.card)
     pos_p, stats_p, *_ = nf._sampling_plain(
@@ -758,7 +778,7 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     check(share4 >= DECISION_SHARE,
           f"kernel 4 vs plain: decisions agree on {share4:.4f}")
     check(err4 <= Q_ATOL, f"kernel 4 vs plain: max |q| error {err4:.3g}")
-    del pos32, pos_p
+    del pos_p
 
     def k3_run():
         return nf.nuts_transition_std_cuda(q0, u0, g0, im, EPS, f32m.data,
@@ -773,8 +793,8 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
         return nf.nuts_sampling_std_cuda(q0, u0, g0, im, EPS, b16m.data, seed,
                                          n4, max_exp=K, card=b16m.card)
 
-    def p4_run():
-        return nf._sampling_plain(b16m, q0, u0, g0, im, EPS, seed, n4,
+    def p4_run(model=b16m):
+        return nf._sampling_plain(model, q0, u0, g0, im, EPS, seed, n4,
                                   max_exp=K, divergence_threshold=1000.0,
                                   collect_positions=True)
 
@@ -782,29 +802,42 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     ms4, plain_ms4 = cuda_ms(torch, k4_run, 3), cuda_ms(torch, p4_run, 1)
     ms4_f32 = cuda_ms(torch, lambda: nf.nuts_sampling_std_cuda(
         q0, u0, g0, im, EPS, f32m.data, seed, n4, max_exp=K), 3)
+    plain_ms4_f32 = cuda_ms(torch, lambda: p4_run(f32m), 1)
     out3 = k3_run()
     bound3 = bound(float(out3[3][:, 3].sum()) * GRAD_FLOP,
                    nbytes(q0, u0, g0, im, *f32m.data, *out3))
+    # kernel 4's entry is the main path's configuration, bf16 operands: its
+    # products are bf16 x bf16 with f32 sums, the bf16 tensor-core peak's work
     bound4 = bound(float(stats[:, :, 3].sum()) * GRAD_FLOP,
-                   nbytes(q0, u0, g0, im, *b16m.data, pos, stats, *final))
+                   nbytes(q0, u0, g0, im, *b16m.data, pos, stats, *final),
+                   PEAK_BF16)
+    bound4_f32 = bound(float(stats32[:, :, 3].sum()) * GRAD_FLOP,
+                       nbytes(q0, u0, g0, im, *f32m.data, pos, stats, *final))
     log(f"phase 15: nuts_transition_std vs plain at {CHAINS}x{DIM}, K={K}: "
         f"decisions equal on >= {shares['f32']:.4%} (f32) and "
         f"{shares['bf16']:.4%} (bf16 operands) of chains, max |q| err "
         f"{errs['f32']:.3g} / {errs['bf16']:.3g}; Philox kernel 3 on q == "
         f"kernel 1 on q^T bit for bit; nuts_sampling_std over {n4} draws == "
-        f"{n4} kernel 3 launches bit for bit (bf16 operands), vs plain "
-        f"(f32 operands): decisions equal on {share4:.4%}, max |q| err "
-        f"{err4:.3g}; kernel 3 {ms3:.3f} ms (plain {plain_ms3:.3f}, bound "
-        f"{bound3[0]:.3f} ms {bound3[1]}), kernel 4 {ms4:.2f} ms per {n4} "
-        f"draws with bf16 operands, {ms4_f32:.2f} ms with f32 (plain "
-        f"{plain_ms4:.2f}, bound {bound4[0]:.3f} ms {bound4[1]}) [{card}]")
+        f"{n4} kernel 3 launches bit for bit (bf16 operands); vs plain bf16 "
+        f"per draw: decisions equal on >= {share4b:.4%}, max |q| err "
+        f"{err4b:.3g}; vs plain over the run (f32 operands): decisions equal "
+        f"on {share4:.4%}, max |q| err {err4:.3g}; kernel 3 {ms3:.3f} ms "
+        f"(plain {plain_ms3:.3f}, bound {bound3[0]:.3f} ms {bound3[1]}), "
+        f"kernel 4 per {n4} draws: bf16 operands {ms4:.2f} ms (plain "
+        f"{plain_ms4:.2f}, bound {bound4[0]:.3f} ms {bound4[1]}, bf16 "
+        f"peak), f32 {ms4_f32:.2f} ms (plain {plain_ms4_f32:.2f}, bound "
+        f"{bound4_f32[0]:.3f} ms {bound4_f32[1]}) [{card}]")
     record["phase15"] = dict(share_f32=shares["f32"], share_bf16=shares["bf16"],
                              max_abs_err_f32=errs["f32"],
                              max_abs_err_bf16=errs["bf16"], share4=share4,
-                             max_abs_err4=err4, ms3=ms3, plain_ms3=plain_ms3,
-                             bound_ms3=bound3[0], ms4=ms4, ms4_f32=ms4_f32,
-                             plain_ms4=plain_ms4, bound_ms4=bound4[0])
-    del pos
+                             max_abs_err4=err4, share4_bf16=share4b,
+                             max_abs_err4_bf16=err4b, ms3=ms3,
+                             plain_ms3=plain_ms3, bound_ms3=bound3[0],
+                             ms4=ms4, plain_ms4=plain_ms4,
+                             bound_ms4=bound4[0], ms4_f32=ms4_f32,
+                             plain_ms4_f32=plain_ms4_f32,
+                             bound_ms4_f32=bound4_f32[0])
+    del pos, pos32
 
     # ---- phase 16: the standard-layout path at full width
     ops.reset_launch_counts()
@@ -823,22 +856,39 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     std_stats = nuts_limits(torch, diagnostics, pos16, stats16, eps16,
                             nuts_mean, "standard-layout NUTS")
     del pos16
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, pos16b, stats16b = nf.sample_fused_logistic(
-        torch.Generator().manual_seed(161), X, y, qf, DRAWS, eps16, imm16,
-        max_num_expansions=K, loop_in_kernel=True)
-    torch.cuda.synchronize()
-    wall16b = time.perf_counter() - t0
-    launches4 = dict(ops.LAUNCHES)
-    check(launches4["nuts_sampling_std"] == 1 and sum(launches4.values()) == 1,
-          f"sample_fused_logistic launches {launches4}")
-    bf16_stats = nuts_limits(torch, diagnostics, pos16b, stats16b, eps16,
-                             nuts_mean, "sample_fused_logistic (bf16)",
-                             bias_sd=BF16_BIAS_SD)
-    evals16b = float(stats16b[:, :, 3].sum())
-    del pos16b
+    # the plain bf16 sampler from the same start (a float32 potential and
+    # gradient, as sample_fused_logistic's): the witness of the rounded
+    # target's means
+    u16, g16 = f32m.pot_grad(qf)
+    pos_w, *_ = nf._sampling_plain(
+        b16m, qf, u16, g16, imm16, eps16, BF16_PLAIN_SEED, DRAWS, max_exp=K,
+        divergence_threshold=1000.0, collect_positions=True)
+    witness = mean_mcse(torch, diagnostics, pos_w.transpose(0, 1))
+    del pos_w
+    bf16_runs = []
+    for seed16 in BF16_SEEDS:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pos16b, stats16b = nf.sample_fused_logistic(
+            torch.Generator().manual_seed(seed16), X, y, qf, DRAWS, eps16,
+            imm16, max_num_expansions=K, loop_in_kernel=True)
+        torch.cuda.synchronize()
+        wall16b = time.perf_counter() - t0
+        launches4 = dict(ops.LAUNCHES)
+        check(launches4["nuts_sampling_std"] == 1
+              and sum(launches4.values()) == 1,
+              f"sample_fused_logistic launches {launches4}")
+        evals16b = float(stats16b[:, :, 3].sum())
+        bf16_runs.append(dict(
+            seed=seed16, wall_s=wall16b, launches=launches4,
+            grad_evals_per_s=evals16b / wall16b,
+            **nuts_limits(torch, diagnostics, pos16b, stats16b, eps16,
+                          nuts_mean, f"sample_fused_logistic (bf16, seed "
+                          f"{seed16})", bias_sd=BF16_BIAS_SD,
+                          witness=witness)))
+        del pos16b
+    bf16_stats = bf16_runs[0]
     log(f"phase 16: standard driver {CHAINS}x{DIM}, {WARMUP} warmup + {DRAWS} "
         f"draws in {wall16:.2f} s, launches {launches3['nuts_transition_std']} "
         f"nuts_transition_std; eps {float(eps16):.4f}, accept "
@@ -846,19 +896,24 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
         f"max R-hat {std_stats['max_rhat']:.4f}, means within "
         f"{std_stats['max_z_vs_nuts']:.2f} MCSE of NUTS; then "
         f"sample_fused_logistic (bf16 operands) {DRAWS} draws in one "
-        f"nuts_sampling_std launch, {wall16b:.3f} s, "
-        f"{evals16b / wall16b / 1e6:.2f}M grad-evals/s, accept "
-        f"{bf16_stats['accept']:.4f}, divergent "
-        f"{bf16_stats['divergent_share']:.2e}, max R-hat "
-        f"{bf16_stats['max_rhat']:.4f}, means within "
-        f"{bf16_stats['max_z_vs_nuts']:.2f} MCSE "
-        f"({bf16_stats['max_mean_shift_sd']:.4f} posterior sd) of NUTS "
-        f"[{card}]")
+        f"nuts_sampling_std launch, {bf16_stats['wall_s']:.3f} s, "
+        f"{bf16_stats['grad_evals_per_s'] / 1e6:.2f}M grad-evals/s; seeds "
+        f"{BF16_SEEDS}: accept "
+        + " / ".join(f"{r['accept']:.4f}" for r in bf16_runs)
+        + ", divergent "
+        + " / ".join(f"{r['divergent_share']:.2e}" for r in bf16_runs)
+        + ", max R-hat "
+        + " / ".join(f"{r['max_rhat']:.4f}" for r in bf16_runs)
+        + ", means within "
+        + " / ".join(f"{r['max_z_vs_witness']:.2f}" for r in bf16_runs)
+        + " MCSE of the plain bf16 sampler's and "
+        + " / ".join(f"{r['max_mean_shift_sd']:.4f}" for r in bf16_runs)
+        + " posterior sd ("
+        + " / ".join(f"{r['max_z_vs_nuts']:.2f}" for r in bf16_runs)
+        + f" MCSE) of float32 NUTS's [{card}]")
     record["phase16"] = dict(wall_s=wall16, launches=launches3,
                              step_size=float(eps16), **std_stats,
-                             bf16=dict(wall_s=wall16b, launches=launches4,
-                                       grad_evals_per_s=evals16b / wall16b,
-                                       **bf16_stats))
+                             bf16=bf16_runs)
     return [
         kernel_entry("nuts_transition_std", "nuts_fused.cu",
                      "aehmc_tpu/ops/nuts_fused.py:452",
@@ -866,16 +921,17 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
                      plain_ms3, bound3),
         kernel_entry("nuts_sampling_std", "nuts_fused.cu",
                      "aehmc_tpu/ops/nuts_fused.py:507",
-                     launches4["nuts_sampling_std"], err4, ms4, plain_ms4,
-                     bound4),
+                     bf16_stats["launches"]["nuts_sampling_std"], err4b, ms4,
+                     plain_ms4, bound4),
     ]
 
 
 def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
-                what, bias_sd=None):
+                what, bias_sd=None, witness=None):
     """Phase 5's limits on a NUTS run (stats ``(draws, chains, 8)``), and its
     means within MCSE_Z combined MCSE of phase 5's, or within ``bias_sd``
-    posterior standard deviations when given."""
+    posterior standard deviations when given; and within MCSE_Z combined
+    MCSE of ``witness`` (another run's means and MCSE) when given."""
     draws = positions.float().transpose(0, 1)  # (chains, draws, dim)
     rhat = float(chunked(torch, lambda v: diagnostics.potential_scale_reduction(
         v, rank_normalized=True), draws, 20).max())
@@ -899,6 +955,11 @@ def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
     else:
         check(shift_sd < bias_sd, f"{what} posterior means differ from NUTS "
               f"by {shift_sd} posterior sd ({z} MCSE)")
+    if witness is not None:
+        out["max_z_vs_witness"] = float(((mean - witness[0]).abs() / torch.sqrt(
+            mcse**2 + witness[1]**2)).max())
+        check(out["max_z_vs_witness"] < MCSE_Z, f"{what} posterior means "
+              f"differ from the witness's by {out['max_z_vs_witness']} MCSE")
     check(out["finite"], f"{what}: non-finite draws")
     return out
 

@@ -391,11 +391,11 @@ def test_front_door_follows_jax(monkeypatch):
     port_calls = _record_port_calls(monkeypatch, port_api)
     var_t = torch.tensor(VAR)
     res_t = aehmc_tpu_torch.sample(
-        None, lambda x: -0.5 * torch.sum(x * x / var_t), torch.tensor(q0),
+        _jax_streams(key, CHAINS, DIM, WARMUP, DRAWS),
+        lambda x: -0.5 * torch.sum(x * x / var_t), torch.tensor(q0),
         DRAWS, WARMUP, algorithm="chees", path="fused",
         data=(var_t.reshape(-1, 1),), potential_and_grad_t=_port_pg,
         use_internal_prng=False,
-        streams=_jax_streams(key, CHAINS, DIM, WARMUP, DRAWS),
     )
     _assert_prefix_agrees(port_calls, jax_calls, len(jax_calls))
     assert port_calls[0][0] == 1.0  # the pooled driver's initial ε

@@ -264,7 +264,8 @@ def test_external_streams_match_jax_sample_fused_logistic():
     finally:
         jax_nf.fused_nuts_transition = orig
 
-    def streams(t):
+    def streams(phase, t):
+        assert phase == "sample"
         k1, k2, k3, k4 = jax.random.split(jax.random.split(key, draws)[t], 4)
         z = jax.random.normal(k1, (16, 8), jnp.float32)
         dirs = jnp.where(jax.random.uniform(k2, (16, max_exp)) < 0.5, -1.0, 1.0)
@@ -273,8 +274,8 @@ def test_external_streams_match_jax_sample_fused_logistic():
         return tuple(np.array(a, F32) for a in (z, dirs, ub, ul))
 
     qf, pos, stats = nf.sample_fused_logistic(
-        None, torch.tensor(X), torch.tensor(y), torch.tensor(q), draws, eps,
-        torch.tensor(im), max_num_expansions=max_exp, streams=streams)
+        streams, torch.tensor(X), torch.tensor(y), torch.tensor(q), draws, eps,
+        torch.tensor(im), max_num_expansions=max_exp)
     np.testing.assert_array_equal(stats.numpy()[..., 2:6],
                                   np.asarray(stats_j)[..., 2:6])
     np.testing.assert_allclose(pos.numpy(), np.asarray(pos_j), atol=1e-3)
@@ -325,12 +326,11 @@ def test_standard_branch_of_the_driver_matches_jax():
                                                max_exp)
     data = (torch.tensor(X), torch.tensor(X.T).contiguous(),
             torch.tensor(y_row))
+    streams = dict(warmup=w_streams, sample=s_streams)
     qf, pos, stats, eps, imm = sample_fused_adaptive(
-        None, nf.logistic_potential, data, torch.tensor(q), draws, warmup,
-        max_num_expansions=max_exp, use_internal_prng=False,
-        initial_step_size=0.1, block_chains=256,
-        warmup_streams=lambda t: w_streams[t],
-        sample_streams=lambda t: s_streams[t],
+        lambda phase, t: streams[phase][t], nf.logistic_potential, data,
+        torch.tensor(q), draws, warmup, max_num_expansions=max_exp,
+        use_internal_prng=False, initial_step_size=0.1, block_chains=256,
     )
     np.testing.assert_allclose(float(eps), float(eps_j), rtol=1e-4)
     np.testing.assert_allclose(imm.numpy(), np.asarray(imm_j), rtol=1e-4)
@@ -351,6 +351,27 @@ def test_standard_branch_rules(option, match):
     with pytest.raises(ValueError, match=match):
         sample_fused_adaptive(None, nf.logistic_potential, (), torch.zeros(16, 4),
                               2, 2, **option)
+
+
+def _key_source(phase, index):
+    raise AssertionError("a key source must not be read under Philox")
+
+
+@pytest.mark.parametrize("call", [
+    lambda: sample_fused_adaptive(_key_source, nf.logistic_potential, (),
+                                  torch.zeros(16, 4), 2, 2),
+    lambda: nf.sample_fused_logistic(_key_source, torch.zeros(8, 4),
+                                     torch.zeros(8), torch.zeros(16, 4), 2,
+                                     0.1, torch.ones(4), internal_prng=True),
+    lambda: nf.sample_fused_logistic(_key_source, torch.zeros(8, 4),
+                                     torch.zeros(8), torch.zeros(16, 4), 2,
+                                     0.1, torch.ones(4), loop_in_kernel=True),
+], ids=["driver", "internal_prng", "loop_in_kernel"])
+def test_a_key_source_replays_external_streams_only(call):
+    """A key source ``(phase, index) -> streams`` stands for a generator only
+    with external randomness; under Philox it is refused before any draw."""
+    with pytest.raises(TypeError, match="key source"):
+        call()
 
 
 def test_cuda_path_takes_the_logistic_potential_only():
