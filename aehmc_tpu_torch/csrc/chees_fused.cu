@@ -25,18 +25,21 @@ using namespace aehmc::hmc;
 extern "C" {
 
 // Kernel 7: one ChEES transition.  q, g, p, qp_out, vp_out: (C, dim); u, ua,
-// eps: (C,); im: (dim,) or (dim, dim) (dense), ms: (dim, dim) with dense and
-// use_seed; L: a device int32; stats: (C, 8).  use_seed selects Philox
-// randomness keyed by seed (p and ua are then unused).
+// eps: (C,); X: (N, row_stride); im: (dim,) or (dim, dim) (dense), ms:
+// (dim, dim) with dense and use_seed; L: a device int32; stats: (C, 8).
+// use_seed selects Philox randomness keyed by seed (p and ua are then
+// unused).  blocks, points, row_stride and smem are the launch
+// plan's (aehmc_tpu_torch/ops/launch_plan.py).
 int chees_transition_launch(const float* q, const float* u, const float* g,
                             const float* p, const float* ua, int use_seed,
-                            unsigned int seed, const float* X,
-                            const float* XT, const float* y, const float* eps,
-                            const float* im, const float* ms, int dense,
-                            const int* L,
+                            unsigned int seed, const float* X, const float* y,
+                            const float* eps, const float* im,
+                            const float* ms, int dense, const int* L,
                             float thr, int dim, int N, int C, float* q_out,
                             float* u_out, float* g_out, float* stats,
-                            float* qp_out, float* vp_out, void* stream) {
+                            float* qp_out, float* vp_out, int blocks,
+                            int points, int row_stride, int smem,
+                            void* stream) {
   if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
   Params P;
   P.eps = eps;
@@ -50,17 +53,14 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
   P.dim = dim;
   P.C = C;
   P.ds = (dim + 3) / 4 * 4;
-  const LogisticPG pg = {X, XT, y, N, 1.0f};
+  const LogisticPGX pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {p, ua, seed, use_seed};
-  auto kernel = dense ? transition_kernel<LogisticPG, true, true, true>
-                      : transition_kernel<LogisticPG, true, false, true>;
-  size_t smem = 0;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      P, pg, R, q, u, g, nullptr, q_out, u_out, g_out, nullptr, stats, qp_out,
-      vp_out);
-  return (int)cudaGetLastError();
+  const Geometry G = {blocks, points, row_stride, smem};
+  auto kernel = dense ? transition_kernel<LogisticPGX, true, true, true>
+                      : transition_kernel<LogisticPGX, true, false, true>;
+  return (int)launch(kernel, P, N, G, (cudaStream_t)stream, P, pg, R, q, u, g,
+                     nullptr, q_out, u_out, g_out, nullptr, stats, qp_out,
+                     vp_out);
 }
 
 }  // extern "C"

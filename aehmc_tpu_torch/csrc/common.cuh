@@ -1,7 +1,9 @@
 // Pieces shared by the port's CUDA kernels: the block layout (one warp per
-// chain, CB chains per block), Philox4x32-10, the uniform and normal draws
-// built on it, and small numeric helpers.  The plain PyTorch versions of
-// the random streams are in aehmc_tpu_torch/ops/philox.py.
+// chain, CB chains per block, two blocks per SM, so that one block's
+// barriers overlap the other's arithmetic), the launch plan's geometry,
+// Philox4x32-10, the uniform and normal draws built on it, and small numeric
+// helpers.  The plain PyTorch versions of the random streams are in
+// aehmc_tpu_torch/ops/philox.py.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -10,8 +12,7 @@
 namespace aehmc {
 
 constexpr int CB = 8;          // chains per block = warps per block
-constexpr int NT = CB * 32;    // threads per block = points per chunk
-constexpr int HALF = NT / 2;
+constexpr int NT = CB * 32;    // threads per block
 constexpr float NEG_INF = -1e30f;
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr uint32_t DRAW_SEED_STRIDE = 104729u;
@@ -77,6 +78,28 @@ __device__ __forceinline__ float clip(float x) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
   return __shfl_sync(FULL, v, 0);
+}
+
+// The launch plan's geometry, as the launchers receive it from
+// aehmc_tpu_torch/ops/launch_plan.py: blocks, points a chunk of X, X's row
+// stride in floats, and the bytes of dynamic shared memory a block.
+struct Geometry {
+  int blocks, points, row_stride, smem;
+};
+
+// Launch `kernel` on G.blocks blocks of NT threads.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_blocks(void (*kernel)(KArgs...), const Geometry& G,
+                          cudaStream_t stream, Args&&... args) {
+  if (G.blocks < 1 || G.points < 8 || G.points > NT / 2 ||
+      (G.points & (G.points - 1)) || G.row_stride < 4 || G.row_stride % 4 ||
+      G.smem < 1)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<G.blocks, NT, G.smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace aehmc

@@ -10,12 +10,13 @@
 // each 2·N·dim float32 multiply-adds per chain; the state moves once in and
 // once out.
 //
-// Design.  The gradient is the LogisticPG functor (logistic_pg.cuh) with
-// the caller's prior precision, one warp per chain and CB = 8 chains per
-// block, as in the NUTS and GHMC kernels.  q, p and ∇U stay in shared
-// memory for all L steps; q and p are read and written in the standard
-// (chains, dim) layout, a chain's row by its warp, coalesced.  The last
-// block masks the chains past the end, so any chain count runs here.
+// Design.  The gradient is the logistic functor (logistic_pg.cuh) with the
+// caller's prior precision and X through a shared tile, as in the GHMC
+// kernels: one warp per chain, CB = 8 chains per block, two blocks per SM.
+// q, p and ∇U stay in shared memory for all L steps; q and p are read and
+// written in the standard (chains, dim) layout, a chain's row by its warp,
+// coalesced.  The last block masks the chains past the end, so any chain
+// count runs here.
 
 #include "logistic_pg.cuh"
 
@@ -23,13 +24,8 @@ using namespace aehmc;
 
 namespace {
 
-__host__ __device__ inline size_t smem_floats(int ds) {
-  const size_t V = (size_t)CB * ds;
-  return 5 * V + (size_t)CB * NT + CB;  // q, p, g, gpart (2), rbuf, nu
-}
-
-__global__ void __launch_bounds__(NT)
-    fused_hmc_kernel(LogisticPG pg_fn, const float* q, const float* p,
+__global__ void __launch_bounds__(NT, 2)
+    fused_hmc_kernel(LogisticPGX pg_fn, const float* q, const float* p,
                      const float* im, float eps, int L, int dim, int C,
                      float* q_out, float* p_out) {
   extern __shared__ float4 smem_raw[];
@@ -38,9 +34,10 @@ __global__ void __launch_bounds__(NT)
   float* const sq = reinterpret_cast<float*>(smem_raw);
   float* const sp = sq + V;
   float* const sg = sp + V;
-  float* const gpart = sg + V;
-  float* const rbuf = gpart + 2 * V;
-  float* const nu = rbuf + (size_t)CB * NT;
+  zero_smem(sq, 3 * V);
+  PGScratch pgs;
+  pgs.carve(sg + V);
+  __syncthreads();
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < C;
@@ -53,14 +50,14 @@ __global__ void __launch_bounds__(NT)
   }
   const float half = 0.5f * eps;
   __syncthreads();
-  pg_fn(dim, ds, rbuf, gpart, sq, sg, nu);
+  pg_fn(pgs, dim, ds, sq, sg);
   for (int s = 0; s < L; ++s) {
     for (int d = lane; d < dim; d += 32) {
       pr[d] = pr[d] - half * gr[d];
       qr[d] = qr[d] + eps * (__ldg(im + d) * pr[d]);
     }
     __syncthreads();
-    pg_fn(dim, ds, rbuf, gpart, sq, sg, nu);
+    pg_fn(pgs, dim, ds, sq, sg);
     for (int d = lane; d < dim; d += 32) pr[d] = pr[d] - half * gr[d];
   }
   if (valid) {
@@ -75,21 +72,20 @@ __global__ void __launch_bounds__(NT)
 
 extern "C" {
 
-// Kernel 8.  q, p: (C, dim); X: (N, dim); XT: (dim, N); y, im: (N,), (dim,).
+// Kernel 8.  q, p: (C, dim); X: (N, row_stride); y, im: (N,), (dim,).
+// blocks, points, row_stride and smem are the launch plan's
+// (aehmc_tpu_torch/ops/launch_plan.py).
 int fused_hmc_launch(const float* q, const float* p, const float* X,
-                     const float* XT, const float* y, const float* im,
-                     float eps, int L, float prior_precision, int dim, int N,
-                     int C, float* q_out, float* p_out, void* stream) {
-  if (dim < 1 || N < 1 || C < 1 || L < 0) return (int)cudaErrorInvalidValue;
-  const LogisticPG pg = {X, XT, y, N, prior_precision};
-  const size_t smem = smem_floats((dim + 3) / 4 * 4) * sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_hmc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_hmc_kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      pg, q, p, im, eps, L, dim, C, q_out, p_out);
-  return (int)cudaGetLastError();
+                     const float* y, const float* im, float eps, int L,
+                     float prior_precision, int dim, int N, int C,
+                     float* q_out, float* p_out, int blocks, int points,
+                     int row_stride, int smem, void* stream) {
+  if (dim < 1 || N < 1 || C < 1 || L < 0 || (size_t)blocks * CB < (size_t)C)
+    return (int)cudaErrorInvalidValue;
+  const LogisticPGX pg = {X, y, N, row_stride, points, prior_precision};
+  const Geometry G = {blocks, points, row_stride, smem};
+  return (int)launch_blocks(fused_hmc_kernel, G, (cudaStream_t)stream, pg,
+                              q, p, im, eps, L, dim, C, q_out, p_out);
 }
 
 }  // extern "C"

@@ -48,29 +48,28 @@ Params make_params(const float* eps, const float* alpha, const float* im,
 extern "C" {
 
 // Kernel 5: one transition.  q, g, p, noise: (dim, C); u, eps, alpha, ua:
-// (C,); im: (dim,) or (dim, C) (im_per_chain); stats: (8, C).  use_seed
-// selects Philox randomness keyed by seed (noise and ua are then unused).
+// (C,); X: (N, row_stride); im: (dim,) or (dim, C) (im_per_chain); stats:
+// (8, C).  use_seed selects Philox randomness keyed by seed (noise and ua
+// are then unused).  blocks, points, row_stride and smem are the launch plan's
+// (aehmc_tpu_torch/ops/launch_plan.py).
 int ghmc_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* noise,
                            const float* ua, int use_seed, unsigned int seed,
-                           const float* X, const float* XT, const float* y,
-                           const float* eps, const float* alpha,
-                           const float* im, int im_per_chain, float thr,
-                           int dim, int N, int C, int L, float* q_out,
-                           float* u_out, float* g_out, float* p_out,
-                           float* stats, void* stream) {
+                           const float* X, const float* y, const float* eps,
+                           const float* alpha, const float* im,
+                           int im_per_chain, float thr, int dim, int N, int C,
+                           int L, float* q_out, float* u_out, float* g_out,
+                           float* p_out, float* stats, int blocks,
+                           int points, int row_stride, int smem,
+                           void* stream) {
   const Params P =
       make_params(eps, alpha, im, im_per_chain, thr, dim, C, L);
-  const LogisticPG pg = {X, XT, y, N, 1.0f};
+  const LogisticPGX pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {noise, ua, seed, use_seed};
-  auto kernel = transition_kernel<LogisticPG, false, false, false>;
-  size_t smem = 0;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      P, pg, R, q, u, g, p, q_out, u_out, g_out, p_out, stats, nullptr,
-      nullptr);
-  return (int)cudaGetLastError();
+  const Geometry G = {blocks, points, row_stride, smem};
+  return (int)launch(transition_kernel<LogisticPGX, false, false, false>, P, N,
+                     G, (cudaStream_t)stream, P, pg, R, q, u, g, p, q_out,
+                     u_out, g_out, p_out, stats, nullptr, nullptr);
 }
 
 // Kernel 6: num_draws transitions.  noise: (draws, dim, C), ua: (draws, C),
@@ -79,25 +78,21 @@ int ghmc_transition_launch(const float* q, const float* u, const float* g,
 int ghmc_segment_launch(const float* q, const float* u, const float* g,
                         const float* p, const float* noise, const float* ua,
                         int use_seed, unsigned int seed, int num_draws,
-                        const float* X, const float* XT, const float* y,
-                        const float* eps, const float* alpha, const float* im,
-                        int im_per_chain, float thr, int dim, int N, int C,
-                        int L, float* pos, float* stats, float* q_out,
-                        float* u_out, float* g_out, float* p_out,
-                        void* stream) {
+                        const float* X, const float* y, const float* eps,
+                        const float* alpha, const float* im, int im_per_chain,
+                        float thr, int dim, int N, int C, int L, float* pos,
+                        float* stats, float* q_out, float* u_out,
+                        float* g_out, float* p_out, int blocks, int points,
+                        int row_stride, int smem, void* stream) {
   const Params P =
       make_params(eps, alpha, im, im_per_chain, thr, dim, C, L);
-  const LogisticPG pg = {X, XT, y, N, 1.0f};
+  const LogisticPGX pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {noise, ua, seed, use_seed};
-  auto kernel = segment_kernel<LogisticPG, false, false>;
-  size_t smem = 0;
+  const Geometry G = {blocks, points, row_stride, smem};
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      P, pg, R, num_draws, q, u, g, p, pos, stats, q_out, u_out, g_out,
-      p_out);
-  return (int)cudaGetLastError();
+  return (int)launch(segment_kernel<LogisticPGX, false, false>, P, N, G,
+                     (cudaStream_t)stream, P, pg, R, num_draws, q, u, g, p,
+                     pos, stats, q_out, u_out, g_out, p_out);
 }
 
 }  // extern "C"

@@ -18,8 +18,8 @@
 //
 // What bounds it on the card: the L gradients, each 2·N·dim float32
 // multiply-adds per chain (the momentum draw, the trajectory updates and the
-// accept test are a few passes over dim floats).  X and Xᵀ stream from L2
-// for every gradient of a block, as in the NUTS kernels.
+// accept test are a few passes over dim floats), at the rate the functor's
+// register tiles are fed from shared memory (logistic_pg.cuh).
 //
 // Design.  One warp per chain, CB = 8 chains per block, the potential
 // computed by the whole block for its 8 chains at once.  Every chain of a
@@ -27,12 +27,12 @@
 // from a device int32 (ChEES, whose driver computes clip(ceil(jitter·h/ε),
 // 1, max) on the card, so nothing synchronises the stream).  A block keeps
 // q, ∇U, p, the trajectory's q, p, ∇U, a scratch row and the diagonal M⁻¹
-// of its chains in shared memory, 8 rows of dim floats per chain plus the
-// functor's scratch (40 KB at dim 100); registers are the tighter limit,
-// and the kernels are built for three blocks (24 warps) per SM.  The
-// segment kernel keeps that state in shared memory across its draws and
-// writes each draw's positions (a chain's row contiguous, so the warp's
-// store is coalesced) and stats.  The kinetic energy is a warp sum in a
+// of its chains in shared memory, 8 rows of dim floats per chain, then the
+// functor's scratch and its tile of X (81 KB at dim 100 with a 128-point
+// tile): two blocks per SM, built for 128 registers a thread, which hold
+// the functor's register tiles.  The segment kernel keeps that state across
+// its draws and writes each draw's positions (a chain's row contiguous, so
+// the warp's store is coalesced) and stats.  The kinetic energy is a warp sum in a
 // fixed order and products use explicit fmaf or none (-fmad=false), so a
 // segment equals one transition launch per draw bit for bit, and the ChEES
 // kernel equals the GHMC one at α 0.  A rejected proposal may hold inf
@@ -43,6 +43,8 @@
 // stream's normals z and the ACCEPT stream's uniform
 // (ops/philox.py:ghmc_streams).
 #pragma once
+
+#include <utility>
 
 #include "logistic_pg.cuh"
 
@@ -77,22 +79,21 @@ __device__ __forceinline__ size_t gat(int i, int chain, int rows, int C) {
 }
 
 struct Smem {
-  float *q, *g, *p, *tq, *tp, *tg, *tmp, *im, *rbuf, *gpart, *nu;
+  float *q, *g, *p, *tq, *tp, *tg, *tmp, *im;
+  PGScratch pgs;  // the functor's scratch and X tile
 };
 
 constexpr int NUM_ROWS = 8;  // row arrays of Smem
-// blocks per SM the register allocation must allow (at most 85 registers a
-// thread); shared memory would allow five
-constexpr int MIN_BLOCKS = 3;
+constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 
-__host__ __device__ inline size_t smem_floats(int ds) {
-  const size_t V = (size_t)CB * ds;
-  return (NUM_ROWS + 2) * V + (size_t)CB * NT + CB;
-}
-
+// The rows, zeroed (the functor reads q's padding past dim), then the
+// functor's scratch and X tile.  Every thread of the block calls it.
 __device__ inline Smem carve(float* base, int ds) {
   const size_t V = (size_t)CB * ds;
+  zero_smem(base, NUM_ROWS * V);
   Smem s;
+  s.pgs.carve(base + NUM_ROWS * V);
+  __syncthreads();
   s.q = base;
   s.g = s.q + V;
   s.p = s.g + V;
@@ -101,9 +102,6 @@ __device__ inline Smem carve(float* base, int ds) {
   s.tg = s.tp + V;
   s.tmp = s.tg + V;
   s.im = s.tmp + V;
-  s.rbuf = s.im + V;
-  s.gpart = s.rbuf + (size_t)CB * NT;
-  s.nu = s.gpart + 2 * V;
   return s;
 }
 
@@ -210,9 +208,9 @@ __device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
       }
     }
     __syncthreads();
-    pg_fn(dim, ds, S.rbuf, S.gpart, S.tq, S.tg, S.nu);
+    pg_fn(S.pgs, dim, ds, S.tq, S.tg);
     if (valid) {
-      un = S.nu[w];
+      un = S.pgs.nu[w];
       un = un != un ? -NEG_INF : clip(un);
       for (int d = lane; d < dim; d += 32) {
         float gd = tg[d];
@@ -371,15 +369,14 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     store_chain<STD>(P, S, q_out, u_out, g_out, p_out, w, lane, chain, uc);
 }
 
-// Checks a launch's sizes and lets `kernel` take its shared memory.
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, const Params& P, int N, size_t* smem) {
-  if (P.dim < 1 || N < 1 || P.C < 1 || (!P.Ld && P.L < 1))
+// Checks a launch's sizes and launches `kernel` on the plan's blocks.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
+                   const Geometry& G, cudaStream_t stream, Args&&... args) {
+  if (P.dim < 1 || N < 1 || P.C < 1 || (!P.Ld && P.L < 1) ||
+      (size_t)G.blocks * CB < (size_t)P.C)
     return cudaErrorInvalidValue;
-  *smem = smem_floats(P.ds) * sizeof(float);
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+  return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }
 
 }  // namespace hmc

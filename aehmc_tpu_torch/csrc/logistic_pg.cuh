@@ -1,5 +1,5 @@
 // The potential and gradient of the Bayesian logistic regression posterior
-// as a device functor, shared by the NUTS, GHMC and fused-HMC kernels:
+// as a device functor, shared by the NUTS, GHMC, ChEES and fused-HMC kernels:
 //   U(q)  = -sum_n [y_n x_n·q - softplus(x_n·q)] + (λ/2) |q|^2,
 //   ∇U(q) = Xᵀ(σ(X q) - y) + λ q,
 // λ the prior precision (1 for the model of
@@ -7,20 +7,34 @@
 // the fused leapfrog kernel).  λ q is a product rounded before the sum, so
 // λ = 1 gives the bits of `grad + q`.
 //
-// The whole block calls pg(dim, ds, rbuf, gpart, q, grad, pot) with its CB
-// rows of q (row stride ds floats, in shared memory) and gets CB gradient
-// rows and CB potentials back.  rbuf (CB·NT floats) and gpart (2·CB·ds) are
-// the functor's shared-memory scratch.
+// The whole block calls pg(scratch, dim, ds, q, grad) with its CB rows of q
+// (row stride ds floats, in shared memory, zero past dim) and gets CB
+// gradient rows and CB potentials (scratch.nu) back.
 //
 // What bounds it: X·q and Xᵀ·r are 2·N·dim fused multiply-adds per chain in
-// float32 on the CUDA cores.  X and Xᵀ (400 KB each at 1,000 × 100) stream
-// from L2 for every gradient of a block, so the bytes per chain fall as the
-// chains per block grow.  Points go in chunks of NT, one thread per point
-// for X·q (Xᵀ read coalesced, q as float4 broadcasts from shared memory),
-// then one thread per (dimension, half-chunk) for Xᵀ·r.  Reductions run in
-// a fixed order and products use explicit fmaf (the build passes
-// -fmad=false), so a result does not depend on where the functor is
-// inlined.
+// float32 on the CUDA cores, and the shared-memory loads that feed them
+// their operands (L2 does not bind: PERF.md §6).  So each thread keeps a
+// register tile of 4 × 8 products, and every load feeds 8 to 32 of them:
+//   X·q: thread (point group of 4, slice s of 8) sums the float2 groups
+//     s, s+8, ... of a row for 4 points × 8 chains (float2, not float4, so
+//     that the 8 slices stay balanced at dim 100); the 8 slices of a point
+//     group are 8 lanes of a warp, and a butterfly over them (xor 4, 2, 1)
+//     leaves each lane one point's logits for 4 chains.  The block takes P
+//     points at a time (128 fill its 256 threads).
+//   Xᵀ·r: thread (dimension group of 4, residue s of NS) sums the points
+//     n ≡ s (mod NS) for 4 dimensions × 8 chains in registers across the
+//     whole of X; the NS residues are adjacent lanes, and a butterfly over
+//     them writes the gradient rows.
+// X (400 KB at 1,000 × 100) comes from L2.  With SMEM_X (the HMC core,
+// whose state leaves room) one thread bulk-copies each chunk of P rows into
+// a shared tile that both products read; otherwise (the NUTS core, 99 KB
+// of state at K 6) both read it through L1.  The functor has two barriers
+// per chunk, and two blocks per SM hide them; a larger staging ring, or
+// one shared by a thread-block cluster, would leave one block per SM and
+// was measured slower (PERF.md §6).
+// Every product is an explicit fmaf (the build passes -fmad=false) and every
+// sum has a fixed order that depends on dim and P only, so a result does
+// not depend on where the functor is inlined.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,22 +43,98 @@
 
 namespace aehmc {
 
+constexpr int PT = NT / 2;  // points a block takes at a time, at most
+constexpr int RS = 12;      // row stride of the residual tile: 8 chains + 4
+// the residual tile (PT rows), which also takes the likelihood sums
+// (CB × PT) at the end
+constexpr int RT_FLOATS = PT * RS;
+// floats of the functor's shared scratch before the X tile: the residual
+// tile, the potentials, the tile's mbarrier and its count of uses
+constexpr int SCRATCH_FLOATS = RT_FLOATS + CB + 4;
+
 // x rounded to the nearest bfloat16, back in float32
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// zero `n` floats of shared memory from `p` (a kernel's rows: their padding
+// past dim is then 0 for the functor's vector loads of q)
+__device__ __forceinline__ void zero_smem(float* p, size_t n) {
+  for (size_t e = threadIdx.x; e < n; e += NT) p[e] = 0.f;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The functor's shared memory, carved by the kernel (SCRATCH_FLOATS, then
+// the X tile of P·xs floats under SMEM_X).
+struct PGScratch {
+  float* rt;       // (PT, RS): σ(X q) − y of the chunk
+  float* nu;       // (CB,): the potentials
+  uint64_t* bar;   // the X tile's mbarrier
+  uint32_t* uses;  // chunks the tile has held so far (the barrier's phase)
+  float* tile;     // (P, xs), or null
+
+  // carve at `base` (16-byte aligned); thread 0 initialises the barrier
+  // and a __syncthreads must follow
+  __device__ void carve(float* base) {
+    rt = base;
+    nu = rt + RT_FLOATS;
+    bar = reinterpret_cast<uint64_t*>(nu + CB);
+    uses = reinterpret_cast<uint32_t*>(bar + 1);
+    tile = base + SCRATCH_FLOATS;
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      *uses = 0;
+    }
+  }
+
+  // thread 0: copy `bytes` from X into the tile, completing on the barrier
+  __device__ void load(const float* src, uint32_t bytes) const {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                     smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(tile)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+  }
+
+  // every thread: wait until the tile holds its use number `use`
+  __device__ void wait(uint32_t use) const {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "WAIT_X:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+        "@!p bra WAIT_X;\n\t}" ::"r"(smem_u32(bar)),
+        "r"(use & 1u)
+        : "memory");
+  }
+};
+
 // BF16 = true rounds the operands of the two data products to bfloat16, as
 // aehmc_tpu/ops/nuts_fused.py:_logistic_pot_grad_builder (:878) does with
-// matmul_dtype=bfloat16: q and Xᵀ for the logits, σ − y and X for the
+// matmul_dtype=bfloat16: q and X for the logits, σ − y and X for the
 // gradient.  A product of two bfloat16 values is exact in float32, the sums
 // stay float32, and so do the prior terms (on the unrounded q).
-template <bool BF16>
+template <bool BF16, bool SMEM_X = false>
 struct LogisticPGT {
-  const float* X;   // (N, dim)
-  const float* XT;  // (dim, N)
-  const float* y;   // (N,)
+  const float* X;  // (N, xs): rows padded with zeros to xs floats
+  const float* y;  // (N,)
   int N;
+  int xs;  // row stride of X: a multiple of 4
+  int P;   // points a chunk: PT, or under SMEM_X the tile's rows (a power
+           // of 2, 8 to PT)
   float prior_precision;
   static __device__ __forceinline__ float op(float x) {
     if constexpr (BF16) {
@@ -53,116 +143,203 @@ struct LogisticPGT {
       return x;
     }
   }
-  __device__ void operator()(int dim, int ds, float* rbuf, float* gpart,
-                             const float* q, float* grad, float* pot) const;
+  static __device__ __forceinline__ float4 op4(float4 v) {
+    return make_float4(op(v.x), op(v.y), op(v.z), op(v.w));
+  }
+  // row m of the chunk from point n0: the shared tile or X
+  __device__ const float* row(const PGScratch& S, int n0, int m) const {
+    if constexpr (SMEM_X) {
+      return S.tile + (size_t)m * xs;
+    } else {
+      return X + (size_t)(n0 + m) * xs;
+    }
+  }
+  __device__ float4 ld_x4(const float* p) const {
+    if constexpr (SMEM_X) {
+      return op4(ld4(p));
+    } else {
+      return op4(__ldg(reinterpret_cast<const float4*>(p)));
+    }
+  }
+  __device__ float2 ld_x2(const float* p) const {
+    float2 v;
+    if constexpr (SMEM_X) {
+      v = *reinterpret_cast<const float2*>(p);
+    } else {
+      v = __ldg(reinterpret_cast<const float2*>(p));
+    }
+    return make_float2(op(v.x), op(v.y));
+  }
+  __device__ void operator()(const PGScratch& S, int dim, int ds,
+                             const float* q, float* grad) const;
 };
 
 using LogisticPG = LogisticPGT<false>;
+using LogisticPGX = LogisticPGT<false, true>;  // X through a shared tile
 
-template <bool BF16>
-__device__ void LogisticPGT<BF16>::operator()(int dim, int ds, float* rbuf,
-                                             float* gpart, const float* q,
-                                             float* grad,
-                                             float* pot) const {
-  const int t = threadIdx.x;
-  float lik[CB];
+// One level of a butterfly over lanes: v[0, W) holds this lane's partial
+// sums; keep the upper half if `up`, the lower otherwise, each summed with
+// the partner's (lane ^ bit) same half, into v[0, W/2).
+template <int W>
+__device__ __forceinline__ void halve(float (&v)[4 * CB], bool up, int bit) {
 #pragma unroll
-  for (int c = 0; c < CB; ++c) lik[c] = 0.f;
-  for (int e = t; e < 2 * CB * ds; e += NT) gpart[e] = 0.f;
-
-  for (int n0 = 0; n0 < N; n0 += NT) {
-    // X·q for point n0 + t, all CB chains; then σ − y into rbuf
-    const int n = n0 + t;
-    if (n < N) {
-      float acc[CB];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = 0.f;
-      int d = 0;
-      for (; d + 4 <= dim; d += 4) {
-        const float x0 = op(__ldg(XT + (size_t)d * N + n));
-        const float x1 = op(__ldg(XT + (size_t)(d + 1) * N + n));
-        const float x2 = op(__ldg(XT + (size_t)(d + 2) * N + n));
-        const float x3 = op(__ldg(XT + (size_t)(d + 3) * N + n));
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          const float4 qv = *reinterpret_cast<const float4*>(q + c * ds + d);
-          acc[c] = fmaf(x0, op(qv.x), acc[c]);
-          acc[c] = fmaf(x1, op(qv.y), acc[c]);
-          acc[c] = fmaf(x2, op(qv.z), acc[c]);
-          acc[c] = fmaf(x3, op(qv.w), acc[c]);
-        }
-      }
-      for (; d < dim; ++d) {
-        const float x = op(__ldg(XT + (size_t)d * N + n));
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          acc[c] = fmaf(x, op(q[c * ds + d]), acc[c]);
-      }
-      const float yv = __ldg(y + n);
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        const float lg = acc[c];
-        const float sp = fmaxf(lg, 0.f) + log1pf(expf(-fabsf(lg)));
-        lik[c] += yv * lg - sp;
-        rbuf[c * NT + t] = op(1.f / (1.f + expf(-lg)) - yv);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < CB; ++c) rbuf[c * NT + t] = 0.f;
-    }
-    __syncthreads();
-
-    // Xᵀ·r over this chunk: thread (half, dl) sums half the chunk's points
-    const int half = t / HALF, dl = t % HALF;
-    const int nb = n0 + half * HALF, ne = min(nb + HALF, N);
-    for (int dd = dl; dd < dim; dd += HALF) {
-      float acc[CB];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) acc[c] = 0.f;
-      int m = nb;
-      for (; m + 4 <= ne; m += 4) {
-        const float x0 = op(__ldg(X + (size_t)m * dim + dd));
-        const float x1 = op(__ldg(X + (size_t)(m + 1) * dim + dd));
-        const float x2 = op(__ldg(X + (size_t)(m + 2) * dim + dd));
-        const float x3 = op(__ldg(X + (size_t)(m + 3) * dim + dd));
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          const float4 rv =
-              *reinterpret_cast<const float4*>(rbuf + c * NT + (m - n0));
-          acc[c] = fmaf(x0, rv.x, acc[c]);
-          acc[c] = fmaf(x1, rv.y, acc[c]);
-          acc[c] = fmaf(x2, rv.z, acc[c]);
-          acc[c] = fmaf(x3, rv.w, acc[c]);
-        }
-      }
-      for (; m < ne; ++m) {
-        const float x = op(__ldg(X + (size_t)m * dim + dd));
-#pragma unroll
-        for (int c = 0; c < CB; ++c)
-          acc[c] = fmaf(x, rbuf[c * NT + (m - n0)], acc[c]);
-      }
-#pragma unroll
-      for (int c = 0; c < CB; ++c) gpart[(half * CB + c) * ds + dd] += acc[c];
-    }
-    __syncthreads();
+  for (int k = 0; k < W / 2; ++k) {
+    const float mine = up ? v[W / 2 + k] : v[k];
+    const float give = up ? v[k] : v[W / 2 + k];
+    v[k] = mine + __shfl_xor_sync(FULL, give, bit);
   }
+}
 
+// Xᵀ·r's butterfly over NS residue lanes, then the thread's share of the
+// gradient rows: v[k] is dimension 4·dg + k / CB, chain k % CB.
+template <int NS>
+__device__ __forceinline__ void grad_rows(float (&v)[4 * CB], int sb, int dg,
+                                          bool on, int dim, int ds,
+                                          float* grad) {
+  int off = 0;
+  if constexpr (NS >= 8) {
+    halve<32>(v, sb & 4, 4);
+    off += (sb & 4) ? 16 : 0;
+  }
+  if constexpr (NS >= 4) {
+    halve<32 * 4 / NS>(v, sb & 2, 2);
+    off += (sb & 2) ? 32 * 2 / NS : 0;
+  }
+  if constexpr (NS >= 2) {
+    halve<32 * 2 / NS>(v, sb & 1, 1);
+    off += (sb & 1) ? 32 / NS : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < 32 / NS; ++k) {
+    const int i = (off + k) / CB, c = (off + k) % CB, d = 4 * dg + i;
+    if (on && d < dim) grad[c * ds + d] = v[k];
+  }
+}
+
+template <bool BF16, bool SMEM_X>
+__device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
+                                                      int dim, int ds,
+                                                      const float* q,
+                                                      float* grad) const {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  float* const rt = S.rt;
+  const int ng4 = (dim + 3) / 4;  // float4 groups of a row
+  const int ng2 = (dim + 1) / 2;  // float2 groups
+  // X·q roles: point group pg (points 4·pg .. 4·pg + 3 of a chunk), slice s
+  const int s = lane & 7, pg = t / 8;
+  const bool a_warp = 16 * w < P;  // the warp has points (warp-uniform)
+  const int pa = 4 * pg + 2 * ((s >> 2) & 1) + ((s >> 1) & 1);
+  const int ca = 4 * (s & 1);
+  // Xᵀ·r roles: residue sb of NS (a power of 2, at most 8) in adjacent
+  // lanes, dimension group dg; past 4·NT dimensions more than one pass
+  const int ns = ng4 * 8 <= NT   ? 8
+                 : ng4 * 4 <= NT ? 4
+                 : ng4 * 2 <= NT ? 2
+                                 : 1;
+  const int passes = (ng4 * ns + NT - 1) / NT;
+
+  float lik[4] = {0.f, 0.f, 0.f, 0.f};
+  uint32_t uses = SMEM_X ? *S.uses : 0u;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int sb = t % ns, dg = (pass * NT + t) / ns;
+    const bool b_on = dg < ng4;
+    float acc[4 * CB];
+#pragma unroll
+    for (int k = 0; k < 4 * CB; ++k) acc[k] = 0.f;
+
+    for (int n0 = 0; n0 < N; n0 += P) {
+      const int rows = min(P, N - n0);
+      if constexpr (SMEM_X) {  // the previous chunk's reads are done
+        if (t == 0)
+          S.load(X + (size_t)n0 * xs, (uint32_t)rows * (uint32_t)xs * 4u);
+        S.wait(uses++);
+      }
+      if (a_warp) {  // logits of 4 points x 8 chains over this lane's slice
+        float a[4 * CB];
+#pragma unroll
+        for (int k = 0; k < 4 * CB; ++k) a[k] = 0.f;
+        const float* xr[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)  // points past the data repeat the last
+          xr[i] = row(S, n0, min(4 * pg + i, rows - 1));
+        for (int g = s; g < ng2; g += 8) {
+          const int d = 2 * g;
+          float2 xv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) xv[i] = ld_x2(xr[i] + d);
+#pragma unroll
+          for (int c = 0; c < CB; ++c) {
+            const float2 qr = *reinterpret_cast<const float2*>(q + c * ds + d);
+            const float qx = op(qr.x), qy = op(qr.y);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float& e = a[i * CB + c];
+              e = fmaf(xv[i].x, qx, e);
+              e = fmaf(xv[i].y, qy, e);
+            }
+          }
+        }
+        // the 8 slices' sums (xor 4, 2, 1): a[0, 4) is then point pa's
+        // logits for chains ca .. ca + 3; σ − y and the likelihood
+        halve<32>(a, s & 4, 4);
+        halve<16>(a, s & 2, 2);
+        halve<8>(a, s & 1, 1);
+        float4 rv = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (4 * pg < P && pa < rows) {
+          const float yv = __ldg(y + n0 + pa);
+          float r[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float sp = fmaxf(a[j], 0.f) + log1pf(expf(-fabsf(a[j])));
+            if (pass == 0) lik[j] += yv * a[j] - sp;
+            r[j] = op(1.f / (1.f + expf(-a[j])) - yv);
+          }
+          rv = make_float4(r[0], r[1], r[2], r[3]);
+        }
+        if (4 * pg < P) *reinterpret_cast<float4*>(rt + pa * RS + ca) = rv;
+      }
+      __syncthreads();
+
+      if (b_on) {  // Xᵀ r over this thread's residue class of the chunk
+        for (int m = sb; m < rows; m += ns) {
+          const float4 xv = ld_x4(row(S, n0, m) + 4 * dg);
+          const float4 r0 = ld4(rt + m * RS), r1 = ld4(rt + m * RS + 4);
+          const float rr[CB] = {r0.x, r0.y, r0.z, r0.w,
+                                r1.x, r1.y, r1.z, r1.w};
+          const float xx[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < CB; ++c)
+              acc[i * CB + c] = fmaf(xx[i], rr[c], acc[i * CB + c]);
+        }
+      }
+      __syncthreads();
+    }
+    switch (ns) {  // the residues' sums into the gradient rows
+      case 8: grad_rows<8>(acc, sb, dg, b_on, dim, ds, grad); break;
+      case 4: grad_rows<4>(acc, sb, dg, b_on, dim, ds, grad); break;
+      case 2: grad_rows<2>(acc, sb, dg, b_on, dim, ds, grad); break;
+      default: grad_rows<1>(acc, sb, dg, b_on, dim, ds, grad); break;
+    }
+  }
+  // the potential: each lane's likelihood sums into (CB, PT), then a warp
+  // per chain
+#pragma unroll
+  for (int j = 0; j < 4; ++j) rt[(ca + j) * PT + pa] = pa < P ? lik[j] : 0.f;
+  if (SMEM_X && t == 0) *S.uses = uses;
+  __syncthreads();
   for (int e = t; e < CB * dim; e += NT) {
     const int c = e / dim, d = e - c * dim;
-    grad[c * ds + d] = (gpart[c * ds + d] + gpart[(CB + c) * ds + d]) +
-                       prior_precision * q[c * ds + d];
+    grad[c * ds + d] = grad[c * ds + d] + prior_precision * q[c * ds + d];
   }
-#pragma unroll
-  for (int c = 0; c < CB; ++c) rbuf[c * NT + t] = lik[c];
-  __syncthreads();
-  const int w = t / 32, lane = t % 32;
-  float s = 0.f;
-  for (int k = lane; k < NT; k += 32) s += rbuf[w * NT + k];
-  s = warp_sum(s);
+  float sum = 0.f;
+  for (int k = lane; k < PT; k += 32) sum += rt[w * PT + k];
+  sum = warp_sum(sum);
   float qq = 0.f;
   for (int d = lane; d < dim; d += 32) qq += q[w * ds + d] * q[w * ds + d];
   qq = warp_sum(qq);
-  if (lane == 0) pot[w] = -s + 0.5f * (prior_precision * qq);
+  if (lane == 0) S.nu[w] = -sum + 0.5f * (prior_precision * qq);
   __syncthreads();
 }
 

@@ -18,25 +18,24 @@
 // What bounds it on the card.  A gradient of the 100-d, 1,000-point
 // logistic posterior is two data products, X·q and Xᵀ·(σ(X·q) − y): 2·10^5
 // fused multiply-adds per chain, in float32 on the CUDA cores (TF32 is off:
-// the tests hold the kernels to float32 results).  X and Xᵀ are 400 KB
-// each; they do not fit in shared memory (227 KB a block) but sit in the
-// 50 MB L2, so every product streams them from L2 and the bytes per chain
-// fall as the chains per block grow.  The NUTS state (edges, proposals,
-// momentum sums and 2·K checkpoint rows of `dim` floats per chain) is the
-// other consumer of shared memory, and it caps the chains per block.
+// the tests hold the kernels to float32 results), at the rate the functor's
+// register tiles feed them (logistic_pg.cuh).  X (400 KB) comes through
+// L1 from the 50 MB L2.  The NUTS state (edges, proposals, momentum sums and
+// 2·K checkpoint rows of `dim` floats per chain) fills shared memory, and it
+// caps the chains per block.
 //
 // Design.  The potential and gradient are a device functor, a template
 // parameter of the core and of the kernels (LogisticPGT, logistic_pg.cuh).
 // A block of CB = 8 warps owns 8 chains, one warp per chain, and keeps all
-// of their NUTS state in shared memory (107 KB at dim 100, K 6: two blocks
-// per SM).  Every per-chain decision is warp-uniform, so the tree walk has
-// no divergence inside a warp; a warp whose chain has stopped idles through
-// the rest of the block's tree, the early exit being block-wide as on the
-// TPU.  The gradient is computed by the whole block for its 8 chains at
-// once.  Reductions run in a fixed order and products use explicit fmaf
-// with -fmad=false elsewhere, so a result does not depend on timing or on
-// where the core is inlined: the whole-run kernel equals one launch per
-// draw bit for bit.
+// of their NUTS state in shared memory (99 KB at dim 100, K 6: two blocks
+// per SM, 128 registers a thread).  Every per-chain decision is
+// warp-uniform, so the tree walk has no divergence inside a warp; a warp
+// whose chain has stopped idles through the rest of the block's tree, the
+// early exit being block-wide as on the TPU.  The gradient is computed by
+// the whole block for its 8 chains at once.  Reductions run in a fixed
+// order and products use explicit fmaf with -fmad=false elsewhere, so a
+// result does not depend on timing or on where the core is inlined: the
+// whole-run kernel equals one launch per draw bit for bit.
 //
 // Randomness is external (tensors, for parity with the NumPy oracle) or
 // Philox4x32-10 keyed by the draw's seed with counter (chain, index, stream,
@@ -44,6 +43,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <utility>
 
 #include "logistic_pg.cuh"
 
@@ -75,23 +76,22 @@ __device__ __forceinline__ size_t gat(int i, int chain, int rows, int C) {
   return STD ? (size_t)chain * rows + i : (size_t)i * C + chain;
 }
 
-// Shared memory of a block; rbuf and gpart are the potential's scratch.
+// Shared memory of a block; pgs is the potential's scratch.
 struct Smem {
   float *prop_q, *prop_g, *left_q, *left_p, *left_g, *right_q, *right_p,
       *right_g, *psum, *last_q, *last_p, *last_g, *sprop_q, *sprop_g,
-      *s_psum, *ngrad, *tmp, *ck_p, *ck_s, *rbuf, *gpart, *nu;
+      *s_psum, *ngrad, *tmp, *ck_p, *ck_s;
+  PGScratch pgs;  // the functor's scratch
 };
 
 constexpr int NUM_ROWS = 17;  // row arrays of Smem before the checkpoints
 
-__host__ __device__ inline size_t smem_floats(int ds, int K) {
-  const size_t V = (size_t)CB * ds;
-  return (NUM_ROWS + 2 * (size_t)K + 2) * V + (size_t)CB * NT + CB;
-}
-
+// The rows, zeroed (the functor reads q's padding past dim), then the
+// functor's scratch.  Every thread of the block calls it.
 __device__ inline Smem carve(float* base, int ds, int K) {
   const size_t V = (size_t)CB * ds;
   float* p = base;
+  zero_smem(p, (NUM_ROWS + 2 * (size_t)K) * V);
   auto take = [&p](size_t n) {
     float* r = p;
     p += n;
@@ -117,9 +117,8 @@ __device__ inline Smem carve(float* base, int ds, int K) {
   s.tmp = take(V);
   s.ck_p = take(K * V);
   s.ck_s = take(K * V);
-  s.rbuf = take((size_t)CB * NT);
-  s.gpart = take(2 * V);
-  s.nu = take(CB);
+  s.pgs.carve(p);
+  __syncthreads();
   return s;
 }
 
@@ -318,10 +317,10 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn, const Smem& S,
         }
       }
       __syncthreads();
-      pg_fn(P.dim, P.ds, S.rbuf, S.gpart, S.last_q, S.ngrad, S.nu);
+      pg_fn(S.pgs, P.dim, P.ds, S.last_q, S.ngrad);
       if (!live) continue;
 
-      float un = S.nu[w];
+      float un = S.pgs.nu[w];
       un = un != un ? -NEG_INF : clip(un);
       for (int k = lane; k < dim; k += 32) {
         float g = ng[k];
@@ -536,14 +535,14 @@ inline Params make_params(const float* im, const float* ms, int dense,
   return P;
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, const Params& P, int N, size_t* smem) {
-  if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14)
+// Checks a launch's sizes and launches `kernel` on the plan's blocks.
+template <typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
+                   const Geometry& G, cudaStream_t stream, Args&&... args) {
+  if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14 ||
+      (size_t)G.blocks * CB < (size_t)P.C)
     return cudaErrorInvalidValue;
-  *smem = smem_floats(P.ds, P.K) * sizeof(float);
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
+  return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }
 
 }  // namespace nuts

@@ -19,7 +19,9 @@
 // What bounds it: as kernels 1 and 2, the two data products of every
 // gradient (2·N·dim FMAs per chain).  Layout changes nothing in the core;
 // a warp's loads and stores of a chain's row are contiguous here, where the
-// transposed layout strides them by C.
+// transposed layout strides them by C.  The launch plan (blocks, X's row
+// stride, shared memory) comes from
+// aehmc_tpu_torch/ops/launch_plan.py.
 
 #include "nuts_core.cuh"
 
@@ -30,32 +32,23 @@ namespace {
 
 template <bool BF16>
 cudaError_t launch_transition(const Params& P, const LogisticPGT<BF16>& pg,
-                              const Rand& R, int N, const float* q,
-                              const float* u, const float* g, float* q_out,
-                              float* u_out, float* g_out, float* stats,
-                              cudaStream_t stream) {
-  auto kernel = nuts_transition_kernel<LogisticPGT<BF16>, true>;
-  size_t smem = 0;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(P.C + CB - 1) / CB, NT, smem, stream>>>(P, pg, R, q, u, g, q_out,
-                                                    u_out, g_out, stats);
-  return cudaGetLastError();
+                              const Rand& R, const Geometry& G,
+                              const float* q, const float* u, const float* g,
+                              float* q_out, float* u_out, float* g_out,
+                              float* stats, cudaStream_t stream) {
+  return launch(nuts_transition_kernel<LogisticPGT<BF16>, true>, P, pg.N, G,
+                stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats);
 }
 
 template <bool BF16>
 cudaError_t launch_sampling(const Params& P, const LogisticPGT<BF16>& pg,
-                            uint32_t seed, int num_draws, int N,
+                            uint32_t seed, int num_draws, const Geometry& G,
                             const float* q, const float* u, const float* g,
                             float* pos, float* stats, float* q_out,
                             float* u_out, float* g_out, cudaStream_t stream) {
-  auto kernel = nuts_sampling_kernel<LogisticPGT<BF16>, float, true>;
-  size_t smem = 0;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(P.C + CB - 1) / CB, NT, smem, stream>>>(
-      P, pg, seed, num_draws, q, u, g, pos, stats, q_out, u_out, g_out);
-  return cudaGetLastError();
+  return launch(nuts_sampling_kernel<LogisticPGT<BF16>, float, true>, P,
+                pg.N, G, stream, P, pg, seed, num_draws, q, u, g, pos, stats,
+                q_out, u_out, g_out);
 }
 
 }  // namespace
@@ -63,29 +56,33 @@ cudaError_t launch_sampling(const Params& P, const LogisticPGT<BF16>& pg,
 extern "C" {
 
 // Kernel 3: one transition.  q, g, p: (C, dim); u: (C,); dirs, ub: (C, K);
-// ul: (C, 2^K); im: (dim,); stats: (C, 8).  use_seed selects Philox
-// randomness keyed by seed (p, dirs, ub and ul are then unused); bf16
-// rounds the data products' operands to bfloat16.
+// ul: (C, 2^K); X: (N, row_stride); im: (dim,); stats: (C, 8).  use_seed
+// selects Philox randomness keyed by seed (p, dirs, ub and ul are then
+// unused); bf16 rounds the data products' operands to bfloat16.  blocks,
+// points, row_stride and smem are the launch plan's.
 int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                const float* p, const float* dirs,
                                const float* ub, const float* ul, int use_seed,
                                unsigned int seed, const float* X,
-                               const float* XT, const float* y,
-                               const float* im, float eps, float thr,
-                               float prior_precision, int bf16, int dim,
-                               int N, int C, int K, float* q_out,
+                               const float* y, const float* im, float eps,
+                               float thr, float prior_precision, int bf16,
+                               int dim, int N, int C, int K, float* q_out,
                                float* u_out, float* g_out, float* stats,
+                               int blocks, int points, int row_stride, int smem,
                                void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
+  const Geometry G = {blocks, points, row_stride, smem};
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    const LogisticPGT<true> pg = {X, XT, y, N, prior_precision};
-    return (int)launch_transition(P, pg, R, N, q, u, g, q_out, u_out, g_out,
+    const LogisticPGT<true> pg = {X, y, N, row_stride, points,
+                                  prior_precision};
+    return (int)launch_transition(P, pg, R, G, q, u, g, q_out, u_out, g_out,
                                   stats, s);
   }
-  const LogisticPGT<false> pg = {X, XT, y, N, prior_precision};
-  return (int)launch_transition(P, pg, R, N, q, u, g, q_out, u_out, g_out,
+  const LogisticPGT<false> pg = {X, y, N, row_stride, points,
+                                 prior_precision};
+  return (int)launch_transition(P, pg, R, G, q, u, g, q_out, u_out, g_out,
                                 stats, s);
 }
 
@@ -93,21 +90,25 @@ int nuts_transition_std_launch(const float* q, const float* u, const float* g,
 // pos: (draws, C, dim) float32 or null; stats: (draws, C, 8).
 int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
                              unsigned int seed, int num_draws, const float* X,
-                             const float* XT, const float* y, const float* im,
-                             float eps, float thr, float prior_precision,
-                             int bf16, int dim, int N, int C, int K,
-                             float* pos, float* stats, float* q_out,
-                             float* u_out, float* g_out, void* stream) {
+                             const float* y, const float* im, float eps,
+                             float thr, float prior_precision, int bf16,
+                             int dim, int N, int C, int K, float* pos,
+                             float* stats, float* q_out, float* u_out,
+                             float* g_out, int blocks, int points,
+                             int row_stride, int smem, void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
+  const Geometry G = {blocks, points, row_stride, smem};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   if (bf16) {
-    const LogisticPGT<true> pg = {X, XT, y, N, prior_precision};
-    return (int)launch_sampling(P, pg, seed, num_draws, N, q, u, g, pos,
+    const LogisticPGT<true> pg = {X, y, N, row_stride, points,
+                                  prior_precision};
+    return (int)launch_sampling(P, pg, seed, num_draws, G, q, u, g, pos,
                                 stats, q_out, u_out, g_out, s);
   }
-  const LogisticPGT<false> pg = {X, XT, y, N, prior_precision};
-  return (int)launch_sampling(P, pg, seed, num_draws, N, q, u, g, pos, stats,
+  const LogisticPGT<false> pg = {X, y, N, row_stride, points,
+                                 prior_precision};
+  return (int)launch_sampling(P, pg, seed, num_draws, G, q, u, g, pos, stats,
                               q_out, u_out, g_out, s);
 }
 

@@ -21,26 +21,26 @@ using namespace aehmc::nuts;
 extern "C" {
 
 // Kernel 1: one transition.  q, g, p: (dim, C); u: (C,); dirs, ub: (K, C);
-// ul: (2^K, C); stats: (8, C).  use_seed selects Philox randomness keyed by
-// seed (p, dirs, ub and ul are then unused).
+// ul: (2^K, C); X: (N, row_stride); stats: (8, C).  use_seed selects Philox
+// randomness keyed by seed (p, dirs, ub and ul are then unused).  blocks,
+// points, row_stride and smem are the launch plan's
+// (aehmc_tpu_torch/ops/launch_plan.py).
 int nuts_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* dirs, const float* ub,
                            const float* ul, int use_seed, unsigned int seed,
-                           const float* X, const float* XT, const float* y,
-                           const float* im, const float* ms, int dense,
-                           float eps, float thr, int dim, int N, int C, int K,
-                           float* q_out, float* u_out, float* g_out,
-                           float* stats, void* stream) {
+                           const float* X, const float* y, const float* im,
+                           const float* ms, int dense, float eps, float thr,
+                           int dim, int N, int C, int K, float* q_out,
+                           float* u_out, float* g_out, float* stats,
+                           int blocks, int points, int row_stride, int smem,
+                           void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, XT, y, N, 1.0f};
+  const LogisticPG pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
-  auto kernel = nuts_transition_kernel<LogisticPG, false>;
-  size_t smem = 0;
-  cudaError_t err = prepare(kernel, P, N, &smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(C + CB - 1) / CB, NT, smem, (cudaStream_t)stream>>>(
-      P, pg, R, q, u, g, q_out, u_out, g_out, stats);
-  return (int)cudaGetLastError();
+  const Geometry G = {blocks, points, row_stride, smem};
+  return (int)launch(nuts_transition_kernel<LogisticPG, false>, P, N, G,
+                     (cudaStream_t)stream, P, pg, R, q, u, g, q_out, u_out,
+                     g_out, stats);
 }
 
 // Kernel 2: num_draws transitions, draw t keyed by seed + t*DRAW_SEED_STRIDE.
@@ -48,32 +48,24 @@ int nuts_transition_launch(const float* q, const float* u, const float* g,
 // stats: (draws, 8, C).
 int nuts_sampling_launch(const float* q, const float* u, const float* g,
                          unsigned int seed, int num_draws, const float* X,
-                         const float* XT, const float* y, const float* im,
-                         const float* ms, int dense, float eps, float thr,
-                         int dim, int N, int C, int K, void* pos, int pos_bf16,
-                         float* stats, float* q_out, float* u_out,
-                         float* g_out, void* stream) {
+                         const float* y, const float* im, const float* ms,
+                         int dense, float eps, float thr, int dim, int N,
+                         int C, int K, void* pos, int pos_bf16, float* stats,
+                         float* q_out, float* u_out, float* g_out, int blocks,
+                         int points, int row_stride, int smem,
+                         void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, XT, y, N, 1.0f};
-  size_t smem = 0;
-  const int blocks = (C + CB - 1) / CB;
-  cudaError_t err;
-  if (pos_bf16) {
-    auto kernel = nuts_sampling_kernel<LogisticPG, __nv_bfloat16, false>;
-    err = prepare(kernel, P, N, &smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(
-        P, pg, seed, num_draws, q, u, g, static_cast<__nv_bfloat16*>(pos),
-        stats, q_out, u_out, g_out);
-  } else {
-    auto kernel = nuts_sampling_kernel<LogisticPG, float, false>;
-    err = prepare(kernel, P, N, &smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, NT, smem, (cudaStream_t)stream>>>(
-        P, pg, seed, num_draws, q, u, g, static_cast<float*>(pos), stats,
-        q_out, u_out, g_out);
-  }
-  return (int)cudaGetLastError();
+  const LogisticPG pg = {X, y, N, row_stride, points, 1.0f};
+  const Geometry G = {blocks, points, row_stride, smem};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (pos_bf16)
+    return (int)launch(nuts_sampling_kernel<LogisticPG, __nv_bfloat16, false>,
+                       P, N, G, s, P, pg, seed, num_draws, q, u, g,
+                       static_cast<__nv_bfloat16*>(pos), stats, q_out, u_out,
+                       g_out);
+  return (int)launch(nuts_sampling_kernel<LogisticPG, float, false>, P, N, G,
+                     s, P, pg, seed, num_draws, q, u, g,
+                     static_cast<float*>(pos), stats, q_out, u_out, g_out);
 }
 
 }  // extern "C"

@@ -35,32 +35,36 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# the launch plan (blocks, points a chunk, X's row stride, shared memory),
+# then the stream
+_GEOMETRY = [_I] * 4 + [_P]
 # source -> {C function: argtypes}
 SIGNATURES = {
     "nuts_fused_small.cu": {
-        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P] * 5
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5,
-        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 5
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5,
+        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P] * 4
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 4 + _GEOMETRY,
+        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 4
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 4 + _GEOMETRY,
     },
     "nuts_fused.cu": {
-        "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 4
-        + [_F, _F, _F] + [_I] * 5 + [_P] * 5,
-        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 4
-        + [_F, _F, _F] + [_I] * 5 + [_P] * 6,
+        "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 3
+        + [_F] * 3 + [_I] * 5 + [_P] * 4 + _GEOMETRY,
+        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 3
+        + [_F] * 3 + [_I] * 5 + [_P] * 5 + _GEOMETRY,
     },
     "chees_fused.cu": {
-        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P] * 6
-        + [_I, _P, _F] + [_I] * 3 + [_P] * 7,
+        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P] * 5
+        + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
     },
     "ghmc_fused.cu": {
-        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P] * 6
-        + [_I, _F, _I, _I, _I, _I] + [_P] * 6,
-        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P] * 6
-        + [_I, _F, _I, _I, _I, _I] + [_P] * 7,
+        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P] * 5
+        + [_I, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P] * 5
+        + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
     },
     "fused_hmc.cu": {
-        "fused_hmc_launch": [_P] * 6 + [_F, _I, _F, _I, _I, _I] + [_P] * 3,
+        "fused_hmc_launch": [_P] * 5 + [_F, _I, _F, _I, _I, _I] + [_P] * 2
+        + _GEOMETRY,
     },
     "leapfrog.cu": {
         "batched_leapfrog_launch": [_P] * 4 + [_F, _I, _I, _I] + [_P] * 3,
@@ -68,7 +72,7 @@ SIGNATURES = {
 }
 
 # seconds and compiler output of the builds this process ran (empty when
-# every library was already built)
+# every library was already built; ptxas_log() reads every build's)
 BUILD_INFO = {}
 _libs = {}  # source -> loaded library
 
@@ -116,12 +120,22 @@ def _build_missing(sources) -> None:
         if proc.returncode:
             failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{text}")
         else:
+            out.with_suffix(".log").write_text(text)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     if jobs:
         BUILD_INFO.update(seconds=time.perf_counter() - t0,
                           log="\n".join(logs))
+
+
+def ptxas_log() -> str:
+    """nvcc's output (ptxas's registers and spills) of every library built
+    from the current sources, one "== <source>" section each."""
+    return "\n".join(
+        f"== {source}\n{library_path(source).with_suffix('.log').read_text()}"
+        for source in SIGNATURES
+        if library_path(source).with_suffix(".log").exists())
 
 
 def build_all() -> None:

@@ -12,6 +12,7 @@ from typing import Tuple
 
 import torch
 
+from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 
 
@@ -82,14 +83,15 @@ def fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size, num_steps,
                     inverse_mass=(inverse_mass, (dim,)))
     for name, (t, shape) in operands.items():
         require_f32_cuda(name, t, shape, device)
-    XT = X.T.contiguous()
+    plan = launch_plan("fused_hmc", dim, 0, num_chains)
+    Xk = data_rows(X, plan.row_stride)
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     lib = load_kernels("fused_hmc.cu")
     err = lib.fused_hmc_launch(
-        q.data_ptr(), p.data_ptr(), X.data_ptr(), XT.data_ptr(), y.data_ptr(),
+        q.data_ptr(), p.data_ptr(), Xk.data_ptr(), y.data_ptr(),
         inverse_mass.data_ptr(), float(step_size), int(num_steps),
         float(prior_precision), dim, num_points, num_chains,
-        q_out.data_ptr(), p_out.data_ptr(),
+        q_out.data_ptr(), p_out.data_ptr(), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "fused_logistic_hmc")

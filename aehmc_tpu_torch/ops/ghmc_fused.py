@@ -30,6 +30,7 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, NEG_INF
 from aehmc_tpu_torch.ops.nuts_fused_small import _clamped, _pot_grad_builder_t
@@ -284,19 +285,20 @@ def _ptr(t):
 
 
 def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
-    """Validate and normalise the operands shared by both kernels; returns
-    ``(operands, im_per_chain, (dim, points, chains))``."""
+    """Validate and normalise the operands shared by both kernels, and plan
+    the launch; returns ``(operands, im_per_chain, plan, (dim, points,
+    chains))``."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda
 
     dim, num_chains = q_t.shape
-    X, XT, y = data
+    X, _, y = data
     num_points = X.shape[0]
     device = q_t.device
     im = _im_t(inverse_mass, dim, num_chains, device)
     per_chain = im.shape[1] > 1
     ops = dict(
         q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t,
-        X=X, XT=XT, y=y.reshape(num_points),
+        X=X, y=y.reshape(num_points),
         eps=_row(step_size, num_chains, device).reshape(num_chains)
         .contiguous(),
         alpha=_row(alpha, num_chains, device).reshape(num_chains)
@@ -305,12 +307,14 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
                   p=(dim, num_chains), X=(num_points, dim),
-                  XT=(dim, num_points), y=(num_points,), eps=(num_chains,),
+                  y=(num_points,), eps=(num_chains,),
                   alpha=(num_chains,),
                   im=(dim, num_chains) if per_chain else (dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    return ops, per_chain, (dim, num_points, num_chains)
+    plan = launch_plan("hmc", dim, 0, num_chains)
+    ops["X"] = data_rows(X, plan.row_stride)
+    return ops, per_chain, plan, (dim, num_points, num_chains)
 
 
 def _external(noise, u_accept, shape, seed, device):
@@ -333,7 +337,7 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
     ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, per_chain, (dim, num_points, num_chains) = _cuda_operands(
+    ops, per_chain, plan, (dim, num_points, num_chains) = _cuda_operands(
         q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
     )
     device = q_t.device
@@ -346,11 +350,12 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
         0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["eps"]),
         _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(p_out),
-        _ptr(stats), torch.cuda.current_stream(device).cuda_stream,
+        _ptr(stats), *plan.args(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "ghmc_transition")
     LAUNCHES["ghmc_transition"] += 1
@@ -367,7 +372,7 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
     transposed contract; stats are ``(draws, 8, C)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, per_chain, (dim, num_points, num_chains) = _cuda_operands(
+    ops, per_chain, plan, (dim, num_points, num_chains) = _cuda_operands(
         q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
     )
     device = q_t.device
@@ -384,11 +389,11 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
         0 if seed is None else int(seed) & MASK32, int(num_draws),
-        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["eps"]),
         _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), _ptr(p_out),
+        _ptr(g_out), _ptr(p_out), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "ghmc_segment")

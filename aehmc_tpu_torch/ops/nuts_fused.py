@@ -41,6 +41,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import _softplus
+from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     DRAW_SEED_STRIDE,
@@ -432,27 +433,29 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q, u, g, inverse_mass, data):
-    """Validate and normalise the operands shared by kernels 3 and 4."""
+def _cuda_operands(q, u, g, inverse_mass, data, max_exp):
+    """Validate and normalise the operands shared by kernels 3 and 4, and
+    plan the launch."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda
 
     num_chains, dim = q.shape
-    X, XT, y = data
+    X, _, y = data
     num_points = X.shape[0]
     device = q.device
     im = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)
     if im.ndim == 2:
         raise ValueError("the standard-layout NUTS kernels take a diagonal "
                          "inverse mass (the JAX kernels' contract)")
-    ops = dict(q=q, u=u.reshape(num_chains, 1), g=g, X=X, XT=XT,
+    ops = dict(q=q, u=u.reshape(num_chains, 1), g=g, X=X,
                y=y.reshape(num_points),
                im=im.reshape(-1).expand(dim).contiguous())
     shapes = dict(q=(num_chains, dim), u=(num_chains, 1), g=(num_chains, dim),
-                  X=(num_points, dim), XT=(dim, num_points), y=(num_points,),
-                  im=(dim,))
+                  X=(num_points, dim), y=(num_points,), im=(dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    return ops, (dim, num_points, num_chains)
+    plan = launch_plan("nuts", dim, max_exp, num_chains)
+    ops["X"] = data_rows(X, plan.row_stride)
+    return ops, plan, (dim, num_points, num_chains)
 
 
 def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
@@ -468,8 +471,8 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
         require_f32_cuda,
     )
 
-    ops, (dim, num_points, num_chains) = _cuda_operands(q, u, g, inverse_mass,
-                                                        data)
+    ops, plan, (dim, num_points, num_chains) = _cuda_operands(
+        q, u, g, inverse_mass, data, max_exp)
     if seed is None:
         ext = dict(p=(momentum, (num_chains, dim)),
                    dirs=(directions, (num_chains, max_exp)),
@@ -488,10 +491,10 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
     err = lib.nuts_transition_std_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["im"]),
+        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
         float(step_size), float(divergence_threshold), float(prior_precision),
         int(bf16), dim, num_points, num_chains, max_exp, _ptr(q_out),
-        _ptr(u_out), _ptr(g_out), _ptr(stats),
+        _ptr(u_out), _ptr(g_out), _ptr(stats), *plan.args(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition_std")
@@ -508,8 +511,8 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
     8), q, u (C, 1), g)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, (dim, num_points, num_chains) = _cuda_operands(q, u0, g0,
-                                                        inverse_mass, data)
+    ops, plan, (dim, num_points, num_chains) = _cuda_operands(
+        q, u0, g0, inverse_mass, data, max_exp)
     device = q.device
     prior_precision, bf16 = card
     pos = (torch.empty((num_draws, num_chains, dim), dtype=torch.float32,
@@ -521,11 +524,12 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
     lib = load_kernels("nuts_fused.cu")
     err = lib.nuts_sampling_std_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        int(num_draws), _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]),
+        int(num_draws), _ptr(ops["X"]), _ptr(ops["y"]),
         _ptr(ops["im"]), float(step_size), float(divergence_threshold),
         float(prior_precision), int(bf16), dim, num_points, num_chains,
         max_exp, _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), torch.cuda.current_stream(device).cuda_stream,
+        _ptr(g_out), *plan.args(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling_std")
     LAUNCHES["nuts_sampling_std"] += 1

@@ -27,6 +27,7 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.philox import MASK32, nuts_streams
 
@@ -552,12 +553,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q_t, u, g_t, inverse_mass, data):
-    """Validate and normalise the operands shared by both kernels."""
+def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp):
+    """Validate and normalise the operands shared by both kernels, and plan
+    the launch."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda
 
     dim, num_chains = q_t.shape
-    X, XT, y = data
+    X, _, y = data
     num_points = X.shape[0]
     device = q_t.device
     inverse_mass = torch.as_tensor(inverse_mass, dtype=torch.float32,
@@ -566,17 +568,19 @@ def _cuda_operands(q_t, u, g_t, inverse_mass, data):
     im = inverse_mass if dense else inverse_mass.reshape(-1).expand(dim)
     ops = dict(
         q=q_t, u=u.reshape(1, num_chains), g=g_t,
-        X=X, XT=XT, y=y.reshape(num_points),
+        X=X, y=y.reshape(num_points),
         im=im.contiguous(),
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
-                  X=(num_points, dim), XT=(dim, num_points), y=(num_points,),
+                  X=(num_points, dim), y=(num_points,),
                   im=(dim, dim) if dense else (dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
     mass_sqrt = (_mass_sqrt_t(ops["im"], dim).contiguous() if dense
                  else None)
-    return ops, dense, mass_sqrt, (dim, num_points, num_chains)
+    plan = launch_plan("nuts", dim, max_exp, num_chains)
+    ops["X"] = data_rows(X, plan.row_stride)
+    return ops, dense, mass_sqrt, plan, (dim, num_points, num_chains)
 
 
 def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
@@ -591,9 +595,8 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
         require_f32_cuda,
     )
 
-    ops, dense, mass_sqrt, (dim, num_points, num_chains) = _cuda_operands(
-        q_t, u, g_t, inverse_mass, data
-    )
+    ops, dense, mass_sqrt, plan, (dim, num_points, num_chains) = (
+        _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp))
     if seed is None:
         ext = dict(p=(momentum, (dim, num_chains)),
                    dirs=(directions, (max_exp, num_chains)),
@@ -612,10 +615,10 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     err = lib.nuts_transition_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]), _ptr(ops["im"]),
+        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
         _ptr(mass_sqrt), int(dense), float(step_size),
         float(divergence_threshold), dim, num_points, num_chains, max_exp,
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats),
+        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), *plan.args(),
         torch.cuda.current_stream(q_t.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition")
@@ -636,9 +639,8 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     """
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, dense, mass_sqrt, (dim, num_points, num_chains) = _cuda_operands(
-        q_t, u0, g0_t, inverse_mass, data
-    )
+    ops, dense, mass_sqrt, plan, (dim, num_points, num_chains) = (
+        _cuda_operands(q_t, u0, g0_t, inverse_mass, data, max_exp))
     device = q_t.device
     pos = (torch.empty((num_draws, num_chains, dim), dtype=collect_dtype,
                        device=device) if collect_positions else None)
@@ -650,11 +652,11 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     lib = load_kernels("nuts_fused_small.cu")
     err = lib.nuts_sampling_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        num_draws, _ptr(ops["X"]), _ptr(ops["XT"]), _ptr(ops["y"]),
+        num_draws, _ptr(ops["X"]), _ptr(ops["y"]),
         _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), float(step_size),
         float(divergence_threshold), dim, num_points, num_chains, max_exp,
         _ptr(pos), int(collect_dtype == torch.bfloat16), _ptr(stats),
-        _ptr(q_out), _ptr(u_out), _ptr(g_out),
+        _ptr(q_out), _ptr(u_out), _ptr(g_out), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling")

@@ -1,0 +1,140 @@
+"""Kernel times and end-to-end walls of the port on one CUDA card, at the
+shapes ``chip_smoke.py`` uses (10,240 chains of the 100-d, 1,000-point
+logistic regression).
+
+Prints one JSON line: the CUDA-event mean of kernels 1-8 (``ms``), and the
+host wall of one front-door run each of fused NUTS, MALA and ChEES and of the
+standard-layout driver (``wall_s``, after one untimed run of each).  Run it
+from a checkout's root, ``python3 -m aehmc_tpu_torch.timing``; copied into
+another checkout's package it times that tree, so one call can time two
+trees in turns (parent, change, change, parent).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+DIM, POINTS, CHAINS, K, EPS, IMM = 100, 1000, 10_240, 6, 0.5, 0.34
+WARMUP, DRAWS, MALA_DRAWS, STEPS = 150, 200, 600, 10
+
+
+def cuda_ms(fn, reps):
+    """Mean milliseconds per call over ``reps`` calls after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_s(fn):
+    """Host seconds of the second of two calls, each ending in a
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main():
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import (
+        logistic_regression,
+        logistic_regression_pg_t,
+    )
+    from aehmc_tpu_torch.ops import _build
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import fused_hmc as fh
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
+
+    if not torch.cuda.is_available():
+        print("timing: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    _build.build_all()
+    dev = torch.device("cuda")
+    pot, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=dev)
+    rng = np.random.default_rng(0)
+    q0 = torch.tensor(0.1 * rng.standard_normal((CHAINS, DIM)),
+                      dtype=torch.float32, device=dev)
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    im = torch.full((DIM,), IMM, device=dev)
+    p0 = torch.tensor(np.sqrt(1 / IMM) * rng.standard_normal((DIM, CHAINS)),
+                      dtype=torch.float32, device=dev)
+    steps = torch.full((), STEPS, dtype=torch.int32, device=dev)
+    X, y = data[0], data[2].reshape(-1)
+    f32m = nf._logistic_model(X, y, 1.0, torch.float32)
+    b16m = nf._logistic_model(X, y, 1.0, torch.bfloat16)
+    us, gs = f32m.pot_grad(q0)
+    cstate = (q0, u0.reshape(-1), g0.T.contiguous())
+    lf_p = torch.tensor(rng.standard_normal((CHAINS, DIM)),
+                        dtype=torch.float32, device=dev)
+    kernels = {  # name: (call, repetitions)
+        "1 nuts_transition": (lambda: nfs.nuts_transition_cuda(
+            q_t, u0, g0, im, EPS, data, max_exp=K, seed=11), 10),
+        "2 nuts_sampling (20 draws)": (lambda: nfs.nuts_sampling_cuda(
+            q_t, u0, g0, im, EPS, data, 5, 20, max_exp=K), 3),
+        "3 nuts_transition_std": (lambda: nf.nuts_transition_std_cuda(
+            q0, us, gs, im, EPS, f32m.data, max_exp=K, seed=11), 10),
+        "4 nuts_sampling_std (20 draws, bf16)": (
+            lambda: nf.nuts_sampling_std_cuda(
+                q0, us, gs, im, EPS, b16m.data, 5, 20, max_exp=K,
+                card=b16m.card), 3),
+        "5 ghmc_transition": (lambda: gf.ghmc_transition_cuda(
+            q_t, u0, g0, p0, EPS, 0.0, im, data, seed=7), 40),
+        "6 ghmc_segment (32 draws)": (lambda: gf.ghmc_segment_cuda(
+            q_t, u0, g0, p0, EPS, 0.0, im, data, 32, seed=7), 5),
+        "7 chees_transition (L 10)": (lambda: cf.chees_transition_cuda(
+            *cstate, im, EPS, steps, data, seed=7), 20),
+        "8 fused_logistic_hmc (L 10)": (lambda: fh.fused_logistic_hmc_cuda(
+            q0, lf_p, X, y, im, 0.05, STEPS), 20),
+    }
+    ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in kernels.items()}
+
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+    front = dict(data=data, potential_fn_t=pot, potential_and_grad_t=pg)
+    walls = {
+        "fused NUTS": lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(2026), None, q0, DRAWS, WARMUP,
+            algorithm="nuts", path="fused", max_num_expansions=K,
+            initial_step_size=0.1, collect_dtype=torch.bfloat16, **front),
+        "fused MALA": lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(11), None, q0, MALA_DRAWS, WARMUP,
+            algorithm="mala", path="fused", initial_step_size=0.1,
+            segment_draws=32, **front),
+        "fused ChEES": lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(14), logprob_fn, q0, DRAWS, WARMUP,
+            algorithm="chees", path="fused", data=data,
+            potential_and_grad_t=pg, initial_step_size=0.05),
+        "standard driver": lambda: sample_fused_adaptive(
+            torch.Generator().manual_seed(16), nf.logistic_potential,
+            f32m.data, q0, DRAWS, WARMUP, max_num_expansions=K,
+            initial_step_size=0.1),
+    }
+    out = {name: wall_s(fn) for name, fn in walls.items()}
+    print(json.dumps({"card": card, "tree": os.getcwd(), "ms": ms,
+                      "wall_s": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

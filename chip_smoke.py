@@ -25,6 +25,12 @@ logistic regression.  Then it drives the port's front door
   and ``sample_fused_logistic`` with bfloat16 operands (one launch of
   kernel 4).
 
+Phase 1 prints each kernel's launch geometry (points a chunk of X, shared
+memory a block, from ``ops/launch_plan.py``) and ptxas's registers and
+spills; phases 13 and 15 also run kernels 7 and 3 on ragged chain counts
+against their plain versions, and phases 2 and 15 print the lockstep ratio
+of the NUTS tree sizes (what a block of more chains would idle).
+
 Launch counts are reset just before each front-door run and read just after.
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one CUDA
 card and ``nvcc``; it exits non-zero, printing no result, when there is no
@@ -56,6 +62,8 @@ CHEES_EPS0 = 0.05             # phase 14: initial step size of the search
 CHEES_ACCEPT = (0.55, 0.80)   # phase 14: ChEES targets 0.651
 MAX_L = 1024                  # ChEES trip-count cap
 K7_SHARE = 0.999              # phase 13: kernel 7 vs kernel 5 at alpha 0
+RAGGED = (10_248, 10_245, 9)  # phases 13, 15: chain counts off the block
+LOCKSTEP_GROUPS = (8, 16, 32, 64)
 # phase 15: with bfloat16 operands an f32 difference in the last bit can
 # move a bfloat16 rounding of one gradient operand by one step (2^-8
 # relative), so kernel 3 and its plain version agree on q to 1e-2 there
@@ -155,6 +163,59 @@ def bound(flop, moved, peak=PEAK_F32):
     rate."""
     t_op, t_mem = flop / peak, moved / PEAK_BYTES
     return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
+
+
+def lockstep(leaves):
+    """For groups of 8, 16, 32 and 64 consecutive chains: the sum over groups
+    of (most leaves in the group x group size) over the sum of leaves, the
+    gradient work a group would do in lockstep over the work it needs."""
+    out = {}
+    for g in LOCKSTEP_GROUPS:
+        x = leaves[: leaves.numel() // g * g].reshape(-1, g).double()
+        out[g] = float(x.max(dim=1).values.sum() * g / x.sum())
+    return out
+
+
+# kernel -> (source, the name its C++ entry functions contain)
+ENTRIES = {
+    "nuts_transition": ("nuts_fused_small.cu", "nuts_transition_kernel"),
+    "nuts_sampling": ("nuts_fused_small.cu", "nuts_sampling_kernel"),
+    "nuts_transition_std": ("nuts_fused.cu", "nuts_transition_kernel"),
+    "nuts_sampling_std": ("nuts_fused.cu", "nuts_sampling_kernel"),
+    "ghmc_transition": ("ghmc_fused.cu", "transition_kernel"),
+    "ghmc_segment": ("ghmc_fused.cu", "segment_kernel"),
+    "chees_transition": ("chees_fused.cu", "transition_kernel"),
+    "fused_logistic_hmc": ("fused_hmc.cu", "fused_hmc_kernel"),
+    "batched_leapfrog": ("leapfrog.cu", "batched_leapfrog_kernel"),
+}
+# kernel -> its core in the launch plan
+CORES = {"nuts_transition": "nuts", "nuts_sampling": "nuts",
+         "nuts_transition_std": "nuts", "nuts_sampling_std": "nuts",
+         "ghmc_transition": "hmc", "ghmc_segment": "hmc",
+         "chees_transition": "hmc", "fused_logistic_hmc": "fused_hmc"}
+
+
+def ptxas_report(log):
+    """{kernel: (most registers, most spill-store bytes)} over the entry
+    functions of each kernel in ptxas's -v output."""
+    per_source, source, entry, spill = {}, None, None, 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], 0
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes stack frame,")[1].split()[0])
+        elif "Used" in line and "registers" in line and entry:
+            regs = int(line.split("Used")[1].split()[0])
+            per_source.setdefault(source, []).append((entry, regs, spill))
+            entry = None
+    out = {}
+    for name, (src, fn) in ENTRIES.items():
+        hits = [(r, s) for e, r, s in per_source.get(src, []) if fn in e]
+        if hits:
+            out[name] = (max(r for r, _ in hits), max(s for _, s in hits))
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
@@ -544,6 +605,15 @@ def chees_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
         what = (f"kernel 7, {n} chains, per-chain eps, dense M^-1 "
                 f"({'Philox' if 'seed' in rand else 'external'})")
         cases.append(chees_compare(torch, small[0], kern, plain, what))
+    for n_r in RAGGED:  # chain counts that leave the last block part-filled
+        idx = torch.arange(n_r, device=dev) % CHAINS
+        st_r = tuple(x[idx].contiguous() for x in state)
+        kern = cf.chees_transition_cuda(*st_r, im, EPS, steps, data, seed=777)
+        plain = cf.chees_transition_plain(*st_r, im, EPS, LEAPFROG_STEPS,
+                                          pot_grad, seed=777)
+        torch.cuda.synchronize()
+        cases.append(chees_compare(torch, st_r[0], kern, plain,
+                                   f"kernel 7, {n_r} chains"))
     share7 = min(sh for sh, _, _ in cases)
     err7 = max(e for _, e, _ in cases)
     k7 = cf.chees_transition_cuda(*state, im, EPS, steps, data, seed=99)
@@ -569,8 +639,9 @@ def chees_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
     bound7 = bound(LEAPFROG_STEPS * CHAINS * GRAD_FLOP,
                    nbytes(*state, im, *data, *out7) + 4 + 4)  # eps and L
     log(f"phase 13: chees_transition vs plain at {CHAINS}x{DIM}, L "
-        f"{LEAPFROG_STEPS}, eps {EPS}, external and Philox, and {n} chains "
-        f"with per-chain eps and a dense M^-1: decisions equal on >= "
+        f"{LEAPFROG_STEPS}, eps {EPS}, external and Philox, {n} chains "
+        f"with per-chain eps and a dense M^-1, and {RAGGED} chains (Philox): "
+        f"decisions equal on >= "
         f"{share7:.4%} of chains ({sum(d for _, _, d in cases)} chain-cases "
         f"differ), max |q|, |qp|, |vp| err {err7:.3g}; vs ghmc_transition at "
         f"alpha 0, same seed: decisions equal on {same75:.4%} (positions bit "
@@ -740,6 +811,22 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     torch.cuda.synchronize()
     check(all(torch.equal(a, b.T.reshape(a.shape)) for a, b in zip(k3, k1)),
           "kernel 3 on q differs from kernel 1 on q^T")
+    for n_r in RAGGED:  # chain counts that leave the last block part-filled
+        idx = torch.arange(n_r, device=dev) % CHAINS
+        st_r = tuple(x[idx].contiguous() for x in (q0, u0, g0))
+        kern = nf.nuts_transition_std_cuda(*st_r, im, EPS, f32m.data,
+                                           max_exp=K, seed=5151)
+        plain = nf.nuts_transition_std_plain(*st_r, im, EPS, f32m.pot_grad,
+                                             max_exp=K, seed=5151)
+        torch.cuda.synchronize()
+        same = same_decisions(kern[3].T, plain[3].T)
+        share = float(same.float().mean())
+        err = float((kern[0] - plain[0]).abs()[same].max())
+        what = f"kernel 3 (f32, Philox), {n_r} chains"
+        check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
+        check(err <= Q_ATOL, f"{what}: max |q| error {err:.3g}")
+        shares["f32"] = min(shares["f32"], share)
+        errs["f32"] = max(errs["f32"], err)
     n4, seed = 20, 97531
     pos, stats, *final = nf.nuts_sampling_std_cuda(
         q0, u0, g0, im, EPS, b16m.data, seed, n4, max_exp=K, card=b16m.card)
@@ -804,6 +891,7 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
         q0, u0, g0, im, EPS, f32m.data, seed, n4, max_exp=K), 3)
     plain_ms4_f32 = cuda_ms(torch, lambda: p4_run(f32m), 1)
     out3 = k3_run()
+    lockstep15 = lockstep(out3[3][:, 3])
     bound3 = bound(float(out3[3][:, 3].sum()) * GRAD_FLOP,
                    nbytes(q0, u0, g0, im, *f32m.data, *out3))
     # kernel 4's entry is the main path's configuration, bf16 operands: its
@@ -813,7 +901,8 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
                    PEAK_BF16)
     bound4_f32 = bound(float(stats32[:, :, 3].sum()) * GRAD_FLOP,
                        nbytes(q0, u0, g0, im, *f32m.data, pos, stats, *final))
-    log(f"phase 15: nuts_transition_std vs plain at {CHAINS}x{DIM}, K={K}: "
+    log(f"phase 15: nuts_transition_std vs plain at {CHAINS}x{DIM}, K={K}, "
+        f"and at {RAGGED} chains (f32): "
         f"decisions equal on >= {shares['f32']:.4%} (f32) and "
         f"{shares['bf16']:.4%} (bf16 operands) of chains, max |q| err "
         f"{errs['f32']:.3g} / {errs['bf16']:.3g}; Philox kernel 3 on q == "
@@ -826,7 +915,10 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
         f"kernel 4 per {n4} draws: bf16 operands {ms4:.2f} ms (plain "
         f"{plain_ms4:.2f}, bound {bound4[0]:.3f} ms {bound4[1]}, bf16 "
         f"peak), f32 {ms4_f32:.2f} ms (plain {plain_ms4_f32:.2f}, bound "
-        f"{bound4_f32[0]:.3f} ms {bound4_f32[1]}) [{card}]")
+        f"{bound4_f32[0]:.3f} ms {bound4_f32[1]}); lockstep ratio of kernel "
+        f"3's tree sizes for groups of "
+        + ", ".join(f"{g}: {r:.4f}" for g, r in lockstep15.items())
+        + f" [{card}]")
     record["phase15"] = dict(share_f32=shares["f32"], share_bf16=shares["bf16"],
                              max_abs_err_f32=errs["f32"],
                              max_abs_err_bf16=errs["bf16"], share4=share4,
@@ -836,7 +928,7 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
                              ms4=ms4, plain_ms4=plain_ms4,
                              bound_ms4=bound4[0], ms4_f32=ms4_f32,
                              plain_ms4_f32=plain_ms4_f32,
-                             bound_ms4_f32=bound4_f32[0])
+                             bound_ms4_f32=bound4_f32[0], lockstep=lockstep15)
     del pos, pos32
 
     # ---- phase 16: the standard-layout path at full width
@@ -1018,6 +1110,7 @@ def main():
     from aehmc_tpu_torch.ops import _build
     from aehmc_tpu_torch.ops import nuts_fused_small as nfs
     from aehmc_tpu_torch.ops.fused_driver import warmup_fused
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan
     from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, derive_draw_seeds
     from aehmc_tpu_torch.ops.philox import MASK32
 
@@ -1035,10 +1128,21 @@ def main():
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s")
-    for line in _build.BUILD_INFO.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"  ptxas: {line.strip()}")
-    record.update(card=card, kind=kind, build_s=build_s)
+    ptxas = ptxas_report(_build.ptxas_log())
+    geometry = {}
+    for name in ENTRIES:
+        plan = (launch_plan(CORES[name], DIM, K, CHAINS) if name in CORES
+                else None)
+        regs, spill = ptxas.get(name, (None, None))
+        geometry[name] = dict(
+            points=plan and plan.points, smem_bytes=plan and plan.smem,
+            blocks=plan and plan.blocks, registers=regs, spill_bytes=spill)
+        log(f"  {name}: " + (f"{plan.blocks} blocks of 8 chains, X in chunks "
+                             f"of {plan.points} points, {plan.smem} B of "
+                             f"shared memory a block; " if plan else "")
+            + f"ptxas {regs} registers, {spill} B spill stores (the most "
+            f"over its instantiations)")
+    record.update(card=card, kind=kind, build_s=build_s, geometry=geometry)
 
     pot, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=dev)
     pot_grad = lambda q_t: pg(q_t, *data)  # noqa: E731
@@ -1075,15 +1179,19 @@ def main():
                                  "kernel 1 (external randomness)")
     ms1, plain_ms1 = cuda_ms(torch, k1_ext, 5), cuda_ms(torch, p1_ext, 3)
     leaves = float(out_k[3][3].mean())
+    lockstep2 = lockstep(out_k[3][3])
     bound1 = bound(float(out_k[3][3].sum()) * GRAD_FLOP,
                    nbytes(q_t, u0, g0, imm, *data, *ext.values(), *out_k))
     log(f"phase 2: nuts_transition vs plain at {CHAINS}x{DIM}, K={K}: "
         f"decisions equal on {share:.4%} of chains ({ndiff} differ), max |q| "
         f"err {err1:.3g}; "
         f"kernel {ms1:.3f} ms, plain {plain_ms1:.3f} ms per transition "
-        f"(mean {leaves:.1f} leaves/chain) [{card}]")
+        f"(mean {leaves:.1f} leaves/chain; lockstep ratio for groups of "
+        + ", ".join(f"{g}: {r:.4f}" for g, r in lockstep2.items())
+        + f") [{card}]")
     record["phase2"] = dict(share=share, differ=ndiff, max_abs_err=err1, ms=ms1,
-                            plain_ms=plain_ms1, mean_leaves=leaves)
+                            plain_ms=plain_ms1, mean_leaves=leaves,
+                            lockstep=lockstep2)
 
     # ---- phase 3: Philox randomness, kernel 1 against the plain version
     seed = 123456789

@@ -400,3 +400,78 @@ def test_front_door_chees_and_standard_driver_on_the_card(cuda_device):
         max_num_expansions=MAX_EXP)
     assert LAUNCHES["nuts_transition_std"] == 50
     assert out[1].shape == (20, 256, 16) and bool(torch.isfinite(out[1]).all())
+
+
+def _ragged_state(device, dim, points, chains, seed):
+    _, pg, data, _ = logistic_regression_pg_t(dim, points, device=device)
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(0.3 * rng.normal(size=(chains, dim)), dtype=torch.float32,
+                     device=device)
+    u_t, g_t = pg(q.T.contiguous(), *data)
+    return pg, data, q, u_t.reshape(-1), g_t.T.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 9, 17])
+@pytest.mark.parametrize("dim", [8, 13])
+def test_cuda_ragged_chain_counts_match_plain(cuda_device, chains, dim):
+    """Kernels 7 and 3 on chain counts that leave the last block part-filled,
+    and at a dim whose rows of X the wrapper pads to 16 bytes."""
+    pg, data, q, u, g = _ragged_state(cuda_device, dim, POINTS, chains, 6)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    steps = torch.full((), 4, dtype=torch.int32, device=cuda_device)
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, 0.3, steps, data,
+                                             seed=5)
+    plain = chees_fused.chees_transition_plain(
+        q, u, g, imm, 0.3, 4, lambda x: pg(x, *data), seed=5)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3][:, 2:5], plain[3][:, 2:5])
+    for a, b in zip(kern, plain):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+    model = nuts_fused._logistic_model(data[0], data[2].reshape(-1), 1.0,
+                                       torch.float32)
+    kern = nuts_fused.nuts_transition_std_cuda(q, u, g, imm, 0.3, model.data,
+                                               max_exp=MAX_EXP, seed=6)
+    plain = nuts_fused.nuts_transition_std_plain(q, u, g, imm, 0.3,
+                                                 model.pot_grad,
+                                                 max_exp=MAX_EXP, seed=6)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kern[3][:, 2:6].cpu(), plain[3][:, 2:6].cpu())
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_nuts_core_at_the_shared_memory_edge(cuda_device):
+    """K 6 at dim 224, the widest the NUTS core takes (211 KB a block)."""
+    dim, k = 224, 6
+    pg, data, q, u, g = _ragged_state(cuda_device, dim, POINTS, 12, 7)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    model = nuts_fused._logistic_model(data[0], data[2].reshape(-1), 1.0,
+                                       torch.float32)
+    kern = nuts_fused.nuts_transition_std_cuda(q, u, g, imm, 0.05, model.data,
+                                               max_exp=k, seed=8)
+    plain = nuts_fused.nuts_transition_std_plain(q, u, g, imm, 0.05,
+                                                 model.pot_grad, max_exp=k,
+                                                 seed=8)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kern[3][:, 2:6].cpu(), plain[3][:, 2:6].cpu())
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_hmc_core_with_a_small_tile_of_x(cuda_device):
+    """At dim 700 the HMC core's tile of X holds 16 points."""
+    dim = 700
+    pg, data, q, u, g = _ragged_state(cuda_device, dim, POINTS, 9, 9)
+    imm = torch.full((dim,), 0.5, device=cuda_device)
+    steps = torch.full((), 3, dtype=torch.int32, device=cuda_device)
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, 0.02, steps, data,
+                                             seed=10)
+    plain = chees_fused.chees_transition_plain(
+        q, u, g, imm, 0.02, 3, lambda x: pg(x, *data), seed=10)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3][:, 2:5], plain[3][:, 2:5])
+    for a, b in zip(kern, plain):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
