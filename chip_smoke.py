@@ -27,7 +27,9 @@ logistic regression.  Then it drives the port's front door
 
 Phase 1 prints each kernel's launch geometry (points a chunk of X, shared
 memory a block, from ``ops/launch_plan.py``) and ptxas's registers and
-spills; phases 13 and 15 also run kernels 7 and 3 on ragged chain counts
+spills; phases 2 and 8 hold kernels 1 and 5's gradients at their own q_out
+against float64, within 4x of the plain float32 gradient's error; phases 13
+and 15 also run kernels 7 and 3 on ragged chain counts
 against their plain versions, and phases 2 and 15 print the lockstep ratio
 of the NUTS tree sizes (what a block of more chains would idle).
 
@@ -85,9 +87,17 @@ RHAT_EXCESS = 0.005
 # lag-1 autocorrelation of the draw-to-draw moves: near 0 for MALA (-0.073
 # on an H100), high when the momentum persists (0.558 at alpha 0.9)
 MALA_MOVE_AC, GHMC_MOVE_AC = 0.1, 0.3
-# H100 SXM: f32 FLOP/s (no tensor cores), dense bf16 tensor-core FLOP/s
-# (f32 accumulation), HBM B/s
-PEAK_F32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# H100 SXM: float32 FLOP/s on the CUDA cores, dense TF32 and bf16
+# tensor-core FLOP/s (f32 accumulation), HBM B/s.  Float32-accurate products
+# can run on the tensor cores as 3xTF32 (three TF32 products each,
+# tests/test_torch_tf32.py), so the least time the card takes for the data
+# products is their FLOP over PEAK_TF32 / 3; the CUDA-core bound is recorded
+# too.
+PEAK_F32, PEAK_TF32, PEAK_BF16, PEAK_BYTES = 67e12, 495e12, 989e12, 3.35e12
+PEAK_TF32X3 = PEAK_TF32 / 3
+# phases 2 and 8: a kernel's gradient error against float64 at its own
+# q_out, at most this many times the plain float32 gradient's there
+GRAD_ERR_RATIO = 4.0
 GRAD_FLOP = 4 * DIM * POINTS  # X·q and Xᵀ·r, 2 FLOP per multiply-add
 DEVICE = "cuda:0"
 
@@ -157,12 +167,31 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flop, moved, peak=PEAK_F32):
-    """(ms, what binds): the larger of the FLOP over the peak of their
-    operands' type (float32 unless given) and the bytes over the memory
-    rate."""
+def bound(flop, moved, peak=PEAK_TF32X3):
+    """(ms, what binds, ms on the CUDA cores): the larger of the FLOP over
+    the peak of their operands' type (float32 products as 3xTF32 unless
+    given) and the bytes over the memory rate; last, the same bound at the
+    67 TFLOP/s float32 CUDA-core peak, the best the kernels' CUDA-core
+    products could reach."""
     t_op, t_mem = flop / peak, moved / PEAK_BYTES
-    return max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes"
+    t_cc = max(flop / PEAK_F32, t_mem) * 1e3
+    return (max(t_op, t_mem) * 1e3, "operations" if t_op >= t_mem else "bytes",
+            t_cc)
+
+
+def grad_errors(torch, pg, data, q_t, g_kernel, what):
+    """The largest |∇U − ∇U in float64| of a kernel's gradient ``g_kernel``
+    (dim, C) at its own q_out ``q_t``, and of the plain float32 gradient
+    there; checks the first is within GRAD_ERR_RATIO of the second."""
+    X, XT, y = (d.double() for d in data)
+    q64 = q_t.double()
+    g64 = XT @ (torch.sigmoid(X @ q64) - y) + q64
+    err_k = float((g_kernel.double() - g64).abs().max())
+    err_p = float((pg(q_t, *data)[1].double() - g64).abs().max())
+    check(err_k <= GRAD_ERR_RATIO * err_p,
+          f"{what}: gradient error {err_k:.3g} against float64, the plain "
+          f"float32 version's {err_p:.3g}")
+    return err_k, err_p
 
 
 def lockstep(leaves):
@@ -330,6 +359,7 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                 (plain[0][None], plain[4][None]), what))
     share5 = min(sh for sh, _, _ in shares)
     err5 = max(e for _, e, _ in shares)
+    gerr5 = grad_errors(torch, pg, data, kern[0], kern[2], "kernel 5")
 
     def k5():  # the main path's case: MALA (alpha 0) under Philox
         return gf.ghmc_transition_cuda(*state, EPS, 0.0, im, data, seed=7)
@@ -346,10 +376,14 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
         f"alpha 0 and {GHMC_ALPHA}, external and Philox randomness: "
         f"decisions equal on >= {share5:.4%} of chains "
         f"({sum(d for _, _, d in shares)} chain-cases differ), max |q| err "
-        f"{err5:.3g}; kernel {ms5:.3f} ms, plain {plain_ms5:.3f} ms per "
+        f"{err5:.3g}; gradient at q_out against float64: kernel "
+        f"{gerr5[0]:.3g}, plain float32 {gerr5[1]:.3g}; kernel {ms5:.3f} ms, "
+        f"plain {plain_ms5:.3f} ms per "
         f"transition, bound {bound5[0]:.3f} ms ({bound5[1]}) [{card}]")
     record["phase8"] = dict(min_share=share5, max_abs_err=err5, ms=ms5,
-                            plain_ms=plain_ms5, bound_ms=bound5[0])
+                            plain_ms=plain_ms5, bound_ms=bound5[0],
+                            bound_ms_cuda_cores=bound5[2], grad_err=gerr5[0],
+                            plain_grad_err=gerr5[1])
 
     # ---- phase 9: kernel 6 (32 draws) == 32 launches of kernel 5, bitwise;
     # and kernel 6 against its plain version
@@ -391,7 +425,8 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
         f"{SEGMENT}-draw segment, bound {bound6[0]:.3f} ms ({bound6[1]}) "
         f"[{card}]")
     record["phase9"] = dict(share=share6, differ=ndiff6, max_abs_err=err6,
-                            ms=ms6, plain_ms=plain_ms6, bound_ms=bound6[0])
+                            ms=ms6, plain_ms=plain_ms6, bound_ms=bound6[0],
+                            bound_ms_cuda_cores=bound6[2])
     del pos, pos_p, out6
 
     # ---- phase 10: kernels 8 and 9 against their plain versions
@@ -422,7 +457,7 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
     bound8 = bound(CHAINS * (LEAPFROG_STEPS + 1) * GRAD_FLOP,
                    nbytes(q0, lf_p, X, y, im, *k8))
     bound9 = bound(9 * CHAINS * DIM * LEAPFROG_STEPS,
-                   nbytes(q0, lf_p, lam, im_lf, *k9))
+                   nbytes(q0, lf_p, lam, im_lf, *k9), PEAK_F32)
     log(f"phase 10: fused_logistic_hmc vs plain at {CHAINS}x{DIM}, L "
         f"{LEAPFROG_STEPS}: max |err| {err8:.3g}; kernel {ms8:.3f} ms, plain "
         f"{plain_ms8:.3f} ms, bound {bound8[0]:.3f} ms ({bound8[1]}); "
@@ -430,7 +465,8 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
         f"plain {plain_ms9 * 1e3:.1f} us, bound {bound9[0] * 1e3:.1f} us "
         f"({bound9[1]}) [{card}]")
     record["phase10"] = dict(err8=err8, ms8=ms8, plain_ms8=plain_ms8,
-                             bound_ms8=bound8[0], ms9=ms9,
+                             bound_ms8=bound8[0],
+                             bound_ms8_cuda_cores=bound8[2], ms9=ms9,
                              plain_ms9=plain_ms9, bound_ms9=bound9[0])
 
     # ---- phase 11: the MALA front door at full width
@@ -650,7 +686,8 @@ def chees_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
     record["phase13"] = dict(min_share=share7, max_abs_err=err7,
                              share_vs_kernel5=same75,
                              bitwise_vs_kernel5=bitwise75, ms=ms7,
-                             plain_ms=plain_ms7, bound_ms=bound7[0])
+                             plain_ms=plain_ms7, bound_ms=bound7[0],
+                             bound_ms_cuda_cores=bound7[2])
 
     # ---- phase 14: the ChEES front door at full width
     logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
@@ -925,10 +962,13 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
                              max_abs_err4=err4, share4_bf16=share4b,
                              max_abs_err4_bf16=err4b, ms3=ms3,
                              plain_ms3=plain_ms3, bound_ms3=bound3[0],
+                             bound_ms3_cuda_cores=bound3[2],
                              ms4=ms4, plain_ms4=plain_ms4,
                              bound_ms4=bound4[0], ms4_f32=ms4_f32,
                              plain_ms4_f32=plain_ms4_f32,
-                             bound_ms4_f32=bound4_f32[0], lockstep=lockstep15)
+                             bound_ms4_f32=bound4_f32[0],
+                             bound_ms4_f32_cuda_cores=bound4_f32[2],
+                             lockstep=lockstep15)
     del pos, pos32
 
     # ---- phase 16: the standard-layout path at full width
@@ -1177,6 +1217,7 @@ def main():
     torch.cuda.synchronize()
     share, err1, ndiff = compare(out_k, out_p,
                                  "kernel 1 (external randomness)")
+    gerr1 = grad_errors(torch, pg, data, out_k[0], out_k[2], "kernel 1")
     ms1, plain_ms1 = cuda_ms(torch, k1_ext, 5), cuda_ms(torch, p1_ext, 3)
     leaves = float(out_k[3][3].mean())
     lockstep2 = lockstep(out_k[3][3])
@@ -1184,14 +1225,16 @@ def main():
                    nbytes(q_t, u0, g0, imm, *data, *ext.values(), *out_k))
     log(f"phase 2: nuts_transition vs plain at {CHAINS}x{DIM}, K={K}: "
         f"decisions equal on {share:.4%} of chains ({ndiff} differ), max |q| "
-        f"err {err1:.3g}; "
+        f"err {err1:.3g}; gradient at q_out against float64: kernel "
+        f"{gerr1[0]:.3g}, plain float32 {gerr1[1]:.3g}; "
         f"kernel {ms1:.3f} ms, plain {plain_ms1:.3f} ms per transition "
         f"(mean {leaves:.1f} leaves/chain; lockstep ratio for groups of "
         + ", ".join(f"{g}: {r:.4f}" for g, r in lockstep2.items())
         + f") [{card}]")
     record["phase2"] = dict(share=share, differ=ndiff, max_abs_err=err1, ms=ms1,
                             plain_ms=plain_ms1, mean_leaves=leaves,
-                            lockstep=lockstep2)
+                            lockstep=lockstep2, grad_err=gerr1[0],
+                            plain_grad_err=gerr1[1])
 
     # ---- phase 3: Philox randomness, kernel 1 against the plain version
     seed = 123456789
@@ -1378,8 +1421,8 @@ def main():
                             step_size=float(eps7), min_ess=float(ess.min()))
 
     del pos7, x
-    record["phase2"]["bound_ms"] = bound1[0]
-    record["phase4"]["bound_ms"] = bound2[0]
+    record["phase2"].update(bound_ms=bound1[0], bound_ms_cuda_cores=bound1[2])
+    record["phase4"].update(bound_ms=bound2[0], bound_ms_cuda_cores=bound2[2])
     ghmc = ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                        nuts_mean, card)
     chees_entry = chees_phases(torch, ops, diagnostics, data, pg, q0, record,

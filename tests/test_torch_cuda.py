@@ -14,6 +14,12 @@ standard NUTS kernel's positions agree to 1e-2 there.  The whole-run NUTS
 kernels equal one launch per draw bit for bit, the standard-layout
 transition of q the transposed one of qᵀ, the GHMC segment kernel its
 transitions, and the batched leapfrog kernel its plain version.
+
+The logistic functor's gradient at a kernel's own q_out is held against
+float64, within 4× of the plain float32 gradient's error there (the bound
+any float32-accurate product order meets, 3×TF32 included:
+tests/test_torch_tf32.py), and rows of q with ±inf and NaN give the plain
+version's non-finite pattern.
 """
 
 import numpy as np
@@ -475,3 +481,103 @@ def test_cuda_hmc_core_with_a_small_tile_of_x(cuda_device):
     assert torch.equal(kern[3][:, 2:5], plain[3][:, 2:5])
     for a, b in zip(kern, plain):
         np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def _grad64(data, q_t):
+    X, XT, y = (d.double() for d in data)
+    q = q_t.double()
+    return XT @ (torch.sigmoid(X @ q) - y) + q
+
+
+def _assert_gradient_near_float64(pg, data, q_t, g_t):
+    """The kernel's gradient at its own q_out against float64: within 4× of
+    the plain float32 gradient's error there (plus 1e-6 relative, for the
+    shapes where float32 is nearly exact)."""
+    exact = _grad64(data, q_t)
+    err = float((g_t.double() - exact).abs().max())
+    err_plain = float((pg(q_t, *data)[1].double() - exact).abs().max())
+    assert err <= 4 * err_plain + 1e-6 * (1 + float(exact.abs().max())), (
+        err, err_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [1000, 37])
+@pytest.mark.parametrize("core,dim", [("nuts", d) for d in (1, 7, 100, 101, 224)]
+                         + [("hmc", d) for d in (1, 7, 100, 101, 700)])
+def test_cuda_functor_gradient_against_float64(cuda_device, core, dim, points):
+    """Kernel 1 (the NUTS core, X through L1, at the shared-memory edge at
+    dim 224) and kernel 5 (the HMC core, X through a shared tile, 16 points
+    at dim 700), at point counts no chunk of X divides."""
+    from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
+
+    _, pg, data, _ = logistic_regression_pg_t(dim, points, device=cuda_device)
+    rng = np.random.default_rng(dim + points)
+    q_t = torch.tensor(0.3 * rng.normal(size=(dim, 13)), dtype=torch.float32,
+                       device=cuda_device)
+    u0, g0 = pg(q_t, *data)
+    imm = torch.full((dim,), 0.5, device=cuda_device)
+    eps = 0.02 / max(1.0, dim / 100)
+    if core == "nuts":
+        q, _, g, _ = nuts_transition_cuda(q_t, u0, g0, imm, eps, data,
+                                          max_exp=6, seed=dim)
+    else:
+        p0 = torch.tensor(rng.normal(size=(dim, 13)), dtype=torch.float32,
+                          device=cuda_device)
+        q, _, g, _, _ = ghmc_transition_cuda(q_t, u0, g0, p0, eps, 0.0, imm,
+                                             data, seed=dim)
+    torch.cuda.synchronize()
+    assert bool((q != q_t).any())  # some chains moved: g is the kernel's
+    _assert_gradient_near_float64(pg, data, q, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [7, 100])
+def test_cuda_non_finite_rows_of_q_match_plain(cuda_device, dim):
+    """Kernel 7 from rows of q holding +inf, −inf and NaN: the clipped
+    gradients at the proposals (in the proposed velocities) and the proposed
+    positions have the plain version's non-finite pattern."""
+    _, pg, data, _ = logistic_regression_pg_t(dim, 37, device=cuda_device)
+    rng = np.random.default_rng(11)
+    q = torch.tensor(0.3 * rng.normal(size=(13, dim)), dtype=torch.float32,
+                     device=cuda_device)
+    q[1, 3 % dim], q[2, 5 % dim], q[3, 0] = np.inf, -np.inf, np.nan
+    q[4, :] = np.inf
+    u = torch.zeros(13, device=cuda_device)
+    g = torch.zeros(13, dim, device=cuda_device)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, 0.1, 2, data, seed=4)
+    plain = chees_fused.chees_transition_plain(q, u, g, imm, 0.1, 2,
+                                               lambda x: pg(x, *data), seed=4)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        a, b = a.cpu(), b.cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isposinf(a), torch.isposinf(b))
+        assert torch.equal(torch.isneginf(a), torch.isneginf(b))
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [1000, 37])
+@pytest.mark.parametrize("dim", [7, 100])
+def test_cuda_bf16_operands_match_plain_bf16(cuda_device, dim, points):
+    """Kernel 3 with bfloat16 operands held to its plain bf16 version at
+    1e-2, at point counts no chunk of X divides."""
+    _, _, data, _ = logistic_regression_pg_t(dim, points, device=cuda_device)
+    rng = np.random.default_rng(12)
+    q = torch.tensor(0.3 * rng.normal(size=(13, dim)), dtype=torch.float32,
+                     device=cuda_device)
+    model = nuts_fused._logistic_model(data[0], data[2].reshape(-1), 1.0,
+                                       torch.bfloat16)
+    u, g = model.pot_grad(q)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    kern = nuts_fused.nuts_transition_std_cuda(
+        q, u.reshape(-1), g, imm, 0.05, model.data, max_exp=MAX_EXP,
+        card=model.card, seed=13)
+    plain = nuts_fused.nuts_transition_std_plain(
+        q, u.reshape(-1), g, imm, 0.05, model.pot_grad, max_exp=MAX_EXP,
+        seed=13)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kern[3][:, 2:6].cpu(), plain[3][:, 2:6].cpu())
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-2, atol=1e-2)
