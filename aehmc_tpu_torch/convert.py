@@ -19,9 +19,15 @@ def to_tensor(x, device="cuda") -> torch.Tensor:
 
 
 def model_data(X, XT, y_col, device="cuda"):
-    """``(X, Xᵀ, y_col)`` of ``logistic_regression_pg_t``, float32."""
-    return tuple(to_tensor(a, device).to(torch.float32).contiguous()
-                 for a in (X, XT, y_col))
+    """``(X, Xᵀ, y_col)`` of ``logistic_regression_pg_t``: X and Xᵀ keep the
+    builder's bfloat16 (its default) or become float32; y_col is float32."""
+    def mat(a):
+        t = to_tensor(np.asarray(a, np.float32), device)
+        bf16 = str(getattr(a, "dtype", "")) == "bfloat16"
+        return (t.to(torch.bfloat16) if bf16 else t).contiguous()
+
+    return mat(X), mat(XT), to_tensor(np.asarray(y_col, np.float32),
+                                      device).contiguous()
 
 
 def chain_state(q, u, g, device="cuda"):

@@ -9,7 +9,8 @@
 // Replaces the TPU kernel aehmc_tpu/ops/chees_fused.py:_make_chees_kernel_t
 // (:61), launched by make_fused_chees_transition (:314), with the logistic
 // regression potential (logistic_pg.cuh) that the TPU kernel traces into
-// its body on the flagship.  The plain PyTorch version is
+// its body on the flagship, with float32 or (the model builder's default)
+// bfloat16 data.  The plain PyTorch version is
 // aehmc_tpu_torch/ops/chees_fused.py:chees_transition_plain.
 //
 // The trip count L, shared by every chain, is read from a device int32: the
@@ -22,18 +23,37 @@
 using namespace aehmc;
 using namespace aehmc::hmc;
 
+namespace {
+
+template <typename XT>
+cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
+                              int dense, const Rand& R, const Geometry& G,
+                              const float* q, const float* u, const float* g,
+                              float* q_out, float* u_out, float* g_out,
+                              float* stats, float* qp_out, float* vp_out,
+                              cudaStream_t stream) {
+  using PG = LogisticPGT<XT>;
+  auto kernel = dense ? transition_kernel<PG, true, true, true>
+                      : transition_kernel<PG, true, false, true>;
+  return launch(kernel, P, pg.N, G, stream, P, pg, R, q, u, g, nullptr, q_out,
+                u_out, g_out, nullptr, stats, qp_out, vp_out);
+}
+
+}  // namespace
+
 extern "C" {
 
 // Kernel 7: one ChEES transition.  q, g, p, qp_out, vp_out: (C, dim); u, ua,
-// eps: (C,); X: (N, row_stride); im: (dim,) or (dim, dim) (dense), ms:
+// eps: (C,); X: (N, row_stride) float32, or bfloat16 (x_bf16: the data
+// products' operands in bfloat16); im: (dim,) or (dim, dim) (dense), ms:
 // (dim, dim) with dense and use_seed; L: a device int32; stats: (C, 8).
 // use_seed selects Philox randomness keyed by seed (p and ua are then
 // unused).  blocks, points, row_stride and smem are the launch
 // plan's (aehmc_tpu_torch/ops/launch_plan.py).
 int chees_transition_launch(const float* q, const float* u, const float* g,
                             const float* p, const float* ua, int use_seed,
-                            unsigned int seed, const float* X, const float* y,
-                            const float* eps, const float* im,
+                            unsigned int seed, const void* X, int x_bf16,
+                            const float* y, const float* eps, const float* im,
                             const float* ms, int dense, const int* L,
                             float thr, int dim, int N, int C, float* q_out,
                             float* u_out, float* g_out, float* stats,
@@ -53,14 +73,19 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
   P.dim = dim;
   P.C = C;
   P.ds = (dim + 3) / 4 * 4;
-  const LogisticPGX pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {p, ua, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem};
-  auto kernel = dense ? transition_kernel<LogisticPGX, true, true, true>
-                      : transition_kernel<LogisticPGX, true, false, true>;
-  return (int)launch(kernel, P, N, G, (cudaStream_t)stream, P, pg, R, q, u, g,
-                     nullptr, q_out, u_out, g_out, nullptr, stats, qp_out,
-                     vp_out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (x_bf16) {
+    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
+                            row_stride, points, 1.0f};
+    return (int)launch_transition(P, pg, dense, R, G, q, u, g, q_out, u_out,
+                                  g_out, stats, qp_out, vp_out, s);
+  }
+  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
+                         points, 1.0f};
+  return (int)launch_transition(P, pg, dense, R, G, q, u, g, q_out, u_out,
+                                g_out, stats, qp_out, vp_out, s);
 }
 
 }  // extern "C"

@@ -102,6 +102,20 @@ cudaError_t launch_blocks(void (*kernel)(KArgs...), const Geometry& G,
   return cudaGetLastError();
 }
 
+// Blocks of `kernel` one SM holds with `smem` bytes of dynamic shared
+// memory each (the occupancy API, after the launch's shared-memory
+// attribute), or -1 on an error.
+template <typename... KArgs>
+int blocks_per_sm(void (*kernel)(KArgs...), int smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, NT, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 }  // namespace aehmc
 
 // CUDA error text for the Python wrappers (each library exports its own)

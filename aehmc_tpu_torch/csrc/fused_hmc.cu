@@ -25,7 +25,7 @@ using namespace aehmc;
 namespace {
 
 __global__ void __launch_bounds__(NT, 2)
-    fused_hmc_kernel(LogisticPGX pg_fn, const float* q, const float* p,
+    fused_hmc_kernel(LogisticPG pg_fn, const float* q, const float* p,
                      const float* im, float eps, int L, int dim, int C,
                      float* q_out, float* p_out) {
   extern __shared__ float4 smem_raw[];
@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(NT, 2)
   float* const sg = sp + V;
   zero_smem(sq, 3 * V);
   PGScratch pgs;
-  pgs.carve(sg + V);
+  pgs.carve(sg + V, 0);
   __syncthreads();
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
@@ -82,7 +82,7 @@ int fused_hmc_launch(const float* q, const float* p, const float* X,
                      int row_stride, int smem, void* stream) {
   if (dim < 1 || N < 1 || C < 1 || L < 0 || (size_t)blocks * CB < (size_t)C)
     return (int)cudaErrorInvalidValue;
-  const LogisticPGX pg = {X, y, N, row_stride, points, prior_precision};
+  const LogisticPG pg = {X, y, N, row_stride, points, prior_precision};
   const Geometry G = {blocks, points, row_stride, smem};
   return (int)launch_blocks(fused_hmc_kernel, G, (cudaStream_t)stream, pg,
                               q, p, im, eps, L, dim, C, q_out, p_out);

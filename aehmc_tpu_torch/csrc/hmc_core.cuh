@@ -87,12 +87,13 @@ constexpr int NUM_ROWS = 8;  // row arrays of Smem
 constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 
 // The rows, zeroed (the functor reads q's padding past dim), then the
-// functor's scratch and X tile.  Every thread of the block calls it.
-__device__ inline Smem carve(float* base, int ds) {
+// functor's scratch (qb floats of rounded q) and X tile.  Every thread of
+// the block calls it.
+__device__ inline Smem carve(float* base, int ds, int qb) {
   const size_t V = (size_t)CB * ds;
   zero_smem(base, NUM_ROWS * V);
   Smem s;
-  s.pgs.carve(base + NUM_ROWS * V);
+  s.pgs.carve(base + NUM_ROWS * V, qb);
   __syncthreads();
   s.q = base;
   s.g = s.q + V;
@@ -302,7 +303,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                       float* q_out, float* u_out, float* g_out, float* p_out,
                       float* stats, float* qp_out, float* vp_out) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds);
+  const Smem S =
+      carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -338,7 +340,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                    float* pos, float* stats, float* q_out, float* u_out,
                    float* g_out, float* p_out) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds);
+  const Smem S =
+      carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;

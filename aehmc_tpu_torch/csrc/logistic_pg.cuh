@@ -25,19 +25,26 @@
 //     n ≡ s (mod NS) for 4 dimensions × 8 chains in registers across the
 //     whole of X; the NS residues are adjacent lanes, and a butterfly over
 //     them writes the gradient rows.
-// X (400 KB at 1,000 × 100) comes from L2.  With SMEM_X (the HMC core,
-// whose state leaves room) one thread bulk-copies each chunk of P rows into
-// a shared tile that both products read; otherwise (the NUTS core, 99 KB
-// of state at K 6) both read it through L1.  The functor has two barriers
-// per chunk, and two blocks per SM hide them; a larger staging ring, or
-// one shared by a thread-block cluster, would leave one block per SM and
-// was measured slower (PERF.md §6).
+// X (400 KB at 1,000 × 100) comes from L2: one thread bulk-copies each
+// chunk of P rows into a shared tile that both products read (the cores
+// carve it after their state; the NUTS core keeps its U-turn checkpoints in
+// global memory to leave room for it).  The functor has two barriers per
+// chunk, and two blocks per SM hide them; a larger staging ring, or one
+// shared by a thread-block cluster, would leave one block per SM and was
+// measured slower (PERF.md §6).
+// With bfloat16 operands (XT = __nv_bfloat16) X is stored rounded, so a
+// tile holds half the bytes and a load widens it to float32 exactly, and q
+// is rounded once per gradient into a shared row that X·q reads; σ − y is
+// rounded once per point.  Every product is then the float32 product of two
+// bfloat16 values, exact, as with the operands rounded on every load.
 // Every product is an explicit fmaf (the build passes -fmad=false) and every
 // sum has a fixed order that depends on dim and P only, so a result does
 // not depend on where the functor is inlined.
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -71,23 +78,27 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// The functor's shared memory, carved by the kernel (SCRATCH_FLOATS, then
-// the X tile of P·xs floats under SMEM_X).
+// The functor's shared memory, carved by the kernel: SCRATCH_FLOATS, then
+// with bfloat16 operands q's rounded rows (CB × ds floats), then the X tile
+// of P·xs elements.
 struct PGScratch {
   float* rt;       // (PT, RS): σ(X q) − y of the chunk
   float* nu;       // (CB,): the potentials
   uint64_t* bar;   // the X tile's mbarrier
   uint32_t* uses;  // chunks the tile has held so far (the barrier's phase)
-  float* tile;     // (P, xs), or null
+  float* qb;       // (CB, ds): q rounded to bfloat16, or null
+  void* tile;      // (P, xs) elements of X
 
-  // carve at `base` (16-byte aligned); thread 0 initialises the barrier
-  // and a __syncthreads must follow
-  __device__ void carve(float* base) {
+  // carve at `base` (16-byte aligned) with `qb_floats` floats of rounded q
+  // (a multiple of 4); thread 0 initialises the barrier and a
+  // __syncthreads must follow
+  __device__ void carve(float* base, int qb_floats) {
     rt = base;
     nu = rt + RT_FLOATS;
     bar = reinterpret_cast<uint64_t*>(nu + CB);
     uses = reinterpret_cast<uint32_t*>(bar + 1);
-    tile = base + SCRATCH_FLOATS;
+    qb = qb_floats ? base + SCRATCH_FLOATS : nullptr;
+    tile = base + SCRATCH_FLOATS + qb_floats;
     if (threadIdx.x == 0) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar))
                    : "memory");
@@ -97,7 +108,7 @@ struct PGScratch {
   }
 
   // thread 0: copy `bytes` from X into the tile, completing on the barrier
-  __device__ void load(const float* src, uint32_t bytes) const {
+  __device__ void load(const void* src, uint32_t bytes) const {
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                      smem_u32(bar)),
@@ -122,20 +133,28 @@ struct PGScratch {
   }
 };
 
-// BF16 = true rounds the operands of the two data products to bfloat16, as
-// aehmc_tpu/ops/nuts_fused.py:_logistic_pot_grad_builder (:878) does with
-// matmul_dtype=bfloat16: q and X for the logits, σ − y and X for the
-// gradient.  A product of two bfloat16 values is exact in float32, the sums
-// stay float32, and so do the prior terms (on the unrounded q).
-template <bool BF16, bool SMEM_X = false>
+// XT = __nv_bfloat16 gives the data products bfloat16 operands, as
+// aehmc_tpu/ops/nuts_fused.py:_logistic_pot_grad_builder (:878) with
+// matmul_dtype=bfloat16 and aehmc_tpu/models/regression.py:
+// logistic_regression_pg_t (:112, bfloat16 by default): X stored rounded, q
+// rounded for the logits, σ − y for the gradient.  A product of two
+// bfloat16 values is exact in float32, the sums stay float32, and so do the
+// prior terms (on the unrounded q).
+template <typename XT>
 struct LogisticPGT {
-  const float* X;  // (N, xs): rows padded with zeros to xs floats
+  static constexpr bool BF16 = std::is_same<XT, __nv_bfloat16>::value;
+  const XT* X;     // (N, xs): rows padded with zeros to xs elements
   const float* y;  // (N,)
   int N;
-  int xs;  // row stride of X: a multiple of 4
-  int P;   // points a chunk: PT, or under SMEM_X the tile's rows (a power
-           // of 2, 8 to PT)
+  int xs;  // row stride of X in elements: 16 bytes' worth, a multiple of 4
+           // (float) or 8 (bfloat16)
+  int P;   // points a chunk, the tile's rows: a power of 2, 8 to PT
   float prior_precision;
+
+  // floats of the rounded rows of q the functor needs in its scratch
+  static __host__ __device__ int qb_floats(int ds) {
+    return BF16 ? CB * ds : 0;
+  }
   static __device__ __forceinline__ float op(float x) {
     if constexpr (BF16) {
       return bf16_round(x);
@@ -143,39 +162,38 @@ struct LogisticPGT {
       return x;
     }
   }
-  static __device__ __forceinline__ float4 op4(float4 v) {
-    return make_float4(op(v.x), op(v.y), op(v.z), op(v.w));
+  // row m of the chunk in the shared tile
+  __device__ const XT* row(const PGScratch& S, int m) const {
+    return static_cast<const XT*>(S.tile) + (size_t)m * xs;
   }
-  // row m of the chunk from point n0: the shared tile or X
-  __device__ const float* row(const PGScratch& S, int n0, int m) const {
-    if constexpr (SMEM_X) {
-      return S.tile + (size_t)m * xs;
+  // 4 (ld_x4, 8-byte aligned) or 2 (ld_x2) elements of X widened to
+  // float32; a bfloat16 value is the upper half of its float32
+  static __device__ __forceinline__ float4 ld_x4(const XT* p) {
+    if constexpr (BF16) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(v.x << 16),
+                         __uint_as_float(v.x & 0xffff0000u),
+                         __uint_as_float(v.y << 16),
+                         __uint_as_float(v.y & 0xffff0000u));
     } else {
-      return X + (size_t)(n0 + m) * xs;
+      return ld4(p);
     }
   }
-  __device__ float4 ld_x4(const float* p) const {
-    if constexpr (SMEM_X) {
-      return op4(ld4(p));
+  static __device__ __forceinline__ float2 ld_x2(const XT* p) {
+    if constexpr (BF16) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+      return make_float2(__uint_as_float(v << 16),
+                         __uint_as_float(v & 0xffff0000u));
     } else {
-      return op4(__ldg(reinterpret_cast<const float4*>(p)));
+      return *reinterpret_cast<const float2*>(p);
     }
-  }
-  __device__ float2 ld_x2(const float* p) const {
-    float2 v;
-    if constexpr (SMEM_X) {
-      v = *reinterpret_cast<const float2*>(p);
-    } else {
-      v = __ldg(reinterpret_cast<const float2*>(p));
-    }
-    return make_float2(op(v.x), op(v.y));
   }
   __device__ void operator()(const PGScratch& S, int dim, int ds,
                              const float* q, float* grad) const;
 };
 
-using LogisticPG = LogisticPGT<false>;
-using LogisticPGX = LogisticPGT<false, true>;  // X through a shared tile
+using LogisticPG = LogisticPGT<float>;
+using LogisticPGB = LogisticPGT<__nv_bfloat16>;
 
 // One level of a butterfly over lanes: v[0, W) holds this lane's partial
 // sums; keep the upper half if `up`, the lower otherwise, each summed with
@@ -216,11 +234,10 @@ __device__ __forceinline__ void grad_rows(float (&v)[4 * CB], int sb, int dg,
   }
 }
 
-template <bool BF16, bool SMEM_X>
-__device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
-                                                      int dim, int ds,
-                                                      const float* q,
-                                                      float* grad) const {
+template <typename XT>
+__device__ void LogisticPGT<XT>::operator()(const PGScratch& S, int dim,
+                                            int ds, const float* q,
+                                            float* grad) const {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   float* const rt = S.rt;
   const int ng4 = (dim + 3) / 4;  // float4 groups of a row
@@ -238,8 +255,17 @@ __device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
                                  : 1;
   const int passes = (ng4 * ns + NT - 1) / NT;
 
+  // X·q's q: with bfloat16 operands the rows rounded once (zero past dim
+  // as q's are)
+  const float* qx = q;
+  if constexpr (BF16) {
+    for (int e = t; e < CB * ds; e += NT) S.qb[e] = bf16_round(q[e]);
+    __syncthreads();
+    qx = S.qb;
+  }
+
   float lik[4] = {0.f, 0.f, 0.f, 0.f};
-  uint32_t uses = SMEM_X ? *S.uses : 0u;
+  uint32_t uses = *S.uses;
   for (int pass = 0; pass < passes; ++pass) {
     const int sb = t % ns, dg = (pass * NT + t) / ns;
     const bool b_on = dg < ng4;
@@ -249,19 +275,19 @@ __device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
 
     for (int n0 = 0; n0 < N; n0 += P) {
       const int rows = min(P, N - n0);
-      if constexpr (SMEM_X) {  // the previous chunk's reads are done
-        if (t == 0)
-          S.load(X + (size_t)n0 * xs, (uint32_t)rows * (uint32_t)xs * 4u);
-        S.wait(uses++);
-      }
+      // the previous chunk's reads are done: copy this one into the tile
+      if (t == 0)
+        S.load(X + (size_t)n0 * xs,
+               (uint32_t)rows * (uint32_t)xs * (uint32_t)sizeof(XT));
+      S.wait(uses++);
       if (a_warp) {  // logits of 4 points x 8 chains over this lane's slice
         float a[4 * CB];
 #pragma unroll
         for (int k = 0; k < 4 * CB; ++k) a[k] = 0.f;
-        const float* xr[4];
+        const XT* xr[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)  // points past the data repeat the last
-          xr[i] = row(S, n0, min(4 * pg + i, rows - 1));
+          xr[i] = row(S, min(4 * pg + i, rows - 1));
         for (int g = s; g < ng2; g += 8) {
           const int d = 2 * g;
           float2 xv[4];
@@ -269,13 +295,12 @@ __device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
           for (int i = 0; i < 4; ++i) xv[i] = ld_x2(xr[i] + d);
 #pragma unroll
           for (int c = 0; c < CB; ++c) {
-            const float2 qr = *reinterpret_cast<const float2*>(q + c * ds + d);
-            const float qx = op(qr.x), qy = op(qr.y);
+            const float2 qr = *reinterpret_cast<const float2*>(qx + c * ds + d);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               float& e = a[i * CB + c];
-              e = fmaf(xv[i].x, qx, e);
-              e = fmaf(xv[i].y, qy, e);
+              e = fmaf(xv[i].x, qr.x, e);
+              e = fmaf(xv[i].y, qr.y, e);
             }
           }
         }
@@ -302,7 +327,7 @@ __device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
 
       if (b_on) {  // Xᵀ r over this thread's residue class of the chunk
         for (int m = sb; m < rows; m += ns) {
-          const float4 xv = ld_x4(row(S, n0, m) + 4 * dg);
+          const float4 xv = ld_x4(row(S, m) + 4 * dg);
           const float4 r0 = ld4(rt + m * RS), r1 = ld4(rt + m * RS + 4);
           const float rr[CB] = {r0.x, r0.y, r0.z, r0.w,
                                 r1.x, r1.y, r1.z, r1.w};
@@ -327,7 +352,7 @@ __device__ void LogisticPGT<BF16, SMEM_X>::operator()(const PGScratch& S,
   // per chain
 #pragma unroll
   for (int j = 0; j < 4; ++j) rt[(ca + j) * PT + pa] = pa < P ? lik[j] : 0.f;
-  if (SMEM_X && t == 0) *S.uses = uses;
+  if (t == 0) *S.uses = uses;
   __syncthreads();
   for (int e = t; e < CB * dim; e += NT) {
     const int c = e / dim, d = e - c * dim;

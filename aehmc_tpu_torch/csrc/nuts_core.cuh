@@ -19,16 +19,21 @@
 // logistic posterior is two data products, X·q and Xᵀ·(σ(X·q) − y): 2·10^5
 // fused multiply-adds per chain, in float32 on the CUDA cores (TF32 is off:
 // the tests hold the kernels to float32 results), at the rate the functor's
-// register tiles feed them (logistic_pg.cuh).  X (400 KB) comes through
-// L1 from the 50 MB L2.  The NUTS state (edges, proposals, momentum sums and
-// 2·K checkpoint rows of `dim` floats per chain) fills shared memory, and it
-// caps the chains per block.
+// register tiles feed them (logistic_pg.cuh).  X (400 KB, or 200 KB with
+// bfloat16 operands) comes from the 50 MB L2 through a shared tile.  The
+// NUTS state (edges, proposals, momentum sums and scratch: 17 rows of `dim`
+// floats per chain) and the tile fill shared memory and cap the chains per
+// block.  The 2·K U-turn checkpoint rows of a chain live in a global buffer
+// (ck, (blocks, 2, K, CB, ds) floats): each leaf writes or reads them once,
+// a warp's row is contiguous, and the resident blocks' slices (about 10 MB
+// at 10,240 chains, dim 100, K 6) stay in L2.
 //
 // Design.  The potential and gradient are a device functor, a template
 // parameter of the core and of the kernels (LogisticPGT, logistic_pg.cuh).
-// A block of CB = 8 warps owns 8 chains, one warp per chain, and keeps all
-// of their NUTS state in shared memory (99 KB at dim 100, K 6: two blocks
-// per SM, 128 registers a thread).  Every per-chain decision is
+// A block of CB = 8 warps owns 8 chains, one warp per chain, and keeps their
+// NUTS state but the checkpoints in shared memory (112 KB with a 128-point
+// float32 tile at dim 100, whatever K: two blocks per SM, 128 registers a
+// thread).  Every per-chain decision is
 // warp-uniform, so the tree walk has no divergence inside a warp; a warp
 // whose chain has stopped idles through the rest of the block's tree, the
 // early exit being block-wide as on the TPU.  The gradient is computed by
@@ -76,22 +81,24 @@ __device__ __forceinline__ size_t gat(int i, int chain, int rows, int C) {
   return STD ? (size_t)chain * rows + i : (size_t)i * C + chain;
 }
 
-// Shared memory of a block; pgs is the potential's scratch.
+// A block's rows in shared memory, its checkpoint slots in global memory
+// (ck_p, ck_s: K slots of CB rows each), and the potential's scratch.
 struct Smem {
   float *prop_q, *prop_g, *left_q, *left_p, *left_g, *right_q, *right_p,
       *right_g, *psum, *last_q, *last_p, *last_g, *sprop_q, *sprop_g,
       *s_psum, *ngrad, *tmp, *ck_p, *ck_s;
-  PGScratch pgs;  // the functor's scratch
+  PGScratch pgs;  // the functor's scratch and X tile
 };
 
-constexpr int NUM_ROWS = 17;  // row arrays of Smem before the checkpoints
+constexpr int NUM_ROWS = 17;  // row arrays of Smem in shared memory
 
 // The rows, zeroed (the functor reads q's padding past dim), then the
-// functor's scratch.  Every thread of the block calls it.
-__device__ inline Smem carve(float* base, int ds, int K) {
+// functor's scratch (qb floats of rounded q) and X tile; the block's slice
+// of the checkpoint buffer ck.  Every thread of the block calls it.
+__device__ inline Smem carve(float* base, int ds, int qb, float* ck, int K) {
   const size_t V = (size_t)CB * ds;
   float* p = base;
-  zero_smem(p, (NUM_ROWS + 2 * (size_t)K) * V);
+  zero_smem(p, NUM_ROWS * V);
   auto take = [&p](size_t n) {
     float* r = p;
     p += n;
@@ -115,9 +122,9 @@ __device__ inline Smem carve(float* base, int ds, int K) {
   s.s_psum = take(V);
   s.ngrad = take(V);
   s.tmp = take(V);
-  s.ck_p = take(K * V);
-  s.ck_s = take(K * V);
-  s.pgs.carve(p);
+  s.ck_p = ck + (size_t)blockIdx.x * 2 * K * V;
+  s.ck_s = s.ck_p + K * V;
+  s.pgs.carve(p, qb);
   __syncthreads();
   return s;
 }
@@ -359,6 +366,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn, const Smem& S,
       if ((i & 1) == 0) {  // even leaf: write checkpoint slot m_idx
         copy_row(S.ck_p + ((size_t)m_idx * CB + w) * ds, tp, dim, lane);
         copy_row(S.ck_s + ((size_t)m_idx * CB + w) * ds, ss, dim, lane);
+        __syncwarp();  // the warp's slot rows before any of its reads
         stop = leaf_div;
       } else {  // odd leaf: U-turn against the live checkpoint slots
         const int lo = m_idx - (__popc(i ^ (i + 1)) - 1) + 1;
@@ -458,9 +466,11 @@ template <class PG, bool STD>
 __global__ void __launch_bounds__(NT, 2)
     nuts_transition_kernel(Params P, PG pg_fn, Rand R, const float* q,
                            const float* u, const float* g, float* q_out,
-                           float* u_out, float* g_out, float* stats) {
+                           float* u_out, float* g_out, float* stats,
+                           float* ck) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds, P.K);
+  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds,
+                       PG::qb_floats(P.ds), ck, P.K);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -493,9 +503,10 @@ __global__ void __launch_bounds__(NT, 2)
     nuts_sampling_kernel(Params P, PG pg_fn, uint32_t seed, int num_draws,
                          const float* q, const float* u, const float* g,
                          T* pos, float* stats, float* q_out, float* u_out,
-                         float* g_out) {
+                         float* g_out, float* ck) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds, P.K);
+  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds,
+                       PG::qb_floats(P.ds), ck, P.K);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -535,11 +546,13 @@ inline Params make_params(const float* im, const float* ms, int dense,
   return P;
 }
 
-// Checks a launch's sizes and launches `kernel` on the plan's blocks.
+// Checks a launch's sizes and launches `kernel` on the plan's blocks; ck
+// (the checkpoint buffer, G.blocks × 2K × CB × ds floats) must be given.
 template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
-                   const Geometry& G, cudaStream_t stream, Args&&... args) {
-  if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14 ||
+                   const float* ck, const Geometry& G, cudaStream_t stream,
+                   Args&&... args) {
+  if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14 || !ck ||
       (size_t)G.blocks * CB < (size_t)P.C)
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);

@@ -12,15 +12,15 @@
 //     sample_fused and sample_fused_logistic(loop_in_kernel=True),
 // with their core _transition_core (:117) and the logistic potential of
 // _logistic_pot_grad_builder (:878), whose bfloat16 operands
-// (matmul_dtype=bfloat16) are the functor's template flag.  The metric is a
+// (matmul_dtype=bfloat16) are the functor's X element type.  The metric is a
 // diagonal M⁻¹, as in the TPU kernels.  The plain PyTorch version of both
 // kernels is aehmc_tpu_torch/ops/nuts_fused.py.
 //
 // What bounds it: as kernels 1 and 2, the two data products of every
 // gradient (2·N·dim FMAs per chain).  Layout changes nothing in the core;
 // a warp's loads and stores of a chain's row are contiguous here, where the
-// transposed layout strides them by C.  The launch plan (blocks, X's row
-// stride, shared memory) comes from
+// transposed layout strides them by C.  The launch plan (blocks, points a
+// tile, X's row stride, shared memory, the checkpoint buffer) comes from
 // aehmc_tpu_torch/ops/launch_plan.py.
 
 #include "nuts_core.cuh"
@@ -30,25 +30,26 @@ using namespace aehmc::nuts;
 
 namespace {
 
-template <bool BF16>
-cudaError_t launch_transition(const Params& P, const LogisticPGT<BF16>& pg,
-                              const Rand& R, const Geometry& G,
+template <typename XT>
+cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
+                              const Rand& R, float* ck, const Geometry& G,
                               const float* q, const float* u, const float* g,
                               float* q_out, float* u_out, float* g_out,
                               float* stats, cudaStream_t stream) {
-  return launch(nuts_transition_kernel<LogisticPGT<BF16>, true>, P, pg.N, G,
-                stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats);
+  return launch(nuts_transition_kernel<LogisticPGT<XT>, true>, P, pg.N, ck, G,
+                stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
 }
 
-template <bool BF16>
-cudaError_t launch_sampling(const Params& P, const LogisticPGT<BF16>& pg,
-                            uint32_t seed, int num_draws, const Geometry& G,
-                            const float* q, const float* u, const float* g,
-                            float* pos, float* stats, float* q_out,
-                            float* u_out, float* g_out, cudaStream_t stream) {
-  return launch(nuts_sampling_kernel<LogisticPGT<BF16>, float, true>, P,
-                pg.N, G, stream, P, pg, seed, num_draws, q, u, g, pos, stats,
-                q_out, u_out, g_out);
+template <typename XT>
+cudaError_t launch_sampling(const Params& P, const LogisticPGT<XT>& pg,
+                            uint32_t seed, int num_draws, float* ck,
+                            const Geometry& G, const float* q, const float* u,
+                            const float* g, float* pos, float* stats,
+                            float* q_out, float* u_out, float* g_out,
+                            cudaStream_t stream) {
+  return launch(nuts_sampling_kernel<LogisticPGT<XT>, float, true>, P, pg.N,
+                ck, G, stream, P, pg, seed, num_draws, q, u, g, pos, stats,
+                q_out, u_out, g_out, ck);
 }
 
 }  // namespace
@@ -56,60 +57,75 @@ cudaError_t launch_sampling(const Params& P, const LogisticPGT<BF16>& pg,
 extern "C" {
 
 // Kernel 3: one transition.  q, g, p: (C, dim); u: (C,); dirs, ub: (C, K);
-// ul: (C, 2^K); X: (N, row_stride); im: (dim,); stats: (C, 8).  use_seed
-// selects Philox randomness keyed by seed (p, dirs, ub and ul are then
-// unused); bf16 rounds the data products' operands to bfloat16.  blocks,
-// points, row_stride and smem are the launch plan's.
+// ul: (C, 2^K); X: (N, row_stride) float32, or bfloat16 (bf16: the data
+// products' operands in bfloat16, X stored rounded); im: (dim,); stats:
+// (C, 8); ck: the checkpoint buffer, blocks × 2K × 8 × ds floats (ds = dim
+// rounded up to 4).  use_seed selects Philox randomness keyed by seed (p,
+// dirs, ub and ul are then unused).  blocks, points, row_stride and smem
+// are the launch plan's.
 int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                const float* p, const float* dirs,
                                const float* ub, const float* ul, int use_seed,
-                               unsigned int seed, const float* X,
+                               unsigned int seed, const void* X,
                                const float* y, const float* im, float eps,
                                float thr, float prior_precision, int bf16,
                                int dim, int N, int C, int K, float* q_out,
                                float* u_out, float* g_out, float* stats,
-                               int blocks, int points, int row_stride, int smem,
-                               void* stream) {
+                               float* ck, int blocks, int points,
+                               int row_stride, int smem, void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem};
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    const LogisticPGT<true> pg = {X, y, N, row_stride, points,
-                                  prior_precision};
-    return (int)launch_transition(P, pg, R, G, q, u, g, q_out, u_out, g_out,
-                                  stats, s);
+    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
+                            row_stride, points, prior_precision};
+    return (int)launch_transition(P, pg, R, ck, G, q, u, g, q_out, u_out,
+                                  g_out, stats, s);
   }
-  const LogisticPGT<false> pg = {X, y, N, row_stride, points,
-                                 prior_precision};
-  return (int)launch_transition(P, pg, R, G, q, u, g, q_out, u_out, g_out,
+  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
+                         points, prior_precision};
+  return (int)launch_transition(P, pg, R, ck, G, q, u, g, q_out, u_out, g_out,
                                 stats, s);
 }
 
 // Kernel 4: num_draws transitions, draw t keyed by seed + t*DRAW_SEED_STRIDE.
-// pos: (draws, C, dim) float32 or null; stats: (draws, C, 8).
+// X, bf16 and ck as kernel 3's; pos: (draws, C, dim) float32 or null;
+// stats: (draws, C, 8).
 int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
-                             unsigned int seed, int num_draws, const float* X,
+                             unsigned int seed, int num_draws, const void* X,
                              const float* y, const float* im, float eps,
                              float thr, float prior_precision, int bf16,
                              int dim, int N, int C, int K, float* pos,
                              float* stats, float* q_out, float* u_out,
-                             float* g_out, int blocks, int points,
+                             float* g_out, float* ck, int blocks, int points,
                              int row_stride, int smem, void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
   const Geometry G = {blocks, points, row_stride, smem};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   if (bf16) {
-    const LogisticPGT<true> pg = {X, y, N, row_stride, points,
-                                  prior_precision};
-    return (int)launch_sampling(P, pg, seed, num_draws, G, q, u, g, pos,
+    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
+                            row_stride, points, prior_precision};
+    return (int)launch_sampling(P, pg, seed, num_draws, ck, G, q, u, g, pos,
                                 stats, q_out, u_out, g_out, s);
   }
-  const LogisticPGT<false> pg = {X, y, N, row_stride, points,
-                                 prior_precision};
-  return (int)launch_sampling(P, pg, seed, num_draws, G, q, u, g, pos, stats,
-                              q_out, u_out, g_out, s);
+  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
+                         points, prior_precision};
+  return (int)launch_sampling(P, pg, seed, num_draws, ck, G, q, u, g, pos,
+                              stats, q_out, u_out, g_out, s);
+}
+
+// Blocks one SM holds of kernel 3 (sampling 0) or kernel 4 (sampling 1)
+// with bfloat16 (bf16) or float32 operands, at smem bytes a block.
+int nuts_std_blocks_per_sm(int sampling, int bf16, int smem) {
+  if (sampling)
+    return bf16 ? blocks_per_sm(nuts_sampling_kernel<LogisticPGB, float, true>,
+                                smem)
+                : blocks_per_sm(nuts_sampling_kernel<LogisticPG, float, true>,
+                                smem);
+  return bf16 ? blocks_per_sm(nuts_transition_kernel<LogisticPGB, true>, smem)
+              : blocks_per_sm(nuts_transition_kernel<LogisticPG, true>, smem);
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@
 // with their core _transition_core_t (:69) and momentum draw
 // _gen_momentum_t (:434), and the potential and gradient of
 // aehmc_tpu/models/regression.py:logistic_regression_pg_t (:112) that the
-// TPU kernel traces into its body.  The plain PyTorch version of both
+// TPU kernel traces into its body, with float32 or (the builder's default)
+// bfloat16 data.  The plain PyTorch version of both
 // kernels is aehmc_tpu_torch/ops/nuts_fused_small.py.
 
 #include "nuts_core.cuh"
@@ -18,54 +19,125 @@
 using namespace aehmc;
 using namespace aehmc::nuts;
 
+namespace {
+
+template <typename XT>
+cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
+                              const Rand& R, float* ck, const Geometry& G,
+                              const float* q, const float* u, const float* g,
+                              float* q_out, float* u_out, float* g_out,
+                              float* stats, cudaStream_t stream) {
+  return launch(nuts_transition_kernel<LogisticPGT<XT>, false>, P, pg.N, ck,
+                G, stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
+}
+
+template <typename XT, typename T>
+cudaError_t launch_sampling(const Params& P, const LogisticPGT<XT>& pg,
+                            uint32_t seed, int num_draws, float* ck,
+                            const Geometry& G, const float* q, const float* u,
+                            const float* g, T* pos, float* stats,
+                            float* q_out, float* u_out, float* g_out,
+                            cudaStream_t stream) {
+  return launch(nuts_sampling_kernel<LogisticPGT<XT>, T, false>, P, pg.N, ck,
+                G, stream, P, pg, seed, num_draws, q, u, g, pos, stats, q_out,
+                u_out, g_out, ck);
+}
+
+template <typename XT>
+cudaError_t sampling_any(const Params& P, const LogisticPGT<XT>& pg,
+                         uint32_t seed, int num_draws, float* ck,
+                         const Geometry& G, const float* q, const float* u,
+                         const float* g, void* pos, int pos_bf16,
+                         float* stats, float* q_out, float* u_out,
+                         float* g_out, cudaStream_t stream) {
+  if (pos_bf16)
+    return launch_sampling(P, pg, seed, num_draws, ck, G, q, u, g,
+                           static_cast<__nv_bfloat16*>(pos), stats, q_out,
+                           u_out, g_out, stream);
+  return launch_sampling(P, pg, seed, num_draws, ck, G, q, u, g,
+                         static_cast<float*>(pos), stats, q_out, u_out,
+                         g_out, stream);
+}
+
+}  // namespace
+
 extern "C" {
 
 // Kernel 1: one transition.  q, g, p: (dim, C); u: (C,); dirs, ub: (K, C);
-// ul: (2^K, C); X: (N, row_stride); stats: (8, C).  use_seed selects Philox
-// randomness keyed by seed (p, dirs, ub and ul are then unused).  blocks,
-// points, row_stride and smem are the launch plan's
+// ul: (2^K, C); X: (N, row_stride) float32, or bfloat16 (x_bf16: the data
+// products' operands in bfloat16); stats: (8, C); ck: the checkpoint
+// buffer, blocks × 2K × 8 × ds floats (ds = dim rounded up to 4).
+// use_seed selects Philox randomness keyed by seed (p, dirs, ub and ul are
+// then unused).  blocks, points, row_stride and smem are the launch plan's
 // (aehmc_tpu_torch/ops/launch_plan.py).
 int nuts_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* dirs, const float* ub,
                            const float* ul, int use_seed, unsigned int seed,
-                           const float* X, const float* y, const float* im,
-                           const float* ms, int dense, float eps, float thr,
-                           int dim, int N, int C, int K, float* q_out,
-                           float* u_out, float* g_out, float* stats,
-                           int blocks, int points, int row_stride, int smem,
-                           void* stream) {
+                           const void* X, int x_bf16, const float* y,
+                           const float* im, const float* ms, int dense,
+                           float eps, float thr, int dim, int N, int C, int K,
+                           float* q_out, float* u_out, float* g_out,
+                           float* stats, float* ck, int blocks, int points,
+                           int row_stride, int smem, void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, y, N, row_stride, points, 1.0f};
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem};
-  return (int)launch(nuts_transition_kernel<LogisticPG, false>, P, N, G,
-                     (cudaStream_t)stream, P, pg, R, q, u, g, q_out, u_out,
-                     g_out, stats);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (x_bf16) {
+    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
+                            row_stride, points, 1.0f};
+    return (int)launch_transition(P, pg, R, ck, G, q, u, g, q_out, u_out,
+                                  g_out, stats, s);
+  }
+  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
+                         points, 1.0f};
+  return (int)launch_transition(P, pg, R, ck, G, q, u, g, q_out, u_out, g_out,
+                                stats, s);
 }
 
 // Kernel 2: num_draws transitions, draw t keyed by seed + t*DRAW_SEED_STRIDE.
-// pos: (draws, C, dim) float32 or bfloat16 (pos_bf16), or null;
-// stats: (draws, 8, C).
+// X and ck as kernel 1's; pos: (draws, C, dim) float32 or bfloat16
+// (pos_bf16), or null; stats: (draws, 8, C).
 int nuts_sampling_launch(const float* q, const float* u, const float* g,
-                         unsigned int seed, int num_draws, const float* X,
-                         const float* y, const float* im, const float* ms,
-                         int dense, float eps, float thr, int dim, int N,
-                         int C, int K, void* pos, int pos_bf16, float* stats,
-                         float* q_out, float* u_out, float* g_out, int blocks,
+                         unsigned int seed, int num_draws, const void* X,
+                         int x_bf16, const float* y, const float* im,
+                         const float* ms, int dense, float eps, float thr,
+                         int dim, int N, int C, int K, void* pos,
+                         int pos_bf16, float* stats, float* q_out,
+                         float* u_out, float* g_out, float* ck, int blocks,
                          int points, int row_stride, int smem,
                          void* stream) {
   const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
-  const LogisticPG pg = {X, y, N, row_stride, points, 1.0f};
   const Geometry G = {blocks, points, row_stride, smem};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (pos_bf16)
-    return (int)launch(nuts_sampling_kernel<LogisticPG, __nv_bfloat16, false>,
-                       P, N, G, s, P, pg, seed, num_draws, q, u, g,
-                       static_cast<__nv_bfloat16*>(pos), stats, q_out, u_out,
-                       g_out);
-  return (int)launch(nuts_sampling_kernel<LogisticPG, float, false>, P, N, G,
-                     s, P, pg, seed, num_draws, q, u, g,
-                     static_cast<float*>(pos), stats, q_out, u_out, g_out);
+  if (num_draws < 1) return (int)cudaErrorInvalidValue;
+  if (x_bf16) {
+    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
+                            row_stride, points, 1.0f};
+    return (int)sampling_any(P, pg, seed, num_draws, ck, G, q, u, g, pos,
+                             pos_bf16, stats, q_out, u_out, g_out, s);
+  }
+  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
+                         points, 1.0f};
+  return (int)sampling_any(P, pg, seed, num_draws, ck, G, q, u, g, pos,
+                           pos_bf16, stats, q_out, u_out, g_out, s);
+}
+
+// Blocks one SM holds of kernel 1 (sampling 0) or kernel 2 (sampling 1,
+// the bfloat16 store) with X in bfloat16 (x_bf16) or float32, at smem
+// bytes of shared memory a block.
+int nuts_blocks_per_sm(int sampling, int x_bf16, int smem) {
+  if (sampling)
+    return x_bf16 ? blocks_per_sm(nuts_sampling_kernel<LogisticPGB,
+                                                       __nv_bfloat16, false>,
+                                  smem)
+                  : blocks_per_sm(nuts_sampling_kernel<LogisticPG,
+                                                       __nv_bfloat16, false>,
+                                  smem);
+  return x_bf16 ? blocks_per_sm(nuts_transition_kernel<LogisticPGB, false>,
+                                smem)
+                : blocks_per_sm(nuts_transition_kernel<LogisticPG, false>,
+                                smem);
 }
 
 }  // extern "C"

@@ -49,9 +49,20 @@ def logistic_regression(
     return logprob_fn, torch.zeros(dim, dtype=torch.float32, device=device)
 
 
+def _logits(q_t, Xv):
+    """``X q_t``, float32.  With bfloat16 data (the builder's bfloat16
+    operands) q is rounded to bfloat16 once and each product of two
+    bfloat16 values is exact in float32, the sums float32, as the JAX
+    builder's ``dot_general(..., preferred_element_type=float32)``."""
+    if Xv.dtype == torch.bfloat16:
+        return Xv.to(q_t.dtype) @ q_t.to(torch.bfloat16).to(q_t.dtype)
+    return Xv @ q_t
+
+
 def logistic_potential_t(q_t, Xv, XTv, y_c):
-    """Potential ``(chains,)`` of the ``(dim, chains)`` batch ``q_t``."""
-    logits = Xv @ q_t
+    """Potential ``(chains,)`` of the ``(dim, chains)`` batch ``q_t``; the
+    prior term on the unrounded q."""
+    logits = _logits(q_t, Xv)
     return -torch.sum(y_c * logits - _softplus(logits), dim=0) + 0.5 * torch.sum(
         q_t * q_t, dim=0
     )
@@ -59,12 +70,17 @@ def logistic_potential_t(q_t, Xv, XTv, y_c):
 
 def logistic_pg_t(q_t, Xv, XTv, y_c):
     """Potential ``(1, chains)`` and gradient ``(dim, chains)`` of ``q_t``:
-    ``logits = X q_t``, ``grad = Xᵀ (σ(logits) − y) + q_t``."""
-    logits = Xv @ q_t
+    ``logits = X q_t``, ``grad = Xᵀ (σ(logits) − y) + q_t``.  With bfloat16
+    data q and σ − y are rounded to bfloat16 for the two products, which
+    are exact in float32 and summed in float32; the prior terms use the
+    unrounded q."""
+    logits = _logits(q_t, Xv)
     u = -torch.sum(y_c * logits - _softplus(logits), dim=0, keepdim=True) + (
         0.5 * torch.sum(q_t * q_t, dim=0, keepdim=True)
     )
     resid = torch.sigmoid(logits) - y_c
+    if XTv.dtype == torch.bfloat16:
+        resid, XTv = resid.to(torch.bfloat16).to(q_t.dtype), XTv.to(q_t.dtype)
     return u, XTv @ resid + q_t
 
 
@@ -72,19 +88,21 @@ def logistic_regression_pg_t(
     dim: int = 100,
     num_points: int = 1_000,
     seed: int = 42,
-    matmul_dtype=torch.float32,
+    matmul_dtype=torch.bfloat16,
     device="cuda",
 ):
     """``(potential_t, potential_and_grad_t, data, example_position)`` with
-    ``data = (X, Xᵀ, y_col)``, as the JAX builder returns them.
-
-    Only float32 operands are ported; bf16 operands are ROADMAP item 1.4.
-    """
-    if matmul_dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 matmul operands are not ported yet (ROADMAP.md, item 1.4)"
+    ``data = (X, Xᵀ, y_col)``, as the JAX builder returns them: ``X`` and
+    ``Xᵀ`` in ``matmul_dtype`` (bfloat16 by default, rounded to nearest
+    even; float32 keeps the data exact), ``y_col`` float32.  The products'
+    operands are then ``matmul_dtype`` values with float32 sums."""
+    if matmul_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            "matmul_dtype is torch.float32 or torch.bfloat16, got "
+            f"{matmul_dtype}"
         )
     X, y = logistic_regression_data(dim, num_points, seed, device)
-    data = (X, X.T.contiguous(), y.reshape(-1, 1))
+    data = (X.to(matmul_dtype), X.T.contiguous().to(matmul_dtype),
+            y.reshape(-1, 1))
     example = torch.zeros(dim, dtype=torch.float32, device=device)
     return logistic_potential_t, logistic_pg_t, data, example

@@ -41,25 +41,27 @@ _GEOMETRY = [_I] * 4 + [_P]
 # source -> {C function: argtypes}
 SIGNATURES = {
     "nuts_fused_small.cu": {
-        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P] * 4
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 4 + _GEOMETRY,
-        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P] * 4
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 4 + _GEOMETRY,
+        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P, _I] + [_P] * 3
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P, _I] + [_P] * 3
+        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
+        "nuts_blocks_per_sm": [_I] * 3,
     },
     "nuts_fused.cu": {
         "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 3
-        + [_F] * 3 + [_I] * 5 + [_P] * 4 + _GEOMETRY,
-        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 3
         + [_F] * 3 + [_I] * 5 + [_P] * 5 + _GEOMETRY,
+        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 3
+        + [_F] * 3 + [_I] * 5 + [_P] * 6 + _GEOMETRY,
+        "nuts_std_blocks_per_sm": [_I] * 3,
     },
     "chees_fused.cu": {
-        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P] * 5
+        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P, _I] + [_P] * 4
         + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
     },
     "ghmc_fused.cu": {
-        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P] * 5
+        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 4
         + [_I, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
-        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P] * 5
+        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 4
         + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
     },
     "fused_hmc.cu": {
@@ -180,3 +182,17 @@ def require_f32_cuda(name, t, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_x_cuda(X, num_points, dim, device) -> None:
+    """Check the data matrix of a logistic kernel: float32 or bfloat16, on
+    ``device``, ``(points, dim)``."""
+    if not isinstance(X, torch.Tensor):
+        raise TypeError(f"X must be a tensor, got {type(X).__name__}")
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"X must be float32 or bfloat16, got {X.dtype}")
+    if X.device != device:
+        raise ValueError(f"X is on {X.device}, the chains on {device}")
+    if tuple(X.shape) != (num_points, dim):
+        raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                         f"{(num_points, dim)}")

@@ -362,6 +362,7 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
         check_launch,
         load_kernels,
         require_f32_cuda,
+        require_x_cuda,
     )
 
     num_chains, dim = q.shape
@@ -373,18 +374,19 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
     im = im.contiguous() if dense else im.reshape(-1).expand(dim).contiguous()
     eps = _row(step_size, num_chains, device).reshape(num_chains).contiguous()
     steps = _device_steps(num_steps, device)
-    ops = dict(q=q, u=u.reshape(num_chains), g=g, X=X,
+    ops = dict(q=q, u=u.reshape(num_chains), g=g,
                y=y.reshape(num_points), im=im, eps=eps)
     shapes = dict(q=(num_chains, dim), u=(num_chains,), g=(num_chains, dim),
-                  X=(num_points, dim), y=(num_points,),
+                  y=(num_points,),
                   im=(dim, dim) if dense else (dim,), eps=(num_chains,))
     if seed is None:
         ops.update(p=momentum, ua=u_accept.reshape(num_chains))
         shapes.update(p=(num_chains, dim), ua=(num_chains,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    plan = launch_plan("hmc", dim, 0, num_chains)
-    Xk = data_rows(X, plan.row_stride)
+    require_x_cuda(X, num_points, dim, device)
+    plan = launch_plan("hmc", dim, 0, num_chains, X.dtype)
+    Xk = data_rows(X, plan.row_stride, X.dtype)
     ms = _mass_sqrt(im).contiguous() if dense and seed is not None else None
     q_out, g_out, qp, vp = (torch.empty_like(q) for _ in range(4))
     u_out = torch.empty((num_chains, 1), dtype=torch.float32, device=device)
@@ -394,7 +396,8 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops.get("p")),
         _ptr(ops.get("ua")), int(seed is not None),
         0 if seed is None else int(seed) & MASK32, _ptr(Xk),
-        _ptr(ops["y"]), _ptr(eps), _ptr(im), _ptr(ms),
+        int(Xk.dtype == torch.bfloat16), _ptr(ops["y"]), _ptr(eps),
+        _ptr(im), _ptr(ms),
         int(dense), _ptr(steps),
         float(divergence_threshold), dim, num_points, num_chains,
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(qp), _ptr(vp),

@@ -37,6 +37,7 @@ def fused_logistic_hmc_reference(
     ``y``: (points,); ``inverse_mass``: (dim,).  Returns ``(q, p)``."""
     eps = torch.as_tensor(step_size, dtype=q.dtype, device=q.device)
     half = 0.5 * eps
+    X = X.to(q.dtype)  # bfloat16 data widened, as the JAX kernel's products
     XT, y_row = X.T, y.reshape(1, -1)
     g = _logistic_grad(q, X, XT, y_row, prior_precision)
     for _ in range(int(num_steps)):
@@ -68,21 +69,24 @@ def fused_logistic_hmc(
 
 def fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size, num_steps,
                             prior_precision=1.0):
-    """Launch kernel 8 (``fused_logistic_hmc``) on CUDA tensors."""
+    """Launch kernel 8 (``fused_logistic_hmc``) on CUDA tensors; a bfloat16
+    X is widened to float32 (the kernel's products are float32, as the JAX
+    kernel's on q's dtype)."""
     from aehmc_tpu_torch.ops._build import (
         check_launch,
         load_kernels,
         require_f32_cuda,
+        require_x_cuda,
     )
 
     num_chains, dim = q.shape
     num_points = X.shape[0]
     device = q.device
     operands = dict(q=(q, (num_chains, dim)), p=(p, (num_chains, dim)),
-                    X=(X, (num_points, dim)), y=(y, (num_points,)),
-                    inverse_mass=(inverse_mass, (dim,)))
+                    y=(y, (num_points,)), inverse_mass=(inverse_mass, (dim,)))
     for name, (t, shape) in operands.items():
         require_f32_cuda(name, t, shape, device)
+    require_x_cuda(X, num_points, dim, device)
     plan = launch_plan("fused_hmc", dim, 0, num_chains)
     Xk = data_rows(X, plan.row_stride)
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)

@@ -286,9 +286,10 @@ def _ptr(t):
 
 def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
     """Validate and normalise the operands shared by both kernels, and plan
-    the launch; returns ``(operands, im_per_chain, plan, (dim, points,
+    the launch (X's dtype, float32 or bfloat16, picks the functor's
+    operands); returns ``(operands, im_per_chain, plan, (dim, points,
     chains))``."""
-    from aehmc_tpu_torch.ops._build import require_f32_cuda
+    from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     dim, num_chains = q_t.shape
     X, _, y = data
@@ -298,7 +299,7 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
     per_chain = im.shape[1] > 1
     ops = dict(
         q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t,
-        X=X, y=y.reshape(num_points),
+        y=y.reshape(num_points),
         eps=_row(step_size, num_chains, device).reshape(num_chains)
         .contiguous(),
         alpha=_row(alpha, num_chains, device).reshape(num_chains)
@@ -306,14 +307,14 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
         im=im.contiguous() if per_chain else im.reshape(dim).contiguous(),
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
-                  p=(dim, num_chains), X=(num_points, dim),
-                  y=(num_points,), eps=(num_chains,),
+                  p=(dim, num_chains), y=(num_points,), eps=(num_chains,),
                   alpha=(num_chains,),
                   im=(dim, num_chains) if per_chain else (dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    plan = launch_plan("hmc", dim, 0, num_chains)
-    ops["X"] = data_rows(X, plan.row_stride)
+    require_x_cuda(X, num_points, dim, device)
+    plan = launch_plan("hmc", dim, 0, num_chains, X.dtype)
+    ops["X"] = data_rows(X, plan.row_stride, X.dtype)
     return ops, per_chain, plan, (dim, num_points, num_chains)
 
 
@@ -350,7 +351,8 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
         0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
+        _ptr(ops["y"]), _ptr(ops["eps"]),
         _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(p_out),
@@ -389,7 +391,8 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
         0 if seed is None else int(seed) & MASK32, int(num_draws),
-        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["eps"]),
+        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
+        _ptr(ops["y"]), _ptr(ops["eps"]),
         _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),

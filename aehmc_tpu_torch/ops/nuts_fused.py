@@ -41,7 +41,11 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import _softplus
-from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
+from aehmc_tpu_torch.ops.launch_plan import (
+    checkpoint_floats,
+    data_rows,
+    launch_plan,
+)
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     DRAW_SEED_STRIDE,
@@ -62,8 +66,9 @@ _uniform_from_bits = uniform_from_bits
 def logistic_potential(q, X, XT, y_row):
     """The logistic-regression potential ``(chains,)`` of ``q (chains,
     dim)``, prior precision 1, with ``data = (X (N, dim), Xᵀ (dim, N), y_row
-    (1, N))``.  The generic builders' kernels recognise it by identity."""
-    logits = q @ XT
+    (1, N))``.  The generic builders' kernels recognise it by identity.
+    Bfloat16 data are widened to q's dtype, as JAX promotes them."""
+    logits = q @ XT.to(q.dtype)
     return -torch.sum(y_row * logits - _softplus(logits), dim=-1) + 0.5 * torch.sum(
         q * q, dim=-1
     )
@@ -77,10 +82,12 @@ def _logistic_pot_grad(prior_precision: float, matmul_dtype) -> Callable:
     """``pot_grad(q, X, Xᵀ, y_row) -> (u (C, 1), g (C, dim))``, the plain
     version of the kernels' functor: with ``matmul_dtype=bfloat16`` the
     products' operands are rounded to bfloat16 and multiplied in float32
-    (exact products, float32 sums), the prior terms stay float32."""
+    (exact products, float32 sums), the prior terms stay float32; with
+    float32 bfloat16 data are widened, as JAX promotes them."""
     if matmul_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"matmul_dtype is float32 or bfloat16, got {matmul_dtype}")
-    rnd = _bf16 if matmul_dtype == torch.bfloat16 else (lambda x: x)
+    rnd = (_bf16 if matmul_dtype == torch.bfloat16 else
+           (lambda x: x.to(torch.float32)))
 
     def pot_grad(q, X, XT, y_row):
         logits = rnd(q) @ rnd(XT)
@@ -120,8 +127,11 @@ def _generic_model(potential_fn, data) -> _Model:
 
 
 def _logistic_model(X, y, prior_precision, matmul_dtype) -> _Model:
+    """With bfloat16 operands X is stored rounded (once, to nearest even; a
+    bfloat16 X passes through), as the kernel reads it."""
     num_points = X.shape[0]
-    X = X.to(torch.float32)
+    X = X.to(torch.float32 if matmul_dtype == torch.float32 else
+             torch.bfloat16)
     data = (X, X.T.contiguous(), y.reshape(1, num_points).to(torch.float32))
     pot_grad = _logistic_pot_grad(prior_precision, matmul_dtype)
     return _Model(lambda q: pot_grad(q, *data), data,
@@ -416,8 +426,8 @@ def sample_fused_logistic(
     float32.  Randomness as :func:`sample_fused`.  Returns
     ``(final_positions, positions, stats)``."""
     model = _logistic_model(X, y, prior_precision, matmul_dtype)
-    u0, g0 = _logistic_pot_grad(prior_precision, torch.float32)(
-        initial_positions.to(torch.float32), *model.data)
+    u0, g0 = _logistic_model(X, y, prior_precision, torch.float32).pot_grad(
+        initial_positions.to(torch.float32))
     return _sampling_loop(
         model, generator, initial_positions, u0, g0, num_samples, step_size,
         inverse_mass, max_exp=max_num_expansions,
@@ -433,10 +443,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q, u, g, inverse_mass, data, max_exp):
+def _cuda_operands(q, u, g, inverse_mass, data, max_exp, bf16):
     """Validate and normalise the operands shared by kernels 3 and 4, and
-    plan the launch."""
-    from aehmc_tpu_torch.ops._build import require_f32_cuda
+    plan the launch: X in the functor's operand type (a float32 X of a
+    bfloat16 call rounded once, a bfloat16 X of a float32 call widened),
+    and the U-turn checkpoint buffer."""
+    from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     num_chains, dim = q.shape
     X, _, y = data
@@ -446,15 +458,19 @@ def _cuda_operands(q, u, g, inverse_mass, data, max_exp):
     if im.ndim == 2:
         raise ValueError("the standard-layout NUTS kernels take a diagonal "
                          "inverse mass (the JAX kernels' contract)")
-    ops = dict(q=q, u=u.reshape(num_chains, 1), g=g, X=X,
+    ops = dict(q=q, u=u.reshape(num_chains, 1), g=g,
                y=y.reshape(num_points),
                im=im.reshape(-1).expand(dim).contiguous())
     shapes = dict(q=(num_chains, dim), u=(num_chains, 1), g=(num_chains, dim),
-                  X=(num_points, dim), y=(num_points,), im=(dim,))
+                  y=(num_points,), im=(dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    plan = launch_plan("nuts", dim, max_exp, num_chains)
-    ops["X"] = data_rows(X, plan.row_stride)
+    require_x_cuda(X, num_points, dim, device)
+    x_dtype = torch.bfloat16 if bf16 else torch.float32
+    plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype)
+    ops["X"] = data_rows(X, plan.row_stride, x_dtype)
+    ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
+                            dtype=torch.float32, device=device)
     return ops, plan, (dim, num_points, num_chains)
 
 
@@ -471,8 +487,9 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
         require_f32_cuda,
     )
 
+    prior_precision, bf16 = card
     ops, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q, u, g, inverse_mass, data, max_exp)
+        q, u, g, inverse_mass, data, max_exp, bf16)
     if seed is None:
         ext = dict(p=(momentum, (num_chains, dim)),
                    dirs=(directions, (num_chains, max_exp)),
@@ -483,7 +500,6 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
         ext_ptrs = [_ptr(t) for t, _ in ext.values()]
     else:
         ext_ptrs = [None] * 4
-    prior_precision, bf16 = card
     q_out, g_out = torch.empty_like(q), torch.empty_like(q)
     u_out = torch.empty((num_chains, 1), dtype=torch.float32, device=q.device)
     stats = torch.empty((num_chains, 8), dtype=torch.float32, device=q.device)
@@ -494,7 +510,8 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
         _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
         float(step_size), float(divergence_threshold), float(prior_precision),
         int(bf16), dim, num_points, num_chains, max_exp, _ptr(q_out),
-        _ptr(u_out), _ptr(g_out), _ptr(stats), *plan.args(),
+        _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
+        *plan.args(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition_std")
@@ -511,10 +528,10 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
     8), q, u (C, 1), g)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q, u0, g0, inverse_mass, data, max_exp)
-    device = q.device
     prior_precision, bf16 = card
+    ops, plan, (dim, num_points, num_chains) = _cuda_operands(
+        q, u0, g0, inverse_mass, data, max_exp, bf16)
+    device = q.device
     pos = (torch.empty((num_draws, num_chains, dim), dtype=torch.float32,
                        device=device) if collect_positions else None)
     stats = torch.empty((num_draws, num_chains, 8), dtype=torch.float32,
@@ -528,7 +545,7 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
         _ptr(ops["im"]), float(step_size), float(divergence_threshold),
         float(prior_precision), int(bf16), dim, num_points, num_chains,
         max_exp, _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), *plan.args(),
+        _ptr(g_out), _ptr(ops["ck"]), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling_std")

@@ -12,8 +12,10 @@ under the JAX module's names.
 Dispatch is by the device of the chain state and nothing else: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.  The
 kernels compute the logistic-regression potential and gradient
-(:func:`aehmc_tpu_torch.models.regression.logistic_pg_t`) in their own body;
-a CUDA tensor with any other potential raises ``NotImplementedError``.
+(:func:`aehmc_tpu_torch.models.regression.logistic_pg_t`) in their own body,
+with float32 or bfloat16 operands as X's dtype says (the model builder's
+default is bfloat16, as in the JAX package); a CUDA tensor with any other
+potential raises ``NotImplementedError``.
 
 Randomness is either external (``p, dirs, u_bias, u_leaf`` tensors, the
 oracle-parity mode) or a Philox key per draw.  The generator fills exactly
@@ -27,7 +29,11 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.models.regression import logistic_pg_t
-from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
+from aehmc_tpu_torch.ops.launch_plan import (
+    checkpoint_floats,
+    data_rows,
+    launch_plan,
+)
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.philox import MASK32, nuts_streams
 
@@ -555,8 +561,10 @@ def _ptr(t):
 
 def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp):
     """Validate and normalise the operands shared by both kernels, and plan
-    the launch."""
-    from aehmc_tpu_torch.ops._build import require_f32_cuda
+    the launch.  X's dtype picks the functor's operands: float32, or
+    bfloat16 (the model builder's default), as the plain version computes
+    with those data.  Also allocates the U-turn checkpoint buffer."""
+    from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     dim, num_chains = q_t.shape
     X, _, y = data
@@ -567,19 +575,20 @@ def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp):
     dense = inverse_mass.ndim == 2
     im = inverse_mass if dense else inverse_mass.reshape(-1).expand(dim)
     ops = dict(
-        q=q_t, u=u.reshape(1, num_chains), g=g_t,
-        X=X, y=y.reshape(num_points),
+        q=q_t, u=u.reshape(1, num_chains), g=g_t, y=y.reshape(num_points),
         im=im.contiguous(),
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
-                  X=(num_points, dim), y=(num_points,),
-                  im=(dim, dim) if dense else (dim,))
+                  y=(num_points,), im=(dim, dim) if dense else (dim,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
+    require_x_cuda(X, num_points, dim, device)
     mass_sqrt = (_mass_sqrt_t(ops["im"], dim).contiguous() if dense
                  else None)
-    plan = launch_plan("nuts", dim, max_exp, num_chains)
-    ops["X"] = data_rows(X, plan.row_stride)
+    plan = launch_plan("nuts", dim, max_exp, num_chains, X.dtype)
+    ops["X"] = data_rows(X, plan.row_stride, X.dtype)
+    ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
+                            dtype=torch.float32, device=device)
     return ops, dense, mass_sqrt, plan, (dim, num_points, num_chains)
 
 
@@ -615,10 +624,12 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     err = lib.nuts_transition_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
+        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
+        _ptr(ops["y"]), _ptr(ops["im"]),
         _ptr(mass_sqrt), int(dense), float(step_size),
         float(divergence_threshold), dim, num_points, num_chains, max_exp,
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), *plan.args(),
+        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
+        *plan.args(),
         torch.cuda.current_stream(q_t.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition")
@@ -652,11 +663,13 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     lib = load_kernels("nuts_fused_small.cu")
     err = lib.nuts_sampling_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        num_draws, _ptr(ops["X"]), _ptr(ops["y"]),
+        num_draws, _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
+        _ptr(ops["y"]),
         _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), float(step_size),
         float(divergence_threshold), dim, num_points, num_chains, max_exp,
         _ptr(pos), int(collect_dtype == torch.bfloat16), _ptr(stats),
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), *plan.args(),
+        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]),
+        *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling")

@@ -2,14 +2,25 @@
 shapes ``chip_smoke.py`` uses (10,240 chains of the 100-d, 1,000-point
 logistic regression).
 
-Prints one JSON line: the CUDA-event mean of kernels 1-8 (``ms``), and the
-host wall of one front-door run each of fused NUTS, MALA and ChEES and of the
-standard-layout driver (``wall_s``, after one untimed run of each).  Run it
-from a checkout's root, ``python3 -m aehmc_tpu_torch.timing``; copied into
-another checkout's package it times that tree, so one call can time two
-trees in turns (parent, change, change, parent).
+Prints one JSON line: the CUDA-event mean of kernels 1-8 (``ms``; kernels
+1-7 also with the model builder's default bfloat16 data where the tree's
+kernels take them, else null), the card's SM clock read by ``nvidia-smi``
+just after each reading (``sm_mhz``), and the host wall of one front-door
+run each of fused NUTS, MALA and ChEES and of the standard-layout driver
+(``wall_s``, after one untimed run of each).  Run it from a checkout's root,
+``python3 -m aehmc_tpu_torch.timing``; copied into another checkout's
+package it times that tree, so one call can time two trees in turns
+(parent, change, change, parent).
+
+``--outputs PATH`` also writes the outputs of kernels 1-4 at fixed seeds
+and inputs, float32 and with bfloat16 operands, to an ``.npz`` (a kernel a
+tree cannot run with bfloat16 data is left out), so two trees' outputs can
+be compared bit for bit: ``--compare A.npz B.npz`` prints, as one JSON
+line, which arrays of the two files are equal bit for bit and which one
+file lacks (no card needed).
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -48,7 +59,43 @@ def wall_s(fn):
     return time.perf_counter() - t0
 
 
-def main():
+def sm_clock_mhz():
+    """The card's current SM clock (MHz), or None when nvidia-smi cannot
+    tell."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True)
+    try:
+        return float(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def compare_outputs(path_a, path_b):
+    """{"equal": [...], "differ": [...], "only_in_one": [...]} over the
+    arrays of two ``--outputs`` files, compared bit for bit."""
+    a, b = np.load(path_a), np.load(path_b)
+    out = {"equal": [], "differ": [], "only_in_one": sorted(
+        set(a.files) ^ set(b.files))}
+    for key in sorted(set(a.files) & set(b.files)):
+        x, y = a[key], b[key]
+        same = (x.shape == y.shape and x.dtype == y.dtype
+                and x.tobytes() == y.tobytes())
+        out["equal" if same else "differ"].append(key)
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--outputs", help="write kernels 1-4's outputs at "
+                        "fixed seeds to this .npz")
+    parser.add_argument("--compare", nargs=2, metavar="NPZ",
+                        help="compare two --outputs files bit for bit")
+    args = parser.parse_args(argv)
+    if args.compare:
+        print(json.dumps(compare_outputs(*args.compare)), flush=True)
+        return 0
+
     import aehmc_tpu_torch
     from aehmc_tpu_torch.models import (
         logistic_regression,
@@ -71,7 +118,14 @@ def main():
                           text=True, check=True).stdout.strip()
     _build.build_all()
     dev = torch.device("cuda")
-    pot, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=dev)
+    # the flagship's float32 data, as bench.py measures it
+    pot, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=dev)
+    try:  # the builder's bfloat16 data, where the tree's kernels take them
+        data16 = logistic_regression_pg_t(
+            DIM, POINTS, matmul_dtype=torch.bfloat16, device=dev)[2]
+    except NotImplementedError:
+        data16 = None
     rng = np.random.default_rng(0)
     q0 = torch.tensor(0.1 * rng.standard_normal((CHAINS, DIM)),
                       dtype=torch.float32, device=dev)
@@ -88,17 +142,29 @@ def main():
     cstate = (q0, u0.reshape(-1), g0.T.contiguous())
     lf_p = torch.tensor(rng.standard_normal((CHAINS, DIM)),
                         dtype=torch.float32, device=dev)
+
+    def k1(d):
+        return nfs.nuts_transition_cuda(q_t, u0, g0, im, EPS, d, max_exp=K,
+                                        seed=11)
+
+    def k2(d):
+        return nfs.nuts_sampling_cuda(q_t, u0, g0, im, EPS, d, 5, 20,
+                                      max_exp=K)
+
+    def k3(m):
+        return nf.nuts_transition_std_cuda(q0, us, gs, im, EPS, m.data,
+                                           max_exp=K, card=m.card, seed=11)
+
+    def k4(m):
+        return nf.nuts_sampling_std_cuda(q0, us, gs, im, EPS, m.data, 5, 20,
+                                         max_exp=K, card=m.card)
+
     kernels = {  # name: (call, repetitions)
-        "1 nuts_transition": (lambda: nfs.nuts_transition_cuda(
-            q_t, u0, g0, im, EPS, data, max_exp=K, seed=11), 10),
-        "2 nuts_sampling (20 draws)": (lambda: nfs.nuts_sampling_cuda(
-            q_t, u0, g0, im, EPS, data, 5, 20, max_exp=K), 3),
-        "3 nuts_transition_std": (lambda: nf.nuts_transition_std_cuda(
-            q0, us, gs, im, EPS, f32m.data, max_exp=K, seed=11), 10),
-        "4 nuts_sampling_std (20 draws, bf16)": (
-            lambda: nf.nuts_sampling_std_cuda(
-                q0, us, gs, im, EPS, b16m.data, 5, 20, max_exp=K,
-                card=b16m.card), 3),
+        "1 nuts_transition": (lambda: k1(data), 10),
+        "2 nuts_sampling (20 draws)": (lambda: k2(data), 3),
+        "3 nuts_transition_std": (lambda: k3(f32m), 10),
+        "4 nuts_sampling_std (20 draws, bf16)": (lambda: k4(b16m), 3),
+        "4 nuts_sampling_std (20 draws, f32)": (lambda: k4(f32m), 3),
         "5 ghmc_transition": (lambda: gf.ghmc_transition_cuda(
             q_t, u0, g0, p0, EPS, 0.0, im, data, seed=7), 40),
         "6 ghmc_segment (32 draws)": (lambda: gf.ghmc_segment_cuda(
@@ -107,8 +173,35 @@ def main():
             *cstate, im, EPS, steps, data, seed=7), 20),
         "8 fused_logistic_hmc (L 10)": (lambda: fh.fused_logistic_hmc_cuda(
             q0, lf_p, X, y, im, 0.05, STEPS), 20),
+        "3 nuts_transition_std (bf16)": (lambda: k3(b16m), 10),
     }
-    ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in kernels.items()}
+    if data16 is not None:
+        kernels.update({
+            "1 nuts_transition (bf16)": (lambda: k1(data16), 10),
+            "2 nuts_sampling (20 draws, bf16)": (lambda: k2(data16), 3),
+            "5 ghmc_transition (bf16)": (lambda: gf.ghmc_transition_cuda(
+                q_t, u0, g0, p0, EPS, 0.0, im, data16, seed=7), 40),
+            "6 ghmc_segment (32 draws, bf16)": (lambda: gf.ghmc_segment_cuda(
+                q_t, u0, g0, p0, EPS, 0.0, im, data16, 32, seed=7), 5),
+            "7 chees_transition (L 10, bf16)": (
+                lambda: cf.chees_transition_cuda(*cstate, im, EPS, steps,
+                                                 data16, seed=7), 20),
+        })
+    ms, sm_mhz = {}, {}
+    for name, (fn, reps) in kernels.items():
+        ms[name] = cuda_ms(fn, reps)
+        sm_mhz[name] = sm_clock_mhz()
+
+    if args.outputs:
+        outs = {"k1_f32": k1(data), "k2_f32": k2(data),
+                "k3_f32": k3(f32m), "k3_bf16": k3(b16m),
+                "k4_f32": k4(f32m), "k4_bf16": k4(b16m)}
+        if data16 is not None:
+            outs.update(k1_bf16=k1(data16), k2_bf16=k2(data16))
+        arrays = {f"{name}_{i}": t.cpu().numpy()
+                  for name, out in outs.items()
+                  for i, t in enumerate(out) if t is not None}
+        np.savez(args.outputs, **arrays)
 
     logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
     front = dict(data=data, potential_fn_t=pot, potential_and_grad_t=pg)
@@ -129,10 +222,16 @@ def main():
             torch.Generator().manual_seed(16), nf.logistic_potential,
             f32m.data, q0, DRAWS, WARMUP, max_num_expansions=K,
             initial_step_size=0.1),
+        "sample_fused_logistic (bf16)": lambda: nf.sample_fused_logistic(
+            torch.Generator().manual_seed(161), X, y, q0, DRAWS, 0.5, IMM,
+            max_num_expansions=K, loop_in_kernel=True),
     }
-    out = {name: wall_s(fn) for name, fn in walls.items()}
+    out = {}
+    for name, fn in walls.items():
+        out[name] = wall_s(fn)
+        sm_mhz[name] = sm_clock_mhz()
     print(json.dumps({"card": card, "tree": os.getcwd(), "ms": ms,
-                      "wall_s": out}), flush=True)
+                      "wall_s": out, "sm_mhz": sm_mhz}), flush=True)
     return 0
 
 

@@ -23,18 +23,26 @@ logistic regression.  Then it drives the port's front door
   ``nuts_sampling_std``) against their plain versions and kernel 1, then the
   standard branch of the adaptive driver (150 + 200 launches of kernel 3)
   and ``sample_fused_logistic`` with bfloat16 operands (one launch of
-  kernel 4).
+  kernel 4);
+- phase 17: the model builder's default data, bfloat16: kernels 1, 2, 5, 6
+  and 7 against their plain bfloat16 versions, the fused NUTS front door on
+  those data (150 + 200, phase 5's limits, means within 0.02 posterior sd
+  of phase 5's) and short MALA, GHMC and ChEES front doors on them.
 
 Phase 1 prints each kernel's launch geometry (points a chunk of X, shared
-memory a block, from ``ops/launch_plan.py``) and ptxas's registers and
-spills; phases 2 and 8 hold kernels 1 and 5's gradients at their own q_out
-against float64, within 4x of the plain float32 gradient's error; phases 13
-and 15 also run kernels 7 and 3 on ragged chain counts
-against their plain versions, and phases 2 and 15 print the lockstep ratio
-of the NUTS tree sizes (what a block of more chains would idle).
+memory a block, from ``ops/launch_plan.py``), ptxas's registers and
+spills, and for the NUTS kernels the blocks an SM holds (the occupancy
+API, float32 and bfloat16 X); phases 2 and 8 hold kernels 1 and 5's
+gradients at their own q_out against float64, within 4x of the plain
+float32 gradient's error; phases 13 and 15 also run kernels 7 and 3 on
+ragged chain counts against their plain versions, and phases 2 and 15
+print the lockstep ratio of the NUTS tree sizes (what a block of more
+chains would idle).
 
 Launch counts are reset just before each front-door run and read just after.
-Run from the repository root: ``python3 chip_smoke.py``.  It needs one CUDA
+Run from the repository root: ``python3 chip_smoke.py``.  Last, the GHMC
+and ChEES front doors (phases 12 and 14) run again with two more generator
+seeds and are held to the same limits, every run measured first.  It needs one CUDA
 card and ``nvcc``; it exits non-zero, printing no result, when there is no
 card or any phase fails.  The line before the last is a JSON object with each
 kernel's launches, error, times and bound; the last line is
@@ -79,6 +87,12 @@ Q_ATOL_BF16 = 1e-2
 BF16_BIAS_SD = 0.02
 BF16_SEEDS = (161, 162)         # phase 16: kernel 4's two runs
 BF16_PLAIN_SEED = 163           # phase 16: the plain bf16 witness
+# GHMC's and ChEES's means sat 3.88 and 2.27 combined MCSE from NUTS's at
+# phases 12 and 14's seeds: two more seeds each tell a bias from chance
+EXTRA_SEEDS = (112, 113)
+# phase 1: kernel 1 at a dim of each (points, blocks per SM) the NUTS plan
+# gives: 128/64/32/16/8 points at two blocks, then 128, 64 and 8 at one
+SWEEP_DIMS = (100, 101, 140, 164, 184, 189, 240, 392)
 # Split R-hat of a stationary chain with autocorrelation time tau and n
 # draws per split chain is about sqrt((n - 1) / (n - tau)), 1.027 for MALA's
 # tau of about 16.5 at 600 draws.  MALA and GHMC are held, per dimension, to
@@ -150,8 +164,8 @@ def same_decisions(sk, sp):
     return same
 
 
-def compare(kernel_out, plain_out, what):
-    """Decisions equal on >= 99% of chains; q within 1e-3 on those.
+def compare(kernel_out, plain_out, what, atol=Q_ATOL):
+    """Decisions equal on >= 99% of chains; q within ``atol`` on those.
     Returns (share, max_abs_err, chains that differ)."""
     qk, _, _, sk = kernel_out
     qp, _, _, sp = plain_out
@@ -159,7 +173,7 @@ def compare(kernel_out, plain_out, what):
     share = float(same.float().mean())
     err = float((qk - qp).abs()[..., same].max()) if bool(same.any()) else math.inf
     check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
-    check(err <= Q_ATOL, f"{what}: max |q| error {err:.3g} on agreeing chains")
+    check(err <= atol, f"{what}: max |q| error {err:.3g} on agreeing chains")
     return share, err, int((~same).sum())
 
 
@@ -217,6 +231,13 @@ ENTRIES = {
     "fused_logistic_hmc": ("fused_hmc.cu", "fused_hmc_kernel"),
     "batched_leapfrog": ("leapfrog.cu", "batched_leapfrog_kernel"),
 }
+# NUTS kernel -> (source, its occupancy function, sampling flag)
+NUTS_OCCUPANCY = {
+    "nuts_transition": ("nuts_fused_small.cu", "nuts_blocks_per_sm", 0),
+    "nuts_sampling": ("nuts_fused_small.cu", "nuts_blocks_per_sm", 1),
+    "nuts_transition_std": ("nuts_fused.cu", "nuts_std_blocks_per_sm", 0),
+    "nuts_sampling_std": ("nuts_fused.cu", "nuts_std_blocks_per_sm", 1),
+}
 # kernel -> its core in the launch plan
 CORES = {"nuts_transition": "nuts", "nuts_sampling": "nuts",
          "nuts_transition_std": "nuts", "nuts_sampling_std": "nuts",
@@ -254,9 +275,9 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
                 library_ms=None)
 
 
-def ghmc_compare(torch, q_in, kernel_out, plain_out, what):
+def ghmc_compare(torch, q_in, kernel_out, plain_out, what, atol=Q_ATOL):
     """GHMC decisions (accepted, divergent, and the selected energy to 1e-5
-    relative) equal on >= 99% of chains in every draw; q within 1e-3 on
+    relative) equal on >= 99% of chains in every draw; q within ``atol`` on
     those.  Outputs are ``(positions (D, dim, C), stats (D, 8, C))``.
     Returns (share, max_abs_err, chains that differ)."""
     def moves(pos):
@@ -268,7 +289,7 @@ def ghmc_compare(torch, q_in, kernel_out, plain_out, what):
     share = float(same.float().mean())
     err = float((pk - pp).abs()[..., same].max()) if bool(same.any()) else math.inf
     check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
-    check(err <= Q_ATOL, f"{what}: max |q| error {err:.3g} on agreeing chains")
+    check(err <= atol, f"{what}: max |q| error {err:.3g} on agreeing chains")
     return share, err, int((~same).sum())
 
 
@@ -576,20 +597,22 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
     ]
 
 
-def chees_compare(torch, q_in, kern, plain, what):
-    """ChEES decisions (accepted, divergent, and the kept energy to 1e-5
-    relative) equal on >= 99% of chains; q, the proposed position and the
-    proposed velocity within 1e-3 on those.  Outputs are ``(q, u, g, stats
-    (C, 8), q_proposed, v_proposed)``.  Returns (share, max_abs_err, chains
-    that differ)."""
+def chees_compare(torch, q_in, kern, plain, what, atol=Q_ATOL,
+                  energy_rtol=1e-5):
+    """ChEES decisions (accepted, divergent, and the kept energy to
+    ``energy_rtol`` relative) equal on >= 99% of chains; q, the proposed
+    position and the proposed velocity within ``atol`` on those.  Outputs
+    are ``(q, u, g, stats (C, 8), q_proposed, v_proposed)``.  Returns
+    (share, max_abs_err, chains that differ)."""
     moved_k, moved_p = ((o[0] != q_in).any(dim=1) for o in (kern, plain))
     sk, sp = kern[3], plain[3]
-    energy = (sk[:, 0] - sp[:, 0]).abs() <= 1e-5 * sp[:, 0].abs().clamp(min=1.0)
+    energy = ((sk[:, 0] - sp[:, 0]).abs()
+              <= energy_rtol * sp[:, 0].abs().clamp(min=1.0))
     same = (moved_k == moved_p) & (sk[:, 4] == sp[:, 4]) & energy
     share = float(same.float().mean())
     err = max(float((kern[i] - plain[i]).abs()[same].max()) for i in (0, 4, 5))
     check(share >= DECISION_SHARE, f"{what}: decisions agree on {share:.4f}")
-    check(err <= Q_ATOL, f"{what}: max |q|, |qp|, |vp| error {err:.3g}")
+    check(err <= atol, f"{what}: max |q|, |qp|, |vp| error {err:.3g}")
     return share, err, int((~same).sum())
 
 
@@ -985,8 +1008,9 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     check(launches3["nuts_transition_std"] == WARMUP + DRAWS
           and sum(launches3.values()) == WARMUP + DRAWS,
           f"standard driver launches {launches3}")
-    std_stats = nuts_limits(torch, diagnostics, pos16, stats16, eps16,
-                            nuts_mean, "standard-layout NUTS")
+    std_stats = nuts_limits(torch, diagnostics, pos16, stats16[:, :, 1],
+                            stats16[:, :, 4], eps16, nuts_mean,
+                            "standard-layout NUTS")
     del pos16
     # the plain bf16 sampler from the same start (a float32 potential and
     # gradient, as sample_fused_logistic's): the witness of the rounded
@@ -1015,8 +1039,9 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
         bf16_runs.append(dict(
             seed=seed16, wall_s=wall16b, launches=launches4,
             grad_evals_per_s=evals16b / wall16b,
-            **nuts_limits(torch, diagnostics, pos16b, stats16b, eps16,
-                          nuts_mean, f"sample_fused_logistic (bf16, seed "
+            **nuts_limits(torch, diagnostics, pos16b, stats16b[:, :, 1],
+                          stats16b[:, :, 4], eps16, nuts_mean,
+                          f"sample_fused_logistic (bf16, seed "
                           f"{seed16})", bias_sd=BF16_BIAS_SD,
                           witness=witness)))
         del pos16b
@@ -1058,12 +1083,309 @@ def standard_nuts_phases(torch, ops, diagnostics, data, q0, record, nuts_mean,
     ]
 
 
-def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
-                what, bias_sd=None, witness=None):
-    """Phase 5's limits on a NUTS run (stats ``(draws, chains, 8)``), and its
-    means within MCSE_Z combined MCSE of phase 5's, or within ``bias_sd``
-    posterior standard deviations when given; and within MCSE_Z combined
-    MCSE of ``witness`` (another run's means and MCSE) when given."""
+def plan_sweep(torch, card):
+    """Kernel 1 at dims where the launch plan takes each NUTS tile (points a
+    chunk, two blocks per SM or one), float32 data, 10,240 chains: ms per
+    transition and ns per gradient, point and dimension, the cost of a
+    smaller tile (X·q idles warps below 128 points)."""
+    from aehmc_tpu_torch.models import logistic_regression_pg_t
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan, two_blocks_fit
+
+    dev = torch.device(DEVICE)
+    rows = []
+    for dim in SWEEP_DIMS:
+        _, pg, data, _ = logistic_regression_pg_t(
+            dim, POINTS, matmul_dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(dim)
+        q_t = torch.tensor(0.1 * rng.standard_normal((dim, CHAINS)),
+                           dtype=torch.float32, device=dev)
+        u, g = pg(q_t, *data)
+        im = torch.full((dim,), IMM, device=dev)
+
+        def k1():
+            return nfs.nuts_transition_cuda(q_t, u, g, im, EPS, data,
+                                            max_exp=K, seed=dim)
+
+        ms = cuda_ms(torch, k1, 5)
+        leaves = float(k1()[3][3].sum())
+        plan = launch_plan("nuts", dim, K, CHAINS)
+        rows.append(dict(dim=dim, points=plan.points, smem_bytes=plan.smem,
+                         two_blocks=two_blocks_fit(plan.smem), ms=ms,
+                         ns_per_grad_point_dim=ms * 1e6
+                         / (leaves * POINTS * dim)))
+    log("  plan sweep, kernel 1 (dim: points, blocks per SM, ms, ns per "
+        "gradient-point-dim): " + ", ".join(
+            f"{r['dim']}: {r['points']}, {2 if r['two_blocks'] else 1}, "
+            f"{r['ms']:.3f}, {r['ns_per_grad_point_dim']:.4g}" for r in rows)
+        + f" [{card}]")
+    return rows
+
+
+def bf16_phases(torch, ops, diagnostics, q0, record, nuts_mean, card):
+    """Phase 17: the model builder's default data (bfloat16).  Kernels 1, 2,
+    5, 6 and 7 against their plain bf16 versions (kernels 2 and 6 also
+    against per-draw launches of kernels 1 and 5, bit for bit, and each draw
+    against the plain transition from the kernel's own state); the fused
+    NUTS front door on those data, held to phase 5's limits with means
+    within BF16_BIAS_SD posterior sd of phase 5's; short MALA, GHMC and
+    ChEES front doors on them."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import (
+        logistic_regression,
+        logistic_regression_pg_t,
+    )
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
+    from aehmc_tpu_torch.ops.philox import MASK32
+
+    dev = q0.device
+    pot, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=dev)
+    check(data[0].dtype == torch.bfloat16 and data[1].dtype == torch.bfloat16,
+          f"the builder's default data are {data[0].dtype}, not bfloat16")
+    pot_grad = lambda q_t: pg(q_t, *data)  # noqa: E731
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    im = torch.full((DIM,), IMM, device=dev)
+    out = {}
+
+    # kernel 1 against the plain bf16 version
+    k1 = nfs.nuts_transition_cuda(q_t, u0, g0, im, EPS, data, max_exp=K,
+                                  seed=171717)
+    p1 = nfs.nuts_transition_plain(q_t, u0, g0, im, EPS, pot_grad, max_exp=K,
+                                   seed=171717)
+    torch.cuda.synchronize()
+    out["share1"], out["err1"], _ = compare(k1, p1, "kernel 1 (bf16)",
+                                            Q_ATOL_BF16)
+    # kernel 2 == per-draw kernel 1 bit for bit; each draw against the plain
+    # bf16 transition from the kernel's own state
+    n2, seed = 20, 1717
+    pos, stats, *final = nfs.nuts_sampling_cuda(q_t, u0, g0, im, EPS, data,
+                                                 seed, n2, max_exp=K)
+    st_k, share2, err2 = (q_t, u0, g0), 1.0, 0.0
+    for t in range(n2):
+        seed_t = (seed + t * DRAW_SEED_STRIDE) & MASK32
+        plain_t = nfs.nuts_transition_plain(*st_k, im, EPS, pot_grad,
+                                            max_exp=K, seed=seed_t)
+        *st_k, st = nfs.nuts_transition_cuda(*st_k, im, EPS, data, max_exp=K,
+                                             seed=seed_t)
+        check(torch.equal(st, stats[t]) and torch.equal(st_k[0], pos[t]),
+              f"kernel 2 (bf16) draw {t} differs from kernel 1")
+        sh, er, _ = compare((st_k[0], None, None, st), plain_t,
+                            f"kernel 2 (bf16) draw {t} vs plain", Q_ATOL_BF16)
+        share2, err2 = min(share2, sh), max(err2, er)
+    check(all(torch.equal(a, b) for a, b in zip(final, st_k)),
+          "kernel 2 (bf16) final state differs from kernel 1")
+    out.update(share2=share2, err2=err2)
+    del pos
+
+    # kernels 5 and 6
+    rng = np.random.default_rng(17)
+    p0 = torch.tensor(np.sqrt(1.0 / IMM) * rng.standard_normal((DIM, CHAINS)),
+                      dtype=torch.float32, device=dev)
+    state = (q_t, u0, g0, p0)
+    cases = []
+    for alpha in (0.0, GHMC_ALPHA):
+        kern = gf.ghmc_transition_cuda(*state, EPS, alpha, im, data, seed=1718)
+        plain = gf.ghmc_transition_plain(*state, EPS, alpha, im, pot_grad,
+                                         seed=1718)
+        torch.cuda.synchronize()
+        cases.append(ghmc_compare(torch, q_t, (kern[0][None], kern[4][None]),
+                                  (plain[0][None], plain[4][None]),
+                                  f"kernel 5 (bf16, alpha {alpha})",
+                                  Q_ATOL_BF16))
+    out.update(share5=min(c[0] for c in cases), err5=max(c[1] for c in cases))
+    pos, stats, *final = gf.ghmc_segment_cuda(*state, EPS, GHMC_ALPHA, im,
+                                              data, SEGMENT, seed=seed)
+    st_k, share6, err6 = state, 1.0, 0.0
+    for t in range(SEGMENT):
+        seed_t = (seed + t * DRAW_SEED_STRIDE) & MASK32
+        plain_t = gf.ghmc_transition_plain(*st_k, EPS, GHMC_ALPHA, im,
+                                           pot_grad, seed=seed_t)
+        q_prev = st_k[0]
+        *st_k, st = gf.ghmc_transition_cuda(*st_k, EPS, GHMC_ALPHA, im, data,
+                                            seed=seed_t)
+        check(torch.equal(st, stats[t]) and torch.equal(st_k[0], pos[t]),
+              f"kernel 6 (bf16) draw {t} differs from kernel 5")
+        sh, er, _ = ghmc_compare(torch, q_prev, (st_k[0][None], st[None]),
+                                 (plain_t[0][None], plain_t[4][None]),
+                                 f"kernel 6 (bf16) draw {t} vs plain",
+                                 Q_ATOL_BF16)
+        share6, err6 = min(share6, sh), max(err6, er)
+    check(all(torch.equal(a, b) for a, b in zip(final, st_k)),
+          "kernel 6 (bf16) final state differs from kernel 5")
+    out.update(share6=share6, err6=err6)
+    del pos
+
+    # kernel 7, and against kernel 5 at alpha 0
+    cstate = (q0, u0.reshape(-1), g0.T.contiguous())
+    steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+    k7 = cf.chees_transition_cuda(*cstate, im, EPS, steps, data, seed=1719)
+    p7 = cf.chees_transition_plain(*cstate, im, EPS, LEAPFROG_STEPS, pot_grad,
+                                   seed=1719)
+    torch.cuda.synchronize()
+    # one transition is L 10 steps: a last-bit float32 difference that moves
+    # one bfloat16 rounding of q or σ − y in any of them can move the final
+    # energy by more than 1e-5 relative (on 3.2% of the chains on an H100),
+    # so the kept energy is held to Q_ATOL_BF16 relative; the decisions
+    # (accepted, divergent) are held as everywhere
+    out["share7"], out["err7"], _ = chees_compare(
+        torch, q0, k7, p7, "kernel 7 (bf16)", Q_ATOL_BF16,
+        energy_rtol=Q_ATOL_BF16)
+    decided = (((k7[0] != q0).any(dim=1) == (p7[0] != q0).any(dim=1))
+               & (k7[3][:, 4] == p7[3][:, 4]))
+    rel = ((k7[3][:, 0] - p7[3][:, 0]).abs()
+           / p7[3][:, 0].abs().clamp(min=1.0))
+    out.update(decisions7=float(decided.float().mean()),
+               energy7_within_1e5=float((rel <= 1e-5).float().mean()),
+               energy7_rel_err=float(rel[decided].max()))
+    k5 = gf.ghmc_transition_cuda(q_t, u0, g0, torch.zeros_like(g0), EPS, 0.0,
+                                 im, data, num_steps=LEAPFROG_STEPS,
+                                 seed=1719)
+    check(torch.equal(k7[0], k5[0].T),
+          "kernel 7 (bf16) differs from kernel 5 at alpha 0")
+
+    # times of the bf16 instantiations at the main paths' shapes
+    out.update(
+        ms1=cuda_ms(torch, lambda: nfs.nuts_transition_cuda(
+            q_t, u0, g0, im, EPS, data, max_exp=K, seed=11), 5),
+        ms2=cuda_ms(torch, lambda: nfs.nuts_sampling_cuda(
+            q_t, u0, g0, im, EPS, data, seed, n2, max_exp=K), 3),
+        ms5=cuda_ms(torch, lambda: gf.ghmc_transition_cuda(
+            *state, EPS, 0.0, im, data, seed=7), 20),
+        ms6=cuda_ms(torch, lambda: gf.ghmc_segment_cuda(
+            *state, EPS, 0.0, im, data, SEGMENT, seed=7), 5),
+        ms7=cuda_ms(torch, lambda: cf.chees_transition_cuda(
+            *cstate, im, EPS, steps, data, seed=7), 10))
+
+    # the fused NUTS front door on the default data
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(1717), None, q0, DRAWS, WARMUP,
+        algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
+        potential_and_grad_t=pg, max_num_expansions=K, initial_step_size=0.1,
+        collect_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    out["nuts_wall_s"] = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["nuts_transition"] == WARMUP
+          and launches["nuts_sampling"] == 1
+          and sum(launches.values()) == WARMUP + 1,
+          f"bf16 NUTS front door launches {launches}")
+    diag = res.diagnostics
+    out["nuts"] = nuts_limits(
+        torch, diagnostics, res.positions, diag.acceptance_probability,
+        diag.is_diverging, res.step_size, nuts_mean,
+        "NUTS front door (bf16 data)", bias_sd=BF16_BIAS_SD)
+    out["nuts"].update(step_size=float(res.step_size), launches=launches)
+    del res
+
+    # short MALA, GHMC and ChEES front doors on the default data
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+    short = {}
+    for algorithm, kw, kernels in (
+            ("mala", dict(potential_fn_t=pot, initial_step_size=0.1,
+                          segment_draws=SEGMENT),
+             {"ghmc_transition", "ghmc_segment"}),
+            ("ghmc", dict(potential_fn_t=pot, initial_step_size=0.1,
+                          segment_draws=SEGMENT, ghmc_alpha=GHMC_ALPHA),
+             {"ghmc_transition", "ghmc_segment"}),
+            ("chees", dict(initial_step_size=CHEES_EPS0),
+             {"chees_transition"})):
+        ops.reset_launch_counts()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(1720), logprob_fn, q0, 64, 50,
+            algorithm=algorithm, path="fused", data=data,
+            potential_and_grad_t=pg, **kw)
+        torch.cuda.synchronize()
+        launched = {k for k, v in ops.LAUNCHES.items() if v}
+        check(launched == kernels, f"{algorithm} (bf16 data) launched "
+              f"{dict(ops.LAUNCHES)}")
+        check(bool(torch.isfinite(res.positions.float()).all()),
+              f"{algorithm} (bf16 data): non-finite draws")
+        short[algorithm] = dict(
+            launches={k: v for k, v in ops.LAUNCHES.items() if v},
+            accept=float(res.diagnostics.acceptance_probability.mean()),
+            step_size=float(res.step_size))
+        del res
+    out["short_front_doors"] = short
+    nuts = out["nuts"]
+    log(f"phase 17: builder's default data (bfloat16) at {CHAINS}x{DIM}: "
+        f"vs plain bf16, decisions equal on >= kernel 1 {out['share1']:.4%}, "
+        f"kernel 2 per draw {out['share2']:.4%}, kernel 5 "
+        f"{out['share5']:.4%}, kernel 6 per draw {out['share6']:.4%}, kernel "
+        f"7 {out['share7']:.4%}; max |q| err {out['err1']:.3g} / "
+        f"{out['err2']:.3g} / {out['err5']:.3g} / {out['err6']:.3g} / "
+        f"{out['err7']:.3g}; kernel 7: accepted and divergent equal on "
+        f"{out['decisions7']:.4%}, kept energy within 1e-5 relative on "
+        f"{out['energy7_within_1e5']:.4%}, at most "
+        f"{out['energy7_rel_err']:.3g} relative; kernel 2 == {n2} kernel 1 "
+        f"launches and kernel 6 "
+        f"== {SEGMENT} kernel 5 launches bit for bit, kernel 7 == kernel 5 "
+        f"at alpha 0; kernels 1 {out['ms1']:.3f} ms, 2 {out['ms2']:.2f} ms / "
+        f"{n2} draws, 5 {out['ms5']:.4f} ms, 6 {out['ms6']:.3f} ms / "
+        f"{SEGMENT} draws, 7 {out['ms7']:.3f} ms at L {LEAPFROG_STEPS}; NUTS "
+        f"front door {WARMUP} + {DRAWS} in {out['nuts_wall_s']:.2f} s, "
+        f"launches {nuts['launches']}, eps {nuts['step_size']:.4f}, accept "
+        f"{nuts['accept']:.4f}, divergent {nuts['divergent_share']:.2e}, max "
+        f"R-hat {nuts['max_rhat']:.4f}, means within "
+        f"{nuts['max_mean_shift_sd']:.4f} posterior sd "
+        f"({nuts['max_z_vs_nuts']:.2f} MCSE) of phase 5's; short front "
+        f"doors " + ", ".join(
+            f"{a} {v['launches']} accept {v['accept']:.3f}"
+            for a, v in short.items()) + f" [{card}]")
+    record["phase17"] = out
+
+
+def extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
+                    nuts_mean, card, seeds):
+    """Phases 12 and 14's front doors again with other generator seeds,
+    every run measured before any is held to the limits."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import logistic_regression
+
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=q0.device)
+    runs = []
+    for seed in seeds:
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(seed), None, q0, GHMC_DRAWS,
+            WARMUP, algorithm="ghmc", path="fused", ghmc_alpha=GHMC_ALPHA,
+            data=data, potential_fn_t=pot, potential_and_grad_t=pg,
+            initial_step_size=0.1, segment_draws=SEGMENT)
+        runs.append(("GHMC", seed, (0.7, 0.9), front_door_checks(
+            torch, diagnostics, res, nuts_mean, f"GHMC (seed {seed})",
+            checks=False)))
+        del res
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(seed), logprob_fn, q0, DRAWS,
+            WARMUP, algorithm="chees", path="fused", data=data,
+            potential_and_grad_t=pg, initial_step_size=CHEES_EPS0)
+        runs.append(("ChEES", seed, CHEES_ACCEPT, front_door_checks(
+            torch, diagnostics, res, nuts_mean, f"ChEES (seed {seed})",
+            checks=False)))
+        del res
+    log("phases 12 and 14 at more seeds: " + "; ".join(
+        f"{what} seed {seed}: means within {out['max_z_vs_nuts']:.2f} MCSE "
+        f"of NUTS, accept {out['accept']:.4f}, max R-hat excess "
+        f"{out['max_rhat_excess']:.4f}" for what, seed, _, out in runs)
+        + f" [{card}]")
+    record["extra_seeds"] = [dict(sampler=what, seed=seed, **out)
+                             for what, seed, _, out in runs]
+    for what, seed, accept_range, out in runs:
+        hold_front_door(out, f"{what} (seed {seed})", accept_range)
+
+
+def nuts_limits(torch, diagnostics, positions, accept, divergent, step_size,
+                nuts_mean, what, bias_sd=None, witness=None):
+    """Phase 5's limits on a NUTS run (``accept`` and ``divergent`` per draw
+    and chain), and its means within MCSE_Z combined MCSE of phase 5's, or
+    within ``bias_sd`` posterior standard deviations when given; and within
+    MCSE_Z combined MCSE of ``witness`` (another run's means and MCSE) when
+    given."""
     draws = positions.float().transpose(0, 1)  # (chains, draws, dim)
     rhat = float(chunked(torch, lambda v: diagnostics.potential_scale_reduction(
         v, rank_normalized=True), draws, 20).max())
@@ -1072,8 +1394,8 @@ def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
                / torch.sqrt(mcse**2 + nuts_mean[1]**2)).max())
     sd = draws.reshape(-1, draws.shape[2]).std(dim=0)
     shift_sd = float(((mean - nuts_mean[0]).abs() / sd).max())
-    out = dict(accept=float(stats[:, :, 1].mean()),
-               divergent_share=float(stats[:, :, 4].mean()), max_rhat=rhat,
+    out = dict(accept=float(accept.float().mean()),
+               divergent_share=float(divergent.float().mean()), max_rhat=rhat,
                max_z_vs_nuts=z, max_mean_shift_sd=shift_sd,
                finite=bool(torch.isfinite(draws).all()))
     eps = float(step_size)
@@ -1097,7 +1419,7 @@ def nuts_limits(torch, diagnostics, positions, stats, step_size, nuts_mean,
 
 
 def front_door_checks(torch, diagnostics, res, nuts_mean, what,
-                      accept_range=(0.7, 0.9)):
+                      accept_range=(0.7, 0.9), checks=True):
     """The limits of a MALA, GHMC or ChEES front-door run, set before the
     run: acceptance, divergences, finite draws, each dimension's split R-hat
     within RHAT_EXCESS of its stationary value, and each posterior mean
@@ -1123,6 +1445,13 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what,
         max_z_vs_nuts=float(z.max()),
         finite=bool(torch.isfinite(res.positions).all()),
     )
+    if checks:
+        hold_front_door(out, what, accept_range)
+    return out
+
+
+def hold_front_door(out, what, accept_range=(0.7, 0.9)):
+    """The limits of front_door_checks on its measurements ``out``."""
     check(accept_range[0] <= out["accept"] <= accept_range[1],
           f"{what} mean acceptance {out['accept']}")
     check(out["divergent_share"] < 1e-4,
@@ -1134,7 +1463,6 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what,
           f"{what} posterior means differ from NUTS by {out['max_z_vs_nuts']} "
           f"MCSE")
     check(out["finite"], f"{what}: non-finite draws")
-    return out
 
 
 def main():
@@ -1177,14 +1505,39 @@ def main():
         geometry[name] = dict(
             points=plan and plan.points, smem_bytes=plan and plan.smem,
             blocks=plan and plan.blocks, registers=regs, spill_bytes=spill)
+        occ = ""
+        if name in NUTS_OCCUPANCY:  # blocks per SM, float32 and bf16 X
+            source, fn, sampling = NUTS_OCCUPANCY[name]
+            lib = _build.load_kernels(source)
+            per_sm = {}
+            for x_dtype in (torch.float32, torch.bfloat16):
+                xp = launch_plan("nuts", DIM, K, CHAINS, x_dtype)
+                per_sm[str(x_dtype).split(".")[1]] = dict(
+                    points=xp.points, smem_bytes=xp.smem,
+                    blocks_per_sm=getattr(lib, fn)(
+                        sampling, int(x_dtype == torch.bfloat16), xp.smem))
+            geometry[name]["per_sm"] = per_sm
+            occ = "; blocks per SM " + ", ".join(
+                f"{k} X ({v['points']} points, {v['smem_bytes']} B) "
+                f"{v['blocks_per_sm']}" for k, v in per_sm.items())
+            check(all(v["blocks_per_sm"] >= 2 for v in per_sm.values()),
+                  f"{name}: fewer than two blocks per SM {per_sm}")
         log(f"  {name}: " + (f"{plan.blocks} blocks of 8 chains, X in chunks "
                              f"of {plan.points} points, {plan.smem} B of "
                              f"shared memory a block; " if plan else "")
             + f"ptxas {regs} registers, {spill} B spill stores (the most "
-            f"over its instantiations)")
-    record.update(card=card, kind=kind, build_s=build_s, geometry=geometry)
+            f"over its instantiations)" + occ)
+    nuts_plan = launch_plan("nuts", DIM, K, CHAINS)
+    check((nuts_plan.points, nuts_plan.smem) == (128, 111_792),
+          f"NUTS plan at dim {DIM}, K {K}: {nuts_plan}")
+    sweep = plan_sweep(torch, card)
+    record.update(card=card, kind=kind, build_s=build_s, geometry=geometry,
+                  plan_sweep=sweep)
 
-    pot, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=dev)
+    # the flagship's float32 data (bench.py's); phase 17 takes the builder's
+    # default, bfloat16
+    pot, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=dev)
     pot_grad = lambda q_t: pg(q_t, *data)  # noqa: E731
     rng = np.random.default_rng(0)
     # bench.py's init: the zero example position plus 0.1 N(0, 1)
@@ -1429,6 +1782,9 @@ def main():
                                nuts_mean, card)
     standard = standard_nuts_phases(torch, ops, diagnostics, data, q0, record,
                                     nuts_mean, card)
+    bf16_phases(torch, ops, diagnostics, q0, record, nuts_mean, card)
+    extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
+                    nuts_mean, card, EXTRA_SEEDS)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",

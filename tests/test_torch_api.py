@@ -190,3 +190,37 @@ def test_import_loads_no_jax():
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("algorithm", ["nuts", "mala", "ghmc", "chees"])
+def test_fused_routes_take_the_builders_default_bf16_data(algorithm):
+    """The fused routes on the logistic builder's default data (bfloat16
+    X and Xᵀ, as the JAX builder's) run the plain bf16 versions on the CPU:
+    finite draws of the right shape, and another chain path than the same
+    run on float32 data (the rounded target)."""
+    from aehmc_tpu_torch.models import (
+        logistic_regression,
+        logistic_regression_pg_t,
+    )
+
+    runs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        pot, pg, data, _ = logistic_regression_pg_t(
+            4, 32, matmul_dtype=dtype, device="cpu")
+        assert data[0].dtype == dtype and data[1].dtype == dtype
+        gen = torch.Generator().manual_seed(5)
+        q0 = 0.1 * torch.randn(16, 4, generator=gen)
+        kw = dict(data=data, potential_and_grad_t=pg, algorithm=algorithm,
+                  path="fused", initial_step_size=0.1)
+        logprob_fn = None
+        if algorithm == "chees":
+            logprob_fn = logistic_regression(4, 32, device="cpu")[0]
+        else:
+            kw["potential_fn_t"] = pot
+        if algorithm == "nuts":
+            kw["max_num_expansions"] = 4
+        runs.append(aehmc_tpu_torch.sample(gen, logprob_fn, q0, 12, 20, **kw))
+    bf16, f32 = runs
+    assert bf16.positions.shape == (12, 16, 4)
+    assert bool(torch.isfinite(bf16.positions.float()).all())
+    assert not torch.equal(bf16.positions, f32.positions)

@@ -140,6 +140,7 @@ def test_logistic_transition_matches_jax():
     _, pg_j, data_j, _ = jax_pg_builder(dim=dim, num_points=points,
                                         matmul_dtype=jnp.float32)
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                                  matmul_dtype=torch.float32,
                                                   device="cpu")
     rng = np.random.default_rng(5)
     q = (0.5 * rng.normal(size=(chains, dim))).astype(F32)
@@ -228,6 +229,7 @@ def test_kernel_fn_draws_from_the_generator_or_takes_its_key():
 
 def test_cuda_path_takes_the_logistic_potential_only():
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=4, num_points=8,
+                                                  matmul_dtype=torch.float32,
                                                   device="cpu")
     q = torch.zeros(8, 4)
     with pytest.raises(NotImplementedError, match="item 1.4"):

@@ -8,12 +8,12 @@ machine with only PyTorch:
 Decisions (NUTS: doublings, leaves, divergent, turning; GHMC and ChEES:
 accepted, divergent) must be equal; positions agree to 1e-4 (float32
 products summed in another order than the plain version's matmuls).  With
-bfloat16 operands an f32 difference in the last bit can move a bfloat16
-rounding by one step (2^-8 relative) in one operand of the gradient, so the
-standard NUTS kernel's positions agree to 1e-2 there.  The whole-run NUTS
-kernels equal one launch per draw bit for bit, the standard-layout
-transition of q the transposed one of qᵀ, the GHMC segment kernel its
-transitions, and the batched leapfrog kernel its plain version.
+bfloat16 operands (the model builder's default data) an f32 difference in
+the last bit can move a bfloat16 rounding by one step (2^-8 relative) in one
+operand of the gradient, so every kernel's positions agree to 1e-2 there.
+The whole-run NUTS kernels equal one launch per draw bit for bit, the
+standard-layout transition of q the transposed one of qᵀ, the GHMC segment
+kernel its transitions, and the batched leapfrog kernel its plain version.
 
 The logistic functor's gradient at a kernel's own q_out is held against
 float64, within 4× of the plain float32 gradient's error there (the bound
@@ -57,7 +57,8 @@ def cuda_device():
 
 
 def _case(device, dense):
-    _, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=device)
     rng = np.random.default_rng(0)
     q_t = torch.tensor(0.1 * rng.normal(size=(DIM, CHAINS)),
                        dtype=torch.float32, device=device)
@@ -145,6 +146,7 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.gpu
 def test_front_door_on_the_card_runs_both_kernels(cuda_device):
     pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                matmul_dtype=torch.float32,
                                                 device=cuda_device)
     gen = torch.Generator().manual_seed(0)
     q0 = (0.1 * torch.randn(256, 16, generator=gen)).to(cuda_device)
@@ -163,7 +165,8 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
 
 
 def _ghmc_case(device, per_chain):
-    _, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=device)
     rng = np.random.default_rng(1)
 
     def f32(a):
@@ -237,7 +240,8 @@ def test_cuda_leapfrog_kernels_match_plain(cuda_device, chains):
     out = aehmc_tpu_torch.ops.batched_leapfrog(q, p, lam, im, 0.05, 7)
     ref = batched_leapfrog_reference(q, p, lam, im, 0.05, 7)
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-    X, y = logistic_regression_pg_t(DIM, POINTS, device=cuda_device)[2][::2]
+    X, y = logistic_regression_pg_t(DIM, POINTS, matmul_dtype=torch.float32,
+                                    device=cuda_device)[2][::2]
     out = aehmc_tpu_torch.ops.fused_logistic_hmc(q, p, X, y.reshape(-1), im,
                                                  0.05, 5, 2.0)
     ref = fused_logistic_hmc_reference(q, p, X, y.reshape(-1), im, 0.05, 5,
@@ -252,6 +256,7 @@ def test_cuda_leapfrog_kernels_match_plain(cuda_device, chains):
 @pytest.mark.parametrize("algorithm", ["mala", "ghmc"])
 def test_front_door_mala_and_ghmc_on_the_card(cuda_device, algorithm):
     pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                matmul_dtype=torch.float32,
                                                 device=cuda_device)
     gen = torch.Generator().manual_seed(0)
     q0 = (0.1 * torch.randn(256, 16, generator=gen)).to(cuda_device)
@@ -267,7 +272,8 @@ def test_front_door_mala_and_ghmc_on_the_card(cuda_device, algorithm):
 
 def _std_case(device, chains=13):
     """A ragged block of the standard layout: 13 chains, 8 a block."""
-    _, pg, data, _ = logistic_regression_pg_t(DIM, POINTS, device=device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=device)
     rng = np.random.default_rng(4)
 
     def f32(a):
@@ -380,6 +386,7 @@ def test_cuda_standard_kernels_are_the_transposed_ones_and_the_whole_run(
 @pytest.mark.gpu
 def test_front_door_chees_and_standard_driver_on_the_card(cuda_device):
     pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                matmul_dtype=torch.float32,
                                                 device=cuda_device)
     X = data[0]
 
@@ -409,7 +416,8 @@ def test_front_door_chees_and_standard_driver_on_the_card(cuda_device):
 
 
 def _ragged_state(device, dim, points, chains, seed):
-    _, pg, data, _ = logistic_regression_pg_t(dim, points, device=device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        dim, points, matmul_dtype=torch.float32, device=device)
     rng = np.random.default_rng(seed)
     q = torch.tensor(0.3 * rng.normal(size=(chains, dim)), dtype=torch.float32,
                      device=device)
@@ -449,8 +457,9 @@ def test_cuda_ragged_chain_counts_match_plain(cuda_device, chains, dim):
 
 @pytest.mark.gpu
 def test_cuda_nuts_core_at_the_shared_memory_edge(cuda_device):
-    """K 6 at dim 224, the widest the NUTS core takes (211 KB a block)."""
-    dim, k = 224, 6
+    """K 6 at dim 392, the widest the NUTS core takes (an 8-point tile,
+    228 KB a block; the checkpoints are in the global buffer)."""
+    dim, k = 392, 6
     pg, data, q, u, g = _ragged_state(cuda_device, dim, POINTS, 12, 7)
     imm = torch.full((dim,), 0.9, device=cuda_device)
     model = nuts_fused._logistic_model(data[0], data[2].reshape(-1), 1.0,
@@ -502,15 +511,17 @@ def _assert_gradient_near_float64(pg, data, q_t, g_t):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("points", [1000, 37])
-@pytest.mark.parametrize("core,dim", [("nuts", d) for d in (1, 7, 100, 101, 224)]
+@pytest.mark.parametrize("core,dim", [("nuts", d)
+                                      for d in (1, 7, 100, 101, 224, 392)]
                          + [("hmc", d) for d in (1, 7, 100, 101, 700)])
 def test_cuda_functor_gradient_against_float64(cuda_device, core, dim, points):
-    """Kernel 1 (the NUTS core, X through L1, at the shared-memory edge at
-    dim 224) and kernel 5 (the HMC core, X through a shared tile, 16 points
-    at dim 700), at point counts no chunk of X divides."""
+    """Kernel 1 (the NUTS core, 128 to 8 points a tile, at the shared-memory
+    edge at dim 392) and kernel 5 (the HMC core, 16 points at dim 700), at
+    point counts no chunk of X divides."""
     from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
 
-    _, pg, data, _ = logistic_regression_pg_t(dim, points, device=cuda_device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        dim, points, matmul_dtype=torch.float32, device=cuda_device)
     rng = np.random.default_rng(dim + points)
     q_t = torch.tensor(0.3 * rng.normal(size=(dim, 13)), dtype=torch.float32,
                        device=cuda_device)
@@ -536,7 +547,8 @@ def test_cuda_non_finite_rows_of_q_match_plain(cuda_device, dim):
     """Kernel 7 from rows of q holding +inf, −inf and NaN: the clipped
     gradients at the proposals (in the proposed velocities) and the proposed
     positions have the plain version's non-finite pattern."""
-    _, pg, data, _ = logistic_regression_pg_t(dim, 37, device=cuda_device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        dim, 37, matmul_dtype=torch.float32, device=cuda_device)
     rng = np.random.default_rng(11)
     q = torch.tensor(0.3 * rng.normal(size=(13, dim)), dtype=torch.float32,
                      device=cuda_device)
@@ -563,7 +575,8 @@ def test_cuda_non_finite_rows_of_q_match_plain(cuda_device, dim):
 def test_cuda_bf16_operands_match_plain_bf16(cuda_device, dim, points):
     """Kernel 3 with bfloat16 operands held to its plain bf16 version at
     1e-2, at point counts no chunk of X divides."""
-    _, _, data, _ = logistic_regression_pg_t(dim, points, device=cuda_device)
+    _, _, data, _ = logistic_regression_pg_t(
+        dim, points, matmul_dtype=torch.float32, device=cuda_device)
     rng = np.random.default_rng(12)
     q = torch.tensor(0.3 * rng.normal(size=(13, dim)), dtype=torch.float32,
                      device=cuda_device)
@@ -581,3 +594,184 @@ def test_cuda_bf16_operands_match_plain_bf16(cuda_device, dim, points):
     np.testing.assert_array_equal(kern[3][:, 2:6].cpu(), plain[3][:, 2:6].cpu())
     for a, b in zip(kern[:3], plain[:3]):
         np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [1000, 37])
+@pytest.mark.parametrize("max_exp", [1, 14])
+@pytest.mark.parametrize("dim,chains", [(1, 9), (7, 17), (100, 8), (104, 13),
+                                        (240, 9), (392, 17)])
+def test_cuda_nuts_tile_matches_plain(cuda_device, dim, chains, max_exp,
+                                      points):
+    """Kernel 1 through the NUTS core's X tile (128 points at dim 100, 64 at
+    104, 8 at 392, the plan's largest) at K 1 and 14, ragged chain counts
+    and point counts no chunk divides: decisions equal to the plain
+    version's, q within 1e-4, and the gradient at q_out near float64."""
+    from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
+
+    pg, data, q, u, g = _ragged_state(cuda_device, dim, points, chains, dim)
+    q_t, g_t, u_t = q.T.contiguous(), g.T.contiguous(), u.reshape(1, -1)
+    imm = torch.full((dim,), 0.5, device=cuda_device)
+    eps = 0.05 / max(1.0, dim / 100)
+    kern = nuts_transition_cuda(q_t, u_t, g_t, imm, eps, data,
+                                max_exp=max_exp, seed=dim + max_exp)
+    plain = nuts_transition_plain(q_t, u_t, g_t, imm, eps,
+                                  lambda x: pg(x, *data), max_exp=max_exp,
+                                  seed=dim + max_exp)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(kern[3][2:6].cpu(), plain[3][2:6].cpu())
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+    _assert_gradient_near_float64(pg, data, kern[0], kern[2])
+
+
+def _bf16_case(device, dim=DIM, points=POINTS, chains=CHAINS):
+    """The model builder's default (bfloat16) data and a chain state."""
+    _, pg, data, _ = logistic_regression_pg_t(dim, points, device=device)
+    assert data[0].dtype == torch.bfloat16
+    rng = np.random.default_rng(21)
+    q_t = torch.tensor(0.3 * rng.normal(size=(dim, chains)),
+                       dtype=torch.float32, device=device)
+    u, g = pg(q_t, *data)
+    return pg, data, q_t, u, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("points", [POINTS, 37])
+@pytest.mark.parametrize("dim", [DIM, 13, 100])
+def test_cuda_bf16_nuts_kernels_match_plain_bf16(cuda_device, dim, points):
+    """Kernels 1 and 2 on the builder's default bfloat16 data: kernel 1
+    against its plain bf16 version (decisions on >= 99% of chains, q within
+    1e-2 on those), kernel 2 against per-draw launches of kernel 1 bit for
+    bit."""
+    pg, data, q_t, u, g = _bf16_case(cuda_device, dim, points)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    kern = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+        transposed_io=True)(q_t, u, g, None, None, None, None, imm, 0.1,
+                            seed=31)
+    plain = nuts_transition_plain(q_t, u, g, imm, 0.1, lambda x: pg(x, *data),
+                                  max_exp=MAX_EXP, seed=31)
+    torch.cuda.synchronize()
+    same = (kern[3][2:6] == plain[3][2:6]).all(dim=0)
+    assert float(same.float().mean()) >= 0.99
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a[..., same].cpu(), b[..., same].cpu(),
+                                   rtol=1e-2, atol=1e-2)
+    draws = 3
+    pos, stats, qf, uf, gf = _fused_sampling_call_t(
+        None, pg, data, q_t, u, g, imm, 0.1, 9, draws,
+        max_num_expansions=MAX_EXP)
+    transition = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+        transposed_io=True)
+    q, uu, gg = q_t, u, g
+    for t in range(draws):
+        q, uu, gg, st = transition(q, uu, gg, None, None, None, None, imm, 0.1,
+                                   seed=(9 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(q, pos[t])
+    assert torch.equal(q, qf) and torch.equal(uu, uf) and torch.equal(gg, gf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_bf16_ghmc_kernels_match_plain_bf16(cuda_device, philox):
+    """Kernels 5 and 6 on the builder's default bfloat16 data: kernel 5
+    against its plain bf16 version, kernel 6 against per-draw launches of
+    kernel 5 bit for bit."""
+    pg, data, q_t, u, g = _bf16_case(cuda_device)
+    rng = np.random.default_rng(22)
+    p_t = torch.tensor(rng.normal(size=(DIM, CHAINS)), dtype=torch.float32,
+                       device=cuda_device)
+    rand = dict(seed=41) if philox else dict(
+        noise=torch.tensor(rng.normal(size=(DIM, CHAINS)),
+                           dtype=torch.float32, device=cuda_device),
+        u_accept=torch.tensor(rng.uniform(size=(1, CHAINS)),
+                              dtype=torch.float32, device=cuda_device))
+    imm = torch.full((DIM,), 0.9, device=cuda_device)
+    kern = ghmc_transition_cuda(q_t, u, g, p_t, 0.2, 0.5, imm, data, **rand)
+    plain = ghmc_transition_plain(q_t, u, g, p_t, 0.2, 0.5, imm,
+                                  lambda x: pg(x, *data), **rand)
+    torch.cuda.synchronize()
+    moved_k, moved_p = ((o[0] != q_t).any(dim=0) for o in (kern, plain))
+    same = (moved_k == moved_p) & (kern[4][4] == plain[4][4])
+    assert float(same.float().mean()) >= 0.99
+    for a, b in zip(kern[:4], plain[:4]):
+        np.testing.assert_allclose(a[..., same].cpu(), b[..., same].cpu(),
+                                   rtol=1e-2, atol=1e-2)
+    if not philox:
+        return
+    draws = 4
+    pos, stats, *final = ghmc_segment_cuda(q_t, u, g, p_t, 0.2, 0.5, imm, data,
+                                           draws, seed=41)
+    state = (q_t, u, g, p_t)
+    for t in range(draws):
+        *state, st = ghmc_transition_cuda(
+            *state, 0.2, 0.5, imm, data,
+            seed=(41 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(state[0], pos[t])
+    for a, b in zip(final, state):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_bf16_chees_kernel_matches_plain_bf16(cuda_device, dense):
+    """Kernel 7 on the builder's default bfloat16 data against its plain
+    bf16 version, and against kernel 5 at α 0 bit for bit (same Philox
+    streams)."""
+    pg, data, q_t, u, g = _bf16_case(cuda_device)
+    q, gs = q_t.T.contiguous(), g.T.contiguous()
+    if dense:
+        A = np.random.default_rng(23).normal(size=(DIM, DIM))
+        imm = torch.tensor(A @ A.T / DIM + np.eye(DIM), dtype=torch.float32,
+                           device=cuda_device)
+    else:
+        imm = torch.full((DIM,), 0.9, device=cuda_device)
+    steps = torch.full((), 3, dtype=torch.int32, device=cuda_device)
+    kern = chees_fused.chees_transition_cuda(q, u.reshape(-1), gs, imm, 0.2,
+                                             steps, data, seed=51)
+    plain = chees_fused.chees_transition_plain(
+        q, u.reshape(-1), gs, imm, 0.2, 3, lambda x: pg(x, *data), seed=51)
+    torch.cuda.synchronize()
+    moved_k, moved_p = ((o[0] != q).any(dim=1) for o in (kern, plain))
+    same = (moved_k == moved_p) & (kern[3][:, 4] == plain[3][:, 4])
+    assert float(same.float().mean()) >= 0.99
+    for i in (0, 2, 4, 5):
+        np.testing.assert_allclose(kern[i][same].cpu(), plain[i][same].cpu(),
+                                   rtol=1e-2, atol=1e-2)
+    if dense:
+        return
+    k5 = ghmc_transition_cuda(q_t, u, g, torch.zeros_like(g), 0.2, 0.0, imm,
+                              data, num_steps=3, seed=51)
+    assert torch.equal(kern[0], k5[0].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["nuts", "mala", "ghmc", "chees"])
+def test_front_door_fused_routes_run_bf16_data_on_the_card(cuda_device,
+                                                           algorithm):
+    """The fused routes of the front door on the builder's default
+    (bfloat16) data launch their kernels and give finite draws."""
+    pot, pg, data, _ = logistic_regression_pg_t(dim=16, num_points=128,
+                                                device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    q0 = (0.1 * torch.randn(256, 16, generator=gen)).to(cuda_device)
+    kw = dict(data=data, potential_fn_t=pot, potential_and_grad_t=pg,
+              algorithm=algorithm, path="fused")
+    logprob_fn = None
+    if algorithm == "chees":
+        from aehmc_tpu_torch.models import logistic_regression
+
+        logprob_fn, _ = logistic_regression(16, 128, device=cuda_device)
+        kw.pop("potential_fn_t")
+    reset_launch_counts()
+    res = aehmc_tpu_torch.sample(gen, logprob_fn, q0, 40, 30, **kw)
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    expected = {"nuts": {"nuts_transition", "nuts_sampling"},
+                "mala": {"ghmc_transition", "ghmc_segment"},
+                "ghmc": {"ghmc_transition", "ghmc_segment"},
+                "chees": {"chees_transition"}}[algorithm]
+    assert set(launched) == expected
+    assert res.positions.is_cuda
+    assert bool(torch.isfinite(res.positions.float()).all())

@@ -56,6 +56,7 @@ def test_warmup_matches_jax_warmup_fused(dense):
     _, pg_j, data_j, _ = jax_pg_builder(dim=DIM, num_points=POINTS,
                                         matmul_dtype=jnp.float32)
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=DIM, num_points=POINTS,
+                                                  matmul_dtype=torch.float32,
                                                   device="cpu")
     q0 = (0.1 * np.random.default_rng(0).normal(size=(CHAINS, DIM))).astype(F32)
     u0, g0 = pg_t(torch.tensor(q0).T.contiguous(), *data_t)
@@ -136,6 +137,7 @@ def test_mass_sqrt_and_external_momentum_match_jax(dense):
 
 def _small_problem():
     _, pg, data, _ = logistic_regression_pg_t(dim=DIM, num_points=POINTS,
+                                              matmul_dtype=torch.float32,
                                               device="cpu")
     gen = torch.Generator().manual_seed(1)
     return pg, data, 0.1 * torch.randn(CHAINS, DIM, generator=gen)

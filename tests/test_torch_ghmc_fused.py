@@ -53,6 +53,7 @@ def _models():
     _, pg_j, data_j, _ = jax_pg_builder(dim=DIM, num_points=POINTS,
                                         matmul_dtype=jnp.float32)
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=DIM, num_points=POINTS,
+                                                  matmul_dtype=torch.float32,
                                                   device="cpu")
     return pg_j, data_j, pg_t, data_t
 

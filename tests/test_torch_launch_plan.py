@@ -1,8 +1,11 @@
 """The launch plan of the port's CUDA kernels (``ops/launch_plan.py``), on the
 CPU: every shape the earlier kernels took still fits the 227 KB of shared
-memory a block can use, the grid covers ragged chain counts with whole
+memory a block can use, the NUTS core's shared memory no longer grows with
+K (its checkpoints live in a global buffer) and keeps two blocks per SM
+where a tile allows it, the grid covers ragged chain counts with whole
 blocks, a shape that does not fit raises ``ValueError`` before any launch,
-and X reaches the kernels in rows of a 16-byte multiple, zero past dim."""
+and X reaches the kernels in rows of a 16-byte multiple (4 floats or 8
+bfloat16 values), zero past dim."""
 
 import math
 
@@ -30,10 +33,11 @@ def test_every_shape_the_earlier_kernels_took_fits(core, max_exp):
              if _earlier_fits(core, 4 * math.ceil(dim / 4), max_exp)]
     assert taken, "the earlier kernels took some dim"
     for dim in taken:
-        plan = lp.launch_plan(core, dim, max_exp, 10_240)
-        assert plan.smem <= lp.SMEM_LIMIT
-        assert plan.smem == lp.smem_bytes(core, dim, max_exp, plan.points)
-        assert plan.points in lp.POINTS
+        for x_dtype in (torch.float32, torch.bfloat16):
+            plan = lp.launch_plan(core, dim, max_exp, 10_240, x_dtype)
+            assert plan.smem <= lp.SMEM_LIMIT
+            assert plan.smem == lp.smem_bytes(core, dim, plan.points, x_dtype)
+            assert plan.points in lp.POINTS
     if core == "nuts" and max_exp == 6:
         assert max(taken) == 224
 
@@ -62,8 +66,8 @@ def test_the_grid_covers_ragged_chain_counts_with_whole_blocks(chains, blocks):
                                plan.smem)
 
 
-@pytest.mark.parametrize("core,dim,max_exp", [("nuts", 300, 6),
-                                              ("nuts", 160, 14),
+@pytest.mark.parametrize("core,dim,max_exp", [("nuts", 400, 6),
+                                              ("nuts", 400, 14),
                                               ("hmc", 3000, 0),
                                               ("fused_hmc", 8000, 0)])
 def test_a_shape_too_large_raises_naming_the_limit(core, dim, max_exp):
@@ -90,3 +94,97 @@ def test_rows_of_x_are_padded_to_16_bytes_with_zeros(dim):
     assert torch.equal(rows[:, :dim], X)
     assert not bool(rows[:, dim:].any())
     assert (rows is X) == (stride == dim)
+
+
+def _parent_nuts_max_dim(max_exp):
+    """The largest dim the NUTS kernels took before their checkpoints left
+    shared memory: 17 + 2K rows a chain, the scratch, no tile."""
+    return max(dim for dim in range(1, 1500)
+               if 4 * ((17 + 2 * max_exp) * 8 * lp.state_stride(dim)
+                       + lp.SCRATCH_FLOATS) <= lp.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("max_exp", range(1, 15))
+def test_nuts_smem_at_the_flagship_does_not_grow_with_k(max_exp):
+    """17 rows x 8 chains x 100 floats + the functor's scratch + a 128-point
+    float32 tile: 54,400 + 6,192 + 51,200 bytes, two blocks per SM."""
+    plan = lp.launch_plan("nuts", 100, max_exp, 10_240)
+    assert (plan.points, plan.smem) == (128, 111_792)
+    assert 2 * (plan.smem + 1024) <= 233_472
+    assert lp.two_blocks_fit(plan.smem)
+    bf = lp.launch_plan("nuts", 100, max_exp, 10_240, torch.bfloat16)
+    # bfloat16: the tile's rows are 104 values of 2 bytes, plus q's rounded
+    # rows (8 x 100 floats)
+    assert (bf.points, bf.row_stride) == (128, 104)
+    assert bf.smem == 54_400 + 6_192 + 3_200 + 128 * 104 * 2
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_exp", [1, 6, 14])
+def test_nuts_points_are_the_largest_with_two_blocks_per_sm(max_exp, x_dtype):
+    for dim in range(1, 393):
+        if not _fits("nuts", dim, max_exp, x_dtype):
+            # bfloat16's rounded rows of q take a little room from the tile
+            assert x_dtype == torch.bfloat16 and dim > 376
+            continue
+        plan = lp.launch_plan("nuts", dim, max_exp, 64, x_dtype)
+        two = [pts for pts in lp.POINTS
+               if lp.two_blocks_fit(lp.smem_bytes("nuts", dim, pts, x_dtype))]
+        one = [pts for pts in lp.POINTS
+               if lp.smem_bytes("nuts", dim, pts, x_dtype) <= lp.SMEM_LIMIT]
+        assert plan.points == (two or one)[0], dim
+    # dim 100 keeps 128 points and two blocks; just past it the tile halves
+    # to keep two blocks
+    assert lp.launch_plan("nuts", 104, max_exp, 64).points == 64
+    assert lp.two_blocks_fit(lp.launch_plan("nuts", 104, max_exp, 64).smem)
+
+
+@pytest.mark.parametrize("max_exp", [6, 14])
+def test_nuts_takes_every_dim_it_took_before(max_exp):
+    largest = max(dim for dim in range(1, 1500)
+                  if _fits("nuts", dim, max_exp))
+    assert largest >= _parent_nuts_max_dim(max_exp)
+    assert _parent_nuts_max_dim(max_exp) == {6: 240, 14: 156}[max_exp]
+    # the tile is the limit now, at every K: 8 points at dim 392
+    assert largest == 392
+    assert lp.launch_plan("nuts", 392, max_exp, 64).points == 8
+
+
+def _fits(core, dim, max_exp, x_dtype=torch.float32):
+    try:
+        lp.launch_plan(core, dim, max_exp, 64, x_dtype)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("dim,max_exp,chains", [(100, 6, 10_240),
+                                                (100, 14, 10_245),
+                                                (7, 1, 9), (392, 14, 64)])
+def test_the_checkpoint_buffer_holds_2k_rows_a_chain(dim, max_exp, chains):
+    blocks = lp.launch_plan("nuts", dim, max_exp, chains).blocks
+    floats = lp.checkpoint_floats(dim, max_exp, blocks)
+    assert floats == blocks * 2 * max_exp * 8 * lp.state_stride(dim)
+    # a chain's slot row is 16-byte aligned
+    assert lp.state_stride(dim) % 4 == 0
+    if (dim, max_exp, chains) == (100, 6, 10_240):
+        assert floats * 4 == 49_152_000  # 1,280 blocks x 12 rows x 8 x 400 B
+
+
+@pytest.mark.parametrize("dim", [1, 3, 7, 8, 100, 101])
+def test_bf16_rows_of_x_are_padded_to_8_elements_with_zeros(dim):
+    stride = lp.row_stride(dim, torch.bfloat16)
+    assert stride % 8 == 0 and dim <= stride < dim + 8
+    X = torch.tensor(np.random.default_rng(dim).normal(size=(5, dim)),
+                     dtype=torch.float32)
+    rows = lp.data_rows(X, stride, torch.bfloat16)
+    assert rows.dtype == torch.bfloat16 and rows.is_contiguous()
+    assert rows.shape == (5, stride)
+    # rounded once, to nearest even, as X.to(torch.bfloat16)
+    assert torch.equal(rows[:, :dim], X.to(torch.bfloat16))
+    assert not bool(rows[:, dim:].any())
+    # a bfloat16 X passes through unrounded again
+    Xb = X.to(torch.bfloat16)
+    again = lp.data_rows(Xb, stride, torch.bfloat16)
+    assert torch.equal(again[:, :dim], Xb)
+    assert (again is Xb) == (stride == dim)

@@ -28,7 +28,8 @@ def test_logistic_data_bit_identical(dim, points):
 
 def test_pg_t_equals_jax_float32():
     dim, points, chains = 16, 200, 24
-    pot, pg, data, ex = logistic_regression_pg_t(dim, points, device="cpu")
+    pot, pg, data, ex = logistic_regression_pg_t(
+        dim, points, matmul_dtype=torch.float32, device="cpu")
     pot_j, pg_j, data_j, _ = jax_pg_builder(dim, points,
                                             matmul_dtype=jnp.float32)
     q_t = np.random.default_rng(0).normal(size=(dim, chains)).astype(np.float32)
@@ -51,19 +52,84 @@ def test_logprob_equals_jax():
     assert torch.equal(q0, torch.zeros(10))
 
 
-def test_bf16_operands_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="1.4"):
-        logistic_regression_pg_t(8, 64, matmul_dtype=torch.bfloat16,
+def _bf16_f64(a):
+    """float64 copy of ``a`` rounded to bfloat16 (nearest even)."""
+    return torch.tensor(np.asarray(a, np.float32)).to(torch.bfloat16).double()
+
+
+@pytest.mark.parametrize("dim, points", [(100, 1000), (8, 64)])
+def test_default_builder_returns_the_reference_bf16_data(dim, points):
+    """With no matmul_dtype both builders return X and Xᵀ rounded to
+    bfloat16 (nearest even), bit for bit, and y_col float32."""
+    _, _, data, _ = logistic_regression_pg_t(dim, points, device="cpu")
+    _, _, data_j, _ = jax_pg_builder(dim, points)
+    for a, b in zip(data[:2], data_j[:2]):
+        assert a.dtype == torch.bfloat16 and str(b.dtype) == "bfloat16"
+        assert a.is_contiguous()
+        np.testing.assert_array_equal(a.view(torch.int16).numpy(),
+                                      np.asarray(b).view(np.int16))
+    assert data[2].dtype == torch.float32
+    np.testing.assert_array_equal(data[2].numpy(), np.asarray(data_j[2]))
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        logistic_regression_pg_t(dim, points, matmul_dtype=torch.float16,
                                  device="cpu")
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bf16_potential_and_gradient_equal_jax_default(seed):
+    """The port's potential and gradient with the default (bfloat16) data
+    against the JAX builder's defaults, and both against float64 sums of the
+    same rounded operands (q and σ − y rounded once, products exact).
+    Tolerances: float32 sums of 200 terms, relative 2e-5 (potential) and
+    absolute 2e-5 (gradient); σ − y rounds from each side's float32
+    logits, so the gradient against float64 allows one bfloat16 step of a
+    residual (2^-9) times the data's largest |x| per point that moves."""
+    dim, points, chains = 16, 200, 24
+    pot, pg, data, _ = logistic_regression_pg_t(dim, points, device="cpu")
+    pot_j, pg_j, data_j, _ = jax_pg_builder(dim, points)
+    q_t = np.random.default_rng(seed).normal(
+        scale=0.5, size=(dim, chains)).astype(np.float32)
+    u, g = pg(torch.tensor(q_t), *data)
+    uj, gj = pg_j(jnp.asarray(q_t), *data_j)
+    assert u.dtype == torch.float32 and g.dtype == torch.float32
+    np.testing.assert_allclose(u.numpy(), np.asarray(uj), rtol=2e-5)
+    np.testing.assert_allclose(g.numpy(), np.asarray(gj), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(pot(torch.tensor(q_t), *data).numpy(),
+                               np.asarray(pot_j(jnp.asarray(q_t), *data_j)),
+                               rtol=2e-5)
+    # float64 of the rounded operands
+    X64, y64 = _bf16_f64(data_j[0]), torch.tensor(np.asarray(data_j[2]),
+                                                  dtype=torch.float64)
+    q64 = torch.tensor(q_t, dtype=torch.float64)
+    logits = X64 @ _bf16_f64(q_t)
+    sp = torch.clamp(logits, min=0) + torch.log1p(torch.exp(-logits.abs()))
+    u64 = -(y64 * logits - sp).sum(0, keepdim=True) + 0.5 * (q64 * q64).sum(
+        0, keepdim=True)
+    resid = torch.sigmoid(logits) - y64
+    g64 = X64.T @ _bf16_f64(resid.float().numpy()) + q64
+    np.testing.assert_allclose(u.double().numpy(), u64.numpy(), rtol=2e-5)
+    step = 2.0 ** -9 * float(X64.abs().max())
+    np.testing.assert_allclose(g.double().numpy(), g64.numpy(), rtol=0,
+                               atol=2e-5 + 2 * step)
+    # the prior terms read the unrounded q: bf16 data differ from float32
+    # data by the rounding of X, q and σ − y only
+    _, pg32, data32, _ = logistic_regression_pg_t(
+        dim, points, matmul_dtype=torch.float32, device="cpu")
+    u32, _ = pg32(torch.tensor(q_t), *data32)
+    assert 0 < float((u - u32).abs().max()) < 0.05 * float(u32.abs().max())
+
+
 def test_convert_carries_data_state_and_parameters():
-    _, _, data_j, _ = jax_pg_builder(8, 64, matmul_dtype=jnp.float32)
-    X, XT, y = convert.model_data(*[np.asarray(d) for d in data_j],
-                                  device="cpu")
-    _, _, data_t, _ = logistic_regression_pg_t(8, 64, device="cpu")
-    for a, b in zip((X, XT, y), data_t):
-        assert torch.equal(a, b) and a.is_contiguous()
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        _, _, data_j, _ = jax_pg_builder(8, 64, matmul_dtype=jdt)
+        X, XT, y = convert.model_data(*[np.asarray(d) for d in data_j],
+                                      device="cpu")
+        _, _, data_t, _ = logistic_regression_pg_t(8, 64, matmul_dtype=tdt,
+                                                   device="cpu")
+        for a, b in zip((X, XT, y), data_t):
+            assert a.dtype == b.dtype and a.is_contiguous()
+            assert torch.equal(a, b)
     rng = np.random.default_rng(2)
     q, u, g = (rng.normal(size=s).astype(np.float32)
                for s in ((5, 8), (5, 1), (5, 8)))

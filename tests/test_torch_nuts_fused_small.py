@@ -127,6 +127,7 @@ def test_plain_transition_matches_jax_and_oracle_logistic_dense(eps):
     _, pg_j, data_j, _ = jax_pg_builder(dim=dim, num_points=points,
                                         matmul_dtype=jnp.float32)
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                                  matmul_dtype=torch.float32,
                                                   device="cpu")
     u0, g0 = pg_t(torch.tensor(q).T.contiguous(), *data_t)
     args = (q, u0.numpy().reshape(-1, 1), g0.T.numpy(), p, dirs, ub, ul, imm)
@@ -154,6 +155,54 @@ def test_plain_transition_matches_jax_and_oracle_logistic_dense(eps):
             ul[i], max_exp,
         ))
     _assert_oracle(out_t[0], out_t[3], refs)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("eps", [0.15, 0.4])
+def test_plain_bf16_transition_matches_jax_default_builder(eps, dense):
+    """Kernels 1-2's plain version with the builders' default (bfloat16)
+    data against the JAX kernel in interpret mode with its default data, on
+    external streams: identical decisions; q, U, ∇U and the energy within
+    1e-5, as with float32 data (both round the same operands once; only the
+    float32 sums' orders differ)."""
+    dim, points, chains, max_exp = 8, 64, 16, 4
+    rng = np.random.default_rng(7)
+    if dense:
+        A = rng.normal(size=(dim, dim))
+        imm = (A @ A.T / dim + np.eye(dim)).astype(F32)
+    else:
+        imm = rng.uniform(0.5, 1.5, size=dim).astype(F32)
+    q = (0.3 * rng.normal(size=(chains, dim))).astype(F32)
+    p, dirs, ub, ul = _streams(rng, chains, dim, max_exp)
+
+    _, pg_j, data_j, _ = jax_pg_builder(dim=dim, num_points=points)
+    _, pg_t, data_t, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                                  device="cpu")
+    assert data_t[0].dtype == torch.bfloat16
+    assert str(data_j[0].dtype) == "bfloat16"
+    u0, g0 = pg_t(torch.tensor(q).T.contiguous(), *data_t)
+    args = (q, u0.numpy().reshape(-1, 1), g0.T.numpy(), p, dirs, ub, ul, imm)
+
+    port = make_fused_nuts_transition_small(
+        None, data_t, max_num_expansions=max_exp, potential_and_grad_t=pg_t,
+    )
+    out_t = [o.numpy() for o in port(*map(torch.tensor, args),
+                                     torch.tensor(eps, dtype=torch.float32))]
+    jt = jax_transition(
+        lambda q_t, *d: pg_j(q_t, *d)[0], list(data_j),
+        max_num_expansions=max_exp, block_chains=chains, interpret=True,
+        potential_and_grad_t=pg_j,
+    )
+    out_j = [np.asarray(o) for o in jt(*map(jnp.asarray, args),
+                                        jnp.asarray(eps, jnp.float32))]
+    _assert_same(out_t[3], out_j[3],
+                 (out_t[0], out_t[1], out_t[2], out_t[3][:, 0]),
+                 (out_j[0], out_j[1], out_j[2], out_j[3][:, 0]))
+    # the bfloat16 data move the chains off the float32 posterior's path
+    _, pg32, data32, _ = logistic_regression_pg_t(
+        dim=dim, num_points=points, matmul_dtype=torch.float32, device="cpu")
+    u32, _ = pg32(torch.tensor(q).T.contiguous(), *data32)
+    assert not torch.equal(u0, u32)
 
 
 @pytest.mark.parametrize(
@@ -186,6 +235,7 @@ def test_philox_streams_are_per_chain():
 
 def _logistic_case(chains=16, dim=6, points=48, seed=3):
     _, pg, data, _ = logistic_regression_pg_t(dim=dim, num_points=points,
+                                              matmul_dtype=torch.float32,
                                               device="cpu")
     gen = torch.Generator().manual_seed(seed)
     q0 = 0.1 * torch.randn(chains, dim, generator=gen)
