@@ -23,24 +23,6 @@
 using namespace aehmc;
 using namespace aehmc::hmc;
 
-namespace {
-
-template <typename XT>
-cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
-                              int dense, const Rand& R, const Geometry& G,
-                              const float* q, const float* u, const float* g,
-                              float* q_out, float* u_out, float* g_out,
-                              float* stats, float* qp_out, float* vp_out,
-                              cudaStream_t stream) {
-  using PG = LogisticPGT<XT>;
-  auto kernel = dense ? transition_kernel<PG, true, true, true>
-                      : transition_kernel<PG, true, false, true>;
-  return launch(kernel, P, pg.N, G, stream, P, pg, R, q, u, g, nullptr, q_out,
-                u_out, g_out, nullptr, stats, qp_out, vp_out);
-}
-
-}  // namespace
-
 extern "C" {
 
 // Kernel 7: one ChEES transition.  q, g, p, qp_out, vp_out: (C, dim); u, ua,
@@ -48,8 +30,8 @@ extern "C" {
 // products' operands in bfloat16); im: (dim,) or (dim, dim) (dense), ms:
 // (dim, dim) with dense and use_seed; L: a device int32; stats: (C, 8).
 // use_seed selects Philox randomness keyed by seed (p and ua are then
-// unused).  blocks, points, row_stride and smem are the launch
-// plan's (aehmc_tpu_torch/ops/launch_plan.py).
+// unused).  blocks, points, row_stride, smem and chains (8 or 16 a block)
+// are the launch plan's (aehmc_tpu_torch/ops/launch_plan.py).
 int chees_transition_launch(const float* q, const float* u, const float* g,
                             const float* p, const float* ua, int use_seed,
                             unsigned int seed, const void* X, int x_bf16,
@@ -59,11 +41,13 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
                             float* u_out, float* g_out, float* stats,
                             float* qp_out, float* vp_out, int blocks,
                             int points, int row_stride, int smem,
-                            void* stream) {
+                            int chains, void* stream) {
   if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
   Params P;
   P.eps = eps;
   P.alpha = nullptr;
+  P.eps0 = 0.f;
+  P.alpha0 = 0.f;
   P.im = im;
   P.ms = ms;
   P.im_per_chain = 0;
@@ -74,18 +58,27 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
   P.C = C;
   P.ds = (dim + 3) / 4 * 4;
   const Rand R = {p, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem};
+  const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) {
-    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
-                            row_stride, points, 1.0f};
-    return (int)launch_transition(P, pg, dense, R, G, q, u, g, q_out, u_out,
-                                  g_out, stats, qp_out, vp_out, s);
-  }
-  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
-                         points, 1.0f};
-  return (int)launch_transition(P, pg, dense, R, G, q, u, g, q_out, u_out,
-                                g_out, stats, qp_out, vp_out, s);
+  return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
+    using PG = decltype(pg);
+    auto kernel = dense ? transition_kernel<PG, true, true, true>
+                        : transition_kernel<PG, true, false, true>;
+    return launch(kernel, P, N, G, s, P, pg, R, q, u, g, nullptr, q_out,
+                  u_out, g_out, nullptr, stats, qp_out, vp_out);
+  });
+}
+
+// Blocks one SM holds of kernel 7 with a dense (1) or diagonal M⁻¹, X in
+// bfloat16 (x_bf16) or float32, at `chains` (8) a block, with smem bytes
+// of shared memory a block (the occupancy API), or -1 on an error.
+int chees_blocks_per_sm(int dense, int x_bf16, int chains, int smem) {
+  return per_type<true, CB>(x_bf16, chains, -1, [&](auto tag) {
+    using PG = decltype(tag);
+    return dense ? blocks_per_sm(transition_kernel<PG, true, true, true>, smem)
+                 : blocks_per_sm(transition_kernel<PG, true, false, true>,
+                                 smem);
+  });
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-// Pieces shared by the port's CUDA kernels: the block layout (one warp per
-// chain, CB chains per block, two blocks per SM, so that one block's
+// Pieces shared by the port's CUDA kernels: the block layout (8 warps a
+// block, one or two chains a warp, two blocks per SM, so that one block's
 // barriers overlap the other's arithmetic), the launch plan's geometry,
 // Philox4x32-10, the uniform and normal draws built on it, and small numeric
 // helpers.  The plain PyTorch versions of the random streams are in
@@ -11,8 +11,8 @@
 
 namespace aehmc {
 
-constexpr int CB = 8;          // chains per block = warps per block
-constexpr int NT = CB * 32;    // threads per block
+constexpr int NW = 8;          // warps a block
+constexpr int NT = NW * 32;    // threads a block
 constexpr float NEG_INF = -1e30f;
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr uint32_t DRAW_SEED_STRIDE = 104729u;
@@ -82,9 +82,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // The launch plan's geometry, as the launchers receive it from
 // aehmc_tpu_torch/ops/launch_plan.py: blocks, points a chunk of X, X's row
-// stride in floats, and the bytes of dynamic shared memory a block.
+// stride in elements, the bytes of dynamic shared memory a block, and the
+// chains a block (8 or 16; the launcher picks the kernel built for them).
 struct Geometry {
-  int blocks, points, row_stride, smem;
+  int blocks, points, row_stride, smem, chains;
 };
 
 // Launch `kernel` on G.blocks blocks of NT threads.
@@ -93,7 +94,7 @@ cudaError_t launch_blocks(void (*kernel)(KArgs...), const Geometry& G,
                           cudaStream_t stream, Args&&... args) {
   if (G.blocks < 1 || G.points < 8 || G.points > NT / 2 ||
       (G.points & (G.points - 1)) || G.row_stride < 4 || G.row_stride % 4 ||
-      G.smem < 1)
+      G.smem < 1 || (G.chains != 8 && G.chains != 16))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);

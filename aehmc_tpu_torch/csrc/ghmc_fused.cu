@@ -17,8 +17,22 @@
 // ξ ~ N(0, M), L leapfrog steps, Metropolis-Hastings on the energy error
 // with the momentum flipped on rejection (the accepted momentum is stored
 // as it is, a rejection stores −p0).  ε, α and the diagonal M⁻¹ are per
-// chain.  The segment kernel equals one launch of the transition kernel
-// per draw bit for bit.
+// chain; ε and α given as host scalars are launch arguments, so a launch
+// fills no row on the card.  The segment kernel equals one launch of the
+// transition kernel per draw bit for bit.
+//
+// Layout and what bounds them (hmc_core.cuh): 8 chains a block, one warp
+// each (16, two a warp, lost at 10,240 chains: the grid's last round of
+// blocks runs 42% full), two blocks per SM; X's first chunk is requested at
+// block entry and each gradient's next one as soon as the tile is read; the
+// block moves its (dim, C) state in and out together, a warp taking 4 rows
+// × 8 chains.  Kernel 5 (one gradient a launch) is bound by its gradient,
+// 2·N·dim float32 multiply-adds per chain on the CUDA cores fed from shared
+// memory, and by its fixed work per block (state in and out, the momentum
+// draw, the accept test); kernel 6 by its gradients.  The chains a block
+// are the launch plan's, a function of dim and X's type alone
+// (aehmc_tpu_torch/ops/launch_plan.py), so a chain's bits do not depend on
+// the chain count.
 
 #include "hmc_core.cuh"
 
@@ -27,11 +41,14 @@ using namespace aehmc::hmc;
 
 namespace {
 
-Params make_params(const float* eps, const float* alpha, const float* im,
-                   int im_per_chain, float thr, int dim, int C, int L) {
+Params make_params(const float* eps, const float* alpha, float eps0,
+                   float alpha0, const float* im, int im_per_chain, float thr,
+                   int dim, int C, int L) {
   Params P;
   P.eps = eps;
   P.alpha = alpha;
+  P.eps0 = eps0;
+  P.alpha0 = alpha0;
   P.im = im;
   P.ms = nullptr;
   P.im_per_chain = im_per_chain;
@@ -44,95 +61,81 @@ Params make_params(const float* eps, const float* alpha, const float* im,
   return P;
 }
 
-template <typename XT>
-cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
-                              const Rand& R, const Geometry& G,
-                              const float* q, const float* u, const float* g,
-                              const float* p, float* q_out, float* u_out,
-                              float* g_out, float* p_out, float* stats,
-                              cudaStream_t stream) {
-  return launch(transition_kernel<LogisticPGT<XT>, false, false, false>, P,
-                pg.N, G, stream, P, pg, R, q, u, g, p, q_out, u_out, g_out,
-                p_out, stats, nullptr, nullptr);
-}
-
-template <typename XT>
-cudaError_t launch_segment(const Params& P, const LogisticPGT<XT>& pg,
-                           const Rand& R, int num_draws, const Geometry& G,
-                           const float* q, const float* u, const float* g,
-                           const float* p, float* pos, float* stats,
-                           float* q_out, float* u_out, float* g_out,
-                           float* p_out, cudaStream_t stream) {
-  return launch(segment_kernel<LogisticPGT<XT>, false, false>, P, pg.N, G,
-                stream, P, pg, R, num_draws, q, u, g, p, pos, stats, q_out,
-                u_out, g_out, p_out);
-}
-
 }  // namespace
 
 extern "C" {
 
-// Kernel 5: one transition.  q, g, p, noise: (dim, C); u, eps, alpha, ua:
-// (C,); X: (N, row_stride) float32, or bfloat16 (x_bf16: the data
+// Kernel 5: one transition.  q, g, p, noise: (dim, C); u, ua: (C,); eps,
+// alpha: (C,), or null for eps0, alpha0 (a host scalar, filled on the card
+// by no launch); X: (N, row_stride) float32, or bfloat16 (x_bf16: the data
 // products' operands in bfloat16); im: (dim,) or (dim, C) (im_per_chain);
 // stats: (8, C).  use_seed selects Philox randomness keyed by seed (noise
-// and ua are then unused).  blocks, points, row_stride and smem are the
-// launch plan's (aehmc_tpu_torch/ops/launch_plan.py).
+// and ua are then unused).  blocks, points, row_stride, smem and chains (8
+// or 16 a block) are the launch plan's
+// (aehmc_tpu_torch/ops/launch_plan.py).
 int ghmc_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* noise,
                            const float* ua, int use_seed, unsigned int seed,
                            const void* X, int x_bf16, const float* y,
-                           const float* eps, const float* alpha,
-                           const float* im, int im_per_chain, float thr,
-                           int dim, int N, int C, int L, float* q_out,
+                           const float* eps, const float* alpha, float eps0,
+                           float alpha0, const float* im, int im_per_chain,
+                           float thr, int dim, int N, int C, int L,
+                           float* q_out,
                            float* u_out, float* g_out, float* p_out,
                            float* stats, int blocks, int points,
-                           int row_stride, int smem, void* stream) {
-  const Params P =
-      make_params(eps, alpha, im, im_per_chain, thr, dim, C, L);
+                           int row_stride, int smem, int chains,
+                           void* stream) {
+  const Params P = make_params(eps, alpha, eps0, alpha0, im, im_per_chain,
+                               thr, dim, C, L);
   const Rand R = {noise, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem};
+  const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (x_bf16) {
-    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
-                            row_stride, points, 1.0f};
-    return (int)launch_transition(P, pg, R, G, q, u, g, p, q_out, u_out,
-                                  g_out, p_out, stats, s);
-  }
-  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
-                         points, 1.0f};
-  return (int)launch_transition(P, pg, R, G, q, u, g, p, q_out, u_out, g_out,
-                                p_out, stats, s);
+  return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
+    return launch(transition_kernel<decltype(pg), false, false, false>, P, N,
+                  G, s, P, pg, R, q, u, g, p, q_out, u_out, g_out, p_out,
+                  stats, nullptr, nullptr);
+  });
 }
 
 // Kernel 6: num_draws transitions.  noise: (draws, dim, C), ua: (draws, C),
-// or the Philox key seed + t*DRAW_SEED_STRIDE for draw t (use_seed).  X as
-// kernel 5's; pos: (draws, C, dim) or null; stats: (draws, 8, C).
+// or the Philox key seed + t*DRAW_SEED_STRIDE for draw t (use_seed).  X and
+// the plan as kernel 5's; pos: (draws, C, dim) or null; stats:
+// (draws, 8, C).
 int ghmc_segment_launch(const float* q, const float* u, const float* g,
                         const float* p, const float* noise, const float* ua,
                         int use_seed, unsigned int seed, int num_draws,
                         const void* X, int x_bf16, const float* y,
-                        const float* eps, const float* alpha, const float* im,
-                        int im_per_chain, float thr, int dim, int N, int C,
+                        const float* eps, const float* alpha, float eps0,
+                        float alpha0, const float* im, int im_per_chain,
+                        float thr, int dim, int N, int C,
                         int L, float* pos, float* stats, float* q_out,
                         float* u_out, float* g_out, float* p_out, int blocks,
-                        int points, int row_stride, int smem, void* stream) {
-  const Params P =
-      make_params(eps, alpha, im, im_per_chain, thr, dim, C, L);
+                        int points, int row_stride, int smem, int chains,
+                        void* stream) {
+  const Params P = make_params(eps, alpha, eps0, alpha0, im, im_per_chain,
+                               thr, dim, C, L);
   const Rand R = {noise, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem};
+  const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
-  if (x_bf16) {
-    const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
-                            row_stride, points, 1.0f};
-    return (int)launch_segment(P, pg, R, num_draws, G, q, u, g, p, pos, stats,
-                               q_out, u_out, g_out, p_out, s);
-  }
-  const LogisticPG pg = {static_cast<const float*>(X), y, N, row_stride,
-                         points, 1.0f};
-  return (int)launch_segment(P, pg, R, num_draws, G, q, u, g, p, pos, stats,
-                             q_out, u_out, g_out, p_out, s);
+  return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
+    return launch(segment_kernel<decltype(pg), false, false>, P, N, G, s, P,
+                  pg, R, num_draws, q, u, g, p, pos, stats, q_out, u_out,
+                  g_out, p_out);
+  });
+}
+
+// Blocks one SM holds of kernel 5 (segment 0) or kernel 6 (segment 1) with
+// X in bfloat16 (x_bf16) or float32 at `chains` (8) a block, with smem
+// bytes of shared memory a block (the occupancy API), or -1 on an error.
+int ghmc_blocks_per_sm(int segment, int x_bf16, int chains, int smem) {
+  return per_type<true, CB>(x_bf16, chains, -1, [&](auto tag) {
+    using PG = decltype(tag);
+    return segment
+               ? blocks_per_sm(segment_kernel<PG, false, false>, smem)
+               : blocks_per_sm(transition_kernel<PG, false, false, false>,
+                               smem);
+  });
 }
 
 }  // extern "C"

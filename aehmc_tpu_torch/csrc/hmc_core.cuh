@@ -17,26 +17,39 @@
 //     criterion's cross-chain gradient reads them.
 //
 // What bounds it on the card: the L gradients, each 2·N·dim float32
-// multiply-adds per chain (the momentum draw, the trajectory updates and the
-// accept test are a few passes over dim floats), at the rate the functor's
-// register tiles are fed from shared memory (logistic_pg.cuh).
+// multiply-adds per chain, at the rate the functor's register tiles are fed
+// from shared memory (logistic_pg.cuh), and around them, in a launch of one
+// gradient (kernel 5), the block's fixed work: its state in and out, the
+// momentum draw, the accept test.
 //
-// Design.  One warp per chain, CB = 8 chains per block, the potential
-// computed by the whole block for its 8 chains at once.  Every chain of a
-// call takes the same L, so no warp idles.  L is a host int (GHMC) or read
-// from a device int32 (ChEES, whose driver computes clip(ceil(jitter·h/ε),
-// 1, max) on the card, so nothing synchronises the stream).  A block keeps
-// q, ∇U, p, the trajectory's q, p, ∇U, a scratch row and the diagonal M⁻¹
-// of its chains in shared memory, 8 rows of dim floats per chain, then the
+// Design.  One warp per chain, CB = 8 chains per block (16 chains a block,
+// two a warp, was measured slower at 10,240 chains: the grid's last round of
+// blocks runs 42% full; PERF.md §6), the potential computed by the whole
+// block for its 8 chains at once.  Every chain of a call takes the same L,
+// so no warp idles.  L is a host int (GHMC) or read from a device int32
+// (ChEES, whose driver computes clip(ceil(jitter·h/ε), 1, max) on the card,
+// so nothing synchronises the stream).  ε and α are per chain, or host
+// scalars passed with the launch (no fill on the card).  A block keeps q,
+// ∇U, p, the trajectory's q, p, ∇U, a scratch row and the diagonal M⁻¹ of
+// its chains in shared memory, 8 rows of dim floats per chain, then the
 // functor's scratch and its tile of X (81 KB at dim 100 with a 128-point
 // tile): two blocks per SM, built for 128 registers a thread, which hold
-// the functor's register tiles.  The segment kernel keeps that state across
-// its draws and writes each draw's positions (a chain's row contiguous, so
-// the warp's store is coalesced) and stats.  The kinetic energy is a warp sum in a
-// fixed order and products use explicit fmaf or none (-fmad=false), so a
-// segment equals one transition launch per draw bit for bit, and the ChEES
-// kernel equals the GHMC one at α 0.  A rejected proposal may hold inf
-// positions: the state is kept by a true select.
+// the functor's register tiles.  The block moves its state in and out
+// together, consecutive threads on consecutive addresses in either layout
+// (in the (dim, C) layout a warp takes 4 rows × the block's 8 chains), not
+// a warp a chain: in the (dim, C) layout that read 32 rows apart at each
+// load, and kernel 5 waited on it (PERF.md §6).  The tile of X is never
+// idle while a request can be made: a kernel requests X's first chunk at
+// block entry, before it loads its state and draws its momentum, and each
+// gradient but a launch's last requests the next one's first chunk as soon
+// as its own tile is read, so it arrives during the leapfrog update.  The
+// segment kernel keeps the state across its draws and writes each draw's
+// positions (a chain's row contiguous, so the warp's store is coalesced)
+// and stats.  The kinetic energy is a warp sum in a fixed order and
+// products use explicit fmaf or none (-fmad=false), so a segment equals one
+// transition launch per draw bit for bit, and the ChEES kernel equals the
+// GHMC one at α 0.  A rejected proposal may hold inf positions: the state
+// is kept by a true select.
 //
 // Randomness is external (ξ and the MH uniform as tensors) or Philox keyed
 // by the call's (or draw's) seed on the global chain index: the MOMENTUM
@@ -52,8 +65,9 @@ namespace aehmc {
 namespace hmc {
 
 struct Params {
-  const float* eps;    // (C,)
-  const float* alpha;  // (C,), or null for α 0
+  const float* eps;    // (C,), or null for eps0
+  const float* alpha;  // (C,), or null for alpha0
+  float eps0, alpha0;  // ε and α of every chain when their rows are null
   const float* im;     // M⁻¹: (dim,), per chain (im_per_chain) or dense
   const float* ms;     // L⁻ᵀ (dim, dim): dense metric under Philox
   int im_per_chain;
@@ -83,6 +97,7 @@ struct Smem {
   PGScratch pgs;  // the functor's scratch and X tile
 };
 
+constexpr int CB = NW;  // chains a block: one warp each
 constexpr int NUM_ROWS = 8;  // row arrays of Smem
 constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 
@@ -93,7 +108,7 @@ __device__ inline Smem carve(float* base, int ds, int qb) {
   const size_t V = (size_t)CB * ds;
   zero_smem(base, NUM_ROWS * V);
   Smem s;
-  s.pgs.carve(base + NUM_ROWS * V, qb);
+  s.pgs.carve<CB>(base + NUM_ROWS * V, qb);
   __syncthreads();
   s.q = base;
   s.g = s.q + V;
@@ -152,11 +167,13 @@ struct Stats {
 
 // One transition of the block's chains.  On entry q, g, p hold each warp's
 // chain state and u its potential; on exit they hold the new state (p
-// flipped on rejection), and tq, tp the trajectory's endpoint.
+// flipped on rejection), and tq, tp the trajectory's endpoint.  `more`: the
+// block takes another gradient after this transition's last (the functor
+// then requests X's first chunk for it early).
 template <class PG, bool STD, bool DENSE>
 __device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
-                            const Rand& R, int L, int chain, bool valid,
-                            float& u) {
+                            const Rand& R, int L, bool more, int chain,
+                            bool valid, float& u) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int dim = P.dim, ds = P.ds;
   float* const q = S.q + w * ds;
@@ -167,8 +184,8 @@ __device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
   float* const tg = S.tg + w * ds;
   float* const tmp = S.tmp + w * ds;
   const float* const im = S.im + w * ds;
-  const float eps = valid ? P.eps[chain] : 0.f;
-  const float alpha = valid && P.alpha ? P.alpha[chain] : 0.f;
+  const float eps = !valid ? 0.f : P.eps ? P.eps[chain] : P.eps0;
+  const float alpha = !valid ? 0.f : P.alpha ? P.alpha[chain] : P.alpha0;
   const float h = 0.5f * eps;
   float e0 = 0.f, un = u;
 
@@ -209,7 +226,7 @@ __device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
       }
     }
     __syncthreads();
-    pg_fn(S.pgs, dim, ds, S.tq, S.tg);
+    pg_fn(S.pgs, dim, ds, S.tq, S.tg, more || s + 1 < L);
     if (valid) {
       un = S.pgs.nu[w];
       un = un != un ? -NEG_INF : clip(un);
@@ -250,36 +267,67 @@ __device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
   return st;
 }
 
-// warp w's chain state into shared memory; the momentum is 0 without p
-template <bool STD, bool DENSE>
-__device__ void load_chain(const Params& P, const Smem& S, const float* q,
-                           const float* g, const float* p, int w, int lane,
-                           int chain, bool valid) {
-  const size_t row = (size_t)w * P.ds;
-  for (int d = lane; d < P.dim; d += 32) {
-    const size_t at = gat<STD>(d, chain, P.dim, P.C);
-    S.q[row + d] = valid ? q[at] : 0.f;
-    S.g[row + d] = valid ? g[at] : 0.f;
-    S.p[row + d] = valid && p ? p[at] : 0.f;
-    if constexpr (!DENSE)
-      S.im[row + d] = !valid             ? 1.f
-                      : P.im_per_chain ? P.im[at]
-                                       : P.im[d];
+// Element e of the block's CB rows of n values in either global layout:
+// its chain c (of the block), its value i, and its offset in the global
+// array of rows of n values.  Consecutive e take consecutive addresses:
+// a chain's row in (C, n) (the block's rows are contiguous there), or in
+// (n, C) one value of the block's chains.
+template <bool STD>
+__device__ __forceinline__ void block_elem(int e, int n, int C, int& c,
+                                           int& i, size_t& at) {
+  if constexpr (STD) {
+    c = e / n;
+    i = e - c * n;
+  } else {
+    i = e / CB;
+    c = e - i * CB;
   }
+  at = gat<STD>(i, (int)blockIdx.x * CB + c, n, C);
 }
 
-template <bool STD>
-__device__ void store_chain(const Params& P, const Smem& S, float* q_out,
-                            float* u_out, float* g_out, float* p_out, int w,
-                            int lane, int chain, float u) {
-  const size_t row = (size_t)w * P.ds;
-  for (int d = lane; d < P.dim; d += 32) {
-    const size_t at = gat<STD>(d, chain, P.dim, P.C);
-    q_out[at] = S.q[row + d];
-    g_out[at] = S.g[row + d];
-    if (p_out) p_out[at] = S.p[row + d];
+// The block's chain state into shared memory (the momentum 0 without p);
+// returns warp w's chain's potential.  A __syncthreads must follow.
+template <bool STD, bool DENSE>
+__device__ float load_state(const Params& P, const Smem& S, const float* q,
+                            const float* u, const float* g, const float* p) {
+  const int n = P.dim;
+  for (int e = threadIdx.x; e < CB * n; e += NT) {
+    int c, d;
+    size_t at;
+    block_elem<STD>(e, n, P.C, c, d, at);
+    const bool valid = (int)blockIdx.x * CB + c < P.C;
+    const size_t row = (size_t)c * P.ds + d;
+    S.q[row] = valid ? q[at] : 0.f;
+    S.g[row] = valid ? g[at] : 0.f;
+    S.p[row] = valid && p ? p[at] : 0.f;
+    if constexpr (!DENSE)
+      S.im[row] = !valid             ? 1.f
+                  : P.im_per_chain ? P.im[at]
+                                   : P.im[d];
   }
-  if (lane == 0) u_out[chain] = u;
+  const int chain = (int)(blockIdx.x * CB + threadIdx.x / 32);
+  return chain < P.C ? u[chain] : 0.f;
+}
+
+// The block's chain state out of shared memory (p_out may be null); warp
+// w's lane 0 writes its chain's potential u.
+template <bool STD>
+__device__ void store_state(const Params& P, const Smem& S, float* q_out,
+                            float* u_out, float* g_out, float* p_out,
+                            float u) {
+  const int n = P.dim;
+  for (int e = threadIdx.x; e < CB * n; e += NT) {
+    int c, d;
+    size_t at;
+    block_elem<STD>(e, n, P.C, c, d, at);
+    if ((int)blockIdx.x * CB + c >= P.C) continue;
+    const size_t row = (size_t)c * P.ds + d;
+    q_out[at] = S.q[row];
+    g_out[at] = S.g[row];
+    if (p_out) p_out[at] = S.p[row];
+  }
+  const int chain = (int)(blockIdx.x * CB + threadIdx.x / 32);
+  if (threadIdx.x % 32 == 0 && chain < P.C) u_out[chain] = u;
 }
 
 // stats [energy, accept_prob, 0, L, div, 0, 0, 0]: rows of (8, C), or the
@@ -305,26 +353,30 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   extern __shared__ float4 smem_raw[];
   const Smem S =
       carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
+  pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
   const int L = P.Ld ? *P.Ld : P.L;
-  load_chain<STD, DENSE>(P, S, q, g, p, w, lane, chain, valid);
-  __syncwarp();
-  float uc = valid ? u[chain] : 0.f;
+  float uc = load_state<STD, DENSE>(P, S, q, u, g, p);
+  __syncthreads();
   const Stats st =
-      transition<PG, STD, DENSE>(P, pg_fn, S, R, L, chain, valid, uc);
-  if (!valid) return;
-  store_chain<STD>(P, S, q_out, u_out, g_out, p_out, w, lane, chain, uc);
-  store_stats<STD>(stats, P.C, L, chain, lane, st);
-  if constexpr (PROPOSAL) {
-    const float* const tq = S.tq + w * P.ds;
-    float* const tmp = S.tmp + w * P.ds;
-    apply_im<DENSE>(P, S.im + w * P.ds, S.tp + w * P.ds, tmp, lane);
-    for (int d = lane; d < P.dim; d += 32) {
-      const size_t at = gat<STD>(d, chain, P.dim, P.C);
-      qp_out[at] = tq[d];
-      vp_out[at] = tmp[d];
+      transition<PG, STD, DENSE>(P, pg_fn, S, R, L, false, chain, valid, uc);
+  if (threadIdx.x == 0) S.pgs.drain();  // L < 1 leaves the first chunk
+  if (valid) store_stats<STD>(stats, P.C, L, chain, lane, st);
+  store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
+  if constexpr (PROPOSAL) {  // M⁻¹ p_L of the warp's chain into tmp
+    if (valid)
+      apply_im<DENSE>(P, S.im + w * P.ds, S.tp + w * P.ds, S.tmp + w * P.ds,
+                      lane);
+    __syncthreads();
+    for (int e = threadIdx.x; e < CB * P.dim; e += NT) {
+      int c, d;
+      size_t at;
+      block_elem<STD>(e, P.dim, P.C, c, d, at);
+      if ((int)blockIdx.x * CB + c >= P.C) continue;
+      qp_out[at] = S.tq[(size_t)c * P.ds + d];
+      vp_out[at] = S.tmp[(size_t)c * P.ds + d];
     }
   }
 }
@@ -342,13 +394,13 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   extern __shared__ float4 smem_raw[];
   const Smem S =
       carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
+  pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
   const int L = P.Ld ? *P.Ld : P.L;
-  load_chain<STD, DENSE>(P, S, q, g, p, w, lane, chain, valid);
-  __syncwarp();
-  float uc = valid ? u[chain] : 0.f;
+  float uc = load_state<STD, DENSE>(P, S, q, u, g, p);
+  __syncthreads();
   const uint32_t seed0 = R.seed;
   Rand Rt = R;
   for (int t = 0; t < num_draws; ++t) {
@@ -358,8 +410,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       Rt.noise = R.noise + (size_t)t * P.dim * P.C;
       Rt.ua = R.ua + (size_t)t * P.C;
     }
-    const Stats st =
-        transition<PG, STD, DENSE>(P, pg_fn, S, Rt, L, chain, valid, uc);
+    const Stats st = transition<PG, STD, DENSE>(
+        P, pg_fn, S, Rt, L, t + 1 < num_draws, chain, valid, uc);
     if (valid) {
       if (pos) {
         float* row = pos + ((size_t)t * P.C + chain) * P.dim;
@@ -368,8 +420,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       store_stats<STD>(stats + (size_t)t * 8 * P.C, P.C, L, chain, lane, st);
     }
   }
-  if (valid)
-    store_chain<STD>(P, S, q_out, u_out, g_out, p_out, w, lane, chain, uc);
+  if (threadIdx.x == 0) S.pgs.drain();
+  store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
 }
 
 // Checks a launch's sizes and launches `kernel` on the plan's blocks.
@@ -377,7 +429,7 @@ template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
                    const Geometry& G, cudaStream_t stream, Args&&... args) {
   if (P.dim < 1 || N < 1 || P.C < 1 || (!P.Ld && P.L < 1) ||
-      (size_t)G.blocks * CB < (size_t)P.C)
+      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C)
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }

@@ -56,6 +56,8 @@
 namespace aehmc {
 namespace nuts {
 
+constexpr int CB = NW;  // chains a block: one warp each
+
 struct Params {
   const float* im;  // inverse mass: (dim,) or (dim, dim)
   const float* ms;  // mass sqrt L^{-T} (dim, dim), dense metric only
@@ -124,7 +126,7 @@ __device__ inline Smem carve(float* base, int ds, int qb, float* ck, int K) {
   s.tmp = take(V);
   s.ck_p = ck + (size_t)blockIdx.x * 2 * K * V;
   s.ck_s = s.ck_p + K * V;
-  s.pgs.carve(p, qb);
+  s.pgs.carve<CB>(p, qb);
   __syncthreads();
   return s;
 }
@@ -553,7 +555,7 @@ cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
                    const float* ck, const Geometry& G, cudaStream_t stream,
                    Args&&... args) {
   if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14 || !ck ||
-      (size_t)G.blocks * CB < (size_t)P.C)
+      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C)
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }

@@ -61,8 +61,8 @@ extern "C" {
 // products' operands in bfloat16, X stored rounded); im: (dim,); stats:
 // (C, 8); ck: the checkpoint buffer, blocks × 2K × 8 × ds floats (ds = dim
 // rounded up to 4).  use_seed selects Philox randomness keyed by seed (p,
-// dirs, ub and ul are then unused).  blocks, points, row_stride and smem
-// are the launch plan's.
+// dirs, ub and ul are then unused).  blocks, points, row_stride, smem
+// and chains (8) are the launch plan's.
 int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                const float* p, const float* dirs,
                                const float* ub, const float* ul, int use_seed,
@@ -72,10 +72,11 @@ int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                int dim, int N, int C, int K, float* q_out,
                                float* u_out, float* g_out, float* stats,
                                float* ck, int blocks, int points,
-                               int row_stride, int smem, void* stream) {
+                               int row_stride, int smem, int chains,
+                           void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem};
+  const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
     const LogisticPGB pg = {static_cast<const __nv_bfloat16*>(X), y, N,
@@ -99,9 +100,10 @@ int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
                              int dim, int N, int C, int K, float* pos,
                              float* stats, float* q_out, float* u_out,
                              float* g_out, float* ck, int blocks, int points,
-                             int row_stride, int smem, void* stream) {
+                             int row_stride, int smem, int chains,
+                           void* stream) {
   const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
-  const Geometry G = {blocks, points, row_stride, smem};
+  const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   if (bf16) {

@@ -35,9 +35,9 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# the launch plan (blocks, points a chunk, X's row stride, shared memory),
-# then the stream
-_GEOMETRY = [_I] * 4 + [_P]
+# the launch plan (blocks, points a chunk, X's row stride, shared memory,
+# chains a block), then the stream
+_GEOMETRY = [_I] * 5 + [_P]
 # source -> {C function: argtypes}
 SIGNATURES = {
     "nuts_fused_small.cu": {
@@ -57,16 +57,19 @@ SIGNATURES = {
     "chees_fused.cu": {
         "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P, _I] + [_P] * 4
         + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
+        "chees_blocks_per_sm": [_I] * 4,
     },
     "ghmc_fused.cu": {
-        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 4
-        + [_I, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
-        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 4
-        + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
+        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 3
+        + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 3
+        + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
+        "ghmc_blocks_per_sm": [_I] * 4,
     },
     "fused_hmc.cu": {
         "fused_hmc_launch": [_P] * 5 + [_F, _I, _F, _I, _I, _I] + [_P] * 2
         + _GEOMETRY,
+        "fused_hmc_blocks_per_sm": [_I] * 2,
     },
     "leapfrog.cu": {
         "batched_leapfrog_launch": [_P] * 4 + [_F, _I, _I, _I] + [_P] * 3,

@@ -284,11 +284,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _row_or_scalar(x, num_chains, device):
+    """A per-chain parameter for the kernels: ``(None, value)`` for a host
+    scalar, which the kernel takes as a launch argument (no fill on the
+    card), else ``((C,) row, 0.0)``."""
+    on_device = isinstance(x, torch.Tensor) and x.device == device
+    if not on_device and torch.as_tensor(x).numel() == 1:
+        return None, float(x)
+    return _row(x, num_chains, device).reshape(num_chains).contiguous(), 0.0
+
+
 def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
     """Validate and normalise the operands shared by both kernels, and plan
     the launch (X's dtype, float32 or bfloat16, picks the functor's
-    operands); returns ``(operands, im_per_chain, plan, (dim, points,
-    chains))``."""
+    operands); returns ``(operands, (eps0, alpha0), im_per_chain, plan,
+    (dim, points, chains))``: ``operands["eps"]`` and ``["alpha"]`` are
+    None for host scalars, whose values are ``eps0`` and ``alpha0``."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     dim, num_chains = q_t.shape
@@ -297,13 +308,11 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
     device = q_t.device
     im = _im_t(inverse_mass, dim, num_chains, device)
     per_chain = im.shape[1] > 1
+    eps, eps0 = _row_or_scalar(step_size, num_chains, device)
+    alpha, alpha0 = _row_or_scalar(alpha, num_chains, device)
     ops = dict(
         q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t,
-        y=y.reshape(num_points),
-        eps=_row(step_size, num_chains, device).reshape(num_chains)
-        .contiguous(),
-        alpha=_row(alpha, num_chains, device).reshape(num_chains)
-        .contiguous(),
+        y=y.reshape(num_points), eps=eps, alpha=alpha,
         im=im.contiguous() if per_chain else im.reshape(dim).contiguous(),
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
@@ -311,11 +320,12 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
                   alpha=(num_chains,),
                   im=(dim, num_chains) if per_chain else (dim,))
     for name, t in ops.items():
-        require_f32_cuda(name, t, shapes[name], device)
+        if t is not None:
+            require_f32_cuda(name, t, shapes[name], device)
     require_x_cuda(X, num_points, dim, device)
     plan = launch_plan("hmc", dim, 0, num_chains, X.dtype)
     ops["X"] = data_rows(X, plan.row_stride, X.dtype)
-    return ops, per_chain, plan, (dim, num_points, num_chains)
+    return ops, (eps0, alpha0), per_chain, plan, (dim, num_points, num_chains)
 
 
 def _external(noise, u_accept, shape, seed, device):
@@ -338,9 +348,9 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
     ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, per_chain, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
-    )
+    ops, scalars, per_chain, plan, (dim, num_points, num_chains) = (
+        _cuda_operands(
+            q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data))
     device = q_t.device
     noise_p, ua_p = _external(noise, u_accept, (dim, num_chains), seed, device)
     q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
@@ -353,7 +363,7 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
         0 if seed is None else int(seed) & MASK32,
         _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
         _ptr(ops["y"]), _ptr(ops["eps"]),
-        _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
+        _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(p_out),
         _ptr(stats), *plan.args(),
@@ -374,9 +384,9 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
     transposed contract; stats are ``(draws, 8, C)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, per_chain, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data
-    )
+    ops, scalars, per_chain, plan, (dim, num_points, num_chains) = (
+        _cuda_operands(
+            q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data))
     device = q_t.device
     noise_p, ua_p = _external(noise, u_accept, (num_draws, dim, num_chains),
                               seed, device)
@@ -393,7 +403,7 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
         0 if seed is None else int(seed) & MASK32, int(num_draws),
         _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
         _ptr(ops["y"]), _ptr(ops["eps"]),
-        _ptr(ops["alpha"]), _ptr(ops["im"]), int(per_chain),
+        _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]), int(per_chain),
         float(divergence_threshold), dim, num_points, num_chains,
         int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
         _ptr(g_out), _ptr(p_out), *plan.args(),

@@ -1,22 +1,38 @@
 """The launch plan of the CUDA kernels on the logistic functor, the single
 source of their geometry.
 
-A block holds 8 chains, one warp each.  Its shared memory holds the core's
-rows of ``dim`` floats per chain (padded to a multiple of 4), then the
-functor's scratch (the tile of residuals σ(X q) − y, the potentials and an
-mbarrier), with bfloat16 operands the rows of q rounded once per gradient,
-and a tile of ``points`` rows of X that one thread bulk-copies per chunk
-(``csrc/logistic_pg.cuh``).  The NUTS core keeps its 2K U-turn checkpoint
-rows per chain in a global buffer of :func:`checkpoint_floats` floats, so
-its shared memory does not grow with K.  X is read in rows of
+A block is 8 warps and holds ``chains`` chains: 8 (one a warp) or 16 (two
+a warp).  Its shared memory holds the core's rows of ``dim`` floats per
+chain (padded to a multiple of 4; kernel 8 also one row of M⁻¹ for the
+block), then the functor's scratch (the tiles of residuals σ(X q) − y, one
+per 8 chains, the potentials, an mbarrier and its counts), with bfloat16
+operands the rows of q rounded once per gradient, and a tile of ``points``
+rows of X that one thread bulk-copies per chunk, requested as soon as the
+tile is free (``csrc/logistic_pg.cuh``).  The NUTS core keeps its 2K U-turn
+checkpoint rows per chain in a global buffer of :func:`checkpoint_floats`
+floats, so its shared memory does not grow with K.  X is read in rows of
 ``row_stride`` elements, 16 bytes' worth (4 floats or 8 bfloat16 values),
 zero past ``dim``.
 
-:func:`launch_plan` picks the largest tile with which two blocks fit on one
-SM (NUTS; the HMC cores take the largest that fits a block), or, where none
-does, the largest that fits one block, and raises ``ValueError`` before any
-launch for a shape that does not fit; the wrappers pass its numbers to the C
-launchers.
+The chains a block (:func:`chains_per_block`) depend on the core, dim and
+X's type only, never on the chain count, so a chain's bits do not depend on
+how many chains run.  The fused leapfrog kernel ("fused_hmc", kernel 8)
+takes 16 wherever two blocks of 16 fit on an SM with a 128-point tile (to
+float32 dim 144; 83,232 B a block at dim 100): each tile of X, barrier and
+σ pass then serves 16 chains.  The HMC core ("hmc", kernels 5-7) and NUTS
+take 8: 16 chains in the HMC core were measured slower at 10,240 chains
+(640 blocks leave the grid's last round of 264 blocks 42% full), and NUTS's
+17 rows a chain leave no room for 16.  What bounds the kernels then is the
+functor's products on the CUDA cores and the shared-memory loads that feed
+them (PERF.md §6).
+
+:func:`launch_plan` picks the chains a block, then the largest tile with
+which two blocks fit on one SM (NUTS; the other cores take the largest that
+fits a block), or, where none does, the largest that fits one block, and
+raises ``ValueError`` before any launch for a shape that does not fit.  The
+grid is ``ceil(C / chains)`` blocks, the last one masking the chains past
+the end; the wrappers pass the plan's numbers to the C launchers, which
+launch the kernel built for those chains or fail.
 """
 
 import math
@@ -27,22 +43,25 @@ import torch
 SMEM_LIMIT = 232_448  # bytes of shared memory a block can use (H100)
 SM_SMEM = 233_472     # bytes of shared memory an SM has (H100)
 BLOCK_RESERVE = 1_024  # bytes the runtime reserves per resident block
-CHAINS_PER_BLOCK = 8
+NUTS_CHAINS = 8        # chains a NUTS block
 POINTS = (128, 64, 32, 16, 8)  # points a chunk, the largest that fits first
-SCRATCH_FLOATS = 128 * 12 + 8 + 4  # csrc/logistic_pg.cuh:SCRATCH_FLOATS
-MAX_EXP = 14                       # the NUTS core's checkpoint slots
-# core -> (rows of dim floats per chain besides the functor's, whether the
-# plan prefers two blocks per SM to a larger tile)
-CORES = {"nuts": (17, True), "hmc": (8, False), "fused_hmc": (3, False)}
+MAX_EXP = 14                   # the NUTS core's checkpoint slots
+# core -> (rows of dim floats per chain besides the functor's, rows for the
+# whole block, whether the plan prefers two blocks per SM to a larger tile,
+# whether the core takes 16 chains a block)
+CORES = {"nuts": (17, 0, True, False), "hmc": (8, 0, False, False),
+         "fused_hmc": (3, 1, False, True)}
 # X's element type -> bytes
 X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
-def core_rows(core: str) -> int:
-    """Rows of ``dim`` floats per chain that ``core`` keeps in shared
-    memory: NUTS 17 (edges, proposals, momentum sums and scratch), the HMC
-    core 8, the fused leapfrog kernel 3."""
-    return CORES[core][0]
+def scratch_floats(chains: int) -> int:
+    """Floats of the functor's scratch at ``chains`` a block
+    (csrc/logistic_pg.cuh:scratch_floats): the residual tile, 128 rows of 12
+    floats per 8 chains (the second 16 floats past the first's end), then
+    the potentials, the mbarrier and its two counts."""
+    rt = 128 * 12 if chains == 8 else (128 * 12 + 16) + 128 * 12
+    return rt + chains + 4
 
 
 def state_stride(dim: int) -> int:
@@ -58,15 +77,16 @@ def row_stride(dim: int, x_dtype=torch.float32) -> int:
     return per16 * math.ceil(dim / per16)
 
 
-def smem_bytes(core: str, dim: int, points: int,
-               x_dtype=torch.float32) -> int:
-    """Bytes of dynamic shared memory a block of ``core`` takes with a tile
-    of ``points`` rows of X in ``x_dtype``."""
+def smem_bytes(core: str, dim: int, points: int, x_dtype=torch.float32,
+               chains: int = 8) -> int:
+    """Bytes of dynamic shared memory a block of ``core`` with ``chains``
+    chains takes with a tile of ``points`` rows of X in ``x_dtype``."""
     ds = state_stride(dim)
-    rows = core_rows(core) * CHAINS_PER_BLOCK * ds
-    qb = CHAINS_PER_BLOCK * ds if x_dtype == torch.bfloat16 else 0
+    per_chain, per_block = CORES[core][:2]
+    rows = (per_chain * chains + per_block) * ds
+    qb = chains * ds if x_dtype == torch.bfloat16 else 0
     tile = points * row_stride(dim, x_dtype) * X_BYTES[x_dtype]
-    return 4 * (rows + SCRATCH_FLOATS + qb) + tile
+    return 4 * (rows + scratch_floats(chains) + qb) + tile
 
 
 def two_blocks_fit(smem: int) -> bool:
@@ -74,21 +94,33 @@ def two_blocks_fit(smem: int) -> bool:
     return 2 * (smem + BLOCK_RESERVE) <= SM_SMEM
 
 
+def chains_per_block(core: str, dim: int, x_dtype=torch.float32) -> int:
+    """The chains a block of ``core`` holds at ``dim`` with X in
+    ``x_dtype``: 16 for a core built for them (the fused leapfrog kernel)
+    where two 16-chain blocks fit on an SM with a 128-point tile, else 8."""
+    if CORES[core][3] and two_blocks_fit(
+            smem_bytes(core, dim, POINTS[0], x_dtype, 16)):
+        return 16
+    return 8
+
+
 def checkpoint_floats(dim: int, max_exp: int, blocks: int) -> int:
     """Floats of the NUTS checkpoint buffer: (blocks, 2, K, 8, ds)."""
-    return blocks * 2 * max_exp * CHAINS_PER_BLOCK * state_stride(dim)
+    return blocks * 2 * max_exp * NUTS_CHAINS * state_stride(dim)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    blocks: int      # of 8 chains; the last one masks chains past the end
+    blocks: int      # ceil(C / chains); the last one masks chains past the end
     points: int      # points a chunk of X (the tile's rows)
     row_stride: int  # elements a row of X as the kernel reads it
     smem: int        # bytes of dynamic shared memory a block
+    chains: int      # chains a block: 8 or 16
 
     def args(self):
         """The ints every launcher takes before its stream."""
-        return (self.blocks, self.points, self.row_stride, self.smem)
+        return (self.blocks, self.points, self.row_stride, self.smem,
+                self.chains)
 
 
 def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
@@ -107,18 +139,19 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
     if core == "nuts" and not 1 <= max_exp <= MAX_EXP:
         raise ValueError(f"max_num_expansions {max_exp} is outside "
                          f"[1, {MAX_EXP}]")
-    sizes = [(points, smem_bytes(core, dim, points, x_dtype))
+    chains = chains_per_block(core, dim, x_dtype)
+    sizes = [(points, smem_bytes(core, dim, points, x_dtype, chains))
              for points in POINTS]
     fits = [(p, s) for p, s in sizes if s <= SMEM_LIMIT]
     if not fits:
         raise ValueError(
             f"{core} at dim {dim} needs {sizes[-1][1]} bytes of shared "
             f"memory a block; the limit is {SMEM_LIMIT}")
-    if CORES[core][1]:
+    if CORES[core][2]:
         fits = [f for f in fits if two_blocks_fit(f[1])] or fits
     points, smem = fits[0]
-    return LaunchPlan(math.ceil(num_chains / CHAINS_PER_BLOCK), points,
-                      row_stride(dim, x_dtype), smem)
+    return LaunchPlan(math.ceil(num_chains / chains), points,
+                      row_stride(dim, x_dtype), smem, chains)
 
 
 def data_rows(X, stride: int, x_dtype=torch.float32):

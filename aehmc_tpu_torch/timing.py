@@ -12,12 +12,17 @@ run each of fused NUTS, MALA and ChEES and of the standard-layout driver
 package it times that tree, so one call can time two trees in turns
 (parent, change, change, parent).
 
-``--outputs PATH`` also writes the outputs of kernels 1-4 at fixed seeds
-and inputs, float32 and with bfloat16 operands, to an ``.npz`` (a kernel a
-tree cannot run with bfloat16 data is left out), so two trees' outputs can
-be compared bit for bit: ``--compare A.npz B.npz`` prints, as one JSON
-line, which arrays of the two files are equal bit for bit and which one
-file lacks (no card needed).
+Kernel 5 is also timed at its launch alone (``5 ghmc_transition (launch
+only)``: the operands, the rows of ε and α and the plan prepared once, the
+C launcher called directly), so the difference from the wrapper's reading
+is the wrapper's own device work.
+
+``--outputs PATH`` also writes the outputs of kernels 1-8 at fixed seeds
+and inputs, float32 and with bfloat16 operands (kernels 1-7), to an
+``.npz`` (a kernel a tree cannot run with bfloat16 data is left out), so
+two trees' outputs can be compared bit for bit: ``--compare A.npz B.npz``
+prints, as one JSON line, which arrays of the two files are equal bit for
+bit and which one file lacks (no card needed).
 """
 
 import argparse
@@ -71,6 +76,36 @@ def sm_clock_mhz():
         return None
 
 
+def ghmc_launch_only(gf, state, im, data):
+    """Kernel 5's launch alone at α 0 under Philox: the operands, the rows of
+    ε and α and the plan prepared once, then a call of the C launcher per
+    launch (trees whose launcher also takes ε and α as scalars get the
+    rows all the same)."""
+    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+
+    q_t, u0, g0, p0 = state
+    got = gf._cuda_operands(q_t, u0, g0, p0, EPS, 0.0, im, data)
+    ops, per_chain, plan, (dim, num_points, num_chains) = (got[0], *got[-3:])
+    scalars = (0.0, 0.0) if len(got) == 5 else ()
+    dev = q_t.device
+    rows = [torch.full((num_chains,), v, dtype=torch.float32, device=dev)
+            for v in (EPS, 0.0)]
+    q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
+    u_out = torch.empty((1, num_chains), dtype=torch.float32, device=dev)
+    stats = torch.empty((8, num_chains), dtype=torch.float32, device=dev)
+    lib = load_kernels("ghmc_fused.cu")
+    ptr = {k: v.data_ptr() for k, v in ops.items() if v is not None}
+    args = (ptr["q"], ptr["u"], ptr["g"], ptr["p"], None, None, 1, 7,
+            ptr["X"], int(ops["X"].dtype == torch.bfloat16), ptr["y"],
+            rows[0].data_ptr(), rows[1].data_ptr(), *scalars, ptr["im"],
+            int(per_chain), 1000.0, dim, num_points, num_chains, 1,
+            q_out.data_ptr(), u_out.data_ptr(), g_out.data_ptr(),
+            p_out.data_ptr(), stats.data_ptr(), *plan.args(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(lib, lib.ghmc_transition_launch(*args), "ghmc_transition")
+    return lambda: lib.ghmc_transition_launch(*args)
+
+
 def compare_outputs(path_a, path_b):
     """{"equal": [...], "differ": [...], "only_in_one": [...]} over the
     arrays of two ``--outputs`` files, compared bit for bit."""
@@ -87,7 +122,7 @@ def compare_outputs(path_a, path_b):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--outputs", help="write kernels 1-4's outputs at "
+    parser.add_argument("--outputs", help="write kernels 1-8's outputs at "
                         "fixed seeds to this .npz")
     parser.add_argument("--compare", nargs=2, metavar="NPZ",
                         help="compare two --outputs files bit for bit")
@@ -167,6 +202,8 @@ def main(argv=None):
         "4 nuts_sampling_std (20 draws, f32)": (lambda: k4(f32m), 3),
         "5 ghmc_transition": (lambda: gf.ghmc_transition_cuda(
             q_t, u0, g0, p0, EPS, 0.0, im, data, seed=7), 40),
+        "5 ghmc_transition (launch only)": (
+            ghmc_launch_only(gf, (q_t, u0, g0, p0), im, data), 40),
         "6 ghmc_segment (32 draws)": (lambda: gf.ghmc_segment_cuda(
             q_t, u0, g0, p0, EPS, 0.0, im, data, 32, seed=7), 5),
         "7 chees_transition (L 10)": (lambda: cf.chees_transition_cuda(
@@ -192,12 +229,28 @@ def main(argv=None):
         ms[name] = cuda_ms(fn, reps)
         sm_mhz[name] = sm_clock_mhz()
 
+    def k5(d):
+        return gf.ghmc_transition_cuda(q_t, u0, g0, p0, EPS, 0.0, im, d,
+                                       seed=7)
+
+    def k6(d):  # the final state and stats (the positions are 131 MB)
+        return gf.ghmc_segment_cuda(q_t, u0, g0, p0, EPS, 0.9, im, d, 32,
+                                    seed=7, collect_positions=False)
+
+    def k7(d):
+        return cf.chees_transition_cuda(*cstate, im, EPS, steps, d, seed=7)
+
     if args.outputs:
         outs = {"k1_f32": k1(data), "k2_f32": k2(data),
                 "k3_f32": k3(f32m), "k3_bf16": k3(b16m),
-                "k4_f32": k4(f32m), "k4_bf16": k4(b16m)}
+                "k4_f32": k4(f32m), "k4_bf16": k4(b16m),
+                "k5_f32": k5(data), "k6_f32": k6(data), "k7_f32": k7(data),
+                "k8_f32": fh.fused_logistic_hmc_cuda(q0, lf_p, X, y, im,
+                                                     0.05, STEPS)}
         if data16 is not None:
-            outs.update(k1_bf16=k1(data16), k2_bf16=k2(data16))
+            outs.update(k1_bf16=k1(data16), k2_bf16=k2(data16),
+                        k5_bf16=k5(data16), k6_bf16=k6(data16),
+                        k7_bf16=k7(data16))
         arrays = {f"{name}_{i}": t.cpu().numpy()
                   for name, out in outs.items()
                   for i, t in enumerate(out) if t is not None}

@@ -29,13 +29,15 @@ logistic regression.  Then it drives the port's front door
   those data (150 + 200, phase 5's limits, means within 0.02 posterior sd
   of phase 5's) and short MALA, GHMC and ChEES front doors on them.
 
-Phase 1 prints each kernel's launch geometry (points a chunk of X, shared
-memory a block, from ``ops/launch_plan.py``), ptxas's registers and
-spills, and for the NUTS kernels the blocks an SM holds (the occupancy
-API, float32 and bfloat16 X); phases 2 and 8 hold kernels 1 and 5's
-gradients at their own q_out against float64, within 4x of the plain
-float32 gradient's error; phases 13 and 15 also run kernels 7 and 3 on
-ragged chain counts against their plain versions, and phases 2 and 15
+Phase 1 prints each kernel's launch geometry (chains a block, points a
+chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
+registers and spills, and for kernels 1-8 the blocks an SM holds (the
+occupancy API, float32 and bfloat16 X; kernel 8 float32), failing below
+two for any of them (kernel 8 at its 16 chains a block); phases 2 and 8 hold
+kernels 1 and 5's gradients at their own q_out against float64, within 4x
+of the plain float32 gradient's error; phases 8, 10, 13 and 15 also run
+kernels 5, 8, 7 and 3 on ragged chain counts against their plain versions,
+and phases 2 and 15
 print the lockstep ratio of the NUTS tree sizes (what a block of more
 chains would idle).
 
@@ -72,7 +74,7 @@ CHEES_EPS0 = 0.05             # phase 14: initial step size of the search
 CHEES_ACCEPT = (0.55, 0.80)   # phase 14: ChEES targets 0.651
 MAX_L = 1024                  # ChEES trip-count cap
 K7_SHARE = 0.999              # phase 13: kernel 7 vs kernel 5 at alpha 0
-RAGGED = (10_248, 10_245, 9)  # phases 13, 15: chain counts off the block
+RAGGED = (10_248, 10_245, 9)  # phases 8, 10, 13, 15: counts off the block
 LOCKSTEP_GROUPS = (8, 16, 32, 64)
 # phase 15: with bfloat16 operands an f32 difference in the last bit can
 # move a bfloat16 rounding of one gradient operand by one step (2^-8
@@ -238,6 +240,14 @@ NUTS_OCCUPANCY = {
     "nuts_transition_std": ("nuts_fused.cu", "nuts_std_blocks_per_sm", 0),
     "nuts_sampling_std": ("nuts_fused.cu", "nuts_std_blocks_per_sm", 1),
 }
+# HMC kernel -> (source, its occupancy function, its first argument, X
+# types it takes): blocks per SM at the plan's chains a block
+HMC_OCCUPANCY = {
+    "ghmc_transition": ("ghmc_fused.cu", "ghmc_blocks_per_sm", 0, 2),
+    "ghmc_segment": ("ghmc_fused.cu", "ghmc_blocks_per_sm", 1, 2),
+    "chees_transition": ("chees_fused.cu", "chees_blocks_per_sm", 0, 2),
+    "fused_logistic_hmc": ("fused_hmc.cu", "fused_hmc_blocks_per_sm", None, 1),
+}
 # kernel -> its core in the launch plan
 CORES = {"nuts_transition": "nuts", "nuts_sampling": "nuts",
          "nuts_transition_std": "nuts", "nuts_sampling_std": "nuts",
@@ -269,10 +279,17 @@ def ptxas_report(log):
 
 
 def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+    """One entry of the ``kernels`` line; ``chains_per_block`` is the launch
+    plan's at the flagship's shape (null for kernel 9, which is elementwise
+    over chains × dim)."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+
+    chains = (launch_plan(CORES[name], DIM, K, CHAINS).chains
+              if name in CORES else None)
     return dict(name=name, route="cuda", source=f"aehmc_tpu_torch/csrc/{source}",
                 replaces=replaces, launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                library_ms=None)
+                library_ms=None, chains_per_block=chains)
 
 
 def ghmc_compare(torch, q_in, kernel_out, plain_out, what, atol=Q_ATOL):
@@ -378,9 +395,18 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
             shares.append(ghmc_compare(
                 torch, q_t, (kern[0][None], kern[4][None]),
                 (plain[0][None], plain[4][None]), what))
+    gerr5 = grad_errors(torch, pg, data, kern[0], kern[2], "kernel 5")
+    for n_r in RAGGED:  # chain counts that leave the last block part-filled
+        idx = torch.arange(n_r, device=dev) % CHAINS
+        st_r = tuple(x[:, idx].contiguous() for x in state)
+        k_r = gf.ghmc_transition_cuda(*st_r, EPS, 0.0, im, data, seed=808)
+        p_r = gf.ghmc_transition_plain(*st_r, EPS, 0.0, im, pot_grad, seed=808)
+        torch.cuda.synchronize()
+        shares.append(ghmc_compare(
+            torch, st_r[0], (k_r[0][None], k_r[4][None]),
+            (p_r[0][None], p_r[4][None]), f"kernel 5, {n_r} chains"))
     share5 = min(sh for sh, _, _ in shares)
     err5 = max(e for _, e, _ in shares)
-    gerr5 = grad_errors(torch, pg, data, kern[0], kern[2], "kernel 5")
 
     def k5():  # the main path's case: MALA (alpha 0) under Philox
         return gf.ghmc_transition_cuda(*state, EPS, 0.0, im, data, seed=7)
@@ -394,7 +420,8 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                    nbytes(*state, im, *data, *out5)
                    + 2 * CHAINS * 4)  # eps and alpha rows
     log(f"phase 8: ghmc_transition vs plain at {CHAINS}x{DIM}, eps {EPS}, "
-        f"alpha 0 and {GHMC_ALPHA}, external and Philox randomness: "
+        f"alpha 0 and {GHMC_ALPHA}, external and Philox randomness, and at "
+        f"{RAGGED} chains (alpha 0, Philox): "
         f"decisions equal on >= {share5:.4%} of chains "
         f"({sum(d for _, _, d in shares)} chain-cases differ), max |q| err "
         f"{err5:.3g}; gradient at q_out against float64: kernel "
@@ -469,6 +496,16 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
     err8 = max(float((a - b).abs().max()) for a, b in zip(k8, r8))
     check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(k8, r8)),
           f"kernel 8 vs plain: max |err| {err8:.3g}")
+    for n_r in RAGGED:  # chain counts that leave the last block part-filled
+        idx = torch.arange(n_r, device=dev) % CHAINS
+        args_r = (q0[idx].contiguous(), lf_p[idx].contiguous(), *hmc_args[2:])
+        k_r = ops.fused_logistic_hmc(*args_r)
+        r_r = fused_logistic_hmc_reference(*args_r)
+        e_r = max(float((a - b).abs().max()) for a, b in zip(k_r, r_r))
+        check(all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                  for a, b in zip(k_r, r_r)),
+              f"kernel 8 vs plain at {n_r} chains: max |err| {e_r:.3g}")
+        err8 = max(err8, e_r)
     check(torch.equal(k9[0], r9[0]) and torch.equal(k9[1], r9[1]),
           "kernel 9 differs from its plain version")
     ms8 = cuda_ms(torch, lambda: ops.fused_logistic_hmc(*hmc_args), 10)
@@ -479,8 +516,9 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                    nbytes(q0, lf_p, X, y, im, *k8))
     bound9 = bound(9 * CHAINS * DIM * LEAPFROG_STEPS,
                    nbytes(q0, lf_p, lam, im_lf, *k9), PEAK_F32)
-    log(f"phase 10: fused_logistic_hmc vs plain at {CHAINS}x{DIM}, L "
-        f"{LEAPFROG_STEPS}: max |err| {err8:.3g}; kernel {ms8:.3f} ms, plain "
+    log(f"phase 10: fused_logistic_hmc vs plain at {CHAINS}x{DIM} and at "
+        f"{RAGGED} chains, L {LEAPFROG_STEPS}: max |err| {err8:.3g}; kernel "
+        f"{ms8:.3f} ms, plain "
         f"{plain_ms8:.3f} ms, bound {bound8[0]:.3f} ms ({bound8[1]}); "
         f"batched_leapfrog == plain bit for bit; kernel {ms9 * 1e3:.1f} us, "
         f"plain {plain_ms9 * 1e3:.1f} us, bound {bound9[0] * 1e3:.1f} us "
@@ -1503,9 +1541,9 @@ def main():
                 else None)
         regs, spill = ptxas.get(name, (None, None))
         geometry[name] = dict(
-            points=plan and plan.points, smem_bytes=plan and plan.smem,
-            blocks=plan and plan.blocks, registers=regs, spill_bytes=spill)
-        occ = ""
+            chains=plan and plan.chains, points=plan and plan.points,
+            smem_bytes=plan and plan.smem, blocks=plan and plan.blocks,
+            registers=regs, spill_bytes=spill)
         if name in NUTS_OCCUPANCY:  # blocks per SM, float32 and bf16 X
             source, fn, sampling = NUTS_OCCUPANCY[name]
             lib = _build.load_kernels(source)
@@ -1513,23 +1551,45 @@ def main():
             for x_dtype in (torch.float32, torch.bfloat16):
                 xp = launch_plan("nuts", DIM, K, CHAINS, x_dtype)
                 per_sm[str(x_dtype).split(".")[1]] = dict(
-                    points=xp.points, smem_bytes=xp.smem,
+                    chains=xp.chains, points=xp.points, smem_bytes=xp.smem,
                     blocks_per_sm=getattr(lib, fn)(
                         sampling, int(x_dtype == torch.bfloat16), xp.smem))
             geometry[name]["per_sm"] = per_sm
-            occ = "; blocks per SM " + ", ".join(
-                f"{k} X ({v['points']} points, {v['smem_bytes']} B) "
-                f"{v['blocks_per_sm']}" for k, v in per_sm.items())
             check(all(v["blocks_per_sm"] >= 2 for v in per_sm.values()),
                   f"{name}: fewer than two blocks per SM {per_sm}")
-        log(f"  {name}: " + (f"{plan.blocks} blocks of 8 chains, X in chunks "
-                             f"of {plan.points} points, {plan.smem} B of "
-                             f"shared memory a block; " if plan else "")
+        if name in HMC_OCCUPANCY:  # at the plan's chains a block
+            source, fn, first, n_types = HMC_OCCUPANCY[name]
+            lib = _build.load_kernels(source)
+            per_sm = {}
+            for x_dtype in (torch.float32, torch.bfloat16)[:n_types]:
+                xp = launch_plan(CORES[name], DIM, K, CHAINS, x_dtype)
+                args = (xp.chains, xp.smem) if first is None else (
+                    first, int(x_dtype == torch.bfloat16), xp.chains, xp.smem)
+                per_sm[str(x_dtype).split(".")[1]] = dict(
+                    chains=xp.chains, points=xp.points, smem_bytes=xp.smem,
+                    blocks_per_sm=getattr(lib, fn)(*args))
+            geometry[name]["per_sm"] = per_sm
+            check(all(v["blocks_per_sm"] >= 2 for v in per_sm.values()),
+                  f"{name}: fewer than two blocks per SM {per_sm}")
+        occ = ""
+        if "per_sm" in geometry[name]:
+            occ = "; blocks per SM " + ", ".join(
+                f"{k} X ({v['chains']} chains, {v['points']} points, "
+                f"{v['smem_bytes']} B) {v['blocks_per_sm']}"
+                for k, v in geometry[name]["per_sm"].items())
+        log(f"  {name}: " + (f"{plan.blocks} blocks of {plan.chains} chains, "
+                             f"X in chunks of {plan.points} points, "
+                             f"{plan.smem} B of shared memory a block; "
+                             if plan else "")
             + f"ptxas {regs} registers, {spill} B spill stores (the most "
             f"over its instantiations)" + occ)
     nuts_plan = launch_plan("nuts", DIM, K, CHAINS)
     check((nuts_plan.points, nuts_plan.smem) == (128, 111_792),
           f"NUTS plan at dim {DIM}, K {K}: {nuts_plan}")
+    hmc_plans = [launch_plan(core, DIM, 0, CHAINS)
+                 for core in ("hmc", "fused_hmc")]
+    check([(p.chains, p.points) for p in hmc_plans] == [(8, 128), (16, 128)],
+          f"HMC plans at dim {DIM}: {hmc_plans}")
     sweep = plan_sweep(torch, card)
     record.update(card=card, kind=kind, build_s=build_s, geometry=geometry,
                   plan_sweep=sweep)

@@ -40,9 +40,11 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
     ghmc_transition_cuda,
     ghmc_transition_plain,
 )
-from aehmc_tpu_torch.ops import chees_fused, nuts_fused
+from aehmc_tpu_torch.ops import chees_fused, fused_hmc, ghmc_fused, nuts_fused
+from aehmc_tpu_torch.ops._build import load_kernels
 from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
 from aehmc_tpu_torch.ops.fused_hmc import fused_logistic_hmc_reference
+from aehmc_tpu_torch.ops.launch_plan import launch_plan
 from aehmc_tpu_torch.ops.leapfrog import batched_leapfrog_reference
 from aehmc_tpu_torch.ops.philox import MASK32
 
@@ -775,3 +777,181 @@ def test_front_door_fused_routes_run_bf16_data_on_the_card(cuda_device,
     assert set(launched) == expected
     assert res.positions.is_cuda
     assert bool(torch.isfinite(res.positions.float()).all())
+
+
+# ---- kernels 5-7 (8 chains a block, X requested at block entry and across
+# gradients, the state moved in and out by the whole block) and kernel 8 (16
+# chains a block up to dim 144)
+
+def _hmc_case(device, dim, chains, x_dtype=torch.float32, points=1000,
+                seed=31):
+    """A (chains, dim) state on the logistic posterior with X in
+    ``x_dtype``, its transposed copies, and a momentum."""
+    _, pg, data, _ = logistic_regression_pg_t(dim, points,
+                                              matmul_dtype=x_dtype,
+                                              device=device)
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    q = f32(0.1 * rng.normal(size=(chains, dim)))
+    q_t = q.T.contiguous()
+    u_t, g_t = pg(q_t, *data)
+    p_t = f32(rng.normal(size=(dim, chains)))
+    return pg, data, q, q_t, u_t, g_t, p_t
+
+
+def _decisions_and_q(moved_k, moved_p, div_k, div_p, qk, qp, atol):
+    """Decisions (moved, divergent) equal on >= 99% of chains (all of them
+    below 100 chains), q within ``atol`` on those; ``qk``, ``qp`` are
+    (dim, C)."""
+    same = (moved_k == moved_p) & (div_k == div_p)
+    assert float(same.float().mean()) >= 0.99
+    if same.numel() < 100:
+        assert bool(same.all())
+    assert float((qk - qp).abs()[:, same].max()) <= atol
+
+
+def _check_hmc_kernels(device, dim, chains, x_dtype):
+    """Kernels 5 (α 0.5, Philox), 6 (3 draws), 7 (L 3) and 8 (L 4, float32
+    X) against their plain versions at ``chains`` chains."""
+    assert launch_plan("hmc", dim, 0, chains, x_dtype).chains == 8
+    assert launch_plan("fused_hmc", dim, 0, chains).chains == (
+        16 if dim <= 144 else 8)
+    atol = 1e-2 if x_dtype == torch.bfloat16 else 1e-3
+    pg, data, q, q_t, u_t, g_t, p_t = _hmc_case(device, dim, chains,
+                                                  x_dtype)
+    pot_grad = lambda x: pg(x, *data)  # noqa: E731
+    imm = torch.full((dim,), 0.8, device=device)
+    state = (q_t, u_t, g_t, p_t)
+    kern = ghmc_transition_cuda(*state, 0.1, 0.5, imm, data, seed=51)
+    plain = ghmc_transition_plain(*state, 0.1, 0.5, imm, pot_grad, seed=51)
+    torch.cuda.synchronize()
+    _decisions_and_q((kern[0] != q_t).any(0), (plain[0] != q_t).any(0),
+                     kern[4][4], plain[4][4], kern[0], plain[0], atol)
+    pos, stats, *_ = ghmc_segment_cuda(*state, 0.1, 0.5, imm, data, 3,
+                                       seed=52)
+    pos_p, stats_p, *_ = ghmc_fused.ghmc_segment_plain(
+        *state, 0.1, 0.5, imm, pot_grad, 3, seed=52)
+    torch.cuda.synchronize()
+    prev_k, prev_p = q_t, q_t
+    for t in range(3):
+        _decisions_and_q((pos[t] != prev_k).any(0), (pos_p[t] != prev_p).any(0),
+                         stats[t][4], stats_p[t][4], pos[t], pos_p[t], atol)
+        prev_k, prev_p = pos[t], pos_p[t]
+    steps = torch.full((), 3, dtype=torch.int32, device=device)
+    u, g = u_t.reshape(-1), g_t.T.contiguous()
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, 0.1, steps, data,
+                                             seed=53)
+    plain = chees_fused.chees_transition_plain(q, u, g, imm, 0.1, 3, pot_grad,
+                                               seed=53)
+    torch.cuda.synchronize()
+    _decisions_and_q((kern[0] != q).any(1), (plain[0] != q).any(1),
+                     kern[3][:, 4], plain[3][:, 4], kern[0].T, plain[0].T,
+                     atol)
+    X, y = data[0], data[2].reshape(-1)
+    p = p_t.T.contiguous()
+    out = fused_hmc.fused_logistic_hmc_cuda(q, p, X, y, imm, 0.05, 4)
+    ref = fused_logistic_hmc_reference(q, p, X, y, imm, 0.05, 4)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 15, 16, 17, 10_245])
+def test_cuda_hmc_kernels_and_16_chain_leapfrog_match_plain(cuda_device,
+                                                            chains):
+    """Float32 dim 100, the flagship's shape: kernels 5-7 at 8 chains a
+    block, kernel 8 at 16, the last block ragged but at 16."""
+    _check_hmc_kernels(cuda_device, 100, chains, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,x_dtype", [
+    (101, torch.float32), (100, torch.bfloat16), (120, torch.bfloat16),
+    (121, torch.bfloat16)])
+def test_cuda_hmc_kernels_at_other_dims_and_bf16_data(cuda_device, dim,
+                                                      x_dtype):
+    """Rows of the state and of X past 16 bytes' multiples, and the
+    bfloat16 data, ``logistic_regression_pg_t``'s default (kernel 8 widens X
+    to float32)."""
+    _check_hmc_kernels(cuda_device, dim, 17, x_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,expect", [(144, 16), (145, 8)])
+def test_cuda_fused_leapfrog_at_its_chain_edge(cuda_device, dim, expect):
+    """The last dim at 16 chains a block and the first at 8."""
+    assert launch_plan("fused_hmc", dim, 0, 33).chains == expect
+    _, data, q, _, _, _, p_t = _hmc_case(cuda_device, dim, 33, points=300)
+    X, y = data[0], data[2].reshape(-1)
+    imm = torch.full((dim,), 0.7, device=cuda_device)
+    p = p_t.T.contiguous()
+    out = fused_hmc.fused_logistic_hmc_cuda(q, p, X, y, imm, 0.03, 6, 1.5)
+    ref = fused_logistic_hmc_reference(q, p, X, y, imm, 0.03, 6, 1.5)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sibling_identities_with_early_requests(cuda_device, x_dtype):
+    """Kernel 6 equals one launch of kernel 5 per draw and kernel 7 equals
+    kernel 5 at α 0, bit for bit, on 33 chains, with ε and α given as host
+    scalars (launch arguments) to kernels 5 and 6."""
+    _, data, q, q_t, u_t, g_t, p_t = _hmc_case(cuda_device, 100, 33,
+                                                 x_dtype)
+    imm = torch.full((100,), 0.8, device=cuda_device)
+    state = (q_t, u_t, g_t, p_t)
+    draws, seed = 3, 61
+    pos, stats, *final = ghmc_segment_cuda(*state, 0.1, 0.7, imm, data, draws,
+                                           seed=seed)
+    for t in range(draws):
+        *state, st = ghmc_transition_cuda(
+            *state, 0.1, 0.7, imm, data,
+            seed=(seed + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(state[0], pos[t])
+    for a, b in zip(final, state):
+        assert torch.equal(a, b)
+    steps = torch.full((), 4, dtype=torch.int32, device=cuda_device)
+    k7 = chees_fused.chees_transition_cuda(q, u_t.reshape(-1),
+                                           g_t.T.contiguous(), imm, 0.1,
+                                           steps, data, seed=62)
+    k5 = ghmc_transition_cuda(q_t, u_t, g_t, torch.zeros_like(g_t), 0.1, 0.0,
+                              imm, data, num_steps=4, seed=62)
+    torch.cuda.synchronize()
+    assert torch.equal(k7[0], k5[0].T) and torch.equal(k7[2], k5[2].T)
+    assert torch.equal(k7[3][:, :5], k5[4][:5].T)
+    # per-chain rows of ε and α give the bits of the host scalars
+    rows = [torch.full((33,), v, device=cuda_device) for v in (0.1, 0.7)]
+    by_row = ghmc_transition_cuda(q_t, u_t, g_t, p_t, *rows, imm, data,
+                                  seed=63)
+    by_scalar = ghmc_transition_cuda(q_t, u_t, g_t, p_t, 0.1, 0.7, imm, data,
+                                     seed=63)
+    for a, b in zip(by_row, by_scalar):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_hmc_instantiations_hold_two_blocks_per_sm(cuda_device):
+    """Kernels 5-7 at the plan's 8 chains and kernel 8's 16-chain
+    instantiation, at the plan's shared memory for the flagship and kernel
+    8's edge dim, hold two blocks per SM (the occupancy API)."""
+    ghmc = load_kernels("ghmc_fused.cu")
+    chees = load_kernels("chees_fused.cu")
+    leap = load_kernels("fused_hmc.cu")
+    for x_dtype in (torch.float32, torch.bfloat16):
+        plan = launch_plan("hmc", 100, 0, 10_240, x_dtype)
+        bf = int(x_dtype == torch.bfloat16)
+        counts = [ghmc.ghmc_blocks_per_sm(seg, bf, plan.chains, plan.smem)
+                  for seg in (0, 1)]
+        counts += [chees.chees_blocks_per_sm(dense, bf, plan.chains,
+                                             plan.smem) for dense in (0, 1)]
+        assert min(counts) >= 2, (x_dtype, counts)
+    for dim in (100, 144):
+        plan = launch_plan("fused_hmc", dim, 0, 10_240)
+        assert plan.chains == 16
+        assert leap.fused_hmc_blocks_per_sm(16, plan.smem) >= 2, dim
+    # a chain count the kernels were not built for is refused
+    assert ghmc.ghmc_blocks_per_sm(0, 0, 16, plan.smem) == -1

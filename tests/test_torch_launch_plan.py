@@ -2,10 +2,12 @@
 CPU: every shape the earlier kernels took still fits the 227 KB of shared
 memory a block can use, the NUTS core's shared memory no longer grows with
 K (its checkpoints live in a global buffer) and keeps two blocks per SM
-where a tile allows it, the grid covers ragged chain counts with whole
-blocks, a shape that does not fit raises ``ValueError`` before any launch,
-and X reaches the kernels in rows of a 16-byte multiple (4 floats or 8
-bfloat16 values), zero past dim."""
+where a tile allows it, the fused leapfrog kernel takes 16 chains a block
+wherever two such blocks fit with a 128-point tile and the NUTS and HMC
+cores always 8 (a choice of the core, dim and X's type alone), the grid
+covers ragged chain counts with whole blocks, a shape that does not fit
+raises ``ValueError`` before any launch, and X reaches the kernels in rows
+of a 16-byte multiple (4 floats or 8 bfloat16 values), zero past dim."""
 
 import math
 
@@ -36,8 +38,10 @@ def test_every_shape_the_earlier_kernels_took_fits(core, max_exp):
         for x_dtype in (torch.float32, torch.bfloat16):
             plan = lp.launch_plan(core, dim, max_exp, 10_240, x_dtype)
             assert plan.smem <= lp.SMEM_LIMIT
-            assert plan.smem == lp.smem_bytes(core, dim, plan.points, x_dtype)
+            assert plan.smem == lp.smem_bytes(core, dim, plan.points, x_dtype,
+                                              plan.chains)
             assert plan.points in lp.POINTS
+            assert plan.chains == lp.chains_per_block(core, dim, x_dtype)
     if core == "nuts" and max_exp == 6:
         assert max(taken) == 224
 
@@ -57,13 +61,20 @@ def test_the_flagship_takes_full_chunks():
                                            (10_240, 1280), (10_245, 1281),
                                            (10_248, 1281)])
 def test_the_grid_covers_ragged_chain_counts_with_whole_blocks(chains, blocks):
-    for core, max_exp in (("nuts", 6), ("hmc", 0), ("fused_hmc", 0)):
-        plan = lp.launch_plan(core, 100, max_exp, chains)
-        assert plan.blocks == blocks
-        assert plan.blocks * lp.CHAINS_PER_BLOCK >= chains
-        assert (plan.blocks - 1) * lp.CHAINS_PER_BLOCK < chains
+    """``blocks`` is the count at 8 chains a block (NUTS, the HMC core, the
+    fused leapfrog kernel at dim 145); at 16 (the fused leapfrog kernel at
+    dim 100) it is ceil(chains / 16)."""
+    for core, max_exp, dim in (("nuts", 6, 100), ("hmc", 0, 100),
+                               ("fused_hmc", 0, 100), ("fused_hmc", 0, 145)):
+        plan = lp.launch_plan(core, dim, max_exp, chains)
+        per_block = 16 if (core, dim) == ("fused_hmc", 100) else 8
+        assert plan.chains == per_block
+        assert plan.blocks == (blocks if per_block == 8
+                               else math.ceil(chains / 16))
+        assert plan.blocks * plan.chains >= chains
+        assert (plan.blocks - 1) * plan.chains < chains
         assert plan.args() == (plan.blocks, plan.points, plan.row_stride,
-                               plan.smem)
+                               plan.smem, plan.chains)
 
 
 @pytest.mark.parametrize("core,dim,max_exp", [("nuts", 400, 6),
@@ -101,7 +112,7 @@ def _parent_nuts_max_dim(max_exp):
     shared memory: 17 + 2K rows a chain, the scratch, no tile."""
     return max(dim for dim in range(1, 1500)
                if 4 * ((17 + 2 * max_exp) * 8 * lp.state_stride(dim)
-                       + lp.SCRATCH_FLOATS) <= lp.SMEM_LIMIT)
+                       + lp.scratch_floats(8)) <= lp.SMEM_LIMIT)
 
 
 @pytest.mark.parametrize("max_exp", range(1, 15))
@@ -188,3 +199,83 @@ def test_bf16_rows_of_x_are_padded_to_8_elements_with_zeros(dim):
     again = lp.data_rows(Xb, stride, torch.bfloat16)
     assert torch.equal(again[:, :dim], Xb)
     assert (again is Xb) == (stride == dim)
+
+
+# ---- chains a block (16 for the fused leapfrog kernel where two such
+# blocks fit; 8 for the NUTS and HMC cores)
+
+def _fused_hmc_edge():
+    """The largest dim at which two 16-chain blocks of kernel 8 fit on an SM
+    with a 128-point float32 tile, from the byte count written out: 3 rows
+    of 16 chains and a row of M⁻¹, the functor's scratch (two 128 x 12
+    residual tiles 16 floats apart, 16 potentials, the barrier and its
+    counts), the tile."""
+    scratch = (128 * 12 + 16) + 128 * 12 + 16 + 4
+    best = 0
+    for dim in range(1, 400):
+        ds = 4 * math.ceil(dim / 4)
+        smem = 4 * ((3 * 16 + 1) * ds + scratch) + 128 * ds * 4
+        if 2 * (smem + 1024) <= 233_472:
+            best = dim
+    return best
+
+
+def test_the_flagship_fused_leapfrog_block_takes_16_chains():
+    """Float32 dim 100: 3 rows x 16 chains + a row of M⁻¹ (19,600 B), the
+    functor's scratch at 16 chains (12,432 B), a 128-point tile (51,200 B):
+    83,232 B, two blocks per SM, 640 blocks for 10,240 chains."""
+    plan = lp.launch_plan("fused_hmc", 100, 0, 10_240)
+    assert (plan.chains, plan.points, plan.smem) == (16, 128, 83_232)
+    assert lp.scratch_floats(16) * 4 == 12_432
+    assert lp.two_blocks_fit(plan.smem) and plan.blocks == 640
+
+
+@pytest.mark.parametrize("dim,chains", [(1, 16), (100, 16), (101, 16),
+                                        (143, 16), (144, 16), (145, 8),
+                                        (148, 8), (700, 8)])
+def test_the_fused_leapfrog_takes_16_chains_up_to_the_two_block_edge(dim,
+                                                                     chains):
+    assert _fused_hmc_edge() == 144
+    plan = lp.launch_plan("fused_hmc", dim, 0, 10_240)
+    assert plan.chains == chains
+    if chains == 16:
+        assert plan.points == 128 and lp.two_blocks_fit(plan.smem)
+    else:  # at 8 chains it takes the largest tile that fits a block
+        fits = [pts for pts in lp.POINTS
+                if lp.smem_bytes("fused_hmc", dim, pts) <= lp.SMEM_LIMIT]
+        assert plan.points == fits[0]
+
+
+@pytest.mark.parametrize("chains", [1, 9, 10_240, 10_245])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_chains_a_block_depend_on_core_dim_and_dtype_only(chains, x_dtype):
+    """A chain's bits must not depend on how many chains run: the plan gives
+    every chain count the chains a block, tile and shared memory of the
+    flagship's count, and ceil(C / chains) blocks."""
+    for core, max_exp in (("nuts", 6), ("hmc", 0), ("fused_hmc", 0)):
+        for dim in (7, 100, 101, 120, 121, 144, 145, 392):
+            try:
+                ref = lp.launch_plan(core, dim, max_exp, 10_240, x_dtype)
+            except ValueError:
+                continue
+            plan = lp.launch_plan(core, dim, max_exp, chains, x_dtype)
+            assert (plan.chains, plan.points, plan.smem, plan.row_stride) == (
+                ref.chains, ref.points, ref.smem, ref.row_stride)
+            assert plan.chains == lp.chains_per_block(core, dim, x_dtype)
+            assert plan.blocks == math.ceil(chains / plan.chains)
+
+
+@pytest.mark.parametrize("core", ["nuts", "hmc"])
+def test_the_nuts_and_hmc_cores_always_take_8_chains(core):
+    """NUTS: its 17 rows a chain leave no room for 16; the HMC core (kernels
+    5-7): 16 chains a block were measured slower at 10,240 chains."""
+    max_exp = 6 if core == "nuts" else 0
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for dim in range(1, 393, 7):
+            assert lp.chains_per_block(core, dim, x_dtype) == 8
+            if _fits(core, dim, max_exp, x_dtype):
+                assert lp.launch_plan(core, dim, max_exp, 100,
+                                      x_dtype).chains == 8
+    # the HMC core at the flagship: 8 rows x 8 chains, the scratch, the tile
+    plan = lp.launch_plan("hmc", 100, 0, 10_240)
+    assert (plan.chains, plan.points, plan.smem) == (8, 128, 82_992)
