@@ -2,7 +2,8 @@
 
 What is ported: the fused NUTS route (Stan window adaptation driving a
 per-transition NUTS kernel, then the whole sampling run in one kernel
-launch), the fused MALA and GHMC routes (warmup through the GHMC transition
+launch) on the logistic regression, Neal's funnel and eight schools, the
+JAX package's model builders and diagnostics, the fused MALA and GHMC routes (warmup through the GHMC transition
 kernel, sampling in segments of the GHMC segment kernel), the fused ChEES
 route (the ChEES adaptation over the ChEES transition kernel), the
 standard-layout NUTS entry points of :mod:`aehmc_tpu_torch.ops.nuts_fused`,

@@ -77,8 +77,15 @@ def sample(
     ``initial_position`` is ``(chains, dim)``; the chains run on its device
     (the data tensors must be on the same device).  The model is the
     transposed ``potential_fn_t(q_t, *data)`` and/or
-    ``potential_and_grad_t(q_t, *data) -> (u, g)``; on a CUDA device the
-    kernels take ``models.logistic_pg_t``.  ``kwargs`` go to
+    ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device the
+    fused NUTS route runs three models, each a device functor in kernels 1
+    and 2, picked by the identity of ``potential_and_grad_t``:
+    ``models.logistic_pg_t`` (``models.logistic_regression_pg_t``),
+    ``models.funnel_pg_t`` (``models.neals_funnel_pg_t``) and
+    ``models.schools_pg_t`` (``models.eight_schools_pg_t``); the MALA, GHMC
+    and ChEES routes take the logistic one.  Any other potential on the card
+    raises ``NotImplementedError`` (the generic path is ROADMAP.md item
+    1.10).  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
     (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True) and to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and

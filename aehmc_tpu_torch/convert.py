@@ -30,6 +30,15 @@ def model_data(X, XT, y_col, device="cuda"):
                                       device).contiguous()
 
 
+def eight_schools_data(y_col, sig2_col, device="cuda"):
+    """``(y_col, sig2_col)`` of the JAX ``eight_schools_pg_t`` /
+    ``eight_schools_t`` (the schools' effects and variances, (8, 1) each)
+    as the port's float32 columns, the dtype the CUDA kernels take; the
+    values are small integers, exact in float32."""
+    return tuple(to_tensor(np.asarray(a, np.float32), device).contiguous()
+                 for a in (y_col, sig2_col))
+
+
 def chain_state(q, u, g, device="cuda"):
     """``(q (chains, dim), u (chains, 1), g (chains, dim))``."""
     return tuple(to_tensor(a, device) for a in (q, u, g))

@@ -84,17 +84,25 @@ __device__ __forceinline__ float warp_sum(float v) {
 // aehmc_tpu_torch/ops/launch_plan.py: blocks, points a chunk of X, X's row
 // stride in elements, the bytes of dynamic shared memory a block, and the
 // chains a block (8 or 16; the launcher picks the kernel built for them).
+// A potential with no data matrix has no tile: points and row_stride 0.
 struct Geometry {
   int blocks, points, row_stride, smem, chains;
 };
 
-// Launch `kernel` on G.blocks blocks of NT threads.
+// Whether G's tile of X is one the logistic functor takes: points a power
+// of 2 from 8 to NT / 2, rows a positive multiple of 4 elements.
+inline bool x_tile_ok(const Geometry& G) {
+  return G.points >= 8 && G.points <= NT / 2 &&
+         !(G.points & (G.points - 1)) && G.row_stride >= 4 &&
+         G.row_stride % 4 == 0;
+}
+
+// Launch `kernel` on G.blocks blocks of NT threads (the caller has checked
+// the functor's part of G).
 template <typename... KArgs, typename... Args>
 cudaError_t launch_blocks(void (*kernel)(KArgs...), const Geometry& G,
                           cudaStream_t stream, Args&&... args) {
-  if (G.blocks < 1 || G.points < 8 || G.points > NT / 2 ||
-      (G.points & (G.points - 1)) || G.row_stride < 4 || G.row_stride % 4 ||
-      G.smem < 1 || (G.chains != 8 && G.chains != 16))
+  if (G.blocks < 1 || G.smem < 1 || (G.chains != 8 && G.chains != 16))
     return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G.smem);

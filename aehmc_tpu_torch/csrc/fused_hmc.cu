@@ -108,7 +108,7 @@ int fused_hmc_launch(const float* q, const float* p, const float* X,
                      void* stream) {
   const Geometry G = {blocks, points, row_stride, smem, chains};
   if (dim < 1 || N < 1 || C < 1 || L < 0 ||
-      (size_t)blocks * chains < (size_t)C)
+      (size_t)blocks * chains < (size_t)C || !x_tile_ok(G))
     return (int)cudaErrorInvalidValue;
   return (int)with_functor<false, 8, 16>(
       X, 0, y, N, prior_precision, G, [&](auto pg) {

@@ -429,7 +429,7 @@ template <typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
                    const Geometry& G, cudaStream_t stream, Args&&... args) {
   if (P.dim < 1 || N < 1 || P.C < 1 || (!P.Ld && P.L < 1) ||
-      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C)
+      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C || !x_tile_ok(G))
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }

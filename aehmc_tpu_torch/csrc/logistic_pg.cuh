@@ -267,6 +267,21 @@ struct LogisticPGT {
   __device__ void operator()(const PGScratch& S, int dim, int ds,
                              const float* q, float* grad,
                              bool more = false) const;
+
+  // What the NUTS core (nuts_core.cuh) asks of a functor: its scratch type,
+  // carved at `base` after the core's rows (every thread calls it, a
+  // __syncthreads follows), and whether a launch's sizes and geometry fit
+  // it (X and its tile; the launch plan's points and row stride).
+  using Scratch = PGScratch;
+  static __device__ PGScratch carve_scratch(float* base, int ds) {
+    PGScratch s;
+    s.carve<CB>(base, qb_floats(ds));
+    return s;
+  }
+  bool fits(int dim, const Geometry& G) const {
+    return X && y && N >= 1 && x_tile_ok(G) && G.points == P &&
+           G.row_stride == xs && xs >= dim;
+  }
 };
 
 using LogisticPG = LogisticPGT<float>;

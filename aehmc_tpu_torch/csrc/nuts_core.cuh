@@ -29,15 +29,24 @@
 // at 10,240 chains, dim 100, K 6) stay in L2.
 //
 // Design.  The potential and gradient are a device functor, a template
-// parameter of the core and of the kernels (LogisticPGT, logistic_pg.cuh).
-// A block of CB = 8 warps owns 8 chains, one warp per chain, and keeps their
-// NUTS state but the checkpoints in shared memory (112 KB with a 128-point
-// float32 tile at dim 100, whatever K: two blocks per SM, 128 registers a
-// thread).  Every per-chain decision is
-// warp-uniform, so the tree walk has no divergence inside a warp; a warp
-// whose chain has stopped idles through the rest of the block's tree, the
-// early exit being block-wide as on the TPU.  The gradient is computed by
-// the whole block for its 8 chains at once.  Reductions run in a fixed
+// parameter of the core and of the kernels: LogisticPGT (logistic_pg.cuh),
+// and for kernels 1 and 2 also FunnelPG and EightSchoolsPG
+// (hierarchical_pg.cuh).  A functor PG gives the core its Scratch type
+// (with the block's potentials `nu`), PG::carve_scratch(base, ds) to carve
+// it after the core's rows, PG::fits(dim, geometry) for the launch checks,
+// and operator()(scratch, dim, ds, q, grad), which the whole block calls
+// with its CB rows of q and which leaves CB gradient rows and potentials;
+// the launch plan (ops/launch_plan.py) sizes shared memory for the
+// functor's scratch, an X tile for the logistic functor and none for the
+// others.  A block of CB = 8 warps owns 8 chains, one warp per chain, and
+// keeps their NUTS state but the checkpoints in shared memory (112 KB with
+// a 128-point float32 tile at dim 100, whatever K: two blocks per SM, 128
+// registers a thread).  Every per-chain decision is warp-uniform, so the
+// tree walk has no divergence inside a warp; a warp whose chain has stopped
+// idles through the rest of the block's tree, the early exit being
+// block-wide as on the TPU.  The logistic gradient is computed by the whole
+// block for its 8 chains at once, the hierarchical ones by each chain's
+// warp.  Reductions run in a fixed
 // order and products use explicit fmaf with -fmad=false elsewhere, so a
 // result does not depend on timing or on where the core is inlined: the
 // whole-run kernel equals one launch per draw bit for bit.
@@ -84,20 +93,26 @@ __device__ __forceinline__ size_t gat(int i, int chain, int rows, int C) {
 }
 
 // A block's rows in shared memory, its checkpoint slots in global memory
-// (ck_p, ck_s: K slots of CB rows each), and the potential's scratch.
+// (ck_p, ck_s: K slots of CB rows each), and the potential's scratch (SC,
+// the functor's Scratch: its potentials `nu` and, for the logistic functor,
+// its X tile).
+template <class SC>
 struct Smem {
   float *prop_q, *prop_g, *left_q, *left_p, *left_g, *right_q, *right_p,
       *right_g, *psum, *last_q, *last_p, *last_g, *sprop_q, *sprop_g,
       *s_psum, *ngrad, *tmp, *ck_p, *ck_s;
-  PGScratch pgs;  // the functor's scratch and X tile
+  SC pgs;
 };
 
 constexpr int NUM_ROWS = 17;  // row arrays of Smem in shared memory
 
 // The rows, zeroed (the functor reads q's padding past dim), then the
-// functor's scratch (qb floats of rounded q) and X tile; the block's slice
-// of the checkpoint buffer ck.  Every thread of the block calls it.
-__device__ inline Smem carve(float* base, int ds, int qb, float* ck, int K) {
+// functor PG's scratch (PG::carve_scratch; ops/launch_plan.py sizes it);
+// the block's slice of the checkpoint buffer ck.  Every thread of the block
+// calls it.
+template <class PG>
+__device__ inline Smem<typename PG::Scratch> carve(float* base, int ds,
+                                                   float* ck, int K) {
   const size_t V = (size_t)CB * ds;
   float* p = base;
   zero_smem(p, NUM_ROWS * V);
@@ -106,7 +121,7 @@ __device__ inline Smem carve(float* base, int ds, int qb, float* ck, int K) {
     p += n;
     return r;
   };
-  Smem s;
+  Smem<typename PG::Scratch> s;
   s.prop_q = take(V);
   s.prop_g = take(V);
   s.left_q = take(V);
@@ -126,7 +141,7 @@ __device__ inline Smem carve(float* base, int ds, int qb, float* ck, int K) {
   s.tmp = take(V);
   s.ck_p = ck + (size_t)blockIdx.x * 2 * K * V;
   s.ck_s = s.ck_p + K * V;
-  s.pgs.carve<CB>(p, qb);
+  s.pgs = PG::carve_scratch(p, ds);
   __syncthreads();
   return s;
 }
@@ -197,9 +212,10 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src,
 }
 
 // momentum of warp w's chain into row p: external, or Box-Muller from Philox
-template <bool STD>
-__device__ void draw_momentum(const Params& P, const Smem& S, const Rand& R,
-                              int w, int lane, int chain, float* p) {
+template <bool STD, class SC>
+__device__ void draw_momentum(const Params& P, const Smem<SC>& S,
+                              const Rand& R, int w, int lane, int chain,
+                              float* p) {
   const int dim = P.dim;
   if (!R.seeded) {
     for (int d = lane; d < dim; d += 32)
@@ -251,8 +267,9 @@ struct Stats {
 // One NUTS transition of the block's chains.  On entry prop_q / prop_g hold
 // each chain's (q, ∇U) and u0 its potential; on exit they hold the proposal.
 template <bool STD, class PG>
-__device__ Stats nuts_core(const Params& P, const PG& pg_fn, const Smem& S,
-                           const Rand& R, int chain, bool valid, float u0) {
+__device__ Stats nuts_core(const Params& P, const PG& pg_fn,
+                           const Smem<typename PG::Scratch>& S, const Rand& R,
+                           int chain, bool valid, float u0) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int dim = P.dim, ds = P.ds;
   float* const pq = S.prop_q + w * ds;
@@ -429,8 +446,8 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn, const Smem& S,
   return st;
 }
 
-template <bool STD>
-__device__ void load_chain(const Params& P, const Smem& S, const float* q,
+template <bool STD, class SC>
+__device__ void load_chain(const Params& P, const Smem<SC>& S, const float* q,
                            const float* g, int w, int lane, int chain,
                            bool valid) {
   for (int d = lane; d < P.dim; d += 32) {
@@ -440,8 +457,8 @@ __device__ void load_chain(const Params& P, const Smem& S, const float* q,
   }
 }
 
-template <bool STD>
-__device__ void store_chain(const Params& P, const Smem& S, float* q_out,
+template <bool STD, class SC>
+__device__ void store_chain(const Params& P, const Smem<SC>& S, float* q_out,
                             float* u_out, float* g_out, int w, int lane,
                             int chain, float u) {
   for (int d = lane; d < P.dim; d += 32) {
@@ -471,8 +488,7 @@ __global__ void __launch_bounds__(NT, 2)
                            float* u_out, float* g_out, float* stats,
                            float* ck) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds,
-                       PG::qb_floats(P.ds), ck, P.K);
+  const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds, ck, P.K);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -507,8 +523,7 @@ __global__ void __launch_bounds__(NT, 2)
                          T* pos, float* stats, float* q_out, float* u_out,
                          float* g_out, float* ck) {
   extern __shared__ float4 smem_raw[];
-  const Smem S = carve(reinterpret_cast<float*>(smem_raw), P.ds,
-                       PG::qb_floats(P.ds), ck, P.K);
+  const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds, ck, P.K);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -548,14 +563,17 @@ inline Params make_params(const float* im, const float* ms, int dense,
   return P;
 }
 
-// Checks a launch's sizes and launches `kernel` on the plan's blocks; ck
-// (the checkpoint buffer, G.blocks × 2K × CB × ds floats) must be given.
-template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
+// Checks a launch's sizes, and with the functor pg its own operands and
+// shared memory (pg.fits: the logistic functor's X and tile, nothing of X
+// for the others), and launches `kernel` on the plan's blocks; ck (the
+// checkpoint buffer, G.blocks × 2K × CB × ds floats) must be given.
+template <class PG, typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), const Params& P, const PG& pg,
                    const float* ck, const Geometry& G, cudaStream_t stream,
                    Args&&... args) {
-  if (P.dim < 1 || N < 1 || P.C < 1 || P.K < 1 || P.K > 14 || !ck ||
-      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C)
+  if (P.dim < 1 || P.C < 1 || P.K < 1 || P.K > 14 || !ck ||
+      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C ||
+      !pg.fits(P.dim, G))
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }

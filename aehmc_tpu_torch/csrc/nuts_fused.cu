@@ -36,7 +36,7 @@ cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
                               const float* q, const float* u, const float* g,
                               float* q_out, float* u_out, float* g_out,
                               float* stats, cudaStream_t stream) {
-  return launch(nuts_transition_kernel<LogisticPGT<XT>, true>, P, pg.N, ck, G,
+  return launch(nuts_transition_kernel<LogisticPGT<XT>, true>, P, pg, ck, G,
                 stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
 }
 
@@ -47,7 +47,7 @@ cudaError_t launch_sampling(const Params& P, const LogisticPGT<XT>& pg,
                             const float* g, float* pos, float* stats,
                             float* q_out, float* u_out, float* g_out,
                             cudaStream_t stream) {
-  return launch(nuts_sampling_kernel<LogisticPGT<XT>, float, true>, P, pg.N,
+  return launch(nuts_sampling_kernel<LogisticPGT<XT>, float, true>, P, pg,
                 ck, G, stream, P, pg, seed, num_draws, q, u, g, pos, stats,
                 q_out, u_out, g_out, ck);
 }

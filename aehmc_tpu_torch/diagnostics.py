@@ -1,4 +1,6 @@
-"""Convergence diagnostics: split-R-hat, bulk and tail effective sample size.
+"""Convergence diagnostics: split-R-hat, bulk and tail effective sample
+size, the Monte Carlo standard error, a posterior summary and the bridge to
+arviz.
 
 Port of :mod:`aehmc_tpu.diagnostics` (Vehtari et al. 2021): rank-normalised
 split chains, FFT autocovariance (``torch.fft``) and Geyer's initial
@@ -8,6 +10,7 @@ dim)`` tensors on any device.
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -110,3 +113,94 @@ def tail_effective_sample_size(samples):
         effective_sample_size(ind05, rank_normalized=False),
         effective_sample_size(ind95, rank_normalized=False),
     )
+
+
+def mcse(samples):
+    """Monte Carlo standard error of the mean, via ESS: ``(mcse_mean,
+    ess)``, the pooled sd (ddof 1) over √(bulk ESS), per dimension."""
+    samples = _validate(samples)
+    ess = effective_sample_size(samples)
+    pooled = samples.reshape((-1,) + samples.shape[2:])
+    sd = torch.std(pooled, dim=0, correction=1)
+    return sd / torch.sqrt(ess), ess
+
+
+def summary(samples) -> dict:
+    """Per-dimension posterior summary, the columns of arviz's
+    ``az.summary``: ``mean, sd, median, q05, q95, ess_bulk, ess_tail,
+    r_hat, mcse_mean`` of ``samples (chains, draws[, dim])``.  Both ESS
+    columns are capped at chains × draws (antithetic NUTS chains can push
+    the raw estimate past it); the raw estimators stay uncapped."""
+    samples = _validate(samples)
+    pooled = samples.reshape((-1,) + samples.shape[2:])
+    mcse_mean, _ = mcse(samples)
+    n_total = samples.shape[0] * samples.shape[1]
+    return {
+        "mean": torch.mean(pooled, dim=0),
+        "sd": torch.std(pooled, dim=0, correction=1),
+        "median": _quantile(pooled, 0.5),
+        "q05": _quantile(pooled, 0.05),
+        "q95": _quantile(pooled, 0.95),
+        "ess_bulk": torch.clamp(effective_sample_size(samples), max=n_total),
+        "ess_tail": torch.clamp(tail_effective_sample_size(samples),
+                                max=n_total),
+        "r_hat": potential_scale_reduction(samples, rank_normalized=True),
+        "mcse_mean": mcse_mean,
+    }
+
+
+def _numpy(x):
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def to_inference_data_dict(positions, diagnostics=None, *, draw_axis: int = 0,
+                           param_names=None) -> dict:
+    """A sampling result in the ``arviz.from_dict`` layout: numpy arrays in
+    arviz's (chain, draw, ...) convention, without depending on arviz::
+
+        idata = az.from_dict(**to_inference_data_dict(res.positions,
+                                                      res.diagnostics))
+
+    ``positions`` is (draws, dim), (draws, chains, dim) (``draw_axis=0``,
+    the front door's layout) or (chains, draws, dim) (``draw_axis=1``).
+    Returns ``{"posterior": {name: (chains, draws)}}`` with names
+    ``theta_i`` (``theta`` at dim 1) unless ``param_names`` are given, and
+    with ``diagnostics`` (a ``Diagnostics`` stacked over the same axes)
+    also ``"sample_stats"``: ``acceptance_rate, diverging, energy,
+    tree_depth, n_steps``."""
+    pos = _numpy(positions)
+    if pos.ndim == 2:  # (draws, dim): one chain
+        pos = pos[:, None, :]
+        draw_axis = 0
+    if draw_axis == 0:
+        pos = np.moveaxis(pos, 0, 1)  # -> (chains, draws, dim)
+    dim = pos.shape[2]
+    if param_names is None:
+        param_names = ["theta"] if dim == 1 else [f"theta_{i}"
+                                                  for i in range(dim)]
+    if len(param_names) == 1 and dim == 1:
+        posterior = {param_names[0]: pos[:, :, 0]}
+    else:
+        posterior = {name: pos[:, :, i] for i, name in enumerate(param_names)}
+
+    out = {"posterior": posterior}
+    if diagnostics is not None:
+        def chain_draw(x):
+            x = _numpy(x)
+            if x.ndim == 1:  # (draws,): one chain, or shared per draw
+                x = x[:, None]
+            return np.moveaxis(x, 0, 1) if draw_axis == 0 else x
+
+        out["sample_stats"] = {
+            "acceptance_rate": chain_draw(diagnostics.acceptance_probability),
+            "diverging": chain_draw(diagnostics.is_diverging),
+            "energy": chain_draw(diagnostics.energy),
+            "tree_depth": chain_draw(diagnostics.num_doublings),
+            "n_steps": chain_draw(diagnostics.num_integration_steps),
+        }
+    return out

@@ -1,4 +1,5 @@
-"""Bayesian logistic regression, the flagship posterior (port of
+"""Regression posteriors: Bayesian logistic regression, the flagship, and
+the 1-D linear regression of the reference's benchmark notebook (port of
 :mod:`aehmc_tpu.models.regression`).
 
 The data come from numpy, so both packages get bit-identical ``X, y``.  The
@@ -12,6 +13,32 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+
+def linear_regression(
+    num_points: int = 10_000, true_scale: float = 1.0, seed: int = 8927,
+    dtype=torch.float32, device="cuda",
+) -> Tuple[Callable, torch.Tensor]:
+    """1-D linear regression posterior over ``[weight, log_sigma]``: 10k
+    points, a normal prior on the weight, a Gamma(2, 2) noise scale sampled
+    in log space.  The data come from numpy as the JAX builder's, held in
+    ``dtype``.  Returns ``(logprob_fn, example_position)``."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(0.0, 1.0, size=num_points)
+    y = 3.0 * X + rng.normal(0.0, true_scale, size=num_points)
+    X = torch.as_tensor(X, dtype=dtype, device=device)
+    y = torch.as_tensor(y, dtype=dtype, device=device)
+
+    def logprob_fn(q):
+        w, log_sigma = q[0], q[1]
+        sigma = torch.exp(log_sigma)
+        lp = -0.5 * (w / 10.0) ** 2
+        lp = lp + 2.0 * log_sigma - 2.0 * sigma
+        resid = y - w * X
+        return lp - num_points * log_sigma - 0.5 * torch.sum(
+            torch.square(resid)) / torch.square(sigma)
+
+    return logprob_fn, torch.zeros(2, dtype=dtype, device=device)
 
 
 def logistic_regression_data(
@@ -47,6 +74,22 @@ def logistic_regression(
         return torch.sum(y * logits - _softplus(logits)) - 0.5 * torch.sum(w * w)
 
     return logprob_fn, torch.zeros(dim, dtype=torch.float32, device=device)
+
+
+def logistic_regression_t(
+    dim: int = 100, num_points: int = 1_000, seed: int = 42, device="cuda"
+):
+    """:func:`logistic_regression` as a transposed batched potential
+    ``potential_t(q_t, X, y_col)`` of ``q_t (dim, chains)``, the float32
+    dataset as data.  Returns ``(potential_t, data, example_position)``."""
+    X, y = logistic_regression_data(dim, num_points, seed, device)
+
+    def potential_t(q_t, Xv, y_c):
+        logits = Xv.to(q_t.dtype) @ q_t
+        loglik = torch.sum(y_c * logits - _softplus(logits), dim=0)
+        return -loglik + 0.5 * torch.sum(q_t * q_t, dim=0)
+
+    return potential_t, (X, y.reshape(-1, 1)), torch.zeros(dim, device=device)
 
 
 def _logits(q_t, Xv):

@@ -28,7 +28,8 @@ import torch
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-HEADERS = ("common.cuh", "logistic_pg.cuh", "nuts_core.cuh", "hmc_core.cuh")
+HEADERS = ("common.cuh", "logistic_pg.cuh", "hierarchical_pg.cuh",
+           "nuts_core.cuh", "hmc_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +47,12 @@ SIGNATURES = {
         "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P, _I] + [_P] * 3
         + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
         "nuts_blocks_per_sm": [_I] * 3,
+        "nuts_transition_pot_launch": [_P] * 7 + [_I, _U] + [_I, _P, _P, _I]
+        + [_P] * 2 + [_I, _F, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        "nuts_sampling_pot_launch": [_P] * 3 + [_U, _I] + [_I, _P, _P, _I]
+        + [_P] * 2 + [_I, _F, _F, _I, _I, _I] + [_P, _I] + [_P] * 5
+        + _GEOMETRY,
+        "nuts_pot_blocks_per_sm": [_I] * 3,
     },
     "nuts_fused.cu": {
         "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 3

@@ -1,5 +1,5 @@
-"""The launch plan of the CUDA kernels on the logistic functor, the single
-source of their geometry.
+"""The launch plan of the CUDA kernels, the single source of their
+geometry.
 
 A block is 8 warps and holds ``chains`` chains: 8 (one a warp) or 16 (two
 a warp).  Its shared memory holds the core's rows of ``dim`` floats per
@@ -13,6 +13,12 @@ checkpoint rows per chain in a global buffer of :func:`checkpoint_floats`
 floats, so its shared memory does not grow with K.  X is read in rows of
 ``row_stride`` elements, 16 bytes' worth (4 floats or 8 bfloat16 values),
 zero past ``dim``.
+
+The potentials of Neal's funnel and of eight schools are functors with no
+data matrix (``csrc/hierarchical_pg.cuh``), taken by the NUTS kernels 1 and
+2: their scratch is the block's potentials alone, so their plan has no tile
+(``points`` and ``row_stride`` 0) and 8 chains a block
+(``launch_plan(..., functor="funnel" | "eight_schools")``).
 
 The chains a block (:func:`chains_per_block`) depend on the core, dim and
 X's type only, never on the chain count, so a chain's bits do not depend on
@@ -53,6 +59,10 @@ CORES = {"nuts": (17, 0, True, False), "hmc": (8, 0, False, False),
          "fused_hmc": (3, 1, False, True)}
 # X's element type -> bytes
 X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# the potential's device functor -> whether it reads a data matrix X through
+# a shared tile (logistic_pg.cuh) or keeps only the block's potentials in
+# its scratch (hierarchical_pg.cuh: the NUTS core only)
+FUNCTORS = {"logistic": True, "funnel": False, "eight_schools": False}
 
 
 def scratch_floats(chains: int) -> int:
@@ -78,12 +88,15 @@ def row_stride(dim: int, x_dtype=torch.float32) -> int:
 
 
 def smem_bytes(core: str, dim: int, points: int, x_dtype=torch.float32,
-               chains: int = 8) -> int:
+               chains: int = 8, functor: str = "logistic") -> int:
     """Bytes of dynamic shared memory a block of ``core`` with ``chains``
-    chains takes with a tile of ``points`` rows of X in ``x_dtype``."""
+    chains takes with a tile of ``points`` rows of X in ``x_dtype``; with a
+    functor that reads no X, its rows and the chains' potentials."""
     ds = state_stride(dim)
     per_chain, per_block = CORES[core][:2]
     rows = (per_chain * chains + per_block) * ds
+    if not FUNCTORS[functor]:
+        return 4 * (rows + chains)
     qb = chains * ds if x_dtype == torch.bfloat16 else 0
     tile = points * row_stride(dim, x_dtype) * X_BYTES[x_dtype]
     return 4 * (rows + scratch_floats(chains) + qb) + tile
@@ -124,14 +137,22 @@ class LaunchPlan:
 
 
 def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
-                x_dtype=torch.float32) -> LaunchPlan:
+                x_dtype=torch.float32, functor: str = "logistic") -> LaunchPlan:
     """The geometry of a launch of ``core`` ("nuts", "hmc" or "fused_hmc")
     on ``num_chains`` chains of ``dim`` dimensions (``max_exp`` = K for
-    NUTS) with X in ``x_dtype`` (float32 or bfloat16).  Raises
-    ``ValueError``, naming the limit, for a shape the kernels do not take."""
+    NUTS) with X in ``x_dtype`` (float32 or bfloat16), for the potential's
+    ``functor`` (:data:`FUNCTORS`; one with no X has no tile and ignores
+    ``x_dtype``).  Raises ``ValueError``, naming the limit, for a shape the
+    kernels do not take."""
     if core not in CORES:
         raise ValueError(f"unknown core {core!r}; expected one of "
                          f"{sorted(CORES)}")
+    if functor not in FUNCTORS:
+        raise ValueError(f"unknown functor {functor!r}; expected one of "
+                         f"{sorted(FUNCTORS)}")
+    if not FUNCTORS[functor] and core != "nuts":
+        raise ValueError(f"the {functor} functor runs in the NUTS kernels "
+                         f"only, not in {core!r}")
     if x_dtype not in X_BYTES:
         raise ValueError(f"X is float32 or bfloat16, got {x_dtype}")
     if dim < 1 or num_chains < 1:
@@ -139,6 +160,14 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
     if core == "nuts" and not 1 <= max_exp <= MAX_EXP:
         raise ValueError(f"max_num_expansions {max_exp} is outside "
                          f"[1, {MAX_EXP}]")
+    if not FUNCTORS[functor]:
+        smem = smem_bytes(core, dim, 0, chains=NUTS_CHAINS, functor=functor)
+        if smem > SMEM_LIMIT:
+            raise ValueError(
+                f"{core} at dim {dim} needs {smem} bytes of shared memory a "
+                f"block; the limit is {SMEM_LIMIT}")
+        return LaunchPlan(math.ceil(num_chains / NUTS_CHAINS), 0, 0, smem,
+                          NUTS_CHAINS)
     chains = chains_per_block(core, dim, x_dtype)
     sizes = [(points, smem_bytes(core, dim, points, x_dtype, chains))
              for points in POINTS]

@@ -5,7 +5,11 @@ PyTorch version and the wrapper of the CUDA kernel (``csrc/leapfrog.cu``).
 
 :func:`batched_leapfrog` launches the kernel on a CUDA tensor and runs
 :func:`batched_leapfrog_reference` on a CPU tensor.  The kernel equals the
-plain version bit for bit, and takes any chain count.
+plain version bit for bit, and takes any chain count.  Its wrapper sets the
+pace of back-to-back calls (its host time a call is several times the
+kernel's, PERF.md §6), so it resolves the C launcher once, allocates both
+outputs at once (two views of one buffer) and reads the current stream's
+handle directly.
 """
 
 from typing import Tuple
@@ -51,28 +55,41 @@ def batched_leapfrog(
                                       num_steps)
 
 
+def _launcher():
+    """Kernel 9's C launcher and its library, built and resolved at the first
+    call and kept: a call then pays no lookup."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        from aehmc_tpu_torch.ops._build import load_kernels
+
+        lib = load_kernels("leapfrog.cu")
+        _LAUNCH = (lib, lib.batched_leapfrog_launch)
+    return _LAUNCH
+
+
+_LAUNCH = None
+
+
 def batched_leapfrog_cuda(q, p, lam, inverse_mass, step_size, num_steps):
     """Launch kernel 9 (``batched_leapfrog``) on CUDA tensors."""
-    from aehmc_tpu_torch.ops._build import (
-        check_launch,
-        load_kernels,
-        require_f32_cuda,
-    )
+    from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
     num_chains, dim = q.shape
     device = q.device
-    operands = dict(q=(q, (num_chains, dim)), p=(p, (num_chains, dim)),
-                    lam=(lam, (dim,)), inverse_mass=(inverse_mass, (dim,)))
-    for name, (t, shape) in operands.items():
-        require_f32_cuda(name, t, shape, device)
-    q_out, p_out = torch.empty_like(q), torch.empty_like(p)
-    lib = load_kernels("leapfrog.cu")
-    err = lib.batched_leapfrog_launch(
+    require_f32_cuda("q", q, (num_chains, dim), device)
+    require_f32_cuda("p", p, (num_chains, dim), device)
+    require_f32_cuda("lam", lam, (dim,), device)
+    require_f32_cuda("inverse_mass", inverse_mass, (dim,), device)
+    out = torch.empty((2, num_chains, dim), dtype=torch.float32,
+                      device=device)
+    lib, launch = _launcher()
+    err = launch(
         q.data_ptr(), p.data_ptr(), lam.data_ptr(), inverse_mass.data_ptr(),
         float(step_size), int(num_steps), dim, num_chains,
-        q_out.data_ptr(), p_out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        out.data_ptr(), out.data_ptr() + 4 * num_chains * dim,
+        torch._C._cuda_getCurrentRawStream(device.index),
     )
-    check_launch(lib, err, "batched_leapfrog")
+    if err:
+        check_launch(lib, err, "batched_leapfrog")
     LAUNCHES["batched_leapfrog"] += 1
-    return q_out, p_out
+    return out.unbind(0)

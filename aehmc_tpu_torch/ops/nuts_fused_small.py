@@ -11,10 +11,13 @@ under the JAX module's names.
 
 Dispatch is by the device of the chain state and nothing else: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.  The
-kernels compute the logistic-regression potential and gradient
-(:func:`aehmc_tpu_torch.models.regression.logistic_pg_t`) in their own body,
-with float32 or bfloat16 operands as X's dtype says (the model builder's
-default is bfloat16, as in the JAX package); a CUDA tensor with any other
+kernels compute one of three potentials and gradients in their own body, a
+device functor each, picked by the identity of ``potential_and_grad_t``:
+the logistic regression's (:func:`aehmc_tpu_torch.models.logistic_pg_t`,
+with float32 or bfloat16 operands as X's dtype says; the model builder's
+default is bfloat16, as in the JAX package), Neal's funnel's
+(:func:`aehmc_tpu_torch.models.funnel_pg_t`) and eight schools'
+(:func:`aehmc_tpu_torch.models.schools_pg_t`).  A CUDA tensor with any other
 potential raises ``NotImplementedError``.
 
 Randomness is either external (``p, dirs, u_bias, u_leaf`` tensors, the
@@ -28,6 +31,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from aehmc_tpu_torch.models.hierarchical import funnel_pg_t, schools_pg_t
 from aehmc_tpu_torch.models.regression import logistic_pg_t
 from aehmc_tpu_torch.ops.launch_plan import (
     checkpoint_floats,
@@ -303,12 +307,36 @@ def nuts_transition_plain(q_t, u, g_t, inverse_mass, step_size, pot_grad, *,
     )
 
 
-def _check_cuda_args(potential_and_grad_t, data, q_t, step_size):
-    if potential_and_grad_t is not logistic_pg_t:
+# the potential+gradient functions whose device functor kernels 1 and 2
+# hold -> (the functor in the launch plan, its data tensors, the suffix of
+# its launch counts)
+_CUDA_FUNCTORS = (
+    (logistic_pg_t, "logistic", ("X", "Xᵀ", "y_col"), ""),
+    (funnel_pg_t, "funnel", ("a (1, 1) dummy row",), "_funnel"),
+    (schools_pg_t, "eight_schools", ("y_col", "sig2_col"), "_eight_schools"),
+)
+# the number of a functor with no X in the *_pot_* launchers
+_MODEL_NUMBERS = {"funnel": 1, "eight_schools": 2}
+
+
+def _cuda_functor(potential_and_grad_t):
+    """``(functor, data, count suffix)`` of a potential the kernels hold,
+    found by identity, or None."""
+    for fn, *functor in _CUDA_FUNCTORS:
+        if fn is potential_and_grad_t:
+            return functor
+    return None
+
+
+def _check_cuda_args(potential_and_grad_t, data, q_t, step_size) -> str:
+    """Raise for what kernels 1 and 2 do not take; return the functor."""
+    functor = _cuda_functor(potential_and_grad_t)
+    if functor is None:
         raise NotImplementedError(
-            "the CUDA NUTS kernels compute the logistic-regression potential "
-            "(models.logistic_pg_t) only; other potentials on the card are "
-            "ROADMAP.md item 1.4"
+            "the CUDA NUTS kernels compute the potentials of "
+            "models.logistic_pg_t, models.funnel_pg_t and models.schools_pg_t "
+            "only; any other potential on the card is ROADMAP.md item 1.10 "
+            "(the generic path)"
         )
     if torch.as_tensor(step_size).numel() != 1:
         raise NotImplementedError(
@@ -316,8 +344,10 @@ def _check_cuda_args(potential_and_grad_t, data, q_t, step_size):
         )
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
-    if len(data) != 3:
-        raise ValueError("logistic data is (X, Xᵀ, y_col)")
+    name, layout, _ = functor
+    if len(data) != len(layout):
+        raise ValueError(f"{name} data is ({', '.join(layout)})")
+    return name
 
 
 def make_fused_nuts_transition_small(
@@ -354,11 +384,11 @@ def make_fused_nuts_transition_small(
         streams = dict(momentum=momentum, directions=directions,
                        u_bias=u_bias, u_leaf=u_leaf, seed=seed)
         if q.is_cuda:
-            _check_cuda_args(potential_and_grad_t, data, q, step_size)
             out = nuts_transition_cuda(
                 q, potential, grad, inverse_mass, step_size, data,
                 max_exp=max_num_expansions,
-                divergence_threshold=divergence_threshold, **streams,
+                divergence_threshold=divergence_threshold,
+                potential_and_grad_t=potential_and_grad_t, **streams,
             )
         else:
             out = nuts_transition_plain(
@@ -413,12 +443,12 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
         raise ValueError(f"collect_dtype must be float32 or bfloat16, got {cdt}")
     data = tuple(data)
     if q_t.is_cuda:
-        _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
         return nuts_sampling_cuda(
             q_t, u0, g0_t, inverse_mass, step_size, data, seed, num_draws,
             max_exp=max_num_expansions,
             divergence_threshold=divergence_threshold,
             collect_positions=collect_positions, collect_dtype=cdt,
+            potential_and_grad_t=potential_and_grad_t,
         )
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
     return _sampling_plain(
@@ -559,44 +589,68 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp):
+def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor):
     """Validate and normalise the operands shared by both kernels, and plan
-    the launch.  X's dtype picks the functor's operands: float32, or
-    bfloat16 (the model builder's default), as the plain version computes
-    with those data.  Also allocates the U-turn checkpoint buffer."""
+    the launch.  For the logistic functor X's dtype picks the operands:
+    float32, or bfloat16 (the model builder's default), as the plain
+    version computes with those data; the funnel takes no data (its dummy
+    row is not read), eight schools its (y, σ²) columns as float32 (J,)
+    rows, J = dim − 2.  Also allocates the U-turn checkpoint buffer."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     dim, num_chains = q_t.shape
-    X, _, y = data
-    num_points = X.shape[0]
     device = q_t.device
     inverse_mass = torch.as_tensor(inverse_mass, dtype=torch.float32,
                                    device=device)
     dense = inverse_mass.ndim == 2
     im = inverse_mass if dense else inverse_mass.reshape(-1).expand(dim)
-    ops = dict(
-        q=q_t, u=u.reshape(1, num_chains), g=g_t, y=y.reshape(num_points),
-        im=im.contiguous(),
-    )
+    ops = dict(q=q_t, u=u.reshape(1, num_chains), g=g_t, im=im.contiguous())
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
-                  y=(num_points,), im=(dim, dim) if dense else (dim,))
+                  im=(dim, dim) if dense else (dim,))
+    x_dtype = torch.float32
+    if functor == "logistic":
+        X, _, y = data
+        num_points = X.shape[0]
+        ops["y"], shapes["y"] = y.reshape(num_points), (num_points,)
+        require_x_cuda(X, num_points, dim, device)
+        x_dtype = X.dtype
+    elif functor == "eight_schools":
+        ops["y"], ops["s2"] = (d.reshape(-1) for d in data)
+        shapes["y"] = shapes["s2"] = (dim - 2,)
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    require_x_cuda(X, num_points, dim, device)
     mass_sqrt = (_mass_sqrt_t(ops["im"], dim).contiguous() if dense
                  else None)
-    plan = launch_plan("nuts", dim, max_exp, num_chains, X.dtype)
-    ops["X"] = data_rows(X, plan.row_stride, X.dtype)
+    plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype, functor)
+    if functor == "logistic":
+        ops["X"] = data_rows(X, plan.row_stride, X.dtype)
     ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
                             dtype=torch.float32, device=device)
-    return ops, dense, mass_sqrt, plan, (dim, num_points, num_chains)
+    return ops, dense, mass_sqrt, plan
+
+
+def _potential_args(ops, functor, dim, num_chains, max_exp):
+    """The launcher of ``functor`` and the arguments that name its
+    potential and sizes: X, its type, y, then (dim, N, C, K) for the
+    logistic launchers; the model number, y, σ² and J, then (dim, C, K) for
+    the *_pot_* launchers."""
+    if functor == "logistic":
+        X = ops["X"]
+        return ("", (_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
+                (dim, X.shape[0], num_chains, max_exp))
+    y, s2 = ops.get("y"), ops.get("s2")
+    return ("_pot", (_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
+                     0 if y is None else y.numel()),
+            (dim, num_chains, max_exp))
 
 
 def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
                          max_exp: int, divergence_threshold: float = 1000.0,
                          momentum=None, directions=None, u_bias=None,
-                         u_leaf=None, seed=None):
-    """Launch kernel 1 (``nuts_transition``) on CUDA tensors; returns
+                         u_leaf=None, seed=None,
+                         potential_and_grad_t=logistic_pg_t):
+    """Launch kernel 1 (``nuts_transition``) on CUDA tensors with the
+    functor of ``potential_and_grad_t`` (:func:`_check_cuda_args`); returns
     ``(q_t, u (1, C), g_t, stats (8, C))``."""
     from aehmc_tpu_torch.ops._build import (
         check_launch,
@@ -604,8 +658,10 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
         require_f32_cuda,
     )
 
-    ops, dense, mass_sqrt, plan, (dim, num_points, num_chains) = (
-        _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp))
+    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    ops, dense, mass_sqrt, plan = _cuda_operands(
+        q_t, u, g_t, inverse_mass, data, max_exp, functor)
+    dim, num_chains = q_t.shape
     if seed is None:
         ext = dict(p=(momentum, (dim, num_chains)),
                    dirs=(directions, (max_exp, num_chains)),
@@ -621,19 +677,18 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     g_out = torch.empty_like(q_t)
     stats = torch.empty((8, num_chains), dtype=torch.float32, device=q_t.device)
     lib = load_kernels("nuts_fused_small.cu")
-    err = lib.nuts_transition_launch(
+    kind, pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp)
+    err = getattr(lib, f"nuts_transition{kind}_launch")(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
-        _ptr(ops["y"]), _ptr(ops["im"]),
-        _ptr(mass_sqrt), int(dense), float(step_size),
-        float(divergence_threshold), dim, num_points, num_chains, max_exp,
+        *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), float(step_size),
+        float(divergence_threshold), *sizes,
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
         *plan.args(),
         torch.cuda.current_stream(q_t.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition")
-    LAUNCHES["nuts_transition"] += 1
+    LAUNCHES["nuts_transition" + _cuda_functor(potential_and_grad_t)[2]] += 1
     return q_out, u_out, g_out, stats
 
 
@@ -641,8 +696,10 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
                        num_draws, *, max_exp: int,
                        divergence_threshold: float = 1000.0,
                        collect_positions: bool = True,
-                       collect_dtype=torch.float32):
-    """Launch kernel 2 (``nuts_sampling``): all draws in one launch.
+                       collect_dtype=torch.float32,
+                       potential_and_grad_t=logistic_pg_t):
+    """Launch kernel 2 (``nuts_sampling``): all draws in one launch, with
+    the functor of ``potential_and_grad_t``.
 
     Positions are written as ``(draws, C, dim)`` (each chain's row is
     contiguous) and returned as the ``(draws, dim, C)`` view of the JAX
@@ -650,8 +707,10 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     """
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    ops, dense, mass_sqrt, plan, (dim, num_points, num_chains) = (
-        _cuda_operands(q_t, u0, g0_t, inverse_mass, data, max_exp))
+    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    ops, dense, mass_sqrt, plan = _cuda_operands(
+        q_t, u0, g0_t, inverse_mass, data, max_exp, functor)
+    dim, num_chains = q_t.shape
     device = q_t.device
     pos = (torch.empty((num_draws, num_chains, dim), dtype=collect_dtype,
                        device=device) if collect_positions else None)
@@ -661,18 +720,17 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
     g_out = torch.empty_like(q_t)
     lib = load_kernels("nuts_fused_small.cu")
-    err = lib.nuts_sampling_launch(
+    kind, pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp)
+    err = getattr(lib, f"nuts_sampling{kind}_launch")(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        num_draws, _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
-        _ptr(ops["y"]),
-        _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), float(step_size),
-        float(divergence_threshold), dim, num_points, num_chains, max_exp,
+        num_draws, *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense),
+        float(step_size), float(divergence_threshold), *sizes,
         _ptr(pos), int(collect_dtype == torch.bfloat16), _ptr(stats),
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]),
         *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling")
-    LAUNCHES["nuts_sampling"] += 1
+    LAUNCHES["nuts_sampling" + _cuda_functor(potential_and_grad_t)[2]] += 1
     pos_t = None if pos is None else pos.permute(0, 2, 1)
     return pos_t, stats, q_out, u_out, g_out

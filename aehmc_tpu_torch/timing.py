@@ -17,6 +17,12 @@ only)``: the operands, the rows of ε and α and the plan prepared once, the
 C launcher called directly), so the difference from the wrapper's reading
 is the wrapper's own device work.
 
+``--leapfrog`` times kernel 9 alone (``batched_leapfrog`` at 10,240 × 100,
+L 10): its kernel time with L2 cold and warm (:func:`kernel_ms`), the
+wrapper's host time a call (:func:`host_ms`) and back-to-back calls
+(:func:`cuda_ms`, which reads the larger of the two), and prints them as one
+JSON line; nothing else is timed.
+
 ``--outputs PATH`` also writes the outputs of kernels 1-8 at fixed seeds
 and inputs, float32 and with bfloat16 operands (kernels 1-7), to an
 ``.npz`` (a kernel a tree cannot run with bfloat16 data is left out), so
@@ -37,6 +43,10 @@ import torch
 
 DIM, POINTS, CHAINS, K, EPS, IMM = 100, 1000, 10_240, 6, 0.5, 0.34
 WARMUP, DRAWS, MALA_DRAWS, STEPS = 150, 200, 600, 10
+# kernel_ms: bytes read before each launch to take the launch's inputs out
+# of the 50 MB L2 (cold), launches captured in one CUDA graph, and timed
+# replays of it (the median is kept)
+FLUSH_BYTES, GRAPH_REPLAYS = 256 << 20, 5
 
 
 def cuda_ms(fn, reps):
@@ -51,6 +61,122 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(launch, reps):
+    """Device milliseconds a call of ``launch`` takes inside a CUDA graph of
+    ``reps`` calls: the median over GRAPH_REPLAYS replays, each timed with
+    CUDA events, over ``reps``.  No host time is in it; each call's reading
+    holds the graph's gap between its launches (about a microsecond on an
+    H100)."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def kernel_ms(launch, reps, cold=False):
+    """Device milliseconds of one call of ``launch`` (its kernels alone, no
+    host time), from a CUDA graph of ``reps`` calls (:func:`graph_ms`).
+    ``cold`` reads FLUSH_BYTES before each call, in the graph, so that L2
+    holds none of its inputs and no dirty line for it to write back, and
+    takes away the time of a graph of the reads alone: the difference also
+    holds the write-back of the lines the call leaves dirty in L2, which
+    the next read evicts, so every byte the call writes reaches memory in
+    it.  Otherwise its inputs stay in L2 from the call before (warm)."""
+    if not cold:
+        return graph_ms(launch, reps)
+    flush = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    total = torch.zeros((), dtype=torch.float32, device="cuda")
+
+    def read():
+        torch.sum(flush, dim=0, out=total)
+
+    def read_and_launch():
+        read()
+        launch()
+
+    return graph_ms(read_and_launch, reps) - graph_ms(read, reps)
+
+
+def host_ms(launch, reps):
+    """Mean host milliseconds a call of ``launch`` takes to return (the
+    kernel is queued, not waited for), over ``reps`` calls."""
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        launch()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
+
+
+def leapfrog_times(card):
+    """Kernel 9 at 10,240 × 100, L 10: through the wrapper, its kernel ms
+    with L2 cold and warm (:func:`kernel_ms`), the wrapper's host ms a call
+    and back-to-back ms (:func:`cuda_ms`); its C launcher alone (operands
+    prepared once) cold and warm; and, as a yardstick, ``torch.cat`` of q
+    and p (one kernel that copies the same bytes).  Each reading with the
+    SM clock just after."""
+    from aehmc_tpu_torch.ops import _build, batched_leapfrog
+
+    rng = np.random.default_rng(9)
+    q, p = (torch.tensor(rng.standard_normal((CHAINS, DIM)),
+                         dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    lam, im = (torch.linspace(a, b, DIM, device="cuda")
+               for a, b in ((0.5, 2.0), (0.8, 1.2)))
+    q_out, p_out = torch.empty_like(q), torch.empty_like(p)
+    launcher = _build.load_kernels("leapfrog.cu").batched_leapfrog_launch
+    args = (q.data_ptr(), p.data_ptr(), lam.data_ptr(), im.data_ptr(), 0.05,
+            STEPS, DIM, CHAINS, q_out.data_ptr(), p_out.data_ptr())
+
+    def k9():
+        return batched_leapfrog(q, p, lam, im, 0.05, STEPS)
+
+    def alone():  # the C launcher on the current stream (a graph's too)
+        return launcher(*args, torch.cuda.current_stream().cuda_stream)
+
+    readings = {
+        "cold_ms": lambda: kernel_ms(k9, 50, cold=True),
+        "warm_ms": lambda: kernel_ms(k9, 50),
+        "host_ms": lambda: host_ms(k9, 200),
+        "host: two outputs_ms": lambda: host_ms(
+            lambda: (torch.empty_like(q), torch.empty_like(p)), 200),
+        "host: current stream_ms": lambda: host_ms(
+            lambda: torch.cuda.current_stream(q.device).cuda_stream, 200),
+        "host: raw stream_ms": lambda: host_ms(
+            lambda: torch._C._cuda_getCurrentRawStream(q.device.index), 200),
+        "back_to_back_ms": lambda: cuda_ms(k9, 50),
+        "cat_cold_ms": lambda: kernel_ms(lambda: torch.cat([q, p]), 50,
+                                         cold=True),
+        "cat_warm_ms": lambda: kernel_ms(lambda: torch.cat([q, p]), 50),
+        "alone host_ms": lambda: host_ms(alone, 200),
+        "alone cold_ms": lambda: kernel_ms(alone, 50, cold=True),
+        "alone warm_ms": lambda: kernel_ms(alone, 50),
+    }
+    out, sm_mhz = {}, {}
+    for label, fn in readings.items():
+        out[label] = fn()
+        sm_mhz[label] = sm_clock_mhz()
+    return {"card": card, "tree": os.getcwd(), "leapfrog": out,
+            "sm_mhz": sm_mhz}
 
 
 def wall_s(fn):
@@ -126,6 +252,8 @@ def main(argv=None):
                         "fixed seeds to this .npz")
     parser.add_argument("--compare", nargs=2, metavar="NPZ",
                         help="compare two --outputs files bit for bit")
+    parser.add_argument("--leapfrog", action="store_true",
+                        help="time kernel 9 alone, and nothing else")
     args = parser.parse_args(argv)
     if args.compare:
         print(json.dumps(compare_outputs(*args.compare)), flush=True)
@@ -151,6 +279,9 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if args.leapfrog:
+        print(json.dumps(leapfrog_times(card)), flush=True)
+        return 0
     _build.build_all()
     dev = torch.device("cuda")
     # the flagship's float32 data, as bench.py measures it

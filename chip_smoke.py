@@ -11,7 +11,9 @@ logistic regression.  Then it drives the port's front door
   max_num_expansions=6 and bf16 draw storage (kernels ``nuts_transition``
   and ``nuts_sampling``);
 - phases 8-10: the GHMC kernels (``ghmc_transition``, ``ghmc_segment``) and
-  the two leapfrog kernels (``fused_logistic_hmc``, ``batched_leapfrog``);
+  the two leapfrog kernels (``fused_logistic_hmc``, ``batched_leapfrog``;
+  kernel 9's device time alone with L2 cold and warm, and its wrapper's
+  host time a call, beside the back-to-back reading);
 - phase 11, fused MALA: 150 warmup steps from ε 0.1 and 600 float32 draws
   in segments of 32 (the JAX benchmark's ``mala_10k_fused`` cell);
 - phase 12, fused GHMC at α 0.9: 150 warmup steps and 200 draws;
@@ -27,7 +29,16 @@ logistic regression.  Then it drives the port's front door
 - phase 17: the model builder's default data, bfloat16: kernels 1, 2, 5, 6
   and 7 against their plain bfloat16 versions, the fused NUTS front door on
   those data (150 + 200, phase 5's limits, means within 0.02 posterior sd
-  of phase 5's) and short MALA, GHMC and ChEES front doors on them.
+  of phase 5's) and short MALA, GHMC and ChEES front doors on them;
+- phase 18, Neal's funnel (dim 10) and phase 19, eight schools: kernels 1
+  and 2 with the ``FunnelPG`` and ``EightSchoolsPG`` functors against their
+  plain versions (single transitions at ε 0.2, K 4; the whole-run kernel
+  equal to per-draw launches bit for bit), then the fused NUTS front door
+  at the JAX benchmark's cells (``funnel_fused_adaptive``: 8,192 chains,
+  300 + 200; ``eight_schools_fused``: 2,048 chains, 500 + 500; K 10, target
+  0.85), the funnel held to the JAX gate's limits on v, eight schools' means
+  to a plain sampler's on the card (256 chains), both run twice with one
+  generator seed and equal bit for bit.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -116,6 +127,25 @@ PEAK_TF32X3 = PEAK_TF32 / 3
 GRAD_ERR_RATIO = 4.0
 GRAD_FLOP = 4 * DIM * POINTS  # X·q and Xᵀ·r, 2 FLOP per multiply-add
 DEVICE = "cuda:0"
+# phases 18-19: Neal's funnel and eight schools through the fused NUTS
+# kernels at the JAX benchmark's cells (benchmarks/run.py:783-815
+# funnel_fused_adaptive: dim 10, 8,192 chains, 300 warmup, 200 draws;
+# :1640-1673 eight_schools_fused: 2,048 chains, 500 + 500), K 10, target
+# acceptance 0.85.  Kernel against plain on single transitions at the JAX
+# test's ε 0.2 and K 4 (tests/test_nuts_fused_small.py:306-342): funnel
+# trajectories are chaotic near the neck, and expf on the card against
+# torch.exp may differ in the last bit
+FUNNEL_DIM, FUNNEL_CHAINS, FUNNEL_WARMUP, FUNNEL_DRAWS = 10, 8192, 300, 200
+SCHOOLS_CHAINS, SCHOOLS_WARMUP, SCHOOLS_DRAWS = 2048, 500, 500
+HIER_K, HIER_TARGET, HIER_EPS, HIER_CHECK_K = 10, 0.85, 0.2, 4
+HIER_DRAWS = 10               # kernel 2's timed run, and its plain version's
+# the funnel's limits, the JAX gate's (tests/test_nuts_fused_tpu.py:151-186):
+# acceptance above 0.6; v over draws 50 onward: |mean| < 0.8, |sd - 3| < 0.5
+FUNNEL_ACCEPT, FUNNEL_BURN, FUNNEL_V_MEAN, FUNNEL_V_SD = 0.6, 50, 0.8, 0.5
+# eight schools' witness: the plain sampler on the card (plain transitions,
+# the same Stan warmup), 500 + 500 at a reduced chain count (the plain
+# version walks every leaf of a block's deepest tree in PyTorch calls)
+SCHOOLS_WITNESS_CHAINS = 256
 
 
 def log(msg):
@@ -315,13 +345,14 @@ def chunked(torch, fn, x, step):
     return torch.cat([fn(x[:, :, i:i + step]) for i in range(0, x.shape[2], step)])
 
 
-def mean_mcse(torch, diagnostics, x, ess=None):
-    """Per-dimension mean and its Monte Carlo standard error (sd / √ESS) of
-    draws ``x (chains, draws, dim)``."""
-    if ess is None:
-        ess = chunked(torch, diagnostics.effective_sample_size, x, 10)
-    flat = x.reshape(-1, x.shape[2])
-    return flat.mean(dim=0), flat.std(dim=0) / torch.sqrt(ess)
+def mean_mcse(torch, diagnostics, x, with_ess=False):
+    """Per-dimension mean and its Monte Carlo standard error of draws ``x
+    (chains, draws, dim)``: ``diagnostics.mcse`` (sd with ddof 1 over √ESS),
+    chunked over dimensions; with the bulk ESS too when ``with_ess``."""
+    mcse, ess = (torch.cat(parts) for parts in zip(*(
+        diagnostics.mcse(x[:, :, i:i + 10]) for i in range(0, x.shape[2], 10))))
+    mean = x.reshape(-1, x.shape[2]).mean(dim=0)
+    return (mean, mcse, ess) if with_ess else (mean, mcse)
 
 
 def bulk_tail_ess(torch, diagnostics, x):
@@ -366,6 +397,7 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
     from aehmc_tpu_torch.ops.leapfrog import batched_leapfrog_reference
     from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
     from aehmc_tpu_torch.ops.philox import MASK32
+    from aehmc_tpu_torch.timing import host_ms, kernel_ms
 
     dev = q0.device
     rng = np.random.default_rng(8)
@@ -510,7 +542,17 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
           "kernel 9 differs from its plain version")
     ms8 = cuda_ms(torch, lambda: ops.fused_logistic_hmc(*hmc_args), 10)
     plain_ms8 = cuda_ms(torch, lambda: fused_logistic_hmc_reference(*hmc_args), 5)
-    ms9 = cuda_ms(torch, lambda: ops.batched_leapfrog(*lf_args), 50)
+
+    def launch9():
+        return ops.batched_leapfrog(*lf_args)
+
+    # kernel 9 alone on the card, L2 cold and warm (a CUDA graph of 50
+    # calls, timing.kernel_ms); the wrapper's host time per call; and
+    # back-to-back calls, which read the larger of the two
+    ms9_cold = kernel_ms(launch9, 50, cold=True)
+    ms9_warm = kernel_ms(launch9, 50)
+    host_ms9 = host_ms(launch9, 200)
+    ms9 = cuda_ms(torch, launch9, 50)
     plain_ms9 = cuda_ms(torch, lambda: batched_leapfrog_reference(*lf_args), 10)
     bound8 = bound(CHAINS * (LEAPFROG_STEPS + 1) * GRAD_FLOP,
                    nbytes(q0, lf_p, X, y, im, *k8))
@@ -520,13 +562,17 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
         f"{RAGGED} chains, L {LEAPFROG_STEPS}: max |err| {err8:.3g}; kernel "
         f"{ms8:.3f} ms, plain "
         f"{plain_ms8:.3f} ms, bound {bound8[0]:.3f} ms ({bound8[1]}); "
-        f"batched_leapfrog == plain bit for bit; kernel {ms9 * 1e3:.1f} us, "
-        f"plain {plain_ms9 * 1e3:.1f} us, bound {bound9[0] * 1e3:.1f} us "
-        f"({bound9[1]}) [{card}]")
+        f"batched_leapfrog == plain bit for bit; kernel {ms9_cold * 1e3:.2f} "
+        f"us alone with L2 cold, {ms9_warm * 1e3:.2f} us warm, the wrapper "
+        f"{host_ms9 * 1e3:.2f} us of host time a call, back-to-back calls "
+        f"{ms9 * 1e3:.2f} us; plain {plain_ms9 * 1e3:.1f} us, bound "
+        f"{bound9[0] * 1e3:.2f} us ({bound9[1]}) [{card}]")
     record["phase10"] = dict(err8=err8, ms8=ms8, plain_ms8=plain_ms8,
                              bound_ms8=bound8[0],
                              bound_ms8_cuda_cores=bound8[2], ms9=ms9,
-                             plain_ms9=plain_ms9, bound_ms9=bound9[0])
+                             ms9_cold=ms9_cold, ms9_warm=ms9_warm,
+                             host_ms9=host_ms9, plain_ms9=plain_ms9,
+                             bound_ms9=bound9[0])
 
     # ---- phase 11: the MALA front door at full width
     front = dict(data=data, potential_fn_t=pot, potential_and_grad_t=pg,
@@ -628,10 +674,12 @@ def ghmc_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                      "aehmc_tpu/ops/fused_hmc.py:82",
                      leapfrog_launches["fused_logistic_hmc"], err8, ms8,
                      plain_ms8, bound8),
-        kernel_entry("batched_leapfrog", "leapfrog.cu",
-                     "aehmc_tpu/ops/leapfrog.py:68",
-                     leapfrog_launches["batched_leapfrog"], 0.0, ms9,
-                     plain_ms9, bound9),
+        dict(kernel_entry("batched_leapfrog", "leapfrog.cu",
+                          "aehmc_tpu/ops/leapfrog.py:68",
+                          leapfrog_launches["batched_leapfrog"], 0.0,
+                          ms9_cold, plain_ms9, bound9),
+             ms_warm=ms9_warm, host_ms_per_call=host_ms9,
+             ms_back_to_back=ms9),
     ]
 
 
@@ -1417,6 +1465,381 @@ def extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
         hold_front_door(out, f"{what} (seed {seed})", accept_range)
 
 
+# potential+gradient operations per chain and leaf, besides the leapfrog's
+# and the kinetic energy's 10 per dimension: the funnel 3(d − 1) + 13, eight
+# schools 16 per school + 15 (counted from csrc/hierarchical_pg.cuh)
+HIER_PG_FLOP = {"funnel": lambda d: 3 * (d - 1) + 13,
+                "eight_schools": lambda d: 16 * (d - 2) + 15}
+
+
+def hier_start(torch, dim, chains, seed):
+    """(dim, chains) float32 positions from N(0, 1) on the card."""
+    return torch.tensor(np.random.default_rng(seed).standard_normal(
+        (dim, chains)), dtype=torch.float32, device=DEVICE)
+
+
+def hier_kernel_checks(torch, nfs, name, model, q_t, imm, eps, k, seed):
+    """Kernel 1 with the model's functor against the plain transition
+    (external and Philox randomness), and kernel 2 over 5 draws equal to 5
+    launches of kernel 1 bit for bit, each draw against the plain transition
+    from the kernel's own state (single transitions: over chained draws
+    the funnel's chaos carries a last-bit difference into the next draw's
+    start); from positions ``q_t`` (dim, C) at step size ``eps``, diagonal
+    inverse mass ``imm`` and K ``k``.  Returns (least share, largest |Δq|,
+    chain-cases that differ)."""
+    from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
+    from aehmc_tpu_torch.ops.philox import MASK32
+
+    pot, pg, data, _ = model
+    dim, chains = q_t.shape
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=DEVICE)
+
+    u0, g0 = pg(q_t, *data)
+    # momentum from N(0, M), M = 1 / imm (diagonal), as the samplers draw it
+    ext = dict(momentum=f32(rng.standard_normal((dim, chains)))
+               / imm.reshape(dim, 1).sqrt(),
+               directions=f32(np.where(rng.uniform(size=(k, chains)) < 0.5,
+                                       -1.0, 1.0)),
+               u_bias=f32(rng.uniform(size=(k, chains))),
+               u_leaf=f32(rng.uniform(size=(2**k, chains))))
+    pot_grad = lambda x: pg(x, *data)  # noqa: E731
+    out = []
+    for rand in (ext, dict(seed=seed)):
+        kern = nfs.nuts_transition_cuda(q_t, u0, g0, imm, eps, data,
+                                        max_exp=k, potential_and_grad_t=pg,
+                                        **rand)
+        plain = nfs.nuts_transition_plain(q_t, u0, g0, imm, eps,
+                                          pot_grad, max_exp=k, **rand)
+        torch.cuda.synchronize()
+        out.append(compare(kern, plain, f"kernel 1 ({name}, "
+                           f"{'Philox' if 'seed' in rand else 'external'})"))
+    n2, seed2 = 5, seed + 1
+    pos, stats, *final = nfs.nuts_sampling_cuda(
+        q_t, u0, g0, imm, eps, data, seed2, n2, max_exp=k,
+        potential_and_grad_t=pg)
+    state = (q_t, u0, g0)
+    for t in range(n2):
+        s_t = (seed2 + t * DRAW_SEED_STRIDE) & MASK32
+        plain = nfs.nuts_transition_plain(*state, imm, eps, pot_grad,
+                                          max_exp=k, seed=s_t)
+        *state, st = nfs.nuts_transition_cuda(
+            *state, imm, eps, data, max_exp=k, seed=s_t,
+            potential_and_grad_t=pg)
+        check(torch.equal(st, stats[t]) and torch.equal(state[0], pos[t]),
+              f"kernel 2 ({name}) draw {t} differs from kernel 1")
+        out.append(compare((*state, st), plain,
+                           f"kernel 2 ({name}) draw {t} vs plain"))
+    check(all(torch.equal(a, b) for a, b in zip(final, state)),
+          f"kernel 2 ({name}) final state differs from kernel 1")
+    return (min(s for s, _, _ in out), max(e for _, e, _ in out),
+            sum(d for _, _, d in out))
+
+
+def hier_front_door(torch, ops, diagnostics, name, model, chains, warmup,
+                    draws, seed):
+    """The fused NUTS front door at a JAX benchmark cell, twice with the
+    same generator seed (launch counts and positions must agree bit for
+    bit), then its warmup and sampling timed apart (warmup_fused over
+    kernel 1, sample_fused_small in one launch of kernel 2).  Returns the
+    first run's result, its measurements and the timed split's."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import warmup_fused
+
+    pot, pg, data, ex = model
+    dim = ex.shape[0]
+    rng = np.random.default_rng(seed)
+    q0 = torch.tensor(0.1 * rng.standard_normal((chains, dim)),
+                      dtype=torch.float32, device=DEVICE)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(seed), None, q0, draws, warmup,
+            algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, max_num_expansions=HIER_K,
+            target_acceptance_rate=HIER_TARGET)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, dict(ops.LAUNCHES), res))
+    (wall, launches, res), (wall_b, launches_b, res_b) = runs
+    want = {f"nuts_transition_{name}": warmup, f"nuts_sampling_{name}": 1}
+    check({k: v for k, v in launches.items() if v} == want
+          and launches_b == launches,
+          f"{name} front door launches {launches}, then {launches_b}")
+    same = (torch.equal(res.positions, res_b.positions)
+            and torch.equal(res.final_state, res_b.final_state))
+    check(same, f"{name}: the same generator seed gave other positions")
+    del res_b
+
+    q0_t = q0.T.contiguous()
+    u0, g0 = pg(q0_t, *data)
+    transition = nfs.make_fused_nuts_transition_small(
+        pot, data, max_num_expansions=HIER_K, potential_and_grad_t=pg,
+        transposed_io=True)
+    t_warm, ((qw, _, _), eps_w, imm_w) = timed(
+        torch, lambda r: warmup_fused(
+            torch.Generator().manual_seed(seed + 1), transition, q0,
+            u0.T.contiguous(), g0.T.contiguous(), warmup,
+            max_num_expansions=HIER_K, target_acceptance_rate=HIER_TARGET),
+        1)
+    t_samp, (_, pos_s, stats_s) = timed(
+        torch, lambda r: nfs.sample_fused_small(
+            torch.Generator().manual_seed(seed + 2), pot, data, qw, draws,
+            eps_w, imm_w, max_num_expansions=HIER_K, potential_and_grad_t=pg,
+            loop_in_kernel=True), 1)
+    evals = float(stats_s[:, :, 3].sum())
+    bulk, tail = bulk_tail_ess(torch, diagnostics, pos_s.transpose(0, 1))
+    ess = float(torch.minimum(bulk, tail).clamp(max=chains * draws).sum())
+    diag = res.diagnostics
+    out = dict(
+        wall_s=wall, wall_s_again=wall_b, launches=launches, same_seed=same,
+        accept=float(diag.acceptance_probability.mean()),
+        divergences=int(diag.is_diverging.sum()),
+        divergent_share=float(diag.is_diverging.float().mean()),
+        step_size=float(res.step_size),
+        mean_leaves=float(diag.num_integration_steps.float().mean()),
+        finite=bool(torch.isfinite(res.positions).all()),
+        warmup_wall_s=t_warm, sampling_wall_s=t_samp,
+        grad_evals_per_s=evals / t_samp, sampling_ess_per_s=ess / t_samp,
+        e2e_ess_per_s=ess / (t_warm + t_samp),
+        timed_divergences=int(stats_s[:, :, 4].sum()),
+        bulk_ess_min=float(bulk.min()), tail_ess_min=float(tail.min()))
+    return res, out
+
+
+def hier_times(torch, nfs, name, model, res, seed):
+    """Kernels 1 and 2 with the model's functor at the front door's shapes
+    (its chains, K HIER_K, its tuned ε and M⁻¹, from its final state): held
+    against their plain versions (:func:`hier_kernel_checks`, seeds from
+    ``seed``), timed (their own time on the card) with them, and their
+    bounds.  Returns ((ms, plain ms, bound) of kernel 1, the same of kernel
+    2 over HIER_DRAWS draws, the lockstep ratio of kernel 1's tree sizes
+    (what sort_by_depth would recover), and hier_kernel_checks' result)."""
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    pot, pg, data, ex = model
+    dim = ex.shape[0]
+    q_t = res.final_state.T.contiguous()
+    u, g = pg(q_t, *data)
+    imm, eps = res.inverse_mass_matrix, float(res.step_size)
+    pot_grad = lambda x: pg(x, *data)  # noqa: E731
+
+    def k1():
+        return nfs.nuts_transition_cuda(q_t, u, g, imm, eps, data,
+                                        max_exp=HIER_K, seed=11,
+                                        potential_and_grad_t=pg)
+
+    def p1():
+        return nfs.nuts_transition_plain(q_t, u, g, imm, eps, pot_grad,
+                                         max_exp=HIER_K, seed=11)
+
+    def k2():
+        return nfs.nuts_sampling_cuda(q_t, u, g, imm, eps, data, 5,
+                                      HIER_DRAWS, max_exp=HIER_K,
+                                      potential_and_grad_t=pg)
+
+    def p2():
+        return nfs._sampling_plain(
+            pot_grad, q_t, u, g, imm, eps, 5, HIER_DRAWS, max_exp=HIER_K,
+            divergence_threshold=1000.0, collect_positions=True,
+            collect_dtype=torch.float32)
+
+    per_leaf = HIER_PG_FLOP[name](dim) + 10 * dim
+    checks = hier_kernel_checks(torch, nfs, f"{name} at the tuned state",
+                                model, q_t, imm, eps, HIER_K, seed)
+    out1, out2 = k1(), k2()
+    steps = lockstep(out1[3][3])
+    b1 = bound(float(out1[3][3].sum()) * per_leaf,
+               nbytes(q_t, u, g, imm, *out1), PEAK_F32)
+    b2 = bound(float(out2[1][:, 3].sum()) * per_leaf,
+               nbytes(q_t, u, g, imm, *out2), PEAK_F32)
+    # each kernel's own time from a CUDA graph of its launches: at eight
+    # schools' size a launch can take less than its wrapper's host time,
+    # which back-to-back CUDA events would read instead
+    ms1, ms2 = kernel_ms(k1, 10), kernel_ms(k2, 5)
+    return ((ms1, cuda_ms(torch, p1, 1), b1),
+            (ms2, cuda_ms(torch, p2, 1), b2), steps, checks)
+
+
+def hier_entries(name, launches, err, times):
+    """The ``kernels`` line's entries of kernels 1 and 2 with the model's
+    functor (8 chains a block, no X tile)."""
+    out = []
+    for kernel, line, (ms, plain_ms, bnd) in (
+            ("nuts_transition", 459, times[0]),
+            ("nuts_sampling", 545, times[1])):
+        entry = kernel_entry(f"{kernel}_{name}", "nuts_fused_small.cu",
+                             f"aehmc_tpu/ops/nuts_fused_small.py:{line}",
+                             launches[f"{kernel}_{name}"], err, ms, plain_ms,
+                             bnd)
+        out.append(dict(entry, chains_per_block=8))
+    return out
+
+
+def hierarchical_phases(torch, ops, diagnostics, record, card):
+    """Phases 18 (Neal's funnel) and 19 (eight schools): kernels 1 and 2
+    with the FunnelPG and EightSchoolsPG functors against their plain
+    versions, then the fused NUTS front door at the JAX benchmark's cells,
+    held to the JAX gate's limits (the funnel) and to the means of a plain
+    sampler on the card (eight schools).  Returns the four instantiations'
+    entries of the ``kernels`` line."""
+    from aehmc_tpu_torch.models import eight_schools_pg_t, neals_funnel_pg_t
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import warmup_fused
+    from aehmc_tpu_torch.ops.nuts_fused import derive_draw_seeds
+
+    entries = []
+    # ---- phase 18: Neal's funnel, funnel_fused_adaptive's cell
+    funnel = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
+    share, err, differ = hier_kernel_checks(
+        torch, nfs, "funnel", funnel, hier_start(torch, FUNNEL_DIM,
+                                                  FUNNEL_CHAINS, 1800),
+        torch.ones(FUNNEL_DIM, device=DEVICE), HIER_EPS, HIER_CHECK_K, 1801)
+    res, run = hier_front_door(torch, ops, diagnostics, "funnel", funnel,
+                               FUNNEL_CHAINS, FUNNEL_WARMUP, FUNNEL_DRAWS,
+                               181)
+    v = res.positions[FUNNEL_BURN:, :, 0].float()
+    v_mean, v_sd = float(v.mean()), float(v.std(correction=0))
+    times = hier_times(torch, nfs, "funnel", funnel, res, 1802)
+    del res, v
+    log(f"phase 18: Neal's funnel (dim {FUNNEL_DIM}): kernels 1 and 2 "
+        f"(FunnelPG) vs plain at {FUNNEL_CHAINS} chains, eps {HIER_EPS}, "
+        f"K {HIER_CHECK_K}: decisions equal on >= {share:.4%} of chains "
+        f"({differ} chain-cases differ), max |q| err {err:.3g}; kernel 2 == "
+        f"per-draw kernel 1 bit for bit; front door {FUNNEL_CHAINS} chains, "
+        f"{FUNNEL_WARMUP} warmup + {FUNNEL_DRAWS} draws, K {HIER_K}, target "
+        f"{HIER_TARGET}: {run['wall_s']:.2f} s (again {run['wall_s_again']:.2f}"
+        f" s, positions equal bit for bit), launches {run['launches']}; "
+        f"accept {run['accept']:.4f}, eps {run['step_size']:.4f}, mean leaves "
+        f"{run['mean_leaves']:.1f}, {run['divergences']} divergences "
+        f"({run['divergent_share']:.2e}); v over draws {FUNNEL_BURN}+: mean "
+        f"{v_mean:.3f}, sd {v_sd:.3f}; timed: warmup {run['warmup_wall_s']:.3f}"
+        f" s, sampling {run['sampling_wall_s']:.3f} s, "
+        f"{run['grad_evals_per_s'] / 1e6:.2f}M grad-evals/s, "
+        f"{run['sampling_ess_per_s'] / 1e6:.3f}M ESS/s sampling, "
+        f"{run['e2e_ess_per_s'] / 1e6:.3f}M ESS/s end to end "
+        f"({run['timed_divergences']} divergences); kernel 1 "
+        f"{times[0][0]:.3f} ms (plain {times[0][1]:.1f} ms), kernel 2 "
+        f"{times[1][0]:.2f} ms (plain {times[1][1]:.1f} ms) per {HIER_DRAWS} "
+        f"draws at the tuned state, where kernels 1 and 2 against plain "
+        f"(single transitions, K {HIER_K}; kernel 2 == per-draw kernel 1 bit "
+        f"for bit) agree on >= {times[3][0]:.4%} of decisions ({times[3][2]} "
+        f"chain-cases differ), max |q| err {times[3][1]:.3g}; lockstep ratio "
+        f"of kernel 1's tree sizes "
+        f"for groups of " + ", ".join(f"{g}: {r:.4f}"
+                                      for g, r in times[2].items())
+        + f" [{card}]")
+    record["phase18"] = dict(share=share, max_abs_err=err, differ=differ,
+                             v_mean=v_mean, v_sd=v_sd, **run,
+                             ms1=times[0][0], plain_ms1=times[0][1],
+                             bound_ms1=times[0][2][0], ms2=times[1][0],
+                             plain_ms2=times[1][1], bound_ms2=times[1][2][0],
+                             lockstep=times[2], tuned_share=times[3][0],
+                             tuned_max_abs_err=times[3][1],
+                             tuned_differ=times[3][2])
+    check(run["accept"] > FUNNEL_ACCEPT,
+          f"funnel mean acceptance {run['accept']}")
+    check(abs(v_mean) < FUNNEL_V_MEAN, f"funnel mean of v {v_mean}")
+    check(abs(v_sd - 3.0) < FUNNEL_V_SD, f"funnel sd of v {v_sd}")
+    check(run["finite"], "funnel: non-finite draws")
+    entries += hier_entries("funnel", run["launches"], max(err, times[3][1]),
+                            times)
+
+    # ---- phase 19: eight schools, eight_schools_fused's cell
+    schools = eight_schools_pg_t(device=DEVICE)
+    pot, pg, data, _ = schools
+    share, err, differ = hier_kernel_checks(
+        torch, nfs, "eight_schools", schools, hier_start(torch, 10,
+                                                        SCHOOLS_CHAINS, 1900),
+        torch.ones(10, device=DEVICE), HIER_EPS, HIER_CHECK_K, 1901)
+    res, run = hier_front_door(torch, ops, diagnostics, "eight_schools",
+                               schools, SCHOOLS_CHAINS, SCHOOLS_WARMUP,
+                               SCHOOLS_DRAWS, 191)
+    times = hier_times(torch, nfs, "eight_schools", schools, res, 1902)
+    # the witness: plain transitions on the card, the same warmup and draws
+    pot_grad = lambda x: pg(x, *data)  # noqa: E731
+
+    def plain_transition(q, u, g, p, dirs, ub, ul, imm_, eps_, seed=None):
+        return nfs.nuts_transition_plain(
+            q, u, g, imm_, eps_, pot_grad, max_exp=HIER_K, momentum=p,
+            directions=dirs, u_bias=ub, u_leaf=ul, seed=seed)
+
+    n_w = SCHOOLS_WITNESS_CHAINS
+    q_w = res.positions.new_tensor(0.1 * np.random.default_rng(192)
+                                   .standard_normal((n_w, 10)))
+    u_w, g_w = pg(q_w.T.contiguous(), *data)
+    gen_w = torch.Generator().manual_seed(193)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (qw, uw, gw), eps_w, imm_w = warmup_fused(
+        gen_w, plain_transition, q_w, u_w.T, g_w.T, SCHOOLS_WARMUP,
+        max_num_expansions=HIER_K, target_acceptance_rate=HIER_TARGET)
+    pos_w, stats_w, _, _, _ = nfs._sampling_plain(
+        pot_grad, qw.T.contiguous(), uw.T, gw.T.contiguous(), imm_w, eps_w,
+        derive_draw_seeds(gen_w, 1)[0], SCHOOLS_DRAWS, max_exp=HIER_K,
+        divergence_threshold=1000.0, collect_positions=True,
+        collect_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall_w = time.perf_counter() - t0
+    witness = mean_mcse(torch, diagnostics, pos_w.permute(2, 0, 1).double())
+    mean, mcse = mean_mcse(torch, diagnostics,
+                           res.positions.transpose(0, 1).double())
+    z = float(((mean - witness[0]).abs()
+               / torch.sqrt(mcse**2 + witness[1]**2)).max())
+    mu = res.positions[:, :, 0].float()
+    log(f"phase 19: eight schools: kernels 1 and 2 (EightSchoolsPG) vs plain "
+        f"at {SCHOOLS_CHAINS} chains, eps {HIER_EPS}, K {HIER_CHECK_K}: "
+        f"decisions equal on >= {share:.4%} of chains ({differ} chain-cases "
+        f"differ), max |q| err {err:.3g}; kernel 2 == per-draw kernel 1 bit "
+        f"for bit; front door {SCHOOLS_CHAINS} chains, {SCHOOLS_WARMUP} "
+        f"warmup + {SCHOOLS_DRAWS} draws, K {HIER_K}, target {HIER_TARGET}: "
+        f"{run['wall_s']:.2f} s (again {run['wall_s_again']:.2f} s, positions "
+        f"equal bit for bit), launches {run['launches']}; accept "
+        f"{run['accept']:.4f}, eps {run['step_size']:.4f}, mean leaves "
+        f"{run['mean_leaves']:.1f}, {run['divergences']} divergences "
+        f"({run['divergent_share']:.2e}); mu {float(mu.mean()):.3f} +- "
+        f"{float(mu.std()):.3f}; means within {z:.2f} combined MCSE of the "
+        f"plain sampler's ({n_w} chains, {SCHOOLS_WARMUP} + {SCHOOLS_DRAWS}, "
+        f"{wall_w:.1f} s, {int(stats_w[:, 4].sum())} divergences); timed: "
+        f"warmup {run['warmup_wall_s']:.3f} s, sampling "
+        f"{run['sampling_wall_s']:.3f} s, {run['grad_evals_per_s'] / 1e6:.2f}M"
+        f" grad-evals/s, {run['sampling_ess_per_s'] / 1e6:.3f}M ESS/s "
+        f"sampling, {run['e2e_ess_per_s'] / 1e6:.3f}M ESS/s end to end "
+        f"({run['timed_divergences']} divergences); kernel 1 "
+        f"{times[0][0]:.3f} ms (plain {times[0][1]:.1f} ms), kernel 2 "
+        f"{times[1][0]:.2f} ms (plain {times[1][1]:.1f} ms) per {HIER_DRAWS} "
+        f"draws at the tuned state, where kernels 1 and 2 against plain "
+        f"(single transitions, K {HIER_K}; kernel 2 == per-draw kernel 1 bit "
+        f"for bit) agree on >= {times[3][0]:.4%} of decisions ({times[3][2]} "
+        f"chain-cases differ), max |q| err {times[3][1]:.3g}; lockstep ratio "
+        f"of kernel 1's tree sizes "
+        f"for groups of " + ", ".join(f"{g}: {r:.4f}"
+                                      for g, r in times[2].items())
+        + f" [{card}]")
+    record["phase19"] = dict(share=share, max_abs_err=err, differ=differ,
+                             max_z_vs_witness=z, witness_chains=n_w,
+                             witness_wall_s=wall_w,
+                             witness_divergences=int(stats_w[:, 4].sum()),
+                             mu_mean=float(mu.mean()), **run,
+                             ms1=times[0][0], plain_ms1=times[0][1],
+                             bound_ms1=times[0][2][0], ms2=times[1][0],
+                             plain_ms2=times[1][1], bound_ms2=times[1][2][0],
+                             lockstep=times[2], tuned_share=times[3][0],
+                             tuned_max_abs_err=times[3][1],
+                             tuned_differ=times[3][2])
+    check(z < MCSE_Z, f"eight schools means differ from the plain sampler's "
+          f"by {z} MCSE")
+    check(run["finite"], "eight schools: non-finite draws")
+    entries += hier_entries("eight_schools", run["launches"], max(err, times[3][1]),
+                            times)
+    return entries
+
+
 def nuts_limits(torch, diagnostics, positions, accept, divergent, step_size,
                 nuts_mean, what, bias_sd=None, witness=None):
     """Phase 5's limits on a NUTS run (``accept`` and ``divergent`` per draw
@@ -1467,11 +1890,10 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what,
     x = res.positions.float().transpose(0, 1)  # (chains, draws, dim)
     rhat = chunked(torch, lambda v: diagnostics.potential_scale_reduction(
         v, rank_normalized=True), x, 20)
-    ess = chunked(torch, diagnostics.effective_sample_size, x, 10)
+    mean, mcse, ess = mean_mcse(torch, diagnostics, x, with_ess=True)
     n = x.shape[1] // 2  # draws per split chain
     tau = x.shape[0] * 2 * n / ess
     excess = rhat - torch.sqrt((n - 1) / (n - tau))
-    mean, mcse = mean_mcse(torch, diagnostics, x, ess)
     z = (mean - nuts_mean[0]).abs() / torch.sqrt(mcse**2 + nuts_mean[1]**2)
     out = dict(
         accept=float(diag.acceptance_probability.mean()),
@@ -1583,6 +2005,21 @@ def main():
                              if plan else "")
             + f"ptxas {regs} registers, {spill} B spill stores (the most "
             f"over its instantiations)" + occ)
+    # kernels 1 and 2 with the hierarchical functors (no X tile), at the
+    # funnel's and eight schools' dim 10 and K HIER_K
+    lib = _build.load_kernels("nuts_fused_small.cu")
+    for number, name in ((1, "funnel"), (2, "eight_schools")):
+        plan = launch_plan("nuts", FUNNEL_DIM, HIER_K, FUNNEL_CHAINS,
+                           functor=name)
+        per_sm = {kind: lib.nuts_pot_blocks_per_sm(number, sampling, plan.smem)
+                  for kind, sampling in (("transition", 0), ("sampling", 1))}
+        geometry[f"nuts_{name}"] = dict(smem_bytes=plan.smem, **per_sm)
+        log(f"  nuts_transition_{name}, nuts_sampling_{name}: "
+            f"{plan.blocks} blocks of {plan.chains} chains at dim "
+            f"{FUNNEL_DIM}, no X tile, {plan.smem} B of shared memory a block; "
+            f"blocks per SM {per_sm}")
+        check(min(per_sm.values()) >= 2,
+              f"{name}: fewer than two blocks per SM {per_sm}")
     nuts_plan = launch_plan("nuts", DIM, K, CHAINS)
     check((nuts_plan.points, nuts_plan.smem) == (128, 111_792),
           f"NUTS plan at dim {DIM}, K {K}: {nuts_plan}")
@@ -1845,6 +2282,7 @@ def main():
     bf16_phases(torch, ops, diagnostics, q0, record, nuts_mean, card)
     extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
                     nuts_mean, card, EXTRA_SEEDS)
+    hierarchical = hierarchical_phases(torch, ops, diagnostics, record, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -1854,6 +2292,7 @@ def main():
         kernel_entry("nuts_sampling", "nuts_fused_small.cu",
                      "aehmc_tpu/ops/nuts_fused_small.py:545",
                      launches["nuts_sampling"], err4, ms2, plain_ms2, bound2),
+        *hierarchical,
         *standard,
         *ghmc[:2],
         chees_entry,

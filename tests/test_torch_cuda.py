@@ -158,6 +158,10 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
         potential_and_grad_t=pg, collect_dtype=torch.bfloat16,
     )
     assert LAUNCHES == {"nuts_transition": 30, "nuts_sampling": 1,
+                        "nuts_transition_funnel": 0,
+                        "nuts_sampling_funnel": 0,
+                        "nuts_transition_eight_schools": 0,
+                        "nuts_sampling_eight_schools": 0,
                         "nuts_transition_std": 0, "nuts_sampling_std": 0,
                         "chees_transition": 0, "ghmc_transition": 0,
                         "ghmc_segment": 0, "fused_logistic_hmc": 0,
@@ -955,3 +959,217 @@ def test_cuda_hmc_instantiations_hold_two_blocks_per_sm(cuda_device):
         assert leap.fused_hmc_blocks_per_sm(16, plan.smem) >= 2, dim
     # a chain count the kernels were not built for is refused
     assert ghmc.ghmc_blocks_per_sm(0, 0, 16, plan.smem) == -1
+
+
+# ---- kernel 9 redesigned (float4 columns fixed per thread, several rows a
+# thread, a scalar path for other dims and unaligned rows) and kernels 1
+# and 2 with the hierarchical functors (no X tile)
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim, chains", [(100, 10_240), (100, 41), (100, 1),
+                                         (7, 145), (7, 3), (1, 1025),
+                                         (4, 257), (1028, 9)])
+def test_cuda_batched_leapfrog_equals_plain_bit_for_bit(cuda_device, dim,
+                                                        chains):
+    """At the float4 path (dim % 4 == 0), the scalar path and across the
+    rows a block takes (40 at dim 100, 144 at dim 7, 1,024 at dim 1)."""
+    rng = np.random.default_rng(dim + chains)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    q, p = (f32(rng.normal(size=(chains, dim))) for _ in range(2))
+    lam, im = f32(rng.uniform(0.5, 2.0, dim)), f32(rng.uniform(0.8, 1.2, dim))
+    for steps in (0, 1, 10):
+        out = aehmc_tpu_torch.ops.batched_leapfrog(q, p, lam, im, 0.05, steps)
+        ref = batched_leapfrog_reference(q, p, lam, im, 0.05, steps)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.gpu
+def test_cuda_batched_leapfrog_rows_not_16_byte_aligned(cuda_device):
+    """Contiguous operands that start 4 bytes past a 16-byte boundary take
+    the scalar path, bit for bit."""
+    rng = np.random.default_rng(5)
+    chains, dim = 333, 100
+    buf = torch.tensor(rng.normal(size=2 * chains * dim + 1),
+                       dtype=torch.float32, device=cuda_device)
+    q = buf[1:1 + chains * dim].view(chains, dim)
+    p = buf[1 + chains * dim:].view(chains, dim)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    lam = torch.linspace(0.5, 2.0, dim, device=cuda_device)
+    im = torch.linspace(0.8, 1.2, dim, device=cuda_device)
+    out = aehmc_tpu_torch.ops.batched_leapfrog(q, p, lam, im, 0.1, 6)
+    ref = batched_leapfrog_reference(q, p, lam, im, 0.1, 6)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+def _hier_case(device, model, chains=256, seed=0):
+    from aehmc_tpu_torch.models import eight_schools_pg_t, neals_funnel_pg_t
+
+    if model == "funnel":
+        pot, pg, data, ex = neals_funnel_pg_t(10, device=device)
+    else:
+        pot, pg, data, ex = eight_schools_pg_t(device=device)
+    dim = ex.shape[0]
+    rng = np.random.default_rng(seed)
+    q_t = torch.tensor(rng.normal(size=(dim, chains)), dtype=torch.float32,
+                       device=device)
+    u0, g0 = pg(q_t, *data)
+    return pot, pg, data, q_t, u0, g0
+
+
+def _same_decisions_share(sk, sp):
+    shape = (sk[..., 2:6, :] == sp[..., 2:6, :]).all(dim=-2)
+    energy = (sk[..., 0, :] - sp[..., 0, :]).abs() <= 1e-5 * sp[..., 0, :].abs(
+    ).clamp(min=1.0)
+    same = shape & energy
+    while same.ndim > 1:
+        same = same.all(dim=0)
+    return same
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["funnel", "eight_schools"])
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_hierarchical_transition_matches_plain(cuda_device, model,
+                                                    dense, philox):
+    """Kernel 1 with FunnelPG / EightSchoolsPG against the plain transition
+    at ε 0.2 and K 4: decisions equal on ≥ 99% of chains, q and ∇U within
+    1e-4 on those (expf against torch.exp and another sum order)."""
+    _, pg, data, q_t, u0, g0 = _hier_case(cuda_device, model)
+    dim, chains = q_t.shape
+    rng = np.random.default_rng(1)
+    if dense:
+        A = rng.normal(size=(dim, dim))
+        imm = A @ A.T / dim + np.eye(dim)
+    else:
+        imm = np.full(dim, 0.9)
+    imm = torch.tensor(imm, dtype=torch.float32, device=cuda_device)
+    k = 4
+    ext = {n: torch.tensor(v, dtype=torch.float32, device=cuda_device)
+           for n, v in dict(
+               momentum=rng.normal(size=(dim, chains)),
+               directions=np.where(rng.uniform(size=(k, chains)) < 0.5, -1.0,
+                                   1.0),
+               u_bias=rng.uniform(size=(k, chains)),
+               u_leaf=rng.uniform(size=(2**k, chains))).items()}
+    streams = dict(seed=99) if philox else ext
+    reset_launch_counts()
+    kern = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=k, potential_and_grad_t=pg,
+        transposed_io=True,
+    )(q_t, u0, g0, ext["momentum"], ext["directions"], ext["u_bias"],
+      ext["u_leaf"], imm, 0.2, seed=streams.get("seed"))
+    plain = nuts_transition_plain(q_t, u0, g0, imm, 0.2,
+                                  lambda x: pg(x, *data), max_exp=k,
+                                  **streams)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"nuts_transition_{model}"] == 1
+    assert LAUNCHES["nuts_transition"] == 0
+    same = _same_decisions_share(kern[3], plain[3])
+    assert float(same.float().mean()) >= 0.99
+    for a, b in zip(kern[:3], plain[:3]):
+        np.testing.assert_allclose(a[..., same].cpu(), b[..., same].cpu(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["funnel", "eight_schools"])
+def test_cuda_hierarchical_whole_run_equals_per_draw_launches(cuda_device,
+                                                              model):
+    """Kernel 2 with each functor equals one launch of kernel 1 per draw bit
+    for bit, at a chain count off the block (13), with a bfloat16 store that
+    is the rounding of the float32 one; each draw agrees with the plain
+    transition from the kernel's own state."""
+    _, pg, data, q_t, u0, g0 = _hier_case(cuda_device, model, chains=13)
+    imm = torch.full((q_t.shape[0],), 0.8, device=cuda_device)
+    draws, k = 5, 6
+    pos, stats, qf, uf, gf = _fused_sampling_call_t(
+        None, pg, data, q_t, u0, g0, imm, 0.2, 7, draws,
+        max_num_expansions=k,
+    )
+    pos16 = _fused_sampling_call_t(
+        None, pg, data, q_t, u0, g0, imm, 0.2, 7, draws,
+        max_num_expansions=k, collect_dtype=torch.bfloat16)[0]
+    assert torch.equal(pos16, pos.to(torch.bfloat16))
+    transition = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=k, potential_and_grad_t=pg,
+        transposed_io=True,
+    )
+    q, u, g = q_t, u0, g0
+    for t in range(draws):
+        seed = (7 + t * DRAW_SEED_STRIDE) & MASK32
+        plain = nuts_transition_plain(q, u, g, imm, 0.2,
+                                      lambda x: pg(x, *data), max_exp=k,
+                                      seed=seed)
+        q, u, g, st = transition(q, u, g, None, None, None, None, imm, 0.2,
+                                 seed=seed)
+        assert torch.equal(st, stats[t]) and torch.equal(q, pos[t])
+        same = _same_decisions_share(st, plain[3])
+        assert float(same.float().mean()) >= 0.99
+        np.testing.assert_allclose(q[:, same].cpu(), plain[0][:, same].cpu(),
+                                   rtol=1e-4, atol=1e-4)
+    assert torch.equal(q, qf) and torch.equal(u, uf) and torch.equal(g, gf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["funnel", "eight_schools"])
+def test_front_door_runs_the_hierarchical_models_on_the_card(cuda_device,
+                                                             model):
+    pot, pg, data, q_t, _, _ = _hier_case(cuda_device, model)
+    gen = torch.Generator().manual_seed(3)
+    reset_launch_counts()
+    res = aehmc_tpu_torch.sample(
+        gen, None, 0.1 * q_t.T.contiguous(), 30, 40, algorithm="nuts",
+        path="fused", data=data, potential_fn_t=pot, potential_and_grad_t=pg,
+        max_num_expansions=8, target_acceptance_rate=0.85)
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    assert launched == {f"nuts_transition_{model}": 40,
+                        f"nuts_sampling_{model}": 1}
+    assert res.positions.is_cuda
+    assert bool(torch.isfinite(res.positions).all())
+
+
+@pytest.mark.gpu
+def test_cuda_hierarchical_kernels_refuse_a_tile_and_wrong_data(cuda_device):
+    """The launchers check the functor's own geometry and data: a plan with
+    an X tile, or eight schools' data of another length, never launch."""
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+
+    _, pg, data, q_t, u0, g0 = _hier_case(cuda_device, "eight_schools",
+                                          chains=16)
+    imm = torch.full((10,), 0.8, device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
+        nfs.nuts_transition_cuda(q_t, u0, g0, imm, 0.2, (data[0][:7],
+                                                         data[1][:7]),
+                                 max_exp=4, seed=1,
+                                 potential_and_grad_t=pg)
+    lib = load_kernels("nuts_fused_small.cu")
+    plan = launch_plan("nuts", 10, 4, 16, functor="eight_schools")
+    ops, dense, ms, _ = nfs._cuda_operands(q_t, u0, g0, imm, data, 4,
+                                           "eight_schools")
+    outs = [torch.empty_like(q_t), torch.empty_like(u0), torch.empty_like(g0),
+            torch.empty((8, 16), device=cuda_device)]
+    for points, stride in ((128, 12), (0, 0)):
+        J = 8 if points else 7
+        err = lib.nuts_transition_pot_launch(
+            ops["q"].data_ptr(), ops["u"].data_ptr(), ops["g"].data_ptr(),
+            None, None, None, None, 1, 1, 2, ops["y"].data_ptr(),
+            ops["s2"].data_ptr(), J, ops["im"].data_ptr(), None, 0, 0.2,
+            1000.0, 10, 16, 4, *(o.data_ptr() for o in outs),
+            ops["ck"].data_ptr(), plan.blocks, points, stride, plan.smem, 8,
+            torch.cuda.current_stream().cuda_stream)
+        assert err != 0
+        assert b"invalid" in lib.error_string(err)
+
+
+@pytest.mark.gpu
+def test_cuda_hierarchical_instantiations_hold_two_blocks_per_sm(cuda_device):
+    lib = load_kernels("nuts_fused_small.cu")
+    for model, name in ((1, "funnel"), (2, "eight_schools")):
+        plan = launch_plan("nuts", 10, 10, 8192, functor=name)
+        for sampling in (0, 1):
+            assert lib.nuts_pot_blocks_per_sm(model, sampling, plan.smem) >= 2
+    assert lib.nuts_pot_blocks_per_sm(3, 0, 6560) == -1

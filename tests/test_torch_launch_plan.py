@@ -279,3 +279,33 @@ def test_the_nuts_and_hmc_cores_always_take_8_chains(core):
     # the HMC core at the flagship: 8 rows x 8 chains, the scratch, the tile
     plan = lp.launch_plan("hmc", 100, 0, 10_240)
     assert (plan.chains, plan.points, plan.smem) == (8, 128, 82_992)
+
+
+@pytest.mark.parametrize("functor", ["funnel", "eight_schools"])
+@pytest.mark.parametrize("dim,chains", [(10, 8192), (10, 2048), (6, 13),
+                                        (1, 1), (300, 64)])
+def test_a_functor_without_x_has_no_tile(functor, dim, chains):
+    """The hierarchical functors read no data matrix: no tile (points and
+    row stride 0), 8 chains a block, and shared memory for the NUTS rows and
+    the block's 8 potentials only, whatever X's type and K."""
+    for x_dtype in (torch.float32, torch.bfloat16):
+        for max_exp in (1, 10, 14):
+            plan = lp.launch_plan("nuts", dim, max_exp, chains, x_dtype,
+                                  functor=functor)
+            assert (plan.points, plan.row_stride, plan.chains) == (0, 0, 8)
+            assert plan.blocks == math.ceil(chains / 8)
+            assert plan.smem == 4 * (17 * 8 * lp.state_stride(dim) + 8)
+    assert plan.smem < lp.launch_plan("nuts", dim, 10, chains).smem
+
+
+@pytest.mark.parametrize("args, match", [
+    (("hmc", 10, 0, 64), "NUTS kernels only"),
+    (("fused_hmc", 10, 0, 64), "NUTS kernels only"),
+    (("nuts", 10, 15, 64), "max_num_expansions"),
+    (("nuts", 2000, 10, 64), "shared memory"),
+])
+def test_a_functor_without_x_raises_outside_the_nuts_kernels(args, match):
+    with pytest.raises(ValueError, match=match):
+        lp.launch_plan(*args, functor="funnel")
+    with pytest.raises(ValueError, match="unknown functor"):
+        lp.launch_plan("nuts", 10, 6, 64, functor="mvn")

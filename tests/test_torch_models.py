@@ -159,3 +159,59 @@ def test_builders_and_converters_default_to_the_card(build):
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             build()
+
+
+# ---- the other builders of aehmc_tpu.models, in float64 on both sides:
+# the same operations in the same order, so 1e-12 relative
+
+def _close64(a, b):
+    np.testing.assert_allclose(np.asarray(a, np.float64),
+                               np.asarray(b, np.float64), rtol=1e-12, atol=0)
+
+
+def test_linear_regression_equals_jax():
+    from aehmc_tpu.models import linear_regression as jax_linear
+    from aehmc_tpu_torch.models import linear_regression
+
+    logprob, ex = linear_regression(500, dtype=torch.float64, device="cpu")
+    logprob_j, ex_j = jax_linear(500)
+    for q in np.random.default_rng(7).normal(size=(4, 2)):
+        _close64(logprob(torch.tensor(q)), logprob_j(jnp.asarray(q)))
+    assert ex.shape == ex_j.shape and not bool(ex.any())
+
+
+def test_logistic_regression_t_equals_jax():
+    from aehmc_tpu.models import logistic_regression_t as jax_logistic_t
+    from aehmc_tpu_torch.models import logistic_regression_t
+
+    pot, data, ex = logistic_regression_t(12, 80, device="cpu")
+    pot_j, data_j, _ = jax_logistic_t(12, 80)
+    for a, b in zip(data, data_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    q_t = np.random.default_rng(8).normal(size=(12, 5))
+    _close64(pot(torch.tensor(q_t), *data), pot_j(jnp.asarray(q_t), *data_j))
+    assert ex.shape == (12,)
+
+
+@pytest.mark.parametrize("name", ["std_normal", "normal", "mvn",
+                                  "correlated_mvn"])
+def test_gaussian_builders_equal_jax(name):
+    import aehmc_tpu.models as jm
+    import aehmc_tpu_torch.models as tm
+
+    rng = np.random.default_rng(9)
+    dim = 4
+    if name == "std_normal":
+        ours, ref = tm.std_normal(), jm.std_normal()
+    elif name == "normal":
+        ours, ref = tm.normal(1.5, 0.7), jm.normal(1.5, 0.7)
+    elif name == "mvn":
+        a = rng.normal(size=(dim, dim))
+        cov, loc = a @ a.T + dim * np.eye(dim), rng.normal(size=dim)
+        ours = tm.mvn(loc, cov, torch.float64, device="cpu")
+        ref = jm.mvn(loc, cov, jnp.float64)
+    else:
+        ours = tm.correlated_mvn(dim, 0.3, torch.float64, device="cpu")
+        ref = jm.correlated_mvn(dim, 0.3, jnp.float64)
+    for q in rng.normal(size=(3, dim)):
+        _close64(ours(torch.tensor(q)), ref(jnp.asarray(q)))
