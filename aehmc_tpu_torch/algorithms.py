@@ -60,16 +60,20 @@ def dual_averaging(
 def welford_covariance(
     compute_covariance: bool,
 ) -> Tuple[Callable, Callable, Callable]:
-    """Welford's online variance (``(d,)``) or covariance (``(d, d)``)."""
+    """Welford's online variance (``(d,)``) or covariance (``(d, d)``);
+    with ``batch_shape`` one estimate per chain, ``batch_shape + (d,)`` or
+    ``batch_shape + (d, d)``, updated by a ``batch_shape + (d,)`` value."""
 
-    def init(n_dims: int, dtype=torch.float32, device=None) -> WelfordState:
+    def init(n_dims: int, dtype=torch.float32, device=None,
+             batch_shape=()) -> WelfordState:
         sample_size = torch.zeros((), dtype=torch.int32, device=device)
+        batch_shape = tuple(batch_shape)
         if n_dims == 0:
-            zero = torch.zeros((), dtype=dtype, device=device)
+            zero = torch.zeros(batch_shape, dtype=dtype, device=device)
             return WelfordState(mean=zero, m2=zero, sample_size=sample_size)
-        mean = torch.zeros((n_dims,), dtype=dtype, device=device)
+        mean = torch.zeros(batch_shape + (n_dims,), dtype=dtype, device=device)
         shape = (n_dims, n_dims) if compute_covariance else (n_dims,)
-        m2 = torch.zeros(shape, dtype=dtype, device=device)
+        m2 = torch.zeros(batch_shape + shape, dtype=dtype, device=device)
         return WelfordState(mean=mean, m2=m2, sample_size=sample_size)
 
     def update(value: torch.Tensor, state: WelfordState) -> WelfordState:
@@ -78,7 +82,8 @@ def welford_covariance(
         mean = state.mean + delta / sample_size.to(delta.dtype)
         updated_delta = value - mean
         if compute_covariance and mean.ndim > 0:
-            m2 = state.m2 + torch.outer(updated_delta, delta)
+            # the outer product of each chain's pair
+            m2 = state.m2 + updated_delta[..., :, None] * delta[..., None, :]
         else:
             m2 = state.m2 + updated_delta * delta
         return WelfordState(mean=mean, m2=m2, sample_size=sample_size)
@@ -132,8 +137,8 @@ def pairwise_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
 
 def pairwise_mean(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Mean along ``axis`` via :func:`pairwise_sum`."""
-    n = torch.tensor(x.shape[axis], dtype=x.dtype, device=x.device)
-    return pairwise_sum(x, axis) / n
+    # a Python divisor: a tensor from the host would wait for the stream
+    return pairwise_sum(x, axis) / x.shape[axis]
 
 
 def _pairwise_outer_sum(centered: torch.Tensor,
@@ -166,8 +171,9 @@ def welford_update_batch(
         batch_state = WelfordState(
             mean=batch_mean.to(state.mean.dtype),
             m2=batch_m2.to(state.m2.dtype),
-            sample_size=torch.tensor(values.shape[0], dtype=state.sample_size.dtype,
-                                     device=values.device),
+            sample_size=torch.full((), values.shape[0],
+                                   dtype=state.sample_size.dtype,
+                                   device=values.device),
         )
         return merge(state, batch_state)
 

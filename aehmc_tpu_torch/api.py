@@ -1,16 +1,25 @@
-"""The front door: ``sample(...)`` (port of :mod:`aehmc_tpu.api`, the fused
-routes of ``algorithm="nuts"``, ``"mala"``, ``"ghmc"`` and ``"chees"``).
+"""The front door: ``sample(...)`` (port of :mod:`aehmc_tpu.api`).
 
-The fused NUTS route runs Stan warmup through the per-transition NUTS kernel
-and then the whole sampling phase through the whole-run kernel (one launch),
-as the JAX package's benchmark does; the two sampling paths are bitwise equal
-by construction.  The fused MALA and GHMC routes run warmup through the GHMC
-transition kernel and sampling through the GHMC segment kernel, one launch
-per ``segment_draws`` draws.  The fused ChEES route runs the pooled ChEES
-driver (:func:`aehmc_tpu_torch.parallel.sample_sharded`) over the ChEES
-transition kernel, warmup and sampling one launch per step.  Every other
-algorithm and path raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+Three paths, picked as the JAX package picks them (``path="auto"``):
+
+- **xla**: the XLA-path kernels for any ``logprob_fn``
+  (:mod:`aehmc_tpu_torch.nuts`, ``hmc``, ``mala``, ``ghmc``): a 1-D (or
+  scalar) position runs one chain through
+  :func:`aehmc_tpu_torch.sampling.sample`, a ``(chains, dim)`` position one
+  independent chain per row (:func:`~aehmc_tpu_torch.sampling.sample_chains`);
+  ChEES, a chain-ensemble method, takes the pooled driver;
+- **pooled** (the default for a 2-D position): pooled cross-chain warmup
+  and sampling of the batch,
+  :func:`aehmc_tpu_torch.parallel.sample_sharded`;
+- **fused** (the default for a 2-D position with a transposed potential
+  given): the CUDA kernels' drivers; NUTS runs Stan warmup through the
+  per-transition NUTS kernel and the whole sampling phase in one launch,
+  MALA and GHMC through the GHMC transition and segment kernels, ChEES the
+  pooled ChEES driver over the ChEES transition kernel.
+
+What raises: ``algorithm="meads"`` (ROADMAP.md item 1.11), ``mesh=`` (item
+1.12), and a bare ``logprob_fn`` on the fused path (the generic fused
+binding, item 1.10), each ``NotImplementedError``.
 """
 
 from typing import Callable, Optional, Sequence
@@ -22,15 +31,31 @@ from aehmc_tpu_torch.ops.fused_driver import (
     sample_fused_adaptive,
     sample_fused_ghmc,
 )
+from aehmc_tpu_torch import sampling
 from aehmc_tpu_torch.parallel.pooled import sample_sharded
 from aehmc_tpu_torch.sampling import SampleResult
 from aehmc_tpu_torch.types import Diagnostics
 
 ALGORITHMS = ("nuts", "hmc", "chees", "meads", "ghmc", "mala")
 PATHS = ("auto", "xla", "pooled", "fused")
-_FUSED_ALGORITHMS = ("nuts", "mala", "ghmc", "chees")
+# the JAX package's fused algorithms, which path="auto" sends to "fused"
+_FUSED_ALGORITHMS = ("nuts", "chees", "meads", "mala", "ghmc")
 # keyword arguments of the ChEES route that build its kernel
 _CHEES_KERNEL_KWARGS = ("block_chains", "use_internal_prng", "step_size_factors")
+
+
+def _resolve_path(path, initial_position, potential_fn_t,
+                  potential_and_grad_t, algorithm):
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if path != "auto":
+        return path
+    if initial_position.ndim <= 1:
+        return "xla"
+    if ((potential_fn_t is not None or potential_and_grad_t is not None)
+            and algorithm in _FUSED_ALGORITHMS):
+        return "fused"
+    return "pooled"
 
 
 def _fused_nuts_result(out) -> SampleResult:
@@ -57,7 +82,7 @@ def _fused_nuts_result(out) -> SampleResult:
 
 
 def sample(
-    generator: torch.Generator,
+    generator,
     logprob_fn: Optional[Callable],
     initial_position: torch.Tensor,
     num_samples: int = 1000,
@@ -65,6 +90,7 @@ def sample(
     *,
     algorithm: str = "nuts",
     path: str = "auto",
+    mesh=None,
     data: Sequence[torch.Tensor] = (),
     potential_fn_t: Optional[Callable] = None,
     potential_and_grad_t: Optional[Callable] = None,
@@ -72,14 +98,30 @@ def sample(
 ) -> SampleResult:
     """Warmup + sampling in one call.
 
-    ``generator`` (a ``torch.Generator``) is the only source of randomness:
-    the same generator state reproduces the run bit for bit.
-    ``initial_position`` is ``(chains, dim)``; the chains run on its device
-    (the data tensors must be on the same device).  The model is the
-    transposed ``potential_fn_t(q_t, *data)`` and/or
-    ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device the
-    fused NUTS route runs three models, each a device functor in kernels 1
-    and 2, picked by the identity of ``potential_and_grad_t``:
+    ``generator`` (a ``torch.Generator``, or a key of
+    :mod:`aehmc_tpu_torch.keys`) is the only source of randomness: the same
+    generator state reproduces the run bit for bit.  ``logprob_fn`` maps
+    one position to its log-density (a scalar); it may be None only on the
+    fused NUTS, MALA and GHMC routes with a transposed potential.  The
+    chains run on the device of ``initial_position``: ``(dim,)`` (or a
+    scalar) runs one chain on the XLA path, ``(chains, dim)`` a chain batch
+    (pooled by default).  Positions are ``(draws, dim)`` for one chain,
+    ``(chains, draws, dim)`` for independent XLA chains and ``(draws,
+    chains, dim)`` on the pooled and fused paths.
+
+    The XLA and pooled routes take ``kwargs`` of
+    :func:`aehmc_tpu_torch.sampling.sample` and
+    :func:`aehmc_tpu_torch.parallel.sample_sharded` (``max_num_expansions``
+    10, ``num_integration_steps`` 32, ``initial_step_size`` 1.0,
+    ``search_initial_step_size`` True, ``per_chain_step_size`` on the
+    pooled path, ``chees_kernel_fn`` for ChEES, e.g. the XLA ChEES kernel
+    on kernel 8: ``chees.new_kernel(logprob_fn,
+    integrate_fn=ops.logistic_integrate_fn(X, y))``).
+
+    The fused routes take the transposed ``potential_fn_t(q_t, *data)``
+    and/or ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device
+    the fused NUTS route runs three models, each a device functor in kernels
+    1 and 2, picked by the identity of ``potential_and_grad_t``:
     ``models.logistic_pg_t`` (``models.logistic_regression_pg_t``),
     ``models.funnel_pg_t`` (``models.neals_funnel_pg_t``) and
     ``models.schools_pg_t`` (``models.eight_schools_pg_t``); the MALA, GHMC
@@ -90,46 +132,75 @@ def sample(
     (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True) and to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and
     GHMC (``ghmc_alpha``, the GHMC momentum persistence, defaults to 0.9).
-    ChEES needs ``logprob_fn`` (one position ``(dim,)`` -> log-density) to
-    start its chain states; ``block_chains``, ``use_internal_prng``,
-    ``step_size_factors`` and ``divergence_threshold`` build its kernel
+    Fused ChEES needs ``logprob_fn`` to start its chain states;
+    ``block_chains``, ``use_internal_prng``, ``step_size_factors`` and
+    ``divergence_threshold`` build its kernel
     (:func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`), the
-    others go to :func:`aehmc_tpu_torch.parallel.sample_sharded`
-    (``initial_step_size`` 1.0 and ``search_initial_step_size`` True by
-    default); its ``generator`` may be a key source ``(phase, index) ->
-    key`` that replays given randomness.
-
-    Returns a ``SampleResult`` with ``positions`` ``(draws, chains, dim)``.
+    others go to :func:`aehmc_tpu_torch.parallel.sample_sharded`; its
+    ``generator`` may be a key source ``(phase, index) -> key`` that
+    replays given randomness.
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
-    if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    if algorithm not in _FUSED_ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported yet (ROADMAP.md items "
-            "1.9-1.11)"
-        )
-    if algorithm == "chees" and logprob_fn is None:
+    route = _resolve_path(path, initial_position, potential_fn_t,
+                          potential_and_grad_t, algorithm)
+    if logprob_fn is None and not (
+        route == "fused" and algorithm in ("nuts", "mala", "ghmc")
+        and (potential_fn_t is not None or potential_and_grad_t is not None)
+    ):
         raise ValueError(
             "logprob_fn may be None only on the fused NUTS/MALA/GHMC routes "
-            "with an explicit potential_fn_t/potential_and_grad_t binding: "
-            "ChEES starts its chain states from logprob_fn"
+            "with an explicit potential_fn_t/potential_and_grad_t binding"
         )
-    if path in ("xla", "pooled"):
+    if algorithm == "meads":
         raise NotImplementedError(
-            f"path={path!r} is not ported yet (ROADMAP.md items 1.9-1.10)"
+            "algorithm='meads' is not ported yet (ROADMAP.md item 1.11)")
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
+                                  "1.12)")
+
+    if route == "xla":
+        if initial_position.ndim <= 1:
+            if algorithm == "chees":
+                raise ValueError(
+                    "'chees' is a chain-ensemble method (cross-chain "
+                    "adaptation); pass a (chains, dim) initial_position"
+                )
+            return sampling.sample(generator, logprob_fn, initial_position,
+                                   num_samples, num_warmup,
+                                   algorithm=algorithm, **kwargs)
+        if algorithm == "chees":
+            # an ensemble method has no independent-chain mode: its XLA
+            # route is the pooled driver
+            route = "pooled"
+        else:
+            return sampling.sample_chains(generator, logprob_fn,
+                                          initial_position, num_samples,
+                                          num_warmup, algorithm=algorithm,
+                                          **kwargs)
+    if initial_position.ndim != 2:
+        raise ValueError(
+            f"path={route!r} needs a (chains, dim) initial_position, got "
+            f"shape {tuple(initial_position.shape)}"
+        )
+    if route == "pooled":
+        return sample_sharded(generator, logprob_fn, initial_position,
+                              num_samples, num_warmup, algorithm=algorithm,
+                              **kwargs)
+
+    # route == "fused"
+    if algorithm == "hmc":
+        raise ValueError(
+            "no fused megakernel for algorithm='hmc' (fused paths: "
+            "nuts, mala, ghmc, chees); use path='pooled': plain HMC runs the "
+            "XLA kernels (its fused analog with adaptive trajectory lengths "
+            "is algorithm='chees')"
         )
     if potential_fn_t is None and potential_and_grad_t is None:
         raise NotImplementedError(
-            "a bare logprob_fn (no potential_fn_t / potential_and_grad_t) "
-            "needs the XLA or pooled path, not ported yet (ROADMAP.md items "
-            "1.9-1.10)"
-        )
-    if initial_position.ndim != 2:
-        raise ValueError(
-            "the fused path needs a (chains, dim) initial_position, got shape "
-            f"{tuple(initial_position.shape)}"
+            "a bare logprob_fn on path='fused' needs the generic fused "
+            "binding, not ported yet (ROADMAP.md item 1.10); use "
+            "path='pooled' or 'xla'"
         )
     if algorithm == "chees":
         kernel_kwargs = {k: kwargs.pop(k) for k in _CHEES_KERNEL_KWARGS

@@ -9,11 +9,14 @@ pooled Welford windows on Stan's schedule.  The cross-chain reductions are
 the fixed-tree :func:`~aehmc_tpu_torch.algorithms.pairwise_sum`.
 
 The transition is a ``kernel_fn(key, states, step_size,
-num_integration_steps, inverse_mass_matrix) -> (ChainState, CheesInfo)``,
-e.g. :func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`; the
-XLA kernel ``new_kernel`` is ROADMAP.md item 1.9.  The trip count is
-computed on the chains' device, ``clip(ceil(jitter·h/ε), 1, max)`` in
-float32 in that order, and reaches the kernel as a device int32.
+num_integration_steps, inverse_mass_matrix) -> (ChainState, CheesInfo)``:
+by default the XLA kernel :func:`new_kernel` (the autograd leapfrog, or a
+fused ``integrate_fn`` such as
+:func:`aehmc_tpu_torch.ops.fused_hmc.logistic_integrate_fn`, kernel 8), or
+e.g. :func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`.  The
+trip count is computed on the chains' device, ``clip(ceil(jitter·h/ε), 1,
+max)`` in float32 in that order, and reaches the kernel as a device int32;
+the XLA kernel reads it on the host once a step.
 
 Randomness: ``rng`` is a ``torch.Generator``, handed to ``kernel_fn`` as
 every call's key (the fused kernel draws its Philox seed or its streams from
@@ -28,17 +31,20 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from aehmc_tpu_torch import _batch, hmc, keys, metrics
 from aehmc_tpu_torch.algorithms import (
     pairwise_mean,
     pairwise_sum,
     welford_update_batch,
 )
+from aehmc_tpu_torch.integrators import velocity_verlet
 from aehmc_tpu_torch.mass_matrix import covariance_adaptation
 from aehmc_tpu_torch.step_size import (
     dual_averaging_adaptation,
     find_reasonable_step_size,
 )
-from aehmc_tpu_torch.types import ChainState
+from aehmc_tpu_torch.trajectory import static_integration
+from aehmc_tpu_torch.types import ChainState, IntegratorState
 from aehmc_tpu_torch.window_adaptation import build_schedule
 
 OPTIMAL_TARGET_ACCEPTANCE = 0.651
@@ -92,6 +98,75 @@ def halton(index, bits: int = 24) -> torch.Tensor:
     return rev.to(torch.float32) / float(1 << bits)
 
 
+def new_kernel(
+    logprob_fn: Callable,
+    divergence_threshold: float = 1000.0,
+    integrator: Callable = velocity_verlet,
+    integrate_fn: Callable = None,
+) -> Callable:
+    """The batched XLA ChEES-HMC transition.
+
+    Returns ``step(key, states, step_size, num_integration_steps,
+    inverse_mass_matrix) -> (ChainState, CheesInfo)``: ``states`` has a
+    leading chain axis, ``num_integration_steps`` is shared by the chains
+    (an int, or an int32 tensor read once on the host).  The key's Philox
+    streams give the momentum normals and the accept uniforms
+    (:func:`aehmc_tpu_torch.keys.normals_and_uniform`: the streams of the
+    fused ChEES kernel at the same seed); a ``(z, u)`` pair passes them in.
+
+    ``integrate_fn(q, p, step_size, num_steps, inverse_mass_matrix) ->
+    (q', p')`` replaces the autograd leapfrog loop with a fused trajectory
+    over the batch (kernel 8 through
+    :func:`aehmc_tpu_torch.ops.fused_hmc.logistic_integrate_fn`); it gets the
+    current inverse mass matrix, and the final energies and gradients are
+    recomputed with one batched ``logprob_fn`` evaluation.
+    """
+
+    def potential_fn(x):
+        return -logprob_fn(x)
+
+    potential_vag = _batch.value_and_grad(potential_fn)
+
+    def step(key, states: ChainState, step_size, num_integration_steps,
+             inverse_mass_matrix) -> Tuple[ChainState, CheesInfo]:
+        position = states.position
+        imm = _batch.like(inverse_mass_matrix, position)
+        momentum_generator, kinetic_energy_fn, _ = metrics.gaussian_metric(imm)
+        z, u = keys.normals_and_uniform(key, position)
+        init = IntegratorState(position, momentum_generator(z),
+                               states.potential_energy,
+                               states.potential_energy_grad)
+        if integrate_fn is None:
+            final = static_integration(
+                integrator(potential_fn, kinetic_energy_fn),
+                num_integration_steps)(init, step_size)
+            final = final._replace(momentum=-final.momentum)
+        else:
+            q_final, p_final = integrate_fn(position, init.momentum, step_size,
+                                            num_integration_steps, imm)
+            final_u, final_grad = potential_vag(q_final)
+            final = IntegratorState(q_final, -p_final, final_u, final_grad)
+        p_accept, do_accept, diverging, energy, new_energy = hmc.metropolis(
+            init, final, kinetic_energy_fn, divergence_threshold, u)
+        accepted = _batch.where(do_accept, final, init)
+        new_states = ChainState(accepted.position, accepted.potential_energy,
+                                accepted.potential_energy_grad)
+        info = CheesInfo(
+            acceptance_probability=p_accept,
+            is_diverging=diverging,
+            proposed_position=final.position,
+            # the endpoint velocity M⁻¹ p, before the flip
+            proposed_velocity=kinetic_energy_fn.velocity(-final.momentum),
+            num_integration_steps=torch.as_tensor(
+                num_integration_steps, dtype=torch.int32,
+                device=position.device),
+            energy=torch.where(do_accept, new_energy, energy),
+        )
+        return new_states, info
+
+    return step
+
+
 def _chees_gradient(positions: torch.Tensor, info: CheesInfo,
                     jitter) -> torch.Tensor:
     """Cross-chain estimate of d(ChEES)/d(trajectory length): per chain
@@ -139,16 +214,6 @@ def _key_source(rng) -> Callable:
     return lambda phase, index: rng
 
 
-def _require_kernel(kernel_fn):
-    if kernel_fn is None:
-        raise NotImplementedError(
-            "the XLA ChEES kernel (chees.new_kernel) is not ported yet "
-            "(ROADMAP.md item 1.9): pass kernel_fn, e.g. "
-            "ops.chees_fused.make_fused_chees_kernel"
-        )
-    return kernel_fn
-
-
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a 0-d tensor of ``like``'s dtype and device, filled on the
     device when it comes from the host (a copy would synchronise)."""
@@ -177,6 +242,8 @@ def warmup_hooks(
     target_acceptance_rate: float = OPTIMAL_TARGET_ACCEPTANCE,
     max_num_integration_steps: int = 1024,
     learning_rate: float = 0.025,
+    integrator: Callable = velocity_verlet,
+    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     search_initial_step_size: bool = True,
     dtype=None,
@@ -187,10 +254,12 @@ def warmup_hooks(
     ``init(rng, initial_states) -> wcarry`` (with the initial step-size
     search when asked), ``segment(wcarry, steps) -> (wcarry,
     accept_history)`` runs the steps in order, ``finish(wcarry) ->``
-    :class:`CheesWarmupResult`.  ``logprob_fn`` and ``divergence_threshold``
-    belong to the XLA kernel; ``kernel_fn`` is the whole transition.
+    :class:`CheesWarmupResult`.  ``kernel_fn`` is the whole transition, by
+    default :func:`new_kernel` of ``logprob_fn``, ``divergence_threshold``,
+    ``integrator`` and ``integrate_fn``.
     """
-    kernel = _require_kernel(kernel_fn)
+    kernel = kernel_fn or new_kernel(logprob_fn, divergence_threshold,
+                                     integrator, integrate_fn)
     da_init, da_update = dual_averaging_adaptation(target_acceptance_rate)
     mm_init, _, mm_final = covariance_adaptation(False)
     wc_update_batch = welford_update_batch(False)
@@ -204,14 +273,14 @@ def warmup_hooks(
         )
 
     def init(rng, initial_states: ChainState):
-        keys = _key_source(rng)
+        key_source = _key_source(rng)
         device = initial_states.position.device
         init_eps = torch.full((), initial_step_size, dtype=dtype, device=device)
         imm0, wc0 = mm_init(dim, dtype=dtype, device=device)
         if search_initial_step_size:
             one = torch.ones((), dtype=torch.int32, device=device)
             init_eps = find_reasonable_step_size(
-                lambda probe, s, eps, imm: kernel(keys("search", probe), s,
+                lambda probe, s, eps, imm: kernel(key_source("search", probe), s,
                                                   eps, one, imm),
                 initial_states, imm0, initial_step_size=init_eps,
                 target_accept=target_acceptance_rate, reduce_fn=pairwise_mean,
@@ -222,15 +291,15 @@ def warmup_hooks(
         zero = torch.zeros((), dtype=dtype, device=device)
         adam = AdamState(m=zero, v=zero,
                          step=torch.zeros((), dtype=torch.int32, device=device))
-        return (keys, initial_states, _new_da_state(init_eps), adam,
+        return (key_source, initial_states, _new_da_state(init_eps), adam,
                 torch.log(h0), wc0, imm0)
 
     def one_step(carry, step: int):
-        keys, states, da_state, adam_state, log_h, wc_state, imm = carry
+        key_source, states, da_state, adam_state, log_h, wc_state, imm = carry
         eps = torch.exp(da_state.iterates)
         num_leapfrog, jitter = _num_leapfrog(step, torch.exp(log_h), eps,
                                              max_num_integration_steps)
-        new_states, info = kernel(keys("warmup", step), states, eps,
+        new_states, info = kernel(key_source("warmup", step), states, eps,
                                   num_leapfrog, imm)
 
         # step size: dual averaging on the pooled acceptance
@@ -252,7 +321,7 @@ def warmup_hooks(
             imm = mm_final(wc_state)
             _, wc_state = mm_init(dim, dtype=dtype, device=imm.device)
             new_da_state = _new_da_state(torch.exp(new_da_state.iterates))
-        return (keys, new_states, new_da_state, new_adam_state, new_log_h,
+        return (key_source, new_states, new_da_state, new_adam_state, new_log_h,
                 wc_state, imm), info.acceptance_probability
 
     def segment(wcarry, steps):
@@ -285,6 +354,8 @@ def warmup(
     target_acceptance_rate: float = OPTIMAL_TARGET_ACCEPTANCE,
     max_num_integration_steps: int = 1024,
     learning_rate: float = 0.025,
+    integrator: Callable = velocity_verlet,
+    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     search_initial_step_size: bool = True,
     kernel_fn: Callable = None,
@@ -302,6 +373,8 @@ def warmup(
         target_acceptance_rate=target_acceptance_rate,
         max_num_integration_steps=max_num_integration_steps,
         learning_rate=learning_rate,
+        integrator=integrator,
+        integrate_fn=integrate_fn,
         divergence_threshold=divergence_threshold,
         search_initial_step_size=search_initial_step_size,
         dtype=initial_states.position.dtype,
@@ -321,6 +394,8 @@ def sample(
     inverse_mass_matrix,
     *,
     max_num_integration_steps: int = 1024,
+    integrator: Callable = velocity_verlet,
+    integrate_fn: Callable = None,
     divergence_threshold: float = 1000.0,
     collect_positions: bool = True,
     collect_dtype=None,
@@ -335,8 +410,9 @@ def sample(
     Returns ``(final_states, positions (draws, chains, dim) or None,
     CheesSampleInfo)``; ``collect_dtype`` narrows the stored draws.
     """
-    kernel = _require_kernel(kernel_fn)
-    keys = _key_source(rng)
+    kernel = kernel_fn or new_kernel(logprob_fn, divergence_threshold,
+                                     integrator, integrate_fn)
+    key_source = _key_source(rng)
     like = states.position
     step_size = _scalar(step_size, like)
     trajectory_length = _scalar(trajectory_length, like)
@@ -344,7 +420,7 @@ def sample(
     for t in range(_step_offset, _step_offset + num_samples):
         num_leapfrog, _ = _num_leapfrog(t, trajectory_length, step_size,
                                         max_num_integration_steps)
-        states, info = kernel(keys("sample", t), states, step_size,
+        states, info = kernel(key_source("sample", t), states, step_size,
                               num_leapfrog, inverse_mass_matrix)
         if collect_positions:
             positions.append(states.position if collect_dtype is None

@@ -14,6 +14,7 @@ from aehmc_tpu_torch.ops.fused_driver import (
 from aehmc_tpu_torch.ops.fused_hmc import (
     fused_logistic_hmc,
     fused_logistic_hmc_reference,
+    logistic_integrate_fn,
 )
 from aehmc_tpu_torch.ops.ghmc_fused import (
     fused_ghmc_segment,
@@ -44,6 +45,7 @@ __all__ = [
     "fused_logistic_hmc",
     "fused_logistic_hmc_reference",
     "fused_nuts_transition",
+    "logistic_integrate_fn",
     "logistic_potential",
     "make_fused_chees_kernel",
     "make_fused_chees_transition",

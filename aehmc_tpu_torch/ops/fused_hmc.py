@@ -6,6 +6,9 @@ table): the plain PyTorch version and the wrapper of the CUDA kernel
 :func:`fused_logistic_hmc` launches the kernel on a CUDA tensor and runs
 :func:`fused_logistic_hmc_reference` on a CPU tensor.  The kernel masks the
 ragged last block itself, so every chain count runs on the card.
+:func:`logistic_integrate_fn` binds it to its data as the ``integrate_fn``
+of the XLA ChEES kernel (:func:`aehmc_tpu_torch.chees.new_kernel`), the
+kernel's caller on the sampling path, as in the JAX package.
 """
 
 from typing import Tuple
@@ -101,3 +104,21 @@ def fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size, num_steps,
     check_launch(lib, err, "fused_logistic_hmc")
     LAUNCHES["fused_logistic_hmc"] += 1
     return q_out, p_out
+
+
+def logistic_integrate_fn(X: torch.Tensor, y: torch.Tensor,
+                          prior_precision: float = 1.0):
+    """``integrate_fn(q, p, step_size, num_steps, inverse_mass_matrix) ->
+    (q', p')`` of :func:`aehmc_tpu_torch.chees.new_kernel`: the trajectory
+    through :func:`fused_logistic_hmc` on ``X (points, dim)``, ``y
+    (points,)``.  The kernel takes the step size and the trip count as host
+    numbers, so the binding reads both on the host once a call (two
+    synchronisations when they live on the device); ``inverse_mass_matrix``
+    is diagonal, ``(dim,)``."""
+
+    def integrate_fn(q, p, step_size, num_steps, inverse_mass_matrix):
+        return fused_logistic_hmc(q, p, X, y, inverse_mass_matrix,
+                                  float(step_size), int(num_steps),
+                                  prior_precision)
+
+    return integrate_fn

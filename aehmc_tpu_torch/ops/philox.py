@@ -55,26 +55,32 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 8) + 1).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def _stream_words(seed, num_chains, device, chain_offset):
-    """``words(stream, rows)``: the four output words of counters
-    ``(chain, 0..rows-1, stream, 0)``, each ``(rows, C)``."""
+def _stream_words(seed, num_chains, device, chain_offset, parts):
+    """The four output words of counters ``(chain, start..start+rows-1,
+    stream, 0)`` for each part ``(stream, start, rows)``, each word ``(rows,
+    C)``, from one Philox call over the parts' rows."""
     chains = torch.arange(chain_offset, chain_offset + num_chains,
                           dtype=torch.int64, device=device)
-    key = (int(seed) & MASK32, 0)
+    # built on the device: a copy from the host would wait for the stream
+    idx = torch.cat([torch.arange(start, start + rows, dtype=torch.int64,
+                                  device=device)
+                     for _, start, rows in parts])
+    stream = torch.cat([torch.full((rows,), stream, dtype=torch.int64,
+                                   device=device)
+                        for stream, _, rows in parts])
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = philox4x32((chains[None, :], idx[:, None], stream[:, None], zero),
+                       (int(seed) & MASK32, 0))
+    sizes = [rows for _, _, rows in parts]
+    return list(zip(*(torch.split(w, sizes) for w in words)))
 
-    def words(stream, rows):
-        idx = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
-        zero = torch.zeros((), dtype=torch.int64, device=device)
-        return philox4x32((chains[None, :], idx, zero + stream, zero), key)
 
-    return words
-
-
-def _normals(words, dim, num_chains):
-    """``(dim, C)`` standard normals of the :data:`MOMENTUM` stream: group
-    ``j`` of four is two Box-Muller pairs from one counter."""
+def _normals(momentum_words, dim, num_chains):
+    """``(dim, C)`` standard normals from the words of the :data:`MOMENTUM`
+    stream's ``ceil(dim / 4)`` rows: group ``j`` of four is two Box-Muller
+    pairs from one counter."""
     groups = -(-dim // 4)
-    w0, w1, w2, w3 = (uniform_from_bits(w) for w in words(MOMENTUM, groups))
+    w0, w1, w2, w3 = (uniform_from_bits(w) for w in momentum_words)
     two_pi = 2.0 * math.pi
     r0, a0 = torch.sqrt(-2.0 * torch.log(w0)), two_pi * w1
     r1, a1 = torch.sqrt(-2.0 * torch.log(w2)), two_pi * w3
@@ -85,25 +91,40 @@ def _normals(words, dim, num_chains):
 
 
 def nuts_streams(seed: int, num_chains: int, dim: int, max_exp: int,
-                 device=None, chain_offset: int = 0):
+                 device=None, chain_offset: int = 0, leaf_rows: int = None):
     """The Philox-filled randomness of one NUTS transition, transposed:
     ``z (dim, C)`` standard normals, ``dirs (K, C)`` of ±1, ``u_bias (K, C)``
-    and ``u_leaf (2**K, C)`` uniforms in (0, 1].  ``seed`` is the u32 key."""
-    words = _stream_words(seed, num_chains, device, chain_offset)
-    z = _normals(words, dim, num_chains)
-    u_dir = uniform_from_bits(words(DIRECTION, max_exp)[0])
+    and ``u_leaf (2**K, C)`` uniforms in (0, 1], from one Philox call.
+    ``leaf_rows`` draws only the first rows of ``u_leaf`` (the others come
+    from :func:`leaf_uniforms`).  ``seed`` is the u32 key."""
+    leaf_rows = 2**max_exp if leaf_rows is None else leaf_rows
+    momentum, direction, bias, leaf = _stream_words(
+        seed, num_chains, device, chain_offset,
+        [(MOMENTUM, 0, -(-dim // 4)), (DIRECTION, 0, max_exp),
+         (BIAS, 0, max_exp), (LEAF, 0, leaf_rows)])
+    z = _normals(momentum, dim, num_chains)
+    u_dir = uniform_from_bits(direction[0])
     dirs = torch.where(u_dir < 0.5, -1.0, 1.0).to(torch.float32)
-    u_bias = uniform_from_bits(words(BIAS, max_exp)[0])
-    u_leaf = uniform_from_bits(words(LEAF, 2**max_exp)[0])
-    return z, dirs, u_bias, u_leaf
+    return z, dirs, uniform_from_bits(bias[0]), uniform_from_bits(leaf[0])
+
+
+def leaf_uniforms(seed: int, num_chains: int, start: int, rows: int,
+                  device=None, chain_offset: int = 0) -> torch.Tensor:
+    """Rows ``start .. start + rows - 1`` of the :data:`LEAF` stream, ``(rows,
+    C)``: the same uniforms as those rows of :func:`nuts_streams`'s
+    ``u_leaf``."""
+    (leaf,) = _stream_words(seed, num_chains, device, chain_offset,
+                            [(LEAF, start, rows)])
+    return uniform_from_bits(leaf[0])
 
 
 def ghmc_streams(seed: int, num_chains: int, dim: int, device=None,
                  chain_offset: int = 0):
     """The Philox-filled randomness of one GHMC transition, transposed:
     ``z (dim, C)`` standard normals (the refresh noise is ``√(1/M⁻¹)·z``)
-    and ``u_accept (1, C)``, the Metropolis-Hastings uniform in (0, 1].
-    ``seed`` is the u32 key."""
-    words = _stream_words(seed, num_chains, device, chain_offset)
-    z = _normals(words, dim, num_chains)
-    return z, uniform_from_bits(words(ACCEPT, 1)[0])
+    and ``u_accept (1, C)``, the Metropolis-Hastings uniform in (0, 1],
+    from one Philox call.  ``seed`` is the u32 key."""
+    momentum, accept = _stream_words(
+        seed, num_chains, device, chain_offset,
+        [(MOMENTUM, 0, -(-dim // 4)), (ACCEPT, 0, 1)])
+    return _normals(momentum, dim, num_chains), uniform_from_bits(accept[0])

@@ -1,6 +1,16 @@
-"""Pooled multi-chain drivers of the port (the ChEES branch of
-:func:`aehmc_tpu.parallel.sample_sharded`)."""
+"""Pooled multi-chain drivers of the port (:mod:`aehmc_tpu.parallel` on one
+device)."""
 
-from aehmc_tpu_torch.parallel.pooled import sample_sharded
+from aehmc_tpu_torch.parallel.pooled import (
+    pooled_warmup,
+    pooled_warmup_hooks,
+    pooled_window_adaptation,
+    sample_sharded,
+)
 
-__all__ = ["sample_sharded"]
+__all__ = [
+    "pooled_warmup",
+    "pooled_warmup_hooks",
+    "pooled_window_adaptation",
+    "sample_sharded",
+]

@@ -45,33 +45,43 @@ def find_reasonable_step_size(
     ``(state, info)`` with ``info.acceptance_probability``; ``probe`` is the
     probe's index (0, 1, ...), which the caller maps to its randomness as the
     JAX version splits a key.  ``reduce_fn`` pools a chain batch's
-    acceptance into one scalar.  Each probe reads the pooled acceptance on
-    the host: at most ``max_iters`` synchronisations.
+    acceptance into one scalar.  Each probe reads on the host whether any
+    search is still running: at most ``max_iters`` synchronisations.
 
     The search has crossed only when two successive nonzero directions
     disagree; it returns the step size *at* the crossing (the first probed
     value whose acceptance landed on the other side of the target), and the
     user's value when the result is not finite or not positive.
+
+    A ``(chains,)`` initial step size without ``reduce_fn`` runs one search
+    a chain, elementwise: a chain's probes stop where its search alone
+    would, and its lane then holds the user's value (the kernel's results
+    there are not read).
     """
     if reduce_fn is None:
         reduce_fn = lambda a: a  # noqa: E731
     initial = torch.as_tensor(initial_step_size)
     last = probed = initial
-    direction = previous = 0
-    i = 0
+    zero = torch.zeros(initial.shape, dtype=torch.int8, device=initial.device)
+    direction = previous = zero
 
-    def crossed():
-        return previous != 0 and direction != previous
+    def running():
+        crossed = (previous != 0) & (direction != previous)
+        return ~crossed & torch.isfinite(last) & (last > 0)
 
-    def usable(x):
-        return bool(torch.isfinite(x) & (x > 0))
-
-    while i < max_iters and not crossed() and usable(last):
-        _, info = kernel_step(i, state, last, inverse_mass_matrix)
+    i, active = 0, running()
+    while i < max_iters and bool(active.any()):
+        _, info = kernel_step(i, state, torch.where(active, last, initial),
+                              inverse_mass_matrix)
         accept = reduce_fn(info.acceptance_probability)
-        new_direction = 1 if bool(accept > target_accept) else -1
-        factor = 2.0 if new_direction > 0 else 0.5
-        i, last, probed = i + 1, last * factor, last
-        direction, previous = new_direction, direction
-    result = probed if crossed() else last
-    return result if usable(result) else initial
+        up = accept > target_accept
+        new_direction = torch.where(up, 1, -1).to(torch.int8)
+        factor = torch.where(up, 2.0, 0.5).to(last.dtype)
+        last, probed = (torch.where(active, last * factor, last),
+                        torch.where(active, last, probed))
+        direction, previous = (torch.where(active, new_direction, direction),
+                               torch.where(active, direction, previous))
+        i, active = i + 1, running()
+    crossed = (previous != 0) & (direction != previous)
+    result = torch.where(crossed, probed, last)
+    return torch.where(torch.isfinite(result) & (result > 0), result, initial)

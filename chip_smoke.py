@@ -38,7 +38,25 @@ logistic regression.  Then it drives the port's front door
   300 + 200; ``eight_schools_fused``: 2,048 chains, 500 + 500; K 10, target
   0.85), the funnel held to the JAX gate's limits on v, eight schools' means
   to a plain sampler's on the card (256 chains), both run twice with one
-  generator seed and equal bit for bit.
+  generator seed and equal bit for bit;
+- phases 20-23, the XLA path for any ``logprob_fn`` (autograd gradients,
+  chain-batched host loops): phase 20 holds one XLA NUTS step against
+  kernel 1 fed the same Philox seed (decisions on ≥ 99% of chains, |Δq| ≤
+  1e-3) and counts its host syncs; phase 21 runs the JAX benchmark's
+  reference-anchored configs (``benchmarks/run.py:179-416``): the README
+  NUTS chain, the linear-regression window adaptation (1,000 steps), the
+  25-d dense-metric MVN (512 chains), the 10,240-chain logistic posterior
+  with pooled warmup (K 8), these two at 100 of their 200 draws, and the
+  funnel at depth 10 (512 chains, its 200 draws cut to 8; its deepest
+  trees held instead by one XLA NUTS step at K 10 against kernel 1 with
+  ``FunnelPG``, 8,192 chains at ε 0.005, the limits of phase 20); phase
+  22 drives the front door's ``xla`` route (one chain, and 256 independent
+  chains through the batched ``sample_chains``) and ``pooled`` routes
+  (NUTS, HMC, MALA, GHMC), each twice with one seed and equal bit for bit;
+  phase 23 holds the XLA ChEES step on kernel 8 (``chees.new_kernel(
+  integrate_fn=ops.logistic_integrate_fn(X, y))``) against the autograd
+  leapfrog and runs the pooled ChEES front door on it, kernel 8's main
+  path.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -1925,6 +1943,399 @@ def hold_front_door(out, what, accept_range=(0.7, 0.9)):
     check(out["finite"], f"{what}: non-finite draws")
 
 
+# phases 20-23: the XLA path for any logprob_fn (aehmc_tpu_torch.nuts, hmc,
+# mala, ghmc, chees.new_kernel, window_adaptation.run, parallel.pooled_warmup)
+# at the sizes of the JAX benchmark's reference-anchored configs
+# (benchmarks/run.py:179-416), draws cut where noted to keep phases 20-23
+# within 150 s: the path is host-bound (about 3 ms a leaf, and a batch walks
+# its deepest chain's tree), and its host time moves ±50% between machines
+README_EPS, README_STEPS = 0.9, 100                 # config 1
+LINREG_POINTS, LINREG_WARMUP, LINREG_EPS0 = 10_000, 1000, 0.1  # config 2
+# config 3, 200 draws cut to 100
+MVN_DIM, MVN_RHO, MVN_CHAINS, MVN_EPS, MVN_DRAWS = 25, 0.5, 512, 0.8, 100
+# config 5, 200 draws cut to 100
+LOGISTIC_K, LOGISTIC_WARMUP, LOGISTIC_DRAWS, LOGISTIC_EPS0 = 8, 150, 100, 0.1
+# config 4, the funnel at depth 10: 512 chains at ε 0.2 as the JAX bench,
+# its 200 draws cut to 8 (40 draws took 73.4 s on an NVIDIA H100 80GB HBM3
+# at 700 W); its deepest trees are held against kernel 1 (FunnelPG) instead:
+# one XLA NUTS step at K 10 from N(0, 1), phase 18's chain count, at an ε
+# that sends about 45% of the chains to 1,023 leaves
+FUNNEL_XLA_CHAINS, FUNNEL_XLA_EPS, FUNNEL_XLA_DRAWS = 512, 0.2, 8
+FUNNEL_DEEP_EPS = 0.005
+# phase 22: the front door's new routes, each run twice with one seed
+AUTO_WARMUP, AUTO_DRAWS = 50, 50   # the README example, 10-d N(0, I)
+# sample_chains' batch: every chain adapts alone, so early warmup steps
+# walk to K's cap somewhere in the batch; K 8 as the pooled NUTS route
+XLA_BATCH, XLA_WARMUP, XLA_DRAWS, XLA_K = 256, 50, 50, 8
+POOLED_RUNS = {  # algorithm: (warmup, draws, kwargs)
+    "nuts": (100, 50, dict(max_num_expansions=8)),
+    "hmc": (50, 25, {}),  # 32 integration steps a draw, the JAX default
+    "mala": (150, 50, {}),
+    "ghmc": (150, 50, {}),
+}
+WARMUP_GATE_RTOL = 1.0  # BASELINE.md's warmup gate: M⁻¹ against the variance
+
+
+def sync_count(torch, fn):
+    """``fn()`` and the host synchronisations torch's sync debug mode
+    reports while it runs (it sees the ``.item()``/``bool()`` reads and
+    blocking copies; not every synchronising call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught), out
+
+
+def z_vs_truth(torch, diagnostics, x, truth):
+    """The largest |mean − truth| / MCSE over the dimensions of ``x (chains,
+    draws, dim)``."""
+    mean, mcse = mean_mcse(torch, diagnostics, x)
+    return float(((mean - truth).abs() / mcse).max())
+
+
+def xla_run_stats(torch, diagnostics, x, evals, wall):
+    """Grad-evals/s and ESS/s (the minimum of bulk and tail ESS per
+    dimension, capped at chains × draws, summed) of draws ``x (chains,
+    draws, dim)`` taken in ``wall`` seconds."""
+    bulk, tail = bulk_tail_ess(torch, diagnostics, x.float())
+    ess = float(torch.minimum(bulk, tail).clamp(
+        max=x.shape[0] * x.shape[1]).sum())
+    return dict(wall_s=wall, grad_evals_per_s=evals / wall,
+                ess_per_s=ess / wall, min_bulk_ess=float(bulk.min()))
+
+
+def xla_vs_kernel_1(torch, out, info, q_k, stats):
+    """The share of chains whose XLA NUTS step (``out``, ``info``) and
+    kernel 1 (``q_k`` (dim, C), ``stats``) made the same decisions
+    (doublings, leaves, divergent, turning), and the largest |Δq| on
+    those."""
+    same = ((info.num_doublings == stats[2].to(torch.int32))
+            & (info.num_integration_steps == stats[3].to(torch.int32))
+            & (info.is_diverging == (stats[4] > 0.5))
+            & (info.is_turning == (stats[5] > 0.5)))
+    err = (float((out.position - q_k.T)[same].abs().max())
+           if bool(same.any()) else math.inf)
+    return float(same.float().mean()), err
+
+
+def xla_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
+               card):
+    """Phases 20-23.  Returns the kernel-8 launches of phase 23's main path
+    (the pooled ChEES front door on ``chees.new_kernel(integrate_fn=kernel
+    8)``) and that route's name."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch import chees, keys, nuts, sampling
+    from aehmc_tpu_torch import window_adaptation
+    from aehmc_tpu_torch.models import (
+        correlated_mvn,
+        linear_regression,
+        logistic_regression,
+        logistic_regression_data,
+        neals_funnel,
+        neals_funnel_pg_t,
+        std_normal,
+    )
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.parallel import pooled_warmup
+
+    dev = q0.device
+    t_start = time.perf_counter()
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+    imm = torch.full((DIM,), IMM, device=dev)
+
+    # ---- phase 20: the XLA NUTS step against kernel 1, one Philox seed
+    seed = 20_2020
+    state = nuts.new_state(q0, logprob_fn)
+    kernel = nuts.new_kernel(logprob_fn, K)
+    kernel(seed + 1, state, EPS, imm)  # first call: autograd warm-up
+    t20, (out, info) = timed(torch, lambda r: kernel(seed, state, EPS, imm), 3)
+    syncs20, _ = sync_count(torch, lambda: kernel(seed, state, EPS, imm))
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    qk, _, _, stats = nfs.nuts_transition_cuda(q_t, u0, g0, imm, EPS, data,
+                                               max_exp=K, seed=seed)
+    share20, err20 = xla_vs_kernel_1(torch, out, info, qk, stats)
+    leaves20 = float(info.num_integration_steps.float().mean())
+    log(f"phase 20: XLA NUTS step vs kernel 1 at {CHAINS}x{DIM}, K={K}, eps "
+        f"{EPS}, one Philox seed: decisions equal on {share20:.4%} of chains, "
+        f"max |q| err {err20:.3g}; XLA step {t20 * 1e3:.1f} ms "
+        f"({leaves20:.2f} leaves a chain, {syncs20} host syncs a "
+        f"transition) [{card}]")
+    check(share20 >= DECISION_SHARE, f"XLA NUTS vs kernel 1: {share20}")
+    check(err20 <= Q_ATOL, f"XLA NUTS vs kernel 1: max |q| err {err20}")
+    record["phase20"] = dict(share=share20, max_abs_err=err20, step_ms=t20 * 1e3,
+                             host_syncs=syncs20, mean_leaves=leaves20)
+    del out, info, state, qk, stats
+
+    # ---- phase 21: the reference-anchored configs on the XLA and pooled paths
+    phase21 = {}
+    # config 1, readme_nuts: one chain of a 1-D standard normal
+    lp1 = std_normal()
+    k1 = nuts.new_kernel(lp1)
+    one = torch.ones((), device=dev)
+    s1 = nuts.new_state(torch.ones((), device=dev), lp1)
+    t1, (_, pos1, inf1) = timed(torch, lambda r: sampling.sample_loop(
+        keys.Key(21), lambda k, s: k1(k, s, README_EPS, one), s1,
+        README_STEPS), 1)
+    x1 = pos1.reshape(1, -1, 1)
+    z_mean1 = z_vs_truth(torch, diagnostics, x1, 0.0)
+    # the sd through the mean of x² (its MCSE by the delta method)
+    z_var1 = z_vs_truth(torch, diagnostics, x1**2, 1.0)
+    phase21["readme_nuts"] = dict(
+        **xla_run_stats(torch, diagnostics, x1,
+                        float(inf1.num_integration_steps.sum()), t1),
+        z_mean=z_mean1, z_second_moment=z_var1,
+        mean=float(pos1.mean()), sd=float(pos1.std()))
+    check(z_mean1 < MCSE_Z and z_var1 < MCSE_Z,
+          f"config 1: mean {z_mean1} / second moment {z_var1} MCSE off")
+    # config 2, linreg_warmup: window_adaptation.run, 1,000 steps from 0.1
+    lp2, q2 = linear_regression(num_points=LINREG_POINTS, device=dev)
+    k2 = nuts.new_kernel(lp2)
+    s2 = nuts.new_state(q2, lp2)
+    t2, (last2, (eps2, imm2), inf2) = timed(torch, lambda r: window_adaptation.run(
+        keys.Key(22), k2, s2, LINREG_WARMUP, initial_step_size=LINREG_EPS0), 1)
+    # the posterior variance: the inverse Hessian at the last warmup state
+    hess = torch.autograd.functional.hessian(lambda q: -lp2(q),
+                                             last2.position)
+    var2 = torch.diagonal(torch.linalg.inv(hess.double())).float()
+    rel2 = float(((imm2 - var2).abs() / var2).max())
+    evals2 = float(inf2.num_integration_steps.sum())
+    phase21["linreg_warmup"] = dict(
+        wall_s=t2, grad_evals_per_s=evals2 / t2, step_size=float(eps2),
+        inverse_mass_matrix=imm2.tolist(), posterior_variance=var2.tolist(),
+        max_rel_err=rel2)
+    check(0.1 < float(eps2) < 2.0, f"config 2 tuned eps {float(eps2)}")
+    check(rel2 < WARMUP_GATE_RTOL, f"config 2 M⁻¹ {imm2.tolist()} against "
+          f"the posterior variance {var2.tolist()}")
+    # config 3, mvn25_dense: the true covariance as a dense M⁻¹
+    lp3 = correlated_mvn(MVN_DIM, MVN_RHO, device=dev)
+    cov = torch.full((MVN_DIM, MVN_DIM), MVN_RHO, device=dev)
+    cov.fill_diagonal_(1.0)
+    k3 = nuts.new_kernel(lp3)
+    gen3 = torch.Generator(device=dev).manual_seed(23)
+    s3 = nuts.new_state(torch.randn(MVN_CHAINS, MVN_DIM, generator=gen3,
+                                    device=dev), lp3)
+    t3, (_, pos3, inf3) = timed(torch, lambda r: sampling.sample_loop(
+        keys.Key(23), lambda k, s: k3(k, s, MVN_EPS, cov), s3, MVN_DRAWS), 1)
+    x3 = pos3.transpose(0, 1)
+    z3 = z_vs_truth(torch, diagnostics, x3, 0.0)
+    phase21["mvn25_dense"] = dict(
+        **xla_run_stats(torch, diagnostics, x3,
+                        float(inf3.num_integration_steps.sum()), t3),
+        max_z=z3, finite=bool(torch.isfinite(pos3).all()))
+    check(z3 < MCSE_Z, f"config 3 means {z3} MCSE from 0")
+    check(phase21["mvn25_dense"]["finite"], "config 3: non-finite draws")
+    del pos3, x3
+    # config 5, logistic_10k: pooled warmup, then draws
+    k5 = nuts.new_kernel(logprob_fn, LOGISTIC_K)
+    s5 = nuts.new_state(q0, logprob_fn)
+    t5w, (s5, (eps5, imm5), _) = timed(torch, lambda r: pooled_warmup(
+        keys.Key(25), k5, s5, LOGISTIC_WARMUP,
+        initial_step_size=LOGISTIC_EPS0), 1)
+    t5, (_, pos5, inf5) = timed(torch, lambda r: sampling.sample_loop(
+        keys.Key(26), lambda k, s: k5(k, s, eps5, imm5), s5, LOGISTIC_DRAWS),
+        1)
+    x5 = pos5.transpose(0, 1)
+    rhat5 = float(chunked(torch, lambda v: diagnostics.potential_scale_reduction(
+        v, rank_normalized=True), x5, 20).max())
+    m5, se5 = mean_mcse(torch, diagnostics, x5)
+    z5 = float(((m5 - nuts_mean[0]).abs()
+                / torch.sqrt(se5**2 + nuts_mean[1]**2)).max())
+    accept5 = float(inf5.acceptance_probability.mean())
+    div5 = float(inf5.is_diverging.float().mean())
+    phase21["logistic_10k"] = dict(
+        **xla_run_stats(torch, diagnostics, x5,
+                        float(inf5.num_integration_steps.sum()), t5),
+        warmup_wall_s=t5w, step_size=float(eps5), accept=accept5,
+        divergent_share=div5, max_rhat=rhat5, max_z_vs_nuts=z5,
+        mean_leaves=float(inf5.num_integration_steps.float().mean()),
+        finite=bool(torch.isfinite(pos5).all()))
+    check(0.7 <= accept5 <= 0.9, f"config 5 acceptance {accept5}")
+    check(rhat5 < 1.01, f"config 5 max R-hat {rhat5}")
+    check(z5 < MCSE_Z, f"config 5 means {z5} combined MCSE from phase 5's")
+    check(div5 < 1e-4, f"config 5 divergent share {div5}")
+    check(phase21["logistic_10k"]["finite"], "config 5: non-finite draws")
+    del pos5, x5, s5
+    # config 4, the funnel at depth 10
+    lp4, _ = neals_funnel(FUNNEL_DIM, device=dev)
+    k4 = nuts.new_kernel(lp4, 10)
+    gen4 = torch.Generator(device=dev).manual_seed(24)
+    s4 = nuts.new_state(0.1 * torch.randn(FUNNEL_XLA_CHAINS, FUNNEL_DIM,
+                                          generator=gen4, device=dev), lp4)
+    ones4 = torch.ones(FUNNEL_DIM, device=dev)
+    t4, (_, pos4, inf4) = timed(torch, lambda r: sampling.sample_loop(
+        keys.Key(24), lambda k, s: k4(k, s, FUNNEL_XLA_EPS, ones4), s4,
+        FUNNEL_XLA_DRAWS), 1)
+    phase21["funnel_depth10"] = dict(
+        **xla_run_stats(torch, diagnostics, pos4.transpose(0, 1),
+                        float(inf4.num_integration_steps.sum()), t4),
+        draws=FUNNEL_XLA_DRAWS,
+        mean_depth=float(inf4.num_doublings.float().mean()),
+        max_depth=int(inf4.num_doublings.max()),
+        accept=float(inf4.acceptance_probability.mean()),
+        finite=bool(torch.isfinite(pos4).all()))
+    check(phase21["funnel_depth10"]["finite"], "funnel: non-finite draws")
+    # its deepest trees: one XLA step at K 10 against kernel 1 (FunnelPG)
+    _, pg4, data4, _ = neals_funnel_pg_t(FUNNEL_DIM, device=dev)
+    q_t = hier_start(torch, FUNNEL_DIM, FUNNEL_CHAINS, 2104)
+    t4d, (out, info) = timed(torch, lambda r: k4(
+        2105, nuts.new_state(q_t.T.contiguous(), lp4), FUNNEL_DEEP_EPS,
+        ones4), 1)
+    u0, g0 = pg4(q_t, *data4)
+    qk, _, _, stats = nfs.nuts_transition_cuda(
+        q_t, u0, g0, ones4, FUNNEL_DEEP_EPS, data4, max_exp=10, seed=2105,
+        potential_and_grad_t=pg4)
+    share, err = xla_vs_kernel_1(torch, out, info, qk, stats)
+    depth = info.num_doublings
+    phase21["funnel_k10_vs_kernel_1"] = dict(
+        chains=FUNNEL_CHAINS, eps=FUNNEL_DEEP_EPS, share=share,
+        max_abs_err=err, step_s=t4d, mean_depth=float(depth.float().mean()),
+        depth10_share=float((depth == 10).float().mean()),
+        mean_leaves=float(info.num_integration_steps.float().mean()))
+    check(share >= DECISION_SHARE, f"funnel K 10: XLA NUTS vs kernel 1 {share}")
+    check(err <= Q_ATOL, f"funnel K 10: XLA NUTS vs kernel 1 max |q| err {err}")
+    del out, info, qk, stats
+    for name, r in phase21.items():
+        log(f"phase 21: {name}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()) + f" [{card}]")
+    record["phase21"] = phase21
+
+    # ---- phase 22: the front door's XLA and pooled routes, twice each
+    phase22 = {}
+    lp10 = std_normal()
+
+    def twice(name, run):
+        walls, outs = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        a, b = outs
+        check(torch.equal(a.positions, b.positions),
+              f"{name}: two runs with one seed differ")
+        check(bool(torch.isfinite(a.positions).all()), f"{name}: non-finite")
+        phase22[name] = dict(wall_s=walls[0], wall_s_again=walls[1])
+        return a
+
+    res = twice("auto_1d", lambda: aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(221), lp10,
+        torch.zeros(10, device=dev), AUTO_DRAWS, AUTO_WARMUP))
+    check(res.positions.shape == (AUTO_DRAWS, 10), "auto route shape")
+    phase22["auto_1d"]["z_vs_truth"] = z_vs_truth(
+        torch, diagnostics, res.positions[None], 0.0)
+    res = twice("xla_2d", lambda: aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(222), lp10,
+        torch.zeros(XLA_BATCH, 10, device=dev), XLA_DRAWS, XLA_WARMUP,
+        path="xla", max_num_expansions=XLA_K))
+    check(res.positions.shape == (XLA_BATCH, XLA_DRAWS, 10), "xla route shape")
+    leaves = res.diagnostics.num_integration_steps.float()  # (chains, draws)
+    phase22["xla_2d"].update(
+        z_vs_truth=z_vs_truth(torch, diagnostics, res.positions, 0.0),
+        chains=XLA_BATCH, mean_leaves=float(leaves.mean()),
+        # a draw of the batch walks its deepest chain's tree
+        mean_leaves_walked=float(leaves.max(dim=0).values.mean()))
+    for name in ("auto_1d", "xla_2d"):
+        check(phase22[name]["z_vs_truth"] < MCSE_Z,
+              f"{name} means {phase22[name]['z_vs_truth']} MCSE from 0")
+    for algorithm, (warm, draws, kw) in POOLED_RUNS.items():
+        name = f"pooled_{algorithm}"
+        res = twice(name, lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(223), logprob_fn, q0, draws, warm,
+            algorithm=algorithm, path="pooled", initial_step_size=0.1, **kw))
+        check(res.positions.shape == (draws, CHAINS, DIM),
+              f"{name} route shape")
+        x = res.positions.transpose(0, 1)
+        m, se = mean_mcse(torch, diagnostics, x)
+        z = float(((m - nuts_mean[0]).abs()
+                   / torch.sqrt(se**2 + nuts_mean[1]**2)).max())
+        evals = float(res.diagnostics.num_integration_steps.float().sum())
+        phase22[name].update(
+            max_z_vs_nuts=z, step_size=float(res.step_size),
+            accept=float(res.diagnostics.acceptance_probability.mean()),
+            grad_evals_per_s=evals / phase22[name]["wall_s"])
+        check(z < MCSE_Z, f"{name} means {z} combined MCSE from phase 5's")
+        del res, x
+    for name, r in phase22.items():
+        log(f"phase 22: {name}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in r.items())
+            + " (two runs, equal bit for bit) " + f"[{card}]")
+    record["phase22"] = phase22
+
+    # ---- phase 23: the XLA ChEES kernel on kernel 8
+    X, y = logistic_regression_data(DIM, POINTS, device=dev)
+    binding = ops.logistic_integrate_fn(X, y)
+    k_fused = chees.new_kernel(logprob_fn, integrate_fn=binding)
+    k_auto = chees.new_kernel(logprob_fn)
+    states = nuts.new_state(q0, logprob_fn)
+    steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+    ms_f = cuda_ms(torch, lambda: k_fused(23, states, EPS, steps, imm), 3)
+    ms_a = cuda_ms(torch, lambda: k_auto(23, states, EPS, steps, imm), 3)
+    syncs23, (kf, fi) = sync_count(
+        torch, lambda: k_fused(23, states, EPS, steps, imm))
+    ka, ai = k_auto(23, states, EPS, steps, imm)
+    moved_f, moved_a = ((s.position != q0).any(dim=1) for s in (kf, ka))
+    same23 = moved_f == moved_a
+    share23 = float(same23.float().mean())
+    err23 = (float((kf.position - ka.position)[same23].abs().max())
+             if bool(same23.any()) else math.inf)
+    log(f"phase 23: chees.new_kernel on kernel 8 vs the autograd leapfrog at "
+        f"{CHAINS}x{DIM}, L {LEAPFROG_STEPS}, eps {EPS}, one Philox seed: "
+        f"accept decisions equal on {share23:.4%}, max |q| err {err23:.3g}; "
+        f"a step {ms_f:.2f} ms on kernel 8 ({syncs23} host syncs), "
+        f"{ms_a:.2f} ms autograd [{card}]")
+    check(share23 >= DECISION_SHARE, f"kernel 8 ChEES step: {share23}")
+    check(err23 <= Q_ATOL, f"kernel 8 ChEES step: max |q| err {err23}")
+    del kf, ka, fi, ai
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(230), logprob_fn, q0, DRAWS, WARMUP,
+        algorithm="chees", path="pooled", initial_step_size=CHEES_EPS0,
+        chees_kernel_fn=k_fused)
+    torch.cuda.synchronize()
+    wall23 = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    k8 = launches["fused_logistic_hmc"]
+    probes = k8 - WARMUP - DRAWS
+    check(1 <= probes <= 32 and sum(launches.values()) == k8,
+          f"XLA ChEES front door launches {launches}")
+    stats23 = front_door_checks(torch, diagnostics, res, nuts_mean,
+                                "XLA ChEES on kernel 8",
+                                accept_range=CHEES_ACCEPT)
+    evals23 = float(res.diagnostics.num_integration_steps[:, 0].float().sum()
+                    ) * CHAINS
+    log(f"phase 23: sample(algorithm='chees', path='pooled') on kernel 8, "
+        f"{WARMUP} warmup from eps {CHEES_EPS0} + {DRAWS} draws in "
+        f"{wall23:.2f} s; kernel 8 launches {probes} probes + {WARMUP} + "
+        f"{DRAWS} = {k8}; accept {stats23['accept']:.4f}, eps "
+        f"{stats23['step_size']:.4f}, max R-hat {stats23['max_rhat']:.4f} "
+        f"(excess {stats23['max_rhat_excess']:.4f}), means within "
+        f"{stats23['max_z_vs_nuts']:.2f} MCSE of NUTS, sampling "
+        f"{evals23 / wall23 / 1e6:.2f}M grad-evals/s over the whole run "
+        f"[{card}]")
+    record["phase23"] = dict(share=share23, max_abs_err=err23, step_ms=ms_f,
+                             autograd_step_ms=ms_a, host_syncs=syncs23,
+                             wall_s=wall23, launches=launches, **stats23)
+    del res
+    wall = time.perf_counter() - t_start
+    record["phases_20_23_s"] = wall
+    log(f"phases 20-23 took {wall:.1f} s [{card}]")
+    return k8, ("chees.new_kernel(integrate_fn=ops.logistic_integrate_fn) "
+                "through sample(algorithm='chees', path='pooled')")
+
+
+
 def main():
     import torch
 
@@ -2283,6 +2694,13 @@ def main():
     extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
                     nuts_mean, card, EXTRA_SEEDS)
     hierarchical = hierarchical_phases(torch, ops, diagnostics, record, card)
+    k8_launches, k8_route = xla_phases(torch, ops, diagnostics, data, pg, q0,
+                                       record, nuts_mean, card)
+    # kernel 8's main path is the XLA ChEES kernel's (phase 23); phase 10's
+    # count, its launches through the entry point, is kept beside it
+    k8_entry = next(e for e in ghmc if e["name"] == "fused_logistic_hmc")
+    k8_entry.update(launches=k8_launches, main_path=k8_route,
+                    entry_point_launches=k8_entry["launches"])
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",

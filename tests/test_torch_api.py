@@ -1,7 +1,8 @@
 """The port's front door: aehmc_tpu_torch.sample(algorithm="nuts" | "mala" |
 "ghmc", path="fused") runs the plain versions on the CPU (its run on a card
 is in ``test_torch_cuda.py``); every unported route raises
-NotImplementedError."""
+NotImplementedError (the XLA and pooled routes are in
+``test_torch_xla_sampling.py``)."""
 
 import subprocess
 import sys
@@ -62,9 +63,14 @@ def test_front_door_is_reproducible_from_the_generator():
 
 @pytest.mark.parametrize("algorithm", ["hmc", "meads"])
 def test_unported_algorithms_raise(algorithm):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        aehmc_tpu_torch.sample(None, None, torch.zeros(8, 4), algorithm=algorithm,
-                               path="fused", potential_and_grad_t=_gaussian_pg)
+    """MEADS is not ported (ROADMAP.md item 1.11); HMC is, on the XLA and
+    pooled paths, and has no fused route, as in the JAX package."""
+    error, match = ((ValueError, "no fused megakernel") if algorithm == "hmc"
+                    else (NotImplementedError, "ROADMAP.md"))
+    with pytest.raises(error, match=match):
+        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
+                               algorithm=algorithm, path="fused",
+                               potential_and_grad_t=_gaussian_pg)
 
 
 def _ghmc_route(algorithm, seed=0, draws=40, **kw):
@@ -165,14 +171,22 @@ def test_mala_and_ghmc_route_errors():
 
 @pytest.mark.parametrize("path", ["xla", "pooled"])
 def test_unported_paths_raise(path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """The XLA and pooled paths run; what of them is not ported raises,
+    naming its ROADMAP.md item: MEADS (1.11) and a mesh (1.12)."""
+    with pytest.raises(NotImplementedError, match="item 1.11"):
         aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
-                               path=path)
+                               path=path, algorithm="meads")
+    with pytest.raises(NotImplementedError, match="item 1.12"):
+        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
+                               path=path, mesh=object())
 
 
 def test_bare_logprob_and_bad_names():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4))
+    """A bare logprob_fn on the fused path needs the generic fused binding
+    (ROADMAP.md item 1.10); on the default path it runs pooled."""
+    with pytest.raises(NotImplementedError, match="item 1.10"):
+        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
+                               path="fused")
     with pytest.raises(ValueError, match="algorithm"):
         aehmc_tpu_torch.sample(None, None, torch.zeros(8, 4), algorithm="x")
     with pytest.raises(ValueError, match="path"):

@@ -431,12 +431,29 @@ def test_moments_on_a_gaussian_under_philox():
 
 
 def test_warmup_and_sample_need_a_kernel():
-    states = ChainState(torch.zeros(4, 2), torch.zeros(4), torch.zeros(4, 2))
-    with pytest.raises(NotImplementedError, match="item 1.9"):
-        chees.warmup(torch.Generator(), None, states, 5)
-    with pytest.raises(NotImplementedError, match="item 1.9"):
-        chees.sample(torch.Generator(), None, states, 5, 0.1, 1.0,
-                     torch.ones(2))
+    """Without ``kernel_fn`` the drivers build the XLA ChEES kernel of
+    ``logprob_fn``, as the JAX drivers do: the same run as passing
+    ``chees.new_kernel(logprob_fn)``."""
+    def logprob_fn(x):
+        return -0.5 * torch.sum(x * x / torch.tensor(VAR), dim=-1)
+
+    q = torch.tensor(_q0())
+    states = hmc.new_state(q, logprob_fn)
+    kernel = chees.new_kernel(logprob_fn)
+    default = chees.warmup(torch.Generator().manual_seed(3), logprob_fn,
+                           states, 8)
+    given = chees.warmup(torch.Generator().manual_seed(3), None, states, 8,
+                         kernel_fn=kernel)
+    for a, b in zip(default, given):
+        assert torch.equal(torch.as_tensor(a[0] if isinstance(a, tuple)
+                                           else a),
+                           torch.as_tensor(b[0] if isinstance(b, tuple)
+                                           else b))
+    out_a = chees.sample(torch.Generator().manual_seed(4), logprob_fn,
+                         states, 5, 0.3, 1.0, torch.ones(DIM))
+    out_b = chees.sample(torch.Generator().manual_seed(4), None, states, 5,
+                         0.3, 1.0, torch.ones(DIM), kernel_fn=kernel)
+    assert torch.equal(out_a[1], out_b[1])
 
 
 def test_new_state_matches_jax():
@@ -458,8 +475,8 @@ def test_new_state_matches_jax():
 def test_sample_sharded_raises_for_what_is_not_ported():
     q0 = torch.zeros(8, 2)
     kw = dict(chees_kernel_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        sample_sharded(None, None, q0, algorithm="nuts")
+    with pytest.raises(NotImplementedError, match="item 1.11"):
+        sample_sharded(None, None, q0, algorithm="meads")
     with pytest.raises(NotImplementedError, match="item 1.10"):
         sample_sharded(None, None, q0, algorithm="chees", checkpoint_every=5,
                        checkpoint_path="x.npz", **kw)

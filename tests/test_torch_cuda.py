@@ -15,6 +15,12 @@ The whole-run NUTS kernels equal one launch per draw bit for bit, the
 standard-layout transition of q the transposed one of qᵀ, the GHMC segment
 kernel its transitions, and the batched leapfrog kernel its plain version.
 
+The XLA path on the card: one NUTS step from a Philox seed against kernel
+1 fed the same seed, on the logistic posterior and at depth 10 on Neal's
+funnel, and one XLA ChEES step on kernel 8 against the autograd leapfrog
+(chip_smoke phases 20, 21 and 23 at test size), decisions equal on at
+least 99% of chains.
+
 The logistic functor's gradient at a kernel's own q_out is held against
 float64, within 4× of the plain float32 gradient's error there (the bound
 any float32-accurate product order meets, 3×TF32 included:
@@ -1173,3 +1179,106 @@ def test_cuda_hierarchical_instantiations_hold_two_blocks_per_sm(cuda_device):
         for sampling in (0, 1):
             assert lib.nuts_pot_blocks_per_sm(model, sampling, plan.smem) >= 2
     assert lib.nuts_pot_blocks_per_sm(3, 0, 6560) == -1
+
+
+def _xla_logistic(device):
+    """The flagship's model at test size, float32 data: the XLA path's
+    ``logprob_fn`` and the fused kernels' builder on the same data."""
+    from aehmc_tpu_torch.models import logistic_regression
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=device)
+    _, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=device)
+    return logprob_fn, pg, data
+
+
+@pytest.mark.gpu
+def test_xla_nuts_step_on_the_card_agrees_with_kernel_1(cuda_device):
+    """chip_smoke phase 20 at test size: one Philox seed fed to the XLA
+    NUTS step (autograd gradients, sigmoid-form sampling) and to kernel 1
+    (logit form, its functor's gradient): decisions equal on at least 99%
+    of chains, positions within 1e-3 on those."""
+    from aehmc_tpu_torch import nuts
+    from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
+    logprob_fn, pg, data = _xla_logistic(cuda_device)
+    gen = torch.Generator().manual_seed(20)
+    q = (0.3 * torch.randn(512, DIM, generator=gen)).to(cuda_device)
+    imm = torch.full((DIM,), 0.8, device=cuda_device)
+    out, info = nuts.new_kernel(logprob_fn, MAX_EXP)(
+        2020, nuts.new_state(q, logprob_fn), 0.4, imm)
+    q_t = q.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    qk, _, _, stats = nuts_transition_cuda(q_t, u0, g0, imm, 0.4, data,
+                                           max_exp=MAX_EXP, seed=2020)
+    same = ((info.num_doublings == stats[2].to(torch.int32))
+            & (info.num_integration_steps == stats[3].to(torch.int32))
+            & (info.is_diverging == (stats[4] > 0.5))
+            & (info.is_turning == (stats[5] > 0.5)))
+    assert float(same.float().mean()) >= 0.99
+    assert float((out.position - qk.T)[same].abs().max()) <= 1e-3
+    assert int(info.num_doublings.max()) >= 2
+
+
+@pytest.mark.gpu
+def test_xla_chees_step_on_kernel_8_agrees_with_the_autograd_leapfrog(
+        cuda_device):
+    """chip_smoke phase 23 at test size: ``chees.new_kernel`` with
+    ``integrate_fn`` bound to kernel 8 against the autograd leapfrog, from
+    the same Philox seed; kernel 8 launches once a step, and a float64 call
+    raises rather than fall back."""
+    from aehmc_tpu_torch import chees, hmc, ops
+    from aehmc_tpu_torch.models import logistic_regression_data
+    logprob_fn, _, _ = _xla_logistic(cuda_device)
+    X, y = logistic_regression_data(DIM, POINTS, device=cuda_device)
+    gen = torch.Generator().manual_seed(23)
+    q = (0.3 * torch.randn(300, DIM, generator=gen)).to(cuda_device)
+    states = hmc.new_state(q, logprob_fn)
+    imm = torch.full((DIM,), 0.8, device=cuda_device)
+    steps = torch.tensor(10, dtype=torch.int32, device=cuda_device)
+    fused = chees.new_kernel(logprob_fn,
+                             integrate_fn=ops.logistic_integrate_fn(X, y))
+    reset_launch_counts()
+    kf, fi = fused(77, states, 0.3, steps, imm)
+    assert LAUNCHES["fused_logistic_hmc"] == 1
+    ka, ai = chees.new_kernel(logprob_fn)(77, states, 0.3, steps, imm)
+    moved_f = (kf.position != q).any(dim=1)
+    moved_a = (ka.position != q).any(dim=1)
+    same = moved_f == moved_a
+    assert float(same.float().mean()) >= 0.99
+    assert float((kf.position - ka.position)[same].abs().max()) <= 1e-3
+    assert 0.2 < float(ai.acceptance_probability.mean()) < 1.0
+    with pytest.raises(TypeError, match="float32"):
+        ops.logistic_integrate_fn(X, y)(q.double(), q.double(), 0.3, 10,
+                                        imm.double())
+
+
+@pytest.mark.gpu
+def test_xla_nuts_at_depth_10_on_the_funnel_agrees_with_kernel_1(
+        cuda_device):
+    """chip_smoke phase 21's deep-tree check at test size: one XLA NUTS
+    step at K 10 on Neal's funnel (autograd gradients) against kernel 1
+    with the ``FunnelPG`` functor, one Philox seed, ε 0.005 from N(0, 1)
+    (trees up to 1,023 leaves: the paired loop's epilogue, checkpoint slots
+    5-9): decisions equal on at least 99% of chains, positions within 1e-3
+    on those."""
+    from aehmc_tpu_torch import nuts
+    from aehmc_tpu_torch.models import neals_funnel, neals_funnel_pg_t
+    from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
+    dim, chains, seed, eps = 10, 256, 1805, 0.005
+    q_t = torch.tensor(np.random.default_rng(seed).standard_normal(
+        (dim, chains)), dtype=torch.float32, device=cuda_device)
+    lp, _ = neals_funnel(dim, device=cuda_device)
+    _, pg, data, _ = neals_funnel_pg_t(dim, device=cuda_device)
+    imm = torch.ones(dim, device=cuda_device)
+    out, info = nuts.new_kernel(lp, 10)(
+        seed, nuts.new_state(q_t.T.contiguous(), lp), eps, imm)
+    u0, g0 = pg(q_t, *data)
+    qk, _, _, stats = nuts_transition_cuda(q_t, u0, g0, imm, eps, data,
+                                           max_exp=10, seed=seed,
+                                           potential_and_grad_t=pg)
+    same = ((info.num_doublings == stats[2].to(torch.int32))
+            & (info.num_integration_steps == stats[3].to(torch.int32))
+            & (info.is_diverging == (stats[4] > 0.5))
+            & (info.is_turning == (stats[5] > 0.5)))
+    assert float(same.float().mean()) >= 0.99
+    assert float((out.position - qk.T)[same].abs().max()) <= 1e-3
+    assert int(info.num_doublings.max()) == 10
