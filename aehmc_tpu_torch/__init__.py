@@ -2,14 +2,19 @@
 
 What is ported: the XLA path for any ``logprob_fn`` (the NUTS, HMC, MALA,
 GHMC and ChEES kernels of :mod:`nuts`, :mod:`hmc`, :mod:`mala`,
-:mod:`ghmc` and :mod:`chees`, window adaptation, the sampling drivers and
-pooled warmup, through ``sample(..., path="xla" | "pooled")``), the fused
+:mod:`ghmc` and :mod:`chees`, MEADS (:mod:`meads`), window adaptation, the
+sampling drivers and pooled warmup, through ``sample(..., path="xla" |
+"pooled")``), checkpoint/resume of every sampling driver
+(:mod:`checkpoint`), progress lines and profiler spans
+(:mod:`observability`), the fused
 NUTS route (Stan warmup driving a per-transition NUTS kernel, then the
 whole sampling run in one kernel launch) on the logistic regression,
 Neal's funnel and eight schools, the fused MALA and GHMC routes (warmup
 through the GHMC transition kernel, sampling in segments of the GHMC
 segment kernel), the fused ChEES route (the ChEES adaptation over the
-ChEES transition kernel), the standard-layout NUTS entry points of
+ChEES transition kernel), the fused MEADS route (the GHMC segment kernel a
+re-estimation segment, or the transition kernel a draw when checkpointed),
+the standard-layout NUTS entry points of
 :mod:`aehmc_tpu_torch.ops.nuts_fused`, the two leapfrog entry points of
 :mod:`aehmc_tpu_torch.ops` (``fused_logistic_hmc``, also the XLA ChEES
 kernel's trajectory, and ``batched_leapfrog``), and the JAX package's
@@ -19,14 +24,17 @@ imports no JAX.
 """
 
 from aehmc_tpu_torch import (
+    checkpoint,
     chees,
     diagnostics,
     ghmc,
     hmc,
     keys,
     mala,
+    meads,
     metrics,
     nuts,
+    observability,
     ops,
     sampling,
     window_adaptation,
@@ -57,6 +65,7 @@ __all__ = [
     "SampleResult",
     "WelfordState",
     "batched_leapfrog",
+    "checkpoint",
     "chees",
     "diagnostics",
     "fused_logistic_hmc",
@@ -64,8 +73,10 @@ __all__ = [
     "hmc",
     "keys",
     "mala",
+    "meads",
     "metrics",
     "nuts",
+    "observability",
     "ops",
     "sample",
     "sampling",

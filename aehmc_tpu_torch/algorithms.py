@@ -144,12 +144,13 @@ def pairwise_mean(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
 def _pairwise_outer_sum(centered: torch.Tensor,
                         max_chunks: int = 128) -> torch.Tensor:
     """``centered.T @ centered``: fixed-size chunk Gram matrices combined in
-    the fixed pairwise tree."""
-    n, dim = centered.shape
+    the fixed pairwise tree.  ``centered`` is ``(n, dim)``, or ``(..., n,
+    dim)`` with leading batch axes (one Gram matrix each)."""
+    *batch, n, dim = centered.shape
     num_chunks = math.gcd(n, max_chunks)
-    blocks = centered.reshape(num_chunks, n // num_chunks, dim)
-    partial = torch.einsum("bci,bcj->bij", blocks, blocks)
-    return pairwise_sum(partial, axis=0)
+    blocks = centered.reshape(*batch, num_chunks, n // num_chunks, dim)
+    partial = torch.einsum("...bci,...bcj->...bij", blocks, blocks)
+    return pairwise_sum(partial, axis=-3)
 
 
 def welford_update_batch(

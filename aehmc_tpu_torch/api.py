@@ -7,7 +7,7 @@ Three paths, picked as the JAX package picks them (``path="auto"``):
   scalar) position runs one chain through
   :func:`aehmc_tpu_torch.sampling.sample`, a ``(chains, dim)`` position one
   independent chain per row (:func:`~aehmc_tpu_torch.sampling.sample_chains`);
-  ChEES, a chain-ensemble method, takes the pooled driver;
+  ChEES and MEADS, chain-ensemble methods, take the pooled driver;
 - **pooled** (the default for a 2-D position): pooled cross-chain warmup
   and sampling of the batch,
   :func:`aehmc_tpu_torch.parallel.sample_sharded`;
@@ -15,11 +15,14 @@ Three paths, picked as the JAX package picks them (``path="auto"``):
   given): the CUDA kernels' drivers; NUTS runs Stan warmup through the
   per-transition NUTS kernel and the whole sampling phase in one launch,
   MALA and GHMC through the GHMC transition and segment kernels, ChEES the
-  pooled ChEES driver over the ChEES transition kernel.
+  pooled ChEES driver over the ChEES transition kernel, MEADS the pooled
+  MEADS driver over the GHMC segment kernel (one launch a
+  ``meads_recompute_every``-draw segment) or, with ``checkpoint_every``,
+  the GHMC transition kernel (one launch a draw).
 
-What raises: ``algorithm="meads"`` (ROADMAP.md item 1.11), ``mesh=`` (item
-1.12), and a bare ``logprob_fn`` on the fused path (the generic fused
-binding, item 1.10), each ``NotImplementedError``.
+What raises: ``mesh=`` (ROADMAP.md item 1.12) and a bare ``logprob_fn`` on
+the fused path (the generic fused binding, item 1.10), each
+``NotImplementedError``.
 """
 
 from typing import Callable, Optional, Sequence
@@ -27,6 +30,10 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from aehmc_tpu_torch.ops.chees_fused import make_fused_chees_kernel
+from aehmc_tpu_torch.ops.ghmc_fused import (
+    make_fused_meads_segment,
+    make_fused_meads_transition,
+)
 from aehmc_tpu_torch.ops.fused_driver import (
     sample_fused_adaptive,
     sample_fused_ghmc,
@@ -42,6 +49,8 @@ PATHS = ("auto", "xla", "pooled", "fused")
 _FUSED_ALGORITHMS = ("nuts", "chees", "meads", "mala", "ghmc")
 # keyword arguments of the ChEES route that build its kernel
 _CHEES_KERNEL_KWARGS = ("block_chains", "use_internal_prng", "step_size_factors")
+# ... and of the MEADS route
+_MEADS_KERNEL_KWARGS = ("block_chains", "use_internal_prng")
 
 
 def _resolve_path(path, initial_position, potential_fn_t,
@@ -116,7 +125,10 @@ def sample(
     ``search_initial_step_size`` True, ``per_chain_step_size`` on the
     pooled path, ``chees_kernel_fn`` for ChEES, e.g. the XLA ChEES kernel
     on kernel 8: ``chees.new_kernel(logprob_fn,
-    integrate_fn=ops.logistic_integrate_fn(X, y))``).
+    integrate_fn=ops.logistic_integrate_fn(X, y))``,
+    ``meads_recompute_every`` for MEADS, and on every pooled branch
+    ``checkpoint_every``/``checkpoint_path``/``resume`` and
+    ``progress_every``).
 
     The fused routes take the transposed ``potential_fn_t(q_t, *data)``
     and/or ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device
@@ -129,7 +141,9 @@ def sample(
     raises ``NotImplementedError`` (the generic path is ROADMAP.md item
     1.10).  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
-    (``max_num_expansions`` defaults to 6, ``loop_in_kernel`` to True) and to
+    (``max_num_expansions`` defaults to 6; ``loop_in_kernel`` to True
+    unless ``checkpoint_every`` is given, whose segments need one launch a
+    draw; the draws are the same bits either way) and to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and
     GHMC (``ghmc_alpha``, the GHMC momentum persistence, defaults to 0.9).
     Fused ChEES needs ``logprob_fn`` to start its chain states;
@@ -138,7 +152,10 @@ def sample(
     (:func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`), the
     others go to :func:`aehmc_tpu_torch.parallel.sample_sharded`; its
     ``generator`` may be a key source ``(phase, index) -> key`` that
-    replays given randomness.
+    replays given randomness.  Fused MEADS needs ``logprob_fn`` too;
+    ``block_chains``, ``use_internal_prng`` and ``divergence_threshold``
+    build its kernel adapter, ``meads_recompute_every`` defaults to 8, and
+    the others go to :func:`~aehmc_tpu_torch.parallel.sample_sharded`.
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
@@ -152,24 +169,21 @@ def sample(
             "logprob_fn may be None only on the fused NUTS/MALA/GHMC routes "
             "with an explicit potential_fn_t/potential_and_grad_t binding"
         )
-    if algorithm == "meads":
-        raise NotImplementedError(
-            "algorithm='meads' is not ported yet (ROADMAP.md item 1.11)")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
                                   "1.12)")
 
     if route == "xla":
         if initial_position.ndim <= 1:
-            if algorithm == "chees":
+            if algorithm in ("chees", "meads"):
                 raise ValueError(
-                    "'chees' is a chain-ensemble method (cross-chain "
+                    f"{algorithm!r} is a chain-ensemble method (cross-chain "
                     "adaptation); pass a (chains, dim) initial_position"
                 )
             return sampling.sample(generator, logprob_fn, initial_position,
                                    num_samples, num_warmup,
                                    algorithm=algorithm, **kwargs)
-        if algorithm == "chees":
+        if algorithm in ("chees", "meads"):
             # an ensemble method has no independent-chain mode: its XLA
             # route is the pooled driver
             route = "pooled"
@@ -218,6 +232,10 @@ def sample(
             num_samples, num_warmup, algorithm="chees",
             chees_kernel_fn=kernel_fn, **kwargs,
         )
+    if algorithm == "meads":
+        return _fused_meads(generator, logprob_fn, initial_position,
+                            num_samples, num_warmup, data, potential_fn_t,
+                            potential_and_grad_t, kwargs)
     if algorithm in ("mala", "ghmc"):
         if algorithm == "mala":
             if "ghmc_alpha" in kwargs:
@@ -241,7 +259,10 @@ def sample(
         )
         return _fused_nuts_result(out)
     kwargs.setdefault("max_num_expansions", 6)
-    kwargs.setdefault("loop_in_kernel", True)
+    # the whole-run kernel unless the sampling phase runs in checkpointed
+    # segments (the JAX driver's default is the per-draw loop, bit for bit
+    # the same draws)
+    kwargs.setdefault("loop_in_kernel", not kwargs.get("checkpoint_every"))
     out = sample_fused_adaptive(
         generator,
         logprob_fn,
@@ -254,3 +275,27 @@ def sample(
         **kwargs,
     )
     return _fused_nuts_result(out)
+
+
+def _fused_meads(generator, logprob_fn, initial_position, num_samples,
+                 num_warmup, data, potential_fn_t, potential_and_grad_t,
+                 kwargs) -> SampleResult:
+    """The fused MEADS route: the pooled MEADS driver over kernel 6 (one
+    launch a ``meads_recompute_every``-draw segment), or over kernel 5 (one
+    launch a draw) when the run is checkpointed, whose segments need the
+    per-draw kernel."""
+    kernel_kwargs = {k: kwargs.pop(k) for k in _MEADS_KERNEL_KWARGS
+                     if k in kwargs}
+    if "divergence_threshold" in kwargs:
+        kernel_kwargs["divergence_threshold"] = kwargs["divergence_threshold"]
+    kwargs.setdefault("meads_recompute_every", 8)
+    common = dict(potential_and_grad_t=potential_and_grad_t, **kernel_kwargs)
+    if kwargs.get("checkpoint_every"):
+        kwargs["meads_transition_fn"] = make_fused_meads_transition(
+            potential_fn_t, tuple(data), **common)
+    else:
+        kwargs["meads_segment_fn"] = make_fused_meads_segment(
+            potential_fn_t, tuple(data), **common)
+    return sample_sharded(generator, logprob_fn,
+                          initial_position.to(torch.float32), num_samples,
+                          num_warmup, algorithm="meads", **kwargs)

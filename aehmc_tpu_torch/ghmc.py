@@ -6,8 +6,9 @@ Metropolis-Hastings accept on the energy difference and the momentum
 flipped on rejection, over one chain or a ``(chains, dim)`` batch.  The
 key's Philox streams (:func:`aehmc_tpu_torch.keys.normals_and_uniform`)
 give ξ's standard normals and the accept uniform; a ``(z, u)`` pair passes
-them in.  The externalized noise kernel of the JAX package serves MEADS,
-which is not ported yet (ROADMAP.md item 1.11).
+them in.  :func:`new_noise_kernel` takes ξ and the uniform as inputs: the
+MEADS fold transition (:mod:`aehmc_tpu_torch.meads`) draws them for the
+whole fleet at once.
 """
 
 from typing import Callable, Tuple
@@ -48,17 +49,41 @@ def new_kernel(logprob_fn: Callable, divergence_threshold: float = 1000.0,
     (IntegratorState, Diagnostics)``; ``alpha`` in [0, 1) is the momentum
     persistence (0 refreshes fully: one-step HMC).
     """
+    noise_step = new_noise_kernel(logprob_fn, divergence_threshold,
+                                  integrator, num_integration_steps)
+
+    def step(key, state: IntegratorState, step_size, alpha,
+             inverse_mass_matrix) -> Tuple[IntegratorState, Diagnostics]:
+        momentum_generator, _, _ = metrics.gaussian_metric(
+            _batch.like(inverse_mass_matrix, state.position))
+        z, uniform = keys.normals_and_uniform(key, state.position)
+        return noise_step(momentum_generator(z), uniform, state, step_size,
+                          alpha, inverse_mass_matrix)
+
+    return step
+
+
+def new_noise_kernel(logprob_fn: Callable, divergence_threshold: float = 1000.0,
+                     integrator: Callable = velocity_verlet,
+                     num_integration_steps: int = 1) -> Callable:
+    """GHMC with its randomness as inputs.
+
+    Returns ``step(noise, uniform, state, step_size, alpha,
+    inverse_mass_matrix) -> (IntegratorState, Diagnostics)`` with ``noise ~
+    N(0, M)`` the refresh innovation (the state's shape) and ``uniform`` the
+    Metropolis-Hastings coin (the batch shape).  A NaN energy difference
+    counts as ``-inf`` (rejected); ``is_diverging`` is ``|ΔE| >
+    divergence_threshold``; the negated accepted momentum is stored.
+    """
 
     def potential_fn(x):
         return -logprob_fn(x)
 
-    def step(key, state: IntegratorState, step_size, alpha,
+    def step(noise, uniform, state: IntegratorState, step_size, alpha,
              inverse_mass_matrix) -> Tuple[IntegratorState, Diagnostics]:
         position = state.position
-        momentum_generator, kinetic_energy_fn, _ = metrics.gaussian_metric(
+        _, kinetic_energy_fn, _ = metrics.gaussian_metric(
             _batch.like(inverse_mass_matrix, position))
-        z, uniform = keys.normals_and_uniform(key, position)
-        noise = momentum_generator(z)
         alpha = _batch.expand(_batch.like(alpha, position), position)
         # partial refresh: p ~ N(alpha p, (1 - alpha^2) M)
         momentum = alpha * state.momentum + torch.sqrt(1.0 - alpha**2) * noise

@@ -19,6 +19,8 @@ from aehmc_tpu_torch.ops.fused_hmc import (
 from aehmc_tpu_torch.ops.ghmc_fused import (
     fused_ghmc_segment,
     make_fused_ghmc_transition,
+    make_fused_meads_segment,
+    make_fused_meads_transition,
 )
 from aehmc_tpu_torch.ops.launches import LAUNCHES, reset_launch_counts
 from aehmc_tpu_torch.ops.leapfrog import (
@@ -50,6 +52,8 @@ __all__ = [
     "make_fused_chees_kernel",
     "make_fused_chees_transition",
     "make_fused_ghmc_transition",
+    "make_fused_meads_segment",
+    "make_fused_meads_transition",
     "make_fused_nuts_transition",
     "make_fused_nuts_transition_small",
     "reset_launch_counts",

@@ -10,8 +10,10 @@ batched Welford fold of the positions.  Supported: diagonal or dense M⁻¹
 (``use_internal_prng``) or external randomness, the whole-run NUTS kernel
 (``loop_in_kernel``), the standard-layout NUTS kernel (``potential_fn``
 alone), GHMC segments of ``segment_draws`` draws,
-``collect_dtype`` float32 or bfloat16.  The other options of the JAX driver
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+``collect_dtype`` float32 or bfloat16, and checkpoint/resume of the NUTS
+driver (``checkpoint_every``: per-draw launches in saved segments).  The
+other options of the JAX driver raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from typing import Callable, Sequence
@@ -19,11 +21,17 @@ from typing import Callable, Sequence
 import torch
 
 from aehmc_tpu_torch.algorithms import pairwise_mean, welford_update_batch
+from aehmc_tpu_torch.observability import (
+    progress_callback,
+    progress_draws,
+    stats_info,
+)
 from aehmc_tpu_torch.ops.ghmc_fused import (
     fused_ghmc_segment,
     make_fused_ghmc_transition,
 )
 from aehmc_tpu_torch.ops.nuts_fused import (
+    DRAW_SEED_STRIDE,
     _generic_model,
     _is_key_source,
     _sample_phase,
@@ -39,6 +47,7 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     _pot_grad_builder_t,
     make_fused_nuts_transition_small,
 )
+from aehmc_tpu_torch.ops.philox import MASK32
 from aehmc_tpu_torch.types import ChainState
 from aehmc_tpu_torch.window_adaptation import window_adaptation
 
@@ -51,9 +60,6 @@ _NOT_PORTED = {
     "per_chain_quantile_stat": "1.5",
     "search_initial_step_size": "1.5",
     "mesh": "1.12",
-    "checkpoint_every": "1.10",
-    "checkpoint_path": "1.10",
-    "resume": "1.10",
 }
 
 
@@ -79,6 +85,7 @@ def warmup_fused_hooks(
     target_acceptance_rate: float = 0.8,
     use_internal_prng: bool = True,
     streams: Callable = None,
+    progress_every: int = 0,
     **options,
 ):
     """Segmentable fused warmup: ``(init, segment, finish)``.
@@ -92,6 +99,7 @@ def warmup_fused_hooks(
     ``use_internal_prng`` step ``t`` uses the Philox key ``base +
     t*DRAW_SEED_STRIDE``; otherwise ``streams(t) -> (z, dirs, u_bias,
     u_leaf)`` (standard layout), drawn from the generator when not given.
+    ``progress_every=N`` prints a progress line every N steps.
     """
     _reject_unported(options)
     init_adapt, update_adapt = window_adaptation(
@@ -126,6 +134,8 @@ def warmup_fused_hooks(
                                                    q_t.device)
             out = transition(q_t, u, g_t, p, dirs, ub, ul, imm, eps)
         q_t, u, g_t, stats_t = out
+        if progress_every:
+            progress_callback(step, stats_info(stats_t.T), progress_every)
         return (q_t, u, g_t), update_adapt(step, ast, q_t.T, stats_t), stats_t[1]
 
     def segment(wcarry, steps):
@@ -240,6 +250,12 @@ def sample_fused_adaptive(
     use_internal_prng: bool = True,
     loop_in_kernel: bool = False,
     block_chains: int = None,
+    progress_every: int = 0,
+    checkpoint_every: int = 0,
+    checkpoint_path: str = None,
+    resume: bool = False,
+    _crash_after_segments: int = None,
+    _crash_after_warmup_segments: int = None,
     **options,
 ):
     """One-call driver: fused warmup, then fused sampling.
@@ -258,6 +274,17 @@ def sample_fused_adaptive(
     (z, dirs, u_bias, u_leaf)`` (standard layout, ``phase`` ``"warmup"`` or
     ``"sample"``), as :mod:`aehmc_tpu_torch.chees` takes one.
     ``block_chains`` has no effect (a CUDA block holds 8 chains).
+    ``progress_every=N`` prints a progress line every N warmup steps and
+    draws.
+
+    **Checkpoint / resume** as in
+    :func:`aehmc_tpu_torch.parallel.sample_sharded`: ``checkpoint_every=N,
+    checkpoint_path="run.npz"`` runs warmup and sampling in saved N-step
+    segments of one launch a step; draw ``t`` takes the Philox key ``base +
+    t·DRAW_SEED_STRIDE`` with ``t`` the absolute draw index, the base drawn
+    where the unsegmented run draws it, so the checkpointed run draws what
+    the unsegmented one draws and a resumed run (``resume=True``) what the
+    uninterrupted one does, bit for bit.  Not with ``loop_in_kernel``.
 
     Returns ``(final_positions, positions (draws, chains, dim),
     stats (draws, chains, 8), step_size, inverse_mass_matrix)``.
@@ -271,6 +298,13 @@ def sample_fused_adaptive(
             "loop_in_kernel draws all randomness in the kernel — it requires "
             "use_internal_prng=True"
         )
+    if loop_in_kernel and checkpoint_every:
+        raise ValueError(
+            "loop_in_kernel runs the whole sampling phase in one kernel — "
+            "checkpoint segmentation needs the scan path"
+        )
+    if checkpoint_every and checkpoint_path is None:
+        raise ValueError("checkpoint_every requires checkpoint_path")
     warmup_streams = sample_streams = None
     if _is_key_source(generator):
         if use_internal_prng:
@@ -311,34 +345,78 @@ def sample_fused_adaptive(
         target_acceptance_rate=target_acceptance_rate,
         use_internal_prng=use_internal_prng,
         streams=warmup_streams,
+        progress_every=progress_every,
     )
-    wcarry = init(generator, (q0_t, u0.reshape(1, num_chains), g0_t))
-    wcarry, _ = segment(wcarry, range(num_warmup))
-    (q_t, u, g_t), (eps, imm) = finish(wcarry)
-
     cdt = torch.float32 if collect_dtype is None else collect_dtype
-    if loop_in_kernel:
-        seed = derive_draw_seeds(generator, 1)[0]
-        pos_t, stats_t, qf_t, _, _ = _fused_sampling_call_t(
-            potential_fn_t, potential_and_grad_t, data, q_t, u, g_t, imm,
-            eps, seed, num_samples,
-            max_num_expansions=max_num_expansions,
-            divergence_threshold=divergence_threshold,
-            collect_positions=collect_positions, collect_dtype=cdt,
-        )
-        positions = None if pos_t is None else pos_t.transpose(1, 2)
-        return qf_t.T, positions, stats_t.transpose(1, 2), eps, imm
+    qug0 = (q0_t, u0.reshape(1, num_chains), g0_t)
 
-    if use_internal_prng:
-        randomness = derive_draw_seeds(generator, num_samples)
-    else:
-        randomness = sample_streams or _generator_streams(
-            generator, num_chains, dim, max_num_expansions, q_t.device)
-    qf, positions, stats = _draw_loop(
-        transition, q_t, u, g_t, imm, eps, num_samples, randomness,
-        collect_positions, cdt,
-    )
-    return qf, positions, stats, eps, imm
+    def sample_randomness(draws, base):
+        """The draws' Philox keys, or their streams by index in ``draws``."""
+        if use_internal_prng:
+            return [(base + t * DRAW_SEED_STRIDE) & MASK32 for t in draws]
+        streams = sample_streams or _generator_streams(
+            generator, num_chains, dim, max_num_expansions, q0_t.device)
+        return lambda i: streams(draws.start + i)
+
+    def warmup_randomness(seeds):
+        if use_internal_prng:
+            return seeds
+        return warmup_streams or _generator_streams(
+            generator, num_chains, dim, max_num_expansions, q0_t.device)
+
+    def wh_init(gen, _):
+        qug, ast, randomness = init(gen, qug0)
+        if not use_internal_prng:
+            return (qug, ast, None, None), None
+        # the sampling base is the generator's next draw after the warmup
+        # keys; warmup draws nothing more from it
+        return (qug, ast, randomness, derive_draw_seeds(gen, 1)[0]), None
+
+    def wh_segment(wc, steps):
+        qug, ast, seeds, base = wc
+        (qug, ast, _), _ = segment(
+            (qug, ast, warmup_randomness(seeds)), steps)
+        return qug, ast, seeds, base
+
+    def wh_finish(wc):
+        qug, ast, _, base = wc
+        _, (eps, imm) = finish((qug, ast, None))
+        return qug, (eps, imm, base)
+
+    def sample_segment(qug, draws, extras, _):
+        eps, imm, base = extras
+        if loop_in_kernel:
+            pos_t, stats_t, *qug = _fused_sampling_call_t(
+                potential_fn_t, potential_and_grad_t, data, *qug, imm, eps,
+                base, len(draws), max_num_expansions=max_num_expansions,
+                divergence_threshold=divergence_threshold,
+                collect_positions=collect_positions, collect_dtype=cdt,
+            )
+            positions = None if pos_t is None else pos_t.transpose(1, 2)
+            stats = stats_t.transpose(1, 2)
+        else:
+            qug, positions, stats = _draw_loop(
+                transition, *qug, imm, eps, len(draws),
+                sample_randomness(draws, base), collect_positions, cdt,
+                final_state=True)
+        progress_draws(progress_every, draws, stats_info(stats))
+        return qug, (positions, stats)
+
+    def build_result(qug, extras, outs):
+        eps, imm, _ = extras
+        positions, stats = outs
+        return qug[0].T, positions, stats, eps, imm
+
+    # imported here: parallel.pooled imports this package
+    from aehmc_tpu_torch.parallel.pooled import _checkpointed_run
+
+    return _checkpointed_run(
+        generator, initial_positions, (wh_init, wh_segment, wh_finish),
+        sample_segment, build_result, num_samples, num_warmup,
+        checkpoint_every=checkpoint_every,
+        checkpoint_path=checkpoint_path, resume=resume,
+        _crash_after_segments=_crash_after_segments,
+        _crash_after_warmup_segments=_crash_after_warmup_segments)
 
 
 def _generator_ghmc_streams(generator, shape, device):

@@ -20,21 +20,27 @@ taking the key ``seed + t·DRAW_SEED_STRIDE``.
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The kernels compute
 the logistic-regression potential (:func:`models.logistic_pg_t`); a CUDA
-tensor with any other potential raises ``NotImplementedError``.  The
-``shard_*`` and MEADS adapters of the JAX module wait for ROADMAP.md items
-1.10-1.12.
+tensor with any other potential raises ``NotImplementedError``.
+
+:func:`make_fused_meads_transition` and :func:`make_fused_meads_segment`
+adapt the two kernels to the MEADS fold contract
+(:mod:`aehmc_tpu_torch.meads`): the per-fold ε, α and diagonal M⁻¹ are
+repeated for each chain of a fold, the outputs refolded.  The ``shard_*``
+adapter of the JAX module waits for ROADMAP.md item 1.12.
 """
 
 from typing import Callable, Sequence
 
 import torch
 
+from aehmc_tpu_torch import keys
 from aehmc_tpu_torch.models.regression import logistic_pg_t
 from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, NEG_INF
 from aehmc_tpu_torch.ops.nuts_fused_small import _clamped, _pot_grad_builder_t
 from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
+from aehmc_tpu_torch.types import Diagnostics
 
 
 def _ghmc_core_t(q0, u0, g0, p_prev, noise, u_acc, eps, alpha, im, pot_grad,
@@ -274,6 +280,173 @@ def fused_ghmc_segment(
         pos = None if pos_t is None else pos_t.transpose(1, 2)
         return (pos, stats.transpose(1, 2), qn.T, un.reshape(num_chains, 1),
                 gn.T, pn.T)
+
+    return segment
+
+
+def _meads_operands(fold_states, hyper):
+    """The flat ``(chains, ...)`` state of MEADS's folded states and its
+    per-chain ε, α and ``(chains, dim)`` M⁻¹ (each fold's repeated for its
+    chains)."""
+    num_folds, per_fold = fold_states.position.shape[:2]
+    num_chains = num_folds * per_fold
+
+    def flat(a):
+        return a.reshape((num_chains,) + a.shape[2:])
+
+    def tile(a):
+        return torch.repeat_interleave(a.to(torch.float32), per_fold, dim=0)
+
+    state = tuple(flat(a).to(torch.float32) for a in (
+        fold_states.position, fold_states.potential_energy,
+        fold_states.potential_energy_grad, fold_states.momentum))
+    return state, (tile(hyper.step_size), tile(hyper.alpha),
+                   tile(hyper.inverse_mass_matrix))
+
+
+def _meads_infos(stats: torch.Tensor, refold: Callable) -> Diagnostics:
+    """MEADS's ``Diagnostics`` from the kernels' stats columns ``[energy,
+    accept, 0, steps, diverging, ...]`` (last axis), refolded."""
+    accept = stats[..., 1]
+    return Diagnostics(
+        acceptance_probability=refold(accept),
+        num_doublings=refold(torch.zeros(accept.shape, dtype=torch.int32,
+                                         device=accept.device)),
+        is_turning=refold(torch.zeros(accept.shape, dtype=torch.bool,
+                                      device=accept.device)),
+        is_diverging=refold(stats[..., 4] > 0.5),
+        energy=refold(stats[..., 0]),
+        num_integration_steps=refold(stats[..., 3].to(torch.int32)),
+    )
+
+
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet (ROADMAP.md item 1.12)")
+
+
+def make_fused_meads_transition(
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor] = (),
+    *,
+    divergence_threshold: float = 1000.0,
+    block_chains: int = None,
+    potential_and_grad_t: Callable = None,
+    use_internal_prng: bool = True,
+    mesh=None,
+) -> Callable:
+    """Kernel 5 under the MEADS fold-transition contract:
+    ``transition(key, fold_states, hyper) -> (fold_states', infos)`` with
+    ``fold_states`` an :class:`~aehmc_tpu_torch.types.IntegratorState`
+    batched ``(num_folds, per_fold, ...)`` and ``hyper`` the per-fold
+    :class:`aehmc_tpu_torch.meads.MeadsHyperparams`.  Plug it into
+    ``meads.sample(transition_fn=...)`` or ``sample_sharded(algorithm=
+    "meads", meads_transition_fn=...)``.
+
+    With ``use_internal_prng`` the kernel draws its streams from the key's
+    Philox seed (a ``Key``, an int or a ``torch.Generator``, one draw of
+    it): the streams the XLA fold transition draws under the same
+    ``Key``.  Otherwise the raw normals ``z (chains, dim)`` and uniforms
+    ``(chains,)`` are passed in: the key's Philox streams drawn outside the
+    kernel, or a ``(z, u)`` pair as it is; the noise is ``√(1/M⁻¹)·z``.
+    ``block_chains`` has no effect (a CUDA block holds 8 chains).
+    """
+    _no_mesh(mesh)
+    base = make_fused_ghmc_transition(
+        potential_fn_t, data, divergence_threshold=divergence_threshold,
+        num_integration_steps=1, potential_and_grad_t=potential_and_grad_t,
+    )
+
+    def transition(key, fold_states, hyper):
+        num_folds, per_fold = fold_states.position.shape[:2]
+        (q, u, g, p), (eps_c, alpha_c, imm_c) = _meads_operands(fold_states,
+                                                                hyper)
+        if use_internal_prng:
+            rand = dict(seed=keys.as_key(key).seed)
+        else:
+            z, u_acc = keys.normals_and_uniform(key, q)
+            rand = dict(noise=torch.sqrt(1.0 / imm_c) * z, u_accept=u_acc)
+        qn, un, gn, pn, stats = base(q, u, g, p, eps_c, alpha_c, imm_c,
+                                     **rand)
+
+        def refold(a):
+            return a.reshape((num_folds, per_fold) + a.shape[1:])
+
+        new_states = type(fold_states)(
+            position=refold(qn), momentum=refold(pn),
+            potential_energy=refold(un[:, 0]),
+            potential_energy_grad=refold(gn))
+        return new_states, _meads_infos(stats, refold)
+
+    return transition
+
+
+def make_fused_meads_segment(
+    potential_fn_t: Callable,
+    data: Sequence[torch.Tensor] = (),
+    *,
+    divergence_threshold: float = 1000.0,
+    block_chains: int = None,
+    potential_and_grad_t: Callable = None,
+    use_internal_prng: bool = True,
+    mesh=None,
+) -> Callable:
+    """Kernel 6 under the MEADS segment contract: ``segment(key,
+    fold_states, hyper, num_draws, collect=True) -> (fold_states',
+    (positions, infos))``, a whole fixed-hyperparameter segment of
+    :func:`aehmc_tpu_torch.meads._sample_segmented` in one launch.
+    ``positions`` is ``(num_draws, folds, per_fold, dim)`` (None unless
+    ``collect``) and ``infos`` the per-draw ``Diagnostics``.
+
+    Draw ``t`` of the segment takes the Philox key ``seed +
+    t·DRAW_SEED_STRIDE`` of the key's seed, in the kernel
+    (``use_internal_prng``) or drawn outside it; a ``(z, u)`` pair gives
+    the raw normals ``(draws, chains, dim)`` and uniforms ``(draws,
+    chains)`` as they are.
+    """
+    _no_mesh(mesh)
+    seg = fused_ghmc_segment(
+        potential_fn_t, data, divergence_threshold=divergence_threshold,
+        num_integration_steps=1, potential_and_grad_t=potential_and_grad_t,
+    )
+
+    def segment(key, fold_states, hyper, num_draws, collect=True):
+        num_folds, per_fold, dim = fold_states.position.shape
+        num_chains = num_folds * per_fold
+        (q, u, g, p), (eps_c, alpha_c, imm_c) = _meads_operands(fold_states,
+                                                                hyper)
+        if isinstance(key, tuple) and not isinstance(key, keys.Key):
+            z, u_acc = (torch.as_tensor(x, dtype=torch.float32,
+                                        device=q.device) for x in key)
+            rand = dict(noise=torch.sqrt(1.0 / imm_c)[None] * z,
+                        u_accept=u_acc)
+        elif use_internal_prng:
+            rand = dict(seed=keys.as_key(key).seed)
+        else:
+            seed = keys.as_key(key).seed
+            draws = [ghmc_streams((seed + t * DRAW_SEED_STRIDE) & MASK32,
+                                  num_chains, dim, device=q.device)
+                     for t in range(num_draws)]
+            z = torch.stack([zt.T for zt, _ in draws])
+            rand = dict(noise=torch.sqrt(1.0 / imm_c)[None] * z,
+                        u_accept=torch.stack([ua[0] for _, ua in draws]))
+        pos, stats, qn, un, gn, pn = seg(
+            q, u, g, p, eps_c, alpha_c, imm_c, num_draws,
+            collect_positions=collect, **rand)
+
+        def refold(a):  # (chains, ...) -> (folds, per_fold, ...)
+            return a.reshape((num_folds, per_fold) + a.shape[1:])
+
+        def refold_d(a):  # (draws, chains, ...) -> (draws, folds, pf, ...)
+            return a.reshape((a.shape[0], num_folds, per_fold) + a.shape[2:])
+
+        new_states = type(fold_states)(
+            position=refold(qn), momentum=refold(pn),
+            potential_energy=refold(un[:, 0]),
+            potential_energy_grad=refold(gn))
+        positions = refold_d(pos) if collect else None
+        return new_states, (positions, _meads_infos(stats, refold_d))
 
     return segment
 

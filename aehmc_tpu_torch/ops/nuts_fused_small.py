@@ -546,10 +546,13 @@ def _external_randomness(raw, inverse_mass, device):
 
 
 def _draw_loop(transition, q_t, u, g_t, inverse_mass, step_size, num_draws,
-               randomness, collect_positions, collect_dtype):
+               randomness, collect_positions, collect_dtype,
+               final_state=False):
     """One transition per draw.  ``randomness`` is a list of Philox keys, or
     ``streams(t)`` giving each draw's raw external streams.  Returns
-    ``(final (C, dim), positions (draws, C, dim), stats (draws, C, 8))``."""
+    ``(final (C, dim), positions (draws, C, dim), stats (draws, C, 8))``;
+    with ``final_state`` the first item is the transposed state ``(q_t, u,
+    g_t)``."""
     positions, stats = [], []
     for t in range(num_draws):
         if isinstance(randomness, list):
@@ -565,7 +568,7 @@ def _draw_loop(transition, q_t, u, g_t, inverse_mass, step_size, num_draws,
             positions.append(q_t.T.to(collect_dtype))
         stats.append(st.T)
     pos = torch.stack(positions) if collect_positions else None
-    return q_t.T, pos, torch.stack(stats)
+    return (q_t, u, g_t) if final_state else q_t.T, pos, torch.stack(stats)
 
 
 def _generator_streams(generator, num_chains, dim, max_exp, device):

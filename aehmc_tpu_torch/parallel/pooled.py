@@ -1,5 +1,5 @@
 """Pooled warmup and sampling of a chain batch (port of
-:mod:`aehmc_tpu.parallel.pooled`, without checkpoints and on one device).
+:mod:`aehmc_tpu.parallel.pooled`, on one device).
 
 All chains share one step size (or one per chain, ``per_chain_step_size``)
 and one inverse mass matrix, adapted from pooled statistics: the mean
@@ -8,15 +8,21 @@ acceptance across chains drives dual averaging (the fixed-tree
 position folds into one Welford estimate (the Chan batched merge).  The
 kernels take the whole chain batch in one call.
 
-Checkpoint/resume (``checkpoint_every``) is ROADMAP.md item 1.10, MEADS
-item 1.11, a mesh item 1.12; each raises ``NotImplementedError``.
+Every branch of :func:`sample_sharded` (NUTS/HMC/MALA/GHMC, ChEES, MEADS)
+runs through :func:`_checkpointed_run`, which can snapshot warmup and
+sampling to an ``.npz`` file and resume them bit for bit.  A mesh is
+ROADMAP.md item 1.12 and raises ``NotImplementedError``.
 """
 
+import os
 from typing import Callable, Optional, Tuple
 
 import torch
-from aehmc_tpu_torch import _batch, chees, hmc, keys
+from aehmc_tpu_torch import _batch, chees, hmc, keys, meads
+from aehmc_tpu_torch import checkpoint as ckpt
 from aehmc_tpu_torch.algorithms import pairwise_mean, welford_update_batch
+from aehmc_tpu_torch.observability import progress_callback, progress_draws
+from aehmc_tpu_torch.ops.nuts_fused import _is_key_source
 from aehmc_tpu_torch.sampling import (
     SampleResult,
     default_inverse_mass_matrix,
@@ -75,6 +81,7 @@ def pooled_warmup_hooks(
     is_mass_matrix_full: bool = False,
     initial_step_size: float = 1.0,
     target_acceptance_rate: float = 0.8,
+    progress_every: int = 0,
     search_initial_step_size: bool = True,
     per_chain_step_size: bool = False,
 ) -> Tuple[Callable, Callable, Callable]:
@@ -84,10 +91,13 @@ def pooled_warmup_hooks(
     initial step-size search on the pooled acceptance, when asked);
     ``segment(wcarry, steps) -> (wcarry, infos)`` runs the absolute steps
     ``steps`` in order; ``finish(wcarry) -> (states, (step_size,
-    inverse_mass_matrix))``.  The carry holds the split key of every step,
-    so running ``[0, N)`` in slices draws what one run draws.
+    inverse_mass_matrix))``.  The carry ``(key, states, adaptation_state)``
+    holds the key that step ``t`` takes the ``t``-th split of, so running
+    ``[0, N)`` in slices draws what one run draws; it is a tree of tensors
+    and ints that :mod:`aehmc_tpu_torch.checkpoint` saves.
     ``kernel(key, states, step_size, inverse_mass_matrix)`` takes the chain
-    batch.
+    batch.  ``progress_every=N`` prints a progress line every N steps
+    (:func:`aehmc_tpu_torch.observability.progress_callback`).
     """
     init_adapt, update_adapt = pooled_window_adaptation(
         num_steps, is_mass_matrix_full, initial_step_size,
@@ -116,10 +126,11 @@ def pooled_warmup_hooks(
                 found = torch.full((num_chains,), float(found),
                                    dtype=found.dtype, device=found.device)
             adaptation_state = init_adapt(initial_states, found)
-        return (keys.split(key, num_steps), initial_states, adaptation_state)
+        return (key, initial_states, adaptation_state)
 
     def segment(wcarry, steps):
-        step_keys, states, adaptation_state = wcarry
+        key, states, adaptation_state = wcarry
+        step_keys = keys.split(key, num_steps)
         infos = []
         for step in steps:
             step = int(step)
@@ -128,8 +139,10 @@ def pooled_warmup_hooks(
                                   adaptation_state.inverse_mass_matrix)
             adaptation_state = update_adapt(step, adaptation_state,
                                             states.position, info)
+            if progress_every:
+                progress_callback(step, info, every=progress_every)
             infos.append(info)
-        return ((step_keys, states, adaptation_state),
+        return ((key, states, adaptation_state),
                 _batch.stack(infos) if infos else None)
 
     def finish(wcarry):
@@ -149,18 +162,22 @@ def pooled_warmup(
     is_mass_matrix_full: bool = False,
     initial_step_size: float = 1.0,
     target_acceptance_rate: float = 0.8,
+    progress_every: int = 0,
     search_initial_step_size: bool = True,
     per_chain_step_size: bool = False,
 ) -> Tuple[ChainState, Tuple[torch.Tensor, torch.Tensor], Diagnostics]:
     """Warm up a chain batch with shared, pooled-adapted parameters.
     ``kernel(key, states, step_size, inverse_mass_matrix)`` takes the batch
-    (``initial_states`` with a leading chain axis).  Returns ``(states,
-    (step_size, inverse_mass_matrix), info_history)``."""
+    (``initial_states`` with a leading chain axis).  ``progress_every=N``
+    prints the step, the pooled acceptance and the divergent chains every N
+    steps.  Returns ``(states, (step_size, inverse_mass_matrix),
+    info_history)``."""
     init, segment, finish = pooled_warmup_hooks(
         kernel, initial_states.position.shape[0], num_steps,
         is_mass_matrix_full=is_mass_matrix_full,
         initial_step_size=initial_step_size,
         target_acceptance_rate=target_acceptance_rate,
+        progress_every=progress_every,
         search_initial_step_size=search_initial_step_size,
         per_chain_step_size=per_chain_step_size,
     )
@@ -206,10 +223,16 @@ def sample_sharded(
     per_chain_step_size: bool = False,
     mesh=None,
     collect_positions: bool = True,
+    meads_recompute_every: int = 1,
+    meads_transition_fn: Callable = None,
+    meads_segment_fn: Callable = None,
     chees_kernel_fn: Callable = None,
+    progress_every: int = 0,
     checkpoint_every: int = 0,
     checkpoint_path: Optional[str] = None,
     resume: bool = False,
+    _crash_after_segments: Optional[int] = None,
+    _crash_after_warmup_segments: Optional[int] = None,
 ) -> SampleResult:
     """Pooled warmup and sampling of ``initial_positions (chains, dim)``.
 
@@ -222,36 +245,62 @@ def sample_sharded(
     size per chain (returned ``(chains,)``), the mass matrix pooled.
 
     ``algorithm="chees"``: the chain states come from ``logprob_fn`` by
-    :func:`aehmc_tpu_torch.hmc.new_state`, then
-    :func:`aehmc_tpu_torch.chees.warmup` (``max(num_warmup, 1)`` steps,
-    target acceptance 0.651) and :func:`aehmc_tpu_torch.chees.sample` run
-    ``chees_kernel_fn`` (e.g.
+    :func:`aehmc_tpu_torch.hmc.new_state`, then the ChEES warmup
+    (``max(num_warmup, 1)`` steps, target acceptance 0.651) and
+    :func:`aehmc_tpu_torch.chees.sample` run ``chees_kernel_fn`` (e.g.
     :func:`aehmc_tpu_torch.ops.chees_fused.make_fused_chees_kernel`), by
     default the XLA kernel :func:`aehmc_tpu_torch.chees.new_kernel`;
     ``generator`` is a ``torch.Generator`` or a key source ``(phase,
     index) -> key`` (:mod:`aehmc_tpu_torch.chees`).
 
+    ``algorithm="meads"``: :mod:`aehmc_tpu_torch.meads` (``num_warmup`` is
+    burn-in; adaptation goes on while sampling), re-estimating every
+    ``meads_recompute_every`` draws.  ``meads_transition_fn`` replaces the
+    fold transition (kernel 5:
+    :func:`aehmc_tpu_torch.ops.ghmc_fused.make_fused_meads_transition`),
+    ``meads_segment_fn`` a whole segment (kernel 6:
+    ``make_fused_meads_segment``; not with checkpoints).  The result's
+    ``step_size`` and ``inverse_mass_matrix`` are the means of the last
+    per-fold values.
+
+    **Checkpoint / resume**: ``checkpoint_every=N, checkpoint_path=
+    "run.npz"`` runs warmup and sampling in N-step segments and saves the
+    whole state after each (warmup to ``<path minus .npz>_warmup.npz``:
+    chain states, adaptation state, keys, a ``torch.Generator``'s state, the
+    draws so far).  ``resume=True`` with the same arguments continues from
+    the last snapshot and returns what the uninterrupted run returns, bit
+    for bit.  ``_crash_after_segments`` / ``_crash_after_warmup_segments``
+    stop after N segments of a phase and return None (test hooks).
+    ``progress_every=N`` prints a progress line every N draws (and every N
+    pooled warmup steps).
+
     Returns a ``SampleResult`` whose ``final_state`` is the chain state,
     ``positions`` ``(draws, chains, dim)`` and ``diagnostics`` every field
     ``(draws, chains)``.
     """
+    if checkpoint_every and checkpoint_path is None:
+        raise ValueError("checkpoint_every requires checkpoint_path")
     if per_chain_step_size and algorithm in ("meads", "chees"):
         raise ValueError(
             f"per_chain_step_size is not supported with algorithm="
             f"{algorithm!r} (MEADS/ChEES manage their own step-size "
             "adaptation)"
         )
-    if checkpoint_every or resume:
-        raise NotImplementedError(
-            "checkpoint_every / resume are not ported yet (ROADMAP.md item "
-            "1.10)")
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
                                   "1.12)")
+    run = dict(checkpoint_every=checkpoint_every,
+               checkpoint_path=checkpoint_path, resume=resume,
+               _crash_after_segments=_crash_after_segments,
+               _crash_after_warmup_segments=_crash_after_warmup_segments)
     if algorithm == "meads":
-        raise NotImplementedError(
-            "sample_sharded(algorithm='meads') is not ported yet (ROADMAP.md "
-            "item 1.11)")
+        return _sample_meads(
+            generator, logprob_fn, initial_positions, num_samples, num_warmup,
+            divergence_threshold=divergence_threshold,
+            collect_positions=collect_positions,
+            recompute_every=meads_recompute_every,
+            transition_fn=meads_transition_fn, segment_fn=meads_segment_fn,
+            progress_every=progress_every, run=run)
     if algorithm == "chees":
         return _sample_chees(
             generator, logprob_fn, initial_positions, num_samples, num_warmup,
@@ -259,7 +308,8 @@ def sample_sharded(
             initial_step_size=initial_step_size,
             search_initial_step_size=search_initial_step_size,
             collect_positions=collect_positions,
-            chees_kernel_fn=chees_kernel_fn)
+            chees_kernel_fn=chees_kernel_fn, progress_every=progress_every,
+            run=run)
     if algorithm == "mala" and is_mass_matrix_full:
         raise ValueError(
             "MALA supports scalar/diagonal preconditioners only; "
@@ -271,62 +321,311 @@ def sample_sharded(
         divergence_threshold=divergence_threshold,
     )
     num_chains = initial_positions.shape[0]
-    init_key, warmup_key, sample_key = keys.split(generator, 3)
-    states = new_sampler_state(algorithm, init_key, initial_positions,
-                               logprob_fn)
-    if num_warmup > 0:
-        states, (eps, imm), _ = pooled_warmup(
-            warmup_key, kernel, states, num_warmup,
-            is_mass_matrix_full=is_mass_matrix_full,
-            initial_step_size=initial_step_size,
-            target_acceptance_rate=target_acceptance_rate,
-            search_initial_step_size=search_initial_step_size,
-            per_chain_step_size=per_chain_step_size,
-        )
-    else:
+    w_init, w_segment, w_finish = pooled_warmup_hooks(
+        kernel, num_chains, num_warmup,
+        is_mass_matrix_full=is_mass_matrix_full,
+        initial_step_size=initial_step_size,
+        target_acceptance_rate=target_acceptance_rate,
+        progress_every=progress_every,
+        search_initial_step_size=search_initial_step_size,
+        per_chain_step_size=per_chain_step_size,
+    )
+
+    def wh_init(rng, positions):
+        init_key, warmup_key, sample_key = keys.split(rng, 3)
+        states = new_sampler_state(algorithm, init_key, positions, logprob_fn)
+        if num_warmup > 0:
+            return w_init(warmup_key, states), sample_key
+        return (states,), sample_key
+
+    def wh_segment(wcarry, steps):
+        return w_segment(wcarry, steps)[0] if num_warmup > 0 else wcarry
+
+    def wh_finish(wcarry):
+        if num_warmup > 0:
+            return w_finish(wcarry)
         eps = _batch.like(initial_step_size, initial_positions)
         if per_chain_step_size:
             eps = eps.expand(num_chains).clone()
-        imm = default_inverse_mass_matrix(initial_positions[0],
-                                          is_mass_matrix_full)
-    positions, infos = [], []
-    for key in keys.split(sample_key, num_samples):
-        states, info = kernel(key, states, eps, imm)
-        if collect_positions:
-            positions.append(states.position)
-        infos.append(info)
-    return SampleResult(
-        final_state=states,
-        positions=torch.stack(positions) if collect_positions else None,
-        diagnostics=_batch.stack(infos),
-        step_size=eps,
-        inverse_mass_matrix=imm,
-    )
+        return wcarry[0], (eps, default_inverse_mass_matrix(
+            initial_positions[0], is_mass_matrix_full))
+
+    def sample_segment(states, draws, extras, draw_keys):
+        eps, imm = extras
+        positions, infos = [], []
+        for key in draw_keys:
+            states, info = kernel(key, states, eps, imm)
+            if collect_positions:
+                positions.append(states.position)
+            infos.append(info)
+        infos = _batch.stack(infos)
+        progress_draws(progress_every, draws, infos)
+        return states, (torch.stack(positions) if collect_positions else None,
+                        infos)
+
+    def build_result(states, extras, outs):
+        eps, imm = extras
+        positions, infos = outs
+        return SampleResult(final_state=states, positions=positions,
+                            diagnostics=infos, step_size=eps,
+                            inverse_mass_matrix=imm)
+
+    return _checkpointed_run(
+        generator, initial_positions, (wh_init, wh_segment, wh_finish),
+        sample_segment, build_result, num_samples, num_warmup, **run)
 
 
 def _sample_chees(generator, logprob_fn, initial_positions, num_samples,
                   num_warmup, *, divergence_threshold, initial_step_size,
                   search_initial_step_size, collect_positions,
-                  chees_kernel_fn) -> SampleResult:
-    """The ChEES branch of :func:`sample_sharded`."""
-    states = hmc.new_state(initial_positions, logprob_fn)
-    result = chees.warmup(
-        generator, logprob_fn, states, num_steps=max(num_warmup, 1),
+                  chees_kernel_fn, progress_every, run) -> SampleResult:
+    """The ChEES branch of :func:`sample_sharded`.  The warmup carry leaves
+    out its key source, which is rebuilt from ``generator``."""
+    num_chains, dim = initial_positions.shape
+    num_steps = max(num_warmup, 1)
+    ch_init, ch_segment, ch_finish = chees.warmup_hooks(
+        logprob_fn, num_chains, dim, num_steps,
         initial_step_size=initial_step_size,
         divergence_threshold=divergence_threshold,
         search_initial_step_size=search_initial_step_size,
-        kernel_fn=chees_kernel_fn,
+        dtype=initial_positions.dtype, kernel_fn=chees_kernel_fn,
     )
-    final_states, positions, info = chees.sample(
-        generator, logprob_fn, result.states, num_samples, result.step_size,
-        result.trajectory_length, result.inverse_mass_matrix,
-        divergence_threshold=divergence_threshold,
-        collect_positions=collect_positions, kernel_fn=chees_kernel_fn,
-    )
+    key_source = chees._key_source(generator)
+
+    def wh_init(rng, positions):
+        states = hmc.new_state(positions, logprob_fn)
+        return ch_init(rng, states)[1:], None
+
+    def wh_segment(wcarry, steps):
+        return ch_segment((key_source,) + wcarry, steps)[0][1:]
+
+    def wh_finish(wcarry):
+        result = ch_finish((key_source,) + wcarry)
+        return result.states, (result.step_size, result.trajectory_length,
+                               result.inverse_mass_matrix)
+
+    def sample_segment(states, draws, extras, _):
+        eps, h, imm = extras
+        states, positions, info = chees.sample(
+            generator, logprob_fn, states, len(draws), eps, h, imm,
+            divergence_threshold=divergence_threshold,
+            collect_positions=collect_positions, kernel_fn=chees_kernel_fn,
+            _step_offset=draws.start,
+        )
+        progress_draws(progress_every, draws, info)
+        return states, (positions, info)
+
+    def build_result(states, extras, outs):
+        eps, _, imm = extras
+        positions, info = outs
+        return SampleResult(final_state=states, positions=positions,
+                            diagnostics=_chees_diagnostics(info),
+                            step_size=eps, inverse_mass_matrix=imm)
+
+    return _checkpointed_run(
+        generator, initial_positions, (wh_init, wh_segment, wh_finish),
+        sample_segment, build_result, num_samples, num_steps, **run)
+
+
+def _meads_result(states, positions, infos, hyper) -> SampleResult:
     return SampleResult(
-        final_state=final_states,
-        positions=positions,
-        diagnostics=_chees_diagnostics(info),
-        step_size=result.step_size,
-        inverse_mass_matrix=result.inverse_mass_matrix,
+        final_state=states, positions=positions, diagnostics=infos,
+        step_size=torch.mean(hyper.step_size),
+        inverse_mass_matrix=torch.mean(hyper.inverse_mass_matrix, dim=0),
     )
+
+
+def _sample_meads(generator, logprob_fn, initial_positions, num_samples,
+                  num_warmup, *, divergence_threshold, collect_positions,
+                  recompute_every, transition_fn, segment_fn,
+                  progress_every, run) -> SampleResult:
+    """The MEADS branch of :func:`sample_sharded`: :func:`meads.sample`,
+    or, with checkpoints, the per-draw kernel :func:`meads.new_kernel`
+    whose carry is a :class:`meads.MeadsCarry`."""
+    if segment_fn is not None and run["checkpoint_every"]:
+        raise ValueError(
+            "meads_segment_fn does not compose with checkpointing yet — the "
+            "checkpointed MEADS carrier steps the per-draw kernel"
+        )
+    if not run["checkpoint_every"]:
+        states, positions, infos, hyper = meads.sample(
+            generator, logprob_fn, initial_positions, num_samples, num_warmup,
+            divergence_threshold=divergence_threshold,
+            collect_positions=collect_positions,
+            recompute_every=recompute_every, transition_fn=transition_fn,
+            segment_transition_fn=segment_fn,
+        )
+        progress_draws(progress_every, range(num_samples), infos)
+        return _meads_result(states, positions, infos, hyper)
+    meads._check_folds(initial_positions.shape[0], 4)
+    kernel = meads.new_kernel(logprob_fn,
+                              divergence_threshold=divergence_threshold,
+                              recompute_every=recompute_every,
+                              transition_fn=transition_fn)
+    # a key source is stateless: the carry holds its phase keys as None
+    source = generator if _is_key_source(generator) else None
+
+    def wh_init(rng, positions):
+        if source is not None:
+            carry = meads.init_carry(source("init", 0), positions, logprob_fn)
+            return (carry, None), None
+        init_key, warm_key, sample_key = keys.split(rng, 3)
+        return ((meads.init_carry(init_key, positions, logprob_fn), warm_key),
+                sample_key)
+
+    def wh_segment(wcarry, steps):
+        carry, warm_key = wcarry
+        if source is None:
+            warm_keys = keys.split(warm_key, max(num_warmup, 1))
+        for t in steps:
+            key = (source("warmup", t) if source is not None
+                   else warm_keys[t])
+            carry, _ = kernel(key, carry)
+        return carry, warm_key
+
+    def wh_finish(wcarry):
+        return wcarry[0], ()
+
+    def sample_segment(carry, draws, extras, draw_keys):
+        if draw_keys is None:
+            draw_keys = [source("sample", t) for t in draws]
+        positions, infos = [], []
+        for key in draw_keys:
+            carry, info = kernel(key, carry)
+            if collect_positions:
+                positions.append(carry.states.position)
+            infos.append(info)
+        infos = _batch.stack(infos)
+        progress_draws(progress_every, draws, infos)
+        return carry, (torch.stack(positions) if collect_positions else None,
+                       infos)
+
+    def build_result(carry, extras, outs):
+        positions, infos = outs
+        return _meads_result(carry.states, positions, infos, carry.hyper)
+
+    return _checkpointed_run(
+        generator, initial_positions, (wh_init, wh_segment, wh_finish),
+        sample_segment, build_result, num_samples, num_warmup, **run)
+
+
+def _concat(chunks):
+    """Segments' outputs (trees of per-draw stacked tensors) joined along
+    the draw axis."""
+    first = chunks[0]
+    if first is None:
+        return None
+    if isinstance(first, tuple):
+        values = [_concat([c[i] for c in chunks]) for i in range(len(first))]
+        return (type(first)(*values) if hasattr(first, "_fields")
+                else tuple(values))
+    return torch.cat(chunks)
+
+
+def _checkpointed_run(
+    generator,
+    initial_positions: torch.Tensor,
+    warmup_hooks,
+    sample_segment: Callable,
+    build_result: Callable,
+    num_samples: int,
+    num_warmup: int,
+    *,
+    checkpoint_every: int = 0,
+    checkpoint_path: Optional[str] = None,
+    resume: bool = False,
+    _crash_after_segments: Optional[int] = None,
+    _crash_after_warmup_segments: Optional[int] = None,
+):
+    """Warmup, then sampling in segments, with snapshots (port of the JAX
+    ``_checkpointed_run``).
+
+    ``warmup_hooks = (init, segment, finish)``: ``init(generator,
+    positions) -> (wcarry, sample_key)``, ``segment(wcarry, steps) ->
+    wcarry`` over absolute step indices, ``finish(wcarry) -> (carry,
+    extras)``.  ``sample_segment(carry, draws, extras, draw_keys) -> (carry,
+    outs)`` runs the absolute draws ``draws`` (a range); ``draw_keys`` are
+    their keys, the splits of a ``Key`` ``sample_key`` over the whole run
+    (None when ``sample_key`` is None: the branch keys its draws itself).
+    ``outs`` is a tree of per-draw stacked tensors; ``build_result(carry,
+    extras, outs)`` makes the result.
+
+    Without ``checkpoint_every`` the run is one warmup and one segment.
+    With it, warmup runs in ``checkpoint_every``-step segments saved to
+    ``<checkpoint_path minus .npz>_warmup.npz`` and sampling in
+    ``ceil(num_samples / checkpoint_every)`` segments saved to
+    ``checkpoint_path``; every snapshot holds a ``torch.Generator``
+    ``generator``'s state, which a resumed run sets back.  The carries are
+    trees of tensors, ints, keys and generators (no callables).
+    """
+    init, wsegment, finish = warmup_hooks
+
+    def draw_keys(sample_key, draws):
+        if sample_key is None:
+            return None
+        return keys.split(sample_key, num_samples)[draws.start:draws.stop]
+
+    if not checkpoint_every:
+        wcarry, sample_key = init(generator, initial_positions)
+        carry, extras = finish(wsegment(wcarry, range(num_warmup)))
+        draws = range(num_samples)
+        carry, outs = sample_segment(carry, draws, extras,
+                                     draw_keys(sample_key, draws))
+        return build_result(carry, extras, outs)
+
+    if not checkpoint_path.endswith(".npz"):
+        raise ValueError(
+            "driver-level checkpointing requires an .npz checkpoint_path "
+            f"(got {checkpoint_path!r})"
+        )
+    gen = generator if isinstance(generator, torch.Generator) else None
+    warmup_path = checkpoint_path[: -len(".npz")] + "_warmup.npz"
+    n_segments = -(-num_samples // checkpoint_every)
+
+    def restore(path):
+        loaded = ckpt.restore(path)
+        if gen is not None:
+            gen.set_state(loaded["generator"].get_state())
+        return loaded
+
+    done_segments, outs = 0, None
+    if resume and os.path.exists(checkpoint_path):
+        loaded = restore(checkpoint_path)
+        carry, extras = loaded["carry"], loaded["extras"]
+        sample_key = loaded["sample_key"]
+        done_segments, outs = loaded["done_segments"], loaded["outs"]
+    else:
+        done_steps = 0
+        if resume and os.path.exists(warmup_path):
+            loaded = restore(warmup_path)
+            wcarry, sample_key = loaded["wcarry"], loaded["sample_key"]
+            done_steps = loaded["done_steps"]
+        else:
+            wcarry, sample_key = init(generator, initial_positions)
+        for wseg, lo in enumerate(range(done_steps, num_warmup,
+                                        checkpoint_every)):
+            hi = min(lo + checkpoint_every, num_warmup)
+            wcarry = wsegment(wcarry, range(lo, hi))
+            ckpt.save(warmup_path, {"wcarry": wcarry,
+                                    "sample_key": sample_key,
+                                    "done_steps": hi, "generator": gen})
+            if (_crash_after_warmup_segments is not None
+                    and wseg + 1 >= _crash_after_warmup_segments
+                    and hi < num_warmup):
+                return None  # a simulated kill mid-warmup (test hook)
+        carry, extras = finish(wcarry)
+
+    for seg in range(done_segments, n_segments):
+        draws = range(seg * checkpoint_every,
+                      min((seg + 1) * checkpoint_every, num_samples))
+        carry, seg_outs = sample_segment(carry, draws, extras,
+                                         draw_keys(sample_key, draws))
+        outs = seg_outs if outs is None else _concat([outs, seg_outs])
+        ckpt.save(checkpoint_path, {
+            "carry": carry, "extras": extras, "sample_key": sample_key,
+            "done_segments": seg + 1, "outs": outs, "generator": gen})
+        if (_crash_after_segments is not None
+                and seg + 1 - done_segments >= _crash_after_segments
+                and seg + 1 < n_segments):
+            return None  # a simulated kill (test hook)
+    return build_result(carry, extras, outs)

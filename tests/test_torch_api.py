@@ -1,6 +1,6 @@
 """The port's front door: aehmc_tpu_torch.sample(algorithm="nuts" | "mala" |
-"ghmc", path="fused") runs the plain versions on the CPU (its run on a card
-is in ``test_torch_cuda.py``); every unported route raises
+"ghmc" | "meads", path="fused") runs the plain versions on the CPU (its run
+on a card is in ``test_torch_cuda.py``); every unported route raises
 NotImplementedError (the XLA and pooled routes are in
 ``test_torch_xla_sampling.py``)."""
 
@@ -61,16 +61,31 @@ def test_front_door_is_reproducible_from_the_generator():
     assert torch.equal(a.final_state, b.final_state)
 
 
+def _gaussian_lp(q):
+    return -0.5 * torch.sum(q * q / VAR)
+
+
 @pytest.mark.parametrize("algorithm", ["hmc", "meads"])
 def test_unported_algorithms_raise(algorithm):
-    """MEADS is not ported (ROADMAP.md item 1.11); HMC is, on the XLA and
-    pooled paths, and has no fused route, as in the JAX package."""
-    error, match = ((ValueError, "no fused megakernel") if algorithm == "hmc"
-                    else (NotImplementedError, "ROADMAP.md"))
-    with pytest.raises(error, match=match):
-        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
-                               algorithm=algorithm, path="fused",
-                               potential_and_grad_t=_gaussian_pg)
+    """HMC has no fused route, as in the JAX package (it runs on the XLA and
+    pooled paths); MEADS has one: the pooled MEADS driver over the GHMC
+    kernels' plain versions on the CPU."""
+    if algorithm == "hmc":
+        with pytest.raises(ValueError, match="no fused megakernel"):
+            aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
+                                   algorithm=algorithm, path="fused",
+                                   potential_and_grad_t=_gaussian_pg)
+        return
+    gen = torch.Generator().manual_seed(4)
+    q0 = torch.randn(8, 4, generator=gen)
+    res = aehmc_tpu_torch.sample(gen, _gaussian_lp, q0, 12, 16,
+                                 algorithm=algorithm, path="fused",
+                                 data=(VAR.reshape(-1, 1),),
+                                 potential_and_grad_t=_gaussian_pg)
+    assert res.positions.shape == (12, 8, 4)
+    assert res.diagnostics.acceptance_probability.shape == (12, 8)
+    assert res.step_size.ndim == 0 and res.inverse_mass_matrix.shape == (4,)
+    assert bool(torch.isfinite(res.positions).all())
 
 
 def _ghmc_route(algorithm, seed=0, draws=40, **kw):
@@ -171,11 +186,17 @@ def test_mala_and_ghmc_route_errors():
 
 @pytest.mark.parametrize("path", ["xla", "pooled"])
 def test_unported_paths_raise(path):
-    """The XLA and pooled paths run; what of them is not ported raises,
-    naming its ROADMAP.md item: MEADS (1.11) and a mesh (1.12)."""
-    with pytest.raises(NotImplementedError, match="item 1.11"):
-        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
-                               path=path, algorithm="meads")
+    """The XLA and pooled paths run, MEADS on both (a chain ensemble: its
+    XLA route is the pooled driver, as in the JAX package); a mesh raises,
+    naming its ROADMAP.md item (1.12)."""
+    res = aehmc_tpu_torch.sample(0, _gaussian_lp, torch.randn(8, 4), 6, 6,
+                                 path=path, algorithm="meads")
+    assert res.positions.shape == (6, 8, 4)
+    # one chain: JAX's errors, by route
+    match = "chain-ensemble" if path == "xla" else "chains, dim"
+    with pytest.raises(ValueError, match=match):
+        aehmc_tpu_torch.sample(0, _gaussian_lp, torch.zeros(4), path=path,
+                               algorithm="meads")
     with pytest.raises(NotImplementedError, match="item 1.12"):
         aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
                                path=path, mesh=object())
@@ -199,7 +220,8 @@ def test_import_loads_no_jax():
         "aehmc_tpu_torch.convert, aehmc_tpu_torch.ops._build, "
         "aehmc_tpu_torch.chees, aehmc_tpu_torch.hmc, "
         "aehmc_tpu_torch.parallel.pooled, aehmc_tpu_torch.ops.chees_fused, "
-        "aehmc_tpu_torch.ops.nuts_fused\n"
+        "aehmc_tpu_torch.ops.nuts_fused, aehmc_tpu_torch.meads, "
+        "aehmc_tpu_torch.checkpoint, aehmc_tpu_torch.observability\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
     )
@@ -238,3 +260,126 @@ def test_fused_routes_take_the_builders_default_bf16_data(algorithm):
     assert bf16.positions.shape == (12, 16, 4)
     assert bool(torch.isfinite(bf16.positions.float()).all())
     assert not torch.equal(bf16.positions, f32.positions)
+
+
+def _count_ghmc_plain_calls(monkeypatch):
+    """Count the calls of kernels 6 and 5's plain versions (the launches a
+    card would make); a segment's own transitions are counted apart."""
+    from aehmc_tpu_torch.ops import ghmc_fused
+
+    counts = {"segment": 0, "transition": 0, "in_segment": 0}
+    segment, transition = (ghmc_fused.ghmc_segment_plain,
+                           ghmc_fused.ghmc_transition_plain)
+
+    def counting_segment(*args, **kw):
+        counts["segment"] += 1
+        before = counts["transition"]
+        out = segment(*args, **kw)
+        counts["in_segment"] += counts["transition"] - before
+        return out
+
+    def counting_transition(*args, **kw):
+        counts["transition"] += 1
+        return transition(*args, **kw)
+
+    monkeypatch.setattr(ghmc_fused, "ghmc_segment_plain", counting_segment)
+    monkeypatch.setattr(ghmc_fused, "ghmc_transition_plain",
+                        counting_transition)
+    return counts
+
+
+@pytest.mark.parametrize("checkpointed", [False, True])
+def test_fused_meads_takes_the_segment_or_the_transition(monkeypatch,
+                                                        tmp_path,
+                                                        checkpointed):
+    """Without ``checkpoint_every`` the fused MEADS route runs kernel 6, one
+    call a ``meads_recompute_every`` (8) segment: 2 + 2 for 16 burn-in and
+    12 draws, no transition of its own; with it, kernel 5 once a draw."""
+    counts = _count_ghmc_plain_calls(monkeypatch)
+    gen = torch.Generator().manual_seed(1)
+    q0 = torch.randn(8, 4, generator=gen)
+    kw = (dict(checkpoint_every=5, checkpoint_path=str(tmp_path / "m.npz"))
+          if checkpointed else {})
+    res = aehmc_tpu_torch.sample(gen, _gaussian_lp, q0, 12, 16,
+                                 algorithm="meads", path="fused",
+                                 data=(VAR.reshape(-1, 1),),
+                                 potential_and_grad_t=_gaussian_pg, **kw)
+    assert res.positions.shape == (12, 8, 4)
+    direct = counts["transition"] - counts["in_segment"]
+    if checkpointed:
+        assert counts["segment"] == 0 and direct == 12 + 16
+    else:
+        assert counts["segment"] == 4 and direct == 0
+
+
+def _route_of(sample_fn, monkeypatch, target, path, position):
+    """What a front door does with MEADS at ``path`` and ``position``: the
+    algorithm and the fused adapter it hands the pooled driver, or the
+    error it raises."""
+    calls = []
+
+    def record(rng, logprob_fn, initial_positions, *args, **kw):
+        calls.append((kw.get("algorithm"),
+                      kw.get("meads_segment_fn") is not None,
+                      kw.get("meads_transition_fn") is not None))
+        return "ran"
+
+    monkeypatch.setattr(target[0], target[1], record)
+    pg = {"potential_and_grad_t": position[1]} if position[1] else {}
+    try:
+        sample_fn(position[0], algorithm="meads", path=path, **pg)
+    except ValueError as err:
+        return ("ValueError", str(err).split(";")[0][:40])
+    return calls[0]
+
+
+# a bare logprob_fn on the fused path is the generic fused binding (ROADMAP.md
+# item 1.10), which the JAX package has and the port has not
+_MEADS_ROUTES = [(path, rank, pot)
+                 for path in ("auto", "xla", "pooled", "fused")
+                 for rank in (1, 2) for pot in (False, True)
+                 if pot or path != "fused"]
+
+
+@pytest.mark.parametrize("path, rank, with_potential", _MEADS_ROUTES)
+def test_meads_route_resolution_equals_jax(monkeypatch, path, rank,
+                                           with_potential):
+    import jax.numpy as jnp
+
+    import aehmc_tpu
+    import aehmc_tpu.parallel.pooled as jax_pooled
+    from aehmc_tpu_torch import api
+
+    shape = (8, 4) if rank == 2 else (4,)
+
+    def jax_pg(q_t, var_col):
+        return 0.5 * jnp.sum(q_t * q_t, axis=0), q_t
+
+    jax_route = _route_of(
+        lambda q, **kw: aehmc_tpu.sample(
+            None, lambda x: -jnp.sum(x * x), q, 4, 4,
+            data=(jnp.ones((4, 1)),), **kw),
+        monkeypatch, (jax_pooled, "sample_sharded"), path,
+        (jnp.zeros(shape), jax_pg if with_potential else None))
+    port_route = _route_of(
+        lambda q, **kw: aehmc_tpu_torch.sample(
+            None, _gaussian_lp, q, 4, 4, data=(VAR.reshape(-1, 1),), **kw),
+        monkeypatch, (api, "sample_sharded"), path,
+        (torch.zeros(shape), _gaussian_pg if with_potential else None))
+    assert port_route == jax_route
+
+
+def test_fused_nuts_route_takes_checkpoints(tmp_path):
+    """The front door's whole-run default gives way to the per-draw loop
+    when the run is checkpointed, as the JAX front door runs it; the draws
+    are the same bits."""
+    plain = _gaussian_run(2, draws=12)
+    gen = torch.Generator().manual_seed(2)
+    q0 = 0.1 * torch.randn(64, 4, generator=gen)
+    checkpointed = aehmc_tpu_torch.sample(
+        gen, None, q0, 12, 150, algorithm="nuts", path="fused",
+        data=(VAR.reshape(-1, 1),), potential_and_grad_t=_gaussian_pg,
+        max_num_expansions=5, checkpoint_every=5,
+        checkpoint_path=str(tmp_path / "nuts.npz"))
+    assert torch.equal(plain.positions, checkpointed.positions)
+    assert torch.equal(plain.final_state, checkpointed.final_state)

@@ -475,11 +475,14 @@ def test_new_state_matches_jax():
 def test_sample_sharded_raises_for_what_is_not_ported():
     q0 = torch.zeros(8, 2)
     kw = dict(chees_kernel_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 1.11"):
-        sample_sharded(None, None, q0, algorithm="meads")
-    with pytest.raises(NotImplementedError, match="item 1.10"):
+    # MEADS and checkpoints are ported: what stays is the JAX driver's
+    # own errors
+    with pytest.raises(ValueError, match="does not compose"):
+        sample_sharded(None, None, q0, algorithm="meads", checkpoint_every=5,
+                       checkpoint_path="x.npz", meads_segment_fn=object())
+    with pytest.raises(ValueError, match="requires an .npz"):
         sample_sharded(None, None, q0, algorithm="chees", checkpoint_every=5,
-                       checkpoint_path="x.npz", **kw)
+                       checkpoint_path="x", **kw)
     with pytest.raises(NotImplementedError, match="item 1.12"):
         sample_sharded(None, None, q0, algorithm="chees", mesh=object(), **kw)
     with pytest.raises(ValueError, match="per_chain_step_size"):

@@ -1282,3 +1282,105 @@ def test_xla_nuts_at_depth_10_on_the_funnel_agrees_with_kernel_1(
     assert float(same.float().mean()) >= 0.99
     assert float((out.position - qk.T)[same].abs().max()) <= 1e-3
     assert int(info.num_doublings.max()) == 10
+
+
+def _meads_fold_case(device, chains=256, seed=24):
+    """Folded MEADS states on the flagship model at test size and their
+    per-fold hyperparameters (the estimator's own)."""
+    from aehmc_tpu_torch import meads
+    logprob_fn, pg, data = _xla_logistic(device)
+    gen = torch.Generator().manual_seed(seed)
+    q = (0.3 * torch.randn(chains, DIM, generator=gen)).to(device)
+    states = meads.init_states(seed, q, logprob_fn)
+    hyper = meads.estimate_hyperparams(states)
+    folded = type(states)(*(a.reshape((4, chains // 4) + a.shape[1:])
+                            for a in states))
+    return logprob_fn, pg, data, folded, hyper
+
+
+@pytest.mark.gpu
+def test_cuda_ghmc_kernels_at_fold_tiled_hyperparameters(cuda_device):
+    """Kernels 5 and 6 fed MEADS's per-chain ε, α and (chains, dim) M⁻¹
+    (each fold's repeated for its chains) against their plain versions,
+    one Philox seed: decisions equal on at least 99% of chains, positions
+    within 1e-4 on those; the segment equals its transitions bit for bit."""
+    from aehmc_tpu_torch.ops.ghmc_fused import _meads_operands
+    _, pg, data, folded, hyper = _meads_fold_case(cuda_device)
+    (q, u, g, p), (eps, alpha, imm) = _meads_operands(folded, hyper)
+    state = (q.T.contiguous(), u.reshape(1, -1), g.T.contiguous(),
+             p.T.contiguous())
+    pot_grad = lambda q_t: pg(q_t, *data)  # noqa: E731
+    kern = ghmc_transition_cuda(*state, eps, alpha, imm, data, seed=2424)
+    plain = ghmc_transition_plain(*state, eps, alpha, imm, pot_grad,
+                                  seed=2424)
+    moved_k = (kern[0] != state[0]).any(dim=0)
+    same = ((moved_k == (plain[0] != state[0]).any(dim=0))
+            & (kern[4][4] == plain[4][4]))
+    assert float(same.float().mean()) >= 0.99 and bool(moved_k.any())
+    assert float((kern[0] - plain[0])[:, same].abs().max()) <= 1e-4
+    pos, stats, *final = ghmc_segment_cuda(*state, eps, alpha, imm, data, 8,
+                                           seed=2424)
+    st = state
+    for t in range(8):
+        *st, s = ghmc_transition_cuda(
+            *st, eps, alpha, imm, data,
+            seed=(2424 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(s, stats[t]) and torch.equal(st[0], pos[t])
+    assert all(torch.equal(a, b) for a, b in zip(final, st))
+
+
+@pytest.mark.gpu
+def test_cuda_fused_meads_follows_the_xla_route(cuda_device):
+    """MEADS with kernel 5 as its fold transition against the XLA fold
+    transition, one key per draw: the kernel draws the XLA transition's
+    Philox streams, so accept decisions agree on at least 99% of
+    chain-draws over 10 burn-in and 10 draws; the front door's fused route
+    launches kernel 6 once a segment."""
+    from aehmc_tpu_torch import meads
+    from aehmc_tpu_torch.ops.ghmc_fused import make_fused_meads_transition
+    logprob_fn, pg, data = _xla_logistic(cuda_device)
+    gen = torch.Generator().manual_seed(25)
+    q = (0.3 * torch.randn(256, DIM, generator=gen)).to(cuda_device)
+    fused = make_fused_meads_transition(None, data, potential_and_grad_t=pg)
+    reset_launch_counts()
+    out_f = meads.sample(7, logprob_fn, q, 10, 10, transition_fn=fused)
+    assert LAUNCHES["ghmc_transition"] == 20
+    out_x = meads.sample(7, logprob_fn, q, 10, 10)
+    moved_f = torch.cat([q[None], out_f[1]]).diff(dim=0).ne(0).any(dim=-1)
+    moved_x = torch.cat([q[None], out_x[1]]).diff(dim=0).ne(0).any(dim=-1)
+    assert float((moved_f[1:] == moved_x[1:]).float().mean()) >= 0.99
+    reset_launch_counts()
+    res = aehmc_tpu_torch.sample(torch.Generator().manual_seed(26), logprob_fn,
+                                 q, 16, 16, algorithm="meads", path="fused",
+                                 data=data, potential_and_grad_t=pg)
+    assert LAUNCHES["ghmc_segment"] == 4 and LAUNCHES["ghmc_transition"] == 0
+    assert res.positions.shape == (16, 256, DIM)
+    assert bool(torch.isfinite(res.positions).all())
+
+
+@pytest.mark.gpu
+def test_cuda_meads_checkpoint_resumes_bit_for_bit(cuda_device, tmp_path):
+    """The checkpointed fused MEADS route (kernel 5 a draw) killed after one
+    sampling segment and resumed equals the uninterrupted run bit for bit:
+    the kernels reduce in a fixed order (no atomics)."""
+    logprob_fn, pg, data = _xla_logistic(cuda_device)
+    gen = torch.Generator().manual_seed(27)
+    q = (0.3 * torch.randn(256, DIM, generator=gen)).to(cuda_device)
+
+    def run(path, **kw):
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(28), logprob_fn, q, 20, 10,
+            algorithm="meads", path="fused", data=data,
+            potential_and_grad_t=pg, checkpoint_every=5,
+            checkpoint_path=str(path), **kw)
+
+    reset_launch_counts()
+    full = run(tmp_path / "full.npz")
+    assert LAUNCHES["ghmc_transition"] == 30
+    assert run(tmp_path / "run.npz", _crash_after_segments=2) is None
+    resumed = run(tmp_path / "run.npz", resume=True)
+    assert torch.equal(full.positions, resumed.positions)
+    for a, b in zip(full.final_state, resumed.final_state):
+        assert torch.equal(a, b)
+    for a, b in zip(full.diagnostics, resumed.diagnostics):
+        assert torch.equal(a, b)

@@ -187,8 +187,13 @@ def test_sample_fused_adaptive_external_randomness_from_the_generator():
     ],
 )
 def test_unported_options_name_their_roadmap_item(option, item):
+    """Each unported option names its item; ``checkpoint_every`` (item 1.10,
+    ported) now raises the JAX driver's error when it has no path."""
     pg, data, q0 = _small_problem()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    error, match = ((ValueError, "checkpoint_every requires checkpoint_path")
+                    if option == "checkpoint_every"
+                    else (NotImplementedError, f"item {item}"))
+    with pytest.raises(error, match=match):
         sample_fused_adaptive(None, None, data, q0, 2, 2,
                               potential_and_grad_t=pg, **{option: 1})
 

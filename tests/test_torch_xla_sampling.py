@@ -286,8 +286,8 @@ def test_front_door_errors_name_what_still_raises():
     q2 = torch.zeros(8, DIM, dtype=torch.float64)
     with pytest.raises(ValueError, match="chain-ensemble"):
         aehmc_tpu_torch.sample(0, _lp, torch.zeros(DIM), algorithm="chees")
-    with pytest.raises(NotImplementedError, match="item 1.11"):
-        aehmc_tpu_torch.sample(0, _lp, q2, algorithm="meads", path="pooled")
+    with pytest.raises(ValueError, match="chain-ensemble"):
+        aehmc_tpu_torch.sample(0, _lp, torch.zeros(DIM), algorithm="meads")
     with pytest.raises(NotImplementedError, match="item 1.12"):
         aehmc_tpu_torch.sample(0, _lp, q2, path="pooled", mesh=object())
     with pytest.raises(NotImplementedError, match="item 1.10"):
@@ -302,10 +302,9 @@ def test_front_door_errors_name_what_still_raises():
     with pytest.raises(ValueError, match="MALA"):
         aehmc_tpu_torch.sample(0, _lp, q2, algorithm="mala", path="pooled",
                                is_mass_matrix_full=True)
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        sample_sharded(0, _lp, q2, checkpoint_every=5,
-                       checkpoint_path="x.npz")
-    with pytest.raises(NotImplementedError, match="item 1.11"):
-        sample_sharded(0, _lp, q2, algorithm="meads")
+    with pytest.raises(ValueError, match="requires checkpoint_path"):
+        sample_sharded(0, _lp, q2, checkpoint_every=5)
+    with pytest.raises(ValueError, match="divisible"):
+        sample_sharded(0, _lp, q2[:6], algorithm="meads")
     with pytest.raises(ValueError, match="Unknown algorithm"):
         sampling.make_kernel(_lp, "x")
