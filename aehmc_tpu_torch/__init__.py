@@ -52,6 +52,8 @@ from aehmc_tpu_torch.types import (
     Diagnostics,
     DualAveragingState,
     IntegratorState,
+    ProposalState,
+    TerminationState,
     WelfordState,
 )
 from aehmc_tpu_torch.utils import RaveledParamsMap
@@ -61,8 +63,10 @@ __all__ = [
     "Diagnostics",
     "DualAveragingState",
     "IntegratorState",
+    "ProposalState",
     "RaveledParamsMap",
     "SampleResult",
+    "TerminationState",
     "WelfordState",
     "batched_leapfrog",
     "checkpoint",

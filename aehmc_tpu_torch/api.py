@@ -142,10 +142,14 @@ def sample(
     1.10).  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
     (``max_num_expansions`` defaults to 6; ``loop_in_kernel`` to True
-    unless ``checkpoint_every`` is given, whose segments need one launch a
-    draw; the draws are the same bits either way) and to
+    unless ``checkpoint_every`` or ``sort_by_depth`` is given, whose draws
+    need one launch each; the draws are the same bits either way) and to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_ghmc` for MALA and
     GHMC (``ghmc_alpha``, the GHMC momentum persistence, defaults to 0.9).
+    Both take the JAX drivers' ``per_chain_step_size``,
+    ``per_chain_quantiles``, ``per_chain_quantile_stat`` and
+    ``search_initial_step_size``; NUTS also ``sort_by_depth`` and
+    ``step_size_factors``.
     Fused ChEES needs ``logprob_fn`` to start its chain states;
     ``block_chains``, ``use_internal_prng``, ``step_size_factors`` and
     ``divergence_threshold`` build its kernel
@@ -260,9 +264,10 @@ def sample(
         return _fused_nuts_result(out)
     kwargs.setdefault("max_num_expansions", 6)
     # the whole-run kernel unless the sampling phase runs in checkpointed
-    # segments (the JAX driver's default is the per-draw loop, bit for bit
-    # the same draws)
-    kwargs.setdefault("loop_in_kernel", not kwargs.get("checkpoint_every"))
+    # segments or depth-sorted draws, which need one launch a draw (the JAX
+    # driver's default is the per-draw loop, bit for bit the same draws)
+    kwargs.setdefault("loop_in_kernel", not (kwargs.get("checkpoint_every")
+                                             or kwargs.get("sort_by_depth")))
     out = sample_fused_adaptive(
         generator,
         logprob_fn,
@@ -274,6 +279,8 @@ def sample(
         potential_and_grad_t=potential_and_grad_t,
         **kwargs,
     )
+    if out is None:  # a checkpointed run killed by its test hook
+        return None
     return _fused_nuts_result(out)
 
 

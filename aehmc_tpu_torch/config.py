@@ -43,6 +43,15 @@ class NutsConfig:
 
     max_num_expansions: int = 10
     divergence_threshold: float = 1000.0
+    paired_leaves: bool = True
+
+
+@dataclass(frozen=True)
+class HmcConfig:
+    """Static-trajectory HMC parameters."""
+
+    num_integration_steps: int = 32
+    divergence_threshold: float = 1000.0
 
 
 @dataclass(frozen=True)
@@ -51,6 +60,7 @@ class WarmupConfig:
 
     num_steps: int = 1000
     initial_step_size: float = 1.0
+    search_initial_step_size: bool = True
     dual_averaging: DualAveragingConfig = field(
         default_factory=DualAveragingConfig
     )

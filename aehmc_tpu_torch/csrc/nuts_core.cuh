@@ -71,7 +71,8 @@ struct Params {
   const float* im;  // inverse mass: (dim,) or (dim, dim)
   const float* ms;  // mass sqrt L^{-T} (dim, dim), dense metric only
   int dense;
-  float eps, thr;
+  float eps, thr;      // eps: every chain's ε when eps_row is null
+  const float* eps_row;  // (C,): chain c's ε, or null
   int dim, C, K;
   int ds;           // row stride in shared memory: dim rounded up to 4
 };
@@ -264,12 +265,21 @@ struct Stats {
   float u, energy, accept, doublings, leaves, div, turn;
 };
 
+// Chain `chain`'s ε: its entry of the per-chain row, or the scalar; the
+// padded chains of the grid's tail read 0.
+__device__ __forceinline__ float chain_eps(const Params& P, int chain,
+                                           bool valid) {
+  if (!P.eps_row) return P.eps;
+  return valid ? P.eps_row[chain] : 0.f;
+}
+
 // One NUTS transition of the block's chains.  On entry prop_q / prop_g hold
 // each chain's (q, ∇U) and u0 its potential; on exit they hold the proposal.
+// eps is the chain's step size (chain_eps).
 template <bool STD, class PG>
 __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
                            const Smem<typename PG::Scratch>& S, const Rand& R,
-                           int chain, bool valid, float u0) {
+                           int chain, bool valid, float u0, float eps) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int dim = P.dim, ds = P.ds;
   float* const pq = S.prop_q + w * ds;
@@ -325,7 +335,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
       s_e = e0;
       s_active = 1.f;
     }
-    const float d_eps = dir * P.eps;
+    const float d_eps = dir * eps;
     const float h = 0.5f * d_eps;
     const int nleaf = 1 << d;
 
@@ -495,7 +505,8 @@ __global__ void __launch_bounds__(NT, 2)
   load_chain<STD>(P, S, q, g, w, lane, chain, valid);
   __syncwarp();
   const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain, valid,
-                                  valid ? u[chain] : 0.f);
+                                  valid ? u[chain] : 0.f,
+                                  chain_eps(P, chain, valid));
   if (valid) {
     store_chain<STD>(P, S, q_out, u_out, g_out, w, lane, chain, st.u);
     store_stats<STD>(stats, P.C, chain, lane, st);
@@ -530,10 +541,11 @@ __global__ void __launch_bounds__(NT, 2)
   load_chain<STD>(P, S, q, g, w, lane, chain, valid);
   __syncwarp();
   float uc = valid ? u[chain] : 0.f;
+  const float eps = chain_eps(P, chain, valid);  // fixed across the draws
   Rand R = {nullptr, nullptr, nullptr, nullptr, 0u, 1};
   for (int t = 0; t < num_draws; ++t) {
     R.seed = seed + (uint32_t)t * DRAW_SEED_STRIDE;
-    const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain, valid, uc);
+    const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain, valid, uc, eps);
     uc = st.u;
     if (valid) {
       if (pos) {
@@ -549,12 +561,14 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 inline Params make_params(const float* im, const float* ms, int dense,
-                          float eps, float thr, int dim, int C, int K) {
+                          float eps, const float* eps_row, float thr, int dim,
+                          int C, int K) {
   Params P;
   P.im = im;
   P.ms = ms;
   P.dense = dense;
   P.eps = eps;
+  P.eps_row = eps_row;
   P.thr = thr;
   P.dim = dim;
   P.C = C;

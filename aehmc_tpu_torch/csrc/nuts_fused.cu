@@ -74,7 +74,7 @@ int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                float* ck, int blocks, int points,
                                int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
+  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -102,7 +102,7 @@ int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
                              float* g_out, float* ck, int blocks, int points,
                              int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, nullptr, 0, eps, thr, dim, C, K);
+  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;

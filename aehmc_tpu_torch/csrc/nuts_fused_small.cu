@@ -15,7 +15,9 @@
 // and gradient of Neal's funnel or of eight schools
 // (aehmc_tpu/models/hierarchical.py:neals_funnel_pg_t :114,
 // eight_schools_pg_t :151; functors FunnelPG and EightSchoolsPG,
-// hierarchical_pg.cuh), which need no data tile.  The plain PyTorch version
+// hierarchical_pg.cuh), which need no data tile.  ε is one scalar or a
+// per-chain row (the kernels' per_chain_eps variant, :462 and :548): each
+// warp reads its chain's entry once.  The plain PyTorch version
 // of both kernels is aehmc_tpu_torch/ops/nuts_fused_small.py.
 
 #include "hierarchical_pg.cuh"
@@ -85,19 +87,21 @@ extern "C" {
 // products' operands in bfloat16); stats: (8, C); ck: the checkpoint
 // buffer, blocks × 2K × 8 × ds floats (ds = dim rounded up to 4).
 // use_seed selects Philox randomness keyed by seed (p, dirs, ub and ul are
-// then unused).  blocks, points, row_stride, smem and chains (8) are the
-// launch plan's (aehmc_tpu_torch/ops/launch_plan.py).
+// then unused).  eps_row: (C,), chain c's step size, or null for eps.
+// blocks, points, row_stride, smem and chains (8) are the launch plan's
+// (aehmc_tpu_torch/ops/launch_plan.py).
 int nuts_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* dirs, const float* ub,
                            const float* ul, int use_seed, unsigned int seed,
                            const void* X, int x_bf16, const float* y,
                            const float* im, const float* ms, int dense,
-                           float eps, float thr, int dim, int N, int C, int K,
+                           float eps, const float* eps_row, float thr,
+                           int dim, int N, int C, int K,
                            float* q_out, float* u_out, float* g_out,
                            float* stats, float* ck, int blocks, int points,
                            int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -114,18 +118,20 @@ int nuts_transition_launch(const float* q, const float* u, const float* g,
 }
 
 // Kernel 2: num_draws transitions, draw t keyed by seed + t*DRAW_SEED_STRIDE.
-// X and ck as kernel 1's; pos: (draws, C, dim) float32 or bfloat16
+// eps_row as kernel 1's: a chain's ε is read once and fixed across its
+// draws.  X and ck as kernel 1's; pos: (draws, C, dim) float32 or bfloat16
 // (pos_bf16), or null; stats: (draws, 8, C).
 int nuts_sampling_launch(const float* q, const float* u, const float* g,
                          unsigned int seed, int num_draws, const void* X,
                          int x_bf16, const float* y, const float* im,
-                         const float* ms, int dense, float eps, float thr,
-                         int dim, int N, int C, int K, void* pos,
+                         const float* ms, int dense, float eps,
+                         const float* eps_row, float thr, int dim, int N,
+                         int C, int K, void* pos,
                          int pos_bf16, float* stats, float* q_out,
                          float* u_out, float* g_out, float* ck, int blocks,
                          int points, int row_stride, int smem, int chains,
                          void* stream) {
-  const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
@@ -168,12 +174,13 @@ int nuts_transition_pot_launch(const float* q, const float* u, const float* g,
                                unsigned int seed, int model, const float* y,
                                const float* s2, int J, const float* im,
                                const float* ms, int dense, float eps,
-                               float thr, int dim, int C, int K, float* q_out,
+                               const float* eps_row, float thr, int dim,
+                               int C, int K, float* q_out,
                                float* u_out, float* g_out, float* stats,
                                float* ck, int blocks, int points,
                                int row_stride, int smem, int chains,
                                void* stream) {
-  const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   return (int)with_model(model, y, s2, J, [&](auto pg) {
@@ -188,13 +195,13 @@ int nuts_sampling_pot_launch(const float* q, const float* u, const float* g,
                              unsigned int seed, int num_draws, int model,
                              const float* y, const float* s2, int J,
                              const float* im, const float* ms, int dense,
-                             float eps, float thr, int dim, int C, int K,
-                             void* pos, int pos_bf16, float* stats,
-                             float* q_out, float* u_out, float* g_out,
-                             float* ck, int blocks, int points,
+                             float eps, const float* eps_row, float thr,
+                             int dim, int C, int K, void* pos, int pos_bf16,
+                             float* stats, float* q_out, float* u_out,
+                             float* g_out, float* ck, int blocks, int points,
                              int row_stride, int smem, int chains,
                              void* stream) {
-  const Params P = make_params(im, ms, dense, eps, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   return (int)with_model(model, y, s2, J, [&](auto pg) {

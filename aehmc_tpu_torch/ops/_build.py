@@ -43,14 +43,14 @@ _GEOMETRY = [_I] * 5 + [_P]
 SIGNATURES = {
     "nuts_fused_small.cu": {
         "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P, _I] + [_P] * 3
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        + [_I, _F, _P, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
         "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P, _I] + [_P] * 3
-        + [_I, _F, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
+        + [_I, _F, _P, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
         "nuts_blocks_per_sm": [_I] * 3,
         "nuts_transition_pot_launch": [_P] * 7 + [_I, _U] + [_I, _P, _P, _I]
-        + [_P] * 2 + [_I, _F, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+        + [_P] * 2 + [_I, _F, _P, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
         "nuts_sampling_pot_launch": [_P] * 3 + [_U, _I] + [_I, _P, _P, _I]
-        + [_P] * 2 + [_I, _F, _F, _I, _I, _I] + [_P, _I] + [_P] * 5
+        + [_P] * 2 + [_I, _F, _P, _F, _I, _I, _I] + [_P, _I] + [_P] * 5
         + _GEOMETRY,
         "nuts_pot_blocks_per_sm": [_I] * 3,
     },

@@ -6,17 +6,18 @@ Step size and inverse mass matrix are runtime inputs of the kernels, so
 adaptation changes them every step.  The pooled statistics are the JAX
 package's: the fixed-tree pairwise mean of the per-chain acceptance, and the
 batched Welford fold of the positions.  Supported: diagonal or dense M⁻¹
-(NUTS; GHMC and MALA take a diagonal), scalar ε, Philox
-(``use_internal_prng``) or external randomness, the whole-run NUTS kernel
-(``loop_in_kernel``), the standard-layout NUTS kernel (``potential_fn``
-alone), GHMC segments of ``segment_draws`` draws,
+(NUTS; GHMC and MALA take a diagonal), a scalar or per-chain ε (per-chain
+dual averaging, its quantile snap, the riffle of ``step_size_factors``),
+the initial-ε search, depth-sorted block scheduling (``sort_by_depth``),
+Philox (``use_internal_prng``) or external randomness, the whole-run NUTS
+kernel (``loop_in_kernel``), the standard-layout NUTS kernel
+(``potential_fn`` alone), GHMC segments of ``segment_draws`` draws,
 ``collect_dtype`` float32 or bfloat16, and checkpoint/resume of the NUTS
-driver (``checkpoint_every``: per-draw launches in saved segments).  The
-other options of the JAX driver raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+driver (``checkpoint_every``: per-draw launches in saved segments).
+``mesh=`` raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -39,6 +40,7 @@ from aehmc_tpu_torch.ops.nuts_fused import (
     make_fused_nuts_transition,
 )
 from aehmc_tpu_torch.ops.nuts_fused_small import (
+    _depth_sorted,
     _draw_loop,
     _external_randomness,
     _fused_sampling_call_t,
@@ -48,19 +50,12 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     make_fused_nuts_transition_small,
 )
 from aehmc_tpu_torch.ops.philox import MASK32
+from aehmc_tpu_torch.step_size import find_reasonable_step_size
 from aehmc_tpu_torch.types import ChainState
 from aehmc_tpu_torch.window_adaptation import window_adaptation
 
 # options of the JAX driver that the port does not have yet -> ROADMAP item
-_NOT_PORTED = {
-    "sort_by_depth": "1.5",
-    "step_size_factors": "1.5",
-    "per_chain_step_size": "1.5",
-    "per_chain_quantiles": "1.5",
-    "per_chain_quantile_stat": "1.5",
-    "search_initial_step_size": "1.5",
-    "mesh": "1.12",
-}
+_NOT_PORTED = {"mesh": "1.12"}
 
 
 def _reject_unported(options: dict) -> None:
@@ -71,6 +66,136 @@ def _reject_unported(options: dict) -> None:
             raise NotImplementedError(
                 f"{name} is not ported yet (ROADMAP.md item {_NOT_PORTED[name]})"
             )
+
+
+def quantile_snap(values: torch.Tensor, num_buckets: int,
+                  stat: str = "min") -> torch.Tensor:
+    """Snap a positive per-chain vector to ``num_buckets`` rank-quantile
+    bucket representatives (port of the JAX ``quantile_snap``).
+
+    The chains are ranked and split into ``num_buckets`` buckets of equal
+    count (sorted place ``i`` is in bucket ``(i·K)//n``); every chain of a
+    bucket gets the bucket's representative: its minimum (``"min"``: no
+    chain runs above its own tuned ε) or its geometric mean
+    (``"geomean"``).  Order statistics only, and the sums run in a fixed
+    order, so the snap is deterministic on every device.
+    """
+    n = values.shape[0]
+    order = torch.argsort(values, stable=True)
+    ranks = torch.argsort(order)
+    sorted_vals = values[order]
+    if stat not in ("min", "geomean"):
+        raise ValueError(f"unknown quantile_snap stat {stat!r}")
+    # bucket b holds the sorted places [ceil(b·n/K), ceil((b+1)·n/K))
+    edges = [-(-b * n // num_buckets) for b in range(num_buckets + 1)]
+    spans = [(lo, hi) for lo, hi in zip(edges, edges[1:]) if hi > lo]
+    if stat == "min":  # ascending: a bucket's minimum is its first value
+        reps = torch.stack([sorted_vals[lo] for lo, _ in spans])
+    else:
+        logs = torch.log(sorted_vals)
+        reps = torch.exp(torch.stack([logs[lo:hi].sum() / (hi - lo)
+                                      for lo, hi in spans]))
+    counts = torch.tensor([hi - lo for lo, hi in spans], device=values.device)
+    snapped = torch.repeat_interleave(reps, counts, output_size=n)
+    return snapped[ranks].to(values.dtype)
+
+
+def _probe_value_and_grad(data: Sequence[torch.Tensor],
+                          potential_and_grad_t: Callable = None,
+                          potential_fn_t: Callable = None,
+                          potential_fn: Callable = None) -> Callable:
+    """``vg(q) -> (u (C,), g (C, dim))`` in the standard batched layout from
+    whichever potential the caller has: the pre-differentiated transposed
+    one, the transposed one (autograd) or the standard one (autograd)."""
+    data = tuple(data)
+    if potential_and_grad_t is not None or potential_fn_t is not None:
+        pot_grad_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
+                                         data)
+
+        def vg(q):
+            u, g_t = pot_grad_t(q.T.to(torch.float32).contiguous())
+            return u.reshape(-1), g_t.T
+
+    elif potential_fn is not None:
+        pot_grad = _generic_model(potential_fn, data).pot_grad
+
+        def vg(q):
+            u, g = pot_grad(q.to(torch.float32))
+            return u.reshape(-1), g
+
+    else:
+        raise ValueError("no potential available for the step-size probe")
+    return vg
+
+
+def _ke_batch(p: torch.Tensor, inverse_mass: torch.Tensor) -> torch.Tensor:
+    """``0.5 pᵀM⁻¹p`` per chain, ``(C, dim)`` layout, scalar, diagonal or
+    dense M⁻¹."""
+    if inverse_mass.ndim == 2:
+        return 0.5 * torch.sum(p * (p @ inverse_mass), dim=-1)
+    return 0.5 * torch.sum(inverse_mass * p * p, dim=-1)
+
+
+class _ProbeInfo(NamedTuple):
+    acceptance_probability: torch.Tensor
+
+
+def find_reasonable_step_size_fused(
+    noise: Callable,
+    value_and_grad: Callable,
+    positions: torch.Tensor,
+    inverse_mass_matrix: torch.Tensor,
+    initial_step_size: float = 1.0,
+    target_accept: float = 0.8,
+    max_iters: int = 16,
+) -> torch.Tensor:
+    """Stan's initial-ε heuristic for the fused warmup: each probe is one
+    chain-batched velocity-Verlet step (one gradient), the chains'
+    acceptance pooled by the fixed-tree pairwise mean, ε doubled or halved
+    until it crosses ``target_accept`` (port of the JAX
+    ``find_reasonable_step_size_fused``, on
+    :func:`aehmc_tpu_torch.step_size.find_reasonable_step_size`).
+
+    ``noise(probe) -> z (C, dim)`` gives the probe's standard normals (the
+    momentum is ``z`` under ``sqrt(M)``); ``value_and_grad(q) -> (u, g)``
+    is in the standard layout (:func:`_probe_value_and_grad`).  Returns a
+    0-d ε.
+    """
+    q = positions.to(torch.float32)
+    u0, g0 = value_and_grad(q)
+    imm = torch.as_tensor(inverse_mass_matrix, dtype=torch.float32,
+                          device=q.device)
+    mass_sqrt = _mass_sqrt(imm)
+
+    def kernel_step(probe, state, eps, imm):
+        z = torch.as_tensor(noise(probe), dtype=torch.float32, device=q.device)
+        p = z @ mass_sqrt.T if mass_sqrt.ndim == 2 else mass_sqrt * z
+        h0 = u0 + _ke_batch(p, imm)
+        p_half = p - 0.5 * eps * g0
+        drift = p_half @ imm.T if imm.ndim == 2 else imm * p_half
+        u1, g1 = value_and_grad(q + eps * drift)
+        p1 = p_half - 0.5 * eps * g1
+        delta = h0 - (u1 + _ke_batch(p1, imm))
+        delta = torch.where(torch.isnan(delta), -torch.inf, delta)
+        return state, _ProbeInfo(torch.exp(torch.clamp(delta, max=0.0)))
+
+    return find_reasonable_step_size(
+        kernel_step, None, imm,
+        initial_step_size=torch.tensor(initial_step_size, dtype=torch.float32,
+                                       device=q.device),
+        target_accept=target_accept, max_iters=max_iters,
+        reduce_fn=pairwise_mean,
+    )
+
+
+def _generator_normals(generator, shape, device) -> Callable:
+    """``noise(i) -> z``: standard normals of ``shape`` from a
+    ``torch.Generator``."""
+    def noise(_):
+        return torch.randn(shape, generator=generator,
+                           device=generator.device).to(device)
+
+    return noise
 
 
 def warmup_fused_hooks(
@@ -84,9 +209,16 @@ def warmup_fused_hooks(
     initial_step_size: float = 0.1,
     target_acceptance_rate: float = 0.8,
     use_internal_prng: bool = True,
+    sort_by_depth: bool = False,
+    step_size_factors=None,
+    per_chain_step_size: bool = False,
+    per_chain_quantiles: int = 0,
+    per_chain_quantile_stat: str = "min",
+    search_initial_step_size: bool = False,
+    probe_value_and_grad: Callable = None,
     streams: Callable = None,
+    search_streams: Callable = None,
     progress_every: int = 0,
-    **options,
 ):
     """Segmentable fused warmup: ``(init, segment, finish)``.
 
@@ -100,55 +232,114 @@ def warmup_fused_hooks(
     t*DRAW_SEED_STRIDE``; otherwise ``streams(t) -> (z, dirs, u_bias,
     u_leaf)`` (standard layout), drawn from the generator when not given.
     ``progress_every=N`` prints a progress line every N steps.
+
+    The options are the JAX hooks':
+
+    - ``per_chain_step_size``: one dual-averaging state a chain, seeded with
+      a ``(C,)`` ε and fed the chain's own acceptance (stats row 1, no
+      pooling); M⁻¹ stays pooled.
+    - ``per_chain_quantiles=K``: at ``finish`` the tuned ``(C,)`` ε is
+      snapped to K rank-quantile representatives (:func:`quantile_snap`,
+      ``per_chain_quantile_stat``); warmup itself is unchanged.
+    - ``step_size_factors`` ``(C,)``: chain ``c`` runs every step at ε ·
+      ``factors[c]`` while dual averaging tunes the base ε (the riffle).
+    - ``sort_by_depth``: each step runs under depth-sorted block scheduling
+      (:func:`~aehmc_tpu_torch.ops.nuts_fused_small._depth_sorted`) by the
+      previous step's doublings; the adaptation sees the outputs in chain
+      order, and the depth is in the carry, so segments (checkpoints)
+      replay the unsegmented run bit for bit.
+    - ``search_initial_step_size``: ``init`` seats dual averaging at
+      :func:`find_reasonable_step_size_fused` from ``initial_step_size``,
+      probing with ``probe_value_and_grad`` and the normals
+      ``search_streams(probe) -> z (C, dim)``, drawn from the generator
+      before the warmup keys when not given.
     """
-    _reject_unported(options)
+    if search_initial_step_size and probe_value_and_grad is None:
+        raise ValueError(
+            "search_initial_step_size probes with single leapfrog steps "
+            "— pass probe_value_and_grad (see _probe_value_and_grad)"
+        )
+    scalar_initial_step_size = initial_step_size
+    if per_chain_step_size:
+        # one DA state a chain: a (C,) step size and each chain's own
+        # acceptance; every DA operation is elementwise
+        initial_step_size = torch.full((num_chains,), initial_step_size,
+                                       dtype=torch.float32)
+        acceptance_statistic = lambda stats_t: stats_t[1]  # noqa: E731
+    else:
+        acceptance_statistic = lambda stats_t: pairwise_mean(  # noqa: E731
+            stats_t[1])
     init_adapt, update_adapt = window_adaptation(
         num_steps,
         is_mass_matrix_full,
         initial_step_size,
         target_acceptance_rate,
         welford_update_fn=welford_update_batch(is_mass_matrix_full),
-        acceptance_statistic=lambda stats_t: pairwise_mean(stats_t[1]),
+        acceptance_statistic=acceptance_statistic,
         num_dims_fn=lambda positions: positions.shape[1],
     )
 
     def init(generator, qug):
         q_t, u, g_t = qug
-        ast = init_adapt(ChainState(q_t.T, u.reshape(-1), g_t.T))
+        chain_state = ChainState(q_t.T, u.reshape(-1), g_t.T)
+        ast = init_adapt(chain_state)
+        if search_initial_step_size:
+            # the search's draws come first, as JAX splits its key first
+            noise = search_streams or _generator_normals(
+                generator, (num_chains, dim), q_t.device)
+            found = find_reasonable_step_size_fused(
+                noise, probe_value_and_grad, q_t.T, ast.inverse_mass_matrix,
+                initial_step_size=scalar_initial_step_size,
+                target_accept=target_acceptance_rate,
+            )
+            if per_chain_step_size:
+                found = found.reshape(1).repeat(num_chains)
+            ast = init_adapt(chain_state, found)
         if use_internal_prng:
             randomness = derive_draw_seeds(generator, num_steps)
         else:
             randomness = streams or _generator_streams(
                 generator, num_chains, dim, max_num_expansions, q_t.device
             )
-        return qug, ast, randomness
+        depth = (torch.zeros(num_chains, dtype=torch.float32,
+                             device=q_t.device) if sort_by_depth else None)
+        return qug, ast, depth, randomness
 
-    def one_step(qug, ast, step, randomness):
-        q_t, u, g_t = qug
+    def one_step(qug, ast, depth, step, randomness):
         imm, eps = ast.inverse_mass_matrix, ast.step_size
+        if step_size_factors is not None:
+            eps = eps * step_size_factors
         if use_internal_prng:
-            out = transition(q_t, u, g_t, None, None, None, None, imm, eps,
-                             seed=randomness[step])
+            def run(q_t, u, g_t, eps):
+                return transition(q_t, u, g_t, None, None, None, None, imm,
+                                  eps, seed=randomness[step])
         else:
-            p, dirs, ub, ul = _external_randomness(randomness(step), imm,
-                                                   q_t.device)
-            out = transition(q_t, u, g_t, p, dirs, ub, ul, imm, eps)
-        q_t, u, g_t, stats_t = out
+            rand = _external_randomness(randomness(step), imm, qug[0].device)
+
+            def run(q_t, u, g_t, eps):
+                return transition(q_t, u, g_t, *rand, imm, eps)
+        q_t, u, g_t, stats_t = _depth_sorted(run, *qug, eps, depth)
         if progress_every:
             progress_callback(step, stats_info(stats_t.T), progress_every)
-        return (q_t, u, g_t), update_adapt(step, ast, q_t.T, stats_t), stats_t[1]
+        return ((q_t, u, g_t), update_adapt(step, ast, q_t.T, stats_t),
+                None if depth is None else stats_t[2], stats_t[1])
 
     def segment(wcarry, steps):
-        qug, ast, randomness = wcarry
+        qug, ast, depth, randomness = wcarry
         accepts = []
         for step in steps:
-            qug, ast, accept = one_step(qug, ast, int(step), randomness)
+            qug, ast, depth, accept = one_step(qug, ast, depth, int(step),
+                                               randomness)
             accepts.append(accept)
-        return (qug, ast, randomness), torch.stack(accepts)
+        return (qug, ast, depth, randomness), torch.stack(accepts)
 
     def finish(wcarry):
-        qug, ast, _ = wcarry
-        return qug, (ast.step_size, ast.inverse_mass_matrix)
+        qug, ast, _, _ = wcarry
+        eps = ast.step_size
+        if per_chain_quantiles and eps.ndim > 0:
+            eps = quantile_snap(eps, per_chain_quantiles,
+                                per_chain_quantile_stat)
+        return qug, (eps, ast.inverse_mass_matrix)
 
     return init, segment, finish
 
@@ -160,33 +351,19 @@ def warmup_fused(
     u0: torch.Tensor,
     g0: torch.Tensor,
     num_steps: int = 400,
-    *,
-    max_num_expansions: int,
-    is_mass_matrix_full: bool = False,
-    initial_step_size: float = 0.1,
-    target_acceptance_rate: float = 0.8,
-    use_internal_prng: bool = True,
-    streams: Callable = None,
     **options,
 ):
     """Stan window adaptation over a fused NUTS transition.
 
     ``initial_positions``/``g0`` are ``(chains, dim)``, ``u0`` is
-    ``(chains, 1)``; ``transition`` is transposed-layout (see
-    :func:`warmup_fused_hooks`).  Returns ``((q, u, g), step_size,
-    inverse_mass_matrix)`` in the same layout.
+    ``(chains, 1)``; ``transition`` is transposed-layout, and ``options``
+    are the keywords of :func:`warmup_fused_hooks` (``max_num_expansions``
+    is required).  Returns ``((q, u, g), step_size, inverse_mass_matrix)``
+    in the same layout.
     """
     num_chains, dim = initial_positions.shape
     init, segment, finish = warmup_fused_hooks(
-        transition, num_chains, dim, num_steps,
-        max_num_expansions=max_num_expansions,
-        is_mass_matrix_full=is_mass_matrix_full,
-        initial_step_size=initial_step_size,
-        target_acceptance_rate=target_acceptance_rate,
-        use_internal_prng=use_internal_prng,
-        streams=streams,
-        **options,
-    )
+        transition, num_chains, dim, num_steps, **options)
     wcarry = init(generator, (initial_positions.T.contiguous(),
                               u0.reshape(1, num_chains),
                               g0.T.contiguous()))
@@ -211,15 +388,16 @@ def _standard_as_transposed(transition: Callable) -> Callable:
     return transposed
 
 
-def _standard_branch_errors(is_mass_matrix_full, loop_in_kernel, options):
+def _standard_branch_errors(is_mass_matrix_full, loop_in_kernel,
+                            step_size_factors, per_chain_step_size):
     """The JAX driver's rules for the standard-layout kernel."""
     rules = (
         (is_mass_matrix_full, "dense-metric self-tuning requires the "
          "transposed kernel — pass potential_fn_t (the standard-layout "
          "megakernel has no dense metric path)"),
-        (options.get("step_size_factors") is not None, "step_size_factors "
+        (step_size_factors is not None, "step_size_factors "
          "requires the transposed kernel — pass potential_fn_t"),
-        (options.get("per_chain_step_size"), "per_chain_step_size requires "
+        (per_chain_step_size, "per_chain_step_size requires "
          "the transposed kernel — pass potential_fn_t"),
         (loop_in_kernel, "loop_in_kernel requires the transposed kernel — "
          "pass potential_fn_t (the standard-layout megakernel has its own "
@@ -242,14 +420,20 @@ def sample_fused_adaptive(
     potential_and_grad_t: Callable = None,
     max_num_expansions: int = 6,
     divergence_threshold: float = 1000.0,
+    block_chains: int = None,
     is_mass_matrix_full: bool = False,
     initial_step_size: float = 0.1,
     target_acceptance_rate: float = 0.8,
     collect_positions: bool = True,
     collect_dtype=None,
     use_internal_prng: bool = True,
+    sort_by_depth: bool = False,
+    step_size_factors=None,
+    per_chain_step_size: bool = False,
+    per_chain_quantiles: int = 0,
+    per_chain_quantile_stat: str = "min",
+    search_initial_step_size: bool = False,
     loop_in_kernel: bool = False,
-    block_chains: int = None,
     progress_every: int = 0,
     checkpoint_every: int = 0,
     checkpoint_path: str = None,
@@ -272,10 +456,23 @@ def sample_fused_adaptive(
     With ``use_internal_prng=False`` the external streams are drawn from
     ``generator``, or ``generator`` is a key source ``(phase, index) ->
     (z, dirs, u_bias, u_leaf)`` (standard layout, ``phase`` ``"warmup"`` or
-    ``"sample"``), as :mod:`aehmc_tpu_torch.chees` takes one.
+    ``"sample"``; ``"search"`` gives the initial-ε probes' normals ``z``),
+    as :mod:`aehmc_tpu_torch.chees` takes one.
     ``block_chains`` has no effect (a CUDA block holds 8 chains).
     ``progress_every=N`` prints a progress line every N warmup steps and
     draws.
+
+    The JAX driver's step-size options (:func:`warmup_fused_hooks`):
+    ``per_chain_step_size`` (one dual-averaging state a chain; the tuned ε
+    is ``(chains,)``), ``per_chain_quantiles``/``per_chain_quantile_stat``
+    (the tuned vector snapped to K values, :func:`quantile_snap`),
+    ``step_size_factors`` (a ``(chains,)`` riffle of the tuned base ε, in
+    warmup and every draw) and ``search_initial_step_size`` (dual averaging
+    seated at :func:`find_reasonable_step_size_fused`).
+    ``sort_by_depth`` runs every warmup step and draw under depth-sorted
+    block scheduling (the chains in the stable order of their last
+    doublings, a per-chain ε along); it runs one transition a draw
+    (kernel 1 on the card), so not with ``loop_in_kernel``.
 
     **Checkpoint / resume** as in
     :func:`aehmc_tpu_torch.parallel.sample_sharded`: ``checkpoint_every=N,
@@ -284,19 +481,32 @@ def sample_fused_adaptive(
     t·DRAW_SEED_STRIDE`` with ``t`` the absolute draw index, the base drawn
     where the unsegmented run draws it, so the checkpointed run draws what
     the unsegmented one draws and a resumed run (``resume=True``) what the
-    uninterrupted one does, bit for bit.  Not with ``loop_in_kernel``.
+    uninterrupted one does, bit for bit.  The last depth is in the
+    snapshots.  Not with ``loop_in_kernel``.
 
     Returns ``(final_positions, positions (draws, chains, dim),
     stats (draws, chains, 8), step_size, inverse_mass_matrix)``.
     """
     standard = potential_fn_t is None and potential_and_grad_t is None
     if standard:
-        _standard_branch_errors(is_mass_matrix_full, loop_in_kernel, options)
+        _standard_branch_errors(is_mass_matrix_full, loop_in_kernel,
+                                step_size_factors, per_chain_step_size)
     _reject_unported(options)
+    if per_chain_quantiles and not per_chain_step_size:
+        raise ValueError(
+            "per_chain_quantiles snaps the PER-CHAIN tuned step sizes — "
+            "set per_chain_step_size=True as well"
+        )
     if loop_in_kernel and not use_internal_prng:
         raise ValueError(
             "loop_in_kernel draws all randomness in the kernel — it requires "
             "use_internal_prng=True"
+        )
+    if loop_in_kernel and sort_by_depth:
+        raise ValueError(
+            "loop_in_kernel keeps each block's chains resident in "
+            "VMEM across draws; sort_by_depth is a global cross-"
+            "block permutation between draws — use the scan path"
         )
     if loop_in_kernel and checkpoint_every:
         raise ValueError(
@@ -305,7 +515,7 @@ def sample_fused_adaptive(
         )
     if checkpoint_every and checkpoint_path is None:
         raise ValueError("checkpoint_every requires checkpoint_path")
-    warmup_streams = sample_streams = None
+    warmup_streams = sample_streams = search_streams = None
     if _is_key_source(generator):
         if use_internal_prng:
             raise TypeError("a key source replays external streams — it "
@@ -315,9 +525,17 @@ def sample_fused_adaptive(
         def warmup_streams(step):
             return key_source("warmup", step)
 
+        def search_streams(probe):
+            return key_source("search", probe)
+
         sample_streams = _sample_phase(key_source)
     num_chains, dim = initial_positions.shape
+    device = initial_positions.device
     data = tuple(data)
+    if step_size_factors is not None:
+        step_size_factors = torch.as_tensor(
+            step_size_factors, dtype=torch.float32,
+            device=device).reshape(num_chains)
     if standard:
         transition = _standard_as_transposed(make_fused_nuts_transition(
             potential_fn, data, max_num_expansions=max_num_expansions,
@@ -337,6 +555,12 @@ def sample_fused_adaptive(
         q0_t = initial_positions.T.to(torch.float32).contiguous()
         u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
                                        data)(q0_t)
+    probe_vg = None
+    if search_initial_step_size:
+        probe_vg = _probe_value_and_grad(
+            data, potential_and_grad_t=potential_and_grad_t,
+            potential_fn_t=potential_fn_t,
+            potential_fn=potential_fn if standard else None)
     init, segment, finish = warmup_fused_hooks(
         transition, num_chains, dim, num_warmup,
         max_num_expansions=max_num_expansions,
@@ -344,7 +568,15 @@ def sample_fused_adaptive(
         initial_step_size=initial_step_size,
         target_acceptance_rate=target_acceptance_rate,
         use_internal_prng=use_internal_prng,
+        sort_by_depth=sort_by_depth,
+        step_size_factors=step_size_factors,
+        per_chain_step_size=per_chain_step_size,
+        per_chain_quantiles=per_chain_quantiles,
+        per_chain_quantile_stat=per_chain_quantile_stat,
+        search_initial_step_size=search_initial_step_size,
+        probe_value_and_grad=probe_vg,
         streams=warmup_streams,
+        search_streams=search_streams,
         progress_every=progress_every,
     )
     cdt = torch.float32 if collect_dtype is None else collect_dtype
@@ -365,47 +597,55 @@ def sample_fused_adaptive(
             generator, num_chains, dim, max_num_expansions, q0_t.device)
 
     def wh_init(gen, _):
-        qug, ast, randomness = init(gen, qug0)
+        qug, ast, depth, randomness = init(gen, qug0)
         if not use_internal_prng:
-            return (qug, ast, None, None), None
+            return (qug, ast, depth, None, None), None
         # the sampling base is the generator's next draw after the warmup
         # keys; warmup draws nothing more from it
-        return (qug, ast, randomness, derive_draw_seeds(gen, 1)[0]), None
+        return (qug, ast, depth, randomness, derive_draw_seeds(gen, 1)[0]), None
 
     def wh_segment(wc, steps):
-        qug, ast, seeds, base = wc
-        (qug, ast, _), _ = segment(
-            (qug, ast, warmup_randomness(seeds)), steps)
-        return qug, ast, seeds, base
+        qug, ast, depth, seeds, base = wc
+        (qug, ast, depth, _), _ = segment(
+            (qug, ast, depth, warmup_randomness(seeds)), steps)
+        return qug, ast, depth, seeds, base
 
     def wh_finish(wc):
-        qug, ast, _, base = wc
-        _, (eps, imm) = finish((qug, ast, None))
-        return qug, (eps, imm, base)
+        qug, ast, _, _, base = wc
+        _, (eps, imm) = finish((qug, ast, None, None))
+        # sampling starts from depth 0 (the stable sort keeps chain order)
+        depth0 = (torch.zeros(num_chains, dtype=torch.float32, device=device)
+                  if sort_by_depth else None)
+        return (*qug, depth0), (eps, imm, base)
 
-    def sample_segment(qug, draws, extras, _):
+    def run_eps(eps):
+        return eps if step_size_factors is None else eps * step_size_factors
+
+    def sample_segment(carry, draws, extras, _):
         eps, imm, base = extras
+        *qug, depth = carry
         if loop_in_kernel:
             pos_t, stats_t, *qug = _fused_sampling_call_t(
-                potential_fn_t, potential_and_grad_t, data, *qug, imm, eps,
-                base, len(draws), max_num_expansions=max_num_expansions,
+                potential_fn_t, potential_and_grad_t, data, *qug, imm,
+                run_eps(eps), base, len(draws),
+                max_num_expansions=max_num_expansions,
                 divergence_threshold=divergence_threshold,
                 collect_positions=collect_positions, collect_dtype=cdt,
             )
             positions = None if pos_t is None else pos_t.transpose(1, 2)
             stats = stats_t.transpose(1, 2)
         else:
-            qug, positions, stats = _draw_loop(
-                transition, *qug, imm, eps, len(draws),
+            (*qug, depth), positions, stats = _draw_loop(
+                transition, *qug, imm, run_eps(eps), len(draws),
                 sample_randomness(draws, base), collect_positions, cdt,
-                final_state=True)
+                final_state=True, depth=depth)
         progress_draws(progress_every, draws, stats_info(stats))
-        return qug, (positions, stats)
+        return (*qug, depth), (positions, stats)
 
-    def build_result(qug, extras, outs):
+    def build_result(carry, extras, outs):
         eps, imm, _ = extras
         positions, stats = outs
-        return qug[0].T, positions, stats, eps, imm
+        return carry[0].T, positions, stats, eps, imm
 
     # imported here: parallel.pooled imports this package
     from aehmc_tpu_torch.parallel.pooled import _checkpointed_run
@@ -452,13 +692,21 @@ def ghmc_warmup(
     divergence_threshold: float = 1000.0,
     initial_step_size: float = 0.1,
     target_acceptance_rate: float = 0.8,
+    per_chain_step_size: bool = False,
+    per_chain_quantiles: int = 0,
+    per_chain_quantile_stat: str = "min",
+    search_initial_step_size: bool = False,
     use_internal_prng: bool = True,
     warmup_streams: Callable = None,
+    search_streams: Callable = None,
 ):
     """The warmup of :func:`sample_fused_ghmc`: Stan window adaptation of ε
     and the diagonal M⁻¹ over the α = 0 GHMC transition (kernel 5 on the
-    card).  Returns ``((q_t, u, g_t), (step_size, inverse_mass_matrix))``
-    with the chain state in the kernels' ``(dim, chains)`` layout."""
+    card), with the step-size options of :func:`warmup_fused_hooks`
+    (``search_streams(probe) -> z (chains, dim)`` the search's normals).
+    Returns ``((q_t, u, g_t), (step_size, inverse_mass_matrix))`` with the
+    chain state in the kernels' ``(dim, chains)`` layout; a per-chain ε is
+    ``(chains,)``."""
     num_chains, dim = initial_positions.shape
     device = initial_positions.device
     data = tuple(data)
@@ -492,13 +740,24 @@ def ghmc_warmup(
     q0_t = initial_positions.T.to(torch.float32).contiguous()
     u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
                                    data)(q0_t)
+    probe_vg = None
+    if search_initial_step_size:
+        probe_vg = _probe_value_and_grad(
+            data, potential_and_grad_t=potential_and_grad_t,
+            potential_fn_t=potential_fn_t)
     init, segment, finish = warmup_fused_hooks(
         transition, num_chains, dim, num_warmup,
         max_num_expansions=1,
         initial_step_size=initial_step_size,
         target_acceptance_rate=target_acceptance_rate,
         use_internal_prng=use_internal_prng,
+        per_chain_step_size=per_chain_step_size,
+        per_chain_quantiles=per_chain_quantiles,
+        per_chain_quantile_stat=per_chain_quantile_stat,
+        search_initial_step_size=search_initial_step_size,
+        probe_value_and_grad=probe_vg,
         streams=warmup_raw,
+        search_streams=search_streams,
     )
     wcarry = init(generator, (q0_t, u0.reshape(1, num_chains), g0_t))
     wcarry, _ = segment(wcarry, range(num_warmup))
@@ -590,8 +849,13 @@ def sample_fused_ghmc(
     alpha: float = 0.9,
     potential_and_grad_t: Callable = None,
     divergence_threshold: float = 1000.0,
+    block_chains: int = None,
     initial_step_size: float = 0.1,
     target_acceptance_rate: float = 0.8,
+    search_initial_step_size: bool = False,
+    per_chain_step_size: bool = False,
+    per_chain_quantiles: int = 0,
+    per_chain_quantile_stat: str = "min",
     collect_positions: bool = True,
     collect_dtype=None,
     use_internal_prng: bool = True,
@@ -599,7 +863,7 @@ def sample_fused_ghmc(
     warmup_streams: Callable = None,
     segment_streams: Callable = None,
     momentum_z: torch.Tensor = None,
-    **options,
+    search_streams: Callable = None,
 ):
     """Fused GHMC: Stan warmup through the GHMC transition kernel, then
     sampling in segments of ``segment_draws`` draws, one launch of the
@@ -621,15 +885,26 @@ def sample_fused_ghmc(
     dim), u (draws, chains))`` and ``momentum_z (chains, dim)`` for the
     α > 0 initial momentum, each drawn from ``generator`` when not given.
 
+    ``per_chain_step_size``, ``per_chain_quantiles``,
+    ``per_chain_quantile_stat`` and ``search_initial_step_size`` are the
+    NUTS driver's (:func:`warmup_fused_hooks`; ``search_streams(probe) ->
+    z (chains, dim)`` gives the search's normals, drawn from ``generator``
+    first when not given); kernels 5 and 6 take the ``(chains,)`` ε.
+    ``block_chains`` has no effect (a CUDA block holds 8 chains).
+
     Returns ``(final_positions, positions (draws, chains, dim), stats
     (draws, chains, 8), step_size, inverse_mass_matrix)``; stats columns are
     ``[energy, accept, 0, 1, diverging, 0, 0, 0]``.
     """
-    _reject_unported(options)
     alpha_f = float(alpha)
     if not 0.0 <= alpha_f < 1.0:
         raise ValueError(
             f"alpha must be in [0, 1) (momentum persistence), got {alpha}"
+        )
+    if per_chain_quantiles and not per_chain_step_size:
+        raise ValueError(
+            "per_chain_quantiles snaps the PER-CHAIN tuned step sizes — "
+            "set per_chain_step_size=True as well"
         )
     common = dict(potential_and_grad_t=potential_and_grad_t,
                   divergence_threshold=divergence_threshold,
@@ -638,7 +913,12 @@ def sample_fused_ghmc(
         generator, potential_fn_t, data, initial_positions, num_warmup,
         initial_step_size=initial_step_size,
         target_acceptance_rate=target_acceptance_rate,
-        warmup_streams=warmup_streams, **common,
+        per_chain_step_size=per_chain_step_size,
+        per_chain_quantiles=per_chain_quantiles,
+        per_chain_quantile_stat=per_chain_quantile_stat,
+        search_initial_step_size=search_initial_step_size,
+        warmup_streams=warmup_streams, search_streams=search_streams,
+        **common,
     )
     final, positions, stats = ghmc_sampling(
         generator, potential_fn_t, data, state_t, eps, imm, num_samples,

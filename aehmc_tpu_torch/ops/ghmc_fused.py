@@ -188,6 +188,7 @@ def make_fused_ghmc_transition(
     num_integration_steps: int = 1,
     potential_and_grad_t: Callable = None,
     transposed_io: bool = False,
+    block_chains: int = None,
 ) -> Callable:
     """Fused whole-transition GHMC (kernel 5 on the card).
 
@@ -199,6 +200,7 @@ def make_fused_ghmc_transition(
     int) selects Philox randomness.  ``transposed_io=True`` keeps the
     kernel's own layout throughout (``(dim, chains)`` state and noise,
     ``(1, chains)`` potential and ``u_accept``, stats ``(8, chains)``).
+    ``block_chains`` has no effect (a CUDA block holds 8 chains).
     """
     data = tuple(data)
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
@@ -238,6 +240,7 @@ def fused_ghmc_segment(
     num_integration_steps: int = 1,
     potential_and_grad_t: Callable = None,
     transposed_io: bool = False,
+    block_chains: int = None,
 ) -> Callable:
     """The multi-draw fused GHMC sampler (kernel 6 on the card).
 
@@ -250,6 +253,7 @@ def fused_ghmc_segment(
     transitions of :func:`make_fused_ghmc_transition`.  ``transposed_io``
     keeps the kernel's layout: ``noise (draws, dim, chains)``, positions
     ``(draws, dim, chains)``, stats ``(draws, 8, chains)``.
+    ``block_chains`` has no effect (a CUDA block holds 8 chains).
     """
     data = tuple(data)
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)

@@ -288,7 +288,8 @@ def nuts_transition_plain(q_t, u, g_t, inverse_mass, step_size, pot_grad, *,
 
     Either the external streams (``momentum (dim, C)``, ``directions`` and
     ``u_bias (K, C)``, ``u_leaf (2**K, C)``) or a Philox ``seed`` (u32) is
-    given; with a seed the streams are :func:`nuts_streams`.
+    given; with a seed the streams are :func:`nuts_streams`.  ``step_size``
+    is a scalar or a per-chain ``(C,)`` vector (:func:`_step_size_row`).
     """
     dim, num_chains = q_t.shape
     inverse_mass = torch.as_tensor(inverse_mass, dtype=q_t.dtype,
@@ -302,9 +303,22 @@ def nuts_transition_plain(q_t, u, g_t, inverse_mass, step_size, pot_grad, *,
     return _transition_core_t(
         q_t, u.reshape(1, num_chains), g_t, momentum, directions, u_bias,
         u_leaf, _apply_im_fn(inverse_mass, dim),
-        torch.as_tensor(step_size, dtype=q_t.dtype, device=q_t.device),
+        _step_size_row(step_size, num_chains, q_t.dtype, q_t.device),
         pot_grad, max_exp=max_exp, divergence_threshold=divergence_threshold,
     )
+
+
+def _step_size_row(step_size, num_chains, dtype, device) -> torch.Tensor:
+    """ε as the plain core takes it: a 0-d scalar, or a per-chain vector of
+    ``num_chains`` entries as a ``(1, C)`` row, each chain integrating at
+    its own ε (the JAX kernels' ``per_chain_eps``)."""
+    eps = torch.as_tensor(step_size, dtype=dtype, device=device)
+    if eps.numel() == 1:
+        return eps.reshape(())
+    if eps.numel() != num_chains:
+        raise ValueError(f"per-chain step_size has {eps.numel()} entries for "
+                         f"{num_chains} chains")
+    return eps.reshape(1, num_chains)
 
 
 # the potential+gradient functions whose device functor kernels 1 and 2
@@ -338,16 +352,31 @@ def _check_cuda_args(potential_and_grad_t, data, q_t, step_size) -> str:
             "only; any other potential on the card is ROADMAP.md item 1.10 "
             "(the generic path)"
         )
-    if torch.as_tensor(step_size).numel() != 1:
-        raise NotImplementedError(
-            "per-chain step sizes are ROADMAP.md item 1.5"
-        )
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
     name, layout, _ = functor
     if len(data) != len(layout):
         raise ValueError(f"{name} data is ({', '.join(layout)})")
+    _eps_row(step_size, q_t)
     return name
+
+
+def _eps_row(step_size, q_t):
+    """The per-chain ε row the kernels read, or None for a scalar ε; a
+    per-chain ε must be a float32 ``(C,)`` tensor on the chains' device
+    (``ValueError`` otherwise)."""
+    step_size = torch.as_tensor(step_size)
+    if step_size.numel() == 1:
+        return None
+    num_chains = q_t.shape[1]
+    if (step_size.shape != (num_chains,) or step_size.dtype != torch.float32
+            or step_size.device != q_t.device):
+        raise ValueError(
+            "a per-chain step_size is a float32 (chains,) tensor on the "
+            f"chains' device: got {tuple(step_size.shape)} {step_size.dtype} "
+            f"on {step_size.device} for {num_chains} chains on {q_t.device}"
+        )
+    return step_size.contiguous()
 
 
 def make_fused_nuts_transition_small(
@@ -358,6 +387,7 @@ def make_fused_nuts_transition_small(
     divergence_threshold: float = 1000.0,
     potential_and_grad_t: Callable = None,
     transposed_io: bool = False,
+    block_chains: int = None,
 ) -> Callable:
     """Transposed-layout fused NUTS transition.
 
@@ -366,7 +396,10 @@ def make_fused_nuts_transition_small(
     public contract is ``(chains, dim)`` (``potential (chains, 1)``, stats
     ``(chains, 8)``); ``transposed_io=True`` keeps the kernel's own layout
     throughout.  ``seed`` (a u32 int) selects Philox randomness; otherwise
-    the four external streams are used.
+    the four external streams are used.  ``step_size`` is a scalar or a
+    per-chain ``(chains,)`` vector (float32 on the chains' device for the
+    kernel), each chain integrating at its own ε.  ``block_chains`` has no
+    effect (a CUDA block holds 8 chains).
     """
     data = tuple(data)
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
@@ -436,7 +469,8 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
     ``(positions_t (draws, dim, C) in collect_dtype, stats_t (draws, 8, C),
     q_t, u, g_t)``.  Draw ``t`` uses the Philox key ``seed +
     t*DRAW_SEED_STRIDE``, the layout of :func:`derive_draw_seeds`, so this
-    equals the per-draw path bit for bit.
+    equals the per-draw path bit for bit.  ``step_size`` is a scalar or a
+    per-chain ``(C,)`` vector, each chain's ε fixed across the draws.
     """
     cdt = torch.float32 if collect_dtype is None else collect_dtype
     if cdt not in (torch.float32, torch.bfloat16):
@@ -469,9 +503,11 @@ def sample_fused_small(
     inverse_mass,
     max_num_expansions: int = 10,
     divergence_threshold: float = 1000.0,
+    block_chains: int = None,
     collect_positions: bool = True,
     collect_dtype=None,
     internal_prng: bool = True,
+    sort_by_depth: bool = False,
     potential_and_grad_t: Callable = None,
     loop_in_kernel: bool = False,
     streams: Callable = None,
@@ -485,12 +521,24 @@ def sample_fused_small(
     the per-draw path.  With ``internal_prng=False`` each draw takes
     ``streams(t) -> (z, dirs, u_bias, u_leaf)`` in the standard layout
     (``(C, dim)``, ``(C, K)``, ``(C, K)``, ``(C, 2**K)``), or draws them from
-    ``generator`` when ``streams`` is None.
+    ``generator`` when ``streams`` is None.  ``step_size`` is a scalar or a
+    per-chain ``(C,)`` vector.
+
+    ``sort_by_depth`` schedules the blocks by depth: before each draw the
+    chains are put in the stable order of the previous draw's doublings
+    (:func:`_depth_sorted`; a per-chain ε rides the permutation), so a
+    block's chains walk trees of like depth, and the outputs come back in
+    chain order.  It runs one transition a draw (kernel 1 on the card), so
+    not with ``loop_in_kernel``.  ``block_chains`` has no effect (a CUDA
+    block holds 8 chains).
     """
     num_chains, dim = initial_positions.shape
     device = initial_positions.device
     inverse_mass = torch.as_tensor(inverse_mass, dtype=torch.float32,
                                    device=device)
+    if torch.as_tensor(step_size).numel() > 1:  # a scalar stays as given
+        step_size = torch.as_tensor(step_size, dtype=torch.float32,
+                                    device=device).reshape(num_chains)
     data = tuple(data)
     q0_t = initial_positions.T.to(torch.float32).contiguous()
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
@@ -503,6 +551,12 @@ def sample_fused_small(
             raise ValueError(
                 "loop_in_kernel draws all randomness in the kernel — it "
                 "requires internal_prng=True"
+            )
+        if sort_by_depth:
+            raise ValueError(
+                "loop_in_kernel keeps each block's chains resident in "
+                "VMEM across draws; sort_by_depth is a global cross-"
+                "block permutation between draws — use the scan path"
             )
         seed = derive_draw_seeds(generator, 1)[0]
         pos_t, stats_t, qf_t, _, _ = _fused_sampling_call_t(
@@ -526,8 +580,11 @@ def sample_fused_small(
         randomness = streams or _generator_streams(
             generator, num_chains, dim, max_num_expansions, device
         )
+    depth0 = (torch.zeros(num_chains, dtype=torch.float32, device=device)
+              if sort_by_depth else None)
     return _draw_loop(transition, q0_t, u0, g0_t, inverse_mass, step_size,
-                      num_samples, randomness, collect_positions, cdt)
+                      num_samples, randomness, collect_positions, cdt,
+                      depth=depth0)
 
 
 def _external_randomness(raw, inverse_mass, device):
@@ -545,30 +602,57 @@ def _external_randomness(raw, inverse_mass, device):
     return p.contiguous(), dirs, ub, ul
 
 
+def _depth_sorted(step: Callable, q_t, u, g_t, step_size, depth):
+    """``step(q_t, u, g_t, eps) -> (q_t, u, g_t, stats_t)`` under
+    depth-sorted block scheduling: the chains enter in the stable order of
+    ``depth`` (the previous transition's doublings, ``(C,)``; stable as
+    ``jnp.argsort``, so ties keep chain order), a per-chain ε rides the
+    permutation, and every output returns to chain order.  Only the state
+    moves: row i of the randomness (a Philox stream on the array index, or
+    an external stream's row) serves whichever chain sits in place i, as in
+    the JAX drivers.  ``depth`` None runs ``step`` unsorted."""
+    if depth is None:
+        return step(q_t, u, g_t, step_size)
+    order = torch.argsort(depth, stable=True)
+    inv = torch.argsort(order)
+    eps = step_size
+    if isinstance(eps, torch.Tensor) and eps.ndim > 0:
+        eps = eps[order]
+    out = step(q_t[:, order], u[:, order], g_t[:, order], eps)
+    return tuple(x[:, inv] for x in out)
+
+
 def _draw_loop(transition, q_t, u, g_t, inverse_mass, step_size, num_draws,
                randomness, collect_positions, collect_dtype,
-               final_state=False):
+               final_state=False, depth=None):
     """One transition per draw.  ``randomness`` is a list of Philox keys, or
-    ``streams(t)`` giving each draw's raw external streams.  Returns
-    ``(final (C, dim), positions (draws, C, dim), stats (draws, C, 8))``;
-    with ``final_state`` the first item is the transposed state ``(q_t, u,
-    g_t)``."""
+    ``streams(t)`` giving each draw's raw external streams.  A ``depth``
+    ``(C,)`` sorts the chains by it before the first draw and by each
+    draw's doublings after (:func:`_depth_sorted`).  Returns ``(final (C,
+    dim), positions (draws, C, dim), stats (draws, C, 8))``; with
+    ``final_state`` the first item is the transposed state and the last
+    depth ``(q_t, u, g_t, depth)``."""
     positions, stats = [], []
     for t in range(num_draws):
         if isinstance(randomness, list):
-            q_t, u, g_t, st = transition(q_t, u, g_t, None, None, None, None,
-                                         inverse_mass, step_size,
-                                         seed=randomness[t])
+            def step(q_t, u, g_t, eps, seed=randomness[t]):
+                return transition(q_t, u, g_t, None, None, None, None,
+                                  inverse_mass, eps, seed=seed)
         else:
-            p, dirs, ub, ul = _external_randomness(randomness(t), inverse_mass,
-                                                   q_t.device)
-            q_t, u, g_t, st = transition(q_t, u, g_t, p, dirs, ub, ul,
-                                         inverse_mass, step_size)
+            rand = _external_randomness(randomness(t), inverse_mass,
+                                        q_t.device)
+
+            def step(q_t, u, g_t, eps, rand=rand):
+                return transition(q_t, u, g_t, *rand, inverse_mass, eps)
+        q_t, u, g_t, st = _depth_sorted(step, q_t, u, g_t, step_size, depth)
+        if depth is not None:
+            depth = st[2]
         if collect_positions:
             positions.append(q_t.T.to(collect_dtype))
         stats.append(st.T)
     pos = torch.stack(positions) if collect_positions else None
-    return (q_t, u, g_t) if final_state else q_t.T, pos, torch.stack(stats)
+    final = (q_t, u, g_t, depth) if final_state else q_t.T
+    return final, pos, torch.stack(stats)
 
 
 def _generator_streams(generator, num_chains, dim, max_exp, device):
@@ -662,6 +746,8 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     )
 
     functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    eps_row = _eps_row(step_size, q_t)
+    eps = 0.0 if eps_row is not None else float(step_size)
     ops, dense, mass_sqrt, plan = _cuda_operands(
         q_t, u, g_t, inverse_mass, data, max_exp, functor)
     dim, num_chains = q_t.shape
@@ -684,8 +770,8 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     err = getattr(lib, f"nuts_transition{kind}_launch")(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), float(step_size),
-        float(divergence_threshold), *sizes,
+        *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), eps,
+        _ptr(eps_row), float(divergence_threshold), *sizes,
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
         *plan.args(),
         torch.cuda.current_stream(q_t.device).cuda_stream,
@@ -711,6 +797,8 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
     functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    eps_row = _eps_row(step_size, q_t)
+    eps = 0.0 if eps_row is not None else float(step_size)
     ops, dense, mass_sqrt, plan = _cuda_operands(
         q_t, u0, g0_t, inverse_mass, data, max_exp, functor)
     dim, num_chains = q_t.shape
@@ -727,7 +815,7 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     err = getattr(lib, f"nuts_sampling{kind}_launch")(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
         num_draws, *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense),
-        float(step_size), float(divergence_threshold), *sizes,
+        eps, _ptr(eps_row), float(divergence_threshold), *sizes,
         _ptr(pos), int(collect_dtype == torch.bfloat16), _ptr(stats),
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]),
         *plan.args(),

@@ -69,7 +69,22 @@ logistic regression.  Then it drives the port's front door
   200 launches of ``ghmc_transition``) and resumes it after a kill in
   sampling and in burn-in, bit for bit; phase 27 resumes the fused NUTS
   driver and pooled ChEES on kernel 7 bit for bit and runs MEADS on
-  ``path="pooled"`` (the XLA fold transition) against phase 5's means.
+  ``path="pooled"`` (the XLA fold transition) against phase 5's means;
+- phases 28-33, per-chain ε and the fused drivers' options on it: phase 28
+  holds kernels 1 and 2 at a per-chain ε (0.5x-2x the tuned scalar) against
+  their plain versions (the flagship at 10,240 chains, the funnel at 1,024)
+  and a constant ε vector against the scalar run bit for bit, and times
+  both kernels at the scalar, the constant vector and the per-chain row in
+  one process (the funnel's at 8,192 chains); phase 29 runs the JAX
+  benchmark's ``funnel_fused_adaptive`` cell unsorted and with
+  ``sort_by_depth`` (kernel 1 a warmup step and a draw), held to the JAX
+  gate, with walls, grad-evals/s and lockstep ratios in the order the
+  kernel saw the chains; phase 30 its per-chain, quantile-snapped and
+  riffled ε cells against their JAX gates; phase 31 the flagship front door
+  from ε 0.1 with and without ``search_initial_step_size``; phase 32 the
+  flagship NUTS (kernel 2 at the per-chain ε), MALA and GHMC front doors
+  with per-chain dual averaging snapped to 8 values; phase 33 a sorted
+  funnel run checkpointed, killed and resumed bit for bit.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -85,7 +100,9 @@ chains would idle).
 
 Launch counts are reset just before each front-door run and read just after;
 the ``kernels`` entries of kernels 5 and 6 also carry their MEADS launches
-(phases 26 and 24) and their times at MEADS's state (phase 25).
+(phases 26 and 24) and their times at MEADS's state (phase 25), those of
+kernels 1 and 2 (flagship and funnel) their per-chain ε launches, errors,
+times and bounds (phases 28-33).
 Run from the repository root: ``python3 chip_smoke.py``.  Last, the GHMC
 and ChEES front doors (phases 12 and 14) run again with two more generator
 seeds and are held to the same limits, every run measured first.  It needs one CUDA
@@ -1932,7 +1949,7 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what,
     out = dict(
         accept=float(diag.acceptance_probability.mean()),
         divergent_share=float(diag.is_diverging.float().mean()),
-        step_size=float(res.step_size),
+        step_size=float(torch.as_tensor(res.step_size).float().mean()),
         max_rhat=float(rhat.max()),
         max_rhat_excess=float(excess.max()),
         tau_max=float(tau.max()), tau_median=float(tau.median()),
@@ -2749,6 +2766,678 @@ def checkpoint_phases(torch, ops, diagnostics, data, pot, pg, q0, record,
                              pooled_meads_max_z_vs_nuts=z)
 
 
+# phases 28-33: per-chain ε in kernels 1 and 2, and the options of the fused
+# drivers that ride on it.  Phase 28 holds both kernels at a per-chain ε
+# against their plain versions (the flagship at 10,240 chains; the funnel at
+# 1,024, where the plain transition is affordable, timed at 8,192) and a
+# constant ε vector against the scalar run bit for bit.  Phases 29-30 run
+# the JAX benchmark's funnel cells (benchmarks/run.py:783-815
+# funnel_fused_adaptive, unsorted and sorted; :1986
+# funnel_fused_per_chain_eps; :2054 funnel_fused_quantile_eps; :1920
+# funnel_fused_riffled: 8,192 chains, 300 + 200, K 10, target 0.85,
+# sort_by_depth) against their JAX gates (tests/test_nuts_fused_tpu.py:
+# 151-186, :397, :428, :245); phase 31 the flagship front door from ε 0.1
+# with and without the initial-ε search; phase 32 the flagship NUTS, MALA
+# and GHMC front doors with per-chain dual averaging snapped to 8 values
+# (150 + 600 draws for MALA and GHMC, as mala_10k_fused); phase 33 a sorted
+# funnel run checkpointed and resumed (the JAX gate at :358: 256 chains,
+# 50 + 40, K 8, a snapshot every 10).
+PC_SPREAD = (0.5, 2.0)        # phase 28: per-chain ε over the tuned scalar
+PC_DRAWS = 5                  # phase 28: kernel 2 against the scalar run
+PC_TIMED_DRAWS = 20           # phase 28: kernel 2's timed run (flagship)
+PC_FUNNEL_CHECK = 1024        # phase 28: funnel chains held against plain
+PC_FUNNEL_EPS = 0.05          # phase 28: the funnel's timed ε, near tuned
+NECK_V, NECK_P_LOW, EPS_SPREAD = -4.5, 0.02, 3.0
+QUANTILES, NECK_P_POOLED = 8, 0.0229 * 0.5
+DIV_RATIO, DIV_FLOOR = 1.5, 50
+RIFFLE = (0.25, 0.5, 1.0, 2.0)
+PC_ONE_STEP_ACCEPT_MIN = 0.7  # phase 32: phase 11's lower limit
+SEARCH_EPS0 = 0.1
+CKPT_CHAINS, CKPT_WARMUP, CKPT_DRAWS, CKPT_K, CKPT_EVERY = 256, 50, 40, 8, 10
+
+
+def ab_ms(torch, fns, reps):
+    """CUDA-event milliseconds a call of each of ``fns``, measured in the
+    order A B C, then C B A, in one process and averaged, so that a drift of
+    the card's clock over the measurement weighs on each alike."""
+    out = [0.0] * len(fns)
+    for order in (list(range(len(fns))), list(reversed(range(len(fns))))):
+        for i in order:
+            out[i] += cuda_ms(torch, fns[i], reps) / 2
+    return out
+
+
+def lockstep_seen(torch, doublings, leaves, sorted_):
+    """Lockstep ratios (:func:`lockstep`) over every draw of a run
+    (``doublings``, ``leaves``: (draws, chains)) in the order the kernel saw
+    the chains: chain order, or under ``sort_by_depth`` the stable order of
+    the previous draw's doublings (all 0 before the first draw)."""
+    if sorted_:
+        depth = torch.cat([torch.zeros_like(doublings[:1]), doublings[:-1]])
+        leaves = torch.gather(leaves, 1,
+                              torch.argsort(depth, dim=1, stable=True))
+    draws, chains = leaves.shape
+    out = {}
+    for g in LOCKSTEP_GROUPS:
+        x = leaves[:, : chains // g * g].reshape(draws, -1, g).double()
+        out[g] = float(x.max(dim=2).values.sum() * g / x.sum())
+    return out
+
+
+def lockstep_rows(torch, rows):
+    """Lockstep ratios over a list of (chains,) leaf rows, each in the order
+    its kernel launch saw the chains."""
+    leaves = torch.stack(rows)
+    return lockstep_seen(torch, torch.zeros_like(leaves), leaves, False)
+
+
+def per_chain_kernel_checks(torch, nfs, name, model, q_t, imm, eps_row, k,
+                            seed):
+    """:func:`hier_kernel_checks` at the per-chain ``eps_row`` (kernel 1
+    against the plain transition, kernel 2 against per-draw launches of
+    kernel 1 and each draw against plain), then both kernels at a constant
+    ε vector equal to the scalar run bit for bit."""
+    _, pg, data, _ = model
+    out = hier_kernel_checks(torch, nfs, f"{name}, per-chain ε", model, q_t,
+                             imm, eps_row, k, seed)
+    state = (q_t, *pg(q_t, *data))
+    scalar = float(eps_row.median())
+    const = torch.full_like(eps_row, scalar)
+    for what, run in (
+            ("kernel 1", lambda e: nfs.nuts_transition_cuda(
+                *state, imm, e, data, max_exp=k, seed=seed,
+                potential_and_grad_t=pg)),
+            ("kernel 2", lambda e: nfs.nuts_sampling_cuda(
+                *state, imm, e, data, seed, PC_DRAWS, max_exp=k,
+                potential_and_grad_t=pg))):
+        check(all(torch.equal(a, b) for a, b in zip(run(scalar), run(const))),
+              f"{what} ({name}) at a constant ε vector differs from the "
+              f"scalar run")
+    return out
+
+
+def per_chain_times(torch, nfs, state, imm, eps_row, data, pg, k, draws,
+                    per_leaf, peak):
+    """Kernel 1 (Philox) and kernel 2 (``draws`` draws) at the scalar ε (the
+    row's median), at that value as a constant vector (the same work and
+    bits as the scalar run: what reading the row costs) and at the per-chain
+    row, by CUDA events in one process; the per-chain runs' bounds."""
+    scalar = float(eps_row.median())
+    const = torch.full_like(eps_row, scalar)
+
+    def k1(e):
+        return lambda: nfs.nuts_transition_cuda(
+            *state, imm, e, data, max_exp=k, seed=31, potential_and_grad_t=pg)
+
+    def k2(e):
+        return lambda: nfs.nuts_sampling_cuda(
+            *state, imm, e, data, 37, draws, max_exp=k,
+            potential_and_grad_t=pg)
+
+    t1 = ab_ms(torch, [k1(scalar), k1(const), k1(eps_row)], 5)
+    t2 = ab_ms(torch, [k2(scalar), k2(const), k2(eps_row)], 2)
+    o1, o2 = k1(eps_row)(), k2(eps_row)()
+    b1 = bound(float(o1[3][3].sum()) * per_leaf,
+               nbytes(*state, imm, eps_row, *o1), peak)
+    b2 = bound(float(o2[1][:, 3].sum()) * per_leaf,
+               nbytes(*state, imm, eps_row, *o2), peak)
+    return dict(k1_scalar_ms=t1[0], k1_const_ms=t1[1], k1_per_chain_ms=t1[2],
+                k2_scalar_ms=t2[0], k2_const_ms=t2[1], k2_per_chain_ms=t2[2],
+                k1_bound_ms=b1[0], k1_bound_by=b1[1], k2_bound_ms=b2[0],
+                k2_bound_by=b2[1], k2_draws=draws, scalar_eps=scalar)
+
+
+def per_chain_row(torch, scalar, chains, seed):
+    """A per-chain ε row: ``scalar`` times a log-uniform factor in
+    PC_SPREAD."""
+    lo, hi = np.log(PC_SPREAD[0]), np.log(PC_SPREAD[1])
+    f = np.exp(np.random.default_rng(seed).uniform(lo, hi, size=chains))
+    return torch.tensor(scalar * f, dtype=torch.float32, device=DEVICE)
+
+
+def per_chain_kernel_phase(torch, nfs, data, pg, q0, tuned, record, card):
+    """Phase 28: kernels 1 and 2 at a per-chain ε, the flagship at phase
+    5's tuned ε and M⁻¹ and Neal's funnel; returns the measurements the
+    ``kernels`` entries carry."""
+    from aehmc_tpu_torch.models import neals_funnel_pg_t
+
+    eps5, imm5 = tuned
+    q_t = q0.T.contiguous()
+    state = (q_t, *pg(q_t, *data))
+    eps_row = per_chain_row(torch, eps5, CHAINS, 2800)
+    flag = per_chain_kernel_checks(torch, nfs, "flagship",
+                                   (None, pg, data, None), q_t, imm5, eps_row,
+                                   K, 2801)
+    times = per_chain_times(torch, nfs, state, imm5, eps_row, data, pg, K,
+                            PC_TIMED_DRAWS, GRAD_FLOP, PEAK_TF32X3)
+    plain_ms = cuda_ms(torch, lambda: nfs.nuts_transition_plain(
+        *state, imm5, eps_row, lambda x: pg(x, *data), max_exp=K, seed=31), 1)
+
+    model = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
+    _, fpg, fdata, _ = model
+    ones = torch.ones(FUNNEL_DIM, device=DEVICE)
+    funnel = per_chain_kernel_checks(
+        torch, nfs, "funnel", model,
+        hier_start(torch, FUNNEL_DIM, PC_FUNNEL_CHECK, 2802), ones,
+        per_chain_row(torch, HIER_EPS, PC_FUNNEL_CHECK, 2803), HIER_CHECK_K,
+        2804)
+    q_f = hier_start(torch, FUNNEL_DIM, FUNNEL_CHAINS, 2805)
+    ftimes = per_chain_times(
+        torch, nfs, (q_f, *fpg(q_f, *fdata)), ones,
+        per_chain_row(torch, PC_FUNNEL_EPS, FUNNEL_CHAINS, 2806), fdata, fpg,
+        HIER_K, HIER_DRAWS, HIER_PG_FLOP["funnel"](FUNNEL_DIM)
+        + 10 * FUNNEL_DIM, PEAK_F32)
+
+    def fmt(t):
+        return (f"kernel 1 {t['k1_scalar_ms']:.4f} ms at the scalar ε, "
+                f"{t['k1_const_ms']:.4f} at it as a vector, "
+                f"{t['k1_per_chain_ms']:.4f} per chain (bound "
+                f"{t['k1_bound_ms']:.4f}, {t['k1_bound_by']}); kernel 2 per "
+                f"{t['k2_draws']} draws {t['k2_scalar_ms']:.3f}, "
+                f"{t['k2_const_ms']:.3f}, {t['k2_per_chain_ms']:.3f} (bound "
+                f"{t['k2_bound_ms']:.4f}, {t['k2_bound_by']})")
+
+    log(f"phase 28: kernels 1 and 2 at a per-chain ε ({PC_SPREAD[0]}x to "
+        f"{PC_SPREAD[1]}x the scalar) vs plain: flagship {CHAINS}x{DIM} at "
+        f"phase 5's tuned eps {eps5:.4f} and M⁻¹, K {K}: decisions equal on "
+        f">= {flag[0]:.4%} ({flag[2]} chain-cases differ), max |q| err "
+        f"{flag[1]:.3g}; funnel {PC_FUNNEL_CHECK} chains at eps "
+        f"{HIER_EPS} x spread, K {HIER_CHECK_K}: >= {funnel[0]:.4%} "
+        f"({funnel[2]} differ), max |q| err {funnel[1]:.3g}; kernel 2 == "
+        f"per-draw kernel 1 bit for bit, a constant ε vector == the scalar "
+        f"run bit for bit (both kernels, both functors); flagship: "
+        f"{fmt(times)}, plain kernel 1 {plain_ms:.2f} ms; funnel "
+        f"{FUNNEL_CHAINS} chains at eps {PC_FUNNEL_EPS} x spread, K "
+        f"{HIER_K}: {fmt(ftimes)} [{card}]")
+    record["phase28"] = dict(
+        share=flag[0], max_abs_err=flag[1], differ=flag[2],
+        funnel_share=funnel[0], funnel_max_abs_err=funnel[1],
+        funnel_differ=funnel[2], plain_ms1=plain_ms, **times,
+        **{"funnel_" + k: v for k, v in ftimes.items()})
+    return dict(flagship=(flag, times, plain_ms), funnel=(funnel, ftimes))
+
+
+def funnel_q0(torch, chains, seed):
+    return torch.tensor(0.1 * np.random.default_rng(seed).standard_normal(
+        (chains, FUNNEL_DIM)), dtype=torch.float32, device=DEVICE)
+
+
+def funnel_front_door(torch, ops, model, q0, seed, want, what, **options):
+    """The fused NUTS front door on the funnel at its cell (HIER_K, target
+    HIER_TARGET), launches counted from 0 and held to ``want``.  Returns
+    (result, wall, launches)."""
+    import aehmc_tpu_torch
+
+    pot, pg, data, _ = model
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = aehmc_tpu_torch.sample(
+        torch.Generator().manual_seed(seed), None, q0, FUNNEL_DRAWS,
+        FUNNEL_WARMUP, algorithm="nuts", path="fused", data=data,
+        potential_fn_t=pot, potential_and_grad_t=pg,
+        max_num_expansions=HIER_K, target_acceptance_rate=HIER_TARGET,
+        **options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    return res, wall, launches
+
+
+def neck(v, chains=None):
+    """P(v < NECK_V) over draws FUNNEL_BURN onward, over ``chains`` (a mask)
+    or all."""
+    v = v[FUNNEL_BURN:]
+    if chains is not None:
+        v = v[:, chains]
+    return float((v < NECK_V).float().mean())
+
+
+def sorted_funnel_phase(torch, ops, diagnostics, record, card):
+    """Phase 29: funnel_fused_adaptive unsorted and sorted through the front
+    door (the sorted run twice with one seed, equal bit for bit), the JAX
+    gate on both, then warmup and sampling timed apart (kernel 1 a step,
+    then kernel 2 in one launch, or kernel 1 a draw when sorted), with the
+    lockstep ratios in the order the kernel saw the chains."""
+    from aehmc_tpu_torch.models import neals_funnel_pg_t
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import warmup_fused
+
+    model = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
+    pot, pg, data, _ = model
+    q0 = funnel_q0(torch, FUNNEL_CHAINS, 2900)
+    u0, g0 = pg(q0.T.contiguous(), *data)
+    transition = nfs.make_fused_nuts_transition_small(
+        pot, data, max_num_expansions=HIER_K, potential_and_grad_t=pg,
+        transposed_io=True)
+    runs = {}
+    for sort in (False, True):
+        name = "sorted" if sort else "unsorted"
+        want = ({"nuts_transition_funnel": FUNNEL_WARMUP + FUNNEL_DRAWS}
+                if sort else {"nuts_transition_funnel": FUNNEL_WARMUP,
+                              "nuts_sampling_funnel": 1})
+        res, wall, launches = funnel_front_door(
+            torch, ops, model, q0, 2901, want, f"funnel {name}",
+            sort_by_depth=sort)
+        diag = res.diagnostics
+        v = res.positions[:, :, 0].float()
+        vb = v[FUNNEL_BURN:]
+        out = dict(wall_s=wall, launches=launches,
+                   accept=float(diag.acceptance_probability.mean()),
+                   divergences=int(diag.is_diverging.sum()),
+                   step_size=float(res.step_size),
+                   v_mean=float(vb.mean()), v_sd=float(vb.std(correction=0)),
+                   neck_p=neck(v),
+                   mean_leaves=float(diag.num_integration_steps.float()
+                                     .mean()),
+                   lockstep_front_door=lockstep_seen(
+                       torch, diag.num_doublings.float(),
+                       diag.num_integration_steps.float(), sort))
+        check(out["accept"] > FUNNEL_ACCEPT,
+              f"funnel {name} mean acceptance {out['accept']}")
+        check(abs(out["v_mean"]) < FUNNEL_V_MEAN,
+              f"funnel {name} mean of v {out['v_mean']}")
+        check(abs(out["v_sd"] - 3.0) < FUNNEL_V_SD,
+              f"funnel {name} sd of v {out['v_sd']}")
+        check(bool(torch.isfinite(res.positions).all()),
+              f"funnel {name}: non-finite draws")
+        if sort:
+            again, wall_b, _ = funnel_front_door(
+                torch, ops, model, q0, 2901, want, "funnel sorted again",
+                sort_by_depth=True)
+            same_bits(res, again, "the sorted funnel run with one seed")
+            out["wall_s_again"] = wall_b
+            del again
+        del res, v, vb
+        seen = []
+
+        def recording(*args, **kwargs):
+            o = transition(*args, **kwargs)
+            seen.append(o[3][3])
+            return o
+
+        t_warm, ((qw, _, _), eps_w, imm_w) = timed(
+            torch, lambda r: warmup_fused(
+                torch.Generator().manual_seed(2902), recording, q0,
+                u0.T.contiguous(), g0.T.contiguous(), FUNNEL_WARMUP,
+                max_num_expansions=HIER_K, target_acceptance_rate=HIER_TARGET,
+                sort_by_depth=sort), 1)
+        warm_leaves = float(torch.stack(seen).sum())
+        out["lockstep_warmup"] = lockstep_rows(torch, seen)
+        def sampling(eps):
+            return lambda r: nfs.sample_fused_small(
+                torch.Generator().manual_seed(2903), pot, data, qw,
+                FUNNEL_DRAWS, eps, imm_w, max_num_expansions=HIER_K,
+                potential_and_grad_t=pg, loop_in_kernel=not sort,
+                sort_by_depth=sort, collect_positions=False)
+
+        t_samp, (qf, _, stats_s) = timed(torch, sampling(eps_w), 1)
+        samp_leaves = float(stats_s[:, :, 3].sum())
+        if sort:
+            # the same draws with ε a host float: no wait for the card a
+            # draw (a 0-d tensor on the card is read back at each launch)
+            t_float, (qf_b, _, _) = timed(torch, sampling(float(eps_w)), 1)
+            check(torch.equal(qf_b, qf), "the sorted run with a host-float "
+                  "ε made other draws")
+            # kernel 1 alone at the run's last state, in the order of the
+            # last draw's doublings and in chain order
+            q_l = qf.T.contiguous()
+            u_l, g_l = pg(q_l, *data)
+            order = torch.argsort(stats_s[-1, :, 2], stable=True)
+
+            def k1(idx):
+                state = tuple(x[:, idx].contiguous() for x in (q_l, u_l, g_l))
+                return lambda: transition(*state, None, None, None, None,
+                                          imm_w, float(eps_w), seed=29)
+
+            k1_sorted, k1_chain = ab_ms(
+                torch, [k1(order), k1(torch.arange(FUNNEL_CHAINS,
+                                                   device=DEVICE))], 10)
+            out.update(sampling_wall_s_float_eps=t_float,
+                       k1_sorted_order_ms=k1_sorted,
+                       k1_chain_order_ms=k1_chain)
+        out.update(warmup_wall_s=t_warm, sampling_wall_s=t_samp,
+                   warmup_leaves=warm_leaves, sampling_leaves=samp_leaves,
+                   grad_evals_per_s=samp_leaves / t_samp,
+                   e2e_grad_evals_per_s=(warm_leaves + samp_leaves)
+                   / (t_warm + t_samp),
+                   lockstep_sampling=lockstep_seen(
+                       torch, stats_s[:, :, 2], stats_s[:, :, 3], sort))
+        runs[name] = out
+        del seen, stats_s
+
+    def fmt(name):
+        r = runs[name]
+        ls = ", ".join(f"{g}: {x:.3f}"
+                       for g, x in r["lockstep_sampling"].items())
+        lw = ", ".join(f"{g}: {x:.3f}" for g, x in r["lockstep_warmup"].items())
+        return (f"{name}: front door {r['wall_s']:.2f} s, launches "
+                f"{r['launches']}, accept {r['accept']:.4f}, "
+                f"{r['divergences']} divergences, eps {r['step_size']:.4f}, "
+                f"v mean {r['v_mean']:.3f} sd {r['v_sd']:.3f}, P(v < "
+                f"{NECK_V}) {r['neck_p']:.4f}; timed warmup "
+                f"{r['warmup_wall_s']:.3f} s, sampling "
+                f"{r['sampling_wall_s']:.3f} s, "
+                f"{r['grad_evals_per_s'] / 1e6:.2f}M grad-evals/s sampling, "
+                f"{r['e2e_grad_evals_per_s'] / 1e6:.2f}M end to end; "
+                f"lockstep in the kernel's order, warmup {lw}; sampling {ls}")
+
+    srt, uns = runs["sorted"], runs["unsorted"]
+    log(f"phase 29: funnel_fused_adaptive ({FUNNEL_CHAINS} chains, "
+        f"{FUNNEL_WARMUP} + {FUNNEL_DRAWS}, K {HIER_K}) " + fmt("unsorted")
+        + " | " + fmt("sorted")
+        + f" (again {srt['wall_s_again']:.2f} s, equal bit for bit); sorted "
+        f"per-draw sampling / unsorted whole-run sampling wall: "
+        f"{srt['sampling_wall_s'] / uns['sampling_wall_s']:.3f}, with ε a "
+        f"host float {srt['sampling_wall_s_float_eps']:.3f} s "
+        f"({srt['sampling_wall_s_float_eps'] / uns['sampling_wall_s']:.3f}); "
+        f"kernel 1 at the sorted run's last state "
+        f"{srt['k1_sorted_order_ms']:.3f} ms in sorted order, "
+        f"{srt['k1_chain_order_ms']:.3f} ms in chain order [{card}]")
+    record["phase29"] = runs
+    return runs
+
+
+def funnel_eps_phase(torch, ops, record, card):
+    """Phase 30: the per-chain, quantile-snapped and riffled ε cells on the
+    funnel, sorted, each held to its JAX gate.  Returns the cells'
+    launches."""
+    from aehmc_tpu_torch.models import neals_funnel_pg_t
+
+    model = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
+    q0 = funnel_q0(torch, FUNNEL_CHAINS, 2900)
+    want = {"nuts_transition_funnel": FUNNEL_WARMUP + FUNNEL_DRAWS}
+    factors = torch.tensor(np.tile(RIFFLE, FUNNEL_CHAINS // len(RIFFLE)),
+                           dtype=torch.float32, device=DEVICE)
+    cells = (
+        ("per_chain_eps", dict(per_chain_step_size=True)),
+        ("quantile_eps", dict(per_chain_step_size=True,
+                              per_chain_quantiles=QUANTILES)),
+        ("riffled", dict(step_size_factors=factors)),
+    )
+    out = {}
+    for name, options in cells:
+        res, wall, launches = funnel_front_door(
+            torch, ops, model, q0, 3001, want, f"funnel {name}",
+            sort_by_depth=True, **options)
+        diag = res.diagnostics
+        v = res.positions[:, :, 0].float()
+        eps = res.step_size
+        if name == "riffled":
+            low = factors == RIFFLE[0]
+        else:
+            low = eps <= torch.quantile(eps, 0.25)
+        accept = diag.acceptance_probability
+        out[name] = dict(
+            wall_s=wall, launches=launches,
+            accept=float(accept.mean()),
+            divergences=int(diag.is_diverging.sum()),
+            eps_min=float(eps.min()), eps_median=float(eps.median()),
+            eps_max=float(eps.max()), distinct_eps=int(eps.unique().numel()),
+            neck_p=neck(v), neck_p_low=neck(v, low),
+            accept_low=float(accept[:, low].mean()),
+            accept_rest=float(accept[:, ~low].mean()),
+            finite=bool(torch.isfinite(res.positions).all()))
+        check(out[name]["finite"], f"funnel {name}: non-finite draws")
+        check(out[name]["neck_p_low"] > NECK_P_LOW,
+              f"funnel {name}: low-ε chains' P(v < {NECK_V}) "
+              f"{out[name]['neck_p_low']}")
+        del res, v, diag, accept
+    pc, qe, rf = out["per_chain_eps"], out["quantile_eps"], out["riffled"]
+    check(pc["eps_max"] / pc["eps_min"] > EPS_SPREAD,
+          f"per-chain ε spread {pc['eps_max'] / pc['eps_min']}")
+    check(qe["distinct_eps"] <= QUANTILES,
+          f"{qe['distinct_eps']} distinct snapped ε")
+    check(qe["neck_p"] > NECK_P_POOLED, f"quantile ε P(v < {NECK_V}) "
+          f"{qe['neck_p']}")
+    check(qe["divergences"] <= max(DIV_RATIO * pc["divergences"], DIV_FLOOR),
+          f"quantile ε divergences {qe['divergences']}, continuous "
+          f"{pc['divergences']}")
+    check(rf["accept_low"] > rf["accept_rest"],
+          f"riffled: factor {RIFFLE[0]} acceptance {rf['accept_low']} not "
+          f"above the rest's {rf['accept_rest']}")
+
+    def fmt(name, r):
+        return (f"{name}: {r['wall_s']:.2f} s, accept {r['accept']:.4f} (low "
+                f"{r['accept_low']:.4f}, rest {r['accept_rest']:.4f}), "
+                f"{r['divergences']} divergences, eps [{r['eps_min']:.4f}, "
+                f"{r['eps_median']:.4f}, {r['eps_max']:.4f}] "
+                f"({r['distinct_eps']} distinct), P(v < {NECK_V}) "
+                f"{r['neck_p']:.4f}, low {r['neck_p_low']:.4f}")
+
+    log(f"phase 30: funnel cells, sorted, {FUNNEL_CHAINS} chains, "
+        f"{FUNNEL_WARMUP} + {FUNNEL_DRAWS}, K {HIER_K} (truth P(v < "
+        f"{NECK_V}) = 0.0668; launches {want} each): "
+        + "; ".join(fmt(n, r) for n, r in out.items()) + f" [{card}]")
+    record["phase30"] = out
+    return out
+
+
+def search_phase(torch, ops, diagnostics, data, pot, pg, q0, record,
+                 nuts_mean, card):
+    """Phase 31: the flagship front door from ε SEARCH_EPS0 with the
+    initial-ε search off and on, each held to phase 5's limits; the found ε
+    and its probe count (the search alone, on the front door's generator
+    seed: it draws first), and each warmup timed alone with its mean
+    leaves."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.fused_driver import (
+        _generator_normals,
+        _probe_value_and_grad,
+        find_reasonable_step_size_fused,
+        warmup_fused,
+    )
+
+    probe = _probe_value_and_grad(data, potential_and_grad_t=pg)
+    transition = nfs.make_fused_nuts_transition_small(
+        pot, data, max_num_expansions=K, potential_and_grad_t=pg,
+        transposed_io=True)
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    out = {}
+    for search in (False, True):
+        name = "search" if search else "no search"
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(3100), None, q0, DRAWS, WARMUP,
+            algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, max_num_expansions=K,
+            initial_step_size=SEARCH_EPS0, search_initial_step_size=search,
+            collect_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(launches == {"nuts_transition": WARMUP, "nuts_sampling": 1},
+              f"flagship {name} launches {launches}")
+        diag = res.diagnostics
+        lim = nuts_limits(torch, diagnostics, res.positions,
+                          diag.acceptance_probability, diag.is_diverging,
+                          res.step_size, nuts_mean, f"flagship, {name}")
+        del res, diag
+        seen = []
+
+        def recording(*args, **kwargs):
+            o = transition(*args, **kwargs)
+            seen.append(o[3][3])
+            return o
+
+        t_warm, _ = timed(torch, lambda r: warmup_fused(
+            torch.Generator().manual_seed(3100), recording, q0,
+            u0.T.contiguous(), g0.T.contiguous(), WARMUP,
+            max_num_expansions=K, initial_step_size=SEARCH_EPS0,
+            search_initial_step_size=search, probe_value_and_grad=probe), 1)
+        out[name] = dict(wall_s=wall, launches=launches, **lim,
+                         warmup_wall_s=t_warm,
+                         warmup_mean_leaves=float(torch.stack(seen).mean()),
+                         first_steps_mean_leaves=float(
+                             torch.stack(seen[:10]).mean()))
+        del seen
+    probes = []
+    noise = _generator_normals(torch.Generator().manual_seed(3100),
+                               (CHAINS, DIM), q0.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = find_reasonable_step_size_fused(
+        lambda i: probes.append(i) or noise(i), probe, q0,
+        torch.ones(DIM, device=q0.device), initial_step_size=SEARCH_EPS0,
+        target_accept=0.8)
+    found = float(found)
+    search_s = time.perf_counter() - t0
+    out["search"].update(found_eps=found, probes=len(probes),
+                         search_wall_s=search_s)
+    a, b = out["no search"], out["search"]
+    log(f"phase 31: flagship front door from eps {SEARCH_EPS0}, {WARMUP} + "
+        f"{DRAWS}, K {K}: the search finds eps {found:.4f} in {len(probes)} "
+        f"probes ({search_s:.3f} s); warmup {a['warmup_wall_s']:.3f} s -> "
+        f"{b['warmup_wall_s']:.3f} s, mean warmup leaves "
+        f"{a['warmup_mean_leaves']:.2f} -> {b['warmup_mean_leaves']:.2f} "
+        f"(first 10 steps {a['first_steps_mean_leaves']:.2f} -> "
+        f"{b['first_steps_mean_leaves']:.2f}); front door "
+        f"{a['wall_s']:.2f} -> {b['wall_s']:.2f} s; accept "
+        f"{a['accept']:.4f}, {b['accept']:.4f}; max R-hat "
+        f"{a['max_rhat']:.4f}, {b['max_rhat']:.4f}; means within "
+        f"{a['max_z_vs_nuts']:.2f}, {b['max_z_vs_nuts']:.2f} MCSE of phase "
+        f"5's [{card}]")
+    record["phase31"] = out
+
+
+def per_chain_front_doors(torch, ops, diagnostics, data, pot, pg, q0, record,
+                          nuts_mean, card):
+    """Phase 32: the flagship NUTS (kernel 1 a warmup step, then kernel 2,
+    both at the per-chain ε), MALA and GHMC front doors with per-chain dual
+    averaging snapped to QUANTILES values, MALA and GHMC also continuous
+    (no snap).  NUTS is held to phase 5's limits; MALA and GHMC to phase
+    11's, their acceptance from below only (above PC_ONE_STEP_ACCEPT_MIN
+    continuous, at least the continuous run's snapped: the snap takes each
+    chain to its bucket's least ε).  Returns the NUTS run's launches."""
+    import aehmc_tpu_torch
+
+    common = dict(path="fused", data=data, potential_fn_t=pot,
+                  potential_and_grad_t=pg, initial_step_size=0.1,
+                  per_chain_step_size=True)
+    out = {}
+    segments = -(-MALA_DRAWS // SEGMENT)
+    for algorithm, draws, want, extra in (
+            ("nuts", DRAWS, {"nuts_transition": WARMUP, "nuts_sampling": 1},
+             dict(max_num_expansions=K, collect_dtype=torch.bfloat16)),
+            ("mala", MALA_DRAWS, {"ghmc_transition": WARMUP,
+                                  "ghmc_segment": segments},
+             dict(segment_draws=SEGMENT)),
+            ("ghmc", MALA_DRAWS, {"ghmc_transition": WARMUP,
+                                  "ghmc_segment": segments},
+             dict(segment_draws=SEGMENT, ghmc_alpha=GHMC_ALPHA))):
+        # MALA and GHMC run continuous too, and their acceptance is held
+        # from below only: a chain's dual averaging sees one noisy
+        # one-step acceptance a step, unpooled, so its averaged log ε
+        # lands where the acceptance is above the 0.8 target (0.928
+        # continuous, 0.934 snapped in a development call); the snapped
+        # run, whose bucket minima lower every chain's ε, at least the
+        # continuous run's
+        for snap in ((0, QUANTILES) if algorithm != "nuts" else (QUANTILES,)):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = aehmc_tpu_torch.sample(
+                torch.Generator().manual_seed(3200), None, q0, draws, WARMUP,
+                algorithm=algorithm, per_chain_quantiles=snap, **common,
+                **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            name = algorithm if snap else f"{algorithm} continuous"
+            what = f"per-chain {name}"
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            check(launches == want, f"{what} launches {launches}")
+            eps = res.step_size
+            check(eps.shape == (CHAINS,)
+                  and eps.unique().numel() <= (snap or CHAINS),
+                  f"{what}: ε of shape {tuple(eps.shape)} with "
+                  f"{eps.unique().numel()} values")
+            if algorithm == "nuts":
+                diag = res.diagnostics
+                lim = nuts_limits(torch, diagnostics, res.positions,
+                                  diag.acceptance_probability,
+                                  diag.is_diverging, eps.median(), nuts_mean,
+                                  what)
+            else:
+                base = (out[f"{algorithm} continuous"]["accept"] if snap
+                        else PC_ONE_STEP_ACCEPT_MIN)
+                lim = front_door_checks(torch, diagnostics, res, nuts_mean,
+                                        what, accept_range=(base, 1.0))
+            out[name] = dict(wall_s=wall, launches=launches, **lim,
+                             eps_min=float(eps.min()),
+                             eps_median=float(eps.median()),
+                             eps_max=float(eps.max()),
+                             distinct_eps=int(eps.unique().numel()))
+            del res
+    log("phase 32: flagship front doors with per-chain dual averaging "
+        f"snapped to {QUANTILES} values: " + "; ".join(
+            f"{a}: {r['wall_s']:.2f} s, launches {r['launches']}, eps "
+            f"[{r['eps_min']:.4f}, {r['eps_median']:.4f}, "
+            f"{r['eps_max']:.4f}] ({r['distinct_eps']} values), accept "
+            f"{r['accept']:.4f}, max R-hat {r['max_rhat']:.4f}, means within "
+            f"{r['max_z_vs_nuts']:.2f} MCSE of NUTS" for a, r in out.items())
+        + f" [{card}]")
+    record["phase32"] = out
+    return out["nuts"]["launches"]
+
+
+def sorted_checkpoint_phase(torch, ops, record, card):
+    """Phase 33: a sorted funnel run with per-chain dual averaging,
+    checkpointed every CKPT_EVERY steps, killed in sampling and in warmup
+    and resumed, equal to the uninterrupted run bit for bit, which equals
+    the unsegmented run."""
+    import tempfile
+
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import neals_funnel_pg_t
+
+    pot, pg, data, _ = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
+    qs = funnel_q0(torch, CKPT_CHAINS, 3300)
+    kw = dict(algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
+              potential_and_grad_t=pg, max_num_expansions=CKPT_K,
+              sort_by_depth=True, per_chain_step_size=True)
+
+    def run(**extra):
+        return aehmc_tpu_torch.sample(torch.Generator().manual_seed(3301),
+                                      None, qs, CKPT_DRAWS, CKPT_WARMUP,
+                                      **kw, **extra)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = dict(checkpoint_every=CKPT_EVERY)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = run(checkpoint_path=f"{tmp}/f.npz", **ck)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(launches == {"nuts_transition_funnel": CKPT_WARMUP
+                           + CKPT_DRAWS},
+              f"sorted checkpointed launches {launches}")
+        check(run(checkpoint_path=f"{tmp}/s.npz", _crash_after_segments=2,
+                  **ck) is None, "the killed sorted run returned")
+        same_bits(full, run(checkpoint_path=f"{tmp}/s.npz", resume=True,
+                            **ck), "the sorted run resumed in sampling")
+        check(run(checkpoint_path=f"{tmp}/w.npz",
+                  _crash_after_warmup_segments=2, **ck) is None,
+              "the sorted run killed in warmup returned")
+        same_bits(full, run(checkpoint_path=f"{tmp}/w.npz", resume=True,
+                            **ck), "the sorted run resumed in warmup")
+    same_bits(full, run(), "the checkpointed sorted run against the "
+              "unsegmented one")
+    log(f"phase 33: sorted funnel run, per-chain ε, {CKPT_CHAINS} chains, "
+        f"{CKPT_WARMUP} + {CKPT_DRAWS}, K {CKPT_K}, a snapshot every "
+        f"{CKPT_EVERY}: {wall:.2f} s, launches {launches}; resumed after a "
+        f"kill in sampling and in warmup, each equal to the uninterrupted "
+        f"run bit for bit, which equals the unsegmented run [{card}]")
+    record["phase33"] = dict(wall_s=wall, launches=launches)
+    return launches
+
+
 def main():
     import torch
 
@@ -3008,6 +3697,7 @@ def main():
                             divergent_share=div_share, step_size=eps,
                             max_rhat=rhat)
     nuts_mean = mean_mcse(torch, diagnostics, draws)  # phases 11-12 reference
+    tuned5 = (eps, res.inverse_mass_matrix)  # phase 28's state
     del res, draws
 
     # ---- phase 6: 1,024 chains through the kernels and the plain versions
@@ -3126,6 +3816,17 @@ def main():
                      meads_ms=meads_k["ms" + n],
                      meads_max_abs_err=meads_k["err" + n],
                      meads_bound_ms=meads_k["bound" + n])
+    # phases 28-33: per-chain ε in kernels 1 and 2 and the driver options
+    # on it; the entries of kernels 1 and 2 carry its measurements
+    per_chain = per_chain_kernel_phase(torch, nfs, data, pg, q0, tuned5,
+                                       record, card)
+    sorted_runs = sorted_funnel_phase(torch, ops, diagnostics, record, card)
+    cells = funnel_eps_phase(torch, ops, record, card)
+    search_phase(torch, ops, diagnostics, data, pot, pg, q0, record,
+                 nuts_mean, card)
+    pc_launches = per_chain_front_doors(torch, ops, diagnostics, data, pot,
+                                        pg, q0, record, nuts_mean, card)
+    ckpt_launches = sorted_checkpoint_phase(torch, ops, record, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -3141,6 +3842,35 @@ def main():
         chees_entry,
         *ghmc[2:],
     ]
+    for entry, n, launches_pc in (
+            (kernels[0], "1", pc_launches["nuts_transition"]),
+            (kernels[1], "2", pc_launches["nuts_sampling"])):
+        (_, err, _), t, plain_ms = per_chain["flagship"]
+        entry.update(per_chain_launches=launches_pc,
+                     per_chain_max_abs_err=err,
+                     per_chain_ms=t[f"k{n}_per_chain_ms"],
+                     per_chain_const_ms=t[f"k{n}_const_ms"],
+                     per_chain_scalar_ms=t[f"k{n}_scalar_ms"],
+                     per_chain_bound_ms=t[f"k{n}_bound_ms"],
+                     per_chain_bound_by=t[f"k{n}_bound_by"])
+        if n == "1":
+            entry.update(per_chain_plain_ms=plain_ms)
+        else:
+            entry.update(per_chain_draws=t["k2_draws"])
+    for entry, n in zip(hierarchical[:2], ("1", "2")):
+        (_, err, _), t = per_chain["funnel"]
+        kernel = "nuts_transition_funnel" if n == "1" else "nuts_sampling_funnel"
+        entry.update(
+            sorted_launches=sorted_runs["sorted"]["launches"].get(kernel, 0),
+            per_chain_cell_launches={c: r["launches"].get(kernel, 0)
+                                     for c, r in cells.items()},
+            checkpointed_sorted_launches=ckpt_launches.get(kernel, 0),
+            per_chain_max_abs_err=err,
+            per_chain_ms=t[f"k{n}_per_chain_ms"],
+            per_chain_const_ms=t[f"k{n}_const_ms"],
+            per_chain_scalar_ms=t[f"k{n}_scalar_ms"],
+            per_chain_bound_ms=t[f"k{n}_bound_ms"],
+            per_chain_bound_by=t[f"k{n}_bound_by"])
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

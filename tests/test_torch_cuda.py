@@ -1164,7 +1164,7 @@ def test_cuda_hierarchical_kernels_refuse_a_tile_and_wrong_data(cuda_device):
             ops["q"].data_ptr(), ops["u"].data_ptr(), ops["g"].data_ptr(),
             None, None, None, None, 1, 1, 2, ops["y"].data_ptr(),
             ops["s2"].data_ptr(), J, ops["im"].data_ptr(), None, 0, 0.2,
-            1000.0, 10, 16, 4, *(o.data_ptr() for o in outs),
+            None, 1000.0, 10, 16, 4, *(o.data_ptr() for o in outs),
             ops["ck"].data_ptr(), plan.blocks, points, stride, plan.smem, 8,
             torch.cuda.current_stream().cuda_stream)
         assert err != 0
@@ -1384,3 +1384,138 @@ def test_cuda_meads_checkpoint_resumes_bit_for_bit(cuda_device, tmp_path):
         assert torch.equal(a, b)
     for a, b in zip(full.diagnostics, resumed.diagnostics):
         assert torch.equal(a, b)
+
+
+def _per_chain_case(device, model, chains):
+    """A chain batch of ``model`` (the logistic posterior in float32, or
+    Neal's funnel) with external streams and a per-chain ε row."""
+    if model == "logistic":
+        _, pg, data, _ = logistic_regression_pg_t(
+            DIM, POINTS, matmul_dtype=torch.float32, device=device)
+        dim, lo, hi = DIM, 0.1, 0.6
+    else:
+        from aehmc_tpu_torch.models import neals_funnel_pg_t
+        _, pg, data, _ = neals_funnel_pg_t(10, device=device)
+        dim, lo, hi = 10, 0.05, 0.4
+    rng = np.random.default_rng(3)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    q_t = f32(0.3 * rng.normal(size=(dim, chains)))
+    u0, g0 = pg(q_t, *data)
+    ext = dict(
+        momentum=f32(rng.normal(size=(dim, chains))),
+        directions=f32(np.where(rng.uniform(size=(MAX_EXP, chains)) < 0.5,
+                                -1.0, 1.0)),
+        u_bias=f32(rng.uniform(size=(MAX_EXP, chains))),
+        u_leaf=f32(rng.uniform(size=(2**MAX_EXP, chains))),
+    )
+    eps = f32(rng.uniform(lo, hi, size=chains))
+    return pg, data, (q_t, u0, g0), f32(np.full(dim, 0.9)), ext, eps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["logistic", "funnel"])
+@pytest.mark.parametrize("chains", [CHAINS, 13])
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_per_chain_eps_transition_matches_plain(cuda_device, model,
+                                                     chains, philox):
+    """Kernel 1 reads each chain's ε from the row (13 chains: the grid's
+    padded tail reads none), as the plain version does: decisions equal on
+    every chain (logistic) or ≥ 99% (the funnel's expf), q within 1e-4."""
+    pg, data, state, imm, ext, eps = _per_chain_case(cuda_device, model,
+                                                     chains)
+    streams = dict(seed=91) if philox else ext
+    kern = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+        transposed_io=True,
+    )(*state, ext["momentum"], ext["directions"], ext["u_bias"],
+      ext["u_leaf"], imm, eps, seed=streams.get("seed"))
+    plain = nuts_transition_plain(*state, imm, eps, lambda x: pg(x, *data),
+                                  max_exp=MAX_EXP, **streams)
+    torch.cuda.synchronize()
+    same = _same_decisions_share(kern[3], plain[3])
+    assert float(same.float().mean()) >= (1.0 if model == "logistic" else 0.99)
+    np.testing.assert_allclose(kern[0][:, same].cpu(), plain[0][:, same].cpu(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["logistic", "funnel"])
+def test_cuda_per_chain_eps_whole_run_equals_launches_and_scalar(cuda_device,
+                                                                 model):
+    """Kernel 2 at a per-chain ε equals one kernel-1 launch a draw bit for
+    bit; a constant ε vector gives both kernels the scalar run's bits."""
+    pg, data, (q_t, u0, g0), imm, _, eps = _per_chain_case(cuda_device,
+                                                           model, CHAINS)
+    draws = 4
+    transition = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+        transposed_io=True)
+    pos, stats, qf, uf, gf = _fused_sampling_call_t(
+        None, pg, data, q_t, u0, g0, imm, eps, 5, draws,
+        max_num_expansions=MAX_EXP)
+    q, u, g = q_t, u0, g0
+    for t in range(draws):
+        q, u, g, st = transition(q, u, g, None, None, None, None, imm, eps,
+                                 seed=(5 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(q, pos[t])
+    assert torch.equal(q, qf) and torch.equal(u, uf) and torch.equal(g, gf)
+    const = torch.full((CHAINS,), 0.3, device=cuda_device)
+    for step in (
+        lambda e: transition(q_t, u0, g0, None, None, None, None, imm, e,
+                             seed=17),
+        lambda e: _fused_sampling_call_t(None, pg, data, q_t, u0, g0, imm, e,
+                                         17, draws,
+                                         max_num_expansions=MAX_EXP),
+    ):
+        for a, b in zip(step(0.3), step(const)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_per_chain_eps_row_must_be_float32_chains(cuda_device):
+    """A per-chain ε on the card is a float32 (chains,) tensor on the card;
+    it never reaches the plain version."""
+    pg, data, state, imm, _, eps = _per_chain_case(cuda_device, "logistic",
+                                                   CHAINS)
+    transition = make_fused_nuts_transition_small(
+        None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
+        transposed_io=True)
+    for bad in (eps[:-1], eps.double(), eps.cpu()):
+        with pytest.raises(ValueError, match="per-chain"):
+            transition(*state, None, None, None, None, imm, bad, seed=3)
+    reset_launch_counts()
+    transition(*state, None, None, None, None, imm, eps, seed=3)
+    assert LAUNCHES["nuts_transition"] == 1
+
+
+@pytest.mark.gpu
+def test_front_door_sorted_per_chain_runs_on_kernel_1(cuda_device):
+    """``sort_by_depth`` with per-chain dual averaging and the snap through
+    the front door: every warmup step and draw one launch of kernel 1, none
+    of kernel 2; one seed gives one set of bits."""
+    from aehmc_tpu_torch.models import neals_funnel_pg_t
+
+    pot, pg, data, _ = neals_funnel_pg_t(10, device=cuda_device)
+    q0 = (0.1 * torch.randn(256, 10, generator=torch.Generator().manual_seed(
+        1))).to(cuda_device)
+
+    def run():
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(2), None, q0, 20, 30, path="fused",
+            data=data, potential_fn_t=pot, potential_and_grad_t=pg,
+            max_num_expansions=8, sort_by_depth=True,
+            per_chain_step_size=True, per_chain_quantiles=4,
+            search_initial_step_size=True)
+
+    reset_launch_counts()
+    a = run()
+    assert LAUNCHES["nuts_transition_funnel"] == 50
+    assert LAUNCHES["nuts_sampling_funnel"] == 0
+    assert a.step_size.shape == (256,) and a.step_size.is_cuda
+    assert len(torch.unique(a.step_size)) <= 4
+    b = run()
+    assert torch.equal(a.positions, b.positions)
+    assert bool(torch.isfinite(a.positions).all())

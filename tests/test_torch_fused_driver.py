@@ -187,9 +187,25 @@ def test_sample_fused_adaptive_external_randomness_from_the_generator():
     ],
 )
 def test_unported_options_name_their_roadmap_item(option, item):
-    """Each unported option names its item; ``checkpoint_every`` (item 1.10,
-    ported) now raises the JAX driver's error when it has no path."""
+    """``mesh`` (item 1.12) names its item.  The item-1.5 options are
+    ported: ``sort_by_depth`` raises the JAX driver's error beside
+    ``loop_in_kernel`` and the other two run; ``checkpoint_every`` (item
+    1.10, ported) raises the JAX driver's error when it has no path."""
     pg, data, q0 = _small_problem()
+    if item == "1.5":
+        gen = torch.Generator().manual_seed(2)
+        run = lambda **kw: sample_fused_adaptive(  # noqa: E731
+            gen, None, data, q0, 3, 4, potential_and_grad_t=pg,
+            max_num_expansions=3, **{option: True}, **kw)
+        if option == "sort_by_depth":
+            with pytest.raises(ValueError, match="sort_by_depth"):
+                run(loop_in_kernel=True)
+        _, positions, stats, eps, _ = run()
+        assert positions.shape == (3, CHAINS, DIM)
+        assert bool(torch.isfinite(positions).all())
+        assert eps.shape == ((CHAINS,) if option == "per_chain_step_size"
+                             else ())
+        return
     error, match = ((ValueError, "checkpoint_every requires checkpoint_path")
                     if option == "checkpoint_every"
                     else (NotImplementedError, f"item {item}"))

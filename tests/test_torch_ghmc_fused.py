@@ -247,13 +247,21 @@ def test_one_step_accept_equals_mala_mh_ratio():
 
 
 def _jax_driver_streams(key, alpha, chains, dim, num_warmup, num_samples,
-                        segment_draws):
+                        segment_draws, search=False):
     """The raw normals and uniforms that the JAX driver draws from ``key``
     with ``use_internal_prng=False`` (fused_driver.py:1237-1294), in the
     dtypes it draws them: float32 normals (``_draw_momentum``), the warmup's
-    uniforms in the default dtype (``_external_randomness``)."""
+    uniforms in the default dtype (``_external_randomness``).  With
+    ``search`` the warmup key first splits off the initial-ε search's, whose
+    probes' normals come last in the result."""
     f32 = jnp.float32
     warmup_key, sample_key = jax.random.split(key)
+    normals = []
+    if search:
+        warmup_key, search_key = jax.random.split(warmup_key)
+        for _ in range(16):
+            search_key, sub = jax.random.split(search_key)
+            normals.append(np.array(jax.random.normal(sub, (chains, dim), f32)))
     _, key_scan = jax.random.split(warmup_key)
     warmup = []
     for k in jax.random.split(key_scan, num_warmup):
@@ -274,6 +282,8 @@ def _jax_driver_streams(key, alpha, chains, dim, num_warmup, num_samples,
                       for kk in jax.random.split(knoise, segment_draws)])
         u = np.array(jax.random.uniform(kacc, (segment_draws, chains), f32))
         segments.append((z, u))
+    if search:
+        return warmup, momentum, segments, normals
     return warmup, momentum, segments
 
 
@@ -347,6 +357,49 @@ def test_driver_matches_jax_sample_fused_ghmc(alpha, monkeypatch):
     np.testing.assert_allclose(pos_t.numpy(), pos_j, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("alpha", [0.0, 0.9])
+def test_per_chain_driver_matches_jax_sample_fused_ghmc(alpha):
+    """Per-chain dual averaging from the searched ε, snapped to 4 values at
+    warmup's finish, then kernels 5 and 6's plain versions at the
+    ``(chains,)`` ε, against JAX's driver on its own draws.  Short warmup
+    (the fast stage): over longer per-chain runs float32 sums in another
+    order drift until a near-tie decision flips."""
+    pg_j, data_j, pg_t, data_t = _models()
+    num_warmup, num_samples, seg = 12, 16, 8
+    q0 = (0.1 * np.random.default_rng(6).normal(size=(CHAINS, DIM))).astype(F32)
+    key = jax.random.PRNGKey(23)
+    options = dict(per_chain_step_size=True, per_chain_quantiles=4,
+                   search_initial_step_size=True, initial_step_size=0.01)
+    qj, pos_j, stats_j, eps_j, imm_j = jax_sample_ghmc(
+        key, lambda q_t, *d: pg_j(q_t, *d)[0], list(data_j), jnp.asarray(q0),
+        num_samples, num_warmup, alpha=alpha, potential_and_grad_t=pg_j,
+        block_chains=8, use_internal_prng=False, interpret=True,
+        segment_draws=seg, **options)
+    warmup, momentum, segments, normals = _jax_driver_streams(
+        key, alpha, CHAINS, DIM, num_warmup, num_samples, seg, search=True)
+    qt, pos_t, stats_t, eps_t, imm_t = sample_fused_ghmc(
+        None, None, data_t, torch.tensor(q0), num_samples, num_warmup,
+        alpha=alpha, potential_and_grad_t=pg_t, use_internal_prng=False,
+        block_chains=8, segment_draws=seg,
+        warmup_streams=lambda t: warmup[t],
+        segment_streams=lambda s: segments[s],
+        search_streams=lambda i: normals[i],
+        momentum_z=None if momentum is None else torch.tensor(momentum),
+        **options)
+    eps_j, pos_j, stats_j = (np.asarray(a) for a in (eps_j, pos_j, stats_j))
+    assert eps_t.shape == eps_j.shape == (CHAINS,)
+    assert len(np.unique(eps_t.numpy())) <= 4
+    # each chain's dual averaging scales its own acceptance's last-bit noise
+    # by sqrt(step)/gamma, unpooled: ε to 1e-3, and the positions with it
+    np.testing.assert_allclose(eps_t.numpy(), eps_j, rtol=1e-3)
+    np.testing.assert_allclose(imm_t.numpy(), np.asarray(imm_j), rtol=1e-4)
+    np.testing.assert_array_equal(stats_t[..., 2:5].numpy(), stats_j[..., 2:5])
+    np.testing.assert_array_equal(_accepted(pos_t[1:], pos_t[:-1]),
+                                  _accepted(pos_j[1:], pos_j[:-1]))
+    np.testing.assert_allclose(pos_t.numpy(), pos_j, atol=1e-3)
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=1e-3)
+
+
 def test_segmentation_does_not_change_the_draws():
     _, _, pg_t, data_t = _models()
     q0 = 0.1 * torch.randn(CHAINS, DIM, generator=torch.Generator().manual_seed(0))
@@ -401,10 +454,14 @@ def test_driver_errors():
     for alpha in (-0.1, 1.0):
         with pytest.raises(ValueError, match="alpha"):
             run(alpha=alpha)
-    for option in ("per_chain_step_size", "per_chain_quantiles",
-                   "search_initial_step_size"):
-        with pytest.raises(NotImplementedError, match="item 1.5"):
-            run(**{option: True})
+    # the JAX driver's error; the per-chain and search options run
+    with pytest.raises(ValueError, match="per_chain_step_size"):
+        run(per_chain_quantiles=4)
+    for option in ("per_chain_step_size", "search_initial_step_size"):
+        eps = run(**{option: True})[3]
+        assert bool(torch.isfinite(eps).all()) and bool((eps > 0).all())
+        assert eps.shape == ((CHAINS,) if option == "per_chain_step_size"
+                             else ())
     with pytest.raises(TypeError, match="alpha"):
         sample_fused_mala(None, None, data_t, q0, 2, 2, alpha=0.5,
                           potential_and_grad_t=pg_t)

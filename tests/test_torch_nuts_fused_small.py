@@ -30,6 +30,7 @@ from aehmc_tpu_torch.ops import _build
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     _check_cuda_args,
+    _eps_row,
     _fused_sampling_call_t,
     make_fused_nuts_transition_small,
     nuts_transition_plain,
@@ -315,14 +316,23 @@ def test_scan_path_matches_jax_sample_fused_small():
 
 def test_cuda_path_takes_only_the_logistic_kernel_potential():
     """A CUDA tensor never falls back to the plain version: any potential
-    other than the logistic one raises before a launch."""
+    other than the logistic one raises before a launch.  ε is a scalar or
+    a float32 ``(chains,)`` row on the chains' device; any other shape or
+    dtype raises."""
     pg, data, q0 = _logistic_case()
     q_t = q0.T.contiguous()
+    chains = q_t.shape[1]
     with pytest.raises(NotImplementedError, match="logistic"):
         _check_cuda_args(_gaussian_pg, data, q_t, 0.3)
-    with pytest.raises(NotImplementedError, match="per-chain"):
-        _check_cuda_args(logistic_pg_t, data, q_t, torch.ones(16))
-    _check_cuda_args(logistic_pg_t, data, q_t, 0.3)
+    row = torch.linspace(0.1, 0.4, chains)
+    assert _check_cuda_args(logistic_pg_t, data, q_t, row) == "logistic"
+    assert torch.equal(_eps_row(row, q_t), row)
+    for bad in (torch.ones(chains // 2), torch.ones(1, chains),
+                torch.ones(chains, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="per-chain"):
+            _check_cuda_args(logistic_pg_t, data, q_t, bad)
+    assert _check_cuda_args(logistic_pg_t, data, q_t, 0.3) == "logistic"
+    assert _eps_row(torch.tensor(0.25), q_t) is None
 
 
 @pytest.mark.parametrize(
