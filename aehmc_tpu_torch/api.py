@@ -20,9 +20,15 @@ Three paths, picked as the JAX package picks them (``path="auto"``):
   ``meads_recompute_every``-draw segment) or, with ``checkpoint_every``,
   the GHMC transition kernel (one launch a draw).
 
-What raises: ``mesh=`` (ROADMAP.md item 1.12) and a bare ``logprob_fn`` on
-the fused path (the generic fused binding, item 1.10), each
-``NotImplementedError``.
+A bare ``logprob_fn`` on the fused path takes the generic fused binding
+(:func:`_generic_fused_binding`, as the JAX package's): a transposed
+potential and its data rows, which the plain versions run on CPU tensors
+and kernels 1-4 run on the card through a functor generated from the
+potential's traced gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).
+The fused MALA, GHMC, ChEES and MEADS kernels hold the logistic functor
+only, so a potential with no device functor raises there on the card
+(ROADMAP.md item 1.10b).  ``mesh=`` raises ``NotImplementedError`` (item
+1.12).
 """
 
 from typing import Callable, Optional, Sequence
@@ -65,6 +71,52 @@ def _resolve_path(path, initial_position, potential_fn_t,
             and algorithm in _FUSED_ALGORITHMS):
         return "fused"
     return "pooled"
+
+
+def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
+    """Transposed-batch potential and data rows from a per-chain logprob
+    (port of the JAX package's ``_generic_fused_binding``).
+
+    ``q_t`` is ``(dim, C)``; vmapping the logprob over axis 1 gives the
+    ``(C,)`` potential row the transposed kernels take.  Tensors the
+    logprob closes over become data operands, as ``jax.closure_convert``
+    makes them: the logprob is traced once (``make_fx`` on a float32
+    ``(dim,)`` probe), each closed-over tensor becomes an input of the
+    traced graph and travels as a flat ``(1, n)`` data row, reshaped back
+    inside the potential.  Returns ``(potential_t, data)``."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    gm = make_fx(logprob_fn)(torch.zeros(dim, dtype=torch.float32,
+                                         device=device))
+    graph = gm.graph
+    last = next(n for n in graph.nodes if n.op == "placeholder")
+    inputs, consts = {}, []
+    for node in list(graph.nodes):
+        if node.op != "get_attr":
+            continue
+        if node.target not in inputs:
+            with graph.inserting_after(last):
+                last = graph.placeholder(f"closed_{len(consts)}")
+            inputs[node.target] = last
+            consts.append(getattr(gm, node.target))
+        node.replace_all_uses_with(inputs[node.target])
+        graph.erase_node(node)
+    graph.lint()
+    closed = torch.fx.GraphModule(gm, graph)
+    specs = [(tuple(c.shape), c.dtype) for c in consts]
+    data = [c.reshape(1, -1) for c in consts]
+
+    def potential_t(q_t, *rows):
+        if len(rows) != len(specs):
+            raise ValueError(
+                f"the generic fused potential takes {len(specs)} data rows, "
+                f"got {len(rows)}; pass an explicit potential_fn_t/data "
+                "binding instead")
+        args = [r.reshape(shape).to(dtype)
+                for r, (shape, dtype) in zip(rows, specs)]
+        return -torch.func.vmap(lambda q: closed(q, *args), in_dims=1)(q_t)
+
+    return potential_t, data
 
 
 def _fused_nuts_result(out) -> SampleResult:
@@ -132,14 +184,16 @@ def sample(
 
     The fused routes take the transposed ``potential_fn_t(q_t, *data)``
     and/or ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device
-    the fused NUTS route runs three models, each a device functor in kernels
-    1 and 2, picked by the identity of ``potential_and_grad_t``:
+    the fused NUTS route runs three models in hand-written device functors
+    of kernels 1 and 2, picked by the identity of ``potential_and_grad_t``:
     ``models.logistic_pg_t`` (``models.logistic_regression_pg_t``),
     ``models.funnel_pg_t`` (``models.neals_funnel_pg_t``) and
-    ``models.schools_pg_t`` (``models.eight_schools_pg_t``); the MALA, GHMC
-    and ChEES routes take the logistic one.  Any other potential on the card
-    raises ``NotImplementedError`` (the generic path is ROADMAP.md item
-    1.10).  ``kwargs`` go to
+    ``models.schools_pg_t`` (``models.eight_schools_pg_t``), and any other
+    float32 potential (or a bare ``logprob_fn``, through
+    :func:`_generic_fused_binding`) in a functor generated from its traced
+    gradient graph; the MALA, GHMC, ChEES and MEADS routes take the
+    logistic one, and any other potential raises ``NotImplementedError``
+    there on the card (ROADMAP.md item 1.10b).  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
     (``max_num_expansions`` defaults to 6; ``loop_in_kernel`` to True
     unless ``checkpoint_every`` or ``sort_by_depth`` is given, whose draws
@@ -215,11 +269,8 @@ def sample(
             "is algorithm='chees')"
         )
     if potential_fn_t is None and potential_and_grad_t is None:
-        raise NotImplementedError(
-            "a bare logprob_fn on path='fused' needs the generic fused "
-            "binding, not ported yet (ROADMAP.md item 1.10); use "
-            "path='pooled' or 'xla'"
-        )
+        potential_fn_t, data = _generic_fused_binding(
+            logprob_fn, initial_position.shape[1], initial_position.device)
     if algorithm == "chees":
         kernel_kwargs = {k: kwargs.pop(k) for k in _CHEES_KERNEL_KWARGS
                          if k in kwargs}

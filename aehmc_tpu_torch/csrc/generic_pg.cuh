@@ -1,0 +1,113 @@
+// What a generated potential functor (struct GenericPG, written by
+// aehmc_tpu_torch/ops/generic_pg.py:emit_cuda) stands on: its data table,
+// its scratch and per-chain workspace, and the scalar helpers its emitted
+// expressions call.  The NUTS kernels 1-4 take GenericPG as their functor
+// (nuts_generic.cu), beside the hand-written LogisticPGT, FunnelPG and
+// EightSchoolsPG.
+//
+// The contract is the NUTS core's (nuts_core.cuh): CB = 8 chains a block,
+// one warp a chain; Scratch holds the block's potentials nu;
+// carve_scratch(base, ds) carves it after the core's rows; fits(dim, G)
+// checks a launch; operator()(S, dim, ds, q, grad, bool) leaves each
+// chain's gradient row and potential, and a __syncwarp orders them before
+// the warp reads them.
+//
+// The workspace holds the values a chain's potential materialises (the
+// contractions' outputs and the elementwise values a product reads more
+// than once), W floats a chain: in shared memory after the potentials when
+// two blocks still fit an SM with it, else in a global buffer of blocks ×
+// CB × W floats the wrapper allocates (launch_plan.generic_workspace_floats),
+// indexed by block and warp, so a chain keeps its slot across the draws of
+// kernels 2 and 4.
+//
+// The helpers keep torch's semantics on NaN: a clamp, a maximum or a
+// minimum of NaN is NaN (fmaxf would drop it).
+#pragma once
+
+#include "hierarchical_pg.cuh"
+
+namespace aehmc {
+namespace generic {
+
+constexpr int MAX_DATA = 16;  // data operands (ops/generic_pg.py MAX_DATA)
+
+// the data operands: device pointers (contiguous float32) and their lengths
+struct Data {
+  const float* ptr[MAX_DATA];
+  long long len[MAX_DATA];
+  int n;
+};
+
+struct Scratch {
+  float* nu;  // (CB,): the block's potentials
+  float* ws;  // (CB, W) in shared memory, or null
+};
+
+struct Base {
+  static constexpr int CB = 8;
+  using Scratch = generic::Scratch;
+
+  Data data;
+  float* ws_global;  // the global workspace, (blocks, CB, W), or null
+
+  static bool no_tile(const Geometry& G) {
+    return G.points == 0 && G.row_stride == 0;
+  }
+
+  bool lengths_are(const long long* lengths, int n) const {
+    if (data.n != n) return false;
+    for (int j = 0; j < n; ++j)
+      if (!data.ptr[j] || data.len[j] != lengths[j]) return false;
+    return true;
+  }
+
+  // the potentials, then (shared workspace) CB rows of W floats
+  template <bool SHARED>
+  static __device__ Scratch carve(float* base) {
+    return Scratch{base, SHARED ? base + CB : nullptr};
+  }
+
+  // chain c's W floats of workspace
+  template <bool SHARED, int W>
+  __device__ float* chain_workspace(const Scratch& S, int c) const {
+    if (SHARED) return S.ws + (size_t)c * W;
+    return ws_global ? ws_global + ((size_t)blockIdx.x * CB + c) * W
+                     : nullptr;
+  }
+};
+
+}  // namespace generic
+
+__device__ __forceinline__ float gpg_max(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float gpg_min(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+__device__ __forceinline__ float gpg_clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float gpg_clamp_max(float x, float hi) {
+  return x > hi ? hi : x;
+}
+__device__ __forceinline__ float gpg_relu(float x) {
+  return x < 0.f ? 0.f : x;
+}
+__device__ __forceinline__ float gpg_sign(float x) {
+  return x != x ? x : (x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f));
+}
+// torch.nn.functional.softplus and its backward (ATen's formulas)
+__device__ __forceinline__ float gpg_softplus(float x, float beta,
+                                              float threshold) {
+  return x * beta > threshold ? x : log1pf(expf(x * beta)) / beta;
+}
+__device__ __forceinline__ float gpg_softplus_backward(float g, float x,
+                                                       float beta,
+                                                       float threshold) {
+  const float z = expf(x * beta);
+  return x * beta > threshold ? g : g * z / (z + 1.f);
+}
+__device__ __forceinline__ int gpg_imax(int a, int b) { return a > b ? a : b; }
+__device__ __forceinline__ int gpg_imin(int a, int b) { return a < b ? a : b; }
+
+}  // namespace aehmc

@@ -9,6 +9,15 @@ keyed by a hash of the source, the shared headers and the flags, so an edit
 rebuilds and an unchanged tree reuses them.  Nothing is built when the
 module is imported.
 
+A potential with no hand-written functor gets one generated from its traced
+gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`):
+``load_generated(text)`` writes the functor to
+``_build/generic_<hash>.cu``, keyed on its text, the headers, the template
+``csrc/nuts_generic.cu`` and the flags, compiles the template with that
+file in its include slot into ``_build/libgeneric_<hash>.so`` at the first
+bind of the potential, and loads it; ``build_all(generated=texts)`` builds
+such libraries in the same parallel batch as the sources.
+
 Compile flags: no ``--use_fast_math`` (the kernels keep IEEE ``expf``,
 ``logf``, divisions and square roots), and ``-fmad=false`` so the compiler
 contracts no multiply-add: the kernels' products use explicit ``fmaf``, and
@@ -29,7 +38,9 @@ PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 HEADERS = ("common.cuh", "logistic_pg.cuh", "hierarchical_pg.cuh",
-           "nuts_core.cuh", "hmc_core.cuh")
+           "nuts_core.cuh", "hmc_core.cuh", "generic_pg.cuh")
+# the template of the libraries built on a generated functor
+GENERIC_TEMPLATE = "nuts_generic.cu"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -83,6 +94,15 @@ SIGNATURES = {
     },
 }
 
+# C function of a library built on a generated functor -> argtypes
+GENERIC_SIGNATURES = {
+    "generic_transition_launch": [_I] + [_P] * 7 + [_I, _U] + [_P, _P, _I, _P]
+    + [_P, _P, _I, _F, _P, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
+    "generic_sampling_launch": [_I] + [_P] * 3 + [_U, _I] + [_P, _P, _I, _P]
+    + [_P, _P, _I, _F, _P, _F, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
+    "generic_blocks_per_sm": [_I] * 3,
+}
+
 # seconds and compiler output of the builds this process ran (empty when
 # every library was already built; ptxas_log() reads every build's)
 BUILD_INFO = {}
@@ -102,27 +122,56 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
+def _digest(names, extra: str = "") -> str:
     digest = hashlib.sha256()
-    for name in (*HEADERS, source):
+    for name in names:
         digest.update((CSRC / name).read_bytes())
+    digest.update(extra.encode())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
+    return digest.hexdigest()[:16]
 
 
-def _build_missing(sources) -> None:
-    """Start one nvcc per library of ``sources`` not built yet, all at once,
-    and wait."""
+def library_path(source: str) -> Path:
+    return BUILD_DIR / f"lib{Path(source).stem}_{_digest((*HEADERS, source))}.so"
+
+
+def generated_path(text: str) -> Path:
+    """The library built on a generated functor's ``text``; its source is
+    the ``.cu`` file of the same name beside it."""
+    key = _digest((*HEADERS, GENERIC_TEMPLATE), text)
+    return BUILD_DIR / f"libgeneric_{key}.so"
+
+
+def _functor_file(text: str) -> Path:
+    return generated_path(text).with_name(
+        generated_path(text).stem[3:] + ".cu")
+
+
+def _build_missing(sources, generated=()) -> None:
+    """Start one nvcc per library of ``sources`` and of the ``generated``
+    functor texts not built yet, all at once, and wait."""
     jobs = {}
     t0 = time.perf_counter()
-    for source in sources:
-        out = library_path(source)
-        if out.exists():
+    targets = [(source, library_path(source), [str(CSRC / source)])
+               for source in sources]
+    for text in generated:
+        functor = _functor_file(text)
+        targets.append((functor.name, generated_path(text), [
+            f"-I{BUILD_DIR}", f"-DAEHMC_GENERIC_PG={functor.name}",
+            str(CSRC / GENERIC_TEMPLATE)]))
+    for name, out, args in targets:
+        if out.exists() or name in jobs:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if name.startswith("generic_"):
+            functor = BUILD_DIR / name
+            text = next(t for t in generated if _functor_file(t) == functor)
+            tmp_src = functor.with_name(f"{functor.name}.{os.getpid()}.tmp")
+            tmp_src.write_text(text)
+            os.replace(tmp_src, functor)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        jobs[source] = (out, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *args]
+        jobs[name] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     logs, failed = [], []
@@ -150,9 +199,10 @@ def ptxas_log() -> str:
         if library_path(source).with_suffix(".log").exists())
 
 
-def build_all() -> None:
-    """Build every library not built yet, the sources in parallel."""
-    _build_missing(SIGNATURES)
+def build_all(generated=()) -> None:
+    """Build every library not built yet, the sources and the libraries of
+    the ``generated`` functor texts in parallel."""
+    _build_missing(SIGNATURES, tuple(generated))
 
 
 def load_kernels(source: str) -> ctypes.CDLL:
@@ -168,6 +218,30 @@ def load_kernels(source: str) -> ctypes.CDLL:
         lib.error_string.restype = ctypes.c_char_p
         _libs[source] = lib
     return _libs[source]
+
+
+def load_generated(text: str) -> ctypes.CDLL:
+    """Build (once per text) and load the kernels 1-4 on a generated functor
+    (``csrc/nuts_generic.cu`` with ``text`` in its include slot)."""
+    path = generated_path(text)
+    if path not in _libs:
+        _build_missing((), (text,))
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in GENERIC_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        _libs[path] = lib
+    return _libs[path]
+
+
+def generated_ptxas_log(text: str) -> str:
+    """nvcc's output (ptxas's registers and spills) of the library built on
+    a generated functor, or "" when this tree has not built it."""
+    log = generated_path(text).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def check_launch(lib, err: int, name: str) -> None:

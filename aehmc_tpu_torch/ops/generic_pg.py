@@ -1,0 +1,1562 @@
+"""The potential compiler: any float32 per-chain potential as a device
+functor of the NUTS kernels 1-4.
+
+On the TPU the fused kernels run any ``jnp`` potential: Pallas traces it
+into the kernel body and differentiates it there with ``jax.vjp``
+(``aehmc_tpu/ops/nuts_fused_small.py:_pot_grad_builder_t``,
+``aehmc_tpu/ops/nuts_fused.py``).  This module does the same in three
+steps with public PyTorch API:
+
+1. :func:`trace_potential` traces the per-chain function and its gradient
+   (``make_fx`` over ``torch.func.grad``) on a ``(dim,)`` probe, or the
+   caller's ``potential_and_grad_t`` as it stands;
+2. the trace becomes a small IR of static-shape nodes with no chain axis
+   (:class:`IR`): elementwise ops, sums, matrix products, views,
+   constants, the position ``q`` and the data operands; closed-over tensors
+   become data operands, as ``jax.closure_convert`` makes them;
+3. :func:`emit_cuda` writes ``struct GenericPG`` to the NUTS core's functor
+   contract (``csrc/nuts_core.cuh``), which ``csrc/nuts_generic.cu``
+   instantiates as kernels 1-4 (``_build.load_generated`` builds it).
+
+:func:`run_plain` interprets the IR with torch ops over a ``(dim, C)``
+batch: the plain version of the generated functor.
+
+The generated functor.  One warp computes one chain (CB = 8 chains a
+block).  Every contraction (a sum, a matrix product) is materialised: a
+sum to one number ends in ``warp_sum`` (fixed order) and stays in a
+register; a longer output runs one lane an output element, its inner sum
+sequential, or, where the lanes would read strided addresses (or fewer
+than 32 outputs sum long rows), the warp sums 8 outputs at a time, each
+in the lane-then-butterfly order.  Elementwise nodes are inlined into the loops that
+read them and share register temporaries there; one is materialised only
+when a matrix product reads its elements more than once, or when several
+loops read it and it costs more than a few operations.  Loops of one
+iteration count with no dependence between them fuse into one.  The
+materialised vectors live in a per-chain workspace of ``W`` floats, in
+shared memory when two blocks still fit an SM with it
+(:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`), else in
+a global buffer the wrapper allocates, indexed by block and warp.
+Arithmetic is IEEE (``expf``, ``logf``, ``log1pf``, no fast math, built
+with ``-fmad=false``); the matrix products use explicit ``fmaf``.
+"""
+
+import hashlib
+import math
+import weakref
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import torch
+
+LAYOUTS = ("t", "std")   # the potential's batch: (dim, C) or (C, dim)
+MAX_DATA = 16            # data operands a functor takes (csrc/generic_pg.cuh)
+SHARE_COST = 8           # ops above which a node read by two loops is stored
+WARP_OUTPUTS = 8         # outputs a warp sums at once (measured: PERF.md §6)
+_ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
+
+# op kinds of the IR besides the elementwise ones (_formula) and "q",
+# "data", "const", "pad_slice", "pad_select", "cat"
+VIEWS = ("reshape", "permute", "expand", "slice", "select")
+CONTRACTIONS = ("sum", "mm")
+COMPARISONS = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
+               "ge": ">="}
+TRANSCENDENTAL = ("exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
+                  "sigmoid", "sin", "cos", "pow", "softplus",
+                  "softplus_backward")
+
+
+class Node(NamedTuple):
+    op: str
+    args: tuple    # ids of input nodes
+    shape: tuple   # static shape, no chain axis
+    dtype: str     # "f" (float32) or "b" (bool)
+    params: tuple  # op parameters
+
+
+@dataclass(frozen=True)
+class IR:
+    """The per-chain potential and gradient: ``nodes`` in topological
+    order, the ids of ``u`` (shape ``()``) and ``g`` (``(dim,)``), and the
+    shapes of the data operands (the caller's data, then the hoisted
+    constants)."""
+
+    nodes: tuple
+    u: int
+    g: int
+    dim: int
+    layout: str
+    data_shapes: tuple
+    num_caller_data: int
+
+    def key(self) -> str:
+        text = repr((self.nodes, self.u, self.g, self.dim, self.layout,
+                     self.data_shapes))
+        return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+class Traced(NamedTuple):
+    ir: IR
+    constants: tuple  # hoisted tensors, the data operands after the caller's
+    ops: tuple        # the aten ops of the trace, as traced
+
+
+# ------------------------------------------------------------- tracing ----
+
+def _per_chain(fn, dim, layout, with_grad):
+    """The traced function ``f(q (dim,), *data) -> (u (), g (dim,))``."""
+    col = (dim, 1) if layout == "t" else (1, dim)
+    if with_grad:
+        def one(q, *data):
+            return fn(q.reshape(col), *data).reshape(())
+
+        def f(q, *data):
+            return one(q, *data), torch.func.grad(one)(q, *data)
+    else:
+        def f(q, *data):
+            u, g = fn(q.reshape(col), *data)
+            return u.reshape(()), g.reshape(dim)
+    return f
+
+
+def _check_chains_apart(fn, data, dim, layout, with_grad, device):
+    """The batched potential on 3 random columns must equal the per-chain
+    one on each: a potential that mixes chains raises ``ValueError``."""
+    gen = torch.Generator().manual_seed(20231)
+    cols = torch.randn((dim, 3), generator=gen).to(device)
+    batch = cols if layout == "t" else cols.T.contiguous()
+
+    def run(q):
+        out = fn(q, *data)
+        if with_grad:
+            return (out.detach().reshape(-1),)
+        u, g = out
+        g = g if layout == "t" else g.T
+        return u.detach().reshape(-1), g.detach().reshape(dim, -1)
+
+    whole = run(batch)
+    for c in range(3):
+        one = run(batch[:, c:c + 1] if layout == "t" else batch[c:c + 1])
+        for a, b in zip(whole, one):
+            a = a[..., c:c + 1] if a.ndim == 2 else a[c:c + 1]
+            if a.shape != b.shape or not torch.allclose(
+                    a, b, rtol=1e-4, atol=1e-4, equal_nan=True):
+                raise ValueError(
+                    "the potential mixes chains: its value for one chain "
+                    "alone differs from that chain's value in a batch; a "
+                    "fused potential must compute each chain from its own "
+                    "column (row in the standard layout)")
+
+
+def _require_f32(data) -> tuple:
+    data = tuple(data)
+    for j, d in enumerate(data):
+        if not isinstance(d, torch.Tensor) or d.dtype != torch.float32:
+            raise TypeError(
+                "the generated functor takes float32 data; data operand "
+                f"{j} is {getattr(d, 'dtype', type(d).__name__)}")
+    return data
+
+
+def trace_potential(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
+                    layout: str = "t", with_grad: bool = True,
+                    device=None) -> Traced:
+    """Trace ``fn`` per chain into the IR.
+
+    ``layout`` "t": ``fn(q_t (dim, C), *data)``; "std": ``fn(q (C, dim),
+    *data)``.  With ``with_grad`` ``fn`` is the potential (``(C,)`` or
+    ``(1, C)``) and the trace holds ``torch.func.grad`` of it; without, it
+    is ``potential_and_grad_t`` returning ``(u, g)``, traced as it stands.
+    Closed-over tensors are hoisted into data operands after ``data``.
+    Raises ``TypeError`` for data that are not float32, ``ValueError`` for
+    a potential that mixes chains and ``NotImplementedError`` for an op the
+    compiler has no rule for."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout is one of {LAYOUTS}, got {layout!r}")
+    data = _require_f32(data)
+    if device is None:
+        device = data[0].device if data else torch.device("cpu")
+    _check_chains_apart(fn, data, dim, layout, with_grad, device)
+    probe = torch.zeros(dim, dtype=torch.float32, device=device)
+    gm = make_fx(_per_chain(fn, dim, layout, with_grad))(probe, *data)
+    return _Converter(gm, dim, layout, data).run()
+
+
+# ---------------------------------------------------- graph to the IR ----
+
+class _Id(int):
+    """The id of an IR node among a traced op's arguments, apart from the
+    Python numbers there."""
+
+
+def _num(x):
+    return isinstance(x, (int, float, bool)) and not isinstance(x, _Id)
+
+
+def _axis(a, ndim):
+    return a + ndim if a < 0 else a
+
+
+class _Converter:
+    """aten graph -> IR, with constant folding of fill values, common
+    subexpressions merged and dead nodes dropped."""
+
+    def __init__(self, gm, dim, layout, data):
+        self.gm, self.dim, self.layout = gm, dim, layout
+        self.data_shapes = [tuple(d.shape) for d in data]
+        self.num_caller_data = len(data)
+        self.nodes, self.index = [], {}
+        self.constants, self.const_ids = [], {}
+        self.ops = set()
+
+    # -- node construction
+    def make(self, op, args, shape, dtype="f", params=()):
+        if op in VIEWS and self.nodes[args[0]].op == "const":
+            src = self.nodes[args[0]]
+            return self.const(src.params[0], shape, src.dtype)
+        node = Node(op, tuple(int(a) for a in args),
+                    tuple(int(s) for s in shape), dtype, tuple(params))
+        if node not in self.index:
+            self.index[node] = len(self.nodes)
+            self.nodes.append(node)
+        return _Id(self.index[node])
+
+    def const(self, value, shape=(), dtype="f"):
+        value = float(value)
+        if dtype == "f":  # the float32 value the card holds
+            value = float(torch.tensor(value, dtype=torch.float32))
+        return self.make("const", (), shape, dtype, (value,))
+
+    def shape(self, nid):
+        return self.nodes[nid].shape
+
+    def arg(self, x):
+        """An IR id for a graph value: a node's, or a scalar constant's."""
+        if _num(x):
+            return self.const(x, (), "b" if isinstance(x, bool) else "f")
+        return x
+
+    # -- the graph
+    def run(self) -> Traced:
+        env = {}
+        placeholders = 0
+        for fx_node in self.gm.graph.nodes:
+            if fx_node.op == "placeholder":
+                if placeholders == 0:
+                    env[fx_node] = self.make("q", (), (self.dim,))
+                else:
+                    j = placeholders - 1
+                    env[fx_node] = self.make("data", (), self.data_shapes[j],
+                                             params=(j,))
+                placeholders += 1
+            elif fx_node.op == "get_attr":
+                env[fx_node] = self.get_attr(getattr(self.gm, fx_node.target))
+            elif fx_node.op == "call_function":
+                args = torch.fx.node.map_arg(fx_node.args, lambda n: env[n])
+                kwargs = torch.fx.node.map_arg(fx_node.kwargs,
+                                               lambda n: env[n])
+                val = fx_node.meta.get("val")
+                out = self.call(fx_node.target, args, kwargs, val)
+                env[fx_node] = out
+                name = fx_node.target.overloadpacket.__name__
+                if name.endswith("_") and isinstance(fx_node.args[0],
+                                                     torch.fx.Node):
+                    # an in-place op: later reads of its input see the result
+                    env[fx_node.args[0]] = out
+            elif fx_node.op == "output":
+                u, g = fx_node.args[0]
+                u = self.reshape(env[u], ())
+                g = self.reshape(env[g], (self.dim,))
+        return self.finish(u, g)
+
+    def get_attr(self, t):
+        if not isinstance(t, torch.Tensor):
+            raise NotImplementedError(f"a non-tensor constant {t!r}")
+        if t.dtype == torch.bool:
+            if t.numel() == 1:
+                return self.const(bool(t), tuple(t.shape), "b")
+            raise TypeError("the generated functor takes float32 constants; "
+                            "a closed-over bool tensor is not one")
+        if t.dtype != torch.float32:
+            raise TypeError("the generated functor takes float32 constants; "
+                            f"a closed-over tensor is {t.dtype}")
+        if t.numel() == 1:
+            return self.const(float(t.reshape(())), tuple(t.shape))
+        key = id(t)
+        if key not in self.const_ids:
+            j = len(self.data_shapes)
+            self.data_shapes.append(tuple(t.shape))
+            self.constants.append(t.detach().contiguous())
+            self.const_ids[key] = self.make("data", (), tuple(t.shape),
+                                            params=(j,))
+        return self.const_ids[key]
+
+    def finish(self, u, g) -> Traced:
+        live, stack = set(), [u, g]
+        while stack:
+            n = stack.pop()
+            if n not in live:
+                live.add(n)
+                stack.extend(self.nodes[n].args)
+        remap, nodes = {}, []
+        for i, n in enumerate(self.nodes):
+            if i in live:
+                remap[i] = len(nodes)
+                nodes.append(n._replace(args=tuple(remap[a] for a in n.args)))
+        ir = IR(tuple(nodes), remap[u], remap[g], self.dim, self.layout,
+                tuple(self.data_shapes), self.num_caller_data)
+        return Traced(ir, tuple(self.constants), tuple(sorted(self.ops)))
+
+    # -- views and shapes
+    def reshape(self, x, shape):
+        shape = tuple(int(s) for s in shape)
+        if self.shape(x) == shape:
+            return x
+        if math.prod(self.shape(x)) != math.prod(shape):
+            raise ValueError(f"reshape of {self.shape(x)} to {shape}")
+        return self.make("reshape", (x,), shape, self.nodes[x].dtype)
+
+    def expand(self, x, shape):
+        shape = tuple(int(s) for s in shape)
+        if self.shape(x) == shape:
+            return x
+        return self.make("expand", (x,), shape, self.nodes[x].dtype)
+
+    def elementwise(self, op, args, val, params=()):
+        args = [self.arg(a) for a in args]
+        shape = tuple(val.shape)
+        dtype = "b" if val.dtype == torch.bool else "f"
+        consts = [self.nodes[a] for a in args]
+        if (op in ("neg", "add", "sub", "mul", "div") and all(
+                c.op == "const" and c.dtype == "f" for c in consts)):
+            vals = [torch.tensor(c.params[0], dtype=torch.float32)
+                    for c in consts]
+            out = {"neg": lambda a: -a, "add": lambda a, b: a + b,
+                   "sub": lambda a, b: a - b, "mul": lambda a, b: a * b,
+                   "div": lambda a, b: a / b}[op](*vals)
+            return self.const(float(out), shape)
+        return self.make(op, args, shape, dtype, params)
+
+    def call(self, target, args, kwargs, val):
+        name = target.overloadpacket.__name__.rstrip("_")
+        self.ops.add(str(target))
+        if val is not None and isinstance(val, torch.Tensor):
+            if val.dtype not in (torch.float32, torch.bool):
+                raise TypeError(
+                    f"the generated functor computes in float32; {target} "
+                    f"gives {val.dtype}")
+        rule = _RULES.get(name)
+        if rule is None:
+            raise NotImplementedError(
+                f"the generic potential compiler has no rule for {target}; "
+                f"widening its op table is {_ROADMAP}")
+        return rule(self, args, kwargs, val)
+
+
+def _rule_identity(c, args, kwargs, val):
+    x = args[0]
+    if isinstance(x, _Id) and c.nodes[x].dtype == "b" and \
+            val.dtype == torch.float32:
+        return c.make("float", (x,), c.shape(x))
+    return x
+
+
+def _rule_reshape(c, args, kwargs, val):
+    return c.reshape(args[0], val.shape)
+
+
+def _rule_permute(c, args, kwargs, val):
+    x = args[0]
+    ndim = len(c.shape(x))
+    if ndim < 2:
+        return x
+    name_dims = args[1] if len(args) > 1 else kwargs.get("dims")
+    perm = tuple(_axis(d, ndim) for d in name_dims)
+    if perm == tuple(range(ndim)):
+        return x
+    return c.make("permute", (x,), val.shape, c.nodes[x].dtype, perm)
+
+
+def _rule_t(c, args, kwargs, val):
+    x = args[0]
+    if len(c.shape(x)) < 2:
+        return x
+    return c.make("permute", (x,), val.shape, c.nodes[x].dtype, (1, 0))
+
+
+def _rule_transpose(c, args, kwargs, val):
+    x = args[0]
+    ndim = len(c.shape(x))
+    a, b = _axis(args[1], ndim), _axis(args[2], ndim)
+    perm = list(range(ndim))
+    perm[a], perm[b] = perm[b], perm[a]
+    if a == b:
+        return x
+    return c.make("permute", (x,), val.shape, c.nodes[x].dtype, tuple(perm))
+
+
+def _rule_expand(c, args, kwargs, val):
+    return c.expand(args[0], val.shape)
+
+
+def _rule_slice(c, args, kwargs, val):
+    x = args[0]
+    shape = c.shape(x)
+    axis = _axis(args[1] if len(args) > 1 else 0, len(shape))
+    start = args[2] if len(args) > 2 and args[2] is not None else 0
+    step = args[4] if len(args) > 4 else 1
+    start = max(0, min(_axis(start, shape[axis]), shape[axis]))
+    if tuple(val.shape) == shape:
+        return x
+    return c.make("slice", (x,), val.shape, c.nodes[x].dtype,
+                  (axis, start, step))
+
+
+def _rule_select(c, args, kwargs, val):
+    x = args[0]
+    shape = c.shape(x)
+    axis = _axis(args[1], len(shape))
+    return c.make("select", (x,), val.shape, c.nodes[x].dtype,
+                  (axis, _axis(args[2], shape[axis])))
+
+
+def _rule_fill(value_at):
+    def rule(c, args, kwargs, val):
+        value = value_at(args, kwargs)
+        dtype = "b" if val.dtype == torch.bool else "f"
+        return c.const(value, tuple(val.shape), dtype)
+    return rule
+
+
+def _rule_unary(op):
+    def rule(c, args, kwargs, val):
+        return c.elementwise(op, args[:1], val)
+    return rule
+
+
+def _rule_binary(op):
+    def rule(c, args, kwargs, val):
+        a, b = args[0], args[1]
+        alpha = kwargs.get("alpha", args[2] if len(args) > 2 else 1)
+        if alpha != 1:
+            b = c.elementwise("mul", (b, alpha), val if _num(b) else
+                              _Val(c.shape(b)))
+        return c.elementwise(op, (a, b), val)
+    return rule
+
+
+class _Val(NamedTuple):
+    """Stands in for a traced value's metadata."""
+    shape: tuple
+    dtype: torch.dtype = torch.float32
+
+
+def _rule_rsub(c, args, kwargs, val):
+    alpha = kwargs.get("alpha", args[2] if len(args) > 2 else 1)
+    a = args[0]
+    if alpha != 1:
+        a = c.elementwise("mul", (a, alpha), _Val(c.shape(a)))
+    return c.elementwise("sub", (args[1], a), val)
+
+
+def _rule_pow(c, args, kwargs, val):
+    base, exp = args[0], args[1]
+    if not _num(exp):
+        raise NotImplementedError(
+            "pow with a tensor exponent has no rule in the generic potential "
+            f"compiler; widening its op table is {_ROADMAP}")
+    if _num(base):
+        raise NotImplementedError(
+            "pow of a scalar base has no rule in the generic potential "
+            f"compiler; widening its op table is {_ROADMAP}")
+    if float(exp) == 1.0:
+        return base
+    return c.elementwise("pow", (base,), val, (float(exp),))
+
+
+def _rule_compare(op):
+    def rule(c, args, kwargs, val):
+        return c.elementwise(op, args[:2], val)
+    return rule
+
+
+def _rule_where(c, args, kwargs, val):
+    return c.elementwise("where", args[:3], val)
+
+
+def _rule_masked_fill(c, args, kwargs, val):
+    x, mask, value = args[:3]
+    return c.elementwise("where", (mask, value, x), val)
+
+
+def _rule_clamp(c, args, kwargs, val):
+    lo = kwargs.get("min", args[1] if len(args) > 1 else None)
+    hi = kwargs.get("max", args[2] if len(args) > 2 else None)
+    x = args[0]
+    for bound, op in ((lo, "clamp_min"), (hi, "clamp_max")):
+        if bound is None:
+            continue
+        if _num(bound):
+            x = c.elementwise(op, (x,), val, (float(torch.tensor(
+                bound, dtype=torch.float32)),))
+        else:
+            x = c.elementwise("maximum" if op == "clamp_min" else "minimum",
+                              (x, bound), val)
+    return x
+
+
+def _rule_clamp_one(op):
+    def rule(c, args, kwargs, val):
+        bound = args[1]
+        if _num(bound):
+            return c.elementwise(op, args[:1], val, (float(torch.tensor(
+                bound, dtype=torch.float32)),))
+        return c.elementwise("maximum" if op == "clamp_min" else "minimum",
+                             args[:2], val)
+    return rule
+
+
+def _rule_softplus(c, args, kwargs, val):
+    beta = args[1] if len(args) > 1 else kwargs.get("beta", 1)
+    thr = args[2] if len(args) > 2 else kwargs.get("threshold", 20)
+    return c.elementwise("softplus", args[:1], val, (float(beta), float(thr)))
+
+
+def _rule_softplus_backward(c, args, kwargs, val):
+    return c.elementwise("softplus_backward", args[:2], val,
+                         (float(args[2]), float(args[3])))
+
+
+def _rule_threshold_backward(c, args, kwargs, val):
+    return c.elementwise("threshold_backward", args[:2], val,
+                         (float(args[2]),))
+
+
+def _rule_binary_backward(op):
+    def rule(c, args, kwargs, val):
+        return c.elementwise(op, args[:2], val)
+    return rule
+
+
+def _rule_sum(mean):
+    def rule(c, args, kwargs, val):
+        x = args[0]
+        shape = c.shape(x)
+        dims = args[1] if len(args) > 1 else kwargs.get("dim")
+        keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+        if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+            axes = tuple(range(len(shape)))
+        else:
+            dims = dims if isinstance(dims, (list, tuple)) else (dims,)
+            axes = tuple(sorted({_axis(d, len(shape)) for d in dims}))
+        if not shape:
+            return x
+        out = c.make("sum", (x,), val.shape, "f", (axes, bool(keepdim)))
+        if mean:
+            n = math.prod(shape[a] for a in axes)
+            out = c.elementwise("div", (out, float(n)), val)
+        return out
+    return rule
+
+
+def _mm(c, a, b):
+    (m, k), (k2, n) = c.shape(a), c.shape(b)
+    if k != k2:
+        raise ValueError(f"mm of {c.shape(a)} and {c.shape(b)}")
+    return c.make("mm", (a, b), (m, n))
+
+
+def _rule_mm(c, args, kwargs, val):
+    return _mm(c, args[0], args[1])
+
+
+def _rule_mv(c, args, kwargs, val):
+    a, v = args[0], args[1]
+    out = _mm(c, a, c.reshape(v, (c.shape(v)[0], 1)))
+    return c.reshape(out, val.shape)
+
+
+def _rule_dot(c, args, kwargs, val):
+    a, b = args[0], args[1]
+    k = c.shape(a)[0]
+    out = _mm(c, c.reshape(a, (1, k)), c.reshape(b, (k, 1)))
+    return c.reshape(out, ())
+
+
+def _rule_bmm(c, args, kwargs, val):
+    a, b = args[0], args[1]
+    if c.shape(a)[0] != 1:
+        raise NotImplementedError(
+            "bmm over more than one batch has no rule in the generic "
+            f"potential compiler; widening its op table is {_ROADMAP}")
+    out = _mm(c, c.reshape(a, c.shape(a)[1:]), c.reshape(b, c.shape(b)[1:]))
+    return c.reshape(out, val.shape)
+
+
+def _rule_addmm(c, args, kwargs, val):
+    bias, a, b = args[:3]
+    beta, alpha = kwargs.get("beta", 1), kwargs.get("alpha", 1)
+    prod = _mm(c, a, b)
+    if alpha != 1:
+        prod = c.elementwise("mul", (prod, alpha), val)
+    if beta != 1:
+        bias = c.elementwise("mul", (bias, beta), _Val(c.shape(bias)))
+    return c.elementwise("add", (bias, prod), val)
+
+
+def _rule_cat(c, args, kwargs, val):
+    pieces = [p for p in args[0] if math.prod(c.shape(p)) > 0]
+    axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim", 0),
+                 len(val.shape))
+    if len(pieces) == 1:
+        return pieces[0]
+    return c.make("cat", pieces, val.shape, "f", (axis,))
+
+
+def _rule_slice_backward(c, args, kwargs, val):
+    grad, sizes, dim, start, end, step = args[:6]
+    axis = _axis(dim, len(sizes))
+    start = max(0, min(_axis(start, sizes[axis]), sizes[axis]))
+    if tuple(c.shape(grad)) == tuple(sizes):
+        return grad
+    return c.make("pad_slice", (grad,), sizes, "f", (axis, start, step))
+
+
+def _rule_select_backward(c, args, kwargs, val):
+    grad, sizes, dim, index = args[:4]
+    axis = _axis(dim, len(sizes))
+    return c.make("pad_select", (grad,), sizes, "f",
+                  (axis, _axis(index, sizes[axis])))
+
+
+def _rule_square(c, args, kwargs, val):
+    return c.elementwise("pow", args[:1], val, (2.0,))
+
+
+_RULES = {
+    # no computation
+    "alias": _rule_identity, "clone": _rule_identity,
+    "detach": _rule_identity, "lift_fresh_copy": _rule_identity,
+    "contiguous": _rule_identity, "_to_copy": _rule_identity,
+    "to": _rule_identity, "_unsafe_view": _rule_reshape,
+    "view": _rule_reshape, "reshape": _rule_reshape,
+    "squeeze": _rule_reshape, "unsqueeze": _rule_reshape,
+    "flatten": _rule_reshape, "permute": _rule_permute, "t": _rule_t,
+    "transpose": _rule_transpose, "expand": _rule_expand,
+    "slice": _rule_slice, "select": _rule_select,
+    # constants
+    "ones_like": _rule_fill(lambda a, k: 1.0),
+    "zeros_like": _rule_fill(lambda a, k: 0.0),
+    "new_ones": _rule_fill(lambda a, k: 1.0),
+    "new_zeros": _rule_fill(lambda a, k: 0.0),
+    "full_like": _rule_fill(lambda a, k: a[1]),
+    "new_full": _rule_fill(lambda a, k: a[2]),
+    "full": _rule_fill(lambda a, k: a[1]),
+    "zeros": _rule_fill(lambda a, k: 0.0),
+    "ones": _rule_fill(lambda a, k: 1.0),
+    "scalar_tensor": _rule_fill(lambda a, k: a[0]),
+    "fill": _rule_fill(lambda a, k: a[1]),
+    # elementwise
+    **{n: _rule_unary(n) for n in ("neg", "abs", "exp", "expm1", "log",
+                                   "log1p", "sqrt", "rsqrt", "tanh",
+                                   "sigmoid", "reciprocal", "relu", "sin",
+                                   "cos")},
+    "sgn": _rule_unary("sign"), "sign": _rule_unary("sign"),
+    "logical_not": _rule_unary("not"),
+    "add": _rule_binary("add"), "sub": _rule_binary("sub"),
+    "mul": _rule_binary("mul"), "div": _rule_binary("div"),
+    "rsub": _rule_rsub, "true_divide": _rule_binary("div"),
+    "maximum": _rule_binary("maximum"), "minimum": _rule_binary("minimum"),
+    "logical_and": _rule_binary("and"), "logical_or": _rule_binary("or"),
+    **{n: _rule_compare(n) for n in COMPARISONS},
+    "where": _rule_where, "masked_fill": _rule_masked_fill,
+    "clamp": _rule_clamp, "clip": _rule_clamp,
+    "clamp_min": _rule_clamp_one("clamp_min"),
+    "clamp_max": _rule_clamp_one("clamp_max"),
+    "pow": _rule_pow, "square": _rule_square,
+    "softplus": _rule_softplus,
+    "softplus_backward": _rule_softplus_backward,
+    "threshold_backward": _rule_threshold_backward,
+    "sigmoid_backward": _rule_binary_backward("sigmoid_backward"),
+    "tanh_backward": _rule_binary_backward("tanh_backward"),
+    # contractions
+    "sum": _rule_sum(False), "mean": _rule_sum(True),
+    "mm": _rule_mm, "mv": _rule_mv, "dot": _rule_dot, "bmm": _rule_bmm,
+    "addmm": _rule_addmm,
+    # scatter into zeros, concatenation
+    "cat": _rule_cat, "slice_backward": _rule_slice_backward,
+    "select_backward": _rule_select_backward,
+}
+
+
+# --------------------------------------------------------- plain back end -
+
+def _plain_op(n: Node, vals, dtype):
+    a = vals[0] if vals else None
+    op = n.op
+    if op == "neg":
+        return -a
+    if op in ("abs", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
+              "sigmoid", "reciprocal", "relu", "sin", "cos"):
+        return getattr(torch, op)(a)
+    if op == "sign":
+        return torch.sgn(a)
+    if op == "not":
+        return torch.logical_not(a)
+    if op == "float":
+        return a.to(dtype)
+    binary = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+              "div": torch.div, "maximum": torch.maximum,
+              "minimum": torch.minimum, "eq": torch.eq, "ne": torch.ne,
+              "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
+              "and": torch.logical_and, "or": torch.logical_or}
+    if op in binary:
+        return binary[op](vals[0], vals[1])
+    if op == "where":
+        return torch.where(vals[0], vals[1], vals[2])
+    if op == "clamp_min":
+        return torch.clamp(a, min=n.params[0])
+    if op == "clamp_max":
+        return torch.clamp(a, max=n.params[0])
+    if op == "pow":
+        return torch.pow(a, n.params[0])
+    if op == "softplus":
+        return torch.nn.functional.softplus(a, *n.params)
+    if op == "softplus_backward":
+        return torch.ops.aten.softplus_backward(vals[0], vals[1], *n.params)
+    if op == "threshold_backward":
+        return torch.ops.aten.threshold_backward(vals[0], vals[1],
+                                                 n.params[0])
+    if op == "sigmoid_backward":
+        return torch.ops.aten.sigmoid_backward(vals[0], vals[1])
+    if op == "tanh_backward":
+        return torch.ops.aten.tanh_backward(vals[0], vals[1])
+    raise AssertionError(op)
+
+
+def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
+              stats: Optional[dict] = None):
+    """The plain version of the generated functor: ``(u (1, C), g (dim,
+    C))`` of ``q_t (dim, C)`` with the data operands ``data`` (the caller's,
+    then the hoisted constants), interpreting the IR with torch ops in
+    ``q_t``'s dtype on its device.  A value carries the chain axis last, of
+    size C, or 1 where it does not depend on the chain.  With ``stats`` a
+    dict, ``stats["workspace_floats"]`` receives the floats of the
+    workspace the schedule stores a chain (:func:`schedule`)."""
+    dtype, dev = q_t.dtype, q_t.device
+    dim, num_chains = q_t.shape
+    if dim != ir.dim:
+        raise ValueError(f"q_t has {dim} rows; the potential was traced at "
+                         f"dim {ir.dim}")
+    data = tuple(data)
+    if len(data) != len(ir.data_shapes):
+        raise ValueError(f"{len(data)} data operands for "
+                         f"{len(ir.data_shapes)}")
+    vals = []
+    for n in ir.nodes:
+        args = [vals[a] for a in n.args]
+        if n.op == "q":
+            v = q_t
+        elif n.op == "data":
+            v = data[n.params[0]].to(device=dev, dtype=dtype).reshape(
+                *n.shape, 1)
+        elif n.op == "const":
+            v = torch.full((*n.shape, 1), n.params[0],
+                           dtype=torch.bool if n.dtype == "b" else dtype,
+                           device=dev)
+        elif n.op == "reshape":
+            v = args[0].reshape(*n.shape, args[0].shape[-1])
+        elif n.op == "permute":
+            v = args[0].permute(*n.params, len(n.params))
+        elif n.op == "expand":
+            a = args[0]
+            lead = len(n.shape) - (a.ndim - 1)
+            v = a.reshape(*(1,) * lead, *a.shape).expand(*n.shape,
+                                                         a.shape[-1])
+        elif n.op == "slice":
+            axis, start, step = n.params
+            index = [slice(None)] * axis + [
+                slice(start, start + n.shape[axis] * step, step)]
+            v = args[0][tuple(index)]
+        elif n.op == "select":
+            v = args[0].select(n.params[0], n.params[1])
+        elif n.op == "pad_slice":
+            axis, start, step = n.params
+            a = args[0]
+            v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
+            index = [slice(None)] * axis + [
+                slice(start, start + a.shape[axis] * step, step)]
+            v[tuple(index)] = a
+        elif n.op == "pad_select":
+            axis, index = n.params
+            a = args[0]
+            v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
+            v.select(axis, index).copy_(a)
+        elif n.op == "cat":
+            c = max(a.shape[-1] for a in args)
+            v = torch.cat([a.expand(*a.shape[:-1], c) for a in args],
+                          dim=n.params[0])
+        elif n.op == "sum":
+            axes, keepdim = n.params
+            v = args[0].sum(dim=axes, keepdim=keepdim) if axes else args[0]
+        elif n.op == "mm":
+            a, b = args
+            c = max(a.shape[-1], b.shape[-1])
+            v = torch.einsum("mkc,knc->mnc", a.expand(*a.shape[:-1], c),
+                             b.expand(*b.shape[:-1], c))
+        else:
+            v = _plain_op(n, args, dtype)
+        vals.append(v)
+    if stats is not None:
+        stats["workspace_floats"] = schedule(ir).workspace
+    u = vals[ir.u].reshape(1, -1).expand(1, num_chains)
+    g = vals[ir.g].reshape(dim, -1).expand(dim, num_chains)
+    return u, g
+
+
+# ------------------------------------------------------------- schedule --
+
+class Schedule(NamedTuple):
+    """Where each materialised node lives (``slots``: node -> workspace
+    offset; ``registers``: nodes held in a register) and the workspace
+    floats a chain."""
+    slots: dict
+    registers: frozenset
+    workspace: int
+
+
+def _numel(shape):
+    return math.prod(shape)
+
+
+def _is_compute(n: Node) -> bool:
+    return n.op not in VIEWS and n.op not in ("q", "data", "const")
+
+
+def _reduction_length(ir, n: Node) -> int:
+    if n.op == "mm":
+        return ir.nodes[n.args[0]].shape[1]
+    axes = n.params[0]
+    shape = ir.nodes[n.args[0]].shape
+    return _numel(tuple(shape[a] for a in axes))
+
+
+def _through_views(ir, nid):
+    while ir.nodes[nid].op in VIEWS:
+        nid = ir.nodes[nid].args[0]
+    return nid
+
+
+def _cost(ir, nid, stored, memo):
+    """Ops of a node's virtual subtree."""
+    if nid in memo:
+        return memo[nid]
+    n = ir.nodes[nid]
+    if nid in stored or n.op in ("q", "data", "const"):
+        c = 0
+    else:
+        c = (1 if _is_compute(n) else 0) + (
+            4 if n.op in TRANSCENDENTAL else 0) + sum(
+                _cost(ir, a, stored, memo) for a in n.args)
+    memo[nid] = c
+    return c
+
+
+def _virtual_deps(ir, args, stored):
+    """Stored nodes reached from ``args`` through virtual nodes, and the
+    virtual compute nodes on the way."""
+    seen, deps, virt = set(), set(), set()
+    stack = list(args)
+    while stack:
+        a = stack.pop()
+        if a in seen:
+            continue
+        seen.add(a)
+        if a in stored:
+            deps.add(a)
+            continue
+        n = ir.nodes[a]
+        if _is_compute(n):
+            virt.add(a)
+        stack.extend(n.args)
+    return deps, virt
+
+
+def _stored_nodes(ir) -> set:
+    """The nodes the functor materialises (registers or workspace)."""
+    stored = set()
+    for i, n in enumerate(ir.nodes):
+        if n.op in CONTRACTIONS or (_is_compute(n) and _numel(n.shape) == 1):
+            stored.add(i)
+    for i, n in enumerate(ir.nodes):
+        if n.op != "mm":
+            continue
+        (m, _), (_, ncols) = ir.nodes[n.args[0]].shape, ir.nodes[n.args[1]].shape
+        for operand, reread in zip(n.args, (ncols > 1, m > 1)):
+            base = _through_views(ir, operand)
+            if reread and _is_compute(ir.nodes[base]):
+                stored.add(base)
+    while True:  # nodes shared by several loops, when dear to recompute
+        roots = sorted(stored) + [ir.g]
+        readers = {}
+        for r in roots:
+            _, virt = _virtual_deps(ir, ir.nodes[r].args, stored)
+            for v in virt:
+                readers.setdefault(v, set()).add(r)
+        memo = {}
+        shared = {v for v, rs in readers.items()
+                  if len(rs) > 1 and _cost(ir, v, stored, memo) > SHARE_COST}
+        if not shared:
+            return stored
+        stored |= {min(shared)}
+
+
+def schedule(ir: IR) -> Schedule:
+    stored = _stored_nodes(ir)
+    slots, offset, registers = {}, 0, set()
+    for i in sorted(stored):
+        size = _numel(ir.nodes[i].shape)
+        if size == 1:
+            registers.add(i)
+        else:
+            slots[i] = offset
+            offset += size
+    return Schedule(slots, frozenset(registers), offset)
+
+
+# --------------------------------------------------------- CUDA back end --
+
+class Ix(NamedTuple):
+    """An int index expression of C and the exclusive bound of its value."""
+    expr: str
+    bound: int
+
+    @property
+    def const(self):
+        return self.expr.isdigit()
+
+
+def _ic(v: int) -> Ix:
+    return Ix(str(v), v + 1)
+
+
+def _iadd(a: Ix, b: Ix) -> Ix:
+    if a.const and b.const:
+        return _ic(int(a.expr) + int(b.expr))
+    if a.expr == "0":
+        return b
+    if b.expr == "0":
+        return a
+    return Ix(f"({a.expr} + {b.expr})", a.bound + b.bound - 1)
+
+
+def _imul(a: Ix, k: int) -> Ix:
+    if k == 0 or a.expr == "0":
+        return _ic(0)
+    if k == 1:
+        return a
+    if a.const:
+        return _ic(int(a.expr) * k)
+    return Ix(f"({a.expr} * {k})", (a.bound - 1) * k + 1)
+
+
+def _idiv(a: Ix, k: int) -> Ix:
+    if k == 1:
+        return a
+    if a.bound <= k:
+        return _ic(0)
+    if a.const:
+        return _ic(int(a.expr) // k)
+    return Ix(f"({a.expr} / {k})", (a.bound - 1) // k + 1)
+
+
+def _imod(a: Ix, k: int) -> Ix:
+    if k == 1:
+        return _ic(0)
+    if a.bound <= k:
+        return a
+    if a.const:
+        return _ic(int(a.expr) % k)
+    return Ix(f"({a.expr} % {k})", k)
+
+
+def _strides(shape):
+    out, s = [], 1
+    for d in reversed(shape):
+        out.append(s)
+        s *= d
+    return tuple(reversed(out))
+
+
+def _unflatten(flat: Ix, shape) -> tuple:
+    return tuple(_imod(_idiv(flat, st), d)
+                 for st, d in zip(_strides(shape), shape))
+
+
+def _flatten(idx, shape) -> Ix:
+    out = _ic(0)
+    for i, st in zip(idx, _strides(shape)):
+        out = _iadd(out, _imul(i, st))
+    return out
+
+
+def _literal(x: float) -> str:
+    if math.isnan(x):
+        return "__int_as_float(0x7fc00000)"
+    if math.isinf(x):
+        return "__int_as_float(0x7f800000)" if x > 0 else \
+            "__int_as_float(0xff800000)"
+    if x == int(x) and abs(x) < 2 ** 24:
+        return f"{int(x)}.f"
+    return f"{float(x).hex()}f"
+
+
+def _pow_formula(a, e):
+    special = {2.0: f"({a} * {a})", 3.0: f"(({a} * {a}) * {a})",
+               0.5: f"sqrtf({a})", -0.5: f"(1.f / sqrtf({a}))",
+               -1.0: f"(1.f / {a})", -2.0: f"(1.f / ({a} * {a}))",
+               0.0: "1.f"}
+    return special.get(e, f"powf({a}, {_literal(e)})")
+
+
+def _formula(n: Node, a) -> str:
+    op = n.op
+    unary = {"neg": "(-{0})", "abs": "fabsf({0})", "exp": "expf({0})",
+             "expm1": "expm1f({0})", "log": "logf({0})",
+             "log1p": "log1pf({0})", "sqrt": "sqrtf({0})",
+             "rsqrt": "(1.f / sqrtf({0}))", "tanh": "tanhf({0})",
+             "sigmoid": "(1.f / (1.f + expf(-{0})))",
+             "sign": "gpg_sign({0})", "reciprocal": "(1.f / {0})",
+             "relu": "gpg_relu({0})", "sin": "sinf({0})", "cos": "cosf({0})",
+             "not": "(({0}) == 0.f ? 1.f : 0.f)", "float": "{0}"}
+    if op in unary:
+        return unary[op].format(*a)
+    simple = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
+              "div": "({0} / {1})", "maximum": "gpg_max({0}, {1})",
+              "minimum": "gpg_min({0}, {1})",
+              "and": "(({0}) != 0.f && ({1}) != 0.f ? 1.f : 0.f)",
+              "or": "(({0}) != 0.f || ({1}) != 0.f ? 1.f : 0.f)",
+              "where": "(({0}) != 0.f ? {1} : {2})",
+              "sigmoid_backward": "(({0} * (1.f - {1})) * {1})",
+              "tanh_backward": "({0} * (1.f - {1} * {1}))"}
+    if op in simple:
+        return simple[op].format(*a)
+    if op in COMPARISONS:
+        return f"({a[0]} {COMPARISONS[op]} {a[1]} ? 1.f : 0.f)"
+    if op == "clamp_min":
+        return f"gpg_clamp_min({a[0]}, {_literal(n.params[0])})"
+    if op == "clamp_max":
+        return f"gpg_clamp_max({a[0]}, {_literal(n.params[0])})"
+    if op == "pow":
+        return _pow_formula(a[0], n.params[0])
+    if op == "softplus":
+        return (f"gpg_softplus({a[0]}, {_literal(n.params[0])}, "
+                f"{_literal(n.params[1])})")
+    if op == "softplus_backward":
+        return (f"gpg_softplus_backward({a[0]}, {a[1]}, "
+                f"{_literal(n.params[0])}, {_literal(n.params[1])})")
+    if op == "threshold_backward":
+        return f"({a[1]} <= {_literal(n.params[0])} ? 0.f : {a[0]})"
+    raise AssertionError(op)
+
+
+class _Scope:
+    def __init__(self, emitter, memo=None):
+        self.emitter = emitter
+        self.lines = []
+        self.memo = dict(memo or {})
+
+    def temp(self, expr: str) -> str:
+        name = self.emitter.fresh("t")
+        self.lines.append(f"const float {name} = {expr};")
+        return name
+
+
+class _Emitter:
+    def __init__(self, ir: IR, sched: Schedule):
+        self.ir, self.sched = ir, sched
+        self.counter = 0
+        self.stored = set(sched.slots) | set(sched.registers)
+
+    def fresh(self, prefix):
+        self.counter += 1
+        return f"{prefix}{self.counter}"
+
+    # -- values
+    def load(self, nid, idx):
+        n = self.ir.nodes[nid]
+        if nid in self.sched.registers:
+            return f"r{nid}"
+        off = _flatten(idx, n.shape)
+        if n.op == "q":
+            return f"qc[{off.expr}]"
+        if n.op == "data":
+            return f"__ldg(D{n.params[0]} + {off.expr})"
+        return f"ws[{self.sched.slots[nid]} + {off.expr}]"
+
+    def value(self, nid, idx, scope: _Scope) -> str:
+        key = (nid, tuple(i.expr for i in idx))
+        if key in scope.memo:
+            return scope.memo[key]
+        n = self.ir.nodes[nid]
+        if nid in self.stored or n.op in ("q", "data"):
+            e = self.load(nid, idx)
+            if not e.startswith("r"):
+                e = scope.temp(e)
+        else:
+            e = self.compute(nid, idx, scope)
+        scope.memo[key] = e
+        return e
+
+    def compute(self, nid, idx, scope) -> str:
+        n = self.ir.nodes[nid]
+        nodes = self.ir.nodes
+        if n.op == "const":
+            return _literal(n.params[0])
+        if n.op == "reshape":
+            src = nodes[n.args[0]].shape
+            return self.value(n.args[0], _reshape_index(idx, n.shape, src),
+                              scope)
+        if n.op == "permute":
+            inner = [None] * len(idx)
+            for out_axis, in_axis in enumerate(n.params):
+                inner[in_axis] = idx[out_axis]
+            return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "expand":
+            src = nodes[n.args[0]].shape
+            lead = len(n.shape) - len(src)
+            inner = tuple(_ic(0) if s == 1 else idx[lead + k]
+                          for k, s in enumerate(src))
+            return self.value(n.args[0], inner, scope)
+        if n.op == "slice":
+            axis, start, step = n.params
+            inner = list(idx)
+            inner[axis] = _iadd(_imul(idx[axis], step), _ic(start))
+            return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "select":
+            axis, index = n.params
+            inner = list(idx[:axis]) + [_ic(index)] + list(idx[axis:])
+            return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "pad_slice":
+            axis, start, step = n.params
+            length = nodes[n.args[0]].shape[axis]
+            j = idx[axis]
+            rel = j if start == 0 else Ix(f"gpg_imax({j.expr} - {start}, 0)",
+                                          max(j.bound - start, 1))
+            inner_j = _idiv(rel, step)
+            if inner_j.bound > length:
+                inner_j = Ix(f"gpg_imin({inner_j.expr}, {length - 1})", length)
+            conds = []
+            if start > 0:
+                conds.append(f"{j.expr} >= {start}")
+            if j.bound > start + (length - 1) * step + 1:
+                conds.append(f"{j.expr} <= {start + (length - 1) * step}")
+            if step > 1:
+                conds.append(f"({j.expr} - {start}) % {step} == 0")
+            inner = list(idx)
+            inner[axis] = inner_j
+            v = self.value(n.args[0], tuple(inner), scope)
+            if not conds:
+                return v
+            return scope.temp(f"({' && '.join(conds)}) ? {v} : 0.f")
+        if n.op == "pad_select":
+            axis, index = n.params
+            inner = idx[:axis] + idx[axis + 1:]
+            v = self.value(n.args[0], inner, scope)
+            return scope.temp(f"({idx[axis].expr} == {index}) ? {v} : 0.f")
+        if n.op == "cat":
+            axis = n.params[0]
+            j = idx[axis]
+            offset, pieces = 0, []
+            for a in n.args:
+                length = nodes[a].shape[axis]
+                rel = j if offset == 0 else Ix(
+                    f"gpg_imax({j.expr} - {offset}, 0)", max(j.bound - offset, 1))
+                if rel.bound > length:
+                    rel = Ix(f"gpg_imin({rel.expr}, {length - 1})", length)
+                inner = list(idx)
+                inner[axis] = rel
+                pieces.append((offset + length,
+                               self.value(a, tuple(inner), scope)))
+                offset += length
+            expr = pieces[-1][1]
+            for end, v in reversed(pieces[:-1]):
+                expr = f"({j.expr} < {end} ? {v} : {expr})"
+            return scope.temp(expr)
+        if n.op in CONTRACTIONS:
+            raise AssertionError("contractions are always stored")
+        args = []
+        for a in n.args:
+            src = nodes[a].shape
+            lead = len(n.shape) - len(src)
+            inner = tuple(_ic(0) if s == 1 else idx[lead + k]
+                          for k, s in enumerate(src))
+            args.append(self.value(a, inner, scope))
+        return scope.temp(_formula(n, args))
+
+    # -- roots
+    def signature(self, nid):
+        """``("loop", n)``, ``("scalar",)`` or ``("warp_each", nid)``."""
+        if nid == "g":
+            return ("loop", self.ir.dim)
+        n = self.ir.nodes[nid]
+        if n.op in CONTRACTIONS:
+            out = _numel(n.shape)
+            red = _reduction_length(self.ir, n)
+            if out == 1:
+                return ("loop", red)
+            if red <= 32 or (out >= 32 and self.coalesced(n)):
+                return ("loop", out)
+            return ("warp_each", nid)
+        if _numel(n.shape) == 1:
+            return ("scalar",)
+        return ("loop", _numel(n.shape))
+
+    def coalesced(self, n: Node) -> bool:
+        """Whether one lane an output element reads a matrix product's
+        operands at neighbouring addresses across the warp's lanes (else
+        the warp takes each output in turn, its lanes along the sum)."""
+        if n.op != "mm":
+            return True
+        a, b = n.args
+        if self.ir.nodes[b].shape[1] > 1:
+            step = _lane_stride(self.ir, b, 1, self.stored)
+        else:
+            step = _lane_stride(self.ir, a, 0, self.stored)
+        return step is not None and step <= 1
+
+    def emit_root(self, nid, flat: Ix, scope, after):
+        """Statements of root ``nid`` at loop index ``flat`` into
+        ``scope``; statements to run after the loop into ``after``."""
+        ir = self.ir
+        if nid == "g":
+            v = self.value(ir.g, _unflatten(flat, (ir.dim,)), scope)
+            scope.lines.append(f"gc[{flat.expr}] = {v};")
+            return
+        n = ir.nodes[nid]
+        if n.op not in CONTRACTIONS:
+            v = self.compute(nid, _unflatten(flat, n.shape), scope)
+            if nid in self.sched.registers:
+                scope.lines.append(f"const float r{nid} = {v};")
+            else:
+                scope.lines.append(f"ws[{self.sched.slots[nid]} + "
+                                   f"{flat.expr}] = {v};")
+            return
+        out, red = _numel(n.shape), _reduction_length(ir, n)
+        if out == 1:  # the warp sums the whole contraction
+            acc = f"a{nid}"
+            scope.lines.append(self.term(n, _ic(0), flat, scope, acc))
+            after.append(("decl", f"float {acc} = 0.f;"))
+            after.append(("post", f"const float r{nid} = warp_sum({acc});"))
+            return
+        acc = self.fresh("acc")
+        scope.lines.append(f"float {acc} = 0.f;")
+        scope.lines.append(f"for (int k = 0; k < {red}; ++k) {{")
+        inner = _Scope(self, scope.memo)
+        inner.lines.append(self.term(n, flat, Ix("k", red), inner, acc))
+        scope.lines.extend("  " + line for line in inner.lines)
+        scope.lines.append("}")
+        scope.lines.append(f"ws[{self.sched.slots[nid]} + {flat.expr}] = "
+                           f"{acc};")
+
+    def term(self, n: Node, out_flat: Ix, k: Ix, scope, acc) -> str:
+        """``acc`` updated by term ``k`` of output element ``out_flat`` of
+        contraction ``n``, the operands' statements into ``scope``."""
+        ir = self.ir
+        if n.op == "mm":
+            (m, kk), (_, ncols) = (ir.nodes[n.args[0]].shape,
+                                   ir.nodes[n.args[1]].shape)
+            i, j = _unflatten(out_flat, (m, ncols))
+            a = self.value(n.args[0], (i, k), scope)
+            b = self.value(n.args[1], (k, j), scope)
+            return f"{acc} = fmaf({a}, {b}, {acc});"
+        axes, keepdim = n.params
+        src = ir.nodes[n.args[0]].shape
+        kept = [d for a, d in enumerate(src) if a not in axes]
+        out_idx = _unflatten(out_flat, tuple(kept))
+        red_idx = _unflatten(k, tuple(src[a] for a in axes))
+        idx, ko, kr = [], 0, 0
+        for a in range(len(src)):
+            if a in axes:
+                idx.append(red_idx[kr])
+                kr += 1
+            else:
+                idx.append(out_idx[ko])
+                ko += 1
+        v = self.value(n.args[0], tuple(idx), scope)
+        return f"{acc} = {acc} + {v};"
+
+    def warp_each(self, nid, lines):
+        """The warp over the sum of each output of contraction ``nid``,
+        WARP_OUTPUTS outputs at a time: their independent sums and
+        ``warp_sum``s overlap (each output's order is that of one at a
+        time)."""
+        n = self.ir.nodes[nid]
+        out, red = _numel(n.shape), _reduction_length(self.ir, n)
+        unroll = min(WARP_OUTPUTS, out)
+        ragged = out % unroll != 0
+        lines.append(f"for (int o0 = 0; o0 < {out}; o0 += {unroll}) {{")
+        lines.extend(f"  float acc{u} = 0.f;" for u in range(unroll))
+        lines.append(f"  for (int k = lane; k < {red}; k += 32) {{")
+        scope = _Scope(self)
+        for u in range(unroll):  # a ragged tail recomputes the last output
+            o = (Ix(f"gpg_imin(o0 + {u}, {out - 1})", out) if ragged
+                 else Ix(f"(o0 + {u})", out))
+            scope.lines.append(self.term(n, o, Ix("k", red), scope,
+                                         f"acc{u}"))
+        lines.extend("    " + line for line in scope.lines)
+        lines.append("  }")
+        for u in range(unroll):
+            guard = f" && o0 + {u} < {out}" if ragged else ""
+            lines.append(f"  acc{u} = warp_sum(acc{u});")
+            lines.append(f"  if (lane == 0{guard}) "
+                         f"ws[{self.sched.slots[nid]} + o0 + {u}] = acc{u};")
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def groups(self):
+        """Roots in groups: each loop group one lane-strided loop."""
+        ir = self.ir
+        roots = sorted(self.stored) + ["g"]
+        group_of, groups = {}, []
+        for r in roots:
+            args = ir.nodes[r].args if r != "g" else (ir.g,)
+            deps, _ = _virtual_deps(ir, args, self.stored)
+            if r == "g" and ir.g in self.stored:
+                deps = {ir.g}
+            after = max((group_of[d] for d in deps), default=-1)
+            sig = self.signature(r)
+            placed = None
+            if sig[0] in ("loop", "scalar"):
+                for gi in range(after + 1, len(groups)):
+                    if groups[gi][0] == sig:
+                        placed = gi
+                        break
+            if placed is None:
+                groups.append((sig, []))
+                placed = len(groups) - 1
+            groups[placed][1].append(r)
+            group_of[r] = placed
+        return groups
+
+    def body(self) -> list:
+        lines = []
+        for sig, roots in self.groups():
+            if sig[0] == "scalar":
+                scope = _Scope(self)
+                for r in roots:
+                    self.emit_root(r, _ic(0), scope, [])
+                lines.extend(scope.lines)
+                continue
+            if sig[0] == "warp_each":
+                self.warp_each(roots[0], lines)
+                continue
+            n = sig[1]
+            scope, after = _Scope(self), []
+            flat = Ix("i", n)
+            for r in roots:
+                self.emit_root(r, flat, scope, after)
+            lines.extend(s for kind, s in after if kind == "decl")
+            lines.append(f"for (int i = lane; i < {n}; i += 32) {{")
+            lines.extend("  " + line for line in scope.lines)
+            lines.append("}")
+            lines.extend(s for kind, s in after if kind == "post")
+            lines.append("__syncwarp();")
+        scope = _Scope(self)
+        u = self.value(self.ir.u, (), scope)
+        lines.extend(scope.lines)
+        lines.append(f"if (lane == 0) S.nu[c] = {u};")
+        lines.append("__syncwarp();")
+        return lines
+
+
+def _lane_stride(ir, nid, axis, stored):
+    """Elements between the loads of neighbouring indices along ``axis`` of
+    node ``nid`` (0: one element for all), or None where unknown."""
+    n = ir.nodes[nid]
+    if n.shape[axis] == 1 or n.op == "const":
+        return 0
+    if nid in stored or n.op in ("q", "data"):
+        return _strides(n.shape)[axis]
+    src = ir.nodes[n.args[0]].shape if n.args else ()
+    if n.op == "permute":
+        return _lane_stride(ir, n.args[0], n.params[axis], stored)
+    if n.op == "reshape":
+        out_axes = [k for k, d in enumerate(n.shape) if d != 1]
+        in_axes = [k for k, d in enumerate(src) if d != 1]
+        if [n.shape[k] for k in out_axes] != [src[k] for k in in_axes]:
+            return None
+        return _lane_stride(ir, n.args[0], in_axes[out_axes.index(axis)],
+                            stored)
+    if n.op == "slice":
+        inner = _lane_stride(ir, n.args[0], axis, stored)
+        step = n.params[2] if axis == n.params[0] else 1
+        return None if inner is None else inner * step
+    if n.op == "select":
+        return _lane_stride(ir, n.args[0],
+                            axis if axis < n.params[0] else axis + 1, stored)
+    # expand, elementwise, pad, cat: the widest of the arguments' loads
+    steps = []
+    for a in n.args:
+        a_shape = ir.nodes[a].shape
+        k = axis - (len(n.shape) - len(a_shape))
+        if k >= 0 and (n.op != "cat" or k != n.params[0]):
+            steps.append(_lane_stride(ir, a, k, stored))
+    if any(st is None for st in steps):
+        return None
+    return max(steps, default=0)
+
+
+def _reshape_index(idx, out_shape, in_shape) -> tuple:
+    """The index into ``in_shape`` of element ``idx`` of its reshape to
+    ``out_shape`` (row-major order kept)."""
+    out_axes = [k for k, s in enumerate(out_shape) if s != 1]
+    in_axes = [k for k, s in enumerate(in_shape) if s != 1]
+    if [out_shape[k] for k in out_axes] == [in_shape[k] for k in in_axes]:
+        inner = [_ic(0)] * len(in_shape)
+        for ko, ki in zip(out_axes, in_axes):
+            inner[ki] = idx[ko]
+        return tuple(inner)
+    return _unflatten(_flatten(idx, out_shape), in_shape)
+
+
+def emit_cuda(ir: IR) -> str:
+    """The C++ text of ``struct GenericPG``, the device functor of ``ir`` to
+    the NUTS core's contract (``csrc/nuts_core.cuh``, helpers in
+    ``csrc/generic_pg.cuh``).  Deterministic: the same IR gives the same
+    text."""
+    from aehmc_tpu_torch.ops.launch_plan import generic_workspace_shared
+
+    sched = schedule(ir)
+    shared = generic_workspace_shared(ir.dim, sched.workspace)
+    em = _Emitter(ir, sched)
+    body = em.body()
+    lengths = ", ".join(str(_numel(s)) for s in ir.data_shapes) or "0"
+    data_ptrs = [f"    const float* __restrict__ D{j} = data.ptr[{j}];"
+                 for j in range(len(ir.data_shapes))]
+    ops = sorted({n.op for n in ir.nodes})
+    head = [
+        "// Generated by aehmc_tpu_torch/ops/generic_pg.py:emit_cuda from the",
+        f"// traced potential {ir.key()}: dim {ir.dim}, layout {ir.layout},",
+        f"// {len(ir.nodes)} IR nodes ({', '.join(ops)}),",
+        f"// {len(ir.data_shapes)} data operands of "
+        f"{', '.join(str(s) for s in ir.data_shapes) or 'none'}.",
+        "struct GenericPG : aehmc::generic::Base {",
+        f"  static constexpr int DIM = {ir.dim};",
+        f"  static constexpr int W = {sched.workspace};",
+        f"  static constexpr bool WS_SHARED = "
+        f"{'true' if shared else 'false'};",
+        f"  static constexpr int NDATA = {len(ir.data_shapes)};",
+        "",
+        "  bool fits(int dim, const aehmc::Geometry& G) const {",
+        f"    static const long long lengths[] = {{{lengths}}};",
+        "    return dim == DIM && no_tile(G) &&",
+        "           lengths_are(lengths, NDATA) &&",
+        "           (W == 0 || WS_SHARED || ws_global);",
+        "  }",
+        "",
+        "  static __device__ Scratch carve_scratch(float* base, int) {",
+        "    return carve<WS_SHARED>(base);",
+        "  }",
+        "",
+        "  __device__ void operator()(const Scratch& S, int, int ds,",
+        "                             const float* q, float* grad,",
+        "                             bool = false) const {",
+        "    const int c = threadIdx.x / 32, lane = threadIdx.x % 32;",
+        "    const float* __restrict__ qc = q + c * ds;",
+        "    float* __restrict__ gc = grad + c * ds;",
+        "    float* __restrict__ ws = chain_workspace<WS_SHARED, W>(S, c);",
+        "    (void)qc;",
+        "    (void)ws;",
+        *data_ptrs,
+    ]
+    tail = ["  }", "};", ""]
+    return "\n".join(head + ["    " + line for line in body] + tail)
+
+
+# ------------------------------------------------------------ binding ----
+
+@dataclass
+class Bound:
+    """A potential bound for the card: its IR, the hoisted constants (data
+    operands after the caller's), the functor's text and workspace
+    floats a chain."""
+
+    ir: IR
+    constants: tuple
+    source: str
+    workspace: int
+    ops: tuple
+
+    def library(self):
+        """The kernels 1-4 built on this functor (built once per text)."""
+        from aehmc_tpu_torch.ops._build import load_generated
+
+        return load_generated(self.source)
+
+    def operands(self, data, device) -> tuple:
+        """The data operands of a launch: the caller's data, then the
+        hoisted constants, contiguous float32 on ``device``."""
+        ops = []
+        for j, d in enumerate((*data, *self.constants)):
+            if not isinstance(d, torch.Tensor) or d.dtype != torch.float32:
+                raise TypeError(f"data operand {j} must be a float32 tensor")
+            if d.device != device:
+                d = d.to(device)
+            ops.append(d.contiguous())
+        shapes = tuple(tuple(d.shape) for d in ops)
+        if shapes != self.ir.data_shapes:
+            raise ValueError(f"data operands of shapes {shapes}; the potential "
+                             f"was traced with {self.ir.data_shapes}")
+        return tuple(ops)
+
+
+# potential function -> {(layout, dim, with_grad, data signature): Bound}
+_BOUND = weakref.WeakKeyDictionary()
+
+
+def bind(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
+         layout: str = "t", with_grad: bool = True, device=None) -> Bound:
+    """Trace, compile (to text) and cache the functor of ``fn``: one trace
+    per function, layout, dim and data signature, so a warmup's launches
+    trace once; the library is built once per text
+    (:meth:`Bound.library`)."""
+    data = _require_f32(data)
+    device = torch.device(device) if device is not None else (
+        data[0].device if data else torch.device("cpu"))
+    key = (layout, dim, with_grad, str(device),
+           tuple((tuple(d.shape), str(d.device)) for d in data))
+    try:
+        cache = _BOUND.setdefault(fn, {})
+    except TypeError:  # not weakly referenceable: no cache
+        cache = {}
+    if key not in cache:
+        traced = trace_potential(fn, data, dim, layout=layout,
+                                 with_grad=with_grad, device=device)
+        cache[key] = Bound(traced.ir, traced.constants,
+                           emit_cuda(traced.ir),
+                           schedule(traced.ir).workspace, traced.ops)
+    return cache[key]
+
+
+def launch_operands(bound: Bound, data, device, blocks: int):
+    """ctypes arguments naming the potential in a generic launcher: the
+    table of data pointers and lengths, its size, and the global workspace
+    (allocated here when the plan keeps it out of shared memory), plus the
+    tensors to keep alive until the launch is queued."""
+    import ctypes
+
+    from aehmc_tpu_torch.ops.launch_plan import generic_workspace_floats
+
+    ops = bound.operands(data, device)
+    if len(ops) > MAX_DATA:
+        raise ValueError(f"{len(ops)} data operands; the functor takes at "
+                         f"most {MAX_DATA}")
+    ptrs = (ctypes.c_void_p * MAX_DATA)(*[d.data_ptr() for d in ops])
+    lens = (ctypes.c_longlong * MAX_DATA)(*[d.numel() for d in ops])
+    floats = generic_workspace_floats(bound.ir.dim, bound.workspace, blocks)
+    ws = (torch.empty(floats, dtype=torch.float32, device=device)
+          if floats else None)
+    return (ptrs, lens, len(ops), None if ws is None else ws.data_ptr()), \
+        (ops, ws)

@@ -163,8 +163,9 @@ def _check_cuda_args(potential_and_grad_t, data, q_t):
     if potential_and_grad_t is not logistic_pg_t:
         raise NotImplementedError(
             "the CUDA GHMC kernels compute the logistic-regression potential "
-            "(models.logistic_pg_t) only; other potentials on the card are "
-            "ROADMAP.md item 1.4"
+            "(models.logistic_pg_t) only; a potential with no device functor "
+            "on the card is ROADMAP.md item 1.10b (a generated functor in "
+            "the HMC core)"
         )
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")

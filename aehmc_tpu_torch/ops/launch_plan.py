@@ -18,7 +18,12 @@ The potentials of Neal's funnel and of eight schools are functors with no
 data matrix (``csrc/hierarchical_pg.cuh``), taken by the NUTS kernels 1 and
 2: their scratch is the block's potentials alone, so their plan has no tile
 (``points`` and ``row_stride`` 0) and 8 chains a block
-(``launch_plan(..., functor="funnel" | "eight_schools")``).
+(``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
+functor generated from a potential's traced gradient graph
+(``functor="generic"``, ``csrc/generic_pg.cuh``): its scratch adds a
+per-chain workspace of ``workspace`` floats, kept in shared memory when two
+blocks still fit an SM with it (:func:`generic_workspace_shared`), else in
+a global buffer of :func:`generic_workspace_floats` floats.
 
 The chains a block (:func:`chains_per_block`) depend on the core, dim and
 X's type only, never on the chain count, so a chain's bits do not depend on
@@ -62,7 +67,8 @@ X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # the potential's device functor -> whether it reads a data matrix X through
 # a shared tile (logistic_pg.cuh) or keeps only the block's potentials in
 # its scratch (hierarchical_pg.cuh: the NUTS core only)
-FUNCTORS = {"logistic": True, "funnel": False, "eight_schools": False}
+FUNCTORS = {"logistic": True, "funnel": False, "eight_schools": False,
+            "generic": False}
 
 
 def scratch_floats(chains: int) -> int:
@@ -88,15 +94,20 @@ def row_stride(dim: int, x_dtype=torch.float32) -> int:
 
 
 def smem_bytes(core: str, dim: int, points: int, x_dtype=torch.float32,
-               chains: int = 8, functor: str = "logistic") -> int:
+               chains: int = 8, functor: str = "logistic",
+               workspace: int = 0) -> int:
     """Bytes of dynamic shared memory a block of ``core`` with ``chains``
     chains takes with a tile of ``points`` rows of X in ``x_dtype``; with a
-    functor that reads no X, its rows and the chains' potentials."""
+    functor that reads no X, its rows and the chains' potentials, and for a
+    generated one the chains' ``workspace`` floats each when they are kept
+    in shared memory."""
     ds = state_stride(dim)
     per_chain, per_block = CORES[core][:2]
     rows = (per_chain * chains + per_block) * ds
     if not FUNCTORS[functor]:
-        return 4 * (rows + chains)
+        shared = functor == "generic" and generic_workspace_shared(dim,
+                                                                   workspace)
+        return 4 * (rows + chains + (chains * workspace if shared else 0))
     qb = chains * ds if x_dtype == torch.bfloat16 else 0
     tile = points * row_stride(dim, x_dtype) * X_BYTES[x_dtype]
     return 4 * (rows + scratch_floats(chains) + qb) + tile
@@ -115,6 +126,22 @@ def chains_per_block(core: str, dim: int, x_dtype=torch.float32) -> int:
             smem_bytes(core, dim, POINTS[0], x_dtype, 16)):
         return 16
     return 8
+
+
+def generic_workspace_shared(dim: int, workspace: int) -> bool:
+    """Whether a generated functor's ``workspace`` floats a chain go to
+    shared memory: when two NUTS blocks still fit an SM with them."""
+    rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
+    smem = 4 * (rows + NUTS_CHAINS + NUTS_CHAINS * workspace)
+    return workspace > 0 and two_blocks_fit(smem)
+
+
+def generic_workspace_floats(dim: int, workspace: int, blocks: int) -> int:
+    """Floats of a generated functor's global workspace, (blocks, 8,
+    workspace), or 0 when it is in shared memory."""
+    if workspace == 0 or generic_workspace_shared(dim, workspace):
+        return 0
+    return blocks * NUTS_CHAINS * workspace
 
 
 def checkpoint_floats(dim: int, max_exp: int, blocks: int) -> int:
@@ -137,13 +164,15 @@ class LaunchPlan:
 
 
 def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
-                x_dtype=torch.float32, functor: str = "logistic") -> LaunchPlan:
+                x_dtype=torch.float32, functor: str = "logistic",
+                workspace: int = 0) -> LaunchPlan:
     """The geometry of a launch of ``core`` ("nuts", "hmc" or "fused_hmc")
     on ``num_chains`` chains of ``dim`` dimensions (``max_exp`` = K for
     NUTS) with X in ``x_dtype`` (float32 or bfloat16), for the potential's
     ``functor`` (:data:`FUNCTORS`; one with no X has no tile and ignores
-    ``x_dtype``).  Raises ``ValueError``, naming the limit, for a shape the
-    kernels do not take."""
+    ``x_dtype``; a generated one has ``workspace`` floats a chain).
+    Raises ``ValueError``, naming the limit, for a shape the kernels do not
+    take."""
     if core not in CORES:
         raise ValueError(f"unknown core {core!r}; expected one of "
                          f"{sorted(CORES)}")
@@ -161,7 +190,8 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
         raise ValueError(f"max_num_expansions {max_exp} is outside "
                          f"[1, {MAX_EXP}]")
     if not FUNCTORS[functor]:
-        smem = smem_bytes(core, dim, 0, chains=NUTS_CHAINS, functor=functor)
+        smem = smem_bytes(core, dim, 0, chains=NUTS_CHAINS, functor=functor,
+                          workspace=workspace)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"{core} at dim {dim} needs {smem} bytes of shared memory a "

@@ -15,12 +15,15 @@ plain PyTorch versions and the wrappers of kernels 3 and 4
 
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  On the card the
-kernels compute the logistic potential in their own body: the logistic entry
-points always, the generic ones when ``potential_fn`` is
-:func:`logistic_potential` with ``data = (X, Xᵀ, y_row)``.  Any other
-potential on a CUDA tensor raises ``NotImplementedError``.  The metric is a
-diagonal ``M⁻¹``, as in the JAX kernels.  ``block_chains`` is accepted and
-has no effect: a CUDA block holds 8 chains.
+kernels compute the potential in their own body: the hand-written logistic
+functor for the logistic entry points, and for the generic ones when
+``potential_fn`` is :func:`logistic_potential` with ``data = (X, Xᵀ,
+y_row)``; any other float32 ``potential_fn`` a functor generated from its
+traced gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`, kernels
+``nuts_transition_std_generic`` and ``nuts_sampling_std_generic``), or it
+raises.  The metric is a diagonal ``M⁻¹``, as in the JAX kernels.
+``block_chains`` is accepted and has no effect: a CUDA block holds 8
+chains.
 
 The plain transition is the transposed core
 (:func:`aehmc_tpu_torch.ops.nuts_fused_small._transition_core_t`) on the
@@ -105,12 +108,14 @@ def _logistic_pot_grad(prior_precision: float, matmul_dtype) -> Callable:
 class _Model(NamedTuple):
     """A standard-layout potential: ``pot_grad(q) -> (u (C, 1), g (C,
     dim))`` on its data for the plain version, the data, and ``(prior
-    precision, bf16)`` of the kernels' logistic functor when the card can
-    compute it (None otherwise)."""
+    precision, bf16)`` of the kernels' logistic functor when it computes
+    the potential (None otherwise: the potential ``fn`` then gets a
+    generated functor on the card)."""
 
     pot_grad: Callable
     data: tuple
     card: Optional[tuple]
+    fn: Optional[Callable] = None
 
 
 def _generic_model(potential_fn, data) -> _Model:
@@ -123,7 +128,7 @@ def _generic_model(potential_fn, data) -> _Model:
         return u.reshape(-1, 1), g
 
     card = (1.0, False) if potential_fn is logistic_potential else None
-    return _Model(pot_grad_col, data, card)
+    return _Model(pot_grad_col, data, card, potential_fn)
 
 
 def _logistic_model(X, y, prior_precision, matmul_dtype) -> _Model:
@@ -138,18 +143,20 @@ def _logistic_model(X, y, prior_precision, matmul_dtype) -> _Model:
                   (float(prior_precision), matmul_dtype == torch.bfloat16))
 
 
-def _check_card(model: _Model, q) -> None:
-    if model.card is None:
-        raise NotImplementedError(
-            "the CUDA standard-layout NUTS kernels compute the logistic-"
-            "regression potential (nuts_fused.logistic_potential or "
-            "fused_nuts_transition) only; other potentials on the card are "
-            "ROADMAP.md item 1.4"
-        )
+def _check_card(model: _Model, q):
+    """Raise for what kernels 3 and 4 do not take; return the generated
+    functor of a potential with no hand-written one
+    (:func:`generic_pg.bind`, cached), else None."""
     if q.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q.dtype}")
+    if model.card is None:
+        from aehmc_tpu_torch.ops.generic_pg import bind
+
+        return bind(model.fn, model.data, q.shape[1], layout="std",
+                    device=q.device)
     if len(model.data) != 3:
         raise ValueError("logistic data is (X, Xᵀ, y_row)")
+    return None
 
 
 def nuts_transition_std_plain(q, u, g, inverse_mass, step_size, pot_grad, *,
@@ -187,14 +194,14 @@ def _transition(model: _Model, q, u, g, momentum, directions, u_bias, u_leaf,
     streams = dict(momentum=momentum, directions=directions, u_bias=u_bias,
                    u_leaf=u_leaf, seed=seed)
     if q.is_cuda:
-        _check_card(model, q)
+        bound = _check_card(model, q)
         streams = {k: v if v is None or k == "seed" else v.contiguous()
                    for k, v in streams.items()}
         return nuts_transition_std_cuda(
             q.contiguous(), u, g.contiguous(), inverse_mass, step_size,
             model.data, max_exp=max_exp,
             divergence_threshold=divergence_threshold, card=model.card,
-            **streams,
+            bound=bound, **streams,
         )
     return nuts_transition_std_plain(
         q, u, g, inverse_mass, step_size, model.pot_grad, max_exp=max_exp,
@@ -291,12 +298,13 @@ def _fused_sampling_call(model: _Model, q, potential, grad, inverse_mass,
     one transition per draw bit for bit.  Returns ``(positions (draws, C,
     dim) float32 or None, stats (draws, C, 8), q, U (C, 1), grad)``."""
     if q.is_cuda:
-        _check_card(model, q)
+        bound = _check_card(model, q)
         return nuts_sampling_std_cuda(
-            q, potential, grad, inverse_mass, step_size, model.data, seed,
+            q.contiguous(), potential, grad.contiguous(), inverse_mass,
+            step_size, model.data, seed,
             num_draws, max_exp=max_num_expansions,
             divergence_threshold=divergence_threshold, card=model.card,
-            collect_positions=collect_positions,
+            collect_positions=collect_positions, bound=bound,
         )
     return _sampling_plain(
         model, q, potential, grad, inverse_mass, step_size, seed, num_draws,
@@ -443,43 +451,62 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q, u, g, inverse_mass, data, max_exp, bf16):
+def _cuda_operands(q, u, g, inverse_mass, data, max_exp, bf16, bound=None):
     """Validate and normalise the operands shared by kernels 3 and 4, and
     plan the launch: X in the functor's operand type (a float32 X of a
     bfloat16 call rounded once, a bfloat16 X of a float32 call widened),
-    and the U-turn checkpoint buffer."""
+    or a generated functor's (``bound``) plan with its workspace; and the
+    U-turn checkpoint buffer."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     num_chains, dim = q.shape
-    X, _, y = data
-    num_points = X.shape[0]
     device = q.device
     im = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)
     if im.ndim == 2:
         raise ValueError("the standard-layout NUTS kernels take a diagonal "
                          "inverse mass (the JAX kernels' contract)")
     ops = dict(q=q, u=u.reshape(num_chains, 1), g=g,
-               y=y.reshape(num_points),
                im=im.reshape(-1).expand(dim).contiguous())
     shapes = dict(q=(num_chains, dim), u=(num_chains, 1), g=(num_chains, dim),
-                  y=(num_points,), im=(dim,))
+                  im=(dim,))
+    num_points = 0
+    if bound is None:
+        X, _, y = data
+        num_points = X.shape[0]
+        ops["y"], shapes["y"] = y.reshape(num_points), (num_points,)
+        require_x_cuda(X, num_points, dim, device)
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    require_x_cuda(X, num_points, dim, device)
-    x_dtype = torch.bfloat16 if bf16 else torch.float32
-    plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype)
-    ops["X"] = data_rows(X, plan.row_stride, x_dtype)
+    if bound is None:
+        x_dtype = torch.bfloat16 if bf16 else torch.float32
+        plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype)
+        ops["X"] = data_rows(X, plan.row_stride, x_dtype)
+    else:
+        plan = launch_plan("nuts", dim, max_exp, num_chains,
+                           functor="generic", workspace=bound.workspace)
     ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
                             dtype=torch.float32, device=device)
     return ops, plan, (dim, num_points, num_chains)
 
 
+def _generic_launcher(bound, data, q, plan, kernel):
+    """The generated functor's launcher of kernel 3 or 4 (``kernel``
+    "transition" or "sampling", the standard layout), its library, the
+    arguments that name the potential, and the tensors to keep alive."""
+    from aehmc_tpu_torch.ops.generic_pg import launch_operands
+
+    lib = bound.library()
+    generic, keep = launch_operands(bound, data, q.device, plan.blocks)
+    return lib, getattr(lib, f"generic_{kernel}_launch"), generic, keep
+
+
 def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
                              max_exp: int, divergence_threshold: float = 1000.0,
                              card=(1.0, False), momentum=None, directions=None,
-                             u_bias=None, u_leaf=None, seed=None):
+                             u_bias=None, u_leaf=None, seed=None, bound=None):
     """Launch kernel 3 (``nuts_transition_std``) on CUDA tensors; ``card``
-    is ``(prior_precision, bf16)`` of the logistic functor.  Returns ``(q, u
+    is ``(prior_precision, bf16)`` of the logistic functor, or ``bound`` a
+    generated functor (``nuts_transition_std_generic``).  Returns ``(q, u
     (C, 1), g, stats (C, 8))``."""
     from aehmc_tpu_torch.ops._build import (
         check_launch,
@@ -487,9 +514,9 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
         require_f32_cuda,
     )
 
-    prior_precision, bf16 = card
+    prior_precision, bf16 = card or (1.0, False)
     ops, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q, u, g, inverse_mass, data, max_exp, bf16)
+        q, u, g, inverse_mass, data, max_exp, bf16, bound)
     if seed is None:
         ext = dict(p=(momentum, (num_chains, dim)),
                    dirs=(directions, (num_chains, max_exp)),
@@ -503,16 +530,31 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
     q_out, g_out = torch.empty_like(q), torch.empty_like(q)
     u_out = torch.empty((num_chains, 1), dtype=torch.float32, device=q.device)
     stats = torch.empty((num_chains, 8), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    seeded = (int(seed is not None),
+              0 if seed is None else int(seed) & MASK32)
+    if bound is not None:
+        lib, launch, generic, keep = _generic_launcher(bound, data, q, plan,
+                                                       "transition")
+        err = launch(
+            1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
+            *seeded, *generic, _ptr(ops["im"]), None, 0, float(step_size),
+            None, float(divergence_threshold), dim, num_chains, max_exp,
+            _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats),
+            _ptr(ops["ck"]), *plan.args(), stream,
+        )
+        check_launch(lib, err, "nuts_transition_std")
+        del keep
+        LAUNCHES["nuts_transition_std_generic"] += 1
+        return q_out, u_out, g_out, stats
     lib = load_kernels("nuts_fused.cu")
     err = lib.nuts_transition_std_launch(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
-        int(seed is not None), 0 if seed is None else int(seed) & MASK32,
+        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs, *seeded,
         _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
         float(step_size), float(divergence_threshold), float(prior_precision),
         int(bf16), dim, num_points, num_chains, max_exp, _ptr(q_out),
         _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
-        *plan.args(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *plan.args(), stream,
     )
     check_launch(lib, err, "nuts_transition_std")
     LAUNCHES["nuts_transition_std"] += 1
@@ -522,15 +564,18 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
 def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
                            num_draws, *, max_exp: int,
                            divergence_threshold: float = 1000.0,
-                           card=(1.0, False), collect_positions: bool = True):
-    """Launch kernel 4 (``nuts_sampling_std``): all draws in one launch.
-    Returns ``(positions (draws, C, dim) float32 or None, stats (draws, C,
-    8), q, u (C, 1), g)``."""
+                           card=(1.0, False), collect_positions: bool = True,
+                           bound=None):
+    """Launch kernel 4 (``nuts_sampling_std``): all draws in one launch,
+    with the logistic functor of ``card`` or the generated functor
+    ``bound`` (``nuts_sampling_std_generic``).  Returns ``(positions
+    (draws, C, dim) float32 or None, stats (draws, C, 8), q, u (C, 1),
+    g)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
 
-    prior_precision, bf16 = card
+    prior_precision, bf16 = card or (1.0, False)
     ops, plan, (dim, num_points, num_chains) = _cuda_operands(
-        q, u0, g0, inverse_mass, data, max_exp, bf16)
+        q, u0, g0, inverse_mass, data, max_exp, bf16, bound)
     device = q.device
     pos = (torch.empty((num_draws, num_chains, dim), dtype=torch.float32,
                        device=device) if collect_positions else None)
@@ -538,6 +583,21 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
                         device=device)
     q_out, g_out = torch.empty_like(q), torch.empty_like(q)
     u_out = torch.empty((num_chains, 1), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if bound is not None:
+        lib, launch, generic, keep = _generic_launcher(bound, data, q, plan,
+                                                       "sampling")
+        err = launch(
+            1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+            int(seed) & MASK32, int(num_draws), *generic, _ptr(ops["im"]),
+            None, 0, float(step_size), None, float(divergence_threshold),
+            dim, num_chains, max_exp, _ptr(pos), 0, _ptr(stats), _ptr(q_out),
+            _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
+        )
+        check_launch(lib, err, "nuts_sampling_std")
+        del keep
+        LAUNCHES["nuts_sampling_std_generic"] += 1
+        return pos, stats, q_out, u_out, g_out
     lib = load_kernels("nuts_fused.cu")
     err = lib.nuts_sampling_std_launch(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
@@ -545,8 +605,7 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
         _ptr(ops["im"]), float(step_size), float(divergence_threshold),
         float(prior_precision), int(bf16), dim, num_points, num_chains,
         max_exp, _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), _ptr(ops["ck"]), *plan.args(),
-        torch.cuda.current_stream(device).cuda_stream,
+        _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
     )
     check_launch(lib, err, "nuts_sampling_std")
     LAUNCHES["nuts_sampling_std"] += 1

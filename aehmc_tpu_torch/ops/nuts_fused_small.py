@@ -11,14 +11,18 @@ under the JAX module's names.
 
 Dispatch is by the device of the chain state and nothing else: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.  The
-kernels compute one of three potentials and gradients in their own body, a
-device functor each, picked by the identity of ``potential_and_grad_t``:
-the logistic regression's (:func:`aehmc_tpu_torch.models.logistic_pg_t`,
-with float32 or bfloat16 operands as X's dtype says; the model builder's
-default is bfloat16, as in the JAX package), Neal's funnel's
-(:func:`aehmc_tpu_torch.models.funnel_pg_t`) and eight schools'
-(:func:`aehmc_tpu_torch.models.schools_pg_t`).  A CUDA tensor with any other
-potential raises ``NotImplementedError``.
+kernels compute the potential and gradient in their own body, a device
+functor.  Three are hand-written, picked by the identity of
+``potential_and_grad_t``: the logistic regression's
+(:func:`aehmc_tpu_torch.models.logistic_pg_t`, with float32 or bfloat16
+operands as X's dtype says; the model builder's default is bfloat16, as in
+the JAX package), Neal's funnel's (:func:`aehmc_tpu_torch.models.funnel_pg_t`)
+and eight schools' (:func:`aehmc_tpu_torch.models.schools_pg_t`).  Any other
+float32 potential, given as ``potential_and_grad_t`` or as ``potential_fn_t``
+(differentiated in the trace), gets a functor generated from its traced
+gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`, kernels
+``nuts_transition_generic`` and ``nuts_sampling_generic``); one the
+compiler cannot take raises.
 
 Randomness is either external (``p, dirs, u_bias, u_leaf`` tensors, the
 oracle-parity mode) or a Philox key per draw.  The generator fills exactly
@@ -27,6 +31,7 @@ plain transition fed those streams computes what the kernel computes, and the
 whole-run kernel equals one launch per draw bit for bit.
 """
 
+import functools
 from typing import Callable, Sequence
 
 import torch
@@ -333,28 +338,49 @@ _CUDA_FUNCTORS = (
 _MODEL_NUMBERS = {"funnel": 1, "eight_schools": 2}
 
 
+# the generated functor's entry in the same form
+_GENERIC = ("generic", (), "_generic")
+
+
 def _cuda_functor(potential_and_grad_t):
-    """``(functor, data, count suffix)`` of a potential the kernels hold,
-    found by identity, or None."""
+    """``(functor, data, count suffix)`` of a potential the kernels hold in a
+    hand-written functor, found by identity; the generated functor's for any
+    other."""
     for fn, *functor in _CUDA_FUNCTORS:
         if fn is potential_and_grad_t:
             return functor
-    return None
+    return _GENERIC
 
 
-def _check_cuda_args(potential_and_grad_t, data, q_t, step_size) -> str:
-    """Raise for what kernels 1 and 2 do not take; return the functor."""
+def _generic_bound(potential_fn_t, potential_and_grad_t, data, q_t):
+    """The generated functor of the potential (:func:`generic_pg.bind`,
+    cached): ``potential_and_grad_t`` traced as it stands, else
+    ``potential_fn_t`` with its gradient."""
+    from aehmc_tpu_torch.ops.generic_pg import bind
+
+    fn = potential_and_grad_t or potential_fn_t
+    if fn is None:
+        raise ValueError("no potential: pass potential_fn_t or "
+                         "potential_and_grad_t")
+    return bind(fn, data, q_t.shape[0], layout="t",
+                with_grad=potential_and_grad_t is None, device=q_t.device)
+
+
+def _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
+                     potential_fn_t=None) -> str:
+    """Raise for what kernels 1 and 2 do not take; return the functor: a
+    hand-written one's name, or "generic" for a potential bound to a
+    generated functor (which raises ``NotImplementedError`` for an op
+    outside the compiler's table, ``ValueError`` for a potential that
+    mixes chains, ``TypeError`` for data that are not float32)."""
     functor = _cuda_functor(potential_and_grad_t)
-    if functor is None:
-        raise NotImplementedError(
-            "the CUDA NUTS kernels compute the potentials of "
-            "models.logistic_pg_t, models.funnel_pg_t and models.schools_pg_t "
-            "only; any other potential on the card is ROADMAP.md item 1.10 "
-            "(the generic path)"
-        )
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
     name, layout, _ = functor
+    if name == "generic":
+        _generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
+        _eps_row(step_size, q_t)
+        return name
     if len(data) != len(layout):
         raise ValueError(f"{name} data is ({', '.join(layout)})")
     _eps_row(step_size, q_t)
@@ -421,7 +447,8 @@ def make_fused_nuts_transition_small(
                 q, potential, grad, inverse_mass, step_size, data,
                 max_exp=max_num_expansions,
                 divergence_threshold=divergence_threshold,
-                potential_and_grad_t=potential_and_grad_t, **streams,
+                potential_and_grad_t=potential_and_grad_t,
+                potential_fn_t=potential_fn_t, **streams,
             )
         else:
             out = nuts_transition_plain(
@@ -483,6 +510,7 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
             divergence_threshold=divergence_threshold,
             collect_positions=collect_positions, collect_dtype=cdt,
             potential_and_grad_t=potential_and_grad_t,
+            potential_fn_t=potential_fn_t,
         )
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
     return _sampling_plain(
@@ -676,13 +704,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor):
+def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor,
+                   bound=None):
     """Validate and normalise the operands shared by both kernels, and plan
     the launch.  For the logistic functor X's dtype picks the operands:
     float32, or bfloat16 (the model builder's default), as the plain
     version computes with those data; the funnel takes no data (its dummy
     row is not read), eight schools its (y, σ²) columns as float32 (J,)
-    rows, J = dim − 2.  Also allocates the U-turn checkpoint buffer."""
+    rows, J = dim − 2; a generated functor (``bound``) its data operands
+    and a workspace.  Also allocates the U-turn checkpoint buffer."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     dim, num_chains = q_t.shape
@@ -708,7 +738,8 @@ def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor):
         require_f32_cuda(name, t, shapes[name], device)
     mass_sqrt = (_mass_sqrt_t(ops["im"], dim).contiguous() if dense
                  else None)
-    plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype, functor)
+    plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype, functor,
+                       workspace=0 if bound is None else bound.workspace)
     if functor == "logistic":
         ops["X"] = data_rows(X, plan.row_stride, X.dtype)
     ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
@@ -716,40 +747,64 @@ def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor):
     return ops, dense, mass_sqrt, plan
 
 
-def _potential_args(ops, functor, dim, num_chains, max_exp):
-    """The launcher of ``functor`` and the arguments that name its
-    potential and sizes: X, its type, y, then (dim, N, C, K) for the
-    logistic launchers; the model number, y, σ² and J, then (dim, C, K) for
-    the *_pot_* launchers."""
+def _potential_args(ops, functor, dim, num_chains, max_exp, generic=None):
+    """The arguments of ``functor``'s launcher that name its potential and
+    sizes: X, its type, y, then (dim, N, C, K) for the logistic launchers;
+    the model number, y, σ² and J, then (dim, C, K) for the *_pot_*
+    launchers; the data table and workspace (``generic``,
+    :func:`generic_pg.launch_operands`), then (dim, C, K) for the generated
+    functor's."""
+    if functor == "generic":
+        return generic, (dim, num_chains, max_exp)
     if functor == "logistic":
         X = ops["X"]
-        return ("", (_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
+        return ((_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
                 (dim, X.shape[0], num_chains, max_exp))
     y, s2 = ops.get("y"), ops.get("s2")
-    return ("_pot", (_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
-                     0 if y is None else y.numel()),
-            (dim, num_chains, max_exp))
+    return ((_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
+             0 if y is None else y.numel()), (dim, num_chains, max_exp))
+
+
+def _launcher(functor, bound, data, q_t, plan, kernel):
+    """``(library, launcher, generic arguments, tensors to keep alive)`` of
+    kernel 1 or 2 (``kernel`` "transition" or "sampling") for ``functor``:
+    a hand-written functor's entry point in ``nuts_fused_small.cu``, or the
+    generated functor's in its own library, called with the transposed
+    layout."""
+    from aehmc_tpu_torch.ops._build import load_kernels
+
+    if functor != "generic":
+        lib = load_kernels("nuts_fused_small.cu")
+        kind = "" if functor == "logistic" else "_pot"
+        return lib, getattr(lib, f"nuts_{kernel}{kind}_launch"), None, None
+    from aehmc_tpu_torch.ops.generic_pg import launch_operands
+
+    lib = bound.library()
+    generic, keep = launch_operands(bound, data, q_t.device, plan.blocks)
+    launch = getattr(lib, f"generic_{kernel}_launch")
+    return lib, functools.partial(launch, 0), generic, keep
 
 
 def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
                          max_exp: int, divergence_threshold: float = 1000.0,
                          momentum=None, directions=None, u_bias=None,
                          u_leaf=None, seed=None,
-                         potential_and_grad_t=logistic_pg_t):
+                         potential_and_grad_t=logistic_pg_t,
+                         potential_fn_t=None):
     """Launch kernel 1 (``nuts_transition``) on CUDA tensors with the
-    functor of ``potential_and_grad_t`` (:func:`_check_cuda_args`); returns
-    ``(q_t, u (1, C), g_t, stats (8, C))``."""
-    from aehmc_tpu_torch.ops._build import (
-        check_launch,
-        load_kernels,
-        require_f32_cuda,
-    )
+    functor of ``potential_and_grad_t`` (:func:`_check_cuda_args`), or the
+    generated functor of the potential (``nuts_transition_generic``);
+    returns ``(q_t, u (1, C), g_t, stats (8, C))``."""
+    from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
-    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
+                               potential_fn_t)
     eps_row = _eps_row(step_size, q_t)
     eps = 0.0 if eps_row is not None else float(step_size)
+    bound = (_generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
+             if functor == "generic" else None)
     ops, dense, mass_sqrt, plan = _cuda_operands(
-        q_t, u, g_t, inverse_mass, data, max_exp, functor)
+        q_t, u, g_t, inverse_mass, data, max_exp, functor, bound)
     dim, num_chains = q_t.shape
     if seed is None:
         ext = dict(p=(momentum, (dim, num_chains)),
@@ -765,9 +820,11 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=q_t.device)
     g_out = torch.empty_like(q_t)
     stats = torch.empty((8, num_chains), dtype=torch.float32, device=q_t.device)
-    lib = load_kernels("nuts_fused_small.cu")
-    kind, pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp)
-    err = getattr(lib, f"nuts_transition{kind}_launch")(
+    lib, launcher, generic, keep = _launcher(functor, bound, data, q_t, plan,
+                                             "transition")
+    pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp,
+                                 generic)
+    err = launcher(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
         int(seed is not None), 0 if seed is None else int(seed) & MASK32,
         *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), eps,
@@ -777,6 +834,7 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
         torch.cuda.current_stream(q_t.device).cuda_stream,
     )
     check_launch(lib, err, "nuts_transition")
+    del keep
     LAUNCHES["nuts_transition" + _cuda_functor(potential_and_grad_t)[2]] += 1
     return q_out, u_out, g_out, stats
 
@@ -786,21 +844,26 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
                        divergence_threshold: float = 1000.0,
                        collect_positions: bool = True,
                        collect_dtype=torch.float32,
-                       potential_and_grad_t=logistic_pg_t):
+                       potential_and_grad_t=logistic_pg_t,
+                       potential_fn_t=None):
     """Launch kernel 2 (``nuts_sampling``): all draws in one launch, with
-    the functor of ``potential_and_grad_t``.
+    the functor of ``potential_and_grad_t`` or the potential's generated
+    one (``nuts_sampling_generic``).
 
     Positions are written as ``(draws, C, dim)`` (each chain's row is
     contiguous) and returned as the ``(draws, dim, C)`` view of the JAX
     contract; stats are ``(draws, 8, C)``.
     """
-    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+    from aehmc_tpu_torch.ops._build import check_launch
 
-    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size)
+    functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
+                               potential_fn_t)
     eps_row = _eps_row(step_size, q_t)
     eps = 0.0 if eps_row is not None else float(step_size)
+    bound = (_generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
+             if functor == "generic" else None)
     ops, dense, mass_sqrt, plan = _cuda_operands(
-        q_t, u0, g0_t, inverse_mass, data, max_exp, functor)
+        q_t, u0, g0_t, inverse_mass, data, max_exp, functor, bound)
     dim, num_chains = q_t.shape
     device = q_t.device
     pos = (torch.empty((num_draws, num_chains, dim), dtype=collect_dtype,
@@ -810,9 +873,11 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     q_out = torch.empty_like(q_t)
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
     g_out = torch.empty_like(q_t)
-    lib = load_kernels("nuts_fused_small.cu")
-    kind, pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp)
-    err = getattr(lib, f"nuts_sampling{kind}_launch")(
+    lib, launcher, generic, keep = _launcher(functor, bound, data, q_t, plan,
+                                             "sampling")
+    pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp,
+                                 generic)
+    err = launcher(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
         num_draws, *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense),
         eps, _ptr(eps_row), float(divergence_threshold), *sizes,
@@ -822,6 +887,7 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "nuts_sampling")
+    del keep
     LAUNCHES["nuts_sampling" + _cuda_functor(potential_and_grad_t)[2]] += 1
     pos_t = None if pos is None else pos.permute(0, 2, 1)
     return pos_t, stats, q_out, u_out, g_out

@@ -84,7 +84,23 @@ logistic regression.  Then it drives the port's front door
   from ε 0.1 with and without ``search_initial_step_size``; phase 32 the
   flagship NUTS (kernel 2 at the per-chain ε), MALA and GHMC front doors
   with per-chain dual averaging snapped to 8 values; phase 33 a sorted
-  funnel run checkpointed, killed and resumed bit for bit.
+  funnel run checkpointed, killed and resumed bit for bit;
+- phases 34-38, any potential on kernels 1-4 through a functor generated
+  from its traced gradient graph (``ops/generic_pg.py``, built in phase 1
+  with the sources): phase 34 binds the flagship potential as a plain
+  torch callable (X and y closed over), prints the traced ops, the IR
+  size, the workspace, ptxas's registers and spills and the blocks per SM,
+  and holds the functor's gradient at kernel 1's q_out to float64
+  autograd and the plain back end (relative 1e-5); phase 35 holds the four
+  generated kernels against their plain versions and against the
+  hand-written ``LogisticPGT`` ones (≥ 99% of decisions, |Δq| ≤ 1e-3) and
+  times all of them; phase 36 runs the JAX benchmark's
+  ``nuts_fused_generic_10k`` cell through ``ops.sample_fused`` (kernel 3 a
+  draw, then kernel 4 once), phase 37 its ``mvn25_fused`` (512 and 2,048
+  chains) and ``mvn25_dense_fused_adaptive`` cells at their gates, and
+  phase 38 the front door on a bare ``logprob_fn`` (the generic fused
+  binding: 150 launches of ``nuts_transition_generic``, one of
+  ``nuts_sampling_generic``), twice with one seed, equal bit for bit.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -102,7 +118,10 @@ Launch counts are reset just before each front-door run and read just after;
 the ``kernels`` entries of kernels 5 and 6 also carry their MEADS launches
 (phases 26 and 24) and their times at MEADS's state (phase 25), those of
 kernels 1 and 2 (flagship and funnel) their per-chain ε launches, errors,
-times and bounds (phases 28-33).
+times and bounds (phases 28-33), and those of kernels 1-4 their
+``generic_*`` fields: the generated functor's time, launches on its main
+path (phases 38 and 36), bound, error against plain and against the
+hand-written functor (phase 35).
 Run from the repository root: ``python3 chip_smoke.py``.  Last, the GHMC
 and ChEES front doors (phases 12 and 14) run again with two more generator
 seeds and are held to the same limits, every run measured first.  It needs one CUDA
@@ -3438,6 +3457,539 @@ def sorted_checkpoint_phase(torch, ops, record, card):
     return launches
 
 
+# phases 34-38: any potential on kernels 1-4 through a functor generated
+# from its traced gradient graph (aehmc_tpu_torch/ops/generic_pg.py).
+# Phase 34 binds the flagship potential as a plain torch callable (X and y
+# closed over) and holds the functor's gradient at kernel 1's own q_out
+# against the plain back end and against float64 autograd; phase 35 holds
+# kernels 1-4 on generated functors against their plain versions and
+# against the hand-written LogisticPGT instantiations at phase 2's state
+# (ε 0.5148, M⁻¹ 0.3386 as the JAX cells; K 6); phase 36 runs the JAX
+# benchmark's nuts_fused_generic_10k cell (benchmarks/run.py:653-716:
+# ops.sample_fused on a standard-layout jnp potential, 10,240 chains,
+# 200 draws, internal Philox) from phase 5's final state; phase 37 the
+# mvn25_fused (:1318-1372: 512 and 2,048 chains, dense M⁻¹ = the
+# covariance, ε 0.8, K 10, 200 draws) and mvn25_dense_fused_adaptive
+# (:899-966: 2,048 chains, 300 + 300, K 8, dense self-tuning from ε 0.3)
+# cells; phase 38 the front door on a bare logprob_fn (the generic fused
+# binding) at phase 5's settings, twice with one seed.
+GEN_EPS, GEN_IMM = 0.5148, 0.3386   # phases 35-36: the JAX cells' state
+GEN_SEED = 3434                      # phases 34-35: kernels 1 and 3's Philox key
+GEN_GRAD_RTOL = 1e-5                 # phase 34: relative error of g
+GEN_SAMPLING_DRAWS = 10              # phase 35: kernels 2 and 4 against plain
+GEN_MVN_DIM, GEN_MVN_RHO = 25, 0.5
+GEN_MVN_CHAINS, GEN_MVN_EPS, GEN_MVN_K, GEN_MVN_DRAWS = (512, 2048), 0.8, 10, 200
+GEN_MVN_ADAPT = dict(chains=2048, warmup=300, draws=300, k=8, eps0=0.3)
+GEN_MVN_RATIO_TOL = 0.1              # tuned off-diagonal / diagonal of M⁻¹
+
+
+def generic_potentials(torch, dev):
+    """The potentials phases 34-38 bind, each a plain torch callable, and
+    their generated functors' texts (built in phase 1 with the sources)."""
+    import aehmc_tpu_torch.api as api
+    from aehmc_tpu_torch.models import logistic_regression
+    from aehmc_tpu_torch.models.regression import logistic_regression_data
+    from aehmc_tpu_torch.ops import generic_pg
+
+    X, y = logistic_regression_data(DIM, POINTS, device=dev)
+    y_col = y.reshape(-1, 1)
+
+    def flagship_t(q_t):  # X and y closed over
+        # F.softplus, whose traced backward is σ everywhere: the repo's
+        # clamp form (models/regression.py:_softplus) differentiates to 1,
+        # not σ(0) = 1/2, where a float32 logit is exactly 0 (torch's clamp
+        # backward), which the card's sum order meets a few times a run
+        logits = X @ q_t
+        return (-torch.sum(y_col * logits - torch.nn.functional.softplus(
+            logits), dim=0) + 0.5 * torch.sum(q_t * q_t, dim=0))
+
+    def cell_potential(q, Xv, y_row):  # benchmarks/run.py:669-675
+        logits = q @ Xv.T
+        sp = torch.clamp(logits, min=0.0) + torch.log1p(
+            torch.exp(-torch.abs(logits)))
+        return (-torch.sum(y_row * logits - sp, dim=-1)
+                + 0.5 * torch.sum(q * q, dim=-1))
+
+    def mvn_t(q_t, prec):  # benchmarks/run.py:1339-1340
+        return 0.5 * torch.sum(q_t * (prec @ q_t), dim=0)
+
+    cov = np.full((GEN_MVN_DIM, GEN_MVN_DIM), GEN_MVN_RHO, dtype=np.float32)
+    np.fill_diagonal(cov, 1.0)
+    prec = np.linalg.inv(cov.astype(np.float64)).astype(np.float32)
+    cov_t = torch.tensor(cov, device=dev)
+    prec_t = torch.tensor(prec, device=dev)
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+    door_t, door_data = api._generic_fused_binding(logprob_fn, DIM, dev)
+    binds = dict(
+        flagship=generic_pg.bind(flagship_t, (), DIM, device=dev),
+        cell=generic_pg.bind(cell_potential, (X, y), DIM, layout="std",
+                             device=dev),
+        mvn=generic_pg.bind(mvn_t, (prec_t,), GEN_MVN_DIM, device=dev),
+        door=generic_pg.bind(door_t, door_data, DIM, device=dev),
+    )
+    return dict(X=X, y=y, flagship_t=flagship_t, cell=cell_potential,
+                mvn_t=mvn_t, cov=cov_t, prec=prec_t, logprob_fn=logprob_fn,
+                binds=binds)
+
+
+def functor_report(torch, _build, b, plan_dim, chains, k):
+    """ptxas's registers and spills of the generated kernels and their
+    blocks per SM at the launch plan's shared memory."""
+    from aehmc_tpu_torch.ops.launch_plan import (
+        generic_workspace_shared,
+        launch_plan,
+    )
+
+    regs, spill = [], []
+    for line in _build.generated_ptxas_log(b.source).splitlines():
+        if "bytes spill stores" in line:
+            spill.append(int(line.split("bytes spill stores")[0].split(",")[-1]))
+        if "Used" in line and "registers" in line:
+            regs.append(int(line.split("Used")[1].split("registers")[0]))
+    plan = launch_plan("nuts", plan_dim, k, chains, functor="generic",
+                       workspace=b.workspace)
+    lib = b.library()
+    per_sm = {f"{lay}_{kind}": lib.generic_blocks_per_sm(std, s, plan.smem)
+              for std, lay in ((0, "t"), (1, "std"))
+              for s, kind in ((0, "transition"), (1, "sampling"))}
+    check(min(per_sm.values()) >= 2, f"generic kernels: fewer than two "
+          f"blocks per SM {per_sm}")
+    return dict(registers=max(regs, default=None),
+                spill_bytes=max(spill, default=None), blocks_per_sm=per_sm,
+                smem_bytes=plan.smem, workspace_floats=b.workspace,
+                workspace_shared=generic_workspace_shared(plan_dim,
+                                                          b.workspace))
+
+
+def mvn_limits(torch, diagnostics, positions, stats, what):
+    """The MVN cells' gates: each coordinate's E[x²] within MCSE_Z MCSE of
+    1, E[x₀x₁] within MCSE_Z MCSE of ρ, R-hat < 1.01, divergences < 0.01%."""
+    x = positions.float().transpose(0, 1)  # (chains, draws, dim)
+    sq = x * x
+    m2, se2 = mean_mcse(torch, diagnostics, sq)
+    cross = (x[:, :, 0] * x[:, :, 1])[:, :, None]
+    mc, sec = mean_mcse(torch, diagnostics, cross)
+    rhat = float(diagnostics.potential_scale_reduction(
+        x, rank_normalized=True).max())
+    out = dict(max_var_z=float(((m2 - 1.0).abs() / se2).max()),
+               corr01=float(mc[0]), corr01_z=float((mc[0] - GEN_MVN_RHO).abs()
+                                                  / sec[0]),
+               max_rhat=rhat, divergent_share=float(stats[:, :, 4].mean()),
+               accept=float(stats[:, :, 1].mean()))
+    check(out["max_var_z"] < MCSE_Z, f"{what}: a variance is "
+          f"{out['max_var_z']} MCSE from 1")
+    check(out["corr01_z"] < MCSE_Z, f"{what}: the (0, 1) correlation "
+          f"{out['corr01']} is {out['corr01_z']} MCSE from {GEN_MVN_RHO}")
+    check(rhat < 1.01, f"{what}: max R-hat {rhat}")
+    check(out["divergent_share"] < 1e-4,
+          f"{what}: divergent share {out['divergent_share']}")
+    check(bool(torch.isfinite(x).all()), f"{what}: non-finite draws")
+    return out
+
+
+def ess_total(torch, diagnostics, positions):
+    """bench.py's ESS: Σ over dimensions of min(bulk, tail), each capped at
+    chains × draws."""
+    x = positions.float().transpose(0, 1)
+    bulk, tail = bulk_tail_ess(torch, diagnostics, x)
+    return float(torch.minimum(bulk, tail).clamp(
+        max=x.shape[0] * x.shape[1]).sum())
+
+
+def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
+                   nuts_mean, card):
+    """Phases 34-38; returns the generic fields of kernels 1-4's entries."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.ops import _build, generic_pg
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
+    from aehmc_tpu_torch.ops.philox import MASK32
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    dev = q0.device
+    b1, b3 = gen["binds"]["flagship"], gen["binds"]["cell"]
+    fl_t = gen["flagship_t"]
+    X, y = gen["X"], gen["y"]
+
+    # ---- phase 34: the generated functor of the flagship potential
+    rep = functor_report(torch, _build, b1, DIM, CHAINS, K)
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    imm = torch.full((DIM,), GEN_IMM, device=dev)
+    philox = dict(seed=GEN_SEED)  # the plain versions draw the same streams
+    ops1 = b1.operands((), dev)
+
+    def plain_pg1(q):
+        return generic_pg.run_plain(b1.ir, q, ops1)
+
+    def k1():
+        return nfs.nuts_transition_cuda(
+            q_t, u0, g0, imm, GEN_EPS, (), max_exp=K, potential_and_grad_t=None,
+            potential_fn_t=fl_t, **philox)
+
+    def k1_hand():
+        return nfs.nuts_transition_cuda(q_t, u0, g0, imm, GEN_EPS, data,
+                                        max_exp=K, **philox)
+
+    def p1():
+        return nfs.nuts_transition_plain(q_t, u0, g0, imm, GEN_EPS, plain_pg1,
+                                         max_exp=K, **philox)
+
+    out_k, out_h, out_p = k1(), k1_hand(), p1()
+    torch.cuda.synchronize()
+    moved = (out_k[0] != q_t).any(dim=0)
+    qm = out_k[0][:, moved]
+    u_pl, g_pl = plain_pg1(qm)
+    q64 = qm.double().requires_grad_(True)
+    X64, y64 = X.double(), y.double()[:, None]
+    logits = X64 @ q64
+    u64 = (-(y64 * logits - torch.nn.functional.softplus(logits)).sum(0)
+           + 0.5 * (q64 * q64).sum(0))
+    (g64,) = torch.autograd.grad(u64.sum(), q64)
+    gk = out_k[2][:, moved].double()
+    grad_rel = float((gk - g64).abs().max() / g64.abs().max())
+    grad_rel_plain = float((gk - g_pl.double()).abs().max() / g_pl.abs().max())
+    u_rel = float(((out_k[1][0, moved].double() - u64.detach()).abs()
+                   / u64.detach().abs()).max())
+    check(grad_rel <= GEN_GRAD_RTOL, f"generated gradient {grad_rel:.3g} "
+          "relative to float64")
+    check(grad_rel_plain <= GEN_GRAD_RTOL, f"generated gradient "
+          f"{grad_rel_plain:.3g} relative to the plain back end")
+    log(f"phase 34: generated functor of the flagship potential (X, y closed "
+        f"over): traced ops {list(b1.ops)}; IR {len(b1.ir.nodes)} nodes, "
+        f"workspace {b1.workspace} floats a chain (global: "
+        f"{not rep['workspace_shared']}); libraries built in phase 1 "
+        f"({record['build_s']:.1f} s with the sources); ptxas "
+        f"{rep['registers']} registers, {rep['spill_bytes']} B spill stores "
+        f"(most over kernels 1-4); blocks per SM {rep['blocks_per_sm']}; "
+        f"gradient at kernel 1's q_out ({int(moved.sum())} chains moved) "
+        f"within {grad_rel:.3g} of float64 autograd and {grad_rel_plain:.3g} "
+        f"of the plain back end (relative, limit {GEN_GRAD_RTOL}), potential "
+        f"{u_rel:.3g}")
+    record["phase34"] = dict(ops=list(b1.ops), ir_nodes=len(b1.ir.nodes),
+                             grad_rel_err=grad_rel,
+                             grad_rel_err_plain=grad_rel_plain,
+                             u_rel_err=u_rel, **rep,
+                             functors={k: dict(ir_nodes=len(b.ir.nodes),
+                                               workspace=b.workspace)
+                                       for k, b in gen["binds"].items()})
+
+    # ---- phase 35: kernels 1-4 against plain and against LogisticPGT
+    share1, err1, _ = compare(out_k, out_p, "generic kernel 1 vs plain")
+    share1h, err1h, _ = compare(out_k, out_h, "generic kernel 1 vs LogisticPGT")
+    leaves1 = float(out_k[3][3].sum())
+    ms1 = kernel_ms(k1, 3)
+    ms1h = kernel_ms(k1_hand, 3)
+    plain_ms1 = cuda_ms(torch, p1, 2)
+    bound1 = bound(leaves1 * GRAD_FLOP, nbytes(q_t, u0, g0, imm, X, y,
+                                               *out_k))
+    seed = 3535
+    n2 = GEN_SAMPLING_DRAWS
+
+    def k2():
+        return nfs.nuts_sampling_cuda(
+            q_t, u0, g0, imm, GEN_EPS, (), seed, n2, max_exp=K,
+            potential_and_grad_t=None, potential_fn_t=fl_t)
+
+    def k2_hand():
+        return nfs.nuts_sampling_cuda(q_t, u0, g0, imm, GEN_EPS, data, seed,
+                                      n2, max_exp=K)
+
+    def p2():
+        return nfs._sampling_plain(
+            plain_pg1, q_t, u0, g0, imm, GEN_EPS, seed, n2, max_exp=K,
+            divergence_threshold=1000.0, collect_positions=True,
+            collect_dtype=torch.float32)
+
+    o2, o2h, o2p = k2(), k2_hand(), p2()
+    q, u, g = q_t, u0, g0
+    for t in range(n2):
+        q, u, g, _ = nfs.nuts_transition_cuda(
+            q, u, g, imm, GEN_EPS, (), max_exp=K,
+            seed=(seed + t * DRAW_SEED_STRIDE) & MASK32,
+            potential_and_grad_t=None, potential_fn_t=fl_t)
+    torch.cuda.synchronize()
+    check(torch.equal(o2[2], q) and torch.equal(o2[4], g),
+          "generic kernel 2 differs from per-draw launches of kernel 1")
+    share2, err2, _ = compare((o2[0], None, None, o2[1]),
+                              (o2p[0], None, None, o2p[1]),
+                              "generic kernel 2 vs plain")
+    share2h, err2h, _ = compare((o2[0], None, None, o2[1]),
+                                (o2h[0], None, None, o2h[1]),
+                                "generic kernel 2 vs LogisticPGT")
+    leaves2 = float(o2[1][:, 3].sum())
+    ms2 = kernel_ms(k2, 1)
+    ms2h = kernel_ms(k2_hand, 1)
+    plain_ms2 = cuda_ms(torch, p2, 1)
+    bound2 = bound(leaves2 * GRAD_FLOP, nbytes(q_t, u0, g0, imm, X, y, *o2))
+    # kernels 3 and 4: the JAX cell's standard-layout potential
+    model = nf._generic_model(gen["cell"], (X, y))
+    hand = nf._logistic_model(X, y, 1.0, torch.float32)
+    u0s, g0s = model.pot_grad(q0)
+    ops3 = b3.operands((X, y), dev)
+
+    def plain_pg3(q):
+        uu, gg = generic_pg.run_plain(b3.ir, q.T.contiguous(), ops3)
+        return uu.reshape(-1, 1), gg.T
+
+    kw = dict(max_exp=K, divergence_threshold=1000.0)
+
+    def k3():
+        return nf._transition(model, q0, u0s, g0s, None, None, None, None,
+                              imm, GEN_EPS, seed=GEN_SEED, **kw)
+
+    def k3_hand():
+        return nf._transition(hand, q0, u0s, g0s, None, None, None, None,
+                              imm, GEN_EPS, seed=GEN_SEED, **kw)
+
+    def p3():
+        return nf.nuts_transition_std_plain(
+            q0, u0s, g0s, imm, GEN_EPS, plain_pg3, seed=GEN_SEED, **kw)
+
+    def t(out):  # standard layout -> the transposed one compare() reads
+        return tuple(None if x is None else x.T for x in out)
+
+    o3, o3h, o3p = k3(), k3_hand(), p3()
+    torch.cuda.synchronize()
+    share3, err3, _ = compare(t(o3), t(o3p), "generic kernel 3 vs plain")
+    share3h, err3h, _ = compare(t(o3), t(o3h), "generic kernel 3 vs LogisticPGT")
+    leaves3 = float(o3[3][:, 3].sum())
+    ms3, ms3h = kernel_ms(k3, 3), kernel_ms(k3_hand, 3)
+    plain_ms3 = cuda_ms(torch, p3, 2)
+    bound3 = bound(leaves3 * GRAD_FLOP, nbytes(q0, u0s, g0s, imm, X, y,
+                                               *o3))
+
+    def k4(m=model):
+        return nf._fused_sampling_call(m, q0, u0s, g0s, imm, GEN_EPS, seed, n2,
+                                       max_num_expansions=K)
+
+    def p4():
+        return nf._sampling_plain(
+            nf._Model(plain_pg3, (X, y), None), q0, u0s, g0s, imm, GEN_EPS,
+            seed, n2, max_exp=K, divergence_threshold=1000.0,
+            collect_positions=True)
+
+    o4, o4h, o4p = k4(), k4(hand), p4()
+    torch.cuda.synchronize()
+
+    def t4(out):
+        return (out[0].transpose(1, 2), None, None, out[1].transpose(1, 2))
+
+    share4, err4, _ = compare(t4(o4), t4(o4p), "generic kernel 4 vs plain")
+    share4h, err4h, _ = compare(t4(o4), t4(o4h),
+                                "generic kernel 4 vs LogisticPGT")
+    leaves4 = float(o4[1][:, :, 3].sum())
+    ms4, ms4h = kernel_ms(k4, 1), kernel_ms(lambda: k4(hand), 1)
+    plain_ms4 = cuda_ms(torch, p4, 1)
+    bound4 = bound(leaves4 * GRAD_FLOP, nbytes(q0, u0s, g0s, imm, X, y, *o4))
+    log(f"phase 35: generated kernels 1-4 at {CHAINS}x{DIM}, ε {GEN_EPS}, "
+        f"M⁻¹ {GEN_IMM}, K {K}, Philox ({n2} draws for kernels 2 and 4): "
+        f"decisions "
+        f"equal vs plain {share1:.4%} / {share2:.4%} / {share3:.4%} / "
+        f"{share4:.4%} (max |q| err {err1:.3g} / {err2:.3g} / {err3:.3g} / "
+        f"{err4:.3g}), vs LogisticPGT {share1h:.4%} / {share2h:.4%} / "
+        f"{share3h:.4%} / {share4h:.4%} ({err1h:.3g} / {err2h:.3g} / "
+        f"{err3h:.3g} / {err4h:.3g}); kernel 2 == {n2} launches of kernel 1 "
+        f"bit for bit; ms generic / hand-written / plain / bound: kernel 1 "
+        f"{ms1:.3f} / {ms1h:.3f} / {plain_ms1:.3f} / {bound1[0]:.3f}, kernel "
+        f"2 per {n2} draws {ms2:.2f} / {ms2h:.2f} / {plain_ms2:.2f} / "
+        f"{bound2[0]:.3f}, kernel 3 {ms3:.3f} / {ms3h:.3f} / {plain_ms3:.3f} "
+        f"/ {bound3[0]:.3f}, kernel 4 per {n2} draws {ms4:.2f} / {ms4h:.2f} "
+        f"/ {plain_ms4:.2f} / {bound4[0]:.3f} [{card}]")
+    record["phase35"] = dict(
+        share=[share1, share2, share3, share4],
+        max_abs_err=[err1, err2, err3, err4],
+        share_vs_hand=[share1h, share2h, share3h, share4h],
+        max_abs_err_vs_hand=[err1h, err2h, err3h, err4h],
+        ms=[ms1, ms2, ms3, ms4], hand_ms=[ms1h, ms2h, ms3h, ms4h],
+        plain_ms=[plain_ms1, plain_ms2, plain_ms3, plain_ms4],
+        bound_ms=[bound1[0], bound2[0], bound3[0], bound4[0]],
+        bound_ms_cuda_cores=[bound1[2], bound2[2], bound3[2], bound4[2]],
+        leaves=[leaves1, leaves2, leaves3, leaves4], draws=n2)
+    del o2, o2h, o2p, o4, o4h, o4p
+
+    # ---- phase 36: nuts_fused_generic_10k
+    def cell_run(potential, run_data, loop, seed_):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pos, stats = ops.sample_fused(
+            torch.Generator().manual_seed(seed_), potential, run_data,
+            q_post, DRAWS, GEN_EPS, imm, max_num_expansions=K,
+            internal_prng=True, loop_in_kernel=loop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return pos, stats, wall, dict(ops.LAUNCHES)
+
+    pos_h, st_h, wall_h, _ = cell_run(nf.logistic_potential,
+                                      hand.data, True, 36)
+    witness = mean_mcse(torch, diagnostics, pos_h.transpose(0, 1))
+    cells = {}
+    for name, loop, kern, n in (("per_draw", False,
+                                  "nuts_transition_std_generic", DRAWS),
+                                 ("whole_run", True,
+                                  "nuts_sampling_std_generic", 1)):
+        pos, stats, wall, launches = cell_run(gen["cell"], (X, y), loop, 36)
+        check(launches[kern] == n and sum(launches.values()) == n,
+              f"nuts_fused_generic_10k ({name}) launches {launches}")
+        limits = nuts_limits(torch, diagnostics, pos, stats[:, :, 1],
+                             stats[:, :, 4], GEN_EPS, witness,
+                             f"nuts_fused_generic_10k ({name})")
+        evals = float(stats[:, :, 3].sum())
+        cells[name] = dict(wall_s=wall, launches=launches,
+                           grad_evals_per_s=evals / wall,
+                           ess_per_s=ess_total(torch, diagnostics, pos) / wall,
+                           **limits)
+        del pos
+    hand_evals = float(st_h[:, :, 3].sum())
+    cells["hand_written"] = dict(
+        wall_s=wall_h, grad_evals_per_s=hand_evals / wall_h,
+        ess_per_s=ess_total(torch, diagnostics, pos_h) / wall_h)
+    del pos_h
+    log(f"phase 36: nuts_fused_generic_10k, {CHAINS}x{DIM}, {DRAWS} draws "
+        f"from phase 5's final state: kernel 3 a draw "
+        f"{cells['per_draw']['wall_s']:.3f} s, "
+        f"{cells['per_draw']['grad_evals_per_s'] / 1e6:.2f}M grad-evals/s, "
+        f"{cells['per_draw']['ess_per_s'] / 1e6:.3f}M ESS/s; kernel 4 once "
+        f"{cells['whole_run']['wall_s']:.3f} s, "
+        f"{cells['whole_run']['grad_evals_per_s'] / 1e6:.2f}M grad-evals/s, "
+        f"{cells['whole_run']['ess_per_s'] / 1e6:.3f}M ESS/s; accept "
+        f"{cells['per_draw']['accept']:.4f} / {cells['whole_run']['accept']:.4f}, "
+        f"divergent {cells['per_draw']['divergent_share']:.2e} / "
+        f"{cells['whole_run']['divergent_share']:.2e}, max R-hat "
+        f"{cells['per_draw']['max_rhat']:.4f} / "
+        f"{cells['whole_run']['max_rhat']:.4f}, means within "
+        f"{cells['per_draw']['max_z_vs_nuts']:.2f} / "
+        f"{cells['whole_run']['max_z_vs_nuts']:.2f} MCSE of the hand-written "
+        f"route's (kernel 4 on LogisticPGT: {wall_h:.3f} s, "
+        f"{cells['hand_written']['grad_evals_per_s'] / 1e6:.2f}M "
+        f"grad-evals/s) [{card}]")
+    record["phase36"] = cells
+
+    # ---- phase 37: the MVN cells, dense M⁻¹
+    mvn = {}
+    for chains in GEN_MVN_CHAINS:
+        qm0 = torch.tensor(np.random.default_rng(37).standard_normal(
+            (chains, GEN_MVN_DIM)), dtype=torch.float32, device=dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pos, stats = ops.sample_fused_small(
+            torch.Generator().manual_seed(37), gen["mvn_t"], (gen["prec"],),
+            qm0, GEN_MVN_DRAWS, GEN_MVN_EPS, gen["cov"], max_num_expansions=GEN_MVN_K,
+            loop_in_kernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(launches["nuts_sampling_generic"] == 1
+              and sum(launches.values()) == 1, f"mvn25_fused launches "
+              f"{launches}")
+        mvn[f"fused_{chains}"] = dict(
+            wall_s=wall, launches=launches,
+            ess_per_s=ess_total(torch, diagnostics, pos) / wall,
+            grad_evals_per_s=float(stats[:, :, 3].sum()) / wall,
+            **mvn_limits(torch, diagnostics, pos, stats,
+                         f"mvn25_fused ({chains} chains)"))
+    a = GEN_MVN_ADAPT
+    qm0 = torch.tensor(np.random.default_rng(38).standard_normal(
+        (a["chains"], GEN_MVN_DIM)), dtype=torch.float32, device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pos, stats, eps_a, imm_a = ops.sample_fused_adaptive(
+        torch.Generator().manual_seed(39), None, (gen["prec"],), qm0,
+        a["draws"], a["warmup"], potential_fn_t=gen["mvn_t"],
+        max_num_expansions=a["k"], is_mass_matrix_full=True,
+        initial_step_size=a["eps0"], loop_in_kernel=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["nuts_transition_generic"] == a["warmup"]
+          and launches["nuts_sampling_generic"] == 1,
+          f"mvn25_dense_fused_adaptive launches {launches}")
+    off = ~torch.eye(GEN_MVN_DIM, dtype=torch.bool, device=dev)
+    ratio = float(imm_a[off].mean() / torch.diagonal(imm_a).mean())
+    check(abs(ratio - GEN_MVN_RHO) <= GEN_MVN_RATIO_TOL, f"tuned M⁻¹ off-diagonal/"
+          f"diagonal {ratio}")
+    mvn["dense_adaptive"] = dict(
+        wall_s=wall, launches=launches, step_size=float(eps_a),
+        offdiag_ratio=ratio,
+        ess_per_s=ess_total(torch, diagnostics, pos) / wall,
+        **mvn_limits(torch, diagnostics, pos, stats,
+                     "mvn25_dense_fused_adaptive"))
+    log("phase 37: " + "; ".join(
+        f"{k}: {v['wall_s']:.3f} s, {v['ess_per_s'] / 1e6:.3f}M ESS/s, "
+        f"accept {v['accept']:.4f}, E[x²] within {v['max_var_z']:.2f} MCSE "
+        f"of 1, corr(0, 1) {v['corr01']:.4f} ({v['corr01_z']:.2f} MCSE), "
+        f"max R-hat {v['max_rhat']:.4f}, divergent "
+        f"{v['divergent_share']:.2e}" for k, v in mvn.items())
+        + f"; tuned ε {float(eps_a):.4f}, M⁻¹ off-diagonal/diagonal "
+        f"{ratio:.4f} [{card}]")
+    record["phase37"] = mvn
+    del pos
+
+    # ---- phase 38: the front door on a bare logprob_fn
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(2038), gen["logprob_fn"], q0, DRAWS,
+            WARMUP, algorithm="nuts", path="fused", max_num_expansions=K,
+            initial_step_size=0.1, collect_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0, dict(ops.LAUNCHES)))
+    (res, wall38, launches38), (res2, _, _) = runs
+    check(launches38["nuts_transition_generic"] == WARMUP
+          and launches38["nuts_sampling_generic"] == 1
+          and sum(launches38.values()) == WARMUP + 1,
+          f"front door on a bare logprob_fn: launches {launches38}")
+    check(torch.equal(res.positions, res2.positions)
+          and torch.equal(torch.as_tensor(res.step_size),
+                          torch.as_tensor(res2.step_size)),
+          "front door on a bare logprob_fn: two runs with one seed differ")
+    diag = res.diagnostics
+    door = nuts_limits(torch, diagnostics, res.positions,
+                       diag.acceptance_probability, diag.is_diverging,
+                       res.step_size, nuts_mean,
+                       "front door on a bare logprob_fn")
+    log(f"phase 38: front door, bare logprob_fn, {CHAINS}x{DIM}, {WARMUP} "
+        f"warmup + {DRAWS} draws in {wall38:.2f} s; launches {launches38}; "
+        f"accept {door['accept']:.4f}, divergent {door['divergent_share']:.2e}, "
+        f"ε {float(res.step_size):.4f}, max R-hat {door['max_rhat']:.4f}, "
+        f"means within {door['max_z_vs_nuts']:.2f} MCSE of phase 5's; twice "
+        f"with one seed, equal bit for bit [{card}]")
+    record["phase38"] = dict(wall_s=wall38, launches=launches38,
+                             step_size=float(res.step_size), **door)
+    del res, res2, runs
+    cell_launches = cells["per_draw"]["launches"]
+    return [
+        dict(generic_launches=launches38["nuts_transition_generic"],
+             generic_ms=ms1, generic_plain_ms=plain_ms1,
+             generic_bound_ms=bound1[0], generic_bound_by=bound1[1],
+             generic_max_abs_err=err1, generic_vs_handwritten_max_abs_err=err1h,
+             generic_handwritten_ms=ms1h),
+        dict(generic_launches=launches38["nuts_sampling_generic"],
+             generic_draws=n2, generic_ms=ms2, generic_plain_ms=plain_ms2,
+             generic_bound_ms=bound2[0], generic_bound_by=bound2[1],
+             generic_max_abs_err=err2, generic_vs_handwritten_max_abs_err=err2h,
+             generic_handwritten_ms=ms2h),
+        dict(generic_launches=cell_launches["nuts_transition_std_generic"],
+             generic_ms=ms3, generic_plain_ms=plain_ms3,
+             generic_bound_ms=bound3[0], generic_bound_by=bound3[1],
+             generic_max_abs_err=err3, generic_vs_handwritten_max_abs_err=err3h,
+             generic_handwritten_ms=ms3h),
+        dict(generic_launches=cells["whole_run"]["launches"][
+                 "nuts_sampling_std_generic"],
+             generic_draws=n2, generic_ms=ms4, generic_plain_ms=plain_ms4,
+             generic_bound_ms=bound4[0], generic_bound_by=bound4[1],
+             generic_max_abs_err=err4, generic_vs_handwritten_max_abs_err=err4h,
+             generic_handwritten_ms=ms4h),
+    ]
+
+
 def main():
     import torch
 
@@ -3464,11 +4016,16 @@ def main():
     card = card_identity()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.build_all()
+    gen_pots = generic_potentials(torch, dev)  # phases 34-38's functors
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.build_all(generated=[b.source for b in gen_pots["binds"].values()])
     build_s = time.perf_counter() - t0
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s")
+        f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s "
+        f"(with {len(gen_pots['binds'])} generated functors, traced in "
+        f"{trace_s:.1f} s)")
     ptxas = ptxas_report(_build.ptxas_log())
     geometry = {}
     for name in ENTRIES:
@@ -3541,8 +4098,8 @@ def main():
     check([(p.chains, p.points) for p in hmc_plans] == [(8, 128), (16, 128)],
           f"HMC plans at dim {DIM}: {hmc_plans}")
     sweep = plan_sweep(torch, card)
-    record.update(card=card, kind=kind, build_s=build_s, geometry=geometry,
-                  plan_sweep=sweep)
+    record.update(card=card, kind=kind, build_s=build_s, trace_s=trace_s,
+                  geometry=geometry, plan_sweep=sweep)
 
     # the flagship's float32 data (bench.py's); phase 17 takes the builder's
     # default, bfloat16
@@ -3698,6 +4255,7 @@ def main():
                             max_rhat=rhat)
     nuts_mean = mean_mcse(torch, diagnostics, draws)  # phases 11-12 reference
     tuned5 = (eps, res.inverse_mass_matrix)  # phase 28's state
+    q_post = res.final_state.contiguous()  # phase 36's start
     del res, draws
 
     # ---- phase 6: 1,024 chains through the kernels and the plain versions
@@ -3827,6 +4385,10 @@ def main():
     pc_launches = per_chain_front_doors(torch, ops, diagnostics, data, pot,
                                         pg, q0, record, nuts_mean, card)
     ckpt_launches = sorted_checkpoint_phase(torch, ops, record, card)
+    # phases 34-38: kernels 1-4 on generated functors; their entries carry
+    # the generic fields
+    generic = generic_phases(torch, ops, diagnostics, gen_pots, data, pg, q0,
+                             q_post, record, nuts_mean, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -3871,6 +4433,11 @@ def main():
             per_chain_scalar_ms=t[f"k{n}_scalar_ms"],
             per_chain_bound_ms=t[f"k{n}_bound_ms"],
             per_chain_bound_by=t[f"k{n}_bound_by"])
+    for entry in kernels:
+        names = ("nuts_transition", "nuts_sampling", "nuts_transition_std",
+                 "nuts_sampling_std")
+        if entry["name"] in names and "generic_ms" not in entry:
+            entry.update(generic[names.index(entry["name"])])
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -203,11 +203,22 @@ def test_unported_paths_raise(path):
 
 
 def test_bare_logprob_and_bad_names():
-    """A bare logprob_fn on the fused path needs the generic fused binding
-    (ROADMAP.md item 1.10); on the default path it runs pooled."""
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
-                               path="fused")
+    """A bare logprob_fn on the fused path takes the generic fused binding
+    and runs NUTS, as the JAX package's front door does
+    (tests/test_api.py:test_fused_nuts_generic_potential): on CPU tensors
+    through the plain versions, with the stats adapted into Diagnostics."""
+    gen = torch.Generator().manual_seed(3)
+    q0 = torch.randn(8, 4, generator=gen)
+    out = aehmc_tpu_torch.sample(gen, _gaussian_lp, q0, num_samples=30,
+                                 num_warmup=50, path="fused",
+                                 max_num_expansions=4)
+    assert isinstance(out, aehmc_tpu_torch.SampleResult)
+    assert out.positions.shape == (30, 8, 4)
+    assert bool(torch.isfinite(out.positions).all())
+    assert out.diagnostics.acceptance_probability.shape == (30, 8)
+    assert out.diagnostics.num_integration_steps.dtype == torch.int32
+    assert float(out.diagnostics.acceptance_probability.mean()) > 0.3
+    assert 0.01 < float(out.step_size) < 5.0
     with pytest.raises(ValueError, match="algorithm"):
         aehmc_tpu_torch.sample(None, None, torch.zeros(8, 4), algorithm="x")
     with pytest.raises(ValueError, match="path"):
@@ -333,12 +344,11 @@ def _route_of(sample_fn, monkeypatch, target, path, position):
     return calls[0]
 
 
-# a bare logprob_fn on the fused path is the generic fused binding (ROADMAP.md
-# item 1.10), which the JAX package has and the port has not
+# every route, a bare logprob_fn on the fused path included (the generic
+# fused binding)
 _MEADS_ROUTES = [(path, rank, pot)
                  for path in ("auto", "xla", "pooled", "fused")
-                 for rank in (1, 2) for pot in (False, True)
-                 if pot or path != "fused"]
+                 for rank in (1, 2) for pot in (False, True)]
 
 
 @pytest.mark.parametrize("path, rank, with_potential", _MEADS_ROUTES)

@@ -232,7 +232,7 @@ def test_cuda_path_takes_the_logistic_potential_only():
                                                   matmul_dtype=torch.float32,
                                                   device="cpu")
     q = torch.zeros(8, 4)
-    with pytest.raises(NotImplementedError, match="item 1.4"):
+    with pytest.raises(NotImplementedError, match="item 1.10b"):
         _check_cuda_args(_gaussian_pg, data_t, q)
     with pytest.raises(TypeError, match="float32"):
         _check_cuda_args(pg_t, data_t, q.double())

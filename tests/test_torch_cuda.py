@@ -134,10 +134,10 @@ def test_cuda_whole_run_equals_per_draw_launches(cuda_device, dense):
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     pg, data, q_t, u0, g0, imm, _ = _case(cuda_device, False)
     transition = make_fused_nuts_transition_small(
-        None, data, max_num_expansions=MAX_EXP,
-        potential_and_grad_t=lambda q, *d: pg(q, *d), transposed_io=True,
+        lambda q, *d: torch.logsumexp(q, 0), data, max_num_expansions=MAX_EXP,
+        transposed_io=True,
     )
-    with pytest.raises(NotImplementedError, match="logistic"):
+    with pytest.raises(NotImplementedError, match="logsumexp"):
         transition(q_t, u0, g0, None, None, None, None, imm, 0.3, seed=1)
     transition = make_fused_nuts_transition_small(
         None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
@@ -168,7 +168,11 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
                         "nuts_sampling_funnel": 0,
                         "nuts_transition_eight_schools": 0,
                         "nuts_sampling_eight_schools": 0,
+                        "nuts_transition_generic": 0,
+                        "nuts_sampling_generic": 0,
                         "nuts_transition_std": 0, "nuts_sampling_std": 0,
+                        "nuts_transition_std_generic": 0,
+                        "nuts_sampling_std_generic": 0,
                         "chees_transition": 0, "ghmc_transition": 0,
                         "ghmc_segment": 0, "fused_logistic_hmc": 0,
                         "batched_leapfrog": 0}
@@ -1519,3 +1523,109 @@ def test_front_door_sorted_per_chain_runs_on_kernel_1(cuda_device):
     b = run()
     assert torch.equal(a.positions, b.positions)
     assert bool(torch.isfinite(a.positions).all())
+
+
+# ---- kernels 1-4 on a functor generated from the potential's traced
+# gradient graph (ops/generic_pg.py): a potential with no hand-written
+# functor, its plain version (generic_pg.run_plain), and the hand-written
+# logistic functor on the same posterior
+
+def _generic_potential(q_t, Xv, y_col):
+    logits = Xv @ q_t
+    return (-torch.sum(y_col * logits - torch.nn.functional.softplus(logits),
+                       dim=0) + 0.5 * torch.sum(q_t * q_t, dim=0))
+
+
+def _std_potential(q, Xv, y_col):
+    return _generic_potential(q.T, Xv, y_col)
+
+
+def _assert_kernel_matches(kern, ref, atol=1e-4):
+    np.testing.assert_array_equal(kern[3][..., 2:6, :].cpu(),
+                                  ref[3][..., 2:6, :].cpu())
+    np.testing.assert_allclose(kern[0].cpu(), ref[0].cpu(), rtol=atol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_generic_kernel_1_matches_plain_and_the_logistic_functor(
+        cuda_device, dense, philox):
+    from aehmc_tpu_torch.ops import generic_pg
+
+    pg, data, q_t, u0, g0, imm, ext = _case(cuda_device, dense)
+    gdata = (data[0], data[2])
+    streams = dict(seed=77) if philox else ext
+    reset_launch_counts()
+    kern = make_fused_nuts_transition_small(
+        _generic_potential, gdata, max_num_expansions=MAX_EXP,
+        transposed_io=True,
+    )(q_t, u0, g0, ext["momentum"], ext["directions"], ext["u_bias"],
+      ext["u_leaf"], imm, 0.3, seed=streams.get("seed"))
+    assert LAUNCHES["nuts_transition_generic"] == 1
+    bound = generic_pg.bind(_generic_potential, gdata, DIM,
+                            device=cuda_device)
+    ops_ = bound.operands(gdata, cuda_device)
+    plain = nuts_transition_plain(
+        q_t, u0, g0, imm, 0.3,
+        lambda x: generic_pg.run_plain(bound.ir, x, ops_), max_exp=MAX_EXP,
+        **streams)
+    hand = nuts_transition_plain(q_t, u0, g0, imm, 0.3,
+                                 lambda x: pg(x, *data), max_exp=MAX_EXP,
+                                 **streams)
+    torch.cuda.synchronize()
+    _assert_kernel_matches(kern, plain)
+    _assert_kernel_matches(kern, hand)
+
+
+@pytest.mark.gpu
+def test_cuda_generic_kernel_2_equals_per_draw_launches(cuda_device):
+    _, data, q_t, u0, g0, imm, _ = _case(cuda_device, False)
+    gdata = (data[0], data[2])
+    draws = 4
+    reset_launch_counts()
+    pos, stats, qf, uf, gf = _fused_sampling_call_t(
+        _generic_potential, None, gdata, q_t, u0, g0, imm, 0.3, 5, draws,
+        max_num_expansions=MAX_EXP)
+    assert LAUNCHES["nuts_sampling_generic"] == 1
+    transition = make_fused_nuts_transition_small(
+        _generic_potential, gdata, max_num_expansions=MAX_EXP,
+        transposed_io=True)
+    q, u, g = q_t, u0, g0
+    for t in range(draws):
+        q, u, g, st = transition(q, u, g, None, None, None, None, imm, 0.3,
+                                 seed=(5 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(q, pos[t])
+    assert torch.equal(q, qf) and torch.equal(u, uf) and torch.equal(g, gf)
+
+
+@pytest.mark.gpu
+def test_cuda_generic_kernels_3_and_4_match_plain(cuda_device):
+    _, data, q_t, u0, g0, imm, ext = _case(cuda_device, False)
+    gdata = (data[0], data[2])
+    q = q_t.T.contiguous()
+    model = nuts_fused._generic_model(_std_potential, gdata)
+    u, g = model.pot_grad(q)
+    ext_s = [v.T.contiguous() for v in ext.values()]
+    reset_launch_counts()
+    kern = nuts_fused._transition(model, q, u, g, *ext_s, imm, 0.3,
+                                  max_exp=MAX_EXP, divergence_threshold=1e3)
+    plain = nuts_fused.nuts_transition_std_plain(
+        q, u, g, imm, 0.3, model.pot_grad, max_exp=MAX_EXP,
+        momentum=ext_s[0], directions=ext_s[1], u_bias=ext_s[2],
+        u_leaf=ext_s[3])
+    torch.cuda.synchronize()
+    assert LAUNCHES["nuts_transition_std_generic"] == 1
+    _assert_kernel_matches([x.T for x in kern], [x.T for x in plain])
+    pos, stats, qf, _, _ = nuts_fused._fused_sampling_call(
+        model, q, u, g, imm, 0.3, 9, 3, max_num_expansions=MAX_EXP)
+    assert LAUNCHES["nuts_sampling_std_generic"] == 1
+    qs, us, gs = q, u, g
+    for t in range(3):
+        qs, us, gs, st = nuts_fused._transition(
+            model, qs, us, gs, None, None, None, None, imm, 0.3,
+            max_exp=MAX_EXP, divergence_threshold=1000.0,
+            seed=(9 + t * DRAW_SEED_STRIDE) & MASK32)
+        assert torch.equal(st, stats[t]) and torch.equal(qs, pos[t])
+    assert torch.equal(qs, qf)

@@ -1,0 +1,690 @@
+"""The potential compiler (aehmc_tpu_torch.ops.generic_pg) on the CPU.
+
+- The plain back end (``run_plain``, the generated functor's plain
+  version) against torch autograd in float64 and against ``jax.vjp`` of the
+  JAX twin in float64, both to 1e-10 relative, on the repo's potentials and
+  the JAX benchmark cells' (logistic with data and by closure, dense MVN,
+  Neal's funnel, eight schools, linear regression through the generic
+  binding, the ``nuts_fused_generic_10k`` standard-layout potential).
+- The errors: an op outside the table, a potential that mixes chains, data
+  that are not float32.
+- ``emit_cuda`` is deterministic, names every data operand and stores the
+  workspace the plain back end reports.
+- The emitted functor itself, compiled for the CPU with g++ against a
+  32-thread emulation of one warp (``__syncwarp`` a barrier, ``warp_sum``
+  the same butterfly), against the plain back end in float32 to 1e-5.
+- Kernels 1 and 3 on a generated functor, through their plain versions on
+  external randomness, against the JAX kernels in interpret mode: decisions
+  equal, floats within 1e-5.
+- The port's generic fused binding against the JAX package's.
+"""
+
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from aehmc_tpu.api import _generic_fused_binding as jax_binding
+from aehmc_tpu.ops.nuts_fused import (
+    make_fused_nuts_transition as jax_std_transition,
+)
+from aehmc_tpu.ops.nuts_fused_small import (
+    make_fused_nuts_transition_small as jax_transition,
+)
+from aehmc_tpu_torch.api import _generic_fused_binding
+from aehmc_tpu_torch.models import (
+    eight_schools_t,
+    funnel_pg_t,
+    linear_regression,
+    logistic_pg_t,
+    logistic_regression,
+    logistic_regression_data,
+    mvn,
+    neals_funnel_pg_t,
+    schools_pg_t,
+)
+from aehmc_tpu_torch.models.hierarchical import (
+    funnel_potential_t,
+    schools_potential_t,
+)
+from aehmc_tpu_torch.models.regression import _softplus, logistic_potential_t
+from aehmc_tpu_torch.ops import LAUNCHES, _build, generic_pg
+from aehmc_tpu_torch.ops import nuts_fused as nf
+from aehmc_tpu_torch.ops.launch_plan import (
+    generic_workspace_floats,
+    generic_workspace_shared,
+    launch_plan,
+)
+from aehmc_tpu_torch.ops.nuts_fused_small import (
+    _check_cuda_args,
+    make_fused_nuts_transition_small,
+    nuts_transition_plain,
+)
+
+F32 = np.float32
+DIM, POINTS, CHAINS = 5, 12, 8
+
+
+# ------------------------------------------------------------- the cases --
+
+def _logistic_data():
+    X, y = logistic_regression_data(DIM, POINTS, device="cpu")
+    return X, y
+
+
+def _jax_softplus(x):
+    return jnp.maximum(x, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(x)))
+
+
+def _logistic_case():
+    X, y = _logistic_data()
+    data = (X, X.T.contiguous(), y.reshape(-1, 1))
+
+    def jax_pot(q_t, Xv, XTv, y_c):
+        logits = Xv @ q_t
+        return -jnp.sum(y_c * logits - _jax_softplus(logits), axis=0) + \
+            0.5 * jnp.sum(q_t * q_t, axis=0)
+
+    return logistic_potential_t, data, DIM, "t", jax_pot
+
+
+def _wide_case():
+    """The logistic potential at 40 dims and 13 points: X·q sums rows longer
+    than a warp into fewer than 32 outputs, so the warp takes 8 outputs at
+    a time with a ragged tail of 5."""
+    X, y = logistic_regression_data(40, 13, device="cpu")
+    data = (X, X.T.contiguous(), y.reshape(-1, 1))
+    return logistic_potential_t, data, 40, "t", _logistic_case()[4]
+
+
+def _closure_case():
+    X, y = _logistic_data()
+    y_col = y.reshape(-1, 1)
+
+    def pot(q_t):
+        logits = X @ q_t
+        return -torch.sum(y_col * logits - _softplus(logits), dim=0) + \
+            0.5 * torch.sum(q_t * q_t, dim=0)
+
+    Xj, yj = jnp.asarray(X.numpy()), jnp.asarray(y_col.numpy())
+
+    def jax_pot(q_t):
+        logits = Xj @ q_t
+        return -jnp.sum(yj * logits - _jax_softplus(logits), axis=0) + \
+            0.5 * jnp.sum(q_t * q_t, axis=0)
+
+    X64, y64 = X.double(), y_col.double()
+
+    def reference(q_t):
+        logits = X64 @ q_t
+        return -torch.sum(y64 * logits - _softplus(logits), dim=0) + \
+            0.5 * torch.sum(q_t * q_t, dim=0)
+
+    return pot, (), DIM, "t", jax_pot, reference
+
+
+def _mvn_case():
+    dim = 6
+    cov = np.full((dim, dim), 0.5, F32)
+    np.fill_diagonal(cov, 1.0)
+    prec = np.linalg.inv(cov.astype(np.float64)).astype(F32)
+
+    def pot(q_t, P):
+        return 0.5 * torch.sum(q_t * (P @ q_t), dim=0)
+
+    def jax_pot(q_t, P):
+        return 0.5 * jnp.sum(q_t * (P @ q_t), axis=0)
+
+    return pot, (torch.tensor(prec),), dim, "t", jax_pot
+
+
+def _funnel_case():
+    def jax_pot(q_t, _dummy):
+        v, x = q_t[0:1], q_t[1:]
+        return (0.5 * (v / 3.0) ** 2
+                + jnp.sum(0.5 * x * x * jnp.exp(-v), axis=0, keepdims=True)
+                + (q_t.shape[0] - 1) * 0.5 * v)[0]
+
+    _, _, data, _ = neals_funnel_pg_t(10, device="cpu")
+    return funnel_potential_t, data, 10, "t", jax_pot
+
+
+def _schools_case():
+    def jax_pot(q_t, y_col, sig2_col):
+        mu, log_tau, theta_raw = q_t[0:1], q_t[1:2], q_t[2:]
+        tau = jnp.exp(log_tau)
+        neg = 0.5 * (mu / 5.0) ** 2 + 0.5 * (log_tau / 5.0) ** 2 - log_tau
+        neg = neg + jnp.sum(0.5 * theta_raw * theta_raw, axis=0,
+                            keepdims=True)
+        theta = mu + tau * theta_raw
+        neg = neg + jnp.sum(0.5 * (y_col - theta) ** 2 / sig2_col, axis=0,
+                            keepdims=True)
+        return neg[0]
+
+    _, data, _ = eight_schools_t(device="cpu")
+    return schools_potential_t, data, 10, "t", jax_pot
+
+
+def _linreg_case():
+    lp, _ = linear_regression(num_points=40, device="cpu")
+    pot, data = _generic_fused_binding(lp, 2)
+    X, y = (d.reshape(-1) for d in data)
+    Xj, yj = jnp.asarray(X.numpy(), jnp.float64), jnp.asarray(y.numpy(),
+                                                              jnp.float64)
+
+    def jax_lp(q):
+        w, log_sigma = q[0], q[1]
+        sigma = jnp.exp(log_sigma)
+        lpv = -0.5 * (w / 10.0) ** 2 + 2.0 * log_sigma - 2.0 * sigma
+        resid = yj - w * Xj
+        return lpv - 40 * log_sigma - 0.5 * jnp.sum(
+            jnp.square(resid)) / jnp.square(sigma)
+
+    jax_pot, _ = jax_binding(jax_lp, 2)
+    X64, y64 = X.double(), y.double()
+
+    def torch_lp(q):  # float64 throughout, as jax_lp
+        w, log_sigma = q[0], q[1]
+        sigma = torch.exp(log_sigma)
+        lpv = -0.5 * (w / 10.0) ** 2 + 2.0 * log_sigma - 2.0 * sigma
+        resid = y64 - w * X64
+        return lpv - 40 * log_sigma - 0.5 * torch.sum(
+            torch.square(resid)) / torch.square(sigma)
+
+    def reference(q_t):
+        return -torch.func.vmap(torch_lp, in_dims=1)(q_t)
+
+    return (pot, tuple(data), 2, "t",
+            lambda q_t, *rows: jax_pot(q_t, *rows), reference)
+
+
+def _cell_case():
+    """The nuts_fused_generic_10k potential (benchmarks/run.py:669-675),
+    standard layout."""
+    X, y = _logistic_data()
+
+    def pot(q, Xv, y_row):
+        logits = q @ Xv.T
+        sp = torch.clamp(logits, min=0.0) + torch.log1p(
+            torch.exp(-torch.abs(logits)))
+        return -torch.sum(y_row * logits - sp, dim=-1) + \
+            0.5 * torch.sum(q * q, dim=-1)
+
+    def jax_pot(q, Xv, y_row):
+        logits = q @ Xv.T
+        sp = jnp.maximum(logits, 0.0) + jnp.log1p(jnp.exp(-jnp.abs(logits)))
+        return -jnp.sum(y_row * logits - sp, axis=-1) + \
+            0.5 * jnp.sum(q * q, axis=-1)
+
+    return pot, (X, y), DIM, "std", jax_pot
+
+
+CASES = {
+    "logistic": _logistic_case, "logistic_wide": _wide_case,
+    "logistic_closure": _closure_case,
+    "dense_mvn": _mvn_case, "funnel": _funnel_case,
+    "eight_schools": _schools_case, "linear_regression": _linreg_case,
+    "generic_10k": _cell_case,
+}
+
+
+def _case(name):
+    """``(fn, data, dim, layout, jax_pot, reference)``: the potential, its
+    data, the JAX twin, and a float64 torch potential of ``q_t`` (autograd's
+    reference)."""
+    fn, data, dim, layout, jax_pot, *reference = CASES[name]()
+    if not reference:
+        d64 = [d.double() for d in data]
+        if layout == "std":
+            reference = [lambda q_t: fn(q_t.T, *d64)]
+        else:
+            reference = [lambda q_t: fn(q_t, *d64)]
+    return fn, data, dim, layout, jax_pot, reference[0]
+
+
+def _traced(name):
+    fn, data, dim, layout, jax_pot, _ = _case(name)
+    traced = generic_pg.trace_potential(fn, data, dim, layout=layout)
+    return fn, data, dim, layout, jax_pot, traced
+
+
+def _positions(dim, chains=7, seed=0, scale=0.7):
+    rng = np.random.default_rng(seed)
+    return scale * rng.standard_normal((dim, chains))
+
+
+def _assert_rel(a, b, rtol):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = max(np.abs(b).max(), 1.0)
+    np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * scale)
+
+
+# ---------------------------------------------------- the plain back end --
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_back_end_matches_autograd_and_jax_vjp(name):
+    fn, data, dim, layout, jax_pot, traced = _traced(name)
+    q_t = _positions(dim)
+    operands = (*data, *traced.constants)
+    stats = {}
+    u, g = generic_pg.run_plain(traced.ir, torch.tensor(q_t), operands, stats)
+    assert stats["workspace_floats"] == generic_pg.schedule(traced.ir).workspace
+    # torch autograd of the potential in float64
+    q64 = torch.tensor(q_t, requires_grad=True)
+    u_ref = _case(name)[-1](q64)
+    (g_ref,) = torch.autograd.grad(u_ref.sum(), q64)
+    _assert_rel(u.numpy().reshape(-1), u_ref.detach().numpy().reshape(-1),
+                1e-10)
+    _assert_rel(g.numpy(), g_ref.numpy(), 1e-10)
+    # jax.vjp of the JAX twin, float64
+    jd = [jnp.asarray(d.numpy(), jnp.float64) for d in data]
+    if layout == "std":
+        u_j, vjp = jax.vjp(lambda q: jax_pot(q, *jd), jnp.asarray(q_t.T))
+        (g_j,) = vjp(jnp.ones_like(u_j))
+        g_j = np.asarray(g_j).T
+    else:
+        u_j, vjp = jax.vjp(lambda q: jax_pot(q, *jd), jnp.asarray(q_t))
+        (g_j,) = vjp(jnp.ones_like(u_j))
+    _assert_rel(u.numpy().reshape(-1), np.asarray(u_j).reshape(-1), 1e-10)
+    _assert_rel(g.numpy(), np.asarray(g_j), 1e-10)
+
+
+@pytest.mark.parametrize("pg, builder", [
+    (logistic_pg_t, "logistic"), (funnel_pg_t, "funnel"),
+    (schools_pg_t, "eight_schools")])
+def test_a_potential_and_grad_is_traced_as_it_stands(pg, builder):
+    """``potential_and_grad_t`` is traced with no gradient of its own: the
+    plain back end computes what it computes."""
+    data = {"logistic": _logistic_case, "funnel": _funnel_case,
+            "eight_schools": _schools_case}[builder]()[1]
+    dim = 10 if builder != "logistic" else DIM
+    traced = generic_pg.trace_potential(pg, data, dim, with_grad=False)
+    q_t = torch.tensor(_positions(dim, seed=3))
+    u, g = generic_pg.run_plain(traced.ir, q_t, (*data, *traced.constants))
+    u_ref, g_ref = pg(q_t, *[d.double() for d in data])
+    _assert_rel(u.numpy().reshape(-1), u_ref.numpy().reshape(-1), 1e-12)
+    _assert_rel(g.numpy(), g_ref.numpy(), 1e-12)
+
+
+def test_long_rows_into_few_outputs_take_the_warp_per_output():
+    traced = _traced("logistic_wide")[-1]
+    text = generic_pg.emit_cuda(traced.ir)
+    assert "for (int o0 = 0; o0 < 13; o0 += 8)" in text
+    assert "o0 + 4 < 13" in text and "o0 + 5 < 13" in text
+
+
+def test_closed_over_tensors_become_data_operands():
+    fn, data, dim, layout, _, traced = _traced("logistic_closure")
+    X, y = _logistic_data()
+    shapes = traced.ir.data_shapes
+    assert traced.ir.num_caller_data == 0 and len(traced.constants) == 2
+    assert sorted(shapes) == sorted([tuple(X.shape), (POINTS, 1)])
+    assert {"aten.mm.default", "aten.t.default"} <= set(traced.ops)
+
+
+# ----------------------------------------------------------- the errors ---
+
+def test_an_op_outside_the_table_raises_naming_it():
+    with pytest.raises(NotImplementedError, match=r"aten\.logsumexp.*1\.10c"):
+        generic_pg.trace_potential(lambda q_t: torch.logsumexp(q_t, 0), (), 4)
+    mvn_lp = mvn(np.zeros(3), np.eye(3) + 0.2, device="cpu")
+    pot, data = _generic_fused_binding(mvn_lp, 3)
+    with pytest.raises(NotImplementedError, match="linalg_solve_triangular"):
+        generic_pg.trace_potential(pot, data, 3)
+
+
+def test_a_potential_that_mixes_chains_raises():
+    def mixing(q_t):
+        return 0.5 * torch.sum(q_t * q_t, dim=0) + q_t.mean()
+
+    with pytest.raises(ValueError, match="mixes chains"):
+        generic_pg.trace_potential(mixing, (), 4)
+
+
+def test_non_float32_raises_at_the_card_check():
+    fn, data, dim, *_ = _mvn_case()
+    q_t = torch.zeros(dim, 16)
+    with pytest.raises(TypeError, match="float32"):
+        _check_cuda_args(None, data, q_t.double(), 0.3, potential_fn_t=fn)
+    with pytest.raises(TypeError, match="float32"):
+        _check_cuda_args(None, (data[0].double(),), q_t, 0.3,
+                         potential_fn_t=fn)
+    model = nf._generic_model(_cell_case()[0], _logistic_data())
+    with pytest.raises(TypeError, match="float32"):
+        nf._check_card(model, torch.zeros(16, DIM, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32"):
+        generic_pg.bind(fn, (data[0].to(torch.bfloat16),), dim)
+
+
+def test_the_card_check_binds_a_generated_functor():
+    """Any potential without a hand-written functor binds one, traced once
+    per function and data signature."""
+    fn, data, dim, *_ = _mvn_case()
+    q_t = torch.zeros(dim, 16)
+    assert _check_cuda_args(None, data, q_t, 0.3, potential_fn_t=fn) == \
+        "generic"
+    assert generic_pg.bind(fn, data, dim) is generic_pg.bind(fn, data, dim)
+    model = nf._generic_model(_cell_case()[0], _logistic_data())
+    bound = nf._check_card(model, torch.zeros(16, DIM))
+    assert bound.ir.layout == "std" and bound.workspace > 0
+    assert {"nuts_transition_generic", "nuts_sampling_generic",
+            "nuts_transition_std_generic",
+            "nuts_sampling_std_generic"} <= set(LAUNCHES)
+
+
+# ---------------------------------------------------------- the emitter ---
+
+@pytest.mark.parametrize("name", ["logistic", "logistic_closure",
+                                  "generic_10k", "funnel"])
+def test_emit_cuda_is_deterministic_and_names_every_operand(name):
+    traced = _traced(name)[-1]
+    again = _traced(name)[-1]
+    text = generic_pg.emit_cuda(traced.ir)
+    assert text == generic_pg.emit_cuda(again.ir)
+    assert traced.ir.key() == again.ir.key()
+    assert _build.generated_path(text) == _build.generated_path(
+        generic_pg.emit_cuda(again.ir))
+    for j in range(len(traced.ir.data_shapes)):
+        assert f"D{j} = data.ptr[{j}];" in text
+    stats = {}
+    dim = traced.ir.dim
+    generic_pg.run_plain(traced.ir, torch.zeros(dim, 2),
+                         (*_traced(name)[1], *traced.constants), stats)
+    assert f"static constexpr int W = {stats['workspace_floats']};" in text
+    assert "struct GenericPG" in text and "fmaf" in text or "mm" not in {
+        n.op for n in traced.ir.nodes}
+
+
+def test_launch_plan_of_a_generated_functor():
+    big = launch_plan("nuts", 100, 6, 10_240, functor="generic",
+                      workspace=2_100)
+    assert (big.points, big.row_stride, big.chains) == (0, 0, 8)
+    assert not generic_workspace_shared(100, 2_100)
+    assert generic_workspace_floats(100, 2_100, big.blocks) == \
+        big.blocks * 8 * 2_100
+    small = launch_plan("nuts", 25, 10, 512, functor="generic", workspace=50)
+    assert generic_workspace_shared(25, 50)
+    assert generic_workspace_floats(25, 50, small.blocks) == 0
+    assert small.smem == 4 * (17 * 8 * 28 + 8 + 8 * 50)
+
+
+def test_a_build_without_nvcc_raises():
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is present: the build would run")
+    text = generic_pg.emit_cuda(_traced("dense_mvn")[-1].ir)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.load_generated(text)
+
+
+# ------------------------------------------ the emitted code, on the CPU --
+
+_MOCK = r'''
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+namespace emu {
+inline std::barrier<>* bar;
+inline float vals[32];
+}
+struct Idx { int x; };
+inline thread_local Idx threadIdx{0};
+inline Idx blockIdx{0};
+inline void __syncwarp() { emu::bar->arrive_and_wait(); }
+inline float __ldg(const float* p) { return *p; }
+inline float __int_as_float(unsigned v) {
+  float f;
+  std::memcpy(&f, &v, 4);
+  return f;
+}
+namespace aehmc {
+struct Geometry { int blocks, points, row_stride, smem, chains; };
+// __shfl_down_sync's butterfly, then lane 0's value to every lane
+inline float warp_sum(float v) {
+  const int lane = threadIdx.x % 32;
+  for (int o = 16; o > 0; o >>= 1) {
+    emu::vals[lane] = v;
+    emu::bar->arrive_and_wait();
+    const float other = lane + o < 32 ? emu::vals[lane + o] : v;
+    emu::bar->arrive_and_wait();
+    v += other;
+  }
+  emu::vals[lane] = v;
+  emu::bar->arrive_and_wait();
+  v = emu::vals[0];
+  emu::bar->arrive_and_wait();
+  return v;
+}
+}  // namespace aehmc
+'''
+
+_MAIN = r'''
+#include <cstdio>
+#include <thread>
+#include <vector>
+#include "generic_pg.cuh"
+using namespace aehmc;
+#include "functor.cu"
+int main() {
+  int C, n;
+  if (fread(&C, 4, 1, stdin) != 1 || fread(&n, 4, 1, stdin) != 1) return 2;
+  std::vector<std::vector<float>> data(n);
+  GenericPG pg = {};
+  pg.data.n = n;
+  for (int j = 0; j < n; ++j) {
+    long long len;
+    if (fread(&len, 8, 1, stdin) != 1) return 2;
+    data[j].resize(len);
+    if (fread(data[j].data(), 4, len, stdin) != (size_t)len) return 2;
+    pg.data.ptr[j] = data[j].data();
+    pg.data.len[j] = len;
+  }
+  const int W = GenericPG::W > 0 ? GenericPG::W : 1;
+  std::vector<float> global(8 * W, NAN), smem(8 + 8 * W, NAN);
+  pg.ws_global = global.data();
+  if (!pg.fits(GenericPG::DIM, Geometry{1, 0, 0, 1, 8})) return 3;
+  const int dim = GenericPG::DIM, ds = (dim + 3) / 4 * 4;
+  std::vector<float> q(8 * ds, 0.f), g(8 * ds, NAN);
+  std::barrier<> bar(32);
+  emu::bar = &bar;
+  const auto S = GenericPG::carve_scratch(smem.data(), ds);
+  for (int c = 0; c < C; ++c) {
+    if (fread(q.data(), 4, dim, stdin) != (size_t)dim) return 2;
+    std::vector<std::thread> warp;
+    for (int lane = 0; lane < 32; ++lane)
+      warp.emplace_back([&, lane] {
+        threadIdx.x = lane;
+        pg(S, dim, ds, q.data(), g.data());
+      });
+    for (auto& t : warp) t.join();
+    fwrite(&S.nu[0], 4, 1, stdout);
+    fwrite(g.data(), 4, dim, stdout);
+  }
+  return 0;
+}
+'''
+
+
+def _emulate(source, operands, q, work):
+    """(u (C,), g (C, dim)) of the emitted functor compiled for the CPU,
+    one warp emulated by 32 threads (chain 0 of block 0)."""
+    (work / "hierarchical_pg.cuh").write_text(_MOCK)
+    shutil.copy(_build.CSRC / "generic_pg.cuh", work / "generic_pg.cuh")
+    (work / "functor.cu").write_text(source)
+    (work / "main.cpp").write_text(_MAIN)
+    exe = work / "emulated"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                    "-pthread", "-I", str(work), "-o", str(exe),
+                    str(work / "main.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    q = np.ascontiguousarray(q, F32)
+    blob = [np.int32(q.shape[0]).tobytes(), np.int32(len(operands)).tobytes()]
+    for d in operands:
+        d = np.ascontiguousarray(d.numpy(), F32).reshape(-1)
+        blob += [np.int64(d.size).tobytes(), d.tobytes()]
+    blob.append(q.tobytes())
+    out = subprocess.run([str(exe)], input=b"".join(blob), check=True,
+                         capture_output=True, timeout=120).stdout
+    res = np.frombuffer(out, F32).reshape(q.shape[0], q.shape[1] + 1)
+    return res[:, 0], res[:, 1:]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_emitted_functor_computes_its_plain_version(name, tmp_path):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emitted functor for the CPU")
+    _, data, dim, _, _, traced = _traced(name)
+    operands = (*data, *traced.constants)
+    q = _positions(dim, chains=5, seed=11).T.astype(F32)
+    u, g = generic_pg.run_plain(traced.ir, torch.tensor(q.T), operands)
+    ue, ge = _emulate(generic_pg.emit_cuda(traced.ir), operands, q, tmp_path)
+    _assert_rel(ue, u.numpy().reshape(-1), 1e-5)
+    _assert_rel(ge, g.numpy().T, 1e-5)
+
+
+# ------------------------------------- kernels 1 and 3 against the JAX ones
+
+def _streams(rng, chains, dim, max_exp):
+    p = rng.normal(size=(chains, dim)).astype(F32)
+    dirs = np.where(rng.uniform(size=(chains, max_exp)) < 0.5, -1.0, 1.0)
+    ub = rng.uniform(size=(chains, max_exp)).astype(F32)
+    ul = rng.uniform(size=(chains, 2**max_exp)).astype(F32)
+    return p, dirs.astype(F32), ub, ul
+
+
+def _assert_same(stats_a, stats_b, floats_a, floats_b):
+    np.testing.assert_array_equal(stats_a[:, 2:6], stats_b[:, 2:6])
+    for a, b in zip(floats_a, floats_b):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _jax_logistic_lp():
+    X, y = _logistic_data()
+    Xj, yj = jnp.asarray(X.numpy()), jnp.asarray(y.numpy())
+
+    def jax_lp(w):
+        logits = Xj @ w
+        return jnp.sum(yj * logits - _jax_softplus(logits)) - 0.5 * jnp.sum(
+            w * w)
+
+    return jax_lp
+
+
+@pytest.mark.parametrize("eps, max_exp", [(0.3, 4), (0.05, 5), (2.5, 4)])
+def test_generated_kernel_1_plain_matches_jax_interpret(eps, max_exp):
+    """Kernel 1's plain version with the generated functor's plain back end
+    as its potential, on the front door's binding of the logistic logprob,
+    against the JAX kernel tracing the JAX binding of the same logprob in
+    interpret mode."""
+    lp, _ = logistic_regression(DIM, POINTS, device="cpu")
+    pot, rows = _generic_fused_binding(lp, DIM)
+    traced = generic_pg.trace_potential(pot, rows, DIM)
+    operands = (*rows, *traced.constants)
+    dim = DIM
+    rng = np.random.default_rng(int(eps * 100) + max_exp)
+    q = (0.3 * rng.normal(size=(CHAINS, dim))).astype(F32)
+    p, dirs, ub, ul = _streams(rng, CHAINS, dim, max_exp)
+    im = np.full(dim, 0.8, F32)
+    u0, g0 = generic_pg.run_plain(traced.ir, torch.tensor(q.T), operands)
+
+    def pg(q_t):
+        return generic_pg.run_plain(traced.ir, q_t, operands)
+
+    out = nuts_transition_plain(
+        torch.tensor(q.T), u0, g0, torch.tensor(im), eps, pg,
+        max_exp=max_exp, momentum=torch.tensor(p.T.copy()),
+        directions=torch.tensor(dirs.T.copy()),
+        u_bias=torch.tensor(ub.T.copy()), u_leaf=torch.tensor(ul.T.copy()))
+    out = [o.numpy().T for o in out]
+    jax_pot, jax_rows = jax_binding(_jax_logistic_lp(), DIM)
+    jt = jax_transition(jax_pot, jax_rows, max_num_expansions=max_exp,
+                        block_chains=CHAINS, interpret=True)
+    ref = [np.asarray(o) for o in jt(
+        jnp.asarray(q), jnp.asarray(u0.numpy().reshape(-1, 1)),
+        jnp.asarray(g0.numpy().T), jnp.asarray(p), jnp.asarray(dirs),
+        jnp.asarray(ub), jnp.asarray(ul), jnp.asarray(im),
+        jnp.asarray(eps, jnp.float32))]
+    _assert_same(out[3], ref[3], (out[0], out[1], out[2], out[3][:, 0]),
+                 (ref[0], ref[1], ref[2], ref[3][:, 0]))
+
+
+@pytest.mark.parametrize("eps, max_exp", [(0.3, 4), (0.9, 4)])
+def test_generated_kernel_3_plain_matches_jax_interpret(eps, max_exp):
+    """Kernel 3's plain version with the generated functor of the
+    nuts_fused_generic_10k potential against the JAX standard-layout kernel
+    in interpret mode (its in-kernel vjp)."""
+    fn, data, dim, _, jax_pot, traced = _traced("generic_10k")
+    operands = (*data, *traced.constants)
+    rng = np.random.default_rng(7 + max_exp)
+    q = (0.3 * rng.normal(size=(CHAINS, dim))).astype(F32)
+    p, dirs, ub, ul = _streams(rng, CHAINS, dim, max_exp)
+    im = np.full(dim, 0.8, F32)
+
+    def pg(qs):
+        u, g = generic_pg.run_plain(traced.ir, qs.T.contiguous(), operands)
+        return u.reshape(-1, 1), g.T
+
+    u0, g0 = pg(torch.tensor(q))
+    out = nf.nuts_transition_std_plain(
+        torch.tensor(q), u0, g0, torch.tensor(im), eps, pg, max_exp=max_exp,
+        momentum=torch.tensor(p), directions=torch.tensor(dirs),
+        u_bias=torch.tensor(ub), u_leaf=torch.tensor(ul))
+    out = [o.numpy() for o in out]
+    jt = jax_std_transition(
+        jax_pot, [jnp.asarray(d.numpy()) for d in data],
+        max_num_expansions=max_exp, block_chains=CHAINS, interpret=True)
+    ref = [np.asarray(o) for o in jt(
+        jnp.asarray(q), jnp.asarray(u0.numpy()), jnp.asarray(g0.numpy()),
+        jnp.asarray(p), jnp.asarray(dirs), jnp.asarray(ub), jnp.asarray(ul),
+        jnp.asarray(im), eps)]
+    _assert_same(out[3], ref[3], (out[0], out[1], out[2], out[3][:, 0]),
+                 (ref[0], ref[1], ref[2], ref[3][:, 0]))
+
+
+def test_generic_transition_through_the_public_builder():
+    """``make_fused_nuts_transition_small`` on a potential_fn_t with no
+    hand-written functor runs its plain version on CPU tensors (autograd),
+    as the generated functor's plain back end computes it."""
+    fn, data, dim, _, _, traced = _traced("dense_mvn")
+    rng = np.random.default_rng(5)
+    q = torch.tensor(rng.normal(size=(dim, CHAINS)), dtype=torch.float32)
+    streams = [torch.tensor(s.T.copy()) for s in _streams(rng, CHAINS, dim, 4)]
+    u0, g0 = generic_pg.run_plain(traced.ir, q, data)
+    imm = torch.full((dim,), 0.9)
+    auto = make_fused_nuts_transition_small(
+        fn, data, max_num_expansions=4, transposed_io=True)(
+            q, u0, g0, *streams, imm, 0.4)
+    plain = nuts_transition_plain(
+        q, u0, g0, imm, 0.4, lambda x: generic_pg.run_plain(traced.ir, x,
+                                                            data),
+        max_exp=4, momentum=streams[0], directions=streams[1],
+        u_bias=streams[2], u_leaf=streams[3])
+    _assert_same(auto[3].numpy().T, plain[3].numpy().T,
+                 [a.numpy() for a in auto[:3]], [b.numpy() for b in plain[:3]])
+
+
+# ------------------------------------------------ the generic fused binding
+
+def test_generic_fused_binding_equals_jax():
+    """The port's binding of a per-chain logprob and the JAX package's:
+    the same data rows (the closed-over tensors, flat) and the same
+    potential on the same positions."""
+    lp, _ = logistic_regression(DIM, POINTS, device="cpu")
+    pot, rows = _generic_fused_binding(lp, DIM)
+    jax_pot, jax_rows = jax_binding(_jax_logistic_lp(), DIM)
+    assert sorted(tuple(r.shape) for r in rows) == sorted(
+        tuple(r.shape) for r in jax_rows)
+    q_t = _positions(DIM, chains=6, seed=9).astype(F32)
+    port = pot(torch.tensor(q_t), *rows).numpy()
+    ref = np.asarray(jax_pot(jnp.asarray(q_t), *jax_rows))
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="data rows"):
+        pot(torch.tensor(q_t))

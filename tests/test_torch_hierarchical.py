@@ -187,17 +187,17 @@ def test_plain_fused_nuts_matches_jax_interpret(model):
 
 def test_cuda_path_names_the_potentials_it_takes():
     """Kernels 1 and 2 take the three builders' potential+gradient
-    functions, each with its own data; any other potential on a CUDA tensor
-    raises, naming the generic path's ROADMAP item."""
+    functions in their hand-written functors, each with its own data; any
+    other potential binds a functor generated from its traced gradient
+    graph."""
     q_t = torch.zeros(10, 16)
     _, _, funnel_data, _ = neals_funnel_pg_t(10, device="cpu")
     _, _, schools_data, _ = eight_schools_pg_t(device="cpu")
     assert _check_cuda_args(funnel_pg_t, funnel_data, q_t, 0.2) == "funnel"
     assert (_check_cuda_args(schools_pg_t, schools_data, q_t, 0.2)
             == "eight_schools")
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        _check_cuda_args(lambda q, d: funnel_pg_t(q, d), funnel_data, q_t,
-                         0.2)
+    assert _check_cuda_args(lambda q, d: funnel_pg_t(q, d), funnel_data,
+                            q_t, 0.2) == "generic"
     with pytest.raises(ValueError, match="eight_schools data"):
         _check_cuda_args(schools_pg_t, funnel_data, q_t, 0.2)
     with pytest.raises(ValueError, match="logistic data"):

@@ -375,9 +375,15 @@ def test_a_key_source_replays_external_streams_only(call):
 
 
 def test_cuda_path_takes_the_logistic_potential_only():
+    """The logistic potential takes the hand-written functor of kernels 3
+    and 4 (``_check_card`` gives no generated one); any other binds a
+    generated functor in the standard layout, or raises."""
     model = nf._generic_model(_gaussian, (torch.ones(1, 4),))
-    with pytest.raises(NotImplementedError, match="item 1.4"):
-        nf._check_card(model, torch.zeros(8, 4))
+    bound = nf._check_card(model, torch.zeros(8, 4))
+    assert bound.ir.layout == "std" and bound.ir.dim == 4
+    logsumexp = nf._generic_model(lambda q: torch.logsumexp(q, -1), ())
+    with pytest.raises(NotImplementedError, match="logsumexp"):
+        nf._check_card(logsumexp, torch.zeros(8, 4))
     X = torch.zeros(16, 4)
     logistic = nf._logistic_model(X, torch.zeros(16), 1.0, torch.bfloat16)
     assert logistic.card == (1.0, True)

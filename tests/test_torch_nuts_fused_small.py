@@ -315,15 +315,19 @@ def test_scan_path_matches_jax_sample_fused_small():
 
 
 def test_cuda_path_takes_only_the_logistic_kernel_potential():
-    """A CUDA tensor never falls back to the plain version: any potential
-    other than the logistic one raises before a launch.  ε is a scalar or
-    a float32 ``(chains,)`` row on the chains' device; any other shape or
-    dtype raises."""
+    """A CUDA tensor never falls back to the plain version: the logistic
+    potential takes its hand-written functor, any other binds a functor
+    generated from its traced gradient graph or raises before a launch.  ε
+    is a scalar or a float32 ``(chains,)`` row on the chains' device; any
+    other shape or dtype raises."""
     pg, data, q0 = _logistic_case()
     q_t = q0.T.contiguous()
     chains = q_t.shape[1]
-    with pytest.raises(NotImplementedError, match="logistic"):
-        _check_cuda_args(_gaussian_pg, data, q_t, 0.3)
+    var = (torch.ones(q_t.shape[0], 1),)
+    assert _check_cuda_args(_gaussian_pg, var, q_t, 0.3) == "generic"
+    with pytest.raises(NotImplementedError, match="logsumexp"):
+        _check_cuda_args(None, (), q_t, 0.3,
+                         potential_fn_t=lambda q: torch.logsumexp(q, 0))
     row = torch.linspace(0.1, 0.4, chains)
     assert _check_cuda_args(logistic_pg_t, data, q_t, row) == "logistic"
     assert torch.equal(_eps_row(row, q_t), row)

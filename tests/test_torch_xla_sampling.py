@@ -290,8 +290,9 @@ def test_front_door_errors_name_what_still_raises():
         aehmc_tpu_torch.sample(0, _lp, torch.zeros(DIM), algorithm="meads")
     with pytest.raises(NotImplementedError, match="item 1.12"):
         aehmc_tpu_torch.sample(0, _lp, q2, path="pooled", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1.10"):
-        aehmc_tpu_torch.sample(0, _lp, q2, path="fused")
+    bare = aehmc_tpu_torch.sample(torch.Generator().manual_seed(0), _lp, q2,
+                                  4, 6, path="fused", max_num_expansions=3)
+    assert bare.positions.shape == (4, 8, DIM)  # the generic fused binding
     with pytest.raises(ValueError, match="no fused megakernel"):
         aehmc_tpu_torch.sample(0, _lp, q2, algorithm="hmc", path="fused",
                                potential_fn_t=lambda q_t: q_t.sum(0))
