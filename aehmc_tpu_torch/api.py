@@ -23,12 +23,10 @@ Three paths, picked as the JAX package picks them (``path="auto"``):
 A bare ``logprob_fn`` on the fused path takes the generic fused binding
 (:func:`_generic_fused_binding`, as the JAX package's): a transposed
 potential and its data rows, which the plain versions run on CPU tensors
-and kernels 1-4 run on the card through a functor generated from the
-potential's traced gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).
-The fused MALA, GHMC, ChEES and MEADS kernels hold the logistic functor
-only, so a potential with no device functor raises there on the card
-(ROADMAP.md item 1.10b).  ``mesh=`` raises ``NotImplementedError`` (item
-1.12).
+and every fused kernel (NUTS 1-4, GHMC and MALA 5-6, ChEES 7, MEADS 5-6)
+runs on the card through a functor generated from the potential's traced
+gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).  ``mesh=`` raises
+``NotImplementedError`` (item 1.12).
 """
 
 from typing import Callable, Optional, Sequence
@@ -184,16 +182,16 @@ def sample(
 
     The fused routes take the transposed ``potential_fn_t(q_t, *data)``
     and/or ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device
-    the fused NUTS route runs three models in hand-written device functors
-    of kernels 1 and 2, picked by the identity of ``potential_and_grad_t``:
-    ``models.logistic_pg_t`` (``models.logistic_regression_pg_t``),
-    ``models.funnel_pg_t`` (``models.neals_funnel_pg_t``) and
-    ``models.schools_pg_t`` (``models.eight_schools_pg_t``), and any other
-    float32 potential (or a bare ``logprob_fn``, through
-    :func:`_generic_fused_binding`) in a functor generated from its traced
-    gradient graph; the MALA, GHMC, ChEES and MEADS routes take the
-    logistic one, and any other potential raises ``NotImplementedError``
-    there on the card (ROADMAP.md item 1.10b).  ``kwargs`` go to
+    every fused route (NUTS, MALA, GHMC, ChEES, MEADS) runs three models in
+    hand-written device functors of its kernels, picked by the identity of
+    ``potential_and_grad_t``: ``models.logistic_pg_t``
+    (``models.logistic_regression_pg_t``), ``models.funnel_pg_t``
+    (``models.neals_funnel_pg_t``) and ``models.schools_pg_t``
+    (``models.eight_schools_pg_t``), and any other float32 potential (or a
+    bare ``logprob_fn``, through :func:`_generic_fused_binding`) in a
+    functor generated from its traced gradient graph; a potential no
+    functor takes (an op outside the compiler's table, ROADMAP.md item
+    1.10c) raises before any launch.  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
     (``max_num_expansions`` defaults to 6; ``loop_in_kernel`` to True
     unless ``checkpoint_every`` or ``sort_by_depth`` is given, whose draws

@@ -127,7 +127,9 @@ int blocks_per_sm(void (*kernel)(KArgs...), int smem) {
 
 }  // namespace aehmc
 
-// CUDA error text for the Python wrappers (each library exports its own)
-extern "C" const char* error_string(int err) {
+// CUDA error text for the Python wrappers (each library exports its own;
+// weak, so that a library linked from two sources, as one built on a
+// generated functor, holds one)
+extern "C" __attribute__((weak)) const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -1,16 +1,17 @@
 // What a generated potential functor (struct GenericPG, written by
 // aehmc_tpu_torch/ops/generic_pg.py:emit_cuda) stands on: its data table,
 // its scratch and per-chain workspace, and the scalar helpers its emitted
-// expressions call.  The NUTS kernels 1-4 take GenericPG as their functor
-// (nuts_generic.cu), beside the hand-written LogisticPGT, FunnelPG and
-// EightSchoolsPG.
+// expressions call.  The NUTS kernels 1-4 (nuts_generic.cu) and the HMC
+// kernels 5-7 (hmc_generic.cu) take GenericPG as their functor, beside the
+// hand-written LogisticPGT, FunnelPG and EightSchoolsPG.
 //
-// The contract is the NUTS core's (nuts_core.cuh): CB = 8 chains a block,
-// one warp a chain; Scratch holds the block's potentials nu;
-// carve_scratch(base, ds) carves it after the core's rows; fits(dim, G)
-// checks a launch; operator()(S, dim, ds, q, grad, bool) leaves each
-// chain's gradient row and potential, and a __syncwarp orders them before
-// the warp reads them.
+// The contract is the NUTS core's (nuts_core.cuh), which the HMC core
+// (hmc_core.cuh) shares: CB = 8 chains a block, one warp a chain; Scratch
+// holds the block's potentials nu; carve_scratch(base, ds) carves it after
+// the core's rows; fits(dim, G) checks a launch; operator()(S, dim, ds, q,
+// grad, bool) leaves each chain's gradient row and potential, and a
+// __syncwarp orders them before the warp reads them; request and drain,
+// the HMC core's hooks at block entry and exit, do nothing (no X tile).
 //
 // The workspace holds the values a chain's potential materialises (the
 // contractions' outputs and the elementwise values a product reads more
@@ -66,6 +67,9 @@ struct Base {
   static __device__ Scratch carve(float* base) {
     return Scratch{base, SHARED ? base + CB : nullptr};
   }
+
+  __device__ void request(const Scratch&) const {}
+  __device__ void drain(const Scratch&) const {}
 
   // chain c's W floats of workspace
   template <bool SHARED, int W>

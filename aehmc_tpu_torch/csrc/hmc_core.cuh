@@ -6,6 +6,22 @@
 // ChEES is this transition at α 0, with no momentum carried between calls.
 //
 // Template parameters of the kernels:
+//   PG: the potential's device functor: LogisticPGT (logistic_pg.cuh),
+//     FunnelPG and EightSchoolsPG (hierarchical_pg.cuh, the *_pot_* entry
+//     points of ghmc_fused.cu and chees_fused.cu), or a GenericPG generated
+//     from a potential's traced gradient graph (generic_pg.cuh,
+//     hmc_generic.cu).  The contract is the NUTS core's (nuts_core.cuh):
+//     PG::Scratch with the block's potentials `nu`, PG::carve_scratch(base,
+//     ds) after the core's rows, pg.fits(dim, geometry) for the launch
+//     checks, and operator()(scratch, dim, ds, q, grad, more), which the
+//     whole block calls and which leaves each chain's gradient row and
+//     potential ordered before the chain's warp reads them (a block barrier
+//     in the logistic functor, a __syncwarp in the others, whose warp
+//     computes its own chain).  Two hooks besides: pg.request(scratch) at
+//     block entry and pg.drain(scratch) before the block exits, which
+//     LogisticPGT uses to start X's first chunk early and to wait for a
+//     chunk requested and never used; they do nothing in the functors with
+//     no X tile.
 //   STD: the global layout.  false: q, ∇U, p, ξ and a per-chain M⁻¹
 //     (dim, C), stats (8, C) (GHMC); true: (C, dim) and (C, 8) (ChEES).  It
 //     reaches only the global-memory accessors.
@@ -16,29 +32,33 @@
 //     M⁻¹ p_L of every chain, accepted or not, unflipped: the ChEES
 //     criterion's cross-chain gradient reads them.
 //
-// What bounds it on the card: the L gradients, each 2·N·dim float32
-// multiply-adds per chain, at the rate the functor's register tiles are fed
-// from shared memory (logistic_pg.cuh), and around them, in a launch of one
-// gradient (kernel 5), the block's fixed work: its state in and out, the
-// momentum draw, the accept test.
+// What bounds it on the card: the L gradients.  With the logistic functor
+// each is 2·N·dim float32 multiply-adds per chain, at the rate the
+// functor's register tiles are fed from shared memory (logistic_pg.cuh),
+// and around them, in a launch of one gradient (kernel 5), the block's
+// fixed work: its state in and out, the momentum draw, the accept test.
+// The hierarchical functors' gradients are a few dozen flops a chain, so
+// the core's own work and its state I/O bound them; a generated functor's
+// are its contractions, one warp a chain, on operands from L2 (generic_pg.py).
 //
 // Design.  One warp per chain, CB = 8 chains per block (16 chains a block,
 // two a warp, was measured slower at 10,240 chains: the grid's last round of
 // blocks runs 42% full; PERF.md §6), the potential computed by the whole
-// block for its 8 chains at once.  Every chain of a call takes the same L,
-// so no warp idles.  L is a host int (GHMC) or read from a device int32
+// block for its 8 chains at once (the logistic functor) or by each chain's
+// warp (the others).  Every chain of a call takes the same L, so no warp
+// idles.  L is a host int (GHMC) or read from a device int32
 // (ChEES, whose driver computes clip(ceil(jitter·h/ε), 1, max) on the card,
 // so nothing synchronises the stream).  ε and α are per chain, or host
 // scalars passed with the launch (no fill on the card).  A block keeps q,
 // ∇U, p, the trajectory's q, p, ∇U, a scratch row and the diagonal M⁻¹ of
 // its chains in shared memory, 8 rows of dim floats per chain, then the
-// functor's scratch and its tile of X (81 KB at dim 100 with a 128-point
-// tile): two blocks per SM, built for 128 registers a thread, which hold
-// the functor's register tiles.  The block moves its state in and out
-// together, consecutive threads on consecutive addresses in either layout
-// (in the (dim, C) layout a warp takes 4 rows × the block's 8 chains), not
-// a warp a chain: in the (dim, C) layout that read 32 rows apart at each
-// load, and kernel 5 waited on it (PERF.md §6).  The tile of X is never
+// functor's scratch: with the logistic functor its tile of X (81 KB at dim
+// 100 with a 128-point tile): two blocks per SM, built for 128 registers a
+// thread, which hold the functor's register tiles.  The block moves its
+// state in and out together, consecutive threads on consecutive addresses
+// in either layout (in the (dim, C) layout a warp takes 4 rows × the
+// block's 8 chains), not a warp a chain: in the (dim, C) layout that read
+// 32 rows apart at each load, and kernel 5 waited on it (PERF.md §6).  The tile of X is never
 // idle while a request can be made: a kernel requests X's first chunk at
 // block entry, before it loads its state and draws its momentum, and each
 // gradient but a launch's last requests the next one's first chunk as soon
@@ -78,6 +98,39 @@ struct Params {
   int ds;              // row stride in shared memory: dim rounded up to 4
 };
 
+// The parameters of a GHMC launch (kernels 5 and 6): ε and α as rows or,
+// where a row is null, the host scalars eps0 and alpha0; a diagonal M⁻¹,
+// shared or per chain; L a host int.
+inline Params ghmc_params(const float* eps, const float* alpha, float eps0,
+                          float alpha0, const float* im, int im_per_chain,
+                          float thr, int dim, int C, int L) {
+  Params P;
+  P.eps = eps;
+  P.alpha = alpha;
+  P.eps0 = eps0;
+  P.alpha0 = alpha0;
+  P.im = im;
+  P.ms = nullptr;
+  P.im_per_chain = im_per_chain;
+  P.Ld = nullptr;
+  P.L = L;
+  P.thr = thr;
+  P.dim = dim;
+  P.C = C;
+  P.ds = (dim + 3) / 4 * 4;
+  return P;
+}
+
+// ... and of a ChEES launch (kernel 7): α 0, ε a row, M⁻¹ diagonal or dense
+// (ms its L⁻ᵀ), L a device int32.
+inline Params chees_params(const float* eps, const float* im, const float* ms,
+                           const int* L, float thr, int dim, int C) {
+  Params P = ghmc_params(eps, nullptr, 0.f, 0.f, im, 0, thr, dim, C, 0);
+  P.ms = ms;
+  P.Ld = L;
+  return P;
+}
+
 // randomness of one transition: external tensors or a Philox key
 struct Rand {
   const float* noise;  // ξ ~ N(0, M): (dim, C) or (C, dim)
@@ -92,9 +145,12 @@ __device__ __forceinline__ size_t gat(int i, int chain, int rows, int C) {
   return STD ? (size_t)chain * rows + i : (size_t)i * C + chain;
 }
 
+// The block's rows, then the potential's scratch (SC, the functor's
+// Scratch: its potentials `nu` and, for the logistic functor, its X tile).
+template <class SC>
 struct Smem {
   float *q, *g, *p, *tq, *tp, *tg, *tmp, *im;
-  PGScratch pgs;  // the functor's scratch and X tile
+  SC pgs;
 };
 
 constexpr int CB = NW;  // chains a block: one warp each
@@ -102,13 +158,15 @@ constexpr int NUM_ROWS = 8;  // row arrays of Smem
 constexpr int MIN_BLOCKS = 2;  // blocks per SM the registers must allow
 
 // The rows, zeroed (the functor reads q's padding past dim), then the
-// functor's scratch (qb floats of rounded q) and X tile.  Every thread of
-// the block calls it.
-__device__ inline Smem carve(float* base, int ds, int qb) {
+// functor PG's scratch (PG::carve_scratch; ops/launch_plan.py sizes it).
+// Every thread of the block calls it.
+template <class PG>
+__device__ inline Smem<typename PG::Scratch> carve(float* base, int ds) {
+  static_assert(PG::CB == CB, "the HMC core takes 8 chains a block");
   const size_t V = (size_t)CB * ds;
   zero_smem(base, NUM_ROWS * V);
-  Smem s;
-  s.pgs.carve<CB>(base + NUM_ROWS * V, qb);
+  Smem<typename PG::Scratch> s;
+  s.pgs = PG::carve_scratch(base + NUM_ROWS * V, ds);
   __syncthreads();
   s.q = base;
   s.g = s.q + V;
@@ -170,8 +228,9 @@ struct Stats {
 // flipped on rejection), and tq, tp the trajectory's endpoint.  `more`: the
 // block takes another gradient after this transition's last (the functor
 // then requests X's first chunk for it early).
-template <class PG, bool STD, bool DENSE>
-__device__ Stats transition(const Params& P, const PG& pg_fn, const Smem& S,
+template <class PG, bool STD, bool DENSE, class SC>
+__device__ Stats transition(const Params& P, const PG& pg_fn,
+                            const Smem<SC>& S,
                             const Rand& R, int L, bool more, int chain,
                             bool valid, float& u) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
@@ -287,9 +346,10 @@ __device__ __forceinline__ void block_elem(int e, int n, int C, int& c,
 
 // The block's chain state into shared memory (the momentum 0 without p);
 // returns warp w's chain's potential.  A __syncthreads must follow.
-template <bool STD, bool DENSE>
-__device__ float load_state(const Params& P, const Smem& S, const float* q,
-                            const float* u, const float* g, const float* p) {
+template <bool STD, bool DENSE, class SC>
+__device__ float load_state(const Params& P, const Smem<SC>& S,
+                            const float* q, const float* u, const float* g,
+                            const float* p) {
   const int n = P.dim;
   for (int e = threadIdx.x; e < CB * n; e += NT) {
     int c, d;
@@ -311,10 +371,10 @@ __device__ float load_state(const Params& P, const Smem& S, const float* q,
 
 // The block's chain state out of shared memory (p_out may be null); warp
 // w's lane 0 writes its chain's potential u.
-template <bool STD>
-__device__ void store_state(const Params& P, const Smem& S, float* q_out,
-                            float* u_out, float* g_out, float* p_out,
-                            float u) {
+template <bool STD, class SC>
+__device__ void store_state(const Params& P, const Smem<SC>& S,
+                            float* q_out, float* u_out, float* g_out,
+                            float* p_out, float u) {
   const int n = P.dim;
   for (int e = threadIdx.x; e < CB * n; e += NT) {
     int c, d;
@@ -351,8 +411,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                       float* q_out, float* u_out, float* g_out, float* p_out,
                       float* stats, float* qp_out, float* vp_out) {
   extern __shared__ float4 smem_raw[];
-  const Smem S =
-      carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
+  const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds);
   pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
@@ -362,7 +421,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   __syncthreads();
   const Stats st =
       transition<PG, STD, DENSE>(P, pg_fn, S, R, L, false, chain, valid, uc);
-  if (threadIdx.x == 0) S.pgs.drain();  // L < 1 leaves the first chunk
+  pg_fn.drain(S.pgs);  // L < 1 leaves the first chunk
   if (valid) store_stats<STD>(stats, P.C, L, chain, lane, st);
   store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
   if constexpr (PROPOSAL) {  // M⁻¹ p_L of the warp's chain into tmp
@@ -392,8 +451,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
                    float* pos, float* stats, float* q_out, float* u_out,
                    float* g_out, float* p_out) {
   extern __shared__ float4 smem_raw[];
-  const Smem S =
-      carve(reinterpret_cast<float*>(smem_raw), P.ds, PG::qb_floats(P.ds));
+  const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds);
   pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
@@ -420,16 +478,18 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       store_stats<STD>(stats + (size_t)t * 8 * P.C, P.C, L, chain, lane, st);
     }
   }
-  if (threadIdx.x == 0) S.pgs.drain();
+  pg_fn.drain(S.pgs);
   store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
 }
 
-// Checks a launch's sizes and launches `kernel` on the plan's blocks.
-template <typename... KArgs, typename... Args>
-cudaError_t launch(void (*kernel)(KArgs...), const Params& P, int N,
+// Checks a launch's sizes, and with the functor pg its own operands and
+// shared memory (pg.fits: the logistic functor's X and tile, nothing of X
+// for the others), and launches `kernel` on the plan's blocks.
+template <class PG, typename... KArgs, typename... Args>
+cudaError_t launch(void (*kernel)(KArgs...), const Params& P, const PG& pg,
                    const Geometry& G, cudaStream_t stream, Args&&... args) {
-  if (P.dim < 1 || N < 1 || P.C < 1 || (!P.Ld && P.L < 1) ||
-      G.chains != CB || (size_t)G.blocks * CB < (size_t)P.C || !x_tile_ok(G))
+  if (P.dim < 1 || P.C < 1 || (!P.Ld && P.L < 1) || G.chains != CB ||
+      (size_t)G.blocks * CB < (size_t)P.C || !pg.fits(P.dim, G))
     return cudaErrorInvalidValue;
   return launch_blocks(kernel, G, stream, std::forward<Args>(args)...);
 }

@@ -262,16 +262,22 @@ struct LogisticPGT {
       *S.asked = *S.uses + 1;
     }
   }
+  // before the block exits (every thread calls it; thread 0 waits): a chunk
+  // requested and never used must not outlive the block
+  __device__ void drain(const PGScratch& S) const {
+    if (threadIdx.x == 0) S.drain();
+  }
   // `more`: the block calls the functor again before it exits, so the next
   // call's first chunk is requested as soon as this call's tile is read
   __device__ void operator()(const PGScratch& S, int dim, int ds,
                              const float* q, float* grad,
                              bool more = false) const;
 
-  // What the NUTS core (nuts_core.cuh) asks of a functor: its scratch type,
-  // carved at `base` after the core's rows (every thread calls it, a
-  // __syncthreads follows), and whether a launch's sizes and geometry fit
-  // it (X and its tile; the launch plan's points and row stride).
+  // What the NUTS and HMC cores (nuts_core.cuh, hmc_core.cuh) ask of a
+  // functor: its scratch type, carved at `base` after the core's rows
+  // (every thread calls it, a __syncthreads follows), and whether a
+  // launch's sizes and geometry fit it (X and its tile; the launch plan's
+  // points and row stride).
   using Scratch = PGScratch;
   static __device__ PGScratch carve_scratch(float* base, int ds) {
     PGScratch s;

@@ -12,11 +12,13 @@ module is imported.
 A potential with no hand-written functor gets one generated from its traced
 gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`):
 ``load_generated(text)`` writes the functor to
-``_build/generic_<hash>.cu``, keyed on its text, the headers, the template
-``csrc/nuts_generic.cu`` and the flags, compiles the template with that
-file in its include slot into ``_build/libgeneric_<hash>.so`` at the first
-bind of the potential, and loads it; ``build_all(generated=texts)`` builds
-such libraries in the same parallel batch as the sources.
+``_build/generic_<hash>.cu``, keyed on its text, the headers, the templates
+``csrc/nuts_generic.cu`` (kernels 1-4) and ``csrc/hmc_generic.cu``
+(kernels 5-7) and the flags, compiles both templates with that file in
+their include slot into one library, ``_build/libgeneric_<hash>.so``, at
+the first bind of the potential, and loads it, so a potential bound once
+serves all seven kernels; ``build_all(generated=texts)`` builds such
+libraries in the same parallel batch as the sources.
 
 Compile flags: no ``--use_fast_math`` (the kernels keep IEEE ``expf``,
 ``logf``, divisions and square roots), and ``-fmad=false`` so the compiler
@@ -39,8 +41,9 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 HEADERS = ("common.cuh", "logistic_pg.cuh", "hierarchical_pg.cuh",
            "nuts_core.cuh", "hmc_core.cuh", "generic_pg.cuh")
-# the template of the libraries built on a generated functor
-GENERIC_TEMPLATE = "nuts_generic.cu"
+# the templates of the library built on a generated functor, compiled into
+# one: the NUTS kernels 1-4 and the HMC kernels 5-7
+GENERIC_TEMPLATES = ("nuts_generic.cu", "hmc_generic.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -50,6 +53,16 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # the launch plan (blocks, points a chunk, X's row stride, shared memory,
 # chains a block), then the stream
 _GEOMETRY = [_I] * 5 + [_P]
+# a potential with no data matrix: model number, y, σ², J
+_MODEL = [_I, _P, _P, _I]
+# a generated functor: data pointers, lengths, their count, the workspace
+_TABLE = [_P, _P, _I, _P]
+# kernels 5 and 6 after the potential: eps, alpha rows, their scalars, M⁻¹,
+# per-chain flag, threshold, then dim, C, L
+_GHMC_PARAMS = [_P, _P, _F, _F, _P, _I, _F, _I, _I, _I]
+# kernel 7 after the potential: eps row, M⁻¹, L⁻ᵀ, dense flag, L on the
+# card, threshold, then dim, C
+_CHEES_PARAMS = [_P] * 3 + [_I, _P, _F, _I, _I]
 # source -> {C function: argtypes}
 SIGNATURES = {
     "nuts_fused_small.cu": {
@@ -76,6 +89,9 @@ SIGNATURES = {
         "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P, _I] + [_P] * 4
         + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
         "chees_blocks_per_sm": [_I] * 4,
+        "chees_transition_pot_launch": [_P] * 5 + [_I, _U] + _MODEL
+        + _CHEES_PARAMS + [_P] * 6 + _GEOMETRY,
+        "chees_pot_blocks_per_sm": [_I] * 3,
     },
     "ghmc_fused.cu": {
         "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 3
@@ -83,6 +99,11 @@ SIGNATURES = {
         "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 3
         + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
         "ghmc_blocks_per_sm": [_I] * 4,
+        "ghmc_transition_pot_launch": [_P] * 6 + [_I, _U] + _MODEL
+        + _GHMC_PARAMS + [_P] * 5 + _GEOMETRY,
+        "ghmc_segment_pot_launch": [_P] * 6 + [_I, _U, _I] + _MODEL
+        + _GHMC_PARAMS + [_P] * 6 + _GEOMETRY,
+        "ghmc_pot_blocks_per_sm": [_I] * 3,
     },
     "fused_hmc.cu": {
         "fused_hmc_launch": [_P] * 5 + [_F, _I, _F, _I, _I, _I] + [_P] * 2
@@ -101,6 +122,13 @@ GENERIC_SIGNATURES = {
     "generic_sampling_launch": [_I] + [_P] * 3 + [_U, _I] + [_P, _P, _I, _P]
     + [_P, _P, _I, _F, _P, _F, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
     "generic_blocks_per_sm": [_I] * 3,
+    "ghmc_transition_generic_launch": [_P] * 6 + [_I, _U] + _TABLE
+    + _GHMC_PARAMS + [_P] * 5 + _GEOMETRY,
+    "ghmc_segment_generic_launch": [_P] * 6 + [_I, _U, _I] + _TABLE
+    + _GHMC_PARAMS + [_P] * 6 + _GEOMETRY,
+    "chees_transition_generic_launch": [_P] * 5 + [_I, _U] + _TABLE
+    + _CHEES_PARAMS + [_P] * 6 + _GEOMETRY,
+    "hmc_generic_blocks_per_sm": [_I] * 3,
 }
 
 # seconds and compiler output of the builds this process ran (empty when
@@ -138,7 +166,7 @@ def library_path(source: str) -> Path:
 def generated_path(text: str) -> Path:
     """The library built on a generated functor's ``text``; its source is
     the ``.cu`` file of the same name beside it."""
-    key = _digest((*HEADERS, GENERIC_TEMPLATE), text)
+    key = _digest((*HEADERS, *GENERIC_TEMPLATES), text)
     return BUILD_DIR / f"libgeneric_{key}.so"
 
 
@@ -158,7 +186,7 @@ def _build_missing(sources, generated=()) -> None:
         functor = _functor_file(text)
         targets.append((functor.name, generated_path(text), [
             f"-I{BUILD_DIR}", f"-DAEHMC_GENERIC_PG={functor.name}",
-            str(CSRC / GENERIC_TEMPLATE)]))
+            *(str(CSRC / t) for t in GENERIC_TEMPLATES)]))
     for name, out, args in targets:
         if out.exists() or name in jobs:
             continue
@@ -221,8 +249,9 @@ def load_kernels(source: str) -> ctypes.CDLL:
 
 
 def load_generated(text: str) -> ctypes.CDLL:
-    """Build (once per text) and load the kernels 1-4 on a generated functor
-    (``csrc/nuts_generic.cu`` with ``text`` in its include slot)."""
+    """Build (once per text) and load the kernels 1-7 on a generated functor
+    (``csrc/nuts_generic.cu`` and ``csrc/hmc_generic.cu`` with ``text`` in
+    their include slot, one library)."""
     path = generated_path(text)
     if path not in _libs:
         _build_missing((), (text,))

@@ -1,5 +1,6 @@
 """Fused ChEES-HMC transition: the plain PyTorch version and the wrapper of
-kernel 7 (``csrc/chees_fused.cu``), the ``kernel_fn`` adapter of
+kernel 7 (``csrc/chees_fused.cu``, ``csrc/hmc_generic.cu``), the
+``kernel_fn`` adapter of
 :mod:`aehmc_tpu_torch.chees`, and the one-call driver (port of
 :mod:`aehmc_tpu.ops.chees_fused`).
 
@@ -16,8 +17,12 @@ GHMC streams (:func:`aehmc_tpu_torch.ops.philox.ghmc_streams`).
 
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The kernel computes
-the logistic-regression potential (:func:`models.logistic_pg_t`); a CUDA
-tensor with any other potential raises ``NotImplementedError``.  On the card
+the potential in the device functor the GHMC kernels take
+(:func:`aehmc_tpu_torch.ops.nuts_fused_small._card_functor`): the logistic
+regression's, the funnel's or eight schools', or one generated from any
+other float32 potential's traced gradient graph; launches count as
+``chees_transition`` and its ``_funnel``, ``_eight_schools`` and
+``_generic`` names.  On the card
 ``num_steps`` may be a device int32, read by the kernel, so the driver's
 trip count never synchronises the stream.  ``shard_fused_chees_transition``
 (a mesh) is ROADMAP.md item 1.12.
@@ -29,7 +34,11 @@ import torch
 
 from aehmc_tpu_torch import chees
 from aehmc_tpu_torch.models.regression import logistic_pg_t
-from aehmc_tpu_torch.ops.ghmc_fused import _row
+from aehmc_tpu_torch.ops.ghmc_fused import (
+    _row,
+    _hmc_launcher,
+    _potential_operands,
+)
 from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused_small import (
@@ -37,6 +46,7 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     _clamped,
     _mass_sqrt,
     _pot_grad_builder_t,
+    _card_functor,
     derive_draw_seeds,
 )
 from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
@@ -138,13 +148,13 @@ def make_fused_chees_transition(
     def transition(q, potential, grad, momentum, u_accept, inverse_mass,
                    step_size, num_steps, seed=None):
         if q.is_cuda:
-            _check_cuda_args(potential_and_grad_t, data, q)
             return chees_transition_cuda(
                 q.contiguous(), potential, grad.contiguous(), inverse_mass,
                 step_size, num_steps, data,
                 divergence_threshold=divergence_threshold, seed=seed,
                 momentum=None if momentum is None else momentum.contiguous(),
-                u_accept=u_accept,
+                u_accept=u_accept, potential_and_grad_t=potential_and_grad_t,
+                potential_fn_t=potential_fn_t,
             )
         rand = dict(momentum=momentum, u_accept=u_accept, seed=seed)
         return chees_transition_plain(
@@ -320,18 +330,16 @@ def sample_fused_chees_adaptive(
 
 # ---------------------------------------------------------------- CUDA ----
 
-def _check_cuda_args(potential_and_grad_t, data, q):
-    if potential_and_grad_t is not logistic_pg_t:
-        raise NotImplementedError(
-            "the CUDA ChEES kernel computes the logistic-regression potential "
-            "(models.logistic_pg_t) only; a potential with no device functor "
-            "on the card is ROADMAP.md item 1.10b (a generated functor in "
-            "the HMC core)"
-        )
-    if q.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32, got {q.dtype}")
-    if len(data) != 3:
-        raise ValueError("logistic data is (X, Xᵀ, y_col)")
+def _check_cuda_args(potential_and_grad_t, data, q,
+                     potential_fn_t=None) -> str:
+    """The functor kernel 7 runs the potential on, for chains ``q (C,
+    dim)``: "logistic", "funnel", "eight_schools" or "generic", a functor
+    bound from the transposed ``potential_and_grad_t`` or ``potential_fn_t``
+    (:func:`_card_functor`; it raises only for what no functor takes:
+    chains or data that are not float32, an op outside the potential
+    compiler's table, naming it and ROADMAP.md item 1.10c, a potential that
+    mixes chains)."""
+    return _card_functor(potential_fn_t, potential_and_grad_t, data, q.T)[0]
 
 
 def _ptr(t):
@@ -353,57 +361,57 @@ def _device_steps(num_steps, device) -> torch.Tensor:
 
 def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
                           *, divergence_threshold: float = 1000.0,
-                          momentum=None, u_accept=None, seed=None):
+                          momentum=None, u_accept=None, seed=None,
+                          potential_and_grad_t=logistic_pg_t,
+                          potential_fn_t=None):
     """Launch kernel 7 (``chees_transition``) on CUDA tensors in the
-    ``(chains, dim)`` layout.  ``step_size`` is one value or ``(C,)``, and
-    reaches the kernel as ``(C,)``; ``num_steps`` an int or an int32
-    (device) scalar.  Returns ``(q, u (C,
-    1), g, stats (C, 8), q_proposed, v_proposed)``."""
-    from aehmc_tpu_torch.ops._build import (
-        check_launch,
-        load_kernels,
-        require_f32_cuda,
-        require_x_cuda,
-    )
+    ``(chains, dim)`` layout, with the functor of the potential
+    (:func:`_check_cuda_args`: the logistic one by default).
+    ``step_size`` is one value or ``(C,)``, and reaches the kernel as
+    ``(C,)``; ``num_steps`` an int or an int32 (device) scalar.  Returns
+    ``(q, u (C, 1), g, stats (C, 8), q_proposed, v_proposed)``."""
+    from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
+    functor, bound, suffix = _card_functor(
+        potential_fn_t, potential_and_grad_t, data, q.T)
     num_chains, dim = q.shape
     device = q.device
-    X, _, y = data
-    num_points = X.shape[0]
     im = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)
     dense = im.ndim == 2
     im = im.contiguous() if dense else im.reshape(-1).expand(dim).contiguous()
     eps = _row(step_size, num_chains, device).reshape(num_chains).contiguous()
     steps = _device_steps(num_steps, device)
-    ops = dict(q=q, u=u.reshape(num_chains), g=g,
-               y=y.reshape(num_points), im=im, eps=eps)
+    ops = dict(q=q, u=u.reshape(num_chains), g=g, im=im, eps=eps)
     shapes = dict(q=(num_chains, dim), u=(num_chains,), g=(num_chains, dim),
-                  y=(num_points,),
                   im=(dim, dim) if dense else (dim,), eps=(num_chains,))
     if seed is None:
         ops.update(p=momentum, ua=u_accept.reshape(num_chains))
         shapes.update(p=(num_chains, dim), ua=(num_chains,))
     for name, t in ops.items():
         require_f32_cuda(name, t, shapes[name], device)
-    require_x_cuda(X, num_points, dim, device)
-    plan = launch_plan("hmc", dim, 0, num_chains, X.dtype)
-    Xk = data_rows(X, plan.row_stride, X.dtype)
+    pot_ops, x_dtype = _potential_operands(functor, data, dim, device)
+    ops.update(pot_ops)
+    plan = launch_plan("hmc", dim, 0, num_chains, x_dtype, functor,
+                       workspace=0 if bound is None else bound.workspace)
+    if functor == "logistic":
+        ops["X"] = data_rows(data[0], plan.row_stride, x_dtype)
     ms = _mass_sqrt(im).contiguous() if dense and seed is not None else None
     q_out, g_out, qp, vp = (torch.empty_like(q) for _ in range(4))
     u_out = torch.empty((num_chains, 1), dtype=torch.float32, device=device)
     stats = torch.empty((num_chains, 8), dtype=torch.float32, device=device)
-    lib = load_kernels("chees_fused.cu")
-    err = lib.chees_transition_launch(
+    lib, launcher, pot, sizes, keep = _hmc_launcher(
+        "chees_transition", functor, bound, data, ops, plan, dim, num_chains,
+        device)
+    err = launcher(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops.get("p")),
         _ptr(ops.get("ua")), int(seed is not None),
-        0 if seed is None else int(seed) & MASK32, _ptr(Xk),
-        int(Xk.dtype == torch.bfloat16), _ptr(ops["y"]), _ptr(eps),
-        _ptr(im), _ptr(ms),
-        int(dense), _ptr(steps),
-        float(divergence_threshold), dim, num_points, num_chains,
+        0 if seed is None else int(seed) & MASK32, *pot, _ptr(eps),
+        _ptr(im), _ptr(ms), int(dense), _ptr(steps),
+        float(divergence_threshold), *sizes,
         _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(qp), _ptr(vp),
         *plan.args(), torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "chees_transition")
-    LAUNCHES["chees_transition"] += 1
+    del keep
+    LAUNCHES["chees_transition" + suffix] += 1
     return q_out, u_out, g_out, stats, qp, vp

@@ -1,5 +1,6 @@
 """Fused GHMC in the chains-in-lanes layout: plain PyTorch versions and the
-wrappers of the two CUDA kernels (``csrc/ghmc_fused.cu``).
+wrappers of the two CUDA kernels (``csrc/ghmc_fused.cu``,
+``csrc/hmc_generic.cu``).
 
 Port of :mod:`aehmc_tpu.ops.ghmc_fused` (kernels 5 and 6 of the port's
 table).  One transition is a partial momentum refresh ``p0 = α p +
@@ -19,8 +20,15 @@ taking the key ``seed + t·DRAW_SEED_STRIDE``.
 
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The kernels compute
-the logistic-regression potential (:func:`models.logistic_pg_t`); a CUDA
-tensor with any other potential raises ``NotImplementedError``.
+the potential in a device functor, as the NUTS kernels do
+(:func:`aehmc_tpu_torch.ops.nuts_fused_small._card_functor`): the
+hand-written ones of the logistic regression (:func:`models.logistic_pg_t`,
+float32 or bfloat16 X), Neal's funnel (:func:`models.funnel_pg_t`) and
+eight schools (:func:`models.schools_pg_t`), and for any other float32
+potential, given as ``potential_and_grad_t`` or ``potential_fn_t``, one
+generated from its traced gradient graph (:mod:`aehmc_tpu_torch.ops.
+generic_pg`).  Launches count per functor: ``ghmc_transition``,
+``ghmc_transition_funnel``, ``..._eight_schools``, ``..._generic``.
 
 :func:`make_fused_meads_transition` and :func:`make_fused_meads_segment`
 adapt the two kernels to the MEADS fold contract
@@ -38,7 +46,12 @@ from aehmc_tpu_torch.models.regression import logistic_pg_t
 from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, NEG_INF
-from aehmc_tpu_torch.ops.nuts_fused_small import _clamped, _pot_grad_builder_t
+from aehmc_tpu_torch.ops.nuts_fused_small import (
+    _MODEL_NUMBERS,
+    _clamped,
+    _pot_grad_builder_t,
+    _card_functor,
+)
 from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
 from aehmc_tpu_torch.types import Diagnostics
 
@@ -159,18 +172,14 @@ def ghmc_segment_plain(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
     return pos, torch.stack(stats), q_t, u, g_t, p_t
 
 
-def _check_cuda_args(potential_and_grad_t, data, q_t):
-    if potential_and_grad_t is not logistic_pg_t:
-        raise NotImplementedError(
-            "the CUDA GHMC kernels compute the logistic-regression potential "
-            "(models.logistic_pg_t) only; a potential with no device functor "
-            "on the card is ROADMAP.md item 1.10b (a generated functor in "
-            "the HMC core)"
-        )
-    if q_t.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
-    if len(data) != 3:
-        raise ValueError("logistic data is (X, Xᵀ, y_col)")
+def _check_cuda_args(potential_and_grad_t, data, q_t,
+                     potential_fn_t=None) -> str:
+    """The functor kernels 5 and 6 run the potential on: "logistic",
+    "funnel", "eight_schools" or "generic" (:func:`_card_functor`, which
+    raises only for what no functor takes: chains or data that are not
+    float32, an op outside the potential compiler's table, naming it and
+    ROADMAP.md item 1.10c, a potential that mixes chains)."""
+    return _card_functor(potential_fn_t, potential_and_grad_t, data, q_t)[0]
 
 
 def _to_kernel_layout(transposed_io: bool) -> Callable:
@@ -213,11 +222,12 @@ def make_fused_ghmc_transition(
         num_chains = q_t.shape[1]
         rand = dict(noise=noise_t, u_accept=u_accept, seed=seed)
         if q_t.is_cuda:
-            _check_cuda_args(potential_and_grad_t, data, q_t)
             out = ghmc_transition_cuda(
                 q_t, potential, g_t, p_t, step_size, alpha, inverse_mass,
                 data, num_steps=num_integration_steps,
-                divergence_threshold=divergence_threshold, **rand,
+                divergence_threshold=divergence_threshold,
+                potential_and_grad_t=potential_and_grad_t,
+                potential_fn_t=potential_fn_t, **rand,
             )
         else:
             out = ghmc_transition_plain(
@@ -272,9 +282,10 @@ def fused_ghmc_segment(
                   u_accept=u_accept, seed=seed,
                   collect_positions=collect_positions)
         if q_t.is_cuda:
-            _check_cuda_args(potential_and_grad_t, data, q_t)
             out = ghmc_segment_cuda(q_t, potential, g_t, p_t, step_size,
-                                    alpha, inverse_mass, data, num_draws, **kw)
+                                    alpha, inverse_mass, data, num_draws,
+                                    potential_and_grad_t=potential_and_grad_t,
+                                    potential_fn_t=potential_fn_t, **kw)
         else:
             out = ghmc_segment_plain(q_t, potential, g_t, p_t, step_size,
                                      alpha, inverse_mass, pot_grad, num_draws,
@@ -472,38 +483,95 @@ def _row_or_scalar(x, num_chains, device):
     return _row(x, num_chains, device).reshape(num_chains).contiguous(), 0.0
 
 
-def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data):
-    """Validate and normalise the operands shared by both kernels, and plan
-    the launch (X's dtype, float32 or bfloat16, picks the functor's
-    operands); returns ``(operands, (eps0, alpha0), im_per_chain, plan,
-    (dim, points, chains))``: ``operands["eps"]`` and ``["alpha"]`` are
-    None for host scalars, whose values are ``eps0`` and ``alpha0``."""
+def _potential_operands(functor, data, dim, device):
+    """The potential's operands of an HMC-core launch (kernels 5-7) and X's
+    type: the logistic functor's y as a float32 ``(N,)`` row (X checked:
+    float32 or bfloat16, ``(N, dim)``), eight schools' y and σ² as float32
+    ``(J,)`` rows, J = dim − 2; none for the funnel (its dummy row is not
+    read) and for a generated functor (its data table is built at the
+    launch, :func:`generic_pg.launch_operands`)."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
+    ops, x_dtype = {}, torch.float32
+    if functor == "logistic":
+        X, _, y = data
+        num_points = X.shape[0]
+        require_x_cuda(X, num_points, dim, device)
+        ops["y"] = y.reshape(num_points)
+        require_f32_cuda("y", ops["y"], (num_points,), device)
+        x_dtype = X.dtype
+    elif functor == "eight_schools":
+        ops["y"], ops["s2"] = (d.reshape(-1) for d in data)
+        for name in ("y", "s2"):
+            require_f32_cuda(name, ops[name], (dim - 2,), device)
+    return ops, x_dtype
+
+
+def _hmc_launcher(kernel, functor, bound, data, ops, plan, dim, num_chains,
+                 device):
+    """``(library, launcher, potential arguments, sizes, tensors to keep
+    alive)`` of ``kernel`` ("ghmc_transition", "ghmc_segment" or
+    "chees_transition") on ``functor``: the logistic entry point (X, its
+    type, y; sizes dim, N, C), the ``*_pot_*`` one of a functor with no X
+    (model number, y, σ², J; dim, C), or the generated functor's in its
+    own library (``*_generic_*``: the data table and workspace; dim, C)."""
+    from aehmc_tpu_torch.ops._build import load_kernels
+
+    if functor == "generic":
+        from aehmc_tpu_torch.ops.generic_pg import launch_operands
+
+        lib = bound.library()
+        table, keep = launch_operands(bound, data, device, plan.blocks)
+        return (lib, getattr(lib, f"{kernel}_generic_launch"), table,
+                (dim, num_chains), keep)
+    lib = load_kernels("chees_fused.cu" if kernel.startswith("chees")
+                       else "ghmc_fused.cu")
+    if functor == "logistic":
+        X = ops["X"]
+        return (lib, getattr(lib, f"{kernel}_launch"),
+                (_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
+                (dim, X.shape[0], num_chains), None)
+    y, s2 = ops.get("y"), ops.get("s2")
+    return (lib, getattr(lib, f"{kernel}_pot_launch"),
+            (_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
+             0 if y is None else y.numel()), (dim, num_chains), None)
+
+
+def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
+                   functor="logistic", bound=None):
+    """Validate and normalise the operands shared by both kernels, and plan
+    the launch for ``functor`` (for the logistic one X's dtype, float32 or
+    bfloat16, picks its operands; a generated one, ``bound``, brings its
+    workspace); returns ``(operands, (eps0, alpha0), im_per_chain, plan,
+    (dim, C))``: ``operands["eps"]`` and ``["alpha"]`` are None for host
+    scalars, whose values are ``eps0`` and ``alpha0``."""
+    from aehmc_tpu_torch.ops._build import require_f32_cuda
+
     dim, num_chains = q_t.shape
-    X, _, y = data
-    num_points = X.shape[0]
     device = q_t.device
     im = _im_t(inverse_mass, dim, num_chains, device)
     per_chain = im.shape[1] > 1
     eps, eps0 = _row_or_scalar(step_size, num_chains, device)
     alpha, alpha0 = _row_or_scalar(alpha, num_chains, device)
     ops = dict(
-        q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t,
-        y=y.reshape(num_points), eps=eps, alpha=alpha,
+        q=q_t, u=u.reshape(1, num_chains), g=g_t, p=p_t, eps=eps,
+        alpha=alpha,
         im=im.contiguous() if per_chain else im.reshape(dim).contiguous(),
     )
     shapes = dict(q=(dim, num_chains), u=(1, num_chains), g=(dim, num_chains),
-                  p=(dim, num_chains), y=(num_points,), eps=(num_chains,),
+                  p=(dim, num_chains), eps=(num_chains,),
                   alpha=(num_chains,),
                   im=(dim, num_chains) if per_chain else (dim,))
     for name, t in ops.items():
         if t is not None:
             require_f32_cuda(name, t, shapes[name], device)
-    require_x_cuda(X, num_points, dim, device)
-    plan = launch_plan("hmc", dim, 0, num_chains, X.dtype)
-    ops["X"] = data_rows(X, plan.row_stride, X.dtype)
-    return ops, (eps0, alpha0), per_chain, plan, (dim, num_points, num_chains)
+    pot_ops, x_dtype = _potential_operands(functor, data, dim, device)
+    ops.update(pot_ops)
+    plan = launch_plan("hmc", dim, 0, num_chains, x_dtype, functor,
+                       workspace=0 if bound is None else bound.workspace)
+    if functor == "logistic":
+        ops["X"] = data_rows(data[0], plan.row_stride, x_dtype)
+    return ops, (eps0, alpha0), per_chain, plan, (dim, num_chains)
 
 
 def _external(noise, u_accept, shape, seed, device):
@@ -521,50 +589,60 @@ def _external(noise, u_accept, shape, seed, device):
 def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
                          data, *, num_steps: int = 1,
                          divergence_threshold: float = 1000.0, noise=None,
-                         u_accept=None, seed=None):
-    """Launch kernel 5 (``ghmc_transition``) on CUDA tensors; returns
-    ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
-    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+                         u_accept=None, seed=None,
+                         potential_and_grad_t=logistic_pg_t,
+                         potential_fn_t=None):
+    """Launch kernel 5 (``ghmc_transition``) on CUDA tensors with the
+    functor of the potential (:func:`_check_cuda_args`: the logistic one by
+    default); returns ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
+    from aehmc_tpu_torch.ops._build import check_launch
 
-    ops, scalars, per_chain, plan, (dim, num_points, num_chains) = (
-        _cuda_operands(
-            q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data))
+    functor, bound, suffix = _card_functor(
+        potential_fn_t, potential_and_grad_t, data, q_t)
+    ops, scalars, per_chain, plan, (dim, num_chains) = _cuda_operands(
+        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data, functor,
+        bound)
     device = q_t.device
     noise_p, ua_p = _external(noise, u_accept, (dim, num_chains), seed, device)
     q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
     stats = torch.empty((8, num_chains), dtype=torch.float32, device=device)
-    lib = load_kernels("ghmc_fused.cu")
-    err = lib.ghmc_transition_launch(
+    lib, launcher, pot, sizes, keep = _hmc_launcher(
+        "ghmc_transition", functor, bound, data, ops, plan, dim, num_chains,
+        device)
+    err = launcher(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
-        0 if seed is None else int(seed) & MASK32,
-        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
-        _ptr(ops["y"]), _ptr(ops["eps"]),
+        0 if seed is None else int(seed) & MASK32, *pot, _ptr(ops["eps"]),
         _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]), int(per_chain),
-        float(divergence_threshold), dim, num_points, num_chains,
-        int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(p_out),
-        _ptr(stats), *plan.args(),
+        float(divergence_threshold), *sizes, int(num_steps), _ptr(q_out),
+        _ptr(u_out), _ptr(g_out), _ptr(p_out), _ptr(stats), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "ghmc_transition")
-    LAUNCHES["ghmc_transition"] += 1
+    del keep
+    LAUNCHES["ghmc_transition" + suffix] += 1
     return q_out, u_out, g_out, p_out, stats
 
 
 def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
                       num_draws: int, *, num_steps: int = 1,
                       divergence_threshold: float = 1000.0, noise=None,
-                      u_accept=None, seed=None, collect_positions=True):
+                      u_accept=None, seed=None, collect_positions=True,
+                      potential_and_grad_t=logistic_pg_t,
+                      potential_fn_t=None):
     """Launch kernel 6 (``ghmc_segment``): ``num_draws`` transitions in one
-    launch.  Positions are written as ``(draws, C, dim)`` (a chain's row
-    contiguous) and returned as the ``(draws, dim, C)`` view of the
-    transposed contract; stats are ``(draws, 8, C)``."""
-    from aehmc_tpu_torch.ops._build import check_launch, load_kernels
+    launch, with the functor of the potential as kernel 5.  Positions are
+    written as ``(draws, C, dim)`` (a chain's row contiguous) and returned
+    as the ``(draws, dim, C)`` view of the transposed contract; stats are
+    ``(draws, 8, C)``."""
+    from aehmc_tpu_torch.ops._build import check_launch
 
-    ops, scalars, per_chain, plan, (dim, num_points, num_chains) = (
-        _cuda_operands(
-            q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data))
+    functor, bound, suffix = _card_functor(
+        potential_fn_t, potential_and_grad_t, data, q_t)
+    ops, scalars, per_chain, plan, (dim, num_chains) = _cuda_operands(
+        q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data, functor,
+        bound)
     device = q_t.device
     noise_p, ua_p = _external(noise, u_accept, (num_draws, dim, num_chains),
                               seed, device)
@@ -574,20 +652,21 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
                         device=device)
     q_out, g_out, p_out = (torch.empty_like(q_t) for _ in range(3))
     u_out = torch.empty((1, num_chains), dtype=torch.float32, device=device)
-    lib = load_kernels("ghmc_fused.cu")
-    err = lib.ghmc_segment_launch(
+    lib, launcher, pot, sizes, keep = _hmc_launcher(
+        "ghmc_segment", functor, bound, data, ops, plan, dim, num_chains,
+        device)
+    err = launcher(
         _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
         noise_p, ua_p, int(seed is not None),
-        0 if seed is None else int(seed) & MASK32, int(num_draws),
-        _ptr(ops["X"]), int(ops["X"].dtype == torch.bfloat16),
-        _ptr(ops["y"]), _ptr(ops["eps"]),
-        _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]), int(per_chain),
-        float(divergence_threshold), dim, num_points, num_chains,
-        int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), _ptr(p_out), *plan.args(),
+        0 if seed is None else int(seed) & MASK32, int(num_draws), *pot,
+        _ptr(ops["eps"]), _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]),
+        int(per_chain), float(divergence_threshold), *sizes, int(num_steps),
+        _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out), _ptr(g_out),
+        _ptr(p_out), *plan.args(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     check_launch(lib, err, "ghmc_segment")
-    LAUNCHES["ghmc_segment"] += 1
+    del keep
+    LAUNCHES["ghmc_segment" + suffix] += 1
     pos_t = None if pos is None else pos.permute(0, 2, 1)
     return pos_t, stats, q_out, u_out, g_out, p_out

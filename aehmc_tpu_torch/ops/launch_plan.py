@@ -16,14 +16,20 @@ zero past ``dim``.
 
 The potentials of Neal's funnel and of eight schools are functors with no
 data matrix (``csrc/hierarchical_pg.cuh``), taken by the NUTS kernels 1 and
-2: their scratch is the block's potentials alone, so their plan has no tile
-(``points`` and ``row_stride`` 0) and 8 chains a block
-(``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
+2 and the HMC kernels 5-7: their scratch is the block's potentials alone,
+so their plan has no tile (``points`` and ``row_stride`` 0) and 8 chains a
+block (``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
 functor generated from a potential's traced gradient graph
-(``functor="generic"``, ``csrc/generic_pg.cuh``): its scratch adds a
-per-chain workspace of ``workspace`` floats, kept in shared memory when two
-blocks still fit an SM with it (:func:`generic_workspace_shared`), else in
-a global buffer of :func:`generic_workspace_floats` floats.
+(``functor="generic"``, ``csrc/generic_pg.cuh``), in kernels 1-7: its
+scratch adds a per-chain workspace of ``workspace`` floats, kept in shared
+memory when two NUTS blocks still fit an SM with it
+(:func:`generic_workspace_shared`), else in a global buffer of
+:func:`generic_workspace_floats` floats.  The emitted functor fixes that
+choice in its text (``WS_SHARED``) from the NUTS core's 17 rows, so the HMC
+core's plan follows it and does not decide again with its own 8 rows: a
+workspace two HMC blocks could hold in shared memory stays global when the
+functor says so, and the plan's shared memory and the workspace pointer
+agree with the functor.
 
 The chains a block (:func:`chains_per_block`) depend on the core, dim and
 X's type only, never on the chain count, so a chain's bits do not depend on
@@ -65,8 +71,9 @@ CORES = {"nuts": (17, 0, True, False), "hmc": (8, 0, False, False),
 # X's element type -> bytes
 X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # the potential's device functor -> whether it reads a data matrix X through
-# a shared tile (logistic_pg.cuh) or keeps only the block's potentials in
-# its scratch (hierarchical_pg.cuh: the NUTS core only)
+# a shared tile (logistic_pg.cuh) or keeps only the block's potentials (and
+# a generated functor's workspace) in its scratch (hierarchical_pg.cuh,
+# generic_pg.cuh: the NUTS and HMC cores, not the fused leapfrog kernel)
 FUNCTORS = {"logistic": True, "funnel": False, "eight_schools": False,
             "generic": False}
 
@@ -99,8 +106,9 @@ def smem_bytes(core: str, dim: int, points: int, x_dtype=torch.float32,
     """Bytes of dynamic shared memory a block of ``core`` with ``chains``
     chains takes with a tile of ``points`` rows of X in ``x_dtype``; with a
     functor that reads no X, its rows and the chains' potentials, and for a
-    generated one the chains' ``workspace`` floats each when they are kept
-    in shared memory."""
+    generated one the chains' ``workspace`` floats each when the functor
+    keeps them in shared memory (:func:`generic_workspace_shared`, whatever
+    the core)."""
     ds = state_stride(dim)
     per_chain, per_block = CORES[core][:2]
     rows = (per_chain * chains + per_block) * ds
@@ -130,7 +138,9 @@ def chains_per_block(core: str, dim: int, x_dtype=torch.float32) -> int:
 
 def generic_workspace_shared(dim: int, workspace: int) -> bool:
     """Whether a generated functor's ``workspace`` floats a chain go to
-    shared memory: when two NUTS blocks still fit an SM with them."""
+    shared memory: when two NUTS blocks still fit an SM with them.  The
+    emitter bakes this into the functor (``WS_SHARED``), and every core's
+    plan reads it from here."""
     rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
     smem = 4 * (rows + NUTS_CHAINS + NUTS_CHAINS * workspace)
     return workspace > 0 and two_blocks_fit(smem)
@@ -138,7 +148,8 @@ def generic_workspace_shared(dim: int, workspace: int) -> bool:
 
 def generic_workspace_floats(dim: int, workspace: int, blocks: int) -> int:
     """Floats of a generated functor's global workspace, (blocks, 8,
-    workspace), or 0 when it is in shared memory."""
+    workspace) for the grid of the NUTS or the HMC core (8 chains a block
+    in both), or 0 when it is in shared memory."""
     if workspace == 0 or generic_workspace_shared(dim, workspace):
         return 0
     return blocks * NUTS_CHAINS * workspace
@@ -179,9 +190,9 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
     if functor not in FUNCTORS:
         raise ValueError(f"unknown functor {functor!r}; expected one of "
                          f"{sorted(FUNCTORS)}")
-    if not FUNCTORS[functor] and core != "nuts":
-        raise ValueError(f"the {functor} functor runs in the NUTS kernels "
-                         f"only, not in {core!r}")
+    if not FUNCTORS[functor] and core == "fused_hmc":
+        raise ValueError(f"the {functor} functor runs in the NUTS and HMC "
+                         f"kernels, not in {core!r}")
     if x_dtype not in X_BYTES:
         raise ValueError(f"X is float32 or bfloat16, got {x_dtype}")
     if dim < 1 or num_chains < 1:

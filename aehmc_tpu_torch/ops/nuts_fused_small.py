@@ -326,15 +326,16 @@ def _step_size_row(step_size, num_chains, dtype, device) -> torch.Tensor:
     return eps.reshape(1, num_chains)
 
 
-# the potential+gradient functions whose device functor kernels 1 and 2
-# hold -> (the functor in the launch plan, its data tensors, the suffix of
-# its launch counts)
+# the potential+gradient functions whose device functor kernels 1, 2 and
+# 5-7 hold -> (the functor in the launch plan, its data tensors, the suffix
+# of its launch counts)
 _CUDA_FUNCTORS = (
     (logistic_pg_t, "logistic", ("X", "Xᵀ", "y_col"), ""),
     (funnel_pg_t, "funnel", ("a (1, 1) dummy row",), "_funnel"),
     (schools_pg_t, "eight_schools", ("y_col", "sig2_col"), "_eight_schools"),
 )
-# the number of a functor with no X in the *_pot_* launchers
+# the number of a functor with no X in the *_pot_* launchers of kernels 1,
+# 2 and 5-7 (csrc/hierarchical_pg.cuh: with_model)
 _MODEL_NUMBERS = {"funnel": 1, "eight_schools": 2}
 
 
@@ -366,23 +367,35 @@ def _generic_bound(potential_fn_t, potential_and_grad_t, data, q_t):
                 with_grad=potential_and_grad_t is None, device=q_t.device)
 
 
-def _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
-                     potential_fn_t=None) -> str:
-    """Raise for what kernels 1 and 2 do not take; return the functor: a
-    hand-written one's name, or "generic" for a potential bound to a
-    generated functor (which raises ``NotImplementedError`` for an op
-    outside the compiler's table, ``ValueError`` for a potential that
-    mixes chains, ``TypeError`` for data that are not float32)."""
-    functor = _cuda_functor(potential_and_grad_t)
+def _card_functor(potential_fn_t, potential_and_grad_t, data, q_t):
+    """The device functor that runs a potential on the card, for the NUTS
+    kernels 1 and 2 and the HMC kernels 5-7 alike: ``(name, bound, count
+    suffix)``, ``name`` a hand-written functor's (found by the identity of
+    ``potential_and_grad_t``) or "generic", ``bound`` the generated functor
+    (:func:`_generic_bound`, traced on ``q_t``'s ``(dim, ·)`` column) or
+    None.  Raises only for what no functor takes: ``TypeError`` for chains
+    or data that are not float32, ``ValueError`` for a hand-written
+    functor's data of another count or a potential that mixes chains, and
+    ``NotImplementedError`` naming an op outside the compiler's table
+    (ROADMAP.md item 1.10c)."""
+    name, layout, suffix = _cuda_functor(potential_and_grad_t)
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
-    name, layout, _ = functor
     if name == "generic":
-        _generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
-        _eps_row(step_size, q_t)
-        return name
+        return name, _generic_bound(potential_fn_t, potential_and_grad_t,
+                                    data, q_t), suffix
     if len(data) != len(layout):
         raise ValueError(f"{name} data is ({', '.join(layout)})")
+    return name, None, suffix
+
+
+def _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
+                     potential_fn_t=None) -> str:
+    """Raise for what kernels 1 and 2 do not take (:func:`_card_functor`,
+    and a per-chain ε of the wrong shape, type or device); return the
+    functor: a hand-written one's name, or "generic" for a potential bound
+    to a generated functor."""
+    name = _card_functor(potential_fn_t, potential_and_grad_t, data, q_t)[0]
     _eps_row(step_size, q_t)
     return name
 

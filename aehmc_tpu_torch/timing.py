@@ -211,7 +211,8 @@ def ghmc_launch_only(gf, state, im, data):
 
     q_t, u0, g0, p0 = state
     got = gf._cuda_operands(q_t, u0, g0, p0, EPS, 0.0, im, data)
-    ops, per_chain, plan, (dim, num_points, num_chains) = (got[0], *got[-3:])
+    ops, per_chain, plan, sizes = (got[0], *got[-3:])
+    dim, num_points, num_chains = sizes[0], data[0].shape[0], sizes[-1]
     scalars = (0.0, 0.0) if len(got) == 5 else ()
     dev = q_t.device
     rows = [torch.full((num_chains,), v, dtype=torch.float32, device=dev)

@@ -100,13 +100,35 @@ logistic regression.  Then it drives the port's front door
   chains) and ``mvn25_dense_fused_adaptive`` cells at their gates, and
   phase 38 the front door on a bare ``logprob_fn`` (the generic fused
   binding: 150 launches of ``nuts_transition_generic``, one of
-  ``nuts_sampling_generic``), twice with one seed, equal bit for bit.
+  ``nuts_sampling_generic``), twice with one seed, equal bit for bit;
+- phases 39-43, any potential on the HMC core (kernels 5-7; the generated
+  functor in ``csrc/hmc_generic.cu``, ``FunnelPG`` and ``EightSchoolsPG``
+  through the ``*_pot_*`` entry points): phase 39 holds kernels 5 (α 0.9),
+  6 (32 draws, equal to 32 launches of kernel 5 bit for bit) and 7 (L 10)
+  on the flagship's generated functor at phases 8, 9 and 13's state
+  against their plain versions (``generic_pg.run_plain`` as the potential)
+  and against ``LogisticPGT``, kernel 7 at α 0 against kernel 5, and kernel
+  7 with a dense M⁻¹ on phase 37's mvn25 functor, and times each beside
+  ``LogisticPGT``; phase 40 holds kernels 5-7 on ``FunnelPG`` (8,192
+  chains, dim 10, from N(0, 1), ε 0.05) and ``EightSchoolsPG`` (2,048
+  chains, ε 0.2) against their plain versions and the generated functor of
+  the same potential, and times both; phase 41 runs the MALA, GHMC (α 0.9)
+  and ChEES front doors on the flagship's bare ``logprob_fn`` at phases 11,
+  12 and 14's cells, phase 42 MEADS at phase 24's and checkpointed at phase
+  26's 100 + 100, each twice with one seed, equal bit for bit, only the
+  ``_generic`` counts moving, held to the hand-written route's limits and
+  its means within 4.5 combined MCSE; phase 43 runs eight schools' ChEES
+  and MEADS front doors (2,048 chains, 500 + 500) held to phase 19's NUTS
+  means, and eight schools' GHMC and the funnel's MALA and ChEES front
+  doors, so that every instantiation of kernels 5-7 runs on a front door.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
 registers and spills, and for kernels 1-8 the blocks an SM holds (the
 occupancy API, float32 and bfloat16 X; kernel 8 float32), failing below
-two for any of them (kernel 8 at its 16 chains a block); phases 2 and 8 hold
+two for any of them (kernel 8 at its 16 chains a block), and the same for
+kernels 5-7 on the generated flagship functor, ``FunnelPG`` and
+``EightSchoolsPG``; phases 2 and 8 hold
 kernels 1 and 5's gradients at their own q_out against float64, within 4x
 of the plain float32 gradient's error; phases 8, 10, 13 and 15 also run
 kernels 5, 8, 7 and 3 on ragged chain counts against their plain versions,
@@ -121,7 +143,10 @@ kernels 1 and 2 (flagship and funnel) their per-chain ε launches, errors,
 times and bounds (phases 28-33), and those of kernels 1-4 their
 ``generic_*`` fields: the generated functor's time, launches on its main
 path (phases 38 and 36), bound, error against plain and against the
-hand-written functor (phase 35).
+hand-written functor (phase 35).  Kernels 5-7 on the generated, funnel and
+eight-schools functors have entries of their own (``ghmc_transition_generic``,
+``chees_transition_funnel``, ...): launches from phases 41-43, errors and
+times from phases 39-40, registers and spills from phase 1.
 Run from the repository root: ``python3 chip_smoke.py``.  Last, the GHMC
 and ChEES front doors (phases 12 and 14) run again with two more generator
 seeds and are held to the same limits, every run measured first.  It needs one CUDA
@@ -134,6 +159,7 @@ kernel's launches, error, times and bound; the last line is
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1858,6 +1884,7 @@ def hierarchical_phases(torch, ops, diagnostics, record, card):
     witness = mean_mcse(torch, diagnostics, pos_w.permute(2, 0, 1).double())
     mean, mcse = mean_mcse(torch, diagnostics,
                            res.positions.transpose(0, 1).double())
+    WITNESS_MEANS["eight schools NUTS"] = (mean, mcse)  # phase 43's
     z = float(((mean - witness[0]).abs()
                / torch.sqrt(mcse**2 + witness[1]**2)).max())
     mu = res.positions[:, :, 0].float()
@@ -1965,6 +1992,7 @@ def front_door_checks(torch, diagnostics, res, nuts_mean, what,
     tau = x.shape[0] * 2 * n / ess
     excess = rhat - torch.sqrt((n - 1) / (n - tau))
     z = (mean - nuts_mean[0]).abs() / torch.sqrt(mcse**2 + nuts_mean[1]**2)
+    WITNESS_MEANS.setdefault(what, (mean, mcse))
     out = dict(
         accept=float(diag.acceptance_probability.mean()),
         divergent_share=float(diag.is_diverging.float().mean()),
@@ -2812,7 +2840,9 @@ DIV_RATIO, DIV_FLOOR = 1.5, 50
 RIFFLE = (0.25, 0.5, 1.0, 2.0)
 PC_ONE_STEP_ACCEPT_MIN = 0.7  # phase 32: phase 11's lower limit
 SEARCH_EPS0 = 0.1
-CKPT_CHAINS, CKPT_WARMUP, CKPT_DRAWS, CKPT_K, CKPT_EVERY = 256, 50, 40, 8, 10
+# phase 33's sorted funnel run (phase 26's are CKPT_*)
+SORTED_CKPT_CHAINS, SORTED_CKPT_WARMUP, SORTED_CKPT_DRAWS = 256, 50, 40
+SORTED_CKPT_K, SORTED_CKPT_EVERY = 8, 10
 
 
 def ab_ms(torch, fns, reps):
@@ -3406,8 +3436,8 @@ def per_chain_front_doors(torch, ops, diagnostics, data, pot, pg, q0, record,
 
 def sorted_checkpoint_phase(torch, ops, record, card):
     """Phase 33: a sorted funnel run with per-chain dual averaging,
-    checkpointed every CKPT_EVERY steps, killed in sampling and in warmup
-    and resumed, equal to the uninterrupted run bit for bit, which equals
+    checkpointed every SORTED_CKPT_EVERY steps, killed in sampling and in
+    warmup and resumed, equal to the uninterrupted run bit for bit, which equals
     the unsegmented run."""
     import tempfile
 
@@ -3415,18 +3445,18 @@ def sorted_checkpoint_phase(torch, ops, record, card):
     from aehmc_tpu_torch.models import neals_funnel_pg_t
 
     pot, pg, data, _ = neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)
-    qs = funnel_q0(torch, CKPT_CHAINS, 3300)
+    qs = funnel_q0(torch, SORTED_CKPT_CHAINS, 3300)
     kw = dict(algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
-              potential_and_grad_t=pg, max_num_expansions=CKPT_K,
+              potential_and_grad_t=pg, max_num_expansions=SORTED_CKPT_K,
               sort_by_depth=True, per_chain_step_size=True)
 
     def run(**extra):
         return aehmc_tpu_torch.sample(torch.Generator().manual_seed(3301),
-                                      None, qs, CKPT_DRAWS, CKPT_WARMUP,
-                                      **kw, **extra)
+                                      None, qs, SORTED_CKPT_DRAWS,
+                                      SORTED_CKPT_WARMUP, **kw, **extra)
 
     with tempfile.TemporaryDirectory() as tmp:
-        ck = dict(checkpoint_every=CKPT_EVERY)
+        ck = dict(checkpoint_every=SORTED_CKPT_EVERY)
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3434,8 +3464,8 @@ def sorted_checkpoint_phase(torch, ops, record, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        check(launches == {"nuts_transition_funnel": CKPT_WARMUP
-                           + CKPT_DRAWS},
+        check(launches == {"nuts_transition_funnel": SORTED_CKPT_WARMUP
+                           + SORTED_CKPT_DRAWS},
               f"sorted checkpointed launches {launches}")
         check(run(checkpoint_path=f"{tmp}/s.npz", _crash_after_segments=2,
                   **ck) is None, "the killed sorted run returned")
@@ -3448,10 +3478,10 @@ def sorted_checkpoint_phase(torch, ops, record, card):
                             **ck), "the sorted run resumed in warmup")
     same_bits(full, run(), "the checkpointed sorted run against the "
               "unsegmented one")
-    log(f"phase 33: sorted funnel run, per-chain ε, {CKPT_CHAINS} chains, "
-        f"{CKPT_WARMUP} + {CKPT_DRAWS}, K {CKPT_K}, a snapshot every "
-        f"{CKPT_EVERY}: {wall:.2f} s, launches {launches}; resumed after a "
-        f"kill in sampling and in warmup, each equal to the uninterrupted "
+    log(f"phase 33: sorted funnel run, per-chain ε, {SORTED_CKPT_CHAINS} "
+        f"chains, {SORTED_CKPT_WARMUP} + {SORTED_CKPT_DRAWS}, K "
+        f"{SORTED_CKPT_K}, a snapshot every {SORTED_CKPT_EVERY}: {wall:.2f} s, "
+        f"launches {launches}; resumed after a kill in sampling and in warmup, each equal to the uninterrupted "
         f"run bit for bit, which equals the unsegmented run [{card}]")
     record["phase33"] = dict(wall_s=wall, launches=launches)
     return launches
@@ -3484,10 +3514,18 @@ GEN_MVN_RATIO_TOL = 0.1              # tuned off-diagonal / diagonal of M⁻¹
 
 
 def generic_potentials(torch, dev):
-    """The potentials phases 34-38 bind, each a plain torch callable, and
+    """The potentials phases 34-42 bind, each a plain torch callable, and
     their generated functors' texts (built in phase 1 with the sources)."""
     import aehmc_tpu_torch.api as api
-    from aehmc_tpu_torch.models import logistic_regression
+    from aehmc_tpu_torch.models import (
+        eight_schools_pg_t,
+        logistic_regression,
+        neals_funnel_pg_t,
+    )
+    from aehmc_tpu_torch.models.hierarchical import (
+        funnel_potential_t,
+        schools_potential_t,
+    )
     from aehmc_tpu_torch.models.regression import logistic_regression_data
     from aehmc_tpu_torch.ops import generic_pg
 
@@ -3520,12 +3558,19 @@ def generic_potentials(torch, dev):
     prec_t = torch.tensor(prec, device=dev)
     logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
     door_t, door_data = api._generic_fused_binding(logprob_fn, DIM, dev)
+    _, _, f_data, _ = neals_funnel_pg_t(FUNNEL_DIM, device=dev)
+    _, _, s_data, _ = eight_schools_pg_t(device=dev)
     binds = dict(
         flagship=generic_pg.bind(flagship_t, (), DIM, device=dev),
         cell=generic_pg.bind(cell_potential, (X, y), DIM, layout="std",
                              device=dev),
         mvn=generic_pg.bind(mvn_t, (prec_t,), GEN_MVN_DIM, device=dev),
         door=generic_pg.bind(door_t, door_data, DIM, device=dev),
+        # phase 40: the hierarchical potentials' generated functors
+        funnel=generic_pg.bind(funnel_potential_t, f_data, FUNNEL_DIM,
+                               device=dev),
+        eight_schools=generic_pg.bind(schools_potential_t, s_data, 10,
+                                      device=dev),
     )
     return dict(X=X, y=y, flagship_t=flagship_t, cell=cell_potential,
                 mvn_t=mvn_t, cov=cov_t, prec=prec_t, logprob_fn=logprob_fn,
@@ -3990,6 +4035,790 @@ def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
     ]
 
 
+# phases 39-43: the HMC core (kernels 5-7) on the generated functor and on
+# the functors with no X tile, and the MALA, GHMC, ChEES and MEADS front doors
+# on a bare logprob_fn
+HMC_GEN_SEED = 3939                  # phase 39: kernels 5-7's Philox key
+HMC_MVN_CHAINS, HMC_MVN_EPS = 2048, (0.2, 0.4)  # phase 39: kernel 7, dense
+FUNNEL_HMC_EPS, SCHOOLS_HMC_EPS = 0.05, HIER_EPS  # phase 40's step sizes
+HMC_TIMED_REPS = 10                  # phases 39-40: launches a CUDA graph
+# phase 43: the funnel's and eight schools' MALA and GHMC runs, and the
+# funnel's ChEES run, held to finite draws and an acceptance above this
+# (set before the run: the CPU front-door tests' limit); eight schools'
+# ChEES and MEADS to phase 19's NUTS means
+HIER_DOOR_ACCEPT_MIN = 0.3
+# the means of the hand-written routes' first runs (front_door_checks: phases
+# 11, 12, 14, 24) and of phase 19's eight-schools NUTS run, the witnesses
+# of phases 41-43
+WITNESS_MEANS = {}
+
+
+def ptxas_entries(log):
+    """[(source, entry, registers, spill-store bytes)] of ptxas's -v output
+    (sections "== <source>")."""
+    out, source, entry, spill = [], None, None, 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        elif "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], 0
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes stack frame,")[1].split()[0])
+        elif "Used" in line and "registers" in line and entry:
+            out.append((source, entry,
+                        int(line.split("Used")[1].split()[0]), spill))
+            entry = None
+    return out
+
+
+def hmc_kernel_of(entry):
+    """5, 6 or 7: the HMC core's kernel an entry function instantiates (the
+    (dim, C) layout is GHMC's, the standard one ChEES's), else None."""
+    if "3hmc" not in entry:
+        return None
+    if "segment_kernel" in entry:
+        return 6
+    std = re.search(r"transition_kernelI\w*?PG\w*?Lb([01])E", entry)
+    return None if std is None else (7 if std.group(1) == "1" else 5)
+
+
+def hmc_functor_report(torch, _build, gen):
+    """Phase 1's registers, spills and blocks per SM of kernels 5-7 on the
+    generated flagship functor, FunnelPG and EightSchoolsPG (the most over
+    each kernel's instantiations: kernel 7 diagonal and dense)."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+
+    b = gen["binds"]["flagship"]
+    logs = {"generic": _build.generated_ptxas_log(b.source),
+            "funnel": _build.ptxas_log(), "eight_schools": _build.ptxas_log()}
+    tokens = {"generic": "9GenericPG", "funnel": "8FunnelPG",
+              "eight_schools": "14EightSchoolsPG"}
+    out = {}
+    for name, log in logs.items():
+        per = {}
+        for _, entry, regs, spill in ptxas_entries(log):
+            k = hmc_kernel_of(entry)
+            if k and tokens[name] in entry:
+                r, s = per.get(k, (0, 0))
+                per[k] = (max(r, regs), max(s, spill))
+        out[name] = dict(registers={k: v[0] for k, v in sorted(per.items())},
+                         spill_bytes={k: v[1] for k, v in sorted(per.items())})
+        check(sorted(per) == [5, 6, 7], f"ptxas reports kernels {sorted(per)} "
+              f"on {name}")
+    plan = launch_plan("hmc", DIM, 0, CHAINS, functor="generic",
+                       workspace=b.workspace)
+    lib = b.library()
+    out["generic"].update(smem_bytes=plan.smem, blocks_per_sm={
+        f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
+            k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))})
+    ghmc, chees = (_build.load_kernels(s) for s in ("ghmc_fused.cu",
+                                                    "chees_fused.cu"))
+    for number, name, chains in ((1, "funnel", FUNNEL_CHAINS),
+                                 (2, "eight_schools", SCHOOLS_CHAINS)):
+        plan = launch_plan("hmc", FUNNEL_DIM, 0, chains, functor=name)
+        out[name].update(smem_bytes=plan.smem, blocks_per_sm={
+            "5": ghmc.ghmc_pot_blocks_per_sm(number, 0, plan.smem),
+            "6": ghmc.ghmc_pot_blocks_per_sm(number, 1, plan.smem),
+            "7": chees.chees_pot_blocks_per_sm(number, 0, plan.smem),
+            "7_dense": chees.chees_pot_blocks_per_sm(number, 1, plan.smem)})
+    for name, rep in out.items():
+        check(min(rep["blocks_per_sm"].values()) >= 2,
+              f"kernels 5-7 on {name}: fewer than two blocks per SM "
+              f"{rep['blocks_per_sm']}")
+    return out
+
+
+def hmc_hold(torch, q_in, kern, ref, what, atol=Q_ATOL):
+    """Kernel 5's outputs ``(q, u, g, p, stats)`` against another version's
+    (ghmc_compare on one draw)."""
+    return ghmc_compare(torch, q_in, (kern[0][None], kern[4][None]),
+                        (ref[0][None], ref[4][None]), what, atol)
+
+
+def segment_by_draws(torch, gf, state, args, data, pot_kw, plain_pg, seed,
+                     draws, what):
+    """Kernel 6 over ``draws`` draws from ``state`` (Philox ``seed``) equal
+    to as many launches of kernel 5 bit for bit, and each of those held
+    against the plain transition from the kernel's own state (a last-bit
+    difference carried over draws is chaos, not error).  Returns (least
+    share, largest |Δq|, chain-cases that differ)."""
+    from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
+    from aehmc_tpu_torch.ops.philox import MASK32
+
+    pos, stats, *final = gf.ghmc_segment_cuda(*state, *args, data, draws,
+                                              seed=seed, **pot_kw)
+    st, out = state, []
+    for t in range(draws):
+        key = (seed + t * DRAW_SEED_STRIDE) & MASK32
+        plain = gf.ghmc_transition_plain(*st, *args, plain_pg, seed=key)
+        kern = gf.ghmc_transition_cuda(*st, *args, data, seed=key, **pot_kw)
+        check(torch.equal(kern[4], stats[t]) and torch.equal(kern[0], pos[t]),
+              f"{what}: kernel 6 draw {t} differs from kernel 5")
+        out.append(hmc_hold(torch, st[0], kern, plain,
+                            f"{what}: draw {t} vs plain"))
+        st = kern[:4]
+    check(all(torch.equal(a, b) for a, b in zip(final, st)),
+          f"{what}: kernel 6's final state differs from kernel 5's")
+    del pos
+    return (min(s for s, _, _ in out), max(e for _, e, _ in out),
+            sum(d for _, _, d in out))
+
+
+def worst(cases):
+    """(least share, largest error, chain-cases that differ) over cases."""
+    return (min(c[0] for c in cases), max(c[1] for c in cases),
+            sum(c[2] for c in cases))
+
+
+def hmc_generic_phase(torch, gen, data, pg, q0, record, card):
+    """Phase 39: kernels 5, 6 and 7 on the flagship's generated functor at
+    phases 8, 9 and 13's state against their plain versions (the same plain
+    core with generic_pg.run_plain) and against LogisticPGT; kernel 6 equal
+    to 32 launches of kernel 5 bit for bit; kernel 7 at α 0 against kernel
+    5; kernel 7 with a dense M⁻¹ on phase 37's mvn25 functor; each timed
+    beside LogisticPGT in the same process."""
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    dev = q0.device
+    rng = np.random.default_rng(39)
+    b = gen["binds"]["flagship"]
+    ops1 = b.operands((), dev)
+    X, y = gen["X"], gen["y"]
+
+    def plain_pg(x):
+        return generic_pg.run_plain(b.ir, x, ops1)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    gkw = dict(potential_and_grad_t=None, potential_fn_t=gen["flagship_t"])
+    q_t = q0.T.contiguous()
+    u0, g0 = pg(q_t, *data)
+    p0 = f32(np.sqrt(1.0 / IMM) * rng.standard_normal((DIM, CHAINS)))
+    im = torch.full((DIM,), IMM, device=dev)
+    state = (q_t, u0, g0, p0)
+    ext = dict(noise=f32(np.sqrt(1.0 / IMM)
+                         * rng.standard_normal((DIM, CHAINS))),
+               u_accept=f32(rng.uniform(size=(1, CHAINS))))
+
+    # kernel 5 at α 0.9: external and Philox randomness
+    vs_plain, vs_hand = [], []
+    for rand in (ext, dict(seed=HMC_GEN_SEED)):
+        how = "Philox" if "seed" in rand else "external"
+        args = (EPS, GHMC_ALPHA, im)
+        kern = gf.ghmc_transition_cuda(*state, *args, (), **gkw, **rand)
+        plain = gf.ghmc_transition_plain(*state, *args, plain_pg, **rand)
+        hand = gf.ghmc_transition_cuda(*state, *args, data, **rand)
+        torch.cuda.synchronize()
+        vs_plain.append(hmc_hold(torch, q_t, kern, plain,
+                                 f"generic kernel 5 vs plain ({how})"))
+        vs_hand.append(hmc_hold(torch, q_t, kern, hand,
+                                f"generic kernel 5 vs LogisticPGT ({how})"))
+    r5, r5h = worst(vs_plain), worst(vs_hand)
+
+    # kernel 6: 32 draws == 32 launches of kernel 5, each against plain;
+    # the whole segment against LogisticPGT's
+    seed6 = HMC_GEN_SEED + 1
+    r6 = segment_by_draws(torch, gf, state, (EPS, GHMC_ALPHA, im), (), gkw,
+                          plain_pg, seed6, SEGMENT, "generic kernel 6")
+    seg = gf.ghmc_segment_cuda(*state, EPS, GHMC_ALPHA, im, (), SEGMENT,
+                               seed=seed6, **gkw)
+    seg_h = gf.ghmc_segment_cuda(*state, EPS, GHMC_ALPHA, im, data, SEGMENT,
+                                 seed=seed6)
+    r6h = ghmc_compare(torch, q_t, seg[:2], seg_h[:2],
+                       f"generic kernel 6 vs LogisticPGT over {SEGMENT} "
+                       "draws")
+    del seg, seg_h
+
+    # kernel 7, L 10: against plain and LogisticPGT, and at α 0 against
+    # kernel 5
+    cstate = (q0, u0.reshape(-1), g0.T.contiguous())
+    steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+    cext = dict(momentum=ext["noise"].T.contiguous(),
+                u_accept=ext["u_accept"].reshape(-1))
+    vs_plain, vs_hand = [], []
+    for rand in (cext, dict(seed=HMC_GEN_SEED + 2)):
+        how = "Philox" if "seed" in rand else "external"
+        kern = cf.chees_transition_cuda(*cstate, im, EPS, steps, (), **gkw,
+                                        **rand)
+        plain = cf.chees_transition_plain(*cstate, im, EPS, LEAPFROG_STEPS,
+                                          plain_pg, **rand)
+        hand = cf.chees_transition_cuda(*cstate, im, EPS, steps, data,
+                                        **rand)
+        torch.cuda.synchronize()
+        vs_plain.append(chees_compare(torch, q0, kern, plain,
+                                      f"generic kernel 7 vs plain ({how})"))
+        vs_hand.append(chees_compare(
+            torch, q0, kern, hand, f"generic kernel 7 vs LogisticPGT ({how})"))
+    r7, r7h = worst(vs_plain), worst(vs_hand)
+    k7 = cf.chees_transition_cuda(*cstate, im, EPS, steps, (), seed=99, **gkw)
+    k5 = gf.ghmc_transition_cuda(q_t, u0, g0, torch.zeros_like(g0), EPS, 0.0,
+                                 im, (), num_steps=LEAPFROG_STEPS, seed=99,
+                                 **gkw)
+    torch.cuda.synchronize()
+    same75 = float((((k7[0] != q0).any(dim=1) == (k5[0].T != q0).any(dim=1))
+                    & (k7[3][:, 4] == k5[4][4])).float().mean())
+    check(same75 >= K7_SHARE, f"generic kernel 7 vs kernel 5 at α 0: "
+          f"decisions agree on {same75:.4f}")
+    bitwise75 = bool(torch.equal(k7[0], k5[0].T))
+    del k7, k5
+
+    # kernel 7 with a dense M⁻¹ (the covariance) on phase 37's mvn25 functor
+    bm = gen["binds"]["mvn"]
+    opsm = bm.operands((gen["prec"],), dev)
+
+    def plain_mvn(x):
+        return generic_pg.run_plain(bm.ir, x, opsm)
+
+    n = HMC_MVN_CHAINS
+    qm = f32(rng.standard_normal((n, GEN_MVN_DIM)))
+    um, gm = plain_mvn(qm.T.contiguous())
+    mstate = (qm, um.reshape(-1), gm.T.contiguous())
+    eps_m = f32(rng.uniform(*HMC_MVN_EPS, size=n))
+    mkw = dict(potential_and_grad_t=None, potential_fn_t=gen["mvn_t"])
+    mvn_cases = []
+    for rand in (dict(momentum=f32(rng.standard_normal((n, GEN_MVN_DIM))),
+                      u_accept=f32(rng.uniform(size=n))),
+                 dict(seed=HMC_GEN_SEED + 3)):
+        kern = cf.chees_transition_cuda(*mstate, gen["cov"], eps_m, steps,
+                                        (gen["prec"],), **mkw, **rand)
+        plain = cf.chees_transition_plain(*mstate, gen["cov"], eps_m,
+                                          LEAPFROG_STEPS, plain_mvn, **rand)
+        torch.cuda.synchronize()
+        mvn_cases.append(chees_compare(
+            torch, qm, kern, plain, "generic kernel 7, dense M⁻¹, mvn25 "
+            f"({'Philox' if 'seed' in rand else 'external'})"))
+    r7m = worst(mvn_cases)
+
+    # times: the main paths' cases (MALA's α 0 and Philox), each beside
+    # LogisticPGT's, from a CUDA graph of launches
+    def k5g(d=(), kw=gkw):
+        return gf.ghmc_transition_cuda(*state, EPS, 0.0, im, d, seed=7, **kw)
+
+    def k6g(d=(), kw=gkw):
+        return gf.ghmc_segment_cuda(*state, EPS, 0.0, im, d, SEGMENT, seed=7,
+                                    **kw)
+
+    def k7g(d=(), kw=gkw):
+        return cf.chees_transition_cuda(*cstate, im, EPS, steps, d, seed=7,
+                                        **kw)
+
+    def k7m():
+        return cf.chees_transition_cuda(*mstate, gen["cov"], eps_m, steps,
+                                        (gen["prec"],), seed=7, **mkw)
+
+    hand = dict(d=data, kw={})
+    t = dict(
+        ms5=kernel_ms(k5g, HMC_TIMED_REPS),
+        hand_ms5=kernel_ms(lambda: k5g(**hand), HMC_TIMED_REPS),
+        plain_ms5=cuda_ms(torch, lambda: gf.ghmc_transition_plain(
+            *state, EPS, 0.0, im, plain_pg, seed=7), 3),
+        ms6=kernel_ms(k6g, 1), hand_ms6=kernel_ms(lambda: k6g(**hand), 1),
+        plain_ms6=cuda_ms(torch, lambda: gf.ghmc_segment_plain(
+            *state, EPS, 0.0, im, plain_pg, SEGMENT, seed=7), 1),
+        ms7=kernel_ms(k7g, 3), hand_ms7=kernel_ms(lambda: k7g(**hand), 3),
+        plain_ms7=cuda_ms(torch, lambda: cf.chees_transition_plain(
+            *cstate, im, EPS, LEAPFROG_STEPS, plain_pg, seed=7), 1),
+        ms7_mvn=kernel_ms(k7m, HMC_TIMED_REPS),
+        plain_ms7_mvn=cuda_ms(torch, lambda: cf.chees_transition_plain(
+            *mstate, gen["cov"], eps_m, LEAPFROG_STEPS, plain_mvn, seed=7),
+            3))
+    rows = 2 * CHAINS * 4  # the ε and α rows
+    b5 = bound(CHAINS * GRAD_FLOP, nbytes(*state, im, X, y, *k5g()) + rows)
+    b6 = bound(SEGMENT * CHAINS * GRAD_FLOP,
+               nbytes(*state, im, X, y, *k6g()) + rows)
+    b7 = bound(LEAPFROG_STEPS * CHAINS * GRAD_FLOP,
+               nbytes(*cstate, im, X, y, *k7g()) + 8)
+    d = GEN_MVN_DIM  # a step: prec·q and M⁻¹p, 2d² each; the draw, 3 more
+    b7m = bound(n * (LEAPFROG_STEPS * 4 + 6) * d * d,
+                nbytes(*mstate, gen["cov"], gen["prec"], eps_m, *k7m()),
+                PEAK_F32)
+    log(f"phase 39: kernels 5-7 on the flagship's generated functor at "
+        f"{CHAINS}x{DIM}, ε {EPS}, M⁻¹ {IMM}: kernel 5 (α {GHMC_ALPHA}, "
+        f"external and Philox) vs plain {r5[0]:.4%} of decisions equal "
+        f"({r5[2]} differ), max |q| err {r5[1]:.3g}, vs LogisticPGT "
+        f"{r5h[0]:.4%} ({r5h[1]:.3g}); kernel 6 == {SEGMENT} launches of "
+        f"kernel 5 bit for bit, each vs plain from its own state >= "
+        f"{r6[0]:.4%} ({r6[1]:.3g}), the segment vs LogisticPGT's "
+        f"{r6h[0]:.4%} ({r6h[1]:.3g}); kernel 7 (L {LEAPFROG_STEPS}) vs plain "
+        f"{r7[0]:.4%} ({r7[1]:.3g}), vs LogisticPGT {r7h[0]:.4%} "
+        f"({r7h[1]:.3g}), vs kernel 5 at α 0 {same75:.4%} (positions bit "
+        f"for bit: {bitwise75}); kernel 7 with a dense M⁻¹ on the mvn25 "
+        f"functor ({n} chains) vs plain {r7m[0]:.4%} ({r7m[1]:.3g}); ms "
+        f"generic / LogisticPGT / plain / bound: kernel 5 {t['ms5']:.4f} / "
+        f"{t['hand_ms5']:.4f} / {t['plain_ms5']:.3f} / {b5[0]:.4f}, kernel 6 "
+        f"per {SEGMENT} draws {t['ms6']:.3f} / {t['hand_ms6']:.3f} / "
+        f"{t['plain_ms6']:.2f} / {b6[0]:.3f}, kernel 7 {t['ms7']:.3f} / "
+        f"{t['hand_ms7']:.3f} / {t['plain_ms7']:.2f} / {b7[0]:.3f}; mvn25 "
+        f"kernel 7 {t['ms7_mvn']:.4f} ms (plain {t['plain_ms7_mvn']:.3f}, "
+        f"bound {b7m[0]:.5f}) [{card}]")
+    record["phase39"] = dict(
+        share=[r5[0], r6[0], r7[0]], max_abs_err=[r5[1], r6[1], r7[1]],
+        share_vs_hand=[r5h[0], r6h[0], r7h[0]],
+        max_abs_err_vs_hand=[r5h[1], r6h[1], r7h[1]],
+        share_7_vs_5=same75, bitwise_7_vs_5=bitwise75,
+        mvn_share=r7m[0], mvn_max_abs_err=r7m[1], **t,
+        bound_ms=[b5[0], b6[0], b7[0]], bound_ms_mvn=b7m[0],
+        bound_ms_cuda_cores=[b5[2], b6[2], b7[2]])
+    return dict(errs=(r5[1], r6[1], max(r7[1], r7m[1])),
+                errs_hand=(r5h[1], r6h[1], r7h[1]),
+                ms=(t["ms5"], t["ms6"], t["ms7"]),
+                hand_ms=(t["hand_ms5"], t["hand_ms6"], t["hand_ms7"]),
+                plain_ms=(t["plain_ms5"], t["plain_ms6"], t["plain_ms7"]),
+                bounds=(b5, b6, b7))
+
+
+def hier_hmc_flop(name, dim, steps, chains):
+    """FLOP of one HMC transition of ``steps`` leapfrog steps on the funnel
+    or eight schools: each step the gradient and 6 a dimension, and 8 a
+    dimension for the refresh and the two kinetic energies."""
+    return chains * (steps * (HIER_PG_FLOP[name](dim) + 6 * dim) + 8 * dim)
+
+
+def hmc_hier_phase(torch, gen, record, card):
+    """Phase 40: kernels 5-7 on FunnelPG (8,192 chains, dim 10, from N(0,
+    1), ε 0.05) and on EightSchoolsPG (2,048 chains, phase 19's data, ε
+    0.2), each held against its plain version (the model's own torch
+    function) and against the generated functor of the same potential on
+    the card; kernel 6 equal to its kernel-5 launches bit for bit; each
+    timed beside the generated functor's."""
+    from aehmc_tpu_torch.models import eight_schools_pg_t, neals_funnel_pg_t
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    out = {}
+    for name, model, chains, eps, seed in (
+            ("funnel", neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE),
+             FUNNEL_CHAINS, FUNNEL_HMC_EPS, 4000),
+            ("eight_schools", eight_schools_pg_t(device=DEVICE),
+             SCHOOLS_CHAINS, SCHOOLS_HMC_EPS, 4010)):
+        pot, pg, data, ex = model
+        dim = ex.shape[0]
+        rng = np.random.default_rng(seed)
+        b = gen["binds"][name]
+        opsb = b.operands(data, torch.device(DEVICE))
+
+        def gen_plain(x, b=b, opsb=opsb):
+            return generic_pg.run_plain(b.ir, x, opsb)
+
+        def hand_plain(x, pg=pg, data=data):
+            return pg(x, *data)
+
+        def f32(a):
+            return torch.tensor(a, dtype=torch.float32, device=DEVICE)
+
+        hkw = dict(potential_and_grad_t=pg)
+        gkw = dict(potential_and_grad_t=None, potential_fn_t=pot)
+        q_t = hier_start(torch, dim, chains, seed)
+        u0, g0 = pg(q_t, *data)
+        state = (q_t, u0, g0, f32(rng.standard_normal((dim, chains))))
+        im = torch.ones(dim, device=DEVICE)
+        ext = dict(noise=f32(rng.standard_normal((dim, chains))),
+                   u_accept=f32(rng.uniform(size=(1, chains))))
+        args = (eps, GHMC_ALPHA, im)
+        c5, c5g, c5gp = [], [], []
+        for rand in (ext, dict(seed=seed + 1)):
+            how = f"{name}, {'Philox' if 'seed' in rand else 'external'}"
+            kern = gf.ghmc_transition_cuda(*state, *args, data, **hkw, **rand)
+            kgen = gf.ghmc_transition_cuda(*state, *args, data, **gkw, **rand)
+            plain = gf.ghmc_transition_plain(*state, *args, hand_plain,
+                                             **rand)
+            gplain = gf.ghmc_transition_plain(*state, *args, gen_plain,
+                                              **rand)
+            torch.cuda.synchronize()
+            c5.append(hmc_hold(torch, q_t, kern, plain,
+                               f"kernel 5 ({how}) vs plain"))
+            c5g.append(hmc_hold(torch, q_t, kern, kgen, f"kernel 5 ({how}) "
+                                "vs the generated functor"))
+            c5gp.append(hmc_hold(torch, q_t, kgen, gplain, f"kernel 5 ({how}),"
+                                 " the generated functor vs its plain"))
+        r6 = segment_by_draws(torch, gf, state, args, data, hkw, hand_plain,
+                              seed + 2, SEGMENT, f"kernel 6 ({name})")
+        r6g = segment_by_draws(torch, gf, state, args, data, gkw, gen_plain,
+                               seed + 2, SEGMENT,
+                               f"kernel 6 ({name}, generated functor)")
+        seg = gf.ghmc_segment_cuda(*state, *args, data, SEGMENT,
+                                   seed=seed + 2, **hkw)
+        seg_g = gf.ghmc_segment_cuda(*state, *args, data, SEGMENT,
+                                     seed=seed + 2, **gkw)
+        r6x = ghmc_compare(torch, q_t, seg[:2], seg_g[:2],
+                           f"kernel 6 ({name}) vs the generated functor's "
+                           f"over {SEGMENT} draws")
+        del seg, seg_g
+        cstate = (q_t.T.contiguous(), u0.reshape(-1), g0.T.contiguous())
+        steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32,
+                           device=DEVICE)
+        c7, c7g, c7gp = [], [], []
+        for rand in (dict(momentum=ext["noise"].T.contiguous(),
+                          u_accept=ext["u_accept"].reshape(-1)),
+                     dict(seed=seed + 3)):
+            how = f"{name}, {'Philox' if 'seed' in rand else 'external'}"
+            kern = cf.chees_transition_cuda(*cstate, im, eps, steps, data,
+                                            **hkw, **rand)
+            kgen = cf.chees_transition_cuda(*cstate, im, eps, steps, data,
+                                            **gkw, **rand)
+            plain = cf.chees_transition_plain(*cstate, im, eps,
+                                              LEAPFROG_STEPS, hand_plain,
+                                              **rand)
+            gplain = cf.chees_transition_plain(*cstate, im, eps,
+                                               LEAPFROG_STEPS, gen_plain,
+                                               **rand)
+            torch.cuda.synchronize()
+            c7.append(chees_compare(torch, cstate[0], kern, plain,
+                                    f"kernel 7 ({how}) vs plain"))
+            c7g.append(chees_compare(torch, cstate[0], kern, kgen,
+                                     f"kernel 7 ({how}) vs the generated "
+                                     "functor"))
+            c7gp.append(chees_compare(torch, cstate[0], kgen, gplain,
+                                      f"kernel 7 ({how}), the generated "
+                                      "functor vs its plain"))
+
+        def k5(kw):
+            return gf.ghmc_transition_cuda(*state, eps, 0.0, im, data,
+                                           seed=7, **kw)
+
+        def k6(kw):
+            return gf.ghmc_segment_cuda(*state, eps, 0.0, im, data, SEGMENT,
+                                        seed=7, **kw)
+
+        def k7(kw):
+            return cf.chees_transition_cuda(*cstate, im, eps, steps, data,
+                                            seed=7, **kw)
+
+        t = dict(
+            ms5=kernel_ms(lambda: k5(hkw), HMC_TIMED_REPS),
+            generic_ms5=kernel_ms(lambda: k5(gkw), HMC_TIMED_REPS),
+            plain_ms5=cuda_ms(torch, lambda: gf.ghmc_transition_plain(
+                *state, eps, 0.0, im, hand_plain, seed=7), 3),
+            ms6=kernel_ms(lambda: k6(hkw), 2),
+            generic_ms6=kernel_ms(lambda: k6(gkw), 2),
+            plain_ms6=cuda_ms(torch, lambda: gf.ghmc_segment_plain(
+                *state, eps, 0.0, im, hand_plain, SEGMENT, seed=7), 1),
+            ms7=kernel_ms(lambda: k7(hkw), HMC_TIMED_REPS),
+            generic_ms7=kernel_ms(lambda: k7(gkw), HMC_TIMED_REPS),
+            plain_ms7=cuda_ms(torch, lambda: cf.chees_transition_plain(
+                *cstate, im, eps, LEAPFROG_STEPS, hand_plain, seed=7), 2))
+        moved = nbytes(*state, im, *data)
+        b5 = bound(hier_hmc_flop(name, dim, 1, chains),
+                   moved + nbytes(*k5(hkw)), PEAK_F32)
+        b6 = bound(SEGMENT * hier_hmc_flop(name, dim, 1, chains),
+                   moved + nbytes(*k6(hkw)), PEAK_F32)
+        b7 = bound(hier_hmc_flop(name, dim, LEAPFROG_STEPS, chains),
+                   nbytes(*cstate, im, *data, *k7(hkw)) + 8, PEAK_F32)
+        r5, r5g, r5gp = worst(c5), worst(c5g), worst(c5gp)
+        r7, r7g, r7gp = worst(c7), worst(c7g), worst(c7gp)
+        log(f"phase 40: kernels 5-7 on {name} (dim {dim}, {chains} chains "
+            f"from N(0, 1), ε {eps}; α {GHMC_ALPHA}, L {LEAPFROG_STEPS}): "
+            f"hand-written functor vs plain {r5[0]:.4%} / {r6[0]:.4%} / "
+            f"{r7[0]:.4%} of decisions equal (max |q| err {r5[1]:.3g} / "
+            f"{r6[1]:.3g} / {r7[1]:.3g}; kernel 6 == {SEGMENT} launches of "
+            f"kernel 5 bit for bit, each draw from its own state), vs the "
+            f"generated functor {r5g[0]:.4%} / {r6x[0]:.4%} / {r7g[0]:.4%} "
+            f"({r5g[1]:.3g} / {r6x[1]:.3g} / {r7g[1]:.3g}), the generated "
+            f"functor vs its plain {r5gp[0]:.4%} / {r6g[0]:.4%} / "
+            f"{r7gp[0]:.4%}; ms hand-written / generated / plain / bound: "
+            f"kernel 5 {t['ms5']:.4f} / {t['generic_ms5']:.4f} / "
+            f"{t['plain_ms5']:.3f} / {b5[0]:.5f}, kernel 6 per {SEGMENT} "
+            f"draws {t['ms6']:.4f} / {t['generic_ms6']:.4f} / "
+            f"{t['plain_ms6']:.2f} / {b6[0]:.5f}, kernel 7 {t['ms7']:.4f} / "
+            f"{t['generic_ms7']:.4f} / {t['plain_ms7']:.3f} / {b7[0]:.5f} "
+            f"[{card}]")
+        out[name] = dict(
+            share=[r5[0], r6[0], r7[0]], max_abs_err=[r5[1], r6[1], r7[1]],
+            share_vs_generic=[r5g[0], r6x[0], r7g[0]],
+            max_abs_err_vs_generic=[r5g[1], r6x[1], r7g[1]],
+            generic_share=[r5gp[0], r6g[0], r7gp[0]],
+            generic_max_abs_err=[r5gp[1], r6g[1], r7gp[1]], **t,
+            bound_ms=[b5[0], b6[0], b7[0]],
+            bound_by=[b5[1], b6[1], b7[1]])
+    record["phase40"] = out
+    return out
+
+
+def witness_z(torch, diagnostics, positions, witness):
+    """The largest |mean − the witness's| over combined MCSE of draws
+    ``positions (draws, chains, dim)``."""
+    mean, mcse = mean_mcse(torch, diagnostics,
+                           positions.float().transpose(0, 1))
+    return float(((mean - witness[0]).abs()
+                  / torch.sqrt(mcse**2 + witness[1]**2)).max())
+
+
+def door_twice(torch, ops, run, what):
+    """``run()`` twice, launch counts reset before each: the first result,
+    its wall and launches; the two results' draws, diagnostics and final
+    states must be equal bit for bit."""
+    outs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        outs.append((res, time.perf_counter() - t0, dict(ops.LAUNCHES)))
+    (res, wall, launches), (res_b, wall_b, launches_b) = outs
+    check(launches == launches_b, f"{what}: launches {launches}, then "
+          f"{launches_b}")
+    same_bits((res.positions, res.diagnostics, res.final_state),
+              (res_b.positions, res_b.diagnostics, res_b.final_state),
+              f"{what} run twice with one seed")
+    return res, wall, wall_b, {k: v for k, v in launches.items() if v}
+
+
+def bare_front_doors(torch, ops, diagnostics, gen, q0, record, nuts_mean,
+                     card):
+    """Phases 41 (MALA, GHMC at α 0.9, ChEES) and 42 (MEADS, and MEADS
+    checkpointed): the front door on the flagship's bare logprob_fn at the
+    hand-written routes' cells and seeds (phases 11, 12, 14, 24, 26), each
+    run twice; only the _generic launch counts move.  Returns the main
+    paths' launches of kernels 5-7 on the generated functor."""
+    import tempfile
+
+    import aehmc_tpu_torch
+
+    lp = gen["logprob_fn"]
+
+    def door(algorithm, draws, warmup, seed, **kw):
+        return lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(seed), lp, q0, draws, warmup,
+            algorithm=algorithm, path="fused", **kw)
+
+    ghmc = dict(initial_step_size=0.1, segment_draws=SEGMENT)
+    cells = (
+        ("MALA", door("mala", MALA_DRAWS, WARMUP, 11, **ghmc),
+         {"ghmc_transition_generic": WARMUP,
+          "ghmc_segment_generic": -(-MALA_DRAWS // SEGMENT)}, {}),
+        ("GHMC", door("ghmc", GHMC_DRAWS, WARMUP, 12, ghmc_alpha=GHMC_ALPHA,
+                      **ghmc),
+         {"ghmc_transition_generic": WARMUP,
+          "ghmc_segment_generic": -(-GHMC_DRAWS // SEGMENT)}, {}),
+        ("ChEES", door("chees", DRAWS, WARMUP, 14,
+                       initial_step_size=CHEES_EPS0), None,
+         dict(accept_range=CHEES_ACCEPT)),
+        ("MEADS", door("meads", MEADS_DRAWS, MEADS_WARMUP, 24,
+                       meads_recompute_every=MEADS_EVERY),
+         {"ghmc_segment_generic": -(-MEADS_WARMUP // MEADS_EVERY)
+          + -(-MEADS_DRAWS // MEADS_EVERY)},
+         dict(accept_range=(MEADS_ACCEPT_MIN, 1.0), rhat_max=MEADS_RHAT_MAX)),
+    )
+    out = {}
+    for what, run, want, limits in cells:
+        res, wall, wall_b, launches = door_twice(
+            torch, ops, run, f"{what} front door on a bare logprob_fn")
+        if want is None:  # ChEES: the initial-ε probes, then a step a draw
+            probes = launches.get("chees_transition_generic", 0) - (
+                WARMUP + DRAWS)
+            check(1 <= probes <= 32, f"ChEES on a bare logprob_fn: launches "
+                  f"{launches}")
+            want = {"chees_transition_generic": WARMUP + DRAWS + probes}
+            steps = res.diagnostics.num_integration_steps[:, 0]
+            check(bool((steps >= 1).all() & (steps <= MAX_L).all()),
+                  f"ChEES trip counts out of [1, {MAX_L}]")
+        check(launches == want, f"{what} front door on a bare logprob_fn: "
+              f"launches {launches}, want {want}")
+        lim = front_door_checks(torch, diagnostics, res, nuts_mean,
+                                f"{what} (bare logprob_fn)", **limits)
+        z = witness_z(torch, diagnostics, res.positions, WITNESS_MEANS[what])
+        check(z < MCSE_Z, f"{what} on a bare logprob_fn: means {z} MCSE from "
+              "the hand-written route's")
+        if what in ("MALA", "GHMC"):
+            ac = move_autocorrelation(res.positions.transpose(0, 1)[:, :, :10])
+            check(ac < MALA_MOVE_AC if what == "MALA" else ac > GHMC_MOVE_AC,
+                  f"{what} on a bare logprob_fn: move autocorrelation {ac}")
+            lim["move_autocorrelation"] = ac
+        out[what] = dict(wall_s=wall, wall_s_again=wall_b, launches=launches,
+                         max_z_vs_handwritten=z, **lim)
+        log(f"phase {42 if what == 'MEADS' else 41}: {what} front door on a "
+            f"bare logprob_fn (the generated functor) {CHAINS}x{DIM}: "
+            f"{wall:.2f} s (again {wall_b:.2f} s, equal bit for bit); "
+            f"launches {launches}; accept {lim['accept']:.4f}, divergent "
+            f"{lim['divergent_share']:.2e}, eps {lim['step_size']:.4f}, max "
+            f"R-hat {lim['max_rhat']:.4f} (excess over stationary "
+            f"{lim['max_rhat_excess']:.4f}), means within "
+            f"{lim['max_z_vs_nuts']:.2f} MCSE of NUTS and {z:.2f} of the "
+            f"hand-written route's [{card}]")
+        del res
+
+    # MEADS checkpointed: kernel 5 a draw (phase 26's cut)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = iter(("a", "b"))
+        res, wall, wall_b, launches = door_twice(
+            torch, ops, lambda: door(
+                "meads", CKPT_DRAWS, CKPT_WARMUP, 26,
+                meads_recompute_every=MEADS_EVERY,
+                checkpoint_every=CKPT_EVERY,
+                checkpoint_path=f"{tmp}/{next(runs)}.npz")(),
+            "checkpointed MEADS on a bare logprob_fn")
+    want = {"ghmc_transition_generic": CKPT_WARMUP + CKPT_DRAWS}
+    check(launches == want, f"checkpointed MEADS on a bare logprob_fn: "
+          f"launches {launches}")
+    check(bool(torch.isfinite(res.positions).all()),
+          "checkpointed MEADS on a bare logprob_fn: non-finite draws")
+    out["MEADS checkpointed"] = dict(
+        wall_s=wall, wall_s_again=wall_b, launches=launches,
+        accept=float(res.diagnostics.acceptance_probability.mean()))
+    log(f"phase 42: checkpointed MEADS front door on a bare logprob_fn "
+        f"(kernel 5 a draw, a snapshot every {CKPT_EVERY}) {CHAINS}x{DIM}, "
+        f"{CKPT_WARMUP} + {CKPT_DRAWS}: {wall:.2f} s (again {wall_b:.2f} s, "
+        f"equal bit for bit); launches {launches}; accept "
+        f"{out['MEADS checkpointed']['accept']:.4f} [{card}]")
+    del res
+    record["phase41"] = {k: v for k, v in out.items()
+                         if k in ("MALA", "GHMC", "ChEES")}
+    record["phase42"] = {k: v for k, v in out.items() if "MEADS" in k}
+    return dict(ghmc_transition=out["MALA"]["launches"][
+                    "ghmc_transition_generic"],
+                ghmc_segment=out["MALA"]["launches"]["ghmc_segment_generic"],
+                chees_transition=out["ChEES"]["launches"][
+                    "chees_transition_generic"],
+                meads_segment=out["MEADS"]["launches"]["ghmc_segment_generic"],
+                meads_transition=launches["ghmc_transition_generic"])
+
+
+def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
+    """Phase 43: eight schools' ChEES and MEADS front doors on its
+    hand-written functor at phase 19's 2,048 chains, 500 + 500, held to
+    phase 19's NUTS means; and, so that every hierarchical instantiation of
+    kernels 5-7 runs on a front door, eight schools' GHMC and the funnel's
+    MALA and ChEES front doors (the funnel at phase 18's cell, 8,192 chains,
+    300 + 200), held to finite draws and an acceptance above
+    HIER_DOOR_ACCEPT_MIN.  Returns each run's launches."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import (
+        eight_schools,
+        eight_schools_pg_t,
+        neals_funnel,
+        neals_funnel_pg_t,
+    )
+
+    schools = (eight_schools(device=DEVICE)[0],
+               *eight_schools_pg_t(device=DEVICE)[:3])
+    funnel = (neals_funnel(FUNNEL_DIM, device=DEVICE)[0],
+              *neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)[:3])
+    runs = (
+        ("eight schools ChEES", schools, "chees", SCHOOLS_CHAINS,
+         SCHOOLS_WARMUP, SCHOOLS_DRAWS, {}, "chees_transition_eight_schools"),
+        ("eight schools MEADS", schools, "meads", SCHOOLS_CHAINS,
+         SCHOOLS_WARMUP, SCHOOLS_DRAWS,
+         dict(meads_recompute_every=MEADS_EVERY),
+         "ghmc_segment_eight_schools"),
+        ("eight schools GHMC", schools, "ghmc", SCHOOLS_CHAINS,
+         SCHOOLS_WARMUP, GHMC_DRAWS,
+         dict(segment_draws=SEGMENT, initial_step_size=0.1),
+         "ghmc_transition_eight_schools"),
+        ("funnel MALA", funnel, "mala", FUNNEL_CHAINS, FUNNEL_WARMUP,
+         FUNNEL_DRAWS, dict(segment_draws=SEGMENT, initial_step_size=0.1),
+         "ghmc_transition_funnel"),
+        ("funnel ChEES", funnel, "chees", FUNNEL_CHAINS, FUNNEL_WARMUP,
+         FUNNEL_DRAWS, {}, "chees_transition_funnel"),
+    )
+    out = {}
+    for what, (lp, pot, pg, data), algorithm, chains, warmup, draws, kw, \
+            counter in runs:
+        dim = 10 if "schools" in what else FUNNEL_DIM
+        q0 = torch.tensor(0.1 * np.random.default_rng(43).standard_normal(
+            (chains, dim)), dtype=torch.float32, device=DEVICE)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(43), lp, q0, draws, warmup,
+            algorithm=algorithm, path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        model = "_eight_schools" if "schools" in what else "_funnel"
+        check(counter in launches and all(k.endswith(model)
+                                          for k in launches),
+              f"{what}: launches {launches}")
+        accept = float(res.diagnostics.acceptance_probability.mean())
+        finite = bool(torch.isfinite(res.positions).all())
+        check(finite, f"{what}: non-finite draws")
+        check(accept > HIER_DOOR_ACCEPT_MIN, f"{what}: acceptance {accept}")
+        row = dict(wall_s=wall, launches=launches, accept=accept,
+                   divergent_share=float(
+                       res.diagnostics.is_diverging.float().mean()),
+                   step_size=float(torch.as_tensor(res.step_size).float()
+                                   .mean()))
+        if "schools" in what:
+            row["max_z_vs_nuts"] = witness_z(
+                torch, diagnostics, res.positions,
+                WITNESS_MEANS["eight schools NUTS"])
+            if algorithm in ("chees", "meads"):
+                check(row["max_z_vs_nuts"] < MCSE_Z, f"{what}: means "
+                      f"{row['max_z_vs_nuts']} MCSE from phase 19's NUTS")
+        else:
+            v = res.positions[FUNNEL_BURN:, :, 0].float()
+            row.update(v_mean=float(v.mean()), v_sd=float(v.std()))
+        out[what] = row
+        log(f"phase 43: {what} front door ({chains} chains, {warmup} + "
+            f"{draws}) on its hand-written functor: {wall:.2f} s; launches "
+            f"{launches}; accept {accept:.4f}, divergent "
+            f"{row['divergent_share']:.2e}, mean eps {row['step_size']:.4f}"
+            + (f", means within {row['max_z_vs_nuts']:.2f} MCSE of phase "
+               "19's NUTS" if "max_z_vs_nuts" in row else
+               f", v over draws {FUNNEL_BURN}+ mean {row['v_mean']:.3f} sd "
+               f"{row['v_sd']:.3f}") + f" [{card}]")
+        del res
+    record["phase43"] = out
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def hmc_functor_entries(gen39, hier40, door, hier43, ptxas):
+    """The ``kernels`` line's entries of kernels 5-7 on the generated
+    functor (launches: phases 41-42's front doors) and on FunnelPG and
+    EightSchoolsPG (launches: phase 43's), each with its registers and
+    spills, and the other functor's time on the same inputs beside it."""
+    names = ("ghmc_transition", "ghmc_segment", "chees_transition")
+    lines = ("aehmc_tpu/ops/ghmc_fused.py:139",
+             "aehmc_tpu/ops/ghmc_fused.py:329",
+             "aehmc_tpu/ops/chees_fused.py:61")
+    sources = ("ghmc_fused.cu", "ghmc_fused.cu", "chees_fused.cu")
+    launches = (door["ghmc_transition"], door["ghmc_segment"],
+                door["chees_transition"])
+    out = []
+    for i, (name, line) in enumerate(zip(names, lines)):
+        regs = ptxas["generic"]
+        out.append(dict(
+            kernel_entry(f"{name}_generic", "hmc_generic.cu", line,
+                         launches[i], gen39["errs"][i], gen39["ms"][i],
+                         gen39["plain_ms"][i], gen39["bounds"][i]),
+            handwritten_ms=gen39["hand_ms"][i],
+            vs_handwritten_max_abs_err=gen39["errs_hand"][i],
+            meads_launches=(door["meads_transition"], door["meads_segment"],
+                            None)[i],
+            chains_per_block=8, registers=regs["registers"][5 + i],
+            spill_bytes=regs["spill_bytes"][5 + i]))
+    for model, runs in (("funnel", {"ghmc_transition": "funnel MALA",
+                                    "ghmc_segment": "funnel MALA",
+                                    "chees_transition": "funnel ChEES"}),
+                        ("eight_schools", {
+                            "ghmc_transition": "eight schools GHMC",
+                            "ghmc_segment": "eight schools MEADS",
+                            "chees_transition": "eight schools ChEES"})):
+        h = hier40[model]
+        for i, (name, line) in enumerate(zip(names, lines)):
+            n = str(5 + i)
+            counter = f"{name}_{model}"
+            out.append(dict(
+                kernel_entry(counter, sources[i], line,
+                             hier43[runs[name]].get(counter, 0),
+                             h["max_abs_err"][i], h["ms" + n],
+                             h["plain_ms" + n],
+                             (h["bound_ms"][i], h["bound_by"][i])),
+                chains_per_block=8, generic_ms=h["generic_ms" + n],
+                vs_generic_max_abs_err=h["max_abs_err_vs_generic"][i],
+                registers=ptxas[model]["registers"][5 + i],
+                spill_bytes=ptxas[model]["spill_bytes"][5 + i]))
+    return out
+
+
 def main():
     import torch
 
@@ -4090,6 +4919,16 @@ def main():
             f"blocks per SM {per_sm}")
         check(min(per_sm.values()) >= 2,
               f"{name}: fewer than two blocks per SM {per_sm}")
+    # kernels 5-7 on the generated flagship functor and the functors with
+    # no X tile
+    hmc_functors = hmc_functor_report(torch, _build, gen_pots)
+    geometry["hmc_functors"] = hmc_functors
+    for name, rep in hmc_functors.items():
+        log(f"  ghmc_transition, ghmc_segment, chees_transition on {name}: "
+            f"ptxas registers {rep['registers']}, spill stores "
+            f"{rep['spill_bytes']} B (kernels 5, 6, 7); {rep['smem_bytes']} "
+            f"B of shared memory a block; blocks per SM "
+            f"{rep['blocks_per_sm']}")
     nuts_plan = launch_plan("nuts", DIM, K, CHAINS)
     check((nuts_plan.points, nuts_plan.smem) == (128, 111_792),
           f"NUTS plan at dim {DIM}, K {K}: {nuts_plan}")
@@ -4389,6 +5228,14 @@ def main():
     # the generic fields
     generic = generic_phases(torch, ops, diagnostics, gen_pots, data, pg, q0,
                              q_post, record, nuts_mean, card)
+    # phases 39-43: kernels 5-7 on the generated and hierarchical functors,
+    # the HMC-core front doors on a bare logprob_fn, eight schools and the
+    # funnel on the HMC-core routes
+    gen39 = hmc_generic_phase(torch, gen_pots, data, pg, q0, record, card)
+    hier40 = hmc_hier_phase(torch, gen_pots, record, card)
+    door = bare_front_doors(torch, ops, diagnostics, gen_pots, q0, record,
+                            nuts_mean, card)
+    hier43 = hier_hmc_front_doors(torch, ops, diagnostics, record, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -4403,6 +5250,7 @@ def main():
         *ghmc[:2],
         chees_entry,
         *ghmc[2:],
+        *hmc_functor_entries(gen39, hier40, door, hier43, hmc_functors),
     ]
     for entry, n, launches_pc in (
             (kernels[0], "1", pc_launches["nuts_transition"]),

@@ -228,12 +228,21 @@ def test_kernel_fn_draws_from_the_generator_or_takes_its_key():
 
 
 def test_cuda_path_takes_the_logistic_potential_only():
+    """The card's dispatch of kernel 7 (named when it took the logistic
+    functor only): the logistic functor for ``logistic_pg_t``, a functor
+    generated from the traced gradient graph for any other float32
+    potential, pre-differentiated or not; it raises only for what no
+    functor takes."""
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=4, num_points=8,
                                                   matmul_dtype=torch.float32,
                                                   device="cpu")
     q = torch.zeros(8, 4)
-    with pytest.raises(NotImplementedError, match="item 1.10b"):
-        _check_cuda_args(_gaussian_pg, data_t, q)
+    var_col = torch.full((4, 1), 2.0)
+    assert _check_cuda_args(_gaussian_pg, (var_col,), q) == "generic"
+    assert _check_cuda_args(None, (var_col,), q,
+                            potential_fn_t=_potential_t) == "generic"
     with pytest.raises(TypeError, match="float32"):
         _check_cuda_args(pg_t, data_t, q.double())
-    _check_cuda_args(pg_t, data_t, q)
+    with pytest.raises(ValueError, match="logistic data"):
+        _check_cuda_args(pg_t, (var_col,), q)
+    assert _check_cuda_args(pg_t, data_t, q) == "logistic"

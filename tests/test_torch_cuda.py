@@ -174,8 +174,17 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
                         "nuts_transition_std_generic": 0,
                         "nuts_sampling_std_generic": 0,
                         "chees_transition": 0, "ghmc_transition": 0,
-                        "ghmc_segment": 0, "fused_logistic_hmc": 0,
-                        "batched_leapfrog": 0}
+                        "ghmc_segment": 0,
+                        "chees_transition_funnel": 0,
+                        "ghmc_transition_funnel": 0,
+                        "ghmc_segment_funnel": 0,
+                        "chees_transition_eight_schools": 0,
+                        "ghmc_transition_eight_schools": 0,
+                        "ghmc_segment_eight_schools": 0,
+                        "chees_transition_generic": 0,
+                        "ghmc_transition_generic": 0,
+                        "ghmc_segment_generic": 0,
+                        "fused_logistic_hmc": 0, "batched_leapfrog": 0}
     assert res.positions.dtype == torch.bfloat16 and res.positions.is_cuda
     assert bool(torch.isfinite(res.positions.float()).all())
 
@@ -1629,3 +1638,205 @@ def test_cuda_generic_kernels_3_and_4_match_plain(cuda_device):
             seed=(9 + t * DRAW_SEED_STRIDE) & MASK32)
         assert torch.equal(st, stats[t]) and torch.equal(qs, pos[t])
     assert torch.equal(qs, qf)
+
+
+# ---- kernels 5-7 on the functors with no X tile (FunnelPG,
+# EightSchoolsPG) and on a generated functor (the logistic posterior as a
+# plain torch potential, and eight schools' potential traced): each against
+# its plain version with the potential's own torch function or
+# generic_pg.run_plain, decisions equal on >= 99% of chains, positions
+# within 1e-4 on those
+
+def _hmc_functor_case(device, functor, chains=24):
+    """(the kernel's potential keywords, data, plain pot_grad, q_t (dim, C),
+    the launch count's name suffix) of ``functor``."""
+    from aehmc_tpu_torch.models import eight_schools_pg_t, neals_funnel_pg_t
+    from aehmc_tpu_torch.ops import generic_pg
+
+    if functor in ("funnel", "eight_schools"):
+        pot, pg, data, q_t, _, _ = _hier_case(device, functor, chains=chains)
+        return (dict(potential_and_grad_t=pg), data,
+                lambda x: pg(x, *data), 0.5 * q_t, f"_{functor}")
+    if functor == "generic_schools":
+        pot, _, data, _ = eight_schools_pg_t(device=device)
+        q_t = 0.5 * _hier_case(device, "eight_schools", chains=chains)[3]
+    else:
+        _, _, data, _ = logistic_regression_pg_t(
+            DIM, POINTS, matmul_dtype=torch.float32, device=device)
+        pot, data = _generic_potential, (data[0], data[2])
+        q_t = torch.tensor(0.1 * np.random.default_rng(3).normal(
+            size=(DIM, chains)), dtype=torch.float32, device=device)
+    bound = generic_pg.bind(pot, data, q_t.shape[0], device=device)
+    ops_ = bound.operands(data, device)
+    return (dict(potential_and_grad_t=None, potential_fn_t=pot), data,
+            lambda x: generic_pg.run_plain(bound.ir, x, ops_), q_t,
+            "_generic")
+
+
+HMC_FUNCTORS = ["funnel", "eight_schools", "generic", "generic_schools"]
+
+
+def _hmc_agree(q0, kern_q, plain_q, kern_s, plain_s, atol=1e-4):
+    """GHMC/ChEES decisions (moved, divergent, the kept energy to 1e-5
+    relative) equal on >= 99% of chains; positions within ``atol`` there.
+    q and stats in the (dim, C) / (8, C) layout."""
+    energy = (kern_s[0] - plain_s[0]).abs() <= 1e-5 * plain_s[0].abs().clamp(
+        min=1.0)
+    same = (((kern_q != q0).any(dim=0) == (plain_q != q0).any(dim=0))
+            & (kern_s[4] == plain_s[4]) & energy)
+    assert float(same.float().mean()) >= 0.99
+    np.testing.assert_allclose(kern_q[:, same].cpu(), plain_q[:, same].cpu(),
+                               rtol=atol, atol=atol)
+    return same
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("functor", HMC_FUNCTORS)
+@pytest.mark.parametrize("philox", [False, True])
+def test_cuda_ghmc_kernels_on_each_functor_match_plain(cuda_device, functor,
+                                                       philox):
+    """Kernel 5 against its plain version at α 0.8 (per-chain ε), and kernel
+    6 equal to its kernel-5 launches bit for bit, each draw against the
+    plain transition from the kernel's own state."""
+    pot_kw, data, plain_pg, q_t, suffix = _hmc_functor_case(cuda_device,
+                                                            functor)
+    dim, chains = q_t.shape
+    rng = np.random.default_rng(4)
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=cuda_device)
+
+    u0, g0 = plain_pg(q_t)
+    p0 = f32(rng.normal(size=(dim, chains)))
+    eps = f32(rng.uniform(0.05, 0.15, size=chains))
+    imm = f32(rng.uniform(0.7, 1.3, size=dim))
+    ext = dict(noise=f32(rng.normal(size=(dim, chains))),
+               u_accept=f32(rng.uniform(size=(1, chains))))
+    rand = dict(seed=55) if philox else ext
+    state = (q_t, u0, g0, p0)
+    reset_launch_counts()
+    kern = ghmc_transition_cuda(*state, eps, 0.8, imm, data, **pot_kw, **rand)
+    plain = ghmc_transition_plain(*state, eps, 0.8, imm, plain_pg, **rand)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ghmc_transition" + suffix] == 1
+    assert LAUNCHES["ghmc_transition"] == 0
+    _hmc_agree(q_t, kern[0], plain[0], kern[4], plain[4])
+    draws, seed = 4, 23
+    pos, stats, *final = ghmc_segment_cuda(*state, eps, 0.8, imm, data,
+                                           draws, seed=seed, **pot_kw)
+    assert LAUNCHES["ghmc_segment" + suffix] == 1
+    st = state
+    for t in range(draws):
+        key = (seed + t * DRAW_SEED_STRIDE) & MASK32
+        plain_t = ghmc_transition_plain(*st, eps, 0.8, imm, plain_pg,
+                                        seed=key)
+        *st, s_t = ghmc_transition_cuda(*st, eps, 0.8, imm, data, seed=key,
+                                        **pot_kw)
+        assert torch.equal(s_t, stats[t]) and torch.equal(st[0], pos[t])
+        _hmc_agree(pos[t - 1] if t else q_t, st[0], plain_t[0], s_t,
+                   plain_t[4])
+    for a, b in zip(final, st):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("functor", HMC_FUNCTORS)
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_chees_kernel_on_each_functor_matches_plain(cuda_device,
+                                                         functor, dense):
+    """Kernel 7 (L 5, per-chain ε, diagonal or dense M⁻¹, Philox) against
+    its plain version, and at α 0 against kernel 5 on the same functor:
+    the same decisions."""
+    pot_kw, data, plain_pg, q_t, suffix = _hmc_functor_case(cuda_device,
+                                                            functor)
+    dim, chains = q_t.shape
+    rng = np.random.default_rng(6)
+    if dense:
+        A = rng.normal(size=(dim, dim))
+        imm = 0.5 * (A @ A.T / dim + np.eye(dim))
+    else:
+        imm = rng.uniform(0.5, 1.0, size=dim)
+    imm = torch.tensor(imm, dtype=torch.float32, device=cuda_device)
+    eps = torch.tensor(rng.uniform(0.03, 0.1, size=chains),
+                       dtype=torch.float32, device=cuda_device)
+    u_t, g_t = plain_pg(q_t)
+    q, u, g = q_t.T.contiguous(), u_t.reshape(-1), g_t.T.contiguous()
+    steps = torch.full((), 5, dtype=torch.int32, device=cuda_device)
+    reset_launch_counts()
+    kern = chees_fused.chees_transition_cuda(q, u, g, imm, eps, steps, data,
+                                             seed=41, **pot_kw)
+    plain = chees_fused.chees_transition_plain(
+        q, u, g, imm, eps, 5, plain_pg, seed=41)
+    torch.cuda.synchronize()
+    assert LAUNCHES["chees_transition" + suffix] == 1
+    assert LAUNCHES["chees_transition"] == 0
+    same = _hmc_agree(q_t, kern[0].T, plain[0].T, kern[3].T, plain[3].T)
+    for a, b in zip(kern[4:], plain[4:]):
+        np.testing.assert_allclose(a[same].cpu(), b[same].cpu(), rtol=1e-4,
+                                   atol=1e-4)
+    if not dense:  # kernel 7 is kernel 5 at α 0 with no momentum carried
+        k5 = ghmc_transition_cuda(q_t, u_t, g_t, torch.zeros_like(g_t), eps,
+                                  0.0, imm, data, num_steps=5, seed=41,
+                                  **pot_kw)
+        assert torch.equal(kern[0].T, k5[0]) and torch.equal(
+            kern[3][:, 4], k5[4][4])
+
+
+@pytest.mark.gpu
+def test_cuda_hmc_functor_instantiations_hold_two_blocks_per_sm(cuda_device):
+    from aehmc_tpu_torch.ops import generic_pg
+
+    for model, name in ((1, "funnel"), (2, "eight_schools")):
+        plan = launch_plan("hmc", 10, 0, 8192, functor=name)
+        ghmc = load_kernels("ghmc_fused.cu")
+        chees = load_kernels("chees_fused.cu")
+        for flag in (0, 1):
+            assert ghmc.ghmc_pot_blocks_per_sm(model, flag, plan.smem) >= 2
+            assert chees.chees_pot_blocks_per_sm(model, flag, plan.smem) >= 2
+    assert load_kernels("ghmc_fused.cu").ghmc_pot_blocks_per_sm(3, 0, 4000) \
+        == -1
+    _, _, data, _ = logistic_regression_pg_t(DIM, POINTS,
+                                             matmul_dtype=torch.float32,
+                                             device=cuda_device)
+    bound = generic_pg.bind(_generic_potential, (data[0], data[2]), DIM,
+                            device=cuda_device)
+    plan = launch_plan("hmc", DIM, 0, 1024, functor="generic",
+                       workspace=bound.workspace)
+    lib = bound.library()
+    for kernel, dense in ((5, 0), (6, 0), (7, 0), (7, 1)):
+        assert lib.hmc_generic_blocks_per_sm(kernel, dense, plan.smem) >= 2
+    assert lib.hmc_generic_blocks_per_sm(8, 0, plan.smem) == -1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", ["mala", "ghmc", "chees", "meads"])
+def test_front_door_on_a_bare_logprob_fn_takes_the_generated_functor(
+        cuda_device, algorithm):
+    """A bare logprob_fn on the fused MALA, GHMC, ChEES and MEADS routes
+    binds the generated functor: only the _generic counts move, the same
+    seed gives the same draws, and the acceptance is the hand-written
+    logistic route's at the same settings and seed to 0.05."""
+    from aehmc_tpu_torch.models import logistic_regression
+
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=cuda_device)
+    pot, pg, data, _ = logistic_regression_pg_t(
+        DIM, POINTS, matmul_dtype=torch.float32, device=cuda_device)
+    q0 = torch.tensor(0.1 * np.random.default_rng(9).normal(
+        size=(CHAINS, DIM)), dtype=torch.float32, device=cuda_device)
+
+    def run(**binding):
+        reset_launch_counts()
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(8), logprob_fn, q0, 24, 30,
+            algorithm=algorithm, path="fused", **binding)
+
+    res = run()
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    assert launched and all(k.endswith("_generic") for k in launched)
+    assert bool(torch.isfinite(res.positions).all())
+    assert torch.equal(res.positions, run().positions)
+    hand = run(data=data, potential_fn_t=pot, potential_and_grad_t=pg)
+    assert not any(k.endswith("_generic") for k, v in LAUNCHES.items() if v)
+    accept, hand_accept = (float(r.diagnostics.acceptance_probability.mean())
+                           for r in (res, hand))
+    assert abs(accept - hand_accept) < 0.05
