@@ -182,16 +182,18 @@ def sample(
 
     The fused routes take the transposed ``potential_fn_t(q_t, *data)``
     and/or ``potential_and_grad_t(q_t, *data) -> (u, g)``.  On a CUDA device
-    every fused route (NUTS, MALA, GHMC, ChEES, MEADS) runs three models in
-    hand-written device functors of its kernels, picked by the identity of
-    ``potential_and_grad_t``: ``models.logistic_pg_t``
-    (``models.logistic_regression_pg_t``), ``models.funnel_pg_t``
-    (``models.neals_funnel_pg_t``) and ``models.schools_pg_t``
-    (``models.eight_schools_pg_t``), and any other float32 potential (or a
-    bare ``logprob_fn``, through :func:`_generic_fused_binding`) in a
-    functor generated from its traced gradient graph; a potential no
-    functor takes (an op outside the compiler's table, ROADMAP.md item
-    1.10c) raises before any launch.  ``kwargs`` go to
+    every fused route (NUTS, MALA, GHMC, ChEES, MEADS) runs
+    ``models.logistic_pg_t`` (``models.logistic_regression_pg_t``) in a
+    hand-written device functor, picked by the identity of
+    ``potential_and_grad_t``, and so does the NUTS route
+    ``models.funnel_pg_t`` (``models.neals_funnel_pg_t``) and
+    ``models.schools_pg_t`` (``models.eight_schools_pg_t``).  Any other
+    float32 potential (or a bare ``logprob_fn``, through
+    :func:`_generic_fused_binding`), and the funnel and eight schools on the
+    MALA, GHMC, ChEES and MEADS routes, run in a functor generated from the
+    potential's traced gradient graph; a potential no functor takes (an op
+    outside the compiler's table, ROADMAP.md item 1.10c) raises before any
+    launch.  ``kwargs`` go to
     :func:`aehmc_tpu_torch.ops.fused_driver.sample_fused_adaptive` for NUTS
     (``max_num_expansions`` defaults to 6; ``loop_in_kernel`` to True
     unless ``checkpoint_every`` or ``sort_by_depth`` is given, whose draws

@@ -10,9 +10,8 @@
 // (:61), launched by make_fused_chees_transition (:314), with the logistic
 // regression potential (logistic_pg.cuh) that the TPU kernel traces into
 // its body on the flagship, with float32 or (the model builder's default)
-// bfloat16 data; or, through chees_transition_pot_launch, Neal's funnel or
-// eight schools (hierarchical_pg.cuh).  Any other potential runs in
-// hmc_generic.cu on a generated functor.  The plain PyTorch version is
+// bfloat16 data.  Any other potential runs in hmc_generic.cu on a
+// generated functor.  The plain PyTorch version is
 // aehmc_tpu_torch/ops/chees_fused.py:chees_transition_plain.
 //
 // The trip count L, shared by every chain, is read from a device int32: the
@@ -20,36 +19,10 @@
 // momentum is external (p ~ N(0, M)) or drawn from Philox with GHMC's
 // streams, so at α 0 this kernel equals `ghmc_transition` bit for bit.
 
-#include "hierarchical_pg.cuh"
 #include "hmc_core.cuh"
 
 using namespace aehmc;
 using namespace aehmc::hmc;
-
-namespace {
-
-// kernel 7 with a dense or diagonal M⁻¹ on the functor pg
-template <class PG>
-cudaError_t launch_chees(const Params& P, const PG& pg, const Rand& R,
-                         int dense, const Geometry& G, cudaStream_t stream,
-                         const float* q, const float* u, const float* g,
-                         float* q_out, float* u_out, float* g_out,
-                         float* stats, float* qp_out, float* vp_out) {
-  auto kernel = dense ? transition_kernel<PG, true, true, true>
-                      : transition_kernel<PG, true, false, true>;
-  return launch(kernel, P, pg, G, stream, P, pg, R, q, u, g, nullptr, q_out,
-                u_out, g_out, nullptr, stats, qp_out, vp_out);
-}
-
-// blocks one SM holds of kernel 7 on PG, dense or diagonal
-template <class PG>
-int chees_occupancy(int dense, int smem) {
-  return dense ? blocks_per_sm(transition_kernel<PG, true, true, true>, smem)
-               : blocks_per_sm(transition_kernel<PG, true, false, true>,
-                               smem);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -76,8 +49,11 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
-    return launch_chees(P, pg, R, dense, G, s, q, u, g, q_out, u_out, g_out,
-                        stats, qp_out, vp_out);
+    using PG = decltype(pg);
+    auto kernel = dense ? transition_kernel<PG, true, true, true>
+                        : transition_kernel<PG, true, false, true>;
+    return launch(kernel, P, pg, G, s, P, pg, R, q, u, g, nullptr, q_out,
+                  u_out, g_out, nullptr, stats, qp_out, vp_out);
   });
 }
 
@@ -86,45 +62,11 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
 // of shared memory a block (the occupancy API), or -1 on an error.
 int chees_blocks_per_sm(int dense, int x_bf16, int chains, int smem) {
   return per_type<true, CB>(x_bf16, chains, -1, [&](auto tag) {
-    return chees_occupancy<decltype(tag)>(dense, smem);
+    using PG = decltype(tag);
+    return dense ? blocks_per_sm(transition_kernel<PG, true, true, true>, smem)
+                 : blocks_per_sm(transition_kernel<PG, true, false, true>,
+                                 smem);
   });
-}
-
-// Kernel 7 on a potential with no data matrix: `model` 1 (the funnel) or
-// 2 (eight schools: y, s2 of J = dim − 2 entries each, on the card).  The
-// other arguments as chees_transition_launch's; the plan's points and
-// row_stride are 0 (no tile).
-int chees_transition_pot_launch(const float* q, const float* u,
-                                const float* g, const float* p,
-                                const float* ua, int use_seed,
-                                unsigned int seed, int model, const float* y,
-                                const float* s2, int J, const float* eps,
-                                const float* im, const float* ms, int dense,
-                                const int* L, float thr, int dim, int C,
-                                float* q_out, float* u_out, float* g_out,
-                                float* stats, float* qp_out, float* vp_out,
-                                int blocks, int points, int row_stride,
-                                int smem, int chains, void* stream) {
-  if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
-  const Params P = chees_params(eps, im, ms, L, thr, dim, C);
-  const Rand R = {p, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem, chains};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)with_model(model, y, s2, J, [&](auto pg) {
-    return launch_chees(P, pg, R, dense, G, s, q, u, g, q_out, u_out, g_out,
-                        stats, qp_out, vp_out);
-  });
-}
-
-// Blocks one SM holds of kernel 7 with a dense (1) or diagonal M⁻¹ on the
-// functor of `model`, at smem bytes of shared memory a block, or -1.
-int chees_pot_blocks_per_sm(int model, int dense, int smem) {
-  int n = -1;
-  with_model(model, nullptr, nullptr, 0, [&](auto pg) {
-    n = chees_occupancy<decltype(pg)>(dense, smem);
-    return cudaSuccess;
-  });
-  return n;
 }
 
 }  // extern "C"

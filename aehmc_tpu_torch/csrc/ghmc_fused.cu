@@ -9,12 +9,10 @@
 // with their core _ghmc_core_t (:57) and in-kernel noise _ghmc_noise_t
 // (:125).  The potential is the logistic regression posterior
 // (logistic_pg.cuh), the model the TPU kernel traces into its body on the
-// flagship, with float32 or (the model builder's default) bfloat16 data;
-// or, through the entry points named *_pot_*, Neal's funnel or eight
-// schools (FunnelPG, EightSchoolsPG, hierarchical_pg.cuh), which need no
-// data tile.  Any other potential runs in hmc_generic.cu on a functor
-// generated from its traced gradient graph.  The plain PyTorch version of
-// both kernels is aehmc_tpu_torch/ops/ghmc_fused.py.
+// flagship, with float32 or (the model builder's default) bfloat16 data.
+// Any other potential runs in hmc_generic.cu on a functor generated from
+// its traced gradient graph.  The plain PyTorch version of both kernels is
+// aehmc_tpu_torch/ops/ghmc_fused.py.
 //
 // A transition: partial momentum refresh p0 = α p + √(1−α²) ξ with
 // ξ ~ N(0, M), L leapfrog steps, Metropolis-Hastings on the energy error
@@ -37,38 +35,10 @@
 // (aehmc_tpu_torch/ops/launch_plan.py), so a chain's bits do not depend on
 // the chain count.
 
-#include "hierarchical_pg.cuh"
 #include "hmc_core.cuh"
 
 using namespace aehmc;
 using namespace aehmc::hmc;
-
-namespace {
-
-template <class PG>
-cudaError_t launch_transition(const Params& P, const PG& pg, const Rand& R,
-                              const Geometry& G, cudaStream_t stream,
-                              const float* q, const float* u, const float* g,
-                              const float* p, float* q_out, float* u_out,
-                              float* g_out, float* p_out, float* stats) {
-  return launch(transition_kernel<PG, false, false, false>, P, pg, G, stream,
-                P, pg, R, q, u, g, p, q_out, u_out, g_out, p_out, stats,
-                nullptr, nullptr);
-}
-
-template <class PG>
-cudaError_t launch_segment(const Params& P, const PG& pg, const Rand& R,
-                           int num_draws, const Geometry& G,
-                           cudaStream_t stream, const float* q,
-                           const float* u, const float* g, const float* p,
-                           float* pos, float* stats, float* q_out,
-                           float* u_out, float* g_out, float* p_out) {
-  return launch(segment_kernel<PG, false, false>, P, pg, G, stream, P, pg, R,
-                num_draws, q, u, g, p, pos, stats, q_out, u_out, g_out,
-                p_out);
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -98,8 +68,9 @@ int ghmc_transition_launch(const float* q, const float* u, const float* g,
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
-    return launch_transition(P, pg, R, G, s, q, u, g, p, q_out, u_out, g_out,
-                             p_out, stats);
+    return launch(transition_kernel<decltype(pg), false, false, false>, P,
+                  pg, G, s, P, pg, R, q, u, g, p, q_out, u_out, g_out, p_out,
+                  stats, nullptr, nullptr);
   });
 }
 
@@ -125,8 +96,9 @@ int ghmc_segment_launch(const float* q, const float* u, const float* g,
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
-    return launch_segment(P, pg, R, num_draws, G, s, q, u, g, p, pos, stats,
-                          q_out, u_out, g_out, p_out);
+    return launch(segment_kernel<decltype(pg), false, false>, P, pg, G, s,
+                  P, pg, R, num_draws, q, u, g, p, pos, stats, q_out, u_out,
+                  g_out, p_out);
   });
 }
 
@@ -141,73 +113,6 @@ int ghmc_blocks_per_sm(int segment, int x_bf16, int chains, int smem) {
                : blocks_per_sm(transition_kernel<PG, false, false, false>,
                                smem);
   });
-}
-
-// Kernel 5 on a potential with no data matrix: `model` 1 (the funnel) or
-// 2 (eight schools: y, s2 of J = dim − 2 entries each, on the card).  The
-// other arguments as ghmc_transition_launch's; the plan's points and
-// row_stride are 0 (no tile).
-int ghmc_transition_pot_launch(const float* q, const float* u, const float* g,
-                               const float* p, const float* noise,
-                               const float* ua, int use_seed,
-                               unsigned int seed, int model, const float* y,
-                               const float* s2, int J, const float* eps,
-                               const float* alpha, float eps0, float alpha0,
-                               const float* im, int im_per_chain, float thr,
-                               int dim, int C, int L, float* q_out,
-                               float* u_out, float* g_out, float* p_out,
-                               float* stats, int blocks, int points,
-                               int row_stride, int smem, int chains,
-                               void* stream) {
-  const Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain,
-                               thr, dim, C, L);
-  const Rand R = {noise, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem, chains};
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)with_model(model, y, s2, J, [&](auto pg) {
-    return launch_transition(P, pg, R, G, s, q, u, g, p, q_out, u_out, g_out,
-                             p_out, stats);
-  });
-}
-
-// Kernel 6 on a potential with no data matrix (`model`, y, s2, J as
-// ghmc_transition_pot_launch's; the others as ghmc_segment_launch's).
-int ghmc_segment_pot_launch(const float* q, const float* u, const float* g,
-                            const float* p, const float* noise,
-                            const float* ua, int use_seed, unsigned int seed,
-                            int num_draws, int model, const float* y,
-                            const float* s2, int J, const float* eps,
-                            const float* alpha, float eps0, float alpha0,
-                            const float* im, int im_per_chain, float thr,
-                            int dim, int C, int L, float* pos, float* stats,
-                            float* q_out, float* u_out, float* g_out,
-                            float* p_out, int blocks, int points,
-                            int row_stride, int smem, int chains,
-                            void* stream) {
-  const Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain,
-                               thr, dim, C, L);
-  const Rand R = {noise, ua, seed, use_seed};
-  const Geometry G = {blocks, points, row_stride, smem, chains};
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (num_draws < 1) return (int)cudaErrorInvalidValue;
-  return (int)with_model(model, y, s2, J, [&](auto pg) {
-    return launch_segment(P, pg, R, num_draws, G, s, q, u, g, p, pos, stats,
-                          q_out, u_out, g_out, p_out);
-  });
-}
-
-// Blocks one SM holds of kernel 5 (segment 0) or kernel 6 (segment 1) with
-// the functor of `model` at smem bytes of shared memory a block, or -1.
-int ghmc_pot_blocks_per_sm(int model, int segment, int smem) {
-  int n = -1;
-  with_model(model, nullptr, nullptr, 0, [&](auto pg) {
-    using PG = decltype(pg);
-    n = segment ? blocks_per_sm(segment_kernel<PG, false, false>, smem)
-                : blocks_per_sm(transition_kernel<PG, false, false, false>,
-                                smem);
-    return cudaSuccess;
-  });
-  return n;
 }
 
 }  // extern "C"

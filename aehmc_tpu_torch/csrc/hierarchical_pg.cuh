@@ -1,9 +1,6 @@
 // The potentials and gradients of Neal's funnel and of non-centred eight
 // schools as device functors, the template parameter of the NUTS kernels 1
-// and 2 (nuts_core.cuh, nuts_fused_small.cu) and of the HMC kernels 5, 6
-// and 7 (hmc_core.cuh, ghmc_fused.cu, chees_fused.cu) beside LogisticPGT.
-// Their launchers name them by a model number (with_model, below), one
-// table for both cores.
+// and 2 (nuts_core.cuh, nuts_fused_small.cu) beside LogisticPGT.
 //
 // They compute in float32 what the builders of
 // aehmc_tpu/models/hierarchical.py compute (neals_funnel_pg_t, :114;
@@ -41,16 +38,13 @@ struct PotScratch {
 };
 
 // What the two functors share: 8 chains a block (one a warp), the scratch,
-// no X tile in the launch plan's geometry, and nothing to request at block
-// entry or to wait for before the block exits (the HMC core's hooks).
+// and no X tile in the launch plan's geometry.
 struct NoTilePG {
   static constexpr int CB = 8;
   using Scratch = PotScratch;
   static __device__ PotScratch carve_scratch(float* base, int) {
     return PotScratch{base};
   }
-  __device__ void request(const PotScratch&) const {}
-  __device__ void drain(const PotScratch&) const {}
   static bool no_tile(const Geometry& G) {
     return G.points == 0 && G.row_stride == 0;
   }
@@ -130,20 +124,5 @@ struct EightSchoolsPG : NoTilePG {
     __syncwarp();
   }
 };
-
-// Potentials with no data matrix, by number in the launchers' `model`
-// argument (aehmc_tpu_torch/ops/nuts_fused_small.py:_MODEL_NUMBERS):
-// 1 Neal's funnel, 2 eight schools (data y, σ² of J entries each; the
-// funnel takes none).
-enum Model { FUNNEL = 1, EIGHT_SCHOOLS = 2 };
-
-// f(pg), pg the functor of `model`; an invalid value for another number.
-template <class F>
-cudaError_t with_model(int model, const float* y, const float* s2, int J,
-                       F&& f) {
-  if (model == FUNNEL) return f(FunnelPG{});
-  if (model == EIGHT_SCHOOLS) return f(EightSchoolsPG{{}, y, s2, J});
-  return cudaErrorInvalidValue;
-}
 
 }  // namespace aehmc

@@ -6,22 +6,21 @@
 // ChEES is this transition at α 0, with no momentum carried between calls.
 //
 // Template parameters of the kernels:
-//   PG: the potential's device functor: LogisticPGT (logistic_pg.cuh),
-//     FunnelPG and EightSchoolsPG (hierarchical_pg.cuh, the *_pot_* entry
-//     points of ghmc_fused.cu and chees_fused.cu), or a GenericPG generated
-//     from a potential's traced gradient graph (generic_pg.cuh,
+//   PG: the potential's device functor: LogisticPGT (logistic_pg.cuh;
+//     ghmc_fused.cu, chees_fused.cu), or a GenericPG generated from any
+//     other potential's traced gradient graph (generic_pg.cuh,
 //     hmc_generic.cu).  The contract is the NUTS core's (nuts_core.cuh):
 //     PG::Scratch with the block's potentials `nu`, PG::carve_scratch(base,
 //     ds) after the core's rows, pg.fits(dim, geometry) for the launch
 //     checks, and operator()(scratch, dim, ds, q, grad, more), which the
 //     whole block calls and which leaves each chain's gradient row and
 //     potential ordered before the chain's warp reads them (a block barrier
-//     in the logistic functor, a __syncwarp in the others, whose warp
-//     computes its own chain).  Two hooks besides: pg.request(scratch) at
-//     block entry and pg.drain(scratch) before the block exits, which
+//     in the logistic functor, a __syncwarp in the generated one, whose
+//     warp computes its own chain).  Two hooks besides: pg.request(scratch)
+//     at block entry and pg.drain(scratch) before the block exits, which
 //     LogisticPGT uses to start X's first chunk early and to wait for a
-//     chunk requested and never used; they do nothing in the functors with
-//     no X tile.
+//     chunk requested and never used; they do nothing in GenericPG, which
+//     has no X tile.
 //   STD: the global layout.  false: q, ∇U, p, ξ and a per-chain M⁻¹
 //     (dim, C), stats (8, C) (GHMC); true: (C, dim) and (C, 8) (ChEES).  It
 //     reaches only the global-memory accessors.
@@ -37,18 +36,18 @@
 // functor's register tiles are fed from shared memory (logistic_pg.cuh),
 // and around them, in a launch of one gradient (kernel 5), the block's
 // fixed work: its state in and out, the momentum draw, the accept test.
-// The hierarchical functors' gradients are a few dozen flops a chain, so
-// the core's own work and its state I/O bound them; a generated functor's
-// are its contractions, one warp a chain, on operands from L2 (generic_pg.py).
+// A generated functor's gradients are its contractions, one warp a chain,
+// on operands from L2 (generic_pg.py); at the hierarchical models' few
+// dozen flops a chain the core's own work and the launch bound them.
 //
 // Design.  One warp per chain, CB = 8 chains per block (16 chains a block,
 // two a warp, was measured slower at 10,240 chains: the grid's last round of
 // blocks runs 42% full; PERF.md §6), the potential computed by the whole
 // block for its 8 chains at once (the logistic functor) or by each chain's
-// warp (the others).  Every chain of a call takes the same L, so no warp
-// idles.  L is a host int (GHMC) or read from a device int32
-// (ChEES, whose driver computes clip(ceil(jitter·h/ε), 1, max) on the card,
-// so nothing synchronises the stream).  ε and α are per chain, or host
+// warp (the generated one).  Every chain of a call takes the same L, so no
+// warp idles.  L is a host int (GHMC) or read from a device int32 (ChEES,
+// whose driver computes clip(ceil(jitter·h/ε), 1, max) on the card, so
+// nothing synchronises the stream).  ε and α are per chain, or host
 // scalars passed with the launch (no fill on the card).  A block keeps q,
 // ∇U, p, the trajectory's q, p, ∇U, a scratch row and the diagonal M⁻¹ of
 // its chains in shared memory, 8 rows of dim floats per chain, then the
@@ -58,11 +57,12 @@
 // state in and out together, consecutive threads on consecutive addresses
 // in either layout (in the (dim, C) layout a warp takes 4 rows × the
 // block's 8 chains), not a warp a chain: in the (dim, C) layout that read
-// 32 rows apart at each load, and kernel 5 waited on it (PERF.md §6).  The tile of X is never
-// idle while a request can be made: a kernel requests X's first chunk at
-// block entry, before it loads its state and draws its momentum, and each
-// gradient but a launch's last requests the next one's first chunk as soon
-// as its own tile is read, so it arrives during the leapfrog update.  The
+// 32 rows apart at each load, and kernel 5 waited on it (PERF.md §6).  The
+// tile of X is never idle while a request can be made: a kernel requests
+// X's first chunk at block entry, before it loads its state and draws its
+// momentum, and each gradient but a launch's last requests the next one's
+// first chunk as soon as its own tile is read, so it arrives during the
+// leapfrog update.  The
 // segment kernel keeps the state across its draws and writes each draw's
 // positions (a chain's row contiguous, so the warp's store is coalesced)
 // and stats.  The kinetic energy is a warp sum in a fixed order and
@@ -484,7 +484,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 
 // Checks a launch's sizes, and with the functor pg its own operands and
 // shared memory (pg.fits: the logistic functor's X and tile, nothing of X
-// for the others), and launches `kernel` on the plan's blocks.
+// for the generated one), and launches `kernel` on the plan's blocks.
 template <class PG, typename... KArgs, typename... Args>
 cudaError_t launch(void (*kernel)(KArgs...), const Params& P, const PG& pg,
                    const Geometry& G, cudaStream_t stream, Args&&... args) {

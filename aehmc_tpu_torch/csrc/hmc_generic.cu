@@ -17,13 +17,13 @@
 // (ops/_build.py:load_generated) compiles both with AEHMC_GENERIC_PG naming
 // the generated functor's file into one library per functor text, so a
 // potential bound once serves kernels 1-7.  Its entry points mirror
-// ghmc_*_pot_launch (ghmc_fused.cu) and chees_transition_pot_launch
-// (chees_fused.cu), with the potential named by nuts_generic.cu's table of
-// data pointers and lengths and its global workspace (generic_pg.cuh)
-// instead of a model number.  The functor's workspace goes to shared
-// memory or to the global buffer as the functor itself says (WS_SHARED,
-// fixed when it was emitted); the launch plan sizes shared memory the same
-// way (ops/launch_plan.py).  The plain PyTorch versions are
+// ghmc_transition_launch, ghmc_segment_launch (ghmc_fused.cu) and
+// chees_transition_launch (chees_fused.cu), with the potential named by
+// nuts_generic.cu's table of data pointers and lengths and its global
+// workspace (generic_pg.cuh) instead of X and y.  The functor's workspace
+// goes to shared memory or to the global buffer as the functor itself says
+// (WS_SHARED, fixed when it was emitted); the launch plan sizes shared
+// memory the same way (ops/launch_plan.py).  The plain PyTorch versions are
 // ops/ghmc_fused.py and ops/chees_fused.py with ops/generic_pg.py:run_plain
 // for the potential.
 
@@ -64,7 +64,7 @@ extern "C" {
 // (im_per_chain); stats (8, C).  ptrs, lens: the ndata data operands
 // (device pointers, lengths in floats); ws: the global workspace (blocks ×
 // 8 × W floats) or null when the functor keeps it in shared memory.  The
-// other arguments as ghmc_transition_pot_launch's; the plan's points and
+// other arguments as ghmc_transition_launch's; the plan's points and
 // row_stride are 0 (no tile).
 int ghmc_transition_generic_launch(
     const float* q, const float* u, const float* g, const float* p,

@@ -65,6 +65,19 @@ cudaError_t sampling_any(const Params& P, const PG& pg,
                          g_out, stream);
 }
 
+// Potentials with no data matrix, by number: 1 Neal's funnel, 2 eight
+// schools (data y, σ² of J entries each; the funnel takes none).
+enum Model { FUNNEL = 1, EIGHT_SCHOOLS = 2 };
+
+// f(pg), pg the functor of `model`; an invalid value for another number.
+template <class F>
+cudaError_t with_model(int model, const float* y, const float* s2, int J,
+                       F&& f) {
+  if (model == FUNNEL) return f(FunnelPG{});
+  if (model == EIGHT_SCHOOLS) return f(EightSchoolsPG{{}, y, s2, J});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {

@@ -53,8 +53,6 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # the launch plan (blocks, points a chunk, X's row stride, shared memory,
 # chains a block), then the stream
 _GEOMETRY = [_I] * 5 + [_P]
-# a potential with no data matrix: model number, y, σ², J
-_MODEL = [_I, _P, _P, _I]
 # a generated functor: data pointers, lengths, their count, the workspace
 _TABLE = [_P, _P, _I, _P]
 # kernels 5 and 6 after the potential: eps, alpha rows, their scalars, M⁻¹,
@@ -89,9 +87,6 @@ SIGNATURES = {
         "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P, _I] + [_P] * 4
         + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
         "chees_blocks_per_sm": [_I] * 4,
-        "chees_transition_pot_launch": [_P] * 5 + [_I, _U] + _MODEL
-        + _CHEES_PARAMS + [_P] * 6 + _GEOMETRY,
-        "chees_pot_blocks_per_sm": [_I] * 3,
     },
     "ghmc_fused.cu": {
         "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 3
@@ -99,11 +94,6 @@ SIGNATURES = {
         "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 3
         + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
         "ghmc_blocks_per_sm": [_I] * 4,
-        "ghmc_transition_pot_launch": [_P] * 6 + [_I, _U] + _MODEL
-        + _GHMC_PARAMS + [_P] * 5 + _GEOMETRY,
-        "ghmc_segment_pot_launch": [_P] * 6 + [_I, _U, _I] + _MODEL
-        + _GHMC_PARAMS + [_P] * 6 + _GEOMETRY,
-        "ghmc_pot_blocks_per_sm": [_I] * 3,
     },
     "fused_hmc.cu": {
         "fused_hmc_launch": [_P] * 5 + [_F, _I, _F, _I, _I, _I] + [_P] * 2
@@ -135,6 +125,10 @@ GENERIC_SIGNATURES = {
 # every library was already built; ptxas_log() reads every build's)
 BUILD_INFO = {}
 _libs = {}  # source -> loaded library
+# generated functor text -> loaded library: the wrappers look a potential's
+# library up at every launch, and its path hashes the headers read from
+# disk (2.2 ms a launch on an H100 machine's host, PERF.md §6)
+_generated_libs = {}
 
 
 def _nvcc() -> str:
@@ -252,18 +246,17 @@ def load_generated(text: str) -> ctypes.CDLL:
     """Build (once per text) and load the kernels 1-7 on a generated functor
     (``csrc/nuts_generic.cu`` and ``csrc/hmc_generic.cu`` with ``text`` in
     their include slot, one library)."""
-    path = generated_path(text)
-    if path not in _libs:
+    if text not in _generated_libs:
         _build_missing((), (text,))
-        lib = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(generated_path(text)))
         for name, argtypes in GENERIC_SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
-        _libs[path] = lib
-    return _libs[path]
+        _generated_libs[text] = lib
+    return _generated_libs[text]
 
 
 def generated_ptxas_log(text: str) -> str:

@@ -1,8 +1,7 @@
 """Fused ChEES-HMC transition: the plain PyTorch version and the wrapper of
 kernel 7 (``csrc/chees_fused.cu``, ``csrc/hmc_generic.cu``), the
-``kernel_fn`` adapter of
-:mod:`aehmc_tpu_torch.chees`, and the one-call driver (port of
-:mod:`aehmc_tpu.ops.chees_fused`).
+``kernel_fn`` adapter of :mod:`aehmc_tpu_torch.chees`, and the one-call
+driver (port of :mod:`aehmc_tpu.ops.chees_fused`).
 
 A transition draws a momentum ``p ~ N(0, M)``, takes ``num_steps``
 velocity-Verlet steps, all chains the same number, and accepts by
@@ -18,11 +17,10 @@ GHMC streams (:func:`aehmc_tpu_torch.ops.philox.ghmc_streams`).
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The kernel computes
 the potential in the device functor the GHMC kernels take
-(:func:`aehmc_tpu_torch.ops.nuts_fused_small._card_functor`): the logistic
-regression's, the funnel's or eight schools', or one generated from any
-other float32 potential's traced gradient graph; launches count as
-``chees_transition`` and its ``_funnel``, ``_eight_schools`` and
-``_generic`` names.  On the card
+(:func:`aehmc_tpu_torch.ops.functors.card_functor`): the logistic
+regression's, or one generated from any other float32 potential's traced
+gradient graph; launches count as ``chees_transition`` and
+``chees_transition_generic``.  On the card
 ``num_steps`` may be a device int32, read by the kernel, so the driver's
 trip count never synchronises the stream.  ``shard_fused_chees_transition``
 (a mesh) is ROADMAP.md item 1.12.
@@ -34,6 +32,7 @@ import torch
 
 from aehmc_tpu_torch import chees
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.functors import HMC_CORE, card_functor
 from aehmc_tpu_torch.ops.ghmc_fused import (
     _row,
     _hmc_launcher,
@@ -46,7 +45,6 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     _clamped,
     _mass_sqrt,
     _pot_grad_builder_t,
-    _card_functor,
     derive_draw_seeds,
 )
 from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
@@ -330,18 +328,6 @@ def sample_fused_chees_adaptive(
 
 # ---------------------------------------------------------------- CUDA ----
 
-def _check_cuda_args(potential_and_grad_t, data, q,
-                     potential_fn_t=None) -> str:
-    """The functor kernel 7 runs the potential on, for chains ``q (C,
-    dim)``: "logistic", "funnel", "eight_schools" or "generic", a functor
-    bound from the transposed ``potential_and_grad_t`` or ``potential_fn_t``
-    (:func:`_card_functor`; it raises only for what no functor takes:
-    chains or data that are not float32, an op outside the potential
-    compiler's table, naming it and ROADMAP.md item 1.10c, a potential that
-    mixes chains)."""
-    return _card_functor(potential_fn_t, potential_and_grad_t, data, q.T)[0]
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -366,14 +352,15 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
                           potential_fn_t=None):
     """Launch kernel 7 (``chees_transition``) on CUDA tensors in the
     ``(chains, dim)`` layout, with the functor of the potential
-    (:func:`_check_cuda_args`: the logistic one by default).
+    (:func:`functors.card_functor` on :data:`functors.HMC_CORE`: the
+    logistic one by default).
     ``step_size`` is one value or ``(C,)``, and reaches the kernel as
     ``(C,)``; ``num_steps`` an int or an int32 (device) scalar.  Returns
     ``(q, u (C, 1), g, stats (C, 8), q_proposed, v_proposed)``."""
     from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
-    functor, bound, suffix = _card_functor(
-        potential_fn_t, potential_and_grad_t, data, q.T)
+    functor, bound, suffix = card_functor(
+        potential_fn_t, potential_and_grad_t, data, q.T, HMC_CORE)
     num_chains, dim = q.shape
     device = q.device
     im = torch.as_tensor(inverse_mass, dtype=torch.float32, device=device)

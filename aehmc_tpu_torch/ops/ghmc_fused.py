@@ -21,14 +21,14 @@ taking the key ``seed + t·DRAW_SEED_STRIDE``.
 Dispatch is by the device of the chain state: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel or raises.  The kernels compute
 the potential in a device functor, as the NUTS kernels do
-(:func:`aehmc_tpu_torch.ops.nuts_fused_small._card_functor`): the
-hand-written ones of the logistic regression (:func:`models.logistic_pg_t`,
-float32 or bfloat16 X), Neal's funnel (:func:`models.funnel_pg_t`) and
-eight schools (:func:`models.schools_pg_t`), and for any other float32
-potential, given as ``potential_and_grad_t`` or ``potential_fn_t``, one
-generated from its traced gradient graph (:mod:`aehmc_tpu_torch.ops.
-generic_pg`).  Launches count per functor: ``ghmc_transition``,
-``ghmc_transition_funnel``, ``..._eight_schools``, ``..._generic``.
+(:func:`aehmc_tpu_torch.ops.functors.card_functor`): the hand-written one
+of the logistic regression (:func:`models.logistic_pg_t`, float32 or
+bfloat16 X), and for any other float32 potential, given as
+``potential_and_grad_t`` or ``potential_fn_t``, one generated from its
+traced gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`), the funnel
+and eight schools included.  Launches count per functor:
+``ghmc_transition`` and ``ghmc_transition_generic``, ``ghmc_segment`` and
+``ghmc_segment_generic``.
 
 :func:`make_fused_meads_transition` and :func:`make_fused_meads_segment`
 adapt the two kernels to the MEADS fold contract
@@ -43,14 +43,13 @@ import torch
 
 from aehmc_tpu_torch import keys
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.functors import HMC_CORE, card_functor
 from aehmc_tpu_torch.ops.launch_plan import data_rows, launch_plan
 from aehmc_tpu_torch.ops.launches import LAUNCHES
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE, NEG_INF
 from aehmc_tpu_torch.ops.nuts_fused_small import (
-    _MODEL_NUMBERS,
     _clamped,
     _pot_grad_builder_t,
-    _card_functor,
 )
 from aehmc_tpu_torch.ops.philox import MASK32, ghmc_streams
 from aehmc_tpu_torch.types import Diagnostics
@@ -170,16 +169,6 @@ def ghmc_segment_plain(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
         stats.append(st)
     pos = torch.stack(positions) if collect_positions else None
     return pos, torch.stack(stats), q_t, u, g_t, p_t
-
-
-def _check_cuda_args(potential_and_grad_t, data, q_t,
-                     potential_fn_t=None) -> str:
-    """The functor kernels 5 and 6 run the potential on: "logistic",
-    "funnel", "eight_schools" or "generic" (:func:`_card_functor`, which
-    raises only for what no functor takes: chains or data that are not
-    float32, an op outside the potential compiler's table, naming it and
-    ROADMAP.md item 1.10c, a potential that mixes chains)."""
-    return _card_functor(potential_fn_t, potential_and_grad_t, data, q_t)[0]
 
 
 def _to_kernel_layout(transposed_io: bool) -> Callable:
@@ -486,10 +475,8 @@ def _row_or_scalar(x, num_chains, device):
 def _potential_operands(functor, data, dim, device):
     """The potential's operands of an HMC-core launch (kernels 5-7) and X's
     type: the logistic functor's y as a float32 ``(N,)`` row (X checked:
-    float32 or bfloat16, ``(N, dim)``), eight schools' y and σ² as float32
-    ``(J,)`` rows, J = dim − 2; none for the funnel (its dummy row is not
-    read) and for a generated functor (its data table is built at the
-    launch, :func:`generic_pg.launch_operands`)."""
+    float32 or bfloat16, ``(N, dim)``); none for a generated functor (its
+    data table is built at the launch, :func:`generic_pg.launch_operands`)."""
     from aehmc_tpu_torch.ops._build import require_f32_cuda, require_x_cuda
 
     ops, x_dtype = {}, torch.float32
@@ -500,10 +487,6 @@ def _potential_operands(functor, data, dim, device):
         ops["y"] = y.reshape(num_points)
         require_f32_cuda("y", ops["y"], (num_points,), device)
         x_dtype = X.dtype
-    elif functor == "eight_schools":
-        ops["y"], ops["s2"] = (d.reshape(-1) for d in data)
-        for name in ("y", "s2"):
-            require_f32_cuda(name, ops[name], (dim - 2,), device)
     return ops, x_dtype
 
 
@@ -512,9 +495,8 @@ def _hmc_launcher(kernel, functor, bound, data, ops, plan, dim, num_chains,
     """``(library, launcher, potential arguments, sizes, tensors to keep
     alive)`` of ``kernel`` ("ghmc_transition", "ghmc_segment" or
     "chees_transition") on ``functor``: the logistic entry point (X, its
-    type, y; sizes dim, N, C), the ``*_pot_*`` one of a functor with no X
-    (model number, y, σ², J; dim, C), or the generated functor's in its
-    own library (``*_generic_*``: the data table and workspace; dim, C)."""
+    type, y; sizes dim, N, C), or the generated functor's in its own
+    library (``*_generic_*``: the data table and workspace; dim, C)."""
     from aehmc_tpu_torch.ops._build import load_kernels
 
     if functor == "generic":
@@ -526,15 +508,10 @@ def _hmc_launcher(kernel, functor, bound, data, ops, plan, dim, num_chains,
                 (dim, num_chains), keep)
     lib = load_kernels("chees_fused.cu" if kernel.startswith("chees")
                        else "ghmc_fused.cu")
-    if functor == "logistic":
-        X = ops["X"]
-        return (lib, getattr(lib, f"{kernel}_launch"),
-                (_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
-                (dim, X.shape[0], num_chains), None)
-    y, s2 = ops.get("y"), ops.get("s2")
-    return (lib, getattr(lib, f"{kernel}_pot_launch"),
-            (_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
-             0 if y is None else y.numel()), (dim, num_chains), None)
+    X = ops["X"]
+    return (lib, getattr(lib, f"{kernel}_launch"),
+            (_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
+            (dim, X.shape[0], num_chains), None)
 
 
 def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
@@ -593,12 +570,13 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
                          potential_and_grad_t=logistic_pg_t,
                          potential_fn_t=None):
     """Launch kernel 5 (``ghmc_transition``) on CUDA tensors with the
-    functor of the potential (:func:`_check_cuda_args`: the logistic one by
-    default); returns ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
+    functor of the potential (:func:`functors.card_functor` on
+    :data:`functors.HMC_CORE`: the logistic one by default); returns
+    ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
     from aehmc_tpu_torch.ops._build import check_launch
 
-    functor, bound, suffix = _card_functor(
-        potential_fn_t, potential_and_grad_t, data, q_t)
+    functor, bound, suffix = card_functor(
+        potential_fn_t, potential_and_grad_t, data, q_t, HMC_CORE)
     ops, scalars, per_chain, plan, (dim, num_chains) = _cuda_operands(
         q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data, functor,
         bound)
@@ -638,8 +616,8 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
     ``(draws, 8, C)``."""
     from aehmc_tpu_torch.ops._build import check_launch
 
-    functor, bound, suffix = _card_functor(
-        potential_fn_t, potential_and_grad_t, data, q_t)
+    functor, bound, suffix = card_functor(
+        potential_fn_t, potential_and_grad_t, data, q_t, HMC_CORE)
     ops, scalars, per_chain, plan, (dim, num_chains) = _cuda_operands(
         q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data, functor,
         bound)

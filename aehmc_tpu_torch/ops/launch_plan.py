@@ -16,9 +16,9 @@ zero past ``dim``.
 
 The potentials of Neal's funnel and of eight schools are functors with no
 data matrix (``csrc/hierarchical_pg.cuh``), taken by the NUTS kernels 1 and
-2 and the HMC kernels 5-7: their scratch is the block's potentials alone,
-so their plan has no tile (``points`` and ``row_stride`` 0) and 8 chains a
-block (``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
+2: their scratch is the block's potentials alone, so their plan has no tile
+(``points`` and ``row_stride`` 0) and 8 chains a block
+(``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
 functor generated from a potential's traced gradient graph
 (``functor="generic"``, ``csrc/generic_pg.cuh``), in kernels 1-7: its
 scratch adds a per-chain workspace of ``workspace`` floats, kept in shared
@@ -73,9 +73,12 @@ X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # the potential's device functor -> whether it reads a data matrix X through
 # a shared tile (logistic_pg.cuh) or keeps only the block's potentials (and
 # a generated functor's workspace) in its scratch (hierarchical_pg.cuh,
-# generic_pg.cuh: the NUTS and HMC cores, not the fused leapfrog kernel)
+# generic_pg.cuh)
 FUNCTORS = {"logistic": True, "funnel": False, "eight_schools": False,
             "generic": False}
+# the cores instantiated on a functor with no X tile
+NO_TILE_CORES = {"funnel": ("nuts",), "eight_schools": ("nuts",),
+                 "generic": ("nuts", "hmc")}
 
 
 def scratch_floats(chains: int) -> int:
@@ -190,9 +193,10 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
     if functor not in FUNCTORS:
         raise ValueError(f"unknown functor {functor!r}; expected one of "
                          f"{sorted(FUNCTORS)}")
-    if not FUNCTORS[functor] and core == "fused_hmc":
-        raise ValueError(f"the {functor} functor runs in the NUTS and HMC "
-                         f"kernels, not in {core!r}")
+    if not FUNCTORS[functor] and core not in NO_TILE_CORES[functor]:
+        cores = " and ".join(c.upper() for c in NO_TILE_CORES[functor])
+        raise ValueError(f"the {functor} functor runs in the {cores} "
+                         f"kernels only, not in {core!r}")
     if x_dtype not in X_BYTES:
         raise ValueError(f"X is float32 or bfloat16, got {x_dtype}")
     if dim < 1 or num_chains < 1:

@@ -2,8 +2,8 @@
 
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else, so a run can show that its path went through the kernels.
-Kernels 1, 2 and 5-7 count each device functor apart: ``nuts_transition``,
-``ghmc_segment``, ... with the logistic potential, the ``_funnel`` and
+Kernels 1 and 2 count each device functor apart: ``nuts_transition`` and
+``nuts_sampling`` with the logistic potential, the ``_funnel`` and
 ``_eight_schools`` names with the hierarchical ones; kernels 1-7 count
 their launches on a generated functor under ``_generic`` names.
 """
@@ -24,12 +24,6 @@ LAUNCHES = {
     "chees_transition": 0,
     "ghmc_transition": 0,
     "ghmc_segment": 0,
-    "chees_transition_funnel": 0,
-    "ghmc_transition_funnel": 0,
-    "ghmc_segment_funnel": 0,
-    "chees_transition_eight_schools": 0,
-    "ghmc_transition_eight_schools": 0,
-    "ghmc_segment_eight_schools": 0,
     "chees_transition_generic": 0,
     "ghmc_transition_generic": 0,
     "ghmc_segment_generic": 0,

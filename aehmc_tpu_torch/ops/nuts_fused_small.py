@@ -12,8 +12,8 @@ under the JAX module's names.
 Dispatch is by the device of the chain state and nothing else: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.  The
 kernels compute the potential and gradient in their own body, a device
-functor.  Three are hand-written, picked by the identity of
-``potential_and_grad_t``: the logistic regression's
+functor (:mod:`aehmc_tpu_torch.ops.functors`).  Three are hand-written,
+picked by the identity of ``potential_and_grad_t``: the logistic regression's
 (:func:`aehmc_tpu_torch.models.logistic_pg_t`, with float32 or bfloat16
 operands as X's dtype says; the model builder's default is bfloat16, as in
 the JAX package), Neal's funnel's (:func:`aehmc_tpu_torch.models.funnel_pg_t`)
@@ -36,8 +36,13 @@ from typing import Callable, Sequence
 
 import torch
 
-from aehmc_tpu_torch.models.hierarchical import funnel_pg_t, schools_pg_t
 from aehmc_tpu_torch.models.regression import logistic_pg_t
+from aehmc_tpu_torch.ops.functors import (
+    MODEL_NUMBERS,
+    card_functor,
+    generic_bound,
+    hand_written,
+)
 from aehmc_tpu_torch.ops.launch_plan import (
     checkpoint_floats,
     data_rows,
@@ -326,76 +331,13 @@ def _step_size_row(step_size, num_chains, dtype, device) -> torch.Tensor:
     return eps.reshape(1, num_chains)
 
 
-# the potential+gradient functions whose device functor kernels 1, 2 and
-# 5-7 hold -> (the functor in the launch plan, its data tensors, the suffix
-# of its launch counts)
-_CUDA_FUNCTORS = (
-    (logistic_pg_t, "logistic", ("X", "Xᵀ", "y_col"), ""),
-    (funnel_pg_t, "funnel", ("a (1, 1) dummy row",), "_funnel"),
-    (schools_pg_t, "eight_schools", ("y_col", "sig2_col"), "_eight_schools"),
-)
-# the number of a functor with no X in the *_pot_* launchers of kernels 1,
-# 2 and 5-7 (csrc/hierarchical_pg.cuh: with_model)
-_MODEL_NUMBERS = {"funnel": 1, "eight_schools": 2}
-
-
-# the generated functor's entry in the same form
-_GENERIC = ("generic", (), "_generic")
-
-
-def _cuda_functor(potential_and_grad_t):
-    """``(functor, data, count suffix)`` of a potential the kernels hold in a
-    hand-written functor, found by identity; the generated functor's for any
-    other."""
-    for fn, *functor in _CUDA_FUNCTORS:
-        if fn is potential_and_grad_t:
-            return functor
-    return _GENERIC
-
-
-def _generic_bound(potential_fn_t, potential_and_grad_t, data, q_t):
-    """The generated functor of the potential (:func:`generic_pg.bind`,
-    cached): ``potential_and_grad_t`` traced as it stands, else
-    ``potential_fn_t`` with its gradient."""
-    from aehmc_tpu_torch.ops.generic_pg import bind
-
-    fn = potential_and_grad_t or potential_fn_t
-    if fn is None:
-        raise ValueError("no potential: pass potential_fn_t or "
-                         "potential_and_grad_t")
-    return bind(fn, data, q_t.shape[0], layout="t",
-                with_grad=potential_and_grad_t is None, device=q_t.device)
-
-
-def _card_functor(potential_fn_t, potential_and_grad_t, data, q_t):
-    """The device functor that runs a potential on the card, for the NUTS
-    kernels 1 and 2 and the HMC kernels 5-7 alike: ``(name, bound, count
-    suffix)``, ``name`` a hand-written functor's (found by the identity of
-    ``potential_and_grad_t``) or "generic", ``bound`` the generated functor
-    (:func:`_generic_bound`, traced on ``q_t``'s ``(dim, ·)`` column) or
-    None.  Raises only for what no functor takes: ``TypeError`` for chains
-    or data that are not float32, ``ValueError`` for a hand-written
-    functor's data of another count or a potential that mixes chains, and
-    ``NotImplementedError`` naming an op outside the compiler's table
-    (ROADMAP.md item 1.10c)."""
-    name, layout, suffix = _cuda_functor(potential_and_grad_t)
-    if q_t.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")
-    if name == "generic":
-        return name, _generic_bound(potential_fn_t, potential_and_grad_t,
-                                    data, q_t), suffix
-    if len(data) != len(layout):
-        raise ValueError(f"{name} data is ({', '.join(layout)})")
-    return name, None, suffix
-
-
 def _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
                      potential_fn_t=None) -> str:
-    """Raise for what kernels 1 and 2 do not take (:func:`_card_functor`,
-    and a per-chain ε of the wrong shape, type or device); return the
-    functor: a hand-written one's name, or "generic" for a potential bound
-    to a generated functor."""
-    name = _card_functor(potential_fn_t, potential_and_grad_t, data, q_t)[0]
+    """Raise for what kernels 1 and 2 do not take
+    (:func:`functors.card_functor`, and a per-chain ε of the wrong shape,
+    type or device); return the functor: a hand-written one's name, or
+    "generic" for a potential bound to a generated functor."""
+    name = card_functor(potential_fn_t, potential_and_grad_t, data, q_t)[0]
     _eps_row(step_size, q_t)
     return name
 
@@ -774,7 +716,7 @@ def _potential_args(ops, functor, dim, num_chains, max_exp, generic=None):
         return ((_ptr(X), int(X.dtype == torch.bfloat16), _ptr(ops["y"])),
                 (dim, X.shape[0], num_chains, max_exp))
     y, s2 = ops.get("y"), ops.get("s2")
-    return ((_MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
+    return ((MODEL_NUMBERS[functor], _ptr(y), _ptr(s2),
              0 if y is None else y.numel()), (dim, num_chains, max_exp))
 
 
@@ -814,7 +756,7 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
                                potential_fn_t)
     eps_row = _eps_row(step_size, q_t)
     eps = 0.0 if eps_row is not None else float(step_size)
-    bound = (_generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
+    bound = (generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
              if functor == "generic" else None)
     ops, dense, mass_sqrt, plan = _cuda_operands(
         q_t, u, g_t, inverse_mass, data, max_exp, functor, bound)
@@ -848,7 +790,7 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
     )
     check_launch(lib, err, "nuts_transition")
     del keep
-    LAUNCHES["nuts_transition" + _cuda_functor(potential_and_grad_t)[2]] += 1
+    LAUNCHES["nuts_transition" + hand_written(potential_and_grad_t)[2]] += 1
     return q_out, u_out, g_out, stats
 
 
@@ -873,7 +815,7 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
                                potential_fn_t)
     eps_row = _eps_row(step_size, q_t)
     eps = 0.0 if eps_row is not None else float(step_size)
-    bound = (_generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
+    bound = (generic_bound(potential_fn_t, potential_and_grad_t, data, q_t)
              if functor == "generic" else None)
     ops, dense, mass_sqrt, plan = _cuda_operands(
         q_t, u0, g0_t, inverse_mass, data, max_exp, functor, bound)
@@ -901,6 +843,6 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
     )
     check_launch(lib, err, "nuts_sampling")
     del keep
-    LAUNCHES["nuts_sampling" + _cuda_functor(potential_and_grad_t)[2]] += 1
+    LAUNCHES["nuts_sampling" + hand_written(potential_and_grad_t)[2]] += 1
     pos_t = None if pos is None else pos.permute(0, 2, 1)
     return pos_t, stats, q_out, u_out, g_out

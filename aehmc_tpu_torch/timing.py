@@ -23,6 +23,12 @@ wrapper's host time a call (:func:`host_ms`) and back-to-back calls
 (:func:`cuda_ms`, which reads the larger of the two), and prints them as one
 JSON line; nothing else is timed.
 
+``--schools-doors`` times eight schools' ChEES and MEADS front doors on
+``models.schools_pg_t`` (chip_smoke phase 43's cell: 2,048 chains, 500 +
+500), each three times in one process, the third under ``cProfile``, and
+prints their walls and the profile's top entries (the host's share of a
+front door whose kernels take microseconds); nothing else is timed.
+
 ``--outputs PATH`` also writes the outputs of kernels 1-8 at fixed seeds
 and inputs, float32 and with bfloat16 operands (kernels 1-7), to an
 ``.npz`` (a kernel a tree cannot run with bfloat16 data is left out), so
@@ -233,6 +239,53 @@ def ghmc_launch_only(gf, state, im, data):
     return lambda: lib.ghmc_transition_launch(*args)
 
 
+def schools_doors(card):
+    """Eight schools' ChEES and MEADS front doors, three runs each (the
+    first builds and binds, the third is profiled): walls, launches and
+    the profile's 25 top cumulative entries."""
+    import cProfile
+    import io
+    import pstats
+
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch import ops
+    from aehmc_tpu_torch.models import eight_schools, eight_schools_pg_t
+
+    lp = eight_schools(device="cuda")[0]
+    pot, pg, data, _ = eight_schools_pg_t(device="cuda")
+    q0 = torch.tensor(0.1 * np.random.default_rng(43).standard_normal(
+        (2048, 10)), dtype=torch.float32, device="cuda")
+
+    def run(algorithm, **kw):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(43), lp, q0, 500, 500,
+            algorithm=algorithm, path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, **kw)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0,
+                {k: v for k, v in ops.LAUNCHES.items() if v})
+
+    out = {"card": card}
+    for algorithm, kw in (("chees", {}),
+                          ("meads", dict(meads_recompute_every=8))):
+        walls = [run(algorithm, **kw)[0]]
+        wall, launches = run(algorithm, **kw)
+        walls.append(wall)
+        prof = cProfile.Profile()
+        prof.enable()
+        walls.append(run(algorithm, **kw)[0])
+        prof.disable()
+        text = io.StringIO()
+        pstats.Stats(prof, stream=text).sort_stats("cumulative").print_stats(
+            25)
+        out[algorithm] = dict(wall_s=walls, launches=launches,
+                              profile=text.getvalue())
+    return out
+
+
 def compare_outputs(path_a, path_b):
     """{"equal": [...], "differ": [...], "only_in_one": [...]} over the
     arrays of two ``--outputs`` files, compared bit for bit."""
@@ -255,6 +308,9 @@ def main(argv=None):
                         help="compare two --outputs files bit for bit")
     parser.add_argument("--leapfrog", action="store_true",
                         help="time kernel 9 alone, and nothing else")
+    parser.add_argument("--schools-doors", action="store_true",
+                        help="time and profile eight schools' ChEES and "
+                        "MEADS front doors, and nothing else")
     args = parser.parse_args(argv)
     if args.compare:
         print(json.dumps(compare_outputs(*args.compare)), flush=True)
@@ -282,6 +338,9 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     if args.leapfrog:
         print(json.dumps(leapfrog_times(card)), flush=True)
+        return 0
+    if args.schools_doors:
+        print(json.dumps(schools_doors(card)), flush=True)
         return 0
     _build.build_all()
     dev = torch.device("cuda")

@@ -101,34 +101,35 @@ logistic regression.  Then it drives the port's front door
   phase 38 the front door on a bare ``logprob_fn`` (the generic fused
   binding: 150 launches of ``nuts_transition_generic``, one of
   ``nuts_sampling_generic``), twice with one seed, equal bit for bit;
-- phases 39-43, any potential on the HMC core (kernels 5-7; the generated
-  functor in ``csrc/hmc_generic.cu``, ``FunnelPG`` and ``EightSchoolsPG``
-  through the ``*_pot_*`` entry points): phase 39 holds kernels 5 (α 0.9),
-  6 (32 draws, equal to 32 launches of kernel 5 bit for bit) and 7 (L 10)
-  on the flagship's generated functor at phases 8, 9 and 13's state
-  against their plain versions (``generic_pg.run_plain`` as the potential)
-  and against ``LogisticPGT``, kernel 7 at α 0 against kernel 5, and kernel
-  7 with a dense M⁻¹ on phase 37's mvn25 functor, and times each beside
-  ``LogisticPGT``; phase 40 holds kernels 5-7 on ``FunnelPG`` (8,192
-  chains, dim 10, from N(0, 1), ε 0.05) and ``EightSchoolsPG`` (2,048
-  chains, ε 0.2) against their plain versions and the generated functor of
-  the same potential, and times both; phase 41 runs the MALA, GHMC (α 0.9)
-  and ChEES front doors on the flagship's bare ``logprob_fn`` at phases 11,
-  12 and 14's cells, phase 42 MEADS at phase 24's and checkpointed at phase
-  26's 100 + 100, each twice with one seed, equal bit for bit, only the
-  ``_generic`` counts moving, held to the hand-written route's limits and
-  its means within 4.5 combined MCSE; phase 43 runs eight schools' ChEES
-  and MEADS front doors (2,048 chains, 500 + 500) held to phase 19's NUTS
-  means, and eight schools' GHMC and the funnel's MALA and ChEES front
-  doors, so that every instantiation of kernels 5-7 runs on a front door.
+- phases 39-43, any potential on the HMC core (kernels 5-7 on a generated
+  functor, ``csrc/hmc_generic.cu``; the funnel and eight schools too, on the
+  functors traced from ``funnel_pg_t`` and ``schools_pg_t``): phase 39 holds
+  kernels 5 (α 0.9), 6 (32 draws, equal to 32 launches of kernel 5 bit for
+  bit) and 7 (L 10) on the flagship's generated functor at phases 8, 9 and
+  13's state against their plain versions (``generic_pg.run_plain`` as the
+  potential) and against ``LogisticPGT``, kernel 7 at α 0 against kernel 5,
+  and kernel 7 with a dense M⁻¹ on phase 37's mvn25 functor, and times each
+  beside ``LogisticPGT``; phase 40 holds kernels 5-7 on the funnel (8,192
+  chains, dim 10, from N(0, 1), ε 0.05) and eight schools (2,048 chains, ε
+  0.2) against their plain versions and against the functor of the same
+  potential differentiated in the trace, and times both; phase 41 runs the
+  MALA, GHMC (α 0.9) and ChEES front doors on the flagship's bare
+  ``logprob_fn`` at phases 11, 12 and 14's cells, phase 42 MEADS at phase
+  24's and checkpointed at phase 26's 100 + 100, each twice with one seed,
+  equal bit for bit, only the ``_generic`` counts moving, held to the
+  hand-written route's limits and its means within 4.5 combined MCSE; phase
+  43 runs eight schools' ChEES and MEADS front doors (2,048 chains, 500 +
+  500) held to phase 19's NUTS means, and eight schools' GHMC and the
+  funnel's MALA and ChEES front doors, so that kernels 5-7 run on each
+  model's front door, every run's launches checked exactly.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
 registers and spills, and for kernels 1-8 the blocks an SM holds (the
 occupancy API, float32 and bfloat16 X; kernel 8 float32), failing below
 two for any of them (kernel 8 at its 16 chains a block), and the same for
-kernels 5-7 on the generated flagship functor, ``FunnelPG`` and
-``EightSchoolsPG``; phases 2 and 8 hold
+kernels 5-7 on the generated functors of the flagship, the funnel and
+eight schools; phases 2 and 8 hold
 kernels 1 and 5's gradients at their own q_out against float64, within 4x
 of the plain float32 gradient's error; phases 8, 10, 13 and 15 also run
 kernels 5, 8, 7 and 3 on ragged chain counts against their plain versions,
@@ -143,10 +144,11 @@ kernels 1 and 2 (flagship and funnel) their per-chain ε launches, errors,
 times and bounds (phases 28-33), and those of kernels 1-4 their
 ``generic_*`` fields: the generated functor's time, launches on its main
 path (phases 38 and 36), bound, error against plain and against the
-hand-written functor (phase 35).  Kernels 5-7 on the generated, funnel and
-eight-schools functors have entries of their own (``ghmc_transition_generic``,
-``chees_transition_funnel``, ...): launches from phases 41-43, errors and
-times from phases 39-40, registers and spills from phase 1.
+hand-written functor (phase 35).  Kernels 5-7 on the flagship's, the
+funnel's and eight schools' generated functors have entries of their own
+(``ghmc_transition_generic``, ``chees_transition_generic (funnel)``, ...):
+launches from phases 41-43, errors and times from phases 39-40, registers
+and spills from phase 1.
 Run from the repository root: ``python3 chip_smoke.py``.  Last, the GHMC
 and ChEES front doors (phases 12 and 14) run again with two more generator
 seeds and are held to the same limits, every run measured first.  It needs one CUDA
@@ -3481,8 +3483,9 @@ def sorted_checkpoint_phase(torch, ops, record, card):
     log(f"phase 33: sorted funnel run, per-chain ε, {SORTED_CKPT_CHAINS} "
         f"chains, {SORTED_CKPT_WARMUP} + {SORTED_CKPT_DRAWS}, K "
         f"{SORTED_CKPT_K}, a snapshot every {SORTED_CKPT_EVERY}: {wall:.2f} s, "
-        f"launches {launches}; resumed after a kill in sampling and in warmup, each equal to the uninterrupted "
-        f"run bit for bit, which equals the unsegmented run [{card}]")
+        f"launches {launches}; resumed after a kill in sampling and in "
+        f"warmup, each equal to the uninterrupted run bit for bit, which "
+        f"equals the unsegmented run [{card}]")
     record["phase33"] = dict(wall_s=wall, launches=launches)
     return launches
 
@@ -3519,8 +3522,10 @@ def generic_potentials(torch, dev):
     import aehmc_tpu_torch.api as api
     from aehmc_tpu_torch.models import (
         eight_schools_pg_t,
+        funnel_pg_t,
         logistic_regression,
         neals_funnel_pg_t,
+        schools_pg_t,
     )
     from aehmc_tpu_torch.models.hierarchical import (
         funnel_potential_t,
@@ -3566,11 +3571,18 @@ def generic_potentials(torch, dev):
                              device=dev),
         mvn=generic_pg.bind(mvn_t, (prec_t,), GEN_MVN_DIM, device=dev),
         door=generic_pg.bind(door_t, door_data, DIM, device=dev),
-        # phase 40: the hierarchical potentials' generated functors
-        funnel=generic_pg.bind(funnel_potential_t, f_data, FUNNEL_DIM,
-                               device=dev),
-        eight_schools=generic_pg.bind(schools_potential_t, s_data, 10,
-                                      device=dev),
+        # phases 40 and 43: kernels 5-7 run the funnel and eight schools on
+        # the functors traced from their hand-written torch functions, as
+        # the wrappers bind them (ops/functors.py:generic_bound); phase 40
+        # holds them against the potentials differentiated in the trace
+        funnel=generic_pg.bind(funnel_pg_t, f_data, FUNNEL_DIM,
+                               with_grad=False, device=dev),
+        eight_schools=generic_pg.bind(schools_pg_t, s_data, 10,
+                                      with_grad=False, device=dev),
+        funnel_grad=generic_pg.bind(funnel_potential_t, f_data, FUNNEL_DIM,
+                                    device=dev),
+        eight_schools_grad=generic_pg.bind(schools_potential_t, s_data, 10,
+                                           device=dev),
     )
     return dict(X=X, y=y, flagship_t=flagship_t, cell=cell_potential,
                 mvn_t=mvn_t, cov=cov_t, prec=prec_t, logprob_fn=logprob_fn,
@@ -4084,47 +4096,35 @@ def hmc_kernel_of(entry):
 
 def hmc_functor_report(torch, _build, gen):
     """Phase 1's registers, spills and blocks per SM of kernels 5-7 on the
-    generated flagship functor, FunnelPG and EightSchoolsPG (the most over
-    each kernel's instantiations: kernel 7 diagonal and dense)."""
+    generated functors of the flagship, the funnel and eight schools (the
+    most over each kernel's instantiations: kernel 7 diagonal and dense)."""
     from aehmc_tpu_torch.ops.launch_plan import launch_plan
 
-    b = gen["binds"]["flagship"]
-    logs = {"generic": _build.generated_ptxas_log(b.source),
-            "funnel": _build.ptxas_log(), "eight_schools": _build.ptxas_log()}
-    tokens = {"generic": "9GenericPG", "funnel": "8FunnelPG",
-              "eight_schools": "14EightSchoolsPG"}
     out = {}
-    for name, log in logs.items():
+    for name, dim, chains in (("flagship", DIM, CHAINS),
+                              ("funnel", FUNNEL_DIM, FUNNEL_CHAINS),
+                              ("eight_schools", 10, SCHOOLS_CHAINS)):
+        b = gen["binds"][name]
         per = {}
-        for _, entry, regs, spill in ptxas_entries(log):
+        for _, entry, regs, spill in ptxas_entries(
+                _build.generated_ptxas_log(b.source)):
             k = hmc_kernel_of(entry)
-            if k and tokens[name] in entry:
-                r, s = per.get(k, (0, 0))
-                per[k] = (max(r, regs), max(s, spill))
-        out[name] = dict(registers={k: v[0] for k, v in sorted(per.items())},
-                         spill_bytes={k: v[1] for k, v in sorted(per.items())})
+            if k and "9GenericPG" in entry:
+                r, sp = per.get(k, (0, 0))
+                per[k] = (max(r, regs), max(sp, spill))
         check(sorted(per) == [5, 6, 7], f"ptxas reports kernels {sorted(per)} "
-              f"on {name}")
-    plan = launch_plan("hmc", DIM, 0, CHAINS, functor="generic",
-                       workspace=b.workspace)
-    lib = b.library()
-    out["generic"].update(smem_bytes=plan.smem, blocks_per_sm={
-        f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
-            k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))})
-    ghmc, chees = (_build.load_kernels(s) for s in ("ghmc_fused.cu",
-                                                    "chees_fused.cu"))
-    for number, name, chains in ((1, "funnel", FUNNEL_CHAINS),
-                                 (2, "eight_schools", SCHOOLS_CHAINS)):
-        plan = launch_plan("hmc", FUNNEL_DIM, 0, chains, functor=name)
-        out[name].update(smem_bytes=plan.smem, blocks_per_sm={
-            "5": ghmc.ghmc_pot_blocks_per_sm(number, 0, plan.smem),
-            "6": ghmc.ghmc_pot_blocks_per_sm(number, 1, plan.smem),
-            "7": chees.chees_pot_blocks_per_sm(number, 0, plan.smem),
-            "7_dense": chees.chees_pot_blocks_per_sm(number, 1, plan.smem)})
-    for name, rep in out.items():
-        check(min(rep["blocks_per_sm"].values()) >= 2,
-              f"kernels 5-7 on {name}: fewer than two blocks per SM "
-              f"{rep['blocks_per_sm']}")
+              f"on {name}'s generated functor")
+        plan = launch_plan("hmc", dim, 0, chains, functor="generic",
+                           workspace=b.workspace)
+        lib = b.library()
+        per_sm = {f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
+            k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))}
+        check(min(per_sm.values()) >= 2, f"kernels 5-7 on {name}'s generated "
+              f"functor: fewer than two blocks per SM {per_sm}")
+        out[name] = dict(registers={k: v[0] for k, v in sorted(per.items())},
+                         spill_bytes={k: v[1] for k, v in sorted(per.items())},
+                         smem_bytes=plan.smem, blocks_per_sm=per_sm,
+                         workspace_floats=b.workspace)
     return out
 
 
@@ -4379,12 +4379,14 @@ def hier_hmc_flop(name, dim, steps, chains):
 
 
 def hmc_hier_phase(torch, gen, record, card):
-    """Phase 40: kernels 5-7 on FunnelPG (8,192 chains, dim 10, from N(0,
-    1), ε 0.05) and on EightSchoolsPG (2,048 chains, phase 19's data, ε
-    0.2), each held against its plain version (the model's own torch
-    function) and against the generated functor of the same potential on
-    the card; kernel 6 equal to its kernel-5 launches bit for bit; each
-    timed beside the generated functor's."""
+    """Phase 40: kernels 5-7 on the funnel (8,192 chains, dim 10, from N(0,
+    1), ε 0.05) and eight schools (2,048 chains, phase 19's data, ε 0.2)
+    as the wrappers run them, on the functor traced from the model's
+    hand-written torch function (funnel_pg_t, schools_pg_t), each held
+    against its plain version (that torch function) and against the
+    functor generated from the potential differentiated in the trace (and
+    that one against its own plain version); kernel 6 equal to its kernel-5
+    launches bit for bit; each timed beside the other functor's."""
     from aehmc_tpu_torch.models import eight_schools_pg_t, neals_funnel_pg_t
     from aehmc_tpu_torch.ops import chees_fused as cf
     from aehmc_tpu_torch.ops import generic_pg
@@ -4400,7 +4402,7 @@ def hmc_hier_phase(torch, gen, record, card):
         pot, pg, data, ex = model
         dim = ex.shape[0]
         rng = np.random.default_rng(seed)
-        b = gen["binds"][name]
+        b = gen["binds"][name + "_grad"]
         opsb = b.operands(data, torch.device(DEVICE))
 
         def gen_plain(x, b=b, opsb=opsb):
@@ -4434,21 +4436,24 @@ def hmc_hier_phase(torch, gen, record, card):
             c5.append(hmc_hold(torch, q_t, kern, plain,
                                f"kernel 5 ({how}) vs plain"))
             c5g.append(hmc_hold(torch, q_t, kern, kgen, f"kernel 5 ({how}) "
-                                "vs the generated functor"))
+                                "vs the potential differentiated in the "
+                                "trace"))
             c5gp.append(hmc_hold(torch, q_t, kgen, gplain, f"kernel 5 ({how}),"
-                                 " the generated functor vs its plain"))
+                                 " the potential differentiated in the trace "
+                                 "vs its plain"))
         r6 = segment_by_draws(torch, gf, state, args, data, hkw, hand_plain,
                               seed + 2, SEGMENT, f"kernel 6 ({name})")
         r6g = segment_by_draws(torch, gf, state, args, data, gkw, gen_plain,
-                               seed + 2, SEGMENT,
-                               f"kernel 6 ({name}, generated functor)")
+                               seed + 2, SEGMENT, f"kernel 6 ({name}, the "
+                               "potential differentiated in the trace)")
         seg = gf.ghmc_segment_cuda(*state, *args, data, SEGMENT,
                                    seed=seed + 2, **hkw)
         seg_g = gf.ghmc_segment_cuda(*state, *args, data, SEGMENT,
                                      seed=seed + 2, **gkw)
         r6x = ghmc_compare(torch, q_t, seg[:2], seg_g[:2],
-                           f"kernel 6 ({name}) vs the generated functor's "
-                           f"over {SEGMENT} draws")
+                           f"kernel 6 ({name}) vs the potential "
+                           f"differentiated in the trace over {SEGMENT} "
+                           "draws")
         del seg, seg_g
         cstate = (q_t.T.contiguous(), u0.reshape(-1), g0.T.contiguous())
         steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32,
@@ -4472,11 +4477,12 @@ def hmc_hier_phase(torch, gen, record, card):
             c7.append(chees_compare(torch, cstate[0], kern, plain,
                                     f"kernel 7 ({how}) vs plain"))
             c7g.append(chees_compare(torch, cstate[0], kern, kgen,
-                                     f"kernel 7 ({how}) vs the generated "
-                                     "functor"))
+                                     f"kernel 7 ({how}) vs the potential "
+                                     "differentiated in the trace"))
             c7gp.append(chees_compare(torch, cstate[0], kgen, gplain,
-                                      f"kernel 7 ({how}), the generated "
-                                      "functor vs its plain"))
+                                      f"kernel 7 ({how}), the potential "
+                                      "differentiated in the trace vs its "
+                                      "plain"))
 
         def k5(kw):
             return gf.ghmc_transition_cuda(*state, eps, 0.0, im, data,
@@ -4492,15 +4498,15 @@ def hmc_hier_phase(torch, gen, record, card):
 
         t = dict(
             ms5=kernel_ms(lambda: k5(hkw), HMC_TIMED_REPS),
-            generic_ms5=kernel_ms(lambda: k5(gkw), HMC_TIMED_REPS),
+            grad_traced_ms5=kernel_ms(lambda: k5(gkw), HMC_TIMED_REPS),
             plain_ms5=cuda_ms(torch, lambda: gf.ghmc_transition_plain(
                 *state, eps, 0.0, im, hand_plain, seed=7), 3),
             ms6=kernel_ms(lambda: k6(hkw), 2),
-            generic_ms6=kernel_ms(lambda: k6(gkw), 2),
+            grad_traced_ms6=kernel_ms(lambda: k6(gkw), 2),
             plain_ms6=cuda_ms(torch, lambda: gf.ghmc_segment_plain(
                 *state, eps, 0.0, im, hand_plain, SEGMENT, seed=7), 1),
             ms7=kernel_ms(lambda: k7(hkw), HMC_TIMED_REPS),
-            generic_ms7=kernel_ms(lambda: k7(gkw), HMC_TIMED_REPS),
+            grad_traced_ms7=kernel_ms(lambda: k7(gkw), HMC_TIMED_REPS),
             plain_ms7=cuda_ms(torch, lambda: cf.chees_transition_plain(
                 *cstate, im, eps, LEAPFROG_STEPS, hand_plain, seed=7), 2))
         moved = nbytes(*state, im, *data)
@@ -4513,27 +4519,28 @@ def hmc_hier_phase(torch, gen, record, card):
         r5, r5g, r5gp = worst(c5), worst(c5g), worst(c5gp)
         r7, r7g, r7gp = worst(c7), worst(c7g), worst(c7gp)
         log(f"phase 40: kernels 5-7 on {name} (dim {dim}, {chains} chains "
-            f"from N(0, 1), ε {eps}; α {GHMC_ALPHA}, L {LEAPFROG_STEPS}): "
-            f"hand-written functor vs plain {r5[0]:.4%} / {r6[0]:.4%} / "
-            f"{r7[0]:.4%} of decisions equal (max |q| err {r5[1]:.3g} / "
-            f"{r6[1]:.3g} / {r7[1]:.3g}; kernel 6 == {SEGMENT} launches of "
-            f"kernel 5 bit for bit, each draw from its own state), vs the "
-            f"generated functor {r5g[0]:.4%} / {r6x[0]:.4%} / {r7g[0]:.4%} "
-            f"({r5g[1]:.3g} / {r6x[1]:.3g} / {r7g[1]:.3g}), the generated "
-            f"functor vs its plain {r5gp[0]:.4%} / {r6g[0]:.4%} / "
-            f"{r7gp[0]:.4%}; ms hand-written / generated / plain / bound: "
-            f"kernel 5 {t['ms5']:.4f} / {t['generic_ms5']:.4f} / "
+            f"from N(0, 1), ε {eps}; α {GHMC_ALPHA}, L {LEAPFROG_STEPS}), "
+            f"the functor traced from its torch function: vs plain "
+            f"{r5[0]:.4%} / {r6[0]:.4%} / {r7[0]:.4%} of decisions equal "
+            f"(max |q| err {r5[1]:.3g} / {r6[1]:.3g} / {r7[1]:.3g}; kernel 6 "
+            f"== {SEGMENT} launches of kernel 5 bit for bit, each draw from "
+            f"its own state), vs the potential differentiated in the trace "
+            f"{r5g[0]:.4%} / {r6x[0]:.4%} / {r7g[0]:.4%} ({r5g[1]:.3g} / "
+            f"{r6x[1]:.3g} / {r7g[1]:.3g}), that one vs its plain "
+            f"{r5gp[0]:.4%} / {r6g[0]:.4%} / {r7gp[0]:.4%}; ms traced / "
+            f"differentiated in the trace / plain / bound: kernel 5 "
+            f"{t['ms5']:.4f} / {t['grad_traced_ms5']:.4f} / "
             f"{t['plain_ms5']:.3f} / {b5[0]:.5f}, kernel 6 per {SEGMENT} "
-            f"draws {t['ms6']:.4f} / {t['generic_ms6']:.4f} / "
+            f"draws {t['ms6']:.4f} / {t['grad_traced_ms6']:.4f} / "
             f"{t['plain_ms6']:.2f} / {b6[0]:.5f}, kernel 7 {t['ms7']:.4f} / "
-            f"{t['generic_ms7']:.4f} / {t['plain_ms7']:.3f} / {b7[0]:.5f} "
-            f"[{card}]")
+            f"{t['grad_traced_ms7']:.4f} / {t['plain_ms7']:.3f} / "
+            f"{b7[0]:.5f} [{card}]")
         out[name] = dict(
             share=[r5[0], r6[0], r7[0]], max_abs_err=[r5[1], r6[1], r7[1]],
-            share_vs_generic=[r5g[0], r6x[0], r7g[0]],
-            max_abs_err_vs_generic=[r5g[1], r6x[1], r7g[1]],
-            generic_share=[r5gp[0], r6g[0], r7gp[0]],
-            generic_max_abs_err=[r5gp[1], r6g[1], r7gp[1]], **t,
+            share_vs_grad_traced=[r5g[0], r6x[0], r7g[0]],
+            max_abs_err_vs_grad_traced=[r5g[1], r6x[1], r7g[1]],
+            grad_traced_share=[r5gp[0], r6g[0], r7gp[0]],
+            grad_traced_max_abs_err=[r5gp[1], r6g[1], r7gp[1]], **t,
             bound_ms=[b5[0], b6[0], b7[0]],
             bound_by=[b5[1], b6[1], b7[1]])
     record["phase40"] = out
@@ -4682,12 +4689,14 @@ def bare_front_doors(torch, ops, diagnostics, gen, q0, record, nuts_mean,
 
 def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
     """Phase 43: eight schools' ChEES and MEADS front doors on its
-    hand-written functor at phase 19's 2,048 chains, 500 + 500, held to
-    phase 19's NUTS means; and, so that every hierarchical instantiation of
-    kernels 5-7 runs on a front door, eight schools' GHMC and the funnel's
-    MALA and ChEES front doors (the funnel at phase 18's cell, 8,192 chains,
-    300 + 200), held to finite draws and an acceptance above
-    HIER_DOOR_ACCEPT_MIN.  Returns each run's launches."""
+    hand-written torch function (schools_pg_t, which kernels 5-7 run on the
+    functor traced from it) at phase 19's 2,048 chains, 500 + 500, held to
+    phase 19's NUTS means; and, so that kernels 5-7 on each hierarchical
+    model run on a front door, eight schools' GHMC and the funnel's MALA
+    and ChEES front doors (the funnel at phase 18's cell, 8,192 chains, 300
+    + 200), held to finite draws and an acceptance above
+    HIER_DOOR_ACCEPT_MIN.  Each run's launches are checked exactly: only
+    the _generic counters move.  Returns each run's launches."""
     import aehmc_tpu_torch
     from aehmc_tpu_torch.models import (
         eight_schools,
@@ -4700,26 +4709,31 @@ def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
                *eight_schools_pg_t(device=DEVICE)[:3])
     funnel = (neals_funnel(FUNNEL_DIM, device=DEVICE)[0],
               *neals_funnel_pg_t(FUNNEL_DIM, device=DEVICE)[:3])
+    def ghmc_launches(warmup, draws):  # kernel 5 a warmup step, 6 a segment
+        return {"ghmc_transition_generic": warmup,
+                "ghmc_segment_generic": -(-draws // SEGMENT)}
+
     runs = (
         ("eight schools ChEES", schools, "chees", SCHOOLS_CHAINS,
-         SCHOOLS_WARMUP, SCHOOLS_DRAWS, {}, "chees_transition_eight_schools"),
+         SCHOOLS_WARMUP, SCHOOLS_DRAWS, {}, None),
         ("eight schools MEADS", schools, "meads", SCHOOLS_CHAINS,
          SCHOOLS_WARMUP, SCHOOLS_DRAWS,
          dict(meads_recompute_every=MEADS_EVERY),
-         "ghmc_segment_eight_schools"),
+         {"ghmc_segment_generic": -(-SCHOOLS_WARMUP // MEADS_EVERY)
+          + -(-SCHOOLS_DRAWS // MEADS_EVERY)}),
         ("eight schools GHMC", schools, "ghmc", SCHOOLS_CHAINS,
          SCHOOLS_WARMUP, GHMC_DRAWS,
          dict(segment_draws=SEGMENT, initial_step_size=0.1),
-         "ghmc_transition_eight_schools"),
+         ghmc_launches(SCHOOLS_WARMUP, GHMC_DRAWS)),
         ("funnel MALA", funnel, "mala", FUNNEL_CHAINS, FUNNEL_WARMUP,
          FUNNEL_DRAWS, dict(segment_draws=SEGMENT, initial_step_size=0.1),
-         "ghmc_transition_funnel"),
+         ghmc_launches(FUNNEL_WARMUP, FUNNEL_DRAWS)),
         ("funnel ChEES", funnel, "chees", FUNNEL_CHAINS, FUNNEL_WARMUP,
-         FUNNEL_DRAWS, {}, "chees_transition_funnel"),
+         FUNNEL_DRAWS, {}, None),
     )
     out = {}
     for what, (lp, pot, pg, data), algorithm, chains, warmup, draws, kw, \
-            counter in runs:
+            want in runs:
         dim = 10 if "schools" in what else FUNNEL_DIM
         q0 = torch.tensor(0.1 * np.random.default_rng(43).standard_normal(
             (chains, dim)), dtype=torch.float32, device=DEVICE)
@@ -4733,10 +4747,12 @@ def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in ops.LAUNCHES.items() if v}
-        model = "_eight_schools" if "schools" in what else "_funnel"
-        check(counter in launches and all(k.endswith(model)
-                                          for k in launches),
-              f"{what}: launches {launches}")
+        if want is None:  # ChEES: the initial-ε probes, then a step a draw
+            probes = launches.get("chees_transition_generic", 0) - (
+                warmup + draws)
+            check(1 <= probes <= 32, f"{what}: launches {launches}")
+            want = {"chees_transition_generic": warmup + draws + probes}
+        check(launches == want, f"{what}: launches {launches}, want {want}")
         accept = float(res.diagnostics.acceptance_probability.mean())
         finite = bool(torch.isfinite(res.positions).all())
         check(finite, f"{what}: non-finite draws")
@@ -4758,7 +4774,8 @@ def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
             row.update(v_mean=float(v.mean()), v_sd=float(v.std()))
         out[what] = row
         log(f"phase 43: {what} front door ({chains} chains, {warmup} + "
-            f"{draws}) on its hand-written functor: {wall:.2f} s; launches "
+            f"{draws}) on the functor traced from its torch function: "
+            f"{wall:.2f} s; launches "
             f"{launches}; accept {accept:.4f}, divergent "
             f"{row['divergent_share']:.2e}, mean eps {row['step_size']:.4f}"
             + (f", means within {row['max_z_vs_nuts']:.2f} MCSE of phase "
@@ -4771,20 +4788,20 @@ def hier_hmc_front_doors(torch, ops, diagnostics, record, card):
 
 
 def hmc_functor_entries(gen39, hier40, door, hier43, ptxas):
-    """The ``kernels`` line's entries of kernels 5-7 on the generated
-    functor (launches: phases 41-42's front doors) and on FunnelPG and
-    EightSchoolsPG (launches: phase 43's), each with its registers and
-    spills, and the other functor's time on the same inputs beside it."""
+    """The ``kernels`` line's entries of kernels 5-7 on the flagship's
+    generated functor (launches: phases 41-42's front doors, LogisticPGT's
+    time on the same inputs beside it) and on the funnel's and eight
+    schools' (launches: phase 43's; the potential differentiated in the
+    trace beside it), each with its registers and spills."""
     names = ("ghmc_transition", "ghmc_segment", "chees_transition")
     lines = ("aehmc_tpu/ops/ghmc_fused.py:139",
              "aehmc_tpu/ops/ghmc_fused.py:329",
              "aehmc_tpu/ops/chees_fused.py:61")
-    sources = ("ghmc_fused.cu", "ghmc_fused.cu", "chees_fused.cu")
     launches = (door["ghmc_transition"], door["ghmc_segment"],
                 door["chees_transition"])
     out = []
     for i, (name, line) in enumerate(zip(names, lines)):
-        regs = ptxas["generic"]
+        regs = ptxas["flagship"]
         out.append(dict(
             kernel_entry(f"{name}_generic", "hmc_generic.cu", line,
                          launches[i], gen39["errs"][i], gen39["ms"][i],
@@ -4805,15 +4822,15 @@ def hmc_functor_entries(gen39, hier40, door, hier43, ptxas):
         h = hier40[model]
         for i, (name, line) in enumerate(zip(names, lines)):
             n = str(5 + i)
-            counter = f"{name}_{model}"
+            counter = f"{name}_generic"
             out.append(dict(
-                kernel_entry(counter, sources[i], line,
+                kernel_entry(f"{counter} ({model})", "hmc_generic.cu", line,
                              hier43[runs[name]].get(counter, 0),
                              h["max_abs_err"][i], h["ms" + n],
                              h["plain_ms" + n],
                              (h["bound_ms"][i], h["bound_by"][i])),
-                chains_per_block=8, generic_ms=h["generic_ms" + n],
-                vs_generic_max_abs_err=h["max_abs_err_vs_generic"][i],
+                chains_per_block=8, grad_traced_ms=h["grad_traced_ms" + n],
+                vs_grad_traced_max_abs_err=h["max_abs_err_vs_grad_traced"][i],
                 registers=ptxas[model]["registers"][5 + i],
                 spill_bytes=ptxas[model]["spill_bytes"][5 + i]))
     return out
@@ -4919,8 +4936,8 @@ def main():
             f"blocks per SM {per_sm}")
         check(min(per_sm.values()) >= 2,
               f"{name}: fewer than two blocks per SM {per_sm}")
-    # kernels 5-7 on the generated flagship functor and the functors with
-    # no X tile
+    # kernels 5-7 on the generated functors of the flagship, the funnel and
+    # eight schools
     hmc_functors = hmc_functor_report(torch, _build, gen_pots)
     geometry["hmc_functors"] = hmc_functors
     for name, rep in hmc_functors.items():

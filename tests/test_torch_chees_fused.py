@@ -20,11 +20,11 @@ from aehmc_tpu.models import logistic_regression_pg_t as jax_pg_builder
 from aehmc_tpu.ops import chees_fused as jax_cf
 from aehmc_tpu_torch.models import logistic_regression_pg_t
 from aehmc_tpu_torch.ops.chees_fused import (
-    _check_cuda_args,
     chees_transition_plain,
     make_fused_chees_kernel,
     make_fused_chees_transition,
 )
+from aehmc_tpu_torch.ops.functors import HMC_CORE, card_functor
 from aehmc_tpu_torch.ops.philox import ghmc_streams
 from aehmc_tpu_torch.types import ChainState
 
@@ -229,20 +229,25 @@ def test_kernel_fn_draws_from_the_generator_or_takes_its_key():
 
 def test_cuda_path_takes_the_logistic_potential_only():
     """The card's dispatch of kernel 7 (named when it took the logistic
-    functor only): the logistic functor for ``logistic_pg_t``, a functor
-    generated from the traced gradient graph for any other float32
-    potential, pre-differentiated or not; it raises only for what no
-    functor takes."""
+    functor only; ``functors.card_functor`` on the HMC core): the logistic
+    functor for ``logistic_pg_t``, a functor generated from the traced
+    gradient graph for any other float32 potential, pre-differentiated or
+    not; it raises only for what no functor takes."""
     _, pg_t, data_t, _ = logistic_regression_pg_t(dim=4, num_points=8,
                                                   matmul_dtype=torch.float32,
                                                   device="cpu")
-    q = torch.zeros(8, 4)
+    q_t = torch.zeros(4, 8)  # the functor is traced on a (dim, C) column
+
+    def dispatch(pg, data, q, **kw):
+        return card_functor(kw.get("potential_fn_t"), pg, data, q,
+                            HMC_CORE)[0]
+
     var_col = torch.full((4, 1), 2.0)
-    assert _check_cuda_args(_gaussian_pg, (var_col,), q) == "generic"
-    assert _check_cuda_args(None, (var_col,), q,
-                            potential_fn_t=_potential_t) == "generic"
+    assert dispatch(_gaussian_pg, (var_col,), q_t) == "generic"
+    assert dispatch(None, (var_col,), q_t,
+                    potential_fn_t=_potential_t) == "generic"
     with pytest.raises(TypeError, match="float32"):
-        _check_cuda_args(pg_t, data_t, q.double())
+        dispatch(pg_t, data_t, q_t.double())
     with pytest.raises(ValueError, match="logistic data"):
-        _check_cuda_args(pg_t, (var_col,), q)
-    assert _check_cuda_args(pg_t, data_t, q) == "logistic"
+        dispatch(pg_t, (var_col,), q_t)
+    assert dispatch(pg_t, data_t, q_t) == "logistic"

@@ -175,12 +175,6 @@ def test_front_door_on_the_card_runs_both_kernels(cuda_device):
                         "nuts_sampling_std_generic": 0,
                         "chees_transition": 0, "ghmc_transition": 0,
                         "ghmc_segment": 0,
-                        "chees_transition_funnel": 0,
-                        "ghmc_transition_funnel": 0,
-                        "ghmc_segment_funnel": 0,
-                        "chees_transition_eight_schools": 0,
-                        "ghmc_transition_eight_schools": 0,
-                        "ghmc_segment_eight_schools": 0,
                         "chees_transition_generic": 0,
                         "ghmc_transition_generic": 0,
                         "ghmc_segment_generic": 0,
@@ -1640,9 +1634,10 @@ def test_cuda_generic_kernels_3_and_4_match_plain(cuda_device):
     assert torch.equal(qs, qf)
 
 
-# ---- kernels 5-7 on the functors with no X tile (FunnelPG,
-# EightSchoolsPG) and on a generated functor (the logistic posterior as a
-# plain torch potential, and eight schools' potential traced): each against
+# ---- kernels 5-7 on a generated functor: the funnel's and eight schools'
+# hand-written torch functions (funnel_pg_t, schools_pg_t) traced as the
+# wrappers trace them, the logistic posterior as a plain torch potential,
+# and eight schools' potential differentiated in the trace: each against
 # its plain version with the potential's own torch function or
 # generic_pg.run_plain, decisions equal on >= 99% of chains, positions
 # within 1e-4 on those
@@ -1656,7 +1651,7 @@ def _hmc_functor_case(device, functor, chains=24):
     if functor in ("funnel", "eight_schools"):
         pot, pg, data, q_t, _, _ = _hier_case(device, functor, chains=chains)
         return (dict(potential_and_grad_t=pg), data,
-                lambda x: pg(x, *data), 0.5 * q_t, f"_{functor}")
+                lambda x: pg(x, *data), 0.5 * q_t, "_generic")
     if functor == "generic_schools":
         pot, _, data, _ = eight_schools_pg_t(device=device)
         q_t = 0.5 * _hier_case(device, "eight_schools", chains=chains)[3]
@@ -1784,28 +1779,27 @@ def test_cuda_chees_kernel_on_each_functor_matches_plain(cuda_device,
 
 @pytest.mark.gpu
 def test_cuda_hmc_functor_instantiations_hold_two_blocks_per_sm(cuda_device):
+    """Kernels 5-7 on the generated functors of the logistic posterior and
+    of the funnel's and eight schools' hand-written torch functions."""
     from aehmc_tpu_torch.ops import generic_pg
 
-    for model, name in ((1, "funnel"), (2, "eight_schools")):
-        plan = launch_plan("hmc", 10, 0, 8192, functor=name)
-        ghmc = load_kernels("ghmc_fused.cu")
-        chees = load_kernels("chees_fused.cu")
-        for flag in (0, 1):
-            assert ghmc.ghmc_pot_blocks_per_sm(model, flag, plan.smem) >= 2
-            assert chees.chees_pot_blocks_per_sm(model, flag, plan.smem) >= 2
-    assert load_kernels("ghmc_fused.cu").ghmc_pot_blocks_per_sm(3, 0, 4000) \
-        == -1
     _, _, data, _ = logistic_regression_pg_t(DIM, POINTS,
                                              matmul_dtype=torch.float32,
                                              device=cuda_device)
-    bound = generic_pg.bind(_generic_potential, (data[0], data[2]), DIM,
-                            device=cuda_device)
-    plan = launch_plan("hmc", DIM, 0, 1024, functor="generic",
-                       workspace=bound.workspace)
-    lib = bound.library()
-    for kernel, dense in ((5, 0), (6, 0), (7, 0), (7, 1)):
-        assert lib.hmc_generic_blocks_per_sm(kernel, dense, plan.smem) >= 2
-    assert lib.hmc_generic_blocks_per_sm(8, 0, plan.smem) == -1
+    cases = [(_generic_potential, (data[0], data[2]), DIM, True)]
+    for name in ("funnel", "eight_schools"):
+        _, pg, hier_data, q_t, _, _ = _hier_case(cuda_device, name)
+        cases.append((pg, hier_data, q_t.shape[0], False))
+    for fn, fn_data, dim, with_grad in cases:
+        bound = generic_pg.bind(fn, fn_data, dim, with_grad=with_grad,
+                                device=cuda_device)
+        plan = launch_plan("hmc", dim, 0, 8192, functor="generic",
+                           workspace=bound.workspace)
+        lib = bound.library()
+        for kernel, dense in ((5, 0), (6, 0), (7, 0), (7, 1)):
+            assert lib.hmc_generic_blocks_per_sm(kernel, dense,
+                                                 plan.smem) >= 2
+        assert lib.hmc_generic_blocks_per_sm(8, 0, plan.smem) == -1
 
 
 @pytest.mark.gpu
@@ -1814,8 +1808,10 @@ def test_front_door_on_a_bare_logprob_fn_takes_the_generated_functor(
         cuda_device, algorithm):
     """A bare logprob_fn on the fused MALA, GHMC, ChEES and MEADS routes
     binds the generated functor: only the _generic counts move, the same
-    seed gives the same draws, and the acceptance is the hand-written
-    logistic route's at the same settings and seed to 0.05."""
+    seed gives the same draws, the acceptance is above 0.3 after a warmup
+    that adapts (150 steps, as chip_smoke's phase 41: the plain route on
+    these inputs accepts 0.75-0.99, but 0.03 after 30 steps) and the
+    hand-written logistic route's at the same settings and seed to 0.05."""
     from aehmc_tpu_torch.models import logistic_regression
 
     logprob_fn, _ = logistic_regression(DIM, POINTS, device=cuda_device)
@@ -1827,7 +1823,7 @@ def test_front_door_on_a_bare_logprob_fn_takes_the_generated_functor(
     def run(**binding):
         reset_launch_counts()
         return aehmc_tpu_torch.sample(
-            torch.Generator().manual_seed(8), logprob_fn, q0, 24, 30,
+            torch.Generator().manual_seed(8), logprob_fn, q0, 24, 150,
             algorithm=algorithm, path="fused", **binding)
 
     res = run()
@@ -1839,4 +1835,5 @@ def test_front_door_on_a_bare_logprob_fn_takes_the_generated_functor(
     assert not any(k.endswith("_generic") for k, v in LAUNCHES.items() if v)
     accept, hand_accept = (float(r.diagnostics.acceptance_probability.mean())
                            for r in (res, hand))
+    assert accept > 0.3
     assert abs(accept - hand_accept) < 0.05

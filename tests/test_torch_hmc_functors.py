@@ -11,13 +11,14 @@ CPU.
   same numpy inputs.  Decisions (accepted, the stats rows 2-4) equal; q
   within 1e-5 absolute, the other outputs within 1e-5 (rtol and atol): the
   port's plain back end and the JAX vjp sum in other orders.
-- The card's dispatch of kernels 5-7 (``_check_cuda_args`` of
-  ``ops.ghmc_fused`` and ``ops.chees_fused``): each of the four functors,
-  and its raises.
+- The card's dispatch (``ops.functors.card_functor``) of the NUTS core
+  (kernels 1 and 2) and of the HMC core (kernels 5-7): the logistic functor
+  in both, the funnel's and eight schools' in the NUTS core and the
+  generated functor in the HMC core, and its raises.
 - The launch plan of the HMC core for each functor: a generated functor's
   workspace in shared or global memory as the functor was emitted
   (``WS_SHARED``, decided with the NUTS core's rows), never decided again
-  with the HMC core's.
+  with the HMC core's; the hierarchical functors refused.
 - The build's template and signature tables name every new entry point, and
   a build without ``nvcc`` raises.
 - The front door on a bare ``logprob_fn`` (the generic fused binding) on
@@ -44,6 +45,7 @@ import aehmc_tpu_torch
 from aehmc_tpu_torch.models import (
     eight_schools_pg_t,
     funnel_pg_t,
+    logistic_pg_t,
     logistic_regression_pg_t,
     neals_funnel_pg_t,
     schools_pg_t,
@@ -51,6 +53,7 @@ from aehmc_tpu_torch.models import (
 from aehmc_tpu_torch.ops import LAUNCHES, _build, chees_fused, generic_pg
 from aehmc_tpu_torch.ops import ghmc_fused
 from aehmc_tpu_torch.ops import launch_plan as lp
+from aehmc_tpu_torch.ops.functors import HMC_CORE, NUTS_CORE, card_functor
 
 F32 = np.float32
 CHAINS = 16
@@ -214,25 +217,32 @@ def _gaussian_pg(q_t, var_col):
             q_t / var_col)
 
 
-def _dispatch(module, pg, data, q_t, **kw):
-    """``module._check_cuda_args`` with chains in the kernel's layout:
-    ``(dim, C)`` for kernels 5 and 6, ``(C, dim)`` for kernel 7."""
-    q = q_t if module is ghmc_fused else q_t.T
-    return module._check_cuda_args(pg, data, q, **kw)
+CORES = {"nuts": NUTS_CORE, "hmc": HMC_CORE}
 
 
-@pytest.mark.parametrize("module", [ghmc_fused, chees_fused])
+def _dispatch(core, pg, data, q_t, potential_fn_t=None):
+    """The functor ``card_functor`` picks in ``core``'s kernels, chains
+    ``q_t (dim, C)``."""
+    return card_functor(potential_fn_t, pg, data, q_t, CORES[core])[0]
+
+
+@pytest.mark.parametrize("module", sorted(CORES))
 def test_card_dispatch_names_each_functor(module):
+    """Both cores hold the logistic functor; the funnel and eight schools
+    run on their hand-written functors in the NUTS core and on a generated
+    functor (traced from ``funnel_pg_t`` / ``schools_pg_t``) in the HMC
+    core; any other float32 potential on a generated functor in both."""
     _, pg_l, data_l, _ = logistic_regression_pg_t(
         dim=4, num_points=8, matmul_dtype=torch.float32, device="cpu")
     _, _, data_f, _ = neals_funnel_pg_t(6, device="cpu")
     _, _, data_s, _ = eight_schools_pg_t(device="cpu")
     var_col = (torch.tensor(GAUSS_VAR[:4]).reshape(-1, 1),)
+    nuts = module == "nuts"
     assert _dispatch(module, pg_l, data_l, torch.zeros(4, 16)) == "logistic"
-    assert _dispatch(module, funnel_pg_t, data_f,
-                     torch.zeros(6, 16)) == "funnel"
-    assert _dispatch(module, schools_pg_t, data_s,
-                     torch.zeros(10, 16)) == "eight_schools"
+    assert _dispatch(module, funnel_pg_t, data_f, torch.zeros(6, 16)) == (
+        "funnel" if nuts else "generic")
+    assert _dispatch(module, schools_pg_t, data_s, torch.zeros(10, 16)) == (
+        "eight_schools" if nuts else "generic")
     # any other float32 potential: pre-differentiated, or differentiated in
     # the trace, or a hand-written model not named by identity
     assert _dispatch(module, _gaussian_pg, var_col,
@@ -243,7 +253,7 @@ def test_card_dispatch_names_each_functor(module):
                      torch.zeros(6, 16)) == "generic"
 
 
-@pytest.mark.parametrize("module", [ghmc_fused, chees_fused])
+@pytest.mark.parametrize("module", sorted(CORES))
 def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
     var_col = (torch.tensor(GAUSS_VAR[:4]).reshape(-1, 1),)
     with pytest.raises(NotImplementedError, match=r"logsumexp.*1\.10c"):
@@ -258,8 +268,8 @@ def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
     with pytest.raises(ValueError, match="mixes chains"):
         _dispatch(module, None, (), torch.zeros(4, 16),
                   potential_fn_t=lambda q_t: (q_t * q_t).sum(0) + q_t.mean())
-    with pytest.raises(ValueError, match="eight_schools data"):
-        _dispatch(module, schools_pg_t, var_col, torch.zeros(10, 16))
+    with pytest.raises(ValueError, match="logistic data"):
+        _dispatch(module, logistic_pg_t, var_col, torch.zeros(4, 16))
 
 
 # --------------------------------------------------------- launch plan ----
@@ -268,10 +278,18 @@ def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
 @pytest.mark.parametrize("dim,chains", [(10, 8192), (10, 2048), (6, 13),
                                         (25, 2048), (100, 10_240)])
 def test_hmc_plan_of_a_functor_without_x(functor, dim, chains):
-    """No tile, 8 chains a block, the HMC core's 8 rows a chain and the
-    block's potentials; a generated functor's workspace (here in shared
-    memory: W = 16) beside them."""
-    work = 16 if functor == "generic" else 0
+    """A generated functor: no tile, 8 chains a block, the HMC core's 8 rows
+    a chain, the block's potentials and the functor's workspace (here in
+    shared memory: W = 16) beside them.  The HMC core holds no hierarchical
+    functor (the funnel and eight schools run there on a generated one):
+    its plan refuses them, the NUTS plan takes them."""
+    if functor != "generic":
+        with pytest.raises(ValueError, match="NUTS kernels only"):
+            lp.launch_plan("hmc", dim, 0, chains, functor=functor)
+        nuts = lp.launch_plan("nuts", dim, 6, chains, functor=functor)
+        assert (nuts.points, nuts.row_stride, nuts.chains) == (0, 0, 8)
+        return
+    work = 16
     for x_dtype in (torch.float32, torch.bfloat16):
         plan = lp.launch_plan("hmc", dim, 0, chains, x_dtype,
                               functor=functor, workspace=work)
@@ -328,11 +346,12 @@ def test_hmc_plan_of_real_generated_functors(points):
 
 # --------------------------------------------------------------- build ----
 
+# the entry points of kernels 5-7: on LogisticPGT, and on a generated
+# functor
 _HMC_ENTRY_POINTS = {
-    "ghmc_fused.cu": ("ghmc_transition_pot_launch", "ghmc_segment_pot_launch",
-                      "ghmc_pot_blocks_per_sm"),
-    "chees_fused.cu": ("chees_transition_pot_launch",
-                       "chees_pot_blocks_per_sm"),
+    "ghmc_fused.cu": ("ghmc_transition_launch", "ghmc_segment_launch",
+                      "ghmc_blocks_per_sm"),
+    "chees_fused.cu": ("chees_transition_launch", "chees_blocks_per_sm"),
     "hmc_generic.cu": ("ghmc_transition_generic_launch",
                        "ghmc_segment_generic_launch",
                        "chees_transition_generic_launch",
@@ -355,10 +374,12 @@ def test_every_new_entry_point_is_in_its_source_and_signature_table(source):
     for name in _HMC_ENTRY_POINTS[source]:
         assert name in table, name
         assert _c_params(text, name) == len(table[name]), name
-    # the launch counts of every instantiation
+    # the launch counts of every instantiation, and no hierarchical one
     kernels = ("ghmc_transition", "ghmc_segment", "chees_transition")
-    for suffix in ("_funnel", "_eight_schools", "_generic"):
-        assert all(k + suffix in LAUNCHES for k in kernels)
+    assert all(k + s in LAUNCHES for k in kernels for s in ("", "_generic"))
+    assert not any(k + s in LAUNCHES for k in kernels
+                   for s in ("_funnel", "_eight_schools"))
+    assert "_pot_" not in text
 
 
 def test_a_generated_library_holds_both_templates(tmp_path, monkeypatch):
@@ -389,6 +410,33 @@ def test_a_generated_library_holds_both_templates(tmp_path, monkeypatch):
         str(_build.CSRC / t) for t in _build.GENERIC_TEMPLATES]
     assert (tmp_path / _build.generated_path(text).name.replace(
         "libgeneric_", "generic_").replace(".so", ".cu")).read_text() == text
+
+
+def test_a_generated_library_is_looked_up_by_its_text(monkeypatch):
+    """The wrappers look the library up at every launch: after the first
+    load the lookup neither hashes the headers again (reading them from
+    disk cost 2.2 ms a launch on the card's host) nor builds."""
+    text = generic_pg.bind(_gauss_t, (torch.ones(4, 1),), 4).source
+    paths, builds = [], []
+    real_path = _build.generated_path
+    monkeypatch.setattr(_build, "_generated_libs", {})
+    monkeypatch.setattr(_build, "generated_path",
+                        lambda t: paths.append(t) or real_path(t))
+    monkeypatch.setattr(_build, "_build_missing",
+                        lambda *a: builds.append(a))
+
+    class Library:
+        def __init__(self, path):
+            self.path = path
+
+        def __getattr__(self, name):
+            return type("Fn", (), {})()
+
+    monkeypatch.setattr(_build.ctypes, "CDLL", Library)
+    lib = _build.load_generated(text)
+    assert _build.load_generated(text) is lib
+    assert len(paths) == 1 and len(builds) == 1
+    assert lib.path == str(real_path(text))
 
 
 # --------------------------------------------------------- front door -----
