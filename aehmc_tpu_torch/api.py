@@ -25,8 +25,12 @@ A bare ``logprob_fn`` on the fused path takes the generic fused binding
 potential and its data rows, which the plain versions run on CPU tensors
 and every fused kernel (NUTS 1-4, GHMC and MALA 5-6, ChEES 7, MEADS 5-6)
 runs on the card through a functor generated from the potential's traced
-gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).  ``mesh=`` raises
-``NotImplementedError`` (item 1.12).
+gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).  ``mesh=``
+(:func:`aehmc_tpu_torch.parallel.make_mesh`) shards the chains of the
+pooled route and of the fused NUTS, ChEES and MEADS routes over its
+devices; the fused routes' runs equal the unsharded ones bit for bit on
+the card. The fused MALA and GHMC routes take none (``ValueError``), as
+in the JAX package.
 """
 
 from typing import Callable, Optional, Sequence
@@ -204,6 +208,15 @@ def sample(
     ``per_chain_quantiles``, ``per_chain_quantile_stat`` and
     ``search_initial_step_size``; NUTS also ``sort_by_depth`` and
     ``step_size_factors``.
+    ``mesh`` (:mod:`aehmc_tpu_torch.parallel.mesh`, one process driving
+    its devices) shards the chain axis on the pooled route and the fused
+    NUTS, ChEES and MEADS routes (MEADS then on the per-draw transition
+    kernel: the segment kernel has no shard adapter); fused MALA and GHMC
+    raise ``ValueError``.  With ``mesh=None`` every route runs on the
+    positions' device, however many cards there are (the JAX package
+    shards the pooled route over all of them; a torch ``logprob_fn``'s
+    closed-over tensors stay on their own card, so the port shards only
+    over a mesh the caller passes).
     Fused ChEES needs ``logprob_fn`` to start its chain states;
     ``block_chains``, ``use_internal_prng``, ``step_size_factors`` and
     ``divergence_threshold`` build its kernel
@@ -227,10 +240,6 @@ def sample(
             "logprob_fn may be None only on the fused NUTS/MALA/GHMC routes "
             "with an explicit potential_fn_t/potential_and_grad_t binding"
         )
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
-                                  "1.12)")
-
     if route == "xla":
         if initial_position.ndim <= 1:
             if algorithm in ("chees", "meads"):
@@ -258,7 +267,7 @@ def sample(
     if route == "pooled":
         return sample_sharded(generator, logprob_fn, initial_position,
                               num_samples, num_warmup, algorithm=algorithm,
-                              **kwargs)
+                              mesh=mesh, **kwargs)
 
     # route == "fused"
     if algorithm == "hmc":
@@ -280,18 +289,24 @@ def sample(
                 "divergence_threshold"]
         kernel_fn = make_fused_chees_kernel(
             potential_fn_t, tuple(data),
-            potential_and_grad_t=potential_and_grad_t, **kernel_kwargs,
+            potential_and_grad_t=potential_and_grad_t, mesh=mesh,
+            num_chains=initial_position.shape[0], **kernel_kwargs,
         )
         return sample_sharded(
             generator, logprob_fn, initial_position.to(torch.float32),
-            num_samples, num_warmup, algorithm="chees",
+            num_samples, num_warmup, algorithm="chees", mesh=mesh,
             chees_kernel_fn=kernel_fn, **kwargs,
         )
     if algorithm == "meads":
         return _fused_meads(generator, logprob_fn, initial_position,
                             num_samples, num_warmup, data, potential_fn_t,
-                            potential_and_grad_t, kwargs)
+                            potential_and_grad_t, mesh, kwargs)
     if algorithm in ("mala", "ghmc"):
+        if mesh is not None:
+            raise ValueError(
+                f"the fused {algorithm.upper()} route is single-host for "
+                "now — pass path='pooled' with mesh= for the sharded XLA "
+                "kernels")
         if algorithm == "mala":
             if "ghmc_alpha" in kwargs:
                 raise TypeError(
@@ -328,6 +343,7 @@ def sample(
         num_warmup,
         potential_fn_t=potential_fn_t,
         potential_and_grad_t=potential_and_grad_t,
+        mesh=mesh,
         **kwargs,
     )
     if out is None:  # a checkpointed run killed by its test hook
@@ -337,23 +353,25 @@ def sample(
 
 def _fused_meads(generator, logprob_fn, initial_position, num_samples,
                  num_warmup, data, potential_fn_t, potential_and_grad_t,
-                 kwargs) -> SampleResult:
+                 mesh, kwargs) -> SampleResult:
     """The fused MEADS route: the pooled MEADS driver over kernel 6 (one
     launch a ``meads_recompute_every``-draw segment), or over kernel 5 (one
     launch a draw) when the run is checkpointed, whose segments need the
-    per-draw kernel."""
+    per-draw kernel, or sharded over a mesh (kernel 5 per shard: the
+    segment kernel has no shard adapter)."""
     kernel_kwargs = {k: kwargs.pop(k) for k in _MEADS_KERNEL_KWARGS
                      if k in kwargs}
     if "divergence_threshold" in kwargs:
         kernel_kwargs["divergence_threshold"] = kwargs["divergence_threshold"]
     kwargs.setdefault("meads_recompute_every", 8)
     common = dict(potential_and_grad_t=potential_and_grad_t, **kernel_kwargs)
-    if kwargs.get("checkpoint_every"):
+    if mesh is not None or kwargs.get("checkpoint_every"):
         kwargs["meads_transition_fn"] = make_fused_meads_transition(
-            potential_fn_t, tuple(data), **common)
+            potential_fn_t, tuple(data), mesh=mesh,
+            num_chains=initial_position.shape[0], **common)
     else:
         kwargs["meads_segment_fn"] = make_fused_meads_segment(
             potential_fn_t, tuple(data), **common)
     return sample_sharded(generator, logprob_fn,
                           initial_position.to(torch.float32), num_samples,
-                          num_warmup, algorithm="meads", **kwargs)
+                          num_warmup, algorithm="meads", mesh=mesh, **kwargs)

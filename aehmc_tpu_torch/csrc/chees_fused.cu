@@ -31,11 +31,13 @@ extern "C" {
 // products' operands in bfloat16); im: (dim,) or (dim, dim) (dense), ms:
 // (dim, dim) with dense and use_seed; L: a device int32; stats: (C, 8).
 // use_seed selects Philox randomness keyed by seed (p and ua are then
-// unused).  blocks, points, row_stride, smem and chains (8 or 16 a block)
-// are the launch plan's (aehmc_tpu_torch/ops/launch_plan.py).
+// unused) on the global chain index chain0 + c (chain0 a shard's first
+// chain, 0 unsharded).  blocks, points, row_stride, smem and chains (8 or
+// 16 a block) are the launch plan's (aehmc_tpu_torch/ops/launch_plan.py).
 int chees_transition_launch(const float* q, const float* u, const float* g,
                             const float* p, const float* ua, int use_seed,
-                            unsigned int seed, const void* X, int x_bf16,
+                            unsigned int seed, unsigned int chain0,
+                            const void* X, int x_bf16,
                             const float* y, const float* eps, const float* im,
                             const float* ms, int dense, const int* L,
                             float thr, int dim, int N, int C, float* q_out,
@@ -44,14 +46,15 @@ int chees_transition_launch(const float* q, const float* u, const float* g,
                             int points, int row_stride, int smem,
                             int chains, void* stream) {
   if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
-  const Params P = chees_params(eps, im, ms, L, thr, dim, C);
+  Params P = chees_params(eps, im, ms, L, thr, dim, C);
+  P.chain0 = chain0;
   const Rand R = {p, ua, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
     using PG = decltype(pg);
-    auto kernel = dense ? transition_kernel<PG, true, true, true>
-                        : transition_kernel<PG, true, false, true>;
+    auto kernel = dense ? transition_kernel_for<PG, true, true, true>(P)
+                        : transition_kernel_for<PG, true, false, true>(P);
     return launch(kernel, P, pg, G, s, P, pg, R, q, u, g, nullptr, q_out,
                   u_out, g_out, nullptr, stats, qp_out, vp_out);
   });

@@ -47,13 +47,15 @@ extern "C" {
 // by no launch); X: (N, row_stride) float32, or bfloat16 (x_bf16: the data
 // products' operands in bfloat16); im: (dim,) or (dim, C) (im_per_chain);
 // stats: (8, C).  use_seed selects Philox randomness keyed by seed (noise
-// and ua are then unused).  blocks, points, row_stride, smem and chains (8
-// or 16 a block) are the launch plan's
+// and ua are then unused) on the global chain index chain0 + c (chain0 a
+// shard's first chain, 0 unsharded).  blocks, points, row_stride, smem and
+// chains (8 or 16 a block) are the launch plan's
 // (aehmc_tpu_torch/ops/launch_plan.py).
 int ghmc_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* noise,
                            const float* ua, int use_seed, unsigned int seed,
-                           const void* X, int x_bf16, const float* y,
+                           unsigned int chain0, const void* X, int x_bf16,
+                           const float* y,
                            const float* eps, const float* alpha, float eps0,
                            float alpha0, const float* im, int im_per_chain,
                            float thr, int dim, int N, int C, int L,
@@ -62,20 +64,22 @@ int ghmc_transition_launch(const float* q, const float* u, const float* g,
                            float* stats, int blocks, int points,
                            int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain,
-                               thr, dim, C, L);
+  Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain, thr,
+                         dim, C, L);
+  P.chain0 = chain0;
   const Rand R = {noise, ua, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)with_functor<true, CB>(X, x_bf16, y, N, 1.0f, G, [&](auto pg) {
-    return launch(transition_kernel<decltype(pg), false, false, false>, P,
-                  pg, G, s, P, pg, R, q, u, g, p, q_out, u_out, g_out, p_out,
-                  stats, nullptr, nullptr);
+    return launch(transition_kernel_for<decltype(pg), false, false, false>(P),
+                  P, pg, G, s, P, pg, R, q, u, g, p, q_out, u_out, g_out,
+                  p_out, stats, nullptr, nullptr);
   });
 }
 
 // Kernel 6: num_draws transitions.  noise: (draws, dim, C), ua: (draws, C),
-// or the Philox key seed + t*DRAW_SEED_STRIDE for draw t (use_seed).  X and
+// or the Philox key seed + t*DRAW_SEED_STRIDE for draw t (use_seed),
+// on the launch's chain index (never sharded: no chain offset).  X and
 // the plan as kernel 5's; pos: (draws, C, dim) or null; stats:
 // (draws, 8, C).
 int ghmc_segment_launch(const float* q, const float* u, const float* g,

@@ -72,7 +72,9 @@
 // is kept by a true select.
 //
 // Randomness is external (ξ and the MH uniform as tensors) or Philox keyed
-// by the call's (or draw's) seed on the global chain index: the MOMENTUM
+// by the call's (or draw's) seed on the global chain index (chain0 + the
+// launch's chain, chain0 a shard's offset, 0 unsharded; the segment kernel
+// is never sharded and keys on the launch's chain): the MOMENTUM
 // stream's normals z and the ACCEPT stream's uniform
 // (ops/philox.py:ghmc_streams).
 #pragma once
@@ -96,6 +98,8 @@ struct Params {
   float thr;
   int dim, C;
   int ds;              // row stride in shared memory: dim rounded up to 4
+  uint32_t chain0;     // global index of chain 0: a shard's Philox offset
+                       // (kernels 5 and 7; the segment kernel keys on 0)
 };
 
 // The parameters of a GHMC launch (kernels 5 and 6): ε and α as rows or,
@@ -118,6 +122,7 @@ inline Params ghmc_params(const float* eps, const float* alpha, float eps0,
   P.dim = dim;
   P.C = C;
   P.ds = (dim + 3) / 4 * 4;
+  P.chain0 = 0;
   return P;
 }
 
@@ -227,12 +232,13 @@ struct Stats {
 // chain state and u its potential; on exit they hold the new state (p
 // flipped on rejection), and tq, tp the trajectory's endpoint.  `more`: the
 // block takes another gradient after this transition's last (the functor
-// then requests X's first chunk for it early).
+// then requests X's first chunk for it early).  Philox keys chain on the
+// global index chain0 + chain.
 template <class PG, bool STD, bool DENSE, class SC>
 __device__ Stats transition(const Params& P, const PG& pg_fn,
                             const Smem<SC>& S,
                             const Rand& R, int L, bool more, int chain,
-                            bool valid, float& u) {
+                            bool valid, float& u, uint32_t chain0) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int dim = P.dim, ds = P.ds;
   float* const q = S.q + w * ds;
@@ -250,7 +256,7 @@ __device__ Stats transition(const Params& P, const PG& pg_fn,
 
   if (valid) {  // the partial refresh into p; z in tmp, L⁻ᵀ z in tp
     if (R.seeded) {
-      normal_row((uint32_t)chain, R.seed, dim, lane, tmp);
+      normal_row(chain0 + (uint32_t)chain, R.seed, dim, lane, tmp);
       __syncwarp();
       if constexpr (DENSE) apply_dense(P.ms, tmp, tp, dim, lane);
     }
@@ -306,8 +312,8 @@ __device__ Stats transition(const Params& P, const PG& pg_fn,
     delta = delta != delta ? NEG_INF : clip(delta);
     st.div = fabsf(delta) > P.thr ? 1.f : 0.f;
     st.accept = fminf(1.0f, expf(delta));
-    const float ua = R.seeded ? u01(philox((uint32_t)chain, 0u, ACCEPT,
-                                           R.seed).x)
+    const float ua = R.seeded ? u01(philox(chain0 + (uint32_t)chain, 0u,
+                                           ACCEPT, R.seed).x)
                               : R.ua[chain];
     const bool acc = ua < st.accept;
     st.energy = acc ? e1 : e0;
@@ -403,8 +409,11 @@ __device__ void store_stats(float* stats, int C, int L, int chain, int lane,
 }
 
 // One transition.  p and p_out may be null (no momentum carried);
-// qp_out and vp_out are written with PROPOSAL.
-template <class PG, bool STD, bool DENSE, bool PROPOSAL>
+// qp_out and vp_out are written with PROPOSAL.  OFFSET: Philox keys chain c
+// on P.chain0 + c (a shard's launch); without it on c: a runtime chain0
+// costs 1-3% (register allocation), so a launch at chain0 0 takes the
+// compile-time zero (transition_kernel_for picks).
+template <class PG, bool STD, bool DENSE, bool PROPOSAL, bool OFFSET = false>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
     transition_kernel(Params P, PG pg_fn, Rand R, const float* q,
                       const float* u, const float* g, const float* p,
@@ -420,7 +429,8 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   float uc = load_state<STD, DENSE>(P, S, q, u, g, p);
   __syncthreads();
   const Stats st =
-      transition<PG, STD, DENSE>(P, pg_fn, S, R, L, false, chain, valid, uc);
+      transition<PG, STD, DENSE>(P, pg_fn, S, R, L, false, chain, valid, uc,
+                                 OFFSET ? P.chain0 : 0u);
   pg_fn.drain(S.pgs);  // L < 1 leaves the first chunk
   if (valid) store_stats<STD>(stats, P.C, L, chain, lane, st);
   store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
@@ -469,7 +479,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
       Rt.ua = R.ua + (size_t)t * P.C;
     }
     const Stats st = transition<PG, STD, DENSE>(
-        P, pg_fn, S, Rt, L, t + 1 < num_draws, chain, valid, uc);
+        P, pg_fn, S, Rt, L, t + 1 < num_draws, chain, valid, uc, 0u);
     if (valid) {
       if (pos) {
         float* row = pos + ((size_t)t * P.C + chain) * P.dim;
@@ -480,6 +490,14 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS)
   }
   pg_fn.drain(S.pgs);
   store_state<STD>(P, S, q_out, u_out, g_out, p_out, uc);
+}
+
+// The kernel 5 / 7 instantiation for a launch of P: with the offset only
+// where P.chain0 is not 0.
+template <class PG, bool STD, bool DENSE, bool PROPOSAL>
+auto transition_kernel_for(const Params& P) {
+  return P.chain0 ? transition_kernel<PG, STD, DENSE, PROPOSAL, true>
+                  : transition_kernel<PG, STD, DENSE, PROPOSAL, false>;
 }
 
 // Checks a launch's sizes, and with the functor pg its own operands and

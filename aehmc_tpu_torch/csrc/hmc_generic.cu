@@ -64,24 +64,25 @@ extern "C" {
 // (im_per_chain); stats (8, C).  ptrs, lens: the ndata data operands
 // (device pointers, lengths in floats); ws: the global workspace (blocks ×
 // 8 × W floats) or null when the functor keeps it in shared memory.  The
-// other arguments as ghmc_transition_launch's; the plan's points and
-// row_stride are 0 (no tile).
+// other arguments (chain0 among them) as ghmc_transition_launch's; the
+// plan's points and row_stride are 0 (no tile).
 int ghmc_transition_generic_launch(
     const float* q, const float* u, const float* g, const float* p,
     const float* noise, const float* ua, int use_seed, unsigned int seed,
-    const void* const* ptrs, const long long* lens, int ndata, float* ws,
-    const float* eps, const float* alpha, float eps0, float alpha0,
-    const float* im, int im_per_chain, float thr, int dim, int C, int L,
-    float* q_out, float* u_out, float* g_out, float* p_out, float* stats,
-    int blocks, int points, int row_stride, int smem, int chains,
-    void* stream) {
-  const Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain,
-                               thr, dim, C, L);
+    unsigned int chain0, const void* const* ptrs, const long long* lens,
+    int ndata, float* ws, const float* eps, const float* alpha, float eps0,
+    float alpha0, const float* im, int im_per_chain, float thr, int dim,
+    int C, int L, float* q_out, float* u_out, float* g_out, float* p_out,
+    float* stats, int blocks, int points, int row_stride, int smem,
+    int chains, void* stream) {
+  Params P = ghmc_params(eps, alpha, eps0, alpha0, im, im_per_chain, thr,
+                         dim, C, L);
+  P.chain0 = chain0;
   const Rand R = {noise, ua, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const GenericPG pg = make_pg(ptrs, lens, ndata, ws);
-  return (int)launch(transition_kernel<GenericPG, false, false, false>, P,
-                     pg, G, (cudaStream_t)stream, P, pg, R, q, u, g, p,
+  return (int)launch(transition_kernel_for<GenericPG, false, false, false>(P),
+                     P, pg, G, (cudaStream_t)stream, P, pg, R, q, u, g, p,
                      q_out, u_out, g_out, p_out, stats, nullptr, nullptr);
 }
 
@@ -115,19 +116,20 @@ int ghmc_segment_generic_launch(
 // as ghmc_transition_generic_launch's.
 int chees_transition_generic_launch(
     const float* q, const float* u, const float* g, const float* p,
-    const float* ua, int use_seed, unsigned int seed, const void* const* ptrs,
-    const long long* lens, int ndata, float* ws, const float* eps,
-    const float* im, const float* ms, int dense, const int* L, float thr,
-    int dim, int C, float* q_out, float* u_out, float* g_out, float* stats,
-    float* qp_out, float* vp_out, int blocks, int points, int row_stride,
-    int smem, int chains, void* stream) {
+    const float* ua, int use_seed, unsigned int seed, unsigned int chain0,
+    const void* const* ptrs, const long long* lens, int ndata, float* ws,
+    const float* eps, const float* im, const float* ms, int dense,
+    const int* L, float thr, int dim, int C, float* q_out, float* u_out,
+    float* g_out, float* stats, float* qp_out, float* vp_out, int blocks,
+    int points, int row_stride, int smem, int chains, void* stream) {
   if (!L || (dense && use_seed && !ms)) return (int)cudaErrorInvalidValue;
-  const Params P = chees_params(eps, im, ms, L, thr, dim, C);
+  Params P = chees_params(eps, im, ms, L, thr, dim, C);
+  P.chain0 = chain0;
   const Rand R = {p, ua, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const GenericPG pg = make_pg(ptrs, lens, ndata, ws);
-  auto kernel = dense ? transition_kernel<GenericPG, true, true, true>
-                      : transition_kernel<GenericPG, true, false, true>;
+  auto kernel = dense ? transition_kernel_for<GenericPG, true, true, true>(P)
+                      : transition_kernel_for<GenericPG, true, false, true>(P);
   return (int)launch(kernel, P, pg, G, (cudaStream_t)stream, P, pg, R, q, u,
                      g, nullptr, q_out, u_out, g_out, nullptr, stats, qp_out,
                      vp_out);

@@ -52,8 +52,10 @@
 // whole-run kernel equals one launch per draw bit for bit.
 //
 // Randomness is external (tensors, for parity with the NumPy oracle) or
-// Philox4x32-10 keyed by the draw's seed with counter (chain, index, stream,
-// 0); the plain version computes the same streams (ops/philox.py).
+// Philox4x32-10 keyed by the draw's seed with counter (chain0 + chain, index,
+// stream, 0), chain0 the launch's first global chain (a shard's offset, 0
+// unsharded, where the kernels' instantiation without the offset runs); the
+// plain version computes the same streams (ops/philox.py).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +77,7 @@ struct Params {
   const float* eps_row;  // (C,): chain c's ε, or null
   int dim, C, K;
   int ds;           // row stride in shared memory: dim rounded up to 4
+  uint32_t chain0;  // global index of chain 0: a shard's Philox offset
 };
 
 // randomness of one transition: external tensors or a Philox key
@@ -216,7 +219,7 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src,
 template <bool STD, class SC>
 __device__ void draw_momentum(const Params& P, const Smem<SC>& S,
                               const Rand& R, int w, int lane, int chain,
-                              float* p) {
+                              uint32_t chain0, float* p) {
   const int dim = P.dim;
   if (!R.seeded) {
     for (int d = lane; d < dim; d += 32)
@@ -224,7 +227,7 @@ __device__ void draw_momentum(const Params& P, const Smem<SC>& S,
     return;
   }
   float* z = S.tmp + w * P.ds;
-  normal_row((uint32_t)chain, R.seed, dim, lane, z);
+  normal_row(chain0 + (uint32_t)chain, R.seed, dim, lane, z);
   __syncwarp();
   if (P.dense) {
     apply_dense(P, P.ms, z, p, lane);
@@ -236,10 +239,10 @@ __device__ void draw_momentum(const Params& P, const Smem<SC>& S,
 
 template <bool STD>
 __device__ __forceinline__ float rand_dir(const Rand& R, const Params& P,
-                                          int chain, int d) {
+                                          int chain, uint32_t chain0, int d) {
   if (R.seeded) {
-    const float u = u01(philox((uint32_t)chain, (uint32_t)d, DIRECTION,
-                               R.seed).x);
+    const float u = u01(philox(chain0 + (uint32_t)chain, (uint32_t)d,
+                               DIRECTION, R.seed).x);
     return u < 0.5f ? -1.f : 1.f;
   }
   return R.dirs[gat<STD>(d, chain, P.K, P.C)];
@@ -247,17 +250,21 @@ __device__ __forceinline__ float rand_dir(const Rand& R, const Params& P,
 
 template <bool STD>
 __device__ __forceinline__ float rand_bias(const Rand& R, const Params& P,
-                                           int chain, int d) {
+                                           int chain, uint32_t chain0,
+                                           int d) {
   if (R.seeded)
-    return u01(philox((uint32_t)chain, (uint32_t)d, BIAS, R.seed).x);
+    return u01(
+        philox(chain0 + (uint32_t)chain, (uint32_t)d, BIAS, R.seed).x);
   return R.ub[gat<STD>(d, chain, P.K, P.C)];
 }
 
 template <bool STD>
 __device__ __forceinline__ float rand_leaf(const Rand& R, const Params& P,
-                                           int chain, int idx) {
+                                           int chain, uint32_t chain0,
+                                           int idx) {
   if (R.seeded)
-    return u01(philox((uint32_t)chain, (uint32_t)idx, LEAF, R.seed).x);
+    return u01(
+        philox(chain0 + (uint32_t)chain, (uint32_t)idx, LEAF, R.seed).x);
   return R.ul[gat<STD>(idx, chain, 1 << P.K, P.C)];
 }
 
@@ -275,11 +282,13 @@ __device__ __forceinline__ float chain_eps(const Params& P, int chain,
 
 // One NUTS transition of the block's chains.  On entry prop_q / prop_g hold
 // each chain's (q, ∇U) and u0 its potential; on exit they hold the proposal.
-// eps is the chain's step size (chain_eps).
+// eps is the chain's step size (chain_eps); Philox keys the chain on the
+// global index chain0 + chain.
 template <bool STD, class PG>
 __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
                            const Smem<typename PG::Scratch>& S, const Rand& R,
-                           int chain, bool valid, float u0, float eps) {
+                           int chain, uint32_t chain0, bool valid, float u0,
+                           float eps) {
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int dim = P.dim, ds = P.ds;
   float* const pq = S.prop_q + w * ds;
@@ -306,7 +315,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
   float active = valid ? 1.f : 0.f;
   Stats st = {u0, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (valid) {
-    draw_momentum<STD>(P, S, R, w, lane, chain, lp);
+    draw_momentum<STD>(P, S, R, w, lane, chain, chain0, lp);
     for (int d = lane; d < dim; d += 32) {
       lq[d] = rq[d] = pq[d];
       lg[d] = rg[d] = pg[d];
@@ -323,7 +332,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
     float s_slpa = NEG_INF, s_active = 0.f, s_div = 0.f, s_term = 0.f;
     float s_len = 0.f;
     if (keep) {
-      dir = rand_dir<STD>(R, P, chain, d);
+      dir = rand_dir<STD>(R, P, chain, chain0, d);
       const bool right = dir > 0.f;
       for (int k = lane; k < dim; k += 32) {
         tq[k] = sq[k] = right ? rq[k] : lq[k];
@@ -372,7 +381,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
       bool take = true;
       float m_w = delta, m_slpa = slpa_leaf;
       if (i > 0) {
-        const float u = rand_leaf<STD>(R, P, chain, nleaf - 1 + i);
+        const float u = rand_leaf<STD>(R, P, chain, chain0, nleaf - 1 + i);
         const float u_logit = logf(u) - log1pf(-u);
         take = u_logit < delta - s_w;
         m_w = logaddexp(s_w, delta);
@@ -432,7 +441,7 @@ __device__ Stats nuts_core(const Params& P, const PG& pg_fn,
       const float merged_slpa = logaddexp(s_slpa, prop_slpa);
       const bool clean = (1.f - s_div) * (1.f - s_term) > 0.5f;
       const float p_acc = fminf(expf(s_w - prop_w), 1.f);
-      if (clean && rand_bias<STD>(R, P, chain, d) < p_acc) {
+      if (clean && rand_bias<STD>(R, P, chain, chain0, d) < p_acc) {
         copy_row(pq, sq, dim, lane);
         copy_row(pg, sg, dim, lane);
         prop_u = s_u;
@@ -491,7 +500,10 @@ __device__ void store_stats(float* stats, int C, int chain, int lane,
   }
 }
 
-template <class PG, bool STD>
+// OFFSET: Philox keys chain c on P.chain0 + c (a shard's launch); without
+// it on c: a runtime chain0 costs 1-3% (register allocation), so a launch
+// at chain0 0 takes the compile-time zero (transition_kernel_for picks).
+template <class PG, bool STD, bool OFFSET = false>
 __global__ void __launch_bounds__(NT, 2)
     nuts_transition_kernel(Params P, PG pg_fn, Rand R, const float* q,
                            const float* u, const float* g, float* q_out,
@@ -504,7 +516,8 @@ __global__ void __launch_bounds__(NT, 2)
   const bool valid = chain < P.C;
   load_chain<STD>(P, S, q, g, w, lane, chain, valid);
   __syncwarp();
-  const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain, valid,
+  const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain,
+                                  OFFSET ? P.chain0 : 0u, valid,
                                   valid ? u[chain] : 0.f,
                                   chain_eps(P, chain, valid));
   if (valid) {
@@ -526,8 +539,8 @@ __device__ __forceinline__ __nv_bfloat16 to_collect<__nv_bfloat16>(float x) {
 
 // Draw t is keyed by seed + t*DRAW_SEED_STRIDE; its positions go to
 // pos[t] (C, dim) (a chain's row contiguous in both layouts) and its stats
-// to the t-th (8, C) or (C, 8) slab.
-template <class PG, typename T, bool STD>
+// to the t-th (8, C) or (C, 8) slab.  OFFSET as the transition kernel's.
+template <class PG, typename T, bool STD, bool OFFSET = false>
 __global__ void __launch_bounds__(NT, 2)
     nuts_sampling_kernel(Params P, PG pg_fn, uint32_t seed, int num_draws,
                          const float* q, const float* u, const float* g,
@@ -545,7 +558,8 @@ __global__ void __launch_bounds__(NT, 2)
   Rand R = {nullptr, nullptr, nullptr, nullptr, 0u, 1};
   for (int t = 0; t < num_draws; ++t) {
     R.seed = seed + (uint32_t)t * DRAW_SEED_STRIDE;
-    const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain, valid, uc, eps);
+    const Stats st = nuts_core<STD>(P, pg_fn, S, R, chain,
+                                    OFFSET ? P.chain0 : 0u, valid, uc, eps);
     uc = st.u;
     if (valid) {
       if (pos) {
@@ -560,9 +574,23 @@ __global__ void __launch_bounds__(NT, 2)
     store_chain<STD>(P, S, q_out, u_out, g_out, w, lane, chain, uc);
 }
 
+// The kernel 1 / 3 and kernel 2 / 4 instantiations for a launch of P: with
+// the offset only where P.chain0 is not 0.
+template <class PG, bool STD>
+auto transition_kernel_for(const Params& P) {
+  return P.chain0 ? nuts_transition_kernel<PG, STD, true>
+                  : nuts_transition_kernel<PG, STD, false>;
+}
+
+template <class PG, typename T, bool STD>
+auto sampling_kernel_for(const Params& P) {
+  return P.chain0 ? nuts_sampling_kernel<PG, T, STD, true>
+                  : nuts_sampling_kernel<PG, T, STD, false>;
+}
+
 inline Params make_params(const float* im, const float* ms, int dense,
                           float eps, const float* eps_row, float thr, int dim,
-                          int C, int K) {
+                          int C, int K, uint32_t chain0) {
   Params P;
   P.im = im;
   P.ms = ms;
@@ -574,6 +602,7 @@ inline Params make_params(const float* im, const float* ms, int dense,
   P.C = C;
   P.K = K;
   P.ds = (dim + 3) / 4 * 4;
+  P.chain0 = chain0;
   return P;
 }
 

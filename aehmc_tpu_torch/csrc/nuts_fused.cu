@@ -36,7 +36,7 @@ cudaError_t launch_transition(const Params& P, const LogisticPGT<XT>& pg,
                               const float* q, const float* u, const float* g,
                               float* q_out, float* u_out, float* g_out,
                               float* stats, cudaStream_t stream) {
-  return launch(nuts_transition_kernel<LogisticPGT<XT>, true>, P, pg, ck, G,
+  return launch(transition_kernel_for<LogisticPGT<XT>, true>(P), P, pg, ck, G,
                 stream, P, pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
 }
 
@@ -47,7 +47,7 @@ cudaError_t launch_sampling(const Params& P, const LogisticPGT<XT>& pg,
                             const float* g, float* pos, float* stats,
                             float* q_out, float* u_out, float* g_out,
                             cudaStream_t stream) {
-  return launch(nuts_sampling_kernel<LogisticPGT<XT>, float, true>, P, pg,
+  return launch(sampling_kernel_for<LogisticPGT<XT>, float, true>(P), P, pg,
                 ck, G, stream, P, pg, seed, num_draws, q, u, g, pos, stats,
                 q_out, u_out, g_out, ck);
 }
@@ -66,7 +66,8 @@ extern "C" {
 int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                const float* p, const float* dirs,
                                const float* ub, const float* ul, int use_seed,
-                               unsigned int seed, const void* X,
+                               unsigned int seed, unsigned int chain0,
+                               const void* X,
                                const float* y, const float* im, float eps,
                                float thr, float prior_precision, int bf16,
                                int dim, int N, int C, int K, float* q_out,
@@ -74,7 +75,8 @@ int nuts_transition_std_launch(const float* q, const float* u, const float* g,
                                float* ck, int blocks, int points,
                                int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K);
+  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K,
+                               chain0);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -94,7 +96,8 @@ int nuts_transition_std_launch(const float* q, const float* u, const float* g,
 // X, bf16 and ck as kernel 3's; pos: (draws, C, dim) float32 or null;
 // stats: (draws, C, 8).
 int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
-                             unsigned int seed, int num_draws, const void* X,
+                             unsigned int seed, unsigned int chain0,
+                             int num_draws, const void* X,
                              const float* y, const float* im, float eps,
                              float thr, float prior_precision, int bf16,
                              int dim, int N, int C, int K, float* pos,
@@ -102,7 +105,8 @@ int nuts_sampling_std_launch(const float* q, const float* u, const float* g,
                              float* g_out, float* ck, int blocks, int points,
                              int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K);
+  const Params P = make_params(im, nullptr, 0, eps, nullptr, thr, dim, C, K,
+                               chain0);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;

@@ -34,7 +34,7 @@ cudaError_t launch_transition(const Params& P, const PG& pg, const Rand& R,
                               const float* u, const float* g, float* q_out,
                               float* u_out, float* g_out, float* stats,
                               cudaStream_t stream) {
-  return launch(nuts_transition_kernel<PG, false>, P, pg, ck, G, stream, P,
+  return launch(transition_kernel_for<PG, false>(P), P, pg, ck, G, stream, P,
                 pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
 }
 
@@ -44,7 +44,7 @@ cudaError_t launch_sampling(const Params& P, const PG& pg, uint32_t seed,
                             const float* q, const float* u, const float* g,
                             T* pos, float* stats, float* q_out, float* u_out,
                             float* g_out, cudaStream_t stream) {
-  return launch(nuts_sampling_kernel<PG, T, false>, P, pg, ck, G, stream, P,
+  return launch(sampling_kernel_for<PG, T, false>(P), P, pg, ck, G, stream, P,
                 pg, seed, num_draws, q, u, g, pos, stats, q_out, u_out, g_out,
                 ck);
 }
@@ -87,13 +87,16 @@ extern "C" {
 // products' operands in bfloat16); stats: (8, C); ck: the checkpoint
 // buffer, blocks × 2K × 8 × ds floats (ds = dim rounded up to 4).
 // use_seed selects Philox randomness keyed by seed (p, dirs, ub and ul are
-// then unused).  eps_row: (C,), chain c's step size, or null for eps.
+// then unused) on the global chain index chain0 + c: chain0 is a shard's
+// first chain, 0 unsharded.  eps_row: (C,), chain c's step size, or null
+// for eps.
 // blocks, points, row_stride, smem and chains (8) are the launch plan's
 // (aehmc_tpu_torch/ops/launch_plan.py).
 int nuts_transition_launch(const float* q, const float* u, const float* g,
                            const float* p, const float* dirs, const float* ub,
                            const float* ul, int use_seed, unsigned int seed,
-                           const void* X, int x_bf16, const float* y,
+                           unsigned int chain0, const void* X, int x_bf16,
+                           const float* y,
                            const float* im, const float* ms, int dense,
                            float eps, const float* eps_row, float thr,
                            int dim, int N, int C, int K,
@@ -101,7 +104,8 @@ int nuts_transition_launch(const float* q, const float* u, const float* g,
                            float* stats, float* ck, int blocks, int points,
                            int row_stride, int smem, int chains,
                            void* stream) {
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
@@ -122,7 +126,8 @@ int nuts_transition_launch(const float* q, const float* u, const float* g,
 // draws.  X and ck as kernel 1's; pos: (draws, C, dim) float32 or bfloat16
 // (pos_bf16), or null; stats: (draws, 8, C).
 int nuts_sampling_launch(const float* q, const float* u, const float* g,
-                         unsigned int seed, int num_draws, const void* X,
+                         unsigned int seed, unsigned int chain0,
+                         int num_draws, const void* X,
                          int x_bf16, const float* y, const float* im,
                          const float* ms, int dense, float eps,
                          const float* eps_row, float thr, int dim, int N,
@@ -131,7 +136,8 @@ int nuts_sampling_launch(const float* q, const float* u, const float* g,
                          float* u_out, float* g_out, float* ck, int blocks,
                          int points, int row_stride, int smem, int chains,
                          void* stream) {
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
@@ -171,7 +177,8 @@ int nuts_blocks_per_sm(int sampling, int x_bf16, int smem) {
 int nuts_transition_pot_launch(const float* q, const float* u, const float* g,
                                const float* p, const float* dirs,
                                const float* ub, const float* ul, int use_seed,
-                               unsigned int seed, int model, const float* y,
+                               unsigned int seed, unsigned int chain0,
+                               int model, const float* y,
                                const float* s2, int J, const float* im,
                                const float* ms, int dense, float eps,
                                const float* eps_row, float thr, int dim,
@@ -180,7 +187,8 @@ int nuts_transition_pot_launch(const float* q, const float* u, const float* g,
                                float* ck, int blocks, int points,
                                int row_stride, int smem, int chains,
                                void* stream) {
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   return (int)with_model(model, y, s2, J, [&](auto pg) {
@@ -192,7 +200,8 @@ int nuts_transition_pot_launch(const float* q, const float* u, const float* g,
 // Kernel 2 on a potential with no data matrix (`model`, y, s2, J as
 // nuts_transition_pot_launch's; the others as nuts_sampling_launch's).
 int nuts_sampling_pot_launch(const float* q, const float* u, const float* g,
-                             unsigned int seed, int num_draws, int model,
+                             unsigned int seed, unsigned int chain0,
+                             int num_draws, int model,
                              const float* y, const float* s2, int J,
                              const float* im, const float* ms, int dense,
                              float eps, const float* eps_row, float thr,
@@ -201,7 +210,8 @@ int nuts_sampling_pot_launch(const float* q, const float* u, const float* g,
                              float* g_out, float* ck, int blocks, int points,
                              int row_stride, int smem, int chains,
                              void* stream) {
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   if (num_draws < 1) return (int)cudaErrorInvalidValue;
   return (int)with_model(model, y, s2, J, [&](auto pg) {

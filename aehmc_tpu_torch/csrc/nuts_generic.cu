@@ -56,7 +56,7 @@ cudaError_t transition(const Params& P, const GenericPG& pg, const Rand& R,
                        const float* u, const float* g, float* q_out,
                        float* u_out, float* g_out, float* stats,
                        cudaStream_t stream) {
-  return launch(nuts_transition_kernel<GenericPG, STD>, P, pg, ck, G, stream,
+  return launch(transition_kernel_for<GenericPG, STD>(P), P, pg, ck, G, stream,
                 P, pg, R, q, u, g, q_out, u_out, g_out, stats, ck);
 }
 
@@ -66,7 +66,7 @@ cudaError_t sampling(const Params& P, const GenericPG& pg, uint32_t seed,
                      const float* q, const float* u, const float* g, T* pos,
                      float* stats, float* q_out, float* u_out, float* g_out,
                      cudaStream_t stream) {
-  return launch(nuts_sampling_kernel<GenericPG, T, STD>, P, pg, ck, G, stream,
+  return launch(sampling_kernel_for<GenericPG, T, STD>(P), P, pg, ck, G, stream,
                 P, pg, seed, num_draws, q, u, g, pos, stats, q_out, u_out,
                 g_out, ck);
 }
@@ -86,7 +86,8 @@ int generic_transition_launch(int std_layout, const float* q, const float* u,
                               const float* g, const float* p,
                               const float* dirs, const float* ub,
                               const float* ul, int use_seed,
-                              unsigned int seed, const void* const* ptrs,
+                              unsigned int seed, unsigned int chain0,
+                              const void* const* ptrs,
                               const long long* lens, int ndata, float* ws,
                               const float* im, const float* ms, int dense,
                               float eps, const float* eps_row, float thr,
@@ -97,7 +98,8 @@ int generic_transition_launch(int std_layout, const float* q, const float* u,
                               void* stream) {
   if (std_layout && (dense || ms || eps_row))
     return (int)cudaErrorInvalidValue;
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Rand R = {p, dirs, ub, ul, seed, use_seed};
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const GenericPG pg = make_pg(ptrs, lens, ndata, ws);
@@ -115,7 +117,8 @@ int generic_transition_launch(int std_layout, const float* q, const float* u,
 // draw t keyed by seed + t*DRAW_SEED_STRIDE.  The potential's arguments as
 // generic_transition_launch's.
 int generic_sampling_launch(int std_layout, const float* q, const float* u,
-                            const float* g, unsigned int seed, int num_draws,
+                            const float* g, unsigned int seed,
+                            unsigned int chain0, int num_draws,
                             const void* const* ptrs, const long long* lens,
                             int ndata, float* ws, const float* im,
                             const float* ms, int dense, float eps,
@@ -126,7 +129,8 @@ int generic_sampling_launch(int std_layout, const float* q, const float* u,
                             int smem, int chains, void* stream) {
   if (num_draws < 1 || (std_layout && (dense || ms || eps_row || pos_bf16)))
     return (int)cudaErrorInvalidValue;
-  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K);
+  const Params P = make_params(im, ms, dense, eps, eps_row, thr, dim, C, K,
+                               chain0);
   const Geometry G = {blocks, points, row_stride, smem, chains};
   const GenericPG pg = make_pg(ptrs, lens, ndata, ws);
   const cudaStream_t s = (cudaStream_t)stream;

@@ -55,6 +55,11 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _GEOMETRY = [_I] * 5 + [_P]
 # a generated functor: data pointers, lengths, their count, the workspace
 _TABLE = [_P, _P, _I, _P]
+# the randomness of a transition: the Philox flag, its key and chain0 (the
+# launch's first global chain, a shard's offset); of a whole NUTS run: the
+# key, chain0 and the draws (the GHMC segment, never sharded, takes no
+# chain0)
+_SEEDED, _KEYED = [_I, _U, _U], [_U, _U, _I]
 # kernels 5 and 6 after the potential: eps, alpha rows, their scalars, M⁻¹,
 # per-chain flag, threshold, then dim, C, L
 _GHMC_PARAMS = [_P, _P, _F, _F, _P, _I, _F, _I, _I, _I]
@@ -64,32 +69,32 @@ _CHEES_PARAMS = [_P] * 3 + [_I, _P, _F, _I, _I]
 # source -> {C function: argtypes}
 SIGNATURES = {
     "nuts_fused_small.cu": {
-        "nuts_transition_launch": [_P] * 7 + [_I, _U] + [_P, _I] + [_P] * 3
+        "nuts_transition_launch": [_P] * 7 + _SEEDED + [_P, _I] + [_P] * 3
         + [_I, _F, _P, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
-        "nuts_sampling_launch": [_P] * 3 + [_U, _I] + [_P, _I] + [_P] * 3
+        "nuts_sampling_launch": [_P] * 3 + _KEYED + [_P, _I] + [_P] * 3
         + [_I, _F, _P, _F, _I, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
         "nuts_blocks_per_sm": [_I] * 3,
-        "nuts_transition_pot_launch": [_P] * 7 + [_I, _U] + [_I, _P, _P, _I]
+        "nuts_transition_pot_launch": [_P] * 7 + _SEEDED + [_I, _P, _P, _I]
         + [_P] * 2 + [_I, _F, _P, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
-        "nuts_sampling_pot_launch": [_P] * 3 + [_U, _I] + [_I, _P, _P, _I]
+        "nuts_sampling_pot_launch": [_P] * 3 + _KEYED + [_I, _P, _P, _I]
         + [_P] * 2 + [_I, _F, _P, _F, _I, _I, _I] + [_P, _I] + [_P] * 5
         + _GEOMETRY,
         "nuts_pot_blocks_per_sm": [_I] * 3,
     },
     "nuts_fused.cu": {
-        "nuts_transition_std_launch": [_P] * 7 + [_I, _U] + [_P] * 3
+        "nuts_transition_std_launch": [_P] * 7 + _SEEDED + [_P] * 3
         + [_F] * 3 + [_I] * 5 + [_P] * 5 + _GEOMETRY,
-        "nuts_sampling_std_launch": [_P] * 3 + [_U, _I] + [_P] * 3
+        "nuts_sampling_std_launch": [_P] * 3 + _KEYED + [_P] * 3
         + [_F] * 3 + [_I] * 5 + [_P] * 6 + _GEOMETRY,
         "nuts_std_blocks_per_sm": [_I] * 3,
     },
     "chees_fused.cu": {
-        "chees_transition_launch": [_P] * 5 + [_I, _U] + [_P, _I] + [_P] * 4
+        "chees_transition_launch": [_P] * 5 + _SEEDED + [_P, _I] + [_P] * 4
         + [_I, _P, _F] + [_I] * 3 + [_P] * 6 + _GEOMETRY,
         "chees_blocks_per_sm": [_I] * 4,
     },
     "ghmc_fused.cu": {
-        "ghmc_transition_launch": [_P] * 6 + [_I, _U] + [_P, _I] + [_P] * 3
+        "ghmc_transition_launch": [_P] * 6 + _SEEDED + [_P, _I] + [_P] * 3
         + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
         "ghmc_segment_launch": [_P] * 6 + [_I, _U, _I] + [_P, _I] + [_P] * 3
         + [_F, _F, _P] + [_I, _F, _I, _I, _I, _I] + [_P] * 6 + _GEOMETRY,
@@ -107,16 +112,16 @@ SIGNATURES = {
 
 # C function of a library built on a generated functor -> argtypes
 GENERIC_SIGNATURES = {
-    "generic_transition_launch": [_I] + [_P] * 7 + [_I, _U] + [_P, _P, _I, _P]
+    "generic_transition_launch": [_I] + [_P] * 7 + _SEEDED + [_P, _P, _I, _P]
     + [_P, _P, _I, _F, _P, _F, _I, _I, _I] + [_P] * 5 + _GEOMETRY,
-    "generic_sampling_launch": [_I] + [_P] * 3 + [_U, _I] + [_P, _P, _I, _P]
+    "generic_sampling_launch": [_I] + [_P] * 3 + _KEYED + [_P, _P, _I, _P]
     + [_P, _P, _I, _F, _P, _F, _I, _I, _I] + [_P, _I] + [_P] * 5 + _GEOMETRY,
     "generic_blocks_per_sm": [_I] * 3,
-    "ghmc_transition_generic_launch": [_P] * 6 + [_I, _U] + _TABLE
+    "ghmc_transition_generic_launch": [_P] * 6 + _SEEDED + _TABLE
     + _GHMC_PARAMS + [_P] * 5 + _GEOMETRY,
     "ghmc_segment_generic_launch": [_P] * 6 + [_I, _U, _I] + _TABLE
     + _GHMC_PARAMS + [_P] * 6 + _GEOMETRY,
-    "chees_transition_generic_launch": [_P] * 5 + [_I, _U] + _TABLE
+    "chees_transition_generic_launch": [_P] * 5 + _SEEDED + _TABLE
     + _CHEES_PARAMS + [_P] * 6 + _GEOMETRY,
     "hmc_generic_blocks_per_sm": [_I] * 3,
 }

@@ -22,15 +22,16 @@ regression's, or one generated from any other float32 potential's traced
 gradient graph; launches count as ``chees_transition`` and
 ``chees_transition_generic``.  On the card
 ``num_steps`` may be a device int32, read by the kernel, so the driver's
-trip count never synchronises the stream.  ``shard_fused_chees_transition``
-(a mesh) is ROADMAP.md item 1.12.
+trip count never synchronises the stream.  :func:`shard_fused_chees_transition`
+runs the transition per shard of a device mesh (``mesh=`` of the kernel
+adapter and the driver).
 """
 
 from typing import Callable, Sequence
 
 import torch
 
-from aehmc_tpu_torch import chees
+from aehmc_tpu_torch import chees, keys
 from aehmc_tpu_torch.models.regression import logistic_pg_t
 from aehmc_tpu_torch.ops.functors import HMC_CORE, card_functor
 from aehmc_tpu_torch.ops.ghmc_fused import (
@@ -88,11 +89,13 @@ def _chees_core_t(q0, u0, g0, p0, u_acc, eps, num_steps: int, apply_im,
 
 def chees_transition_plain(q, u, g, inverse_mass, step_size, num_steps,
                            pot_grad_t, *, divergence_threshold: float = 1000.0,
-                           momentum=None, u_accept=None, seed=None):
+                           momentum=None, u_accept=None, seed=None,
+                           chain_offset: int = 0):
     """Plain version of kernel 7 on any device, in the builder's layout:
     ``q, g, momentum (C, dim)``, ``u`` and ``u_accept (C,)`` (or ``(C,
     1)``), ``pot_grad_t(q_t) -> (u, g_t)`` transposed.  ``seed`` (u32)
-    replaces ``momentum`` and ``u_accept`` by the Philox streams.  Returns
+    replaces ``momentum`` and ``u_accept`` by the Philox streams of the
+    global chains ``chain_offset ..``.  Returns
     ``(q, u (C, 1), g, stats (C, 8), q_proposed, v_proposed)``."""
     num_chains, dim = q.shape
     device = q.device
@@ -106,7 +109,8 @@ def chees_transition_plain(q, u, g, inverse_mass, step_size, num_steps,
         def apply_im(p):
             return im_col * p
     if seed is not None:
-        z, u_acc = ghmc_streams(seed, num_chains, dim, device=device)
+        z, u_acc = ghmc_streams(seed, num_chains, dim, device=device,
+                                chain_offset=chain_offset)
         p0 = _mass_sqrt(im) @ z if im.ndim == 2 else torch.sqrt(1.0 / im_col) * z
     else:
         p0 = momentum.T
@@ -136,25 +140,32 @@ def make_fused_chees_transition(
     1), grad', stats (C, 8), q_proposed, v_proposed)`` in the ``(chains,
     dim)`` layout, as the JAX builder.  ``num_steps`` is the trip count
     shared by all chains (an int or an int32 tensor); ``seed`` (a u32 int)
-    selects Philox randomness, else ``momentum (C, dim)`` and ``u_accept
-    (C,)`` are used.  ``block_chains`` has no effect: a CUDA block holds 8
+    selects Philox randomness, chain c drawing global chain ``chain_offset
+    + c``'s streams (``transition(..., seed=s, chain_offset=o)``, a
+    shard's offset), else ``momentum (C, dim)`` and ``u_accept (C,)`` are
+    used.  ``block_chains`` has no effect: a CUDA block holds 8
     chains, and the Philox streams follow the global chain index.
     """
+    from aehmc_tpu_torch.parallel.mesh import device_replicas
+
     data = tuple(data)
     pot_grad_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
+    data_on = device_replicas(data)
 
     def transition(q, potential, grad, momentum, u_accept, inverse_mass,
-                   step_size, num_steps, seed=None):
+                   step_size, num_steps, seed=None, chain_offset=0):
         if q.is_cuda:
             return chees_transition_cuda(
                 q.contiguous(), potential, grad.contiguous(), inverse_mass,
-                step_size, num_steps, data,
+                step_size, num_steps, data_on(q.device),
                 divergence_threshold=divergence_threshold, seed=seed,
+                chain_offset=chain_offset,
                 momentum=None if momentum is None else momentum.contiguous(),
                 u_accept=u_accept, potential_and_grad_t=potential_and_grad_t,
                 potential_fn_t=potential_fn_t,
             )
-        rand = dict(momentum=momentum, u_accept=u_accept, seed=seed)
+        rand = dict(momentum=momentum, u_accept=u_accept, seed=seed,
+                    chain_offset=chain_offset)
         return chees_transition_plain(
             q, potential, grad, inverse_mass, step_size, num_steps,
             pot_grad_t, divergence_threshold=divergence_threshold, **rand,
@@ -168,7 +179,14 @@ def _randomness(key, use_internal_prng: bool, num_chains: int, dim: int,
     """One call's randomness from ``key``: a ``torch.Generator`` gives a
     Philox seed (``use_internal_prng``) or the standard normals ``z (C,
     dim)`` and uniforms ``u (C,)``; a key given as an int seed or a ``(z,
-    u)`` pair is used as it is."""
+    u)`` pair is used as it is; a :class:`~aehmc_tpu_torch.keys.Key` (a
+    shard's, :func:`aehmc_tpu_torch.parallel.pooled.shard_kernel`) gives
+    ``(seed, chain_offset)``."""
+    if isinstance(key, keys.Key):
+        if not use_internal_prng:
+            raise TypeError("a Key is a Philox seed: it needs "
+                            "use_internal_prng=True")
+        return key
     if isinstance(key, torch.Generator):
         if use_internal_prng:
             return derive_draw_seeds(key, 1)[0]
@@ -184,15 +202,56 @@ def _randomness(key, use_internal_prng: bool, num_chains: int, dim: int,
     return key
 
 
+def shard_fused_chees_transition(
+    transition: Callable,
+    mesh,
+    num_chains: int,
+    block_chains: int = None,
+) -> Callable:
+    """A fused ChEES transition (:func:`make_fused_chees_transition`) run
+    per shard of the chain axis over ``mesh``, with the same signature
+    (port of the JAX ``shard_fused_chees_transition``): the state, external
+    randomness and a per-chain ε are sharded, M⁻¹ and the trip count
+    replicated, and under a Philox ``seed`` each shard draws its global
+    chains' streams, so the joined outputs (the proposals too) equal the
+    unsharded transition's bit for bit on the card.  The ChEES criterion's
+    cross-chain means stay outside, over the joined chains.  Raises
+    ``ValueError`` as :func:`aehmc_tpu_torch.parallel.mesh.chain_shards`
+    does.
+    """
+    from aehmc_tpu_torch.parallel.mesh import (
+        SHARDED,
+        SHARED,
+        VECTOR,
+        chain_shards,
+        map_shards,
+    )
+
+    shards = chain_shards(mesh, num_chains, block_chains)
+    spec = (SHARDED,) * 5 + (SHARED, VECTOR, SHARED)
+
+    def sharded(q, u, g, p, uacc, imm, eps, num_steps, seed=None,
+                chain_offset=0):
+        return map_shards(
+            lambda s: transition(
+                *s.args(spec, (q, u, g, p, uacc, imm, eps, num_steps)),
+                seed=seed, chain_offset=chain_offset + s.start),
+            shards, q.device)
+
+    return sharded
+
+
 def make_fused_chees_kernel(
     potential_fn_t: Callable,
     data: Sequence[torch.Tensor] = (),
     *,
     divergence_threshold: float = 1000.0,
-    block_chains: int = 1024,
+    block_chains: int = None,
     potential_and_grad_t: Callable = None,
     use_internal_prng: bool = True,
     step_size_factors=None,
+    mesh=None,
+    num_chains: int = None,
 ) -> Callable:
     """The fused transition as the ``kernel_fn(key, states, step_size,
     num_integration_steps, inverse_mass_matrix) -> (ChainState, CheesInfo)``
@@ -203,12 +262,18 @@ def make_fused_chees_kernel(
     draws standard normals ``z`` and uniforms, and the momentum is ``L⁻ᵀ z``
     (dense ``M⁻¹``) or ``√(1/M⁻¹)·z``, as the JAX adapter does.
     ``step_size_factors`` (chains,) multiplies every step size the
-    adaptation proposes.
+    adaptation proposes.  ``mesh`` (with ``num_chains``) runs the
+    transition per shard (:func:`shard_fused_chees_transition`).
     """
     transition = make_fused_chees_transition(
         potential_fn_t, data, divergence_threshold=divergence_threshold,
         block_chains=block_chains, potential_and_grad_t=potential_and_grad_t,
     )
+    if mesh is not None:
+        if num_chains is None:
+            raise ValueError("mesh= requires num_chains=")
+        transition = shard_fused_chees_transition(transition, mesh,
+                                                  num_chains, block_chains)
 
     def kernel_fn(key, states, step_size, num_integration_steps,
                   inverse_mass_matrix):
@@ -219,9 +284,10 @@ def make_fused_chees_kernel(
             eps = eps * torch.as_tensor(step_size_factors, dtype=torch.float32,
                                         device=device).reshape(num_chains)
         rand = _randomness(key, use_internal_prng, num_chains, dim, device)
+        chain_offset = 0
         if use_internal_prng:
             momentum = u_acc = None
-            seed = rand
+            seed, chain_offset = keys.as_key(rand)
         else:
             imm = torch.as_tensor(inverse_mass_matrix, dtype=torch.float32,
                                   device=device)
@@ -234,6 +300,7 @@ def make_fused_chees_kernel(
             states.position, states.potential_energy,
             states.potential_energy_grad, momentum, u_acc,
             inverse_mass_matrix, eps, num_integration_steps, seed=seed,
+            chain_offset=chain_offset,
         )
         new_states = ChainState(position=qn, potential_energy=un[:, 0],
                                 potential_energy_grad=gn)
@@ -248,6 +315,7 @@ def make_fused_chees_kernel(
         )
         return new_states, info
 
+    kernel_fn.mesh = mesh
     return kernel_fn
 
 
@@ -289,20 +357,22 @@ def sample_fused_chees_adaptive(
     ``M⁻¹``) and sampling, both through the fused transition.
 
     ``generator`` is a ``torch.Generator`` or a key source ``(phase, index)
-    -> key`` (:mod:`aehmc_tpu_torch.chees`).  Returns ``(final_positions,
-    positions (draws, C, dim), CheesSampleInfo, CheesWarmupResult)``.
+    -> key`` (:mod:`aehmc_tpu_torch.chees`).  ``mesh`` shards the chains
+    over its devices (:func:`shard_fused_chees_transition`); the ChEES
+    gradient's and the pooled reductions run over the joined chains, so
+    the run equals the unsharded one bit for bit on the card.  Returns
+    ``(final_positions, positions (draws, C, dim), CheesSampleInfo,
+    CheesWarmupResult)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md item 1.12)")
     if target_acceptance_rate is None:
         target_acceptance_rate = chees.OPTIMAL_TARGET_ACCEPTANCE
     kernel_fn = make_fused_chees_kernel(
         potential_fn_t, data, divergence_threshold=divergence_threshold,
-        block_chains=block_chains or 1024,
+        block_chains=block_chains,
         potential_and_grad_t=potential_and_grad_t,
         use_internal_prng=use_internal_prng,
         step_size_factors=step_size_factors,
+        mesh=mesh, num_chains=initial_positions.shape[0],
     )
     states = initial_states(potential_fn_t, potential_and_grad_t, data,
                             initial_positions)
@@ -348,6 +418,7 @@ def _device_steps(num_steps, device) -> torch.Tensor:
 def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
                           *, divergence_threshold: float = 1000.0,
                           momentum=None, u_accept=None, seed=None,
+                          chain_offset: int = 0,
                           potential_and_grad_t=logistic_pg_t,
                           potential_fn_t=None):
     """Launch kernel 7 (``chees_transition``) on CUDA tensors in the
@@ -355,7 +426,9 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
     (:func:`functors.card_functor` on :data:`functors.HMC_CORE`: the
     logistic one by default).
     ``step_size`` is one value or ``(C,)``, and reaches the kernel as
-    ``(C,)``; ``num_steps`` an int or an int32 (device) scalar.  Returns
+    ``(C,)``; ``num_steps`` an int or an int32 (device) scalar.  With a
+    ``seed``, chain c draws global chain ``chain_offset + c``'s streams.
+    Returns
     ``(q, u (C, 1), g, stats (C, 8), q_proposed, v_proposed)``."""
     from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
@@ -389,15 +462,16 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
     lib, launcher, pot, sizes, keep = _hmc_launcher(
         "chees_transition", functor, bound, data, ops, plan, dim, num_chains,
         device)
-    err = launcher(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops.get("p")),
-        _ptr(ops.get("ua")), int(seed is not None),
-        0 if seed is None else int(seed) & MASK32, *pot, _ptr(eps),
-        _ptr(im), _ptr(ms), int(dense), _ptr(steps),
-        float(divergence_threshold), *sizes,
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(qp), _ptr(vp),
-        *plan.args(), torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = launcher(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+            _ptr(ops.get("p")), _ptr(ops.get("ua")), int(seed is not None),
+            0 if seed is None else int(seed) & MASK32, int(chain_offset),
+            *pot, _ptr(eps), _ptr(im), _ptr(ms), int(dense), _ptr(steps),
+            float(divergence_threshold), *sizes, _ptr(q_out), _ptr(u_out),
+            _ptr(g_out), _ptr(stats), _ptr(qp), _ptr(vp), *plan.args(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch(lib, err, "chees_transition")
     del keep
     LAUNCHES["chees_transition" + suffix] += 1

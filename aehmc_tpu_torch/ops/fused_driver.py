@@ -12,9 +12,11 @@ the initial-ε search, depth-sorted block scheduling (``sort_by_depth``),
 Philox (``use_internal_prng``) or external randomness, the whole-run NUTS
 kernel (``loop_in_kernel``), the standard-layout NUTS kernel
 (``potential_fn`` alone), GHMC segments of ``segment_draws`` draws,
-``collect_dtype`` float32 or bfloat16, and checkpoint/resume of the NUTS
-driver (``checkpoint_every``: per-draw launches in saved segments).
-``mesh=`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+``collect_dtype`` float32 or bfloat16, checkpoint/resume of the NUTS
+driver (``checkpoint_every``: per-draw launches in saved segments), and a
+device mesh (``mesh=``, :func:`shard_fused_transition`: the kernels run
+per shard at the shard's global chain offset, bitwise equal to the
+unsharded run).
 """
 
 from typing import Callable, NamedTuple, Sequence
@@ -54,18 +56,52 @@ from aehmc_tpu_torch.step_size import find_reasonable_step_size
 from aehmc_tpu_torch.types import ChainState
 from aehmc_tpu_torch.window_adaptation import window_adaptation
 
-# options of the JAX driver that the port does not have yet -> ROADMAP item
-_NOT_PORTED = {"mesh": "1.12"}
+def shard_fused_transition(
+    transition: Callable,
+    mesh,
+    num_chains: int,
+    block_chains: int = None,
+    *,
+    transposed_io: bool = False,
+) -> Callable:
+    """A fused NUTS transition run per shard of the chain axis over
+    ``mesh`` (:mod:`aehmc_tpu_torch.parallel.mesh`; port of the JAX
+    ``shard_fused_transition``), with the same signature.
 
+    ``transition`` comes from :func:`make_fused_nuts_transition_small` or
+    :func:`~aehmc_tpu_torch.ops.nuts_fused.make_fused_nuts_transition`;
+    ``transposed_io`` says it takes the ``(dim, chains)`` layout (the chain
+    axis last) rather than ``(chains, dim)``.  Each shard runs on its
+    device with its chains of the state and of external randomness, a
+    per-chain ε vector sharded with the chains and a scalar ε and M⁻¹
+    replicated; under a Philox ``seed`` the shard's chains draw their
+    global chain index's streams (``chain_offset``), so the outputs, joined
+    in chain order on the state's device, equal the unsharded
+    transition's bit for bit on the card.  Raises ``ValueError`` when the
+    chains do not split over the devices or a given ``block_chains`` does
+    not tile a shard, as the JAX adapter does.
+    """
+    from aehmc_tpu_torch.parallel.mesh import (
+        SHARDED,
+        SHARED,
+        VECTOR,
+        chain_shards,
+        map_shards,
+    )
 
-def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        if value:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md item {_NOT_PORTED[name]})"
-            )
+    shards = chain_shards(mesh, num_chains, block_chains)
+    axis = -1 if transposed_io else 0
+    spec = (SHARDED,) * 7 + (SHARED, VECTOR)
+
+    def sharded(q, u, g, p, dirs, ub, ul, imm, eps, seed=None,
+                chain_offset=0):
+        return map_shards(
+            lambda s: transition(
+                *s.args(spec, (q, u, g, p, dirs, ub, ul, imm, eps), axis),
+                seed=seed, chain_offset=chain_offset + s.start),
+            shards, q.device, axis)
+
+    return sharded
 
 
 def quantile_snap(values: torch.Tensor, num_buckets: int,
@@ -380,9 +416,11 @@ def _standard_as_transposed(transition: Callable) -> Callable:
     def t(x):
         return None if x is None else x.T
 
-    def transposed(q_t, u, g_t, p, dirs, ub, ul, imm, eps, seed=None):
+    def transposed(q_t, u, g_t, p, dirs, ub, ul, imm, eps, seed=None,
+                   chain_offset=0):
         q, un, g, stats = transition(q_t.T, u.reshape(-1, 1), g_t.T, t(p),
-                                     t(dirs), t(ub), t(ul), imm, eps, seed=seed)
+                                     t(dirs), t(ub), t(ul), imm, eps,
+                                     seed=seed, chain_offset=chain_offset)
         return q.T, un.reshape(1, -1), g.T, stats.T
 
     return transposed
@@ -438,9 +476,9 @@ def sample_fused_adaptive(
     checkpoint_every: int = 0,
     checkpoint_path: str = None,
     resume: bool = False,
+    mesh=None,
     _crash_after_segments: int = None,
     _crash_after_warmup_segments: int = None,
-    **options,
 ):
     """One-call driver: fused warmup, then fused sampling.
 
@@ -484,6 +522,18 @@ def sample_fused_adaptive(
     uninterrupted one does, bit for bit.  The last depth is in the
     snapshots.  Not with ``loop_in_kernel``.
 
+    **Mesh**: ``mesh`` (:func:`aehmc_tpu_torch.parallel.make_mesh`) runs
+    every warmup step and draw through :func:`shard_fused_transition`, one
+    launch a shard, and ``loop_in_kernel`` as one whole-run launch a shard
+    at its chain offset; the adaptation reduces over the chains gathered
+    in chain order, the depth sort is one global stable argsort, and the
+    checkpoints hold the gathered state, so the run equals the unsharded
+    one bit for bit on the card (and on the CPU wherever the potential's
+    arithmetic for a chain does not depend on the batch width).
+    A ``block_chains`` given must tile a shard, as in the JAX driver (the
+    CUDA kernels need no tiling: a ragged block is masked, and the streams
+    follow the global chain index).
+
     Returns ``(final_positions, positions (draws, chains, dim),
     stats (draws, chains, 8), step_size, inverse_mass_matrix)``.
     """
@@ -491,7 +541,6 @@ def sample_fused_adaptive(
     if standard:
         _standard_branch_errors(is_mass_matrix_full, loop_in_kernel,
                                 step_size_factors, per_chain_step_size)
-    _reject_unported(options)
     if per_chain_quantiles and not per_chain_step_size:
         raise ValueError(
             "per_chain_quantiles snaps the PER-CHAIN tuned step sizes — "
@@ -555,6 +604,27 @@ def sample_fused_adaptive(
         q0_t = initial_positions.T.to(torch.float32).contiguous()
         u0, g0_t = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t,
                                        data)(q0_t)
+    # imported here: parallel.pooled imports this package
+    from aehmc_tpu_torch.parallel.mesh import (
+        SHARDED,
+        SHARED,
+        VECTOR,
+        Shard,
+        chain_shards,
+        device_replicas,
+        map_shards,
+    )
+    from aehmc_tpu_torch.parallel.pooled import _checkpointed_run
+
+    if mesh is None:
+        shards = [Shard(device, 0, num_chains)]
+    else:
+        shards = chain_shards(mesh, num_chains, block_chains)
+        transition = shard_fused_transition(transition, mesh, num_chains,
+                                            block_chains, transposed_io=True)
+    data_on = device_replicas(data)
+    # kernel 2's operands: the state (dim, chains), M⁻¹, ε
+    whole_run_spec = (SHARDED,) * 3 + (SHARED, VECTOR)
     probe_vg = None
     if search_initial_step_size:
         probe_vg = _probe_value_and_grad(
@@ -624,16 +694,23 @@ def sample_fused_adaptive(
     def sample_segment(carry, draws, extras, _):
         eps, imm, base = extras
         *qug, depth = carry
-        if loop_in_kernel:
-            pos_t, stats_t, *qug = _fused_sampling_call_t(
-                potential_fn_t, potential_and_grad_t, data, *qug, imm,
-                run_eps(eps), base, len(draws),
-                max_num_expansions=max_num_expansions,
-                divergence_threshold=divergence_threshold,
-                collect_positions=collect_positions, collect_dtype=cdt,
-            )
-            positions = None if pos_t is None else pos_t.transpose(1, 2)
-            stats = stats_t.transpose(1, 2)
+        if loop_in_kernel:  # one whole-run launch (kernel 2) a shard
+            operands = (*qug, imm, run_eps(eps))
+
+            def whole_run(s):
+                pos_t, stats_t, *state = _fused_sampling_call_t(
+                    potential_fn_t, potential_and_grad_t, data_on(s.device),
+                    *s.args(whole_run_spec, operands, -1), base,
+                    len(draws), max_num_expansions=max_num_expansions,
+                    divergence_threshold=divergence_threshold,
+                    collect_positions=collect_positions, collect_dtype=cdt,
+                    chain_offset=s.start,
+                )
+                return (None if pos_t is None else pos_t.transpose(1, 2),
+                        stats_t.transpose(1, 2), *state)
+
+            positions, stats, *qug = map_shards(whole_run, shards, device,
+                                                (1, 1, -1, -1, -1))
         else:
             (*qug, depth), positions, stats = _draw_loop(
                 transition, *qug, imm, run_eps(eps), len(draws),
@@ -646,9 +723,6 @@ def sample_fused_adaptive(
         eps, imm, _ = extras
         positions, stats = outs
         return carry[0].T, positions, stats, eps, imm
-
-    # imported here: parallel.pooled imports this package
-    from aehmc_tpu_torch.parallel.pooled import _checkpointed_run
 
     return _checkpointed_run(
         generator, initial_positions, (wh_init, wh_segment, wh_finish),

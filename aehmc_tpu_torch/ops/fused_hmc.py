@@ -94,13 +94,14 @@ def fused_logistic_hmc_cuda(q, p, X, y, inverse_mass, step_size, num_steps,
     Xk = data_rows(X, plan.row_stride)
     q_out, p_out = torch.empty_like(q), torch.empty_like(p)
     lib = load_kernels("fused_hmc.cu")
-    err = lib.fused_hmc_launch(
-        q.data_ptr(), p.data_ptr(), Xk.data_ptr(), y.data_ptr(),
-        inverse_mass.data_ptr(), float(step_size), int(num_steps),
-        float(prior_precision), dim, num_points, num_chains,
-        q_out.data_ptr(), p_out.data_ptr(), *plan.args(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = lib.fused_hmc_launch(
+            q.data_ptr(), p.data_ptr(), Xk.data_ptr(), y.data_ptr(),
+            inverse_mass.data_ptr(), float(step_size), int(num_steps),
+            float(prior_precision), dim, num_points, num_chains,
+            q_out.data_ptr(), p_out.data_ptr(), *plan.args(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch(lib, err, "fused_logistic_hmc")
     LAUNCHES["fused_logistic_hmc"] += 1
     return q_out, p_out
@@ -114,10 +115,15 @@ def logistic_integrate_fn(X: torch.Tensor, y: torch.Tensor,
     (points,)``.  The kernel takes the step size and the trip count as host
     numbers, so the binding reads both on the host once a call (two
     synchronisations when they live on the device); ``inverse_mass_matrix``
-    is diagonal, ``(dim,)``."""
+    is diagonal, ``(dim,)``.  ``X`` and ``y`` follow the chains to their
+    device (a shard's, copied once)."""
+    from aehmc_tpu_torch.parallel.mesh import device_replicas
+
+    data_on = device_replicas((X, y))
 
     def integrate_fn(q, p, step_size, num_steps, inverse_mass_matrix):
-        return fused_logistic_hmc(q, p, X, y, inverse_mass_matrix,
+        Xd, yd = data_on(q.device)
+        return fused_logistic_hmc(q, p, Xd, yd, inverse_mass_matrix,
                                   float(step_size), int(num_steps),
                                   prior_precision)
 

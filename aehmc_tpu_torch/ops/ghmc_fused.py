@@ -33,8 +33,10 @@ and eight schools included.  Launches count per functor:
 :func:`make_fused_meads_transition` and :func:`make_fused_meads_segment`
 adapt the two kernels to the MEADS fold contract
 (:mod:`aehmc_tpu_torch.meads`): the per-fold ε, α and diagonal M⁻¹ are
-repeated for each chain of a fold, the outputs refolded.  The ``shard_*``
-adapter of the JAX module waits for ROADMAP.md item 1.12.
+repeated for each chain of a fold, the outputs refolded.
+:func:`shard_fused_ghmc_transition` runs kernel 5 per shard of a device
+mesh (the MEADS transition's ``mesh=``); the segment kernel has no shard
+adapter, as in the JAX package.
 """
 
 from typing import Callable, Sequence
@@ -124,18 +126,20 @@ def _im_t(inverse_mass, dim, num_chains, device) -> torch.Tensor:
 def ghmc_transition_plain(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
                           pot_grad, *, num_steps: int = 1,
                           divergence_threshold: float = 1000.0, noise=None,
-                          u_accept=None, seed=None):
+                          u_accept=None, seed=None, chain_offset: int = 0):
     """Plain version of kernel 5, transposed layout on any device.
 
     Either ``noise (dim, C) ~ N(0, M)`` and ``u_accept (1, C)``, or a Philox
-    ``seed`` (u32), whose streams are :func:`ghmc_streams`.  Returns ``(q_t,
+    ``seed`` (u32), whose streams are :func:`ghmc_streams` of the global
+    chains ``chain_offset ..``.  Returns ``(q_t,
     u (1, C), g_t, p_t, stats (8, C))``.
     """
     dim, num_chains = q_t.shape
     device = q_t.device
     im = _im_t(inverse_mass, dim, num_chains, device)
     if seed is not None:
-        z, u_accept = ghmc_streams(seed, num_chains, dim, device=device)
+        z, u_accept = ghmc_streams(seed, num_chains, dim, device=device,
+                                   chain_offset=chain_offset)
         noise = torch.sqrt(1.0 / im) * z
     return _ghmc_core_t(
         q_t, u.reshape(1, num_chains), g_t, p_t, noise,
@@ -192,28 +196,35 @@ def make_fused_ghmc_transition(
     """Fused whole-transition GHMC (kernel 5 on the card).
 
     Returns ``transition(q, potential, grad, momentum, step_size, alpha,
-    inverse_mass, noise=None, u_accept=None, seed=None) -> (q', potential',
-    grad', momentum', stats)`` like the JAX builder: ``(chains, dim)``
-    state, ``potential (chains, 1)`` out, ``noise ~ N(0, M)`` ``(chains,
-    dim)``, ``u_accept (chains,)``, stats ``(chains, 8)``.  ``seed`` (a u32
-    int) selects Philox randomness.  ``transposed_io=True`` keeps the
-    kernel's own layout throughout (``(dim, chains)`` state and noise,
-    ``(1, chains)`` potential and ``u_accept``, stats ``(8, chains)``).
+    inverse_mass, noise=None, u_accept=None, seed=None, chain_offset=0) ->
+    (q', potential', grad', momentum', stats)`` like the JAX builder:
+    ``(chains, dim)`` state, ``potential (chains, 1)`` out, ``noise ~ N(0,
+    M)`` ``(chains, dim)``, ``u_accept (chains,)``, stats ``(chains, 8)``.
+    ``seed`` (a u32 int) selects Philox randomness, chain c drawing global
+    chain ``chain_offset + c``'s streams (a shard's offset).
+    ``transposed_io=True`` keeps the kernel's own layout throughout
+    (``(dim, chains)`` state and noise, ``(1, chains)`` potential and
+    ``u_accept``, stats ``(8, chains)``).
     ``block_chains`` has no effect (a CUDA block holds 8 chains).
     """
+    from aehmc_tpu_torch.parallel.mesh import device_replicas
+
     data = tuple(data)
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
     to_t = _to_kernel_layout(transposed_io)
+    data_on = device_replicas(data)
 
     def transition(q, potential, grad, momentum, step_size, alpha,
-                   inverse_mass, noise=None, u_accept=None, seed=None):
+                   inverse_mass, noise=None, u_accept=None, seed=None,
+                   chain_offset=0):
         q_t, g_t, p_t, noise_t = (to_t(x) for x in (q, grad, momentum, noise))
         num_chains = q_t.shape[1]
-        rand = dict(noise=noise_t, u_accept=u_accept, seed=seed)
+        rand = dict(noise=noise_t, u_accept=u_accept, seed=seed,
+                    chain_offset=chain_offset)
         if q_t.is_cuda:
             out = ghmc_transition_cuda(
                 q_t, potential, g_t, p_t, step_size, alpha, inverse_mass,
-                data, num_steps=num_integration_steps,
+                data_on(q_t.device), num_steps=num_integration_steps,
                 divergence_threshold=divergence_threshold,
                 potential_and_grad_t=potential_and_grad_t,
                 potential_fn_t=potential_fn_t, **rand,
@@ -325,10 +336,47 @@ def _meads_infos(stats: torch.Tensor, refold: Callable) -> Diagnostics:
     )
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP.md item 1.12)")
+def shard_fused_ghmc_transition(
+    transition: Callable,
+    mesh,
+    num_chains: int,
+    block_chains: int = None,
+    *,
+    transposed_io: bool = False,
+) -> Callable:
+    """A fused GHMC transition (:func:`make_fused_ghmc_transition`) run
+    per shard of the chain axis over ``mesh``, with the same signature
+    (port of the JAX ``shard_fused_ghmc_transition``): the state, external
+    randomness and every per-chain ε, α and ``(chains, dim)`` M⁻¹ are
+    sharded with the chains, a scalar or shared value replicated, and
+    under a Philox ``seed`` each shard draws its global chains' streams, so
+    the joined outputs equal the unsharded transition's bit for bit on the
+    card.  ``transposed_io`` as the builder's.  Raises ``ValueError`` as
+    :func:`aehmc_tpu_torch.parallel.mesh.chain_shards` does.
+    """
+    from aehmc_tpu_torch.parallel.mesh import (
+        ROWS,
+        SHARDED,
+        VECTOR,
+        chain_shards,
+        map_shards,
+    )
+
+    shards = chain_shards(mesh, num_chains, block_chains)
+    axis = -1 if transposed_io else 0
+    spec = (SHARDED,) * 4 + (VECTOR, VECTOR, ROWS, SHARDED, SHARDED)
+
+    def sharded(q, potential, grad, momentum, step_size, alpha,
+                inverse_mass, noise=None, u_accept=None, seed=None,
+                chain_offset=0):
+        values = (q, potential, grad, momentum, step_size, alpha,
+                  inverse_mass, noise, u_accept)
+        return map_shards(
+            lambda s: transition(*s.args(spec, values, axis), seed=seed,
+                                 chain_offset=chain_offset + s.start),
+            shards, q.device, axis)
+
+    return sharded
 
 
 def make_fused_meads_transition(
@@ -340,6 +388,7 @@ def make_fused_meads_transition(
     potential_and_grad_t: Callable = None,
     use_internal_prng: bool = True,
     mesh=None,
+    num_chains: int = None,
 ) -> Callable:
     """Kernel 5 under the MEADS fold-transition contract:
     ``transition(key, fold_states, hyper) -> (fold_states', infos)`` with
@@ -355,20 +404,30 @@ def make_fused_meads_transition(
     ``Key``.  Otherwise the raw normals ``z (chains, dim)`` and uniforms
     ``(chains,)`` are passed in: the key's Philox streams drawn outside the
     kernel, or a ``(z, u)`` pair as it is; the noise is ``√(1/M⁻¹)·z``.
-    ``block_chains`` has no effect (a CUDA block holds 8 chains).
+    ``mesh`` (with ``num_chains``, the total chain count) runs the kernel
+    per shard (:func:`shard_fused_ghmc_transition`); ``block_chains``
+    otherwise has no effect (a CUDA block holds 8 chains).
     """
-    _no_mesh(mesh)
     base = make_fused_ghmc_transition(
         potential_fn_t, data, divergence_threshold=divergence_threshold,
         num_integration_steps=1, potential_and_grad_t=potential_and_grad_t,
     )
+    if mesh is not None:
+        if num_chains is None:
+            raise ValueError(
+                "mesh sharding needs num_chains (the TOTAL chain count) "
+                "to fix the shards' chain offsets"
+            )
+        base = shard_fused_ghmc_transition(base, mesh, num_chains,
+                                           block_chains)
 
     def transition(key, fold_states, hyper):
         num_folds, per_fold = fold_states.position.shape[:2]
         (q, u, g, p), (eps_c, alpha_c, imm_c) = _meads_operands(fold_states,
                                                                 hyper)
         if use_internal_prng:
-            rand = dict(seed=keys.as_key(key).seed)
+            seed, chain_offset = keys.as_key(key)
+            rand = dict(seed=seed, chain_offset=chain_offset)
         else:
             z, u_acc = keys.normals_and_uniform(key, q)
             rand = dict(noise=torch.sqrt(1.0 / imm_c) * z, u_accept=u_acc)
@@ -384,6 +443,7 @@ def make_fused_meads_transition(
             potential_energy_grad=refold(gn))
         return new_states, _meads_infos(stats, refold)
 
+    transition.mesh = mesh
     return transition
 
 
@@ -408,9 +468,15 @@ def make_fused_meads_segment(
     t·DRAW_SEED_STRIDE`` of the key's seed, in the kernel
     (``use_internal_prng``) or drawn outside it; a ``(z, u)`` pair gives
     the raw normals ``(draws, chains, dim)`` and uniforms ``(draws,
-    chains)`` as they are.
+    chains)`` as they are.  There is no sharded segment (nor in the JAX
+    package): a ``mesh`` raises ``ValueError``; the MEADS transition
+    (:func:`make_fused_meads_transition`) takes one.
     """
-    _no_mesh(mesh)
+    if mesh is not None:
+        raise ValueError(
+            "the fused MEADS segment kernel has no shard adapter (nor has "
+            "the JAX package's): with a mesh, use "
+            "make_fused_meads_transition(mesh=..., num_chains=...)")
     seg = fused_ghmc_segment(
         potential_fn_t, data, divergence_threshold=divergence_threshold,
         num_integration_steps=1, potential_and_grad_t=potential_and_grad_t,
@@ -566,13 +632,14 @@ def _external(noise, u_accept, shape, seed, device):
 def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
                          data, *, num_steps: int = 1,
                          divergence_threshold: float = 1000.0, noise=None,
-                         u_accept=None, seed=None,
+                         u_accept=None, seed=None, chain_offset: int = 0,
                          potential_and_grad_t=logistic_pg_t,
                          potential_fn_t=None):
     """Launch kernel 5 (``ghmc_transition``) on CUDA tensors with the
     functor of the potential (:func:`functors.card_functor` on
     :data:`functors.HMC_CORE`: the logistic one by default); returns
-    ``(q_t, u (1, C), g_t, p_t, stats (8, C))``."""
+    ``(q_t, u (1, C), g_t, p_t, stats (8, C))``.  With a ``seed``, chain c
+    draws global chain ``chain_offset + c``'s streams."""
     from aehmc_tpu_torch.ops._build import check_launch
 
     functor, bound, suffix = card_functor(
@@ -588,15 +655,17 @@ def ghmc_transition_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass,
     lib, launcher, pot, sizes, keep = _hmc_launcher(
         "ghmc_transition", functor, bound, data, ops, plan, dim, num_chains,
         device)
-    err = launcher(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
-        noise_p, ua_p, int(seed is not None),
-        0 if seed is None else int(seed) & MASK32, *pot, _ptr(ops["eps"]),
-        _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]), int(per_chain),
-        float(divergence_threshold), *sizes, int(num_steps), _ptr(q_out),
-        _ptr(u_out), _ptr(g_out), _ptr(p_out), _ptr(stats), *plan.args(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = launcher(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
+            noise_p, ua_p, int(seed is not None),
+            0 if seed is None else int(seed) & MASK32, int(chain_offset),
+            *pot, _ptr(ops["eps"]), _ptr(ops["alpha"]), *scalars,
+            _ptr(ops["im"]), int(per_chain), float(divergence_threshold),
+            *sizes, int(num_steps), _ptr(q_out), _ptr(u_out), _ptr(g_out),
+            _ptr(p_out), _ptr(stats), *plan.args(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch(lib, err, "ghmc_transition")
     del keep
     LAUNCHES["ghmc_transition" + suffix] += 1
@@ -633,16 +702,17 @@ def ghmc_segment_cuda(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
     lib, launcher, pot, sizes, keep = _hmc_launcher(
         "ghmc_segment", functor, bound, data, ops, plan, dim, num_chains,
         device)
-    err = launcher(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
-        noise_p, ua_p, int(seed is not None),
-        0 if seed is None else int(seed) & MASK32, int(num_draws), *pot,
-        _ptr(ops["eps"]), _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]),
-        int(per_chain), float(divergence_threshold), *sizes, int(num_steps),
-        _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out), _ptr(g_out),
-        _ptr(p_out), *plan.args(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = launcher(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), _ptr(ops["p"]),
+            noise_p, ua_p, int(seed is not None),
+            0 if seed is None else int(seed) & MASK32, int(num_draws), *pot,
+            _ptr(ops["eps"]), _ptr(ops["alpha"]), *scalars, _ptr(ops["im"]),
+            int(per_chain), float(divergence_threshold), *sizes,
+            int(num_steps), _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
+            _ptr(g_out), _ptr(p_out), *plan.args(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch(lib, err, "ghmc_segment")
     del keep
     LAUNCHES["ghmc_segment" + suffix] += 1

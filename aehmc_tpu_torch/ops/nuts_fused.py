@@ -162,7 +162,7 @@ def _check_card(model: _Model, q):
 def nuts_transition_std_plain(q, u, g, inverse_mass, step_size, pot_grad, *,
                               max_exp: int, divergence_threshold: float = 1000.0,
                               momentum=None, directions=None, u_bias=None,
-                              u_leaf=None, seed=None):
+                              u_leaf=None, seed=None, chain_offset: int = 0):
     """Plain version of kernel 3 on any device: ``q, g (C, dim)``, ``u (C,)``
     or ``(C, 1)``, ``pot_grad(q) -> (u (C, 1), g (C, dim))``.  It runs the
     transposed plain core on transposed copies, so with a Philox seed it
@@ -181,21 +181,21 @@ def nuts_transition_std_plain(q, u, g, inverse_mass, step_size, pot_grad, *,
         t(q), u.reshape(1, num_chains), t(g), inverse_mass, step_size,
         pot_grad_t, max_exp=max_exp, divergence_threshold=divergence_threshold,
         momentum=t(momentum), directions=t(directions), u_bias=t(u_bias),
-        u_leaf=t(u_leaf), seed=seed,
+        u_leaf=t(u_leaf), seed=seed, chain_offset=chain_offset,
     )
     return q_t.T, u_t.reshape(num_chains, 1), g_t.T, stats.T
 
 
 def _transition(model: _Model, q, u, g, momentum, directions, u_bias, u_leaf,
                 inverse_mass, step_size, *, max_exp, divergence_threshold,
-                seed=None):
+                seed=None, chain_offset=0):
     """One transition of ``model``: kernel 3 on a CUDA tensor, the plain
     version on a CPU one."""
     streams = dict(momentum=momentum, directions=directions, u_bias=u_bias,
-                   u_leaf=u_leaf, seed=seed)
+                   u_leaf=u_leaf, seed=seed, chain_offset=chain_offset)
     if q.is_cuda:
         bound = _check_card(model, q)
-        streams = {k: v if v is None or k == "seed" else v.contiguous()
+        streams = {k: v if not isinstance(v, torch.Tensor) else v.contiguous()
                    for k, v in streams.items()}
         return nuts_transition_std_cuda(
             q.contiguous(), u, g.contiguous(), inverse_mass, step_size,
@@ -222,17 +222,24 @@ def make_fused_nuts_transition(
     :func:`logistic_potential`).
 
     Returns ``transition(q, potential, grad, momentum, directions, u_bias,
-    u_leaf, inverse_mass, step_size, seed=None) -> (q', U' (C, 1), grad',
-    stats (C, 8))``.  ``seed`` (a u32 int) selects Philox randomness.
+    u_leaf, inverse_mass, step_size, seed=None, chain_offset=0) -> (q', U'
+    (C, 1), grad', stats (C, 8))``.  ``seed`` (a u32 int) selects Philox
+    randomness, chain c drawing global chain ``chain_offset + c``'s
+    streams.
     """
+    from aehmc_tpu_torch.parallel.mesh import device_replicas
+
     model = _generic_model(potential_fn, data)
+    data_on = device_replicas(model.data)
 
     def transition(q, potential, grad, momentum, directions, u_bias, u_leaf,
-                   inverse_mass, step_size, seed=None):
-        return _transition(model, q, potential, grad, momentum, directions,
+                   inverse_mass, step_size, seed=None, chain_offset=0):
+        return _transition(model._replace(data=data_on(q.device)), q,
+                           potential, grad, momentum, directions,
                            u_bias, u_leaf, inverse_mass, step_size,
                            max_exp=max_num_expansions,
-                           divergence_threshold=divergence_threshold, seed=seed)
+                           divergence_threshold=divergence_threshold,
+                           seed=seed, chain_offset=chain_offset)
 
     return transition
 
@@ -271,15 +278,17 @@ def fused_nuts_transition(
 
 def _sampling_plain(model: _Model, q, u, g, inverse_mass, step_size, seed,
                     num_draws, *, max_exp, divergence_threshold,
-                    collect_positions):
+                    collect_positions, chain_offset=0):
     """Plain version of kernel 4 on any device: ``num_draws`` plain
-    transitions keyed by ``seed + t·DRAW_SEED_STRIDE``."""
+    transitions keyed by ``seed + t·DRAW_SEED_STRIDE``, chain c drawing
+    global chain ``chain_offset + c``'s streams."""
     positions, stats = [], []
     for t in range(num_draws):
         q, u, g, st = nuts_transition_std_plain(
             q, u, g, inverse_mass, step_size, model.pot_grad,
             max_exp=max_exp, divergence_threshold=divergence_threshold,
             seed=(seed + t * DRAW_SEED_STRIDE) & MASK32,
+            chain_offset=chain_offset,
         )
         if collect_positions:
             positions.append(q)
@@ -292,10 +301,12 @@ def _fused_sampling_call(model: _Model, q, potential, grad, inverse_mass,
                          step_size, seed, num_draws, *,
                          max_num_expansions: int,
                          divergence_threshold: float = 1000.0,
-                         collect_positions: bool = True):
+                         collect_positions: bool = True,
+                         chain_offset: int = 0):
     """The whole sampling phase in one call (kernel 4 on the card): draw
-    ``t`` takes the Philox key ``seed + t·DRAW_SEED_STRIDE``, so this equals
-    one transition per draw bit for bit.  Returns ``(positions (draws, C,
+    ``t`` takes the Philox key ``seed + t·DRAW_SEED_STRIDE`` (chain c the
+    streams of global chain ``chain_offset + c``), so this equals one
+    transition per draw bit for bit.  Returns ``(positions (draws, C,
     dim) float32 or None, stats (draws, C, 8), q, U (C, 1), grad)``."""
     if q.is_cuda:
         bound = _check_card(model, q)
@@ -305,11 +316,12 @@ def _fused_sampling_call(model: _Model, q, potential, grad, inverse_mass,
             num_draws, max_exp=max_num_expansions,
             divergence_threshold=divergence_threshold, card=model.card,
             collect_positions=collect_positions, bound=bound,
+            chain_offset=chain_offset,
         )
     return _sampling_plain(
         model, q, potential, grad, inverse_mass, step_size, seed, num_draws,
         max_exp=max_num_expansions, divergence_threshold=divergence_threshold,
-        collect_positions=collect_positions,
+        collect_positions=collect_positions, chain_offset=chain_offset,
     )
 
 
@@ -503,11 +515,13 @@ def _generic_launcher(bound, data, q, plan, kernel):
 def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
                              max_exp: int, divergence_threshold: float = 1000.0,
                              card=(1.0, False), momentum=None, directions=None,
-                             u_bias=None, u_leaf=None, seed=None, bound=None):
+                             u_bias=None, u_leaf=None, seed=None, bound=None,
+                             chain_offset: int = 0):
     """Launch kernel 3 (``nuts_transition_std``) on CUDA tensors; ``card``
     is ``(prior_precision, bf16)`` of the logistic functor, or ``bound`` a
-    generated functor (``nuts_transition_std_generic``).  Returns ``(q, u
-    (C, 1), g, stats (C, 8))``."""
+    generated functor (``nuts_transition_std_generic``).  With a ``seed``,
+    chain c draws the Philox streams of global chain ``chain_offset + c``.
+    Returns ``(q, u (C, 1), g, stats (C, 8))``."""
     from aehmc_tpu_torch.ops._build import (
         check_launch,
         load_kernels,
@@ -532,30 +546,32 @@ def nuts_transition_std_cuda(q, u, g, inverse_mass, step_size, data, *,
     stats = torch.empty((num_chains, 8), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     seeded = (int(seed is not None),
-              0 if seed is None else int(seed) & MASK32)
+              0 if seed is None else int(seed) & MASK32, int(chain_offset))
     if bound is not None:
         lib, launch, generic, keep = _generic_launcher(bound, data, q, plan,
                                                        "transition")
-        err = launch(
-            1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
-            *seeded, *generic, _ptr(ops["im"]), None, 0, float(step_size),
-            None, float(divergence_threshold), dim, num_chains, max_exp,
-            _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats),
-            _ptr(ops["ck"]), *plan.args(), stream,
-        )
+        with torch.cuda.device(q.device):
+            err = launch(
+                1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+                *ext_ptrs, *seeded, *generic, _ptr(ops["im"]), None, 0,
+                float(step_size), None, float(divergence_threshold), dim,
+                num_chains, max_exp, _ptr(q_out), _ptr(u_out), _ptr(g_out),
+                _ptr(stats), _ptr(ops["ck"]), *plan.args(), stream,
+            )
         check_launch(lib, err, "nuts_transition_std")
         del keep
         LAUNCHES["nuts_transition_std_generic"] += 1
         return q_out, u_out, g_out, stats
     lib = load_kernels("nuts_fused.cu")
-    err = lib.nuts_transition_std_launch(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs, *seeded,
-        _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
-        float(step_size), float(divergence_threshold), float(prior_precision),
-        int(bf16), dim, num_points, num_chains, max_exp, _ptr(q_out),
-        _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
-        *plan.args(), stream,
-    )
+    with torch.cuda.device(q.device):
+        err = lib.nuts_transition_std_launch(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
+            *seeded, _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
+            float(step_size), float(divergence_threshold),
+            float(prior_precision), int(bf16), dim, num_points, num_chains,
+            max_exp, _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats),
+            _ptr(ops["ck"]), *plan.args(), stream,
+        )
     check_launch(lib, err, "nuts_transition_std")
     LAUNCHES["nuts_transition_std"] += 1
     return q_out, u_out, g_out, stats
@@ -565,10 +581,11 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
                            num_draws, *, max_exp: int,
                            divergence_threshold: float = 1000.0,
                            card=(1.0, False), collect_positions: bool = True,
-                           bound=None):
+                           bound=None, chain_offset: int = 0):
     """Launch kernel 4 (``nuts_sampling_std``): all draws in one launch,
     with the logistic functor of ``card`` or the generated functor
-    ``bound`` (``nuts_sampling_std_generic``).  Returns ``(positions
+    ``bound`` (``nuts_sampling_std_generic``); chain c draws the Philox
+    streams of global chain ``chain_offset + c``.  Returns ``(positions
     (draws, C, dim) float32 or None, stats (draws, C, 8), q, u (C, 1),
     g)``."""
     from aehmc_tpu_torch.ops._build import check_launch, load_kernels
@@ -587,26 +604,30 @@ def nuts_sampling_std_cuda(q, u0, g0, inverse_mass, step_size, data, seed,
     if bound is not None:
         lib, launch, generic, keep = _generic_launcher(bound, data, q, plan,
                                                        "sampling")
-        err = launch(
-            1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
-            int(seed) & MASK32, int(num_draws), *generic, _ptr(ops["im"]),
-            None, 0, float(step_size), None, float(divergence_threshold),
-            dim, num_chains, max_exp, _ptr(pos), 0, _ptr(stats), _ptr(q_out),
-            _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
-        )
+        with torch.cuda.device(device):
+            err = launch(
+                1, _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+                int(seed) & MASK32, int(chain_offset), int(num_draws),
+                *generic, _ptr(ops["im"]), None, 0, float(step_size), None,
+                float(divergence_threshold), dim, num_chains, max_exp,
+                _ptr(pos), 0, _ptr(stats), _ptr(q_out), _ptr(u_out),
+                _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
+            )
         check_launch(lib, err, "nuts_sampling_std")
         del keep
         LAUNCHES["nuts_sampling_std_generic"] += 1
         return pos, stats, q_out, u_out, g_out
     lib = load_kernels("nuts_fused.cu")
-    err = lib.nuts_sampling_std_launch(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        int(num_draws), _ptr(ops["X"]), _ptr(ops["y"]),
-        _ptr(ops["im"]), float(step_size), float(divergence_threshold),
-        float(prior_precision), int(bf16), dim, num_points, num_chains,
-        max_exp, _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
-        _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
-    )
+    with torch.cuda.device(device):
+        err = lib.nuts_sampling_std_launch(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+            int(seed) & MASK32, int(chain_offset), int(num_draws),
+            _ptr(ops["X"]), _ptr(ops["y"]), _ptr(ops["im"]),
+            float(step_size), float(divergence_threshold),
+            float(prior_precision), int(bf16), dim, num_points, num_chains,
+            max_exp, _ptr(pos), _ptr(stats), _ptr(q_out), _ptr(u_out),
+            _ptr(g_out), _ptr(ops["ck"]), *plan.args(), stream,
+        )
     check_launch(lib, err, "nuts_sampling_std")
     LAUNCHES["nuts_sampling_std"] += 1
     return pos, stats, q_out, u_out, g_out

@@ -293,12 +293,13 @@ def _pot_grad_builder_t(potential_fn_t: Callable, potential_and_grad_t: Callable
 def nuts_transition_plain(q_t, u, g_t, inverse_mass, step_size, pot_grad, *,
                           max_exp: int, divergence_threshold: float = 1000.0,
                           momentum=None, directions=None, u_bias=None,
-                          u_leaf=None, seed=None):
+                          u_leaf=None, seed=None, chain_offset: int = 0):
     """Plain version of kernel 1, transposed layout on any device.
 
     Either the external streams (``momentum (dim, C)``, ``directions`` and
     ``u_bias (K, C)``, ``u_leaf (2**K, C)``) or a Philox ``seed`` (u32) is
-    given; with a seed the streams are :func:`nuts_streams`.  ``step_size``
+    given; with a seed the streams are :func:`nuts_streams` of the global
+    chains ``chain_offset ..`` (a shard's offset).  ``step_size``
     is a scalar or a per-chain ``(C,)`` vector (:func:`_step_size_row`).
     """
     dim, num_chains = q_t.shape
@@ -306,7 +307,8 @@ def nuts_transition_plain(q_t, u, g_t, inverse_mass, step_size, pot_grad, *,
                                    device=q_t.device)
     if seed is not None:
         z, directions, u_bias, u_leaf = nuts_streams(
-            seed, num_chains, dim, max_exp, device=q_t.device
+            seed, num_chains, dim, max_exp, device=q_t.device,
+            chain_offset=chain_offset,
         )
         momentum = _momentum_t(z.to(q_t.dtype),
                                _mass_sqrt_t(inverse_mass, dim))
@@ -373,20 +375,26 @@ def make_fused_nuts_transition_small(
     """Transposed-layout fused NUTS transition.
 
     Returns ``transition(q, potential, grad, momentum, directions, u_bias,
-    u_leaf, inverse_mass, step_size, seed=None)`` like the JAX builder.  The
-    public contract is ``(chains, dim)`` (``potential (chains, 1)``, stats
-    ``(chains, 8)``); ``transposed_io=True`` keeps the kernel's own layout
-    throughout.  ``seed`` (a u32 int) selects Philox randomness; otherwise
-    the four external streams are used.  ``step_size`` is a scalar or a
+    u_leaf, inverse_mass, step_size, seed=None, chain_offset=0)`` like the
+    JAX builder.  The public contract is ``(chains, dim)`` (``potential
+    (chains, 1)``, stats ``(chains, 8)``); ``transposed_io=True`` keeps the
+    kernel's own layout throughout.  ``seed`` (a u32 int) selects Philox
+    randomness, chain c drawing global chain ``chain_offset + c``'s streams
+    (a shard's offset, :func:`~aehmc_tpu_torch.ops.fused_driver.
+    shard_fused_transition`); otherwise the four external streams are
+    used.  ``step_size`` is a scalar or a
     per-chain ``(chains,)`` vector (float32 on the chains' device for the
     kernel), each chain integrating at its own ε.  ``block_chains`` has no
     effect (a CUDA block holds 8 chains).
     """
+    from aehmc_tpu_torch.parallel.mesh import device_replicas
+
     data = tuple(data)
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
+    data_on = device_replicas(data)
 
     def transition(q, potential, grad, momentum, directions, u_bias, u_leaf,
-                   inverse_mass, step_size, seed=None):
+                   inverse_mass, step_size, seed=None, chain_offset=0):
         if not transposed_io:
             q, grad = q.T.contiguous(), grad.T.contiguous()
             if seed is None:
@@ -396,11 +404,12 @@ def make_fused_nuts_transition_small(
                 )
         num_chains = q.shape[1]
         streams = dict(momentum=momentum, directions=directions,
-                       u_bias=u_bias, u_leaf=u_leaf, seed=seed)
+                       u_bias=u_bias, u_leaf=u_leaf, seed=seed,
+                       chain_offset=chain_offset)
         if q.is_cuda:
             out = nuts_transition_cuda(
-                q, potential, grad, inverse_mass, step_size, data,
-                max_exp=max_num_expansions,
+                q, potential, grad, inverse_mass, step_size,
+                data_on(q.device), max_exp=max_num_expansions,
                 divergence_threshold=divergence_threshold,
                 potential_and_grad_t=potential_and_grad_t,
                 potential_fn_t=potential_fn_t, **streams,
@@ -421,7 +430,7 @@ def make_fused_nuts_transition_small(
 
 def _sampling_plain(pot_grad, q_t, u0, g0_t, inverse_mass, step_size, seed,
                     num_draws, *, max_exp, divergence_threshold,
-                    collect_positions, collect_dtype):
+                    collect_positions, collect_dtype, chain_offset=0):
     """Plain version of kernel 2: ``num_draws`` plain transitions with the
     per-draw keys ``seed + t * DRAW_SEED_STRIDE``."""
     positions, stats = [], []
@@ -431,6 +440,7 @@ def _sampling_plain(pot_grad, q_t, u0, g0_t, inverse_mass, step_size, seed,
             q, u, g, inverse_mass, step_size, pot_grad, max_exp=max_exp,
             divergence_threshold=divergence_threshold,
             seed=(seed + t * DRAW_SEED_STRIDE) & MASK32,
+            chain_offset=chain_offset,
         )
         if collect_positions:
             positions.append(q.to(collect_dtype))
@@ -444,7 +454,7 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
                            max_num_expansions: int,
                            divergence_threshold: float = 1000.0,
                            collect_positions: bool = True,
-                           collect_dtype=None):
+                           collect_dtype=None, chain_offset: int = 0):
     """The whole sampling phase in one call (kernel 2 on the card).
 
     Transposed contract: ``q_t, g0_t (dim, C)``, ``u0 (1, C)``; returns
@@ -453,6 +463,7 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
     t*DRAW_SEED_STRIDE``, the layout of :func:`derive_draw_seeds`, so this
     equals the per-draw path bit for bit.  ``step_size`` is a scalar or a
     per-chain ``(C,)`` vector, each chain's ε fixed across the draws.
+    Chain c draws global chain ``chain_offset + c``'s streams.
     """
     cdt = torch.float32 if collect_dtype is None else collect_dtype
     if cdt not in (torch.float32, torch.bfloat16):
@@ -465,7 +476,7 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
             divergence_threshold=divergence_threshold,
             collect_positions=collect_positions, collect_dtype=cdt,
             potential_and_grad_t=potential_and_grad_t,
-            potential_fn_t=potential_fn_t,
+            potential_fn_t=potential_fn_t, chain_offset=chain_offset,
         )
     pot_grad = _pot_grad_builder_t(potential_fn_t, potential_and_grad_t, data)
     return _sampling_plain(
@@ -473,6 +484,7 @@ def _fused_sampling_call_t(potential_fn_t, potential_and_grad_t, data, q_t, u0,
         step_size, seed, num_draws, max_exp=max_num_expansions,
         divergence_threshold=divergence_threshold,
         collect_positions=collect_positions, collect_dtype=cdt,
+        chain_offset=chain_offset,
     )
 
 
@@ -743,13 +755,15 @@ def _launcher(functor, bound, data, q_t, plan, kernel):
 def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
                          max_exp: int, divergence_threshold: float = 1000.0,
                          momentum=None, directions=None, u_bias=None,
-                         u_leaf=None, seed=None,
+                         u_leaf=None, seed=None, chain_offset: int = 0,
                          potential_and_grad_t=logistic_pg_t,
                          potential_fn_t=None):
     """Launch kernel 1 (``nuts_transition``) on CUDA tensors with the
     functor of ``potential_and_grad_t`` (:func:`_check_cuda_args`), or the
     generated functor of the potential (``nuts_transition_generic``);
-    returns ``(q_t, u (1, C), g_t, stats (8, C))``."""
+    returns ``(q_t, u (1, C), g_t, stats (8, C))``.  With a ``seed``,
+    chain c draws the Philox streams of global chain ``chain_offset + c``
+    (a shard's offset)."""
     from aehmc_tpu_torch.ops._build import check_launch, require_f32_cuda
 
     functor = _check_cuda_args(potential_and_grad_t, data, q_t, step_size,
@@ -779,15 +793,16 @@ def nuts_transition_cuda(q_t, u, g_t, inverse_mass, step_size, data, *,
                                              "transition")
     pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp,
                                  generic)
-    err = launcher(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
-        int(seed is not None), 0 if seed is None else int(seed) & MASK32,
-        *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), eps,
-        _ptr(eps_row), float(divergence_threshold), *sizes,
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats), _ptr(ops["ck"]),
-        *plan.args(),
-        torch.cuda.current_stream(q_t.device).cuda_stream,
-    )
+    with torch.cuda.device(q_t.device):
+        err = launcher(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), *ext_ptrs,
+            int(seed is not None), 0 if seed is None else int(seed) & MASK32,
+            int(chain_offset), *pot, _ptr(ops["im"]), _ptr(mass_sqrt),
+            int(dense), eps, _ptr(eps_row), float(divergence_threshold),
+            *sizes, _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(stats),
+            _ptr(ops["ck"]), *plan.args(),
+            torch.cuda.current_stream(q_t.device).cuda_stream,
+        )
     check_launch(lib, err, "nuts_transition")
     del keep
     LAUNCHES["nuts_transition" + hand_written(potential_and_grad_t)[2]] += 1
@@ -800,10 +815,11 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
                        collect_positions: bool = True,
                        collect_dtype=torch.float32,
                        potential_and_grad_t=logistic_pg_t,
-                       potential_fn_t=None):
+                       potential_fn_t=None, chain_offset: int = 0):
     """Launch kernel 2 (``nuts_sampling``): all draws in one launch, with
     the functor of ``potential_and_grad_t`` or the potential's generated
-    one (``nuts_sampling_generic``).
+    one (``nuts_sampling_generic``); chain c draws the Philox streams of
+    global chain ``chain_offset + c``.
 
     Positions are written as ``(draws, C, dim)`` (each chain's row is
     contiguous) and returned as the ``(draws, dim, C)`` view of the JAX
@@ -832,15 +848,16 @@ def nuts_sampling_cuda(q_t, u0, g0_t, inverse_mass, step_size, data, seed,
                                              "sampling")
     pot, sizes = _potential_args(ops, functor, dim, num_chains, max_exp,
                                  generic)
-    err = launcher(
-        _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]), int(seed) & MASK32,
-        num_draws, *pot, _ptr(ops["im"]), _ptr(mass_sqrt), int(dense),
-        eps, _ptr(eps_row), float(divergence_threshold), *sizes,
-        _ptr(pos), int(collect_dtype == torch.bfloat16), _ptr(stats),
-        _ptr(q_out), _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]),
-        *plan.args(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        err = launcher(
+            _ptr(ops["q"]), _ptr(ops["u"]), _ptr(ops["g"]),
+            int(seed) & MASK32, int(chain_offset), num_draws, *pot,
+            _ptr(ops["im"]), _ptr(mass_sqrt), int(dense), eps, _ptr(eps_row),
+            float(divergence_threshold), *sizes, _ptr(pos),
+            int(collect_dtype == torch.bfloat16), _ptr(stats), _ptr(q_out),
+            _ptr(u_out), _ptr(g_out), _ptr(ops["ck"]), *plan.args(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch(lib, err, "nuts_sampling")
     del keep
     LAUNCHES["nuts_sampling" + hand_written(potential_and_grad_t)[2]] += 1

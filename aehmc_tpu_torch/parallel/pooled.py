@@ -1,5 +1,5 @@
 """Pooled warmup and sampling of a chain batch (port of
-:mod:`aehmc_tpu.parallel.pooled`, on one device).
+:mod:`aehmc_tpu.parallel.pooled`), on one device or sharded over a mesh.
 
 All chains share one step size (or one per chain, ``per_chain_step_size``)
 and one inverse mass matrix, adapted from pooled statistics: the mean
@@ -10,8 +10,14 @@ kernels take the whole chain batch in one call.
 
 Every branch of :func:`sample_sharded` (NUTS/HMC/MALA/GHMC, ChEES, MEADS)
 runs through :func:`_checkpointed_run`, which can snapshot warmup and
-sampling to an ``.npz`` file and resume them bit for bit.  A mesh is
-ROADMAP.md item 1.12 and raises ``NotImplementedError``.
+sampling to an ``.npz`` file and resume them bit for bit.  With a mesh
+(:mod:`aehmc_tpu_torch.parallel.mesh`) the kernels run per shard
+(:func:`shard_kernel`, :func:`shard_fold_transition`) and the pooled
+statistics reduce over the chains joined in chain order, so a sharded run
+equals the unsharded one bit for bit wherever a chain's arithmetic does
+not depend on the batch width: the fused kernels', not always the XLA
+path's (``torch.func`` gradients through a cuBLAS product, which may
+split the sum over data points differently for a shard's rows).
 """
 
 import os
@@ -23,6 +29,13 @@ from aehmc_tpu_torch import checkpoint as ckpt
 from aehmc_tpu_torch.algorithms import pairwise_mean, welford_update_batch
 from aehmc_tpu_torch.observability import progress_callback, progress_draws
 from aehmc_tpu_torch.ops.nuts_fused import _is_key_source
+from aehmc_tpu_torch.parallel.mesh import (
+    SHARDED,
+    SHARED,
+    VECTOR,
+    chain_shards,
+    map_shards,
+)
 from aehmc_tpu_torch.sampling import (
     SampleResult,
     default_inverse_mass_matrix,
@@ -32,6 +45,84 @@ from aehmc_tpu_torch.sampling import (
 from aehmc_tpu_torch.step_size import find_reasonable_step_size
 from aehmc_tpu_torch.types import ChainState, Diagnostics
 from aehmc_tpu_torch.window_adaptation import window_adaptation
+
+
+def _shard_key(key, shard):
+    """A shard's key: the key's Philox seed at the shard's first global
+    chain, or its chains of an external ``(z, u)`` pair."""
+    if isinstance(key, tuple) and not isinstance(key, keys.Key):
+        return shard.take(key)
+    return keys.Key(key.seed, key.chain_offset + shard.start)
+
+
+def _global_key(key):
+    return (key if isinstance(key, tuple) and not isinstance(key, keys.Key)
+            else keys.as_key(key))
+
+
+def shard_kernel(kernel: Callable, mesh, num_chains: int) -> Callable:
+    """An XLA-path kernel ``kernel(key, states, step_size, *shared) ->
+    (states, info)`` (:func:`aehmc_tpu_torch.sampling.make_kernel`, the
+    ChEES ``kernel_fn``) run per shard of the chain axis over ``mesh``:
+    shard ``i`` takes its chains of the states and of a per-chain
+    ``(chains,)`` step size, the other arguments replicated, and the key
+    ``Key(seed, chain_offset + start)`` (a ``torch.Generator`` key draws
+    its seed once), the Philox streams its chains draw in the whole batch.
+    The outputs join in chain order on the states' device."""
+    shards = chain_shards(mesh, num_chains)
+
+    def sharded(key, states, step_size, *shared):
+        key = _global_key(key)
+        spec = (SHARDED, VECTOR) + (SHARED,) * len(shared)
+        return map_shards(
+            lambda s: kernel(_shard_key(key, s),
+                             *s.args(spec, (states, step_size, *shared))),
+            shards, states.position.device)
+
+    sharded.mesh = mesh
+    return sharded
+
+
+def shard_fold_transition(transition: Callable, mesh,
+                          num_chains: int) -> Callable:
+    """A MEADS fold transition ``transition(key, fold_states, hyper)``
+    (:func:`aehmc_tpu_torch.meads.new_kernel`'s, or
+    :func:`aehmc_tpu_torch.ops.ghmc_fused.make_fused_meads_transition`) run
+    per shard of the flattened chain axis over ``mesh``: a shard's chains
+    go in as folds of one chain each, with their folds' hyperparameters,
+    and the key of :func:`shard_kernel`; the outputs are joined and
+    refolded."""
+    shards = chain_shards(mesh, num_chains)
+
+    def sharded(key, fold_states, hyper):
+        num_folds, per_fold = fold_states.position.shape[:2]
+        key = _global_key(key)
+        states = meads._map(meads._unfold, fold_states)
+        per_chain = type(hyper)(*(meads._tile(h, per_fold) for h in hyper))
+
+        def local(s):
+            new, infos = transition(
+                _shard_key(key, s),
+                meads._map(lambda a: a.unsqueeze(1), s.take(states)),
+                s.take(per_chain))
+            return (meads._map(meads._unfold, new),
+                    meads._map(meads._unfold, infos))
+
+        new, infos = map_shards(local, shards, fold_states.position.device)
+        return (meads._map(lambda a: meads._fold(a, num_folds), new),
+                meads._map(lambda a: meads._fold(a, num_folds), infos))
+
+    sharded.mesh = mesh
+    return sharded
+
+
+def _on_mesh(fn: Callable, shard: Callable, mesh, num_chains: int):
+    """``fn`` sharded by ``shard`` over ``mesh``, unless it is None or
+    already runs on a mesh (a ``mesh`` attribute: the fused kernels built
+    with ``mesh=``)."""
+    if mesh is None or fn is None or getattr(fn, "mesh", None) is not None:
+        return fn
+    return shard(fn, mesh, num_chains)
 
 
 def pooled_window_adaptation(
@@ -274,6 +365,26 @@ def sample_sharded(
     ``progress_every=N`` prints a progress line every N draws (and every N
     pooled warmup steps).
 
+    **Mesh**: ``mesh`` (:func:`aehmc_tpu_torch.parallel.make_mesh`) runs the
+    XLA kernels (the ChEES kernel and the MEADS fold transition too) per
+    shard of the chains (:func:`shard_kernel`, :func:`shard_fold_transition`)
+    at the shards' global chain offsets, on the devices the mesh names; the
+    chain states come back joined in chain order, so dual averaging, the
+    Welford folds, the ChEES criterion and MEADS's estimates reduce over
+    the chains in global order and the run equals the unsharded one bit for
+    bit wherever a chain's arithmetic does not depend on the batch width
+    (the fused kernels; on the card a cuBLAS product in ``logprob_fn``'s
+    gradient may sum differently for a shard's rows, chip_smoke phase 46).
+    A ``chees_kernel_fn`` or ``meads_transition_fn`` built with ``mesh=`` runs
+    as it is; there is no sharded ``meads_segment_fn`` (``ValueError``).
+    The checkpoints hold the joined state.  Unlike the JAX package, which
+    shards over every device when ``mesh=None`` and more than one is
+    attached, the chains shard only over a ``mesh`` the caller passes: JAX
+    replicates the constants a ``logprob_fn`` closes over for the sharded
+    computation, while a torch closure keeps its tensors on their own card,
+    so ``logprob_fn`` must be one that evaluates positions on every mesh
+    device.
+
     Returns a ``SampleResult`` whose ``final_state`` is the chain state,
     ``positions`` ``(draws, chains, dim)`` and ``diagnostics`` every field
     ``(draws, chains)``.
@@ -286,14 +397,25 @@ def sample_sharded(
             f"{algorithm!r} (MEADS/ChEES manage their own step-size "
             "adaptation)"
         )
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md item "
-                                  "1.12)")
+    num_chains = initial_positions.shape[0]
+    if mesh is not None and meads_segment_fn is not None:
+        raise ValueError(
+            "meads_segment_fn has no shard adapter: with a mesh, pass a "
+            "meads_transition_fn (make_fused_meads_transition(mesh=..., "
+            "num_chains=...)) or none")
+    meads_transition_fn = _on_mesh(meads_transition_fn, shard_fold_transition,
+                                   mesh, num_chains)
+    chees_kernel_fn = _on_mesh(chees_kernel_fn, shard_kernel, mesh,
+                               num_chains)
     run = dict(checkpoint_every=checkpoint_every,
                checkpoint_path=checkpoint_path, resume=resume,
                _crash_after_segments=_crash_after_segments,
                _crash_after_warmup_segments=_crash_after_warmup_segments)
     if algorithm == "meads":
+        if mesh is not None and meads_transition_fn is None:
+            meads_transition_fn = shard_fold_transition(
+                meads._make_fold_transition(logprob_fn, divergence_threshold),
+                mesh, num_chains)
         return _sample_meads(
             generator, logprob_fn, initial_positions, num_samples, num_warmup,
             divergence_threshold=divergence_threshold,
@@ -302,6 +424,10 @@ def sample_sharded(
             transition_fn=meads_transition_fn, segment_fn=meads_segment_fn,
             progress_every=progress_every, run=run)
     if algorithm == "chees":
+        if mesh is not None and chees_kernel_fn is None:
+            chees_kernel_fn = shard_kernel(
+                chees.new_kernel(logprob_fn, divergence_threshold), mesh,
+                num_chains)
         return _sample_chees(
             generator, logprob_fn, initial_positions, num_samples, num_warmup,
             divergence_threshold=divergence_threshold,
@@ -315,12 +441,11 @@ def sample_sharded(
             "MALA supports scalar/diagonal preconditioners only; "
             "is_mass_matrix_full=True is not compatible with algorithm='mala'"
         )
-    kernel = make_kernel(
+    kernel = _on_mesh(make_kernel(
         logprob_fn, algorithm, num_integration_steps=num_integration_steps,
         max_num_expansions=max_num_expansions,
         divergence_threshold=divergence_threshold,
-    )
-    num_chains = initial_positions.shape[0]
+    ), shard_kernel, mesh, num_chains)
     w_init, w_segment, w_finish = pooled_warmup_hooks(
         kernel, num_chains, num_warmup,
         is_mass_matrix_full=is_mass_matrix_full,

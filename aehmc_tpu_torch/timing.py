@@ -228,7 +228,8 @@ def ghmc_launch_only(gf, state, im, data):
     stats = torch.empty((8, num_chains), dtype=torch.float32, device=dev)
     lib = load_kernels("ghmc_fused.cu")
     ptr = {k: v.data_ptr() for k, v in ops.items() if v is not None}
-    args = (ptr["q"], ptr["u"], ptr["g"], ptr["p"], None, None, 1, 7,
+    # the Philox key 7 at chain offset 0
+    args = (ptr["q"], ptr["u"], ptr["g"], ptr["p"], None, None, 1, 7, 0,
             ptr["X"], int(ops["X"].dtype == torch.bfloat16), ptr["y"],
             rows[0].data_ptr(), rows[1].data_ptr(), *scalars, ptr["im"],
             int(per_chain), 1000.0, dim, num_points, num_chains, 1,

@@ -121,7 +121,28 @@ logistic regression.  Then it drives the port's front door
   43 runs eight schools' ChEES and MEADS front doors (2,048 chains, 500 +
   500) held to phase 19's NUTS means, and eight schools' GHMC and the
   funnel's MALA and ChEES front doors, so that kernels 5-7 run on each
-  model's front door, every run's launches checked exactly.
+  model's front door, every run's launches checked exactly;
+- phases 44-47, a device mesh (one process; a mesh may name the card
+  more than once): phase 44 launches kernels 1-5 and 7 (kernel 6 is
+  never sharded and keys on its launch's chains) on ``LogisticPGT`` and
+  on the flagship's generated functor at chain offsets 0, 2,560, 5,120
+  and 7,680 (Philox), joins the four shards and holds them to the whole
+  launch bit for bit, and each shard to its plain version fed the same
+  offset streams at phase 2's limits; phase 45 runs phase 5's fused NUTS
+  front door on ``make_mesh(devices=[cuda:0] * 4)`` and on
+  ``make_multislice_mesh(2, devices=[cuda:0] * 4)``, each equal to the
+  unsharded run bit for bit (positions, stats, final state, ε, M⁻¹) with
+  kernel 1 launched 4 times a warmup step and kernel 2 4 times, and
+  records the walls; phase 46 does the same on the 4-shard mesh for phase
+  14's fused ChEES front door, phase 24's MEADS cell on the fused
+  transition route (kernel 5 a draw, against the unsharded transition
+  route) and phase 22's ``pooled_nuts`` cell (the XLA path, whose cuBLAS
+  gradient sums a shard's rows in another order than the whole batch's:
+  held by its tuned ε and M⁻¹ within relative 1e-3 and its first 10 draws
+  chain by chain, 99% of the chains with equal decisions and within 1e-2,
+  besides one sharded step and the means); phase 47 runs phase 45 on
+  distinct cards when ``torch.cuda.device_count() > 1``, and says that it
+  did not run otherwise.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -144,7 +165,9 @@ kernels 1 and 2 (flagship and funnel) their per-chain ε launches, errors,
 times and bounds (phases 28-33), and those of kernels 1-4 their
 ``generic_*`` fields: the generated functor's time, launches on its main
 path (phases 38 and 36), bound, error against plain and against the
-hand-written functor (phase 35).  Kernels 5-7 on the flagship's, the
+hand-written functor (phase 35), and those of kernels 1-5 and 7 their
+``offset_check`` (phase 44) and ``mesh_launches`` (phases 45-46's
+sharded runs).  Kernels 5-7 on the flagship's, the
 funnel's and eight schools' generated functors have entries of their own
 (``ghmc_transition_generic``, ``chees_transition_generic (funnel)``, ...):
 launches from phases 41-43, errors and times from phases 39-40, registers
@@ -4836,6 +4859,503 @@ def hmc_functor_entries(gen39, hier40, door, hier43, ptxas):
     return out
 
 
+# phases 44-47: a device mesh.  Phase 44 holds kernels 1-5 and 7 at a
+# chain offset (kernel 6, never sharded, keys on its launch's chains):
+# four shards of the flagship's chains, each launched at its
+# global offset, joined, equal to the whole launch bit for bit, each shard
+# against its plain version fed the same offset streams.  Phase 45 runs
+# phase 5's fused NUTS front door on a mesh that names the card four
+# times (2,560 chains, 320 blocks of 8 a shard) and on a 2 x 2 multislice
+# mesh of it, against the unsharded run; phase 46 the fused ChEES (phase
+# 14's cell), the fused MEADS transition route (phase 24's) and the pooled
+# XLA NUTS front door (phase 22's pooled_nuts) on the four-shard mesh;
+# phase 47 phase 45 on distinct cards where there are more than one.
+OFFSET_SHARDS = 4
+OFFSET_SEED = 440044
+OFFSET_DRAWS = 4              # kernels 2 and 4's draws in phase 44
+OFFSET_KERNELS = ("nuts_transition", "nuts_sampling", "nuts_transition_std",
+                  "nuts_sampling_std", "ghmc_transition", "chees_transition")
+# phase 46's pooled XLA NUTS run on 4 shards against the unsharded one,
+# which cuBLAS keeps from agreeing bit for bit: the draws held chain by
+# chain (phase 20's share of chains with equal decisions, each within
+# POOLED_MESH_QTOL, a fiftieth of the posterior's least standard
+# deviation, 0.555, of its unsharded position after 100 warmup steps), and
+# the relative gap allowed in the tuned ε and M⁻¹
+POOLED_MESH_DRAWS = 10
+POOLED_MESH_QTOL = 1e-2
+POOLED_MESH_RTOL = 1e-3
+
+
+def join_shards(torch, parts, axes):
+    """Per-shard output tuples joined along each output's chain axis."""
+    return tuple(None if ps[0] is None else torch.cat(ps, dim=ax)
+                 for ps, ax in zip(zip(*parts), axes))
+
+
+def offset_phase(torch, gen, data, pg, q0, record, card):
+    """Phase 44: kernels 1-5 and 7 at a chain offset on LogisticPGT and on
+    the flagship's generated functor.  Returns, for each kernel, its least
+    decision share and largest |Δq| against plain over the shards."""
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+
+    dev = q0.device
+    rng = np.random.default_rng(44)
+    width = CHAINS // OFFSET_SHARDS
+    offsets = range(0, CHAINS, width)
+    seed, draws = OFFSET_SEED, OFFSET_DRAWS
+    im = torch.full((DIM,), IMM, device=dev)
+    X, y = data[0], data[2].reshape(-1)
+    b = gen["binds"]["flagship"]
+    ops_b = b.operands((), dev)
+    b3 = gen["binds"]["cell"]
+    ops3 = b3.operands((X, y), dev)
+
+    def plain_cell(q):
+        u, g = generic_pg.run_plain(b3.ir, q.T.contiguous(), ops3)
+        return u.reshape(-1, 1), g.T
+
+    functors = {
+        "LogisticPGT": dict(data=data, kw={}, pg_t=lambda x: pg(x, *data),
+                            model=nf._logistic_model(X, y, 1.0,
+                                                     torch.float32)),
+        "generated": dict(
+            data=(), kw=dict(potential_and_grad_t=None,
+                             potential_fn_t=gen["flagship_t"]),
+            pg_t=lambda x: generic_pg.run_plain(b.ir, x, ops_b),
+            model=nf._generic_model(gen["cell"], (X, y)),
+            plain_model=nf._Model(plain_cell, (X, y), None)),
+    }
+    q_t = q0.T.contiguous()
+    u_t, g_t = pg(q_t, *data)
+    p_t = torch.tensor(np.sqrt(1.0 / IMM) * rng.standard_normal((DIM, CHAINS)),
+                       dtype=torch.float32, device=dev)
+    steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+
+    def kernels(f):
+        """kernel -> (run(lo, hi, plain) -> outputs, each output's chain
+        axis, hold(kernel outputs, plain outputs, q_in, what))."""
+        d, kw, ppg, model = f["data"], f["kw"], f["pg_t"], f["model"]
+        pmodel = f.get("plain_model", model)
+        us, gs = model.pot_grad(q0)  # the standard layout's state
+
+        def t_(x, lo, hi):
+            return x[:, lo:hi].contiguous()
+
+        def s_(x, lo, hi):
+            return x[lo:hi].contiguous()
+
+        def k1(lo, hi, plain):
+            st = (t_(q_t, lo, hi), t_(u_t, lo, hi), t_(g_t, lo, hi))
+            if plain:
+                return nfs.nuts_transition_plain(
+                    *st, im, EPS, ppg, max_exp=K, seed=seed, chain_offset=lo)
+            return nfs.nuts_transition_cuda(*st, im, EPS, d, max_exp=K,
+                                            seed=seed, chain_offset=lo, **kw)
+
+        def k2(lo, hi, plain):
+            st = (t_(q_t, lo, hi), t_(u_t, lo, hi), t_(g_t, lo, hi))
+            if plain:
+                return nfs._sampling_plain(
+                    ppg, *st, im, EPS, seed, draws, max_exp=K,
+                    divergence_threshold=1000.0, collect_positions=True,
+                    collect_dtype=torch.float32, chain_offset=lo)
+            return nfs.nuts_sampling_cuda(*st, im, EPS, d, seed, draws,
+                                          max_exp=K, chain_offset=lo, **kw)
+
+        def k3(lo, hi, plain):
+            st = (s_(q0, lo, hi), s_(us, lo, hi), s_(gs, lo, hi))
+            if plain:
+                return nf.nuts_transition_std_plain(
+                    *st, im, EPS, pmodel.pot_grad, max_exp=K, seed=seed,
+                    chain_offset=lo)
+            return nf._transition(model, *st, None, None, None, None, im, EPS,
+                                  max_exp=K, divergence_threshold=1000.0,
+                                  seed=seed, chain_offset=lo)
+
+        def k4(lo, hi, plain):
+            st = (s_(q0, lo, hi), s_(us, lo, hi), s_(gs, lo, hi))
+            if plain:
+                return nf._sampling_plain(
+                    pmodel, *st, im, EPS, seed, draws, max_exp=K,
+                    divergence_threshold=1000.0, collect_positions=True,
+                    chain_offset=lo)
+            return nf._fused_sampling_call(model, *st, im, EPS, seed, draws,
+                                           max_num_expansions=K,
+                                           chain_offset=lo)
+
+        def k5(lo, hi, plain):
+            st = tuple(t_(x, lo, hi) for x in (q_t, u_t, g_t, p_t))
+            if plain:
+                return gf.ghmc_transition_plain(
+                    *st, EPS, GHMC_ALPHA, im, ppg, seed=seed, chain_offset=lo)
+            return gf.ghmc_transition_cuda(*st, EPS, GHMC_ALPHA, im, d,
+                                           seed=seed, chain_offset=lo, **kw)
+
+        def k7(lo, hi, plain):
+            st = (s_(q0, lo, hi), s_(u_t.reshape(-1), lo, hi),
+                  s_(g_t.T, lo, hi))
+            if plain:
+                return cf.chees_transition_plain(
+                    *st, im, EPS, LEAPFROG_STEPS, ppg, seed=seed,
+                    chain_offset=lo)
+            return cf.chees_transition_cuda(*st, im, EPS, steps, d,
+                                            seed=seed, chain_offset=lo, **kw)
+
+        def nuts_t(k, p, q_in, what):
+            return compare(k, p, what)
+
+        def nuts_t2(k, p, q_in, what):
+            return compare((k[0], None, None, k[1]), (p[0], None, None, p[1]),
+                           what)
+
+        def nuts_s(k, p, q_in, what):
+            return compare(tuple(None if x is None else x.T for x in k[:4]),
+                           tuple(None if x is None else x.T for x in p[:4]),
+                           what)
+
+        def nuts_s2(k, p, q_in, what):
+            def t4(o):
+                return (o[0].transpose(1, 2), None, None,
+                        o[1].transpose(1, 2))
+            return compare(t4(k), t4(p), what)
+
+        def ghmc1(k, p, q_in, what):
+            return ghmc_compare(torch, q_in, (k[0][None], k[4][None]),
+                                (p[0][None], p[4][None]), what)
+
+        def chees(k, p, q_in, what):
+            return chees_compare(torch, q_in, k, p, what)
+
+        return {
+            "nuts_transition": (k1, (-1,) * 4, nuts_t, lambda lo, hi: t_(q_t, lo, hi)),
+            "nuts_sampling": (k2, (-1,) * 5, nuts_t2, lambda lo, hi: t_(q_t, lo, hi)),
+            "nuts_transition_std": (k3, (0,) * 4, nuts_s, lambda lo, hi: s_(q0, lo, hi)),
+            "nuts_sampling_std": (k4, (1, 1, 0, 0, 0), nuts_s2, lambda lo, hi: s_(q0, lo, hi)),
+            "ghmc_transition": (k5, (-1,) * 5, ghmc1, lambda lo, hi: t_(q_t, lo, hi)),
+            "chees_transition": (k7, (0,) * 6, chees, lambda lo, hi: s_(q0, lo, hi)),
+        }
+
+    out = {}
+    for fname, f in functors.items():
+        for name, (run, axes, hold, q_in) in kernels(f).items():
+            whole = run(0, CHAINS, False)
+            parts = [run(lo, lo + width, False) for lo in offsets]
+            torch.cuda.synchronize()
+            same_bits(tuple(whole), join_shards(torch, parts, axes),
+                      f"{name} ({fname}): {OFFSET_SHARDS} shards at offsets "
+                      f"{list(offsets)} joined against the whole launch")
+            del whole
+            held = [hold(part, run(lo, lo + width, True), q_in(lo, lo + width),
+                         f"{name} ({fname}) at chain offset {lo} vs plain")
+                    for lo, part in zip(offsets, parts)]
+            del parts
+            out.setdefault(name, {})[fname] = dict(
+                bitwise=True, shards=OFFSET_SHARDS, offsets=list(offsets),
+                share=min(h[0] for h in held),
+                max_abs_err=max(h[1] for h in held))
+    for name, r in out.items():
+        log(f"phase 44: {name} at chain offsets {list(offsets)} ("
+            f"{width} chains a shard): joined shards equal the whole launch "
+            "bit for bit on " + " and ".join(r) + "; against plain fed the "
+            "same offset streams: " + ", ".join(
+                f"{k} decisions {v['share']:.4%}, max |q| err "
+                f"{v['max_abs_err']:.3g}" for k, v in r.items())
+            + f" [{card}]")
+    record["phase44"] = out
+    return out
+
+
+def results_equal(a, b, what):
+    """Two front-door results (SampleResult) equal bit for bit: positions,
+    diagnostics, final state, step size and M⁻¹."""
+    same_bits((a.positions, tuple(a.diagnostics), a.final_state, a.step_size,
+               a.inverse_mass_matrix),
+              (b.positions, tuple(b.diagnostics), b.final_state, b.step_size,
+               b.inverse_mass_matrix), what)
+
+
+def mesh_run(torch, ops, run, mesh):
+    """One front-door run: (result, wall seconds, launch counts)."""
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run(mesh)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def draw_agreement(torch, a, b, draws, atol):
+    """Chain by chain, two runs' (SampleResult) first ``draws`` draws:
+    per draw the share of chains whose decisions (doublings, leaves,
+    divergent, turning) are equal and whose positions lie within ``atol``
+    of each other, and the largest |Δq| over those chains."""
+    da, db = a.diagnostics, b.diagnostics
+    same = ((da.num_doublings == db.num_doublings)
+            & (da.num_integration_steps == db.num_integration_steps)
+            & (da.is_turning == db.is_turning)
+            & (da.is_diverging == db.is_diverging))[:draws]
+    dq = (a.positions[:draws] - b.positions[:draws]).abs().amax(-1)
+    held = same & (dq <= atol)
+    return ([float(x) for x in held.float().mean(1)],
+            float(dq[held].max()) if bool(held.any()) else math.inf)
+
+
+def relative_gap(torch, a, b):
+    """The largest |a - b| / |a| over the elements."""
+    return float(((a - b).abs() / a.abs()).max())
+
+
+def pooled_mesh_hold(torch, ops, diagnostics, run, logprob_fn, mesh):
+    """Phase 46's pooled XLA NUTS front door on ``mesh`` against its
+    unsharded run.  The XLA path's gradients come from ``torch.func``, whose
+    product over the data points cuBLAS may split differently for a
+    shard's rows than for the whole batch's, so the run is held bit for bit
+    only where it is, and always: the share of gradient values whose bits
+    differ between the whole batch and its shards (recorded); the tuned ε
+    and M⁻¹ within relative POOLED_MESH_RTOL of the unsharded run's; each
+    of the first POOLED_MESH_DRAWS draws chain by chain (draw_agreement:
+    at least DECISION_SHARE of the chains with equal decisions and within
+    POOLED_MESH_QTOL; a wrong key or a wrong chain order moves most
+    chains); one XLA NUTS step from the unsharded run's final state at its
+    tuned ε and M⁻¹ through ``shard_kernel`` against the whole batch's
+    (phase 20's limits); and the two runs' means within MCSE_Z combined
+    MCSE."""
+    from aehmc_tpu_torch import _batch, keys
+    from aehmc_tpu_torch.parallel.pooled import shard_kernel
+    from aehmc_tpu_torch.sampling import make_kernel
+
+    base, wall0, l0 = mesh_run(torch, ops, run, None)
+    res, wall, launches = mesh_run(torch, ops, run, mesh)
+    check(sum(launches.values()) == 0 == sum(l0.values()),
+          f"pooled NUTS launched a kernel: {launches}")
+    bitwise = all(
+        a.shape == b.shape and bool((a == b).all())
+        for a, b in zip((base.positions, *base.diagnostics, base.step_size,
+                         base.inverse_mass_matrix),
+                        (res.positions, *res.diagnostics, res.step_size,
+                         res.inverse_mass_matrix)))
+    # the tuned parameters, and the first draws chain by chain
+    eps_gap = relative_gap(torch, base.step_size, res.step_size)
+    imm_gap = relative_gap(torch, base.inverse_mass_matrix,
+                           res.inverse_mass_matrix)
+    shares, draws_err = draw_agreement(torch, base, res, POOLED_MESH_DRAWS,
+                                       POOLED_MESH_QTOL)
+    # recorded: the shares with equal decisions alone, and within Q_ATOL
+    decided = draw_agreement(torch, base, res, POOLED_MESH_DRAWS, math.inf)[0]
+    near = draw_agreement(torch, base, res, POOLED_MESH_DRAWS, Q_ATOL)[0]
+    held = dict(eps_rel_gap=eps_gap, imm_rel_gap=imm_gap,
+                draw_shares=shares, draws_max_abs_err=draws_err,
+                draw_decision_shares=decided, draw_shares_q_atol=near)
+    log(f"phase 46: pooled NUTS on {mesh.size} shards against unsharded "
+        f"(before its checks): tuned ε relative gap {eps_gap:.3g}, M⁻¹ "
+        f"{imm_gap:.3g}; the first {POOLED_MESH_DRAWS} draws agree chain by "
+        f"chain (equal decisions, |Δq| ≤ {POOLED_MESH_QTOL}) on "
+        f"{min(shares):.4%} of the chains or more (per draw "
+        f"{[round(x, 5) for x in shares]}), max |q| err {draws_err:.3g}; "
+        f"equal decisions alone {[round(x, 5) for x in decided]}; within "
+        f"{Q_ATOL} {[round(x, 5) for x in near]}")
+    check(eps_gap <= POOLED_MESH_RTOL and imm_gap <= POOLED_MESH_RTOL,
+          f"pooled NUTS on a mesh: tuned ε {eps_gap:.3g}, M⁻¹ {imm_gap:.3g} "
+          "relative to the unsharded run's")
+    check(min(shares) >= DECISION_SHARE,
+          f"pooled NUTS on a mesh: the first {POOLED_MESH_DRAWS} draws agree "
+          f"chain by chain on {min(shares):.4f} of the chains (max |q| "
+          f"error {draws_err})")
+    # the gradients of the whole batch against its shards'
+    q = base.final_state.position
+    vag = _batch.value_and_grad(lambda x: -logprob_fn(x))
+    whole = vag(q)
+    width = q.shape[0] // mesh.size
+    parts = [vag(q[i:i + width].contiguous())
+             for i in range(0, q.shape[0], width)]
+    differ = [int((w != torch.cat([p[j] for p in parts])).sum())
+              for j, w in enumerate(whole)]
+    # one XLA NUTS step from the tuned state, whole and sharded
+    kernel = make_kernel(logprob_fn, "nuts",
+                         max_num_expansions=POOLED_RUNS["nuts"][2][
+                             "max_num_expansions"])
+    key = keys.Key(4646)
+    args = (base.final_state, base.step_size, base.inverse_mass_matrix)
+    st_w, info_w = kernel(key, *args)
+    st_s, info_s = shard_kernel(kernel, mesh, q.shape[0])(key, *args)
+    torch.cuda.synchronize()
+    same = ((info_w.num_doublings == info_s.num_doublings)
+            & (info_w.num_integration_steps == info_s.num_integration_steps)
+            & (info_w.is_turning == info_s.is_turning)
+            & (info_w.is_diverging == info_s.is_diverging)
+            & ((info_w.energy - info_s.energy).abs()
+               <= 1e-5 * info_w.energy.abs().clamp(min=1.0)))
+    share = float(same.float().mean())
+    err = float((st_w.position - st_s.position).abs()[same].max())
+    check(share >= DECISION_SHARE, f"one sharded XLA NUTS step: decisions "
+          f"agree on {share:.4f}")
+    check(err <= Q_ATOL, f"one sharded XLA NUTS step: max |q| error {err}")
+    # the runs' means
+    (ma, sa), (mb, sb) = (mean_mcse(torch, diagnostics,
+                                    r.positions.transpose(0, 1).double())
+                          for r in (base, res))
+    z = float(((ma - mb).abs() / torch.sqrt(sa**2 + sb**2)).max())
+    check(z < MCSE_Z, f"pooled NUTS on a mesh: means {z} combined MCSE from "
+          "the unsharded run's")
+    return dict(unsharded_wall_s=wall0, wall_s=wall, unsharded_launches=l0,
+                launches=launches, bitwise=bitwise,
+                potential_bits_differ=differ[0], grad_bits_differ=differ[1],
+                grad_values=whole[1].numel(), step_share=share,
+                step_max_abs_err=err, max_z=z, **held)
+
+
+def mesh_phases(torch, ops, diagnostics, data, pot, pg, q0, record, card):
+    """Phases 45-47: the fused NUTS, fused ChEES and fused MEADS
+    (transition route) front doors on a mesh against their unsharded runs,
+    bit for bit, and the pooled XLA NUTS front door (pooled_mesh_hold),
+    with launches and walls.  Returns the launches of kernels 1, 2, 5 and
+    7 in phases 45-46's sharded runs."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.models import logistic_regression
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.parallel import (
+        make_mesh,
+        make_multislice_mesh,
+        sample_sharded,
+    )
+
+    dev = q0.device
+    four = make_mesh(devices=[dev] * OFFSET_SHARDS)
+    two_by_two = make_multislice_mesh(2, devices=[dev] * OFFSET_SHARDS)
+
+    # ---- phase 45: phase 5's fused NUTS front door
+    def nuts(mesh):
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(2026), None, q0, DRAWS, WARMUP,
+            algorithm="nuts", path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, max_num_expansions=K,
+            initial_step_size=0.1, collect_dtype=torch.bfloat16, mesh=mesh)
+
+    base, wall0, l0 = mesh_run(torch, ops, nuts, None)
+    check(l0["nuts_transition"] == WARMUP and l0["nuts_sampling"] == 1,
+          f"unsharded NUTS front door launches {l0}")
+    p45 = dict(unsharded=dict(wall_s=wall0, launches=l0))
+    for name, mesh in (("four_shards", four), ("slice2x2", two_by_two)):
+        res, wall, launches = mesh_run(torch, ops, nuts, mesh)
+        check(launches["nuts_transition"] == OFFSET_SHARDS * WARMUP
+              and launches["nuts_sampling"] == OFFSET_SHARDS,
+              f"NUTS front door on {name}: launches {launches}")
+        results_equal(base, res, f"NUTS front door on {name}")
+        p45[name] = dict(wall_s=wall, launches=launches)
+        del res
+    del base
+    log("phase 45: fused NUTS front door " + f"{CHAINS}x{DIM}, {WARMUP} + "
+        f"{DRAWS}, K {K}, on [{dev}] x {OFFSET_SHARDS} and a 2 x 2 "
+        "multislice mesh of it, equal to the unsharded run bit for bit "
+        "(positions, stats, final state, eps, M⁻¹); walls " + ", ".join(
+            f"{k} {v['wall_s']:.3f} s" for k, v in p45.items())
+        + "; launches " + ", ".join(
+            f"{k} {v['launches']['nuts_transition']} + "
+            f"{v['launches']['nuts_sampling']}" for k, v in p45.items())
+        + f" [{card}]")
+    record["phase45"] = p45
+
+    # ---- phase 46: fused ChEES, fused MEADS (transition), pooled XLA NUTS
+    logprob_fn, _ = logistic_regression(DIM, POINTS, device=dev)
+
+    def chees(mesh):
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(14), logprob_fn, q0, DRAWS, WARMUP,
+            algorithm="chees", path="fused", data=data,
+            potential_and_grad_t=pg, initial_step_size=CHEES_EPS0, mesh=mesh)
+
+    def meads(mesh):
+        gen = torch.Generator().manual_seed(24)
+        if mesh is None:  # the unsharded transition route
+            return sample_sharded(
+                gen, logprob_fn, q0, MEADS_DRAWS, MEADS_WARMUP,
+                algorithm="meads", meads_recompute_every=MEADS_EVERY,
+                meads_transition_fn=gf.make_fused_meads_transition(
+                    pot, data, potential_and_grad_t=pg))
+        return aehmc_tpu_torch.sample(
+            gen, logprob_fn, q0, MEADS_DRAWS, MEADS_WARMUP,
+            algorithm="meads", path="fused", data=data, potential_fn_t=pot,
+            potential_and_grad_t=pg, meads_recompute_every=MEADS_EVERY,
+            mesh=mesh)
+
+    warm, draws, kw = POOLED_RUNS["nuts"]
+
+    def pooled(mesh):
+        return aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(223), logprob_fn, q0, draws, warm,
+            algorithm="nuts", path="pooled", initial_step_size=0.1,
+            mesh=mesh, **kw)
+
+    p46, sharded_launches = {}, {}
+    for name, run, kernel in (("chees", chees, "chees_transition"),
+                              ("meads_transition", meads, "ghmc_transition")):
+        base, wall0, l0 = mesh_run(torch, ops, run, None)
+        res, wall, launches = mesh_run(torch, ops, run, four)
+        results_equal(base, res, f"{name} front door on {OFFSET_SHARDS} "
+                      "shards")
+        check(launches[kernel] == OFFSET_SHARDS * l0[kernel] > 0
+              and sum(launches.values()) == launches[kernel],
+              f"{name} on {OFFSET_SHARDS} shards: launches {launches}, "
+              f"unsharded {l0}")
+        sharded_launches[kernel] = launches[kernel]
+        p46[name] = dict(unsharded_wall_s=wall0, wall_s=wall,
+                         unsharded_launches=l0, launches=launches,
+                         bitwise=True)
+        del base, res
+    p46["pooled_nuts"] = pooled_mesh_hold(torch, ops, diagnostics, pooled,
+                                          logprob_fn, four)
+    log("phase 46: on [" + f"{dev}] x {OFFSET_SHARDS} against the unsharded "
+        "runs: " + ", ".join(
+            f"{k} {v['wall_s']:.3f} s (unsharded {v['unsharded_wall_s']:.3f}"
+            f" s; launches { {n: c for n, c in v['launches'].items() if c} };"
+            f" bit for bit {v['bitwise']})"
+            for k, v in p46.items())
+        + "; pooled NUTS's gradients at the start: "
+        f"{p46['pooled_nuts']['grad_bits_differ']} of "
+        f"{p46['pooled_nuts']['grad_values']} values differ between the "
+        f"whole batch and its shards, potentials "
+        f"{p46['pooled_nuts']['potential_bits_differ']}; tuned ε relative "
+        f"gap {p46['pooled_nuts']['eps_rel_gap']:.3g}, M⁻¹ "
+        f"{p46['pooled_nuts']['imm_rel_gap']:.3g}; the first "
+        f"{POOLED_MESH_DRAWS} draws agree chain by chain (equal decisions, "
+        f"|Δq| ≤ {POOLED_MESH_QTOL}) on "
+        f"{min(p46['pooled_nuts']['draw_shares']):.4%} or more, max |q| err "
+        f"{p46['pooled_nuts']['draws_max_abs_err']:.3g}; one XLA NUTS step "
+        f"from the tuned state: decisions equal on "
+        f"{p46['pooled_nuts']['step_share']:.4%}, max |q| err "
+        f"{p46['pooled_nuts']['step_max_abs_err']:.3g}; the runs' means "
+        f"{p46['pooled_nuts']['max_z']:.2f} combined MCSE apart [{card}]")
+    record["phase46"] = p46
+
+    # ---- phase 47: phase 45 on distinct cards
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"phase 47: did not run: {count} CUDA device; a mesh of "
+            "distinct cards needs two or more")
+        record["phase47"] = dict(ran=False, devices=count)
+    else:
+        # the most cards the chains split over evenly
+        n = max(k for k in range(1, count + 1) if CHAINS % k == 0)
+        mesh = make_mesh(n)
+        base, wall0, _ = mesh_run(torch, ops, nuts, None)
+        res, wall, launches = mesh_run(torch, ops, nuts, mesh)
+        results_equal(base, res, f"NUTS front door on {mesh.size} cards")
+        log(f"phase 47: fused NUTS front door on {mesh.size} cards equal to "
+            f"the unsharded run bit for bit; wall {wall:.3f} s against "
+            f"{wall0:.3f} s [{card}]")
+        record["phase47"] = dict(ran=True, devices=mesh.size, wall_s=wall,
+                                 unsharded_wall_s=wall0, launches=launches)
+        del base, res
+    sharded_launches.update(
+        nuts_transition=p45["four_shards"]["launches"]["nuts_transition"],
+        nuts_sampling=p45["four_shards"]["launches"]["nuts_sampling"])
+    return sharded_launches
+
+
 def main():
     import torch
 
@@ -5253,6 +5773,10 @@ def main():
     door = bare_front_doors(torch, ops, diagnostics, gen_pots, q0, record,
                             nuts_mean, card)
     hier43 = hier_hmc_front_doors(torch, ops, diagnostics, record, card)
+    # phases 44-47: a device mesh; kernels 1-5 and 7 at a chain offset
+    offsets = offset_phase(torch, gen_pots, data, pg, q0, record, card)
+    mesh_launches = mesh_phases(torch, ops, diagnostics, data, pot, pg, q0,
+                                record, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -5303,6 +5827,10 @@ def main():
                  "nuts_sampling_std")
         if entry["name"] in names and "generic_ms" not in entry:
             entry.update(generic[names.index(entry["name"])])
+    for entry in kernels:
+        if entry["name"] in OFFSET_KERNELS:
+            entry.update(offset_check=offsets[entry["name"]],
+                         mesh_launches=mesh_launches.get(entry["name"]))
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,8 +1,8 @@
 """The port's front door: aehmc_tpu_torch.sample(algorithm="nuts" | "mala" |
 "ghmc" | "meads", path="fused") runs the plain versions on the CPU (its run
-on a card is in ``test_torch_cuda.py``); every unported route raises
-NotImplementedError (the XLA and pooled routes are in
-``test_torch_xla_sampling.py``)."""
+on a card is in ``test_torch_cuda.py``), a mesh shards its chains (the
+sharded runs are in ``test_torch_sharded.py``; the XLA and pooled routes
+are in ``test_torch_xla_sampling.py``)."""
 
 import subprocess
 import sys
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import aehmc_tpu_torch
+from aehmc_tpu_torch.parallel import make_mesh
 
 
 VAR = torch.tensor([0.5, 1.0, 2.0, 4.0])
@@ -159,8 +160,11 @@ def test_chees_route_needs_logprob_fn_and_takes_kernel_options():
     factors = _chees_route(seed=1, draws=5,
                            step_size_factors=torch.full((16,), 0.5))
     assert external.positions.shape == factors.positions.shape == (5, 16, 4)
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        _chees_route(draws=2, mesh=object())
+    # a mesh shards the fused ChEES kernel: the unsharded run's bits
+    sharded = _chees_route(seed=1, draws=5, mesh=make_mesh(
+        devices=[torch.device("cpu")] * 4))
+    assert torch.equal(sharded.positions,
+                       _chees_route(seed=1, draws=5).positions)
 
 
 def test_ghmc_alpha_is_the_momentum_persistence():
@@ -178,8 +182,8 @@ def test_mala_and_ghmc_route_errors():
         _ghmc_route("mala", ghmc_alpha=0.5)
     with pytest.raises(ValueError, match="alpha"):
         _ghmc_route("ghmc", ghmc_alpha=1.5)
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        _ghmc_route("mala", mesh=object())
+    with pytest.raises(ValueError, match="single-host"):
+        _ghmc_route("mala", mesh=make_mesh(devices=[torch.device("cpu")] * 2))
     with pytest.raises(TypeError, match="unexpected"):
         _ghmc_route("mala", max_num_expansions=6)
 
@@ -187,19 +191,27 @@ def test_mala_and_ghmc_route_errors():
 @pytest.mark.parametrize("path", ["xla", "pooled"])
 def test_unported_paths_raise(path):
     """The XLA and pooled paths run, MEADS on both (a chain ensemble: its
-    XLA route is the pooled driver, as in the JAX package); a mesh raises,
-    naming its ROADMAP.md item (1.12)."""
-    res = aehmc_tpu_torch.sample(0, _gaussian_lp, torch.randn(8, 4), 6, 6,
-                                 path=path, algorithm="meads")
+    XLA route is the pooled driver, as in the JAX package); a mesh shards
+    its chains, bit for bit the unsharded run, and raises the JAX package's
+    error when the chains do not split over it."""
+    q0 = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
+    res = aehmc_tpu_torch.sample(0, _gaussian_lp, q0, 6, 6, path=path,
+                                 algorithm="meads")
     assert res.positions.shape == (6, 8, 4)
+    sharded = aehmc_tpu_torch.sample(
+        0, _gaussian_lp, q0, 6, 6, path=path, algorithm="meads",
+        mesh=make_mesh(devices=[torch.device("cpu")] * 2))
+    assert torch.equal(sharded.positions, res.positions)
     # one chain: JAX's errors, by route
     match = "chain-ensemble" if path == "xla" else "chains, dim"
     with pytest.raises(ValueError, match=match):
         aehmc_tpu_torch.sample(0, _gaussian_lp, torch.zeros(4), path=path,
                                algorithm="meads")
-    with pytest.raises(NotImplementedError, match="item 1.12"):
+    with pytest.raises(ValueError, match="8 chains do not shard over 3"):
         aehmc_tpu_torch.sample(None, lambda q: -q @ q, torch.zeros(8, 4),
-                               path=path, mesh=object())
+                               path=path, algorithm="meads",
+                               mesh=make_mesh(devices=[torch.device("cpu")]
+                                              * 3))
 
 
 def test_bare_logprob_and_bad_names():
@@ -232,7 +244,8 @@ def test_import_loads_no_jax():
         "aehmc_tpu_torch.chees, aehmc_tpu_torch.hmc, "
         "aehmc_tpu_torch.parallel.pooled, aehmc_tpu_torch.ops.chees_fused, "
         "aehmc_tpu_torch.ops.nuts_fused, aehmc_tpu_torch.meads, "
-        "aehmc_tpu_torch.checkpoint, aehmc_tpu_torch.observability\n"
+        "aehmc_tpu_torch.checkpoint, aehmc_tpu_torch.observability, "
+        "aehmc_tpu_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
     )

@@ -28,7 +28,7 @@ from aehmc_tpu.ops import chees_fused as jax_cf
 from aehmc_tpu.types import ChainState as JaxChainState
 from aehmc_tpu_torch import chees, convert, hmc
 from aehmc_tpu_torch.ops import chees_fused
-from aehmc_tpu_torch.parallel import sample_sharded
+from aehmc_tpu_torch.parallel import make_mesh, sample_sharded
 from aehmc_tpu_torch.step_size import find_reasonable_step_size
 from aehmc_tpu_torch.types import ChainState, DualAveragingState, WelfordState
 
@@ -483,14 +483,22 @@ def test_sample_sharded_raises_for_what_is_not_ported():
     with pytest.raises(ValueError, match="requires an .npz"):
         sample_sharded(None, None, q0, algorithm="chees", checkpoint_every=5,
                        checkpoint_path="x", **kw)
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        sample_sharded(None, None, q0, algorithm="chees", mesh=object(), **kw)
+    with pytest.raises(ValueError, match="8 chains do not shard over 3"):
+        sample_sharded(None, None, q0, algorithm="chees",
+                       mesh=make_mesh(devices=[torch.device("cpu")] * 3), **kw)
     with pytest.raises(ValueError, match="per_chain_step_size"):
         sample_sharded(None, None, q0, algorithm="chees",
                        per_chain_step_size=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        chees_fused.sample_fused_chees_adaptive(None, None, (), q0, 2, 2,
-                                                mesh=object())
+    # the fused driver on a mesh: the unsharded run's bits
+    def fused(mesh):
+        return chees_fused.sample_fused_chees_adaptive(
+            torch.Generator().manual_seed(4),
+            lambda q_t, v: 0.5 * torch.sum(q_t * q_t / v, 0),
+            (torch.ones(2, 1),), torch.linspace(-1, 1, 16).reshape(8, 2), 3,
+            4, mesh=mesh)
+
+    sharded = fused(make_mesh(devices=[torch.device("cpu")] * 4))
+    assert torch.equal(sharded[1], fused(None)[1])
 
 
 def test_convert_chees_warmup_result():

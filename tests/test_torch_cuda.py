@@ -46,7 +46,13 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
     ghmc_transition_cuda,
     ghmc_transition_plain,
 )
-from aehmc_tpu_torch.ops import chees_fused, fused_hmc, ghmc_fused, nuts_fused
+from aehmc_tpu_torch.ops import (
+    chees_fused,
+    fused_driver,
+    fused_hmc,
+    ghmc_fused,
+    nuts_fused,
+)
 from aehmc_tpu_torch.ops._build import load_kernels
 from aehmc_tpu_torch.ops.fused_driver import sample_fused_adaptive
 from aehmc_tpu_torch.ops.fused_hmc import fused_logistic_hmc_reference
@@ -1169,7 +1175,7 @@ def test_cuda_hierarchical_kernels_refuse_a_tile_and_wrong_data(cuda_device):
         J = 8 if points else 7
         err = lib.nuts_transition_pot_launch(
             ops["q"].data_ptr(), ops["u"].data_ptr(), ops["g"].data_ptr(),
-            None, None, None, None, 1, 1, 2, ops["y"].data_ptr(),
+            None, None, None, None, 1, 1, 0, 2, ops["y"].data_ptr(),
             ops["s2"].data_ptr(), J, ops["im"].data_ptr(), None, 0, 0.2,
             None, 1000.0, 10, 16, 4, *(o.data_ptr() for o in outs),
             ops["ck"].data_ptr(), plan.blocks, points, stride, plan.smem, 8,
@@ -1837,3 +1843,83 @@ def test_front_door_on_a_bare_logprob_fn_takes_the_generated_functor(
                            for r in (res, hand))
     assert accept > 0.3
     assert abs(accept - hand_accept) < 0.05
+
+
+# ------------------------------------------------------ chain offsets ----
+
+def _four_shards(device):
+    from aehmc_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[device] * 4)
+
+
+def _sharded_case(device, kernel):
+    """``(whole, sharded)`` callables of kernel 1, 2, 5 or 7 under a Philox
+    seed at the test's widths, the sharded one over a mesh that names the
+    card four times (16 chains a shard, at offsets 0, 16, 32, 48)."""
+    from aehmc_tpu_torch.parallel.mesh import chain_shards, map_shards
+
+    mesh = _four_shards(device)
+    if kernel in (1, 2):
+        pg, data, q_t, u0, g0, imm, _ = _case(device, False)
+        if kernel == 1:
+            tr = make_fused_nuts_transition_small(
+                None, data, max_num_expansions=MAX_EXP,
+                potential_and_grad_t=pg, transposed_io=True)
+            sharded = fused_driver.shard_fused_transition(
+                tr, mesh, CHAINS, 8, transposed_io=True)
+            return (lambda: tr(q_t, u0, g0, None, None, None, None, imm, 0.3,
+                               seed=91),
+                    lambda: sharded(q_t, u0, g0, None, None, None, None, imm,
+                                    0.3, seed=91))
+
+        def run(q, u, g, chain_offset=0):
+            return _fused_sampling_call_t(
+                None, pg, data, q, u, g, imm, 0.3, 91, 4,
+                max_num_expansions=MAX_EXP, chain_offset=chain_offset)
+
+        def shards():
+            return map_shards(
+                lambda s: run(*(s.take(x, -1) for x in (q_t, u0, g0)),
+                              chain_offset=s.start),
+                chain_shards(mesh, CHAINS), device, -1)
+
+        return lambda: run(q_t, u0, g0), shards
+    if kernel == 5:
+        pg, data, state, params, _ = _ghmc_case(device, True)
+        tr = ghmc_fused.make_fused_ghmc_transition(
+            None, data, potential_and_grad_t=pg, transposed_io=True)
+        sharded = ghmc_fused.shard_fused_ghmc_transition(
+            tr, mesh, CHAINS, 8, transposed_io=True)
+        return (lambda: tr(*state, *params, seed=91),
+                lambda: sharded(*state, *params, seed=91))
+    pg, data, q, u, g, _ = _std_case(device, chains=CHAINS)
+    imm = torch.full((DIM,), 0.8, device=device)
+    tr = chees_fused.make_fused_chees_transition(
+        None, data, potential_and_grad_t=pg)
+    sharded = chees_fused.shard_fused_chees_transition(tr, mesh, CHAINS, 8)
+    return (lambda: tr(q, u, g, None, None, imm, 0.4, 5, seed=91),
+            lambda: sharded(q, u, g, None, None, imm, 0.4, 5, seed=91))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [1, 2, 5, 7])
+def test_cuda_sharded_kernels_equal_the_whole_launch(cuda_device, kernel):
+    """Four shards on the one card, each launched at its chain offset,
+    joined in chain order: the whole launch's outputs bit for bit, four
+    launches of the kernel."""
+    whole, sharded = _sharded_case(cuda_device, kernel)
+    name = {1: "nuts_transition", 2: "nuts_sampling", 5: "ghmc_transition",
+            7: "chees_transition"}[kernel]
+    reset_launch_counts()
+    want = whole()
+    assert LAUNCHES[name] == 1
+    reset_launch_counts()
+    got = sharded()
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == 4
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)

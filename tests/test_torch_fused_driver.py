@@ -187,10 +187,27 @@ def test_sample_fused_adaptive_external_randomness_from_the_generator():
     ],
 )
 def test_unported_options_name_their_roadmap_item(option, item):
-    """``mesh`` (item 1.12) names its item.  The item-1.5 options are
-    ported: ``sort_by_depth`` raises the JAX driver's error beside
+    """Every option of the items is ported.  The item-1.5 options:
+    ``sort_by_depth`` raises the JAX driver's error beside
     ``loop_in_kernel`` and the other two run; ``checkpoint_every`` (item
-    1.10, ported) raises the JAX driver's error when it has no path."""
+    1.10) raises the JAX driver's error when it has no path; ``mesh`` (item
+    1.12) runs the kernels per shard, the unsharded run's bits (on a
+    potential whose arithmetic for a chain does not depend on the batch
+    width)."""
+    if option == "mesh":
+        from aehmc_tpu_torch.parallel import make_mesh
+
+        var = torch.linspace(0.5, 2.0, DIM).reshape(-1, 1)
+        q0 = 0.3 * torch.randn(CHAINS, DIM,
+                               generator=torch.Generator().manual_seed(1))
+        run = lambda mesh: sample_fused_adaptive(  # noqa: E731
+            torch.Generator().manual_seed(2), None, (var,), q0, 3, 4,
+            potential_fn_t=lambda q_t, v: 0.5 * torch.sum(q_t * q_t / v, 0),
+            max_num_expansions=3, loop_in_kernel=True, mesh=mesh)
+        for a, b in zip(run(None),
+                        run(make_mesh(devices=[torch.device("cpu")] * 2))):
+            assert torch.equal(a, b)
+        return
     pg, data, q0 = _small_problem()
     if item == "1.5":
         gen = torch.Generator().manual_seed(2)
@@ -206,10 +223,8 @@ def test_unported_options_name_their_roadmap_item(option, item):
         assert eps.shape == ((CHAINS,) if option == "per_chain_step_size"
                              else ())
         return
-    error, match = ((ValueError, "checkpoint_every requires checkpoint_path")
-                    if option == "checkpoint_every"
-                    else (NotImplementedError, f"item {item}"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError,
+                       match="checkpoint_every requires checkpoint_path"):
         sample_fused_adaptive(None, None, data, q0, 2, 2,
                               potential_and_grad_t=pg, **{option: 1})
 

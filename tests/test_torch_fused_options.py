@@ -42,6 +42,7 @@ from aehmc_tpu_torch.ops.fused_driver import (
 from aehmc_tpu_torch.ops.nuts_fused_small import (
     make_fused_nuts_transition_small,
 )
+from aehmc_tpu_torch.parallel import make_mesh
 
 F32 = np.float32
 DIM, POINTS, CHAINS, MAX_EXP, STEPS = 6, 48, 16, 4, 30
@@ -468,8 +469,8 @@ def test_driver_errors_are_jax_s():
     with pytest.raises(ValueError, match="unknown quantile_snap stat"):
         run(per_chain_step_size=True, per_chain_quantiles=2,
             per_chain_quantile_stat="mean")
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        run(mesh=object())
+    with pytest.raises(ValueError, match=f"{CHAINS} chains do not shard"):
+        run(mesh=make_mesh(devices=[torch.device("cpu")] * (CHAINS + 1)))
 
 
 def test_front_door_sorts_without_an_explicit_loop_in_kernel():

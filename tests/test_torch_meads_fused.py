@@ -32,6 +32,7 @@ from aehmc_tpu_torch.ops.ghmc_fused import (
 )
 from aehmc_tpu_torch.ops.nuts_fused import DRAW_SEED_STRIDE
 from aehmc_tpu_torch.ops.philox import MASK32
+from aehmc_tpu_torch.parallel import make_mesh
 from aehmc_tpu_torch.types import IntegratorState
 
 F32 = np.float32
@@ -178,7 +179,13 @@ def test_segment_equals_transitions_bit_for_bit(internal):
 
 
 def test_mesh_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        make_fused_meads_transition(None, (), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        make_fused_meads_segment(None, (), mesh=object())
+    """A mesh shards the MEADS transition, which then needs the total
+    chain count (the JAX adapter's error); the segment kernel has no shard
+    adapter, in the JAX package either."""
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="needs num_chains"):
+        make_fused_meads_transition(None, (), mesh=mesh)
+    assert make_fused_meads_transition(None, (), mesh=mesh,
+                                       num_chains=8).mesh is mesh
+    with pytest.raises(ValueError, match="no shard adapter"):
+        make_fused_meads_segment(None, (), mesh=mesh)

@@ -30,7 +30,7 @@ from aehmc_tpu.types import Diagnostics as JDiagnostics
 from aehmc_tpu_torch import diagnostics, keys, sampling, window_adaptation
 from aehmc_tpu_torch.metrics import PerChain
 from aehmc_tpu_torch.models import mvn
-from aehmc_tpu_torch.parallel import pooled, sample_sharded
+from aehmc_tpu_torch.parallel import make_mesh, pooled, sample_sharded
 from aehmc_tpu_torch.types import ChainState, Diagnostics
 
 DIM = 3
@@ -288,8 +288,10 @@ def test_front_door_errors_name_what_still_raises():
         aehmc_tpu_torch.sample(0, _lp, torch.zeros(DIM), algorithm="chees")
     with pytest.raises(ValueError, match="chain-ensemble"):
         aehmc_tpu_torch.sample(0, _lp, torch.zeros(DIM), algorithm="meads")
-    with pytest.raises(NotImplementedError, match="item 1.12"):
-        aehmc_tpu_torch.sample(0, _lp, q2, path="pooled", mesh=object())
+    with pytest.raises(ValueError, match="8 chains do not shard over 3"):
+        aehmc_tpu_torch.sample(0, _lp, q2, path="pooled",
+                               mesh=make_mesh(devices=[torch.device("cpu")]
+                                              * 3))
     bare = aehmc_tpu_torch.sample(torch.Generator().manual_seed(0), _lp, q2,
                                   4, 6, path="fused", max_num_expansions=3)
     assert bare.positions.shape == (4, 8, DIM)  # the generic fused binding
