@@ -84,8 +84,11 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
     logprob closes over become data operands, as ``jax.closure_convert``
     makes them: the logprob is traced once (``make_fx`` on a float32
     ``(dim,)`` probe), each closed-over tensor becomes an input of the
-    traced graph and travels as a flat ``(1, n)`` data row, reshaped back
-    inside the potential.  Returns ``(potential_t, data)``."""
+    traced graph and travels as a flat ``(1, n)`` data row in its own
+    dtype, reshaped back inside the potential: an integer tensor (an index
+    vector, counts) stays an integer row, which the generated functor
+    reads as int32 (a view of the tensor, so changed values are read
+    anew).  Returns ``(potential_t, data)``."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     gm = make_fx(logprob_fn)(torch.zeros(dim, dtype=torch.float32,

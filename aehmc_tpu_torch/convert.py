@@ -39,6 +39,19 @@ def eight_schools_data(y_col, sig2_col, device="cuda"):
                  for a in (y_col, sig2_col))
 
 
+def generic_data(arrays, device="cuda") -> tuple:
+    """The data operands of a generated functor from the JAX model's
+    constants (a Cholesky factor, an index vector, counts): integer arrays
+    stay integers (int64; the launch sends int32 rows), every other array
+    becomes float32, contiguous on ``device``."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        dtype = np.int64 if np.issubdtype(a.dtype, np.integer) else np.float32
+        out.append(to_tensor(np.asarray(a, dtype), device).contiguous())
+    return tuple(out)
+
+
 def chain_state(q, u, g, device="cuda"):
     """``(q (chains, dim), u (chains, 1), g (chains, dim))``."""
     return tuple(to_tensor(a, device) for a in (q, u, g))

@@ -22,7 +22,11 @@
 // kernels 2 and 4.
 //
 // The helpers keep torch's semantics on NaN: a clamp, a maximum or a
-// minimum of NaN is NaN (fmaxf would drop it).
+// minimum of NaN is NaN (fmaxf would drop it).  digamma and log_ndtr are
+// transcribed from ATen's float formulas (calc_digamma, calc_log_ndtr in
+// ATen/native/Math.h), so the kernel and torch's plain version agree to a
+// few ulp; lgamma, erf, erfc and erfcx are CUDA's (lgammaf, erff, erfcf,
+// erfcxf).
 #pragma once
 
 #include "hierarchical_pg.cuh"
@@ -32,7 +36,9 @@ namespace generic {
 
 constexpr int MAX_DATA = 16;  // data operands (ops/generic_pg.py MAX_DATA)
 
-// the data operands: device pointers (contiguous float32) and their lengths
+// the data operands: device pointers (contiguous float32, or int32 rows of
+// index or count data, which travel in the same slot and which the
+// functor reads through Base::int_row) and their lengths in elements
 struct Data {
   const float* ptr[MAX_DATA];
   long long len[MAX_DATA];
@@ -66,6 +72,11 @@ struct Base {
   template <bool SHARED>
   static __device__ Scratch carve(float* base) {
     return Scratch{base, SHARED ? base + CB : nullptr};
+  }
+
+  // integer data operand j (an int32 row in a float slot)
+  __device__ const int* int_row(int j) const {
+    return reinterpret_cast<const int*>(data.ptr[j]);
   }
 
   __device__ void request(const Scratch&) const {}
@@ -112,6 +123,63 @@ __device__ __forceinline__ float gpg_softplus_backward(float g, float x,
   return x * beta > threshold ? g : g * z / (z + 1.f);
 }
 __device__ __forceinline__ int gpg_imax(int a, int b) { return a > b ? a : b; }
+// an index checked on the host to lie in [-n, n), wrapped as torch's
+__device__ __forceinline__ int gpg_wrap(int k, int n) {
+  return k < 0 ? k + n : k;
+}
+// the warp's maximum, butterfly as warp_sum's; NaN wins
+__device__ __forceinline__ float gpg_warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = gpg_max(v, __shfl_down_sync(FULL, v, o));
+  return __shfl_sync(FULL, v, 0);
+}
+// torch.logaddexp (ATen's CPU formula)
+__device__ __forceinline__ float gpg_logaddexp(float a, float b) {
+  if (fabsf(a) == __int_as_float(0x7f800000) && a == b) return a;
+  const float m = a < b ? b : a;
+  return m + log1pf(expf(-fabsf(a - b)));
+}
+// torch.digamma (ATen's calc_digamma for float)
+__device__ inline float gpg_digamma(float x) {
+  const float PSI_10 = 2.25175258906672110764f;
+  if (x == 0.f) return copysignf(__int_as_float(0x7f800000), -x);
+  const bool x_is_integer = x == truncf(x);
+  float result = 0.f;
+  if (x < 0.f) {
+    if (x_is_integer) return __int_as_float(0x7fc00000);
+    double q;
+    const double r = modf((double)x, &q);
+    const float pi_over_tan_pi_x =
+        (float)(3.14159265358979323846 / tan(3.14159265358979323846 * r));
+    // calc_digamma(1 - x) - pi / tan(pi x), 1 - x > 0
+    result = -pi_over_tan_pi_x;
+    x = 1.f - x;
+  }
+  float acc = 0.f;  // push x to be >= 10
+  while (x < 10.f) {
+    acc -= 1.f / x;
+    x += 1.f;
+  }
+  if (x == 10.f) return (acc + PSI_10) + result;
+  const float A[] = {8.33333333333333333333E-2f, -2.10927960927960927961E-2f,
+                     7.57575757575757575758E-3f, -4.16666666666666666667E-3f,
+                     3.96825396825396825397E-3f, -8.33333333333333333333E-3f,
+                     8.33333333333333333333E-2f};
+  float y = 0.f;
+  if (x < 1.0e17f) {
+    const float z = 1.f / (x * x);
+    float p = 0.f;  // polevl(z, A, 6)
+    for (int i = 0; i <= 6; ++i) p = p * z + A[i];
+    y = z * p;
+  }
+  return (acc + logf(x) - (0.5f / x) - y) + result;
+}
+// torch.special.log_ndtr (ATen's calc_log_ndtr for float)
+__device__ __forceinline__ float gpg_log_ndtr(float x) {
+  const float t = x * 0.707106781186547524400844362104849f;
+  if (x < -1.f) return logf(erfcxf(-t) / 2.f) - t * t;
+  return log1pf(-erfcf(t) / 2.f);
+}
 __device__ __forceinline__ int gpg_imin(int a, int b) { return a < b ? a : b; }
 
 }  // namespace aehmc

@@ -8,9 +8,9 @@ regression's (:func:`models.logistic_pg_t`, ``LogisticPGT`` in
 5-7, and Neal's funnel's and eight schools' (:func:`models.funnel_pg_t`,
 :func:`models.schools_pg_t`; ``FunnelPG``, ``EightSchoolsPG`` in
 ``csrc/hierarchical_pg.cuh``) in kernels 1 and 2 only.  Any other float32
-potential, and the hierarchical ones in kernels 5-7, run on a functor
-generated from the potential's traced gradient graph
-(:mod:`aehmc_tpu_torch.ops.generic_pg`).
+potential (its data float32, or integer index and count data), and the
+hierarchical ones in kernels 5-7, run on a functor generated from the
+potential's traced gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`).
 """
 
 import torch
@@ -66,10 +66,11 @@ def card_functor(potential_fn_t, potential_and_grad_t, data, q_t,
     ``(name, bound, count suffix)``, ``name`` a hand-written functor's or
     "generic", ``bound`` the generated functor (:func:`generic_bound`) or
     None.  Raises only for what no functor takes: ``TypeError`` for chains
-    or data that are not float32, ``ValueError`` for a hand-written
-    functor's data of another count or a potential that mixes chains, and
-    ``NotImplementedError`` naming an op outside the compiler's table
-    (ROADMAP.md item 1.10c)."""
+    that are not float32 or data that are neither float32 nor int32/int64,
+    ``ValueError`` for a hand-written functor's data of another count or a
+    potential that mixes chains, ``IndexError`` for an index operand with
+    a value outside its axis, and ``NotImplementedError`` naming an op
+    outside the compiler's table (ROADMAP.md item 1.10c)."""
     name, layout, suffix = hand_written(potential_and_grad_t, core)
     if q_t.dtype != torch.float32:
         raise TypeError(f"the CUDA kernels take float32, got {q_t.dtype}")

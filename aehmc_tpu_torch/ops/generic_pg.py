@@ -1,5 +1,5 @@
-"""The potential compiler: any float32 per-chain potential as a device
-functor of the NUTS kernels 1-4.
+"""The potential compiler: any per-chain potential whose ops are in its
+table as a device functor of the fused kernels 1-7.
 
 On the TPU the fused kernels run any ``jnp`` potential: Pallas traces it
 into the kernel body and differentiates it there with ``jax.vjp``
@@ -11,39 +11,59 @@ steps with public PyTorch API:
    (``make_fx`` over ``torch.func.grad``) on a ``(dim,)`` probe, or the
    caller's ``potential_and_grad_t`` as it stands;
 2. the trace becomes a small IR of static-shape nodes with no chain axis
-   (:class:`IR`): elementwise ops, sums, matrix products, views,
-   constants, the position ``q`` and the data operands; closed-over tensors
-   become data operands, as ``jax.closure_convert`` makes them;
+   (:class:`IR`): elementwise ops (the special functions ``lgamma``,
+   ``digamma``, ``erf``, ``erfc``, ``log_ndtr`` among them), sums and
+   maxima along axes, matrix products, triangular solves, gathers by an
+   index operand and their scatter-adds, cumulative sums, views,
+   constants, the position ``q`` and the data operands; closed-over
+   tensors become data operands, as ``jax.closure_convert`` makes them.
+   Data are float32, or integer (int32/int64: index vectors, counts),
+   which travel to the card as int32 rows; ``logsumexp``, ``log_softmax``,
+   ``softmax``, ``stack``, ``var`` and ``cholesky_solve`` are rewritten
+   into the nodes above;
 3. :func:`emit_cuda` writes ``struct GenericPG`` to the NUTS core's functor
    contract (``csrc/nuts_core.cuh``), which ``csrc/nuts_generic.cu``
-   instantiates as kernels 1-4 (``_build.load_generated`` builds it).
+   instantiates as kernels 1-4 and ``csrc/hmc_generic.cu`` as kernels 5-7
+   (``_build.load_generated`` builds both).
 
 :func:`run_plain` interprets the IR with torch ops over a ``(dim, C)``
 batch: the plain version of the generated functor.
 
 The generated functor.  One warp computes one chain (CB = 8 chains a
-block).  Every contraction (a sum, a matrix product) is materialised: a
-sum to one number ends in ``warp_sum`` (fixed order) and stays in a
-register; a longer output runs one lane an output element, its inner sum
-sequential, or, where the lanes would read strided addresses (or fewer
-than 32 outputs sum long rows), the warp sums 8 outputs at a time, each
-in the lane-then-butterfly order.  Elementwise nodes are inlined into the loops that
-read them and share register temporaries there; one is materialised only
-when a matrix product reads its elements more than once, or when several
-loops read it and it costs more than a few operations.  Loops of one
-iteration count with no dependence between them fuse into one.  The
-materialised vectors live in a per-chain workspace of ``W`` floats, in
-shared memory when two blocks still fit an SM with it
-(:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`), else in
-a global buffer the wrapper allocates, indexed by block and warp.
-Arithmetic is IEEE (``expf``, ``logf``, ``log1pf``, no fast math, built
-with ``-fmad=false``); the matrix products use explicit ``fmaf``.
+block).  Every contraction (a sum, a maximum, a matrix product) is
+materialised: a reduction to one number ends in ``warp_sum`` (or
+``gpg_warp_max``; fixed order) and stays in a register; a longer output
+runs one lane an output element, its inner sum sequential, or, where the
+lanes would read strided addresses (or fewer than 32 outputs sum long
+rows), the warp sums 8 outputs at a time, each in the lane-then-butterfly
+order.  A triangular solve substitutes row by row, sequential in the row:
+the lanes split each row's inner sum (lane l the columns l, l + 32, ...,
+``fmaf`` in turn), ``warp_sum`` ends it, and the lane that owns the row
+(its column's lane) stores its solution.  A scatter-add (the backward of
+a gather) starts from its base, and each output's owning lane (output
+j: lane j % 32) adds the values that land on it in input order, as
+torch's ``index_add``/``index_put(accumulate=True)`` on the CPU does; no
+atomics.  A cumulative sum runs one lane a line, sequential.  Gathers
+read their index operand at run time (an index is checked on the host
+to lie in ``[-n, n)`` and wrapped on the card), so the IR and its cache do
+not depend on index values.  Elementwise nodes are inlined into the loops
+that read them and share register temporaries there; one is materialised
+only when a matrix product reads its elements more than once, when a
+scatter reads it, or when several loops read it and it costs more than a
+few operations.  Loops of one iteration count with no dependence between
+them fuse into one.  The materialised vectors live in a per-chain
+workspace of ``W`` floats, in shared memory when two blocks still fit an
+SM with it (:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`),
+else in a global buffer the wrapper allocates, indexed by block and warp.
+Arithmetic is IEEE (``expf``, ``logf``, ``log1pf``, ``lgammaf``,
+``erfcf``, no fast math, built with ``-fmad=false``); the matrix products
+and solves use explicit ``fmaf``.
 """
 
 import hashlib
 import math
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -55,21 +75,27 @@ WARP_OUTPUTS = 8         # outputs a warp sums at once (measured: PERF.md §6)
 _ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
 
 # op kinds of the IR besides the elementwise ones (_formula) and "q",
-# "data", "const", "pad_slice", "pad_select", "cat"
-VIEWS = ("reshape", "permute", "expand", "slice", "select")
-CONTRACTIONS = ("sum", "mm")
+# "data", "const", "pad_slice", "pad_select", "cat"; "gather" reads its
+# source at an index operand's values, "flip" reverses axes
+VIEWS = ("reshape", "permute", "expand", "slice", "select", "flip", "gather")
+CONTRACTIONS = ("sum", "amax", "mm")
+# stored nodes with a loop of their own: a triangular solve, a scatter-add,
+# a cumulative sum (always in the workspace, never a register)
+SEQUENTIAL = ("trsolve", "scatter_add", "cumsum")
+INT_DTYPES = (torch.int32, torch.int64)
 COMPARISONS = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
                "ge": ">="}
 TRANSCENDENTAL = ("exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
                   "sigmoid", "sin", "cos", "pow", "softplus",
-                  "softplus_backward")
+                  "softplus_backward", "atan", "lgamma", "digamma", "erf",
+                  "erfc", "erfcx", "log_ndtr", "logaddexp")
 
 
 class Node(NamedTuple):
     op: str
     args: tuple    # ids of input nodes
     shape: tuple   # static shape, no chain axis
-    dtype: str     # "f" (float32) or "b" (bool)
+    dtype: str     # "f" (float32), "b" (bool) or "i" (integer data)
     params: tuple  # op parameters
 
 
@@ -77,8 +103,8 @@ class Node(NamedTuple):
 class IR:
     """The per-chain potential and gradient: ``nodes`` in topological
     order, the ids of ``u`` (shape ``()``) and ``g`` (``(dim,)``), and the
-    shapes of the data operands (the caller's data, then the hoisted
-    constants)."""
+    shapes and kinds (``"f"`` float32, ``"i"`` integer) of the data
+    operands (the caller's data, then the hoisted constants)."""
 
     nodes: tuple
     u: int
@@ -87,11 +113,25 @@ class IR:
     layout: str
     data_shapes: tuple
     num_caller_data: int
+    data_kinds: tuple
 
     def key(self) -> str:
         text = repr((self.nodes, self.u, self.g, self.dim, self.layout,
-                     self.data_shapes))
+                     self.data_shapes, self.data_kinds))
         return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+    def index_bounds(self) -> dict:
+        """Integer data operand -> the least axis length it indexes (its
+        values must lie in ``[-n, n)``)."""
+        bounds = {}
+        for n in self.nodes:
+            if n.op not in ("gather", "scatter_add"):
+                continue
+            src = n.args[0]
+            length = self.nodes[src].shape[n.params[0]]
+            j = self.nodes[_through_views(self, n.args[1])].params[0]
+            bounds[j] = min(bounds.get(j, length), length)
+        return bounds
 
 
 class Traced(NamedTuple):
@@ -147,14 +187,32 @@ def _check_chains_apart(fn, data, dim, layout, with_grad, device):
                     "column (row in the standard layout)")
 
 
-def _require_f32(data) -> tuple:
+def _require_data(data) -> tuple:
     data = tuple(data)
     for j, d in enumerate(data):
-        if not isinstance(d, torch.Tensor) or d.dtype != torch.float32:
+        if not isinstance(d, torch.Tensor) or d.dtype not in (
+                torch.float32, *INT_DTYPES):
             raise TypeError(
-                "the generated functor takes float32 data; data operand "
-                f"{j} is {getattr(d, 'dtype', type(d).__name__)}")
+                "the generated functor takes float32 or integer (int32, "
+                f"int64) data; data operand {j} is "
+                f"{getattr(d, 'dtype', type(d).__name__)}")
     return data
+
+
+def _kind(t: torch.Tensor) -> str:
+    return "i" if t.dtype in INT_DTYPES else "f"
+
+
+def check_index(t: torch.Tensor, length: int):
+    """Raise ``IndexError`` unless every value of the integer tensor ``t``
+    lies in ``[-length, length)``, as torch's indexing does."""
+    if t.numel() == 0:
+        return
+    lo, hi = int(t.min()), int(t.max())
+    if lo < -length or hi >= length:
+        bad = lo if lo < -length else hi
+        raise IndexError(f"index {bad} is out of bounds for an axis of size "
+                         f"{length}")
 
 
 def trace_potential(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
@@ -167,14 +225,16 @@ def trace_potential(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
     ``(1, C)``) and the trace holds ``torch.func.grad`` of it; without, it
     is ``potential_and_grad_t`` returning ``(u, g)``, traced as it stands.
     Closed-over tensors are hoisted into data operands after ``data``.
-    Raises ``TypeError`` for data that are not float32, ``ValueError`` for
-    a potential that mixes chains and ``NotImplementedError`` for an op the
-    compiler has no rule for."""
+    Raises ``TypeError`` for data that are neither float32 nor int32/int64,
+    ``ValueError`` for a potential that mixes chains and
+    ``NotImplementedError`` for an op the compiler has no rule for; an
+    index outside its axis raises torch's ``IndexError`` as the potential
+    runs (:func:`bind` checks every launch's indices)."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     if layout not in LAYOUTS:
         raise ValueError(f"layout is one of {LAYOUTS}, got {layout!r}")
-    data = _require_f32(data)
+    data = _require_data(data)
     if device is None:
         device = data[0].device if data else torch.device("cpu")
     _check_chains_apart(fn, data, dim, layout, with_grad, device)
@@ -205,6 +265,7 @@ class _Converter:
     def __init__(self, gm, dim, layout, data):
         self.gm, self.dim, self.layout = gm, dim, layout
         self.data_shapes = [tuple(d.shape) for d in data]
+        self.data_kinds = [_kind(d) for d in data]
         self.num_caller_data = len(data)
         self.nodes, self.index = [], {}
         self.constants, self.const_ids = [], {}
@@ -248,7 +309,7 @@ class _Converter:
                 else:
                     j = placeholders - 1
                     env[fx_node] = self.make("data", (), self.data_shapes[j],
-                                             params=(j,))
+                                             self.data_kinds[j], (j,))
                 placeholders += 1
             elif fx_node.op == "get_attr":
                 env[fx_node] = self.get_attr(getattr(self.gm, fx_node.target))
@@ -276,20 +337,21 @@ class _Converter:
         if t.dtype == torch.bool:
             if t.numel() == 1:
                 return self.const(bool(t), tuple(t.shape), "b")
-            raise TypeError("the generated functor takes float32 constants; "
-                            "a closed-over bool tensor is not one")
-        if t.dtype != torch.float32:
-            raise TypeError("the generated functor takes float32 constants; "
-                            f"a closed-over tensor is {t.dtype}")
-        if t.numel() == 1:
+            raise TypeError("the generated functor takes float32 or integer "
+                            "constants; a closed-over bool tensor is neither")
+        if t.dtype not in (torch.float32, *INT_DTYPES):
+            raise TypeError("the generated functor takes float32 or integer "
+                            f"constants; a closed-over tensor is {t.dtype}")
+        if t.numel() == 1 and t.dtype == torch.float32:
             return self.const(float(t.reshape(())), tuple(t.shape))
         key = id(t)
-        if key not in self.const_ids:
-            j = len(self.data_shapes)
+        if key not in self.const_ids:  # integer constants stay data: their
+            j = len(self.data_shapes)  # values are read at every launch
             self.data_shapes.append(tuple(t.shape))
+            self.data_kinds.append(_kind(t))
             self.constants.append(t.detach().contiguous())
             self.const_ids[key] = self.make("data", (), tuple(t.shape),
-                                            params=(j,))
+                                            _kind(t), (j,))
         return self.const_ids[key]
 
     def finish(self, u, g) -> Traced:
@@ -305,7 +367,8 @@ class _Converter:
                 remap[i] = len(nodes)
                 nodes.append(n._replace(args=tuple(remap[a] for a in n.args)))
         ir = IR(tuple(nodes), remap[u], remap[g], self.dim, self.layout,
-                tuple(self.data_shapes), self.num_caller_data)
+                tuple(self.data_shapes), self.num_caller_data,
+                tuple(self.data_kinds))
         return Traced(ir, tuple(self.constants), tuple(sorted(self.ops)))
 
     # -- views and shapes
@@ -325,6 +388,12 @@ class _Converter:
 
     def elementwise(self, op, args, val, params=()):
         args = [self.arg(a) for a in args]
+        if val.dtype in INT_DTYPES:
+            raise NotImplementedError(
+                f"integer arithmetic ({op}) has no rule in the generic "
+                f"potential compiler; widening its op table is {_ROADMAP}")
+        args = [self.make("float", (a,), self.shape(a))
+                if self.nodes[a].dtype == "i" else a for a in args]
         shape = tuple(val.shape)
         dtype = "b" if val.dtype == torch.bool else "f"
         consts = [self.nodes[a] for a in args]
@@ -342,7 +411,13 @@ class _Converter:
         name = target.overloadpacket.__name__.rstrip("_")
         self.ops.add(str(target))
         if val is not None and isinstance(val, torch.Tensor):
-            if val.dtype not in (torch.float32, torch.bool):
+            if val.dtype in INT_DTYPES and name not in _INT_RULES:
+                raise NotImplementedError(
+                    f"{target} gives integers; the generic potential "
+                    "compiler takes integer tensors only as data read by "
+                    "views, gathers and scatters and converted to float32; "
+                    f"widening its op table is {_ROADMAP}")
+            if val.dtype not in (torch.float32, torch.bool, *INT_DTYPES):
                 raise TypeError(
                     f"the generated functor computes in float32; {target} "
                     f"gives {val.dtype}")
@@ -356,9 +431,14 @@ class _Converter:
 
 def _rule_identity(c, args, kwargs, val):
     x = args[0]
-    if isinstance(x, _Id) and c.nodes[x].dtype == "b" and \
+    if isinstance(x, _Id) and c.nodes[x].dtype in ("b", "i") and \
             val.dtype == torch.float32:
         return c.make("float", (x,), c.shape(x))
+    if isinstance(x, _Id) and c.nodes[x].dtype != "i" and \
+            val.dtype in INT_DTYPES:
+        raise NotImplementedError(
+            "a conversion to integers has no rule in the generic potential "
+            f"compiler; widening its op table is {_ROADMAP}")
     return x
 
 
@@ -539,25 +619,70 @@ def _rule_binary_backward(op):
     return rule
 
 
+def _axes(dims, ndim):
+    if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+        return tuple(range(ndim))
+    dims = dims if isinstance(dims, (list, tuple)) else (dims,)
+    return tuple(sorted({_axis(d, ndim) for d in dims}))
+
+
+def _reduced(shape, axes, keepdim):
+    if keepdim:
+        return tuple(1 if a in axes else d for a, d in enumerate(shape))
+    return tuple(d for a, d in enumerate(shape) if a not in axes)
+
+
+def _reduce(c, op, x, axes, keepdim):
+    """Contraction ``op`` ("sum" or "amax") of ``x`` over ``axes``."""
+    shape = c.shape(x)
+    if c.nodes[x].dtype == "i":
+        x = c.make("float", (x,), shape)
+    if not shape or not axes:
+        return x
+    return c.make(op, (x,), _reduced(shape, axes, keepdim), "f",
+                  (tuple(axes), bool(keepdim)))
+
+
 def _rule_sum(mean):
     def rule(c, args, kwargs, val):
         x = args[0]
         shape = c.shape(x)
         dims = args[1] if len(args) > 1 else kwargs.get("dim")
         keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
-        if dims is None or (isinstance(dims, (list, tuple)) and not dims):
-            axes = tuple(range(len(shape)))
-        else:
-            dims = dims if isinstance(dims, (list, tuple)) else (dims,)
-            axes = tuple(sorted({_axis(d, len(shape)) for d in dims}))
-        if not shape:
-            return x
-        out = c.make("sum", (x,), val.shape, "f", (axes, bool(keepdim)))
-        if mean:
+        axes = _axes(dims, len(shape))
+        out = _reduce(c, "sum", x, axes, keepdim)
+        if mean and shape:
             n = math.prod(shape[a] for a in axes)
-            out = c.elementwise("div", (out, float(n)), val)
+            out = c.elementwise("div", (out, float(n)), _Val(c.shape(out)))
         return out
     return rule
+
+
+def _rule_amax(c, args, kwargs, val):
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim", ())
+    keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    return _reduce(c, "amax", x, _axes(dims, len(c.shape(x))), keepdim)
+
+
+def _rule_var(c, args, kwargs, val):
+    """``var`` as torch defines it: the mean of the squared deviations from
+    the mean, over ``n - correction``."""
+    x = args[0]
+    shape = c.shape(x)
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    correction = kwargs.get("correction", 1)
+    correction = 1 if correction is None else correction
+    keepdim = kwargs.get("keepdim", False)
+    axes = _axes(dims, len(shape))
+    n = math.prod(shape[a] for a in axes)
+    mean = c.elementwise("div", (_reduce(c, "sum", x, axes, True), float(n)),
+                         _Val(_reduced(shape, axes, True)))
+    dev = c.elementwise("sub", (x, mean), _Val(shape))
+    sq = c.elementwise("mul", (dev, dev), _Val(shape))
+    ss = _reduce(c, "sum", sq, axes, keepdim)
+    return c.elementwise("div", (ss, float(max(n - correction, 0))),
+                         _Val(c.shape(ss)))
 
 
 def _mm(c, a, b):
@@ -585,13 +710,19 @@ def _rule_dot(c, args, kwargs, val):
 
 
 def _rule_bmm(c, args, kwargs, val):
+    """A product a batch: one matrix product each, concatenated."""
     a, b = args[0], args[1]
-    if c.shape(a)[0] != 1:
-        raise NotImplementedError(
-            "bmm over more than one batch has no rule in the generic "
-            f"potential compiler; widening its op table is {_ROADMAP}")
-    out = _mm(c, c.reshape(a, c.shape(a)[1:]), c.reshape(b, c.shape(b)[1:]))
-    return c.reshape(out, val.shape)
+    batch = c.shape(a)[0]
+    if batch == 1:
+        out = _mm(c, c.reshape(a, c.shape(a)[1:]),
+                  c.reshape(b, c.shape(b)[1:]))
+        return c.reshape(out, val.shape)
+    outs = []
+    for i in range(batch):
+        ai = c.make("select", (a,), c.shape(a)[1:], "f", (0, i))
+        bi = c.make("select", (b,), c.shape(b)[1:], "f", (0, i))
+        outs.append(c.reshape(_mm(c, ai, bi), (1, *val.shape[1:])))
+    return c.make("cat", outs, val.shape, "f", (0,))
 
 
 def _rule_addmm(c, args, kwargs, val):
@@ -632,6 +763,248 @@ def _rule_select_backward(c, args, kwargs, val):
 
 def _rule_square(c, args, kwargs, val):
     return c.elementwise("pow", args[:1], val, (2.0,))
+
+
+# -- gathers and scatters by an integer index operand
+
+def _one_index(c, indices, what):
+    """The axis and the node of the one index tensor among ``indices``
+    (``None`` for the axes taken whole)."""
+    tensors = [(k, i) for k, i in enumerate(indices) if i is not None]
+    if len(tensors) != 1:
+        raise NotImplementedError(
+            f"{what} with {len(tensors)} index tensors has no rule in the "
+            "generic potential compiler (one integer index tensor with "
+            f"whole axes before it); widening its op table is {_ROADMAP}")
+    axis, idx = tensors[0]
+    if c.nodes[idx].dtype != "i":
+        raise NotImplementedError(
+            f"{what} by a bool mask has a data-dependent shape and no rule "
+            "in the generic potential compiler; widening its op table is "
+            f"{_ROADMAP}")
+    return axis, idx
+
+
+def _gather(c, x, axis, idx):
+    shape = c.shape(x)
+    out = shape[:axis] + c.shape(idx) + shape[axis + 1:]
+    return c.make("gather", (x, idx), out, c.nodes[x].dtype, (axis,))
+
+
+def _scatter_add(c, base, axis, idx, values):
+    """``base`` plus ``values`` added at ``idx`` along ``axis`` in input
+    order (torch's ``index_add``, ``index_put(accumulate=True)``)."""
+    shape = c.shape(base)
+    expected = shape[:axis] + c.shape(idx) + shape[axis + 1:]
+    values = c.expand(values, expected)
+    if c.nodes[values].dtype != "f":
+        values = c.make("float", (values,), expected)
+    return c.make("scatter_add", (base, idx, values), shape, "f", (axis,))
+
+
+def _rule_index(c, args, kwargs, val):
+    axis, idx = _one_index(c, list(args[1]), "indexing")
+    return _gather(c, args[0], axis, idx)
+
+
+def _rule_index_select(c, args, kwargs, val):
+    x, dim, idx = args[:3]
+    axis = _axis(dim, len(c.shape(x)))
+    if not c.shape(idx):
+        idx = c.reshape(idx, (1,))
+    return _gather(c, x, axis, idx)
+
+
+def _rule_index_put(c, args, kwargs, val):
+    base, indices, values = args[:3]
+    accumulate = kwargs.get("accumulate", args[3] if len(args) > 3 else False)
+    if not accumulate:
+        raise NotImplementedError(
+            "index_put without accumulate (an indexed assignment) has no rule "
+            f"in the generic potential compiler; widening its op table is "
+            f"{_ROADMAP}")
+    axis, idx = _one_index(c, list(indices), "index_put")
+    return _scatter_add(c, base, axis, idx, c.arg(values))
+
+
+def _rule_index_add(c, args, kwargs, val):
+    base, dim, idx, source = args[:4]
+    alpha = kwargs.get("alpha", args[4] if len(args) > 4 else 1)
+    axis = _axis(dim, len(c.shape(base)))
+    if not c.shape(idx):
+        idx = c.reshape(idx, (1,))
+    if alpha != 1:
+        source = c.elementwise("mul", (source, alpha), _Val(c.shape(source)))
+    return _scatter_add(c, base, axis, idx, source)
+
+
+def _rule_flip(c, args, kwargs, val):
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dims")
+    axes = tuple(a for a in _axes(dims, len(c.shape(x)))
+                 if c.shape(x)[a] > 1)
+    if not axes:
+        return x
+    return c.make("flip", (x,), c.shape(x), c.nodes[x].dtype, axes)
+
+
+def _rule_cumsum(c, args, kwargs, val):
+    x = args[0]
+    axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim"),
+                 max(len(c.shape(x)), 1))
+    if c.nodes[x].dtype != "f":
+        x = c.make("float", (x,), c.shape(x))
+    if not c.shape(x):
+        return x
+    return c.make("cumsum", (x,), c.shape(x), "f", (axis,))
+
+
+# -- triangular solves
+
+def _swap_last(c, x):
+    nd = len(c.shape(x))
+    perm = list(range(nd))
+    perm[-1], perm[-2] = perm[-2], perm[-1]
+    shape = tuple(c.shape(x)[p] for p in perm)
+    return c.make("permute", (x,), shape, c.nodes[x].dtype, tuple(perm))
+
+
+def _trsolve(c, A, B, upper, unit, out_shape):
+    """``X`` of ``A X = B``, ``A`` triangular ``(*, n, n)``, ``B`` ``(*, n,
+    k)``: a batch of factors broadcasts when it is 1."""
+    sa = c.shape(A)
+    n, k = out_shape[-2], out_shape[-1]
+    batch = math.prod(out_shape[:-2])
+    if len(sa) < 2 or sa[-1] != n or sa[-2] != n:
+        raise ValueError(f"a triangular solve of {sa} and {c.shape(B)}")
+    ba = math.prod(sa[:-2])
+    if ba not in (1, batch):
+        raise NotImplementedError(
+            "a triangular solve whose factors broadcast against the right "
+            "sides has no rule in the generic potential compiler; widening "
+            f"its op table is {_ROADMAP}")
+    A3 = c.reshape(A, (ba, n, n))
+    B3 = c.reshape(c.expand(B, out_shape), (batch, n, k))
+    X = c.make("trsolve", (A3, B3), (batch, n, k), "f",
+               (bool(upper), bool(unit)))
+    return c.reshape(X, out_shape)
+
+
+def _rule_solve_triangular(c, args, kwargs, val):
+    A, B = args[:2]
+    upper = kwargs.get("upper", args[2] if len(args) > 2 else None)
+    left = kwargs.get("left", args[3] if len(args) > 3 else True)
+    unit = kwargs.get("unitriangular", args[4] if len(args) > 4 else False)
+    if left:
+        return _trsolve(c, A, B, upper, unit, tuple(val.shape))
+    # X A = B is A^T X^T = B^T
+    shape = tuple(val.shape)
+    t_shape = (*shape[:-2], shape[-1], shape[-2])
+    X = _trsolve(c, _swap_last(c, A), _swap_last(c, B), not upper, unit,
+                 t_shape)
+    return _swap_last(c, X)
+
+
+def _rule_cholesky_solve(c, args, kwargs, val):
+    """``cholesky_solve(B, L)``: ``L L^T X = B`` (``U^T U X = B`` when
+    ``upper``) as two triangular solves."""
+    B, L = args[:2]
+    upper = kwargs.get("upper", args[2] if len(args) > 2 else False)
+    shape = tuple(val.shape)
+    Lt = _swap_last(c, L)
+    first, second = (Lt, L) if upper else (L, Lt)
+    Y = _trsolve(c, first, B, False, False, shape)
+    return _trsolve(c, second, Y, True, False, shape)
+
+
+# -- reductions along an axis, as torch computes them
+
+def _rule_logsumexp(c, args, kwargs, val):
+    """``m = amax``, ``m = 0`` where ``|m|`` is infinite, ``log(sum(exp(x
+    - m))) + m`` (ATen's ``logsumexp``)."""
+    x = args[0]
+    shape = c.shape(x)
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    axes = _axes(dims, len(shape))
+    if not shape:
+        return x
+    kept = _reduced(shape, axes, True)
+    m = _reduce(c, "amax", x, axes, True)
+    inf = c.elementwise("eq", (c.elementwise("abs", (m,), _Val(kept)),
+                               math.inf), _Val(kept, torch.bool))
+    m = c.elementwise("where", (inf, 0.0, m), _Val(kept))
+    e = c.elementwise("exp", (c.elementwise("sub", (x, m), _Val(shape)),),
+                      _Val(shape))
+    s = _reduce(c, "sum", e, axes, keepdim)
+    out = tuple(val.shape)
+    return c.elementwise("add", (c.elementwise("log", (s,), _Val(out)),
+                                 c.reshape(m, out)), _Val(out))
+
+
+def _shifted(c, x, axis):
+    """``x - max`` along ``axis`` and the sum of its exponentials."""
+    shape = c.shape(x)
+    kept = _reduced(shape, (axis,), True)
+    t = c.elementwise("sub", (x, _reduce(c, "amax", x, (axis,), True)),
+                      _Val(shape))
+    e = c.elementwise("exp", (t,), _Val(shape))
+    return t, e, _reduce(c, "sum", e, (axis,), True), kept
+
+
+def _rule_log_softmax(c, args, kwargs, val):
+    x = args[0]
+    if not c.shape(x):
+        return c.const(0.0, ())
+    t, _, s, kept = _shifted(c, x, _axis(args[1], len(c.shape(x))))
+    return c.elementwise("sub", (t, c.elementwise("log", (s,), _Val(kept))),
+                         val)
+
+
+def _rule_softmax(c, args, kwargs, val):
+    x = args[0]
+    if not c.shape(x):
+        return c.const(1.0, ())
+    _, e, s, _ = _shifted(c, x, _axis(args[1], len(c.shape(x))))
+    return c.elementwise("div", (e, s), val)
+
+
+def _rule_log_softmax_backward(c, args, kwargs, val):
+    """``grad - exp(out) * sum(grad)`` along the axis."""
+    grad, out, dim = args[:3]
+    shape = c.shape(grad)
+    if not shape:
+        return c.const(0.0, ())
+    axis = _axis(dim, len(shape))
+    s = _reduce(c, "sum", grad, (axis,), True)
+    e = c.elementwise("exp", (out,), _Val(shape))
+    return c.elementwise("sub", (grad, c.elementwise("mul", (e, s),
+                                                     _Val(shape))), val)
+
+
+def _rule_softmax_backward(c, args, kwargs, val):
+    """``out * (grad - sum(grad * out))`` along the axis."""
+    grad, out, dim = args[:3]
+    shape = c.shape(grad)
+    if not shape:
+        return c.const(0.0, ())
+    axis = _axis(dim, len(shape))
+    s = _reduce(c, "sum", c.elementwise("mul", (grad, out), _Val(shape)),
+                (axis,), True)
+    return c.elementwise("mul", (out, c.elementwise("sub", (grad, s),
+                                                    _Val(shape))), val)
+
+
+def _rule_stack(c, args, kwargs, val):
+    pieces = list(args[0])
+    axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim", 0),
+                 len(val.shape))
+    shape = tuple(val.shape)
+    one = shape[:axis] + (1,) + shape[axis + 1:]
+    pieces = [c.reshape(p, one) for p in pieces]
+    if len(pieces) == 1:
+        return pieces[0]
+    return c.make("cat", pieces, shape, "f", (axis,))
 
 
 _RULES = {
@@ -680,14 +1053,39 @@ _RULES = {
     "threshold_backward": _rule_threshold_backward,
     "sigmoid_backward": _rule_binary_backward("sigmoid_backward"),
     "tanh_backward": _rule_binary_backward("tanh_backward"),
+    # special functions (B)
+    **{n: _rule_unary(n) for n in ("lgamma", "digamma", "erf", "erfc",
+                                   "atan")},
+    "special_erfcx": _rule_unary("erfcx"),
+    "special_log_ndtr": _rule_unary("log_ndtr"),
+    "logaddexp": _rule_binary("logaddexp"),
     # contractions
-    "sum": _rule_sum(False), "mean": _rule_sum(True),
+    "sum": _rule_sum(False), "mean": _rule_sum(True), "amax": _rule_amax,
+    "var": _rule_var,
     "mm": _rule_mm, "mv": _rule_mv, "dot": _rule_dot, "bmm": _rule_bmm,
     "addmm": _rule_addmm,
+    # triangular algebra on a matrix (A)
+    "linalg_solve_triangular": _rule_solve_triangular,
+    "cholesky_solve": _rule_cholesky_solve,
+    # reductions along an axis (C)
+    "logsumexp": _rule_logsumexp, "_log_softmax": _rule_log_softmax,
+    "_softmax": _rule_softmax,
+    "_log_softmax_backward_data": _rule_log_softmax_backward,
+    "_softmax_backward_data": _rule_softmax_backward, "stack": _rule_stack,
+    # gathers and their scatter-adds (D), scans
+    "index": _rule_index, "index_select": _rule_index_select,
+    "index_put": _rule_index_put, "_index_put_impl": _rule_index_put,
+    "index_add": _rule_index_add, "flip": _rule_flip, "cumsum": _rule_cumsum,
     # scatter into zeros, concatenation
     "cat": _rule_cat, "slice_backward": _rule_slice_backward,
     "select_backward": _rule_select_backward,
 }
+
+# rules that may give integers (views and copies of integer data; a count)
+_INT_RULES = {"alias", "clone", "detach", "lift_fresh_copy", "contiguous",
+              "_to_copy", "to", "_unsafe_view", "view", "reshape", "squeeze",
+              "unsqueeze", "flatten", "permute", "t", "transpose", "expand",
+              "slice", "select", "flip", "sum"}
 
 
 # --------------------------------------------------------- plain back end -
@@ -698,8 +1096,13 @@ def _plain_op(n: Node, vals, dtype):
     if op == "neg":
         return -a
     if op in ("abs", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
-              "sigmoid", "reciprocal", "relu", "sin", "cos"):
+              "sigmoid", "reciprocal", "relu", "sin", "cos", "atan", "lgamma",
+              "digamma", "erf", "erfc"):
         return getattr(torch, op)(a)
+    if op == "erfcx":
+        return torch.special.erfcx(a)
+    if op == "log_ndtr":
+        return torch.special.log_ndtr(a)
     if op == "sign":
         return torch.sgn(a)
     if op == "not":
@@ -710,7 +1113,8 @@ def _plain_op(n: Node, vals, dtype):
               "div": torch.div, "maximum": torch.maximum,
               "minimum": torch.minimum, "eq": torch.eq, "ne": torch.ne,
               "lt": torch.lt, "le": torch.le, "gt": torch.gt, "ge": torch.ge,
-              "and": torch.logical_and, "or": torch.logical_or}
+              "and": torch.logical_and, "or": torch.logical_or,
+              "logaddexp": torch.logaddexp}
     if op in binary:
         return binary[op](vals[0], vals[1])
     if op == "where":
@@ -759,8 +1163,9 @@ def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
         if n.op == "q":
             v = q_t
         elif n.op == "data":
-            v = data[n.params[0]].to(device=dev, dtype=dtype).reshape(
-                *n.shape, 1)
+            v = data[n.params[0]].to(
+                device=dev, dtype=torch.int64 if n.dtype == "i" else dtype
+            ).reshape(*n.shape, 1)
         elif n.op == "const":
             v = torch.full((*n.shape, 1), n.params[0],
                            dtype=torch.bool if n.dtype == "b" else dtype,
@@ -781,6 +1186,28 @@ def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
             v = args[0][tuple(index)]
         elif n.op == "select":
             v = args[0].select(n.params[0], n.params[1])
+        elif n.op == "flip":
+            v = args[0].flip(n.params)
+        elif n.op == "gather":
+            x, k = args
+            axis = n.params[0]
+            v = x.index_select(axis, _wrapped(k, x.shape[axis])).reshape(
+                *n.shape, x.shape[-1])
+        elif n.op == "scatter_add":
+            base, k, src = args
+            axis = n.params[0]
+            c = max(base.shape[-1], src.shape[-1])
+            src = src.expand(*src.shape[:-1], c).reshape(
+                *n.shape[:axis], -1, *n.shape[axis + 1:], c)
+            v = base.expand(*n.shape, c).index_add(
+                axis, _wrapped(k, n.shape[axis]), src)
+        elif n.op == "trsolve":
+            upper, unit = n.params
+            A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
+            v = torch.linalg.solve_triangular(
+                A, B, upper=upper, unitriangular=unit).movedim(0, -1)
+        elif n.op == "cumsum":
+            v = torch.cumsum(args[0], n.params[0])
         elif n.op == "pad_slice":
             axis, start, step = n.params
             a = args[0]
@@ -800,6 +1227,9 @@ def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
         elif n.op == "sum":
             axes, keepdim = n.params
             v = args[0].sum(dim=axes, keepdim=keepdim) if axes else args[0]
+        elif n.op == "amax":
+            axes, keepdim = n.params
+            v = args[0].amax(dim=axes, keepdim=keepdim)
         elif n.op == "mm":
             a, b = args
             c = max(a.shape[-1], b.shape[-1])
@@ -810,9 +1240,17 @@ def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
         vals.append(v)
     if stats is not None:
         stats["workspace_floats"] = schedule(ir).workspace
-    u = vals[ir.u].reshape(1, -1).expand(1, num_chains)
-    g = vals[ir.g].reshape(dim, -1).expand(dim, num_chains)
+    u = vals[ir.u].reshape(1, -1).expand(1, num_chains).contiguous()
+    g = vals[ir.g].reshape(dim, -1).expand(dim, num_chains).contiguous()
     return u, g
+
+
+def _wrapped(k: torch.Tensor, length: int) -> torch.Tensor:
+    """An index operand's values, flat, checked and wrapped into ``[0,
+    length)``."""
+    k = k.reshape(-1)
+    check_index(k, length)
+    return torch.where(k < 0, k + length, k)
 
 
 # ------------------------------------------------------------- schedule --
@@ -887,9 +1325,14 @@ def _stored_nodes(ir) -> set:
     """The nodes the functor materialises (registers or workspace)."""
     stored = set()
     for i, n in enumerate(ir.nodes):
-        if n.op in CONTRACTIONS or (_is_compute(n) and _numel(n.shape) == 1):
+        if n.op in CONTRACTIONS or n.op in SEQUENTIAL or (
+                _is_compute(n) and _numel(n.shape) == 1):
             stored.add(i)
     for i, n in enumerate(ir.nodes):
+        if n.op == "scatter_add":  # its scan reads each value in every lane
+            base = _through_views(ir, n.args[2])
+            if _is_compute(ir.nodes[base]):
+                stored.add(base)
         if n.op != "mm":
             continue
         (m, _), (_, ncols) = ir.nodes[n.args[0]].shape, ir.nodes[n.args[1]].shape
@@ -917,7 +1360,7 @@ def schedule(ir: IR) -> Schedule:
     slots, offset, registers = {}, 0, set()
     for i in sorted(stored):
         size = _numel(ir.nodes[i].shape)
-        if size == 1:
+        if size == 1 and ir.nodes[i].op not in SEQUENTIAL:
             registers.add(i)
         else:
             slots[i] = offset
@@ -1029,7 +1472,11 @@ def _formula(n: Node, a) -> str:
              "sigmoid": "(1.f / (1.f + expf(-{0})))",
              "sign": "gpg_sign({0})", "reciprocal": "(1.f / {0})",
              "relu": "gpg_relu({0})", "sin": "sinf({0})", "cos": "cosf({0})",
-             "not": "(({0}) == 0.f ? 1.f : 0.f)", "float": "{0}"}
+             "not": "(({0}) == 0.f ? 1.f : 0.f)", "float": "(float)({0})",
+             "atan": "atanf({0})", "lgamma": "lgammaf({0})",
+             "digamma": "gpg_digamma({0})", "erf": "erff({0})",
+             "erfc": "erfcf({0})", "erfcx": "erfcxf({0})",
+             "log_ndtr": "gpg_log_ndtr({0})"}
     if op in unary:
         return unary[op].format(*a)
     simple = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -1038,6 +1485,7 @@ def _formula(n: Node, a) -> str:
               "and": "(({0}) != 0.f && ({1}) != 0.f ? 1.f : 0.f)",
               "or": "(({0}) != 0.f || ({1}) != 0.f ? 1.f : 0.f)",
               "where": "(({0}) != 0.f ? {1} : {2})",
+              "logaddexp": "gpg_logaddexp({0}, {1})",
               "sigmoid_backward": "(({0} * (1.f - {1})) * {1})",
               "tanh_backward": "({0} * (1.f - {1} * {1}))"}
     if op in simple:
@@ -1067,9 +1515,9 @@ class _Scope:
         self.lines = []
         self.memo = dict(memo or {})
 
-    def temp(self, expr: str) -> str:
+    def temp(self, expr: str, ctype: str = "float") -> str:
         name = self.emitter.fresh("t")
-        self.lines.append(f"const float {name} = {expr};")
+        self.lines.append(f"const {ctype} {name} = {expr};")
         return name
 
 
@@ -1095,6 +1543,10 @@ class _Emitter:
             return f"__ldg(D{n.params[0]} + {off.expr})"
         return f"ws[{self.sched.slots[nid]} + {off.expr}]"
 
+    def slot(self, nid, flat: Ix) -> str:
+        """The workspace element ``flat`` of stored node ``nid``."""
+        return f"ws[{self.sched.slots[nid]} + {flat.expr}]"
+
     def value(self, nid, idx, scope: _Scope) -> str:
         key = (nid, tuple(i.expr for i in idx))
         if key in scope.memo:
@@ -1103,7 +1555,7 @@ class _Emitter:
         if nid in self.stored or n.op in ("q", "data"):
             e = self.load(nid, idx)
             if not e.startswith("r"):
-                e = scope.temp(e)
+                e = scope.temp(e, "int" if n.dtype == "i" else "float")
         else:
             e = self.compute(nid, idx, scope)
         scope.memo[key] = e
@@ -1138,6 +1590,22 @@ class _Emitter:
             axis, index = n.params
             inner = list(idx[:axis]) + [_ic(index)] + list(idx[axis:])
             return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "flip":
+            inner = list(idx)
+            for a in n.params:
+                size = n.shape[a]
+                inner[a] = (_ic(size - 1 - int(idx[a].expr)) if idx[a].const
+                            else Ix(f"({size - 1} - {idx[a].expr})", size))
+            return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "gather":
+            axis = n.params[0]
+            x, index = n.args
+            length = nodes[x].shape[axis]
+            rank = len(nodes[index].shape)
+            k = self.value(index, idx[axis:axis + rank], scope)
+            inner = (*idx[:axis], Ix(f"gpg_wrap({k}, {length})", length),
+                     *idx[axis + rank:])
+            return self.value(x, inner, scope)
         if n.op == "pad_slice":
             axis, start, step = n.params
             length = nodes[n.args[0]].shape[axis]
@@ -1184,7 +1652,7 @@ class _Emitter:
             for end, v in reversed(pieces[:-1]):
                 expr = f"({j.expr} < {end} ? {v} : {expr})"
             return scope.temp(expr)
-        if n.op in CONTRACTIONS:
+        if n.op in CONTRACTIONS or n.op in SEQUENTIAL:
             raise AssertionError("contractions are always stored")
         args = []
         for a in n.args:
@@ -1201,6 +1669,8 @@ class _Emitter:
         if nid == "g":
             return ("loop", self.ir.dim)
         n = self.ir.nodes[nid]
+        if n.op in SEQUENTIAL:
+            return (n.op, nid)
         if n.op in CONTRACTIONS:
             out = _numel(n.shape)
             red = _reduction_length(self.ir, n)
@@ -1244,14 +1714,15 @@ class _Emitter:
                                    f"{flat.expr}] = {v};")
             return
         out, red = _numel(n.shape), _reduction_length(ir, n)
-        if out == 1:  # the warp sums the whole contraction
+        init, reduce = _ACCUMULATE[n.op]
+        if out == 1:  # the warp reduces the whole contraction
             acc = f"a{nid}"
             scope.lines.append(self.term(n, _ic(0), flat, scope, acc))
-            after.append(("decl", f"float {acc} = 0.f;"))
-            after.append(("post", f"const float r{nid} = warp_sum({acc});"))
+            after.append(("decl", f"float {acc} = {init};"))
+            after.append(("post", f"const float r{nid} = {reduce}({acc});"))
             return
         acc = self.fresh("acc")
-        scope.lines.append(f"float {acc} = 0.f;")
+        scope.lines.append(f"float {acc} = {init};")
         scope.lines.append(f"for (int k = 0; k < {red}; ++k) {{")
         inner = _Scope(self, scope.memo)
         inner.lines.append(self.term(n, flat, Ix("k", red), inner, acc))
@@ -1285,6 +1756,8 @@ class _Emitter:
                 idx.append(out_idx[ko])
                 ko += 1
         v = self.value(n.args[0], tuple(idx), scope)
+        if n.op == "amax":
+            return f"{acc} = gpg_max({acc}, {v});"
         return f"{acc} = {acc} + {v};"
 
     def warp_each(self, nid, lines):
@@ -1294,10 +1767,11 @@ class _Emitter:
         time)."""
         n = self.ir.nodes[nid]
         out, red = _numel(n.shape), _reduction_length(self.ir, n)
+        init, reduce = _ACCUMULATE[n.op]
         unroll = min(WARP_OUTPUTS, out)
         ragged = out % unroll != 0
         lines.append(f"for (int o0 = 0; o0 < {out}; o0 += {unroll}) {{")
-        lines.extend(f"  float acc{u} = 0.f;" for u in range(unroll))
+        lines.extend(f"  float acc{u} = {init};" for u in range(unroll))
         lines.append(f"  for (int k = lane; k < {red}; k += 32) {{")
         scope = _Scope(self)
         for u in range(unroll):  # a ragged tail recomputes the last output
@@ -1309,7 +1783,7 @@ class _Emitter:
         lines.append("  }")
         for u in range(unroll):
             guard = f" && o0 + {u} < {out}" if ragged else ""
-            lines.append(f"  acc{u} = warp_sum(acc{u});")
+            lines.append(f"  acc{u} = {reduce}(acc{u});")
             lines.append(f"  if (lane == 0{guard}) "
                          f"ws[{self.sched.slots[nid]} + o0 + {u}] = acc{u};")
         lines.append("}")
@@ -1352,6 +1826,9 @@ class _Emitter:
             if sig[0] == "warp_each":
                 self.warp_each(roots[0], lines)
                 continue
+            if sig[0] in SEQUENTIAL:
+                getattr(self, sig[0])(roots[0], lines)
+                continue
             n = sig[1]
             scope, after = _Scope(self), []
             flat = Ix("i", n)
@@ -1369,6 +1846,113 @@ class _Emitter:
         lines.append(f"if (lane == 0) S.nu[c] = {u};")
         lines.append("__syncwarp();")
         return lines
+
+
+    def trsolve(self, nid, lines):
+        """Substitution row by row (forward when lower, backward when
+        upper), a right side at a time: row i's inner sum split over the
+        lanes (lane l the columns j = l, l + 32, ... counted from the
+        diagonal's far end, each ``fmaf`` in turn), ended by ``warp_sum``;
+        the lane of column i stores x_i, so each lane reads back only the
+        solutions it stored and the rows need no barrier."""
+        n = self.ir.nodes[nid]
+        A, B = n.args
+        upper, unit = n.params
+        batch, size, cols = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        b = Ix("b", batch) if batch > 1 else _ic(0)
+        col = Ix("col", cols) if cols > 1 else _ic(0)
+        i, j = Ix("i", size), Ix("j", size)
+        if upper:  # rows n-1 .. 0, lane l owns the columns n-1-l, n-1-l-32, ...
+            head = [f"for (int s = 0; s < {size}; ++s) {{",
+                    f"  const int i = {size - 1} - s;",
+                    "  float acc = 0.f;",
+                    f"  for (int j = {size - 1} - lane; j > i; j -= 32) {{"]
+            owner = f"({size - 1} - i) % 32"
+        else:
+            head = [f"for (int i = 0; i < {size}; ++i) {{",
+                    "  float acc = 0.f;",
+                    "  for (int j = lane; j < i; j += 32) {"]
+            owner = "i % 32"
+        bA = b if ba > 1 else _ic(0)
+        inner = _Scope(self)
+        a_ij = self.value(A, (bA, i, j), inner)
+        x_j = self.slot(nid, _flatten((b, j, col), n.shape))
+        inner.lines.append(f"acc = fmaf({a_ij}, {x_j}, acc);")
+        row = _Scope(self)
+        b_i = self.value(B, (b, i, col), row)
+        x_i = f"({b_i} - acc)"
+        if not unit:
+            x_i = f"{x_i} / {self.value(A, (bA, i, i), row)}"
+        body = head + ["    " + line for line in inner.lines]
+        body += ["  }", "  acc = warp_sum(acc);"]
+        body += ["  " + line for line in row.lines]
+        body += [f"  if (lane == {owner}) "
+                 f"{self.slot(nid, _flatten((b, i, col), n.shape))} = {x_i};",
+                 "}"]
+        for var, bound in (("col", cols), ("b", batch)):
+            if bound > 1:
+                body = ([f"for (int {var} = 0; {var} < {bound}; ++{var}) {{"]
+                        + ["  " + line for line in body] + ["}"])
+        lines.extend(body)
+        lines.append("__syncwarp();")
+
+    def scatter_add(self, nid, lines):
+        """The base, lane-strided (output o in lane o % 32); then every lane
+        walks the values in input order and the lane that owns each one's
+        output adds it: each output sums its values in input order, with no
+        atomics and no barrier between the two loops."""
+        n = self.ir.nodes[nid]
+        base, index, values = n.args
+        axis = n.params[0]
+        out = _numel(n.shape)
+        vshape = self.ir.nodes[values].shape
+        rank = len(self.ir.nodes[index].shape)
+        init = _Scope(self)
+        v = self.value(base, _unflatten(Ix("o", out), n.shape), init)
+        lines.append(f"for (int o = lane; o < {out}; o += 32) {{")
+        lines.extend("  " + line for line in init.lines)
+        lines.append(f"  {self.slot(nid, Ix('o', out))} = {v};")
+        lines.append("}")
+        scan = _Scope(self)
+        t = _unflatten(Ix("t", _numel(vshape)), vshape)
+        k = self.value(index, t[axis:axis + rank], scan)
+        length = n.shape[axis]
+        o = _flatten((*t[:axis], Ix(f"gpg_wrap({k}, {length})", length),
+                      *t[axis + rank:]), n.shape)
+        scan.lines.append(f"const int o = {o.expr};")
+        val = self.value(values, t, scan)
+        scan.lines.append(f"if (o % 32 == lane) {self.slot(nid, Ix('o', out))}"
+                          f" += {val};")
+        lines.append(f"for (int t = 0; t < {_numel(vshape)}; ++t) {{")
+        lines.extend("  " + line for line in scan.lines)
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def cumsum(self, nid, lines):
+        """One lane a line along the axis, its sum sequential."""
+        n = self.ir.nodes[nid]
+        axis = n.params[0]
+        length = n.shape[axis]
+        rest = n.shape[:axis] + n.shape[axis + 1:]
+        m = _unflatten(Ix("m", _numel(rest)), rest)
+        idx = (*m[:axis], Ix("l", length), *m[axis:])
+        scope = _Scope(self)
+        v = self.value(n.args[0], idx, scope)
+        lines.append(f"for (int m = lane; m < {_numel(rest)}; m += 32) {{")
+        lines.append("  float acc = 0.f;")
+        lines.append(f"  for (int l = 0; l < {length}; ++l) {{")
+        lines.extend("    " + line for line in scope.lines)
+        lines.append(f"    acc = acc + {v};")
+        lines.append(f"    {self.slot(nid, _flatten(idx, n.shape))} = acc;")
+        lines.append("  }")
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+
+# contraction -> (the accumulator's first value, the warp's reduction)
+_ACCUMULATE = {"sum": ("0.f", "warp_sum"), "mm": ("0.f", "warp_sum"),
+               "amax": ("__int_as_float(0xff800000)", "gpg_warp_max")}
 
 
 def _lane_stride(ir, nid, axis, stored):
@@ -1396,6 +1980,14 @@ def _lane_stride(ir, nid, axis, stored):
     if n.op == "select":
         return _lane_stride(ir, n.args[0],
                             axis if axis < n.params[0] else axis + 1, stored)
+    if n.op == "flip":
+        return _lane_stride(ir, n.args[0], axis, stored)
+    if n.op == "gather":
+        first, rank = n.params[0], len(ir.nodes[n.args[1]].shape)
+        if first <= axis < first + rank:
+            return None
+        return _lane_stride(ir, n.args[0],
+                            axis if axis < first else axis - rank + 1, stored)
     # expand, elementwise, pad, cat: the widest of the arguments' loads
     steps = []
     for a in n.args:
@@ -1434,6 +2026,8 @@ def emit_cuda(ir: IR) -> str:
     body = em.body()
     lengths = ", ".join(str(_numel(s)) for s in ir.data_shapes) or "0"
     data_ptrs = [f"    const float* __restrict__ D{j} = data.ptr[{j}];"
+                 if ir.data_kinds[j] == "f" else
+                 f"    const int* __restrict__ D{j} = int_row({j});"
                  for j in range(len(ir.data_shapes))]
     ops = sorted({n.op for n in ir.nodes})
     head = [
@@ -1488,6 +2082,12 @@ class Bound:
     source: str
     workspace: int
     ops: tuple
+    # (integer operand, device) -> (a weak reference to its tensor, its
+    # _version, the int32 row on that device)
+    _rows: dict = field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        self.index_bounds = self.ir.index_bounds()
 
     def library(self):
         """The kernels 1-4 built on this functor (built once per text)."""
@@ -1497,11 +2097,26 @@ class Bound:
 
     def operands(self, data, device) -> tuple:
         """The data operands of a launch: the caller's data, then the
-        hoisted constants, contiguous float32 on ``device``."""
+        hoisted constants, contiguous on ``device``: float32, and int32
+        rows of the integer operands (an index checked to lie in its
+        axis: ``IndexError`` if not)."""
+        device = torch.device(device)
         ops = []
-        for j, d in enumerate((*data, *self.constants)):
-            if not isinstance(d, torch.Tensor) or d.dtype != torch.float32:
-                raise TypeError(f"data operand {j} must be a float32 tensor")
+        operands = (*data, *self.constants)
+        if len(operands) != len(self.ir.data_shapes):
+            raise ValueError(f"{len(operands)} data operands; the potential "
+                             f"was traced with {len(self.ir.data_shapes)}")
+        for j, d in enumerate(operands):
+            kind = self.ir.data_kinds[j]
+            dtypes = INT_DTYPES if kind == "i" else (torch.float32,)
+            if not isinstance(d, torch.Tensor) or d.dtype not in dtypes:
+                raise TypeError(
+                    f"data operand {j} must be a "
+                    f"{'int32 or int64' if kind == 'i' else 'float32'} "
+                    f"tensor, got {getattr(d, 'dtype', type(d).__name__)}")
+            if kind == "i":
+                ops.append(self._int_row(j, d, device))
+                continue
             if d.device != device:
                 d = d.to(device)
             ops.append(d.contiguous())
@@ -1510,6 +2125,23 @@ class Bound:
             raise ValueError(f"data operands of shapes {shapes}; the potential "
                              f"was traced with {self.ir.data_shapes}")
         return tuple(ops)
+
+    def _int_row(self, j, d, device):
+        """Operand ``j`` as int32 on ``device``, checked and converted again
+        whenever the tensor or its values (its ``_version``) change.  Each
+        device keeps its own row, so the shards of a mesh each hit."""
+        hit = self._rows.get((j, device))
+        if hit is not None and hit[0]() is d and hit[1] == d._version:
+            return hit[2]
+        length = self.index_bounds.get(j)
+        if length is not None:
+            check_index(d, length)
+        if d.dtype == torch.int64 and d.numel() and (
+                int(d.min()) < -2**31 or int(d.max()) >= 2**31):
+            raise ValueError(f"integer data operand {j} does not fit int32")
+        row = d.to(device=device, dtype=torch.int32).contiguous()
+        self._rows[(j, device)] = (weakref.ref(d), d._version, row)
+        return row
 
 
 # potential function -> {(layout, dim, with_grad, data signature): Bound}
@@ -1522,11 +2154,11 @@ def bind(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
     per function, layout, dim and data signature, so a warmup's launches
     trace once; the library is built once per text
     (:meth:`Bound.library`)."""
-    data = _require_f32(data)
+    data = _require_data(data)
     device = torch.device(device) if device is not None else (
         data[0].device if data else torch.device("cpu"))
     key = (layout, dim, with_grad, str(device),
-           tuple((tuple(d.shape), str(d.device)) for d in data))
+           tuple((tuple(d.shape), str(d.dtype), str(d.device)) for d in data))
     try:
         cache = _BOUND.setdefault(fn, {})
     except TypeError:  # not weakly referenceable: no cache
@@ -1537,14 +2169,20 @@ def bind(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
         cache[key] = Bound(traced.ir, traced.constants,
                            emit_cuda(traced.ir),
                            schedule(traced.ir).workspace, traced.ops)
-    return cache[key]
+    bound = cache[key]
+    for j in bound.index_bounds:  # the caller's indices, as they are now
+        if j < len(data):
+            bound._int_row(j, data[j], device)
+    return bound
 
 
 def launch_operands(bound: Bound, data, device, blocks: int):
     """ctypes arguments naming the potential in a generic launcher: the
-    table of data pointers and lengths, its size, and the global workspace
-    (allocated here when the plan keeps it out of shared memory), plus the
-    tensors to keep alive until the launch is queued."""
+    table of data pointers and lengths (float32 data, and the int32 rows
+    of integer operands, each checked against its axis when its tensor or
+    values change: :meth:`Bound.operands`), its size, and the global
+    workspace (allocated here when the plan keeps it out of shared memory),
+    plus the tensors to keep alive until the launch is queued."""
     import ctypes
 
     from aehmc_tpu_torch.ops.launch_plan import generic_workspace_floats

@@ -141,9 +141,12 @@ def chains_per_block(core: str, dim: int, x_dtype=torch.float32) -> int:
 
 def generic_workspace_shared(dim: int, workspace: int) -> bool:
     """Whether a generated functor's ``workspace`` floats a chain go to
-    shared memory: when two NUTS blocks still fit an SM with them.  The
-    emitter bakes this into the functor (``WS_SHARED``), and every core's
-    plan reads it from here."""
+    shared memory: when two NUTS blocks still fit an SM with them.
+    ``workspace`` counts every vector the functor materialises
+    (:func:`generic_pg.schedule`): contractions, elementwise values read
+    more than once, a triangular solve's solution, a scatter-add's output
+    and a cumulative sum.  The emitter bakes this into the functor
+    (``WS_SHARED``), and every core's plan reads it from here."""
     rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
     smem = 4 * (rows + NUTS_CHAINS + NUTS_CHAINS * workspace)
     return workspace > 0 and two_blocks_fit(smem)

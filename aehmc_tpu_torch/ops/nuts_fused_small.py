@@ -276,7 +276,9 @@ def _momentum_t(z_t: torch.Tensor, mass_sqrt: torch.Tensor) -> torch.Tensor:
 def _pot_grad_builder_t(potential_fn_t: Callable, potential_and_grad_t: Callable,
                         data: Sequence[torch.Tensor]) -> Callable:
     """``q_t -> (u, g)``: the caller's potential+gradient when given, else
-    autograd of ``potential_fn_t`` (plain versions only)."""
+    autograd of ``potential_fn_t`` (plain versions only; contiguous, as the
+    kernels take them: a gradient through a transposed view, a triangular
+    solve's say, comes out of autograd strided)."""
     if potential_and_grad_t is not None:
         return lambda q_t: potential_and_grad_t(q_t, *data)
 
@@ -285,7 +287,7 @@ def _pot_grad_builder_t(potential_fn_t: Callable, potential_and_grad_t: Callable
             q = q_t.detach().requires_grad_(True)
             u = potential_fn_t(q, *data)
             (g,) = torch.autograd.grad(u.sum(), q)
-        return u.detach(), g
+        return u.detach().contiguous(), g.contiguous()
 
     return pot_grad
 

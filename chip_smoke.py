@@ -142,7 +142,31 @@ logistic regression.  Then it drives the port's front door
   chain by chain, 99% of the chains with equal decisions and within 1e-2,
   besides one sharded step and the means); phase 47 runs phase 45 on
   distinct cards when ``torch.cuda.device_count() > 1``, and says that it
-  did not run otherwise.
+  did not run otherwise;
+- phases 48-50, the potential compiler's op table: four bare logprobs
+  whose functors need its triangular solves, gathers and scatter-adds,
+  special functions and axis reductions (P1 ``models.correlated_mvn(25,
+  0.5)``, P2 a negative-binomial varying-intercept regression at the radon
+  study's 919 observations in 85 counties, P3 a four-component Gaussian
+  mixture over 1,000 points, P4 probit regression on the flagship's
+  design).  Phase 48 holds kernels 1, 3, 5 and 7 on each generated functor
+  against their plain versions (10,240 chains for P1 and P4, 4,096 for P2
+  and P3; 99% of decisions equal, |Δq| <= 1e-3), each gradient against
+  float64 autograd (within 4x of the plain float32 gradient's error), P1's
+  kernel 1 against phase 37's precision-form functor, and times each with
+  its bound; phase 49 runs P1 through the fused NUTS (phase 37's adaptive
+  dense-M⁻¹ cell: 2,048 chains, 300 + 300, K 8), ChEES and MEADS (10,240
+  chains, phases 41-42's schedules) front doors, each twice and equal bit
+  for bit, at the usual acceptance bands, divergences below 0.01%, R-hat
+  below 1.01 (MEADS: within 0.005 of its stationary value), means within
+  4.5 MCSE of 0, variances and the tuned M⁻¹'s off-diagonal/diagonal
+  ratio within 0.1 of 1 and 0.5, launches exact, then checkpointed MEADS
+  (kernel 5 a draw, 100 + 100: finite, launches exact, twice bit for
+  bit); phase 50 runs P2 through
+  the fused NUTS front door (4,096 chains, 300 + 300) and the pooled XLA
+  route (torch.func's gradient; 512 of those chains, 100 + 200 at K 4),
+  both from one start made with numpy (0.1·N(0, 1), the mean at the log
+  of the mean count), means within 4.5 combined MCSE.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -167,7 +191,10 @@ times and bounds (phases 28-33), and those of kernels 1-4 their
 path (phases 38 and 36), bound, error against plain and against the
 hand-written functor (phase 35), and those of kernels 1-5 and 7 their
 ``offset_check`` (phase 44) and ``mesh_launches`` (phases 45-46's
-sharded runs).  Kernels 5-7 on the flagship's, the
+sharded runs); kernels 1, 3, 5 and 7's entries carry ``generic_ops``, one
+record a potential of phases 48-50 (launches on phases 49-50's front doors,
+error, times, bound, registers, spills, blocks per SM, workspace), and
+kernels 2 and 6's ``generic_ops_launches``.  Kernels 5-7 on the flagship's, the
 funnel's and eight schools' generated functors have entries of their own
 (``ghmc_transition_generic``, ``chees_transition_generic (funnel)``, ...):
 launches from phases 41-43, errors and times from phases 39-40, registers
@@ -4121,34 +4148,41 @@ def hmc_functor_report(torch, _build, gen):
     """Phase 1's registers, spills and blocks per SM of kernels 5-7 on the
     generated functors of the flagship, the funnel and eight schools (the
     most over each kernel's instantiations: kernel 7 diagonal and dense)."""
-    from aehmc_tpu_torch.ops.launch_plan import launch_plan
-
     out = {}
     for name, dim, chains in (("flagship", DIM, CHAINS),
                               ("funnel", FUNNEL_DIM, FUNNEL_CHAINS),
                               ("eight_schools", 10, SCHOOLS_CHAINS)):
         b = gen["binds"][name]
-        per = {}
-        for _, entry, regs, spill in ptxas_entries(
-                _build.generated_ptxas_log(b.source)):
-            k = hmc_kernel_of(entry)
-            if k and "9GenericPG" in entry:
-                r, sp = per.get(k, (0, 0))
-                per[k] = (max(r, regs), max(sp, spill))
-        check(sorted(per) == [5, 6, 7], f"ptxas reports kernels {sorted(per)} "
-              f"on {name}'s generated functor")
-        plan = launch_plan("hmc", dim, 0, chains, functor="generic",
-                           workspace=b.workspace)
-        lib = b.library()
-        per_sm = {f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
-            k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))}
-        check(min(per_sm.values()) >= 2, f"kernels 5-7 on {name}'s generated "
-              f"functor: fewer than two blocks per SM {per_sm}")
-        out[name] = dict(registers={k: v[0] for k, v in sorted(per.items())},
-                         spill_bytes={k: v[1] for k, v in sorted(per.items())},
-                         smem_bytes=plan.smem, blocks_per_sm=per_sm,
+        out[name] = dict(hmc_report(torch, _build, b, dim, chains,
+                                    f"{name}'s generated functor"),
                          workspace_floats=b.workspace)
     return out
+
+
+def hmc_report(torch, _build, b, dim, chains, what):
+    """Registers and spills of kernels 5-7 on a generated functor (the most
+    over each kernel's instantiations) and their blocks per SM."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+
+    per = {}
+    for _, entry, regs, spill in ptxas_entries(
+            _build.generated_ptxas_log(b.source)):
+        k = hmc_kernel_of(entry)
+        if k and "9GenericPG" in entry:
+            r, sp = per.get(k, (0, 0))
+            per[k] = (max(r, regs), max(sp, spill))
+    check(sorted(per) == [5, 6, 7], f"ptxas reports kernels {sorted(per)} "
+          f"on {what}")
+    plan = launch_plan("hmc", dim, 0, chains, functor="generic",
+                       workspace=b.workspace)
+    lib = b.library()
+    per_sm = {f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
+        k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))}
+    check(min(per_sm.values()) >= 2, f"kernels 5-7 on {what}: fewer than "
+          f"two blocks per SM {per_sm}")
+    return dict(registers={k: v[0] for k, v in sorted(per.items())},
+                spill_bytes={k: v[1] for k, v in sorted(per.items())},
+                smem_bytes=plan.smem, blocks_per_sm=per_sm)
 
 
 def hmc_hold(torch, q_in, kern, ref, what, atol=Q_ATOL):
@@ -5356,6 +5390,666 @@ def mesh_phases(torch, ops, diagnostics, data, pot, pg, q0, record, card):
     return sharded_launches
 
 
+# phases 48-50: the potential compiler's op table (ROADMAP.md item 1.10c):
+# four potentials that need the new node kinds, each a plain torch logprob
+# bound through the generic fused binding (the CPU tests hold the same four
+# against JAX twins: tests/test_torch_generic_ops.py), data made from a seed
+# with numpy.  P1 mvn25_chol: models.correlated_mvn(25, 0.5), a triangular
+# solve (BASELINE.md config 3 at its full width); P2 hier_negbin: a
+# varying-intercept negative-binomial regression at the radon study's sizes
+# (919 observations, 85 counties, non-centred: dim 89), gathers by county
+# and their scatter-add, lgamma and digamma; P3 mixture4: four Gaussians in
+# 2-d over 1,000 points, softmax weights (dim 12), logsumexp and
+# log_softmax; P4 probit100: probit regression on the flagship's 1,000 x
+# 100 design through log_ndtr.  Phase 48 holds kernels 1, 3, 5 and 7 on
+# each generated functor against their plain versions (the same plain cores
+# on generic_pg.run_plain), each gradient against float64 autograd, P1's
+# kernel 1 against phase 37's precision-form functor, and times them;
+# phase 49 runs P1 through the fused NUTS, ChEES and MEADS front doors,
+# each twice; phase 50 runs P2 through the fused NUTS front door and the
+# pooled XLA route, whose torch.func gradient is independent of the
+# compiler.
+OPS_SEED = 4848
+# name: (dim, chains, ε, diagonal M⁻¹, K) of phase 48's kernel checks
+OPS_CELLS = {"mvn25_chol": (25, 10_240, 0.5, 1.0, 6),
+             "hier_negbin": (89, 4_096, 0.02, 1.0, 6),
+             "mixture4": (12, 4_096, 0.03, 1.0, 6),
+             "probit100": (DIM, 10_240, 0.15, 1.0, 6)}
+OPS_GRAD_CHAINS = 256           # phase 48: chains held against float64
+NEGBIN_OBS, NEGBIN_GROUPS = 919, 85
+MIXTURE_POINTS = 1000
+OPS_DOOR_CHAINS = 10_240         # phase 49: the ChEES and MEADS doors
+NEGBIN_CHAINS, NEGBIN_POOLED_CHAINS = 4096, 512  # phase 50
+NEGBIN_WARMUP, NEGBIN_DRAWS, NEGBIN_K, NEGBIN_EPS0 = 300, 300, 8, 0.05
+# the pooled XLA route is host-bound, and a batch walks its deepest tree,
+# so a transition of 512 chains costs 2^K leaves of about 6 ms on an H100
+# host; its depth is cut to 4 and its run to 100 + 200 to keep phases 48-50
+# within 90 s
+NEGBIN_POOLED_WARMUP, NEGBIN_POOLED_DRAWS, NEGBIN_POOLED_K = 100, 200, 4
+
+
+def negbin_data(num_obs=NEGBIN_OBS, num_groups=NEGBIN_GROUPS, seed=0):
+    """County (int64), covariate (float32) and counts (int64) of P2."""
+    rng = np.random.default_rng(seed)
+    group = rng.integers(0, num_groups, num_obs)
+    x = rng.standard_normal(num_obs).astype(np.float32)
+    z = rng.standard_normal(num_groups)
+    eta = 1.0 + 0.5 * z[group] + 0.4 * x
+    phi = 5.0
+    y = rng.negative_binomial(phi, phi / (phi + np.exp(eta)))
+    return group.astype(np.int64), x, y.astype(np.int64)
+
+
+def hier_negbin(torch, group, x, y, num_groups, device):
+    """P2's log p of (z (G), mu, log_sd, b, log_phi): county intercepts mu
+    + exp(log_sd) z gathered by county, NB(y | exp(eta), phi) without its
+    constant lgamma(y + 1).  log_phi ~ N(1, 1) keeps phi moderate: near phi
+    = 1e6 lgamma(y + phi) - lgamma(phi) is float32 rounding noise."""
+    g, xt, yt = (torch.as_tensor(a, device=device) for a in (group, x, y))
+    G = num_groups
+
+    def logprob_fn(q):
+        z, mu, log_sd, b, log_phi = q[:G], q[G], q[G + 1], q[G + 2], q[G + 3]
+        phi = torch.exp(log_phi)
+        eta = mu + torch.exp(log_sd) * z[g] + b * xt
+        log_denom = torch.logaddexp(log_phi, eta)
+        ll = torch.sum(torch.lgamma(yt + phi) - torch.lgamma(phi)
+                       + phi * (log_phi - log_denom)
+                       + yt * (eta - log_denom))
+        return ll - 0.5 * torch.sum(z * z) - 0.5 * (mu / 5.0) ** 2 \
+            - 0.5 * log_sd ** 2 - 0.5 * (b / 2.0) ** 2 \
+            - 0.5 * (log_phi - 1.0) ** 2
+
+    return logprob_fn
+
+
+def mixture_data(num_points=MIXTURE_POINTS, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = 2.5 * np.array([[-1, -1], [1, -1], [-1, 1], [1, 1]], float)
+    labels = rng.choice(4, num_points, p=[0.1, 0.2, 0.3, 0.4])
+    return (centers[labels] + rng.standard_normal((num_points, 2))).astype(
+        np.float32)
+
+
+def mixture4(torch, points, device):
+    """P3's log p of 8 means then 4 logits: unit-variance components."""
+    P = torch.as_tensor(points, device=device)
+
+    def logprob_fn(q):
+        mus, logits = q[:8].reshape(4, 2), q[8:12]
+        d = P[:, None, :] - mus[None, :, :]
+        ll = torch.logsumexp(torch.log_softmax(logits, 0)
+                             - 0.5 * torch.sum(d * d, -1), 1)
+        return torch.sum(ll) - 0.5 * torch.sum(mus * mus) / 9.0 \
+            - 0.5 * torch.sum(logits * logits)
+
+    return logprob_fn
+
+
+def probit(torch, X, y):
+    """P4's log p: y log Φ(Xq) + (1 - y) log Φ(-Xq), N(0, 1) prior."""
+
+    def logprob_fn(q):
+        z = X @ q
+        return torch.sum(y * torch.special.log_ndtr(z)
+                         + (1.0 - y) * torch.special.log_ndtr(-z)) \
+            - 0.5 * torch.sum(q * q)
+
+    return logprob_fn
+
+
+def op_table_potentials(torch, dev):
+    """P1-P4: their logprobs, float64 twins (autograd's reference), bindings
+    (the front door's potential_t and data rows) and generated functors."""
+    import aehmc_tpu_torch.api as api
+    from aehmc_tpu_torch.models import correlated_mvn
+    from aehmc_tpu_torch.models.regression import logistic_regression_data
+    from aehmc_tpu_torch.ops import generic_pg
+
+    group, x, y = negbin_data()
+    pts = mixture_data()
+    X, yl = logistic_regression_data(DIM, POINTS, device=dev)
+    lps = {
+        "mvn25_chol": correlated_mvn(GEN_MVN_DIM, GEN_MVN_RHO, device=dev),
+        "hier_negbin": hier_negbin(torch, group, x, y, NEGBIN_GROUPS, dev),
+        "mixture4": mixture4(torch, pts, dev),
+        "probit100": probit(torch, X, yl),
+    }
+    out = {}
+    for name, lp in lps.items():
+        dim = OPS_CELLS[name][0]
+        pot, rows = api._generic_fused_binding(lp, dim, dev)
+        out[name] = dict(lp=lp, pot=pot, rows=tuple(rows),
+                         bound=generic_pg.bind(pot, rows, dim, device=dev))
+    # float64 twins on the same values (P1: the float32 factor's rows)
+    rows1 = out["mvn25_chol"]["rows"]
+    by = {r.shape[1]: r for r in rows1}
+    d = GEN_MVN_DIM
+    loc, chol, const = (by[d].reshape(d).double(),
+                        by[d * d].reshape(d, d).double(), by[1].double())
+
+    def mvn64(q):
+        z = torch.linalg.solve_triangular(chol, (q - loc)[:, None],
+                                          upper=False)[:, 0]
+        return const.reshape(()) - 0.5 * torch.dot(z, z)
+
+    twins = {"mvn25_chol": mvn64,
+             "hier_negbin": hier_negbin(torch, group, x.astype(np.float64),
+                                        y, NEGBIN_GROUPS, dev),
+             "mixture4": mixture4(torch, pts.astype(np.float64), dev),
+             "probit100": probit(torch, X.double(), yl.double())}
+    for name, f in twins.items():
+        out[name]["lp64"] = f
+    return out
+
+
+def ir_flop(ir):
+    """Operations of one gradient of a generated functor, from its IR: an
+    elementwise node one an element, a sum or maximum one an input element,
+    a matrix product 2mkn, a triangular solve n² a right side, a scatter-add
+    and a cumulative sum one an element."""
+    flop = 0
+    for n in ir.nodes:
+        size = math.prod(n.shape)
+        if n.op in ("q", "data", "const", "reshape", "permute", "expand",
+                    "slice", "select", "flip", "gather"):
+            continue
+        if n.op == "mm":
+            (m, k), (_, cols) = ir.nodes[n.args[0]].shape, ir.nodes[
+                n.args[1]].shape
+            flop += 2 * m * k * cols
+        elif n.op in ("sum", "amax"):
+            flop += math.prod(ir.nodes[n.args[0]].shape)
+        elif n.op == "trsolve":
+            batch, rows, cols = n.shape
+            flop += batch * cols * rows * rows
+        elif n.op == "scatter_add":
+            flop += math.prod(ir.nodes[n.args[2]].shape)
+        else:
+            flop += size
+    return flop
+
+
+def grad_vs_float64(torch, lp64, q_t, g_kernel, g_plain):
+    """max |g - g64| / max |g64| of the kernel's and the plain float32
+    gradients at the first OPS_GRAD_CHAINS columns of ``q_t (dim, C)``, g64
+    float64 autograd of the twin (vmapped: log_ndtr has no batching rule,
+    so the columns are few)."""
+    n = OPS_GRAD_CHAINS
+    q_t, g_kernel, g_plain = q_t[:, :n], g_kernel[:, :n], g_plain[:, :n]
+    grad = torch.func.vmap(torch.func.grad(lambda q: -lp64(q)), in_dims=1,
+                           out_dims=1)
+    g64 = grad(q_t.double())
+    scale = float(g64.abs().max())
+    return (float((g_kernel.double() - g64).abs().max()) / scale,
+            float((g_plain.double() - g64).abs().max()) / scale)
+
+
+def op_kernel_phase(torch, pots, gen, record, card):
+    """Phase 48: kernels 1, 3, 5 and 7 on P1-P4's generated functors."""
+    from aehmc_tpu_torch.ops import _build, generic_pg
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    dev = torch.device(DEVICE)
+    out = {}
+    t_phase = time.perf_counter()
+    for name, p in pots.items():
+        dim, chains, eps, imm_v, k = OPS_CELLS[name]
+        b, rows = p["bound"], p["rows"]
+        ops_b = b.operands(rows, dev)
+        flop = ir_flop(b.ir)
+        rng = np.random.default_rng(OPS_SEED)
+        q_t = torch.tensor(0.1 * rng.standard_normal((dim, chains)),
+                           dtype=torch.float32, device=dev)
+
+        def plain_pg(x):
+            return generic_pg.run_plain(b.ir, x, ops_b)
+
+        u0, g0 = plain_pg(q_t)
+        imm = torch.full((dim,), imm_v, device=dev)
+        gkw = dict(potential_and_grad_t=None, potential_fn_t=p["pot"])
+        seed = OPS_SEED + 1
+
+        # kernel 1
+        def k1():
+            return nfs.nuts_transition_cuda(q_t, u0, g0, imm, eps, rows,
+                                            max_exp=k, seed=seed, **gkw)
+
+        def p1():
+            return nfs.nuts_transition_plain(q_t, u0, g0, imm, eps, plain_pg,
+                                             max_exp=k, seed=seed)
+
+        o1, o1p = k1(), p1()
+        torch.cuda.synchronize()
+        r1 = compare(o1, o1p, f"{name}: generated kernel 1 vs plain")
+        moved = (o1[0] != q_t).any(dim=0)
+        g_pl = plain_pg(o1[0][:, moved])[1]
+        gerr = grad_vs_float64(torch, p["lp64"], o1[0][:, moved],
+                               o1[2][:, moved], g_pl)
+        check(gerr[0] <= max(GRAD_ERR_RATIO * gerr[1], GEN_GRAD_RTOL),
+              f"{name}: kernel 1's gradient {gerr[0]:.3g} from float64, the "
+              f"plain float32 one's {gerr[1]:.3g}")
+        leaves1 = float(o1[3][3].sum())
+        moved_bytes = nbytes(*ops_b)
+        b1 = bound(leaves1 * flop, nbytes(q_t, u0, g0, imm, *o1)
+                   + moved_bytes, PEAK_F32)
+        t1 = (kernel_ms(k1, 3), cuda_ms(torch, p1, 1))
+
+        # kernel 3: the standard layout, the same functor
+        q_s, u_s, g_s = q_t.T.contiguous(), u0.reshape(-1, 1), g0.T.contiguous()
+
+        def plain_pg3(x):
+            uu, gg = plain_pg(x.T.contiguous())
+            return uu.reshape(-1, 1), gg.T
+
+        def k3():
+            return nf.nuts_transition_std_cuda(
+                q_s, u_s, g_s, imm, eps, rows, max_exp=k, seed=seed,
+                bound=b)
+
+        def p3():
+            return nf.nuts_transition_std_plain(q_s, u_s, g_s, imm, eps,
+                                                plain_pg3, max_exp=k,
+                                                seed=seed)
+
+        o3, o3p = k3(), p3()
+        torch.cuda.synchronize()
+        tr = lambda o: tuple(None if x is None else x.T for x in o)  # noqa
+        r3 = compare(tr(o3), tr(o3p), f"{name}: generated kernel 3 vs plain")
+        leaves3 = float(o3[3][:, 3].sum())
+        b3 = bound(leaves3 * flop, nbytes(q_s, u_s, g_s, imm, *o3)
+                   + moved_bytes, PEAK_F32)
+        t3 = (kernel_ms(k3, 3), cuda_ms(torch, p3, 1))
+
+        # kernel 5 (MALA's α 0, one leapfrog step) and kernel 7 (L 10)
+        p0 = torch.tensor(rng.standard_normal((dim, chains)),
+                          dtype=torch.float32, device=dev)
+        state = (q_t, u0, g0, p0)
+
+        def k5():
+            return gf.ghmc_transition_cuda(*state, eps, 0.0, imm, rows,
+                                           seed=seed, **gkw)
+
+        def p5():
+            return gf.ghmc_transition_plain(*state, eps, 0.0, imm, plain_pg,
+                                            seed=seed)
+
+        o5, o5p = k5(), p5()
+        torch.cuda.synchronize()
+        r5 = hmc_hold(torch, q_t, o5, o5p, f"{name}: generated kernel 5 vs "
+                      "plain")
+        b5 = bound(chains * flop, nbytes(*state, imm, *o5) + moved_bytes,
+                   PEAK_F32)
+        t5 = (kernel_ms(k5, HMC_TIMED_REPS), cuda_ms(torch, p5, 3))
+        cstate = (q_s, u0.reshape(-1), g_s)
+        steps = torch.full((), LEAPFROG_STEPS, dtype=torch.int32, device=dev)
+
+        def k7():
+            return cf.chees_transition_cuda(*cstate, imm, eps, steps, rows,
+                                            seed=seed, **gkw)
+
+        def p7():
+            return cf.chees_transition_plain(*cstate, imm, eps,
+                                             LEAPFROG_STEPS, plain_pg,
+                                             seed=seed)
+
+        o7, o7p = k7(), p7()
+        torch.cuda.synchronize()
+        r7 = chees_compare(torch, q_s, o7, o7p, f"{name}: generated kernel 7 "
+                           "vs plain")
+        b7 = bound(LEAPFROG_STEPS * chains * flop,
+                   nbytes(*cstate, imm, *o7) + moved_bytes, PEAK_F32)
+        t7 = (kernel_ms(k7, 3), cuda_ms(torch, p7, 1))
+        nuts_rep = functor_report(torch, _build, b, dim, chains, k)
+        hmc_rep = hmc_report(torch, _build, b, dim, chains,
+                             f"{name}'s generated functor")
+        res = dict(
+            dim=dim, chains=chains, eps=eps, max_exp=k, ir_nodes=len(b.ir.nodes),
+            node_kinds=sorted({n.op for n in b.ir.nodes}), flop_a_gradient=flop,
+            grad_rel_err=gerr[0], plain_grad_rel_err=gerr[1],
+            nuts_functor=nuts_rep, hmc_functor=hmc_rep,
+            kernels={})
+        for kname, r, bnd, t, leaves in (
+                ("nuts_transition", r1, b1, t1, leaves1),
+                ("nuts_transition_std", r3, b3, t3, leaves3),
+                ("ghmc_transition", r5, b5, t5, chains),
+                ("chees_transition", r7, b7, t7,
+                 LEAPFROG_STEPS * chains)):
+            res["kernels"][kname] = dict(
+                share=r[0], max_abs_err=r[1], differ=r[2], ms=t[0],
+                plain_ms=t[1], bound_ms=bnd[0], bound_by=bnd[1],
+                gradients=leaves)
+        out[name] = res
+        del o1, o1p, o3, o3p, o5, o5p, o7, o7p
+        log(f"phase 48: {name} (dim {dim}, {chains} chains, ε {eps}, K {k}; "
+            f"IR {len(b.ir.nodes)} nodes of {', '.join(res['node_kinds'])}; "
+            f"{flop} operations a gradient; workspace {b.workspace} floats a "
+            f"chain, {'shared' if nuts_rep['workspace_shared'] else 'global'}"
+            f"): decisions equal vs plain, kernels 1 / 3 / 5 / 7: "
+            + " / ".join(f"{v['share']:.4%}" for v in res["kernels"].values())
+            + " (max |q| err "
+            + " / ".join(f"{v['max_abs_err']:.3g}"
+                         for v in res["kernels"].values())
+            + f"); gradient {gerr[0]:.3g} from float64 (plain float32 "
+            f"{gerr[1]:.3g}); ms kernel / plain / bound: "
+            + ", ".join(f"{kn} {v['ms']:.4f} / {v['plain_ms']:.3f} / "
+                        f"{v['bound_ms']:.5f} ({v['bound_by']})"
+                        for kn, v in res["kernels"].items())
+            + f"; ptxas kernels 1-4 {nuts_rep['registers']} registers, "
+            f"{nuts_rep['spill_bytes']} B spills, blocks per SM "
+            f"{nuts_rep['blocks_per_sm']}; kernels 5-7 registers "
+            f"{hmc_rep['registers']}, spills {hmc_rep['spill_bytes']}, "
+            f"blocks per SM {hmc_rep['blocks_per_sm']} [{card}]")
+
+    # P1's kernel 1 against phase 37's precision-form functor on one state
+    b1, rows1 = pots["mvn25_chol"]["bound"], pots["mvn25_chol"]["rows"]
+    dim, chains, eps, imm_v, k = OPS_CELLS["mvn25_chol"]
+    rng = np.random.default_rng(OPS_SEED + 2)
+    q_t = torch.tensor(rng.standard_normal((dim, chains)),
+                       dtype=torch.float32, device=dev)
+    imm = torch.full((dim,), imm_v, device=dev)
+    ops1 = b1.operands(rows1, dev)
+    u_c, g_c = generic_pg.run_plain(b1.ir, q_t, ops1)
+    bm = gen["binds"]["mvn"]
+    u_p, g_p = generic_pg.run_plain(bm.ir, q_t,
+                                    bm.operands((gen["prec"],), dev))
+    chol_k = nfs.nuts_transition_cuda(
+        q_t, u_c, g_c, imm, eps, rows1, max_exp=k, seed=OPS_SEED + 3,
+        potential_and_grad_t=None, potential_fn_t=pots["mvn25_chol"]["pot"])
+    prec_k = nfs.nuts_transition_cuda(
+        q_t, u_p, g_p, imm, eps, (gen["prec"],), max_exp=k,
+        seed=OPS_SEED + 3, potential_and_grad_t=None,
+        potential_fn_t=gen["mvn_t"])
+    torch.cuda.synchronize()
+    offset = float((u_c - u_p).mean())  # the normalising constant
+    shifted = chol_k[3].clone()
+    shifted[0] -= offset
+    r_vs = compare((chol_k[0], None, None, shifted),
+                   (prec_k[0], None, None, prec_k[3]),
+                   "mvn25_chol kernel 1 vs the precision-form functor")
+    out["mvn25_chol"]["vs_precision_form"] = dict(
+        share=r_vs[0], max_abs_err=r_vs[1], differ=r_vs[2],
+        constant=offset)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 48: mvn25_chol kernel 1 vs phase 37's precision-form functor "
+        f"on one state ({chains} chains, energies less the normalising "
+        f"constant {offset:.4f}): decisions equal on {r_vs[0]:.4%}, max |q| "
+        f"err {r_vs[1]:.3g}; phase 48 in {wall:.1f} s [{card}]")
+    record["phase48"] = dict(wall_s=wall, **out)
+    return out
+
+
+def mvn_door_limits(torch, diagnostics, res, what, accept_range, rhat_max,
+                    stationary=False):
+    """Phase 49's gates on a P1 front-door run: acceptance, divergences,
+    R-hat (below ``rhat_max``, or within RHAT_EXCESS of its stationary
+    value for a one-step sampler), each mean within MCSE_Z MCSE of 0 and
+    each variance within GEN_MVN_RATIO_TOL of 1."""
+    x = res.positions.float().transpose(0, 1)  # (chains, draws, dim)
+    mean, mcse, ess = mean_mcse(torch, diagnostics, x, with_ess=True)
+    var = x.reshape(-1, x.shape[2]).var(dim=0)
+    rhat = diagnostics.potential_scale_reduction(x, rank_normalized=True)
+    n = x.shape[1] // 2
+    tau = x.shape[0] * 2 * n / ess
+    excess = rhat - torch.sqrt((n - 1) / (n - tau))
+    diag = res.diagnostics
+    out = dict(accept=float(diag.acceptance_probability.mean()),
+               divergent_share=float(diag.is_diverging.float().mean()),
+               max_rhat=float(rhat.max()), max_rhat_excess=float(excess.max()),
+               max_mean_z=float((mean.abs() / mcse).max()),
+               max_var_err=float((var - 1.0).abs().max()),
+               finite=bool(torch.isfinite(x).all()))
+    check(accept_range[0] <= out["accept"] <= accept_range[1],
+          f"{what}: mean acceptance {out['accept']}")
+    check(out["divergent_share"] < 1e-4,
+          f"{what}: divergent share {out['divergent_share']}")
+    if stationary:
+        check(out["max_rhat_excess"] < RHAT_EXCESS, f"{what}: R-hat exceeds "
+              f"its stationary value by {out['max_rhat_excess']}")
+    else:
+        check(out["max_rhat"] < rhat_max, f"{what}: max R-hat "
+              f"{out['max_rhat']}")
+    check(out["max_mean_z"] < MCSE_Z, f"{what}: a mean is "
+          f"{out['max_mean_z']} MCSE from 0")
+    check(out["max_var_err"] <= GEN_MVN_RATIO_TOL, f"{what}: a variance is "
+          f"{out['max_var_err']} from 1")
+    check(out["finite"], f"{what}: non-finite draws")
+    return out
+
+
+def op_mvn_doors(torch, ops, diagnostics, pots, record, card):
+    """Phase 49: P1 (models.correlated_mvn(25, 0.5), a bare logprob) through
+    the fused NUTS (dense M⁻¹, phase 37's adaptive cell), ChEES, MEADS and
+    checkpointed MEADS (kernel 5 a draw) front doors, each twice with one
+    seed."""
+    import tempfile
+
+    import aehmc_tpu_torch
+
+    lp = pots["mvn25_chol"]["lp"]
+    dev = torch.device(DEVICE)
+    a = GEN_MVN_ADAPT
+    q_n = torch.tensor(np.random.default_rng(49).standard_normal(
+        (a["chains"], GEN_MVN_DIM)), dtype=torch.float32, device=dev)
+    q_h = torch.tensor(np.random.default_rng(50).standard_normal(
+        (OPS_DOOR_CHAINS, GEN_MVN_DIM)), dtype=torch.float32, device=dev)
+    t_phase = time.perf_counter()
+    out = {}
+    runs = (
+        ("NUTS", lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(4901), lp, q_n, a["draws"],
+            a["warmup"], algorithm="nuts", path="fused",
+            max_num_expansions=a["k"], is_mass_matrix_full=True,
+            initial_step_size=a["eps0"]), (0.7, 0.9)),
+        ("ChEES", lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(4902), lp, q_h, DRAWS, WARMUP,
+            algorithm="chees", path="fused", initial_step_size=CHEES_EPS0),
+         CHEES_ACCEPT),
+        ("MEADS", lambda: aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(4903), lp, q_h, MEADS_DRAWS,
+            MEADS_WARMUP, algorithm="meads", path="fused",
+            meads_recompute_every=MEADS_EVERY), (MEADS_ACCEPT_MIN, 1.0)),
+    )
+    for what, run, accept_range in runs:
+        res, wall, wall_b, launches = door_twice(
+            torch, ops, run, f"mvn25_chol {what} front door")
+        if what == "NUTS":
+            want = {"nuts_transition_generic": a["warmup"],
+                    "nuts_sampling_generic": 1}
+        elif what == "ChEES":
+            probes = launches.get("chees_transition_generic", 0) - (
+                WARMUP + DRAWS)
+            check(1 <= probes <= 32, f"mvn25_chol ChEES launches {launches}")
+            want = {"chees_transition_generic": WARMUP + DRAWS + probes}
+        else:
+            want = {"ghmc_segment_generic": -(-MEADS_WARMUP // MEADS_EVERY)
+                    + -(-MEADS_DRAWS // MEADS_EVERY)}
+        check(launches == want, f"mvn25_chol {what} front door: launches "
+              f"{launches}, want {want}")
+        lim = mvn_door_limits(torch, diagnostics, res,
+                              f"mvn25_chol {what} front door", accept_range,
+                              1.01, stationary=what == "MEADS")
+        extra = {}
+        if what == "NUTS":
+            imm_a = res.inverse_mass_matrix
+            off = ~torch.eye(GEN_MVN_DIM, dtype=torch.bool, device=dev)
+            ratio = float(imm_a[off].mean() / torch.diagonal(imm_a).mean())
+            check(abs(ratio - GEN_MVN_RHO) <= GEN_MVN_RATIO_TOL,
+                  f"mvn25_chol NUTS: tuned M⁻¹ off-diagonal/diagonal {ratio}")
+            extra = dict(offdiag_ratio=ratio)
+        out[what] = dict(wall_s=wall, wall_s_again=wall_b, launches=launches,
+                         step_size=float(torch.as_tensor(
+                             res.step_size).float().mean()), **lim, **extra)
+        log(f"phase 49: mvn25_chol (models.correlated_mvn(25, 0.5), a bare "
+            f"logprob) {what} front door, {res.positions.shape[1]} chains: "
+            f"{wall:.2f} s (again {wall_b:.2f} s, equal bit for bit); "
+            f"launches {launches}; accept {lim['accept']:.4f}, divergent "
+            f"{lim['divergent_share']:.2e}, ε {out[what]['step_size']:.4f}, "
+            f"max R-hat {lim['max_rhat']:.4f} (excess over stationary "
+            f"{lim['max_rhat_excess']:.4f}), means within "
+            f"{lim['max_mean_z']:.2f} MCSE of 0, variances within "
+            f"{lim['max_var_err']:.4f} of 1"
+            + (f", M⁻¹ off-diagonal/diagonal {extra['offdiag_ratio']:.4f}"
+               if extra else "") + f" [{card}]")
+        del res
+    # MEADS checkpointed: kernel 5 a draw (phase 42's cut)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = iter(("a", "b"))
+        res, wall, wall_b, launches = door_twice(
+            torch, ops, lambda: aehmc_tpu_torch.sample(
+                torch.Generator().manual_seed(4904), lp, q_h, CKPT_DRAWS,
+                CKPT_WARMUP, algorithm="meads", path="fused",
+                meads_recompute_every=MEADS_EVERY,
+                checkpoint_every=CKPT_EVERY,
+                checkpoint_path=f"{tmp}/{next(paths)}.npz"),
+            "mvn25_chol checkpointed MEADS front door")
+    want = {"ghmc_transition_generic": CKPT_WARMUP + CKPT_DRAWS}
+    check(launches == want, f"mvn25_chol checkpointed MEADS: launches "
+          f"{launches}")
+    check(bool(torch.isfinite(res.positions).all()),
+          "mvn25_chol checkpointed MEADS: non-finite draws")
+    out["MEADS checkpointed"] = dict(
+        wall_s=wall, wall_s_again=wall_b, launches=launches,
+        accept=float(res.diagnostics.acceptance_probability.mean()))
+    log(f"phase 49: mvn25_chol checkpointed MEADS front door (kernel 5 a "
+        f"draw) {OPS_DOOR_CHAINS} chains, {CKPT_WARMUP} + {CKPT_DRAWS}: "
+        f"{wall:.2f} s (again {wall_b:.2f} s, equal bit for bit); launches "
+        f"{launches}; accept {out['MEADS checkpointed']['accept']:.4f} "
+        f"[{card}]")
+    del res
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 49 in {out['wall_s']:.1f} s [{card}]")
+    record["phase49"] = out
+    return out
+
+
+def op_negbin_doors(torch, ops, diagnostics, pots, record, card):
+    """Phase 50: P2 through the fused NUTS front door (its generated
+    functor: gathers, their scatter-add, lgamma, digamma) and through the
+    pooled XLA route (torch.func's gradient), both from one start made
+    with numpy (0.1·N(0, 1), mu at the log of the mean count); means
+    within MCSE_Z combined MCSE.  With mu at 0 the first trajectories turn
+    the potential's fall into momentum that throws some chains far out in
+    log φ; the start near the data's scale spares the comparison that
+    transient."""
+    import aehmc_tpu_torch
+
+    lp = pots["hier_negbin"]["lp"]
+    dev = torch.device(DEVICE)
+    dim = OPS_CELLS["hier_negbin"][0]
+    _, _, counts = negbin_data()
+    start = 0.1 * np.random.default_rng(51).standard_normal(
+        (NEGBIN_CHAINS, dim))
+    start[:, NEGBIN_GROUPS] += np.log(counts.mean())
+    start = torch.tensor(start, dtype=torch.float32, device=dev)
+    t_phase = time.perf_counter()
+    runs = {}
+    for what, path, warmup, draws, k in (
+            ("fused", "fused", NEGBIN_WARMUP, NEGBIN_DRAWS, NEGBIN_K),
+            ("pooled", "pooled", NEGBIN_POOLED_WARMUP, NEGBIN_POOLED_DRAWS,
+             NEGBIN_POOLED_K)):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chains = NEGBIN_CHAINS if path == "fused" else NEGBIN_POOLED_CHAINS
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(5000), lp, start[:chains], draws,
+            warmup, algorithm="nuts", path=path, max_num_expansions=k,
+            initial_step_size=NEGBIN_EPS0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        want = ({"nuts_transition_generic": warmup,
+                 "nuts_sampling_generic": 1} if path == "fused" else {})
+        check(launches == want, f"hier_negbin {what}: launches {launches}")
+        x = res.positions.float().transpose(0, 1)
+        check(bool(torch.isfinite(x).all()), f"hier_negbin {what}: "
+              "non-finite draws")
+        mean, mcse = mean_mcse(torch, diagnostics, x)
+        rhat = diagnostics.potential_scale_reduction(x, rank_normalized=True)
+        diag = res.diagnostics
+        runs[what] = dict(
+            chains=x.shape[0], warmup=warmup, draws=draws, wall_s=wall,
+            launches=launches, mean=mean, mcse=mcse,
+            max_rhat=float(rhat.max()),
+            max_chain_mean_log_phi=float(x[:, :, -1].mean(dim=1).max()),
+            accept=float(diag.acceptance_probability.float().mean()),
+            divergent_share=float(diag.is_diverging.float().mean()),
+            mean_doublings=float(diag.num_doublings.float().mean()),
+            step_size=float(torch.as_tensor(res.step_size).float().mean()))
+        del res, x
+    f, p = runs["fused"], runs["pooled"]
+    z = ((f["mean"] - p["mean"]).abs()
+         / torch.sqrt(f["mcse"]**2 + p["mcse"]**2))
+    zmax = float(z.max())
+    for r in runs.values():
+        r["mean"], r["mcse"] = r["mean"].tolist(), r["mcse"].tolist()
+    wall = time.perf_counter() - t_phase
+    record["phase50"] = dict(wall_s=wall, max_z=zmax, z=z.tolist(), **runs)
+    log(f"phase 50: hier_negbin (919 observations, 85 counties, dim {dim}): "
+        + "; ".join(f"{name} NUTS {r['chains']} chains {r['warmup']} + "
+                    f"{r['draws']} in {r['wall_s']:.2f} s (launches "
+                    f"{r['launches']}, accept {r['accept']:.4f}, divergent "
+                    f"{r['divergent_share']:.2e}, ε {r['step_size']:.4f}, "
+                    f"doublings {r['mean_doublings']:.2f}, max R-hat "
+                    f"{r['max_rhat']:.4f}, largest chain mean of log φ "
+                    f"{r['max_chain_mean_log_phi']:.4f})"
+                    for name, r in runs.items())
+        + f": means within {zmax:.2f} combined MCSE (limit {MCSE_Z}); phase "
+        f"50 in {wall:.1f} s [{card}]")
+    check(zmax < MCSE_Z, f"hier_negbin: the fused route's means are {zmax} "
+          "combined MCSE from the pooled XLA route's")
+    return runs
+
+
+def op_table_fields(kernels, ops48, doors49, runs50):
+    """The ``generic_ops`` fields of kernels 1, 3, 5 and 7's entries (and
+    the main-path launches of kernels 2 and 6): each P's launches on this
+    slice's front doors, error, times, bound, registers, spills, blocks per
+    SM and workspace."""
+    door = {"mvn25_chol": {
+        **doors49["NUTS"]["launches"], **doors49["ChEES"]["launches"],
+        **doors49["MEADS"]["launches"],
+        **doors49["MEADS checkpointed"]["launches"]},
+        "hier_negbin": runs50["fused"]["launches"]}
+    hmc_index = {"ghmc_transition": 5, "chees_transition": 7}
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("nuts_sampling", "ghmc_segment"):
+            entry["generic_ops_launches"] = {
+                p: door.get(p, {}).get(f"{name}_generic", 0) for p in ops48}
+        if name not in ("nuts_transition", "nuts_transition_std",
+                        "ghmc_transition", "chees_transition"):
+            continue
+        fields = {}
+        for p, res in ops48.items():
+            k = res["kernels"][name]
+            if name in hmc_index:
+                rep = res["hmc_functor"]
+                regs = rep["registers"][hmc_index[name]]
+                spill = rep["spill_bytes"][hmc_index[name]]
+                per_sm = rep["blocks_per_sm"][str(hmc_index[name])]
+            else:
+                rep = res["nuts_functor"]
+                regs, spill = rep["registers"], rep["spill_bytes"]
+                per_sm = rep["blocks_per_sm"][
+                    "std_transition" if name.endswith("std")
+                    else "t_transition"]
+            fields[p] = dict(
+                launches=door.get(p, {}).get(f"{name}_generic", 0),
+                max_abs_err=k["max_abs_err"], ms=k["ms"],
+                plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                bound_by=k["bound_by"], registers=regs, spill_bytes=spill,
+                blocks_per_sm=per_sm,
+                workspace_floats=res["nuts_functor"]["workspace_floats"],
+                workspace_shared=res["nuts_functor"]["workspace_shared"])
+        entry["generic_ops"] = fields
+
+
 def main():
     import torch
 
@@ -5383,15 +6077,17 @@ def main():
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
     gen_pots = generic_potentials(torch, dev)  # phases 34-38's functors
+    op_pots = op_table_potentials(torch, dev)  # phases 48-50's
     trace_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _build.build_all(generated=[b.source for b in gen_pots["binds"].values()])
+    _build.build_all(generated=[b.source for b in gen_pots["binds"].values()]
+                     + [p["bound"].source for p in op_pots.values()])
     build_s = time.perf_counter() - t0
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s "
-        f"(with {len(gen_pots['binds'])} generated functors, traced in "
-        f"{trace_s:.1f} s)")
+        f"(with {len(gen_pots['binds']) + len(op_pots)} generated functors, "
+        f"traced in {trace_s:.1f} s)")
     ptxas = ptxas_report(_build.ptxas_log())
     geometry = {}
     for name in ENTRIES:
@@ -5777,6 +6473,11 @@ def main():
     offsets = offset_phase(torch, gen_pots, data, pg, q0, record, card)
     mesh_launches = mesh_phases(torch, ops, diagnostics, data, pot, pg, q0,
                                 record, card)
+    # phases 48-50: the op table's potentials on kernels 1, 3, 5 and 7 and
+    # through the fused front doors
+    ops48 = op_kernel_phase(torch, op_pots, gen_pots, record, card)
+    doors49 = op_mvn_doors(torch, ops, diagnostics, op_pots, record, card)
+    runs50 = op_negbin_doors(torch, ops, diagnostics, op_pots, record, card)
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -5831,6 +6532,7 @@ def main():
         if entry["name"] in OFFSET_KERNELS:
             entry.update(offset_check=offsets[entry["name"]],
                          mesh_launches=mesh_launches.get(entry["name"]))
+    op_table_fields(kernels, ops48, doors49, runs50)
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

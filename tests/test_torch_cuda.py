@@ -139,11 +139,12 @@ def test_cuda_whole_run_equals_per_draw_launches(cuda_device, dense):
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     pg, data, q_t, u0, g0, imm, _ = _case(cuda_device, False)
-    transition = make_fused_nuts_transition_small(
-        lambda q, *d: torch.logsumexp(q, 0), data, max_num_expansions=MAX_EXP,
-        transposed_io=True,
+    M = 2.0 * torch.eye(q_t.shape[0], device=cuda_device) + 0.1
+    transition = make_fused_nuts_transition_small(  # a general solve
+        lambda q, *d: torch.sum(q * torch.linalg.solve(M, q), 0), data,
+        max_num_expansions=MAX_EXP, transposed_io=True,
     )
-    with pytest.raises(NotImplementedError, match="logsumexp"):
+    with pytest.raises(NotImplementedError, match="_linalg_solve_ex"):
         transition(q_t, u0, g0, None, None, None, None, imm, 0.3, seed=1)
     transition = make_fused_nuts_transition_small(
         None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,
@@ -1923,3 +1924,105 @@ def test_cuda_sharded_kernels_equal_the_whole_launch(cuda_device, kernel):
         assert (a is None) == (b is None)
         if a is not None:
             assert torch.equal(a, b)
+
+
+# ---- the op table (ROADMAP item 1.10c): kernels 1, 5 and 7 on generated
+# functors that need a triangular solve, a gather by integer index data and
+# its scatter-add, the special functions and the axis reductions, each
+# against its plain version (generic_pg.run_plain) from one Philox seed
+
+def _op_table_logprob(name, device):
+    """A bare logprob of the op table's test potentials at test size, and
+    its dim."""
+    from aehmc_tpu_torch.models import correlated_mvn
+
+    rng = np.random.default_rng(15)
+    if name == "mvn":
+        return correlated_mvn(6, 0.5, device=device), 6
+    if name == "negbin":
+        # overdispersed counts of mean 3 under NB(y | 3, s): the posterior
+        # keeps s = exp(q) moderate, away from where lgamma(y + s) -
+        # lgamma(s) cancels to float32 rounding noise
+        idx = torch.tensor(rng.integers(-8, 8, 40), device=device)
+        y = torch.tensor(rng.negative_binomial(2, 0.4, 40), device=device)
+
+        def lp(q):
+            s = torch.exp(q[idx])
+            log_denom = torch.log(s + 3.0)
+            return torch.sum(torch.lgamma(y + s) - torch.lgamma(s)
+                             + s * (q[idx] - log_denom)
+                             + y * (np.log(3.0) - log_denom)) \
+                - 0.5 * torch.sum(q * q)
+        return lp, 8
+    if name == "mixture":
+        pts = torch.tensor(rng.standard_normal((30, 2)).astype(np.float32),
+                           device=device)
+
+        def lp(q):
+            mus, logits = q[:4].reshape(2, 2), q[4:6]
+            d = pts[:, None, :] - mus[None]
+            return torch.sum(torch.logsumexp(torch.log_softmax(logits, 0)
+                                             - 0.5 * torch.sum(d * d, -1),
+                                             1)) - 0.5 * torch.sum(q * q)
+        return lp, 6
+    X = torch.tensor(rng.standard_normal((20, 5)).astype(np.float32),
+                     device=device)
+    y = torch.tensor((rng.uniform(size=20) < 0.5).astype(np.float32),
+                     device=device)
+
+    def lp(q):
+        z = X @ q
+        return torch.sum(y * torch.special.log_ndtr(z) + (1.0 - y)
+                         * torch.special.log_ndtr(-z)) - 0.5 * torch.sum(q * q)
+    return lp, 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mvn", "negbin", "mixture", "probit"])
+def test_cuda_kernels_1_5_7_on_the_op_table_functors(cuda_device, name):
+    """At ε 0.2, as the generated functors' gates: decisions as chip_smoke
+    reads them, the tree (stats rows 2-5) and the selected proposal's
+    energy to 1e-5."""
+    from aehmc_tpu_torch.api import _generic_fused_binding
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops.nuts_fused_small import nuts_transition_cuda
+
+    lp, dim = _op_table_logprob(name, cuda_device)
+    pot, rows = _generic_fused_binding(lp, dim, cuda_device)
+    bound = generic_pg.bind(pot, rows, dim, device=cuda_device)
+    ops_ = bound.operands(rows, cuda_device)
+
+    def plain(x):
+        return generic_pg.run_plain(bound.ir, x, ops_)
+
+    chains = 256
+    q_t = torch.tensor(0.3 * np.random.default_rng(5).normal(
+        size=(dim, chains)), dtype=torch.float32, device=cuda_device)
+    u0, g0 = plain(q_t)
+    imm = torch.full((dim,), 0.9, device=cuda_device)
+    gkw = dict(potential_and_grad_t=None, potential_fn_t=pot)
+    kern = nuts_transition_cuda(q_t, u0, g0, imm, 0.2, rows, max_exp=4,
+                                seed=7, **gkw)
+    ref = nuts_transition_plain(q_t, u0, g0, imm, 0.2, plain, max_exp=4,
+                                seed=7)
+    same = (kern[3][2:6] == ref[3][2:6]).all(dim=0) & (
+        (kern[3][0] - ref[3][0]).abs()
+        <= 1e-5 * ref[3][0].abs().clamp(min=1.0))
+    assert float(same.float().mean()) >= 0.99
+    np.testing.assert_allclose(kern[0][:, same].cpu(), ref[0][:, same].cpu(),
+                               rtol=1e-4, atol=1e-4)
+    p0 = torch.randn(dim, chains, generator=torch.Generator().manual_seed(2)
+                     ).to(cuda_device)
+    kern = ghmc_transition_cuda(q_t, u0, g0, p0, 0.2, 0.0, imm, rows,
+                                seed=8, **gkw)
+    ref = ghmc_transition_plain(q_t, u0, g0, p0, 0.2, 0.0, imm, plain,
+                                seed=8)
+    _hmc_agree(q_t, kern[0], ref[0], kern[4], ref[4])
+    qs, gs = q_t.T.contiguous(), g0.T.contiguous()
+    kern = chees_fused.chees_transition_cuda(
+        qs, u0.reshape(-1), gs, imm, 0.2, torch.full(
+            (), 5, dtype=torch.int32, device=cuda_device), rows, seed=9,
+        **gkw)
+    ref = chees_fused.chees_transition_plain(qs, u0.reshape(-1), gs, imm, 0.2,
+                                             5, plain, seed=9)
+    _hmc_agree(q_t, kern[0].T, ref[0].T, kern[3].T, ref[3].T)

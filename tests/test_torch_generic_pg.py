@@ -65,6 +65,7 @@ from aehmc_tpu_torch.ops.nuts_fused_small import (
     make_fused_nuts_transition_small,
     nuts_transition_plain,
 )
+from tests.test_torch_generic_ops import CASES as OP_CASES
 
 F32 = np.float32
 DIM, POINTS, CHAINS = 5, 12, 8
@@ -224,13 +225,168 @@ def _cell_case():
     return pot, (X, y), DIM, "std", jax_pot
 
 
+# -- one case a family of the op table
+
+def _lower_upper(dim, seed):
+    rng = np.random.default_rng(seed)
+    M = 0.3 * rng.standard_normal((dim, dim)) + 2.0 * np.eye(dim)
+    return torch.tensor(np.tril(M), dtype=torch.float32), \
+        torch.tensor(np.triu(M.T), dtype=torch.float32)
+
+
+def _trsolve_case():
+    """A: triangular solves, lower and upper, left and right, unit diagonal,
+    and ``cholesky_solve`` in both triangles."""
+    dim = 6
+    L, U = _lower_upper(dim, 3)
+
+    def pot(q_t, L, U):
+        a = torch.linalg.solve_triangular(L, q_t, upper=False)
+        b = torch.linalg.solve_triangular(U, q_t, upper=True,
+                                          unitriangular=True)
+        c = torch.linalg.solve_triangular(L.T, q_t.T, upper=True,
+                                          left=False).T
+        d = torch.cholesky_solve(q_t, L)
+        e = torch.cholesky_solve(q_t, U, upper=True)
+        return 0.5 * torch.sum(a * a + b * b, 0) + 0.25 * torch.sum(
+            c * c, 0) + 0.5 * torch.sum(q_t * (d + e), 0)
+
+    def jax_pot(q_t, L, U):
+        sl = jax.scipy.linalg.solve_triangular
+        a = sl(L, q_t, lower=True)
+        b = sl(U, q_t, lower=False, unit_diagonal=True)
+        c = sl(L, q_t, lower=True)  # x L^T = q^T is L x^T = q
+        d = jax.scipy.linalg.cho_solve((L, True), q_t)
+        e = jax.scipy.linalg.cho_solve((U, False), q_t)
+        return 0.5 * jnp.sum(a * a + b * b, 0) + 0.25 * jnp.sum(c * c, 0) \
+            + 0.5 * jnp.sum(q_t * (d + e), 0)
+
+    return pot, (L, U), dim, "t", jax_pot
+
+
+def _special_case():
+    """B: lgamma (digamma in its gradient), erf, erfc, erfcx, log_ndtr
+    (both branches), atan, logaddexp."""
+    dim = 5
+    y = torch.tensor([[0.0], [3.0], [1.0], [7.0], [2.0]])
+
+    def pot(q_t, y):  # constants exact in float32, as the card holds them
+        s = torch.exp(0.25 * q_t)
+        u = torch.lgamma(y + s) - torch.lgamma(s) + torch.erf(0.5 * q_t) \
+            + torch.erfc(0.75 * q_t) + torch.special.log_ndtr(1.5 * q_t - 0.5) \
+            + 0.125 * torch.special.erfcx(0.375 * q_t + 1.0) \
+            + torch.atan(q_t) + torch.logaddexp(q_t, 0.5 * q_t * q_t - 1.0)
+        return -torch.sum(u, 0) + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, y):
+        sp = jax.scipy.special
+        s = jnp.exp(0.25 * q_t)
+        u = sp.gammaln(y + s) - sp.gammaln(s) + sp.erf(0.5 * q_t) \
+            + sp.erfc(0.75 * q_t) + sp.log_ndtr(1.5 * q_t - 0.5) \
+            + 0.125 * jnp.exp((0.375 * q_t + 1.0) ** 2) \
+            * sp.erfc(0.375 * q_t + 1.0) \
+            + jnp.arctan(q_t) + jnp.logaddexp(q_t, 0.5 * q_t * q_t - 1.0)
+        return -jnp.sum(u, 0) + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (y,), dim, "t", jax_pot
+
+
+def _reductions_case():
+    """C: logsumexp, log_softmax, softmax and stack along an axis."""
+    dim = 6
+    w = torch.linspace(0.2, 1.2, dim).reshape(-1, 1)
+
+    def pot(q_t, w):
+        st = torch.stack([q_t, 0.5 * q_t * q_t], 0)
+        return torch.logsumexp(q_t, 0) - torch.sum(
+            w * torch.log_softmax(q_t, 0), 0) + torch.sum(
+            torch.softmax(q_t, 0) ** 2, 0) + 0.125 * torch.sum(
+            torch.logsumexp(st, 0), 0) + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, w):
+        st = jnp.stack([q_t, 0.5 * q_t * q_t], 0)
+        lse = jax.nn.logsumexp
+        return lse(q_t, 0) - jnp.sum(w * jax.nn.log_softmax(q_t, 0), 0) \
+            + jnp.sum(jax.nn.softmax(q_t, 0) ** 2, 0) \
+            + 0.125 * jnp.sum(lse(st, 0), 0) + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (w,), dim, "t", jax_pot
+
+
+def _gather_case():
+    """D: ``q[idx]`` and ``index_select`` with repeated and negative
+    indices, their scatter-adds in the gradient."""
+    dim = 6
+    rng = np.random.default_rng(4)
+    idx = torch.tensor(rng.integers(-dim, dim, 11))
+    sel = torch.tensor([5, 0, 0, 2, 3])
+    w = torch.tensor(rng.uniform(0.5, 1.5, (11, 1)).astype(F32))
+
+    def pot(q_t, idx, sel, w):
+        g = q_t[idx]
+        s = torch.index_select(q_t, 0, sel)
+        return 0.5 * torch.sum(w * g * g, 0) + torch.sum(
+            torch.log1p(torch.exp(s)), 0) + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, idx, sel, w):
+        g = q_t[idx]
+        s = q_t[sel]
+        return 0.5 * jnp.sum(w * g * g, 0) + jnp.sum(jnp.log1p(jnp.exp(s)),
+                                                      0) \
+            + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (idx, sel, w), dim, "t", jax_pot
+
+
+def _scans_case():
+    """cumsum, flip, amax, var, and bmm over two batches."""
+    dim = 6
+    rng = np.random.default_rng(6)
+    B = torch.tensor(rng.standard_normal((2, 3, 3)).astype(F32))
+    ramp = torch.arange(dim, dtype=torch.float32).reshape(-1, 1)
+
+    def pot(q_t, B, ramp):
+        cs = torch.cumsum(q_t, 0)
+        fl = torch.flip(q_t, (0,))
+        prod = torch.bmm(B, q_t.reshape(2, 3, -1))
+        return 0.5 * torch.sum(cs * cs, 0) + torch.sum(fl * ramp, 0) \
+            + torch.amax(q_t, 0) + torch.var(q_t, 0) \
+            + 0.5 * torch.sum(prod * prod, (0, 1))
+
+    def jax_pot(q_t, B, ramp):
+        cs = jnp.cumsum(q_t, 0)
+        fl = jnp.flip(q_t, 0)
+        prod = jnp.matmul(B, q_t.reshape(2, 3, -1))
+        return 0.5 * jnp.sum(cs * cs, 0) + jnp.sum(fl * ramp, 0) \
+            + jnp.max(q_t, 0) + jnp.var(q_t, 0, ddof=1) \
+            + 0.5 * jnp.sum(prod * prod, (0, 1))
+
+    return pot, (B, ramp), dim, "t", jax_pot
+
+
 CASES = {
     "logistic": _logistic_case, "logistic_wide": _wide_case,
     "logistic_closure": _closure_case,
     "dense_mvn": _mvn_case, "funnel": _funnel_case,
     "eight_schools": _schools_case, "linear_regression": _linreg_case,
     "generic_10k": _cell_case,
+    # the op table's families (A-D, then the scans) and the four test
+    # potentials at small sizes (tests/test_torch_generic_ops.py)
+    "op_trsolve": _trsolve_case, "op_special": _special_case,
+    "op_reductions": _reductions_case, "op_gather": _gather_case,
+    "op_scans": _scans_case, **OP_CASES,
 }
+
+# Limits of the emitted functor against its plain back end (float32): 1e-5
+# of the largest value for every case.  B's special functions are CUDA's or
+# transcriptions of ATen's float formulas, a few ulp (<= 5e-7 relative) from
+# torch's each, so 1e-5 holds for them too.
+EMITTED_RTOL = 1e-5
+# Limits of the plain back end (run in float64) against float64 autograd
+# and jax.vjp: 1e-10, but where a gradient formula holds an irrational
+# constant (erf's 2/sqrt(pi), log_ndtr's sqrt(2 pi), var's 2/(n - 1)) the
+# IR keeps it in float32, as the card does: 6e-8 relative rounding.
+FLOAT64_RTOL = {"op_special": 1e-7, "op_scans": 1e-7}
 
 
 def _case(name):
@@ -239,7 +395,7 @@ def _case(name):
     reference)."""
     fn, data, dim, layout, jax_pot, *reference = CASES[name]()
     if not reference:
-        d64 = [d.double() for d in data]
+        d64 = [d.double() if d.is_floating_point() else d for d in data]
         if layout == "std":
             reference = [lambda q_t: fn(q_t.T, *d64)]
         else:
@@ -278,11 +434,13 @@ def test_plain_back_end_matches_autograd_and_jax_vjp(name):
     q64 = torch.tensor(q_t, requires_grad=True)
     u_ref = _case(name)[-1](q64)
     (g_ref,) = torch.autograd.grad(u_ref.sum(), q64)
+    rtol = FLOAT64_RTOL.get(name, 1e-10)
     _assert_rel(u.numpy().reshape(-1), u_ref.detach().numpy().reshape(-1),
-                1e-10)
-    _assert_rel(g.numpy(), g_ref.numpy(), 1e-10)
+                rtol)
+    _assert_rel(g.numpy(), g_ref.numpy(), rtol)
     # jax.vjp of the JAX twin, float64
-    jd = [jnp.asarray(d.numpy(), jnp.float64) for d in data]
+    jd = [jnp.asarray(d.numpy(), jnp.float64) if d.is_floating_point()
+          else jnp.asarray(d.numpy()) for d in data]
     if layout == "std":
         u_j, vjp = jax.vjp(lambda q: jax_pot(q, *jd), jnp.asarray(q_t.T))
         (g_j,) = vjp(jnp.ones_like(u_j))
@@ -290,8 +448,8 @@ def test_plain_back_end_matches_autograd_and_jax_vjp(name):
     else:
         u_j, vjp = jax.vjp(lambda q: jax_pot(q, *jd), jnp.asarray(q_t))
         (g_j,) = vjp(jnp.ones_like(u_j))
-    _assert_rel(u.numpy().reshape(-1), np.asarray(u_j).reshape(-1), 1e-10)
-    _assert_rel(g.numpy(), np.asarray(g_j), 1e-10)
+    _assert_rel(u.numpy().reshape(-1), np.asarray(u_j).reshape(-1), rtol)
+    _assert_rel(g.numpy(), np.asarray(g_j), rtol)
 
 
 @pytest.mark.parametrize("pg, builder", [
@@ -330,12 +488,27 @@ def test_closed_over_tensors_become_data_operands():
 # ----------------------------------------------------------- the errors ---
 
 def test_an_op_outside_the_table_raises_naming_it():
-    with pytest.raises(NotImplementedError, match=r"aten\.logsumexp.*1\.10c"):
-        generic_pg.trace_potential(lambda q_t: torch.logsumexp(q_t, 0), (), 4)
+    """A general dense solve (``torch.linalg.solve``: an LU solve a chain)
+    stays outside the table on purpose."""
+    M = 2.0 * torch.eye(4) + 0.1
+    with pytest.raises(NotImplementedError,
+                       match=r"aten\._linalg_solve_ex.*1\.10c"):
+        generic_pg.trace_potential(
+            lambda q_t: 0.5 * torch.sum(q_t * torch.linalg.solve(M, q_t), 0),
+            (), 4)
+    M3 = torch.eye(3) + 0.2
+
+    def solve_lp(q):
+        return -0.5 * torch.dot(q, torch.linalg.solve(M3, q))
+
+    pot, data = _generic_fused_binding(solve_lp, 3)
+    with pytest.raises(NotImplementedError, match="_linalg_solve_ex"):
+        generic_pg.trace_potential(pot, data, 3)
+    # the package's own mvn binds: its triangular solve is in the table
     mvn_lp = mvn(np.zeros(3), np.eye(3) + 0.2, device="cpu")
     pot, data = _generic_fused_binding(mvn_lp, 3)
-    with pytest.raises(NotImplementedError, match="linalg_solve_triangular"):
-        generic_pg.trace_potential(pot, data, 3)
+    assert "aten.linalg_solve_triangular.default" in \
+        generic_pg.trace_potential(pot, data, 3).ops
 
 
 def test_a_potential_that_mixes_chains_raises():
@@ -440,6 +613,14 @@ inline thread_local Idx threadIdx{0};
 inline Idx blockIdx{0};
 inline void __syncwarp() { emu::bar->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
+// CUDA's erfcxf (exp(x^2) erfc(x)), from glibc's double functions
+inline float erfcxf(float x) {
+  const double d = x;
+  if (d < 25.0) return (float)(std::exp(d * d) * std::erfc(d));
+  return (float)(0.56418958354775628695 / d *
+                 (1.0 - 0.5 / (d * d) + 0.75 / (d * d * d * d)));
+}
 inline float __int_as_float(unsigned v) {
   float f;
   std::memcpy(&f, &v, 4);
@@ -447,6 +628,23 @@ inline float __int_as_float(unsigned v) {
 }
 namespace aehmc {
 struct Geometry { int blocks, points, row_stride, smem, chains; };
+constexpr unsigned FULL = 0xffffffffu;
+// the warp's shuffles through shared slots and the barrier
+inline float __shfl_down_sync(unsigned, float v, int o) {
+  const int lane = threadIdx.x % 32;
+  emu::vals[lane] = v;
+  emu::bar->arrive_and_wait();
+  const float other = lane + o < 32 ? emu::vals[lane + o] : v;
+  emu::bar->arrive_and_wait();
+  return other;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  emu::vals[threadIdx.x % 32] = v;
+  emu::bar->arrive_and_wait();
+  const float out = emu::vals[src];
+  emu::bar->arrive_and_wait();
+  return out;
+}
 // __shfl_down_sync's butterfly, then lane 0's value to every lane
 inline float warp_sum(float v) {
   const int lane = threadIdx.x % 32;
@@ -479,7 +677,7 @@ int main() {
   std::vector<std::vector<float>> data(n);
   GenericPG pg = {};
   pg.data.n = n;
-  for (int j = 0; j < n; ++j) {
+  for (int j = 0; j < n; ++j) {  // 4-byte words: float32 or int32 rows
     long long len;
     if (fread(&len, 8, 1, stdin) != 1) return 2;
     data[j].resize(len);
@@ -528,7 +726,8 @@ def _emulate(source, operands, q, work):
     q = np.ascontiguousarray(q, F32)
     blob = [np.int32(q.shape[0]).tobytes(), np.int32(len(operands)).tobytes()]
     for d in operands:
-        d = np.ascontiguousarray(d.numpy(), F32).reshape(-1)
+        kind = np.int32 if d.dtype in generic_pg.INT_DTYPES else F32
+        d = np.ascontiguousarray(d.numpy(), kind).reshape(-1)
         blob += [np.int64(d.size).tobytes(), d.tobytes()]
     blob.append(q.tobytes())
     out = subprocess.run([str(exe)], input=b"".join(blob), check=True,
@@ -546,8 +745,8 @@ def test_emitted_functor_computes_its_plain_version(name, tmp_path):
     q = _positions(dim, chains=5, seed=11).T.astype(F32)
     u, g = generic_pg.run_plain(traced.ir, torch.tensor(q.T), operands)
     ue, ge = _emulate(generic_pg.emit_cuda(traced.ir), operands, q, tmp_path)
-    _assert_rel(ue, u.numpy().reshape(-1), 1e-5)
-    _assert_rel(ge, g.numpy().T, 1e-5)
+    _assert_rel(ue, u.numpy().reshape(-1), EMITTED_RTOL)
+    _assert_rel(ge, g.numpy().T, EMITTED_RTOL)
 
 
 # ------------------------------------- kernels 1 and 3 against the JAX ones
