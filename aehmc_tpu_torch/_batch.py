@@ -10,7 +10,7 @@ Per-chain scalars (energies, step sizes, masks) have the batch shape,
 from typing import Callable
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import functionalize, grad_and_value, vmap
 
 from aehmc_tpu_torch.metrics import PerChain
 
@@ -46,9 +46,11 @@ def where(mask: torch.Tensor, new, old):
 
 def value_and_grad(potential_fn: Callable) -> Callable:
     """``q -> (U(q), ∇U(q))`` of one position, or of each row of a ``(chains,
-    dim)`` batch by ``torch.func.vmap``."""
+    dim)`` batch by ``torch.func.vmap`` of the functionalized potential, so
+    that a potential may write in place into a tensor it makes (``ll =
+    torch.zeros(n); ll[mask] = ...``), which vmap alone refuses."""
     one = grad_and_value(potential_fn)
-    batched = vmap(one)
+    batched = vmap(grad_and_value(functionalize(potential_fn)))
 
     def vag(q):
         g, u = (batched if q.ndim == 2 else one)(q)

@@ -88,11 +88,15 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
     dtype, reshaped back inside the potential: an integer tensor (an index
     vector, counts) stays an integer row, which the generated functor
     reads as int32 (a view of the tensor, so changed values are read
-    anew).  Returns ``(potential_t, data)``."""
+    anew).  The trace is functionalized, so a logprob may assign into a
+    tensor it makes (``ll = torch.zeros(n); ll[mask] = ...``).  Returns
+    ``(potential_t, data)``."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
-    gm = make_fx(logprob_fn)(torch.zeros(dim, dtype=torch.float32,
-                                         device=device))
+    # functionalized: an indexed assignment into a tensor the logprob
+    # makes (``ll[obs] = ...``) becomes an index_put the vmap below takes
+    gm = make_fx(torch.func.functionalize(logprob_fn))(
+        torch.zeros(dim, dtype=torch.float32, device=device))
     graph = gm.graph
     last = next(n for n in graph.nodes if n.op == "placeholder")
     inputs, consts = {}, []
@@ -310,6 +314,11 @@ def sample(
                 f"the fused {algorithm.upper()} route is single-host for "
                 "now — pass path='pooled' with mesh= for the sharded XLA "
                 "kernels")
+        if "alpha" in kwargs:
+            raise TypeError(
+                f"alpha= with algorithm={algorithm!r}: the fused route sets "
+                "the momentum persistence itself (MALA is alpha=0); pass "
+                "ghmc_alpha= with algorithm='ghmc'")
         if algorithm == "mala":
             if "ghmc_alpha" in kwargs:
                 raise TypeError(

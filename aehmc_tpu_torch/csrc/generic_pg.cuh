@@ -22,11 +22,11 @@
 // kernels 2 and 4.
 //
 // The helpers keep torch's semantics on NaN: a clamp, a maximum or a
-// minimum of NaN is NaN (fmaxf would drop it).  digamma and log_ndtr are
-// transcribed from ATen's float formulas (calc_digamma, calc_log_ndtr in
-// ATen/native/Math.h), so the kernel and torch's plain version agree to a
-// few ulp; lgamma, erf, erfc and erfcx are CUDA's (lgammaf, erff, erfcf,
-// erfcxf).
+// minimum of NaN is NaN (fmaxf would drop it).  digamma transcribes the
+// formula torch's digamma runs on the card, log_ndtr ATen's float formula
+// (calc_log_ndtr in ATen/native/Math.h); lgamma, erf, erfc and erfcx are
+// CUDA's (lgammaf, erff, erfcf, erfcxf), as torch's lgamma, erf and erfc
+// are on the card (its lgamma equals the functor's bit for bit there).
 #pragma once
 
 #include "hierarchical_pg.cuh"
@@ -139,28 +139,27 @@ __device__ __forceinline__ float gpg_logaddexp(float a, float b) {
   const float m = a < b ? b : a;
   return m + log1pf(expf(-fabsf(a - b)));
 }
-// torch.digamma (ATen's calc_digamma for float)
+// torch.digamma as torch computes it on the card: ATen's jiterator
+// formula (digamma_string in ATen/native/cuda/Math.cuh) for float, which
+// NVRTC compiles with its default FMA contraction (the series' multiply-add
+// an fmaf here); on the CPU torch's float formula (calc_digamma in
+// ATen/native/Math.h) sums the last line in another order, a few ulp away
 __device__ inline float gpg_digamma(float x) {
-  const float PSI_10 = 2.25175258906672110764f;
+  const double PI_f64 = 3.14159265358979323846;
   if (x == 0.f) return copysignf(__int_as_float(0x7f800000), -x);
-  const bool x_is_integer = x == truncf(x);
   float result = 0.f;
   if (x < 0.f) {
-    if (x_is_integer) return __int_as_float(0x7fc00000);
+    if (x == truncf(x)) return __int_as_float(0x7fc00000);
     double q;
     const double r = modf((double)x, &q);
-    const float pi_over_tan_pi_x =
-        (float)(3.14159265358979323846 / tan(3.14159265358979323846 * r));
-    // calc_digamma(1 - x) - pi / tan(pi x), 1 - x > 0
-    result = -pi_over_tan_pi_x;
+    result = (float)(-PI_f64 / tan(PI_f64 * r));
     x = 1.f - x;
   }
-  float acc = 0.f;  // push x to be >= 10
   while (x < 10.f) {
-    acc -= 1.f / x;
+    result -= 1.f / x;
     x += 1.f;
   }
-  if (x == 10.f) return (acc + PSI_10) + result;
+  if (x == 10.f) return result + 2.25175258906672110764f;
   const float A[] = {8.33333333333333333333E-2f, -2.10927960927960927961E-2f,
                      7.57575757575757575758E-3f, -4.16666666666666666667E-3f,
                      3.96825396825396825397E-3f, -8.33333333333333333333E-3f,
@@ -168,11 +167,11 @@ __device__ inline float gpg_digamma(float x) {
   float y = 0.f;
   if (x < 1.0e17f) {
     const float z = 1.f / (x * x);
-    float p = 0.f;  // polevl(z, A, 6)
-    for (int i = 0; i <= 6; ++i) p = p * z + A[i];
+    float p = 0.f;
+    for (int i = 0; i <= 6; ++i) p = fmaf(p, z, A[i]);
     y = z * p;
   }
-  return (acc + logf(x) - (0.5f / x) - y) + result;
+  return logf(x) - (0.5f / x) - y + result;
 }
 // torch.special.log_ndtr (ATen's calc_log_ndtr for float)
 __device__ __forceinline__ float gpg_log_ndtr(float x) {

@@ -745,11 +745,13 @@ def _generator_ghmc_streams(generator, shape, device):
     return streams
 
 
-def _diag_im(imm, dim, device) -> torch.Tensor:
+def _diag_im(imm, dim, device, sampler) -> torch.Tensor:
+    """``imm`` as a ``(dim,)`` diagonal; ``sampler`` names the route in the
+    error a dense metric raises."""
     imm = torch.as_tensor(imm, dtype=torch.float32, device=device)
     if imm.ndim == 2:
         raise ValueError(
-            "MALA supports scalar or diagonal preconditioners only "
+            f"{sampler} supports scalar or diagonal preconditioners only "
             "(aehmc_tpu/mala.py contract)"
         )
     return imm.reshape(-1).expand(dim)
@@ -797,8 +799,9 @@ def ghmc_warmup(
         # refresh noise and the first uniform row the MH draw
         rand = (dict(seed=seed) if seed is not None
                 else dict(noise=p, u_accept=ub[:1]))
-        qn, un, gn, _, stats = ghmc_tr(q_t, u, g_t, zero_p, eps, 0.0,
-                                       _diag_im(imm, dim, device), **rand)
+        im = _diag_im(imm, dim, device, "the fused MALA/GHMC warmup")
+        qn, un, gn, _, stats = ghmc_tr(q_t, u, g_t, zero_p, eps, 0.0, im,
+                                       **rand)
         return qn, un, gn, stats
 
     if use_internal_prng:
@@ -865,7 +868,8 @@ def ghmc_sampling(
     q_t, u, g_t = state_t
     dim, num_chains = q_t.shape
     device = q_t.device
-    im = _diag_im(inverse_mass_matrix, dim, device)
+    im = _diag_im(inverse_mass_matrix, dim, device,
+                  "MALA" if alpha == 0.0 else "GHMC")
     noise_scale = torch.sqrt(1.0 / im).reshape(dim, 1)
     segment = fused_ghmc_segment(
         potential_fn_t, tuple(data), divergence_threshold=divergence_threshold,

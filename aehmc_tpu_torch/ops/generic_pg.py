@@ -12,15 +12,24 @@ steps with public PyTorch API:
    caller's ``potential_and_grad_t`` as it stands;
 2. the trace becomes a small IR of static-shape nodes with no chain axis
    (:class:`IR`): elementwise ops (the special functions ``lgamma``,
-   ``digamma``, ``erf``, ``erfc``, ``log_ndtr`` among them), sums and
-   maxima along axes, matrix products, triangular solves, gathers by an
-   index operand and their scatter-adds, cumulative sums, views,
-   constants, the position ``q`` and the data operands; closed-over
-   tensors become data operands, as ``jax.closure_convert`` makes them.
-   Data are float32, or integer (int32/int64: index vectors, counts),
-   which travel to the card as int32 rows; ``logsumexp``, ``log_softmax``,
-   ``softmax``, ``stack``, ``var`` and ``cholesky_solve`` are rewritten
-   into the nodes above;
+   ``digamma``, ``erf``, ``erfc``, ``log_ndtr``, ``isnan``, ``pow`` of two
+   tensors or of a number base among them), sums and maxima along axes,
+   the index of a maximum (``max.dim``/``min.dim``'s, a per-chain integer),
+   matrix products, triangular solves, general solves (LU with partial
+   pivoting), gathers by an index operand and their scatter-adds, writing
+   scatters (``put``: by an inverse index map; ``pick``: by a per-chain
+   index of one entry), cumulative sums, views, constants, the position
+   ``q`` and the data operands; closed-over tensors become data operands,
+   as ``jax.closure_convert`` makes them.  Data are float32, or integer
+   (int32/int64: index vectors, counts), which travel to the card as int32
+   rows.  An integer or bool value computed from the data alone (index
+   arithmetic such as ``y - 1``, ``torch.arange``, a mask such as
+   ``~isnan(t)``, the flat positions that several index tensors, a mask or
+   ``torch.gather``/``scatter`` read or write) is evaluated on the host
+   into a derived int32 row (:func:`derived_operands`), rebuilt when the
+   data change; the kernel's work stays as it is.  ``logsumexp``,
+   ``log_softmax``, ``softmax``, ``stack``, ``var``, ``cholesky_solve``,
+   ``min`` and ``amin`` are rewritten into the nodes above;
 3. :func:`emit_cuda` writes ``struct GenericPG`` to the NUTS core's functor
    contract (``csrc/nuts_core.cuh``), which ``csrc/nuts_generic.cu``
    instantiates as kernels 1-4 and ``csrc/hmc_generic.cu`` as kernels 5-7
@@ -39,7 +48,11 @@ rows), the warp sums 8 outputs at a time, each in the lane-then-butterfly
 order.  A triangular solve substitutes row by row, sequential in the row:
 the lanes split each row's inner sum (lane l the columns l, l + 32, ...,
 ``fmaf`` in turn), ``warp_sum`` ends it, and the lane that owns the row
-(its column's lane) stores its solution.  A scatter-add (the backward of
+(its column's lane) stores its solution.  A general solve copies its
+matrix into the workspace and factors it there (LAPACK's pivot: the first
+largest ``|a|`` below the diagonal; each lane eliminates its rows), then
+substitutes one lane a right side.  The index of a maximum scans its axis
+one lane an output, sequential.  A scatter-add (the backward of
 a gather) starts from its base, and each output's owning lane (output
 j: lane j % 32) adds the values that land on it in input order, as
 torch's ``index_add``/``index_put(accumulate=True)`` on the CPU does; no
@@ -62,6 +75,7 @@ and solves use explicit ``fmaf``.
 
 import hashlib
 import math
+import operator
 import weakref
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional, Sequence
@@ -79,16 +93,17 @@ _ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
 # source at an index operand's values, "flip" reverses axes
 VIEWS = ("reshape", "permute", "expand", "slice", "select", "flip", "gather")
 CONTRACTIONS = ("sum", "amax", "mm")
-# stored nodes with a loop of their own: a triangular solve, a scatter-add,
-# a cumulative sum (always in the workspace, never a register)
-SEQUENTIAL = ("trsolve", "scatter_add", "cumsum")
+# stored nodes with a loop of their own: a triangular solve, an LU solve, a
+# scatter-add, a cumulative sum, the index of a maximum (always in the
+# workspace, never a register)
+SEQUENTIAL = ("trsolve", "lusolve", "scatter_add", "cumsum", "argmax")
 INT_DTYPES = (torch.int32, torch.int64)
 COMPARISONS = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
                "ge": ">="}
 TRANSCENDENTAL = ("exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
                   "sigmoid", "sin", "cos", "pow", "softplus",
                   "softplus_backward", "atan", "lgamma", "digamma", "erf",
-                  "erfc", "erfcx", "log_ndtr", "logaddexp")
+                  "erfc", "erfcx", "log_ndtr", "logaddexp", "powt", "rpow")
 
 
 class Node(NamedTuple):
@@ -104,7 +119,12 @@ class IR:
     """The per-chain potential and gradient: ``nodes`` in topological
     order, the ids of ``u`` (shape ``()``) and ``g`` (``(dim,)``), and the
     shapes and kinds (``"f"`` float32, ``"i"`` integer) of the data
-    operands (the caller's data, then the hoisted constants)."""
+    operands (the caller's data, then the hoisted constants, then the
+    derived index rows).  A derived row is an integer value that depends
+    on the data alone (index arithmetic, a bool mask's positions, the
+    inverse map of a writing scatter): ``host_nodes`` holds the recipes and
+    ``derived`` the id of each row's root among them, evaluated on the host
+    from the other operands (:func:`derived_operands`)."""
 
     nodes: tuple
     u: int
@@ -114,10 +134,18 @@ class IR:
     data_shapes: tuple
     num_caller_data: int
     data_kinds: tuple
+    host_nodes: tuple = ()
+    derived: tuple = ()
+
+    @property
+    def num_base_data(self) -> int:
+        """The operands a caller passes: its data and the constants."""
+        return len(self.data_shapes) - len(self.derived)
 
     def key(self) -> str:
         text = repr((self.nodes, self.u, self.g, self.dim, self.layout,
-                     self.data_shapes, self.data_kinds))
+                     self.data_shapes, self.data_kinds, self.host_nodes,
+                     self.derived))
         return hashlib.sha256(text.encode()).hexdigest()[:16]
 
     def index_bounds(self) -> dict:
@@ -129,7 +157,10 @@ class IR:
                 continue
             src = n.args[0]
             length = self.nodes[src].shape[n.params[0]]
-            j = self.nodes[_through_views(self, n.args[1])].params[0]
+            index = self.nodes[_through_views(self, n.args[1])]
+            if index.op != "data":  # an index computed on the card
+                continue
+            j = index.params[0]
             bounds[j] = min(bounds.get(j, length), length)
         return bounds
 
@@ -264,24 +295,70 @@ class _Converter:
 
     def __init__(self, gm, dim, layout, data):
         self.gm, self.dim, self.layout = gm, dim, layout
+        self.data = list(data)
         self.data_shapes = [tuple(d.shape) for d in data]
         self.data_kinds = [_kind(d) for d in data]
         self.num_caller_data = len(data)
         self.nodes, self.index = [], {}
         self.constants, self.const_ids = [], {}
         self.ops = set()
+        self.qdep = set()       # nodes that depend on q
+        self.host_memo = {}     # host node -> its value on the traced data
 
     # -- node construction
     def make(self, op, args, shape, dtype="f", params=()):
         if op in VIEWS and self.nodes[args[0]].op == "const":
             src = self.nodes[args[0]]
             return self.const(src.params[0], shape, src.dtype)
+        if op not in ("host", "derived"):  # the card reads a host value as
+            args = [self.derived(a) if self.nodes[a].op == "host" else a
+                    for a in args]        # a derived index row
         node = Node(op, tuple(int(a) for a in args),
                     tuple(int(s) for s in shape), dtype, tuple(params))
         if node not in self.index:
             self.index[node] = len(self.nodes)
             self.nodes.append(node)
+            if op == "q" or any(a in self.qdep for a in node.args):
+                self.qdep.add(self.index[node])
         return _Id(self.index[node])
+
+    def derived(self, nid):
+        n = self.nodes[nid]
+        return self.make("derived", (nid,), n.shape, "i")
+
+    def data_only(self, ids) -> bool:
+        return not any(int(i) in self.qdep for i in ids)
+
+    def host(self, params, ids):
+        """A node the host evaluates from the data (``params``: an aten op
+        or a host function of :data:`_HOST_FNS`, and a template of its
+        arguments); its shape and kind are those of its value on the traced
+        data."""
+        if not self.data_only(ids):
+            raise NotImplementedError(
+                f"{params[1]} on a value that depends on q has no rule in the "
+                "generic potential compiler (integer arithmetic, masks and "
+                "index maps are evaluated from the data alone); widening its "
+                f"op table is {_ROADMAP}")
+        operands = (*self.data, *self.constants)
+        probe = Node("host", tuple(int(i) for i in ids), (), "i",
+                     tuple(params))
+        nodes = self.nodes + [probe]
+        value = _host_eval(nodes, len(nodes) - 1, operands, self.host_memo)
+        self.host_memo.pop(len(nodes) - 1)
+        dtype = "b" if value.dtype == torch.bool else "i"
+        nid = self.make("host", ids, tuple(value.shape), dtype, params)
+        self.host_memo[int(nid)] = value
+        return nid
+
+    def host_op(self, target, args, kwargs):
+        """An aten op on integer or bool values of the data, replayed on the
+        host."""
+        ids = []
+        targs = _template(list(args), ids)
+        tkw = tuple(sorted((k, _template(v, ids)) for k, v in kwargs.items()
+                           if k not in ("device", "pin_memory", "layout")))
+        return self.host(("aten", str(target), targs, tkw), ids)
 
     def const(self, value, shape=(), dtype="f"):
         value = float(value)
@@ -317,6 +394,9 @@ class _Converter:
                 args = torch.fx.node.map_arg(fx_node.args, lambda n: env[n])
                 kwargs = torch.fx.node.map_arg(fx_node.kwargs,
                                                lambda n: env[n])
+                if fx_node.target is operator.getitem:  # of an op's tuple
+                    env[fx_node] = args[0][args[1]]
+                    continue
                 val = fx_node.meta.get("val")
                 out = self.call(fx_node.target, args, kwargs, val)
                 env[fx_node] = out
@@ -355,20 +435,31 @@ class _Converter:
         return self.const_ids[key]
 
     def finish(self, u, g) -> Traced:
-        live, stack = set(), [u, g]
-        while stack:
-            n = stack.pop()
-            if n not in live:
-                live.add(n)
-                stack.extend(self.nodes[n].args)
+        live = _closure(self.nodes, (u, g), ("derived",))
+        # each derived row the card reads becomes a data operand after the
+        # constants; its recipe goes to the host graph
+        derived = sorted(i for i in live if self.nodes[i].op == "derived")
+        host_live = sorted(_closure(self.nodes,
+                                    [self.nodes[d].args[0] for d in derived]))
+        host_remap = {i: k for k, i in enumerate(host_live)}
+        host_nodes = tuple(
+            self.nodes[i]._replace(args=tuple(host_remap[a]
+                                              for a in self.nodes[i].args))
+            for i in host_live)
+        shapes, kinds = list(self.data_shapes), list(self.data_kinds)
         remap, nodes = {}, []
         for i, n in enumerate(self.nodes):
-            if i in live:
-                remap[i] = len(nodes)
-                nodes.append(n._replace(args=tuple(remap[a] for a in n.args)))
+            if i not in live:
+                continue
+            if n.op == "derived":
+                n = Node("data", (), n.shape, "i", (len(shapes),))
+                shapes.append(n.shape)
+                kinds.append("i")
+            remap[i] = len(nodes)
+            nodes.append(n._replace(args=tuple(remap[a] for a in n.args)))
         ir = IR(tuple(nodes), remap[u], remap[g], self.dim, self.layout,
-                tuple(self.data_shapes), self.num_caller_data,
-                tuple(self.data_kinds))
+                tuple(shapes), self.num_caller_data, tuple(kinds), host_nodes,
+                tuple(host_remap[self.nodes[d].args[0]] for d in derived))
         return Traced(ir, tuple(self.constants), tuple(sorted(self.ops)))
 
     # -- views and shapes
@@ -388,10 +479,6 @@ class _Converter:
 
     def elementwise(self, op, args, val, params=()):
         args = [self.arg(a) for a in args]
-        if val.dtype in INT_DTYPES:
-            raise NotImplementedError(
-                f"integer arithmetic ({op}) has no rule in the generic "
-                f"potential compiler; widening its op table is {_ROADMAP}")
         args = [self.make("float", (a,), self.shape(a))
                 if self.nodes[a].dtype == "i" else a for a in args]
         shape = tuple(val.shape)
@@ -411,16 +498,27 @@ class _Converter:
         name = target.overloadpacket.__name__.rstrip("_")
         self.ops.add(str(target))
         if val is not None and isinstance(val, torch.Tensor):
-            if val.dtype in INT_DTYPES and name not in _INT_RULES:
-                raise NotImplementedError(
-                    f"{target} gives integers; the generic potential "
-                    "compiler takes integer tensors only as data read by "
-                    "views, gathers and scatters and converted to float32; "
-                    f"widening its op table is {_ROADMAP}")
             if val.dtype not in (torch.float32, torch.bool, *INT_DTYPES):
                 raise TypeError(
                     f"the generated functor computes in float32; {target} "
                     f"gives {val.dtype}")
+            ids = []
+            _template([list(args), list(kwargs.values())], ids)
+            inputs = {self.nodes[i].dtype for i in ids}
+            if val.dtype in INT_DTYPES and not (
+                    name in _ARG_RULES or (name in _INT_RULES
+                                           and inputs <= {"i", "b"})):
+                # integer arithmetic, on data alone: the host evaluates it
+                if not self.data_only(ids):
+                    raise NotImplementedError(
+                        f"{target} gives integers from a value that depends "
+                        "on q; the generic potential compiler takes integer "
+                        "arithmetic on data alone (evaluated on the host); "
+                        f"widening its op table is {_ROADMAP}")
+                return self.host_op(target, args, kwargs)
+            if val.dtype == torch.bool and name not in _RULES and \
+                    self.data_only(ids):
+                return self.host_op(target, args, kwargs)
         rule = _RULES.get(name)
         if rule is None:
             raise NotImplementedError(
@@ -434,6 +532,9 @@ def _rule_identity(c, args, kwargs, val):
     if isinstance(x, _Id) and c.nodes[x].dtype in ("b", "i") and \
             val.dtype == torch.float32:
         return c.make("float", (x,), c.shape(x))
+    if isinstance(x, _Id) and c.nodes[x].dtype != "b" and \
+            val.dtype == torch.bool:
+        return c.elementwise("ne", (x, 0.0), val)
     if isinstance(x, _Id) and c.nodes[x].dtype != "i" and \
             val.dtype in INT_DTYPES:
         raise NotImplementedError(
@@ -541,15 +642,15 @@ def _rule_rsub(c, args, kwargs, val):
 
 
 def _rule_pow(c, args, kwargs, val):
+    """``x ** e`` for a number ``e``; ``b ** x`` for a number ``b``
+    (``rpow``); ``x ** y`` of two tensors (``powt``), torch's ``pow`` on
+    each element."""
     base, exp = args[0], args[1]
-    if not _num(exp):
-        raise NotImplementedError(
-            "pow with a tensor exponent has no rule in the generic potential "
-            f"compiler; widening its op table is {_ROADMAP}")
     if _num(base):
-        raise NotImplementedError(
-            "pow of a scalar base has no rule in the generic potential "
-            f"compiler; widening its op table is {_ROADMAP}")
+        b = float(torch.tensor(float(base), dtype=torch.float32))
+        return c.elementwise("rpow", (exp,), val, (b,))
+    if not _num(exp):
+        return c.elementwise("powt", (base, exp), val)
     if float(exp) == 1.0:
         return base
     return c.elementwise("pow", (base,), val, (float(exp),))
@@ -767,28 +868,48 @@ def _rule_square(c, args, kwargs, val):
 
 # -- gathers and scatters by an integer index operand
 
-def _one_index(c, indices, what):
-    """The axis and the node of the one index tensor among ``indices``
-    (``None`` for the axes taken whole)."""
+def _one_index(c, indices):
+    """``(axis, index)`` when ``indices`` (``None`` for the axes taken
+    whole) hold one integer index tensor that the card reads as it stands:
+    a view of a data operand, or a value computed on the card (max.dim's
+    index); else None (the host maps the indices to flat positions)."""
     tensors = [(k, i) for k, i in enumerate(indices) if i is not None]
     if len(tensors) != 1:
-        raise NotImplementedError(
-            f"{what} with {len(tensors)} index tensors has no rule in the "
-            "generic potential compiler (one integer index tensor with "
-            f"whole axes before it); widening its op table is {_ROADMAP}")
+        return None
     axis, idx = tensors[0]
     if c.nodes[idx].dtype != "i":
+        return None
+    if not c.data_only([idx]) or c.nodes[_through_views(c, idx)].op == "data":
+        return axis, idx
+    return None
+
+
+def _positions(c, shape, indices):
+    """The flat positions in an array of ``shape`` that ``x[indices]``
+    reads (several index tensors, bool masks, or integer index arithmetic,
+    on data alone), a derived index row: torch's own indexing of an
+    ``arange`` on the host, which checks every index against its axis."""
+    ids = []
+    template = _template(list(indices), ids)
+    if not c.data_only(ids):
         raise NotImplementedError(
-            f"{what} by a bool mask has a data-dependent shape and no rule "
-            "in the generic potential compiler; widening its op table is "
+            "indexing by a bool mask, or by several index tensors, that "
+            "depend on q has a data-dependent shape a chain and no rule in "
+            f"the generic potential compiler; widening its op table is "
             f"{_ROADMAP}")
-    return axis, idx
+    return c.host(("fn", "index_positions", tuple(shape), template), ids)
 
 
 def _gather(c, x, axis, idx):
     shape = c.shape(x)
     out = shape[:axis] + c.shape(idx) + shape[axis + 1:]
     return c.make("gather", (x, idx), out, c.nodes[x].dtype, (axis,))
+
+
+def _flat_gather(c, x, pos, shape):
+    """``x`` read at the flat positions ``pos``, reshaped to ``shape``."""
+    flat = c.reshape(x, (math.prod(c.shape(x)),))
+    return c.reshape(_gather(c, flat, 0, pos), shape)
 
 
 def _scatter_add(c, base, axis, idx, values):
@@ -802,9 +923,30 @@ def _scatter_add(c, base, axis, idx, values):
     return c.make("scatter_add", (base, idx, values), shape, "f", (axis,))
 
 
+def _flat_scatter(c, base, pos, values, accumulate):
+    """``base`` with ``values`` added (``accumulate``) or written at the
+    flat positions ``pos``.  A writing scatter reads through the inverse
+    map of ``pos`` (position -> the value written there, or -1), which the
+    host builds and which refuses a duplicate position: torch and JAX leave
+    the winner of a duplicate unspecified."""
+    shape = c.shape(base)
+    flat = c.reshape(base, (math.prod(shape),))
+    if accumulate:
+        return c.reshape(_scatter_add(c, flat, 0, pos, values), shape)
+    inv = c.host(("fn", "inverse", math.prod(shape)), [pos])
+    values = c.expand(values, c.shape(pos))
+    if c.nodes[values].dtype != "f":
+        values = c.make("float", (values,), c.shape(pos))
+    return c.reshape(c.make("put", (flat, inv, values), c.shape(flat)),
+                     shape)
+
+
 def _rule_index(c, args, kwargs, val):
-    axis, idx = _one_index(c, list(args[1]), "indexing")
-    return _gather(c, args[0], axis, idx)
+    x, indices = args[0], list(args[1])
+    one = _one_index(c, indices)
+    if one is not None:
+        return _gather(c, x, *one)
+    return _flat_gather(c, x, _positions(c, c.shape(x), indices), val.shape)
 
 
 def _rule_index_select(c, args, kwargs, val):
@@ -818,13 +960,56 @@ def _rule_index_select(c, args, kwargs, val):
 def _rule_index_put(c, args, kwargs, val):
     base, indices, values = args[:3]
     accumulate = kwargs.get("accumulate", args[3] if len(args) > 3 else False)
-    if not accumulate:
-        raise NotImplementedError(
-            "index_put without accumulate (an indexed assignment) has no rule "
-            f"in the generic potential compiler; widening its op table is "
-            f"{_ROADMAP}")
-    axis, idx = _one_index(c, list(indices), "index_put")
-    return _scatter_add(c, base, axis, idx, c.arg(values))
+    values = c.arg(values)
+    one = _one_index(c, list(indices))
+    if accumulate and one is not None:
+        return _scatter_add(c, base, *one, values)
+    pos = _positions(c, c.shape(base), list(indices))
+    return _flat_scatter(c, base, pos, values, accumulate)
+
+
+def _leading(c, x, shape):
+    """The leading block of ``x`` of ``shape`` (a number expanded to it)."""
+    x = c.arg(x)
+    if not c.shape(x):
+        return c.expand(x, shape)
+    for axis, (have, want) in enumerate(zip(c.shape(x), shape)):
+        if have != want:
+            out = c.shape(x)[:axis] + (want,) + c.shape(x)[axis + 1:]
+            x = c.make("slice", (x,), out, c.nodes[x].dtype, (axis, 0, 1))
+    return x
+
+
+def _rule_gather(c, args, kwargs, val):
+    """``torch.gather(x, dim, index)`` by an index of data."""
+    x, dim, index = args[:3]
+    axis = _axis(dim, len(c.shape(x)))
+    pos = c.host(("fn", "axis_positions", c.shape(x), axis), [index])
+    return _flat_gather(c, x, pos, val.shape)
+
+
+def _rule_scatter(accumulate):
+    """``torch.scatter``/``scatter_add(base, dim, index, src)``: by an
+    index of data, through flat positions; by a per-chain index of one
+    entry along the axis (max.dim's, in its backward), a ``pick``."""
+    def rule(c, args, kwargs, val):
+        base, dim, index, src = args[:4]
+        shape = c.shape(base)
+        axis = _axis(dim, len(shape))
+        ishape = c.shape(index)
+        src = _leading(c, src, ishape)
+        if c.data_only([index]):
+            pos = c.host(("fn", "axis_positions", shape, axis), [index])
+            return _flat_scatter(c, base, pos, src, accumulate)
+        rest = ishape[:axis] + ishape[axis + 1:]
+        if accumulate or ishape[axis] != 1 or \
+                rest != shape[:axis] + shape[axis + 1:]:
+            raise NotImplementedError(
+                "a scatter by an index that depends on q has a rule only "
+                "for one entry along its axis, written (max.dim's backward); "
+                f"widening the op table is {_ROADMAP}")
+        return c.make("pick", (base, index, src), shape, "f", (axis,))
+    return rule
 
 
 def _rule_index_add(c, args, kwargs, val):
@@ -869,25 +1054,30 @@ def _swap_last(c, x):
     return c.make("permute", (x,), shape, c.nodes[x].dtype, tuple(perm))
 
 
-def _trsolve(c, A, B, upper, unit, out_shape):
-    """``X`` of ``A X = B``, ``A`` triangular ``(*, n, n)``, ``B`` ``(*, n,
-    k)``: a batch of factors broadcasts when it is 1."""
+def _solve(c, op, A, B, out_shape, params=()):
+    """``X`` of ``A X = B``, ``A`` ``(*, n, n)``, ``B`` ``(*, n, k)``, by a
+    triangular (``trsolve``) or LU (``lusolve``) solve: a batch of factors
+    of 1 is read for every right side, any other broadcasts against the
+    right sides' batch (an expanded view, nothing copied)."""
     sa = c.shape(A)
     n, k = out_shape[-2], out_shape[-1]
     batch = math.prod(out_shape[:-2])
     if len(sa) < 2 or sa[-1] != n or sa[-2] != n:
-        raise ValueError(f"a triangular solve of {sa} and {c.shape(B)}")
-    ba = math.prod(sa[:-2])
-    if ba not in (1, batch):
-        raise NotImplementedError(
-            "a triangular solve whose factors broadcast against the right "
-            "sides has no rule in the generic potential compiler; widening "
-            f"its op table is {_ROADMAP}")
-    A3 = c.reshape(A, (ba, n, n))
+        raise ValueError(f"a solve of {sa} and {c.shape(B)}")
+    if math.prod(sa[:-2]) == 1:
+        A3 = c.reshape(A, (1, n, n))
+    else:
+        A3 = c.reshape(c.expand(A, (*out_shape[:-2], n, n)), (batch, n, n))
     B3 = c.reshape(c.expand(B, out_shape), (batch, n, k))
-    X = c.make("trsolve", (A3, B3), (batch, n, k), "f",
-               (bool(upper), bool(unit)))
+    if c.nodes[B3].dtype != "f":
+        B3 = c.make("float", (B3,), (batch, n, k))
+    X = c.make(op, (A3, B3), (batch, n, k), "f", params)
     return c.reshape(X, out_shape)
+
+
+def _trsolve(c, A, B, upper, unit, out_shape):
+    """``X`` of ``A X = B``, ``A`` triangular."""
+    return _solve(c, "trsolve", A, B, out_shape, (bool(upper), bool(unit)))
 
 
 def _rule_solve_triangular(c, args, kwargs, val):
@@ -915,6 +1105,97 @@ def _rule_cholesky_solve(c, args, kwargs, val):
     first, second = (Lt, L) if upper else (L, Lt)
     Y = _trsolve(c, first, B, False, False, shape)
     return _trsolve(c, second, Y, True, False, shape)
+
+
+def _rule_linalg_solve(c, args, kwargs, val):
+    """``torch.linalg.solve(A, B, left)`` (``_linalg_solve_ex``): an LU
+    solve with partial pivoting a chain; ``B`` a batch of vectors when it
+    has one axis fewer than ``A``.  Its backward solves with ``A``'s
+    transpose, another ``_linalg_solve_ex``.  Gives ``(X, None, None,
+    None)``: the factors, pivots and info are not kept."""
+    A, B = args[:2]
+    left = kwargs.get("left", args[2] if len(args) > 2 else True)
+    out = tuple(val[0].shape)
+    vector = len(c.shape(B)) == len(c.shape(A)) - 1
+    if vector:
+        B = c.reshape(B, (*c.shape(B), 1))
+        out = (*out, 1)
+    if left:
+        X = _solve(c, "lusolve", A, B, out)
+    else:  # X A = B is A^T X^T = B^T
+        t_out = (*out[:-2], out[-1], out[-2])
+        X = _swap_last(c, _solve(c, "lusolve", _swap_last(c, A),
+                                 _swap_last(c, B), t_out))
+    return c.reshape(X, val[0].shape), None, None, None
+
+
+def _rule_check_errors(c, args, kwargs, val):
+    return None
+
+
+# -- maxima and minima with their indices
+
+def _neg(c, x):
+    return c.elementwise("neg", (x,), _Val(c.shape(x)))
+
+
+def _extreme(c, x, axes, keepdim, sign):
+    """The maximum (``sign`` 1) or minimum (-1, ``-amax(-x)``, exact) of
+    ``x`` over ``axes``."""
+    if sign > 0:
+        return _reduce(c, "amax", x, axes, keepdim)
+    return _neg(c, _reduce(c, "amax", _neg(c, x), axes, keepdim))
+
+
+def _argmax(c, x, axis, keepdim, sign):
+    """The index of the first maximum (minimum) along ``axis``, a NaN
+    counting as the largest, as torch's ``max.dim`` gives it: a per-chain
+    integer node computed on the card."""
+    if not c.shape(x):
+        raise NotImplementedError(
+            "the index of a maximum of a 0-d value has no rule in the "
+            f"generic potential compiler; widening its op table is {_ROADMAP}")
+    if c.nodes[x].dtype != "f":
+        x = c.make("float", (x,), c.shape(x))
+    if sign < 0:
+        x = _neg(c, x)
+    shape = _reduced(c.shape(x), (axis,), keepdim)
+    return c.make("argmax", (x,), shape, "i", (axis, bool(keepdim)))
+
+
+def _rule_max(sign):
+    def rule(c, args, kwargs, val):
+        x = args[0]
+        other = args[1] if len(args) > 1 else kwargs.get("dim")
+        if isinstance(other, _Id):  # max.other: elementwise
+            return c.elementwise("maximum" if sign > 0 else "minimum",
+                                 (x, other), val)
+        if other is None:  # max.default: over every element
+            return _extreme(c, x, tuple(range(len(c.shape(x)))), False, sign)
+        keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+        axis = _axis(other, max(len(c.shape(x)), 1))
+        return (_extreme(c, x, (axis,), keepdim, sign),
+                _argmax(c, x, axis, keepdim, sign))
+    return rule
+
+
+def _rule_argmax(sign):
+    def rule(c, args, kwargs, val):
+        x = args[0]
+        dim = args[1] if len(args) > 1 else kwargs.get("dim")
+        keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+        if dim is None:  # over the flattened value
+            flat = c.reshape(x, (math.prod(c.shape(x)),))
+            return c.reshape(_argmax(c, flat, 0, False, sign), val.shape)
+        return _argmax(c, x, _axis(dim, len(c.shape(x))), keepdim, sign)
+    return rule
+
+
+def _rule_amin(c, args, kwargs, val):
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim", ())
+    keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    return _extreme(c, x, _axes(dims, len(c.shape(x))), keepdim, -1)
 
 
 # -- reductions along an axis, as torch computes them
@@ -1042,6 +1323,8 @@ _RULES = {
     "rsub": _rule_rsub, "true_divide": _rule_binary("div"),
     "maximum": _rule_binary("maximum"), "minimum": _rule_binary("minimum"),
     "logical_and": _rule_binary("and"), "logical_or": _rule_binary("or"),
+    "bitwise_not": _rule_unary("not"), "bitwise_and": _rule_binary("and"),
+    "bitwise_or": _rule_binary("or"), "isnan": _rule_unary("isnan"),
     **{n: _rule_compare(n) for n in COMPARISONS},
     "where": _rule_where, "masked_fill": _rule_masked_fill,
     "clamp": _rule_clamp, "clip": _rule_clamp,
@@ -1061,12 +1344,17 @@ _RULES = {
     "logaddexp": _rule_binary("logaddexp"),
     # contractions
     "sum": _rule_sum(False), "mean": _rule_sum(True), "amax": _rule_amax,
+    "amin": _rule_amin, "max": _rule_max(1), "min": _rule_max(-1),
+    "argmax": _rule_argmax(1), "argmin": _rule_argmax(-1),
     "var": _rule_var,
     "mm": _rule_mm, "mv": _rule_mv, "dot": _rule_dot, "bmm": _rule_bmm,
     "addmm": _rule_addmm,
     # triangular algebra on a matrix (A)
     "linalg_solve_triangular": _rule_solve_triangular,
     "cholesky_solve": _rule_cholesky_solve,
+    # a general solve: LU with partial pivoting a chain
+    "_linalg_solve_ex": _rule_linalg_solve,
+    "_linalg_check_errors": _rule_check_errors,
     # reductions along an axis (C)
     "logsumexp": _rule_logsumexp, "_log_softmax": _rule_log_softmax,
     "_softmax": _rule_softmax,
@@ -1076,6 +1364,8 @@ _RULES = {
     "index": _rule_index, "index_select": _rule_index_select,
     "index_put": _rule_index_put, "_index_put_impl": _rule_index_put,
     "index_add": _rule_index_add, "flip": _rule_flip, "cumsum": _rule_cumsum,
+    "gather": _rule_gather, "scatter": _rule_scatter(False),
+    "scatter_add": _rule_scatter(True),
     # scatter into zeros, concatenation
     "cat": _rule_cat, "slice_backward": _rule_slice_backward,
     "select_backward": _rule_select_backward,
@@ -1086,6 +1376,8 @@ _INT_RULES = {"alias", "clone", "detach", "lift_fresh_copy", "contiguous",
               "_to_copy", "to", "_unsafe_view", "view", "reshape", "squeeze",
               "unsqueeze", "flatten", "permute", "t", "transpose", "expand",
               "slice", "select", "flip", "sum"}
+# rules that give a per-chain index (computed on the card)
+_ARG_RULES = {"max", "min", "argmax", "argmin"}
 
 
 # --------------------------------------------------------- plain back end -
@@ -1097,7 +1389,7 @@ def _plain_op(n: Node, vals, dtype):
         return -a
     if op in ("abs", "exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
               "sigmoid", "reciprocal", "relu", "sin", "cos", "atan", "lgamma",
-              "digamma", "erf", "erfc"):
+              "digamma", "erf", "erfc", "isnan"):
         return getattr(torch, op)(a)
     if op == "erfcx":
         return torch.special.erfcx(a)
@@ -1125,6 +1417,10 @@ def _plain_op(n: Node, vals, dtype):
         return torch.clamp(a, max=n.params[0])
     if op == "pow":
         return torch.pow(a, n.params[0])
+    if op == "powt":
+        return torch.pow(vals[0], vals[1])
+    if op == "rpow":
+        return torch.pow(n.params[0], a)
     if op == "softplus":
         return torch.nn.functional.softplus(a, *n.params)
     if op == "softplus_backward":
@@ -1139,24 +1435,123 @@ def _plain_op(n: Node, vals, dtype):
     raise AssertionError(op)
 
 
+def _plain_node(n: Node, args, dtype, dev):
+    """One IR node (not ``q`` nor ``data``) of the plain back end, on
+    values whose last axis is the chain axis (C, or 1)."""
+    if n.op == "const":
+        return torch.full((*n.shape, 1), n.params[0],
+                          dtype=torch.bool if n.dtype == "b" else dtype,
+                          device=dev)
+    if n.op == "reshape":
+        return args[0].reshape(*n.shape, args[0].shape[-1])
+    if n.op == "permute":
+        return args[0].permute(*n.params, len(n.params))
+    if n.op == "expand":
+        a = args[0]
+        lead = len(n.shape) - (a.ndim - 1)
+        return a.reshape(*(1,) * lead, *a.shape).expand(*n.shape, a.shape[-1])
+    if n.op == "slice":
+        axis, start, step = n.params
+        index = [slice(None)] * axis + [
+            slice(start, start + n.shape[axis] * step, step)]
+        return args[0][tuple(index)]
+    if n.op == "select":
+        return args[0].select(n.params[0], n.params[1])
+    if n.op == "flip":
+        return args[0].flip(n.params)
+    if n.op == "gather":
+        x, k = args
+        axis = n.params[0]
+        return x.index_select(axis, _wrapped(k, x.shape[axis])).reshape(
+            *n.shape, x.shape[-1])
+    if n.op == "scatter_add":
+        base, k, src = args
+        axis = n.params[0]
+        c = max(base.shape[-1], src.shape[-1])
+        src = src.expand(*src.shape[:-1], c).reshape(
+            *n.shape[:axis], -1, *n.shape[axis + 1:], c)
+        return base.expand(*n.shape, c).index_add(
+            axis, _wrapped(k, n.shape[axis]), src)
+    if n.op == "put":  # out[o] = values[inv[o]] where inv[o] >= 0
+        base, inv, values = args
+        c = max(base.shape[-1], values.shape[-1])
+        flat = values.expand(*values.shape[:-1], c).reshape(-1, c)
+        inv = inv.reshape(-1)
+        picked = flat.index_select(0, inv.clamp(min=0)).reshape(*n.shape, c)
+        return torch.where((inv >= 0).reshape(*n.shape, 1), picked,
+                           base.expand(*n.shape, c))
+    if n.op == "pick":  # out[.., j, ..] = src if j == index else base
+        base, k, src = args
+        axis = n.params[0]
+        c = max(a.shape[-1] for a in args)
+        return base.expand(*n.shape, c).scatter(
+            axis, k.expand(*k.shape[:-1], c),
+            src.expand(*src.shape[:-1], c))
+    if n.op == "argmax":
+        axis, keepdim = n.params
+        return args[0].max(dim=axis, keepdim=keepdim).indices
+    if n.op == "trsolve":
+        upper, unit = n.params
+        A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
+        return torch.linalg.solve_triangular(
+            A, B, upper=upper, unitriangular=unit).movedim(0, -1)
+    if n.op == "lusolve":  # LAPACK's getrf (partial pivoting) and getrs
+        A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
+        c = max(A.shape[0], B.shape[0])
+        LU, pivots = torch.linalg.lu_factor(
+            A.expand(c, B.shape[1], *A.shape[2:]))
+        return torch.linalg.lu_solve(LU, pivots,
+                                     B.expand(c, *B.shape[1:])).movedim(0, -1)
+    if n.op == "cumsum":
+        return torch.cumsum(args[0], n.params[0])
+    if n.op == "pad_slice":
+        axis, start, step = n.params
+        a = args[0]
+        v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
+        index = [slice(None)] * axis + [
+            slice(start, start + a.shape[axis] * step, step)]
+        v[tuple(index)] = a
+        return v
+    if n.op == "pad_select":
+        axis, index = n.params
+        a = args[0]
+        v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
+        v.select(axis, index).copy_(a)
+        return v
+    if n.op == "cat":
+        c = max(a.shape[-1] for a in args)
+        return torch.cat([a.expand(*a.shape[:-1], c) for a in args],
+                         dim=n.params[0])
+    if n.op == "sum":
+        axes, keepdim = n.params
+        return args[0].sum(dim=axes, keepdim=keepdim) if axes else args[0]
+    if n.op == "amax":
+        axes, keepdim = n.params
+        return args[0].amax(dim=axes, keepdim=keepdim)
+    if n.op == "mm":
+        a, b = args
+        c = max(a.shape[-1], b.shape[-1])
+        return torch.einsum("mkc,knc->mnc", a.expand(*a.shape[:-1], c),
+                            b.expand(*b.shape[:-1], c))
+    return _plain_op(n, args, dtype)
+
+
 def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
               stats: Optional[dict] = None):
     """The plain version of the generated functor: ``(u (1, C), g (dim,
     C))`` of ``q_t (dim, C)`` with the data operands ``data`` (the caller's,
-    then the hoisted constants), interpreting the IR with torch ops in
-    ``q_t``'s dtype on its device.  A value carries the chain axis last, of
-    size C, or 1 where it does not depend on the chain.  With ``stats`` a
-    dict, ``stats["workspace_floats"]`` receives the floats of the
-    workspace the schedule stores a chain (:func:`schedule`)."""
+    then the hoisted constants, then, if not given, the derived index rows,
+    evaluated here: :func:`derived_operands`), interpreting the IR with
+    torch ops in ``q_t``'s dtype on its device.  A value carries the chain
+    axis last, of size C, or 1 where it does not depend on the chain.  With
+    ``stats`` a dict, ``stats["workspace_floats"]`` receives the floats of
+    the workspace the schedule stores a chain (:func:`schedule`)."""
     dtype, dev = q_t.dtype, q_t.device
     dim, num_chains = q_t.shape
     if dim != ir.dim:
         raise ValueError(f"q_t has {dim} rows; the potential was traced at "
                          f"dim {ir.dim}")
-    data = tuple(data)
-    if len(data) != len(ir.data_shapes):
-        raise ValueError(f"{len(data)} data operands for "
-                         f"{len(ir.data_shapes)}")
+    data = all_operands(ir, data)
     vals = []
     for n in ir.nodes:
         args = [vals[a] for a in n.args]
@@ -1166,83 +1561,153 @@ def run_plain(ir: IR, q_t: torch.Tensor, data: Sequence[torch.Tensor],
             v = data[n.params[0]].to(
                 device=dev, dtype=torch.int64 if n.dtype == "i" else dtype
             ).reshape(*n.shape, 1)
-        elif n.op == "const":
-            v = torch.full((*n.shape, 1), n.params[0],
-                           dtype=torch.bool if n.dtype == "b" else dtype,
-                           device=dev)
-        elif n.op == "reshape":
-            v = args[0].reshape(*n.shape, args[0].shape[-1])
-        elif n.op == "permute":
-            v = args[0].permute(*n.params, len(n.params))
-        elif n.op == "expand":
-            a = args[0]
-            lead = len(n.shape) - (a.ndim - 1)
-            v = a.reshape(*(1,) * lead, *a.shape).expand(*n.shape,
-                                                         a.shape[-1])
-        elif n.op == "slice":
-            axis, start, step = n.params
-            index = [slice(None)] * axis + [
-                slice(start, start + n.shape[axis] * step, step)]
-            v = args[0][tuple(index)]
-        elif n.op == "select":
-            v = args[0].select(n.params[0], n.params[1])
-        elif n.op == "flip":
-            v = args[0].flip(n.params)
-        elif n.op == "gather":
-            x, k = args
-            axis = n.params[0]
-            v = x.index_select(axis, _wrapped(k, x.shape[axis])).reshape(
-                *n.shape, x.shape[-1])
-        elif n.op == "scatter_add":
-            base, k, src = args
-            axis = n.params[0]
-            c = max(base.shape[-1], src.shape[-1])
-            src = src.expand(*src.shape[:-1], c).reshape(
-                *n.shape[:axis], -1, *n.shape[axis + 1:], c)
-            v = base.expand(*n.shape, c).index_add(
-                axis, _wrapped(k, n.shape[axis]), src)
-        elif n.op == "trsolve":
-            upper, unit = n.params
-            A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
-            v = torch.linalg.solve_triangular(
-                A, B, upper=upper, unitriangular=unit).movedim(0, -1)
-        elif n.op == "cumsum":
-            v = torch.cumsum(args[0], n.params[0])
-        elif n.op == "pad_slice":
-            axis, start, step = n.params
-            a = args[0]
-            v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
-            index = [slice(None)] * axis + [
-                slice(start, start + a.shape[axis] * step, step)]
-            v[tuple(index)] = a
-        elif n.op == "pad_select":
-            axis, index = n.params
-            a = args[0]
-            v = torch.zeros((*n.shape, a.shape[-1]), dtype=dtype, device=dev)
-            v.select(axis, index).copy_(a)
-        elif n.op == "cat":
-            c = max(a.shape[-1] for a in args)
-            v = torch.cat([a.expand(*a.shape[:-1], c) for a in args],
-                          dim=n.params[0])
-        elif n.op == "sum":
-            axes, keepdim = n.params
-            v = args[0].sum(dim=axes, keepdim=keepdim) if axes else args[0]
-        elif n.op == "amax":
-            axes, keepdim = n.params
-            v = args[0].amax(dim=axes, keepdim=keepdim)
-        elif n.op == "mm":
-            a, b = args
-            c = max(a.shape[-1], b.shape[-1])
-            v = torch.einsum("mkc,knc->mnc", a.expand(*a.shape[:-1], c),
-                             b.expand(*b.shape[:-1], c))
         else:
-            v = _plain_op(n, args, dtype)
+            v = _plain_node(n, args, dtype, dev)
         vals.append(v)
     if stats is not None:
         stats["workspace_floats"] = schedule(ir).workspace
     u = vals[ir.u].reshape(1, -1).expand(1, num_chains).contiguous()
     g = vals[ir.g].reshape(dim, -1).expand(dim, num_chains).contiguous()
     return u, g
+
+
+# -------------------------------------------------- host-evaluated rows --
+
+def _template(x, ids):
+    """``x`` with each IR id replaced by ``("__t", k)`` (its place in
+    ``ids``, appended) and each list by ``("__l", items)``: hashable."""
+    if isinstance(x, _Id):
+        ids.append(x)
+        return ("__t", len(ids) - 1)
+    if isinstance(x, (list, tuple)):
+        return ("__l", tuple(_template(e, ids) for e in x))
+    return x
+
+
+def _untemplate(x, vals):
+    if isinstance(x, tuple) and len(x) == 2 and x[0] == "__t":
+        return vals[x[1]]
+    if isinstance(x, tuple) and len(x) == 2 and x[0] == "__l":
+        return [_untemplate(e, vals) for e in x[1]]
+    return x
+
+
+def _index_positions(vals, shape, template):
+    """The flat positions ``x[indices]`` reads in an array of ``shape``."""
+    indices = [slice(None) if i is None else i   # aten's None: a whole axis
+               for i in _untemplate(template, vals)]
+    return torch.arange(math.prod(shape)).reshape(shape)[tuple(indices)]
+
+
+def _axis_positions(vals, shape, axis):
+    """The flat positions ``torch.gather(x, axis, index)`` reads (and
+    ``scatter`` writes) in an array of ``shape``."""
+    (index,) = vals
+    check_index(index, shape[axis])
+    if index.numel() and int(index.min()) < 0:
+        raise IndexError(f"index {int(index.min())} is out of bounds for a "
+                         "gather or scatter (negative)")
+    coords = list(torch.meshgrid(*[torch.arange(s) for s in index.shape],
+                                 indexing="ij"))
+    coords[axis] = index
+    return sum(k * st for k, st in zip(coords, _strides(shape)))
+
+
+def _inverse(vals, numel):
+    """Position -> the written value's flat index, or -1, of a writing
+    scatter at the flat positions ``vals[0]``; a duplicate position raises
+    ``ValueError``."""
+    flat = vals[0].reshape(-1)
+    if flat.unique().numel() != flat.numel():
+        raise ValueError(
+            "a writing scatter (index_put without accumulate, x[idx] = v, or "
+            "torch.scatter) holds a duplicate index; torch and JAX leave the "
+            "winner of a duplicate unspecified, so the generated functor "
+            "refuses it (accumulate with index_put(accumulate=True) or "
+            "index_add instead)")
+    inv = torch.full((numel,), -1, dtype=torch.int64)
+    inv[flat] = torch.arange(flat.numel())
+    return inv
+
+
+_HOST_FNS = {"index_positions": _index_positions,
+             "axis_positions": _axis_positions, "inverse": _inverse}
+
+
+def _host_op(n: Node, vals):
+    kind, name, *rest = n.params
+    if kind == "fn":
+        return _HOST_FNS[name](vals, *rest)
+    ns, packet, overload = name.split(".")
+    op = getattr(getattr(getattr(torch.ops, ns), packet), overload)
+    targs, tkw = rest
+    return op(*_untemplate(targs, vals),
+              **{k: _untemplate(v, vals) for k, v in tkw})
+
+
+def _host_eval(nodes, nid, operands, memo):
+    """The value, on the CPU and without a chain axis, of node ``nid`` of
+    ``nodes`` that depends on the data alone."""
+    if nid in memo:
+        return memo[nid]
+    n = nodes[nid]
+    args = [_host_eval(nodes, a, operands, memo) for a in n.args]
+    if n.op == "data":
+        v = operands[n.params[0]].detach().cpu().reshape(n.shape)
+        v = v.to(torch.int64) if v.dtype in INT_DTYPES else v
+    elif n.op == "derived":
+        v = args[0]
+    elif n.op == "host":
+        v = _host_op(n, args)
+    else:
+        v = _plain_node(n, [a.unsqueeze(-1) for a in args], torch.float32,
+                        torch.device("cpu"))[..., 0]
+    memo[nid] = v
+    return v
+
+
+def _closure(nodes, roots, stop=()):
+    """The ids reached from ``roots`` through their arguments, not going
+    past nodes whose op is in ``stop``."""
+    seen, stack = set(), list(roots)
+    while stack:
+        i = stack.pop()
+        if i not in seen:
+            seen.add(i)
+            if nodes[i].op not in stop:
+                stack.extend(nodes[i].args)
+    return seen
+
+
+def derived_operands(ir: IR, operands) -> tuple:
+    """The derived index rows of ``ir`` (int64, on the CPU) from the base
+    operands (the caller's data, then the constants): evaluated on the
+    host; ``IndexError`` for an index outside its axis, ``ValueError`` for
+    a duplicate in a writing scatter or a row whose shape differs from the
+    traced one (a bool mask that now selects another count)."""
+    memo, out = {}, []
+    base = ir.num_base_data
+    for root, shape in zip(ir.derived, ir.data_shapes[base:]):
+        v = _host_eval(ir.host_nodes, root, operands, memo)
+        if tuple(v.shape) != shape:
+            raise ValueError(
+                f"an index row computed from the data (a bool mask's "
+                f"positions, or index arithmetic) now has shape "
+                f"{tuple(v.shape)}; the potential was traced with {shape}: "
+                "a mask that selects another count needs a new trace")
+        out.append(v.to(torch.int64))
+    return tuple(out)
+
+
+def all_operands(ir: IR, operands) -> tuple:
+    """``operands`` with the derived index rows after them, unless given."""
+    operands = tuple(operands)
+    if len(operands) == len(ir.data_shapes):
+        return operands
+    if len(operands) != ir.num_base_data:
+        raise ValueError(f"{len(operands)} data operands for "
+                         f"{ir.num_base_data}")
+    return operands + derived_operands(ir, operands)
 
 
 def _wrapped(k: torch.Tensor, length: int) -> torch.Tensor:
@@ -1360,6 +1825,8 @@ def schedule(ir: IR) -> Schedule:
     slots, offset, registers = {}, 0, set()
     for i in sorted(stored):
         size = _numel(ir.nodes[i].shape)
+        if ir.nodes[i].op == "lusolve":  # its factors after its solution
+            size += ir.nodes[i].shape[1] ** 2
         if size == 1 and ir.nodes[i].op not in SEQUENTIAL:
             registers.add(i)
         else:
@@ -1476,7 +1943,8 @@ def _formula(n: Node, a) -> str:
              "atan": "atanf({0})", "lgamma": "lgammaf({0})",
              "digamma": "gpg_digamma({0})", "erf": "erff({0})",
              "erfc": "erfcf({0})", "erfcx": "erfcxf({0})",
-             "log_ndtr": "gpg_log_ndtr({0})"}
+             "log_ndtr": "gpg_log_ndtr({0})",
+             "isnan": "({0} != {0} ? 1.f : 0.f)"}
     if op in unary:
         return unary[op].format(*a)
     simple = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -1486,6 +1954,7 @@ def _formula(n: Node, a) -> str:
               "or": "(({0}) != 0.f || ({1}) != 0.f ? 1.f : 0.f)",
               "where": "(({0}) != 0.f ? {1} : {2})",
               "logaddexp": "gpg_logaddexp({0}, {1})",
+              "powt": "powf({0}, {1})",
               "sigmoid_backward": "(({0} * (1.f - {1})) * {1})",
               "tanh_backward": "({0} * (1.f - {1} * {1}))"}
     if op in simple:
@@ -1498,6 +1967,8 @@ def _formula(n: Node, a) -> str:
         return f"gpg_clamp_max({a[0]}, {_literal(n.params[0])})"
     if op == "pow":
         return _pow_formula(a[0], n.params[0])
+    if op == "rpow":
+        return f"powf({_literal(n.params[0])}, {a[0]})"
     if op == "softplus":
         return (f"gpg_softplus({a[0]}, {_literal(n.params[0])}, "
                 f"{_literal(n.params[1])})")
@@ -1652,6 +2123,22 @@ class _Emitter:
             for end, v in reversed(pieces[:-1]):
                 expr = f"({j.expr} < {end} ? {v} : {expr})"
             return scope.temp(expr)
+        if n.op == "put":  # the value written at this position, or base
+            base, inv, values = n.args
+            k = self.value(inv, idx, scope)
+            vshape = nodes[values].shape
+            src = _unflatten(Ix(f"gpg_imax({k}, 0)", _numel(vshape)), vshape)
+            v = self.value(values, src, scope)
+            b = self.value(base, idx, scope)
+            return scope.temp(f"({k} >= 0 ? {v} : {b})")
+        if n.op == "pick":  # src where the index names this position
+            base, index, src = n.args
+            axis = n.params[0]
+            inner = (*idx[:axis], _ic(0), *idx[axis + 1:])
+            k = self.value(index, inner, scope)
+            v = self.value(src, inner, scope)
+            b = self.value(base, idx, scope)
+            return scope.temp(f"((int)({k}) == {idx[axis].expr} ? {v} : {b})")
         if n.op in CONTRACTIONS or n.op in SEQUENTIAL:
             raise AssertionError("contractions are always stored")
         args = []
@@ -1929,6 +2416,121 @@ class _Emitter:
         lines.append("}")
         lines.append("__syncwarp();")
 
+    def argmax(self, nid, lines):
+        """One lane an output, its scan along the axis sequential: the
+        first index of the maximum, a NaN the largest (torch's max.dim);
+        stored as a float."""
+        n = self.ir.nodes[nid]
+        x = n.args[0]
+        axis = n.params[0]
+        src = self.ir.nodes[x].shape
+        length = src[axis]
+        rest = src[:axis] + src[axis + 1:]
+        m = _unflatten(Ix("m", _numel(rest)), rest)
+        scope = _Scope(self)
+        v = self.value(x, (*m[:axis], Ix("l", length), *m[axis:]), scope)
+        lines.append(f"for (int m = lane; m < {_numel(rest)}; m += 32) {{")
+        lines.append("  float best = 0.f;")
+        lines.append("  int at = 0;")
+        lines.append(f"  for (int l = 0; l < {length}; ++l) {{")
+        lines.extend("    " + line for line in scope.lines)
+        lines.append(f"    if (l == 0 || (best == best && ({v} > best || "
+                     f"{v} != {v}))) {{")
+        lines.append(f"      best = {v};")
+        lines.append("      at = l;")
+        lines.append("    }")
+        lines.append("  }")
+        lines.append(f"  {self.slot(nid, Ix('m', _numel(rest)))} = (float)at;")
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def lusolve(self, nid, lines):
+        """``A X = B`` a right-side batch at a time: ``B`` into the
+        solution's slot and ``A`` into the factors' (after the solution),
+        then LU with partial pivoting, column by column: every lane scans
+        the column below the diagonal for the first largest ``|a|`` (LAPACK
+        ``i?amax``'s pivot), the lanes swap the pivot row in the factors and
+        the right sides, then each lane eliminates its rows (row r in lane
+        r % 32, ``fmaf`` along the row); then forward (unit lower) and
+        backward (upper) substitution, one lane a right-side column, its
+        sums sequential."""
+        n = self.ir.nodes[nid]
+        A, B = n.args
+        batch, size, cols = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        base = self.sched.slots[nid]
+        lu0 = base + _numel(n.shape)
+
+        def X(b, i, j):
+            return f"ws[{base} + {b} * {size * cols} + ({i}) * {cols} + {j}]"
+
+        def LU(i, j):
+            return f"ws[{lu0} + ({i}) * {size} + {j}]"
+
+        copy_b, copy_a = _Scope(self), _Scope(self)
+        e_b = _unflatten(Ix("e", size * cols), (size, cols))
+        vb = self.value(B, (Ix("b", batch), *e_b), copy_b)
+        e_a = _unflatten(Ix("e", size * size), (size, size))
+        va = self.value(A, (Ix("b", batch) if ba > 1 else _ic(0), *e_a),
+                        copy_a)
+        body = [f"for (int e = lane; e < {size * cols}; e += 32) {{",
+                *("  " + line for line in copy_b.lines),
+                f"  ws[{base} + b * {size * cols} + e] = {vb};", "}",
+                f"for (int e = lane; e < {size * size}; e += 32) {{",
+                *("  " + line for line in copy_a.lines),
+                f"  ws[{lu0} + e] = {va};", "}", "__syncwarp();",
+                f"for (int k = 0; k < {size}; ++k) {{",
+                "  int p = k;",
+                f"  float top = fabsf({LU('k', 'k')});",
+                f"  for (int r = k + 1; r < {size}; ++r) {{",
+                f"    const float a = fabsf({LU('r', 'k')});",
+                "    if (a > top) {",
+                "      top = a;",
+                "      p = r;",
+                "    }",
+                "  }",
+                "  __syncwarp();  // every lane has read the column",
+                "  if (p != k) {",
+                f"    for (int j = lane; j < {size}; j += 32) {{",
+                f"      const float t = {LU('k', 'j')};",
+                f"      {LU('k', 'j')} = {LU('p', 'j')};",
+                f"      {LU('p', 'j')} = t;",
+                "    }",
+                f"    for (int j = lane; j < {cols}; j += 32) {{",
+                f"      const float t = {X('b', 'k', 'j')};",
+                f"      {X('b', 'k', 'j')} = {X('b', 'p', 'j')};",
+                f"      {X('b', 'p', 'j')} = t;",
+                "    }",
+                "  }",
+                "  __syncwarp();",
+                f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
+                f"    const float l = {LU('r', 'k')} / {LU('k', 'k')};",
+                f"    {LU('r', 'k')} = l;",
+                f"    for (int j = k + 1; j < {size}; ++j)",
+                f"      {LU('r', 'j')} = fmaf(-l, {LU('k', 'j')}, "
+                f"{LU('r', 'j')});",
+                "  }",
+                "  __syncwarp();",
+                "}",
+                f"for (int j = lane; j < {cols}; j += 32) {{",
+                f"  for (int i = 1; i < {size}; ++i) {{",
+                f"    float acc = {X('b', 'i', 'j')};",
+                "    for (int t = 0; t < i; ++t)",
+                f"      acc = fmaf(-{LU('i', 't')}, {X('b', 't', 'j')}, acc);",
+                f"    {X('b', 'i', 'j')} = acc;",
+                "  }",
+                f"  for (int i = {size - 1}; i >= 0; --i) {{",
+                f"    float acc = {X('b', 'i', 'j')};",
+                f"    for (int t = i + 1; t < {size}; ++t)",
+                f"      acc = fmaf(-{LU('i', 't')}, {X('b', 't', 'j')}, acc);",
+                f"    {X('b', 'i', 'j')} = acc / {LU('i', 'i')};",
+                "  }",
+                "}",
+                "__syncwarp();"]
+        lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
     def cumsum(self, nid, lines):
         """One lane a line along the axis, its sum sequential."""
         n = self.ir.nodes[nid]
@@ -1982,6 +2584,8 @@ def _lane_stride(ir, nid, axis, stored):
                             axis if axis < n.params[0] else axis + 1, stored)
     if n.op == "flip":
         return _lane_stride(ir, n.args[0], axis, stored)
+    if n.op == "put":  # reads its values at data-dependent positions
+        return None
     if n.op == "gather":
         first, rank = n.params[0], len(ir.nodes[n.args[1]].shape)
         if first <= axis < first + rank:
@@ -2083,8 +2687,10 @@ class Bound:
     workspace: int
     ops: tuple
     # (integer operand, device) -> (a weak reference to its tensor, its
-    # _version, the int32 row on that device)
+    # _version, the int32 row on that device); device -> (weak references
+    # to the base operands, their _versions, the derived rows there)
     _rows: dict = field(default_factory=dict, repr=False)
+    _derived: dict = field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.index_bounds = self.ir.index_bounds()
@@ -2103,9 +2709,9 @@ class Bound:
         device = torch.device(device)
         ops = []
         operands = (*data, *self.constants)
-        if len(operands) != len(self.ir.data_shapes):
+        if len(operands) != self.ir.num_base_data:
             raise ValueError(f"{len(operands)} data operands; the potential "
-                             f"was traced with {len(self.ir.data_shapes)}")
+                             f"was traced with {self.ir.num_base_data}")
         for j, d in enumerate(operands):
             kind = self.ir.data_kinds[j]
             dtypes = INT_DTYPES if kind == "i" else (torch.float32,)
@@ -2120,11 +2726,32 @@ class Bound:
             if d.device != device:
                 d = d.to(device)
             ops.append(d.contiguous())
+        ops.extend(self._derived_rows(operands, device))
         shapes = tuple(tuple(d.shape) for d in ops)
         if shapes != self.ir.data_shapes:
             raise ValueError(f"data operands of shapes {shapes}; the potential "
                              f"was traced with {self.ir.data_shapes}")
         return tuple(ops)
+
+    def _derived_rows(self, operands, device):
+        """The derived index rows as int32 on ``device``, evaluated again
+        whenever a base operand or its values (its ``_version``) change."""
+        if not self.ir.derived:
+            return ()
+        hit = self._derived.get(device)
+        versions = tuple(d._version for d in operands)
+        if hit is not None and versions == hit[1] and all(
+                r() is d for r, d in zip(hit[0], operands)):
+            return hit[2]
+        rows = []
+        for d in derived_operands(self.ir, operands):
+            if d.numel() and (int(d.min()) < -2**31 or int(d.max()) >= 2**31):
+                raise ValueError("a derived index row does not fit int32")
+            rows.append(d.to(device=device, dtype=torch.int32).contiguous())
+        rows = tuple(rows)
+        self._derived[device] = (tuple(weakref.ref(d) for d in operands),
+                                 versions, rows)
+        return rows
 
     def _int_row(self, j, d, device):
         """Operand ``j`` as int32 on ``device``, checked and converted again
@@ -2173,6 +2800,8 @@ def bind(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
     for j in bound.index_bounds:  # the caller's indices, as they are now
         if j < len(data):
             bound._int_row(j, data[j], device)
+    if bound.ir.derived:  # the rows computed from them, checked
+        bound._derived_rows((*data, *bound.constants), device)
     return bound
 
 

@@ -188,6 +188,29 @@ def test_mala_and_ghmc_route_errors():
         _ghmc_route("mala", max_num_expansions=6)
 
 
+@pytest.mark.parametrize("algorithm", ["mala", "ghmc"])
+def test_alpha_on_the_mala_and_ghmc_door_is_a_pointed_type_error(algorithm):
+    """``alpha=`` (not ``ghmc_alpha=``) raises naming ``ghmc_alpha``, not a
+    raw "multiple values for keyword argument" ``TypeError``."""
+    with pytest.raises(TypeError, match="ghmc_alpha") as err:
+        _ghmc_route(algorithm, alpha=0.5)
+    assert "multiple values" not in str(err.value)
+
+
+@pytest.mark.parametrize("algorithm", ["mala", "ghmc"])
+def test_a_dense_metric_error_names_the_sampler(algorithm):
+    from aehmc_tpu_torch.ops.fused_driver import _diag_im, ghmc_sampling
+
+    with pytest.raises(ValueError, match="MALA/GHMC warmup"):
+        _diag_im(torch.eye(4), 4, "cpu", "the fused MALA/GHMC warmup")
+    state = (torch.zeros(4, 8), torch.zeros(8), torch.zeros(4, 8))
+    with pytest.raises(ValueError, match=f"^{algorithm.upper()} supports"):
+        ghmc_sampling(torch.Generator().manual_seed(0), None,
+                      (VAR.reshape(-1, 1),), state, 0.1, torch.eye(4), 8,
+                      alpha=0.0 if algorithm == "mala" else 0.9,
+                      potential_and_grad_t=_gaussian_pg)
+
+
 @pytest.mark.parametrize("path", ["xla", "pooled"])
 def test_unported_paths_raise(path):
     """The XLA and pooled paths run, MEADS on both (a chain ensemble: its

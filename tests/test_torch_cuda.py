@@ -139,12 +139,11 @@ def test_cuda_whole_run_equals_per_draw_launches(cuda_device, dense):
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     pg, data, q_t, u0, g0, imm, _ = _case(cuda_device, False)
-    M = 2.0 * torch.eye(q_t.shape[0], device=cuda_device) + 0.1
-    transition = make_fused_nuts_transition_small(  # a general solve
-        lambda q, *d: torch.sum(q * torch.linalg.solve(M, q), 0), data,
+    transition = make_fused_nuts_transition_small(  # a sort: no rule
+        lambda q, *d: torch.sum(q * torch.sort(q, 0).values, 0), data,
         max_num_expansions=MAX_EXP, transposed_io=True,
     )
-    with pytest.raises(NotImplementedError, match="_linalg_solve_ex"):
+    with pytest.raises(NotImplementedError, match=r"aten\.sort"):
         transition(q_t, u0, g0, None, None, None, None, imm, 0.3, seed=1)
     transition = make_fused_nuts_transition_small(
         None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,

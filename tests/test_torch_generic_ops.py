@@ -8,12 +8,19 @@ CPU, beyond the per-case checks of ``test_torch_generic_pg.py``.
   non-centred, at the radon study's sizes: 919 observations in 85
   counties, dim 89), P3 ``mixture4`` (four Gaussian components in 2-d,
   softmax weights, dim 12) and P4 ``probit100`` (probit regression on the
-  flagship's ``logistic_regression_data`` design through ``log_ndtr``).
-  ``chip_smoke.py`` keeps its own copy of the torch ones.
+  flagship's ``logistic_regression_data`` design through ``log_ndtr``);
+  and the three of the rest of the table, written as users write them: R1
+  ``softmax_reg`` (multinomial logistic regression, labels 1..K,
+  ``max(dim=1)``, ``[arange(N), y - 1]``), R2 ``weibull_mice`` (Weibull
+  regression with right censoring after BUGS "Mice": ``isnan``, bool
+  masks, an indexed assignment, a tensor exponent) and R3 ``sur_solve`` (a
+  seemingly-unrelated regression through ``torch.linalg.solve`` of a
+  matrix that depends on q).  ``chip_smoke.py`` keeps its own copy of the
+  torch ones.
 - Kernels 1, 5 and 7, through their plain versions with the generated
   functor's plain back end as the potential, against the JAX kernels in
-  interpret mode on the twins, on external randomness: P1 and P2 (small
-  sizes), every decision equal, floats within 1e-5.
+  interpret mode on the twins, on external randomness: P1, P2 and R1-R3
+  (small sizes), every decision equal, floats within 1e-5.
 - The front door on ``models.correlated_mvn(4, 0.5)`` on ``path="fused"``
   for nuts, mala, ghmc, chees and meads: finite draws, two runs with one
   seed equal bit for bit, and the binding's potential and gradient equal to
@@ -24,6 +31,11 @@ CPU, beyond the per-case checks of ``test_torch_generic_pg.py``.
   indices.
 - A scatter-add sums in input order: the emitted functor's gradient of a
   pure gather equals the plain back end's bit for bit.
+- Derived index rows: a data mask is read anew when the data change, and a
+  mask of another count raises; a writing scatter with a duplicate index
+  and an index out of range after arithmetic raise at bind; integer
+  arithmetic and masks that depend on q stay refused; ``max(dim=)`` sends
+  a tie's gradient to the first maximum, as torch does.
 """
 
 import math
@@ -67,11 +79,14 @@ def negbin_data(num_obs=919, num_groups=85, seed=0):
     return group.astype(np.int64), x, y.astype(np.int64)
 
 
-def hier_negbin(group, x, y, num_groups, device="cpu"):
+def hier_negbin(group, x, y, num_groups, device="cpu", log_phi_prior=(1.0,
+                                                                      1.0)):
     """log p of (z (G), mu, log_sd, b, log_phi): the county intercepts are
     mu + exp(log_sd) z, gathered by county; NB(y | exp(eta), phi) without
     its constant lgamma(y + 1).  log_phi ~ N(1, 1) keeps phi moderate: near
-    phi = 1e6 lgamma(y + phi) - lgamma(phi) is float32 rounding noise."""
+    phi = 1e6 lgamma(y + phi) - lgamma(phi) is float32 rounding noise
+    (``log_phi_prior``: its mean and sd; fault G's runs take (0, 2))."""
+    phi_mean, phi_sd = log_phi_prior
     g = torch.as_tensor(group, device=device)
     xt = torch.as_tensor(x, device=device)
     yt = torch.as_tensor(y, device=device)
@@ -87,13 +102,15 @@ def hier_negbin(group, x, y, num_groups, device="cpu"):
                        + yt * (eta - log_denom))
         return ll - 0.5 * torch.sum(z * z) - 0.5 * (mu / 5.0) ** 2 \
             - 0.5 * log_sd ** 2 - 0.5 * (b / 2.0) ** 2 \
-            - 0.5 * (log_phi - 1.0) ** 2
+            - 0.5 * ((log_phi - phi_mean) / phi_sd) ** 2
 
     return logprob_fn
 
 
-def jax_hier_negbin(group, x, y, num_groups, dtype=jnp.float64):
+def jax_hier_negbin(group, x, y, num_groups, dtype=jnp.float64,
+                    log_phi_prior=(1.0, 1.0)):
     G = num_groups
+    phi_mean, phi_sd = log_phi_prior
     xj, yj = jnp.asarray(x, dtype), jnp.asarray(y)
 
     def logprob_fn(q):
@@ -105,7 +122,7 @@ def jax_hier_negbin(group, x, y, num_groups, dtype=jnp.float64):
                      + phi * (log_phi - log_denom) + yj * (eta - log_denom))
         return ll - 0.5 * jnp.sum(z * z) - 0.5 * (mu / 5.0) ** 2 \
             - 0.5 * log_sd ** 2 - 0.5 * (b / 2.0) ** 2 \
-            - 0.5 * (log_phi - 1.0) ** 2
+            - 0.5 * ((log_phi - phi_mean) / phi_sd) ** 2
 
     return logprob_fn
 
@@ -172,6 +189,158 @@ def jax_probit(X, y):
     return logprob_fn
 
 
+def softmax_data(num_points=1000, num_features=20, num_classes=5, seed=0):
+    """R1's design (float32) and labels 1..K (int64, as R and Stan hold
+    them), drawn from a multinomial logit with N(0, 1) weights."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((num_points, num_features)).astype(F32)
+    W = rng.standard_normal((num_features, num_classes))
+    logits = X @ W / np.sqrt(num_features)
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p /= p.sum(1, keepdims=True)
+    u = rng.uniform(size=(num_points, 1))
+    y = 1 + np.minimum((u > np.cumsum(p, 1)).sum(1), num_classes - 1)
+    return X, y.astype(np.int64)
+
+
+def softmax_reg(X, y, num_classes, device="cpu"):
+    """R1: multinomial logistic regression, W (features, classes) from q,
+    N(0, 1) prior, the log-sum-exp by hand after the row maximum, the
+    log-likelihood read at ``[arange(N), y - 1]``."""
+    Xt = torch.as_tensor(X, device=device)
+    yt = torch.as_tensor(y, device=device)
+    N, P = Xt.shape
+
+    def logprob_fn(q):
+        logits = Xt @ q.reshape(P, num_classes)
+        m = logits.max(dim=1, keepdim=True).values
+        lse = m + torch.log(torch.sum(torch.exp(logits - m), dim=1,
+                                      keepdim=True))
+        ll = (logits - lse)[torch.arange(N, device=device), yt - 1].sum()
+        return ll - 0.5 * torch.sum(q * q)
+
+    return logprob_fn
+
+
+def jax_softmax_reg(X, y, num_classes, dtype=jnp.float64):
+    Xj, yj = jnp.asarray(X, dtype), jnp.asarray(y)
+    N, P = X.shape
+
+    def logprob_fn(q):
+        logits = Xj @ q.reshape(P, num_classes)
+        m = jnp.max(logits, axis=1, keepdims=True)
+        lse = m + jnp.log(jnp.sum(jnp.exp(logits - m), axis=1,
+                                  keepdims=True))
+        ll = (logits - lse)[jnp.arange(N), yj - 1].sum()
+        return ll - 0.5 * jnp.sum(q * q)
+
+    return logprob_fn
+
+
+def weibull_data(num_groups=4, per_group=20, seed=0):
+    """R2's mice (after BUGS Examples Vol. 1, "Mice"): group (int64),
+    failure times (float32, NaN where censored) and censoring times, from
+    S(t) = exp(-exp(beta_g) t^r), r 1.5."""
+    rng = np.random.default_rng(seed)
+    group = np.repeat(np.arange(num_groups), per_group)
+    beta = rng.normal(-4.0, 0.5, num_groups)
+    r = 1.5
+    t = (-np.log(rng.uniform(size=group.size)) / np.exp(beta[group])) ** (
+        1.0 / r)
+    c = rng.uniform(10.0, 30.0, group.size)
+    t = np.where(t > c, np.nan, t)
+    return group.astype(np.int64), t.astype(F32), c.astype(F32)
+
+
+def weibull_mice(group, t, c, num_groups, device="cpu"):
+    """R2: Weibull regression with right censoring, q = (beta (G), log r);
+    ``obs = ~isnan(t)``, an indexed assignment of each mouse's term,
+    N(0, 10) priors on beta, N(0, 1) on log r."""
+    g, tt, ct = (torch.as_tensor(a, device=device) for a in (group, t, c))
+    G, M = num_groups, len(group)
+
+    def logprob_fn(q):
+        beta, log_r = q[:G], q[G]
+        r = torch.exp(log_r)
+        obs = ~torch.isnan(tt)
+        ll = torch.zeros(M, dtype=q.dtype, device=device)
+        ll[obs] = log_r + (r - 1.0) * torch.log(tt[obs]) + beta[g[obs]] \
+            - torch.exp(beta[g[obs]]) * tt[obs] ** r
+        ll[~obs] = -torch.exp(beta[g[~obs]]) * ct[~obs] ** r
+        return ll.sum() - 0.5 * torch.sum((beta / 10.0) ** 2) \
+            - 0.5 * log_r ** 2
+
+    return logprob_fn
+
+
+def jax_weibull_mice(group, t, c, num_groups, dtype=jnp.float64):
+    tj, cj = jnp.asarray(t, dtype), jnp.asarray(c, dtype)
+    G = num_groups
+
+    def logprob_fn(q):
+        beta, log_r = q[:G], q[G]
+        r = jnp.exp(log_r)
+        obs = ~jnp.isnan(tj)
+        ts = jnp.where(obs, tj, 1.0)
+        b = beta[group]
+        ll = jnp.where(obs, log_r + (r - 1.0) * jnp.log(ts) + b
+                       - jnp.exp(b) * ts ** r, -jnp.exp(b) * cj ** r)
+        return ll.sum() - 0.5 * jnp.sum((beta / 10.0) ** 2) \
+            - 0.5 * log_r ** 2
+
+    return logprob_fn
+
+
+def sur_data(num_eq=10, num_obs=200, num_reg=5, seed=0):
+    """R3's seemingly-unrelated regression: X (N, K, p), Y (N, K) float32,
+    and the fixed correlation Omega (K, K), from the model's own draws."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((num_eq, num_eq))
+    S = A @ A.T + num_eq * np.eye(num_eq)
+    d = 1.0 / np.sqrt(np.diag(S))
+    omega = S * d[:, None] * d[None, :]
+    X = rng.standard_normal((num_obs, num_eq, num_reg))
+    beta = rng.standard_normal((num_eq, num_reg))
+    tau = np.exp(rng.normal(0.0, 0.3, num_eq))
+    sigma = tau[:, None] * tau[None, :] * omega
+    eps = rng.standard_normal((num_obs, num_eq)) @ np.linalg.cholesky(
+        sigma).T
+    Y = (X * beta).sum(-1) + eps
+    return X.astype(F32), Y.astype(F32), omega.astype(F32)
+
+
+def sur_solve(X, Y, omega, device="cpu"):
+    """R3: q = (beta (K, p), log tau (K)), Sigma = tau tau^T * Omega, the
+    Gaussian log-likelihood through a general solve, N(0, 1) priors."""
+    Xt, Yt, Om = (torch.as_tensor(a, device=device) for a in (X, Y, omega))
+    N, K, P = Xt.shape
+
+    def logprob_fn(q):
+        beta, log_tau = q[:K * P].reshape(K, P), q[K * P:]
+        tau = torch.exp(log_tau)
+        Sigma = tau[:, None] * tau[None, :] * Om
+        R = Yt - torch.sum(Xt * beta, -1)
+        return -0.5 * (R.T * torch.linalg.solve(Sigma, R.T)).sum() \
+            - N * log_tau.sum() - 0.5 * torch.sum(q * q)
+
+    return logprob_fn
+
+
+def jax_sur_solve(X, Y, omega, dtype=jnp.float64):
+    Xj, Yj, Om = (jnp.asarray(a, dtype) for a in (X, Y, omega))
+    N, K, P = X.shape
+
+    def logprob_fn(q):
+        beta, log_tau = q[:K * P].reshape(K, P), q[K * P:]
+        tau = jnp.exp(log_tau)
+        Sigma = tau[:, None] * tau[None, :] * Om
+        R = Yj - jnp.sum(Xj * beta, -1)
+        return -0.5 * (R.T * jnp.linalg.solve(Sigma, R.T)).sum() \
+            - N * log_tau.sum() - 0.5 * jnp.sum(q * q)
+
+    return logprob_fn
+
+
 def mvn_rows_twin(rows):
     """The JAX twin of the binding of ``models.correlated_mvn``: its data
     rows (loc, the Cholesky factor, the normalising constant), told apart by
@@ -208,8 +377,8 @@ def _bound_case(lp, jax_lp, dim, lp64=None):
     def jax_pot(q_t, *_rows):
         return -jax.vmap(jax_lp, in_axes=1)(q_t)
 
-    def reference(q_t):
-        return -torch.func.vmap(lp64, in_dims=1)(q_t)
+    def reference(q_t):  # functionalized: vmap refuses in-place writes
+        return -torch.func.vmap(torch.func.functionalize(lp64), in_dims=1)(q_t)
 
     return pot, tuple(rows), dim, "t", jax_pot, reference
 
@@ -241,8 +410,35 @@ def p4_case(dim=5, num_points=12):
                        probit(X.double(), y.double()))
 
 
+def r1_case(num_points=30, num_features=3, num_classes=4):
+    X, y = softmax_data(num_points, num_features, num_classes, seed=3)
+    return _bound_case(softmax_reg(X, y, num_classes),
+                       jax_softmax_reg(X, y, num_classes),
+                       num_features * num_classes,
+                       softmax_reg(X.astype(np.float64), y, num_classes))
+
+
+def r2_case(num_groups=2, per_group=6):
+    group, t, c = weibull_data(num_groups, per_group, seed=4)
+    return _bound_case(weibull_mice(group, t, c, num_groups),
+                       jax_weibull_mice(group, t, c, num_groups),
+                       num_groups + 1,
+                       weibull_mice(group, t.astype(np.float64),
+                                    c.astype(np.float64), num_groups))
+
+
+def r3_case(num_eq=3, num_obs=12, num_reg=2):
+    X, Y, omega = sur_data(num_eq, num_obs, num_reg, seed=5)
+    return _bound_case(sur_solve(X, Y, omega), jax_sur_solve(X, Y, omega),
+                       num_eq * (num_reg + 1),
+                       sur_solve(*(a.astype(np.float64) for a in (X, Y,
+                                                                  omega))))
+
+
 CASES = {"mvn25_chol": p1_case, "hier_negbin": p2_case,
-         "mixture4": p3_case, "probit100": p4_case}
+         "mixture4": p3_case, "probit100": p4_case,
+         "softmax_reg": r1_case, "weibull_mice": r2_case,
+         "sur_solve": r3_case}
 
 
 def _traced(name):
@@ -256,8 +452,10 @@ def _traced(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_each_test_potential_binds_at_full_width(name):
     """P1 at dim 25, P2 at 919 observations in 85 counties, P3 over 1,000
-    points, P4 on the 1,000 x 100 design: bound, emitted, and the plain
-    back end finite, its gradient equal to float32 autograd's."""
+    points, P4 on the 1,000 x 100 design, R1 over 1,000 points, 20
+    features and 5 classes, R2 on 80 mice, R3 at 10 equations, 200
+    observations and 5 regressors: bound, emitted, and the plain back end
+    finite, its gradient equal to float32 autograd's."""
     if name == "mvn25_chol":
         lp, dim = correlated_mvn(25, 0.5, device="cpu"), 25
     elif name == "hier_negbin":
@@ -265,6 +463,12 @@ def test_each_test_potential_binds_at_full_width(name):
         lp, dim = hier_negbin(group, x, y, 85), 89
     elif name == "mixture4":
         lp, dim = mixture4(mixture_data()), 12
+    elif name == "softmax_reg":
+        lp, dim = softmax_reg(*softmax_data(), 5), 100
+    elif name == "weibull_mice":
+        lp, dim = weibull_mice(*weibull_data(), 4), 5
+    elif name == "sur_solve":
+        lp, dim = sur_solve(*sur_data()), 60
     else:
         X, y = logistic_regression_data(100, 1000, device="cpu")
         lp, dim = probit(X, y), 100
@@ -293,9 +497,19 @@ def _jax_twin(name, rows):
     if name == "mvn25_chol":
         jax_pot, _ = mvn_rows_twin(rows)
         return jax_pot, [jnp.asarray(r.numpy()) for r in rows]
-    group, x, y = negbin_data(40, 6, seed=1)
-    jax_pot, jax_rows = jax_binding(jax_hier_negbin(group, x, y, 6,
-                                                    jnp.float32), 10)
+    if name == "hier_negbin":
+        group, x, y = negbin_data(40, 6, seed=1)
+        jax_lp, dim = jax_hier_negbin(group, x, y, 6, jnp.float32), 10
+    elif name == "softmax_reg":
+        X, y = softmax_data(30, 3, 4, seed=3)
+        jax_lp, dim = jax_softmax_reg(X, y, 4, jnp.float32), 12
+    elif name == "weibull_mice":
+        group, t, c = weibull_data(2, 6, seed=4)
+        jax_lp, dim = jax_weibull_mice(group, t, c, 2, jnp.float32), 3
+    else:
+        X, Y, omega = sur_data(3, 12, 2, seed=5)
+        jax_lp, dim = jax_sur_solve(X, Y, omega, jnp.float32), 9
+    jax_pot, jax_rows = jax_binding(jax_lp, dim)
     return jax_pot, list(jax_rows)
 
 
@@ -315,8 +529,10 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # sum orders, leave ~5e-5 in u, the energy and exp(-dH), and ~40 x 10 x
 # 1e-7 x 3 = 1.2e-4 in that row; so P2's floats other than q are held to
 # 1e-4 relative and 2e-4 absolute (q and every decision as P1's).
-TOLS = {"mvn25_chol": TOL, "hier_negbin": dict(rtol=1e-4, atol=2e-4)}
-KERNEL_CASES = ["mvn25_chol", "hier_negbin"]
+TOLS = {"mvn25_chol": TOL, "hier_negbin": dict(rtol=1e-4, atol=2e-4),
+        "softmax_reg": TOL, "weibull_mice": TOL, "sur_solve": TOL}
+KERNEL_CASES = ["mvn25_chol", "hier_negbin", "softmax_reg", "weibull_mice",
+                "sur_solve"]
 
 
 @pytest.mark.parametrize("name", KERNEL_CASES)
@@ -566,14 +782,127 @@ def test_integer_data_that_is_not_an_index_converts_to_float():
 
 
 def test_integer_arithmetic_is_outside_the_table():
+    """Integer arithmetic binds on data alone (evaluated on the host); on a
+    value that depends on q (max.dim's index) it stays refused, as does a
+    mask that depends on q."""
     idx = torch.tensor([0, 1, 2])
 
-    def lp(q):
+    def on_data(q):
         return torch.sum(q[idx + 1])
 
-    pot, rows = _generic_fused_binding(lp, 4)
-    with pytest.raises(NotImplementedError, match="integer"):
+    pot, rows = _generic_fused_binding(on_data, 4)
+    generic_pg.bind(pot, rows, 4)
+
+    def on_q(q):
+        return q[q.reshape(2, 2).max(dim=1).indices + 1].sum()
+
+    pot, rows = _generic_fused_binding(on_q, 4)
+    with pytest.raises(NotImplementedError, match=r"integer.*1\.10c"):
         generic_pg.bind(pot, rows, 4)
+
+    def mask_on_q(q_t):
+        v = torch.zeros_like(q_t)
+        v[q_t > 0] = 1.0
+        return torch.sum(v * q_t, 0)
+
+    with pytest.raises(NotImplementedError, match=r"bool mask.*1\.10c"):
+        generic_pg.trace_potential(mask_on_q, (), 4)
+
+
+def test_a_mask_of_data_is_read_anew_and_a_new_count_raises():
+    """A bool mask of data becomes a derived index row at bind, evaluated
+    again when the data change (``_version``); a mask that then selects
+    another count than the traced one raises, the traced shape being
+    wrong."""
+    t = torch.tensor([1.0, float("nan"), 2.0, 3.0, float("nan")])
+
+    def lp(q):
+        seen = ~torch.isnan(t)
+        return -0.5 * torch.sum((q[seen] - t[seen]) ** 2)
+
+    pot, rows = _generic_fused_binding(lp, 5)
+    bound = generic_pg.bind(pot, rows, 5)
+    assert bound.ir.derived
+    q = torch.randn(5, 3, generator=torch.Generator().manual_seed(3))
+    u1, _ = generic_pg.run_plain(bound.ir, q, bound.operands(rows, "cpu"))
+    np.testing.assert_allclose(u1.reshape(-1).numpy(), pot(q, *rows).numpy(),
+                               rtol=1e-6)
+    t[1], t[2] = 4.0, float("nan")  # the same count, other positions
+    u2, _ = generic_pg.run_plain(bound.ir, q, bound.operands(rows, "cpu"))
+    np.testing.assert_allclose(u2.reshape(-1).numpy(), pot(q, *rows).numpy(),
+                               rtol=1e-6)
+    assert not torch.equal(u1, u2)
+    t[4] = 5.0  # four values seen where three were traced
+    with pytest.raises(ValueError, match="another count"):
+        bound.operands(rows, "cpu")
+    with pytest.raises(ValueError, match="another count"):
+        generic_pg.bind(pot, rows, 5)
+
+
+@pytest.mark.parametrize("algorithm, path", [("nuts", "pooled"),
+                                             ("meads", "fused")])
+def test_an_in_place_logprob_runs_where_the_chains_are_vmapped(algorithm,
+                                                               path):
+    """R2 assigns into a tensor it makes (``ll[obs] = ...``), which vmap
+    refuses: the routes that vmap the logprob itself (the pooled XLA route,
+    MEADS's states) batch it functionalized; finite draws."""
+    group, t, c = weibull_data(2, 6, seed=4)
+    q0 = 0.1 * torch.randn(8, 3, generator=torch.Generator().manual_seed(2))
+    q0[:, :2] -= 4.0
+    res = aehmc_tpu_torch.sample(torch.Generator().manual_seed(3),
+                                 weibull_mice(group, t, c, 2), q0, 8, 8,
+                                 algorithm=algorithm, path=path)
+    assert torch.isfinite(res.positions).all()
+
+
+def test_a_writing_scatter_with_a_duplicate_index_raises_at_bind():
+    idx = torch.tensor([0, 2, 2])
+
+    def lp(q):
+        v = torch.zeros(4)
+        v[idx] = torch.exp(q[:3])
+        return torch.sum(v) - 0.5 * torch.sum(q * q)
+
+    pot, rows = _generic_fused_binding(lp, 4)
+    with pytest.raises(ValueError, match="duplicate"):
+        generic_pg.bind(pot, rows, 4)
+    idx[2] = 1  # no duplicate: binds; a duplicate again raises at a launch
+    bound = generic_pg.bind(pot, rows, 4)
+    idx[2] = 0
+    with pytest.raises(ValueError, match="duplicate"):
+        bound.operands(rows, "cpu")
+
+
+def test_an_index_out_of_range_after_arithmetic_raises_at_bind():
+    y = torch.tensor([1, 3, 2])  # 1-based labels of 3 classes
+
+    def lp(q):
+        return torch.sum(q.reshape(3, 3)[torch.arange(3), y - 1])
+
+    pot, rows = _generic_fused_binding(lp, 9)
+    bound = generic_pg.bind(pot, rows, 9)
+    y[1] = 4  # y - 1 = 3 lies outside the axis of 3
+    with pytest.raises(IndexError):
+        bound.operands(rows, "cpu")
+    with pytest.raises(IndexError):
+        generic_pg.bind(pot, rows, 9)
+
+
+def test_max_dim_sends_a_tie_gradient_to_the_first_index():
+    """torch's rule, which the compiler keeps: ``max(dim=)``'s backward sends
+    the whole gradient to the first maximum (JAX splits a tie evenly, so
+    the JAX comparisons run on tie-free positions)."""
+    def pot(q_t):
+        return torch.sum(q_t.reshape(2, 3, -1).max(dim=1).values, 0)
+
+    traced = generic_pg.trace_potential(pot, (), 6)
+    q = torch.tensor([[1.0, 2.0, 1.0, -1.0, 0.5, 0.5]]).T  # ties in each row
+    u, g = generic_pg.run_plain(traced.ir, q, ())
+    assert u.item() == 2.5
+    assert g.reshape(-1).tolist() == [0.0, 1.0, 0.0, 0.0, 1.0, 0.0]
+    qr = q.clone().requires_grad_(True)
+    (g_ref,) = torch.autograd.grad(pot(qr).sum(), qr)
+    assert torch.equal(g, g_ref)
 
 
 def test_a_scatter_sums_in_input_order_bit_for_bit(tmp_path):

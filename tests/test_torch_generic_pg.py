@@ -5,9 +5,13 @@
   JAX twin in float64, both to 1e-10 relative, on the repo's potentials and
   the JAX benchmark cells' (logistic with data and by closure, dense MVN,
   Neal's funnel, eight schools, linear regression through the generic
-  binding, the ``nuts_fused_generic_10k`` standard-layout potential).
-- The errors: an op outside the table, a potential that mixes chains, data
-  that are not float32.
+  binding, the ``nuts_fused_generic_10k`` standard-layout potential), a
+  case a family of the op table (general and broadcast triangular solves,
+  ``max``/``min`` with indices, ``isnan``, ``gather``/``scatter``, index
+  arithmetic and several index tensors, ``pow``, masks and indexed
+  assignment) and the test potentials of ``test_torch_generic_ops.py``.
+- The errors: an op outside the table (a sort, an eigendecomposition), a
+  potential that mixes chains, data that are not float32.
 - ``emit_cuda`` is deterministic, names every data operand and stores the
   workspace the plain back end reports.
 - The emitted functor itself, compiled for the CPU with g++ against a
@@ -364,6 +368,216 @@ def _scans_case():
     return pot, (B, ramp), dim, "t", jax_pot
 
 
+# -- the rest of the op table (item 1.10c)
+
+def _solve_case():
+    """``torch.linalg.solve`` on a matrix of data (right sides the chains'
+    columns) and on a matrix that depends on q (a vector right side a
+    chain), and ``left=False``; the matrices need row swaps."""
+    dim = 4
+    rng = np.random.default_rng(12)
+    M = torch.tensor(rng.standard_normal((dim, dim)).astype(F32))
+
+    def pot(q_t, M):
+        a = torch.linalg.solve(M, q_t)
+        A = M + 0.25 * q_t.T[:, :, None] * q_t.T[:, None, :]  # (C, n, n)
+        b = torch.linalg.solve(A, torch.sin(q_t.T))           # (C, n)
+        c = torch.linalg.solve(M.T, q_t.T, left=False)
+        return 0.125 * torch.sum(a * a, 0) + torch.sum(b * q_t.T, 1) \
+            + 0.0625 * torch.sum(c * c, 1) + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, M):
+        a = jnp.linalg.solve(M, q_t)
+        A = M + 0.25 * q_t.T[:, :, None] * q_t.T[:, None, :]
+        b = jnp.linalg.solve(A, jnp.sin(q_t.T)[..., None])[..., 0]
+        c = jnp.linalg.solve(M, q_t).T  # x M^T = q^T is M x^T = q
+        return 0.125 * jnp.sum(a * a, 0) + jnp.sum(b * q_t.T, 1) \
+            + 0.0625 * jnp.sum(c * c, 1) + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (M,), dim, "t", jax_pot
+
+
+def _maxmin_case():
+    """``max(dim=)`` and ``min(dim=)``, their values and indices (tie-free
+    positions), ``amin``, ``argmax``."""
+    dim = 6
+    w = torch.linspace(0.5, 1.5, 3).reshape(-1, 1)
+
+    def pot(q_t, w):
+        M = q_t.reshape(2, 3, -1)
+        hi, i = M.max(dim=1)
+        lo = M.min(dim=0, keepdim=True)
+        return torch.sum(hi * hi, 0) + torch.sum(w * lo.values[0] ** 2, 0) \
+            + 0.125 * torch.sum(i.float(), 0) \
+            + 0.25 * torch.sum(lo.indices.float(), (0, 1)) \
+            + torch.amin(q_t, 0) + 0.375 * torch.argmax(q_t, 0).float() \
+            + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, w):
+        M = q_t.reshape(2, 3, -1)
+        hi, i = jnp.max(M, 1), jnp.argmax(M, 1)
+        lo, li = jnp.min(M, 0), jnp.argmin(M, 0)
+        return jnp.sum(hi * hi, 0) + jnp.sum(w * lo ** 2, 0) \
+            + 0.125 * jnp.sum(i, 0) + 0.25 * jnp.sum(li, 0) \
+            + jnp.min(q_t, 0) + 0.375 * jnp.argmax(q_t, 0) \
+            + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (w,), dim, "t", jax_pot
+
+
+def _isnan_case():
+    """``isnan`` on data (NaN where a value is missing) and on q."""
+    dim = 5
+    y = torch.tensor([[1.5], [float("nan")], [-0.5], [float("nan")], [2.0]])
+
+    def pot(q_t, y):
+        seen = ~torch.isnan(y)
+        yc = torch.where(seen, y, 0.0)
+        return 0.5 * torch.sum(seen * (q_t - yc) ** 2, 0) \
+            + torch.sum(torch.isnan(torch.log(q_t + 0.5)).float(), 0) \
+            + 0.125 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, y):
+        seen = ~jnp.isnan(y)
+        yc = jnp.where(seen, y, 0.0)
+        return 0.5 * jnp.sum(seen * (q_t - yc) ** 2, 0) \
+            + jnp.sum(jnp.isnan(jnp.log(q_t + 0.5)), 0) \
+            + 0.125 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (y,), dim, "t", jax_pot
+
+
+def _gather_scatter_case():
+    """``torch.gather`` along an axis by an index of data, a writing
+    ``torch.scatter`` (no duplicate) and ``scatter_add`` (duplicates, in
+    input order)."""
+    dim = 12
+    idx = torch.tensor([[2, 0], [3, 3], [1, 2]])
+    put = torch.tensor([[1, 3], [0, 2], [2, 0]])
+    w = torch.linspace(0.5, 1.5, 12).reshape(3, 4, 1)
+
+    def pot(q_t, idx, put, w):
+        M = q_t.reshape(3, 4, -1)
+        C = M.shape[-1]
+        g = torch.gather(M, 1, idx[..., None].expand(3, 2, C))
+        s = torch.scatter(torch.zeros_like(M), 1,
+                          put[..., None].expand(3, 2, C), torch.exp(g))
+        a = torch.scatter_add(w.expand(3, 4, C).clone(), 1,
+                              idx[..., None].expand(3, 2, C), g * g)
+        return torch.sum(s * M, (0, 1)) + 0.5 * torch.sum(a * a, (0, 1))
+
+    def jax_pot(q_t, idx, put, w):
+        M = q_t.reshape(3, 4, -1)
+        C = M.shape[-1]
+        rows = jnp.arange(3)[:, None]
+        g = M[rows, idx]
+        s = jnp.zeros_like(M).at[rows, put].set(jnp.exp(g))
+        a = jnp.broadcast_to(w, (3, 4, C)).at[rows, idx].add(g * g)
+        return jnp.sum(s * M, (0, 1)) + 0.5 * jnp.sum(a * a, (0, 1))
+
+    return pot, (idx, put, w), dim, "t", jax_pot
+
+
+def _index_arith_case():
+    """Integer arithmetic on index data (``idx + 1``, ``i * K + j``, ``//``,
+    ``%``) and two index tensors (``x[i, j]``, ``x[arange(n), y - 1]``)."""
+    dim = 12
+    i = torch.tensor([0, 2, 1, 2, 0])
+    j = torch.tensor([3, 1, 0, 2, 3])
+    y = torch.tensor([1, 4, 2, 3])  # labels 1..4
+
+    def pot(q_t, i, j, y):
+        M = q_t.reshape(3, 4, -1)
+        a = q_t[(i * 4 + j) // 2 + 1]
+        b = M[i, j]
+        c = M[torch.arange(3), y[:3] - 1]
+        d = q_t[(j * 5) % 7]
+        return 0.5 * torch.sum(a * a, 0) + torch.sum(torch.exp(0.375 * b), 0) \
+            + torch.sum(c * c * c, 0) + torch.sum(torch.sin(d), 0)
+
+    def jax_pot(q_t, i, j, y):
+        M = q_t.reshape(3, 4, -1)
+        a = q_t[(i * 4 + j) // 2 + 1]
+        b = M[i, j]
+        c = M[jnp.arange(3), y[:3] - 1]
+        d = q_t[(j * 5) % 7]
+        return 0.5 * jnp.sum(a * a, 0) + jnp.sum(jnp.exp(0.375 * b), 0) \
+            + jnp.sum(c * c * c, 0) + jnp.sum(jnp.sin(d), 0)
+
+    return pot, (i, j, y), dim, "t", jax_pot
+
+
+def _pow_case():
+    """``pow`` with a tensor exponent (a positive base of data, a base of
+    q; a zero base pins torch's ``where(base == 0 & exp >= 0, 0, ...)``
+    in the exponent's gradient) and with a scalar base (``2 ** q``)."""
+    dim = 4
+    t = torch.tensor([[0.5], [2.0], [0.0], [3.0]])
+
+    def pot(q_t, t):
+        r = torch.exp(0.375 * q_t)
+        return torch.sum(t ** r, 0) + torch.sum(2 ** q_t, 0) \
+            + 0.125 * torch.sum(torch.exp(q_t) ** torch.sin(q_t), 0) \
+            + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, t):
+        r = jnp.exp(0.375 * q_t)
+        return jnp.sum(t ** r, 0) + jnp.sum(2.0 ** q_t, 0) \
+            + 0.125 * jnp.sum(jnp.exp(q_t) ** jnp.sin(q_t), 0) \
+            + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (t,), dim, "t", jax_pot
+
+
+def _masks_case():
+    """A bool mask of data (``x[mask]``), an indexed assignment through it
+    and through an index (``v[mask] = a``, ``v[idx] = a``, no
+    accumulate)."""
+    dim = 6
+    m = torch.tensor([1, 0, 2, 1, 0, 3])  # a mask where m > 0
+    idx = torch.tensor([4, 1])
+
+    def pot(q_t, m, idx):
+        m = m.bool()
+        v = torch.zeros_like(q_t)
+        v[m] = torch.exp(0.5 * q_t[m])
+        v[~m] = q_t[~m] ** 2
+        v[idx] = 3.0 * q_t[idx]
+        return torch.sum(v, 0) + 0.5 * torch.sum(q_t * q_t, 0)
+
+    def jax_pot(q_t, m, idx):
+        v = jnp.where(m[:, None] > 0, jnp.exp(0.5 * q_t), q_t ** 2)
+        v = v.at[idx].set(3.0 * q_t[idx])
+        return jnp.sum(v, 0) + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (m, idx), dim, "t", jax_pot
+
+
+def _trsolve_bcast_case():
+    """A triangular solve whose batch of factors (3, 1) broadcasts against
+    the right sides' (1, 2): the solution's batch (3, 2)."""
+    dim = 6
+    rng = np.random.default_rng(13)
+    L = torch.tensor(np.tril(0.375 * rng.standard_normal((3, 1, 3, 3))
+                             + 2.0 * np.eye(3)).astype(F32))
+
+    def pot(q_t, L):
+        B = q_t.reshape(1, 2, 3, -1)
+        X = torch.linalg.solve_triangular(L, B, upper=False)
+        return 0.5 * torch.sum(X * X, (0, 1, 2)) + 0.5 * torch.sum(q_t * q_t,
+                                                                   0)
+
+    def jax_pot(q_t, L):
+        B = q_t.reshape(1, 2, 3, -1)
+        shape = (3, 2, 3, B.shape[-1])
+        X = jax.scipy.linalg.solve_triangular(
+            jnp.broadcast_to(L, (3, 2, 3, 3)), jnp.broadcast_to(B, shape),
+            lower=True)
+        return 0.5 * jnp.sum(X * X, (0, 1, 2)) + 0.5 * jnp.sum(q_t * q_t, 0)
+
+    return pot, (L,), dim, "t", jax_pot
+
+
 CASES = {
     "logistic": _logistic_case, "logistic_wide": _wide_case,
     "logistic_closure": _closure_case,
@@ -374,19 +588,28 @@ CASES = {
     # potentials at small sizes (tests/test_torch_generic_ops.py)
     "op_trsolve": _trsolve_case, "op_special": _special_case,
     "op_reductions": _reductions_case, "op_gather": _gather_case,
-    "op_scans": _scans_case, **OP_CASES,
+    "op_scans": _scans_case,
+    # the rest of the table: general solves, max/min with indices, isnan,
+    # gather and scatter, index arithmetic, pow, masks, broadcast factors
+    "op_solve": _solve_case, "op_maxmin": _maxmin_case,
+    "op_isnan": _isnan_case, "op_gather_scatter": _gather_scatter_case,
+    "op_index_arith": _index_arith_case, "op_pow": _pow_case,
+    "op_masks": _masks_case, "op_trsolve_bcast": _trsolve_bcast_case,
+    **OP_CASES,
 }
 
 # Limits of the emitted functor against its plain back end (float32): 1e-5
 # of the largest value for every case.  B's special functions are CUDA's or
-# transcriptions of ATen's float formulas, a few ulp (<= 5e-7 relative) from
-# torch's each, so 1e-5 holds for them too.
+# transcriptions of ATen's float formulas (digamma: the one torch runs on
+# the card), a few ulp (<= 5e-7 relative) from torch's CPU ones each, so
+# 1e-5 holds for them too.
 EMITTED_RTOL = 1e-5
 # Limits of the plain back end (run in float64) against float64 autograd
 # and jax.vjp: 1e-10, but where a gradient formula holds an irrational
-# constant (erf's 2/sqrt(pi), log_ndtr's sqrt(2 pi), var's 2/(n - 1)) the
-# IR keeps it in float32, as the card does: 6e-8 relative rounding.
-FLOAT64_RTOL = {"op_special": 1e-7, "op_scans": 1e-7}
+# constant (erf's 2/sqrt(pi), log_ndtr's sqrt(2 pi), var's 2/(n - 1), the
+# log 2 of 2 ** q's gradient) the IR keeps it in float32, as the card does:
+# 6e-8 relative rounding.
+FLOAT64_RTOL = {"op_special": 1e-7, "op_scans": 1e-7, "op_pow": 1e-7}
 
 
 def _case(name):
@@ -488,21 +711,20 @@ def test_closed_over_tensors_become_data_operands():
 # ----------------------------------------------------------- the errors ---
 
 def test_an_op_outside_the_table_raises_naming_it():
-    """A general dense solve (``torch.linalg.solve``: an LU solve a chain)
-    stays outside the table on purpose."""
-    M = 2.0 * torch.eye(4) + 0.1
-    with pytest.raises(NotImplementedError,
-                       match=r"aten\._linalg_solve_ex.*1\.10c"):
+    """A sort and a symmetric eigendecomposition stay outside the table:
+    each raises naming its aten op and the roadmap item."""
+    with pytest.raises(NotImplementedError, match=r"aten\.sort.*1\.10c"):
         generic_pg.trace_potential(
-            lambda q_t: 0.5 * torch.sum(q_t * torch.linalg.solve(M, q_t), 0),
+            lambda q_t: 0.5 * torch.sum(q_t * torch.sort(q_t, 0).values, 0),
             (), 4)
     M3 = torch.eye(3) + 0.2
 
-    def solve_lp(q):
-        return -0.5 * torch.dot(q, torch.linalg.solve(M3, q))
+    def eigh_lp(q):
+        w = torch.linalg.eigvalsh(M3 + torch.outer(q, q))
+        return -0.5 * torch.sum(w)
 
-    pot, data = _generic_fused_binding(solve_lp, 3)
-    with pytest.raises(NotImplementedError, match="_linalg_solve_ex"):
+    pot, data = _generic_fused_binding(eigh_lp, 3)
+    with pytest.raises(NotImplementedError, match="_linalg_eigh"):
         generic_pg.trace_potential(pot, data, 3)
     # the package's own mvn binds: its triangular solve is in the table
     mvn_lp = mvn(np.zeros(3), np.eye(3) + 0.2, device="cpu")
@@ -741,7 +963,7 @@ def test_emitted_functor_computes_its_plain_version(name, tmp_path):
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the emitted functor for the CPU")
     _, data, dim, _, _, traced = _traced(name)
-    operands = (*data, *traced.constants)
+    operands = generic_pg.all_operands(traced.ir, (*data, *traced.constants))
     q = _positions(dim, chains=5, seed=11).T.astype(F32)
     u, g = generic_pg.run_plain(traced.ir, torch.tensor(q.T), operands)
     ue, ge = _emulate(generic_pg.emit_cuda(traced.ir), operands, q, tmp_path)

@@ -256,11 +256,10 @@ def test_card_dispatch_names_each_functor(module):
 @pytest.mark.parametrize("module", sorted(CORES))
 def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
     var_col = (torch.tensor(GAUSS_VAR[:4]).reshape(-1, 1),)
-    M = 2.0 * torch.eye(4) + 0.1  # a general solve: outside the table
-    with pytest.raises(NotImplementedError, match=r"_linalg_solve_ex.*1\.10c"):
-        _dispatch(module, None, (), torch.zeros(4, 16),
+    with pytest.raises(NotImplementedError, match=r"aten\.sort.*1\.10c"):
+        _dispatch(module, None, (), torch.zeros(4, 16),  # a sort: no rule
                   potential_fn_t=lambda q_t: torch.sum(
-                      q_t * torch.linalg.solve(M, q_t), 0))
+                      q_t * torch.sort(q_t, 0).values, 0))
     with pytest.raises(TypeError, match="float32"):
         _dispatch(module, _gaussian_pg, var_col,
                   torch.zeros(4, 16, dtype=torch.float64))

@@ -325,11 +325,10 @@ def test_cuda_path_takes_only_the_logistic_kernel_potential():
     chains = q_t.shape[1]
     var = (torch.ones(q_t.shape[0], 1),)
     assert _check_cuda_args(_gaussian_pg, var, q_t, 0.3) == "generic"
-    M = 2.0 * torch.eye(q_t.shape[0]) + 0.1  # a general solve: outside
-    with pytest.raises(NotImplementedError, match="_linalg_solve_ex"):
-        _check_cuda_args(None, (), q_t, 0.3,
+    with pytest.raises(NotImplementedError, match=r"aten\.sort"):
+        _check_cuda_args(None, (), q_t, 0.3,  # a sort: outside the table
                          potential_fn_t=lambda q: torch.sum(
-                             q * torch.linalg.solve(M, q), 0))
+                             q * torch.sort(q, 0).values, 0))
     row = torch.linspace(0.1, 0.4, chains)
     assert _check_cuda_args(logistic_pg_t, data, q_t, row) == "logistic"
     assert torch.equal(_eps_row(row, q_t), row)
