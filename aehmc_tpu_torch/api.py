@@ -33,6 +33,8 @@ the card. The fused MALA and GHMC routes take none (``ValueError``), as
 in the JAX package.
 """
 
+import math
+import operator
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -89,14 +91,20 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
     vector, counts) stays an integer row, which the generated functor
     reads as int32 (a view of the tensor, so changed values are read
     anew).  The trace is functionalized, so a logprob may assign into a
-    tensor it makes (``ll = torch.zeros(n); ll[mask] = ...``).  Returns
+    tensor it makes (``ll = torch.zeros(n); ll[mask] = ...``), and runs
+    with ``torch.distributions``' argument validation off (a host check
+    on the values), the caller's setting restored after.  Returns
     ``(potential_t, data)``."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
+    from aehmc_tpu_torch.ops.generic_pg import no_validation
+
     # functionalized: an indexed assignment into a tensor the logprob
-    # makes (``ll[obs] = ...``) becomes an index_put the vmap below takes
-    gm = make_fx(torch.func.functionalize(logprob_fn))(
-        torch.zeros(dim, dtype=torch.float32, device=device))
+    # makes (``ll[obs] = ...``) becomes an index_put the vmap below takes;
+    # torch.distributions traced with argument validation off
+    with no_validation():
+        gm = make_fx(torch.func.functionalize(logprob_fn))(
+            torch.zeros(dim, dtype=torch.float32, device=device))
     graph = gm.graph
     last = next(n for n in graph.nodes if n.op == "placeholder")
     inputs, consts = {}, []
@@ -110,10 +118,14 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
             consts.append(getattr(gm, node.target))
         node.replace_all_uses_with(inputs[node.target])
         graph.erase_node(node)
+    _nan_for_failed_factors(graph)
     graph.lint()
     closed = torch.fx.GraphModule(gm, graph)
     specs = [(tuple(c.shape), c.dtype) for c in consts]
-    data = [c.reshape(1, -1) for c in consts]
+    # on the probe's device: a constant made on the CPU inside the logprob
+    # (a torch.distributions parameter given as a number) goes along
+    data = [c.reshape(1, -1) if device is None else
+            c.reshape(1, -1).to(device) for c in consts]
 
     def potential_t(q_t, *rows):
         if len(rows) != len(specs):
@@ -126,6 +138,38 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
         return -torch.func.vmap(lambda q: closed(q, *args), in_dims=1)(q_t)
 
     return potential_t, data
+
+
+def _nan_for_failed_factors(graph):
+    """The fused kernels' rule on a failed factorisation, on the graph the
+    binding runs on CPU tensors too: a Cholesky factor is NaN where its
+    matrix is not positive definite (JAX's cholesky), and no
+    ``_linalg_check_errors`` raises (a singular solve gives what its LU
+    gives), so such a position is a divergent leaf, never an exception."""
+    aten = torch.ops.aten
+    for node in list(graph.nodes):
+        if node.op != "call_function":
+            continue
+        if node.target == aten._linalg_check_errors.default:
+            graph.erase_node(node)
+        elif node.target == aten.linalg_cholesky_ex.default:
+            factor = next((u for u in node.users if u.args[1] == 0), None)
+            if factor is None:
+                continue
+            last = [factor]
+
+            def after(target, args):
+                with graph.inserting_after(last[0]):
+                    last[0] = graph.call_function(target, args)
+                return last[0]
+
+            info = after(operator.getitem, (node, 1))
+            bad = after(aten.ne.Scalar, (info, 0))
+            bad = after(aten.unsqueeze.default, (bad, -1))
+            bad = after(aten.unsqueeze.default, (bad, -1))
+            nan = after(aten.where.ScalarSelf, (bad, math.nan, factor))
+            factor.replace_all_uses_with(nan)
+            nan.update_arg(2, factor)
 
 
 def _fused_nuts_result(out) -> SampleResult:

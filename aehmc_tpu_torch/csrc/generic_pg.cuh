@@ -22,7 +22,8 @@
 // kernels 2 and 4.
 //
 // The helpers keep torch's semantics on NaN: a clamp, a maximum or a
-// minimum of NaN is NaN (fmaxf would drop it).  digamma transcribes the
+// minimum of NaN is NaN (fmaxf would drop it), a sort puts NaN last
+// (first, descending).  digamma transcribes the
 // formula torch's digamma runs on the card, log_ndtr ATen's float formula
 // (calc_log_ndtr in ATen/native/Math.h); lgamma, erf, erfc and erfcx are
 // CUDA's (lgammaf, erff, erfcf, erfcxf), as torch's lgamma, erf and erfc
@@ -180,5 +181,33 @@ __device__ __forceinline__ float gpg_log_ndtr(float x) {
   return log1pf(-erfcf(t) / 2.f);
 }
 __device__ __forceinline__ int gpg_imin(int a, int b) { return a < b ? a : b; }
+// a per-chain index (computed on the card: max.dim's, a sort's, integer
+// arithmetic on them) wrapped if negative and clamped into [0, n), as
+// JAX's gather takes an index out of range (torch would raise)
+__device__ __forceinline__ int gpg_index(int k, int n) {
+  k = k < 0 ? k + n : k;
+  return k < 0 ? 0 : (k >= n ? n - 1 : k);
+}
+// torch.remainder of integers held as floats: the sign of the divisor
+__device__ __forceinline__ float gpg_remainder(float a, float b) {
+  return a - b * floorf(a / b);
+}
+// the warp's product, butterfly as warp_sum's
+__device__ __forceinline__ float gpg_warp_prod(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = v * __shfl_down_sync(FULL, v, o);
+  return __shfl_sync(FULL, v, 0);
+}
+// whether element (a, ia) comes before (b, ib) in a sort of n elements:
+// ascending (descending) value, a NaN the largest either way, ties in index
+// order (torch's stable sort); an index of n or more (a bitonic network's
+// padding) after every element
+__device__ __forceinline__ bool gpg_sort_before(float a, int ia, float b,
+                                                int ib, bool desc, int n) {
+  if (ia >= n || ib >= n) return ib >= n && (ia < n || ia < ib);
+  const bool na = a != a, nb = b != b;
+  if (na || nb) return na && nb ? ia < ib : (desc ? na : nb);
+  if (a != b) return desc ? a > b : a < b;
+  return ia < ib;
+}
 
 }  // namespace aehmc

@@ -18,16 +18,25 @@ steps with public PyTorch API:
    matrix products, triangular solves, general solves (LU with partial
    pivoting), gathers by an index operand and their scatter-adds, writing
    scatters (``put``: by an inverse index map; ``pick``: by a per-chain
-   index of one entry), cumulative sums, views, constants, the position
-   ``q`` and the data operands; closed-over tensors become data operands,
-   as ``jax.closure_convert`` makes them.  Data are float32, or integer
+   index of one entry), cumulative sums and products, products along
+   axes, Cholesky factors, log-determinants (an LU), symmetric
+   eigendecompositions (cyclic Jacobi), sorts and top-k (a per-chain
+   permutation, the values a ``take`` by it, its backward a scatter by
+   it), reducing scatters by an index of data, masks computed from an
+   element's index (``eye``, ``tril``, diagonals), per-chain integer
+   arithmetic on an index computed on the card, views, constants, the
+   position ``q`` and the data operands; closed-over tensors become data
+   operands, as ``jax.closure_convert`` makes them.  Data are float32, or integer
    (int32/int64: index vectors, counts), which travel to the card as int32
    rows.  An integer or bool value computed from the data alone (index
    arithmetic such as ``y - 1``, ``torch.arange``, a mask such as
    ``~isnan(t)``, the flat positions that several index tensors, a mask or
    ``torch.gather``/``scatter`` read or write) is evaluated on the host
    into a derived int32 row (:func:`derived_operands`), rebuilt when the
-   data change; the kernel's work stays as it is.  ``logsumexp``,
+   data change; the kernel's work stays as it is.  A float value of the
+   data alone that has no rule (or a dear one: a factorisation, a sort)
+   is folded the same way, in float64, into a derived float32 row.
+   ``logsumexp``,
    ``log_softmax``, ``softmax``, ``stack``, ``var``, ``cholesky_solve``,
    ``min`` and ``amin`` are rewritten into the nodes above;
 3. :func:`emit_cuda` writes ``struct GenericPG`` to the NUTS core's functor
@@ -56,7 +65,12 @@ one lane an output, sequential.  A scatter-add (the backward of
 a gather) starts from its base, and each output's owning lane (output
 j: lane j % 32) adds the values that land on it in input order, as
 torch's ``index_add``/``index_put(accumulate=True)`` on the CPU does; no
-atomics.  A cumulative sum runs one lane a line, sequential.  Gathers
+atomics.  A cumulative sum (product) runs one lane a line, sequential.
+A Cholesky factor, the LU of a log-determinant and a cyclic Jacobi
+eigendecomposition run in the workspace, the warp over one matrix at a
+time; a sort ranks by counting up to 32 elements and runs a bitonic
+network beyond; a reducing scatter reduces each output's inputs (a row
+the host builds) in input order in the output's lane.  Gathers
 read their index operand at run time (an index is checked on the host
 to lie in ``[-n, n)`` and wrapped on the card), so the IR and its cache do
 not depend on index values.  Elementwise nodes are inlined into the loops
@@ -73,6 +87,7 @@ Arithmetic is IEEE (``expf``, ``logf``, ``log1pf``, ``lgammaf``,
 and solves use explicit ``fmaf``.
 """
 
+import contextlib
 import hashlib
 import math
 import operator
@@ -87,16 +102,25 @@ MAX_DATA = 16            # data operands a functor takes (csrc/generic_pg.cuh)
 SHARE_COST = 8           # ops above which a node read by two loops is stored
 WARP_OUTPUTS = 8         # outputs a warp sums at once (measured: PERF.md §6)
 _ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
+_Q_MASK = ("indexing by a bool mask that depends on q (x[q > 0], x[mask] = v) "
+           "gives a shape that depends on the values, which neither package "
+           "traces (JAX raises NonConcreteBooleanIndexError); keep the shape "
+           "with torch.where(mask, x, 0) instead")
 
 # op kinds of the IR besides the elementwise ones (_formula) and "q",
 # "data", "const", "pad_slice", "pad_select", "cat"; "gather" reads its
 # source at an index operand's values, "flip" reverses axes
-VIEWS = ("reshape", "permute", "expand", "slice", "select", "flip", "gather")
-CONTRACTIONS = ("sum", "amax", "mm")
+VIEWS = ("reshape", "permute", "expand", "slice", "select", "flip", "gather",
+         "take", "diagonal")
+CONTRACTIONS = ("sum", "amax", "mm", "prod")
 # stored nodes with a loop of their own: a triangular solve, an LU solve, a
-# scatter-add, a cumulative sum, the index of a maximum (always in the
+# scatter-add, a cumulative sum, the index of a maximum, a Cholesky factor,
+# a log-determinant, a symmetric eigendecomposition, a cumulative product,
+# a sort's permutation, a scatter by it, a reducing scatter (always in the
 # workspace, never a register)
-SEQUENTIAL = ("trsolve", "lusolve", "scatter_add", "cumsum", "argmax")
+SEQUENTIAL = ("trsolve", "lusolve", "scatter_add", "cumsum", "argmax", "chol",
+              "slogdet", "eigh", "cumprod", "sortidx", "scatter_perm",
+              "scatter_reduce")
 INT_DTYPES = (torch.int32, torch.int64)
 COMPARISONS = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
                "ge": ">="}
@@ -268,10 +292,31 @@ def trace_potential(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
     data = _require_data(data)
     if device is None:
         device = data[0].device if data else torch.device("cpu")
-    _check_chains_apart(fn, data, dim, layout, with_grad, device)
+    try:
+        _check_chains_apart(fn, data, dim, layout, with_grad, device)
+    except RuntimeError as err:  # vmap's refusal of a bool mask
+        if "boolean mask" not in str(err):
+            raise
+        raise NotImplementedError(_Q_MASK) from err
     probe = torch.zeros(dim, dtype=torch.float32, device=device)
-    gm = make_fx(_per_chain(fn, dim, layout, with_grad))(probe, *data)
+    with no_validation():
+        gm = make_fx(_per_chain(fn, dim, layout, with_grad))(probe, *data)
     return _Converter(gm, dim, layout, data).run()
+
+
+@contextlib.contextmanager
+def no_validation():
+    """``torch.distributions`` with argument validation off, the caller's
+    setting restored afterwards: validation checks the values on the host,
+    a branch on the data that no trace takes."""
+    from torch.distributions import Distribution
+
+    before = Distribution._validate_args
+    Distribution.set_default_validate_args(False)
+    try:
+        yield
+    finally:
+        Distribution.set_default_validate_args(before)
 
 
 # ---------------------------------------------------- graph to the IR ----
@@ -324,7 +369,8 @@ class _Converter:
 
     def derived(self, nid):
         n = self.nodes[nid]
-        return self.make("derived", (nid,), n.shape, "i")
+        return self.make("derived", (nid,), n.shape,
+                         "f" if n.dtype == "f" else "i")
 
     def data_only(self, ids) -> bool:
         return not any(int(i) in self.qdep for i in ids)
@@ -333,7 +379,9 @@ class _Converter:
         """A node the host evaluates from the data (``params``: an aten op
         or a host function of :data:`_HOST_FNS`, and a template of its
         arguments); its shape and kind are those of its value on the traced
-        data."""
+        data.  An op of several outputs gives a node for each tensor among
+        them (the output's place the last of ``params``), None for the
+        others."""
         if not self.data_only(ids):
             raise NotImplementedError(
                 f"{params[1]} on a value that depends on q has no rule in the "
@@ -346,19 +394,25 @@ class _Converter:
         nodes = self.nodes + [probe]
         value = _host_eval(nodes, len(nodes) - 1, operands, self.host_memo)
         self.host_memo.pop(len(nodes) - 1)
-        dtype = "b" if value.dtype == torch.bool else "i"
+        if isinstance(value, (tuple, list)):
+            return tuple(
+                self.host((*params[:-1], k), ids)
+                if isinstance(v, torch.Tensor) else None
+                for k, v in enumerate(value))
+        dtype = "b" if value.dtype == torch.bool else (
+            "f" if value.is_floating_point() else "i")
         nid = self.make("host", ids, tuple(value.shape), dtype, params)
         self.host_memo[int(nid)] = value
         return nid
 
     def host_op(self, target, args, kwargs):
-        """An aten op on integer or bool values of the data, replayed on the
-        host."""
+        """An aten op on values of the data alone, replayed on the host
+        (integers and bools as they are, floats in float64)."""
         ids = []
         targs = _template(list(args), ids)
         tkw = tuple(sorted((k, _template(v, ids)) for k, v in kwargs.items()
                            if k not in ("device", "pin_memory", "layout")))
-        return self.host(("aten", str(target), targs, tkw), ids)
+        return self.host(("aten", str(target), targs, tkw, None), ids)
 
     def const(self, value, shape=(), dtype="f"):
         value = float(value)
@@ -452,9 +506,9 @@ class _Converter:
             if i not in live:
                 continue
             if n.op == "derived":
-                n = Node("data", (), n.shape, "i", (len(shapes),))
+                n = Node("data", (), n.shape, n.dtype, (len(shapes),))
                 shapes.append(n.shape)
-                kinds.append("i")
+                kinds.append(n.dtype)
             remap[i] = len(nodes)
             nodes.append(n._replace(args=tuple(remap[a] for a in n.args)))
         ir = IR(tuple(nodes), remap[u], remap[g], self.dim, self.layout,
@@ -497,34 +551,54 @@ class _Converter:
     def call(self, target, args, kwargs, val):
         name = target.overloadpacket.__name__.rstrip("_")
         self.ops.add(str(target))
+        ids = []
+        _template([list(args), list(kwargs.values())], ids)
         if val is not None and isinstance(val, torch.Tensor):
             if val.dtype not in (torch.float32, torch.bool, *INT_DTYPES):
                 raise TypeError(
                     f"the generated functor computes in float32; {target} "
                     f"gives {val.dtype}")
-            ids = []
-            _template([list(args), list(kwargs.values())], ids)
             inputs = {self.nodes[i].dtype for i in ids}
             if val.dtype in INT_DTYPES and not (
                     name in _ARG_RULES or (name in _INT_RULES
                                            and inputs <= {"i", "b"})):
-                # integer arithmetic, on data alone: the host evaluates it
                 if not self.data_only(ids):
+                    # arithmetic on a per-chain index: computed on the card
+                    if name in _CHAIN_INT_RULES:
+                        return _CHAIN_INT_RULES[name](self, args, kwargs, val)
                     raise NotImplementedError(
                         f"{target} gives integers from a value that depends "
                         "on q; the generic potential compiler takes integer "
-                        "arithmetic on data alone (evaluated on the host); "
-                        f"widening its op table is {_ROADMAP}")
+                        "arithmetic on the data (evaluated on the host) and "
+                        "add, sub, mul, floor_divide and remainder on a "
+                        "per-chain index; widening its op table is "
+                        f"{_ROADMAP}")
+                # integer arithmetic, on data alone: the host evaluates it
                 return self.host_op(target, args, kwargs)
             if val.dtype == torch.bool and name not in _RULES and \
                     self.data_only(ids):
                 return self.host_op(target, args, kwargs)
         rule = _RULES.get(name)
+        if (rule is None or name in _FOLD) and self.data_only(ids) and \
+                _foldable(val) and not name.startswith(_NO_FOLD):
+            # a value of the data alone with no rule (or a dear one): folded
+            # on the host into a derived row, evaluated in float64
+            return self.host_op(target, args, kwargs)
         if rule is None:
             raise NotImplementedError(
                 f"the generic potential compiler has no rule for {target}; "
                 f"widening its op table is {_ROADMAP}")
         return rule(self, args, kwargs, val)
+
+
+def _foldable(val) -> bool:
+    """Whether the host can fold a value: a float32, integer or bool tensor,
+    or a tuple of them (and Nones)."""
+    if isinstance(val, (tuple, list)):
+        return any(isinstance(v, torch.Tensor) for v in val) and all(
+            v is None or _foldable(v) for v in val)
+    return isinstance(val, torch.Tensor) and val.dtype in (
+        torch.float32, torch.bool, *INT_DTYPES)
 
 
 def _rule_identity(c, args, kwargs, val):
@@ -891,19 +965,29 @@ def _positions(c, shape, indices):
     ``arange`` on the host, which checks every index against its axis."""
     ids = []
     template = _template(list(indices), ids)
+    if _q_mask(c, indices):
+        raise NotImplementedError(_Q_MASK)
     if not c.data_only(ids):
         raise NotImplementedError(
-            "indexing by a bool mask, or by several index tensors, that "
-            "depend on q has a data-dependent shape a chain and no rule in "
-            f"the generic potential compiler; widening its op table is "
-            f"{_ROADMAP}")
+            "a writing scatter by several index tensors that depend on q "
+            "has no rule in the generic potential compiler; widening its op "
+            f"table is {_ROADMAP}")
     return c.host(("fn", "index_positions", tuple(shape), template), ids)
 
 
+def _q_mask(c, indices) -> bool:
+    return any(i is not None and c.nodes[i].dtype == "b"
+               and not c.data_only([i]) for i in indices)
+
+
 def _gather(c, x, axis, idx):
+    """``x`` read at ``idx`` along ``axis``: an index of data checked on
+    the host and wrapped; a per-chain index (computed on the card) wrapped
+    if negative and clamped into the axis, as JAX's gather does."""
     shape = c.shape(x)
     out = shape[:axis] + c.shape(idx) + shape[axis + 1:]
-    return c.make("gather", (x, idx), out, c.nodes[x].dtype, (axis,))
+    params = (axis,) if c.data_only([idx]) else (axis, "clamp")
+    return c.make("gather", (x, idx), out, c.nodes[x].dtype, params)
 
 
 def _flat_gather(c, x, pos, shape):
@@ -927,13 +1011,15 @@ def _flat_scatter(c, base, pos, values, accumulate):
     """``base`` with ``values`` added (``accumulate``) or written at the
     flat positions ``pos``.  A writing scatter reads through the inverse
     map of ``pos`` (position -> the value written there, or -1), which the
-    host builds and which refuses a duplicate position: torch and JAX leave
-    the winner of a duplicate unspecified."""
+    host builds and which refuses a duplicate position (torch and JAX leave
+    the winner of a duplicate unspecified) unless every value written is
+    one constant."""
     shape = c.shape(base)
     flat = c.reshape(base, (math.prod(shape),))
     if accumulate:
         return c.reshape(_scatter_add(c, flat, 0, pos, values), shape)
-    inv = c.host(("fn", "inverse", math.prod(shape)), [pos])
+    uniform = c.nodes[_through_views(c, c.arg(values))].op == "const"
+    inv = c.host(("fn", "inverse", math.prod(shape), uniform), [pos])
     values = c.expand(values, c.shape(pos))
     if c.nodes[values].dtype != "f":
         values = c.make("float", (values,), c.shape(pos))
@@ -946,6 +1032,9 @@ def _rule_index(c, args, kwargs, val):
     one = _one_index(c, indices)
     if one is not None:
         return _gather(c, x, *one)
+    if _chain_indices(c, indices):
+        pos, flat = _chain_positions(c, x, indices)
+        return c.reshape(_gather(c, flat, 0, pos), val.shape)
     return _flat_gather(c, x, _positions(c, c.shape(x), indices), val.shape)
 
 
@@ -964,6 +1053,13 @@ def _rule_index_put(c, args, kwargs, val):
     one = _one_index(c, list(indices))
     if accumulate and one is not None:
         return _scatter_add(c, base, *one, values)
+    if accumulate and _chain_indices(c, indices):
+        # several index tensors, a per-chain one among them (the backward
+        # of a gather by them): added at per-chain flat positions
+        pos, flat = _chain_positions(c, base, list(indices))
+        values = c.expand(values, (*c.shape(pos), *c.shape(flat)[1:]))
+        return c.reshape(_scatter_add(c, flat, 0, pos, values),
+                         c.shape(base))
     pos = _positions(c, c.shape(base), list(indices))
     return _flat_scatter(c, base, pos, values, accumulate)
 
@@ -1002,12 +1098,24 @@ def _rule_scatter(accumulate):
             pos = c.host(("fn", "axis_positions", shape, axis), [index])
             return _flat_scatter(c, base, pos, src, accumulate)
         rest = ishape[:axis] + ishape[axis + 1:]
+        perm = c.nodes[_through_views(c, index)]
+        if not accumulate and perm.op == "sortidx" and \
+                perm.params[0] == axis and c.shape(index) == perm.shape and \
+                rest == shape[:axis] + shape[axis + 1:]:
+            # by a sort's (top-k's) indices: distinct along the axis
+            if c.nodes[src].dtype != "f":
+                src = c.make("float", (src,), c.shape(src))
+            return c.make("scatter_perm", (base, index, src), shape, "f",
+                          (axis,))
         if accumulate or ishape[axis] != 1 or \
                 rest != shape[:axis] + shape[axis + 1:]:
             raise NotImplementedError(
                 "a scatter by an index that depends on q has a rule only "
-                "for one entry along its axis, written (max.dim's backward); "
-                f"widening the op table is {_ROADMAP}")
+                "for one entry along its axis, written (max.dim's "
+                "backward), and for a sort's or top-k's indices along their "
+                "axis (a permutation); a per-chain index of several "
+                "entries that may repeat is outside the table; widening "
+                f"it is {_ROADMAP}")
         return c.make("pick", (base, index, src), shape, "f", (axis,))
     return rule
 
@@ -1151,10 +1259,8 @@ def _argmax(c, x, axis, keepdim, sign):
     """The index of the first maximum (minimum) along ``axis``, a NaN
     counting as the largest, as torch's ``max.dim`` gives it: a per-chain
     integer node computed on the card."""
-    if not c.shape(x):
-        raise NotImplementedError(
-            "the index of a maximum of a 0-d value has no rule in the "
-            f"generic potential compiler; widening its op table is {_ROADMAP}")
+    if not c.shape(x):  # the one element's index
+        return c.const(0, (), "i")
     if c.nodes[x].dtype != "f":
         x = c.make("float", (x,), c.shape(x))
     if sign < 0:
@@ -1288,6 +1394,311 @@ def _rule_stack(c, args, kwargs, val):
     return c.make("cat", pieces, shape, "f", (axis,))
 
 
+# -- structural ops: diagonals, triangles, the identity, constant padding
+
+def _band(c, shape, d1, d2, lo, hi, dtype="b"):
+    """The mask of ``lo <= i[d2] - i[d1] <= hi`` over ``shape`` (a bound of
+    None: none), computed from the element's index."""
+    return c.make("band", (), shape, dtype, (d1, d2, lo, hi))
+
+
+def _rule_eye(c, args, kwargs, val):
+    shape = tuple(val.shape)
+    return _band(c, shape, 0, 1, 0, 0,
+                 "b" if val.dtype == torch.bool else "f")
+
+
+def _rule_tri(upper):
+    def rule(c, args, kwargs, val):
+        x = args[0]
+        k = args[1] if len(args) > 1 else kwargs.get("diagonal", 0)
+        shape = c.shape(x)[-2:]
+        mask = _band(c, shape, 0, 1, k if upper else None,
+                     None if upper else k)
+        return c.elementwise("where", (mask, x, 0.0), val)
+    return rule
+
+
+def _diag_dims(args, kwargs, start, ndim, defaults):
+    offset = args[start] if len(args) > start else kwargs.get("offset", 0)
+    d1 = args[start + 1] if len(args) > start + 1 else kwargs.get(
+        "dim1", defaults[0])
+    d2 = args[start + 2] if len(args) > start + 2 else kwargs.get(
+        "dim2", defaults[1])
+    return int(offset), _axis(d1, ndim), _axis(d2, ndim)
+
+
+def _rule_diagonal(c, args, kwargs, val):
+    """``x.diagonal(offset, dim1, dim2)``: a view, the diagonal last."""
+    x = args[0]
+    params = _diag_dims(args, kwargs, 1, len(c.shape(x)), (0, 1))
+    return c.make("diagonal", (x,), val.shape, c.nodes[x].dtype, params)
+
+
+def _diag_pad(c, x, shape, params):
+    """Zeros of ``shape`` with the diagonal ``params`` (offset, dim1, dim2)
+    taken from the last axis of ``x``."""
+    if c.nodes[x].dtype != "f":
+        x = c.make("float", (x,), c.shape(x))
+    return c.make("diag_pad", (x,), shape, "f", params)
+
+
+def _rule_diag_embed(c, args, kwargs, val):
+    x = args[0]
+    shape = tuple(val.shape)
+    return _diag_pad(c, x, shape, _diag_dims(args, kwargs, 1, len(shape),
+                                             (-2, -1)))
+
+
+def _rule_diagonal_backward(c, args, kwargs, val):
+    grad, sizes = args[0], tuple(args[1])
+    return _diag_pad(c, grad, sizes, _diag_dims(args, kwargs, 2, len(sizes),
+                                                (0, 1)))
+
+
+def _rule_diagonal_scatter(c, args, kwargs, val):
+    """``x`` with its diagonal replaced by ``src``."""
+    x, src = args[0], args[1]
+    shape = c.shape(x)
+    offset, d1, d2 = _diag_dims(args, kwargs, 2, len(shape), (0, 1))
+    on = _band(c, shape, d1, d2, offset, offset)
+    return c.elementwise("where", (on, _diag_pad(c, src, shape,
+                                                 (offset, d1, d2)), x), val)
+
+
+def _rule_constant_pad_nd(c, args, kwargs, val):
+    """``F.pad(x, pad, value=v)``: each axis from the last cropped (a
+    negative width, a slice) and padded (a concatenation with constants)."""
+    x, pad = args[0], list(args[1])
+    value = args[2] if len(args) > 2 else kwargs.get("value", 0.0)
+    value = 0.0 if value is None else float(value)
+    ndim = len(c.shape(x))
+    for p in range(len(pad) // 2):
+        axis = ndim - 1 - p
+        before, after = int(pad[2 * p]), int(pad[2 * p + 1])
+        shape = c.shape(x)
+        start, stop = max(-before, 0), shape[axis] - max(-after, 0)
+        if (start, stop) != (0, shape[axis]):
+            x = c.make("slice", (x,), (*shape[:axis], stop - start,
+                                       *shape[axis + 1:]),
+                       c.nodes[x].dtype, (axis, start, 1))
+        pieces = [x]
+        for width, at in ((before, 0), (after, 2)):
+            if width > 0:
+                pieces.insert(at if at == 0 else len(pieces), c.const(
+                    value, (*c.shape(x)[:axis], width,
+                            *c.shape(x)[axis + 1:])))
+        if len(pieces) > 1:
+            out = list(c.shape(x))
+            out[axis] = sum(c.shape(q)[axis] for q in pieces)
+            x = c.make("cat", pieces, tuple(out), "f", (axis,))
+    return x
+
+
+# -- factorisations: Cholesky, log-determinants, symmetric eigenproblems
+
+def _batched(c, A, n):
+    """``A`` ``(*, n, n)`` as ``(batch, n, n)`` and its batch shape."""
+    lead = c.shape(A)[:-2]
+    return c.reshape(A, (math.prod(lead), n, n)), lead
+
+
+def _rule_cholesky(c, args, kwargs, val):
+    """``linalg_cholesky_ex(A, upper)``: the factor a chain (NaN over the
+    whole factor where ``A`` is not positive definite, as JAX's cholesky
+    gives it); ``info`` is 0 (``_linalg_check_errors`` ignores it, so the
+    kernel never raises, and the binding's NaN where ``info != 0`` is the
+    factor itself)."""
+    A = args[0]
+    upper = kwargs.get("upper", args[1] if len(args) > 1 else False)
+    n = c.shape(A)[-1]
+    A3, lead = _batched(c, A, n)
+    if upper:  # U of A = U^T U is L^T of the lower triangle of A^T
+        A3 = _swap_last(c, A3)
+    L = c.make("chol", (A3,), c.shape(A3), "f")
+    if upper:
+        L = _swap_last(c, L)
+    return c.reshape(L, (*lead, n, n)), c.const(0, lead, "i")
+
+
+def _rule_slogdet(c, args, kwargs, val):
+    """``_linalg_slogdet(A)``: ``(sign, log|det A|)`` from an LU with
+    partial pivoting a chain (lusolve's); the factors and pivots are not
+    kept (the traced backward solves with A itself)."""
+    A = args[0]
+    n = c.shape(A)[-1]
+    A3, lead = _batched(c, A, n)
+    batch = c.shape(A3)[0]
+    S = c.make("slogdet", (A3,), (batch, 2), "f")
+    sign, logabs = (c.reshape(c.make("select", (S,), (batch,), "f", (1, k)),
+                              lead) for k in (0, 1))
+    return sign, logabs, None, None
+
+
+def _rule_eigh(c, args, kwargs, val):
+    """``_linalg_eigh(A, UPLO)``: eigenvalues ascending and unit
+    eigenvectors, each with its largest component (the first of equals)
+    positive, by cyclic Jacobi a chain."""
+    A = args[0]
+    uplo = kwargs.get("UPLO", args[1] if len(args) > 1 else "L")
+    n = c.shape(A)[-1]
+    A3, lead = _batched(c, A, n)
+    if uplo == "U":
+        A3 = _swap_last(c, A3)
+    batch = c.shape(A3)[0]
+    E = c.make("eigh", (A3,), (batch, n + 1, n), "f")
+    w = c.reshape(c.make("select", (E,), (batch, n), "f", (1, 0)),
+                  (*lead, n))
+    V = c.reshape(c.make("slice", (E,), (batch, n, n), "f", (1, 1, 1)),
+                  (*lead, n, n))
+    return w, V
+
+
+# -- scans and products
+
+def _rule_cumprod(c, args, kwargs, val):
+    x = args[0]
+    axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim"),
+                 max(len(c.shape(x)), 1))
+    if c.nodes[x].dtype != "f":
+        x = c.make("float", (x,), c.shape(x))
+    if not c.shape(x):
+        return x
+    return c.make("cumprod", (x,), c.shape(x), "f", (axis,))
+
+
+def _rule_prod(c, args, kwargs, val):
+    x = args[0]
+    dims = args[1] if len(args) > 1 else kwargs.get("dim")
+    keepdim = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+    return _reduce(c, "prod", x, _axes(dims, len(c.shape(x))), keepdim)
+
+
+# -- sorts: a per-chain permutation and the values it reads
+
+def _sorted(c, x, axis, descending, k):
+    """``(values, indices)`` of the first ``k`` of ``x`` along ``axis`` in
+    ascending (``descending``) order, ties in index order (torch's stable
+    sort), a NaN the largest."""
+    if not c.shape(x):
+        return x, c.const(0, (), "i")
+    if c.nodes[x].dtype != "f":
+        x = c.make("float", (x,), c.shape(x))
+    out = list(c.shape(x))
+    out[axis] = k
+    idx = c.make("sortidx", (x,), tuple(out), "i",
+                 (axis, bool(descending), int(k)))
+    return c.make("take", (x, idx), tuple(out), "f", (axis,)), idx
+
+
+def _rule_sort(c, args, kwargs, val):
+    x = args[0]
+    dim = args[1] if len(args) > 1 else kwargs.get("dim", -1)
+    desc = args[2] if len(args) > 2 else kwargs.get("descending", False)
+    axis = _axis(dim, max(len(c.shape(x)), 1))
+    n = c.shape(x)[axis] if c.shape(x) else 1
+    return _sorted(c, x, axis, desc, n)
+
+
+def _rule_topk(c, args, kwargs, val):
+    x, k = args[0], int(args[1])
+    dim = args[2] if len(args) > 2 else kwargs.get("dim", -1)
+    largest = args[3] if len(args) > 3 else kwargs.get("largest", True)
+    return _sorted(c, x, _axis(dim, max(len(c.shape(x)), 1)), largest, k)
+
+
+def _rule_scatter_reduce(c, args, kwargs, val):
+    """``scatter_reduce(base, dim, index, src, reduce, include_self)`` by
+    an index of data: the host maps each output to the inputs that land on
+    it, in input order (the preimage row), and each output's lane reduces
+    them in that order."""
+    base, dim, index, src, reduce = args[:5]
+    include_self = kwargs.get("include_self",
+                              args[5] if len(args) > 5 else True)
+    shape = c.shape(base)
+    if not c.data_only([index]):
+        raise NotImplementedError(
+            "scatter_reduce by an index that depends on q has no rule in the "
+            f"generic potential compiler; widening its op table is {_ROADMAP}")
+    if reduce not in ("sum", "prod", "mean", "amax", "amin"):
+        raise NotImplementedError(f"scatter_reduce's reduce={reduce!r}")
+    axis = _axis(dim, len(shape))
+    src = _leading(c, src, c.shape(index))
+    if c.nodes[src].dtype != "f":
+        src = c.make("float", (src,), c.shape(src))
+    numel = math.prod(shape)
+    pos = c.host(("fn", "axis_positions", shape, axis), [index])
+    pre = c.host(("fn", "preimage", numel), [pos])
+    out = c.make("scatter_reduce",
+                 (c.reshape(base, (numel,)), pre,
+                  c.reshape(src, (math.prod(c.shape(src)),))),
+                 (numel,), "f", (reduce, bool(include_self)))
+    return c.reshape(out, shape)
+
+
+# -- integer arithmetic on a per-chain index (max.dim's, argmax's)
+
+def _chain_int(op):
+    def rule(c, args, kwargs, val):
+        alpha = kwargs.get("alpha", 1)
+        mode = kwargs.get("rounding_mode")
+        name = {"floor": "floordiv", "trunc": "truncdiv"}.get(mode, op)
+        if op == "div" and mode is None:
+            raise NotImplementedError("true division of integers")
+        xs = [c.const(a, (), "i") if _num(a) else a for a in args[:2]]
+        if op == "rsub":  # other - alpha * self
+            xs, name = xs[::-1], "sub"
+        if alpha != 1:
+            xs[1] = c.make("mul", (xs[1], c.const(alpha, (), "i")),
+                           c.shape(xs[1]), "i")
+        return c.make(name, xs, tuple(val.shape), "i")
+    return rule
+
+
+_CHAIN_INT_RULES = {"add": _chain_int("add"), "sub": _chain_int("sub"),
+                    "rsub": _chain_int("rsub"), "mul": _chain_int("mul"),
+                    "floor_divide": _chain_int("floordiv"),
+                    "remainder": _chain_int("remainder"),
+                    "div": _chain_int("div")}
+
+
+def _chain_indices(c, indices) -> bool:
+    """Whether ``indices`` hold a per-chain index tensor and no mask that
+    depends on q."""
+    ids = [i for i in indices if i is not None]
+    return not c.data_only(ids) and not _q_mask(c, indices)
+
+
+def _chain_positions(c, x, indices):
+    """``(positions, x flat)``: the flat positions, a per-chain integer
+    node, of ``x[i, j, ...]`` over the leading axes of ``x``, each index
+    wrapped if negative and clamped into its axis (JAX's gather; torch
+    raises instead), and ``x`` with those axes flattened into one."""
+    shape = c.shape(x)
+    tensors = [i for i in indices if i is not None]
+    if len(tensors) != len(indices):
+        raise NotImplementedError(
+            "indexing by several index tensors that depend on q takes them "
+            "on the leading axes, with no whole axis among them")
+    out = ()
+    for t in tensors:
+        out = tuple(torch.broadcast_shapes(out, c.shape(t)))
+    strides = _strides(shape[:len(tensors)])
+    pos = None
+    for t, length, st in zip(tensors, shape, strides):
+        if c.nodes[t].dtype != "i":
+            raise NotImplementedError("a bool mask beside index tensors")
+        k = c.make("iclamp", (t,), c.shape(t), "i", (length,))
+        if st != 1:
+            k = c.make("mul", (k, c.const(st, (), "i")), c.shape(k), "i")
+        pos = k if pos is None else c.make("add", (pos, k), tuple(
+            torch.broadcast_shapes(c.shape(pos), c.shape(k))), "i")
+    n = len(tensors)
+    flat = c.reshape(x, (math.prod(shape[:n]), *shape[n:]))
+    return c.expand(pos, out), flat
+
+
+
 _RULES = {
     # no computation
     "alias": _rule_identity, "clone": _rule_identity,
@@ -1369,7 +1780,27 @@ _RULES = {
     # scatter into zeros, concatenation
     "cat": _rule_cat, "slice_backward": _rule_slice_backward,
     "select_backward": _rule_select_backward,
+    # structural ops (item 1.10c, the last of the table)
+    "eye": _rule_eye, "tril": _rule_tri(False), "triu": _rule_tri(True),
+    "diagonal": _rule_diagonal, "diag_embed": _rule_diag_embed,
+    "diagonal_backward": _rule_diagonal_backward,
+    "diagonal_scatter": _rule_diagonal_scatter,
+    "constant_pad_nd": _rule_constant_pad_nd,
+    # factorisations, scans and products, sorts, reducing scatters
+    "linalg_cholesky_ex": _rule_cholesky, "_linalg_slogdet": _rule_slogdet,
+    "_linalg_eigh": _rule_eigh,
+    "cumprod": _rule_cumprod, "prod": _rule_prod,
+    "sort": _rule_sort, "topk": _rule_topk,
+    "scatter_reduce": _rule_scatter_reduce,
 }
+
+# ops whose value, where it depends on the data alone, the host folds into
+# a derived float row rather than the card computing it at every gradient
+_FOLD = {"linalg_cholesky_ex", "_linalg_slogdet", "_linalg_eigh", "sort",
+         "topk", "cumprod", "prod"}
+# ops whose value the host must not fold: uninitialised or random
+_NO_FOLD = ("empty", "rand", "normal", "bernoulli", "uniform", "exponential",
+            "multinomial", "poisson")
 
 # rules that may give integers (views and copies of integer data; a count)
 _INT_RULES = {"alias", "clone", "detach", "lift_fresh_copy", "contiguous",
@@ -1411,6 +1842,14 @@ def _plain_op(n: Node, vals, dtype):
         return binary[op](vals[0], vals[1])
     if op == "where":
         return torch.where(vals[0], vals[1], vals[2])
+    if op == "floordiv":
+        return torch.div(vals[0], vals[1], rounding_mode="floor")
+    if op == "truncdiv":
+        return torch.div(vals[0], vals[1], rounding_mode="trunc")
+    if op == "remainder":
+        return torch.remainder(vals[0], vals[1])
+    if op == "iclamp":
+        return _clamped(a, n.params[0], flat=False)
     if op == "clamp_min":
         return torch.clamp(a, min=n.params[0])
     if op == "clamp_max":
@@ -1440,8 +1879,37 @@ def _plain_node(n: Node, args, dtype, dev):
     values whose last axis is the chain axis (C, or 1)."""
     if n.op == "const":
         return torch.full((*n.shape, 1), n.params[0],
-                          dtype=torch.bool if n.dtype == "b" else dtype,
-                          device=dev)
+                          dtype={"b": torch.bool, "i": torch.int64}.get(
+                              n.dtype, dtype), device=dev)
+    if n.op == "band":
+        d1, d2, lo, hi = n.params
+        diff = (torch.arange(n.shape[d2], device=dev)[None, :]
+                - torch.arange(n.shape[d1], device=dev)[:, None])
+        mask = torch.ones_like(diff, dtype=torch.bool)
+        if lo is not None:
+            mask &= diff >= lo
+        if hi is not None:
+            mask &= diff <= hi
+        view = [1] * len(n.shape)
+        view[d1], view[d2] = n.shape[d1], n.shape[d2]
+        mask = (mask if d1 < d2 else mask.T).reshape(*view, 1)
+        return mask.expand(*n.shape, 1).to(
+            torch.bool if n.dtype == "b" else dtype)
+    if n.op == "diagonal":
+        offset, d1, d2 = n.params
+        return args[0].diagonal(offset, d1, d2).movedim(-1, -2)
+    if n.op == "diag_pad":
+        offset, d1, d2 = n.params
+        a = args[0]
+        v = torch.zeros((*n.shape, a.shape[-1]), dtype=a.dtype, device=dev)
+        v.diagonal(offset, d1, d2).copy_(a.movedim(-1, -2))
+        return v
+    if n.op == "take":  # torch.gather by a per-chain index, clamped
+        x, k = args
+        axis = n.params[0]
+        c = max(x.shape[-1], k.shape[-1])
+        k = _clamped(k, x.shape[axis]).expand(*k.shape[:-1], c)
+        return torch.gather(x.expand(*x.shape[:-1], c), axis, k)
     if n.op == "reshape":
         return args[0].reshape(*n.shape, args[0].shape[-1])
     if n.op == "permute":
@@ -1462,16 +1930,33 @@ def _plain_node(n: Node, args, dtype, dev):
     if n.op == "gather":
         x, k = args
         axis = n.params[0]
+        if len(n.params) > 1:  # a per-chain index, clamped, a chain each
+            c = max(x.shape[-1], k.shape[-1])
+            k = _clamped(k, x.shape[axis]).expand(*k.shape[:-1], c)
+            x = x.expand(*x.shape[:-1], c).movedim(axis, 0)
+            flat = k.reshape(-1, c)
+            out = torch.gather(x.reshape(x.shape[0], -1, c), 0, flat[:, None,
+                                                                   :].expand(
+                flat.shape[0], x[0].numel() // c, c))
+            out = out.reshape(*k.shape[:-1], *x.shape[1:-1], c)
+            rank = k.ndim - 1
+            return out.movedim(tuple(range(rank)),
+                               tuple(range(axis, axis + rank)))
         return x.index_select(axis, _wrapped(k, x.shape[axis])).reshape(
             *n.shape, x.shape[-1])
     if n.op == "scatter_add":
         base, k, src = args
         axis = n.params[0]
-        c = max(base.shape[-1], src.shape[-1])
+        c = max(base.shape[-1], src.shape[-1], k.shape[-1])
         src = src.expand(*src.shape[:-1], c).reshape(
             *n.shape[:axis], -1, *n.shape[axis + 1:], c)
-        return base.expand(*n.shape, c).index_add(
-            axis, _wrapped(k, n.shape[axis]), src)
+        if k.shape[-1] == 1:  # an index of data
+            return base.expand(*n.shape, c).index_add(
+                axis, _wrapped(k, n.shape[axis]), src)
+        k = _clamped(k, n.shape[axis]).reshape(
+            *(1,) * axis, -1, *(1,) * (len(n.shape) - axis - 1), c)
+        return base.expand(*n.shape, c).clone().scatter_add(
+            axis, k.expand(src.shape), src)
     if n.op == "put":  # out[o] = values[inv[o]] where inv[o] >= 0
         base, inv, values = args
         c = max(base.shape[-1], values.shape[-1])
@@ -1490,6 +1975,41 @@ def _plain_node(n: Node, args, dtype, dev):
     if n.op == "argmax":
         axis, keepdim = n.params
         return args[0].max(dim=axis, keepdim=keepdim).indices
+    if n.op == "sortidx":  # stable, a NaN the largest either way
+        axis, descending, k = n.params
+        return torch.sort(args[0], dim=axis, descending=descending,
+                          stable=True).indices.narrow(axis, 0, k)
+    if n.op == "scatter_perm":  # out = base; out[.., k[.., r, ..], ..] = src
+        base, k, src = args
+        axis = n.params[0]
+        c = max(a.shape[-1] for a in args)
+        return base.expand(*n.shape, c).scatter(
+            axis, k.expand(*k.shape[:-1], c), src.expand(*src.shape[:-1], c))
+    if n.op == "scatter_reduce":
+        base, pre, src = args
+        reduce, include_self = n.params
+        numel = n.shape[0]
+        pre = pre.reshape(-1)
+        counts = pre[1:numel + 1] - pre[:numel]
+        pos = torch.empty_like(pre[numel + 1:])
+        pos[pre[numel + 1:]] = torch.repeat_interleave(
+            torch.arange(numel, device=pre.device), counts)
+        c = max(base.shape[-1], src.shape[-1])
+        return base.expand(numel, c).scatter_reduce(
+            0, pos[:, None].expand(-1, c), src.expand(-1, c), reduce,
+            include_self=include_self)
+    if n.op == "chol":  # NaN over a factor that is not positive definite
+        A = args[0].movedim(-1, 0)
+        L, info = torch.linalg.cholesky_ex(A)
+        L = torch.where((info != 0)[..., None, None], math.nan, L)
+        return L.movedim(0, -1)
+    if n.op == "slogdet":
+        sign, logabs = torch.linalg.slogdet(args[0].movedim(-1, 0))
+        return torch.stack([sign, logabs], -1).movedim(0, -1)
+    if n.op == "eigh":
+        return _plain_eigh(args[0].movedim(-1, 0)).movedim(0, -1)
+    if n.op == "cumprod":
+        return torch.cumprod(args[0], n.params[0])
     if n.op == "trsolve":
         upper, unit = n.params
         A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
@@ -1528,6 +2048,12 @@ def _plain_node(n: Node, args, dtype, dev):
     if n.op == "amax":
         axes, keepdim = n.params
         return args[0].amax(dim=axes, keepdim=keepdim)
+    if n.op == "prod":
+        axes, keepdim = n.params
+        x = args[0]
+        for a in sorted(axes, reverse=True):
+            x = x.prod(dim=a, keepdim=keepdim)
+        return x
     if n.op == "mm":
         a, b = args
         c = max(a.shape[-1], b.shape[-1])
@@ -1613,12 +2139,13 @@ def _axis_positions(vals, shape, axis):
     return sum(k * st for k, st in zip(coords, _strides(shape)))
 
 
-def _inverse(vals, numel):
+def _inverse(vals, numel, uniform=False):
     """Position -> the written value's flat index, or -1, of a writing
     scatter at the flat positions ``vals[0]``; a duplicate position raises
-    ``ValueError``."""
+    ``ValueError`` unless every value written is one constant
+    (``uniform``)."""
     flat = vals[0].reshape(-1)
-    if flat.unique().numel() != flat.numel():
+    if not uniform and flat.unique().numel() != flat.numel():
         raise ValueError(
             "a writing scatter (index_put without accumulate, x[idx] = v, or "
             "torch.scatter) holds a duplicate index; torch and JAX leave the "
@@ -1630,37 +2157,53 @@ def _inverse(vals, numel):
     return inv
 
 
+def _preimage(vals, numel):
+    """The inputs that land on each output of a reducing scatter at the
+    flat positions ``vals[0]``: ``numel + 1`` offsets, then the inputs'
+    indices by output, each output's in input order."""
+    flat = vals[0].reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=numel)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(counts, 0)])
+    return torch.cat([offsets, order])
+
+
 _HOST_FNS = {"index_positions": _index_positions,
-             "axis_positions": _axis_positions, "inverse": _inverse}
+             "axis_positions": _axis_positions, "inverse": _inverse,
+             "preimage": _preimage}
 
 
-def _host_op(n: Node, vals):
+def _host_op(n: Node, vals, dtype=torch.float32):
     kind, name, *rest = n.params
     if kind == "fn":
         return _HOST_FNS[name](vals, *rest)
     ns, packet, overload = name.split(".")
     op = getattr(getattr(getattr(torch.ops, ns), packet), overload)
-    targs, tkw = rest
-    return op(*_untemplate(targs, vals),
-              **{k: _untemplate(v, vals) for k, v in tkw})
+    targs, tkw, item = rest
+    kw = {k: _untemplate(v, vals) for k, v in tkw}
+    if kw.get("dtype") == torch.float32:  # the evaluation's float type
+        kw["dtype"] = dtype
+    out = op(*_untemplate(targs, vals), **kw)
+    return out if item is None else out[item]
 
 
-def _host_eval(nodes, nid, operands, memo):
+def _host_eval(nodes, nid, operands, memo, dtype=torch.float32):
     """The value, on the CPU and without a chain axis, of node ``nid`` of
-    ``nodes`` that depends on the data alone."""
+    ``nodes`` that depends on the data alone, its floats in ``dtype``."""
     if nid in memo:
         return memo[nid]
     n = nodes[nid]
-    args = [_host_eval(nodes, a, operands, memo) for a in n.args]
+    args = [_host_eval(nodes, a, operands, memo, dtype) for a in n.args]
     if n.op == "data":
         v = operands[n.params[0]].detach().cpu().reshape(n.shape)
-        v = v.to(torch.int64) if v.dtype in INT_DTYPES else v
+        v = v.to(torch.int64) if v.dtype in INT_DTYPES else v.to(dtype)
     elif n.op == "derived":
         v = args[0]
     elif n.op == "host":
-        v = _host_op(n, args)
+        v = _host_op(n, args, dtype)
     else:
-        v = _plain_node(n, [a.unsqueeze(-1) for a in args], torch.float32,
+        v = _plain_node(n, [a.unsqueeze(-1) for a in args], dtype,
                         torch.device("cpu"))[..., 0]
     memo[nid] = v
     return v
@@ -1680,22 +2223,29 @@ def _closure(nodes, roots, stop=()):
 
 
 def derived_operands(ir: IR, operands) -> tuple:
-    """The derived index rows of ``ir`` (int64, on the CPU) from the base
-    operands (the caller's data, then the constants): evaluated on the
-    host; ``IndexError`` for an index outside its axis, ``ValueError`` for
-    a duplicate in a writing scatter or a row whose shape differs from the
-    traced one (a bool mask that now selects another count)."""
-    memo, out = {}, []
+    """The derived rows of ``ir`` (on the CPU) from the base operands (the
+    caller's data, then the constants), evaluated on the host: index rows
+    as int64; float rows (folded values of the data) in float64, to be
+    rounded to float32 once.  ``IndexError`` for an index outside its axis,
+    ``ValueError`` for a duplicate in a writing scatter or a row whose
+    shape differs from the traced one (a bool mask that now selects
+    another count)."""
+    memo, memo64, out = {}, {}, []
     base = ir.num_base_data
-    for root, shape in zip(ir.derived, ir.data_shapes[base:]):
-        v = _host_eval(ir.host_nodes, root, operands, memo)
+    for root, shape, kind in zip(ir.derived, ir.data_shapes[base:],
+                                 ir.data_kinds[base:]):
+        if kind == "f":
+            v = _host_eval(ir.host_nodes, root, operands, memo64,
+                           torch.float64).to(torch.float64)
+        else:
+            v = _host_eval(ir.host_nodes, root, operands, memo)
         if tuple(v.shape) != shape:
             raise ValueError(
                 f"an index row computed from the data (a bool mask's "
                 f"positions, or index arithmetic) now has shape "
                 f"{tuple(v.shape)}; the potential was traced with {shape}: "
                 "a mask that selects another count needs a new trace")
-        out.append(v.to(torch.int64))
+        out.append(v if kind == "f" else v.to(torch.int64))
     return tuple(out)
 
 
@@ -1708,6 +2258,28 @@ def all_operands(ir: IR, operands) -> tuple:
         raise ValueError(f"{len(operands)} data operands for "
                          f"{ir.num_base_data}")
     return operands + derived_operands(ir, operands)
+
+
+def _clamped(k: torch.Tensor, length: int, flat=False) -> torch.Tensor:
+    """A per-chain index, wrapped if negative and clamped into ``[0,
+    length)`` (JAX's gather; torch would raise)."""
+    k = torch.where(k < 0, k + length, k).clamp(0, length - 1)
+    return k.reshape(-1) if flat else k
+
+
+def _plain_eigh(A):
+    """Eigenvalues (ascending) and eigenvectors of the symmetric ``A (*, n,
+    n)`` (its lower triangle), each eigenvector's largest component (the
+    first of equals) made positive, as ``(*, n + 1, n)``: the eigenvalues,
+    then the eigenvectors as columns; NaN for a matrix with a non-finite
+    element."""
+    finite = torch.isfinite(A).all(-1).all(-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    w, V = torch.linalg.eigh(torch.where(finite[..., None, None], A, eye))
+    at = V.abs().argmax(dim=-2, keepdim=True)
+    V = V * torch.where(torch.gather(V, -2, at) < 0, -1.0, 1.0).to(V.dtype)
+    out = torch.cat([w.unsqueeze(-2), V], -2)
+    return torch.where(finite[..., None, None], out, math.nan)
 
 
 def _wrapped(k: torch.Tensor, length: int) -> torch.Tensor:
@@ -1794,8 +2366,9 @@ def _stored_nodes(ir) -> set:
                 _is_compute(n) and _numel(n.shape) == 1):
             stored.add(i)
     for i, n in enumerate(ir.nodes):
-        if n.op == "scatter_add":  # its scan reads each value in every lane
-            base = _through_views(ir, n.args[2])
+        if n.op in ("scatter_add", "sortidx"):  # every lane reads each value
+            base = _through_views(ir, n.args[2 if n.op == "scatter_add"
+                                           else 0])
             if _is_compute(ir.nodes[base]):
                 stored.add(base)
         if n.op != "mm":
@@ -1820,13 +2393,30 @@ def _stored_nodes(ir) -> set:
         stored |= {min(shared)}
 
 
+def _sort_width(length: int) -> int:
+    """The bitonic network's width over an axis of ``length``, or 0 where
+    the warp ranks the axis by counting (at most 32 elements)."""
+    return 0 if length <= 32 else 1 << (length - 1).bit_length()
+
+
+def _scratch(ir, n: Node) -> int:
+    """Workspace floats a sequential node keeps after its output: an LU's
+    factors, a Jacobi's matrix and eigenvectors, a bitonic sort's keys and
+    indices."""
+    if n.op in ("lusolve", "slogdet"):
+        return ir.nodes[n.args[0]].shape[-1] ** 2
+    if n.op == "eigh":
+        return 2 * n.shape[-1] ** 2
+    if n.op == "sortidx":
+        return 2 * _sort_width(ir.nodes[n.args[0]].shape[n.params[0]])
+    return 0
+
+
 def schedule(ir: IR) -> Schedule:
     stored = _stored_nodes(ir)
     slots, offset, registers = {}, 0, set()
     for i in sorted(stored):
-        size = _numel(ir.nodes[i].shape)
-        if ir.nodes[i].op == "lusolve":  # its factors after its solution
-            size += ir.nodes[i].shape[1] ** 2
+        size = _numel(ir.nodes[i].shape) + _scratch(ir, ir.nodes[i])
         if size == 1 and ir.nodes[i].op not in SEQUENTIAL:
             registers.add(i)
         else:
@@ -1961,6 +2551,14 @@ def _formula(n: Node, a) -> str:
         return simple[op].format(*a)
     if op in COMPARISONS:
         return f"({a[0]} {COMPARISONS[op]} {a[1]} ? 1.f : 0.f)"
+    if op == "floordiv":
+        return f"floorf({a[0]} / {a[1]})"
+    if op == "truncdiv":
+        return f"truncf({a[0]} / {a[1]})"
+    if op == "remainder":
+        return f"gpg_remainder({a[0]}, {a[1]})"
+    if op == "iclamp":
+        return f"(float)gpg_index({a[0]}, {n.params[0]})"
     if op == "clamp_min":
         return f"gpg_clamp_min({a[0]}, {_literal(n.params[0])})"
     if op == "clamp_max":
@@ -2074,9 +2672,46 @@ class _Emitter:
             length = nodes[x].shape[axis]
             rank = len(nodes[index].shape)
             k = self.value(index, idx[axis:axis + rank], scope)
-            inner = (*idx[:axis], Ix(f"gpg_wrap({k}, {length})", length),
+            fn = "gpg_index" if len(n.params) > 1 else "gpg_wrap"
+            inner = (*idx[:axis], Ix(f"{fn}({k}, {length})", length),
                      *idx[axis + rank:])
             return self.value(x, inner, scope)
+        if n.op == "take":
+            axis = n.params[0]
+            x, index = n.args
+            length = nodes[x].shape[axis]
+            k = self.value(index, idx, scope)
+            inner = list(idx)
+            inner[axis] = Ix(f"gpg_index({k}, {length})", length)
+            return self.value(x, tuple(inner), scope)
+        if n.op == "diagonal":
+            offset, d1, d2 = n.params
+            k = idx[-1]
+            src = nodes[n.args[0]].shape
+            rest = iter(idx[:-1])
+            inner = []
+            for a in range(len(src)):
+                if a in (d1, d2):
+                    shift = max(-offset, 0) if a == d1 else max(offset, 0)
+                    inner.append(_iadd(k, _ic(shift)))
+                else:
+                    inner.append(next(rest))
+            return self.value(n.args[0], tuple(inner), scope)
+        if n.op == "band":
+            d1, d2, lo, hi = n.params
+            diff = f"({idx[d2].expr} - {idx[d1].expr})"
+            conds = [f"{diff} >= {lo}"] if lo is not None else []
+            conds += [f"{diff} <= {hi}"] if hi is not None else []
+            return scope.temp(f"({' && '.join(conds) or 'true'}) ? 1.f : 0.f")
+        if n.op == "diag_pad":
+            offset, d1, d2 = n.params
+            length = nodes[n.args[0]].shape[-1]
+            i, j = idx[d1], idx[d2]
+            k = i if offset >= 0 else Ix(f"({i.expr} + {offset})", i.bound)
+            k = Ix(f"gpg_imin(gpg_imax({k.expr}, 0), {length - 1})", length)
+            rest = [idx[a] for a in range(len(n.shape)) if a not in (d1, d2)]
+            v = self.value(n.args[0], (*rest, k), scope)
+            return scope.temp(f"({j.expr} - {i.expr} == {offset}) ? {v} : 0.f")
         if n.op == "pad_slice":
             axis, start, step = n.params
             length = nodes[n.args[0]].shape[axis]
@@ -2245,6 +2880,8 @@ class _Emitter:
         v = self.value(n.args[0], tuple(idx), scope)
         if n.op == "amax":
             return f"{acc} = gpg_max({acc}, {v});"
+        if n.op == "prod":
+            return f"{acc} = {acc} * {v};"
         return f"{acc} = {acc} + {v};"
 
     def warp_each(self, nid, lines):
@@ -2473,45 +3110,18 @@ class _Emitter:
         e_a = _unflatten(Ix("e", size * size), (size, size))
         va = self.value(A, (Ix("b", batch) if ba > 1 else _ic(0), *e_a),
                         copy_a)
+        swap_b = [f"for (int j = lane; j < {cols}; j += 32) {{",
+                  f"  const float t = {X('b', 'k', 'j')};",
+                  f"  {X('b', 'k', 'j')} = {X('b', 'p', 'j')};",
+                  f"  {X('b', 'p', 'j')} = t;",
+                  "}"]
         body = [f"for (int e = lane; e < {size * cols}; e += 32) {{",
                 *("  " + line for line in copy_b.lines),
                 f"  ws[{base} + b * {size * cols} + e] = {vb};", "}",
                 f"for (int e = lane; e < {size * size}; e += 32) {{",
                 *("  " + line for line in copy_a.lines),
                 f"  ws[{lu0} + e] = {va};", "}", "__syncwarp();",
-                f"for (int k = 0; k < {size}; ++k) {{",
-                "  int p = k;",
-                f"  float top = fabsf({LU('k', 'k')});",
-                f"  for (int r = k + 1; r < {size}; ++r) {{",
-                f"    const float a = fabsf({LU('r', 'k')});",
-                "    if (a > top) {",
-                "      top = a;",
-                "      p = r;",
-                "    }",
-                "  }",
-                "  __syncwarp();  // every lane has read the column",
-                "  if (p != k) {",
-                f"    for (int j = lane; j < {size}; j += 32) {{",
-                f"      const float t = {LU('k', 'j')};",
-                f"      {LU('k', 'j')} = {LU('p', 'j')};",
-                f"      {LU('p', 'j')} = t;",
-                "    }",
-                f"    for (int j = lane; j < {cols}; j += 32) {{",
-                f"      const float t = {X('b', 'k', 'j')};",
-                f"      {X('b', 'k', 'j')} = {X('b', 'p', 'j')};",
-                f"      {X('b', 'p', 'j')} = t;",
-                "    }",
-                "  }",
-                "  __syncwarp();",
-                f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
-                f"    const float l = {LU('r', 'k')} / {LU('k', 'k')};",
-                f"    {LU('r', 'k')} = l;",
-                f"    for (int j = k + 1; j < {size}; ++j)",
-                f"      {LU('r', 'j')} = fmaf(-l, {LU('k', 'j')}, "
-                f"{LU('r', 'j')});",
-                "  }",
-                "  __syncwarp();",
-                "}",
+                *_lu_factor(LU, size, swap_b),
                 f"for (int j = lane; j < {cols}; j += 32) {{",
                 f"  for (int i = 1; i < {size}; ++i) {{",
                 f"    float acc = {X('b', 'i', 'j')};",
@@ -2531,7 +3141,7 @@ class _Emitter:
         lines.extend("  " + line for line in body)
         lines.append("}")
 
-    def cumsum(self, nid, lines):
+    def cumsum(self, nid, lines, init="0.f", step="acc + {v}"):
         """One lane a line along the axis, its sum sequential."""
         n = self.ir.nodes[nid]
         axis = n.params[0]
@@ -2542,19 +3152,417 @@ class _Emitter:
         scope = _Scope(self)
         v = self.value(n.args[0], idx, scope)
         lines.append(f"for (int m = lane; m < {_numel(rest)}; m += 32) {{")
-        lines.append("  float acc = 0.f;")
+        lines.append(f"  float acc = {init};")
         lines.append(f"  for (int l = 0; l < {length}; ++l) {{")
         lines.extend("    " + line for line in scope.lines)
-        lines.append(f"    acc = acc + {v};")
+        lines.append(f"    acc = {step.format(v=v)};")
         lines.append(f"    {self.slot(nid, _flatten(idx, n.shape))} = acc;")
         lines.append("  }")
         lines.append("}")
         lines.append("__syncwarp();")
 
+    def cumprod(self, nid, lines):
+        """One lane a line along the axis, its product sequential."""
+        self.cumsum(nid, lines, "1.f", "acc * {v}")
+
+    def _copy(self, src, batch_ix, size, dest, lower=False):
+        """Lines copying matrix ``src[b]`` (``(size, size)``) into the
+        workspace at ``dest(i, j)``, lane-strided; ``lower``: its lower
+        triangle, mirrored (symmetric) or zeros above (``"zero"``)."""
+        scope = _Scope(self)
+        i, j = _unflatten(Ix("e", size * size), (size, size))
+        if lower:
+            ii = Ix(f"gpg_imax({i.expr}, {j.expr})", size)
+            jj = Ix(f"gpg_imin({i.expr}, {j.expr})", size)
+        else:
+            ii, jj = i, j
+        v = self.value(src, (batch_ix, ii, jj), scope)
+        if lower == "zero":
+            v = f"({j.expr} <= {i.expr} ? {v} : 0.f)"
+        return [f"for (int e = lane; e < {size * size}; e += 32) {{",
+                *("  " + line for line in scope.lines),
+                f"  {dest(i.expr, j.expr)} = {v};", "}"]
+
+    def chol(self, nid, lines):
+        """The lower Cholesky factor in place, right-looking, column by
+        column: every lane reads the pivot (NaN or not positive: the whole
+        factor is made NaN at the end, as JAX's cholesky gives it), the
+        lane that owns it stores its square root, the lanes split the rows
+        below (row r in lane r % 32: its column entry, then its part of the
+        trailing update, ``fmaf`` along the row)."""
+        n = self.ir.nodes[nid]
+        (A,) = n.args
+        batch, size, _ = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        base = self.sched.slots[nid]
+
+        def L(i, j):
+            return f"ws[{base} + b * {size * size} + ({i}) * {size} + {j}]"
+
+        body = self._copy(A, Ix("b", batch) if ba > 1 else _ic(0), size, L,
+                          "zero")
+        body += ["__syncwarp();",
+                 "bool bad = false;",
+                 f"for (int k = 0; k < {size}; ++k) {{",
+                 f"  const float d = {L('k', 'k')};",
+                 "  bad = bad || !(d > 0.f);",
+                 "  const float piv = sqrtf(d);",
+                 "  __syncwarp();  // every lane has read the pivot",
+                 f"  if (lane == k % 32) {L('k', 'k')} = piv;",
+                 f"  for (int r = k + 1 + lane; r < {size}; r += 32)",
+                 f"    {L('r', 'k')} = {L('r', 'k')} / piv;",
+                 "  __syncwarp();",
+                 f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
+                 f"    const float l = {L('r', 'k')};",
+                 "    for (int j = k + 1; j <= r; ++j)",
+                 f"      {L('r', 'j')} = fmaf(-l, {L('j', 'k')}, {L('r', 'j')});",
+                 "  }",
+                 "  __syncwarp();",
+                 "}",
+                 "if (bad) {",
+                 f"  for (int e = lane; e < {size * size}; e += 32)",
+                 f"    ws[{base} + b * {size * size} + e] = "
+                 "__int_as_float(0x7fc00000);",
+                 "}",
+                 "__syncwarp();"]
+        lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def slogdet(self, nid, lines):
+        """``(sign, log|det|)`` a matrix: lusolve's LU with partial
+        pivoting in the workspace, then every lane sums ``log|u_ii|`` in
+        row order and multiplies the signs (a row swap flips it); lane 0
+        stores both."""
+        n = self.ir.nodes[nid]
+        (A,) = n.args
+        batch = n.shape[0]
+        size = self.ir.nodes[A].shape[-1]
+        ba = self.ir.nodes[A].shape[0]
+        base = self.sched.slots[nid]
+        lu0 = base + _numel(n.shape)
+
+        def LU(i, j):
+            return f"ws[{lu0} + ({i}) * {size} + {j}]"
+
+        body = self._copy(A, Ix("b", batch) if ba > 1 else _ic(0), size, LU)
+        body += ["__syncwarp();", "float sign = 1.f;"]
+        body += _lu_factor(LU, size, ["sign = -sign;"])
+        body += ["float logabs = 0.f;",
+                 f"for (int i = 0; i < {size}; ++i) {{",
+                 f"  const float u = {LU('i', 'i')};",
+                 "  logabs = logabs + logf(fabsf(u));",
+                 "  sign = sign * gpg_sign(u);",
+                 "}",
+                 "if (lane == 0) {",
+                 f"  ws[{base} + b * 2] = sign;",
+                 f"  ws[{base} + b * 2 + 1] = logabs;",
+                 "}",
+                 "__syncwarp();"]
+        lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def eigh(self, nid, lines):
+        """Cyclic Jacobi a matrix: its lower triangle, mirrored, into the
+        workspace, V = I beside it; sweeps over the pairs p < q in row
+        order until the off-diagonal Frobenius norm is at most 1e-7 of the
+        matrix's (or 16 sweeps): each rotation (Numerical Recipes' t, c,
+        s, computed alike by every lane) updates columns p and q of A and
+        V, the lanes over the rows, then rows p and q, then lane 0 sets the
+        2x2 block; then each lane ranks its eigenvalues (ascending, ties by
+        index), fixes each eigenvector's sign (its largest component, the
+        first of equals, positive) and writes its column."""
+        n = self.ir.nodes[nid]
+        (A,) = n.args
+        batch, _, size = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        base = self.sched.slots[nid]
+        a0 = base + _numel(n.shape)
+        v0 = a0 + size * size
+
+        def M(i, j):
+            return f"ws[{a0} + ({i}) * {size} + {j}]"
+
+        def V(i, j):
+            return f"ws[{v0} + ({i}) * {size} + {j}]"
+
+        def E(i, j):
+            return f"ws[{base} + b * {(size + 1) * size} + ({i}) * {size} + {j}]"
+
+        body = self._copy(A, Ix("b", batch) if ba > 1 else _ic(0), size, M,
+                          True)
+        body += [f"for (int e = lane; e < {size * size}; e += 32)",
+                 f"  ws[{v0} + e] = e / {size} == e % {size} ? 1.f : 0.f;",
+                 "__syncwarp();",
+                 "float norm = 0.f;",
+                 f"for (int e = lane; e < {size * size}; e += 32)",
+                 f"  norm = fmaf(ws[{a0} + e], ws[{a0} + e], norm);",
+                 "norm = warp_sum(norm);",
+                 "for (int sweep = 0; sweep < 16; ++sweep) {",
+                 "  float off = 0.f;",
+                 f"  for (int e = lane; e < {size * size}; e += 32)",
+                 f"    if (e / {size} != e % {size})",
+                 f"      off = fmaf(ws[{a0} + e], ws[{a0} + e], off);",
+                 "  off = warp_sum(off);",
+                 "  if (!(off > 1e-14f * norm)) break;",
+                 f"  for (int p = 0; p < {size - 1}; ++p) {{",
+                 f"    for (int q = p + 1; q < {size}; ++q) {{",
+                 f"      const float apq = {M('p', 'q')};",
+                 "      if (apq == 0.f) continue;",
+                 f"      const float app = {M('p', 'p')}, aqq = {M('q', 'q')};",
+                 "      const float theta = (aqq - app) / (2.f * apq);",
+                 "      float t = fabsf(theta) > 1e18f ? 0.5f / fabsf(theta)",
+                 "                : 1.f / (fabsf(theta) + "
+                 "sqrtf(fmaf(theta, theta, 1.f)));",
+                 "      if (theta < 0.f) t = -t;",
+                 "      const float cs = 1.f / sqrtf(fmaf(t, t, 1.f));",
+                 "      const float sn = t * cs;",
+                 "      __syncwarp();  // every lane has read the pair",
+                 f"      for (int r = lane; r < {size}; r += 32) {{",
+                 f"        const float arp = {M('r', 'p')}, arq = {M('r', 'q')};",
+                 f"        {M('r', 'p')} = fmaf(cs, arp, -(sn * arq));",
+                 f"        {M('r', 'q')} = fmaf(sn, arp, cs * arq);",
+                 f"        const float vrp = {V('r', 'p')}, vrq = {V('r', 'q')};",
+                 f"        {V('r', 'p')} = fmaf(cs, vrp, -(sn * vrq));",
+                 f"        {V('r', 'q')} = fmaf(sn, vrp, cs * vrq);",
+                 "      }",
+                 "      __syncwarp();",
+                 f"      for (int r = lane; r < {size}; r += 32) {{",
+                 f"        const float apr = {M('p', 'r')}, aqr = {M('q', 'r')};",
+                 f"        {M('p', 'r')} = fmaf(cs, apr, -(sn * aqr));",
+                 f"        {M('q', 'r')} = fmaf(sn, apr, cs * aqr);",
+                 "      }",
+                 "      __syncwarp();",
+                 "      if (lane == 0) {",
+                 f"        {M('p', 'q')} = 0.f;",
+                 f"        {M('q', 'p')} = 0.f;",
+                 f"        {M('p', 'p')} = fmaf(-t, apq, app);",
+                 f"        {M('q', 'q')} = fmaf(t, apq, aqq);",
+                 "      }",
+                 "      __syncwarp();",
+                 "    }",
+                 "  }",
+                 "}",
+                 f"for (int i = lane; i < {size}; i += 32) {{",
+                 f"  const float wi = {M('i', 'i')};",
+                 "  int rank = 0;",
+                 f"  for (int j = 0; j < {size}; ++j)",
+                 f"    rank += gpg_sort_before({M('j', 'j')}, j, wi, i, false, "
+                 f"{size}) ? 1 : 0;",
+                 "  float big = -1.f, sg = 1.f;",
+                 f"  for (int r = 0; r < {size}; ++r) {{",
+                 f"    const float v = {V('r', 'i')};",
+                 "    if (fabsf(v) > big) {",
+                 "      big = fabsf(v);",
+                 "      sg = v < 0.f ? -1.f : 1.f;",
+                 "    }",
+                 "  }",
+                 f"  {E('0', 'rank')} = wi;",
+                 f"  for (int r = 0; r < {size}; ++r)",
+                 f"    {E('1 + r', 'rank')} = sg * {V('r', 'i')};",
+                 "}",
+                 "__syncwarp();"]
+        lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def sortidx(self, nid, lines):
+        """A sort's (top-k's) indices, a line of the axis at a time: up to
+        32 elements each lane ranks its element by counting those before
+        it (ascending or descending, a NaN the largest, ties by index:
+        torch's stable order) and writes its index at its rank if that is
+        among the first k; longer axes run a bitonic network over (value,
+        index) pairs in the workspace, padded to a power of two, and write
+        the first k indices."""
+        n = self.ir.nodes[nid]
+        (x,) = n.args
+        axis, desc, k = n.params
+        src = self.ir.nodes[x].shape
+        length = src[axis]
+        rest = src[:axis] + src[axis + 1:]
+        nrest = _numel(rest)
+        m = _unflatten(Ix("m", nrest), rest)
+        base = self.sched.slots[nid]
+        d = "true" if desc else "false"
+
+        def out(r):
+            return self.slot(nid, _flatten((*m[:axis], Ix(r, k), *m[axis:]),
+                                           n.shape))
+
+        def elem(var, scope):
+            return self.value(x, (*m[:axis], Ix(var, length), *m[axis:]),
+                              scope)
+
+        body = []
+        width = _sort_width(length)
+        if width == 0:
+            own, other = _Scope(self), _Scope(self)
+            vi, vj = elem("i", own), elem("j", other)
+            body += [f"for (int i = lane; i < {length}; i += 32) {{",
+                     *("  " + line for line in own.lines),
+                     "  int rank = 0;",
+                     f"  for (int j = 0; j < {length}; ++j) {{",
+                     *("    " + line for line in other.lines),
+                     f"    rank += gpg_sort_before({vj}, j, {vi}, i, {d}, "
+                     f"{length}) ? 1 : 0;",
+                     "  }",
+                     f"  if (rank < {k}) {out('rank')} = (float)i;",
+                     "}",
+                     "__syncwarp();"]
+        else:
+            k0 = base + _numel(n.shape)
+            i0 = k0 + width
+            load = _Scope(self)
+            v = elem("e", load)
+            body += [f"for (int e = lane; e < {width}; e += 32) {{",
+                     f"  if (e < {length}) {{",
+                     *("    " + line for line in load.lines),
+                     f"    ws[{k0} + e] = {v};",
+                     "  } else {",
+                     f"    ws[{k0} + e] = 0.f;",
+                     "  }",
+                     f"  ws[{i0} + e] = (float)e;",
+                     "}",
+                     "__syncwarp();",
+                     f"for (int size = 2; size <= {width}; size <<= 1) {{",
+                     "  for (int stride = size >> 1; stride > 0; "
+                     "stride >>= 1) {",
+                     f"    for (int t = lane; t < {width // 2}; t += 32) {{",
+                     "      const int i = 2 * stride * (t / stride) + "
+                     "t % stride, j = i + stride;",
+                     f"      const float ki = ws[{k0} + i], kj = ws[{k0} + j];",
+                     f"      const int ii = (int)ws[{i0} + i], "
+                     f"ij = (int)ws[{i0} + j];",
+                     f"      const bool swap = (i & size) == 0 ? "
+                     f"gpg_sort_before(kj, ij, ki, ii, {d}, {length}) : "
+                     f"gpg_sort_before(ki, ii, kj, ij, {d}, {length});",
+                     "      if (swap) {",
+                     f"        ws[{k0} + i] = kj;",
+                     f"        ws[{k0} + j] = ki;",
+                     f"        ws[{i0} + i] = (float)ij;",
+                     f"        ws[{i0} + j] = (float)ii;",
+                     "      }",
+                     "    }",
+                     "    __syncwarp();",
+                     "  }",
+                     "}",
+                     f"for (int r = lane; r < {k}; r += 32) "
+                     f"{out('r')} = ws[{i0} + r];",
+                     "__syncwarp();"]
+        lines.append(f"for (int m = 0; m < {nrest}; ++m) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def scatter_perm(self, nid, lines):
+        """The base, lane-strided; then each lane writes its values at the
+        positions the permutation names (distinct: no two lanes write one
+        element)."""
+        n = self.ir.nodes[nid]
+        base, index, src = n.args
+        axis = n.params[0]
+        out = _numel(n.shape)
+        ishape = self.ir.nodes[index].shape
+        init = _Scope(self)
+        v = self.value(base, _unflatten(Ix("o", out), n.shape), init)
+        lines.append(f"for (int o = lane; o < {out}; o += 32) {{")
+        lines.extend("  " + line for line in init.lines)
+        lines.append(f"  {self.slot(nid, Ix('o', out))} = {v};")
+        lines.append("}")
+        lines.append("__syncwarp();")
+        scan = _Scope(self)
+        t = _unflatten(Ix("t", _numel(ishape)), ishape)
+        k = self.value(index, t, scan)
+        length = n.shape[axis]
+        o = list(t)
+        o[axis] = Ix(f"gpg_index({k}, {length})", length)
+        val = self.value(src, t, scan)
+        lines.append(f"for (int t = lane; t < {_numel(ishape)}; t += 32) {{")
+        lines.extend("  " + line for line in scan.lines)
+        lines.append(f"  {self.slot(nid, _flatten(o, n.shape))} = {val};")
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def scatter_reduce(self, nid, lines):
+        """One lane an output (o in lane o % 32): its base (or, without
+        it, its first value), then the values that land on it in input
+        order (the host's preimage row: offsets, then the inputs by
+        output), reduced by sum, product, maximum or minimum (NaN wins) or
+        averaged over their count; an output no value lands on keeps its
+        base."""
+        n = self.ir.nodes[nid]
+        base, pre, src = n.args
+        reduce, include_self = n.params
+        out = _numel(n.shape)
+        nsrc = _numel(self.ir.nodes[src].shape)
+        scope = _Scope(self)
+        b = self.value(base, (Ix("o", out),), scope)
+        lo = self.load(pre, (Ix("o", out + 1),))
+        hi = self.load(pre, (Ix("(o + 1)", out + 2),))
+        step = {"sum": "acc + v", "mean": "acc + v", "prod": "acc * v",
+                "amax": "gpg_max(acc, v)", "amin": "gpg_min(acc, v)"}[reduce]
+        first = "" if include_self else "e == lo ? v : "
+        inner = _Scope(self)
+        t = self.load(pre, (Ix(f"({out + 1} + e)", out + 1 + nsrc),))
+        v = self.value(src, (Ix("t", nsrc),), inner)
+        lines += [f"for (int o = lane; o < {out}; o += 32) {{",
+                  *("  " + line for line in scope.lines),
+                  f"  const int lo = {lo}, hi = {hi};",
+                  f"  float acc = {b};",
+                  f"  for (int e = lo; e < hi; ++e) {{",
+                  f"    const int t = {t};",
+                  *("    " + line for line in inner.lines),
+                  f"    const float v = {v};",
+                  f"    acc = {first}{step};",
+                  "  }"]
+        if reduce == "mean":
+            count = "(hi - lo + 1)" if include_self else "(hi - lo)"
+            lines.append(f"  if (hi > lo) acc = acc / (float){count};")
+        lines += [f"  {self.slot(nid, Ix('o', out))} = acc;", "}",
+                  "__syncwarp();"]
+
+
+def _lu_factor(LU, size, on_swap):
+    """Lines of an LU with partial pivoting in place, column by column:
+    every lane scans the column below the diagonal for the first largest
+    ``|a|`` (LAPACK ``i?amax``'s pivot); the lanes swap the pivot row
+    and runs ``on_swap`` (the right sides' swap, or a sign's flip); then each lane eliminates its rows
+    (row r in lane r % 32, ``fmaf`` along the row)."""
+    return [f"for (int k = 0; k < {size}; ++k) {{",
+            "  int p = k;",
+            f"  float top = fabsf({LU('k', 'k')});",
+            f"  for (int r = k + 1; r < {size}; ++r) {{",
+            f"    const float a = fabsf({LU('r', 'k')});",
+            "    if (a > top) {",
+            "      top = a;",
+            "      p = r;",
+            "    }",
+            "  }",
+            "  __syncwarp();  // every lane has read the column",
+            "  if (p != k) {",
+            f"    for (int j = lane; j < {size}; j += 32) {{",
+            f"      const float t = {LU('k', 'j')};",
+            f"      {LU('k', 'j')} = {LU('p', 'j')};",
+            f"      {LU('p', 'j')} = t;",
+            "    }",
+            *("    " + line for line in on_swap),
+            "  }",
+            "  __syncwarp();",
+            f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
+            f"    const float l = {LU('r', 'k')} / {LU('k', 'k')};",
+            f"    {LU('r', 'k')} = l;",
+            f"    for (int j = k + 1; j < {size}; ++j)",
+            f"      {LU('r', 'j')} = fmaf(-l, {LU('k', 'j')}, "
+            f"{LU('r', 'j')});",
+            "  }",
+            "  __syncwarp();",
+            "}"]
+
 
 # contraction -> (the accumulator's first value, the warp's reduction)
 _ACCUMULATE = {"sum": ("0.f", "warp_sum"), "mm": ("0.f", "warp_sum"),
-               "amax": ("__int_as_float(0xff800000)", "gpg_warp_max")}
+               "amax": ("__int_as_float(0xff800000)", "gpg_warp_max"),
+               "prod": ("1.f", "gpg_warp_prod")}
 
 
 def _lane_stride(ir, nid, axis, stored):
@@ -2584,8 +3592,15 @@ def _lane_stride(ir, nid, axis, stored):
                             axis if axis < n.params[0] else axis + 1, stored)
     if n.op == "flip":
         return _lane_stride(ir, n.args[0], axis, stored)
-    if n.op == "put":  # reads its values at data-dependent positions
+    if n.op in ("put", "take", "diag_pad"):  # positions known at run time
         return None
+    if n.op == "diagonal":
+        offset, d1, d2 = n.params
+        if axis == len(n.shape) - 1:
+            a, b = (_lane_stride(ir, n.args[0], d, stored) for d in (d1, d2))
+            return None if a is None or b is None else a + b
+        rest = [d for d in range(len(src)) if d not in (d1, d2)]
+        return _lane_stride(ir, n.args[0], rest[axis], stored)
     if n.op == "gather":
         first, rank = n.params[0], len(ir.nodes[n.args[1]].shape)
         if first <= axis < first + rank:
@@ -2723,9 +3738,9 @@ class Bound:
             if kind == "i":
                 ops.append(self._int_row(j, d, device))
                 continue
-            if d.device != device:
-                d = d.to(device)
-            ops.append(d.contiguous())
+            if d.device != device or not d.is_contiguous():
+                d = self._float_row(j, d, device)
+            ops.append(d)
         ops.extend(self._derived_rows(operands, device))
         shapes = tuple(tuple(d.shape) for d in ops)
         if shapes != self.ir.data_shapes:
@@ -2745,6 +3760,10 @@ class Bound:
             return hit[2]
         rows = []
         for d in derived_operands(self.ir, operands):
+            if d.is_floating_point():  # a folded value, rounded once
+                rows.append(d.to(device=device,
+                                 dtype=torch.float32).contiguous())
+                continue
             if d.numel() and (int(d.min()) < -2**31 or int(d.max()) >= 2**31):
                 raise ValueError("a derived index row does not fit int32")
             rows.append(d.to(device=device, dtype=torch.int32).contiguous())
@@ -2752,6 +3771,18 @@ class Bound:
         self._derived[device] = (tuple(weakref.ref(d) for d in operands),
                                  versions, rows)
         return rows
+
+    def _float_row(self, j, d, device):
+        """Float32 operand ``j`` contiguous on ``device`` (a constant that a
+        ``torch.distributions`` object made on the CPU, say), copied again
+        only when the tensor or its values change, so a launch copies
+        nothing (and a CUDA graph may capture it)."""
+        hit = self._rows.get((j, device))
+        if hit is not None and hit[0]() is d and hit[1] == d._version:
+            return hit[2]
+        row = d.to(device).contiguous()
+        self._rows[(j, device)] = (weakref.ref(d), d._version, row)
+        return row
 
     def _int_row(self, j, d, device):
         """Operand ``j`` as int32 on ``device``, checked and converted again

@@ -50,7 +50,7 @@ logistic regression.  Then it drives the port's front door
   funnel at depth 10 (512 chains, its 200 draws cut to 8; its deepest
   trees held instead by one XLA NUTS step at K 10 against kernel 1 with
   ``FunnelPG``, 8,192 chains at ε 0.005, the limits of phase 20); phase
-  22 drives the front door's ``xla`` route (one chain, and 256 independent
+  22 drives the front door's ``xla`` route (one chain, and 64 independent
   chains through the batched ``sample_chains``) and ``pooled`` routes
   (NUTS, HMC, MALA, GHMC), each twice with one seed and equal bit for bit;
   phase 23 holds the XLA ChEES step on kernel 8 (``chees.new_kernel(
@@ -163,7 +163,7 @@ logistic regression.  Then it drives the port's front door
   (kernel 5 a draw, 100 + 100: finite, launches exact, twice bit for
   bit); phase 50 runs P2 through
   the fused NUTS front door (4,096 chains, 300 + 300) and the pooled XLA
-  route (torch.func's gradient; 512 of those chains, 100 + 200 at K 4),
+  route (torch.func's gradient; 512 of those chains, 100 + 100 at K 3),
   both from one start made with numpy (0.1·N(0, 1), the mean at the log
   of the mean count), means within 4.5 combined MCSE;
 - phases 51-53, the rest of the op table: three bare logprobs written as
@@ -177,18 +177,35 @@ logistic regression.  Then it drives the port's front door
   versions as phase 48 does (10,240 chains for R1 and R2, 4,096 for R3),
   and kernels 2 and 6 where a front door launches them against kernels 1
   and 5 draw by draw (phase 48 does the same for P1 and P2); phase 52 runs
-  R1 through the fused NUTS door (10,240 chains, 150 + 200, K 6, a dense
-  M⁻¹) against the pooled XLA route (512 of its chains, 150 + 200, K 4, a
+  R1 through the fused NUTS door (4,096 chains, 150 + 200,
+  K 6, a dense M⁻¹) against the pooled XLA route (512 of its chains, 100 + 200, K 4, a
   dense M⁻¹), R2 through the fused NUTS (150 + 1,000) and MEADS (500 +
   8,000) doors, R3 through the fused ChEES (150 + 1,000) and NUTS (150 +
-  200) doors, every fused door twice and equal bit for bit, every run at
+  200) doors, R2's NUTS and R3's doors twice and equal bit for bit, every run at
   §2's limits (R-hat below 1.01) and means within 4.5 combined MCSE of
   each other; phase 53 probes fault G (the pooled XLA route on P2 under
-  log φ ~ N(0, 4) from 0.1·N(0, 1), 512 chains, 100 + 200, K 4, in
-  float32 and float64: chains stranded at log φ > 10, none in float64,
-  the tuned M⁻¹) and ``lgamma`` (the functor's against torch's on the
-  card, element by element; P2's gradient, kernel against plain and plain
-  against itself).
+  log φ ~ N(0, 4) from 0.1·N(0, 1), 512 chains, 50 + 50,
+  K 4, in float32 and float64: chains stranded at log φ > 10, none in
+  float64, the tuned M⁻¹) and ``lgamma`` (the functor's against torch's
+  on the card, element by element; P2's gradient, kernel against plain
+  and plain against itself);
+- phases 54-55, the last of the op table (ROADMAP.md item 1.10c) on six
+  bare logprobs (S1 ``gp_se64``: a GP's marginal likelihood through a
+  64 × 64 Cholesky factor; S2 ``gp_se64_logdet``: the same through
+  ``logdet`` and a general solve; S3 ``lkj_slopes``: varying intercepts
+  and slopes under an LKJ prior, written with ``torch.distributions``,
+  dim 135; S4 ``ordinal_sorted``: ordered-logistic regression through
+  ``torch.sort``; S5 ``matrix_log_cov``: a normal whose covariance is
+  exp(A(q)) through ``eigh``; S6 ``lts_topk``: least trimmed squares
+  through ``topk``) and ``op_extras`` (``scatter_reduce`` by a data index,
+  integer arithmetic on per-chain indices): phase 54 holds kernels 1, 3, 5
+  and 7 on each against their plain versions as phase 48 does (kernels 2
+  and 6 on S1 against kernels 1 and 5 draw by draw) and S1's kernel 1 on
+  chains sent where K is not positive definite (divergent, not raised);
+  phase 55 runs S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
+  doors (4,096 chains) each against the pooled XLA NUTS route on the same
+  model (512 chains), every run at §2's limits and the means within 4.5
+  combined MCSE.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -214,11 +231,11 @@ path (phases 38 and 36), bound, error against plain and against the
 hand-written functor (phase 35), and those of kernels 1-5 and 7 their
 ``offset_check`` (phase 44) and ``mesh_launches`` (phases 45-46's
 sharded runs); kernels 1, 3, 5 and 7's entries carry ``generic_ops``, one
-record a potential of phases 48-52 (launches on phases 49-50 and 52's
-front doors, error, times, bound, registers, spills, blocks per SM,
+record a potential of phases 48-55 (launches on phases 49-50, 52 and
+55's front doors, error, times, bound, registers, spills, blocks per SM,
 workspace), and kernels 2 and 6's ``generic_ops_launches`` and
-``generic_ops_sampling`` (time over a few draws and bound, phases 48 and
-51).  Kernels 5-7 on the flagship's, the
+``generic_ops_sampling`` (time over a few draws and bound, phases 48, 51
+and 54).  Kernels 5-7 on the flagship's, the
 funnel's and eight schools' generated functors have entries of their own
 (``ghmc_transition_generic``, ``chees_transition_generic (funnel)``, ...):
 launches from phases 41-43, errors and times from phases 39-40, registers
@@ -315,13 +332,26 @@ HIER_DRAWS = 10               # kernel 2's timed run, and its plain version's
 # acceptance above 0.6; v over draws 50 onward: |mean| < 0.8, |sd - 3| < 0.5
 FUNNEL_ACCEPT, FUNNEL_BURN, FUNNEL_V_MEAN, FUNNEL_V_SD = 0.6, 50, 0.8, 0.5
 # eight schools' witness: the plain sampler on the card (plain transitions,
-# the same Stan warmup), 500 + 500 at a reduced chain count (the plain
-# version walks every leaf of a block's deepest tree in PyTorch calls)
+# the same Stan warmup) at a reduced chain count (the plain version walks
+# every leaf of a block's deepest tree in PyTorch calls)
 SCHOOLS_WITNESS_CHAINS = 256
+# its warmup and draws (cut from 500 + 500, 61.8 s of plain transitions on
+# an H100 host, to make room for phases 54-55)
+SCHOOLS_WITNESS_WARMUP, SCHOOLS_WITNESS_DRAWS = 250, 250
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def stamp(record, phases):
+    """The script's elapsed seconds once ``phases`` have run."""
+    elapsed = time.perf_counter() - T_START
+    record.setdefault("elapsed_s", {})[phases] = elapsed
+    log(f"elapsed {elapsed:.1f} s after phases {phases}")
 
 
 def check(cond, msg):
@@ -1949,11 +1979,11 @@ def hierarchical_phases(torch, ops, diagnostics, record, card):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     (qw, uw, gw), eps_w, imm_w = warmup_fused(
-        gen_w, plain_transition, q_w, u_w.T, g_w.T, SCHOOLS_WARMUP,
+        gen_w, plain_transition, q_w, u_w.T, g_w.T, SCHOOLS_WITNESS_WARMUP,
         max_num_expansions=HIER_K, target_acceptance_rate=HIER_TARGET)
     pos_w, stats_w, _, _, _ = nfs._sampling_plain(
         pot_grad, qw.T.contiguous(), uw.T, gw.T.contiguous(), imm_w, eps_w,
-        derive_draw_seeds(gen_w, 1)[0], SCHOOLS_DRAWS, max_exp=HIER_K,
+        derive_draw_seeds(gen_w, 1)[0], SCHOOLS_WITNESS_DRAWS, max_exp=HIER_K,
         divergence_threshold=1000.0, collect_positions=True,
         collect_dtype=torch.float32)
     torch.cuda.synchronize()
@@ -2111,7 +2141,10 @@ def hold_front_door(out, what, accept_range=(0.7, 0.9), rhat_max=None):
 # within 150 s: the path is host-bound (about 3 ms a leaf, and a batch walks
 # its deepest chain's tree), and its host time moves ±50% between machines
 README_EPS, README_STEPS = 0.9, 100                 # config 1
-LINREG_POINTS, LINREG_WARMUP, LINREG_EPS0 = 10_000, 1000, 0.1  # config 2
+# config 2 (its 1,000 warmup steps cut to 500: 26 s of host loops on an
+# H100 machine; the gate, M⁻¹ within relative 1.0 of the
+# posterior variance, held at 0.26 after 1,000)
+LINREG_POINTS, LINREG_WARMUP, LINREG_EPS0 = 10_000, 500, 0.1
 # config 3, 200 draws cut to 100
 MVN_DIM, MVN_RHO, MVN_CHAINS, MVN_EPS, MVN_DRAWS = 25, 0.5, 512, 0.8, 100
 # config 5, 200 draws cut to 100
@@ -2127,10 +2160,12 @@ FUNNEL_DEEP_EPS = 0.005
 AUTO_WARMUP, AUTO_DRAWS = 50, 50   # the README example, 10-d N(0, I)
 # sample_chains' batch: every chain adapts alone, so early warmup steps
 # walk to K's cap somewhere in the batch; K 8 as the pooled NUTS route
-XLA_BATCH, XLA_WARMUP, XLA_DRAWS, XLA_K = 256, 50, 50, 8
+# 64 chains (256 before: 34.5 s for the two runs on an H100 host), and the pooled NUTS and HMC runs below halved, to make room for
+# phases 54-55
+XLA_BATCH, XLA_WARMUP, XLA_DRAWS, XLA_K = 64, 50, 50, 8
 POOLED_RUNS = {  # algorithm: (warmup, draws, kwargs)
-    "nuts": (100, 50, dict(max_num_expansions=8)),
-    "hmc": (50, 25, {}),  # 32 integration steps a draw, the JAX default
+    "nuts": (50, 50, dict(max_num_expansions=8)),
+    "hmc": (25, 25, {}),  # 32 integration steps a draw, the JAX default
     "mala": (150, 50, {}),
     "ghmc": (150, 50, {}),
 }
@@ -2285,7 +2320,7 @@ def xla_phases(torch, ops, diagnostics, data, pg, q0, record, nuts_mean,
         mean=float(pos1.mean()), sd=float(pos1.std()))
     check(z_mean1 < MCSE_Z and z_var1 < MCSE_Z,
           f"config 1: mean {z_mean1} / second moment {z_var1} MCSE off")
-    # config 2, linreg_warmup: window_adaptation.run, 1,000 steps from 0.1
+    # config 2, linreg_warmup: window_adaptation.run, LINREG_WARMUP steps from 0.1
     lp2, q2 = linear_regression(num_points=LINREG_POINTS, device=dev)
     k2 = nuts.new_kernel(lp2)
     s2 = nuts.new_state(q2, lp2)
@@ -5485,9 +5520,9 @@ NEGBIN_CHAINS, NEGBIN_POOLED_CHAINS = 4096, 512  # phase 50
 NEGBIN_WARMUP, NEGBIN_DRAWS, NEGBIN_K, NEGBIN_EPS0 = 300, 300, 8, 0.05
 # the pooled XLA route is host-bound, and a batch walks its deepest tree,
 # so a transition of 512 chains costs 2^K leaves of about 6 ms on an H100
-# host; its depth is cut to 4 and its run to 100 + 200 to keep phases 48-50
-# within 90 s
-NEGBIN_POOLED_WARMUP, NEGBIN_POOLED_DRAWS, NEGBIN_POOLED_K = 100, 200, 4
+# host; its depth is cut to 3 and its run to 100 + 100 (K 4 and 100 + 200
+# before) to keep phases 48-50 within 90 s
+NEGBIN_POOLED_WARMUP, NEGBIN_POOLED_DRAWS, NEGBIN_POOLED_K = 100, 100, 3
 
 
 def negbin_data(num_obs=NEGBIN_OBS, num_groups=NEGBIN_GROUPS, seed=0):
@@ -5608,17 +5643,50 @@ def op_table_potentials(torch, dev):
     return out
 
 
-def ir_flop(ir):
+def ir_flop(ir, sweeps=None):
     """Operations of one gradient of a generated functor, from its IR: an
-    elementwise node one an element, a sum, maximum or index of a maximum
-    one an input element, a matrix product 2mkn, a triangular solve n² a
-    right side, an LU solve 2n³/3 and 2n² a right side, a scatter-add and a
-    cumulative sum one an element."""
+    elementwise node one an element, a sum, product, maximum or index of a
+    maximum one an input element, a matrix product 2mkn, a triangular solve
+    n² a right side, an LU solve 2n³/3 and 2n² a right side, a scatter-add
+    and a cumulative sum one an element; a Cholesky factor n³/3, a
+    log-determinant its LU's 2n³/3, a cyclic Jacobi ``sweeps`` × n(n-1)/2
+    rotations × 6n, a sort its comparisons (n² a line up to 32 elements,
+    the bitonic network's beyond), a reducing or permuting scatter one an
+    input element."""
     flop = 0
     for n in ir.nodes:
         size = math.prod(n.shape)
         if n.op in ("q", "data", "const", "reshape", "permute", "expand",
-                    "slice", "select", "flip", "gather"):
+                    "slice", "select", "flip", "gather", "take",
+                    "diagonal"):
+            continue
+        if n.op == "chol":
+            flop += n.shape[0] * n.shape[1] ** 3 // 3
+            continue
+        if n.op == "slogdet":
+            flop += n.shape[0] * 2 * ir.nodes[n.args[0]].shape[-1] ** 3 // 3
+            continue
+        if n.op == "eigh":
+            m = n.shape[-1]
+            flop += int(n.shape[0] * (JACOBI_SWEEPS if sweeps is None else
+                                      sweeps) * m * (m - 1) // 2 * 6 * m)
+            continue
+        if n.op == "sortidx":
+            src = ir.nodes[n.args[0]].shape
+            length = src[n.params[0]]
+            lines = math.prod(src) // length
+            if length <= 32:
+                flop += lines * length * length
+            else:
+                width = 1 << (length - 1).bit_length()
+                stages = width.bit_length() - 1
+                flop += lines * width // 2 * stages * (stages + 1) // 2
+            continue
+        if n.op in ("scatter_perm", "scatter_reduce"):
+            flop += math.prod(ir.nodes[n.args[2]].shape)
+            continue
+        if n.op == "prod":
+            flop += math.prod(ir.nodes[n.args[0]].shape)
             continue
         if n.op == "mm":
             (m, k), (_, cols) = ir.nodes[n.args[0]].shape, ir.nodes[
@@ -5647,11 +5715,14 @@ def grad_vs_float64(torch, lp64, q_t, g_kernel, g_plain):
     float64 autograd of the twin (vmapped, functionalized: vmap refuses an
     in-place write; log_ndtr has no batching rule, so the columns are
     few)."""
+    from aehmc_tpu_torch.ops.generic_pg import no_validation
+
     n = OPS_GRAD_CHAINS
     q_t, g_kernel, g_plain = q_t[:, :n], g_kernel[:, :n], g_plain[:, :n]
     grad = torch.func.vmap(torch.func.grad(torch.func.functionalize(
         lambda q: -lp64(q))), in_dims=1, out_dims=1)
-    g64 = grad(q_t.double())
+    with no_validation():  # torch.distributions' host checks under vmap
+        g64 = grad(q_t.double())
     scale = float(g64.abs().max())
     return (float((g_kernel.double() - g64).abs().max()) / scale,
             float((g_plain.double() - g64).abs().max()) / scale)
@@ -5680,12 +5751,14 @@ def nuts_sampling_by_draws(torch, nfs, state, imm, eps, rows, k, seed,
 
 
 def op_kernel_phase(torch, pots, gen, record, card, phase=48,
-                    cells=None, sampling=None):
+                    cells=None, sampling=None, starts=None):
     """Phase 48 (51): kernels 1, 3, 5 and 7 on P1-P4's (R1-R3's) generated
     functors against their plain versions, timed beside their bounds; and
     kernels 2 and 6 (``sampling``: the kernels a potential's front doors
-    launch) against kernels 1 and 5 draw by draw, timed beside theirs."""
+    launch) against kernels 1 and 5 draw by draw, timed beside theirs.  The
+    state is 0.1·N(0, 1), plus ``starts[name]`` where given."""
     cells = OPS_CELLS if cells is None else cells
+    starts = {} if starts is None else starts
     sampling = OPS_SAMPLING if sampling is None else sampling
     from aehmc_tpu_torch.ops import _build, generic_pg
     from aehmc_tpu_torch.ops import chees_fused as cf
@@ -5701,10 +5774,13 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
         dim, chains, eps, imm_v, k = cells[name]
         b, rows = p["bound"], p["rows"]
         ops_b = b.operands(rows, dev)
-        flop = ir_flop(b.ir)
         rng = np.random.default_rng(OPS_SEED)
-        q_t = torch.tensor(0.1 * rng.standard_normal((dim, chains)),
-                           dtype=torch.float32, device=dev)
+        q = 0.1 * rng.standard_normal((dim, chains))
+        if name in starts:
+            q += np.asarray(starts[name], np.float64)[:, None]
+        q_t = torch.tensor(q, dtype=torch.float32, device=dev)
+        sweeps = eigh_sweeps(torch, b.ir, q_t, ops_b)  # 0 without eigh
+        flop = ir_flop(b.ir, sweeps)
 
         def plain_pg(x):
             return generic_pg.run_plain(b.ir, x, ops_b)
@@ -5840,6 +5916,7 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
         res = dict(
             dim=dim, chains=chains, eps=eps, max_exp=k, ir_nodes=len(b.ir.nodes),
             node_kinds=sorted({n.op for n in b.ir.nodes}), flop_a_gradient=flop,
+            jacobi_sweeps=sweeps,
             grad_rel_err=gerr[0], plain_grad_rel_err=gerr[1],
             nuts_functor=nuts_rep, hmc_functor=hmc_rep,
             kernels={})
@@ -6225,11 +6302,16 @@ SUR_EQ, SUR_OBS, SUR_REG = 10, 200, 5
 # 10,240 chains on an H100 80GB HBM3 at 700 W); R1's doors take a dense
 # M⁻¹ (3 doublings, ε 0.53, R-hat 0.998 at 200 draws), the fused and the
 # pooled alike.
-REST_POOLED = dict(chains=512, warmup=150, draws=200, k=4)
+REST_POOLED = dict(chains=512, warmup=100, draws=200, k=4)
 R2_NUTS = (150, 1000)
 R2_MEADS = (MEADS_WARMUP, 8000)
 R3_CHEES = (150, 1000)
-FAULT_G = dict(chains=512, warmup=100, draws=200, k=4, far=10.0,
+# R1's fused door (phase 52) runs 4,096 chains (10,240 before: 29.7 s a
+# run, twice), its pooled reference 100 warmup steps (150), and fault G's
+# probe 50 + 50 (100 + 200 before, 0 chains stranded in either precision),
+# to make room for phases 54-55 within chip_smoke's time limit
+R1_CHAINS = 4096
+FAULT_G = dict(chains=512, warmup=50, draws=50, k=4, far=10.0,
                prior=(0.0, 2.0))                          # log φ ~ N(0, 4)
 
 
@@ -6360,10 +6442,11 @@ def rest_potentials(torch, dev):
     return out
 
 
-def door_limits(torch, diagnostics, res, what, accept_range):
+def door_limits(torch, diagnostics, res, what, accept_range,
+                rhat_max=RHAT_MAX):
     """PERF.md §2's limits on a front-door run: acceptance, divergences
-    below 0.01%, R-hat below RHAT_MAX, finite draws.  Returns them with
-    each coordinate's mean and MCSE."""
+    below 0.01%, R-hat below ``rhat_max`` (None: recorded only), finite
+    draws.  Returns them with each coordinate's mean and MCSE."""
     x = res.positions.float().transpose(0, 1)  # (chains, draws, dim)
     check(bool(torch.isfinite(x).all()), f"{what}: non-finite draws")
     mean, mcse = mean_mcse(torch, diagnostics, x)
@@ -6381,7 +6464,8 @@ def door_limits(torch, diagnostics, res, what, accept_range):
           f"{what}: divergent share {out['divergent_share']}")
     check(accept_range[0] <= out["accept"] <= accept_range[1],
           f"{what}: mean acceptance {out['accept']}")
-    check(out["max_rhat"] < RHAT_MAX, f"{what}: max R-hat {out['max_rhat']}")
+    check(rhat_max is None or out["max_rhat"] < rhat_max,
+          f"{what}: max R-hat {out['max_rhat']}")
     return out
 
 
@@ -6395,13 +6479,14 @@ def agree(torch, a, b, what):
 
 
 def rest_doors(torch, ops, diagnostics, pots, record, card):
-    """Phase 52: R1 through the fused NUTS door (10,240 chains, 150 + 200,
-    K 6, a dense M⁻¹) against the pooled XLA route (512 of its chains, 150
+    """Phase 52: R1 through the fused NUTS door (R1_CHAINS chains, 150 + 200,
+    K 6, a dense M⁻¹) against the pooled XLA route (512 of its chains, 100
     + 200, K 4, a dense M⁻¹) from one numpy start; R2 through the fused
     NUTS and MEADS doors (10,240 chains), against each other; R3 through
-    the fused ChEES door (4,096 chains) against its fused NUTS door.  Every
-    fused door runs twice with one seed, equal bit for bit; launches exact;
-    every run within §2's limits, R-hat below RHAT_MAX."""
+    the fused ChEES door (4,096 chains) against its fused NUTS door.  R2's
+    NUTS and R3's ChEES doors run twice with one seed, equal bit for bit
+    (R1's NUTS and R2's MEADS, the longest, once); launches
+    exact; every run within §2's limits, R-hat below RHAT_MAX."""
     import aehmc_tpu_torch
 
     dev = torch.device(DEVICE)
@@ -6445,9 +6530,9 @@ def rest_doors(torch, ops, diagnostics, pots, record, card):
         return lim
 
     # R1: fused NUTS against the pooled XLA route, both with a dense M⁻¹
-    q1 = start("softmax_reg", CHAINS, 5201)
+    q1 = start("softmax_reg", R1_CHAINS, 5201)
     lp1 = pots["softmax_reg"]["lp"]
-    a = fused("softmax_reg", "NUTS", lambda: aehmc_tpu_torch.sample(
+    a = once("softmax_reg", "NUTS", lambda: aehmc_tpu_torch.sample(
         torch.Generator().manual_seed(5202), lp1, q1, DRAWS, WARMUP,
         algorithm="nuts", path="fused", max_num_expansions=K,
         is_mass_matrix_full=True), nuts_launches(WARMUP), (0.7, 0.9))
@@ -6469,7 +6554,7 @@ def rest_doors(torch, ops, diagnostics, pots, record, card):
         algorithm="nuts", path="fused", max_num_expansions=K),
         nuts_launches(w), (0.7, 0.9))
     (w, n) = R2_MEADS
-    b = fused("weibull_mice", "MEADS", lambda: aehmc_tpu_torch.sample(
+    b = once("weibull_mice", "MEADS", lambda: aehmc_tpu_torch.sample(
         torch.Generator().manual_seed(5206), lp2, q2, n, w,
         algorithm="meads", path="fused", meads_recompute_every=MEADS_EVERY),
         {"ghmc_segment_generic": -(-w // MEADS_EVERY)
@@ -6519,7 +6604,7 @@ def fault_g_probe(torch, ops, record, card):
     """Phase 53 (a), fault G (ROADMAP.md §3): the pooled XLA NUTS route on
     P2 under log φ ~ N(0, 4) from 0.1·N(0, 1) made with numpy, as phase 50
     runs it (the first 512 of its start's 4,096 rows, its seed, ε0 and
-    schedule: 100 + 200, K 4), in float32 and in float64: chains with log
+    schedule: FAULT_G's, K 4), in float32 and in float64: chains with log
     φ > 10 at the first draw, the tuned M⁻¹ of log φ, divergences.  A
     witness: it fails if a kernel ran or if a float64 chain ends warmup or
     sampling at log φ > 10; float32's count is recorded (ROADMAP.md §3:
@@ -6580,6 +6665,20 @@ def fault_g_probe(torch, ops, record, card):
     return out
 
 
+_LGAMMA = {}
+
+
+def lgamma_binding(torch, dev):
+    """The binding of ``lgamma(q[0])`` phase 53 runs (one per device, so
+    phase 1 builds its functor with the others)."""
+    import aehmc_tpu_torch.api as api
+
+    if dev not in _LGAMMA:
+        _LGAMMA[dev] = api._generic_fused_binding(
+            lambda q: torch.lgamma(q[0]), 1, dev)
+    return _LGAMMA[dev]
+
+
 def lgamma_probe(torch, ops48, pots, record, card):
     """Phase 53 (b): the generated functor's lgamma (CUDA's lgammaf) and
     digamma (ATen's formula transcribed) against torch's on the card, each
@@ -6587,7 +6686,6 @@ def lgamma_probe(torch, ops48, pots, record, card):
     the functor's at q); P2's gradient, kernel against plain at phase 48's
     state, and the plain one against itself (its scatter-add is
     index_add's); and phase 48's decision agreement on P2."""
-    import aehmc_tpu_torch.api as api
     from aehmc_tpu_torch.ops import generic_pg
     from aehmc_tpu_torch.ops import ghmc_fused as gf
 
@@ -6596,11 +6694,7 @@ def lgamma_probe(torch, ops48, pots, record, card):
     x = torch.tensor(np.exp(np.random.default_rng(53).uniform(
         np.log(0.05), np.log(300.0), (1, n))), dtype=torch.float32,
         device=dev)
-
-    def lp(q):
-        return torch.lgamma(q[0])
-
-    pot, rows = api._generic_fused_binding(lp, 1, dev)
+    pot, rows = lgamma_binding(torch, dev)
     big = torch.full((1, n), 1e30, device=dev)
     gkw = dict(potential_and_grad_t=None, potential_fn_t=pot)
     o = gf.ghmc_transition_cuda(x, big, torch.zeros_like(x),
@@ -6698,6 +6792,566 @@ def sampling_table_fields(kernels, *phases):
         entry["generic_ops_sampling"] = fields
 
 
+# Phases 54-55: the last of the op table (ROADMAP item 1.10c): Cholesky
+# factors, log-determinants, symmetric eigendecompositions, sorts, top-k,
+# cumulative products, scatter_reduce and integer arithmetic on a per-chain
+# index, on six bare logprobs and one test-only potential, data made from
+# a seed with numpy (tests/test_torch_op_table_last.py holds their JAX
+# twins at small sizes).  S1 gp_se64: a GP's marginal likelihood, squared-
+# exponential kernel on 64 points (Stan Users Guide, "Fitting a Gaussian
+# process": cholesky_decompose, multi_normal_cholesky), dim 3; S2
+# gp_se64_logdet: S1 through logdet and linalg.solve; S3 lkj_slopes: varying
+# intercepts and slopes, LKJCholesky(4, 2) through CorrCholeskyTransform,
+# written with torch.distributions (Stan Users Guide, "Multivariate priors
+# for hierarchical models"), 30 groups, 600 observations, dim 135; S4
+# ordinal_sorted: ordered-logistic regression, 5 categories, cut-points
+# torch.sort of four free values (Stan Users Guide, "Ordered logistic
+# regression"), 1,000 observations, 10 predictors, dim 14; S5
+# matrix_log_cov: a 5-d normal with covariance exp(A(q)) through eigh
+# (Leonard and Hsu 1992), 200 rows, dim 20; S6 lts_topk: least trimmed
+# squares, the 150 smallest of 200 squared residuals through topk
+# (Rousseeuw 1984), 5 predictors, dim 6; op_extras: scatter_reduce (sum,
+# mean, amax, amin, with and without the base) by a 40-entry index into 6
+# groups and w[(argmax + 1) % 4], M[i, j] with per-chain i, j (dim 7).
+# Phase 54 holds kernels 1, 3, 5 and 7 on each against their plain versions
+# (kernels 2 and 6 on S1 against kernels 1 and 5 draw by draw) and S1's
+# kernel 1 on chains sent where K is not positive definite; phase 55 runs
+# S1's fused NUTS, S3's fused ChEES and S5's fused MEADS doors against the
+# pooled XLA NUTS route on the same model.
+LAST_SEED = 5454
+GP_POINTS, GP_JITTER = 64, 1e-6
+LKJ_COEF, LKJ_GROUPS, LKJ_OBS = 4, 30, 600
+# S3's residual sd: its 20 observations a group determine each group's
+# coefficients to about LKJ_NOISE / sqrt(20) ~ 0.45 against their spread
+# tau ~ 0.6, so the correlation factor is informed but not pinned (with
+# sd 0.5 the 30 groups pin every z_j and L can move only with all of them:
+# R-hat 1.40 after 1,000 ChEES draws, 1.04 after pooled NUTS's 200)
+LKJ_NOISE = 2.0
+ORD_OBS, ORD_PRED = 1000, 10
+MLC_DIM, MLC_ROWS = 5, 200
+LTS_POINTS, LTS_PRED, LTS_KEEP = 200, 5, 150
+SR_GROUPS, SR_ENTRIES, SR_DIM = 6, 40, 4
+# name: (dim, chains, ε, diagonal M⁻¹, K) of phase 54's kernel checks
+LAST_CELLS = {"gp_se64": (3, 1_024, 0.02, 1.0, 4),
+              "gp_se64_logdet": (3, 1_024, 0.02, 1.0, 4),
+              "lkj_slopes": (135, 4_096, 0.02, 1.0, 6),
+              "ordinal_sorted": (14, 4_096, 0.01, 1.0, 6),
+              "matrix_log_cov": (20, 4_096, 0.01, 1.0, 6),
+              "lts_topk": (6, 4_096, 0.01, 1.0, 6),
+              "op_extras": (7, 4_096, 0.05, 1.0, 6)}
+LAST_SAMPLING = {"gp_se64": (2, 6)}
+# S4's cut-points start spread as the data's (-1.5, -0.5, 0.5, 1.5): at
+# 0.1·N(0, 1) they nearly coincide, each category's probability is a
+# difference of nearly equal sigmoids and the gradient reaches 1e5
+LAST_STARTS = {"ordinal_sorted": [0.0] * ORD_PRED + [-1.5, -0.5, 0.5, 1.5]}
+JACOBI_SWEEPS = 16   # the functor's most sweeps of cyclic Jacobi
+# phase 54's witness: S1's chains sent by a unit step to alpha e^6, rho
+# e^4, sigma e^-20, where K is numerically singular and its float32
+# Cholesky meets a pivot that is not positive: divergent, not raised
+NON_PD_Q = (6.0, 4.0, -20.0)
+NON_PD_CHAINS = 64
+# phase 55's doors (algorithm, warmup, draws) on 4,096 chains, and the
+# pooled XLA NUTS route (512 chains) each is held to.  Lengths from a probe
+# of R-hat by draws (NVIDIA H100 80GB HBM3, 700 W):
+# S1's NUTS 1.0048 at 200 draws; S3's ChEES from 500 warmup steps 1.0104 /
+# 1.0052 / 1.0026 at 500 / 1,000 / 2,000 (4.2 ms a step); S5's MEADS
+# 1.0278 / 1.0137 / 1.0070 / 1.0034 at 500 / 1,000 / 2,000 / 4,000.  S3's
+# pooled reference (LAST_POOLED_S3) takes a dense M⁻¹ (R-hat 1.019 at K 4
+# and 100 + 200 against 1.028 with a diagonal one, 70-79 s a run)
+LAST_DOOR_CHAINS = 4096
+LAST_DOORS = {"gp_se64": ("nuts", 150, 200),
+              "lkj_slopes": ("chees", 500, 1000),
+              "matrix_log_cov": ("meads", 500, 3000)}
+LAST_POOLED = dict(chains=512, warmup=100, draws=100, k=4)
+# S3's reference: a dense M⁻¹, K 3 and 100 + 100 (its R-hat recorded, its
+# means held): at K 4 its trees end at the cap and a run takes 70-79 s
+LAST_POOLED_S3 = dict(chains=512, warmup=100, draws=100, k=3)
+
+
+def gp_data(num_points=GP_POINTS, seed=0):
+    """S1/S2: sorted inputs on [-5, 5], a smooth function plus noise."""
+    rng = np.random.default_rng(seed)
+    x = np.sort(rng.uniform(-5.0, 5.0, num_points))
+    y = np.sin(x) + 0.5 * np.cos(2.0 * x) + 0.3 * rng.standard_normal(
+        num_points)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def gp_se(torch, x, y, device, logdet=False, nan_factor=False):
+    """S1 (S2 with ``logdet``): q = (log alpha, log rho, log sigma).  With
+    ``nan_factor`` the factor is ``cholesky_ex``'s, NaN where K is not
+    positive definite (JAX's rule, the fused routes' too): the XLA path
+    runs the logprob as it stands, where torch's cholesky raises."""
+    X, Y = (torch.as_tensor(a, device=device) for a in (x, y))
+    n = X.shape[0]
+
+    def logprob_fn(q):
+        alpha, rho, sigma = torch.exp(q[0]), torch.exp(q[1]), torch.exp(q[2])
+        d = (X[:, None] - X[None, :]) / rho
+        K = alpha * alpha * torch.exp(-0.5 * d * d) + (
+            sigma * sigma + GP_JITTER) * torch.eye(n, dtype=X.dtype,
+                                                   device=device)
+        if logdet:
+            ll = -0.5 * torch.dot(Y, torch.linalg.solve(K, Y)) \
+                - 0.5 * torch.logdet(K)
+        else:
+            if nan_factor:
+                L, info = torch.linalg.cholesky_ex(K)
+                L = torch.where(info != 0, math.nan, L)
+            else:
+                L = torch.linalg.cholesky(K)
+            z = torch.linalg.solve_triangular(L, Y[:, None], upper=False)
+            ll = -0.5 * torch.sum(z * z) - torch.sum(torch.log(
+                torch.diagonal(L)))
+        return ll - 0.5 * (q[0] ** 2 + q[1] ** 2 + (q[2] + 1.0) ** 2)
+
+    return logprob_fn
+
+
+def lkj_data(num_coef=LKJ_COEF, num_groups=LKJ_GROUPS, num_obs=LKJ_OBS,
+             seed=0):
+    """S3: group (int64), covariates with an intercept (float32), y."""
+    rng = np.random.default_rng(seed)
+    K, J, N = num_coef, num_groups, num_obs
+    A = rng.standard_normal((K, K))
+    S = A @ A.T + K * np.eye(K)
+    d = 1.0 / np.sqrt(np.diag(S))
+    L = np.linalg.cholesky(S * d[:, None] * d[None, :])
+    tau = np.exp(rng.normal(-0.5, 0.3, K))
+    mu = rng.normal(0.0, 1.0, K)
+    beta = mu + (rng.standard_normal((J, K)) @ L.T) * tau
+    group = np.arange(N) % J
+    x = np.concatenate([np.ones((N, 1)), rng.standard_normal((N, K - 1))], 1)
+    y = (x * beta[group]).sum(1) + LKJ_NOISE * rng.standard_normal(N)
+    return group.astype(np.int64), x.astype(np.float32), y.astype(np.float32)
+
+
+def lkj_slopes(torch, group, x, y, num_groups, device):
+    """S3: q = (mu (K), log tau (K), the factor's K(K-1)/2 unconstrained
+    values, z (J K), log sigma), written with torch.distributions."""
+    import torch.distributions as dist
+
+    g, X, Y = (torch.as_tensor(a, device=device) for a in (group, x, y))
+    K, J = X.shape[1], num_groups
+    m = K * (K - 1) // 2
+
+    def logprob_fn(q):
+        mu, log_tau = q[:K], q[K:2 * K]
+        raw, z = q[2 * K:2 * K + m], q[2 * K + m:2 * K + m + J * K]
+        log_sigma = q[-1]
+        corr = dist.transforms.CorrCholeskyTransform()
+        L = corr(raw)
+        lp = dist.LKJCholesky(K, torch.tensor(2.0, dtype=q.dtype,
+                                              device=device)).log_prob(L) \
+            + corr.log_abs_det_jacobian(raw, L)
+        Z = z.reshape(J, K)
+        lp = lp + dist.MultivariateNormal(
+            torch.zeros(K, dtype=q.dtype, device=device),
+            scale_tril=torch.eye(K, dtype=q.dtype, device=device)).log_prob(
+            Z).sum()
+        beta = mu + (Z @ L.T) * torch.exp(log_tau)
+        eta = torch.sum(X * beta[g], -1)
+        lp = lp + dist.Normal(eta, torch.exp(log_sigma)).log_prob(Y).sum()
+        return lp + dist.Normal(0.0, 5.0).log_prob(mu).sum() \
+            + dist.Normal(0.0, 1.0).log_prob(log_tau).sum() \
+            + dist.Normal(0.0, 1.0).log_prob(log_sigma)
+
+    return logprob_fn
+
+
+def ordinal_data(num_obs=ORD_OBS, num_pred=ORD_PRED, seed=0):
+    """S4: predictors (float32), 5 ordered categories 1..5 (int64)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((num_obs, num_pred))
+    beta = rng.normal(0.0, 1.0, num_pred)
+    cuts = np.array([-1.5, -0.5, 0.5, 1.5])
+    latent = X @ beta + rng.logistic(size=num_obs)
+    y = 1 + np.searchsorted(cuts, latent)
+    return X.astype(np.float32), y.astype(np.int64)
+
+
+def ordinal_sorted(torch, X, y, device):
+    """S4: q = (beta (P), c_raw (4)); cut-points torch.sort(c_raw)."""
+    Xt, yt = (torch.as_tensor(a, device=device) for a in (X, y))
+    N, P = Xt.shape
+
+    def logprob_fn(q):
+        beta, c = q[:P], torch.sort(q[P:P + 4]).values
+        cum = torch.sigmoid(c[None, :] - (Xt @ beta)[:, None])
+        cum = torch.cat([torch.zeros(N, 1, dtype=q.dtype, device=device), cum,
+                         torch.ones(N, 1, dtype=q.dtype, device=device)], 1)
+        p = cum[:, 1:] - cum[:, :-1]
+        ll = torch.log(p[torch.arange(N, device=device), yt - 1]).sum()
+        return ll - 0.5 * torch.sum((beta / 2.5) ** 2) \
+            - 0.5 * torch.sum((q[P:P + 4] / 5.0) ** 2)
+
+    return logprob_fn
+
+
+def mlc_data(num_dim=MLC_DIM, num_rows=MLC_ROWS, seed=0):
+    """S5: rows of a normal with well separated log-eigenvalues."""
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.standard_normal((num_dim, num_dim)))
+    lam = np.linspace(-1.0, 1.0, num_dim)
+    cov = (V * np.exp(lam)) @ V.T
+    mu = rng.standard_normal(num_dim)
+    Y = mu + rng.standard_normal((num_rows, num_dim)) @ np.linalg.cholesky(
+        cov).T
+    return Y.astype(np.float32)
+
+
+def matrix_log_cov(torch, Y, device):
+    """S5: q = (mu (K), A's lower triangle); Sigma = V exp(Lambda) V^T."""
+    Yt = torch.as_tensor(Y, device=device)
+    n, K = Yt.shape
+    rows, cols = (torch.as_tensor(a, device=device)
+                  for a in np.tril_indices(K))
+
+    def logprob_fn(q):
+        mu, a = q[:K], q[K:]
+        A = torch.zeros(K, K, dtype=q.dtype, device=device)
+        A[rows, cols] = a
+        A[cols, rows] = a
+        lam, V = torch.linalg.eigh(A)
+        prec = (V * torch.exp(-lam)) @ V.T
+        R = Yt - mu
+        return -0.5 * torch.sum((R @ prec) * R) - 0.5 * n * torch.sum(lam) \
+            - 0.5 * torch.sum((mu / 10.0) ** 2) - 0.5 * torch.sum(a * a)
+
+    return logprob_fn
+
+
+def lts_data(num_points=LTS_POINTS, num_pred=LTS_PRED, seed=0):
+    """S6: design and responses, a tenth of them outliers."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((num_points, num_pred))
+    beta = rng.normal(0.0, 1.0, num_pred)
+    y = X @ beta + 0.5 * rng.standard_normal(num_points)
+    bad = rng.choice(num_points, num_points // 10, replace=False)
+    y[bad] += rng.choice([-1.0, 1.0], bad.size) * 8.0
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def lts_topk(torch, X, y, h, device):
+    """S6: q = (beta (P), log sigma); the h smallest squared residuals."""
+    Xt, yt = (torch.as_tensor(a, device=device) for a in (X, y))
+    P = Xt.shape[1]
+
+    def logprob_fn(q):
+        beta, log_sigma = q[:P], q[P]
+        r2 = (yt - Xt @ beta) ** 2
+        kept = torch.topk(r2, h, largest=False).values
+        return -0.5 * torch.sum(kept) * torch.exp(-2.0 * log_sigma) \
+            - h * log_sigma - 0.5 * torch.sum((beta / 5.0) ** 2) \
+            - 0.5 * log_sigma ** 2
+
+    return logprob_fn
+
+
+def extras_data(seed=6):
+    """op_extras: a 40-entry index into 6 groups (each hit), the design of
+    the scattered values and the bases."""
+    rng = np.random.default_rng(seed)
+    idx = np.concatenate([np.arange(SR_GROUPS), rng.integers(
+        0, SR_GROUPS, SR_ENTRIES - SR_GROUPS)])
+    A = rng.standard_normal((SR_ENTRIES, SR_DIM))
+    base = rng.uniform(0.5, 1.5, SR_GROUPS)
+    return idx.astype(np.int64), A.astype(np.float32), base.astype(np.float32)
+
+
+def op_extras(torch, idx, A, base, device):
+    """scatter_reduce (sum, mean, amax, amin; with and without the base)
+    by a data index, and integer arithmetic on per-chain indices."""
+    it, At, bt = (torch.as_tensor(a, device=device) for a in (idx, A, base))
+    w = torch.tensor([1.0, 2.5, -1.0, 0.5], dtype=At.dtype, device=device)
+    M = (torch.arange(12.0, dtype=At.dtype, device=device).reshape(3, 4)
+         / 7.0 - 0.8)
+
+    def logprob_fn(q):
+        s = At @ q[:SR_DIM]
+        lp = -0.5 * torch.sum(q * q)
+        for reduce in ("sum", "mean", "amax", "amin"):
+            for include_self in (True, False):
+                out = bt.scatter_reduce(0, it, s, reduce=reduce,
+                                        include_self=include_self)
+                lp = lp - 0.05 * torch.sum(out * out)
+        k = (torch.argmax(q[:4], dim=0, keepdim=True) + 1) % 4
+        i = torch.argmax(q[4:7], dim=0, keepdim=True)
+        j = torch.argmin(q[:4], dim=0, keepdim=True) * 2 - 3
+        return lp + torch.sum(w[k] * q[0] + M[i, j] * q[4])
+
+    return logprob_fn
+
+
+def last_potentials(torch, dev):
+    """S1-S6 and op_extras: logprobs, float64 twins, bindings, functors."""
+    import aehmc_tpu_torch.api as api
+    from aehmc_tpu_torch.ops import generic_pg
+
+    def f64(*arrays):
+        return [a.astype(np.float64) if a.dtype == np.float32 else a
+                for a in arrays]
+
+    x, y = gp_data()
+    g, X3, Y3 = lkj_data()
+    Xo, yo = ordinal_data()
+    Ym = mlc_data()
+    Xl, yl = lts_data()
+    ex = extras_data()
+    pairs = {
+        "gp_se64": lambda *a: gp_se(torch, *a, dev), "gp_se64_logdet":
+        lambda *a: gp_se(torch, *a, dev, logdet=True),
+        "lkj_slopes": lambda *a: lkj_slopes(torch, *a, LKJ_GROUPS, dev),
+        "ordinal_sorted": lambda *a: ordinal_sorted(torch, *a, dev),
+        "matrix_log_cov": lambda *a: matrix_log_cov(torch, *a, dev),
+        "lts_topk": lambda *a: lts_topk(torch, *a, LTS_KEEP, dev),
+        "op_extras": lambda *a: op_extras(torch, *a, dev)}
+    data = {"gp_se64": (x, y), "gp_se64_logdet": (x, y),
+            "lkj_slopes": (g, X3, Y3), "ordinal_sorted": (Xo, yo),
+            "matrix_log_cov": (Ym,), "lts_topk": (Xl, yl), "op_extras": ex}
+    out = {}
+    for name, make in pairs.items():
+        dim = LAST_CELLS[name][0]
+        lp = make(*data[name])
+        pot, rows = api._generic_fused_binding(lp, dim, dev)
+        out[name] = dict(lp=lp, lp64=make(*f64(*data[name])), pot=pot,
+                         rows=tuple(rows),
+                         bound=generic_pg.bind(pot, rows, dim, device=dev))
+    # the pooled XLA reference's S1: the same density, NaN for a failed
+    # factor rather than torch's exception
+    out["gp_se64"]["lp_xla"] = gp_se(torch, x, y, dev, nan_factor=True)
+    return out
+
+
+def jacobi_sweeps(A, tol=1e-7, most=JACOBI_SWEEPS):
+    """The mean sweeps the functor's cyclic Jacobi (its stopping rule:
+    off-diagonal Frobenius norm at most ``tol`` of the matrix's) takes on
+    the symmetric matrices ``A (m, n, n)``, in float64 with numpy."""
+    counts = []
+    for a in np.asarray(A, np.float64):
+        a = a.copy()
+        n = a.shape[0]
+        norm2 = (a * a).sum()
+        sweeps = 0
+        while sweeps < most:
+            off = (a * a).sum() - (np.diag(a) ** 2).sum()
+            if not off > tol * tol * norm2:
+                break
+            sweeps += 1
+            for p in range(n - 1):
+                for q in range(p + 1, n):
+                    if a[p, q] == 0.0:
+                        continue
+                    theta = (a[q, q] - a[p, p]) / (2.0 * a[p, q])
+                    t = np.sign(theta or 1.0) / (abs(theta)
+                                                 + math.sqrt(theta ** 2 + 1))
+                    c = 1.0 / math.sqrt(t * t + 1.0)
+                    s = t * c
+                    rot = np.eye(n)
+                    rot[p, p] = rot[q, q] = c
+                    rot[p, q], rot[q, p] = s, -s
+                    a = rot.T @ a @ rot
+        counts.append(sweeps)
+    return float(np.mean(counts))
+
+
+def eigh_sweeps(torch, ir, q_t, operands, chains=256):
+    """The mean Jacobi sweeps of the IR's eigendecompositions at the first
+    ``chains`` columns of ``q_t``: the plain back end run node by node up
+    to each ``eigh`` node's matrices."""
+    from aehmc_tpu_torch.ops import generic_pg
+
+    data = generic_pg.all_operands(ir, operands)
+    q = q_t[:, :chains].double()
+    vals, sweeps = [], []
+    for n in ir.nodes:
+        args = [vals[a] for a in n.args]
+        if n.op == "q":
+            v = q
+        elif n.op == "data":
+            v = data[n.params[0]].to(
+                device=q.device, dtype=torch.int64 if n.dtype == "i"
+                else torch.float64).reshape(*n.shape, 1)
+        else:
+            v = generic_pg._plain_node(n, args, torch.float64, q.device)
+        if n.op == "eigh":
+            A = args[0].movedim(-1, 0)
+            A = A.expand(q.shape[1], *A.shape[1:]).reshape(-1, *A.shape[2:])
+            sweeps.append(jacobi_sweeps(A.cpu().numpy()))
+        vals.append(v)
+    return float(np.mean(sweeps)) if sweeps else 0.0
+
+
+def non_pd_witness(torch, p, record, card):
+    """Phase 54 (b): kernel 1 on S1's functor, NON_PD_CHAINS of 4,096
+    chains sent by a unit step (external momentum) to NON_PD_Q, where K's
+    float32 Cholesky fails: those chains divergent and unmoved, their
+    energy not finite, nothing raised; the plain version the same."""
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+
+    dev = torch.device(DEVICE)
+    b, rows = p["bound"], p["rows"]
+    chains, bad = LAST_CELLS["gp_se64"][1], NON_PD_CHAINS
+    rng = np.random.default_rng(LAST_SEED + 9)
+    q = 0.1 * rng.standard_normal((3, chains))
+    q[2] -= 1.0
+    p0 = rng.standard_normal((3, chains))
+    p0[:, :bad] = np.asarray(NON_PD_Q)[:, None] - q[:, :bad]
+    q_t, mom = (torch.tensor(a, dtype=torch.float32, device=dev)
+                for a in (q, p0))
+    ops_b = b.operands(rows, dev)
+
+    def plain_pg(x):
+        return generic_pg.run_plain(b.ir, x, ops_b)
+
+    u0, g0 = plain_pg(q_t)
+    k = 2
+    ext = dict(momentum=mom,
+               directions=torch.ones(k, chains, device=dev),
+               u_bias=torch.tensor(rng.uniform(size=(k, chains)),
+                                   dtype=torch.float32, device=dev),
+               u_leaf=torch.tensor(rng.uniform(size=(2 ** k, chains)),
+                                   dtype=torch.float32, device=dev))
+    imm = torch.ones(3, device=dev)
+    out = nfs.nuts_transition_cuda(q_t, u0, g0, imm, 1.0, rows, max_exp=k,
+                                   potential_and_grad_t=None,
+                                   potential_fn_t=p["pot"], **ext)
+    ref = nfs.nuts_transition_plain(q_t, u0, g0, imm, 1.0, plain_pg,
+                                    max_exp=k, **ext)
+    torch.cuda.synchronize()
+    u_bad, _ = plain_pg(torch.tensor(np.tile(np.asarray(NON_PD_Q)[:, None],
+                                             (1, 8)), dtype=torch.float32,
+                                     device=dev))
+    res = dict(chains=chains, sent=bad,
+               potential_nan=bool(torch.isnan(u_bad).all()))
+    for what, o in (("kernel", out), ("plain", ref)):
+        div = o[3][4, :bad]
+        res[what] = dict(divergent=int((div == 1.0).sum()),
+                         unmoved=bool(torch.equal(o[0][:, :bad],
+                                                  q_t[:, :bad])),
+                         finite=bool(torch.isfinite(o[0]).all()))
+        check(res[what]["divergent"] == bad and res[what]["unmoved"]
+              and res[what]["finite"], f"S1 witness, {what}: {res[what]}")
+    check(res["potential_nan"], "S1 witness: the potential is finite there")
+    log(f"phase 54: S1's witness, {bad} of {chains} chains sent to log "
+        f"(alpha, rho, sigma) = {NON_PD_Q}, where K is not positive definite "
+        f"in float32: the potential NaN, kernel 1 and its plain version "
+        f"divergent on {res['kernel']['divergent']} / "
+        f"{res['plain']['divergent']} of them, unmoved, nothing raised "
+        f"[{card}]")
+    record.setdefault("phase54", {})["non_pd_witness"] = res
+    return res
+
+
+def last_doors(torch, ops, diagnostics, pots, record, card):
+    """Phase 55: S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
+    doors (LAST_DOOR_CHAINS chains, LAST_DOORS' lengths), each within
+    §2's limits (R-hat below RHAT_MAX), launches exact, its means within
+    MCSE_Z combined MCSE of the pooled XLA NUTS route's on the same model
+    (LAST_POOLED), which holds §2's limits too."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.ops.generic_pg import no_validation
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    out, z = {}, {}
+    accept = {"nuts": (0.7, 0.9), "chees": CHEES_ACCEPT,
+              "meads": (MEADS_ACCEPT_MIN, 1.0)}
+    for n, (name, (algo, w, d)) in enumerate(LAST_DOORS.items()):
+        dim = LAST_CELLS[name][0]
+        q0 = torch.tensor(0.1 * np.random.default_rng(
+            LAST_SEED + 20 + n).standard_normal((LAST_DOOR_CHAINS, dim)),
+            dtype=torch.float32, device=dev)
+        lp = pots[name]["lp"]
+        kw = {"nuts": dict(max_num_expansions=K),
+              "chees": dict(initial_step_size=CHEES_EPS0),
+              "meads": dict(meads_recompute_every=MEADS_EVERY)}[algo]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(LAST_SEED + 30 + n), lp, q0, d, w,
+            algorithm=algo, path="fused", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if algo == "nuts":
+            want = {"nuts_transition_generic": w, "nuts_sampling_generic": 1}
+        elif algo == "meads":
+            want = {"ghmc_segment_generic": -(-w // MEADS_EVERY)
+                    + -(-d // MEADS_EVERY)}
+        else:
+            probes = launches.get("chees_transition_generic", 0) - (w + d)
+            check(1 <= probes <= 32, f"{name} ChEES launches {launches}")
+            want = {"chees_transition_generic": w + d + probes}
+        check(launches == want, f"{name} {algo}: launches {launches}, want "
+              f"{want}")
+        a = door_limits(torch, diagnostics, res, f"{name} fused {algo}",
+                        accept[algo])
+        x = res.positions.float().transpose(0, 1)  # R-hat at shorter runs
+        a["rhat_by_draws"] = {m: max_rhat(torch, diagnostics, x[:, :m])
+                              for m in (d // 4, d // 2)}
+        del x, res
+        out[f"{name} {algo}"] = dict(wall_s=wall, launches=launches, **a)
+        pc = LAST_POOLED_S3 if name == "lkj_slopes" else LAST_POOLED
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_validation():  # torch.distributions' checks under vmap
+            ref = aehmc_tpu_torch.sample(
+                torch.Generator().manual_seed(LAST_SEED + 40 + n),
+                pots[name].get("lp_xla", lp),
+                q0[:pc["chains"]], pc["draws"], pc["warmup"],
+                algorithm="nuts", path="pooled",
+                max_num_expansions=pc["k"],
+                is_mass_matrix_full=name == "lkj_slopes")
+        torch.cuda.synchronize()
+        wall_ref = time.perf_counter() - t0
+        b = door_limits(torch, diagnostics, ref, f"{name} pooled NUTS",
+                        (0.6, 0.95), rhat_max=(RHAT_MAX if name !=
+                                               "lkj_slopes" else None))
+        out[f"{name} pooled"] = dict(wall_s=wall_ref, **b)
+        z[name] = agree(torch, a, b, f"{name} fused {algo} against pooled "
+                        "XLA NUTS")
+    wall = time.perf_counter() - t_phase
+    for what, r in out.items():
+        log(f"phase 55: {what}, {r['chains']} chains, {r['draws']} draws: "
+            f"{r['wall_s']:.2f} s"
+            + (f"; launches {r['launches']}" if "launches" in r else "")
+            + f"; accept {r['accept']:.4f}, divergent "
+            f"{r['divergent_share']:.2e}, ε {r['step_size']:.4f}, max R-hat "
+            f"{r['max_rhat']:.4f} (limit {RHAT_MAX}"
+            + (f"; at fewer draws {r['rhat_by_draws']}"
+               if "rhat_by_draws" in r else "") + f") [{card}]")
+        r["mean"], r["mcse"] = r["mean"].tolist(), r["mcse"].tolist()
+    log("phase 55: means within " + ", ".join(
+        f"{v:.2f} ({k})" for k, v in z.items()) + f" combined MCSE of the "
+        f"pooled XLA NUTS route (limit {MCSE_Z}); phase 55 in {wall:.1f} s "
+        f"[{card}]")
+    record["phase55"] = dict(wall_s=wall, z=z, **out)
+    return out
+
+
+def last_table_fields(kernels, ops54, doors55):
+    """S1-S6's and op_extras' records in kernels 1, 3, 5 and 7's
+    ``generic_ops`` (launches on phase 55's doors) and kernels 2 and 6's
+    ``generic_ops_launches``."""
+    door = {}
+    for what, r in doors55.items():
+        for k, v in r.get("launches", {}).items():
+            door.setdefault(what.split()[0], {})[k] = v
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("nuts_sampling", "ghmc_segment"):
+            entry.setdefault("generic_ops_launches", {}).update({
+                p: door.get(p, {}).get(f"{name}_generic", 0) for p in ops54})
+        if name in ("nuts_transition", "nuts_transition_std",
+                    "ghmc_transition", "chees_transition"):
+            entry["generic_ops"].update({
+                p: functor_fields(name, res, door.get(p, {}))
+                for p, res in ops54.items()})
+
+
 def main():
     import torch
 
@@ -6723,22 +7377,35 @@ def main():
     # ---- phase 1: identity and build
     card = card_identity()
     kind = torch.cuda.get_device_name(0)
+    # the six sources build while the potentials are traced (a trace is one
+    # core's work; the functors' builds, which would take every core from
+    # it, start after)
+    from concurrent.futures import ThreadPoolExecutor
+    from aehmc_tpu_torch.ops import generic_pg
+
     t0 = time.perf_counter()
-    gen_pots = generic_potentials(torch, dev)  # phases 34-38's functors
-    op_pots = op_table_potentials(torch, dev)  # phases 48-50's
-    rest_pots = rest_potentials(torch, dev)    # phases 51-52's
-    trace_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _build.build_all(generated=[b.source for b in gen_pots["binds"].values()]
-                     + [p["bound"].source for p in op_pots.values()]
-                     + [p["bound"].source for p in rest_pots.values()])
+    with ThreadPoolExecutor(1) as pool:
+        sources = pool.submit(_build.build_all)
+        gen_pots = generic_potentials(torch, dev)  # phases 34-38's functors
+        op_pots = op_table_potentials(torch, dev)  # phases 48-50's
+        rest_pots = rest_potentials(torch, dev)    # phases 51-52's
+        last_pots = last_potentials(torch, dev)    # phases 54-55's
+        lg = generic_pg.bind(*lgamma_binding(torch, dev), 1, device=dev)
+        trace_s = time.perf_counter() - t0
+        _build._build_missing((), tuple(dict.fromkeys(
+            [b.source for b in gen_pots["binds"].values()]
+            + [p["bound"].source for p in op_pots.values()]
+            + [p["bound"].source for p in rest_pots.values()]
+            + [p["bound"].source for p in last_pots.values()]
+            + [lg.source])))
+        sources.result()
     build_s = time.perf_counter() - t0
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s "
-        f"(with {len(gen_pots['binds']) + len(op_pots) + len(rest_pots)} "
+        f"(with {len(gen_pots['binds']) + len(op_pots) + len(rest_pots) + len(last_pots) + 1} "
         f"generated functors, "
-        f"traced in {trace_s:.1f} s)")
+        f"traced in the first {trace_s:.1f} s while the sources built)")
     ptxas = ptxas_report(_build.ptxas_log())
     geometry = {}
     for name in ENTRIES:
@@ -7077,9 +7744,12 @@ def main():
     bf16_phases(torch, ops, diagnostics, q0, record, nuts_mean, card)
     extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
                     nuts_mean, card, EXTRA_SEEDS)
+    stamp(record, "1-17")
     hierarchical = hierarchical_phases(torch, ops, diagnostics, record, card)
+    stamp(record, "18-19")
     k8_launches, k8_route = xla_phases(torch, ops, diagnostics, data, pg, q0,
                                        record, nuts_mean, card)
+    stamp(record, "20-23")
     # kernel 8's main path is the XLA ChEES kernel's (phase 23); phase 10's
     # count, its launches through the entry point, is kept beside it
     k8_entry = next(e for e in ghmc if e["name"] == "fused_logistic_hmc")
@@ -7099,6 +7769,7 @@ def main():
                      meads_bound_ms=meads_k["bound" + n])
     # phases 28-33: per-chain ε in kernels 1 and 2 and the driver options
     # on it; the entries of kernels 1 and 2 carry its measurements
+    stamp(record, "24-27")
     per_chain = per_chain_kernel_phase(torch, nfs, data, pg, q0, tuned5,
                                        record, card)
     sorted_runs = sorted_funnel_phase(torch, ops, diagnostics, record, card)
@@ -7110,6 +7781,7 @@ def main():
     ckpt_launches = sorted_checkpoint_phase(torch, ops, record, card)
     # phases 34-38: kernels 1-4 on generated functors; their entries carry
     # the generic fields
+    stamp(record, "28-33")
     generic = generic_phases(torch, ops, diagnostics, gen_pots, data, pg, q0,
                              q_post, record, nuts_mean, card)
     # phases 39-43: kernels 5-7 on the generated and hierarchical functors,
@@ -7121,16 +7793,19 @@ def main():
                             nuts_mean, card)
     hier43 = hier_hmc_front_doors(torch, ops, diagnostics, record, card)
     # phases 44-47: a device mesh; kernels 1-5 and 7 at a chain offset
+    stamp(record, "34-43")
     offsets = offset_phase(torch, gen_pots, data, pg, q0, record, card)
     mesh_launches = mesh_phases(torch, ops, diagnostics, data, pot, pg, q0,
                                 record, card)
     # phases 48-50: the op table's potentials on kernels 1, 3, 5 and 7 and
     # through the fused front doors
+    stamp(record, "44-47")
     ops48 = op_kernel_phase(torch, op_pots, gen_pots, record, card)
     doors49 = op_mvn_doors(torch, ops, diagnostics, op_pots, record, card)
     runs50 = op_negbin_doors(torch, ops, diagnostics, op_pots, record, card)
     # phases 51-53: the rest of the op table on R1-R3, on kernels 1-7 and
     # through the front doors; fault G's and lgamma's probes
+    stamp(record, "48-50")
     ops51 = op_kernel_phase(torch, rest_pots, gen_pots, record, card,
                             phase=51, cells=REST_CELLS,
                             sampling=REST_SAMPLING)
@@ -7139,6 +7814,16 @@ def main():
     fault_g_probe(torch, ops, record, card)
     lgamma_probe(torch, ops48, op_pots, record, card)
     log(f"phase 53 in {time.perf_counter() - t53:.1f} s [{card}]")
+    # phases 54-55: the last of the op table on S1-S6 and op_extras, on
+    # kernels 1-7 (S1's witness where K is not positive definite) and
+    # through the fused NUTS, ChEES and MEADS doors
+    stamp(record, "51-53")
+    ops54 = op_kernel_phase(torch, last_pots, gen_pots, record, card,
+                            phase=54, cells=LAST_CELLS,
+                            sampling=LAST_SAMPLING, starts=LAST_STARTS)
+    non_pd_witness(torch, last_pots["gp_se64"], record, card)
+    doors55 = last_doors(torch, ops, diagnostics, last_pots, record, card)
+    stamp(record, "54-55")
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -7195,7 +7880,8 @@ def main():
                          mesh_launches=mesh_launches.get(entry["name"]))
     op_table_fields(kernels, ops48, doors49, runs50)
     rest_table_fields(kernels, ops51, doors52)
-    sampling_table_fields(kernels, ops48, ops51)
+    last_table_fields(kernels, ops54, doors55)
+    sampling_table_fields(kernels, ops48, ops51, ops54)
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

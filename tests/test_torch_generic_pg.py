@@ -711,20 +711,21 @@ def test_closed_over_tensors_become_data_operands():
 # ----------------------------------------------------------- the errors ---
 
 def test_an_op_outside_the_table_raises_naming_it():
-    """A sort and a symmetric eigendecomposition stay outside the table:
+    """A matrix exponential and a QR factorisation stay outside the table:
     each raises naming its aten op and the roadmap item."""
-    with pytest.raises(NotImplementedError, match=r"aten\.sort.*1\.10c"):
+    with pytest.raises(NotImplementedError,
+                       match=r"aten\.linalg_matrix_exp.*1\.10c"):
         generic_pg.trace_potential(
-            lambda q_t: 0.5 * torch.sum(q_t * torch.sort(q_t, 0).values, 0),
-            (), 4)
+            lambda q_t: torch.linalg.matrix_exp(
+                q_t.T.reshape(-1, 2, 2)).sum((1, 2)), (), 4)
     M3 = torch.eye(3) + 0.2
 
-    def eigh_lp(q):
-        w = torch.linalg.eigvalsh(M3 + torch.outer(q, q))
-        return -0.5 * torch.sum(w)
+    def qr_lp(q):
+        R = torch.linalg.qr(M3 + torch.outer(q, q)).R
+        return -0.5 * torch.sum(torch.diagonal(R) ** 2)
 
-    pot, data = _generic_fused_binding(eigh_lp, 3)
-    with pytest.raises(NotImplementedError, match="_linalg_eigh"):
+    pot, data = _generic_fused_binding(qr_lp, 3)
+    with pytest.raises(NotImplementedError, match="linalg_qr"):
         generic_pg.trace_potential(pot, data, 3)
     # the package's own mvn binds: its triangular solve is in the table
     mvn_lp = mvn(np.zeros(3), np.eye(3) + 0.2, device="cpu")

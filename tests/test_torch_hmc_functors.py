@@ -256,10 +256,11 @@ def test_card_dispatch_names_each_functor(module):
 @pytest.mark.parametrize("module", sorted(CORES))
 def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
     var_col = (torch.tensor(GAUSS_VAR[:4]).reshape(-1, 1),)
-    with pytest.raises(NotImplementedError, match=r"aten\.sort.*1\.10c"):
-        _dispatch(module, None, (), torch.zeros(4, 16),  # a sort: no rule
-                  potential_fn_t=lambda q_t: torch.sum(
-                      q_t * torch.sort(q_t, 0).values, 0))
+    with pytest.raises(NotImplementedError,
+                       match=r"aten\.linalg_matrix_exp.*1\.10c"):
+        _dispatch(module, None, (), torch.zeros(4, 16),  # no rule
+                  potential_fn_t=lambda q_t: torch.linalg.matrix_exp(
+                      q_t.T.reshape(-1, 2, 2)).sum((1, 2)))
     with pytest.raises(TypeError, match="float32"):
         _dispatch(module, _gaussian_pg, var_col,
                   torch.zeros(4, 16, dtype=torch.float64))
