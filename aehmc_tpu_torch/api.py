@@ -119,6 +119,9 @@ def _generic_fused_binding(logprob_fn: Callable, dim: int, device=None):
         node.replace_all_uses_with(inputs[node.target])
         graph.erase_node(node)
     _nan_for_failed_factors(graph)
+    _vmap_safe(graph)
+    if device is not None:
+        _on_device(graph, torch.device(device))
     graph.lint()
     closed = torch.fx.GraphModule(gm, graph)
     specs = [(tuple(c.shape), c.dtype) for c in consts]
@@ -170,6 +173,102 @@ def _nan_for_failed_factors(graph):
             nan = after(aten.where.ScalarSelf, (bad, math.nan, factor))
             factor.replace_all_uses_with(nan)
             nan.update_arg(2, factor)
+
+
+def _vmap_safe(graph):
+    """Rewrites of a functionalized graph that vmap and autograd take,
+    each computing what it replaces: a strided write through a flat view
+    (``K.view(-1, m * m)[:, ::m + 1] += 1`` in
+    ``torch.distributions.LowRankMultivariateNormal``) functionalizes to
+    slices and a ``slice_scatter`` whose end is the largest int64, which
+    vmap's batching rule rejects (``invalid size, possible overflow?``) once
+    the step exceeds 1: the end is clamped to its axis; the functional
+    ``copy(dst, src)`` it leaves, which has no derivative, becomes ``src``
+    expanded to ``dst``'s shape (and converted to its dtype); and a write
+    under a bool mask that depends on q (``_masked_write_as_where``)
+    becomes a ``where``."""
+    aten = torch.ops.aten
+    ends = {aten.slice.Tensor: (1, 3), aten.slice_scatter.default: (2, 4)}
+    on_q = set()  # the nodes that depend on the position
+    for node in list(graph.nodes):
+        if node.op == "placeholder" and not on_q:
+            on_q.add(node)
+        if node.op != "call_function":
+            continue
+        if any(a in on_q for a in node.all_input_nodes):
+            on_q.add(node)
+        if node.target == aten.index_put.default:
+            _masked_write_as_where(graph, node, on_q)
+        elif node.target in ends:
+            dim_at, end_at = ends[node.target]
+            val = node.args[0].meta.get("val")
+            args = list(node.args)
+            if val is None or len(args) <= end_at or \
+                    not isinstance(args[end_at], int):
+                continue
+            dim = args[dim_at] if len(args) > dim_at else 0
+            args[end_at] = min(args[end_at], val.shape[dim])
+            node.args = tuple(args)
+        elif node.target == aten.copy.default:
+            dst, src = node.args[:2]
+            with graph.inserting_before(node):
+                out = graph.call_function(
+                    aten.expand.default,
+                    (src, list(dst.meta["val"].shape)))
+                out = graph.call_function(aten.clone.default, (out,))
+                dtype = dst.meta["val"].dtype
+                if src.meta["val"].dtype != dtype:
+                    out = graph.call_function(aten._to_copy.default, (out,),
+                                              {"dtype": dtype})
+            node.replace_all_uses_with(out)
+            graph.erase_node(node)
+
+
+def _on_device(graph, device):
+    """Every tensor the graph makes, made on the probe's device: a factory
+    traced with another device (a CPU default inside a library's code)
+    would meet the device's values when the binding re-runs the graph."""
+    for node in graph.nodes:
+        if node.op != "call_function" or "device" not in node.kwargs:
+            continue
+        at = node.kwargs["device"]
+        if isinstance(at, torch.device) and at != device:
+            node.kwargs = {**node.kwargs, "device": device}
+
+
+def _masked_write_as_where(graph, node, on_q):
+    """``x[mask] = v`` (``index_put`` without accumulate) with one bool
+    mask over x's leading axes that depends on q and a value that
+    broadcasts to an element's trailing shape, as
+    ``torch.distributions.Geometric`` and ``Multinomial`` write it: the
+    shape is kept, so it is ``where(mask, v, x)``, which vmap batches (a
+    bool index under vmap is refused)."""
+    aten = torch.ops.aten
+    x, indices, v = node.args[:3]
+    accumulate = node.args[3] if len(node.args) > 3 else node.kwargs.get(
+        "accumulate", False)
+    if accumulate or len(indices) != 1 or indices[0] not in on_q:
+        return
+    mask = indices[0]
+    xv, mv = x.meta.get("val"), mask.meta.get("val")
+    vv = v.meta.get("val") if isinstance(v, torch.fx.Node) else None
+    if xv is None or mv is None or vv is None or mv.dtype != torch.bool:
+        return
+    k = mv.ndim
+    rest = tuple(xv.shape[k:])
+    if tuple(mv.shape) != tuple(xv.shape[:k]) or vv.ndim > len(rest) or any(
+            a not in (1, b) for a, b in zip(tuple(vv.shape)[::-1],
+                                            rest[::-1])):
+        return
+    with graph.inserting_before(node):
+        m = graph.call_function(aten.view.default,
+                                (mask, [*mv.shape, *(1,) * len(rest)]))
+        if vv.dtype != xv.dtype:
+            v = graph.call_function(aten._to_copy.default, (v,),
+                                    {"dtype": xv.dtype})
+        out = graph.call_function(aten.where.self, (m, v, x))
+    node.replace_all_uses_with(out)
+    graph.erase_node(node)
 
 
 def _fused_nuts_result(out) -> SampleResult:

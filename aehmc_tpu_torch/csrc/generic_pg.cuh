@@ -32,6 +32,16 @@
 
 #include "hierarchical_pg.cuh"
 
+// the factorisations' and the series' bodies are compiled once a source
+// rather than inlined at every functor call of the seven kernels (their
+// call costs nothing beside their work; nvcc's time on a functor that
+// holds them fell to a fraction)
+#ifdef __CUDACC__
+#define GPG_NOINLINE __noinline__
+#else
+#define GPG_NOINLINE
+#endif
+
 namespace aehmc {
 namespace generic {
 
@@ -208,6 +218,524 @@ __device__ __forceinline__ bool gpg_sort_before(float a, int ia, float b,
   if (na || nb) return na && nb ? ia < ib : (desc ? na : nb);
   if (a != b) return desc ? a > b : a < b;
   return ia < ib;
+}
+
+// torch.xlogy and torch.special.xlog1py: NaN where y is, 0 where x is 0
+__device__ __forceinline__ float gpg_xlogy(float x, float y) {
+  if (y != y) return __int_as_float(0x7fc00000);
+  if (x == 0.f) return 0.f;
+  return x * logf(y);
+}
+__device__ __forceinline__ float gpg_xlog1py(float x, float y) {
+  if (y != y) return __int_as_float(0x7fc00000);
+  if (x == 0.f) return 0.f;
+  return x * log1pf(y);
+}
+// F.logsigmoid and its backward (ATen's CUDA formulas; the backward
+// recomputes exp(-|x|), the CPU's buffer)
+__device__ __forceinline__ float gpg_log_sigmoid(float x) {
+  const float m = x < 0.f ? x : 0.f;
+  return m - log1pf(expf(-fabsf(x)));
+}
+__device__ __forceinline__ float gpg_log_sigmoid_backward(float g, float x) {
+  const bool neg = x < 0.f;
+  const float z = expf(-fabsf(x));
+  return g * ((neg ? 1.f : 0.f) - (neg ? 1.f : -1.f) * (z / (1.f + z)));
+}
+// torch.logit (ATen's CUDA kernel): log(z / (1 - z)), z clamped into
+// [lo, hi] when clamp (eps given)
+__device__ __forceinline__ float gpg_logit(float x, float lo, float hi,
+                                           bool clamp) {
+  const float z = clamp ? (x < lo ? lo : (x > hi ? hi : x)) : x;
+  return logf(z / (1.f - z));
+}
+__device__ __forceinline__ float gpg_logit_backward(float g, float x,
+                                                    float lo, float hi,
+                                                    bool clamp) {
+  if (clamp) return (x < lo || x > hi) ? 0.f : g / (x * (1.f - x));
+  return (x < 0.f || x > 1.f) ? __int_as_float(0x7fc00000)
+                              : g / (x * (1.f - x));
+}
+// Cephes's Chebyshev series (chbevl), as ATen's i0/i0e/i1/i1e run it on
+// the card: their jiterator strings, in their orders, which NVRTC compiles
+// with its default FMA contraction (x * b1 - b2 an fmaf here)
+__device__ inline float gpg_chbevl(float x, const float* a, int len) {
+  float b0 = a[0], b1 = 0.f, b2 = 0.f;
+  for (int i = 1; i < len; ++i) {
+    b2 = b1;
+    b1 = b0;
+    b0 = fmaf(x, b1, -b2) + a[i];
+  }
+  return 0.5f * (b0 - b2);
+}
+__device__ GPG_NOINLINE inline float gpg_bessel(float x, bool one,
+                                                bool scaled) {
+  // Cephes's i0 (A 30, B 25 terms) and i1 (A 29, B 25) coefficients
+  const float A0[] = {
+      -4.41534164647933937950e-18f, 3.33079451882223809783e-17f,
+      -2.43127984654795469359e-16f, 1.71539128555513303061e-15f,
+      -1.16853328779934516808e-14f, 7.67618549860493561688e-14f,
+      -4.85644678311192946090e-13f, 2.95505266312963983461e-12f,
+      -1.72682629144155570723e-11f, 9.67580903537323691224e-11f,
+      -5.18979560163526290666e-10f, 2.65982372468238665035e-09f,
+      -1.30002500998624804212e-08f, 6.04699502254191894932e-08f,
+      -2.67079385394061173391e-07f, 1.11738753912010371815e-06f,
+      -4.41673835845875056359e-06f, 1.64484480707288970893e-05f,
+      -5.75419501008210370398e-05f, 1.88502885095841655729e-04f,
+      -5.76375574538582365885e-04f, 1.63947561694133579842e-03f,
+      -4.32430999505057594430e-03f, 1.05464603945949983183e-02f,
+      -2.37374148058994688156e-02f, 4.93052842396707084878e-02f,
+      -9.49010970480476444210e-02f, 1.71620901522208775349e-01f,
+      -3.04682672343198398683e-01f, 6.76795274409476084995e-01f};
+  const float B0[] = {
+      -7.23318048787475395456e-18f, -4.83050448594418207126e-18f,
+      4.46562142029675999901e-17f,  3.46122286769746109310e-17f,
+      -2.82762398051658348494e-16f, -3.42548561967721913462e-16f,
+      1.77256013305652638360e-15f,  3.81168066935262242075e-15f,
+      -9.55484669882830764870e-15f, -4.15056934728722208663e-14f,
+      1.54008621752140982691e-14f,  3.85277838274214270114e-13f,
+      7.18012445138366623367e-13f,  -1.79417853150680611778e-12f,
+      -1.32158118404477131188e-11f, -3.14991652796324136454e-11f,
+      1.18891471078464383424e-11f,  4.94060238822496958910e-10f,
+      3.39623202570838634515e-09f,  2.26666899049817806459e-08f,
+      2.04891858946906374183e-07f,  2.89137052083475648297e-06f,
+      6.88975834691682398426e-05f,  3.36911647825569408990e-03f,
+      8.04490411014108831608e-01f};
+  const float A1[] = {
+      2.77791411276104639959e-18f,  -2.11142121435816608115e-17f,
+      1.55363195773620046921e-16f,  -1.10559694773538630805e-15f,
+      7.60068429473540693410e-15f,  -5.04218550472791168711e-14f,
+      3.22379336594557470981e-13f,  -1.98397439776494371520e-12f,
+      1.17361862988909016308e-11f,  -6.66348972350202774223e-11f,
+      3.62559028155211703701e-10f,  -1.88724975172282928790e-09f,
+      9.38153738649577178388e-09f,  -4.44505912879632808065e-08f,
+      2.00329475355213526229e-07f,  -8.56872026469545474066e-07f,
+      3.47025130813767847674e-06f,  -1.32731636560394358279e-05f,
+      4.78156510755005422638e-05f,  -1.61760815825896745588e-04f,
+      5.12285956168575772895e-04f,  -1.51357245063125314899e-03f,
+      4.15642294431288815669e-03f,  -1.05640848946261981558e-02f,
+      2.47264490306265168283e-02f,  -5.29459812080949914269e-02f,
+      1.02643658689847095384e-01f,  -1.76416518357834055153e-01f,
+      2.52587186443633654823e-01f};
+  const float B1[] = {
+      7.51729631084210481353e-18f,  4.41434832307170791151e-18f,
+      -4.65030536848935832153e-17f, -3.20952592199342395980e-17f,
+      2.96262899764595013876e-16f,  3.30820231092092828324e-16f,
+      -1.88035477551078244854e-15f, -3.81440307243700780478e-15f,
+      1.04202769841288027642e-14f,  4.27244001671195135429e-14f,
+      -2.10154184277266431302e-14f, -4.08355111109219731823e-13f,
+      -7.19855177624590851209e-13f, 2.03562854414708950722e-12f,
+      1.41258074366137813316e-11f,  3.25260358301548823856e-11f,
+      -1.89749581235054123450e-11f, -5.58974346219658380687e-10f,
+      -3.83538038596423702205e-09f, -2.63146884688951950684e-08f,
+      -2.51223623787020892529e-07f, -3.88256480887769039346e-06f,
+      -1.10588938762623716291e-04f, -9.76109749136146840777e-03f,
+      7.78576235018280120474e-01f};
+  const float z = fabsf(x);
+  // i1e in float takes the last 17 and 7 terms (ATen's float i1e)
+  const int a1 = scaled ? 17 : 29, b1 = scaled ? 7 : 25;
+  float out;
+  if (z <= 8.f) {
+    const float y = z / 2.f - 2.f;
+    if (one)
+      out = scaled ? gpg_chbevl(y, A1 + 29 - a1, a1) * z
+                   : expf(z) * z * gpg_chbevl(y, A1, a1);
+    else
+      out = scaled ? gpg_chbevl(y, A0, 30) : expf(z) * gpg_chbevl(y, A0, 30);
+  } else {
+    const float c = one ? gpg_chbevl(32.f / z - 2.f, B1 + 25 - b1, b1)
+                        : gpg_chbevl(32.f / z - 2.f, B0, 25);
+    out = scaled ? c / sqrtf(z) : expf(z) * c / sqrtf(z);
+  }
+  return one && x < 0.f ? -out : out;
+}
+__device__ __forceinline__ float gpg_i0e(float x) {
+  return gpg_bessel(x, false, true);
+}
+__device__ __forceinline__ float gpg_i1e(float x) {
+  return gpg_bessel(x, true, true);
+}
+__device__ __forceinline__ float gpg_i0(float x) {
+  return gpg_bessel(x, false, false);
+}
+__device__ __forceinline__ float gpg_i1(float x) {
+  return gpg_bessel(x, true, false);
+}
+// torch.polygamma(1, x): ATen's trigamma (its jiterator string, the
+// series' multiply-adds fmaf as NVRTC contracts them)
+__device__ GPG_NOINLINE inline float gpg_trigamma(float x) {
+  const float PI = 3.14159265358979323846f;
+  float sign = 1.f, result = 0.f;
+  if (x < 0.5f) {
+    sign = -1.f;
+    const float s = sinf(PI * x);
+    result -= (PI * PI) / (s * s);
+    x = 1.f - x;
+  }
+  for (int i = 0; i < 6; ++i) {
+    result += 1.f / (x * x);
+    x += 1.f;
+  }
+  const float ixx = 1.f / (x * x);
+  const float t = fmaf(-ixx, 1.f / 42.f, 1.f / 30.f);
+  const float u = fmaf(-ixx, t, 1.f / 6.f);
+  result += fmaf(ixx, u, 1.f + 1.f / (2.f * x)) / x;
+  return sign * result;
+}
+// Cephes's Hurwitz zeta(x, q), ATen's zeta_string for float (NVRTC's
+// contraction of s - 0.5 b an fmaf)
+__device__ GPG_NOINLINE inline float gpg_zeta(float x, float q) {
+  const float MACHEP = 1.11022302462515654042E-16f;
+  const float A[] = {12.0f, -720.0f, 30240.0f, -1209600.0f, 47900160.0f,
+                     -1.8924375803183791606e9f, 7.47242496e10f,
+                     -2.950130727918164224e12f, 1.1646782814350067249e14f,
+                     -4.5979787224074726105e15f, 1.8152105401943546773e17f,
+                     -7.1661652561756670113e18f};
+  if (x == 1.f) return __int_as_float(0x7f800000);
+  if (x < 1.f) return __int_as_float(0x7fc00000);
+  if (q <= 0.f) {
+    if (q == floorf(q)) return __int_as_float(0x7f800000);
+    if (x != floorf(x)) return __int_as_float(0x7fc00000);
+  }
+  float s = powf(q, -x), a = q, b = 0.f;
+  int i = 0;
+  while (i < 9 || a <= 9.f) {
+    i += 1;
+    a += 1.f;
+    b = powf(a, -x);
+    s += b;
+    if (-MACHEP * s < b && b < MACHEP * s) return s;
+  }
+  const float w = a;
+  s += b * w / (x - 1.f);
+  s = fmaf(-0.5f, b, s);
+  a = 1.f;
+  float k = 0.f;
+  for (int j = 0; j < 12; ++j) {
+    a *= x + k;
+    b /= w;
+    float t = a * b / A[j];
+    s = s + t;
+    t = fabsf(t / s);
+    if (t < MACHEP) return s;
+    k += 1.f;
+    a *= x + k;
+    b /= w;
+    k += 1.f;
+  }
+  return s;
+}
+// torch.polygamma(n, x), n >= 2: (-1)^(n+1) n! zeta(n + 1, x)
+__device__ inline float gpg_polygamma(float x, int n) {
+  return ((n % 2) ? 1.f : -1.f) * expf(lgammaf((float)n + 1.f)) *
+         gpg_zeta((float)(n + 1), x);
+}
+// ATen's _log_add_exp_helper (logcumsumexp's step; mn - mn == 0: mn finite)
+__device__ __forceinline__ float gpg_log_add_exp(float x, float y) {
+  const float mn = y != y ? y : (y < x ? y : x);
+  const float mx = y != y ? y : (x < y ? y : x);
+  if (mn != mx || mn - mn == 0.f) return log1pf(expf(mn - mx)) + mx;
+  return x;
+}
+
+// degree 8's coefficients as ATen's float constexprs round them
+#define GPG_T8_X1 0x1.bbdc940000000p-4f
+#define GPG_T8_X2 0x1.bbdc940000000p-6f
+#define GPG_T8_X3 0x1.5555560000000p-1f
+#define GPG_T8_X4 0x1.17f11c0000000p-1f
+#define GPG_T8_X5 0x1.49fc340000000p-3f
+#define GPG_T8_X6 0x1.cdbb2a0000000p-7f
+#define GPG_T8_X7 0x1.711b820000000p-6f
+#define GPG_T8_Y2 0x1.157d080000000p-3f
+// ---- dense kernels of the factorisation nodes: one warp a matrix, in the
+// chain's workspace, every lane calling (each ends in a __syncwarp)
+
+// C = A B of n x n matrices, a lane an element of C, fmaf along k in order
+__device__ inline void gpg_mat_mul(float* C, const float* A, const float* B,
+                                   int n, int lane) {
+  for (int e = lane; e < n * n; e += 32) {
+    const int i = e / n, j = e % n;
+    float acc = 0.f;
+    for (int k = 0; k < n; ++k) acc = fmaf(A[i * n + k], B[k * n + j], acc);
+    C[e] = acc;
+  }
+  __syncwarp();
+}
+// out = sum_i coef[i] M_i (M_i at M + i n^2), in order from 0, as ATen's
+// _compute_linear_combination; out may not be among the M_i
+__device__ inline void gpg_mat_comb(float* out, const float* M,
+                                    const float* coef, int count, int n,
+                                    int lane) {
+  for (int e = lane; e < n * n; e += 32) {
+    float acc = 0.f;
+    for (int i = 0; i < count; ++i) acc = fmaf(coef[i], M[i * n * n + e], acc);
+    out[e] = acc;
+  }
+  __syncwarp();
+}
+// out = a + b elementwise (out may be a or b)
+__device__ inline void gpg_mat_add(float* out, const float* a, const float* b,
+                                   int n, int lane) {
+  for (int e = lane; e < n * n; e += 32) out[e] = a[e] + b[e];
+  __syncwarp();
+}
+// torch.linalg.matrix_exp of the n x n matrix at M + n^2 (ATen's mexp for
+// float: the 1-norm picks Bader, Blanes and Casas's Taylor polynomial of
+// degree 1, 2, 4, 8, 12 or 18, against ATen's float thresholds; beyond the
+// last, A / 2^s and s squarings), into out; M holds 11 n^2 floats: I, A,
+// A^2, A^3 (A^4), A^6 (A^8), five combinations and a product's buffer.  A
+// NaN norm gives NaN, as ATen's (no interval takes it), and so does an
+// infinite one (ATen's scale is then an int64 of +inf, whose squarings on
+// the card never end)
+__device__ GPG_NOINLINE inline void gpg_mexp(float* out, float* M, int n,
+                                             int lane) {
+  const int nn = n * n;
+  float* I = M;
+  float* A = M + nn;
+  float* A2 = M + 2 * nn;
+  float* A3 = M + 3 * nn;
+  float* A6 = M + 4 * nn;
+  float* B = M + 5 * nn;
+  float* T = M + 10 * nn;
+  float norm = 0.f;
+  for (int j = lane; j < n; j += 32) {
+    float col = 0.f;
+    for (int i = 0; i < n; ++i) col = col + fabsf(A[i * n + j]);
+    norm = gpg_max(norm, col);
+  }
+  norm = gpg_warp_max(norm);
+  for (int e = lane; e < nn; e += 32) I[e] = e / n == e % n ? 1.f : 0.f;
+  __syncwarp();
+  if (!(norm <= 3.4e38f)) {  // NaN or infinite: no degree or scale takes it
+    for (int e = lane; e < nn; e += 32) out[e] = __int_as_float(0x7fc00000);
+    __syncwarp();
+    return;
+  }
+  const float theta[] = {1.192092800768788e-07f, 5.978858893805233e-04f,
+                         5.116619363445086e-02f, 5.800524627688768e-01f,
+                         1.461661507209034e+00f, 3.010066362817634e+00f};
+  if (norm <= theta[0]) {
+    const float c[] = {1.f, 1.f};
+    gpg_mat_comb(out, I, c, 2, n, lane);
+    return;
+  }
+  gpg_mat_mul(A2, A, A, n, lane);
+  if (norm <= theta[1]) {
+    const float c[] = {1.f, 1.f, 0.5f};
+    gpg_mat_comb(out, I, c, 3, n, lane);
+    return;
+  }
+  if (norm <= theta[2]) {
+    const float c[] = {1.f / 2.f, 1.f / 6.f, 1.f / 24.f};
+    gpg_mat_comb(B, I, c, 3, n, lane);
+    gpg_mat_mul(A3, A2, B, n, lane);
+    const float d[] = {1.f, 1.f, 0.f, 1.f};
+    gpg_mat_comb(out, I, d, 4, n, lane);
+    return;
+  }
+  if (norm <= theta[3]) {  // A3 holds A^4, A6 A^8
+    const float x[] = {GPG_T8_X1, GPG_T8_X2};
+    gpg_mat_comb(B, A, x, 2, n, lane);
+    gpg_mat_mul(A3, A2, B, n, lane);
+    const float u[] = {GPG_T8_X3, 1.f};
+    gpg_mat_comb(B, A2, u, 2, n, lane);
+    const float v[] = {GPG_T8_X4, GPG_T8_X5, GPG_T8_X6, GPG_T8_X7};
+    gpg_mat_comb(B + nn, I, v, 4, n, lane);
+    gpg_mat_mul(A6, B, B + nn, n, lane);
+    const float d[] = {1.f, 1.f, GPG_T8_Y2, 0.f, 1.f};
+    gpg_mat_comb(out, I, d, 5, n, lane);
+    return;
+  }
+  gpg_mat_mul(A3, A, A2, n, lane);
+  if (norm < theta[4]) {
+    const float b[4][4] = {
+        {9.0198e-16f, 0.46932117595418237389f, -0.20099424927047284052f,
+         -0.04623946134063071740f},
+        {5.31597895759871264183f, 1.19926790417132231573f,
+         0.01179296240992997031f, 0.01108844528519167989f},
+        {0.18188869982170434744f, 0.05502798439925399070f,
+         0.09351590770535414968f, 0.00610700528898058230f},
+        {-2.0861320e-13f, -0.13181061013830184015f,
+         -0.02027855540589259079f, -0.00675951846863086359f}};
+    for (int i = 0; i < 4; ++i) gpg_mat_comb(B + i * nn, I, b[i], 4, n, lane);
+    gpg_mat_mul(T, B + 3 * nn, B + 3 * nn, n, lane);
+    gpg_mat_add(B + 2 * nn, B + 2 * nn, T, n, lane);
+    gpg_mat_add(B + nn, B + nn, B + 2 * nn, n, lane);
+    gpg_mat_mul(T, B + nn, B + 2 * nn, n, lane);
+    gpg_mat_add(out, B, T, n, lane);
+    return;
+  }
+  // degree 18 on A / 2^s, s = max(0, ceil(log2(norm / theta_18)))
+  const float sc = ceilf(log2f(norm / theta[5]));
+  const int s = sc > 0.f ? (int)sc : 0;
+  if (s > 0) {
+    const float div = ldexpf(1.f, s);
+    for (int e = lane; e < nn; e += 32) A[e] = A[e] / div;
+    __syncwarp();
+    gpg_mat_mul(A2, A, A, n, lane);
+    gpg_mat_mul(A3, A, A2, n, lane);
+  }
+  gpg_mat_mul(A6, A3, A3, n, lane);
+  const float b[5][5] = {
+      {0.f, -1.00365581030144618291e-01f, -8.02924648241156932449e-03f,
+       -8.92138498045658237863e-04f, 0.f},
+      {0.f, 3.97849749499645077844e-01f, 1.36783778460411720168e+00f,
+       4.98289622525382669416e-01f, -6.37898194594723280150e-04f},
+      {-1.09676396052962061844e+01f, 1.68015813878906206114e+00f,
+       5.71779846478865511061e-02f, -6.98210122488052056106e-03f,
+       3.34975017086070470649e-05f},
+      {-9.04316832390810593223e-02f, -6.76404519071381882256e-02f,
+       6.75961301770459654925e-02f, 2.95552570429315521194e-02f,
+       -1.39180257516060693404e-05f},
+      {0.f, 0.f, -9.23364619367118555360e-02f, -1.69364939002081722752e-02f,
+       -1.40086798182036094347e-05f}};
+  for (int i = 0; i < 5; ++i) gpg_mat_comb(B + i * nn, I, b[i], 5, n, lane);
+  gpg_mat_mul(T, B, B + 4 * nn, n, lane);
+  gpg_mat_add(B + 3 * nn, B + 3 * nn, T, n, lane);
+  gpg_mat_add(B + 2 * nn, B + 2 * nn, B + 3 * nn, n, lane);
+  gpg_mat_mul(T, B + 2 * nn, B + 3 * nn, n, lane);
+  gpg_mat_add(out, B + nn, T, n, lane);
+  for (int p = 0; p < s; ++p) {
+    gpg_mat_mul(T, out, out, n, lane);
+    for (int e = lane; e < nn; e += 32) out[e] = T[e];
+    __syncwarp();
+  }
+}
+// the reduced QR of the m x n (m >= n) matrix in W: Householder
+// reflections with LAPACK's geqrf convention (beta = -sign(alpha) ||x||,
+// tau = (beta - alpha) / beta, none where x below the diagonal is 0), then
+// Q as orgqr forms it (H_0 ... H_{n-1} applied to I's first n columns,
+// the last first); out holds Q (m x n) over R (n x n); tau n floats
+__device__ GPG_NOINLINE inline void gpg_qr(float* out, float* W, float* tau,
+                                           int m, int n, int lane) {
+  for (int k = 0; k < n; ++k) {
+    float s = 0.f;
+    for (int r = k + 1 + lane; r < m; r += 32)
+      s = fmaf(W[r * n + k], W[r * n + k], s);
+    s = warp_sum(s);
+    const float alpha = W[k * n + k];
+    float beta = alpha, tk = 0.f, scal = 1.f;
+    if (s > 0.f) {
+      beta = -copysignf(sqrtf(fmaf(alpha, alpha, s)), alpha);
+      tk = (beta - alpha) / beta;
+      scal = 1.f / (alpha - beta);
+    }
+    __syncwarp();  // every lane has read alpha
+    for (int r = k + 1 + lane; r < m; r += 32) W[r * n + k] *= scal;
+    if (lane == 0) {
+      W[k * n + k] = beta;
+      tau[k] = tk;
+    }
+    __syncwarp();
+    for (int j = k + 1 + lane; j < n; j += 32) {
+      float w = W[k * n + j];
+      for (int r = k + 1; r < m; ++r) w = fmaf(W[r * n + k], W[r * n + j], w);
+      w = w * tk;
+      W[k * n + j] -= w;
+      for (int r = k + 1; r < m; ++r)
+        W[r * n + j] = fmaf(-w, W[r * n + k], W[r * n + j]);
+    }
+    __syncwarp();
+  }
+  for (int e = lane; e < n * n; e += 32) {
+    const int i = e / n, j = e % n;
+    out[(m + i) * n + j] = j >= i ? W[i * n + j] : 0.f;
+  }
+  for (int e = lane; e < m * n; e += 32) out[e] = e / n == e % n ? 1.f : 0.f;
+  __syncwarp();
+  for (int k = n - 1; k >= 0; --k) {
+    for (int j = k + lane; j < n; j += 32) {
+      float w = out[k * n + j];
+      for (int r = k + 1; r < m; ++r) w = fmaf(W[r * n + k], out[r * n + j], w);
+      w = w * tau[k];
+      out[k * n + j] -= w;
+      for (int r = k + 1; r < m; ++r)
+        out[r * n + j] = fmaf(-w, W[r * n + k], out[r * n + j]);
+    }
+    __syncwarp();
+  }
+}
+// the thin SVD of the m x n (m >= n) matrix in W by one-sided Jacobi:
+// sweeps over the column pairs p < q in order (their norms and inner
+// product over the lanes, warp_sum's order) rotating each pair whose
+// cosine exceeds sqrt(m) eps, until a sweep rotates none (or 30); then the
+// columns' norms are the singular values, descending (ties by index), U's
+// columns the normalised ones, V's the accumulated rotations, and each
+// column of U (of V, fix_v) has its largest component (the first of
+// equals) positive, its partner flipped with it; out holds U (m x n), the
+// singular values (n), V (n x n); V and sig (n) are workspace
+__device__ GPG_NOINLINE inline void gpg_svd(float* out, float* W, float* V,
+                                            float* sig, int m, int n,
+                                            bool fix_v, int lane) {
+  for (int e = lane; e < n * n; e += 32) V[e] = e / n == e % n ? 1.f : 0.f;
+  __syncwarp();
+  const float tol = 1.1920929e-07f * sqrtf((float)m);
+  for (int sweep = 0; sweep < 30; ++sweep) {
+    bool rotated = false;
+    for (int p = 0; p < n - 1; ++p) {
+      for (int q = p + 1; q < n; ++q) {
+        float a = 0.f, b = 0.f, g = 0.f;
+        for (int r = lane; r < m; r += 32) {
+          const float wp = W[r * n + p], wq = W[r * n + q];
+          a = fmaf(wp, wp, a);
+          b = fmaf(wq, wq, b);
+          g = fmaf(wp, wq, g);
+        }
+        a = warp_sum(a);
+        b = warp_sum(b);
+        g = warp_sum(g);
+        if (!(fabsf(g) > tol * sqrtf(a * b))) continue;
+        rotated = true;
+        const float zeta = (b - a) / (2.f * g);
+        const float t = copysignf(1.f, zeta) /
+                        (fabsf(zeta) + sqrtf(fmaf(zeta, zeta, 1.f)));
+        const float cs = 1.f / sqrtf(fmaf(t, t, 1.f));
+        const float sn = cs * t;
+        // each lane rotates the rows whose sums it took: no barrier
+        for (int r = lane; r < m; r += 32) {
+          const float wp = W[r * n + p], wq = W[r * n + q];
+          W[r * n + p] = fmaf(cs, wp, -(sn * wq));
+          W[r * n + q] = fmaf(sn, wp, cs * wq);
+        }
+        for (int r = lane; r < n; r += 32) {
+          const float vp = V[r * n + p], vq = V[r * n + q];
+          V[r * n + p] = fmaf(cs, vp, -(sn * vq));
+          V[r * n + q] = fmaf(sn, vp, cs * vq);
+        }
+      }
+    }
+    if (!rotated) break;
+  }
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) {
+    float s = 0.f;
+    for (int r = 0; r < m; ++r) s = fmaf(W[r * n + j], W[r * n + j], s);
+    sig[j] = sqrtf(s);
+  }
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) {
+    const float sj = sig[j];
+    int rank = 0;
+    for (int i = 0; i < n; ++i)
+      rank += gpg_sort_before(sig[i], i, sj, j, true, n) ? 1 : 0;
+    const float inv = sj > 0.f ? 1.f / sj : 0.f;
+    const float* F = fix_v ? V : W;
+    const int rows = fix_v ? n : m;
+    const float scale = fix_v ? 1.f : inv;
+    float big = -1.f, sg = 1.f;
+    for (int r = 0; r < rows; ++r) {
+      const float v = F[r * n + j] * scale;
+      if (fabsf(v) > big) {
+        big = fabsf(v);
+        sg = v < 0.f ? -1.f : 1.f;
+      }
+    }
+    for (int r = 0; r < m; ++r) out[r * n + rank] = sg * (W[r * n + j] * inv);
+    out[m * n + rank] = sj;
+    for (int r = 0; r < n; ++r)
+      out[(m + 1 + r) * n + rank] = sg * V[r * n + j];
+  }
+  __syncwarp();
 }
 
 }  // namespace aehmc

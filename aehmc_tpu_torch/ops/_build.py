@@ -174,9 +174,10 @@ def _functor_file(text: str) -> Path:
         generated_path(text).stem[3:] + ".cu")
 
 
-def _build_missing(sources, generated=()) -> None:
+def _build_missing(sources, generated=(), nice=0) -> None:
     """Start one nvcc per library of ``sources`` and of the ``generated``
-    functor texts not built yet, all at once, and wait."""
+    functor texts not built yet, all at once, and wait; ``nice`` lowers
+    the compilers' priority (a build beside work that times the host)."""
     jobs = {}
     t0 = time.perf_counter()
     targets = [(source, library_path(source), [str(CSRC / source)])
@@ -200,6 +201,7 @@ def _build_missing(sources, generated=()) -> None:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *args]
         jobs[name] = (out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=(lambda: os.nice(nice)) if nice else None,
         ))
     logs, failed = [], []
     for source, (out, tmp, proc) in jobs.items():

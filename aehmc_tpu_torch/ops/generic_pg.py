@@ -25,8 +25,16 @@ steps with public PyTorch API:
    it), reducing scatters by an index of data, masks computed from an
    element's index (``eye``, ``tril``, diagonals), per-chain integer
    arithmetic on an index computed on the card, views, constants, the
-   position ``q`` and the data operands; closed-over tensors become data
-   operands, as ``jax.closure_convert`` makes them.  Data are float32, or integer
+   position ``q`` and the data operands; and the everyday ops: ``xlogy``,
+   ``log_sigmoid``, ``logit``, ``atan2``, ``erfinv``, the modified Bessel
+   functions, ``polygamma`` (elementwise), ``logcumsumexp`` and the index
+   of a running maximum (``cummax``, ``cummin``; sequential like
+   ``cumsum``), scatters, reducing scatters and gathers by a per-chain
+   index of several entries, an LU factor with its pivots and the P they
+   make, a reduced QR (Householder), a thin SVD (one-sided Jacobi) and the
+   matrix exponential (ATen's Taylor polynomials with scaling and
+   squaring); closed-over tensors become data operands, as
+   ``jax.closure_convert`` makes them.  Data are float32, or integer
    (int32/int64: index vectors, counts), which travel to the card as int32
    rows.  An integer or bool value computed from the data alone (index
    arithmetic such as ``y - 1``, ``torch.arange``, a mask such as
@@ -38,7 +46,11 @@ steps with public PyTorch API:
    is folded the same way, in float64, into a derived float32 row.
    ``logsumexp``,
    ``log_softmax``, ``softmax``, ``stack``, ``var``, ``cholesky_solve``,
-   ``min`` and ``amin`` are rewritten into the nodes above;
+   ``min``, ``amin``, ``mvlgamma``, vector norms, ``linalg.cross``,
+   ``cdist`` and its backward, ``inv``, ``lu_solve``, ``lu_unpack``,
+   ``det``, ``cholesky_inverse``, ``pinv``, ``lstsq`` and a write under a
+   mask that depends on q (a ``where``) are rewritten into the nodes
+   above;
 3. :func:`emit_cuda` writes ``struct GenericPG`` to the NUTS core's functor
    contract (``csrc/nuts_core.cuh``), which ``csrc/nuts_generic.cu``
    instantiates as kernels 1-4 and ``csrc/hmc_generic.cu`` as kernels 5-7
@@ -70,7 +82,11 @@ A Cholesky factor, the LU of a log-determinant and a cyclic Jacobi
 eigendecomposition run in the workspace, the warp over one matrix at a
 time; a sort ranks by counting up to 32 elements and runs a bitonic
 network beyond; a reducing scatter reduces each output's inputs (a row
-the host builds) in input order in the output's lane.  Gathers
+the host builds) in input order in the output's lane, and so does a
+scatter by a per-chain index, each lane walking every input (a write: the
+last of a duplicate wins).  An LU factor, a QR, an SVD and a matrix
+exponential run a warp a matrix in the workspace (``gpg_qr``, ``gpg_svd``,
+``gpg_mexp`` in ``csrc/generic_pg.cuh``).  Gathers
 read their index operand at run time (an index is checked on the host
 to lie in ``[-n, n)`` and wrapped on the card), so the IR and its cache do
 not depend on index values.  Elementwise nodes are inlined into the loops
@@ -120,14 +136,19 @@ CONTRACTIONS = ("sum", "amax", "mm", "prod")
 # workspace, never a register)
 SEQUENTIAL = ("trsolve", "lusolve", "scatter_add", "cumsum", "argmax", "chol",
               "slogdet", "eigh", "cumprod", "sortidx", "scatter_perm",
-              "scatter_reduce")
+              "scatter_reduce", "logcumsumexp", "cumarg", "scatter_put",
+              "lufactor", "lu_p", "qr", "svd", "mexp",
+              "scatter_reduce_chain")
 INT_DTYPES = (torch.int32, torch.int64)
 COMPARISONS = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
                "ge": ">="}
 TRANSCENDENTAL = ("exp", "expm1", "log", "log1p", "sqrt", "rsqrt", "tanh",
                   "sigmoid", "sin", "cos", "pow", "softplus",
                   "softplus_backward", "atan", "lgamma", "digamma", "erf",
-                  "erfc", "erfcx", "log_ndtr", "logaddexp", "powt", "rpow")
+                  "erfc", "erfcx", "log_ndtr", "logaddexp", "powt", "rpow",
+                  "xlogy", "xlog1py", "log_sigmoid", "log_sigmoid_backward",
+                  "logit", "logit_backward", "atan2", "erfinv", "i0e",
+                  "i1e", "i0", "i1", "polygamma")
 
 
 class Node(NamedTuple):
@@ -458,12 +479,25 @@ class _Converter:
                 if name.endswith("_") and isinstance(fx_node.args[0],
                                                      torch.fx.Node):
                     # an in-place op: later reads of its input see the result
-                    env[fx_node.args[0]] = out
+                    self.in_place(env, fx_node.args[0], out)
             elif fx_node.op == "output":
                 u, g = fx_node.args[0]
                 u = self.reshape(env[u], ())
                 g = self.reshape(env[g], (self.dim,))
         return self.finish(u, g)
+
+    def in_place(self, env, target, out):
+        """``out`` written into ``target``: and, where ``target`` is a
+        diagonal view (``S.diagonal().fill_(1)`` in the SVD's backward),
+        into its base, which later reads see."""
+        env[target] = out
+        aten = torch.ops.aten
+        if target.op == "call_function" and \
+                target.target == aten.diagonal.default:
+            base = target.args[0]
+            env[base] = self.call(aten.diagonal_scatter.default,
+                                  (env[base], out, *target.args[1:]), {},
+                                  base.meta.get("val"))
 
     def get_attr(self, t):
         if not isinstance(t, torch.Tensor):
@@ -886,18 +920,7 @@ def _rule_dot(c, args, kwargs, val):
 
 def _rule_bmm(c, args, kwargs, val):
     """A product a batch: one matrix product each, concatenated."""
-    a, b = args[0], args[1]
-    batch = c.shape(a)[0]
-    if batch == 1:
-        out = _mm(c, c.reshape(a, c.shape(a)[1:]),
-                  c.reshape(b, c.shape(b)[1:]))
-        return c.reshape(out, val.shape)
-    outs = []
-    for i in range(batch):
-        ai = c.make("select", (a,), c.shape(a)[1:], "f", (0, i))
-        bi = c.make("select", (b,), c.shape(b)[1:], "f", (0, i))
-        outs.append(c.reshape(_mm(c, ai, bi), (1, *val.shape[1:])))
-    return c.make("cat", outs, val.shape, "f", (0,))
+    return c.reshape(_bmm(c, args[0], args[1]), val.shape)
 
 
 def _rule_addmm(c, args, kwargs, val):
@@ -1060,8 +1083,32 @@ def _rule_index_put(c, args, kwargs, val):
         values = c.expand(values, (*c.shape(pos), *c.shape(flat)[1:]))
         return c.reshape(_scatter_add(c, flat, 0, pos, values),
                          c.shape(base))
+    masked = _masked_write(c, base, list(indices), values, accumulate)
+    if masked is not None:
+        return masked
     pos = _positions(c, c.shape(base), list(indices))
     return _flat_scatter(c, base, pos, values, accumulate)
+
+
+def _masked_write(c, base, indices, values, accumulate):
+    """``x[mask] = v`` with one bool mask over x's leading axes that
+    depends on q and a value that broadcasts to an element's trailing
+    shape: the shape kept, ``where(mask, v, x)``; None for any other
+    write."""
+    shape = c.shape(base)
+    if accumulate or len(indices) != 1 or indices[0] is None:
+        return None
+    mask = indices[0]
+    if c.nodes[mask].dtype != "b" or c.data_only([mask]):
+        return None
+    k = len(c.shape(mask))
+    rest = shape[k:]
+    vshape = c.shape(values)
+    if c.shape(mask) != shape[:k] or len(vshape) > len(rest) or any(
+            v not in (1, r) for v, r in zip(vshape[::-1], rest[::-1])):
+        return None
+    mask = c.expand(c.reshape(mask, (*shape[:k], *(1,) * len(rest))), shape)
+    return c.elementwise("where", (mask, values, base), _Val(shape))
 
 
 def _leading(c, x, shape):
@@ -1077,9 +1124,14 @@ def _leading(c, x, shape):
 
 
 def _rule_gather(c, args, kwargs, val):
-    """``torch.gather(x, dim, index)`` by an index of data."""
+    """``torch.gather(x, dim, index)``: by an index of data, at flat
+    positions; by a per-chain index, a ``take`` along the axis (the
+    backward of a scatter by it)."""
     x, dim, index = args[:3]
     axis = _axis(dim, len(c.shape(x)))
+    if not c.data_only([index]):
+        return c.make("take", (x, index), c.shape(index), c.nodes[x].dtype,
+                      (axis,))
     pos = c.host(("fn", "axis_positions", c.shape(x), axis), [index])
     return _flat_gather(c, x, pos, val.shape)
 
@@ -1087,7 +1139,11 @@ def _rule_gather(c, args, kwargs, val):
 def _rule_scatter(accumulate):
     """``torch.scatter``/``scatter_add(base, dim, index, src)``: by an
     index of data, through flat positions; by a per-chain index of one
-    entry along the axis (max.dim's, in its backward), a ``pick``."""
+    entry along the axis (max.dim's, in its backward), a ``pick``; by a
+    sort's (top-k's) indices, a ``scatter_perm``; by any other per-chain
+    index, at per-chain flat positions: a scatter-add in input order
+    (cummax's backward), or a write in input order, the last of a
+    duplicate winning (``scatter_put``)."""
     def rule(c, args, kwargs, val):
         base, dim, index, src = args[:4]
         shape = c.shape(base)
@@ -1107,17 +1163,34 @@ def _rule_scatter(accumulate):
                 src = c.make("float", (src,), c.shape(src))
             return c.make("scatter_perm", (base, index, src), shape, "f",
                           (axis,))
-        if accumulate or ishape[axis] != 1 or \
-                rest != shape[:axis] + shape[axis + 1:]:
-            raise NotImplementedError(
-                "a scatter by an index that depends on q has a rule only "
-                "for one entry along its axis, written (max.dim's "
-                "backward), and for a sort's or top-k's indices along their "
-                "axis (a permutation); a per-chain index of several "
-                "entries that may repeat is outside the table; widening "
-                f"it is {_ROADMAP}")
-        return c.make("pick", (base, index, src), shape, "f", (axis,))
+        if not accumulate and ishape[axis] == 1 and \
+                rest == shape[:axis] + shape[axis + 1:]:
+            return c.make("pick", (base, index, src), shape, "f", (axis,))
+        pos = _chain_flat_positions(c, shape, index, axis)
+        numel = math.prod(shape)
+        flat = c.reshape(base, (numel,))
+        if c.nodes[src].dtype != "f":
+            src = c.make("float", (src,), c.shape(src))
+        if accumulate:
+            out = _scatter_add(c, flat, 0, pos, src)
+        else:
+            out = c.make("scatter_put", (flat, pos, src), (numel,), "f", (0,))
+        return c.reshape(out, shape)
     return rule
+
+
+def _chain_flat_positions(c, shape, index, axis):
+    """The flat positions in an array of ``shape`` that a scatter along
+    ``axis`` by the per-chain ``index`` writes: the index (wrapped,
+    clamped) times the axis's stride plus the other coordinates' offsets,
+    a row of the host's."""
+    ishape = c.shape(index)
+    k = c.make("iclamp", (index,), ishape, "i", (shape[axis],))
+    stride = _strides(shape)[axis]
+    if stride != 1:
+        k = c.make("mul", (k, c.const(stride, (), "i")), ishape, "i")
+    offsets = c.host(("fn", "axis_offsets", shape, ishape, axis), [])
+    return c.make("add", (k, offsets), ishape, "i")
 
 
 def _rule_index_add(c, args, kwargs, val):
@@ -1608,18 +1681,15 @@ def _rule_topk(c, args, kwargs, val):
 
 
 def _rule_scatter_reduce(c, args, kwargs, val):
-    """``scatter_reduce(base, dim, index, src, reduce, include_self)`` by
-    an index of data: the host maps each output to the inputs that land on
+    """``scatter_reduce(base, dim, index, src, reduce, include_self)``: by
+    an index of data, the host maps each output to the inputs that land on
     it, in input order (the preimage row), and each output's lane reduces
-    them in that order."""
+    them in that order; by a per-chain index, at per-chain flat positions
+    (``scatter_reduce_chain``)."""
     base, dim, index, src, reduce = args[:5]
     include_self = kwargs.get("include_self",
                               args[5] if len(args) > 5 else True)
     shape = c.shape(base)
-    if not c.data_only([index]):
-        raise NotImplementedError(
-            "scatter_reduce by an index that depends on q has no rule in the "
-            f"generic potential compiler; widening its op table is {_ROADMAP}")
     if reduce not in ("sum", "prod", "mean", "amax", "amin"):
         raise NotImplementedError(f"scatter_reduce's reduce={reduce!r}")
     axis = _axis(dim, len(shape))
@@ -1627,6 +1697,14 @@ def _rule_scatter_reduce(c, args, kwargs, val):
     if c.nodes[src].dtype != "f":
         src = c.make("float", (src,), c.shape(src))
     numel = math.prod(shape)
+    if not c.data_only([index]):
+        # by a per-chain index: each output's lane reduces the values that
+        # land on it, walking them in input order
+        pos = _chain_flat_positions(c, shape, index, axis)
+        out = c.make("scatter_reduce_chain",
+                     (c.reshape(base, (numel,)), pos, src), (numel,), "f",
+                     (reduce, bool(include_self)))
+        return c.reshape(out, shape)
     pos = c.host(("fn", "axis_positions", shape, axis), [index])
     pre = c.host(("fn", "preimage", numel), [pos])
     out = c.make("scatter_reduce",
@@ -1696,6 +1774,521 @@ def _chain_positions(c, x, indices):
     n = len(tensors)
     flat = c.reshape(x, (math.prod(shape[:n]), *shape[n:]))
     return c.expand(pos, out), flat
+
+
+# -- special functions and the everyday families' ops (item 1.10c, reopened)
+
+def _rule_log_sigmoid_forward(c, args, kwargs, val):
+    """``(log_sigmoid(x), buffer)``: the buffer (the CPU's exp(-|x|)) is
+    read only by the CPU's backward; the functor's backward recomputes it,
+    so it is a fill."""
+    return (c.elementwise("log_sigmoid", args[:1], val[0]),
+            c.const(0.0, tuple(val[1].shape)))
+
+
+def _rule_log_sigmoid_backward(c, args, kwargs, val):
+    return c.elementwise("log_sigmoid_backward", args[:2], val)
+
+
+def _eps(eps):
+    """``logit``'s eps as its (lo, hi) bounds in float32, or () for None."""
+    if eps is None:
+        return ()
+    lo = float(torch.tensor(float(eps), dtype=torch.float32))
+    return lo, float(torch.tensor(1.0, dtype=torch.float32) - lo)
+
+
+def _rule_logit(c, args, kwargs, val):
+    eps = args[1] if len(args) > 1 else kwargs.get("eps")
+    return c.elementwise("logit", args[:1], val, _eps(eps))
+
+
+def _rule_logit_backward(c, args, kwargs, val):
+    eps = args[2] if len(args) > 2 else kwargs.get("eps")
+    return c.elementwise("logit_backward", args[:2], val, _eps(eps))
+
+
+def _rule_polygamma(c, args, kwargs, val):
+    n, x = int(args[0]), args[1]
+    if n == 0:
+        return c.elementwise("digamma", (x,), val)
+    return c.elementwise("polygamma", (x,), val, (n,))
+
+
+def _rule_mvlgamma(c, args, kwargs, val):
+    """``mvlgamma(x, p)``: ``sum_i lgamma(x - i / 2)`` over i = p - 1, ...,
+    0 (ATen's order, its arange from -(p - 1) / 2) plus ``p (p - 1) / 4 log
+    pi``."""
+    x, p = args[0], int(args[1])
+    out = None
+    for i in range(p - 1, -1, -1):
+        t = c.elementwise("lgamma", (c.elementwise(
+            "add", (x, -0.5 * i), _Val(c.shape(x))),), _Val(c.shape(x)))
+        out = t if out is None else c.elementwise("add", (out, t),
+                                                  _Val(c.shape(x)))
+    return c.elementwise("add", (out, p * (p - 1) * math.log(math.pi) / 4),
+                         val)
+
+
+def _rule_vector_norm(c, args, kwargs, val):
+    """``linalg_vector_norm(x, ord, dim, keepdim)``: ord 2 ``sqrt(sum(x
+    x))``, 1 ``sum|x|``, inf ``max|x|``, -inf ``min|x|``, 0 the count of
+    non-zeros, any other ``sum(|x|^p)^(1/p)``."""
+    x = args[0]
+    ord_ = float(args[1] if len(args) > 1 else kwargs.get("ord", 2))
+    dims = args[2] if len(args) > 2 else kwargs.get("dim")
+    keepdim = args[3] if len(args) > 3 else kwargs.get("keepdim", False)
+    shape = c.shape(x)
+    axes = _axes(dims, len(shape))
+    if not shape:
+        axes = ()
+    v = _Val(shape)
+    if ord_ == 2.0:
+        return c.elementwise("sqrt", (_reduce(c, "sum", c.elementwise(
+            "mul", (x, x), v), axes, keepdim),), val)
+    a = c.elementwise("abs", (x,), v)
+    if ord_ == 1.0:
+        return _reduce(c, "sum", a, axes, keepdim)
+    if math.isinf(ord_):
+        return _extreme(c, a, axes, keepdim, 1 if ord_ > 0 else -1)
+    if ord_ == 0.0:
+        return _reduce(c, "sum", c.make("float", (c.elementwise(
+            "ne", (x, 0.0), _Val(shape, torch.bool)),), shape), axes, keepdim)
+    s = _reduce(c, "sum", c.elementwise("pow", (a,), v, (ord_,)), axes,
+                keepdim)
+    return c.elementwise("pow", (s,), val, (1.0 / ord_,))
+
+
+def _rule_logcumsumexp(c, args, kwargs, val):
+    x = args[0]
+    axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim"),
+                 max(len(c.shape(x)), 1))
+    if not c.shape(x):
+        return x
+    return c.make("logcumsumexp", (x,), c.shape(x), "f", (axis,))
+
+
+def _rule_cummax(sign):
+    """``cummax``/``cummin(x, dim)``: ``(values, indices)``, the index of
+    the running maximum (minimum) a per-chain integer, the last of equals
+    and a NaN the largest (torch's), the values read at it."""
+    def rule(c, args, kwargs, val):
+        x = args[0]
+        axis = _axis(args[1] if len(args) > 1 else kwargs.get("dim"),
+                     max(len(c.shape(x)), 1))
+        if not c.shape(x):
+            return x, c.const(0, (), "i")
+        if c.nodes[x].dtype != "f":
+            x = c.make("float", (x,), c.shape(x))
+        idx = c.make("cumarg", (x,), c.shape(x), "i", (axis, sign))
+        return c.make("take", (x, idx), c.shape(x), "f", (axis,)), idx
+    return rule
+
+
+def _select_keep(c, x, axis, k):
+    """Element ``k`` along ``axis`` of ``x``, the axis kept (length 1)."""
+    shape = list(c.shape(x))
+    shape[axis] = 1
+    return c.make("slice", (x,), tuple(shape), c.nodes[x].dtype, (axis, k, 1))
+
+
+def _rule_cross(c, args, kwargs, val):
+    """``linalg_cross(a, b, dim)``: ``c_i = a_{i+1} b_{i+2} - a_{i+2}
+    b_{i+1}`` (indices mod 3), as ATen's cross kernel."""
+    a, b = args[0], args[1]
+    shape = tuple(val.shape)
+    dim = _axis(kwargs.get("dim", args[2] if len(args) > 2 else -1),
+                len(shape))
+    a, b = c.expand(a, shape), c.expand(b, shape)
+    one = list(shape)
+    one[dim] = 1
+    v = _Val(tuple(one))
+    pieces = []
+    for i in range(3):
+        j, k = (i + 1) % 3, (i + 2) % 3
+        pieces.append(c.elementwise("sub", (
+            c.elementwise("mul", (_select_keep(c, a, dim, j),
+                                  _select_keep(c, b, dim, k)), v),
+            c.elementwise("mul", (_select_keep(c, a, dim, k),
+                                  _select_keep(c, b, dim, j)), v)), v))
+    return c.make("cat", pieces, shape, "f", (dim,))
+
+
+def _cdist_diff(c, x1, x2):
+    """``x1 (.., P, M)`` and ``x2 (.., R, M)`` -> their differences ``(..,
+    P, R, M)``."""
+    s1, s2 = c.shape(x1), c.shape(x2)
+    lead = tuple(torch.broadcast_shapes(s1[:-2], s2[:-2]))
+    P, R, M = s1[-2], s2[-2], s1[-1]
+    out = (*lead, P, R, M)
+    a = c.expand(c.reshape(x1, (*s1[:-2], P, 1, M)), out)
+    b = c.expand(c.reshape(x2, (*s2[:-2], 1, R, M)), out)
+    return c.elementwise("sub", (a, b), _Val(out)), out
+
+
+def _rule_cdist_forward(c, args, kwargs, val):
+    """``_cdist_forward(x1, x2, p)``: the p-norm of each pair's
+    difference, computed from the differences (p 2, 1, inf, 0 or any)."""
+    x1, x2, p = args[0], args[1], float(args[2])
+    d, shape = _cdist_diff(c, x1, x2)
+    last = len(shape) - 1
+    v = _Val(shape)
+    if p == 2.0:
+        return c.elementwise("sqrt", (_reduce(c, "sum", c.elementwise(
+            "mul", (d, d), v), (last,), False),), val)
+    a = c.elementwise("abs", (d,), v)
+    if p == 1.0:
+        return _reduce(c, "sum", a, (last,), False)
+    if math.isinf(p):
+        return _reduce(c, "amax", a, (last,), False)
+    if p == 0.0:
+        return _reduce(c, "sum", c.make("float", (c.elementwise(
+            "ne", (d, 0.0), _Val(shape, torch.bool)),), shape), (last,),
+            False)
+    s = _reduce(c, "sum", c.elementwise("pow", (a,), v, (p,)), (last,),
+                False)
+    return c.elementwise("pow", (s,), val, (1.0 / p,))
+
+
+def _rule_cdist_backward(c, args, kwargs, val):
+    """``_cdist_backward(grad, x1, x2, p, dist)``: the gradient in ``x1``,
+    ATen's per-pair terms summed over x2's rows: p 2 ``g d / dist`` (0
+    where dist is 0), 1 ``g sign(d)``, inf ``g sign(d) (|d| == dist)``,
+    p < 2 ``g sign(d) |d|^(p-1) / dist^(p-1)`` (0 where dist is 0, or d is
+    0 with p < 1), else ``g d |d|^(p-2) / dist^(p-1)`` (0 where dist is
+    0)."""
+    grad, x1, x2, p, dist = args[:5]
+    p = float(p)
+    d, shape = _cdist_diff(c, x1, x2)
+    v = _Val(shape)
+    bv = _Val(shape, torch.bool)
+    g = c.expand(c.reshape(grad, (*c.shape(grad), 1)), shape)
+    r = c.expand(c.reshape(dist, (*c.shape(dist), 1)), shape)
+    sgn = c.elementwise("sign", (d,), v)
+    zero = c.elementwise("eq", (r, 0.0), bv)
+    if p == 0.0:
+        return c.const(0.0, tuple(val.shape))
+    if p == 1.0:
+        term = c.elementwise("mul", (g, sgn), v)
+    elif math.isinf(p):
+        a = c.elementwise("abs", (d,), v)
+        term = c.elementwise("mul", (c.elementwise("mul", (g, sgn), v),
+                                     c.make("float", (c.elementwise(
+                                         "eq", (a, r), bv),), shape)), v)
+    elif p == 2.0:
+        term = c.elementwise("where", (zero, 0.0, c.elementwise(
+            "div", (c.elementwise("mul", (g, d), v), r), v)), v)
+    else:
+        a = c.elementwise("abs", (d,), v)
+        if p < 2.0:
+            num = c.elementwise("mul", (c.elementwise("mul", (
+                sgn, c.elementwise("pow", (a,), v, (p - 1.0,))), v), g), v)
+            if p < 1.0:
+                zero = c.elementwise("or", (zero, c.elementwise(
+                    "eq", (d, 0.0), bv)), bv)
+        else:
+            num = c.elementwise("mul", (c.elementwise("mul", (
+                d, c.elementwise("pow", (a,), v, (p - 2.0,))), v), g), v)
+        term = c.elementwise("where", (zero, 0.0, c.elementwise(
+            "div", (num, c.elementwise("pow", (r,), v, (p - 1.0,))), v)), v)
+    out = _reduce(c, "sum", term, (len(shape) - 2,), False)
+    return c.reshape(c.expand(out, tuple(val.shape)), val.shape) \
+        if c.shape(out) != tuple(val.shape) else out
+
+
+# -- linear algebra on the LU, QR, SVD and matrix exponential nodes
+
+def _eye(c, shape):
+    return _band(c, tuple(shape), len(shape) - 2, len(shape) - 1, 0, 0, "f")
+
+
+def _bmm(c, a, b):
+    """``a (batch, m, k) @ b (batch or 1, k, n)``: a product a matrix,
+    concatenated."""
+    (batch, m, _), (bb, _, n) = c.shape(a), c.shape(b)
+    outs = []
+    for i in range(batch):
+        ai = c.make("select", (a,), c.shape(a)[1:], "f", (0, i))
+        bi = c.make("select", (b,), c.shape(b)[1:], "f", (0, i if bb > 1
+                                                          else 0))
+        outs.append(c.reshape(_mm(c, ai, bi), (1, m, n)))
+    return outs[0] if batch == 1 else c.make("cat", outs, (batch, m, n), "f",
+                                             (0,))
+
+
+def _rule_inv(c, args, kwargs, val):
+    """``linalg_inv_ex(A)``: lusolve against the identity; info 0."""
+    A = args[0]
+    shape = tuple(val[0].shape)
+    return (_solve(c, "lusolve", A, _eye(c, shape), shape),
+            c.const(0, tuple(val[1].shape), "i"))
+
+
+def _lu_nodes(c, A):
+    """``(LU (*, n, n), pivots (*, n), A's batch)`` of a ``lufactor``
+    node: LAPACK's getrf a matrix (partial pivoting, 1-based pivots)."""
+    n = c.shape(A)[-1]
+    A3, lead = _batched(c, A, n)
+    batch = c.shape(A3)[0]
+    F = c.make("lufactor", (A3,), (batch, n + 1, n), "f")
+    LU = c.make("slice", (F,), (batch, n, n), "f", (1, 0, 1))
+    piv = c.make("select", (F,), (batch, n), "i", (1, n))
+    return LU, piv, lead
+
+
+def _rule_lu_factor(c, args, kwargs, val):
+    """``linalg_lu_factor_ex(A)``: ``(LU, pivots, info)``, info 0."""
+    A = args[0]
+    n = c.shape(A)[-1]
+    LU, piv, lead = _lu_nodes(c, A)
+    return (c.reshape(LU, (*lead, n, n)), c.reshape(piv, (*lead, n)),
+            c.const(0, tuple(val[2].shape), "i"))
+
+
+def _perm_matrix(c, piv, n):
+    """P of A = P L U from getrf's pivots ``(batch, n)`` (an ``lu_p``
+    node: the row swaps applied in order, a lane a matrix)."""
+    batch = c.shape(piv)[0]
+    return c.make("lu_p", (piv,), (batch, n, n), "f")
+
+
+def _rule_lu_unpack(c, args, kwargs, val):
+    """``lu_unpack(LU, pivots)``: ``(P, L, U)``, L unit lower, U upper."""
+    LU, piv = args[:2]
+    shape = c.shape(LU)
+    n = shape[-1]
+    if shape[-2] != n:
+        raise NotImplementedError(
+            "lu_unpack of a non-square factor has no rule in the generic "
+            f"potential compiler; widening its op table is {_ROADMAP}")
+    lead = shape[:-2]
+    batch = math.prod(lead)
+    strict = _band(c, shape, len(shape) - 2, len(shape) - 1, None, -1)
+    L = c.elementwise("add", (c.elementwise("where", (strict, LU, 0.0),
+                                            _Val(shape)), _eye(c, shape)),
+                      _Val(shape))
+    U = c.elementwise("where", (_band(c, shape, len(shape) - 2,
+                                      len(shape) - 1, 0, None), LU, 0.0),
+                      _Val(shape))
+    P = _perm_matrix(c, c.reshape(piv, (batch, n)), n)
+    return c.reshape(P, shape), L, U
+
+
+def _lu_solve3(c, LU3, piv3, B3, adjoint):
+    """``A X = B`` (``A^T X = B`` when ``adjoint``) from A's LU and
+    pivots, ``(batch or 1, n, n)`` and ``(batch, n, k)``: P^T, then the
+    unit lower and the upper substitution (their transposes, then P)."""
+    n = c.shape(LU3)[-1]
+    shape = c.shape(B3)
+    P = _perm_matrix(c, piv3, n)
+    if not adjoint:
+        Y = _bmm(c, _swap_last(c, P), B3)
+        Y = _trsolve(c, LU3, Y, False, True, shape)
+        return _trsolve(c, LU3, Y, True, False, shape)
+    Lt = _swap_last(c, LU3)
+    Z = _trsolve(c, Lt, B3, False, False, shape)
+    Z = _trsolve(c, Lt, Z, True, True, shape)
+    return _bmm(c, P, Z)
+
+
+def _rule_lu_solve(c, args, kwargs, val):
+    """``linalg_lu_solve(LU, pivots, B, left, adjoint)``."""
+    LU, piv, B = args[:3]
+    left = kwargs.get("left", args[3] if len(args) > 3 else True)
+    adjoint = kwargs.get("adjoint", args[4] if len(args) > 4 else False)
+    n = c.shape(LU)[-1]
+    out = tuple(val.shape)
+    lu_lead = c.shape(LU)[:-2]
+    LU3 = c.reshape(LU, (math.prod(lu_lead), n, n))
+    piv3 = c.reshape(piv, (math.prod(lu_lead), n))
+    if not left:  # X A = B is A^T X^T = B^T
+        B = _swap_last(c, B)
+        adjoint = not adjoint
+    bshape = c.shape(B)
+    batch = math.prod(bshape[:-2])
+    B3 = c.reshape(c.expand(B, (*bshape[:-2], *bshape[-2:])),
+                   (batch, *bshape[-2:]))
+    if c.nodes[B3].dtype != "f":
+        B3 = c.make("float", (B3,), c.shape(B3))
+    if c.shape(LU3)[0] not in (1, batch):
+        raise NotImplementedError("linalg_lu_solve with factors broadcast "
+                                  "against a batch of right sides")
+    X = c.reshape(_lu_solve3(c, LU3, piv3, B3, adjoint), bshape)
+    return _swap_last(c, X) if not left else c.reshape(X, out)
+
+
+def _rule_det(c, args, kwargs, val):
+    """``_linalg_det(A)``: ``(det, LU, pivots)``, det the product of U's
+    diagonal, negated for each row swap."""
+    A = args[0]
+    n = c.shape(A)[-1]
+    LU, piv, lead = _lu_nodes(c, A)
+    batch = c.shape(LU)[0]
+    diag = c.make("diagonal", (LU,), (batch, n), "f", (0, 1, 2))
+    rows = c.host(("fn", "arange", n, 1), [])
+    swapped = c.elementwise("ne", (piv, rows), _Val((batch, n), torch.bool))
+    signs = c.elementwise("where", (swapped, -1.0, 1.0), _Val((batch, n)))
+    det = c.elementwise("mul", (_reduce(c, "prod", diag, (1,), False),
+                                _reduce(c, "prod", signs, (1,), False)),
+                        _Val((batch,)))
+    return (c.reshape(det, lead), c.reshape(LU, (*lead, n, n)),
+            c.reshape(piv, (*lead, n)))
+
+
+def _rule_cholesky_inverse(c, args, kwargs, val):
+    """``cholesky_inverse(L, upper)``: ``cholesky_solve(I, L)``."""
+    L = args[0]
+    upper = kwargs.get("upper", args[1] if len(args) > 1 else False)
+    shape = tuple(val.shape)
+    return _rule_cholesky_solve(c, (_eye(c, shape), L, upper), {}, val)
+
+
+def _qr_nodes(c, A):
+    """``(Q (batch, m, n), R (batch, n, n), lead)`` of the reduced QR of
+    ``A (*, m, n)``, m >= n: a ``qr`` node (Householder, LAPACK's geqrf
+    and orgqr conventions)."""
+    m, n = c.shape(A)[-2:]
+    lead = c.shape(A)[:-2]
+    if m < n:
+        raise NotImplementedError(
+            "linalg_qr of a wide matrix (m < n) has no rule in the generic "
+            f"potential compiler; widening its op table is {_ROADMAP}")
+    batch = math.prod(lead)
+    A3 = c.reshape(A, (batch, m, n))
+    F = c.make("qr", (A3,), (batch, m + n, n), "f")
+    Q = c.make("slice", (F,), (batch, m, n), "f", (1, 0, 1))
+    R = c.make("slice", (F,), (batch, n, n), "f", (1, m, 1))
+    return Q, R, lead
+
+
+def _rule_qr(c, args, kwargs, val):
+    """``linalg_qr(A, mode)``: "reduced", "r", and "complete" of a square
+    matrix (the same factors)."""
+    A = args[0]
+    mode = kwargs.get("mode", args[1] if len(args) > 1 else "reduced")
+    m, n = c.shape(A)[-2:]
+    if mode == "complete" and m != n:
+        raise NotImplementedError(
+            "linalg_qr(mode='complete') of a non-square matrix has no rule "
+            f"in the generic potential compiler; widening its op table is "
+            f"{_ROADMAP}")
+    Q, R, lead = _qr_nodes(c, A)
+    R = c.reshape(R, (*lead, n, n))
+    if mode == "r":
+        return c.const(0.0, tuple(val[0].shape)), R
+    return c.reshape(Q, (*lead, m, n)), R
+
+
+def _svd_nodes(c, A):
+    """``(U (batch, m, k), S (batch, k), V (batch, n, k), lead)`` of
+    ``A (*, m, n)``, k = min(m, n): an ``svd`` node (one-sided Jacobi,
+    singular values descending, each column of U with its largest
+    component positive) on A, or on A^T when m < n."""
+    m, n = c.shape(A)[-2:]
+    lead = c.shape(A)[:-2]
+    batch = math.prod(lead)
+    A3 = c.reshape(A, (batch, m, n))
+    wide = m < n
+    if wide:
+        A3 = _swap_last(c, A3)
+        m, n = n, m
+    F = c.make("svd", (A3,), (batch, m + 1 + n, n), "f", (bool(wide),))
+    U = c.make("slice", (F,), (batch, m, n), "f", (1, 0, 1))
+    S = c.make("select", (F,), (batch, n), "f", (1, m))
+    V = c.make("slice", (F,), (batch, n, n), "f", (1, m + 1, 1))
+    if wide:
+        U, V = V, U
+    return U, S, V, lead
+
+
+def _rule_svd(c, args, kwargs, val):
+    """``_linalg_svd(A, full_matrices, compute_uv)``: ``(U, S, Vh)``; U
+    and Vh empty without compute_uv."""
+    A = args[0]
+    full = kwargs.get("full_matrices", args[1] if len(args) > 1 else False)
+    compute_uv = kwargs.get("compute_uv", args[2] if len(args) > 2 else True)
+    m, n = c.shape(A)[-2:]
+    if compute_uv and full and m != n:
+        raise NotImplementedError(
+            "svd with full_matrices=True of a non-square matrix has no rule "
+            "in the generic potential compiler (use full_matrices=False); "
+            f"widening its op table is {_ROADMAP}")
+    U, S, V, lead = _svd_nodes(c, A)
+    k = min(m, n)
+    S = c.reshape(S, (*lead, k))
+    if not compute_uv:
+        return (c.const(0.0, tuple(val[0].shape)), S,
+                c.const(0.0, tuple(val[2].shape)))
+    return (c.reshape(U, (*lead, m, k)), S,
+            c.reshape(_swap_last(c, V), (*lead, k, n)))
+
+
+def _rule_pinv(c, args, kwargs, val):
+    """``linalg_pinv(A, atol, rtol)`` (torch's): from the SVD, 1/s where s
+    exceeds max(atol, rtol s_max), else 0; rtol max(m, n) eps by default
+    (0 when only atol is given)."""
+    A = args[0]
+    atol = kwargs.get("atol", args[1] if len(args) > 1 else None)
+    rtol = kwargs.get("rtol", args[2] if len(args) > 2 else None)
+    if kwargs.get("hermitian", args[3] if len(args) > 3 else False):
+        raise NotImplementedError("linalg_pinv(hermitian=True)")
+    if isinstance(atol, _Id) or isinstance(rtol, _Id):
+        raise NotImplementedError("linalg_pinv with tensor tolerances")
+    m, n = c.shape(A)[-2:]
+    if rtol is None:
+        rtol = 0.0 if atol is not None and atol > 0 else \
+            max(m, n) * float(torch.finfo(torch.float32).eps)
+    atol = 0.0 if atol is None else float(atol)
+    U, S, V, lead = _svd_nodes(c, A)
+    batch, k = c.shape(S)
+    smax = c.make("slice", (S,), (batch, 1), "f", (1, 0, 1))
+    tol = c.elementwise("maximum", (c.elementwise(
+        "mul", (smax, float(rtol)), _Val((batch, 1))), atol),
+        _Val((batch, 1)))
+    keep = c.elementwise("gt", (S, tol), _Val((batch, k), torch.bool))
+    inv = c.elementwise("where", (keep, c.elementwise(
+        "reciprocal", (S,), _Val((batch, k))), 0.0), _Val((batch, k)))
+    Vs = c.elementwise("mul", (V, c.reshape(inv, (batch, 1, k))),
+                       _Val((batch, n, k)))
+    return c.reshape(_bmm(c, Vs, _swap_last(c, U)), val.shape)
+
+
+def _rule_lstsq(c, args, kwargs, val):
+    """``linalg_lstsq(A, B)`` of a full-rank tall or square A: R^-1 Q^T B
+    from its reduced QR; the residuals, rank and singular values empty
+    (torch's default gelsy routine returns them so)."""
+    A, B = args[:2]
+    m, n = c.shape(A)[-2:]
+    if m < n:
+        raise NotImplementedError(
+            "linalg_lstsq of a wide matrix has no rule in the generic "
+            f"potential compiler; widening its op table is {_ROADMAP}")
+    Q, R, lead = _qr_nodes(c, A)
+    batch = c.shape(Q)[0]
+    vector = len(c.shape(B)) == len(c.shape(A)) - 1
+    if vector:
+        B = c.reshape(B, (*c.shape(B), 1))
+    k = c.shape(B)[-1]
+    B3 = c.reshape(c.expand(B, (*lead, m, k)), (batch, m, k))
+    if c.nodes[B3].dtype != "f":
+        B3 = c.make("float", (B3,), (batch, m, k))
+    X = _trsolve(c, R, _bmm(c, _swap_last(c, Q), B3), True, False,
+                 (batch, n, k))
+    rest = [c.const(0.0, tuple(v.shape), "i" if v.dtype in INT_DTYPES
+                    else "f") for v in val[1:]]
+    return (c.reshape(X, val[0].shape), *rest)
+
+
+def _rule_matrix_exp(c, args, kwargs, val):
+    """``linalg_matrix_exp(A)``: ATen's scaling and squaring with Bader,
+    Blanes and Casas's Taylor polynomials of degree 1-18, chosen by the
+    1-norm against its float32 thresholds (a ``mexp`` node a matrix)."""
+    A = args[0]
+    n = c.shape(A)[-1]
+    if n == 1:
+        return c.elementwise("exp", (A,), val)
+    A3, lead = _batched(c, A, n)
+    return c.reshape(c.make("mexp", (A3,), c.shape(A3), "f"), val.shape)
 
 
 
@@ -1792,12 +2385,39 @@ _RULES = {
     "cumprod": _rule_cumprod, "prod": _rule_prod,
     "sort": _rule_sort, "topk": _rule_topk,
     "scatter_reduce": _rule_scatter_reduce,
+    # the everyday families' ops and special functions (item 1.10c,
+    # reopened): elementwise, reductions and scans
+    "xlogy": _rule_binary("xlogy"), "special_xlog1py": _rule_binary("xlog1py"),
+    "log_sigmoid_forward": _rule_log_sigmoid_forward,
+    "log_sigmoid_backward": _rule_log_sigmoid_backward,
+    "empty_like": _rule_fill(lambda a, k: 0.0),
+    "empty": _rule_fill(lambda a, k: 0.0),
+    "logit": _rule_logit, "logit_backward": _rule_logit_backward,
+    "atan2": _rule_binary("atan2"), "erfinv": _rule_unary("erfinv"),
+    "special_i0e": _rule_unary("i0e"), "special_i1e": _rule_unary("i1e"),
+    "i0": _rule_unary("i0"), "special_i1": _rule_unary("i1"),
+    "polygamma": _rule_polygamma, "mvlgamma": _rule_mvlgamma,
+    "linalg_vector_norm": _rule_vector_norm,
+    "logcumsumexp": _rule_logcumsumexp,
+    "cummax": _rule_cummax(1), "cummin": _rule_cummax(-1),
+    "linalg_cross": _rule_cross,
+    "_cdist_forward": _rule_cdist_forward,
+    "_cdist_backward": _rule_cdist_backward,
+    # linear algebra: LU, QR, SVD, the matrix exponential
+    "linalg_inv_ex": _rule_inv, "linalg_lu_factor_ex": _rule_lu_factor,
+    "lu_unpack": _rule_lu_unpack, "linalg_lu_solve": _rule_lu_solve,
+    "_linalg_det": _rule_det, "cholesky_inverse": _rule_cholesky_inverse,
+    "linalg_qr": _rule_qr, "_linalg_svd": _rule_svd,
+    "linalg_pinv": _rule_pinv, "linalg_lstsq": _rule_lstsq,
+    "linalg_matrix_exp": _rule_matrix_exp,
 }
 
 # ops whose value, where it depends on the data alone, the host folds into
 # a derived float row rather than the card computing it at every gradient
 _FOLD = {"linalg_cholesky_ex", "_linalg_slogdet", "_linalg_eigh", "sort",
-         "topk", "cumprod", "prod"}
+         "topk", "cumprod", "prod", "linalg_inv_ex", "linalg_lu_factor_ex",
+         "_linalg_det", "cholesky_inverse", "linalg_qr", "_linalg_svd",
+         "linalg_pinv", "linalg_lstsq", "linalg_matrix_exp"}
 # ops whose value the host must not fold: uninitialised or random
 _NO_FOLD = ("empty", "rand", "normal", "bernoulli", "uniform", "exponential",
             "multinomial", "poisson")
@@ -1871,12 +2491,40 @@ def _plain_op(n: Node, vals, dtype):
         return torch.ops.aten.sigmoid_backward(vals[0], vals[1])
     if op == "tanh_backward":
         return torch.ops.aten.tanh_backward(vals[0], vals[1])
+    special = {"xlogy": torch.xlogy, "xlog1py": torch.special.xlog1py,
+               "atan2": torch.atan2, "erfinv": torch.erfinv,
+               "i0e": torch.special.i0e, "i1e": torch.special.i1e,
+               "i0": torch.special.i0, "i1": torch.special.i1,
+               "log_sigmoid": torch.nn.functional.logsigmoid}
+    if op in special:
+        return special[op](*vals)
+    if op == "log_sigmoid_backward":  # ATen's formula, the buffer recomputed
+        g, x = vals
+        neg = x < 0
+        z = torch.exp(-torch.abs(x))
+        return g * (neg.to(x.dtype) - torch.where(neg, 1.0, -1.0).to(
+            x.dtype) * (z / (1 + z)))
+    if op == "logit":
+        return torch.logit(a, n.params[0] if n.params else None)
+    if op == "logit_backward":
+        return torch.ops.aten.logit_backward(vals[0], vals[1],
+                                             n.params[0] if n.params else None)
+    if op == "polygamma":
+        return torch.polygamma(n.params[0], a)
     raise AssertionError(op)
 
 
 def _plain_node(n: Node, args, dtype, dev):
     """One IR node (not ``q`` nor ``data``) of the plain back end, on
-    values whose last axis is the chain axis (C, or 1)."""
+    values whose last axis is the chain axis (C, or 1); an integer node
+    read from a float one (getrf's pivots) as int64."""
+    v = _plain_value(n, args, dtype, dev)
+    if n.dtype == "i" and v.is_floating_point():
+        v = v.round().to(torch.int64)
+    return v
+
+
+def _plain_value(n: Node, args, dtype, dev):
     if n.op == "const":
         return torch.full((*n.shape, 1), n.params[0],
                           dtype={"b": torch.bool, "i": torch.int64}.get(
@@ -2010,6 +2658,34 @@ def _plain_node(n: Node, args, dtype, dev):
         return _plain_eigh(args[0].movedim(-1, 0)).movedim(0, -1)
     if n.op == "cumprod":
         return torch.cumprod(args[0], n.params[0])
+    if n.op == "logcumsumexp":
+        return torch.logcumsumexp(args[0], n.params[0])
+    if n.op in ("lufactor", "lu_p", "qr", "svd", "mexp"):
+        return _plain_factor(n, args[0].movedim(-1, 0), dtype).movedim(0, -1)
+    if n.op == "cumarg":  # the last index of the running extreme
+        axis, sign = n.params
+        return (torch.cummax if sign > 0 else torch.cummin)(
+            args[0], axis).indices
+    if n.op == "scatter_reduce_chain":  # by per-chain flat positions
+        base, k, src = args
+        reduce, include_self = n.params
+        c = max(a.shape[-1] for a in args)
+        numel = n.shape[0]
+        k = _clamped(k, numel).reshape(-1, k.shape[-1]).expand(-1, c)
+        return base.expand(numel, c).scatter_reduce(
+            0, k, src.reshape(-1, src.shape[-1]).expand(-1, c), reduce,
+            include_self=include_self)
+    if n.op == "scatter_put":  # out[k[t]] = src[t], the last t winning
+        base, k, src = args
+        c = max(a.shape[-1] for a in args)
+        numel = n.shape[0]
+        k = _clamped(k, numel).reshape(-1, k.shape[-1]).expand(-1, c)
+        t = torch.arange(k.shape[0], device=dev)[:, None].expand(-1, c)
+        win = torch.full((numel, c), -1, dtype=torch.int64,
+                         device=dev).scatter_reduce(0, k, t, "amax")
+        src = src.reshape(-1, src.shape[-1]).expand(-1, c)
+        picked = torch.gather(src, 0, win.clamp(min=0))
+        return torch.where(win >= 0, picked, base.expand(numel, c))
     if n.op == "trsolve":
         upper, unit = n.params
         A, B = (a.movedim(-1, 0) for a in args)  # (C or 1, batch, n, *)
@@ -2169,7 +2845,22 @@ def _preimage(vals, numel):
     return torch.cat([offsets, order])
 
 
-_HOST_FNS = {"index_positions": _index_positions,
+def _axis_offsets(vals, shape, ishape, axis):
+    """The flat offsets in an array of ``shape`` of an index of ``ishape``'s
+    coordinates off ``axis`` (a scatter along ``axis`` adds the index's own
+    coordinate times its stride)."""
+    coords = torch.meshgrid(*[torch.arange(s) for s in ishape], indexing="ij")
+    return sum((k * st for a, (k, st) in enumerate(zip(coords,
+                                                       _strides(shape)))
+                if a != axis), torch.zeros(ishape, dtype=torch.int64))
+
+
+def _arange(vals, n, start=0):
+    return torch.arange(start, start + n)
+
+
+_HOST_FNS = {"index_positions": _index_positions, "arange": _arange,
+             "axis_offsets": _axis_offsets,
              "axis_positions": _axis_positions, "inverse": _inverse,
              "preimage": _preimage}
 
@@ -2282,6 +2973,35 @@ def _plain_eigh(A):
     return torch.where(finite[..., None, None], out, math.nan)
 
 
+def _plain_factor(n: Node, A, dtype):
+    """The factorisation nodes' plain versions, chain axis first: getrf's
+    LU with its 1-based pivots as a last row, P from the pivots, the
+    reduced QR (Q over R), the SVD (U, the singular values, V; U's columns
+    (V's, for A^T) each with its largest component, the first of equals,
+    positive, the other factor flipped with it) and the matrix
+    exponential."""
+    if n.op == "lufactor":
+        LU, piv = torch.linalg.lu_factor(A)
+        return torch.cat([LU, piv.to(A.dtype).unsqueeze(-2)], -2)
+    if n.op == "lu_p":
+        piv = A.round().to(torch.int32)
+        size = piv.shape[-1]
+        return torch.lu_unpack(torch.zeros(*piv.shape, size, dtype=dtype,
+                                           device=A.device), piv,
+                               unpack_data=False)[0]
+    if n.op == "qr":
+        return torch.cat(torch.linalg.qr(A, mode="reduced"), -2)
+    if n.op == "svd":
+        U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+        V = Vh.mT
+        fixed = V if n.params[0] else U
+        at = fixed.abs().argmax(dim=-2, keepdim=True)
+        flip = torch.where(torch.gather(fixed, -2, at) < 0, -1.0, 1.0).to(
+            A.dtype)
+        return torch.cat([U * flip, S.unsqueeze(-2), V * flip], -2)
+    return torch.linalg.matrix_exp(A.contiguous())
+
+
 def _wrapped(k: torch.Tensor, length: int) -> torch.Tensor:
     """An index operand's values, flat, checked and wrapped into ``[0,
     length)``."""
@@ -2366,9 +3086,11 @@ def _stored_nodes(ir) -> set:
                 _is_compute(n) and _numel(n.shape) == 1):
             stored.add(i)
     for i, n in enumerate(ir.nodes):
-        if n.op in ("scatter_add", "sortidx"):  # every lane reads each value
-            base = _through_views(ir, n.args[2 if n.op == "scatter_add"
-                                           else 0])
+        if n.op in ("scatter_add", "scatter_put", "scatter_reduce_chain",
+                    "sortidx"):
+            # every lane reads each value
+            base = _through_views(ir, n.args[0 if n.op == "sortidx"
+                                           else 2])
             if _is_compute(ir.nodes[base]):
                 stored.add(base)
         if n.op != "mm":
@@ -2409,6 +3131,13 @@ def _scratch(ir, n: Node) -> int:
         return 2 * n.shape[-1] ** 2
     if n.op == "sortidx":
         return 2 * _sort_width(ir.nodes[n.args[0]].shape[n.params[0]])
+    if n.op in ("qr", "svd"):  # the working copy; tau, or V and the norms
+        _, m, k = ir.nodes[n.args[0]].shape
+        return m * k + (k if n.op == "qr" else k * k + k)
+    if n.op == "mexp":  # I, A, A^2, A^3, A^6, five combinations, a product
+        return 11 * n.shape[-1] ** 2
+    if n.op == "scatter_reduce_chain":  # each output's count
+        return n.shape[0]
     return 0
 
 
@@ -2534,7 +3263,10 @@ def _formula(n: Node, a) -> str:
              "digamma": "gpg_digamma({0})", "erf": "erff({0})",
              "erfc": "erfcf({0})", "erfcx": "erfcxf({0})",
              "log_ndtr": "gpg_log_ndtr({0})",
-             "isnan": "({0} != {0} ? 1.f : 0.f)"}
+             "isnan": "({0} != {0} ? 1.f : 0.f)",
+             "log_sigmoid": "gpg_log_sigmoid({0})",
+             "erfinv": "erfinvf({0})", "i0e": "gpg_i0e({0})",
+             "i1e": "gpg_i1e({0})", "i0": "gpg_i0({0})", "i1": "gpg_i1({0})"}
     if op in unary:
         return unary[op].format(*a)
     simple = {"add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
@@ -2545,6 +3277,10 @@ def _formula(n: Node, a) -> str:
               "where": "(({0}) != 0.f ? {1} : {2})",
               "logaddexp": "gpg_logaddexp({0}, {1})",
               "powt": "powf({0}, {1})",
+              "xlogy": "gpg_xlogy({0}, {1})",
+              "xlog1py": "gpg_xlog1py({0}, {1})",
+              "atan2": "atan2f({0}, {1})",
+              "log_sigmoid_backward": "gpg_log_sigmoid_backward({0}, {1})",
               "sigmoid_backward": "(({0} * (1.f - {1})) * {1})",
               "tanh_backward": "({0} * (1.f - {1} * {1}))"}
     if op in simple:
@@ -2575,7 +3311,21 @@ def _formula(n: Node, a) -> str:
                 f"{_literal(n.params[0])}, {_literal(n.params[1])})")
     if op == "threshold_backward":
         return f"({a[1]} <= {_literal(n.params[0])} ? 0.f : {a[0]})"
+    if op in ("logit", "logit_backward"):
+        lo, hi = n.params if n.params else (-1.0, 2.0)  # none: no clamp
+        bounds = f"{_literal(lo)}, {_literal(hi)}, {_cbool(bool(n.params))}"
+        if op == "logit":
+            return f"gpg_logit({a[0]}, {bounds})"
+        return f"gpg_logit_backward({a[0]}, {a[1]}, {bounds})"
+    if op == "polygamma":
+        k = n.params[0]
+        return (f"gpg_trigamma({a[0]})" if k == 1
+                else f"gpg_polygamma({a[0]}, {k})")
     raise AssertionError(op)
+
+
+def _cbool(b: bool) -> str:
+    return "true" if b else "false"
 
 
 class _Scope:
@@ -3021,7 +3771,7 @@ class _Emitter:
         lines.extend(body)
         lines.append("__syncwarp();")
 
-    def scatter_add(self, nid, lines):
+    def scatter_add(self, nid, lines, update="+="):
         """The base, lane-strided (output o in lane o % 32); then every lane
         walks the values in input order and the lane that owns each one's
         output adds it: each output sums its values in input order, with no
@@ -3047,7 +3797,7 @@ class _Emitter:
         scan.lines.append(f"const int o = {o.expr};")
         val = self.value(values, t, scan)
         scan.lines.append(f"if (o % 32 == lane) {self.slot(nid, Ix('o', out))}"
-                          f" += {val};")
+                          f" {update} {val};")
         lines.append(f"for (int t = 0; t < {_numel(vshape)}; ++t) {{")
         lines.extend("  " + line for line in scan.lines)
         lines.append("}")
@@ -3164,6 +3914,201 @@ class _Emitter:
     def cumprod(self, nid, lines):
         """One lane a line along the axis, its product sequential."""
         self.cumsum(nid, lines, "1.f", "acc * {v}")
+
+    def logcumsumexp(self, nid, lines):
+        """One lane a line along the axis, a running ``logaddexp``
+        (ATen's ``_log_add_exp_helper``) from -inf."""
+        self.cumsum(nid, lines, "__int_as_float(0xff800000)",
+                    "gpg_log_add_exp({v}, acc)")
+
+    def cumarg(self, nid, lines):
+        """One lane a line along the axis: the index of the running maximum
+        (minimum), updated where the element is NaN or, the running value
+        not NaN, at least (at most) it (torch's cummax/cummin); stored as a
+        float."""
+        n = self.ir.nodes[nid]
+        axis, sign = n.params
+        length = n.shape[axis]
+        rest = n.shape[:axis] + n.shape[axis + 1:]
+        m = _unflatten(Ix("m", _numel(rest)), rest)
+        idx = (*m[:axis], Ix("l", length), *m[axis:])
+        scope = _Scope(self)
+        v = self.value(n.args[0], idx, scope)
+        cmp = ">=" if sign > 0 else "<="
+        lines.append(f"for (int m = lane; m < {_numel(rest)}; m += 32) {{")
+        lines.append("  float best = 0.f;")
+        lines.append("  int at = 0;")
+        lines.append(f"  for (int l = 0; l < {length}; ++l) {{")
+        lines.extend("    " + line for line in scope.lines)
+        lines.append(f"    if (l == 0 || {v} != {v} || (best == best && "
+                     f"{v} {cmp} best)) {{")
+        lines.append(f"      best = {v};")
+        lines.append("      at = l;")
+        lines.append("    }")
+        lines.append(f"    {self.slot(nid, _flatten(idx, n.shape))} = "
+                     "(float)at;")
+        lines.append("  }")
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def _batch_loop(self, nid, lines, body):
+        n = self.ir.nodes[nid]
+        lines.append(f"for (int b = 0; b < {n.shape[0]}; ++b) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def _arg_batch(self, nid):
+        """The batch index expression of a factorisation's argument (a
+        batch of one read for every output)."""
+        n = self.ir.nodes[nid]
+        return Ix("b", n.shape[0]) if \
+            self.ir.nodes[n.args[0]].shape[0] > 1 else _ic(0)
+
+    def lufactor(self, nid, lines):
+        """getrf a matrix: its copy in the output's slot, factored in place
+        (``_lu_factor``), lane 0 writing each 1-based pivot in the row
+        after the factors."""
+        n = self.ir.nodes[nid]
+        (A,) = n.args
+        size = n.shape[-1]
+        base = self.sched.slots[nid]
+        block = f"b * {(size + 1) * size}"
+
+        def LU(i, j):
+            return f"ws[{base} + {block} + ({i}) * {size} + {j}]"
+
+        body = self._copy(A, self._arg_batch(nid), size, LU)
+        body += ["__syncwarp();"]
+        body += _lu_factor(LU, size, [], [
+            f"if (lane == 0) {LU(size, 'k')} = (float)(p + 1);"])
+        self._batch_loop(nid, lines, body)
+
+    def lu_p(self, nid, lines):
+        """P of A = P L U from getrf's pivots: every lane applies the row
+        swaps to the identity permutation in order, then writes its
+        elements of P (P[perm[j], j] = 1)."""
+        n = self.ir.nodes[nid]
+        (piv,) = n.args
+        batch, size, _ = n.shape
+        scope = _Scope(self)
+        v = self.value(piv, (Ix("b", batch) if self.ir.nodes[piv].shape[0] > 1
+                             else _ic(0), Ix("i", size)), scope)
+        p_at = self.slot(nid, Ix(f"b * {size * size} + e",
+                                 batch * size * size))
+        body = [f"int perm[{size}];",
+                f"for (int i = 0; i < {size}; ++i) perm[i] = i;",
+                f"for (int i = 0; i < {size}; ++i) {{",
+                *("  " + line for line in scope.lines),
+                f"  const int p = (int)({v}) - 1;",
+                "  const int t = perm[i];",
+                "  perm[i] = perm[p];",
+                "  perm[p] = t;",
+                "}",
+                f"for (int e = lane; e < {size * size}; e += 32)",
+                f"  {p_at} = perm[e % {size}] == e / {size} ? 1.f : 0.f;",
+                "__syncwarp();"]
+        self._batch_loop(nid, lines, body)
+
+    def _dense(self, nid, lines, call, rows, cols):
+        """A factorisation of ``gpg_*`` (``call(out, scratch)``): the
+        argument's matrix copied into the scratch after the output (its
+        working copy), then the helper, a matrix at a time."""
+        n = self.ir.nodes[nid]
+        (A,) = n.args
+        base = self.sched.slots[nid]
+        out_size = _numel(n.shape[1:])
+        w0 = base + _numel(n.shape)
+        scope = _Scope(self)
+        i, j = _unflatten(Ix("e", rows * cols), (rows, cols))
+        v = self.value(A, (self._arg_batch(nid), i, j), scope)
+        body = [f"for (int e = lane; e < {rows * cols}; e += 32) {{",
+                *("  " + line for line in scope.lines),
+                f"  ws[{w0} + e] = {v};", "}", "__syncwarp();",
+                call(f"ws + {base} + b * {out_size}", f"ws + {w0}")]
+        self._batch_loop(nid, lines, body)
+
+    def qr(self, nid, lines):
+        """The reduced QR a matrix (``gpg_qr``): Q over R."""
+        _, m, k = self.ir.nodes[self.ir.nodes[nid].args[0]].shape
+        self._dense(nid, lines, lambda out, w: (
+            f"gpg_qr({out}, {w}, {w} + {m * k}, {m}, {k}, lane);"), m, k)
+
+    def svd(self, nid, lines):
+        """The thin SVD a matrix (``gpg_svd``): U, the singular values,
+        V."""
+        n = self.ir.nodes[nid]
+        _, m, k = self.ir.nodes[n.args[0]].shape
+        fix_v = _cbool(n.params[0])
+        self._dense(nid, lines, lambda out, w: (
+            f"gpg_svd({out}, {w}, {w} + {m * k}, {w} + {m * k + k * k}, "
+            f"{m}, {k}, {fix_v}, lane);"), m, k)
+
+    def mexp(self, nid, lines):
+        """The matrix exponential a matrix (``gpg_mexp``), its argument
+        copied into the scratch's second matrix."""
+        size = self.ir.nodes[nid].shape[-1]
+        n = self.ir.nodes[nid]
+        base = self.sched.slots[nid]
+        w0 = base + _numel(n.shape)
+        scope = _Scope(self)
+        i, j = _unflatten(Ix("e", size * size), (size, size))
+        v = self.value(n.args[0], (self._arg_batch(nid), i, j), scope)
+        body = [f"for (int e = lane; e < {size * size}; e += 32) {{",
+                *("  " + line for line in scope.lines),
+                f"  ws[{w0 + size * size} + e] = {v};", "}", "__syncwarp();",
+                f"gpg_mexp(ws + {base} + b * {size * size}, ws + {w0}, "
+                f"{size}, lane);"]
+        self._batch_loop(nid, lines, body)
+
+    def scatter_reduce_chain(self, nid, lines):
+        """scatter_add's loops, reducing: each output's lane starts from
+        its base (without it, from its first value), reduces the values
+        that land on it in input order by sum, product, maximum or minimum
+        (NaN wins), counting them, and averages over the count for a
+        mean."""
+        n = self.ir.nodes[nid]
+        base, pos, src = n.args
+        reduce, include_self = n.params
+        out = n.shape[0]
+        cnt = self.sched.slots[nid] + out
+        init = _Scope(self)
+        v = self.value(base, (Ix("o", out),), init)
+        lines.append(f"for (int o = lane; o < {out}; o += 32) {{")
+        lines.extend("  " + line for line in init.lines)
+        lines.append(f"  {self.slot(nid, Ix('o', out))} = {v};")
+        lines.append(f"  ws[{cnt} + o] = 0.f;")
+        lines.append("}")
+        scan = _Scope(self)
+        sshape = self.ir.nodes[src].shape
+        t = _unflatten(Ix("t", _numel(sshape)), sshape)
+        k = self.value(pos, t, scan)
+        scan.lines.append(f"const int o = (int)({k});")
+        val = self.value(src, t, scan)
+        step = {"sum": "acc + v", "mean": "acc + v", "prod": "acc * v",
+                "amax": "gpg_max(acc, v)", "amin": "gpg_min(acc, v)"}[reduce]
+        first = "" if include_self else f"ws[{cnt} + o] == 0.f ? v : "
+        acc = self.slot(nid, Ix("o", out))
+        scan.lines += ["if (o % 32 == lane) {",
+                       f"  const float v = {val};",
+                       f"  const float acc = {acc};",
+                       f"  {acc} = {first}{step};",
+                       f"  ws[{cnt} + o] += 1.f;",
+                       "}"]
+        lines.append(f"for (int t = 0; t < {_numel(sshape)}; ++t) {{")
+        lines.extend("  " + line for line in scan.lines)
+        lines.append("}")
+        if reduce == "mean":
+            count = f"(ws[{cnt} + o] + 1.f)" if include_self else \
+                f"ws[{cnt} + o]"
+            lines += [f"for (int o = lane; o < {out}; o += 32)",
+                      f"  if (ws[{cnt} + o] > 0.f) {acc} = {acc} / {count};"]
+        lines.append("__syncwarp();")
+
+    def scatter_put(self, nid, lines):
+        """scatter_add's loops with a write for the sum: each output's lane
+        writes the values that land on it in input order, so the last of a
+        duplicate wins."""
+        self.scatter_add(nid, lines, "=")
 
     def _copy(self, src, batch_ix, size, dest, lower=False):
         """Lines copying matrix ``src[b]`` (``(size, size)``) into the
@@ -3522,12 +4467,14 @@ class _Emitter:
                   "__syncwarp();"]
 
 
-def _lu_factor(LU, size, on_swap):
+def _lu_factor(LU, size, on_swap, on_pivot=()):
     """Lines of an LU with partial pivoting in place, column by column:
     every lane scans the column below the diagonal for the first largest
     ``|a|`` (LAPACK ``i?amax``'s pivot); the lanes swap the pivot row
-    and runs ``on_swap`` (the right sides' swap, or a sign's flip); then each lane eliminates its rows
-    (row r in lane r % 32, ``fmaf`` along the row)."""
+    and runs ``on_swap`` (the right sides' swap, or a sign's flip; after
+    the search every lane runs ``on_pivot``: the pivot's record); then
+    each lane eliminates its rows (row r in lane r % 32, ``fmaf`` along the
+    row)."""
     return [f"for (int k = 0; k < {size}; ++k) {{",
             "  int p = k;",
             f"  float top = fabsf({LU('k', 'k')});",
@@ -3538,6 +4485,7 @@ def _lu_factor(LU, size, on_swap):
             "      p = r;",
             "    }",
             "  }",
+            *("  " + line for line in on_pivot),
             "  __syncwarp();  // every lane has read the column",
             "  if (p != k) {",
             f"    for (int j = lane; j < {size}; j += 32) {{",

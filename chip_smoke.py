@@ -5505,6 +5505,7 @@ OPS_CELLS = {"mvn25_chol": (25, 10_240, 0.5, 1.0, 6),
              "mixture4": (12, 4_096, 0.03, 1.0, 6),
              "probit100": (DIM, 10_240, 0.15, 1.0, 6)}
 OPS_GRAD_CHAINS = 256           # phase 48: chains held against float64
+GRAD_LOOP_CHAINS = 32           # ... where vmap refuses the potential
 # phases 48 and 51: kernels 2 and 6 where a potential's front doors launch
 # them (phases 49-50, 52), held to kernels 1 and 5 over a few draws
 OPS_SAMPLING = {"mvn25_chol": (2, 6), "hier_negbin": (2,)}
@@ -5643,7 +5644,7 @@ def op_table_potentials(torch, dev):
     return out
 
 
-def ir_flop(ir, sweeps=None):
+def ir_flop(ir, sweeps=None, work=None):
     """Operations of one gradient of a generated functor, from its IR: an
     elementwise node one an element, a sum, product, maximum or index of a
     maximum one an input element, a matrix product 2mkn, a triangular solve
@@ -5652,13 +5653,39 @@ def ir_flop(ir, sweeps=None):
     log-determinant its LU's 2n³/3, a cyclic Jacobi ``sweeps`` × n(n-1)/2
     rotations × 6n, a sort its comparisons (n² a line up to 32 elements,
     the bitonic network's beyond), a reducing or permuting scatter one an
-    input element."""
+    input element; an LU factor 2n³/3, its P n², a reduced QR 4mn² -
+    4n³/3 (geqrf's and orgqr's), a one-sided Jacobi SVD ``work``'s sweeps
+    × n(n-1)/2 pairs × (12m + 6n), a matrix exponential ``work``'s
+    products × 2n³ (its linear combinations' n² terms left out)."""
+    work = work or {}
     flop = 0
     for n in ir.nodes:
         size = math.prod(n.shape)
         if n.op in ("q", "data", "const", "reshape", "permute", "expand",
                     "slice", "select", "flip", "gather", "take",
                     "diagonal"):
+            continue
+        if n.op == "lufactor":
+            flop += n.shape[0] * 2 * n.shape[-1] ** 3 // 3
+            continue
+        if n.op == "lu_p":
+            flop += size
+            continue
+        if n.op == "qr":
+            b, m, k = ir.nodes[n.args[0]].shape
+            flop += b * (4 * m * k * k - 4 * k ** 3 // 3)
+            continue
+        if n.op == "svd":
+            b, m, k = ir.nodes[n.args[0]].shape
+            flop += int(b * work.get("svd_sweeps", SVD_SWEEPS)
+                        * k * (k - 1) // 2 * (12 * m + 6 * k))
+            continue
+        if n.op == "mexp":
+            b, m, _ = n.shape
+            flop += int(b * work.get("mexp_products", 5) * 2 * m ** 3)
+            continue
+        if n.op in ("scatter_put", "scatter_reduce_chain"):
+            flop += math.prod(ir.nodes[n.args[2]].shape)
             continue
         if n.op == "chol":
             flop += n.shape[0] * n.shape[1] ** 3 // 3
@@ -5721,8 +5748,15 @@ def grad_vs_float64(torch, lp64, q_t, g_kernel, g_plain):
     q_t, g_kernel, g_plain = q_t[:, :n], g_kernel[:, :n], g_plain[:, :n]
     grad = torch.func.vmap(torch.func.grad(torch.func.functionalize(
         lambda q: -lp64(q))), in_dims=1, out_dims=1)
-    with no_validation():  # torch.distributions' host checks under vmap
-        g64 = grad(q_t.double())
+    try:
+        with no_validation():  # torch.distributions' host checks under vmap
+            g64 = grad(q_t.double())
+    except RuntimeError:  # a write under a bool mask, which vmap refuses:
+        n = min(GRAD_LOOP_CHAINS, q_t.shape[1])  # fewer, one at a time
+        q_t, g_kernel, g_plain = q_t[:, :n], g_kernel[:, :n], g_plain[:, :n]
+        one = torch.func.grad(lambda q: -lp64(q))
+        with no_validation():
+            g64 = torch.stack([one(q_t[:, c].double()) for c in range(n)], 1)
     scale = float(g64.abs().max())
     return (float((g_kernel.double() - g64).abs().max()) / scale,
             float((g_plain.double() - g64).abs().max()) / scale)
@@ -5780,7 +5814,8 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
             q += np.asarray(starts[name], np.float64)[:, None]
         q_t = torch.tensor(q, dtype=torch.float32, device=dev)
         sweeps = eigh_sweeps(torch, b.ir, q_t, ops_b)  # 0 without eigh
-        flop = ir_flop(b.ir, sweeps)
+        work = factor_work(torch, b.ir, q_t, ops_b)   # {} without mexp, svd
+        flop = ir_flop(b.ir, sweeps, work)
 
         def plain_pg(x):
             return generic_pg.run_plain(b.ir, x, ops_b)
@@ -5916,7 +5951,7 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
         res = dict(
             dim=dim, chains=chains, eps=eps, max_exp=k, ir_nodes=len(b.ir.nodes),
             node_kinds=sorted({n.op for n in b.ir.nodes}), flop_a_gradient=flop,
-            jacobi_sweeps=sweeps,
+            jacobi_sweeps=sweeps, factor_work=work,
             grad_rel_err=gerr[0], plain_grad_rel_err=gerr[1],
             nuts_functor=nuts_rep, hmc_functor=hmc_rep,
             kernels={})
@@ -6859,6 +6894,9 @@ NON_PD_CHAINS = 64
 # pooled reference (LAST_POOLED_S3) takes a dense M⁻¹ (R-hat 1.019 at K 4
 # and 100 + 200 against 1.028 with a diagonal one, 70-79 s a run)
 LAST_DOOR_CHAINS = 4096
+# S1's door at 1,024 chains (52.3 s at 4,096 on an H100 80GB HBM3 at 700
+# W; cut to keep the whole run within its 1,200 s limit)
+LAST_DOOR_CHAINS_S1 = 1024
 LAST_DOORS = {"gp_se64": ("nuts", 150, 200),
               "lkj_slopes": ("chees", 500, 1000),
               "matrix_log_cov": ("meads", 500, 3000)}
@@ -7182,6 +7220,105 @@ def eigh_sweeps(torch, ir, q_t, operands, chains=256):
     return float(np.mean(sweeps)) if sweeps else 0.0
 
 
+MEXP_THETA = (1.192092800768788e-07, 5.978858893805233e-04,
+              5.116619363445086e-02, 5.800524627688768e-01,
+              1.461661507209034e+00, 3.010066362817634e+00)
+SVD_SWEEPS = 30   # the functor's most sweeps of one-sided Jacobi
+
+
+def mexp_products(A):
+    """The matrix products the functor's matrix exponential (ATen's float
+    degree choice) takes on each of ``A (m, n, n)``: degree 1, 2, 4, 8, 12
+    or 18 (0, 1, 2, 3, 4, 5 products) by the 1-norm, then one a squaring."""
+    A = np.asarray(A, np.float32)
+    norm = np.abs(A).sum(-2).max(-1)
+    out = []
+    for x in norm:
+        if x <= MEXP_THETA[0]:
+            out.append(0)
+        elif x <= MEXP_THETA[1]:
+            out.append(1)
+        elif x <= MEXP_THETA[2]:
+            out.append(2)
+        elif x <= MEXP_THETA[3]:
+            out.append(3)
+        elif x < MEXP_THETA[4]:
+            out.append(4)
+        else:
+            s = max(0, math.ceil(math.log2(x / MEXP_THETA[5])))
+            out.append(5 + s)
+    return np.asarray(out, np.float64)
+
+
+def onesided_sweeps(A, most=SVD_SWEEPS):
+    """The sweeps the functor's one-sided Jacobi (its stopping rule: a sweep
+    that rotates no pair, a pair rotated where its cosine exceeds sqrt(m)
+    float32 eps) takes on ``A (k, m, n)`` (m >= n), in float64 with
+    numpy."""
+    counts = []
+    for a in np.asarray(A, np.float64):
+        W = a.copy()
+        m, n = W.shape
+        tol = 1.1920929e-07 * math.sqrt(m)
+        sweeps = 0
+        while sweeps < most:
+            rotated = False
+            for p in range(n - 1):
+                for q in range(p + 1, n):
+                    al, be = W[:, p] @ W[:, p], W[:, q] @ W[:, q]
+                    g = W[:, p] @ W[:, q]
+                    if not abs(g) > tol * math.sqrt(al * be):
+                        continue
+                    rotated = True
+                    zeta = (be - al) / (2.0 * g)
+                    t = math.copysign(1.0, zeta) / (abs(zeta) + math.sqrt(
+                        1.0 + zeta * zeta))
+                    c = 1.0 / math.sqrt(1.0 + t * t)
+                    sn = c * t
+                    wp, wq = W[:, p].copy(), W[:, q].copy()
+                    W[:, p], W[:, q] = c * wp - sn * wq, sn * wp + c * wq
+            sweeps += 1
+            if not rotated:
+                break
+        counts.append(sweeps)
+    return float(np.mean(counts))
+
+
+def factor_work(torch, ir, q_t, operands, chains=64):
+    """The data-dependent work of the IR's matrix exponentials (products a
+    matrix) and SVDs (sweeps a matrix) at the first ``chains`` columns of
+    ``q_t``: the plain back end run node by node up to each node's
+    matrices (the mean over them)."""
+    from aehmc_tpu_torch.ops import generic_pg
+
+    if not any(n.op in ("mexp", "svd") for n in ir.nodes):
+        return {}
+    data = generic_pg.all_operands(ir, operands)
+    q = q_t[:, :chains].double()
+    vals, work = [], {"mexp_products": [], "svd_sweeps": []}
+    for n in ir.nodes:
+        args = [vals[a] for a in n.args]
+        if n.op == "q":
+            v = q
+        elif n.op == "data":
+            v = data[n.params[0]].to(
+                device=q.device, dtype=torch.int64 if n.dtype == "i"
+                else torch.float64).reshape(*n.shape, 1)
+        else:
+            v = generic_pg._plain_node(n, args, torch.float64, q.device)
+        if n.op in ("mexp", "svd"):
+            A = args[0].movedim(-1, 0)
+            A = A.expand(q.shape[1], *A.shape[1:]).reshape(-1, *A.shape[2:])
+            if n.op == "mexp":
+                work["mexp_products"].append(float(np.mean(mexp_products(
+                    A.cpu().numpy()))))
+            else:
+                work["svd_sweeps"].append(onesided_sweeps(
+                    A[:16].cpu().numpy()))
+        vals.append(v)
+    return {k: float(np.mean(v)) for k, v in work.items() if v}
+
+
 def non_pd_witness(torch, p, record, card):
     """Phase 54 (b): kernel 1 on S1's functor, NON_PD_CHAINS of 4,096
     chains sent by a unit step (external momentum) to NON_PD_Q, where K's
@@ -7246,7 +7383,8 @@ def non_pd_witness(torch, p, record, card):
 
 def last_doors(torch, ops, diagnostics, pots, record, card):
     """Phase 55: S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
-    doors (LAST_DOOR_CHAINS chains, LAST_DOORS' lengths), each within
+    doors (LAST_DOOR_CHAINS chains, S1 LAST_DOOR_CHAINS_S1; LAST_DOORS'
+    lengths), each within
     §2's limits (R-hat below RHAT_MAX), launches exact, its means within
     MCSE_Z combined MCSE of the pooled XLA NUTS route's on the same model
     (LAST_POOLED), which holds §2's limits too."""
@@ -7260,8 +7398,10 @@ def last_doors(torch, ops, diagnostics, pots, record, card):
               "meads": (MEADS_ACCEPT_MIN, 1.0)}
     for n, (name, (algo, w, d)) in enumerate(LAST_DOORS.items()):
         dim = LAST_CELLS[name][0]
+        chains = LAST_DOOR_CHAINS_S1 if name == "gp_se64" else \
+            LAST_DOOR_CHAINS
         q0 = torch.tensor(0.1 * np.random.default_rng(
-            LAST_SEED + 20 + n).standard_normal((LAST_DOOR_CHAINS, dim)),
+            LAST_SEED + 20 + n).standard_normal((chains, dim)),
             dtype=torch.float32, device=dev)
         lp = pots[name]["lp"]
         kw = {"nuts": dict(max_num_expansions=K),
@@ -7352,6 +7492,653 @@ def last_table_fields(kernels, ops54, doors55):
                 for p, res in ops54.items()})
 
 
+
+# Phases 56-57: the everyday ops (ROADMAP item 1.10c, reopened): xlogy and
+# log_sigmoid for torch.distributions' Poisson, Gamma, Beta, Dirichlet,
+# Bernoulli and NegativeBinomial, the special functions, vector norms,
+# logcumsumexp, cummax, cross, cdist, the LU family, QR, the SVD, pinv,
+# lstsq, the matrix exponential, the scatters by a per-chain index and the
+# write under a mask that depends on q, on four bare logprobs written the
+# way users write them and one test-only potential, data made from a seed
+# with numpy (tests/test_torch_op_table_rest.py holds their JAX twins at
+# small sizes).  U1 zip_radon: a zero-inflated Poisson varying-intercept
+# regression on the radon layout (919 observations in 85 counties, Gelman
+# and Hill 2007 ch. 12; synthetic counts), non-centred county intercepts
+# under a Gamma(2, 2) precision, written with torch.distributions, dim 89;
+# U2 cox_lung: the Cox partial likelihood (Breslow, no ties) at the size of
+# R's survival::lung (228 patients, ~165 events, 7 covariates), its risk
+# sets a logcumsumexp, dim 7; U3 ctmc_cav: msm's CAV illness-death model
+# (Jackson 2011; 622 patients' 2,846 transitions, 20 distinct intervals),
+# P(dt) = matrix_exp(Q dt), 7 log rates; U4 ppca_qr: probabilistic PCA
+# (N 500, D 10, rank 3) with loadings the Q of linalg.qr (after Nirwan and
+# Bertschinger 2019), through inv and det, dim 34; the CPU tests'
+# test-only cases, summed into three functors: everyday_special (special
+# functions, norms and scans, LKJCholesky with a concentration that depends
+# on q, the per-chain scatters; dim 21), everyday_linalg (the LU and SVD
+# families; dim 6) and everyday_families (the everyday families; dim 23).
+# Phase
+# 56 holds kernels 1, 3, 5 and 7 on each against their plain versions and
+# probes the special functions against torch's on the card; phase 57 runs
+# U1's fused NUTS, U2's fused ChEES, U3's fused MEADS and U4's fused NUTS
+# (dense M⁻¹) doors twice each against the pooled XLA NUTS route.
+EVERYDAY_SEED = 5656
+ZIP_OBS, ZIP_COUNTIES = 919, 85
+COX_OBS, COX_COV = 228, 7
+CAV_INTERVALS, CAV_OBS = 20, 2846
+PPCA_OBS, PPCA_DIM, PPCA_RANK = 500, 10, 3
+# name: (dim, chains, ε, diagonal M⁻¹, K) of phase 56's kernel checks
+# (U4 and the LU and SVD families at 1,024 chains: their plain versions,
+# torch's batched LU, QR and SVD, take 12 s a transition at 4,096; U3 at
+# 4,096: its 2,048-chain state gave kernel 1 a |Δq| of 0.226 against plain
+# on one chain whose decisions agreed, its 4,096-chain state 2.0e-5)
+EVERYDAY_CELLS = {"zip_radon": (89, 2_048, 0.01, 1.0, 6),
+                  "cox_lung": (7, 2_048, 0.02, 1.0, 6),
+                  "ctmc_cav": (7, 4_096, 0.01, 1.0, 6),
+                  "ppca_qr": (34, 1_024, 0.002, 1.0, 6),
+                  "everyday_special": (21, 4_096, 0.01, 1.0, 6),
+                  "everyday_linalg": (6, 1_024, 0.01, 1.0, 6),
+                  "everyday_families": (23, 4_096, 0.01, 1.0, 6)}
+# the test-only cases, in three functors (one would take nvcc minutes)
+EVERYDAY_EXTRAS = {
+    "everyday_special": ("special", "scans", "lkj", "chain_scatters"),
+    "everyday_linalg": ("lu_family", "svd_family"),
+    "everyday_families": ("families",)}
+CAV_FROM = np.array([0, 0, 1, 1, 1, 2, 2])
+CAV_TO = np.array([1, 3, 0, 2, 3, 1, 3])
+CAV_RATES = np.array([0.10, 0.04, 0.25, 0.14, 0.08, 0.10, 0.30])
+# U3's log rates are capped at 10 (e^10 a year): torch's matrix_exp on the
+# card never returns from a matrix of infinite norm (its number of
+# squarings is an int64 of +inf), and exp(q) overflows on a divergent
+# trajectory
+CAV_LOG_RATE_MAX = 10.0
+# U1's mu and log precision near the data's, U3's log rates near the data's
+EVERYDAY_STARTS = {
+    "zip_radon": [0.0] * ZIP_COUNTIES + [0.8, 1.4, 0.0, 0.0],
+    "ctmc_cav": list(np.log(CAV_RATES))}
+# phase 57's doors (algorithm, warmup, draws, dense M⁻¹) on 4,096 chains,
+# each run twice, and the route each is held to (EVERYDAY_REFS).  Lengths
+# from probes of R-hat by draws (NVIDIA H100 80GB HBM3, 700 W): U1's NUTS
+# 1.0099 at 200 draws, 1.0063 at 300; U2's ChEES 1.0035 at 200; U3's
+# MEADS 1.0134 at 800, 1.0044 at 2,400; U4's dense NUTS 1.0020 at 300
+EVERYDAY_DOOR_CHAINS = 4096
+EVERYDAY_DOORS = {"zip_radon": ("nuts", 150, 300, False),
+                  "cox_lung": ("chees", 200, 400, False),
+                  "ctmc_cav": ("meads", 300, 2400, False),
+                  "ppca_qr": ("nuts", 200, 300, True)}
+# the reference runs: the pooled XLA NUTS route (host bound: U1 23.8-48.5
+# s at 512-256 chains and 100 + 100 on two hosts, U2 13.3-24.5 s), but on
+# U3 and U4 the fused NUTS door (U4's with another seed): on U3 the pooled
+# route's vmapped gradient through torch's CUDA matrix_exp did not finish
+# 5 + 5 steps of 64 chains in 10 minutes; on U4 it takes 0.23 s a step
+# (54.3 s for 256 chains, 200 + 40, K 3, dense, whose R-hat 1.0098 it
+# needed), more than the whole run's 1,200 s leaves
+EVERYDAY_REFS = {
+    "zip_radon": dict(path="pooled", chains=512, warmup=60, draws=60, k=4,
+                      dense=False),
+    "cox_lung": dict(path="pooled", chains=512, warmup=60, draws=60, k=4,
+                     dense=False),
+    "ctmc_cav": dict(path="fused", chains=4096, warmup=150, draws=200, k=K,
+                     dense=False),
+    "ppca_qr": dict(path="fused", chains=4096, warmup=200, draws=300, k=K,
+                    dense=True)}
+# the special-function probe: inputs a chain, each function's range
+PROBE_CHAINS = 10_240
+PROBE_ULP = 4     # each function within 4 ulp of torch's on the card
+
+
+def zip_data(num_obs=ZIP_OBS, num_counties=ZIP_COUNTIES, seed=0):
+    """U1: county of each observation (every county seen, the sizes
+    skewed), floor (float32), zero-inflated Poisson counts (float32)."""
+    rng = np.random.default_rng(seed)
+    extra = rng.multinomial(num_obs - num_counties,
+                            rng.dirichlet(np.full(num_counties, 0.5)))
+    county = np.repeat(np.arange(num_counties), 1 + extra)
+    floor = (rng.uniform(size=num_obs) < 0.17).astype(np.float64)
+    alpha = rng.normal(0.8, 0.5, num_counties)
+    rate = np.exp(alpha[county] - 0.6 * floor)
+    y = np.where(rng.uniform(size=num_obs) < 0.25, 0, rng.poisson(rate))
+    return (county.astype(np.int64), floor.astype(np.float32),
+            y.astype(np.float32))
+
+
+def zip_radon(torch, county, floor, y, num_counties, device):
+    """U1: q = (z (J), mu, log prec, beta, zl), alpha = mu + z / sqrt(prec);
+    Poisson, Bernoulli(logits=), Gamma, Normal, logsigmoid, logsumexp."""
+    import torch.distributions as dist
+    import torch.nn.functional as F
+
+    c, f, Y = (torch.as_tensor(a, device=device) for a in (county, floor, y))
+    J = num_counties
+
+    def logprob_fn(q):
+        z, mu, log_prec, beta, zl = (q[:J], q[J], q[J + 1], q[J + 2],
+                                     q[J + 3])
+        alpha = mu + z * torch.exp(-0.5 * log_prec)
+        pois = dist.Poisson(torch.exp(alpha[c] + beta * f)).log_prob(Y)
+        log_pi = F.logsigmoid(zl)
+        log_1m = dist.Bernoulli(logits=zl).log_prob(
+            torch.zeros((), dtype=q.dtype, device=device))
+        at_zero = torch.logsumexp(torch.stack(
+            [log_pi.expand_as(pois), log_1m + pois]), 0)
+        ll = torch.where(Y == 0, at_zero, log_1m + pois).sum()
+        two = torch.tensor(2.0, dtype=q.dtype, device=device)
+        lp = dist.Gamma(two, two).log_prob(torch.exp(log_prec)) + log_prec
+        lp = lp + dist.Normal(0.0, 1.0).log_prob(z).sum()
+        return ll + lp + dist.Normal(0.0, 5.0).log_prob(mu) \
+            + dist.Normal(0.0, 5.0).log_prob(beta) \
+            + dist.Normal(0.0, 2.0).log_prob(zl)
+
+    return logprob_fn
+
+
+def cox_data(num_obs=COX_OBS, num_cov=COX_COV, seed=0):
+    """U2: covariates and events sorted by time, descending (no ties)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((num_obs, num_cov))
+    beta = rng.normal(0.0, 0.5, num_cov)
+    t = rng.exponential(1.0 / np.exp(X @ beta))
+    cens = rng.exponential(2.6, num_obs)
+    time, event = np.minimum(t, cens), (t <= cens).astype(np.float64)
+    order = np.argsort(-time)
+    return X[order].astype(np.float32), event[order].astype(np.float32)
+
+
+def cox_lung(torch, X, event, device):
+    """U2: q = beta; the partial likelihood through logcumsumexp."""
+    import torch.distributions as dist
+
+    Xt, Et = (torch.as_tensor(a, device=device) for a in (X, event))
+
+    def logprob_fn(q):
+        eta = Xt @ q
+        ll = torch.sum(Et * (eta - torch.logcumsumexp(eta, 0)))
+        return ll + dist.Normal(0.0, 1.0).log_prob(q).sum()
+
+    return logprob_fn
+
+
+def ctmc_data(num_intervals=CAV_INTERVALS, num_obs=CAV_OBS, seed=0):
+    """U3: distinct intervals and transition counts drawn from the model."""
+    import scipy.linalg
+
+    rng = np.random.default_rng(seed)
+    dt = np.sort(rng.choice(np.arange(1, 61) * 0.05, num_intervals,
+                            replace=False))
+    Q = np.zeros((4, 4))
+    Q[CAV_FROM, CAV_TO] = CAV_RATES
+    Q -= np.diag(Q.sum(1))
+    counts = np.zeros((num_intervals, 3, 4))
+    which = rng.integers(0, num_intervals, num_obs)
+    start = rng.choice(3, num_obs, p=[0.6, 0.25, 0.15])
+    for k in range(num_intervals):
+        P = scipy.linalg.expm(Q * dt[k])
+        for i in range(3):
+            m = int(np.sum((which == k) & (start == i)))
+            counts[k, i] = rng.multinomial(m, P[i] / P[i].sum())
+    return dt.astype(np.float32), counts.astype(np.float32)
+
+
+def ctmc_cav(torch, dt, counts, device):
+    """U3: q = 7 log rates; P = matrix_exp(Q dt) at each interval."""
+    import torch.distributions as dist
+
+    Dt, Ct = (torch.as_tensor(a, device=device) for a in (dt, counts))
+    rows, cols = (torch.as_tensor(a, device=device) for a in (CAV_FROM,
+                                                              CAV_TO))
+
+    def logprob_fn(q):
+        Q = torch.zeros(4, 4, dtype=q.dtype, device=device)
+        Q[rows, cols] = torch.exp(torch.clamp(q, max=CAV_LOG_RATE_MAX))
+        Q = Q - torch.diag(Q.sum(1))
+        P = torch.linalg.matrix_exp(Q * Dt[:, None, None])
+        return torch.sum(Ct * torch.log(P[:, :3, :])) \
+            + dist.Normal(-2.0, 1.0).log_prob(q).sum()
+
+    return logprob_fn
+
+
+def ppca_data(num_obs=PPCA_OBS, num_dim=PPCA_DIM, rank=PPCA_RANK, seed=0):
+    """U4: the scatter Y^T Y and the anchor W0 (twice the scatter's leading
+    eigenvectors, each with its largest component positive)."""
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.standard_normal((num_dim, rank)))
+    lam = np.array([9.0, 4.0, 2.0])[:rank]
+    Y = (rng.standard_normal((num_obs, rank)) * np.sqrt(lam)) @ V.T \
+        + 0.5 * rng.standard_normal((num_obs, num_dim))
+    S = Y.T @ Y
+    _, E = np.linalg.eigh(S)
+    E = E[:, ::-1][:, :rank]
+    E = E * np.sign(E[np.abs(E).argmax(0), np.arange(rank)])
+    return S.astype(np.float32), (2.0 * E).astype(np.float32), num_obs
+
+
+def ppca_qr(torch, S, W0, num_obs, device):
+    """U4: q = (W (D K), log lam (K), log sigma); U the Q of qr(W0 + W)."""
+    import torch.distributions as dist
+
+    St, Wt = (torch.as_tensor(a, device=device) for a in (S, W0))
+    D, K = Wt.shape
+
+    def logprob_fn(q):
+        U = torch.linalg.qr(q[:D * K].reshape(D, K) + Wt).Q
+        lam = torch.exp(q[D * K:D * K + K])
+        C = (U * lam) @ U.T + torch.exp(2.0 * q[-1]) * torch.eye(
+            D, dtype=q.dtype, device=device)
+        ll = -0.5 * num_obs * torch.log(torch.det(C)) \
+            - 0.5 * torch.sum(torch.linalg.inv(C) * St)
+        return ll + dist.Normal(0.0, 1.0).log_prob(q[:D * K]).sum() \
+            + dist.Normal(0.0, 2.0).log_prob(q[D * K:]).sum()
+
+    return logprob_fn
+
+
+def everyday_extras(torch, data, which, device):
+    """The CPU tests' test-only cases ``which`` (special 6, scans 8, LU
+    family 3, SVD family 3, families 23, LKJ concentration 2, chain
+    scatters 5: q's slices in that order), their logprobs summed."""
+    import torch.distributions as dist
+    import torch.nn.functional as F  # noqa: F401
+
+    t = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    W, Xa, M, B, Ms, Ys = (t[k] for k in ("w", "xa", "m", "b", "ms", "ys"))
+    n = Xa.shape[0]
+
+    def special(q):
+        a = torch.atan2(q[0], q[1] + 3.0) ** 2
+        b = torch.erfinv(0.875 * torch.tanh(q[2])) ** 2
+        p = torch.sigmoid(q[3])
+        c = torch.logit(p) ** 2 + torch.logit(p, eps=1e-3) ** 2
+        kappa = torch.exp(q[4])
+        vm = torch.sum(kappa * torch.cos(W - q[5])) - W.shape[0] * (
+            torch.log(torch.special.i0e(kappa)) + kappa)
+        bessel = torch.special.i0(q[5]) + torch.special.i1(q[4])
+        x = torch.exp(q[:3]) + 0.5
+        gam = torch.sum(torch.digamma(x)) + torch.sum(torch.polygamma(1, x))
+        xl = torch.sum(torch.special.xlog1py(W[:3], torch.exp(q[:3])))
+        return vm - a - b - 0.125 * c + 0.125 * (gam - bessel + xl)
+
+    def scans(q):
+        v = q[:6].reshape(2, 3)
+        norms = torch.linalg.vector_norm(q[:6]) \
+            + torch.linalg.vector_norm(q[:6], 1) \
+            + torch.linalg.vector_norm(q[:6], float("inf")) \
+            + torch.linalg.vector_norm(q[:6], -float("inf")) \
+            + torch.linalg.vector_norm(q[:6], 3.0) \
+            + torch.linalg.vector_norm(q[:6] + 2.0, 0.5) \
+            + torch.linalg.vector_norm(v, 2, dim=1, keepdim=True).sum()
+        cr = torch.sum(torch.linalg.cross(v[0], v[1]) * torch.tensor(
+            [1.0, -2.0, 0.5], dtype=q.dtype, device=device))
+        cm = torch.sum(torch.cummax(q, 0).values) \
+            - torch.sum(torch.cummin(q, 0).values)
+        Z = Xa / torch.exp(q[6:8])
+        K = torch.exp(-0.5 * torch.cdist(Z, Z) ** 2) + 0.125 * torch.eye(
+            n, dtype=q.dtype, device=device)
+        gp = -torch.logdet(K) + 0.015625 * torch.sum(torch.cdist(Z, Z, p=1.0)) \
+            - 0.015625 * torch.sum(torch.cdist(Z, Z[:3], p=3.0))
+        return gp + 0.25 * cr + 0.1875 * cm - 0.125 * norms
+
+    def lu_family(q):
+        A = M + 0.25 * torch.outer(q, q) + torch.diag(0.1875 * q)
+        LU, piv = torch.linalg.lu_factor(A)
+        x1 = torch.linalg.lu_solve(LU, piv, B)
+        x2 = torch.linalg.lu_solve(LU, piv, B, adjoint=True)
+        P, L, U = torch.lu_unpack(LU, piv)
+        S = A @ A.T + torch.eye(3, dtype=q.dtype, device=device)
+        ci = torch.cholesky_inverse(torch.linalg.cholesky(S))
+        return -0.5 * torch.sum(x1 * x1) - 0.25 * torch.sum(x2 * x2) \
+            - 0.125 * torch.sum((P @ L @ U) * M) - 0.0625 * torch.sum(L * U) \
+            + 0.1875 * torch.det(A) \
+            - 0.125 * torch.sum(torch.linalg.inv(A) ** 2) \
+            - 0.1875 * torch.sum(ci * M)
+
+    def svd_family(q):
+        A = Ms + torch.outer(torch.ones(Ms.shape[0], dtype=q.dtype,
+                                        device=device), 0.25 * q)
+        s = torch.linalg.svdvals(A)
+        U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+        Uw, Sw, Vhw = torch.linalg.svd(A.T, full_matrices=False)
+        polar = torch.sum((U @ Vh) * Ms) + torch.sum((Uw @ Vhw) * Ms.T)
+        proj = torch.sum(((U * S) @ U.T) * (Ms @ Ms.T))
+        x = torch.linalg.lstsq(A, Ys).solution
+        return torch.sum(torch.log(s)) + 0.125 * polar - 0.015625 * proj \
+            - 0.125 * torch.sum(torch.linalg.pinv(A) ** 2) \
+            - 0.5 * torch.sum(x * x) + 0.0625 * torch.sum(Sw)
+
+    def families(q):
+        sb = dist.transforms.StickBreakingTransform()
+        x = sb(q[0:3])
+        lp = dist.Dirichlet(t["conc"]).log_prob(x) \
+            + sb.log_abs_det_jacobian(q[0:3], x)
+        lp = lp + dist.Beta(torch.exp(q[3]), torch.exp(q[4])).log_prob(
+            t["beta_x"]).sum()
+        lp = lp + dist.NegativeBinomial(torch.exp(q[5]), logits=q[6]).log_prob(
+            t["nb"]).sum()
+        lp = lp + dist.Geometric(logits=q[7]).log_prob(t["geo"]).sum()
+        lp = lp + dist.Multinomial(5, logits=q[8:11]).log_prob(t["mult"])
+        return lp + dist.LowRankMultivariateNormal(
+            q[11:14], q[14:20].reshape(3, 2), torch.exp(q[20:23])).log_prob(
+            t["lr"])
+
+    def lkj(q):
+        return dist.LKJCholesky(3, torch.exp(q[0])).log_prob(t["lkj_l"]) \
+            + q[0]
+
+    def chain_scatters(q):
+        b = t["base"]
+        am = torch.argmax(q[:3], 0, keepdim=True)
+        k = (am + torch.tensor([0, 1, 2, 1, 0], device=device)) % 3
+        r1 = b.scatter_reduce(0, k, 2.0 * q, "amax", include_self=False)
+        r2 = b.scatter_reduce(0, k, q, "mean")
+        w = b.scatter(0, (am + torch.tensor([0, 2, 1], device=device)) % 3,
+                      q[2:])
+        return -0.5 * torch.sum(r1 * r1) - 0.5 * torch.sum(r2 * r2) \
+            - 0.5 * torch.sum(w * w)
+
+    parts = {"special": (special, 6), "scans": (scans, 8),
+             "lu_family": (lu_family, 3), "svd_family": (svd_family, 3),
+             "families": (families, 23), "lkj": (lkj, 2),
+             "chain_scatters": (chain_scatters, 5)}
+    parts = [parts[k] for k in which]
+
+    def logprob_fn(q):
+        lp, at = -0.5 * torch.sum(q * q), 0
+        for f, d in parts:
+            lp = lp + f(q[at:at + d])
+            at += d
+        return lp
+
+    return logprob_fn
+
+
+def everyday_extras_data(seed=7):
+    """The test-only cases' data (the CPU tests')."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    out = dict(w=rng.uniform(-math.pi, math.pi, 8).astype(f32),
+               xa=rng.standard_normal((6, 2)).astype(f32),
+               m=np.array([[2.0, 0.5, 0.1], [0.3, 0.1, 1.5],
+                           [0.2, 1.8, 0.4]], f32),
+               b=np.array([[1.0, 0.5], [2.0, -1.0], [0.5, 0.3]], f32))
+    out["ms"] = (rng.standard_normal((5, 3)) + 2.0 * np.eye(5, 3)).astype(f32)
+    out["ys"] = rng.standard_normal((5, 2)).astype(f32)
+    fam = np.random.default_rng(3)
+    out.update(conc=fam.uniform(1.0, 3.0, 4).astype(f32),
+               beta_x=np.array([0.3, 0.7], f32),
+               nb=fam.integers(0, 9, 5).astype(f32),
+               geo=np.array([0.0, 1.0, 4.0], f32),
+               mult=np.array([3.0, 0.0, 2.0], f32),
+               lr=fam.standard_normal(3).astype(f32))
+    out["lkj_l"] = np.linalg.cholesky(np.array(
+        [[1.0, 0.3, -0.2], [0.3, 1.0, 0.1], [-0.2, 0.1, 1.0]])).astype(f32)
+    out["base"] = np.array([0.5, 1.0, 1.5], f32)
+    return out
+
+
+def everyday_potentials(torch, dev, names=None):
+    """U1-U4 and the test-only cases' three functors (or those of
+    ``names``): logprobs, float64 twins, bindings, functors."""
+    import aehmc_tpu_torch.api as api
+    from aehmc_tpu_torch.ops import generic_pg
+
+    def f64(*arrays):
+        return [a.astype(np.float64) if isinstance(a, np.ndarray)
+                and a.dtype == np.float32 else a for a in arrays]
+
+    ex = everyday_extras_data()
+    makers = {
+        "zip_radon": (lambda *a: zip_radon(torch, *a, ZIP_COUNTIES, dev),
+                      zip_data()),
+        "cox_lung": (lambda *a: cox_lung(torch, *a, dev), cox_data()),
+        "ctmc_cav": (lambda *a: ctmc_cav(torch, *a, dev), ctmc_data()),
+        "ppca_qr": (lambda *a: ppca_qr(torch, *a, dev), ppca_data())}
+    for name, which in EVERYDAY_EXTRAS.items():
+        makers[name] = ((lambda w: lambda d: everyday_extras(
+            torch, d, w, dev))(which), (ex,))
+    ex64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in ex.items()}
+    out = {}
+    for name, (make, data) in makers.items():
+        if names is not None and name not in names:
+            continue
+        dim = EVERYDAY_CELLS[name][0]
+        lp = make(*data)
+        lp64 = make(ex64) if name in EVERYDAY_EXTRAS else make(*f64(*data))
+        pot, rows = api._generic_fused_binding(lp, dim, dev)
+        out[name] = dict(lp=lp, lp64=lp64, pot=pot, rows=tuple(rows),
+                         bound=generic_pg.bind(pot, rows, dim, device=dev))
+    return out
+
+
+def probe_pg(torch):
+    """The special-function probe's potential and gradient, traced as it
+    stands (one functor): u = atan2(q0, q1); g = (erfinv(q2), i0e(q3),
+    i1e(q3), polygamma(1, q4), logit(q5), log_sigmoid(q6), xlogy(q0, q7),
+    q7)."""
+    import torch.nn.functional as F
+
+    def pg(q_t):
+        u = torch.atan2(q_t[0], q_t[1])
+        g = torch.stack([torch.erfinv(q_t[2]), torch.special.i0e(q_t[3]),
+                         torch.special.i1e(q_t[3]),
+                         torch.polygamma(1, q_t[4]), torch.logit(q_t[5]),
+                         F.logsigmoid(q_t[6]), torch.xlogy(q_t[0], q_t[7]),
+                         q_t[7]])
+        return u, g
+
+    return pg
+
+
+_PROBE = {}
+
+
+def probe_binding(torch, dev):
+    """The probe's bound functor (one per device, so phase 1 builds it with
+    the others)."""
+    from aehmc_tpu_torch.ops import generic_pg
+
+    if dev not in _PROBE:
+        pg = probe_pg(torch)
+        _PROBE[dev] = (pg, generic_pg.bind(pg, (), 8, with_grad=False,
+                                           device=dev))
+    return _PROBE[dev]
+
+
+# each probed function: (its name, the inputs' ranges: a uniform (lo, hi)
+# or a log-uniform ("log", lo, hi), torch's function on the card)
+PROBE_INPUTS = ((-5.0, 5.0), (-5.0, 5.0), (-0.999, 0.999), (-30.0, 30.0),
+                ("log", 0.05, 50.0), (0.001, 0.999), (-30.0, 30.0),
+                ("log", 0.05, 50.0))
+
+
+def everyday_probe(torch, record, card):
+    """Phase 56 (b): the generated functor's atan2 (CUDA's atan2f), erfinv
+    (erfinvf), i0e and i1e (Cephes's series, ATen's orders), polygamma(1,
+    ·) (ATen's trigamma), logit, log_sigmoid and xlogy (ATen's formulas)
+    against torch's on the card, PROBE_CHAINS inputs each (kernel 5 at ε
+    0, its move accepted: its u and g are the functor's at q): the share
+    equal bit for bit and the largest distance in ulp, held to PROBE_ULP."""
+    import torch.nn.functional as F
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(EVERYDAY_SEED + 5)
+    cols = []
+    for r in PROBE_INPUTS:
+        if r[0] == "log":
+            cols.append(np.exp(rng.uniform(np.log(r[1]), np.log(r[2]),
+                                           PROBE_CHAINS)))
+        else:
+            cols.append(rng.uniform(r[0], r[1], PROBE_CHAINS))
+    q = torch.tensor(np.stack(cols), dtype=torch.float32, device=dev)
+    pg, _ = probe_binding(torch, dev)
+    big = torch.full((1, PROBE_CHAINS), 1e30, device=dev)
+    o = gf.ghmc_transition_cuda(q, big, torch.zeros_like(q),
+                                torch.zeros_like(q), 0.0, 0.0,
+                                torch.ones(8, device=dev), (), seed=5601,
+                                potential_and_grad_t=pg, potential_fn_t=None)
+    torch.cuda.synchronize()
+    check(torch.equal(o[0], q), "special-function probe: q moved at ε 0")
+    u_k, g_k = o[1].reshape(-1), o[2]
+    ref = {"atan2": (u_k, torch.atan2(q[0], q[1])),
+           "erfinv": (g_k[0], torch.erfinv(q[2])),
+           "i0e": (g_k[1], torch.special.i0e(q[3])),
+           "i1e": (g_k[2], torch.special.i1e(q[3])),
+           "polygamma(1, ·)": (g_k[3], torch.polygamma(1, q[4])),
+           "logit": (g_k[4], torch.logit(q[5])),
+           "log_sigmoid": (g_k[5], F.logsigmoid(q[6])),
+           "xlogy": (g_k[6], torch.xlogy(q[0], q[7]))}
+
+    def ulps(a, b):
+        ia = a.contiguous().view(torch.int32).long()
+        ib = b.contiguous().view(torch.int32).long()
+        ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+        ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+        return (ia - ib).abs()
+
+    res = {}
+    for name, (k, t) in ref.items():
+        res[name] = dict(equal=float((k == t).float().mean()),
+                         max_ulp=int(ulps(k, t).max()))
+        check(res[name]["max_ulp"] <= PROBE_ULP,
+              f"special-function probe: {name} {res[name]['max_ulp']} ulp "
+              f"from torch's")
+    ranges = dict(zip(("atan2 (q0, q1)", "atan2 (q1)", "erfinv", "i0e, i1e",
+                       "polygamma", "logit", "log_sigmoid", "xlogy's y"),
+                      [str(r) for r in PROBE_INPUTS]))
+    log(f"phase 56: special functions, {PROBE_CHAINS} float32 inputs each "
+        f"(ranges {ranges}; xlogy's x atan2's first): the functor's equal "
+        f"to torch's on the card on "
+        + ", ".join(f"{k} {v['equal']:.4%} (max {v['max_ulp']} ulp)"
+                    for k, v in res.items())
+        + f" (limit {PROBE_ULP} ulp) [{card}]")
+    record["phase56_probe"] = dict(ranges=ranges, **res)
+    return res
+
+
+def background_build(build, texts):
+    """Build the generated functors ``texts`` in a thread, the compilers at
+    nice 10; returns a function that waits for it and raises what it
+    raised."""
+    import threading
+
+    failed = []
+
+    def run():
+        try:
+            build._build_missing((), tuple(dict.fromkeys(texts)), nice=10)
+        except Exception as err:  # noqa: BLE001 - raised again on join
+            failed.append(err)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if failed:
+            raise failed[0]
+
+    return join
+
+
+def everyday_doors(torch, ops, diagnostics, pots, record, card):
+    """Phase 57: U1's fused NUTS, U2's fused ChEES, U3's fused MEADS and
+    U4's fused NUTS (dense M⁻¹) doors (EVERYDAY_DOOR_CHAINS chains,
+    EVERYDAY_DOORS' lengths), each run twice with one seed and equal bit
+    for bit, within §2's limits (R-hat below RHAT_MAX), launches exact, its
+    means within MCSE_Z combined MCSE of its reference's on the same model
+    from the same numpy start (EVERYDAY_REFS: the pooled XLA NUTS route on
+    U1 and U2, the fused NUTS door on U3 and U4)."""
+    import aehmc_tpu_torch
+    from aehmc_tpu_torch.ops.generic_pg import no_validation
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    out, z = {}, {}
+    accept = {"nuts": (0.7, 0.9), "chees": CHEES_ACCEPT,
+              "meads": (MEADS_ACCEPT_MIN, 1.0)}
+    for n, (name, (algo, w, d, dense)) in enumerate(EVERYDAY_DOORS.items()):
+        dim = EVERYDAY_CELLS[name][0]
+        start = np.asarray(EVERYDAY_STARTS.get(name, np.zeros(dim)))
+        q0 = torch.tensor(start + 0.1 * np.random.default_rng(
+            EVERYDAY_SEED + 20 + n).standard_normal((EVERYDAY_DOOR_CHAINS,
+                                                     dim)),
+            dtype=torch.float32, device=dev)
+        lp = pots[name]["lp"]
+        kw = {"nuts": dict(max_num_expansions=K,
+                           is_mass_matrix_full=dense),
+              "chees": dict(initial_step_size=CHEES_EPS0),
+              "meads": dict(meads_recompute_every=MEADS_EVERY)}[algo]
+        runs = []
+        for rep in range(2):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = aehmc_tpu_torch.sample(
+                torch.Generator().manual_seed(EVERYDAY_SEED + 30 + n), lp,
+                q0, d, w, algorithm=algo, path="fused", **kw)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, res,
+                         {k: v for k, v in ops.LAUNCHES.items() if v}))
+        (wall, res, launches), (wall2, res2, _) = runs
+        equal = bool(torch.equal(res.positions, res2.positions))
+        check(equal, f"{name} fused {algo}: a rerun with one seed differs")
+        del res2
+        if algo == "nuts":
+            want = {"nuts_transition_generic": w, "nuts_sampling_generic": 1}
+        elif algo == "meads":
+            want = {"ghmc_segment_generic": -(-w // MEADS_EVERY)
+                    + -(-d // MEADS_EVERY)}
+        else:
+            probes = launches.get("chees_transition_generic", 0) - (w + d)
+            check(1 <= probes <= 32, f"{name} ChEES launches {launches}")
+            want = {"chees_transition_generic": w + d + probes}
+        check(launches == want, f"{name} {algo}: launches {launches}, want "
+              f"{want}")
+        a = door_limits(torch, diagnostics, res, f"{name} fused {algo}",
+                        accept[algo])
+        del res
+        out[f"{name} {algo}"] = dict(wall_s=wall, rerun_wall_s=wall2,
+                                     rerun_equal=equal, launches=launches,
+                                     **a)
+        rc = EVERYDAY_REFS[name]
+        pooled = rc["path"] == "pooled"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_validation():  # torch.distributions' checks under vmap
+            ref = aehmc_tpu_torch.sample(
+                torch.Generator().manual_seed(EVERYDAY_SEED + 40 + n), lp,
+                q0[:rc["chains"]], rc["draws"], rc["warmup"],
+                algorithm="nuts", path=rc["path"], max_num_expansions=rc["k"],
+                is_mass_matrix_full=rc["dense"])
+        torch.cuda.synchronize()
+        wall_ref = time.perf_counter() - t0
+        what = f"{name} {rc['path']} NUTS"
+        # the pooled route's R-hat is recorded, the fused route's held
+        b = door_limits(torch, diagnostics, ref, what,
+                        (0.6, 0.95) if pooled else (0.7, 0.9),
+                        rhat_max=None if pooled else RHAT_MAX)
+        out[f"{name} {rc['path']}"] = dict(wall_s=wall_ref, **b)
+        z[name] = agree(torch, a, b, f"{name} fused {algo} against "
+                        + ("pooled XLA NUTS" if pooled else "fused NUTS"))
+    wall = time.perf_counter() - t_phase
+    for what, r in out.items():
+        log(f"phase 57: {what}, {r['chains']} chains, {r['draws']} draws: "
+            f"{r['wall_s']:.2f} s"
+            + (f" (rerun {r['rerun_wall_s']:.2f} s, equal bit for bit: "
+               f"{r['rerun_equal']})" if "rerun_equal" in r else "")
+            + (f"; launches {r['launches']}" if "launches" in r else "")
+            + f"; accept {r['accept']:.4f}, divergent "
+            f"{r['divergent_share']:.2e}, ε {r['step_size']:.4f}, max R-hat "
+            f"{r['max_rhat']:.4f} (limit {RHAT_MAX}) [{card}]")
+        r["mean"], r["mcse"] = r["mean"].tolist(), r["mcse"].tolist()
+    log("phase 57: means within " + ", ".join(
+        f"{v:.2f} ({k})" for k, v in z.items()) + " combined MCSE of the "
+        f"reference route (pooled XLA NUTS on U1, U2; fused NUTS on U3, U4; "
+        f"limit {MCSE_Z}); phase 57 in {wall:.1f} s [{card}]")
+    record["phase57"] = dict(wall_s=wall, z=z, **out)
+    return out
+
+
 def main():
     import torch
 
@@ -7379,7 +8166,9 @@ def main():
     kind = torch.cuda.get_device_name(0)
     # the six sources build while the potentials are traced (a trace is one
     # core's work; the functors' builds, which would take every core from
-    # it, start after)
+    # it, start after): in phase 1 those of phases 34-43 (phase 1 reports
+    # kernels 5-7 on three of them), the others of phases 48-57 at a low
+    # priority beside phases 18-47
     from concurrent.futures import ThreadPoolExecutor
     from aehmc_tpu_torch.ops import generic_pg
 
@@ -7390,22 +8179,26 @@ def main():
         op_pots = op_table_potentials(torch, dev)  # phases 48-50's
         rest_pots = rest_potentials(torch, dev)    # phases 51-52's
         last_pots = last_potentials(torch, dev)    # phases 54-55's
+        every_pots = everyday_potentials(torch, dev)  # phases 56-57's
+        _, probe = probe_binding(torch, dev)       # phase 56's probe
         lg = generic_pg.bind(*lgamma_binding(torch, dev), 1, device=dev)
         trace_s = time.perf_counter() - t0
         _build._build_missing((), tuple(dict.fromkeys(
-            [b.source for b in gen_pots["binds"].values()]
-            + [p["bound"].source for p in op_pots.values()]
-            + [p["bound"].source for p in rest_pots.values()]
-            + [p["bound"].source for p in last_pots.values()]
-            + [lg.source])))
+            b.source for b in gen_pots["binds"].values())))
         sources.result()
+    later = ([p["bound"].source for p in op_pots.values()]
+             + [p["bound"].source for p in rest_pots.values()]
+             + [p["bound"].source for p in last_pots.values()]
+             + [lg.source]
+             + [p["bound"].source for p in every_pots.values()]
+             + [probe.source])
     build_s = time.perf_counter() - t0
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, kernels built/loaded in {build_s:.1f} s "
-        f"(with {len(gen_pots['binds']) + len(op_pots) + len(rest_pots) + len(last_pots) + 1} "
-        f"generated functors, "
-        f"traced in the first {trace_s:.1f} s while the sources built)")
+        f"(with {len(gen_pots['binds'])} generated functors, "
+        f"traced in the first {trace_s:.1f} s while the sources built; "
+        f"phases 48-57's {len(set(later))} build beside phases 18-47)")
     ptxas = ptxas_report(_build.ptxas_log())
     geometry = {}
     for name in ENTRIES:
@@ -7745,6 +8538,9 @@ def main():
     extra_seed_runs(torch, ops, diagnostics, data, pot, pg, q0, record,
                     nuts_mean, card, EXTRA_SEEDS)
     stamp(record, "1-17")
+    # phases 48-57's functors build at a low priority beside phases 18-47
+    # (their walls mostly the card's), after the timed phases 2-17
+    later_build = background_build(_build, later)
     hierarchical = hierarchical_phases(torch, ops, diagnostics, record, card)
     stamp(record, "18-19")
     k8_launches, k8_route = xla_phases(torch, ops, diagnostics, data, pg, q0,
@@ -7800,6 +8596,10 @@ def main():
     # phases 48-50: the op table's potentials on kernels 1, 3, 5 and 7 and
     # through the fused front doors
     stamp(record, "44-47")
+    t_wait = time.perf_counter()
+    later_build()  # joined: raises what the build raised
+    log(f"phases 48-57's functors built beside phases 18-47 (waited "
+        f"{time.perf_counter() - t_wait:.1f} s for them) [{card}]")
     ops48 = op_kernel_phase(torch, op_pots, gen_pots, record, card)
     doors49 = op_mvn_doors(torch, ops, diagnostics, op_pots, record, card)
     runs50 = op_negbin_doors(torch, ops, diagnostics, op_pots, record, card)
@@ -7824,6 +8624,17 @@ def main():
     non_pd_witness(torch, last_pots["gp_se64"], record, card)
     doors55 = last_doors(torch, ops, diagnostics, last_pots, record, card)
     stamp(record, "54-55")
+    # phases 56-57: the everyday ops on U1-U4 and the test-only cases, on
+    # kernels 1,
+    # 3, 5 and 7 (and the special functions against torch's), and through
+    # the fused NUTS, ChEES, MEADS and dense-NUTS doors
+    ops56 = op_kernel_phase(torch, every_pots, gen_pots, record, card,
+                            phase=56, cells=EVERYDAY_CELLS, sampling={},
+                            starts=EVERYDAY_STARTS)
+    everyday_probe(torch, record, card)
+    doors57 = everyday_doors(torch, ops, diagnostics, every_pots, record,
+                             card)
+    stamp(record, "56-57")
 
     kernels = [
         kernel_entry("nuts_transition", "nuts_fused_small.cu",
@@ -7881,6 +8692,7 @@ def main():
     op_table_fields(kernels, ops48, doors49, runs50)
     rest_table_fields(kernels, ops51, doors52)
     last_table_fields(kernels, ops54, doors55)
+    last_table_fields(kernels, ops56, doors57)
     sampling_table_fields(kernels, ops48, ops51, ops54)
     record["kernels"] = kernels
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -139,12 +139,11 @@ def test_cuda_whole_run_equals_per_draw_launches(cuda_device, dense):
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     pg, data, q_t, u0, g0, imm, _ = _case(cuda_device, False)
-    transition = make_fused_nuts_transition_small(  # matrix_exp: no rule
-        lambda q, *d: torch.linalg.matrix_exp(
-            q.T[:, :, None] * q.T[:, None, :]).sum((1, 2)), data,
+    transition = make_fused_nuts_transition_small(  # bessel_j0: no rule
+        lambda q, *d: torch.special.bessel_j0(q).sum(0), data,
         max_num_expansions=MAX_EXP, transposed_io=True,
     )
-    with pytest.raises(NotImplementedError, match=r"aten\.linalg_matrix_exp"):
+    with pytest.raises(NotImplementedError, match=r"aten\.special_bessel_j0"):
         transition(q_t, u0, g0, None, None, None, None, imm, 0.3, seed=1)
     transition = make_fused_nuts_transition_small(
         None, data, max_num_expansions=MAX_EXP, potential_and_grad_t=pg,

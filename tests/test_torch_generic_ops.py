@@ -784,8 +784,8 @@ def test_integer_data_that_is_not_an_index_converts_to_float():
 def test_integer_arithmetic_is_outside_the_table():
     """Integer arithmetic binds on data alone (evaluated on the host) and,
     since the last of the op table, on a value that depends on q (max.dim's
-    index: a per-chain integer on the card); a mask that depends on q stays
-    refused, by both packages."""
+    index: a per-chain integer on the card); a read through a mask that
+    depends on q stays refused, by both packages."""
     idx = torch.tensor([0, 1, 2])
 
     def on_data(q):
@@ -804,13 +804,12 @@ def test_integer_arithmetic_is_outside_the_table():
     np.testing.assert_array_equal(u.reshape(-1).numpy(),
                                   pot(q, *rows).numpy())
 
-    def mask_on_q(q_t):
-        v = torch.zeros_like(q_t)
-        v[q_t > 0] = 1.0
-        return torch.sum(v * q_t, 0)
+    def mask_on_q(q):
+        return -0.5 * torch.sum(q[q > 0] ** 2)
 
+    pot, rows = _generic_fused_binding(mask_on_q, 4)
     with pytest.raises(NotImplementedError, match=r"bool mask.*neither"):
-        generic_pg.trace_potential(mask_on_q, (), 4)
+        generic_pg.bind(pot, rows, 4)
 
 
 def test_a_mask_of_data_is_read_anew_and_a_new_count_raises():

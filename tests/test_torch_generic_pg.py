@@ -711,21 +711,18 @@ def test_closed_over_tensors_become_data_operands():
 # ----------------------------------------------------------- the errors ---
 
 def test_an_op_outside_the_table_raises_naming_it():
-    """A matrix exponential and a QR factorisation stay outside the table:
-    each raises naming its aten op and the roadmap item."""
+    """Bessel functions of the first kind stay outside the table: each
+    raises naming its aten op and the roadmap item."""
     with pytest.raises(NotImplementedError,
-                       match=r"aten\.linalg_matrix_exp.*1\.10c"):
+                       match=r"aten\.special_bessel_j0.*1\.10c"):
         generic_pg.trace_potential(
-            lambda q_t: torch.linalg.matrix_exp(
-                q_t.T.reshape(-1, 2, 2)).sum((1, 2)), (), 4)
-    M3 = torch.eye(3) + 0.2
+            lambda q_t: torch.special.bessel_j0(q_t).sum(0), (), 4)
 
-    def qr_lp(q):
-        R = torch.linalg.qr(M3 + torch.outer(q, q)).R
-        return -0.5 * torch.sum(torch.diagonal(R) ** 2)
+    def bessel_lp(q):
+        return -0.5 * torch.sum(torch.special.bessel_j1(q) ** 2)
 
-    pot, data = _generic_fused_binding(qr_lp, 3)
-    with pytest.raises(NotImplementedError, match="linalg_qr"):
+    pot, data = _generic_fused_binding(bessel_lp, 3)
+    with pytest.raises(NotImplementedError, match="special_bessel_j1"):
         generic_pg.trace_potential(pot, data, 3)
     # the package's own mvn binds: its triangular solve is in the table
     mvn_lp = mvn(np.zeros(3), np.eye(3) + 0.2, device="cpu")

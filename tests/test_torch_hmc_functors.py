@@ -257,10 +257,10 @@ def test_card_dispatch_names_each_functor(module):
 def test_card_dispatch_raises_only_for_what_no_functor_takes(module):
     var_col = (torch.tensor(GAUSS_VAR[:4]).reshape(-1, 1),)
     with pytest.raises(NotImplementedError,
-                       match=r"aten\.linalg_matrix_exp.*1\.10c"):
+                       match=r"aten\.special_bessel_j0.*1\.10c"):
         _dispatch(module, None, (), torch.zeros(4, 16),  # no rule
-                  potential_fn_t=lambda q_t: torch.linalg.matrix_exp(
-                      q_t.T.reshape(-1, 2, 2)).sum((1, 2)))
+                  potential_fn_t=lambda q_t: torch.special.bessel_j0(
+                      q_t).sum(0))
     with pytest.raises(TypeError, match="float32"):
         _dispatch(module, _gaussian_pg, var_col,
                   torch.zeros(4, 16, dtype=torch.float64))

@@ -326,10 +326,10 @@ def test_cuda_path_takes_only_the_logistic_kernel_potential():
     var = (torch.ones(q_t.shape[0], 1),)
     assert _check_cuda_args(_gaussian_pg, var, q_t, 0.3) == "generic"
     with pytest.raises(NotImplementedError,
-                       match=r"aten\.linalg_matrix_exp"):
+                       match=r"aten\.special_bessel_j0"):
         _check_cuda_args(None, (), q_t, 0.3,  # outside the table
-                         potential_fn_t=lambda q: torch.linalg.matrix_exp(
-                             q.T[:, :, None] * q.T[:, None, :]).sum((1, 2)))
+                         potential_fn_t=lambda q: torch.special.bessel_j0(
+                             q).sum(0))
     row = torch.linspace(0.1, 0.4, chains)
     assert _check_cuda_args(logistic_pg_t, data, q_t, row) == "logistic"
     assert torch.equal(_eps_row(row, q_t), row)
