@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace aehmc {
 
 constexpr int NW = 8;          // warps a block
@@ -17,6 +19,15 @@ constexpr float NEG_INF = -1e30f;
 constexpr float TWO_PI = 6.283185307179586f;
 constexpr uint32_t DRAW_SEED_STRIDE = 104729u;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Whether functor PG asks the NUTS kernels for its block-entry and exit
+// hooks (PG::NUTS_HOOKS: request(S) after the carve, drain(S) before the
+// block exits); the HMC kernels call them for every functor
+template <class PG, class = void>
+struct nuts_hooks : std::false_type {};
+template <class PG>
+struct nuts_hooks<PG, std::void_t<decltype(PG::NUTS_HOOKS)>>
+    : std::bool_constant<PG::NUTS_HOOKS> {};
 
 // Philox stream numbers: the third counter word (ops/philox.py)
 constexpr uint32_t MOMENTUM = 0u, DIRECTION = 1u, BIAS = 2u, LEAF = 3u,

@@ -1,23 +1,52 @@
 // What a generated potential functor (struct GenericPG, written by
 // aehmc_tpu_torch/ops/generic_pg.py:emit_cuda) stands on: its data table,
-// its scratch and per-chain workspace, and the scalar helpers its emitted
-// expressions call.  The NUTS kernels 1-4 (nuts_generic.cu) and the HMC
-// kernels 5-7 (hmc_generic.cu) take GenericPG as their functor, beside the
-// hand-written LogisticPGT, FunnelPG and EightSchoolsPG.
+// its scratch (resident operands, a data tile, the per-chain workspace),
+// and the scalar helpers its emitted expressions call.  The NUTS kernels
+// 1-4 (nuts_generic.cu) and the HMC kernels 5-7 (hmc_generic.cu) take
+// GenericPG as their functor, beside the hand-written LogisticPGT, FunnelPG
+// and EightSchoolsPG.
 //
 // The contract is the NUTS core's (nuts_core.cuh), which the HMC core
 // (hmc_core.cuh) shares: CB = 8 chains a block, one warp a chain; Scratch
 // holds the block's potentials nu; carve_scratch(base, ds) carves it after
-// the core's rows; fits(dim, G) checks a launch; operator()(S, dim, ds, q,
-// grad, bool) leaves each chain's gradient row and potential, and a
-// __syncwarp orders them before the warp reads them; request and drain,
-// the HMC core's hooks at block entry and exit, do nothing (no X tile).
+// the core's rows; fits(dim, G) checks a launch's points and row stride
+// against the geometry the functor was emitted with; operator()(S, dim, ds,
+// q, grad, bool) leaves each chain's gradient row and potential, and a
+// __syncwarp orders them before the warp reads them.  The whole block calls
+// it, a __syncthreads before every call (both cores), and it may hold block
+// barriers of its own.  request(S), at block entry (every thread; a
+// __syncthreads follows before the first call), copies the resident
+// operands into shared memory; drain(S), before the block exits, waits for
+// any copy still in flight (none: every call consumes what it requests).
+//
+// Data operands.  The geometry (ops/launch_plan.py:generic_geometry) makes
+// the small operands resident: copied once at block entry and read from
+// shared memory for the whole launch.  An operand too large for that, read
+// by a top-level matrix product a whole row at a time, is streamed: the
+// product runs chunk-major over TILE_ROWS rows a chunk (a multiple of 32),
+// which the block's threads copy (cp.async, 4 bytes a thread at a time:
+// the rows are padded to TILE_STRIDE words, an odd number, so that lanes
+// reading neighbouring rows hit distinct banks) into one of two tile
+// buffers while the block reads the other; a product whose lanes sum along
+// the rows copies a window of its columns at a time (an odd stride too),
+// its lanes' partial sums of the window's outputs held in registers across
+// the chunks.  A chunk is waited for, then a __syncthreads makes it visible
+// and frees the other buffer, into which the next chunk (of this product
+// or of the next streamed one) is requested at once; the first is
+// requested at the call's entry.  Every sum keeps the
+// order of its terms: a lane's terms of a sum over rows are the same rows
+// in the same order whether the rows come from the tile or from global
+// memory, so the tiled functor computes the untiled one's bits.  Block
+// barriers stand only at the functor's top level, never in a loop whose
+// trip count depends on a chain's values; a product inside such a loop (a
+// factorisation's) reads its operands from global memory (__ldg) or from a
+// resident copy.  Every other operand is read from global memory.
 //
 // The workspace holds the values a chain's potential materialises (the
 // contractions' outputs and the elementwise values a product reads more
-// than once), W floats a chain: in shared memory after the potentials when
-// two blocks still fit an SM with it, else in a global buffer of blocks ×
-// CB × W floats the wrapper allocates (launch_plan.generic_workspace_floats),
+// than once), W floats a chain: in shared memory after the tile when two
+// blocks still fit an SM with it, else in a global buffer of blocks × CB ×
+// W floats the wrapper allocates (launch_plan.generic_workspace_floats),
 // indexed by block and warp, so a chain keeps its slot across the draws of
 // kernels 2 and 4.
 //
@@ -57,19 +86,41 @@ struct Data {
 };
 
 struct Scratch {
-  float* nu;  // (CB,): the block's potentials
-  float* ws;  // (CB, W) in shared memory, or null
+  float* nu;    // (CB,): the block's potentials
+  float* res;   // the resident operands, at 4-float offsets
+  float* tile;  // two tile buffers of TILE_FLOATS each
+  float* ws;    // (CB, W) in shared memory, or null
 };
+
+#ifdef __CUDACC__
+// one 4-byte asynchronous copy from global into shared memory; the
+// copies a thread has issued since its last commit form one group
+__device__ __forceinline__ void gpg_copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void gpg_copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// wait until this thread's groups have landed
+__device__ __forceinline__ void gpg_copy_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+#endif
 
 struct Base {
   static constexpr int CB = 8;
+  static constexpr bool NUTS_HOOKS = true;  // the resident operands
   using Scratch = generic::Scratch;
 
   Data data;
   float* ws_global;  // the global workspace, (blocks, CB, W), or null
 
-  static bool no_tile(const Geometry& G) {
-    return G.points == 0 && G.row_stride == 0;
+  // whether a launch's geometry is the one the functor was emitted with
+  static bool tile_is(const Geometry& G, int points, int row_stride) {
+    return G.points == points && G.row_stride == row_stride;
   }
 
   bool lengths_are(const long long* lengths, int n) const {
@@ -79,10 +130,13 @@ struct Base {
     return true;
   }
 
-  // the potentials, then (shared workspace) CB rows of W floats
-  template <bool SHARED>
+  // the potentials, the RES floats of resident operands, two tile buffers
+  // of TILE floats, then (shared workspace) CB rows of W floats
+  template <bool SHARED, int RES, int TILE>
   static __device__ Scratch carve(float* base) {
-    return Scratch{base, SHARED ? base + CB : nullptr};
+    float* res = base + CB;
+    float* tile = res + RES;
+    return Scratch{base, res, tile, SHARED ? tile + 2 * TILE : nullptr};
   }
 
   // integer data operand j (an int32 row in a float slot)
@@ -90,8 +144,40 @@ struct Base {
     return reinterpret_cast<const int*>(data.ptr[j]);
   }
 
-  __device__ void request(const Scratch&) const {}
-  __device__ void drain(const Scratch&) const {}
+  // every thread, at block entry: operand j's n words into the resident
+  // area at `off` (a __syncthreads follows before any read)
+  __device__ void make_resident(const Scratch& S, int j, int off,
+                                int n) const {
+    const float* src = data.ptr[j];
+    for (int e = threadIdx.x; e < n; e += NT) S.res[off + e] = src[e];
+  }
+
+  // every thread: request rows [r0, r0 + rows) of operand `src` (R floats a
+  // row), their columns [col, col + ncols) (NC at most: a window; the
+  // whole row by default), into the tile buffer `dst`, RS words a row, as
+  // one group of asynchronous copies
+  template <int R, int RS, int NC = R>
+  __device__ void fill(float* dst, const float* src, int r0, int rows,
+                       int col = 0, int ncols = NC) const {
+    const float* from = src + (size_t)r0 * R + col;
+    for (int e = threadIdx.x; e < rows * NC; e += NT) {
+      const int r = e / NC, k = e % NC;
+      if (NC == R || k < ncols)
+        gpg_copy4(dst + (RS == NC ? e : r * RS + k),
+                  from + (NC == R ? e : (size_t)r * R + k));
+    }
+    gpg_copy_commit();
+  }
+
+  // every thread: wait for the chunk requested last, then the block
+  // barrier that makes it visible to every warp and frees the other buffer
+  __device__ void chunk_ready() const {
+    gpg_copy_wait();
+    __syncthreads();
+  }
+
+  // before the block exits: nothing a call requested outlives it
+  __device__ void drain(const Scratch&) const { gpg_copy_wait(); }
 
   // chain c's W floats of workspace
   template <bool SHARED, int W>
@@ -137,6 +223,36 @@ __device__ __forceinline__ int gpg_imax(int a, int b) { return a > b ? a : b; }
 // an index checked on the host to lie in [-n, n), wrapped as torch's
 __device__ __forceinline__ int gpg_wrap(int k, int n) {
   return k < 0 ? k + n : k;
+}
+// warp_sum of N values a lane at once (N a power of 2, at most 32): at each
+// level of warp_sum's butterfly a lane keeps half of the values it still
+// holds and adds its partner's (lane xor the level) copy of that half, so
+// value u's sum pairs its terms as warp_sum pairs them (the two of a pair
+// added in either order: the same float), in N - 1 + 5 - log2(N) shuffles
+// (31 for 32 values, against 192); value u ends in lanes (32/N) u to
+// (32/N)(u + 1) - 1, which return it
+template <int N>
+__device__ __forceinline__ float gpg_warp_sums(float (&v)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "a power of 2");
+  int m = N;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (m > 1) {
+      const bool up = (lane & o) != 0;
+#pragma unroll
+      for (int t = 0; t < N / 2; ++t) {
+        if (t < m / 2) {
+          const float mine = up ? v[t + m / 2] : v[t];
+          const float give = up ? v[t] : v[t + m / 2];
+          v[t] = mine + __shfl_xor_sync(FULL, give, o);
+        }
+      }
+      m >>= 1;
+    } else {
+      v[0] = v[0] + __shfl_xor_sync(FULL, v[0], o);
+    }
+  }
+  return v[0];
 }
 // the warp's maximum, butterfly as warp_sum's; NaN wins
 __device__ __forceinline__ float gpg_warp_max(float v) {

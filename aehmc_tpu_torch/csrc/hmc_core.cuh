@@ -16,11 +16,13 @@
 //     whole block calls and which leaves each chain's gradient row and
 //     potential ordered before the chain's warp reads them (a block barrier
 //     in the logistic functor, a __syncwarp in the generated one, whose
-//     warp computes its own chain).  Two hooks besides: pg.request(scratch)
-//     at block entry and pg.drain(scratch) before the block exits, which
-//     LogisticPGT uses to start X's first chunk early and to wait for a
-//     chunk requested and never used; they do nothing in GenericPG, which
-//     has no X tile.
+//     warp computes its own chain, its chunks of a streamed operand waited
+//     for at block barriers of its own).  Two hooks besides:
+//     pg.request(scratch) at block entry and pg.drain(scratch) before the
+//     block exits, which LogisticPGT uses to start X's first chunk early
+//     and to wait for a chunk requested and never used, and GenericPG to
+//     copy its resident operands into shared memory (and to wait for
+//     nothing: each of its calls consumes the chunks it requests).
 //   STD: the global layout.  false: q, ∇U, p, ξ and a per-chain M⁻¹
 //     (dim, C), stats (8, C) (GHMC); true: (C, dim) and (C, 8) (ChEES).  It
 //     reaches only the global-memory accessors.

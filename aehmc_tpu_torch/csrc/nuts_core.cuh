@@ -35,9 +35,13 @@
 // (with the block's potentials `nu`), PG::carve_scratch(base, ds) to carve
 // it after the core's rows, PG::fits(dim, geometry) for the launch checks,
 // and operator()(scratch, dim, ds, q, grad), which the whole block calls
-// with its CB rows of q and which leaves CB gradient rows and potentials;
-// the launch plan (ops/launch_plan.py) sizes shared memory for the
-// functor's scratch, an X tile for the logistic functor and none for the
+// with its CB rows of q, a __syncthreads before each call, and which leaves
+// CB gradient rows and potentials; a functor with PG::NUTS_HOOKS (the
+// generated one) also gets request(scratch) after the carve and
+// drain(scratch) before the block exits (its resident operands).  The
+// launch plan (ops/launch_plan.py) sizes shared memory for the functor's
+// scratch: an X tile for the logistic functor, the resident operands and a
+// tile of its streamed ones for a generated functor, none for the
 // others.  A block of CB = 8 warps owns 8 chains, one warp per chain, and
 // keeps their NUTS state but the checkpoints in shared memory (112 KB with
 // a 128-point float32 tile at dim 100, whatever K: two blocks per SM, 128
@@ -511,6 +515,7 @@ __global__ void __launch_bounds__(NT, 2)
                            float* ck) {
   extern __shared__ float4 smem_raw[];
   const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds, ck, P.K);
+  if constexpr (nuts_hooks<PG>::value) pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -520,6 +525,7 @@ __global__ void __launch_bounds__(NT, 2)
                                   OFFSET ? P.chain0 : 0u, valid,
                                   valid ? u[chain] : 0.f,
                                   chain_eps(P, chain, valid));
+  if constexpr (nuts_hooks<PG>::value) pg_fn.drain(S.pgs);
   if (valid) {
     store_chain<STD>(P, S, q_out, u_out, g_out, w, lane, chain, st.u);
     store_stats<STD>(stats, P.C, chain, lane, st);
@@ -548,6 +554,7 @@ __global__ void __launch_bounds__(NT, 2)
                          float* g_out, float* ck) {
   extern __shared__ float4 smem_raw[];
   const auto S = carve<PG>(reinterpret_cast<float*>(smem_raw), P.ds, ck, P.K);
+  if constexpr (nuts_hooks<PG>::value) pg_fn.request(S.pgs);
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int chain = blockIdx.x * CB + w;
   const bool valid = chain < P.C;
@@ -570,6 +577,7 @@ __global__ void __launch_bounds__(NT, 2)
       store_stats<STD>(stats + (size_t)t * 8 * P.C, P.C, chain, lane, st);
     }
   }
+  if constexpr (nuts_hooks<PG>::value) pg_fn.drain(S.pgs);
   if (valid)
     store_chain<STD>(P, S, q_out, u_out, g_out, w, lane, chain, uc);
 }

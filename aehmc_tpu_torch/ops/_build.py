@@ -12,7 +12,9 @@ module is imported.
 A potential with no hand-written functor gets one generated from its traced
 gradient graph (:mod:`aehmc_tpu_torch.ops.generic_pg`):
 ``load_generated(text)`` writes the functor to
-``_build/generic_<hash>.cu``, keyed on its text, the headers, the templates
+``_build/generic_<hash>.cu``, keyed on its text (which holds its geometry:
+its resident operands, tile rows and row stride, workspace placement,
+``launch_plan.generic_geometry``), the headers, the templates
 ``csrc/nuts_generic.cu`` (kernels 1-4) and ``csrc/hmc_generic.cu``
 (kernels 5-7) and the flags, compiles both templates with that file in
 their include slot into one library, ``_build/libgeneric_<hash>.so``, at

@@ -452,7 +452,7 @@ def chees_transition_cuda(q, u, g, inverse_mass, step_size, num_steps, data,
     pot_ops, x_dtype = _potential_operands(functor, data, dim, device)
     ops.update(pot_ops)
     plan = launch_plan("hmc", dim, 0, num_chains, x_dtype, functor,
-                       workspace=0 if bound is None else bound.workspace)
+                       geometry=None if bound is None else bound.geometry)
     if functor == "logistic":
         ops["X"] = data_rows(data[0], plan.row_stride, x_dtype)
     ms = _mass_sqrt(im).contiguous() if dense and seed is not None else None

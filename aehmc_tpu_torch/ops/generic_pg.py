@@ -98,6 +98,30 @@ them fuse into one.  The materialised vectors live in a per-chain
 workspace of ``W`` floats, in shared memory when two blocks still fit an
 SM with it (:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`),
 else in a global buffer the wrapper allocates, indexed by block and warp.
+
+Data operands (:func:`geometry_of`, ``launch_plan.generic_geometry``).
+The small ones are resident: copied into shared memory at block entry and
+read there (``R{j}``) for the whole launch.  One too large for that, read
+by a top-level matrix product a whole row at a time (:func:`_row_access`:
+a chain of views whose index along one axis walks the operand's rows), is
+streamed: the product runs chunk-major (:meth:`_Emitter.chunk_loop`), the
+block's threads copying each chunk of rows into one of two tile buffers
+(rows padded to an odd stride) while it reads the other, a block barrier a
+chunk.  A warp-each product whose outputs are the rows takes the chunk's
+outputs; a loop group whose index walks the rows takes the chunk's indices
+(each lane the same indices in the same order, a chunk being a multiple of
+32 rows); a one-lane-an-output product summing over the rows adds the
+chunk's terms to its output's workspace slot; a warp-each product summing
+over the rows in its lanes takes a window of up to 32 outputs at a time,
+the window's columns copied, each lane's partial sums in registers across
+the chunks.  So every sum keeps its order of terms and the tiled functor
+computes the untiled one's bits.  Reads of one chunk by several products
+of a group share its copy.  A warp-each product ends in the butterflies of
+its 8 (a window's up to 32) sums at once (``gpg_warp_sums``: each sum's
+pairs those of ``warp_sum``, in a seventh of the shuffles).  A barrier
+stands only at the functor's top level: a product inside a sequential node
+(a factorisation's, whose loops depend on the chain's values) reads the
+operand from global memory (``__ldg``) or from its resident copy.
 Arithmetic is IEEE (``expf``, ``logf``, ``log1pf``, ``lgammaf``,
 ``erfcf``, no fast math, built with ``-fmad=false``); the matrix products
 and solves use explicit ``fmaf``.
@@ -113,10 +137,18 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from aehmc_tpu_torch.ops.launch_plan import generic_geometry, odd_stride
+
 LAYOUTS = ("t", "std")   # the potential's batch: (dim, C) or (C, dim)
 MAX_DATA = 16            # data operands a functor takes (csrc/generic_pg.cuh)
 SHARE_COST = 8           # ops above which a node read by two loops is stored
 WARP_OUTPUTS = 8         # outputs a warp sums at once (measured: PERF.md §6)
+# outputs of a warp-each product summing over a streamed operand's rows
+# that its lanes carry across the chunks in registers, at most
+WARP_OUTPUTS_WINDOW = 32
+# a lane's outputs of the one-lane-an-output products summing over a
+# streamed operand's rows that it keeps in registers across the chunks
+SUM_REGISTERS = 16
 _ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
 _Q_MASK = ("indexing by a bool mask that depends on q (x[q > 0], x[mask] = v) "
            "gives a shape that depends on the values, which neither package "
@@ -3328,6 +3360,125 @@ def _cbool(b: bool) -> str:
     return "true" if b else "false"
 
 
+def _affine(ir, nid):
+    """``(operand, offset, strides)`` of a node that is a chain of views
+    (reshape, permute, expand, slice, select) of a float data operand: the
+    flat element of the operand that index ``idx`` of the node reads is
+    ``offset + Σ strides[a] idx[a]``; None for any other node."""
+    n = ir.nodes[nid]
+    if n.op == "data":
+        j = n.params[0]
+        return (j, 0, _strides(n.shape)) if ir.data_kinds[j] == "f" else None
+    if n.op not in ("reshape", "permute", "expand", "slice", "select"):
+        return None
+    inner = _affine(ir, n.args[0])
+    if inner is None:
+        return None
+    j, off, st = inner
+    src = ir.nodes[n.args[0]].shape
+    if n.op == "permute":
+        return j, off, tuple(st[a] for a in n.params)
+    if n.op == "expand":
+        lead = len(n.shape) - len(src)
+        return j, off, (0,) * lead + tuple(
+            0 if s == 1 else st[k] for k, s in enumerate(src))
+    if n.op == "slice":
+        axis, start, step = n.params
+        st = list(st)
+        off += start * st[axis]
+        st[axis] *= step
+        return j, off, tuple(st)
+    if n.op == "select":
+        axis, index = n.params
+        return j, off + index * st[axis], st[:axis] + st[axis + 1:]
+    out_axes = [k for k, d in enumerate(n.shape) if d != 1]
+    in_axes = [k for k, d in enumerate(src) if d != 1]
+    if [n.shape[k] for k in out_axes] == [src[k] for k in in_axes]:
+        out = [0] * len(n.shape)
+        for ko, ki in zip(out_axes, in_axes):
+            out[ko] = st[ki]
+        return j, off, tuple(out)
+    dense = _strides(src)
+    if all(st[k] == dense[k] for k in in_axes):  # row-major: re-split
+        return j, off, _strides(n.shape)
+    return None
+
+
+def _pow2(n: int) -> int:
+    """The least power of 2 at least ``n``."""
+    return 1 << (n - 1).bit_length()
+
+
+def _accumulators(count, init, array):
+    """Lines declaring ``count`` accumulators and the name of the u-th:
+    one array ``acc`` (whose butterflies run at once) or ``acc0``, ..."""
+    if array:
+        vals = ", ".join([init] * count)
+        return [f"float acc[{count}] = {{{vals}}};"], (lambda u: f"acc[{u}]")
+    return ([f"float acc{u} = {init};" for u in range(count)],
+            lambda u: f"acc{u}")
+
+
+def _rows_scaled(unit):
+    """The chunk's rows [c0, c1) in elements of ``unit`` a row."""
+    if unit == 1:
+        return "c0", "c1"
+    return f"c0 * {unit}", f"c1 * {unit}"
+
+
+class RowAccess(NamedTuple):
+    """How a matrix product's 2-D operand reads a streamed operand: row
+    ``index[axis]`` of the operand (``row`` floats a row, all ``rows`` of
+    them along ``axis``), column ``col0 + col_step * index[1 - axis]``."""
+    operand: int
+    axis: int
+    row: int
+    rows: int
+    col0: int
+    col_step: int
+
+
+def _row_access(ir, nid, axis) -> Optional[RowAccess]:
+    """The :class:`RowAccess` of 2-D node ``nid`` along ``axis`` when its
+    index along ``axis`` walks every row of a float data operand in order
+    and its other index stays inside the row; else None."""
+    aff = _affine(ir, nid)
+    shape = ir.nodes[nid].shape
+    if aff is None or len(shape) != 2:
+        return None
+    j, off, st = aff
+    length = _numel(ir.data_shapes[j])
+    row, other = st[axis], 1 - axis
+    if row <= 0 or length % row or length // row != shape[axis]:
+        return None
+    if off < 0 or st[other] < 0 or off + st[other] * (shape[other] - 1) \
+            >= row:
+        return None
+    return RowAccess(j, axis, row, shape[axis], off, st[other])
+
+
+def _stream_reads(ir, nid, along):
+    """{argument position: RowAccess} of matrix product ``nid`` whose rows
+    walk a data operand's rows ``along`` its output ("out": A's rows, each
+    a run of the output's columns; B's columns when A is one row) or its
+    sum ("sum": A's columns, B's rows)."""
+    n = ir.nodes[nid]
+    if n.op != "mm":
+        return {}
+    a, b = n.args
+    m = ir.nodes[a].shape[0]
+    if along == "out":
+        cands = [(0, a, 0)] + ([(1, b, 1)] if m == 1 else [])
+    else:
+        cands = [(0, a, 1), (1, b, 0)]
+    out = {}
+    for pos, arg, axis in cands:
+        acc = _row_access(ir, arg, axis)
+        if acc is not None:
+            out[pos] = acc
+    return out
+
+
 class _Scope:
     def __init__(self, emitter, memo=None):
         self.emitter = emitter
@@ -3341,10 +3492,18 @@ class _Scope:
 
 
 class _Emitter:
-    def __init__(self, ir: IR, sched: Schedule):
+    def __init__(self, ir: IR, sched: Schedule, geometry=None):
         self.ir, self.sched = ir, sched
         self.counter = 0
         self.stored = set(sched.slots) | set(sched.registers)
+        self.geometry = geometry
+        self.resident = {j for j, *_ in geometry.resident} if geometry \
+            else set()
+        # the streamed operands: operand -> (row floats, row stride)
+        self.streamed = ({j: (r, rs) for j, r, rs in geometry.streamed}
+                         if geometry else {})
+        self.reads = {}  # in a chunk's body: (product, arg) -> RowAccess
+        self.window = 0  # in a window pass: the tile's row stride
 
     def fresh(self, prefix):
         self.counter += 1
@@ -3359,7 +3518,10 @@ class _Emitter:
         if n.op == "q":
             return f"qc[{off.expr}]"
         if n.op == "data":
-            return f"__ldg(D{n.params[0]} + {off.expr})"
+            j = n.params[0]
+            if j in self.resident:
+                return f"R{j}[{off.expr}]"
+            return f"__ldg(D{j} + {off.expr})"
         return f"ws[{self.sched.slots[nid]} + {off.expr}]"
 
     def slot(self, nid, flat: Ix) -> str:
@@ -3589,7 +3751,7 @@ class _Emitter:
         init, reduce = _ACCUMULATE[n.op]
         if out == 1:  # the warp reduces the whole contraction
             acc = f"a{nid}"
-            scope.lines.append(self.term(n, _ic(0), flat, scope, acc))
+            scope.lines.append(self.term(nid, _ic(0), flat, scope, acc))
             after.append(("decl", f"float {acc} = {init};"))
             after.append(("post", f"const float r{nid} = {reduce}({acc});"))
             return
@@ -3597,22 +3759,26 @@ class _Emitter:
         scope.lines.append(f"float {acc} = {init};")
         scope.lines.append(f"for (int k = 0; k < {red}; ++k) {{")
         inner = _Scope(self, scope.memo)
-        inner.lines.append(self.term(n, flat, Ix("k", red), inner, acc))
+        inner.lines.append(self.term(nid, flat, Ix("k", red), inner, acc))
         scope.lines.extend("  " + line for line in inner.lines)
         scope.lines.append("}")
         scope.lines.append(f"ws[{self.sched.slots[nid]} + {flat.expr}] = "
                            f"{acc};")
 
-    def term(self, n: Node, out_flat: Ix, k: Ix, scope, acc) -> str:
+    def term(self, nid, out_flat: Ix, k: Ix, scope, acc) -> str:
         """``acc`` updated by term ``k`` of output element ``out_flat`` of
-        contraction ``n``, the operands' statements into ``scope``."""
+        contraction ``nid``, the operands' statements into ``scope``; in a
+        chunk's body, a streamed operand read from the tile."""
         ir = self.ir
+        n = ir.nodes[nid]
         if n.op == "mm":
             (m, kk), (_, ncols) = (ir.nodes[n.args[0]].shape,
                                    ir.nodes[n.args[1]].shape)
             i, j = _unflatten(out_flat, (m, ncols))
-            a = self.value(n.args[0], (i, k), scope)
-            b = self.value(n.args[1], (k, j), scope)
+            a, b = ((self.tile_read(self.reads[(nid, pos)], idx, scope)
+                     if (nid, pos) in self.reads else
+                     self.value(n.args[pos], idx, scope))
+                    for pos, idx in ((0, (i, k)), (1, (k, j))))
             return f"{acc} = fmaf({a}, {b}, {acc});"
         axes, keepdim = n.params
         src = ir.nodes[n.args[0]].shape
@@ -3634,34 +3800,59 @@ class _Emitter:
             return f"{acc} = {acc} * {v};"
         return f"{acc} = {acc} + {v};"
 
-    def warp_each(self, nid, lines):
+    def warp_each(self, nid, lines, unit=0):
         """The warp over the sum of each output of contraction ``nid``,
         WARP_OUTPUTS outputs at a time: their independent sums and
         ``warp_sum``s overlap (each output's order is that of one at a
-        time)."""
+        time); with ``unit`` outputs a row, the outputs of the chunk's rows
+        [c0, c1) only."""
         n = self.ir.nodes[nid]
         out, red = _numel(n.shape), _reduction_length(self.ir, n)
         init, reduce = _ACCUMULATE[n.op]
         unroll = min(WARP_OUTPUTS, out)
         ragged = out % unroll != 0
-        lines.append(f"for (int o0 = 0; o0 < {out}; o0 += {unroll}) {{")
-        lines.extend(f"  float acc{u} = {init};" for u in range(unroll))
+        lo, hi = (_rows_scaled(unit) if unit else ("0", str(out)))
+        together = reduce == "warp_sum"  # the sums' butterflies at once
+        accs = _accumulators(unroll if not together else _pow2(unroll),
+                             init, together)
+        lines.append(f"for (int o0 = {lo}; o0 < {hi}; o0 += {unroll}) {{")
+        lines.extend("  " + line for line in accs[0])
         lines.append(f"  for (int k = lane; k < {red}; k += 32) {{")
         scope = _Scope(self)
         for u in range(unroll):  # a ragged tail recomputes the last output
             o = (Ix(f"gpg_imin(o0 + {u}, {out - 1})", out) if ragged
                  else Ix(f"(o0 + {u})", out))
-            scope.lines.append(self.term(n, o, Ix("k", red), scope,
-                                         f"acc{u}"))
+            scope.lines.append(self.term(nid, o, Ix("k", red), scope,
+                                         accs[1](u)))
         lines.extend("    " + line for line in scope.lines)
         lines.append("  }")
-        for u in range(unroll):
-            guard = f" && o0 + {u} < {out}" if ragged else ""
-            lines.append(f"  acc{u} = {reduce}(acc{u});")
-            lines.append(f"  if (lane == 0{guard}) "
-                         f"ws[{self.sched.slots[nid]} + o0 + {u}] = acc{u};")
+        if together:
+            lines.extend("  " + line for line in self.sums_store(
+                nid, unroll, "o0", out if ragged else None))
+        else:
+            for u in range(unroll):
+                guard = f" && o0 + {u} < {out}" if ragged else ""
+                lines.append(f"  acc{u} = {reduce}(acc{u});")
+                lines.append(f"  if (lane == 0{guard}) ws["
+                             f"{self.sched.slots[nid]} + o0 + {u}] = acc{u};")
         lines.append("}")
         lines.append("__syncwarp();")
+
+    def sums_store(self, nid, count, base, bound=None):
+        """The butterflies of the ``count`` sums in ``acc`` at once
+        (``gpg_warp_sums``: each sum's order of terms ``warp_sum``'s), and
+        the stores of sum u at ``base + u`` (below ``bound``) by the first
+        lane holding it."""
+        width = _pow2(count)
+        per = 32 // width
+        u = "lane" if per == 1 else f"(lane / {per})"
+        guards = ([] if per == 1 else [f"lane % {per} == 0"]) + (
+            [f"{u} < {count}"] if count < width else []) + (
+            [f"{base} + {u} < {bound}"] if bound is not None else [])
+        cond = " && ".join(guards) or "true"
+        return [f"const float sum = gpg_warp_sums<{width}>(acc, lane);",
+                f"if ({cond}) ws[{self.sched.slots[nid]} + {base} + {u}] = "
+                "sum;"]
 
     def groups(self):
         """Roots in groups: each loop group one lane-strided loop."""
@@ -3688,9 +3879,299 @@ class _Emitter:
             group_of[r] = placed
         return groups
 
+    # -- the tile: passes of top-level products over a streamed operand
+    def passes(self, sig, roots, streamed):
+        """The passes through the tile of a top-level group, each
+        ``(kind, operand, roots, reads, unit)``, ``reads`` {(product,
+        argument position): RowAccess}: kind "out" where the outputs walk
+        the operand's rows, ``unit`` outputs a row (a warp-each product, or
+        a loop group chunked along its index); "sum" where the group's
+        one-lane-an-output products sum over them (chunk-major, each
+        output's sum carried in its workspace slot); "lanes" where a
+        warp-each product sums over them in its lanes (chunk-major over a
+        window of ``unit`` outputs at a time, each lane's partial sums in
+        registers across the chunks, the butterfly after the last).
+        ``streamed``: operand -> row floats.  Only a warp-each or a loop
+        group runs a pass: their trip counts are fixed, so their block
+        barriers stand at the functor's top level (:meth:`chunk_loop`
+        checks)."""
+        ir = self.ir
+
+        def take(nid, along):
+            return {pos: a for pos, a in _stream_reads(ir, nid, along).items()
+                    if streamed.get(a.operand) == a.row}
+
+        def unit(nid, pos):  # output elements a row of the operand
+            return ir.nodes[ir.nodes[nid].args[1]].shape[1] if pos == 0 \
+                else 1
+
+        if sig[0] == "warp_each":
+            nid = roots[0]
+            reads = take(nid, "out")
+            if reads:
+                pos = min(reads)
+                return [("out", reads[pos].operand, roots,
+                         {(nid, pos): reads[pos]}, unit(nid, pos))]
+            node = ir.nodes[nid]
+            if node.op != "mm":
+                return []
+            (m, _), (_, ncols) = (ir.nodes[node.args[0]].shape,
+                                  ir.nodes[node.args[1]].shape)
+            one = {0: ncols == 1, 1: m == 1}  # the output is A's or B's index
+            reads = {pos: a for pos, a in take(nid, "sum").items()
+                     if one[pos] and a.col_step == 1}
+            if not reads:
+                return []
+            pos = min(reads)
+            out = _numel(node.shape)
+            width = -(-out // -(-out // WARP_OUTPUTS_WINDOW))
+            return [("lanes", reads[pos].operand, roots,
+                     {(nid, pos): reads[pos]}, width)]
+        if sig[0] != "loop":
+            return []
+        products = [r for r in roots if r != "g" and ir.nodes[r].op == "mm"
+                    and _numel(ir.nodes[r].shape) > 1]
+        for r in products:  # the loop's index walks the rows
+            if _numel(ir.nodes[r].shape) != sig[1]:
+                continue
+            for pos, acc in sorted(take(r, "out").items()):
+                u = unit(r, pos)
+                reads = {(r2, p2): a2 for r2 in products
+                         if _numel(ir.nodes[r2].shape) == sig[1]
+                         for p2, a2 in take(r2, "out").items()
+                         if a2.operand == acc.operand and unit(r2, p2) == u}
+                return [("out", acc.operand, roots, reads, u)]
+        by = {}
+        for r in products:  # one-lane-an-output sums over the rows
+            reads = take(r, "sum")
+            if reads:
+                pos = min(reads)
+                rs, rd = by.setdefault(reads[pos].operand, ([], {}))
+                rs.append(r)
+                rd[(r, pos)] = reads[pos]
+        return [("sum", j, rs, rd, 1) for j, (rs, rd) in sorted(by.items())]
+
+    def streamable(self) -> dict:
+        """operand -> row floats of the data operands some top-level
+        product could stream (the geometry picks which it does)."""
+        rows = {}
+        for sig, roots in self.groups():
+            for kind in ("out", "sum"):
+                ids = roots if sig[0] != "warp_each" else roots[:1]
+                for r in ids:
+                    if r == "g" or sig[0] not in ("loop", "warp_each"):
+                        continue
+                    for acc in _stream_reads(self.ir, r, kind).values():
+                        rows.setdefault(acc.operand, acc.row)
+        return rows
+
+    def fill_call(self, pas, rel, dest):
+        """The request of the pass's fill ``rel`` (a C expression, or an
+        int) into buffer ``dest``: its chunk's rows and, for a window pass,
+        its columns."""
+        j, row, stride, width, chunks = (pas[k] for k in (
+            "operand", "row", "stride", "width", "chunks"))
+        points, total = self.geometry.points, pas["rows"]
+        if isinstance(rel, int):
+            ch, gi = rel % chunks, rel // chunks
+            r0, count = ch * points, min(points, total - ch * points)
+            col = pas["col0"] + gi * width
+            ncols = min(width, pas["outputs"] - gi * width)
+        else:
+            ch = rel if pas["groups"] == 1 else f"({rel}) % {chunks}"
+            gi = f"({rel}) / {chunks}"
+            r0 = f"({ch}) * {points}"
+            count = f"gpg_imin({points}, {total} - {r0})"
+            col = f"{pas['col0']} + {gi} * {width}"
+            ncols = f"gpg_imin({width}, {pas['outputs']} - {gi} * {width})"
+        args = f"S.tile + {dest} * TILE_FLOATS, D{j}, {r0}, {count}"
+        if pas["kind"] != "lanes":
+            return f"fill<{row}, {stride}>({args});"
+        return f"fill<{row}, {stride}, {width}>({args}, {col}, {ncols});"
+
+    def chunk_loop(self, sig, pas, lines, body, rel="ch"):
+        """A pass's chunks: wait for the chunk and the block barrier,
+        request the next fill into the other buffer (the pass's next, or
+        after its last the next pass's first), then ``body`` (its lines,
+        read from the tile ``T`` for rows [c0, c1)).  ``rel``: the pass's
+        fill of this chunk (``ch``, or ``gi * chunks + ch`` in a window
+        pass).  Raises where the group is not one whose barriers stand at
+        the functor's top level."""
+        if sig[0] not in ("loop", "warp_each"):
+            raise ValueError(
+                f"a block barrier inside {sig[0]!r}, whose loops' trip "
+                "counts depend on a chain's values: its products read their "
+                "operands from global memory")
+        first, points, chunks = pas["first"], self.geometry.points, \
+            pas["chunks"]
+        count = chunks * pas["groups"]
+        lines.append(f"for (int ch = 0; ch < {chunks}; ++ch) {{")
+        lines.append("  chunk_ready();")
+        if count > 1:
+            lines.append(f"  if ({rel} + 1 < {count})")
+            lines.append("    " + self.fill_call(
+                pas, f"{rel} + 1", f"(({first + 1} + {rel}) & 1)"))
+        nxt = self.pass_of.get(first + count)
+        if nxt is not None:
+            lines.append(f"  if ({rel} + 1 == {count})" if count > 1
+                         else "  if (true)")
+            lines.append("    " + self.fill_call(nxt, 0,
+                                                 (first + count) & 1))
+        lines.append(f"  const float* __restrict__ T = S.tile + "
+                     f"(({first} + {rel}) & 1) * TILE_FLOATS;")
+        lines.append(f"  const int c0 = ch * {points}, "
+                     f"c1 = gpg_imin(c0 + {points}, {pas['rows']});")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
+
+    def loop_group(self, n, roots, lines, unit=0):
+        """One lane-strided loop over ``n`` computing ``roots``; with
+        ``unit`` indices a row, the indices of the chunk's rows [c0, c1)
+        only (c0 a multiple of 32: each lane takes the indices it takes
+        unchunked, in order).
+        Returns its statements to run before and after (declarations,
+        warp reductions)."""
+        scope, after = _Scope(self), []
+        for r in roots:
+            self.emit_root(r, Ix("i", n), scope, after)
+        start, stop = ((_rows_scaled(unit)[0] + " + lane",
+                        _rows_scaled(unit)[1]) if unit else ("lane", str(n)))
+        lines.append(f"for (int i = {start}; i < {stop}; i += 32) {{")
+        lines.extend("  " + line for line in scope.lines)
+        lines.append("}")
+        return ([s for kind, s in after if kind == "decl"],
+                [s for kind, s in after if kind == "post"])
+
+    def sum_pass(self, roots, lines):
+        """The chunk's terms of one-lane-an-output products ``roots``: each
+        output's sum carried across chunks in its workspace slot (its first
+        value the sum's start), terms c0 .. c1 - 1 in order."""
+        ir = self.ir
+        n = _numel(ir.nodes[roots[0]].shape)
+        scope = _Scope(self)
+        for r in roots:
+            node = ir.nodes[r]
+            init, _ = _ACCUMULATE[node.op]
+            acc = self.fresh("acc")
+            slot = self.slot(r, Ix("i", n))
+            scope.lines.append(f"float {acc} = ch == 0 ? {init} : {slot};")
+            scope.lines.append("for (int k = c0; k < c1; ++k) {")
+            inner = _Scope(self, scope.memo)
+            inner.lines.append(self.term(r, Ix("i", n),
+                                         Ix("k", _reduction_length(ir, node)),
+                                         inner, acc))
+            scope.lines.extend("  " + line for line in inner.lines)
+            scope.lines.append("}")
+            scope.lines.append(f"{slot} = {acc};")
+        lines.append(f"for (int i = lane; i < {n}; i += 32) {{")
+        lines.extend("  " + line for line in scope.lines)
+        lines.append("}")
+
+    def sum_pass_registers(self, roots):
+        """The register form of :meth:`sum_pass`, where a lane's outputs
+        (``ceil(n / 32)`` a product, SUM_REGISTERS at most in all) fit in
+        registers: each output's sum starts at its start value before the
+        first chunk and is stored after the last, and each term ``k``
+        reads the operands the lane's outputs share (the other factor's
+        element k) once.  The terms of an output are those of
+        :meth:`sum_pass`, in order.  Returns (declarations, the chunk's
+        body, stores), or None where they do not fit."""
+        ir = self.ir
+        n = _numel(ir.nodes[roots[0]].shape)
+        per = -(-n // 32)
+        if per * len(roots) > SUM_REGISTERS:
+            return None
+        decl, store, terms = [], [], _Scope(self)
+        for r in roots:
+            node = ir.nodes[r]
+            init, _ = _ACCUMULATE[node.op]
+            red = _reduction_length(ir, node)
+            for it in range(per):
+                acc = self.fresh("acc")
+                i = f"lane + {32 * it}" if it else "lane"
+                ragged = 32 * (it + 1) > n
+                idx = (Ix(f"gpg_imin({i}, {n - 1})", n) if ragged
+                       else Ix(f"({i})", n))
+                decl.append(f"float {acc} = {init};")
+                terms.lines.append(self.term(r, idx, Ix("k", red), terms,
+                                             acc))
+                guard = f"if ({i} < {n}) " if ragged else ""
+                store.append(f"{guard}{self.slot(r, Ix(f'({i})', n))} = "
+                             f"{acc};")
+        body = ["for (int k = c0; k < c1; ++k) {"]
+        body += ["  " + line for line in terms.lines] + ["}"]
+        return decl, body, store
+
+    def lanes_pass(self, sig, pas, lines):
+        """A warp-each product summing over the streamed rows, a window of
+        ``width`` outputs at a time: each lane's partial sums of the
+        window's outputs in registers across the chunks (its terms the rows
+        k ≡ lane mod 32 in order, as the warp-each loop takes them), then
+        each output's butterfly, so each output's order of terms is the
+        warp-each one's."""
+        nid = pas["roots"][0]
+        n = self.ir.nodes[nid]
+        out, red = _numel(n.shape), _reduction_length(self.ir, n)
+        init, _ = _ACCUMULATE[n.op]
+        width, groups = pas["width"], pas["groups"]
+        accs = _accumulators(_pow2(width), init, True)
+        lines.append(f"for (int gi = 0; gi < {groups}; ++gi) {{")
+        lines.append(f"  const int g0 = gi * {width};")
+        lines.extend("  " + line for line in accs[0])
+        scope = _Scope(self)
+        ragged = out % width != 0
+        for u in range(width):  # a ragged window recomputes its last output
+            o = (Ix(f"gpg_imin(g0 + {u}, {out - 1})", out) if ragged
+                 else Ix(f"(g0 + {u})", out))
+            scope.lines.append(self.term(nid, o, Ix("k", red), scope,
+                                         accs[1](u)))
+        body = ["for (int k = c0 + lane; k < c1; k += 32) {"]
+        body += ["  " + line for line in scope.lines] + ["}"]
+        sub = []
+        self.chunk_loop(sig, pas, sub, body, rel=f"gi * {pas['chunks']} + ch")
+        lines.extend("  " + line for line in sub)
+        lines.extend("  " + line for line in self.sums_store(
+            nid, width, "g0", out if ragged else None))
+        lines.append("}")
+        lines.append("__syncwarp();")
+
+    def plan(self):
+        """Each group with its passes, and the call's sequence of fills:
+        each pass's ``chunks`` chunks of rows, for each of its ``groups``
+        windows of columns (one: whole rows) in order."""
+        groups = self.groups()
+        rows = {j: r for j, (r, _) in self.streamed.items()}
+        planned = []
+        self.pass_of, count = {}, 0
+        for sig, roots in groups:
+            passes = []
+            for kind, j, rs, reads, unit in self.passes(sig, roots, rows):
+                row, stride = self.streamed[j]
+                total = _numel(self.ir.data_shapes[j]) // row
+                pas = dict(kind=kind, operand=j, roots=rs, reads=reads,
+                           unit=unit, row=row, stride=stride, width=row,
+                           rows=total, col0=0, outputs=row, groups=1,
+                           chunks=-(-total // self.geometry.points),
+                           first=count)
+                if kind == "lanes":
+                    acc = next(iter(reads.values()))
+                    out = _numel(self.ir.nodes[rs[0]].shape)
+                    pas.update(width=unit, stride=odd_stride(unit),
+                               col0=acc.col0, outputs=out,
+                               groups=-(-out // unit))
+                self.pass_of[count] = pas
+                count += pas["chunks"] * pas["groups"]
+                passes.append(pas)
+            planned.append((sig, roots, passes))
+        self.fills = count
+        return planned
+
     def body(self) -> list:
         lines = []
-        for sig, roots in self.groups():
+        planned = self.plan()
+        if self.fills:  # the call's first chunk, while the body starts
+            lines.append(self.fill_call(self.pass_of[0], 0, 0))
+        for sig, roots, passes in planned:
             if sig[0] == "scalar":
                 scope = _Scope(self)
                 for r in roots:
@@ -3698,21 +4179,57 @@ class _Emitter:
                 lines.extend(scope.lines)
                 continue
             if sig[0] == "warp_each":
-                self.warp_each(roots[0], lines)
+                if passes and passes[0]["kind"] == "lanes":
+                    self.reads = passes[0]["reads"]
+                    self.window = passes[0]["stride"]
+                    self.lanes_pass(sig, passes[0], lines)
+                    self.reads, self.window = {}, 0
+                elif passes:
+                    self.reads = passes[0]["reads"]
+                    sub = []
+                    self.warp_each(roots[0], sub, passes[0]["unit"])
+                    self.reads = {}
+                    self.chunk_loop(sig, passes[0], lines, sub[:-1])
+                    lines.append("__syncwarp();")
+                else:
+                    self.warp_each(roots[0], lines)
                 continue
             if sig[0] in SEQUENTIAL:
                 getattr(self, sig[0])(roots[0], lines)
                 continue
             n = sig[1]
-            scope, after = _Scope(self), []
-            flat = Ix("i", n)
-            for r in roots:
-                self.emit_root(r, flat, scope, after)
-            lines.extend(s for kind, s in after if kind == "decl")
-            lines.append(f"for (int i = lane; i < {n}; i += 32) {{")
-            lines.extend("  " + line for line in scope.lines)
-            lines.append("}")
-            lines.extend(s for kind, s in after if kind == "post")
+            if passes and passes[0]["kind"] == "out":
+                pas, = passes
+                self.reads = pas["reads"]
+                sub = []
+                decl, post = self.loop_group(n, roots, sub, pas["unit"])
+                self.reads = {}
+                lines.extend(decl)
+                self.chunk_loop(sig, pas, lines, sub)
+                lines.extend(post)
+                lines.append("__syncwarp();")
+                continue
+            summed = {r for pas in passes for r in pas["roots"]}
+            others = [r for r in roots if r not in summed]
+            post = []
+            if others:
+                decl, post = self.loop_group(n, others, sub := [])
+                lines.extend(decl)
+                lines.extend(sub)
+            for pas in passes:
+                self.reads = pas["reads"]
+                held = self.sum_pass_registers(pas["roots"])
+                if held is None:
+                    sub = []
+                    self.sum_pass(pas["roots"], sub)
+                    self.chunk_loop(sig, pas, lines, sub)
+                else:
+                    decl, body, store = held
+                    lines.extend(decl)
+                    self.chunk_loop(sig, pas, lines, body)
+                    lines.extend(store)
+                self.reads = {}
+            lines.extend(post)
             lines.append("__syncwarp();")
         scope = _Scope(self)
         u = self.value(self.ir.u, (), scope)
@@ -3720,6 +4237,18 @@ class _Emitter:
         lines.append(f"if (lane == 0) S.nu[c] = {u};")
         lines.append("__syncwarp();")
         return lines
+
+    def tile_read(self, acc: RowAccess, idx, scope) -> str:
+        """A streamed operand's element at a product operand's index
+        ``idx``, from the tile ``T`` of rows [c0, c1) (in a window pass,
+        its columns from g0)."""
+        row, other = idx[acc.axis], idx[1 - acc.axis]
+        if self.window:
+            return scope.temp(f"T[({row.expr} - c0) * {self.window} + "
+                              f"({other.expr} - g0)]")
+        col = _iadd(_imul(other, acc.col_step), _ic(acc.col0))
+        stride = self.streamed[acc.operand][1]
+        return scope.temp(f"T[({row.expr} - c0) * {stride} + {col.expr}]")
 
 
     def trsolve(self, nid, lines):
@@ -4580,45 +5109,77 @@ def _reshape_index(idx, out_shape, in_shape) -> tuple:
     return _unflatten(_flatten(idx, out_shape), in_shape)
 
 
+def geometry_of(ir: IR):
+    """The functor's geometry (:func:`launch_plan.generic_geometry`): its
+    resident and streamed data operands, tile and workspace placement."""
+    sched = schedule(ir)
+    return generic_geometry(ir.dim, sched.workspace,
+                            tuple(_numel(s) for s in ir.data_shapes),
+                            _Emitter(ir, sched).streamable())
+
+
 def emit_cuda(ir: IR) -> str:
     """The C++ text of ``struct GenericPG``, the device functor of ``ir`` to
     the NUTS core's contract (``csrc/nuts_core.cuh``, helpers in
-    ``csrc/generic_pg.cuh``).  Deterministic: the same IR gives the same
-    text."""
-    from aehmc_tpu_torch.ops.launch_plan import generic_workspace_shared
-
+    ``csrc/generic_pg.cuh``), with its geometry (:func:`geometry_of`) in
+    its text.  Deterministic: the same IR gives the same text."""
     sched = schedule(ir)
-    shared = generic_workspace_shared(ir.dim, sched.workspace)
-    em = _Emitter(ir, sched)
+    geo = geometry_of(ir)
+    em = _Emitter(ir, sched, geo)
     body = em.body()
     lengths = ", ".join(str(_numel(s)) for s in ir.data_shapes) or "0"
-    data_ptrs = [f"    const float* __restrict__ D{j} = data.ptr[{j}];"
-                 if ir.data_kinds[j] == "f" else
-                 f"    const int* __restrict__ D{j} = int_row({j});"
-                 for j in range(len(ir.data_shapes))]
+    data_ptrs = []
+    for j in range(len(ir.data_shapes)):
+        ctype = "float" if ir.data_kinds[j] == "f" else "int"
+        if j in em.resident:
+            off = next(o for i, o, _ in geo.resident if i == j)
+            data_ptrs.append(
+                f"    const {ctype}* __restrict__ R{j} = "
+                + (f"S.res + {off};" if ctype == "float" else
+                   f"reinterpret_cast<const int*>(S.res + {off});"))
+        elif ctype == "float":
+            data_ptrs.append(f"    const float* __restrict__ D{j} = "
+                             f"data.ptr[{j}];")
+        else:
+            data_ptrs.append(f"    const int* __restrict__ D{j} = "
+                             f"int_row({j});")
+    request = [f"    make_resident(S, {j}, {off}, {n});"
+               for j, off, n in geo.resident]
+    places = ", ".join(f"{j} {geo.kind(j)}"
+                       for j in range(len(ir.data_shapes))) or "none"
     ops = sorted({n.op for n in ir.nodes})
     head = [
         "// Generated by aehmc_tpu_torch/ops/generic_pg.py:emit_cuda from the",
         f"// traced potential {ir.key()}: dim {ir.dim}, layout {ir.layout},",
         f"// {len(ir.nodes)} IR nodes ({', '.join(ops)}),",
         f"// {len(ir.data_shapes)} data operands of "
-        f"{', '.join(str(s) for s in ir.data_shapes) or 'none'}.",
+        f"{', '.join(str(s) for s in ir.data_shapes) or 'none'}",
+        f"// ({places}; {em.fills} tile fills a call).",
         "struct GenericPG : aehmc::generic::Base {",
         f"  static constexpr int DIM = {ir.dim};",
         f"  static constexpr int W = {sched.workspace};",
         f"  static constexpr bool WS_SHARED = "
-        f"{'true' if shared else 'false'};",
+        f"{'true' if geo.ws_shared else 'false'};",
         f"  static constexpr int NDATA = {len(ir.data_shapes)};",
+        f"  static constexpr int RES_FLOATS = {geo.resident_floats};",
+        f"  static constexpr int TILE_ROWS = {geo.points};",
+        f"  static constexpr int TILE_STRIDE = {geo.row_stride};",
+        f"  static constexpr int TILE_FLOATS = {geo.tile_floats};",
         "",
         "  bool fits(int dim, const aehmc::Geometry& G) const {",
         f"    static const long long lengths[] = {{{lengths}}};",
-        "    return dim == DIM && no_tile(G) &&",
+        "    return dim == DIM && tile_is(G, TILE_ROWS, TILE_STRIDE) &&",
         "           lengths_are(lengths, NDATA) &&",
         "           (W == 0 || WS_SHARED || ws_global);",
         "  }",
         "",
         "  static __device__ Scratch carve_scratch(float* base, int) {",
-        "    return carve<WS_SHARED>(base);",
+        "    return carve<WS_SHARED, RES_FLOATS, TILE_FLOATS>(base);",
+        "  }",
+        "",
+        "  __device__ void request(const Scratch& S) const {",
+        *request,
+        "    (void)S;",
         "  }",
         "",
         "  __device__ void operator()(const Scratch& S, int, int ds,",
@@ -4641,14 +5202,16 @@ def emit_cuda(ir: IR) -> str:
 @dataclass
 class Bound:
     """A potential bound for the card: its IR, the hoisted constants (data
-    operands after the caller's), the functor's text and workspace
-    floats a chain."""
+    operands after the caller's), the functor's text, workspace floats a
+    chain and geometry (:func:`geometry_of`), which every launch plan on
+    it takes."""
 
     ir: IR
     constants: tuple
     source: str
     workspace: int
     ops: tuple
+    geometry: object = None
     # (integer operand, device) -> (a weak reference to its tensor, its
     # _version, the int32 row on that device); device -> (weak references
     # to the base operands, their _versions, the derived rows there)
@@ -4774,7 +5337,8 @@ def bind(fn: Callable, data: Sequence[torch.Tensor], dim: int, *,
                                  with_grad=with_grad, device=device)
         cache[key] = Bound(traced.ir, traced.constants,
                            emit_cuda(traced.ir),
-                           schedule(traced.ir).workspace, traced.ops)
+                           schedule(traced.ir).workspace, traced.ops,
+                           geometry_of(traced.ir))
     bound = cache[key]
     for j in bound.index_bounds:  # the caller's indices, as they are now
         if j < len(data):
@@ -4801,7 +5365,7 @@ def launch_operands(bound: Bound, data, device, blocks: int):
                          f"most {MAX_DATA}")
     ptrs = (ctypes.c_void_p * MAX_DATA)(*[d.data_ptr() for d in ops])
     lens = (ctypes.c_longlong * MAX_DATA)(*[d.numel() for d in ops])
-    floats = generic_workspace_floats(bound.ir.dim, bound.workspace, blocks)
+    floats = generic_workspace_floats(bound.geometry, blocks)
     ws = (torch.empty(floats, dtype=torch.float32, device=device)
           if floats else None)
     return (ptrs, lens, len(ops), None if ws is None else ws.data_ptr()), \

@@ -611,7 +611,7 @@ def _cuda_operands(q_t, u, g_t, p_t, step_size, alpha, inverse_mass, data,
     pot_ops, x_dtype = _potential_operands(functor, data, dim, device)
     ops.update(pot_ops)
     plan = launch_plan("hmc", dim, 0, num_chains, x_dtype, functor,
-                       workspace=0 if bound is None else bound.workspace)
+                       geometry=None if bound is None else bound.geometry)
     if functor == "logistic":
         ops["X"] = data_rows(data[0], plan.row_stride, x_dtype)
     return ops, (eps0, alpha0), per_chain, plan, (dim, num_chains)

@@ -20,16 +20,26 @@ data matrix (``csrc/hierarchical_pg.cuh``), taken by the NUTS kernels 1 and
 (``points`` and ``row_stride`` 0) and 8 chains a block
 (``launch_plan(..., functor="funnel" | "eight_schools")``).  So is a
 functor generated from a potential's traced gradient graph
-(``functor="generic"``, ``csrc/generic_pg.cuh``), in kernels 1-7: its
-scratch adds a per-chain workspace of ``workspace`` floats, kept in shared
-memory when two NUTS blocks still fit an SM with it
-(:func:`generic_workspace_shared`), else in a global buffer of
-:func:`generic_workspace_floats` floats.  The emitted functor fixes that
-choice in its text (``WS_SHARED``) from the NUTS core's 17 rows, so the HMC
-core's plan follows it and does not decide again with its own 8 rows: a
-workspace two HMC blocks could hold in shared memory stays global when the
-functor says so, and the plan's shared memory and the workspace pointer
-agree with the functor.
+(``functor="generic"``, ``csrc/generic_pg.cuh``), in kernels 1-7, has a
+geometry of its own (:func:`generic_geometry`, :class:`GenericGeometry`):
+after the block's potentials, its **resident** data operands (copied into
+shared memory once, at block entry: the small ones, smallest first, while
+two NUTS blocks still fit an SM), then two buffers of a **tile** through
+which a top-level matrix product reads a **streamed** operand (one too
+large to be resident) in chunks of ``points`` rows (128, 64 or 32, a
+multiple of 32, the largest with which two NUTS blocks fit), each row
+padded to ``row_stride`` words, an odd number, so that lanes reading
+neighbouring rows fall in distinct banks; then the per-chain workspace of
+``workspace`` floats, kept in shared memory when two NUTS blocks still fit
+an SM with it (:func:`generic_workspace_shared`), else in a global buffer
+of :func:`generic_workspace_floats` floats.  The emitted functor fixes its
+geometry in its text (``RES_FLOATS``, ``TILE_ROWS``, ``TILE_STRIDE``,
+``WS_SHARED``) from the NUTS core's 17 rows, so the HMC core's plan
+follows it and does not decide again with its own 8 rows: a workspace two
+HMC blocks could hold in shared memory stays global when the functor says
+so, and the plan's shared memory, points, row stride and workspace
+pointer agree with the functor, which checks the points and row stride of
+every launch.
 
 The chains a block (:func:`chains_per_block`) depend on the core, dim and
 X's type only, never on the chain count, so a chain's bits do not depend on
@@ -105,20 +115,20 @@ def row_stride(dim: int, x_dtype=torch.float32) -> int:
 
 def smem_bytes(core: str, dim: int, points: int, x_dtype=torch.float32,
                chains: int = 8, functor: str = "logistic",
-               workspace: int = 0) -> int:
+               geometry: "GenericGeometry" = None) -> int:
     """Bytes of dynamic shared memory a block of ``core`` with ``chains``
     chains takes with a tile of ``points`` rows of X in ``x_dtype``; with a
     functor that reads no X, its rows and the chains' potentials, and for a
-    generated one the chains' ``workspace`` floats each when the functor
-    keeps them in shared memory (:func:`generic_workspace_shared`, whatever
-    the core)."""
+    generated one its ``geometry``'s scratch (resident operands, tile
+    buffers, and the workspace when the functor keeps it in shared memory,
+    whatever the core)."""
     ds = state_stride(dim)
     per_chain, per_block = CORES[core][:2]
     rows = (per_chain * chains + per_block) * ds
     if not FUNCTORS[functor]:
-        shared = functor == "generic" and generic_workspace_shared(dim,
-                                                                   workspace)
-        return 4 * (rows + chains + (chains * workspace if shared else 0))
+        if functor == "generic" and geometry is not None:
+            return 4 * (rows + geometry.scratch_floats())
+        return 4 * (rows + chains)
     qb = chains * ds if x_dtype == torch.bfloat16 else 0
     tile = points * row_stride(dim, x_dtype) * X_BYTES[x_dtype]
     return 4 * (rows + scratch_floats(chains) + qb) + tile
@@ -139,26 +149,148 @@ def chains_per_block(core: str, dim: int, x_dtype=torch.float32) -> int:
     return 8
 
 
-def generic_workspace_shared(dim: int, workspace: int) -> bool:
+def generic_workspace_shared(dim: int, workspace: int,
+                             fixed: int = 0) -> bool:
     """Whether a generated functor's ``workspace`` floats a chain go to
-    shared memory: when two NUTS blocks still fit an SM with them.
-    ``workspace`` counts every vector the functor materialises
+    shared memory: when two NUTS blocks still fit an SM with them beside
+    the functor's ``fixed`` floats (its resident operands and tile
+    buffers).  ``workspace`` counts every vector the functor materialises
     (:func:`generic_pg.schedule`): contractions, elementwise values read
     more than once, a triangular solve's solution, a scatter-add's output
     and a cumulative sum.  The emitter bakes this into the functor
-    (``WS_SHARED``), and every core's plan reads it from here."""
+    (``WS_SHARED``), and every core's plan reads it from the geometry."""
     rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
-    smem = 4 * (rows + NUTS_CHAINS + NUTS_CHAINS * workspace)
+    smem = 4 * (rows + NUTS_CHAINS + fixed + NUTS_CHAINS * workspace)
     return workspace > 0 and two_blocks_fit(smem)
 
 
-def generic_workspace_floats(dim: int, workspace: int, blocks: int) -> int:
+def generic_workspace_floats(geometry: "GenericGeometry",
+                             blocks: int) -> int:
     """Floats of a generated functor's global workspace, (blocks, 8,
     workspace) for the grid of the NUTS or the HMC core (8 chains a block
     in both), or 0 when it is in shared memory."""
-    if workspace == 0 or generic_workspace_shared(dim, workspace):
+    if geometry.workspace == 0 or geometry.ws_shared:
         return 0
-    return blocks * NUTS_CHAINS * workspace
+    return blocks * NUTS_CHAINS * geometry.workspace
+
+
+TILE_ROWS = (128, 64, 32)  # a streamed operand's rows a chunk, largest first
+TILE_STAGES = 2            # tile buffers: one filled while the other is read
+
+
+def odd_stride(row: int) -> int:
+    """A tile's row stride in words: ``row`` rounded up to an odd number,
+    so that the 32 lanes of a warp reading one word each of 32 neighbouring
+    rows fall in 32 distinct banks."""
+    return row | 1
+
+
+@dataclass(frozen=True)
+class GenericGeometry:
+    """Where a generated functor keeps its data operands and workspace.
+
+    ``resident``: (operand, offset, floats) of the operands copied into
+    shared memory at block entry, at 4-float offsets from the scratch's
+    resident area; ``streamed``: (operand, row floats, row stride) of the
+    operands a top-level matrix product reads through the tile, ``points``
+    rows a chunk; every other operand is read from global memory
+    (``__ldg``).  ``tile_floats``: one tile buffer (of ``TILE_STAGES``).
+    """
+    dim: int
+    workspace: int
+    resident: tuple = ()
+    streamed: tuple = ()
+    points: int = 0
+    tile_floats: int = 0
+    ws_shared: bool = False
+
+    @property
+    def row_stride(self) -> int:
+        """The widest streamed row's stride, the launch's ``row_stride``
+        (0 without a tile)."""
+        return max((rs for _, _, rs in self.streamed), default=0)
+
+    @property
+    def resident_floats(self) -> int:
+        return sum(4 * math.ceil(n / 4) for _, _, n in self.resident)
+
+    @property
+    def fixed_floats(self) -> int:
+        """Floats of the resident operands and the tile buffers."""
+        return self.resident_floats + TILE_STAGES * self.tile_floats
+
+    def scratch_floats(self) -> int:
+        """Floats of the functor's scratch after the core's rows: the
+        potentials, resident operands, tile buffers and (shared) the
+        workspace."""
+        return (NUTS_CHAINS + self.fixed_floats
+                + (NUTS_CHAINS * self.workspace if self.ws_shared else 0))
+
+    def kind(self, j: int) -> str:
+        """Operand ``j``'s place: "resident", "streamed" or "global"."""
+        if any(r[0] == j for r in self.resident):
+            return "resident"
+        if any(r[0] == j for r in self.streamed):
+            return "streamed"
+        return "global"
+
+
+def _tile_floats(points: int, streamed) -> int:
+    return 4 * math.ceil(points * max(odd_stride(r) for _, r in streamed) / 4)
+
+
+def generic_geometry(dim: int, workspace: int, operands=(),
+                     streamable=None) -> GenericGeometry:
+    """The geometry of a generated functor at ``dim`` with ``workspace``
+    floats a chain and data operands of ``operands`` floats each, of which
+    ``streamable`` (operand -> row floats) a top-level matrix product reads
+    a whole row of at a time.  The operands go resident, smallest first,
+    while two NUTS blocks still fit an SM beside the smallest tile the
+    other streamable ones need; the rest of the streamable ones are
+    streamed through a tile of the most rows (of :data:`TILE_ROWS`) with
+    which two NUTS blocks fit (one, where two cannot, up to the block's
+    limit); what neither takes is read from global memory.  Raises
+    ``ValueError`` with the bytes a block needs where the NUTS rows and
+    potentials alone exceed the limit."""
+    streamable = dict(streamable or {})
+    rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
+    base = 4 * (rows + NUTS_CHAINS)
+    if base > SMEM_LIMIT:
+        raise ValueError(f"a generated functor at dim {dim} needs {base} "
+                         f"bytes of shared memory a block; the limit is "
+                         f"{SMEM_LIMIT}")
+    pair = SM_SMEM // 2 - BLOCK_RESERVE  # a block's bytes with two an SM
+    resident, res, taken = [], set(), 0
+    for j in sorted(range(len(operands)), key=lambda j: (operands[j], j)):
+        rest = [(i, r) for i, r in streamable.items()
+                if i != j and i not in res]
+        tile = (TILE_STAGES * _tile_floats(TILE_ROWS[-1], rest) if rest
+                else 0)
+        size = 4 * math.ceil(operands[j] / 4)
+        if base + 4 * (taken + size + tile) > pair:
+            break
+        resident.append((j, taken, operands[j]))
+        res.add(j)
+        taken += size
+    streamed = [(j, r) for j, r in sorted(streamable.items())
+                if j not in res]
+    points, tile = 0, 0
+    for limit in (pair, SMEM_LIMIT):
+        if points or not streamed:
+            break
+        for p in TILE_ROWS:
+            t = _tile_floats(p, streamed)
+            if base + 4 * (taken + TILE_STAGES * t) <= limit:
+                points, tile = p, t
+                break
+    if not points:
+        streamed = []
+    fixed = taken + TILE_STAGES * tile
+    return GenericGeometry(
+        dim=dim, workspace=workspace, resident=tuple(resident),
+        streamed=tuple((j, r, odd_stride(r)) for j, r in streamed),
+        points=points, tile_floats=tile,
+        ws_shared=generic_workspace_shared(dim, workspace, fixed))
 
 
 def checkpoint_floats(dim: int, max_exp: int, blocks: int) -> int:
@@ -182,12 +314,13 @@ class LaunchPlan:
 
 def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
                 x_dtype=torch.float32, functor: str = "logistic",
-                workspace: int = 0) -> LaunchPlan:
+                geometry: GenericGeometry = None) -> LaunchPlan:
     """The geometry of a launch of ``core`` ("nuts", "hmc" or "fused_hmc")
     on ``num_chains`` chains of ``dim`` dimensions (``max_exp`` = K for
     NUTS) with X in ``x_dtype`` (float32 or bfloat16), for the potential's
-    ``functor`` (:data:`FUNCTORS`; one with no X has no tile and ignores
-    ``x_dtype``; a generated one has ``workspace`` floats a chain).
+    ``functor`` (:data:`FUNCTORS`; one with no X has no X tile and ignores
+    ``x_dtype``; a generated one takes the ``geometry`` it was emitted
+    with, its tile's points and row stride in the plan's).
     Raises ``ValueError``, naming the limit, for a shape the kernels do not
     take."""
     if core not in CORES:
@@ -208,14 +341,21 @@ def launch_plan(core: str, dim: int, max_exp: int, num_chains: int,
         raise ValueError(f"max_num_expansions {max_exp} is outside "
                          f"[1, {MAX_EXP}]")
     if not FUNCTORS[functor]:
+        if functor == "generic" and geometry is None:
+            geometry = GenericGeometry(dim, 0)
+        if geometry is not None and geometry.dim != dim:
+            raise ValueError(f"the functor was emitted for dim "
+                             f"{geometry.dim}, not {dim}")
         smem = smem_bytes(core, dim, 0, chains=NUTS_CHAINS, functor=functor,
-                          workspace=workspace)
+                          geometry=geometry)
         if smem > SMEM_LIMIT:
             raise ValueError(
                 f"{core} at dim {dim} needs {smem} bytes of shared memory a "
                 f"block; the limit is {SMEM_LIMIT}")
-        return LaunchPlan(math.ceil(num_chains / NUTS_CHAINS), 0, 0, smem,
-                          NUTS_CHAINS)
+        points, stride = ((geometry.points, geometry.row_stride)
+                          if geometry is not None else (0, 0))
+        return LaunchPlan(math.ceil(num_chains / NUTS_CHAINS), points,
+                          stride, smem, NUTS_CHAINS)
     chains = chains_per_block(core, dim, x_dtype)
     sizes = [(points, smem_bytes(core, dim, points, x_dtype, chains))
              for points in POINTS]

@@ -495,7 +495,7 @@ def _cuda_operands(q, u, g, inverse_mass, data, max_exp, bf16, bound=None):
         ops["X"] = data_rows(X, plan.row_stride, x_dtype)
     else:
         plan = launch_plan("nuts", dim, max_exp, num_chains,
-                           functor="generic", workspace=bound.workspace)
+                           functor="generic", geometry=bound.geometry)
     ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),
                             dtype=torch.float32, device=device)
     return ops, plan, (dim, num_points, num_chains)

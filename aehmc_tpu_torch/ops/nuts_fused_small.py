@@ -708,7 +708,7 @@ def _cuda_operands(q_t, u, g_t, inverse_mass, data, max_exp, functor,
     mass_sqrt = (_mass_sqrt_t(ops["im"], dim).contiguous() if dense
                  else None)
     plan = launch_plan("nuts", dim, max_exp, num_chains, x_dtype, functor,
-                       workspace=0 if bound is None else bound.workspace)
+                       geometry=None if bound is None else bound.geometry)
     if functor == "logistic":
         ops["X"] = data_rows(X, plan.row_stride, X.dtype)
     ops["ck"] = torch.empty(checkpoint_floats(dim, max_exp, plan.blocks),

@@ -327,7 +327,9 @@ DEVICE = "cuda:0"
 FUNNEL_DIM, FUNNEL_CHAINS, FUNNEL_WARMUP, FUNNEL_DRAWS = 10, 8192, 300, 200
 SCHOOLS_CHAINS, SCHOOLS_WARMUP, SCHOOLS_DRAWS = 2048, 500, 500
 HIER_K, HIER_TARGET, HIER_EPS, HIER_CHECK_K = 10, 0.85, 0.2, 4
-HIER_DRAWS = 10               # kernel 2's timed run, and its plain version's
+HIER_DRAWS = 4                # kernel 2's timed run, and its plain version's
+# (10 before: cut with the plain timings' warm-up calls and eight schools'
+# witness to hold the run under its 1,200 s)
 # the funnel's limits, the JAX gate's (tests/test_nuts_fused_tpu.py:151-186):
 # acceptance above 0.6; v over draws 50 onward: |mean| < 0.8, |sd - 3| < 0.5
 FUNNEL_ACCEPT, FUNNEL_BURN, FUNNEL_V_MEAN, FUNNEL_V_SD = 0.6, 50, 0.8, 0.5
@@ -337,7 +339,7 @@ FUNNEL_ACCEPT, FUNNEL_BURN, FUNNEL_V_MEAN, FUNNEL_V_SD = 0.6, 50, 0.8, 0.5
 SCHOOLS_WITNESS_CHAINS = 256
 # its warmup and draws (cut from 500 + 500, 61.8 s of plain transitions on
 # an H100 host, to make room for phases 54-55)
-SCHOOLS_WITNESS_WARMUP, SCHOOLS_WITNESS_DRAWS = 250, 250
+SCHOOLS_WITNESS_WARMUP, SCHOOLS_WITNESS_DRAWS = 150, 150  # 250, 250 before
 
 
 def log(msg):
@@ -368,10 +370,13 @@ def card_identity():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps):
+def cuda_ms(torch, fn, reps, warm=True):
     """Mean milliseconds per call of ``fn`` over ``reps`` calls after one
-    warm-up call, by CUDA events."""
-    fn()
+    warm-up call (none with ``warm`` false: an eager plain version the
+    phase has already run once, whose seconds a call the run's budget
+    cannot spend twice), by CUDA events."""
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1864,8 +1869,8 @@ def hier_times(torch, nfs, name, model, res, seed):
     # schools' size a launch can take less than its wrapper's host time,
     # which back-to-back CUDA events would read instead
     ms1, ms2 = kernel_ms(k1, 10), kernel_ms(k2, 5)
-    return ((ms1, cuda_ms(torch, p1, 1), b1),
-            (ms2, cuda_ms(torch, p2, 1), b2), steps, checks)
+    return ((ms1, cuda_ms(torch, p1, 1, warm=False), b1),
+            (ms2, cuda_ms(torch, p2, 1, warm=False), b2), steps, checks)
 
 
 def hier_entries(name, launches, err, times):
@@ -3728,33 +3733,77 @@ def generic_potentials(torch, dev):
                 binds=binds)
 
 
-def functor_report(torch, _build, b, plan_dim, chains, k):
-    """ptxas's registers and spills of the generated kernels and their
-    blocks per SM at the launch plan's shared memory."""
-    from aehmc_tpu_torch.ops.launch_plan import (
-        generic_workspace_shared,
-        launch_plan,
-    )
+def geometry_fields(b, chains=CHAINS):
+    """A generated functor's geometry (ops/launch_plan.py:generic_geometry):
+    its resident operands' bytes, the operands it streams through its tile
+    and those it reads from global memory, the tile's rows a chunk and row
+    stride, its workspace's place, and the NUTS and HMC blocks' shared
+    memory and blocks an SM by shared memory."""
+    from aehmc_tpu_torch.ops import launch_plan as lp
 
+    geo = b.geometry
+    n = len(b.ir.data_shapes)
+    out = dict(resident_bytes=4 * geo.resident_floats,
+               streamed=[j for j in range(n) if geo.kind(j) == "streamed"],
+               global_operands=[j for j in range(n)
+                                if geo.kind(j) == "global"],
+               tile_rows=geo.points, row_stride=geo.row_stride,
+               tile_bytes=4 * lp.TILE_STAGES * geo.tile_floats,
+               workspace_floats=geo.workspace,
+               workspace_shared=geo.ws_shared)
+    for core, k in (("nuts", K), ("hmc", 0)):
+        plan = lp.launch_plan(core, b.ir.dim, k, chains, functor="generic",
+                              geometry=geo)
+        out[f"{core}_smem"] = plan.smem
+        out[f"{core}_blocks_per_sm_by_smem"] = \
+            2 if lp.two_blocks_fit(plan.smem) else 1
+    return out
+
+
+def geometry_line(name, g, regs=None, spill=None):
+    """Phase 1's line of a generated functor's geometry."""
+    built = (f"; ptxas {regs} registers, {spill} B spill stores"
+             if regs is not None else "")
+    return (f"  {name}: resident {g['resident_bytes']} B, streamed "
+            f"{g['streamed'] or 'none'} (tile {g['tile_rows']} rows, stride "
+            f"{g['row_stride']}, {g['tile_bytes']} B), global "
+            f"{g['global_operands'] or 'none'}, workspace "
+            f"{g['workspace_floats']} floats "
+            f"{'shared' if g['workspace_shared'] else 'global'}; smem NUTS "
+            f"{g['nuts_smem']} / HMC {g['hmc_smem']} B, blocks an SM "
+            f"{g['nuts_blocks_per_sm_by_smem']} / "
+            f"{g['hmc_blocks_per_sm_by_smem']}{built}")
+
+
+def ptxas_most(_build, b):
+    """The most registers and spill-store bytes over a built generated
+    library's kernels (None before it is built)."""
     regs, spill = [], []
     for line in _build.generated_ptxas_log(b.source).splitlines():
         if "bytes spill stores" in line:
             spill.append(int(line.split("bytes spill stores")[0].split(",")[-1]))
         if "Used" in line and "registers" in line:
             regs.append(int(line.split("Used")[1].split("registers")[0]))
+    return max(regs, default=None), max(spill, default=None)
+
+
+def functor_report(torch, _build, b, plan_dim, chains, k):
+    """ptxas's registers and spills of the generated kernels, their blocks
+    per SM at the launch plan's shared memory, and the functor's
+    geometry."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+
+    regs, spill = ptxas_most(_build, b)
     plan = launch_plan("nuts", plan_dim, k, chains, functor="generic",
-                       workspace=b.workspace)
+                       geometry=b.geometry)
     lib = b.library()
     per_sm = {f"{lay}_{kind}": lib.generic_blocks_per_sm(std, s, plan.smem)
               for std, lay in ((0, "t"), (1, "std"))
               for s, kind in ((0, "transition"), (1, "sampling"))}
     check(min(per_sm.values()) >= 2, f"generic kernels: fewer than two "
           f"blocks per SM {per_sm}")
-    return dict(registers=max(regs, default=None),
-                spill_bytes=max(spill, default=None), blocks_per_sm=per_sm,
-                smem_bytes=plan.smem, workspace_floats=b.workspace,
-                workspace_shared=generic_workspace_shared(plan_dim,
-                                                          b.workspace))
+    return dict(geometry_fields(b, chains), registers=regs,
+                spill_bytes=spill, blocks_per_sm=per_sm, smem_bytes=plan.smem)
 
 
 def mvn_limits(torch, diagnostics, positions, stats, what):
@@ -3878,8 +3927,10 @@ def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
     ms1 = kernel_ms(k1, 3)
     ms1h = kernel_ms(k1_hand, 3)
     plain_ms1 = cuda_ms(torch, p1, 2)
+    # the generated functor's products run on the CUDA cores: its bounds
+    # are at their 67 TFLOP/s peak
     bound1 = bound(leaves1 * GRAD_FLOP, nbytes(q_t, u0, g0, imm, X, y,
-                                               *out_k))
+                                               *out_k), PEAK_F32)
     seed = 3535
     n2 = GEN_SAMPLING_DRAWS
 
@@ -3917,8 +3968,9 @@ def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
     leaves2 = float(o2[1][:, 3].sum())
     ms2 = kernel_ms(k2, 1)
     ms2h = kernel_ms(k2_hand, 1)
-    plain_ms2 = cuda_ms(torch, p2, 1)
-    bound2 = bound(leaves2 * GRAD_FLOP, nbytes(q_t, u0, g0, imm, X, y, *o2))
+    plain_ms2 = cuda_ms(torch, p2, 1, warm=False)
+    bound2 = bound(leaves2 * GRAD_FLOP, nbytes(q_t, u0, g0, imm, X, y, *o2),
+                   PEAK_F32)
     # kernels 3 and 4: the JAX cell's standard-layout potential
     model = nf._generic_model(gen["cell"], (X, y))
     hand = nf._logistic_model(X, y, 1.0, torch.float32)
@@ -3954,7 +4006,7 @@ def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
     ms3, ms3h = kernel_ms(k3, 3), kernel_ms(k3_hand, 3)
     plain_ms3 = cuda_ms(torch, p3, 2)
     bound3 = bound(leaves3 * GRAD_FLOP, nbytes(q0, u0s, g0s, imm, X, y,
-                                               *o3))
+                                               *o3), PEAK_F32)
 
     def k4(m=model):
         return nf._fused_sampling_call(m, q0, u0s, g0s, imm, GEN_EPS, seed, n2,
@@ -3977,8 +4029,9 @@ def generic_phases(torch, ops, diagnostics, gen, data, pg, q0, q_post, record,
                                 "generic kernel 4 vs LogisticPGT")
     leaves4 = float(o4[1][:, :, 3].sum())
     ms4, ms4h = kernel_ms(k4, 1), kernel_ms(lambda: k4(hand), 1)
-    plain_ms4 = cuda_ms(torch, p4, 1)
-    bound4 = bound(leaves4 * GRAD_FLOP, nbytes(q0, u0s, g0s, imm, X, y, *o4))
+    plain_ms4 = cuda_ms(torch, p4, 1, warm=False)
+    bound4 = bound(leaves4 * GRAD_FLOP, nbytes(q0, u0s, g0s, imm, X, y, *o4),
+                   PEAK_F32)
     log(f"phase 35: generated kernels 1-4 at {CHAINS}x{DIM}, ε {GEN_EPS}, "
         f"M⁻¹ {GEN_IMM}, K {K}, Philox ({n2} draws for kernels 2 and 4): "
         f"decisions "
@@ -4263,7 +4316,7 @@ def hmc_report(torch, _build, b, dim, chains, what):
     check(sorted(per) == [5, 6, 7], f"ptxas reports kernels {sorted(per)} "
           f"on {what}")
     plan = launch_plan("hmc", dim, 0, chains, functor="generic",
-                       workspace=b.workspace)
+                       geometry=b.geometry)
     lib = b.library()
     per_sm = {f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
         k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))}
@@ -4473,11 +4526,13 @@ def hmc_generic_phase(torch, gen, data, pg, q0, record, card):
             *mstate, gen["cov"], eps_m, LEAPFROG_STEPS, plain_mvn, seed=7),
             3))
     rows = 2 * CHAINS * 4  # the ε and α rows
-    b5 = bound(CHAINS * GRAD_FLOP, nbytes(*state, im, X, y, *k5g()) + rows)
+    # the generated functor's bounds at the CUDA-core peak (phase 35's)
+    b5 = bound(CHAINS * GRAD_FLOP, nbytes(*state, im, X, y, *k5g()) + rows,
+               PEAK_F32)
     b6 = bound(SEGMENT * CHAINS * GRAD_FLOP,
-               nbytes(*state, im, X, y, *k6g()) + rows)
+               nbytes(*state, im, X, y, *k6g()) + rows, PEAK_F32)
     b7 = bound(LEAPFROG_STEPS * CHAINS * GRAD_FLOP,
-               nbytes(*cstate, im, X, y, *k7g()) + 8)
+               nbytes(*cstate, im, X, y, *k7g()) + 8, PEAK_F32)
     d = GEN_MVN_DIM  # a step: prec·q and M⁻¹p, 2d² each; the draw, 3 more
     b7m = bound(n * (LEAPFROG_STEPS * 4 + 6) * d * d,
                 nbytes(*mstate, gen["cov"], gen["prec"], eps_m, *k7m()),
@@ -5848,7 +5903,7 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
         moved_bytes = nbytes(*ops_b)
         b1 = bound(leaves1 * flop, nbytes(q_t, u0, g0, imm, *o1)
                    + moved_bytes, PEAK_F32)
-        t1 = (kernel_ms(k1, 3), cuda_ms(torch, p1, 1))
+        t1 = (kernel_ms(k1, 3), cuda_ms(torch, p1, 1, warm=False))
 
         # kernel 3: the standard layout, the same functor
         q_s, u_s, g_s = q_t.T.contiguous(), u0.reshape(-1, 1), g0.T.contiguous()
@@ -5874,7 +5929,7 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
         leaves3 = float(o3[3][:, 3].sum())
         b3 = bound(leaves3 * flop, nbytes(q_s, u_s, g_s, imm, *o3)
                    + moved_bytes, PEAK_F32)
-        t3 = (kernel_ms(k3, 3), cuda_ms(torch, p3, 1))
+        t3 = (kernel_ms(k3, 3), cuda_ms(torch, p3, 1, warm=False))
 
         # kernel 5 (MALA's α 0, one leapfrog step) and kernel 7 (L 10)
         p0 = torch.tensor(rng.standard_normal((dim, chains)),
@@ -5914,7 +5969,7 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
                            "vs plain")
         b7 = bound(LEAPFROG_STEPS * chains * flop,
                    nbytes(*cstate, imm, *o7) + moved_bytes, PEAK_F32)
-        t7 = (kernel_ms(k7, 3), cuda_ms(torch, p7, 1))
+        t7 = (kernel_ms(k7, 3), cuda_ms(torch, p7, 1, warm=False))
         # kernels 2 and 6, where this potential's front doors launch them
         extra = {}
         if 2 in sampling.get(name, ()):
@@ -8273,6 +8328,22 @@ def main():
             f"{rep['spill_bytes']} B (kernels 5, 6, 7); {rep['smem_bytes']} "
             f"B of shared memory a block; blocks per SM "
             f"{rep['blocks_per_sm']}")
+    # every generated functor's geometry (registers and spills of those
+    # built here; the others' in their phases, 48, 51, 54 and 56)
+    functors = dict(gen_pots["binds"])
+    for group in (op_pots, rest_pots, last_pots, every_pots):
+        functors.update({k: v["bound"] for k, v in group.items()})
+    functors.update(special_probe=probe, lgamma_probe=lg)
+    geometry["generic_functors"] = {}
+    log("  generated functors' geometries (NUTS K "
+        f"{K}, {CHAINS} chains; blocks an SM by shared memory):")
+    for name, b in functors.items():
+        g = geometry_fields(b)
+        regs, spill = (ptxas_most(_build, b) if name in gen_pots["binds"]
+                       else (None, None))
+        geometry["generic_functors"][name] = dict(g, registers=regs,
+                                                  spill_bytes=spill)
+        log(geometry_line(name, g, regs, spill))
     nuts_plan = launch_plan("nuts", DIM, K, CHAINS)
     check((nuts_plan.points, nuts_plan.smem) == (128, 111_792),
           f"NUTS plan at dim {DIM}, K {K}: {nuts_plan}")

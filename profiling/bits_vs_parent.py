@@ -1,0 +1,100 @@
+"""Whether two trees' generated functors give the same results bit for bit.
+
+Runs, in one tree's package, the front doors whose kernels take a generated
+functor at chip_smoke.py's phases 36 and 41 (and 38's NUTS door), from the
+same seeded states, and saves every result; given a second file, compares
+the two bit for bit.  The state: 0.1·N(0, 1) starts (seed 5) walked 150
+draws by the hand-written fused NUTS route (LogisticPGT, which neither
+tree changes) to the posterior; then
+
+- phase 36: ``ops.sample_fused`` on the standard-layout cell potential
+  (kernels 3, a launch a draw, and 4, one launch), seed 36, 200 draws;
+- phase 38: the fused NUTS front door on the flagship's bare logprob
+  (kernels 1 and 2), seed 5, 150 + 200;
+- phase 41: the MALA, GHMC (α 0.9) and ChEES front doors on the same
+  logprob (kernels 5, 6 and 7), seeds 11, 12 and 14.
+
+Run from the root of a checkout (``--pkg`` imports the package from
+another directory, say one that profiling/decompose_generic.py staged):
+
+    python profiling/bits_vs_parent.py --out A.pt [--pkg DIR] [--against B.pt]
+"""
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--pkg", default=ROOT)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--against")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.pkg))
+    sys.path.insert(1, ROOT)
+    import torch
+
+    import aehmc_tpu_torch
+    import chip_smoke as cs
+    from aehmc_tpu_torch import ops
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+
+    assert aehmc_tpu_torch.__file__.startswith(os.path.abspath(args.pkg))
+    dev = torch.device("cuda:0")
+    gen = cs.generic_potentials(torch, dev)
+    X, y = gen["X"], gen["y"]
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q0 = (0.1 * torch.randn(cs.CHAINS, cs.DIM, generator=g)).to(dev)
+    imm = torch.full((cs.DIM,), cs.GEN_IMM, device=dev)
+    hand = nf._logistic_model(X, y, 1.0, torch.float32)
+    _, pos, _ = ops.sample_fused(
+        torch.Generator().manual_seed(5), nf.logistic_potential, hand.data,
+        q0, 150, cs.GEN_EPS, imm, max_num_expansions=cs.K,
+        internal_prng=True, loop_in_kernel=True)
+    q_post = pos[-1].contiguous()
+    out = {}
+    for name, loop in (("per_draw", False), ("whole_run", True)):
+        _, p, st = ops.sample_fused(
+            torch.Generator().manual_seed(36), gen["cell"], (X, y), q_post,
+            cs.DRAWS, cs.GEN_EPS, imm, max_num_expansions=cs.K,
+            internal_prng=True, loop_in_kernel=loop)
+        out[f"phase36/{name}/positions"] = p.cpu()
+        out[f"phase36/{name}/stats"] = st.cpu()
+    lp = gen["logprob_fn"]
+
+    def door(algorithm, draws, seed, **kw):
+        res = aehmc_tpu_torch.sample(
+            torch.Generator().manual_seed(seed), lp, q_post, draws,
+            cs.WARMUP, algorithm=algorithm, path="fused", **kw)
+        return res.positions.cpu()
+
+    ghmc = dict(initial_step_size=0.1, segment_draws=cs.SEGMENT)
+    out["phase38/nuts"] = door("nuts", cs.DRAWS, 5)
+    out["phase41/mala"] = door("mala", cs.MALA_DRAWS, 11, **ghmc)
+    out["phase41/ghmc"] = door("ghmc", cs.GHMC_DRAWS, 12,
+                               ghmc_alpha=cs.GHMC_ALPHA, **ghmc)
+    out["phase41/chees"] = door("chees", cs.DRAWS, 14,
+                                initial_step_size=cs.CHEES_EPS0)
+    torch.cuda.synchronize()
+    out["launches"] = dict(ops.LAUNCHES)
+    print(f"{args.pkg}: {len(out) - 1} results in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.save(out, args.out)
+    if args.against:
+        ref = torch.load(args.against)
+        same = {k: bool(torch.equal(v, ref[k])) for k, v in out.items()
+                if k != "launches"}
+        print({"bit_for_bit": same, "all": all(same.values())}, flush=True)
+        for k, v in out.items():
+            if k != "launches" and not same[k]:
+                d = (v.double() - ref[k].double()).abs()
+                print(k, "max |diff|", float(d.max()), "differing share",
+                      float((v != ref[k]).float().mean()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,436 @@
+"""Decompose the time of kernels 7 and 3 on generated potential functors.
+
+``ncu`` does not run on the card's machine, so this script builds variants
+of a generated functor's text and times them on the card:
+
+- ``probe``: clock64() stamps around each of the functor's top-level
+  statements, which lane 0 of each warp adds into per-warp counters of a
+  device array (one a translation unit: the NUTS and HMC templates each
+  read back their own).  Categories: the k-loop of a warp-each product
+  (operand loads and fused multiply-adds), its ``warp_sum``s and stores,
+  loop groups holding a one-lane-an-output product, the other loop groups
+  (elementwise values, lane-strided sums, workspace traffic), the warp
+  reductions after them, the tile's chunk waits and block barriers
+  (``chunk_ready``), sequential nodes, scalar statements, the whole call,
+  and the time between a warp's calls (the core's work and its block
+  barrier);
+- ``noload``: every read of a float data operand replaced by a value of
+  its index (the loads' share, by difference; kernel 7 only, whose work
+  does not depend on the values);
+- ``wsshared``: the workspace in shared memory whatever it costs in
+  blocks an SM (one NUTS block an SM where two do not fit), against the
+  plan's choice.
+
+Run from the root of a checkout (this script stays in the tree; ``--tree``
+takes the package from another checkout, say a parent commit unpacked into
+``scratch/``):
+
+    python profiling/decompose_generic.py [--tree DIR] [--out FILE]
+        [--names flagship,cell,probit100,softmax_reg] [--chains N]
+
+The package is copied into ``scratch/decompose/<tag>/`` and given the
+profile buffer there; nothing of the tree itself changes.  Prints one JSON
+line per run and writes them all to ``--out`` (default
+``profiling/out/decompose.json``, which git ignores).
+"""
+import argparse
+import ctypes
+import json
+import os
+import re
+import shutil
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CATS = ["we_loop", "we_sum", "loop_contract", "loop_elem", "loop_post",
+        "chunk_wait", "sequential", "scalar", "total", "between", "calls"]
+C = {name: i for i, name in enumerate(CATS)}
+SLOTS = 16  # counters a warp; slot 15 holds the warp's last exit stamp
+
+
+def stage(tree, tag):
+    """A copy of ``tree``'s package with the profile buffer and readers."""
+    dst = os.path.join(ROOT, "scratch", "decompose", tag)
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "aehmc_tpu_torch"),
+                    os.path.join(dst, "aehmc_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    csrc = os.path.join(dst, "aehmc_tpu_torch", "csrc")
+    path = os.path.join(csrc, "generic_pg.cuh")
+    text = open(path).read()
+    text = text.replace(
+        "namespace aehmc {\nnamespace generic {",
+        "namespace aehmc {\nstatic __device__ unsigned long long "
+        f"gpg_prof[2048 * 8 * {SLOTS}];\nnamespace generic {{", 1)
+    open(path, "w").write(text)
+    for name, tag_ in (("nuts_generic.cu", "nuts"), ("hmc_generic.cu", "hmc")):
+        path = os.path.join(csrc, name)
+        with open(path, "a") as fh:
+            fh.write(f'''
+extern "C" int gpg_prof_{tag_}(unsigned long long* out, int n, int reset) {{
+  cudaError_t e = cudaSuccess;
+  if (out) e = cudaMemcpyFromSymbol(out, aehmc::gpg_prof, (size_t)n * 8);
+  if (reset) {{
+    void* p;
+    cudaGetSymbolAddress(&p, aehmc::gpg_prof);
+    e = cudaMemset(p, 0, sizeof(aehmc::gpg_prof));
+  }}
+  return (int)e;
+}}
+''')
+    # the caller's chip_smoke.py: the same potentials on either package
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dst)
+    return dst
+
+
+# ------------------------------------------------------ text variants --
+def _blocks(lines, start, indent):
+    """Top-level statements of the body from ``start`` at ``indent``:
+    (first, last) line indices, a block running to its closing brace."""
+    out, i = [], start
+    pad = " " * indent
+    while i < len(lines):
+        line = lines[i]
+        if not line.startswith(pad) or line.startswith(pad + " ") or \
+                line.strip() in ("}", "};"):
+            if line.startswith(pad + " ") or line == "":
+                i += 1
+                continue
+            break
+        j = i
+        if line.rstrip().endswith("{"):
+            while lines[j] != pad + "}":
+                j += 1
+        out.append((i, j))
+        i = j + 1
+    return out
+
+
+def _category(block):
+    text = "\n".join(block)
+    first = block[0].strip()
+    if first.startswith("for (int ch"):
+        return None  # split inside
+    if first.startswith("for (int o0"):
+        return None
+    if first.startswith("for (int i = lane") or first.startswith(
+            "for (int i = c0"):
+        return "loop_contract" if "for (int k = 0" in text or \
+            "for (int k = c0" in text else "loop_elem"
+    if re.match(r"const float r\d+ = (warp_sum|gpg_warp_max|gpg_warp_prod)",
+                first) or first == "__syncwarp();":
+        return "loop_post"
+    if first.startswith("for ") or first.startswith("if (") is False and \
+            first.endswith("{"):
+        return "sequential"
+    return "scalar"
+
+
+def probe_text(text):
+    """The functor's text with its statements stamped (see the module)."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if "operator()(" in ln)
+    body0 = next(i for i in range(start, len(lines))
+                 if lines[i].startswith("    ") and "= data.ptr" not in
+                 lines[i] and "int_row(" not in lines[i] and "S.res" not in
+                 lines[i] and "(void)" not in lines[i] and "const " not in
+                 lines[i][:10] and "float* __restrict__" not in lines[i]
+                 and i > start + 3)
+    out = lines[:body0]
+    out += ["    const long long _te = clock64();",
+            "    unsigned long long* _pf = aehmc::gpg_prof + "
+            f"((size_t)blockIdx.x * 8 + c) * {SLOTS};",
+            "    if (lane == 0) { if (_pf[15]) _pf[%d] += _te - _pf[15]; "
+            "_pf[%d] += 1; }" % (C["between"], C["calls"])]
+    n = 0
+    blocks = _blocks(lines, body0, 4)
+    end = blocks[-1][1] + 1
+    for a, b in blocks:
+        block = lines[a:b + 1]
+        first = block[0].strip()
+        n += 1
+        if first.startswith(("for (int o0", "for (int ch", "for (int gi")):
+            out += _split_loop(block, n)
+            continue
+        if first.startswith("if (lane == 0) S.nu[c]"):
+            out += block
+            continue
+        cat = _category(block)
+        if first.startswith("const float r") or first.startswith("float a") \
+                or first.startswith("const int ") or first.startswith(
+                    "const float t"):
+            # declarations the rest reads: stamp without a scope
+            out += [f"    long long _s{n} = clock64();"] + block + [
+                f"    if (lane == 0) _pf[{C[cat]}] += clock64() - _s{n};"]
+            continue
+        out += [f"    long long _s{n} = clock64();"] + block + [
+            f"    if (lane == 0) _pf[{C[cat]}] += clock64() - _s{n};"]
+    out += ["    if (lane == 0) { const long long _tx = clock64(); "
+            f"_pf[{C['total']}] += _tx - _te; _pf[15] = _tx; }}"]
+    out += lines[end:]
+    return "\n".join(out)
+
+
+def _split_loop(block, n):
+    """A warp-each or chunk loop: its k-loops (loads and multiply-adds),
+    its warp sums, its chunk wait and refill, and its sum passes."""
+    out = []
+    t = f"_k{n}"
+    out.append(f"    long long {t} = clock64();")
+    i = 0
+    while i < len(block):
+        line = block[i]
+        s = line.strip()
+        ind = line[:len(line) - len(line.lstrip())]
+        if s == "chunk_ready();":
+            out.append(f"{ind}{t} = clock64();")
+            out.append(line)
+            i += 1
+            while not block[i].strip().startswith("const float* __restrict"
+                                                  "__ T ="):
+                out.append(block[i])
+                i += 1
+            out.append(f"{ind}if (lane == 0) _pf[{C['chunk_wait']}] += "
+                       f"clock64() - {t};")
+            out.append(f"{ind}{t} = clock64();")
+            continue
+        if s.startswith(("for (int k = lane", "for (int k = c0 + lane")):
+            out.append(f"{ind}{t} = clock64();")
+            depth = 0
+            while True:
+                out.append(block[i])
+                depth += block[i].count("{") - block[i].count("}")
+                i += 1
+                if depth == 0:
+                    break
+            out.append(f"{ind}if (lane == 0) _pf[{C['we_loop']}] += "
+                       f"clock64() - {t};")
+            out.append(f"{ind}{t} = clock64();")
+            continue
+        if s.startswith(("for (int i = lane", "for (int i = c0",
+                         "for (int k = c0; ")):
+            cat = "loop_contract"
+            out.append(f"{ind}{t} = clock64();")
+            depth = 0
+            while True:
+                out.append(block[i])
+                depth += block[i].count("{") - block[i].count("}")
+                i += 1
+                if depth == 0:
+                    break
+            out.append(f"{ind}if (lane == 0) _pf[{C[cat]}] += "
+                       f"clock64() - {t};")
+            continue
+        if s.startswith("const float sum = gpg_warp_sums"):
+            out += [line, block[i + 1]]
+            out.append(f"{ind}if (lane == 0) _pf[{C['we_sum']}] += "
+                       f"clock64() - {t};")
+            i += 2
+            continue
+        if s.startswith("acc") and "warp_sum" in s or s.startswith(
+                "if (lane == 0) ws["):
+            out.append(line)
+            if s.startswith("if (lane == 0) ws[") and (
+                    i + 1 >= len(block) or not block[i + 1].strip()
+                    .startswith("acc")):
+                out.append(f"{ind}if (lane == 0) _pf[{C['we_sum']}] += "
+                           f"clock64() - {t};")
+            i += 1
+            continue
+        out.append(line)
+        i += 1
+    return out
+
+
+def noload_text(text):
+    """Every read of a float data operand (global or from the tile) made a
+    value of its index."""
+    floats = set(re.findall(r"const float\* __restrict__ (D\d+) = data",
+                            text))
+    body = text[text.index("operator()("):]
+    head = text[:text.index("operator()(")]
+    for d in floats:
+        body = re.sub(r"__ldg\(%s \+ ([^;]*)\);" % d,
+                      r"((float)((\1) & 7) * 0.125f);", body)
+    body = re.sub(r"= T\[([^;]*)\];", r"= ((float)((\1) & 7) * 0.125f);",
+                  body)
+    return head + body
+
+
+# ------------------------------------------------------------ the runs --
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=ROOT)
+    ap.add_argument("--tag", default="tree")
+    ap.add_argument("--out", default=os.path.join(ROOT, "profiling", "out",
+                                                  "decompose.json"))
+    ap.add_argument("--names", default="flagship,cell,probit100,softmax_reg")
+    ap.add_argument("--variants", default="base,probe,noload,wsshared")
+    ap.add_argument("--chains", type=int, default=10_240)
+    args = ap.parse_args()
+    dst = stage(os.path.abspath(args.tree), args.tag)
+    sys.path.insert(0, dst)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from aehmc_tpu_torch.ops import _build
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import generic_pg as gp
+    from aehmc_tpu_torch.ops import launch_plan as lp
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.timing import kernel_ms
+
+    assert gp.__file__.startswith(dst), gp.__file__
+    dev = torch.device("cuda:0")
+    gen = cs.generic_potentials(torch, dev)
+    ops = cs.op_table_potentials(torch, dev)
+    rest = cs.rest_potentials(torch, dev)
+    cases = {
+        "flagship": (gen["binds"]["flagship"], (), gen["flagship_t"], 100,
+                     ("k7", "k3")),
+        "cell": (gen["binds"]["cell"], (gen["X"], gen["y"]), None, 100,
+                 ("k3",)),
+        "probit100": (ops["probit100"]["bound"], ops["probit100"]["rows"],
+                      ops["probit100"]["pot"], 100, ("k7", "k3")),
+        "softmax_reg": (rest["softmax_reg"]["bound"],
+                        rest["softmax_reg"]["rows"],
+                        rest["softmax_reg"]["pot"], 100, ("k7", "k3")),
+    }
+    names = args.names.split(",")
+    variants = args.variants.split(",")
+
+    class SharedWs:
+        def __enter__(self):
+            self.f = lp.generic_workspace_shared
+            lp.generic_workspace_shared = lambda dim, w, fixed=0: w > 0
+
+        def __exit__(self, *a):
+            lp.generic_workspace_shared = self.f
+
+    def fits_hmc_shared(b):  # at one NUTS block an SM, if not two
+        geo = getattr(b, "geometry", None)
+        fixed = geo.fixed_floats if geo is not None else 0
+        smem = 4 * (17 * 8 * lp.state_stride(b.ir.dim) + 8 + fixed
+                    + 8 * b.workspace)
+        return smem <= lp.SMEM_LIMIT
+
+    texts, geos = {}, {}
+    for name in names:
+        b = cases[name][0]
+        for v in variants:
+            if v == "wsshared" and not fits_hmc_shared(b):
+                continue
+            if v == "wsshared":
+                with SharedWs():
+                    texts[(name, v)] = gp.emit_cuda(b.ir)
+                    if hasattr(gp, "geometry_of"):
+                        geos[(name, v)] = gp.geometry_of(b.ir)
+            elif v == "probe":
+                texts[(name, v)] = probe_text(b.source)
+            elif v == "noload":
+                texts[(name, v)] = noload_text(b.source)
+            else:
+                texts[(name, v)] = b.source
+    t0 = time.perf_counter()
+    _build.build_all(generated=tuple(set(texts.values())))
+    res = dict(tree=args.tree, tag=args.tag, chains=args.chains,
+               build_s=time.perf_counter() - t0, runs={})
+    print(f"built {len(set(texts.values()))} libraries in "
+          f"{res['build_s']:.1f} s", flush=True)
+    rng = np.random.default_rng(19)
+    chains = args.chains
+    for name in names:
+        b, rows, pot, dim, kernels = cases[name]
+        q = torch.tensor(0.1 * rng.standard_normal((chains, dim)),
+                         dtype=torch.float32, device=dev)
+        ops_b = b.operands(rows, dev)
+        u0, g0 = gp.run_plain(b.ir, q.T.contiguous(), ops_b)
+        u0, g0 = u0.reshape(-1), g0.T.contiguous()
+        imm = torch.ones(dim, device=dev)
+        steps = torch.full((), 10, dtype=torch.int32, device=dev)
+        src0, geo0 = b.source, getattr(b, "geometry", None)
+        for v in variants:
+            if (name, v) not in texts:
+                continue
+            b.source = texts[(name, v)]
+            if (name, v) in geos:
+                b.geometry = geos[(name, v)]
+            lib = b.library()
+            ctx = SharedWs() if v == "wsshared" else None
+            if ctx:
+                ctx.__enter__()
+            try:
+                for kern in kernels:
+                    if v == "noload" and kern != "k7":
+                        continue
+                    if kern == "k7":
+                        kw = (dict(potential_and_grad_t=None,
+                                   potential_fn_t=pot) if pot else {})
+
+                        def f(kw=kw):
+                            return cf.chees_transition_cuda(
+                                q, u0, g0, imm, 0.05, steps, rows, seed=7,
+                                **kw)
+                        tag = "hmc"
+                    else:
+                        def f():
+                            return nf.nuts_transition_std_cuda(
+                                q, u0.reshape(-1, 1), g0, imm, 0.05, rows,
+                                max_exp=6, seed=7, bound=b)
+                        tag = "nuts"
+                    out = f()
+                    torch.cuda.synchronize()
+                    rec = dict(ms=kernel_ms(f, 3))
+                    if kern == "k3":
+                        rec["leaves"] = float(out[3][:, 3].sum())
+                    if v == "probe":
+                        n = ((chains + 7) // 8) * 8 * SLOTS
+                        buf = (ctypes.c_ulonglong * n)()
+                        getattr(lib, f"gpg_prof_{tag}")(None, 0, 1)
+                        f()
+                        torch.cuda.synchronize()
+                        getattr(lib, f"gpg_prof_{tag}")(buf, n, 0)
+                        a = np.frombuffer(buf, dtype=np.uint64).reshape(
+                            -1, SLOTS).astype(np.float64)
+                        tot = a[:, C["total"]].sum() + a[:, C["between"]].sum()
+                        rec["shares"] = {k: float(a[:, C[k]].sum() / tot)
+                                         for k in CATS[:-1]}
+                        rec["calls_per_warp"] = float(a[:, C["calls"]].mean())
+                    res["runs"][f"{name}/{kern}/{v}"] = rec
+                    print(args.tag, name, kern, v, json.dumps(rec),
+                          flush=True)
+            finally:
+                if ctx:
+                    ctx.__exit__()
+        b.source = src0
+        if geo0 is not None:
+            b.geometry = geo0
+    # LogisticPGT on the same inputs, in the same process
+    X, y = gen["X"], gen["y"]
+    data = (X, X.T.contiguous(), y.reshape(-1, 1))
+    q = torch.tensor(0.1 * rng.standard_normal((chains, 100)),
+                     dtype=torch.float32, device=dev)
+    b = gen["binds"]["flagship"]
+    u0, g0 = gp.run_plain(b.ir, q.T.contiguous(), b.operands((), dev))
+    u0, g0 = u0.reshape(-1), g0.T.contiguous()
+    imm = torch.ones(100, device=dev)
+    steps = torch.full((), 10, dtype=torch.int32, device=dev)
+    hand = nf._logistic_model(X, y, 1.0, torch.float32)
+    res["runs"]["logistic/k7/hand"] = dict(ms=kernel_ms(
+        lambda: cf.chees_transition_cuda(q, u0, g0, imm, 0.05, steps, data,
+                                         seed=7), 3))
+    res["runs"]["logistic/k3/hand"] = dict(ms=kernel_ms(
+        lambda: nf._transition(hand, q, u0.reshape(-1, 1), g0, None, None,
+                               None, None, imm, 0.05, seed=7, max_exp=6,
+                               divergence_threshold=1000.0), 3))
+    print(args.tag, "logistic", json.dumps(res["runs"]["logistic/k7/hand"]),
+          json.dumps(res["runs"]["logistic/k3/hand"]), flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(res, fh, indent=1)
+
+
+if __name__ == "__main__":
+    main()

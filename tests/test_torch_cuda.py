@@ -1800,7 +1800,7 @@ def test_cuda_hmc_functor_instantiations_hold_two_blocks_per_sm(cuda_device):
         bound = generic_pg.bind(fn, fn_data, dim, with_grad=with_grad,
                                 device=cuda_device)
         plan = launch_plan("hmc", dim, 0, 8192, functor="generic",
-                           workspace=bound.workspace)
+                           geometry=bound.geometry)
         lib = bound.library()
         for kernel, dense in ((5, 0), (6, 0), (7, 0), (7, 1)):
             assert lib.hmc_generic_blocks_per_sm(kernel, dense,

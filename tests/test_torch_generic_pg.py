@@ -60,6 +60,7 @@ from aehmc_tpu_torch.models.regression import _softplus, logistic_potential_t
 from aehmc_tpu_torch.ops import LAUNCHES, _build, generic_pg
 from aehmc_tpu_torch.ops import nuts_fused as nf
 from aehmc_tpu_torch.ops.launch_plan import (
+    generic_geometry,
     generic_workspace_floats,
     generic_workspace_shared,
     launch_plan,
@@ -696,7 +697,11 @@ def test_long_rows_into_few_outputs_take_the_warp_per_output():
     traced = _traced("logistic_wide")[-1]
     text = generic_pg.emit_cuda(traced.ir)
     assert "for (int o0 = 0; o0 < 13; o0 += 8)" in text
-    assert "o0 + 4 < 13" in text and "o0 + 5 < 13" in text
+    # the 8 sums' butterflies at once, sum u stored by lane 4u unless
+    # past the 13th (a ragged tail recomputes the last output)
+    assert "gpg_warp_sums<8>(acc, lane)" in text
+    assert "lane % 4 == 0 && o0 + (lane / 4) < 13" in text
+    assert "gpg_imin(o0 + 5, 12)" in text
 
 
 def test_closed_over_tensors_become_data_operands():
@@ -782,8 +787,13 @@ def test_emit_cuda_is_deterministic_and_names_every_operand(name):
     assert traced.ir.key() == again.ir.key()
     assert _build.generated_path(text) == _build.generated_path(
         generic_pg.emit_cuda(again.ir))
-    for j in range(len(traced.ir.data_shapes)):
-        assert f"D{j} = data.ptr[{j}];" in text
+    geo = generic_pg.geometry_of(traced.ir)
+    for j in range(len(traced.ir.data_shapes)):  # read in place or resident
+        if geo.kind(j) == "resident":
+            assert f"R{j} = S.res + " in text
+            assert f"make_resident(S, {j}, " in text
+        else:
+            assert f"D{j} = data.ptr[{j}];" in text
     stats = {}
     dim = traced.ir.dim
     generic_pg.run_plain(traced.ir, torch.zeros(dim, 2),
@@ -794,15 +804,17 @@ def test_emit_cuda_is_deterministic_and_names_every_operand(name):
 
 
 def test_launch_plan_of_a_generated_functor():
+    geo = generic_geometry(100, 2_100)
     big = launch_plan("nuts", 100, 6, 10_240, functor="generic",
-                      workspace=2_100)
+                      geometry=geo)
     assert (big.points, big.row_stride, big.chains) == (0, 0, 8)
-    assert not generic_workspace_shared(100, 2_100)
-    assert generic_workspace_floats(100, 2_100, big.blocks) == \
+    assert not generic_workspace_shared(100, 2_100) and not geo.ws_shared
+    assert generic_workspace_floats(geo, big.blocks) == \
         big.blocks * 8 * 2_100
-    small = launch_plan("nuts", 25, 10, 512, functor="generic", workspace=50)
-    assert generic_workspace_shared(25, 50)
-    assert generic_workspace_floats(25, 50, small.blocks) == 0
+    geo = generic_geometry(25, 50)
+    small = launch_plan("nuts", 25, 10, 512, functor="generic", geometry=geo)
+    assert generic_workspace_shared(25, 50) and geo.ws_shared
+    assert generic_workspace_floats(geo, small.blocks) == 0
     assert small.smem == 4 * (17 * 8 * 28 + 8 + 8 * 50)
 
 
@@ -824,14 +836,18 @@ _MOCK = r'''
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+// one block: 8 warps of 32 threads, a barrier a warp (__syncwarp and the
+// shuffles) and one for the block (__syncthreads)
 namespace emu {
-inline std::barrier<>* bar;
-inline float vals[32];
+inline std::barrier<>* warp[8];
+inline std::barrier<>* block;
+inline float vals[256];
 }
 struct Idx { int x; };
 inline thread_local Idx threadIdx{0};
 inline Idx blockIdx{0};
-inline void __syncwarp() { emu::bar->arrive_and_wait(); }
+inline void __syncwarp() { emu::warp[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncthreads() { emu::block->arrive_and_wait(); }
 inline float __ldg(const float* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
 // CUDA's erfcxf (exp(x^2) erfc(x)), from glibc's double functions
@@ -849,48 +865,56 @@ inline float __int_as_float(unsigned v) {
 namespace aehmc {
 struct Geometry { int blocks, points, row_stride, smem, chains; };
 constexpr unsigned FULL = 0xffffffffu;
-// the warp's shuffles through shared slots and the barrier
+constexpr int NT = 256;
+// the asynchronous copy: a plain copy, landed when issued; the wait and the
+// block barrier after it (chunk_ready) then order it as on the card
+inline void gpg_copy4(float* dst, const float* src) {
+  std::memcpy(dst, src, 4);
+}
+inline void gpg_copy_commit() {}
+inline void gpg_copy_wait() {}
+// the warp's shuffles through the warp's shared slots and its barrier
 inline float __shfl_down_sync(unsigned, float v, int o) {
-  const int lane = threadIdx.x % 32;
-  emu::vals[lane] = v;
-  emu::bar->arrive_and_wait();
-  const float other = lane + o < 32 ? emu::vals[lane + o] : v;
-  emu::bar->arrive_and_wait();
+  const int lane = threadIdx.x % 32, base = threadIdx.x - lane;
+  emu::vals[threadIdx.x] = v;
+  __syncwarp();
+  const float other = lane + o < 32 ? emu::vals[base + lane + o] : v;
+  __syncwarp();
+  return other;
+}
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  emu::vals[threadIdx.x] = v;
+  __syncwarp();
+  const float other = emu::vals[threadIdx.x ^ o];
+  __syncwarp();
   return other;
 }
 inline float __shfl_sync(unsigned, float v, int src) {
-  emu::vals[threadIdx.x % 32] = v;
-  emu::bar->arrive_and_wait();
-  const float out = emu::vals[src];
-  emu::bar->arrive_and_wait();
+  emu::vals[threadIdx.x] = v;
+  __syncwarp();
+  const float out = emu::vals[threadIdx.x - threadIdx.x % 32 + src];
+  __syncwarp();
   return out;
 }
 // __shfl_down_sync's butterfly, then lane 0's value to every lane
 inline float warp_sum(float v) {
-  const int lane = threadIdx.x % 32;
-  for (int o = 16; o > 0; o >>= 1) {
-    emu::vals[lane] = v;
-    emu::bar->arrive_and_wait();
-    const float other = lane + o < 32 ? emu::vals[lane + o] : v;
-    emu::bar->arrive_and_wait();
-    v += other;
-  }
-  emu::vals[lane] = v;
-  emu::bar->arrive_and_wait();
-  v = emu::vals[0];
-  emu::bar->arrive_and_wait();
-  return v;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return __shfl_sync(FULL, v, 0);
 }
 }  // namespace aehmc
 '''
 
 _MAIN = r'''
 #include <cstdio>
+#include <deque>
 #include <thread>
 #include <vector>
 #include "generic_pg.cuh"
 using namespace aehmc;
 #include "functor.cu"
+// C chains in blocks of 8 (the last padded with its first chain): each
+// block's 256 threads copy the resident operands (request), meet at the
+// block barrier, and call the functor once
 int main() {
   int C, n;
   if (fread(&C, 4, 1, stdin) != 1 || fread(&n, 4, 1, stdin) != 1) return 2;
@@ -906,25 +930,39 @@ int main() {
     pg.data.len[j] = len;
   }
   const int W = GenericPG::W > 0 ? GenericPG::W : 1;
-  std::vector<float> global(8 * W, NAN), smem(8 + 8 * W, NAN);
+  std::vector<float> global(8 * W, NAN);
+  std::vector<float> smem(8 + GenericPG::RES_FLOATS +
+                          2 * GenericPG::TILE_FLOATS + 8 * W, NAN);
   pg.ws_global = global.data();
-  if (!pg.fits(GenericPG::DIM, Geometry{1, 0, 0, 1, 8})) return 3;
+  if (!pg.fits(GenericPG::DIM, Geometry{1, GenericPG::TILE_ROWS,
+                                        GenericPG::TILE_STRIDE, 1, 8}))
+    return 3;
   const int dim = GenericPG::DIM, ds = (dim + 3) / 4 * 4;
   std::vector<float> q(8 * ds, 0.f), g(8 * ds, NAN);
-  std::barrier<> bar(32);
-  emu::bar = &bar;
+  std::deque<std::barrier<>> warps;
+  for (int w = 0; w < 8; ++w) emu::warp[w] = &warps.emplace_back(32);
+  std::barrier<> block(256);
+  emu::block = &block;
   const auto S = GenericPG::carve_scratch(smem.data(), ds);
-  for (int c = 0; c < C; ++c) {
-    if (fread(q.data(), 4, dim, stdin) != (size_t)dim) return 2;
-    std::vector<std::thread> warp;
-    for (int lane = 0; lane < 32; ++lane)
-      warp.emplace_back([&, lane] {
-        threadIdx.x = lane;
+  for (int c0 = 0; c0 < C; c0 += 8) {
+    const int nc = C - c0 < 8 ? C - c0 : 8;
+    for (int c = 0; c < nc; ++c)
+      if (fread(q.data() + c * ds, 4, dim, stdin) != (size_t)dim) return 2;
+    for (int c = nc; c < 8; ++c)
+      std::memcpy(q.data() + c * ds, q.data(), 4 * dim);
+    std::vector<std::thread> threads;
+    for (int t = 0; t < 256; ++t)
+      threads.emplace_back([&, t] {
+        threadIdx.x = t;
+        pg.request(S);
+        __syncthreads();
         pg(S, dim, ds, q.data(), g.data());
       });
-    for (auto& t : warp) t.join();
-    fwrite(&S.nu[0], 4, 1, stdout);
-    fwrite(g.data(), 4, dim, stdout);
+    for (auto& t : threads) t.join();
+    for (int c = 0; c < nc; ++c) {
+      fwrite(&S.nu[c], 4, 1, stdout);
+      fwrite(g.data() + c * ds, 4, dim, stdout);
+    }
   }
   return 0;
 }
@@ -933,7 +971,7 @@ int main() {
 
 def _emulate(source, operands, q, work):
     """(u (C,), g (C, dim)) of the emitted functor compiled for the CPU,
-    one warp emulated by 32 threads (chain 0 of block 0)."""
+    one block emulated by 256 threads: 8 warps, 8 chains at a time."""
     (work / "hierarchical_pg.cuh").write_text(_MOCK)
     shutil.copy(_build.CSRC / "generic_pg.cuh", work / "generic_pg.cuh")
     (work / "functor.cu").write_text(source)

@@ -292,14 +292,15 @@ def test_hmc_plan_of_a_functor_without_x(functor, dim, chains):
         assert (nuts.points, nuts.row_stride, nuts.chains) == (0, 0, 8)
         return
     work = 16
+    geo = lp.generic_geometry(dim, work)
     for x_dtype in (torch.float32, torch.bfloat16):
         plan = lp.launch_plan("hmc", dim, 0, chains, x_dtype,
-                              functor=functor, workspace=work)
+                              functor=functor, geometry=geo)
         assert (plan.points, plan.row_stride, plan.chains) == (0, 0, 8)
         assert plan.blocks == -(-chains // 8)
         assert plan.smem == 4 * (8 * 8 * lp.state_stride(dim) + 8 + 8 * work)
     assert plan.smem < lp.launch_plan("nuts", dim, 6, chains, functor=functor,
-                                      workspace=work).smem
+                                      geometry=geo).smem
 
 
 def test_hmc_plan_follows_the_workspace_the_functor_was_emitted_with():
@@ -311,10 +312,12 @@ def test_hmc_plan_follows_the_workspace_the_functor_was_emitted_with():
     hmc_alone = 4 * (8 * 8 * lp.state_stride(dim) + 8 + 8 * work)
     assert lp.two_blocks_fit(hmc_alone)
     assert not lp.generic_workspace_shared(dim, work)
+    geo = lp.generic_geometry(dim, work)
+    assert not geo.ws_shared
     plan = lp.launch_plan("hmc", dim, 0, chains, functor="generic",
-                          workspace=work)
+                          geometry=geo)
     assert plan.smem == 4 * (8 * 8 * lp.state_stride(dim) + 8)
-    assert lp.generic_workspace_floats(dim, work, plan.blocks) == \
+    assert lp.generic_workspace_floats(geo, plan.blocks) == \
         plan.blocks * 8 * work
 
 
@@ -323,7 +326,8 @@ def test_hmc_plan_of_real_generated_functors(points):
     """Two emitted functors, a small one whose workspace the NUTS plan puts
     in shared memory and the logistic posterior at 3,000 points, whose
     workspace it puts in global memory: the HMC plan's shared memory holds
-    the workspace exactly when the functor's text says WS_SHARED."""
+    the workspace exactly when the functor's text says WS_SHARED, beside
+    the functor's resident operands and tile buffers."""
     dim = 10
     rng = np.random.default_rng(points)
     X = torch.tensor(rng.normal(size=(points, dim)).astype(F32))
@@ -337,12 +341,15 @@ def test_hmc_plan_of_real_generated_functors(points):
     bound = generic_pg.bind(logistic_t, (X, y_col), dim)
     shared = "WS_SHARED = true" in bound.source
     assert shared == (points == 4)
-    assert shared == lp.generic_workspace_shared(dim, bound.workspace)
+    geo = bound.geometry
+    assert shared == geo.ws_shared == lp.generic_workspace_shared(
+        dim, bound.workspace, geo.fixed_floats)
     plan = lp.launch_plan("hmc", dim, 0, CHAINS, functor="generic",
-                          workspace=bound.workspace)
-    rows = 4 * (8 * 8 * lp.state_stride(dim) + 8)
+                          geometry=geo)
+    rows = 4 * (8 * 8 * lp.state_stride(dim) + 8 + geo.fixed_floats)
     assert plan.smem == rows + (4 * 8 * bound.workspace if shared else 0)
-    floats = lp.generic_workspace_floats(dim, bound.workspace, plan.blocks)
+    assert f"RES_FLOATS = {geo.resident_floats};" in bound.source
+    floats = lp.generic_workspace_floats(geo, plan.blocks)
     assert floats == (0 if shared else plan.blocks * 8 * bound.workspace)
 
 
