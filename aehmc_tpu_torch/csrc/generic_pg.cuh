@@ -48,7 +48,13 @@
 // blocks still fit an SM with it, else in a global buffer of blocks × CB ×
 // W floats the wrapper allocates (launch_plan.generic_workspace_floats),
 // indexed by block and warp, so a chain keeps its slot across the draws of
-// kernels 2 and 4.
+// kernels 2 and 4.  With a global workspace, a functor that factors or
+// solves dense matrices (Cholesky, LU, a triangular solve of several right
+// sides) may have a factor scratch of FS floats a chain in shared memory
+// after it: each such node copies its matrix in, works there (a factor at
+// an odd row stride, so lanes reading down a column hit distinct banks),
+// and writes its result to its workspace slot; a warp's nodes take the
+// scratch in turn, no block barrier.
 //
 // The helpers keep torch's semantics on NaN: a clamp, a maximum or a
 // minimum of NaN is NaN (fmaxf would drop it), a sort puts NaN last
@@ -90,6 +96,7 @@ struct Scratch {
   float* res;   // the resident operands, at 4-float offsets
   float* tile;  // two tile buffers of TILE_FLOATS each
   float* ws;    // (CB, W) in shared memory, or null
+  float* fs;    // (CB, FS): the dense nodes' working matrices, or null
 };
 
 #ifdef __CUDACC__
@@ -131,12 +138,16 @@ struct Base {
   }
 
   // the potentials, the RES floats of resident operands, two tile buffers
-  // of TILE floats, then (shared workspace) CB rows of W floats
-  template <bool SHARED, int RES, int TILE>
+  // of TILE floats, then (shared workspace) CB rows of W floats, then CB
+  // rows of FS floats of factor scratch
+  template <bool SHARED, int RES, int TILE, int W = 0, int FS = 0>
   static __device__ Scratch carve(float* base) {
     float* res = base + CB;
     float* tile = res + RES;
-    return Scratch{base, res, tile, SHARED ? tile + 2 * TILE : nullptr};
+    float* ws = tile + 2 * TILE;
+    float* fs = ws + (SHARED ? CB * W : 0);
+    return Scratch{base, res, tile, SHARED ? ws : nullptr,
+                   FS ? fs : nullptr};
   }
 
   // integer data operand j (an int32 row in a float slot)
@@ -178,6 +189,12 @@ struct Base {
 
   // before the block exits: nothing a call requested outlives it
   __device__ void drain(const Scratch&) const { gpg_copy_wait(); }
+
+  // chain c's FS floats of factor scratch (shared memory)
+  template <int FS>
+  __device__ float* chain_factor(const Scratch& S, int c) const {
+    return S.fs + (size_t)c * FS;
+  }
 
   // chain c's W floats of workspace
   template <bool SHARED, int W>

@@ -149,6 +149,18 @@ WARP_OUTPUTS_WINDOW = 32
 # a lane's outputs of the one-lane-an-output products summing over a
 # streamed operand's rows that it keeps in registers across the chunks
 SUM_REGISTERS = 16
+# rows a factorisation's trailing update loads before it stores them (half
+# as many past 64 columns, whose lanes hold more columns each)
+RANK_ROWS = 8
+# terms of a substitution's sequential sum whose loads a trip issues first
+SUM_UNROLL = 4
+# a triangular solve of several right sides: columns a lane solves at once,
+# and rows of the solve at once
+SOLVE_COLUMNS, SOLVE_ROWS = 2, 2
+# a product of two workspace matrices: rows of outputs a lane sums at once
+# (each with its columns lane, lane + 32, ...), and terms whose loads it
+# issues before their fused multiply-adds
+PRODUCT_ROWS, PRODUCT_TERMS = 2, 8
 _ROADMAP = "ROADMAP.md item 1.10c (the generic compiler's op table)"
 _Q_MASK = ("indexing by a bool mask that depends on q (x[q > 0], x[mask] = v) "
            "gives a shape that depends on the values, which neither package "
@@ -3155,10 +3167,11 @@ def _sort_width(length: int) -> int:
 
 def _scratch(ir, n: Node) -> int:
     """Workspace floats a sequential node keeps after its output: an LU's
-    factors, a Jacobi's matrix and eigenvectors, a bitonic sort's keys and
-    indices."""
-    if n.op in ("lusolve", "slogdet"):
-        return ir.nodes[n.args[0]].shape[-1] ** 2
+    factors and pivots, a Jacobi's matrix and eigenvectors, a bitonic
+    sort's keys and indices."""
+    if n.op in ("lusolve", "slogdet"):  # the LU and its pivots
+        size = ir.nodes[n.args[0]].shape[-1]
+        return size * size + size
     if n.op == "eigh":
         return 2 * n.shape[-1] ** 2
     if n.op == "sortidx":
@@ -3504,10 +3517,18 @@ class _Emitter:
                          if geometry else {})
         self.reads = {}  # in a chunk's body: (product, arg) -> RowAccess
         self.window = 0  # in a window pass: the tile's row stride
+        # floats a chain of factor scratch (0: none), the LU users
+        self.fs = geometry.factor_floats if geometry else 0
+        self.lu_users = _lu_owners(ir)
+        self.lu_owners = set(self.lu_users.values())
 
     def fresh(self, prefix):
         self.counter += 1
         return f"{prefix}{self.counter}"
+
+    def uses_factor(self, nid) -> bool:
+        """Whether node ``nid`` works in the factor scratch."""
+        return 0 < _factor_need(self.ir, nid) <= self.fs
 
     # -- values
     def load(self, nid, idx):
@@ -4031,6 +4052,9 @@ class _Emitter:
         unchunked, in order).
         Returns its statements to run before and after (declarations,
         warp reductions)."""
+        if not unit and len(roots) == 1 and self.ws_product(roots[0]):
+            self.product_tiles(roots[0], lines)
+            return [], []
         scope, after = _Scope(self), []
         for r in roots:
             self.emit_root(r, Ix("i", n), scope, after)
@@ -4041,6 +4065,63 @@ class _Emitter:
         lines.append("}")
         return ([s for kind, s in after if kind == "decl"],
                 [s for kind, s in after if kind == "post"])
+
+    def ws_product(self, nid) -> bool:
+        """Whether ``nid`` is a matrix product of two workspace matrices
+        (stored nodes of two axes longer than one, seen through views) whose
+        outputs tile by PRODUCT_ROWS rows and 32 columns."""
+        if nid == "g" or self.ir.nodes[nid].op != "mm":
+            return False
+        n = self.ir.nodes[nid]
+        m, ncols = n.shape
+        if m % PRODUCT_ROWS or ncols % 32:
+            return False
+        for a in n.args:
+            base = _through_views(self.ir, a)
+            if base not in self.sched.slots or len(
+                    [d for d in self.ir.nodes[base].shape if d > 1]) < 2:
+                return False
+        return True
+
+    def product_tiles(self, nid, lines):
+        """A product of two workspace matrices, a lane the outputs of
+        PRODUCT_ROWS rows in its columns (lane, lane + 32, ...): each term
+        k's elements of A's rows and B's columns loaded once for all of
+        them, PRODUCT_TERMS terms' loads before their ``fmaf``s; each
+        output's sum over k in order, as one output at a time takes it."""
+        n = self.ir.nodes[nid]
+        A, B = n.args
+        m, ncols = n.shape
+        red = _reduction_length(self.ir, n)
+        nc = ncols // 32
+        accs = [(u, v) for u in range(PRODUCT_ROWS) for v in range(nc)]
+        lines.append(f"for (int r0 = 0; r0 < {m}; r0 += {PRODUCT_ROWS}) {{")
+        lines += [f"  float p{u}_{v} = 0.f;" for u, v in accs]
+
+        def trip(k0, terms):
+            scope, fmas = _Scope(self), []
+            for t in range(terms):
+                k = Ix(f"({k0} + {t})" if t else k0, red)
+                a = [self.value(A, (Ix(f"(r0 + {u})" if u else "r0", m), k),
+                                scope) for u in range(PRODUCT_ROWS)]
+                b = [self.value(B, (k, Ix(f"(lane + {32 * v})" if v else
+                                          "lane", ncols)), scope)
+                     for v in range(nc)]
+                fmas += [f"p{u}_{v} = fmaf({a[u]}, {b[v]}, p{u}_{v});"
+                         for u, v in accs]
+            return ["    " + line for line in scope.lines + fmas]
+        full = red - red % PRODUCT_TERMS
+        if full:
+            lines.append(f"  for (int k0 = 0; k0 < {full}; k0 += "
+                         f"{PRODUCT_TERMS}) {{")
+            lines += trip("k0", PRODUCT_TERMS) + ["  }"]
+        if full < red:
+            lines.append(f"  for (int k0 = {full}; k0 < {red}; ++k0) {{")
+            lines += trip("k0", 1) + ["  }"]
+        for u, v in accs:
+            out = Ix(f"((r0 + {u}) * {ncols} + lane + {32 * v})", m * ncols)
+            lines.append(f"  {self.slot(nid, out)} = p{u}_{v};")
+        lines.append("}")
 
     def sum_pass(self, roots, lines):
         """The chunk's terms of one-lane-an-output products ``roots``: each
@@ -4252,19 +4333,35 @@ class _Emitter:
 
 
     def trsolve(self, nid, lines):
-        """Substitution row by row (forward when lower, backward when
-        upper), a right side at a time: row i's inner sum split over the
-        lanes (lane l the columns j = l, l + 32, ... counted from the
-        diagonal's far end, each ``fmaf`` in turn), ended by ``warp_sum``;
-        the lane of column i stores x_i, so each lane reads back only the
-        solutions it stored and the rows need no barrier."""
+        """A triangular solve: several right sides a lane a column
+        (:meth:`_trsolve_columns`); one right side row by row with the
+        lanes along the row (:meth:`_trsolve_rows`), or, where the matrix
+        is stored transposed (read through a permute), a column at a time
+        with the lanes down the column (:meth:`_trsolve_down`), so that the
+        lanes of a load read neighbouring addresses either way."""
+        n = self.ir.nodes[nid]
+        if n.shape[-1] > 1:
+            self._trsolve_columns(nid, lines)
+        elif (_lane_stride(self.ir, n.args[0], 2, self.stored) != 1 and
+              _lane_stride(self.ir, n.args[0], 1, self.stored) == 1):
+            self._trsolve_down(nid, lines)
+        else:
+            self._trsolve_rows(nid, lines)
+
+    def _trsolve_rows(self, nid, lines):
+        """One right side, row by row (forward when lower, backward when
+        upper): row i's inner sum split over the lanes (lane l the columns
+        j = l, l + 32, ... counted from the diagonal's far end, each
+        ``fmaf`` in turn), ended by ``warp_sum``; the lane of column i
+        stores x_i, so each lane reads back only the solutions it stored
+        and the rows need no barrier."""
         n = self.ir.nodes[nid]
         A, B = n.args
         upper, unit = n.params
-        batch, size, cols = n.shape
+        batch, size, _ = n.shape
         ba = self.ir.nodes[A].shape[0]
         b = Ix("b", batch) if batch > 1 else _ic(0)
-        col = Ix("col", cols) if cols > 1 else _ic(0)
+        col = _ic(0)
         i, j = Ix("i", size), Ix("j", size)
         if upper:  # rows n-1 .. 0, lane l owns the columns n-1-l, n-1-l-32, ...
             head = [f"for (int s = 0; s < {size}; ++s) {{",
@@ -4293,11 +4390,180 @@ class _Emitter:
         body += [f"  if (lane == {owner}) "
                  f"{self.slot(nid, _flatten((b, i, col), n.shape))} = {x_i};",
                  "}"]
-        for var, bound in (("col", cols), ("b", batch)):
-            if bound > 1:
-                body = ([f"for (int {var} = 0; {var} < {bound}; ++{var}) {{"]
-                        + ["  " + line for line in body] + ["}"])
+        if batch > 1:
+            body = ([f"for (int b = 0; b < {batch}; ++b) {{"]
+                    + ["  " + line for line in body] + ["}"])
         lines.extend(body)
+        lines.append("__syncwarp();")
+
+    def _trsolve_columns(self, nid, lines):
+        """Several right sides, a lane a column: SOLVE_COLUMNS columns a
+        lane at once (lane, lane + 32, ... of a group) and SOLVE_ROWS rows
+        of the solve at once, so each element of the matrix and of the
+        solved rows is loaded once for all of them.  Each solution x_ic =
+        (b_ic - sum_j a_ij x_jc) / a_ii takes its sum over the solved rows
+        j in the solve's order (ascending when lower, from the last row
+        down when upper) in one lane, ``fmaf`` by ``fmaf``, the rows solved
+        beside it last: no butterfly, and a lane reads back only the
+        solutions it wrote.  With a factor scratch the matrix is first
+        copied into it (its lanes along the stored rows) and the lane's
+        columns of solutions kept beside it, so the sums' loads wait on
+        shared memory; the solutions go to the node's slot as they come."""
+        n = self.ir.nodes[nid]
+        A, B = n.args
+        upper, unit = n.params
+        batch, size, cols = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        b = Ix("b", batch) if batch > 1 else _ic(0)
+        bA = b if ba > 1 else _ic(0)
+        nc = min(SOLVE_COLUMNS, -(-cols // 32))
+        width = 32 * nc
+        ragged = cols % width != 0
+        cols_at = ["(c0 + lane)"] + [f"(c0 + lane + {32 * c})"
+                                    for c in range(1, nc)]
+        col_ix = [Ix(f"gpg_imin({e}, {cols - 1})" if ragged else e, cols)
+                  for e in cols_at]
+        shared = self.uses_factor(nid)
+        body = []
+        if shared:
+            st, xo = _factor_stride(size), _factor_stride(size) * size
+
+            def a_of(r, c, scope):
+                return scope.temp(f"fs[({r.expr}) * {st} + {c.expr}]")
+
+            def x_of(r, c):
+                return f"fs[{xo} + ({r}) * {width} + lane + {32 * c}]"
+            body += self._copy(A, bA, size,
+                               lambda r, c: f"fs[({r}) * {st} + {c}]")
+            body.append("__syncwarp();")
+        else:
+            def a_of(r, c, scope):
+                return self.value(A, (bA, r, c), scope)
+
+            def x_of(r, c):
+                x = self.slot(nid, _flatten((b, Ix(r, size), col_ix[c]),
+                                            n.shape))
+                return f"({cols_at[c]} < {cols} ? {x} : 0.f)" if ragged \
+                    else x
+
+        def block(rows_at):
+            """Rows ``rows_at`` (C expressions, in the solve's order)."""
+            nr = len(rows_at)
+            out = [f"const int i{q} = {e};" for q, e in enumerate(rows_at)]
+            ri = [Ix(f"i{q}", size) for q in range(nr)]
+            pre = _Scope(self)  # read before the sum, which hides their wait
+            bv = [[self.value(B, (b, ri[q], col_ix[c]), pre)
+                   for c in range(nc)] for q in range(nr)]
+            diag = [None if unit else a_of(ri[q], ri[q], pre)
+                    for q in range(nr)]
+            cross = {(q, p): a_of(ri[q], ri[p], pre)
+                     for q in range(nr) for p in range(q)}
+            out += pre.lines
+            out += [f"float acc{q}_{c} = 0.f;" for q in range(nr)
+                    for c in range(nc)]
+
+            def term(v, u):
+                scope = _Scope(self)
+                a = [a_of(ri[q], Ix(v, size), scope) for q in range(nr)]
+                x = [scope.temp(x_of(v, c)) for c in range(nc)]
+                return scope.lines, [
+                    f"acc{q}_{c} = fmaf({a[q]}, {x[c]}, acc{q}_{c});"
+                    for q in range(nr) for c in range(nc)]
+            out += (_sum_loop("j", str(size - 1), ">", "i0", -1, term)
+                    if upper else _sum_loop("j", "0", "<", "i0", 1, term))
+            for q in range(nr):
+                for c in range(nc):
+                    acc = f"acc{q}_{c}"
+                    out += [f"{acc} = fmaf({cross[q, p]}, x{p}_{c}, {acc});"
+                            for p in range(q)]
+                    x = f"({bv[q][c]} - {acc})"
+                    out.append(f"const float x{q}_{c} = {x}"
+                               + ("" if unit else f" / {diag[q]}") + ";")
+                    if shared:
+                        out.append(f"{x_of(f'i{q}', c)} = x{q}_{c};")
+                    store = self.slot(nid, _flatten(
+                        (b, ri[q], Ix(cols_at[c], cols)), n.shape))
+                    guard = f"if ({cols_at[c]} < {cols}) " if ragged else ""
+                    out.append(f"{guard}{store} = x{q}_{c};")
+            return ["  " + line for line in out]
+
+        def row_at(k):
+            return f"{size - 1} - ({k})" if upper else f"({k})"
+        full = size - size % SOLVE_ROWS
+        solve = [f"for (int it = 0; it < {full}; it += {SOLVE_ROWS}) {{"]
+        solve += block([row_at(f"it + {q}" if q else "it")
+                        for q in range(SOLVE_ROWS)])
+        solve.append("}")
+        for k in range(full, size):
+            solve += ["{"] + block([row_at(str(k))]) + ["}"]
+        body.append(f"for (int c0 = 0; c0 < {cols}; c0 += {width}) {{")
+        body += ["  " + line for line in solve]
+        body += ["}", "__syncwarp();"]
+        if batch > 1:
+            body = ([f"for (int b = 0; b < {batch}; ++b) {{"]
+                    + ["  " + line for line in body] + ["}"])
+        lines.extend(body)
+
+    def _trsolve_down(self, nid, lines):
+        """One right side of a matrix stored transposed: a column at a
+        time in the order of the solve, the lanes down the column (row i in
+        lane i % 32, its residual r_i = b_i - sum_j a_ij x_j in a register,
+        ``fmaf`` by ``fmaf`` in the solve's order): x_j = r_j / a_jj, which
+        every lane takes from the owner's register by a shuffle, then each
+        lane's rows still to solve take their term of column j, read along
+        the stored rows."""
+        n = self.ir.nodes[nid]
+        A, B = n.args
+        upper, unit = n.params
+        batch, size, _ = n.shape
+        ba = self.ir.nodes[A].shape[0]
+        b = Ix("b", batch) if batch > 1 else _ic(0)
+        bA = b if ba > 1 else _ic(0)
+        ns = -(-size // 32)
+        body = []
+        for s in range(ns):
+            i = Ix(f"(lane + {32 * s})", size)
+            scope = _Scope(self)
+            ragged = 32 * (s + 1) > size
+            iv = Ix(f"gpg_imin(lane + {32 * s}, {size - 1})", size) \
+                if ragged else i
+            v = self.value(B, (b, iv, _ic(0)), scope)
+            body += scope.lines
+            body.append(f"float x{s} = {v};")
+        order = range(ns - 1, -1, -1) if upper else range(ns)
+        for S in order:
+            last = min(31, size - 1 - 32 * S)
+            head = (f"for (int t = {last}; t >= 0; --t) {{" if upper else
+                    f"for (int t = 0; t <= {last}; ++t) {{")
+            step = [f"const int j = {32 * S} + t;"]
+            scope = _Scope(self)
+            xj = f"__shfl_sync(FULL, x{S}, t)"
+            if not unit:
+                d = self.value(A, (bA, Ix("j", size), Ix("j", size)), scope)
+                xj = f"{xj} / {d}"
+            step += scope.lines
+            step += [f"const float xj = {xj};",
+                     f"if (lane == t) x{S} = xj;"]
+            for s in range(ns):
+                if (s > S) if upper else (s < S):
+                    continue  # every row of the slot solved before column j
+                i = Ix(f"(lane + {32 * s})", size)
+                after = f"lane + {32 * s} < j" if upper else \
+                    f"lane + {32 * s} > j && lane + {32 * s} < {size}"
+                scope = _Scope(self)
+                a = self.value(A, (bA, i, Ix("j", size)), scope)
+                step.append(f"if ({after}) {{")
+                step += ["  " + line for line in scope.lines]
+                step += [f"  x{s} = fmaf(-{a}, xj, x{s});", "}"]
+            body += [head] + ["  " + line for line in step] + ["}"]
+        for s in range(ns):
+            i = Ix(f"(lane + {32 * s})", size)
+            guard = f"if (lane + {32 * s} < {size}) " \
+                if 32 * (s + 1) > size else ""
+            out = self.slot(nid, _flatten((b, i, _ic(0)), n.shape))
+            body.append(f"{guard}{out} = x{s};")
+        head = f"for (int b = 0; b < {batch}; ++b) {{" if batch > 1 else "{"
+        lines.extend([head] + ["  " + line for line in body] + ["}"])
         lines.append("__syncwarp();")
 
     def scatter_add(self, nid, lines, update="+="):
@@ -4360,64 +4626,137 @@ class _Emitter:
         lines.append("}")
         lines.append("__syncwarp();")
 
+    def _lu_of(self, nid, shared):
+        """Accessors ``(LU(i, j), PIV(k), to_global)`` of the LU that node
+        ``nid`` factors or reads: in the factor scratch (``shared``), else
+        in the workspace after its owner's output (its own, or the node that
+        factors the same matrix first: :func:`_lu_owners`); the pivots, row
+        indices as floats, after the factors.  ``to_global``: lines copying
+        the scratch's LU and pivots to the owner's workspace, where a later
+        node reads them."""
+        n = self.ir.nodes[nid]
+        size = self.ir.nodes[n.args[0]].shape[-1]
+        owner = self.lu_users.get(nid, nid)
+        g0 = self.sched.slots[owner] + _numel(self.ir.nodes[owner].shape)
+
+        def glu(i, j):
+            return f"ws[{g0} + ({i}) * {size} + {j}]"
+
+        def gpiv(k):
+            return f"ws[{g0 + size * size} + {k}]"
+        if not shared:
+            return glu, gpiv, []
+        st = _factor_stride(size)
+
+        def lu(i, j):
+            return f"fs[({i}) * {st} + {j}]"
+
+        def piv(k):
+            return f"fs[{size * st} + {k}]"
+        out = [f"for (int e = lane; e < {size * size}; e += 32) {{",
+               f"  {glu(f'e / {size}', f'e % {size}')} = "
+               f"{lu(f'e / {size}', f'e % {size}')};", "}",
+               f"for (int k = lane; k < {size}; k += 32) {{",
+               f"  {gpiv('k')} = {piv('k')};", "}"]
+        return lu, piv, out
+
+    def _lu_here(self, nid, LU, PIV, to_global, bA):
+        """Lines that give node ``nid`` its LU: its matrix factored in place
+        (:func:`_lu_factor`, lane 0 recording each pivot), copied to the
+        workspace where a later node reads it; or, for a node whose owner
+        factored the same matrix, the owner's LU copied into the factor
+        scratch (nothing where both are the workspace's)."""
+        n = self.ir.nodes[nid]
+        A = n.args[0]
+        size = self.ir.nodes[A].shape[-1]
+        if nid in self.lu_users:
+            if not to_global:
+                return []
+            glu, gpiv, _ = self._lu_of(nid, False)
+            return [f"for (int e = lane; e < {size * size}; e += 32) {{",
+                    f"  {LU(f'e / {size}', f'e % {size}')} = "
+                    f"{glu(f'e / {size}', f'e % {size}')};", "}",
+                    f"for (int k = lane; k < {size}; k += 32) {{",
+                    f"  {PIV('k')} = {gpiv('k')};", "}", "__syncwarp();"]
+        body = self._copy(A, bA, size, LU)
+        body += ["__syncwarp();"]
+        body += _lu_factor(LU, size, [f"if (lane == 0) {PIV('k')} = "
+                                      "(float)p;"])
+        if nid in self.lu_owners:
+            body += to_global + ["__syncwarp();"]
+        return body
+
     def lusolve(self, nid, lines):
-        """``A X = B`` a right-side batch at a time: ``B`` into the
-        solution's slot and ``A`` into the factors' (after the solution),
-        then LU with partial pivoting, column by column: every lane scans
-        the column below the diagonal for the first largest ``|a|`` (LAPACK
-        ``i?amax``'s pivot), the lanes swap the pivot row in the factors and
-        the right sides, then each lane eliminates its rows (row r in lane
-        r % 32, ``fmaf`` along the row); then forward (unit lower) and
-        backward (upper) substitution, one lane a right-side column, its
-        sums sequential."""
+        """``A X = B`` by LU with partial pivoting (:meth:`_lu_here`: the
+        matrix factored once for every right-side batch when it has no
+        batch of its own, and once for every node that solves or takes the
+        log-determinant of the same matrix), then a lane a right-side
+        column: its column of B, the pivots' row swaps in order, then
+        forward (unit lower) and backward (upper) substitution, its sums
+        sequential; with a factor scratch the column lives beside the
+        factors in shared memory and goes to the node's slot at the end."""
         n = self.ir.nodes[nid]
         A, B = n.args
         batch, size, cols = n.shape
         ba = self.ir.nodes[A].shape[0]
         base = self.sched.slots[nid]
-        lu0 = base + _numel(n.shape)
+        shared = self.uses_factor(nid)
+        LU, PIV, to_global = self._lu_of(nid, shared)
+        if shared:
+            xo = _factor_stride(size) * size + size
 
-        def X(b, i, j):
-            return f"ws[{base} + {b} * {size * cols} + ({i}) * {cols} + {j}]"
+            def X(i):
+                return f"fs[{xo} + ({i}) * 32 + lane]"
+        else:
+            def X(i):
+                return (f"ws[{base} + b * {size * cols} + ({i}) * {cols} + "
+                        "col]")
+        scope = _Scope(self)
+        vb = self.value(B, (Ix("b", batch), Ix("i", size), Ix("col", cols)),
+                        scope)
 
-        def LU(i, j):
-            return f"ws[{lu0} + ({i}) * {size} + {j}]"
-
-        copy_b, copy_a = _Scope(self), _Scope(self)
-        e_b = _unflatten(Ix("e", size * cols), (size, cols))
-        vb = self.value(B, (Ix("b", batch), *e_b), copy_b)
-        e_a = _unflatten(Ix("e", size * size), (size, size))
-        va = self.value(A, (Ix("b", batch) if ba > 1 else _ic(0), *e_a),
-                        copy_a)
-        swap_b = [f"for (int j = lane; j < {cols}; j += 32) {{",
-                  f"  const float t = {X('b', 'k', 'j')};",
-                  f"  {X('b', 'k', 'j')} = {X('b', 'p', 'j')};",
-                  f"  {X('b', 'p', 'j')} = t;",
-                  "}"]
-        body = [f"for (int e = lane; e < {size * cols}; e += 32) {{",
-                *("  " + line for line in copy_b.lines),
-                f"  ws[{base} + b * {size * cols} + e] = {vb};", "}",
-                f"for (int e = lane; e < {size * size}; e += 32) {{",
-                *("  " + line for line in copy_a.lines),
-                f"  ws[{lu0} + e] = {va};", "}", "__syncwarp();",
-                *_lu_factor(LU, size, swap_b),
-                f"for (int j = lane; j < {cols}; j += 32) {{",
-                f"  for (int i = 1; i < {size}; ++i) {{",
-                f"    float acc = {X('b', 'i', 'j')};",
-                "    for (int t = 0; t < i; ++t)",
-                f"      acc = fmaf(-{LU('i', 't')}, {X('b', 't', 'j')}, acc);",
-                f"    {X('b', 'i', 'j')} = acc;",
-                "  }",
-                f"  for (int i = {size - 1}; i >= 0; --i) {{",
-                f"    float acc = {X('b', 'i', 'j')};",
-                f"    for (int t = i + 1; t < {size}; ++t)",
-                f"      acc = fmaf(-{LU('i', 't')}, {X('b', 't', 'j')}, acc);",
-                f"    {X('b', 'i', 'j')} = acc / {LU('i', 'i')};",
-                "  }",
-                "}",
-                "__syncwarp();"]
+        def term(v, u):
+            return ([f"const float la{u} = {LU('i', v)};",
+                     f"const float lx{u} = {X(v)};"],
+                    [f"acc = fmaf(-la{u}, lx{u}, acc);"])
+        solve = [f"for (int col = lane; col < {cols}; col += 32) {{",
+                 f"  for (int i = 0; i < {size}; ++i) {{",
+                 *("    " + line for line in scope.lines),
+                 f"    {X('i')} = {vb};",
+                 "  }",
+                 f"  for (int k = 0; k < {size}; ++k) {{",
+                 f"    const int p = (int){PIV('k')};",
+                 "    if (p != k) {",
+                 f"      const float t = {X('k')};",
+                 f"      {X('k')} = {X('p')};",
+                 f"      {X('p')} = t;",
+                 "    }",
+                 "  }",
+                 f"  for (int i = 1; i < {size}; ++i) {{",
+                 f"    float acc = {X('i')};",
+                 *("    " + line for line in _sum_loop("t", "0", "<", "i", 1,
+                                                      term)),
+                 f"    {X('i')} = acc;",
+                 "  }",
+                 f"  for (int i = {size - 1}; i >= 0; --i) {{",
+                 f"    float acc = {X('i')};",
+                 *("    " + line for line in _sum_loop(
+                     "t", "i + 1", "<", str(size), 1, term)),
+                 f"    {X('i')} = acc / {LU('i', 'i')};",
+                 "  }"]
+        if shared:
+            solve += [f"  for (int i = 0; i < {size}; ++i)",
+                      f"    ws[{base} + b * {size * cols} + i * {cols} + col]"
+                      f" = {X('i')};"]
+        solve += ["}", "__syncwarp();"]
+        once = ba == 1
+        bA = _ic(0) if once else Ix("b", batch)
+        here = self._lu_here(nid, LU, PIV, to_global, bA)
+        if once:
+            lines.extend(here)
+            here = []
         lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
-        lines.extend("  " + line for line in body)
+        lines.extend("  " + line for line in here + solve)
         lines.append("}")
 
     def cumsum(self, nid, lines, init="0.f", step="acc + {v}"):
@@ -4494,22 +4833,35 @@ class _Emitter:
             self.ir.nodes[n.args[0]].shape[0] > 1 else _ic(0)
 
     def lufactor(self, nid, lines):
-        """getrf a matrix: its copy in the output's slot, factored in place
-        (``_lu_factor``), lane 0 writing each 1-based pivot in the row
-        after the factors."""
+        """getrf a matrix: its copy factored in place (``_lu_factor``; in
+        the factor scratch where there is one, then copied to the output's
+        slot), lane 0 writing each 1-based pivot in the row after the
+        factors."""
         n = self.ir.nodes[nid]
         (A,) = n.args
         size = n.shape[-1]
         base = self.sched.slots[nid]
         block = f"b * {(size + 1) * size}"
 
-        def LU(i, j):
+        def out(i, j):
             return f"ws[{base} + {block} + ({i}) * {size} + {j}]"
 
+        if self.uses_factor(nid):
+            st = _factor_stride(size)
+
+            def LU(i, j):
+                return f"fs[({i}) * {st} + {j}]"
+        else:
+            LU = out
         body = self._copy(A, self._arg_batch(nid), size, LU)
         body += ["__syncwarp();"]
-        body += _lu_factor(LU, size, [], [
-            f"if (lane == 0) {LU(size, 'k')} = (float)(p + 1);"])
+        body += _lu_factor(LU, size, [
+            f"if (lane == 0) {out(size, 'k')} = (float)(p + 1);"])
+        if LU is not out:
+            body += [f"for (int e = lane; e < {size * size}; e += 32)",
+                     f"  {out(f'e / {size}', f'e % {size}')} = "
+                     f"{LU(f'e / {size}', f'e % {size}')};",
+                     "__syncwarp();"]
         self._batch_loop(nid, lines, body)
 
     def lu_p(self, nid, lines):
@@ -4640,11 +4992,17 @@ class _Emitter:
         self.scatter_add(nid, lines, "=")
 
     def _copy(self, src, batch_ix, size, dest, lower=False):
-        """Lines copying matrix ``src[b]`` (``(size, size)``) into the
-        workspace at ``dest(i, j)``, lane-strided; ``lower``: its lower
+        """Lines copying matrix ``src[b]`` (``(size, size)``) into
+        ``dest(i, j)``, lane-strided, the lanes along the stored rows (down
+        the columns of a matrix stored transposed); ``lower``: its lower
         triangle, mirrored (symmetric) or zeros above (``"zero"``)."""
         scope = _Scope(self)
+        down = (not lower and
+                _lane_stride(self.ir, src, 2, self.stored) != 1 and
+                _lane_stride(self.ir, src, 1, self.stored) == 1)
         i, j = _unflatten(Ix("e", size * size), (size, size))
+        if down:
+            i, j = j, i
         if lower:
             ii = Ix(f"gpg_imax({i.expr}, {j.expr})", size)
             jj = Ix(f"gpg_imin({i.expr}, {j.expr})", size)
@@ -4662,17 +5020,28 @@ class _Emitter:
         column: every lane reads the pivot (NaN or not positive: the whole
         factor is made NaN at the end, as JAX's cholesky gives it), the
         lane that owns it stores its square root, the lanes split the rows
-        below (row r in lane r % 32: its column entry, then its part of the
-        trailing update, ``fmaf`` along the row)."""
+        below (row r in lane r % 32) to divide the column, then the
+        trailing update (:func:`_rank_one`: the lanes along each row, its
+        columns' multipliers in registers; each element's terms in the
+        order of k, so the bits of a row a lane).  In the factor scratch
+        where there is one (an odd row stride: a column's read by the lanes
+        hits distinct banks), then copied to the slot; else in the slot."""
         n = self.ir.nodes[nid]
         (A,) = n.args
         batch, size, _ = n.shape
         ba = self.ir.nodes[A].shape[0]
         base = self.sched.slots[nid]
 
-        def L(i, j):
+        def out(i, j):
             return f"ws[{base} + b * {size * size} + ({i}) * {size} + {j}]"
 
+        if self.uses_factor(nid):
+            st = _factor_stride(size)
+
+            def L(i, j):
+                return f"fs[({i}) * {st} + {j}]"
+        else:
+            L = out
         body = self._copy(A, Ix("b", batch) if ba > 1 else _ic(0), size, L,
                           "zero")
         body += ["__syncwarp();",
@@ -4686,43 +5055,45 @@ class _Emitter:
                  f"  for (int r = k + 1 + lane; r < {size}; r += 32)",
                  f"    {L('r', 'k')} = {L('r', 'k')} / piv;",
                  "  __syncwarp();",
-                 f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
-                 f"    const float l = {L('r', 'k')};",
-                 "    for (int j = k + 1; j <= r; ++j)",
-                 f"      {L('r', 'j')} = fmaf(-l, {L('j', 'k')}, {L('r', 'j')});",
-                 "  }",
+                 *("  " + line for line in _rank_one(
+                     L, size, lambda j: L(j, "k"), lower=True)),
                  "  __syncwarp();",
-                 "}",
-                 "if (bad) {",
-                 f"  for (int e = lane; e < {size * size}; e += 32)",
-                 f"    ws[{base} + b * {size * size} + e] = "
-                 "__int_as_float(0x7fc00000);",
-                 "}",
-                 "__syncwarp();"]
+                 "}"]
+        nan = "__int_as_float(0x7fc00000)"
+        if L is out:
+            body += ["if (bad) {",
+                     f"  for (int e = lane; e < {size * size}; e += 32)",
+                     f"    ws[{base} + b * {size * size} + e] = {nan};",
+                     "}"]
+        else:
+            body += [f"for (int e = lane; e < {size * size}; e += 32)",
+                     f"  ws[{base} + b * {size * size} + e] = bad ? {nan} : "
+                     f"{L(f'e / {size}', f'e % {size}')};"]
+        body += ["__syncwarp();"]
         lines.append(f"for (int b = 0; b < {batch}; ++b) {{")
         lines.extend("  " + line for line in body)
         lines.append("}")
 
     def slogdet(self, nid, lines):
         """``(sign, log|det|)`` a matrix: lusolve's LU with partial
-        pivoting in the workspace, then every lane sums ``log|u_ii|`` in
-        row order and multiplies the signs (a row swap flips it); lane 0
-        stores both."""
+        pivoting (:meth:`_lu_here`: one for every node on the same
+        matrix), then every lane flips the sign at each row swap and sums
+        ``log|u_ii|`` in row order, multiplying the signs; lane 0 stores
+        both."""
         n = self.ir.nodes[nid]
         (A,) = n.args
         batch = n.shape[0]
         size = self.ir.nodes[A].shape[-1]
         ba = self.ir.nodes[A].shape[0]
         base = self.sched.slots[nid]
-        lu0 = base + _numel(n.shape)
-
-        def LU(i, j):
-            return f"ws[{lu0} + ({i}) * {size} + {j}]"
-
-        body = self._copy(A, Ix("b", batch) if ba > 1 else _ic(0), size, LU)
-        body += ["__syncwarp();", "float sign = 1.f;"]
-        body += _lu_factor(LU, size, ["sign = -sign;"])
-        body += ["float logabs = 0.f;",
+        shared = self.uses_factor(nid) and nid not in self.lu_users
+        LU, PIV, to_global = self._lu_of(nid, shared)
+        body = self._lu_here(nid, LU, PIV, to_global,
+                             Ix("b", batch) if ba > 1 else _ic(0))
+        body += ["float sign = 1.f;",
+                 f"for (int k = 0; k < {size}; ++k)",
+                 f"  if ((int){PIV('k')} != k) sign = -sign;",
+                 "float logabs = 0.f;",
                  f"for (int i = 0; i < {size}; ++i) {{",
                  f"  const float u = {LU('i', 'i')};",
                  "  logabs = logabs + logf(fabsf(u));",
@@ -4996,14 +5367,15 @@ class _Emitter:
                   "__syncwarp();"]
 
 
-def _lu_factor(LU, size, on_swap, on_pivot=()):
+def _lu_factor(LU, size, on_pivot):
     """Lines of an LU with partial pivoting in place, column by column:
     every lane scans the column below the diagonal for the first largest
-    ``|a|`` (LAPACK ``i?amax``'s pivot); the lanes swap the pivot row
-    and runs ``on_swap`` (the right sides' swap, or a sign's flip; after
-    the search every lane runs ``on_pivot``: the pivot's record); then
-    each lane eliminates its rows (row r in lane r % 32, ``fmaf`` along the
-    row)."""
+    ``|a|`` (LAPACK ``i?amax``'s pivot; after the search every lane runs
+    ``on_pivot``: the pivot's record); the lanes swap the pivot row; the
+    lanes split the rows below (row r in lane r % 32)
+    to divide the column by the pivot, then the trailing update
+    (:func:`_rank_one`: the lanes along each row, the pivot row's elements
+    in registers), each element's terms in the order of k."""
     return [f"for (int k = 0; k < {size}; ++k) {{",
             "  int p = k;",
             f"  float top = fabsf({LU('k', 'k')});",
@@ -5022,18 +5394,117 @@ def _lu_factor(LU, size, on_swap, on_pivot=()):
             f"      {LU('k', 'j')} = {LU('p', 'j')};",
             f"      {LU('p', 'j')} = t;",
             "    }",
-            *("    " + line for line in on_swap),
             "  }",
             "  __syncwarp();",
-            f"  for (int r = k + 1 + lane; r < {size}; r += 32) {{",
-            f"    const float l = {LU('r', 'k')} / {LU('k', 'k')};",
-            f"    {LU('r', 'k')} = l;",
-            f"    for (int j = k + 1; j < {size}; ++j)",
-            f"      {LU('r', 'j')} = fmaf(-l, {LU('k', 'j')}, "
-            f"{LU('r', 'j')});",
-            "  }",
+            f"  for (int r = k + 1 + lane; r < {size}; r += 32)",
+            f"    {LU('r', 'k')} = {LU('r', 'k')} / {LU('k', 'k')};",
+            "  __syncwarp();",
+            *("  " + line for line in _rank_one(LU, size,
+                                                 lambda j: LU("k", j))),
             "  __syncwarp();",
             "}"]
+
+
+def _rank_one(M, size, mult, lower=False):
+    """Lines of step k's trailing update of a factorisation, M[r][j] =
+    fmaf(-M[r][k], mult(j), M[r][j]) for the rows r > k and the columns
+    k < j (j <= r when ``lower``): the lanes along each row (columns lane,
+    lane + 32, ...), each column's multiplier read once into a register,
+    the rows RANK_ROWS at a time with every load before the first store
+    (the rows of a batch are distinct elements, which the compiler cannot
+    prove of indices it does not know)."""
+    ns = -(-size // 32)
+    rb = RANK_ROWS if ns <= 2 else RANK_ROWS // 2
+    js = ["lane"] + [f"lane + {32 * s}" for s in range(1, ns)]
+    lines = [f"const float m{s} = {j} > k && {j} < {size} ? {mult(j)} : 0.f;"
+             for s, j in enumerate(js)]
+    lines.append(f"for (int rb = k + 1; rb < {size}; rb += {rb}) {{")
+    for u in range(rb):
+        r = f"ro{u}"
+        lines.append(f"  const int {r} = rb + {u};")
+        lines.append(f"  const float l{u} = {r} < {size} ? {M(r, 'k')} : "
+                     "0.f;")
+        for s, j in enumerate(js):
+            bound = f"{j} <= {r}" if lower else f"{j} < {size}"
+            lines.append(f"  const bool w{u}_{s} = {r} < {size} && {j} > k "
+                         f"&& {bound};")
+            lines.append(f"  const float v{u}_{s} = w{u}_{s} ? {M(r, j)} : "
+                         "0.f;")
+    for u in range(rb):
+        for s, j in enumerate(js):
+            lines.append(f"  if (w{u}_{s}) {M(f'ro{u}', j)} = "
+                         f"fmaf(-l{u}, m{s}, v{u}_{s});")
+    lines.append("}")
+    return lines
+
+
+def _sum_loop(var, start, op, bound, sign, term):
+    """Lines of a sequential sum's loop over ``var`` from ``start`` while
+    ``var op bound``, stepping by ``sign``: SUM_UNROLL terms a trip, each
+    term's loads (``term(v, u)`` -> (loads, updates) at index expression v,
+    the u-th of the trip) before the trip's updates, which keep the order of
+    terms; then the remaining terms one at a time.  A loop whose body only
+    loads lets the loads of a trip wait together."""
+    d = "+" if sign > 0 else "-"
+    lines = [f"int {var} = {start};",
+             f"for (; {var} {d} {SUM_UNROLL - 1} {op} {bound}; "
+             f"{var} {d}= {SUM_UNROLL}) {{"]
+    loads, updates = [], []
+    for u in range(SUM_UNROLL):
+        ld, up = term(var if u == 0 else f"({var} {d} {u})", u)
+        loads += ld
+        updates += up
+    lines += ["  " + line for line in loads + updates] + ["}"]
+    ld, up = term(var, 0)
+    lines.append(f"for (; {var} {op} {bound}; {d}{d}{var}) {{")
+    lines += ["  " + line for line in ld + up] + ["}"]
+    return lines
+
+
+def _factor_stride(size: int) -> int:
+    """A matrix's row stride in the factor scratch: odd, so that the lanes
+    reading down a column hit distinct banks."""
+    return size | 1
+
+
+def _factor_need(ir, nid) -> int:
+    """Floats a chain of factor scratch node ``nid`` works in (0: none): a
+    Cholesky or LU factor at its odd stride, an LU's pivots, a warp's
+    columns of solutions (32 a row), or a triangular solve's matrix and its
+    solutions."""
+    n = ir.nodes[nid]
+    if n.op in ("chol", "lufactor"):
+        size = n.shape[-1]
+        return size * _factor_stride(size)
+    if n.op in ("lusolve", "slogdet"):
+        size = ir.nodes[n.args[0]].shape[-1]
+        return size * _factor_stride(size) + size + (
+            32 * size if n.op == "lusolve" else 0)
+    if n.op == "trsolve" and n.shape[-1] > 1:
+        size, cols = n.shape[-2:]
+        return size * _factor_stride(size) + 32 * min(
+            SOLVE_COLUMNS, -(-cols // 32)) * size
+    return 0
+
+
+def _lu_owners(ir):
+    """``{node: owner}`` of the LU solves and log-determinants of a matrix
+    that an earlier node (its owner) factors: the same IR node, a batch of
+    one.  The owner keeps its LU and pivots in the workspace after its
+    output; the same values give the same factor and pivots, so sharing
+    changes no result."""
+    first, users = {}, {}
+    for i, n in enumerate(ir.nodes):
+        if n.op not in ("lusolve", "slogdet"):
+            continue
+        A = n.args[0]
+        if ir.nodes[A].shape[0] != 1:
+            continue
+        if A in first:
+            users[i] = first[A]
+        else:
+            first[A] = i
+    return users
 
 
 # contraction -> (the accumulator's first value, the warp's reduction)
@@ -5115,7 +5586,11 @@ def geometry_of(ir: IR):
     sched = schedule(ir)
     return generic_geometry(ir.dim, sched.workspace,
                             tuple(_numel(s) for s in ir.data_shapes),
-                            _Emitter(ir, sched).streamable())
+                            _Emitter(ir, sched).streamable(),
+                            tuple(_factor_need(ir, i)
+                                  for i in range(len(ir.nodes))),
+                            any(n.op in ("lusolve", "slogdet", "lufactor")
+                                for n in ir.nodes))
 
 
 def emit_cuda(ir: IR) -> str:
@@ -5165,6 +5640,7 @@ def emit_cuda(ir: IR) -> str:
         f"  static constexpr int TILE_ROWS = {geo.points};",
         f"  static constexpr int TILE_STRIDE = {geo.row_stride};",
         f"  static constexpr int TILE_FLOATS = {geo.tile_floats};",
+        f"  static constexpr int FS_FLOATS = {geo.factor_floats};",
         "",
         "  bool fits(int dim, const aehmc::Geometry& G) const {",
         f"    static const long long lengths[] = {{{lengths}}};",
@@ -5174,7 +5650,8 @@ def emit_cuda(ir: IR) -> str:
         "  }",
         "",
         "  static __device__ Scratch carve_scratch(float* base, int) {",
-        "    return carve<WS_SHARED, RES_FLOATS, TILE_FLOATS>(base);",
+        "    return carve<WS_SHARED, RES_FLOATS, TILE_FLOATS, W, FS_FLOATS>("
+        "base);",
         "  }",
         "",
         "  __device__ void request(const Scratch& S) const {",
@@ -5192,6 +5669,8 @@ def emit_cuda(ir: IR) -> str:
         "    (void)qc;",
         "    (void)ws;",
         *data_ptrs,
+        *(["    float* __restrict__ fs = chain_factor<FS_FLOATS>(S, c);"]
+          if geo.factor_floats else []),
     ]
     tail = ["  }", "};", ""]
     return "\n".join(head + ["    " + line for line in body] + tail)

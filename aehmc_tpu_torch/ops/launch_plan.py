@@ -32,14 +32,20 @@ padded to ``row_stride`` words, an odd number, so that lanes reading
 neighbouring rows fall in distinct banks; then the per-chain workspace of
 ``workspace`` floats, kept in shared memory when two NUTS blocks still fit
 an SM with it (:func:`generic_workspace_shared`), else in a global buffer
-of :func:`generic_workspace_floats` floats.  The emitted functor fixes its
-geometry in its text (``RES_FLOATS``, ``TILE_ROWS``, ``TILE_STRIDE``,
-``WS_SHARED``) from the NUTS core's 17 rows, so the HMC core's plan
-follows it and does not decide again with its own 8 rows: a workspace two
-HMC blocks could hold in shared memory stays global when the functor says
-so, and the plan's shared memory, points, row stride and workspace
-pointer agree with the functor, which checks the points and row stride of
-every launch.
+of :func:`generic_workspace_floats` floats; then, where the workspace is
+global and the functor factors or solves a dense matrix (a Cholesky or LU
+factor, a triangular solve of several right sides), a **factor** scratch
+of ``factor_floats`` a chain in which each such node keeps its working
+matrix for its life (the factor, or the solution), wherever the block's 8
+copies fit beside the rest (:func:`generic_factor_shared`: where two NUTS
+blocks still fit an SM, or, for an LU, one).  The emitted functor fixes
+its geometry in its text (``RES_FLOATS``, ``TILE_ROWS``, ``TILE_STRIDE``,
+``WS_SHARED``, ``FS_FLOATS``) from the NUTS core's 17 rows, so the HMC
+core's plan follows it and does not decide again with its own 8 rows: a
+workspace two HMC blocks could hold in shared memory stays global when
+the functor says so, and the plan's shared memory, points, row stride
+and workspace pointer agree with the functor, which checks the points and
+row stride of every launch.
 
 The chains a block (:func:`chains_per_block`) depend on the core, dim and
 X's type only, never on the chain count, so a chain's bits do not depend on
@@ -164,6 +170,27 @@ def generic_workspace_shared(dim: int, workspace: int,
     return workspace > 0 and two_blocks_fit(smem)
 
 
+def generic_factor_shared(dim: int, factor: int, fixed: int = 0,
+                          lu: bool = False) -> bool:
+    """Whether a generated functor's dense nodes keep their working
+    matrices (``factor`` floats a chain: the largest a node takes) in
+    shared memory beside the functor's ``fixed`` floats: where two NUTS
+    blocks still fit an SM with its 8 copies; or, for a functor that
+    factors an LU (``lu``), where one block fits.  An LU swaps rows and
+    stores the whole trailing matrix at every step, and in the workspace
+    those stores leave L2 to serve the next step's loads: S2 at one block
+    an SM with the scratch took 7.75 ms a kernel-1 launch against 14.21
+    with two blocks' room and the workspace (1,024 chains), 30.9 against
+    45.5 at 4,096.  S1's Cholesky factor and solves gained nothing at
+    1,024 chains in shared memory and lost 24% at 4,096, where two blocks
+    an SM and the L1 the scratch would take serve them better (PERF.md
+    §6)."""
+    rows = CORES["nuts"][0] * NUTS_CHAINS * state_stride(dim)
+    smem = 4 * (rows + NUTS_CHAINS + fixed + NUTS_CHAINS * factor)
+    return factor > 0 and (two_blocks_fit(smem) or
+                           (lu and smem <= SMEM_LIMIT))
+
+
 def generic_workspace_floats(geometry: "GenericGeometry",
                              blocks: int) -> int:
     """Floats of a generated functor's global workspace, (blocks, 8,
@@ -195,6 +222,8 @@ class GenericGeometry:
     operands a top-level matrix product reads through the tile, ``points``
     rows a chunk; every other operand is read from global memory
     (``__ldg``).  ``tile_floats``: one tile buffer (of ``TILE_STAGES``).
+    ``factor_floats``: a chain's factor scratch in shared memory (0: the
+    dense nodes work in the workspace).
     """
     dim: int
     workspace: int
@@ -203,6 +232,7 @@ class GenericGeometry:
     points: int = 0
     tile_floats: int = 0
     ws_shared: bool = False
+    factor_floats: int = 0
 
     @property
     def row_stride(self) -> int:
@@ -221,10 +251,11 @@ class GenericGeometry:
 
     def scratch_floats(self) -> int:
         """Floats of the functor's scratch after the core's rows: the
-        potentials, resident operands, tile buffers and (shared) the
-        workspace."""
+        potentials, resident operands, tile buffers, (shared) the
+        workspace, and the factor scratch."""
         return (NUTS_CHAINS + self.fixed_floats
-                + (NUTS_CHAINS * self.workspace if self.ws_shared else 0))
+                + (NUTS_CHAINS * self.workspace if self.ws_shared else 0)
+                + NUTS_CHAINS * self.factor_floats)
 
     def kind(self, j: int) -> str:
         """Operand ``j``'s place: "resident", "streamed" or "global"."""
@@ -240,16 +271,22 @@ def _tile_floats(points: int, streamed) -> int:
 
 
 def generic_geometry(dim: int, workspace: int, operands=(),
-                     streamable=None) -> GenericGeometry:
+                     streamable=None, factors=(),
+                     lu: bool = False) -> GenericGeometry:
     """The geometry of a generated functor at ``dim`` with ``workspace``
     floats a chain and data operands of ``operands`` floats each, of which
     ``streamable`` (operand -> row floats) a top-level matrix product reads
-    a whole row of at a time.  The operands go resident, smallest first,
-    while two NUTS blocks still fit an SM beside the smallest tile the
-    other streamable ones need; the rest of the streamable ones are
-    streamed through a tile of the most rows (of :data:`TILE_ROWS`) with
-    which two NUTS blocks fit (one, where two cannot, up to the block's
-    limit); what neither takes is read from global memory.  Raises
+    a whole row of at a time, and whose dense nodes' working matrices take
+    ``factors`` floats a chain each (``lu``: one of them an LU).  The
+    operands go resident, smallest first, while two NUTS blocks still fit
+    an SM beside the smallest tile the other streamable ones need; the
+    rest of the streamable ones are streamed through a tile of the most
+    rows (of :data:`TILE_ROWS`) with which two NUTS blocks fit (one, where
+    two cannot, up to the block's limit); what neither takes is read from
+    global memory.  With a global workspace the dense nodes' matrices go
+    to a factor scratch in shared memory, the largest of ``factors`` that
+    :func:`generic_factor_shared` admits: a node that needs more works in
+    the workspace.  Raises
     ``ValueError`` with the bytes a block needs where the NUTS rows and
     potentials alone exceed the limit."""
     streamable = dict(streamable or {})
@@ -286,11 +323,15 @@ def generic_geometry(dim: int, workspace: int, operands=(),
     if not points:
         streamed = []
     fixed = taken + TILE_STAGES * tile
+    ws_shared = generic_workspace_shared(dim, workspace, fixed)
+    factor = 0 if ws_shared else next(
+        (f for f in sorted(set(factors), reverse=True)
+         if generic_factor_shared(dim, f, fixed, lu)), 0)
     return GenericGeometry(
         dim=dim, workspace=workspace, resident=tuple(resident),
         streamed=tuple((j, r, odd_stride(r)) for j, r in streamed),
-        points=points, tile_floats=tile,
-        ws_shared=generic_workspace_shared(dim, workspace, fixed))
+        points=points, tile_floats=tile, ws_shared=ws_shared,
+        factor_floats=factor)
 
 
 def checkpoint_floats(dim: int, max_exp: int, blocks: int) -> int:

@@ -3737,8 +3737,10 @@ def geometry_fields(b, chains=CHAINS):
     """A generated functor's geometry (ops/launch_plan.py:generic_geometry):
     its resident operands' bytes, the operands it streams through its tile
     and those it reads from global memory, the tile's rows a chunk and row
-    stride, its workspace's place, and the NUTS and HMC blocks' shared
-    memory and blocks an SM by shared memory."""
+    stride, its workspace's place, the factor scratch in which its dense
+    nodes keep their matrices (bytes a block, 0: they work in the
+    workspace), and the NUTS and HMC blocks' shared memory and blocks an
+    SM by shared memory."""
     from aehmc_tpu_torch.ops import launch_plan as lp
 
     geo = b.geometry
@@ -3750,7 +3752,8 @@ def geometry_fields(b, chains=CHAINS):
                tile_rows=geo.points, row_stride=geo.row_stride,
                tile_bytes=4 * lp.TILE_STAGES * geo.tile_floats,
                workspace_floats=geo.workspace,
-               workspace_shared=geo.ws_shared)
+               workspace_shared=geo.ws_shared,
+               factor_bytes=4 * lp.NUTS_CHAINS * geo.factor_floats)
     for core, k in (("nuts", K), ("hmc", 0)):
         plan = lp.launch_plan(core, b.ir.dim, k, chains, functor="generic",
                               geometry=geo)
@@ -3769,7 +3772,8 @@ def geometry_line(name, g, regs=None, spill=None):
             f"{g['row_stride']}, {g['tile_bytes']} B), global "
             f"{g['global_operands'] or 'none'}, workspace "
             f"{g['workspace_floats']} floats "
-            f"{'shared' if g['workspace_shared'] else 'global'}; smem NUTS "
+            f"{'shared' if g['workspace_shared'] else 'global'}, factor "
+            f"scratch {g['factor_bytes']} B; smem NUTS "
             f"{g['nuts_smem']} / HMC {g['hmc_smem']} B, blocks an SM "
             f"{g['nuts_blocks_per_sm_by_smem']} / "
             f"{g['hmc_blocks_per_sm_by_smem']}{built}")
@@ -3789,9 +3793,10 @@ def ptxas_most(_build, b):
 
 def functor_report(torch, _build, b, plan_dim, chains, k):
     """ptxas's registers and spills of the generated kernels, their blocks
-    per SM at the launch plan's shared memory, and the functor's
-    geometry."""
-    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+    per SM at the launch plan's shared memory (two, or one where the
+    geometry gives the block a factor scratch two blocks cannot hold), and
+    the functor's geometry."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan, two_blocks_fit
 
     regs, spill = ptxas_most(_build, b)
     plan = launch_plan("nuts", plan_dim, k, chains, functor="generic",
@@ -3800,8 +3805,11 @@ def functor_report(torch, _build, b, plan_dim, chains, k):
     per_sm = {f"{lay}_{kind}": lib.generic_blocks_per_sm(std, s, plan.smem)
               for std, lay in ((0, "t"), (1, "std"))
               for s, kind in ((0, "transition"), (1, "sampling"))}
-    check(min(per_sm.values()) >= 2, f"generic kernels: fewer than two "
-          f"blocks per SM {per_sm}")
+    want = 2 if two_blocks_fit(plan.smem) else 1
+    check(want == 2 or b.geometry.factor_floats > 0,
+          f"generic kernels: {plan.smem} B a block without a factor scratch")
+    check(min(per_sm.values()) >= want, f"generic kernels: fewer than "
+          f"{want} blocks per SM {per_sm}")
     return dict(geometry_fields(b, chains), registers=regs,
                 spill_bytes=spill, blocks_per_sm=per_sm, smem_bytes=plan.smem)
 
@@ -4303,8 +4311,9 @@ def hmc_functor_report(torch, _build, gen):
 
 def hmc_report(torch, _build, b, dim, chains, what):
     """Registers and spills of kernels 5-7 on a generated functor (the most
-    over each kernel's instantiations) and their blocks per SM."""
-    from aehmc_tpu_torch.ops.launch_plan import launch_plan
+    over each kernel's instantiations) and their blocks per SM (two, or one
+    where a factor scratch takes the room of the second)."""
+    from aehmc_tpu_torch.ops.launch_plan import launch_plan, two_blocks_fit
 
     per = {}
     for _, entry, regs, spill in ptxas_entries(
@@ -4320,8 +4329,12 @@ def hmc_report(torch, _build, b, dim, chains, what):
     lib = b.library()
     per_sm = {f"{k}{'_dense' if d else ''}": lib.hmc_generic_blocks_per_sm(
         k, d, plan.smem) for k, d in ((5, 0), (6, 0), (7, 0), (7, 1))}
-    check(min(per_sm.values()) >= 2, f"kernels 5-7 on {what}: fewer than "
-          f"two blocks per SM {per_sm}")
+    want = 2 if two_blocks_fit(plan.smem) else 1
+    check(want == 2 or b.geometry.factor_floats > 0,
+          f"kernels 5-7 on {what}: {plan.smem} B a block without a factor "
+          "scratch")
+    check(min(per_sm.values()) >= want, f"kernels 5-7 on {what}: fewer "
+          f"than {want} blocks per SM {per_sm}")
     return dict(registers={k: v[0] for k, v in sorted(per.items())},
                 spill_bytes={k: v[1] for k, v in sorted(per.items())},
                 smem_bytes=plan.smem, blocks_per_sm=per_sm)
@@ -6948,10 +6961,10 @@ NON_PD_CHAINS = 64
 # 1.0278 / 1.0137 / 1.0070 / 1.0034 at 500 / 1,000 / 2,000 / 4,000.  S3's
 # pooled reference (LAST_POOLED_S3) takes a dense M⁻¹ (R-hat 1.019 at K 4
 # and 100 + 200 against 1.028 with a diagonal one, 70-79 s a run)
+# S1's door, cut to 1,024 chains when it took 52.3 s at 4,096 (22.19 s at
+# 1,024), takes 9.51 s at 4,096 since the functor's dense linear algebra
+# was redesigned (PERF.md §6)
 LAST_DOOR_CHAINS = 4096
-# S1's door at 1,024 chains (52.3 s at 4,096 on an H100 80GB HBM3 at 700
-# W; cut to keep the whole run within its 1,200 s limit)
-LAST_DOOR_CHAINS_S1 = 1024
 LAST_DOORS = {"gp_se64": ("nuts", 150, 200),
               "lkj_slopes": ("chees", 500, 1000),
               "matrix_log_cov": ("meads", 500, 3000)}
@@ -7438,8 +7451,7 @@ def non_pd_witness(torch, p, record, card):
 
 def last_doors(torch, ops, diagnostics, pots, record, card):
     """Phase 55: S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
-    doors (LAST_DOOR_CHAINS chains, S1 LAST_DOOR_CHAINS_S1; LAST_DOORS'
-    lengths), each within
+    doors (LAST_DOOR_CHAINS chains; LAST_DOORS' lengths), each within
     §2's limits (R-hat below RHAT_MAX), launches exact, its means within
     MCSE_Z combined MCSE of the pooled XLA NUTS route's on the same model
     (LAST_POOLED), which holds §2's limits too."""
@@ -7453,8 +7465,7 @@ def last_doors(torch, ops, diagnostics, pots, record, card):
               "meads": (MEADS_ACCEPT_MIN, 1.0)}
     for n, (name, (algo, w, d)) in enumerate(LAST_DOORS.items()):
         dim = LAST_CELLS[name][0]
-        chains = LAST_DOOR_CHAINS_S1 if name == "gp_se64" else \
-            LAST_DOOR_CHAINS
+        chains = LAST_DOOR_CHAINS
         q0 = torch.tensor(0.1 * np.random.default_rng(
             LAST_SEED + 20 + n).standard_normal((chains, dim)),
             dtype=torch.float32, device=dev)

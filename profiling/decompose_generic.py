@@ -1,4 +1,4 @@
-"""Decompose the time of kernels 7 and 3 on generated potential functors.
+"""Decompose the time of kernels 7, 3 and 1 on generated potential functors.
 
 ``ncu`` does not run on the card's machine, so this script builds variants
 of a generated functor's text and times them on the card:
@@ -13,13 +13,32 @@ of a generated functor's text and times them on the card:
   reductions after them, the tile's chunk waits and block barriers
   (``chunk_ready``), sequential nodes, scalar statements, the whole call,
   and the time between a warp's calls (the core's work and its block
-  barrier);
+  barrier).  The dense linear algebra is split by node kind (the emitter's
+  methods are wrapped to mark each node's statements): ``chol``,
+  ``trsolve_1`` (a triangular solve of one right side), ``trsolve_n``
+  (several), ``lusolve``, ``slogdet``, ``lufactor``, and ``ws_mm`` (a loop
+  group holding a matrix product of two workspace matrices);
 - ``noload``: every read of a float data operand replaced by a value of
   its index (the loads' share, by difference; kernel 7 only, whose work
   does not depend on the values);
 - ``wsshared``: the workspace in shared memory whatever it costs in
   blocks an SM (one NUTS block an SM where two do not fit), against the
-  plan's choice.
+  plan's choice;
+- ``l2``: the plain text at ``--l2-chains`` chains (default 128: S1's
+  workspace, 115 KB a chain, then fits the 50 MB L2; at 1,024 chains it
+  does not), each block alone on its SM at either count, so the time a
+  launch against the base run's is where the workspace's matrices live,
+  L2 against HBM;
+- ``fglobal``: the dense nodes' matrices in global memory (the
+  workspace), where the geometry puts them in a factor scratch in shared
+  memory (a tree whose ``launch_plan`` has ``generic_factor_shared``);
+  ``fshared``: in the factor scratch wherever one NUTS block holds it,
+  where the geometry leaves them in the workspace;
+- ``untiled``: a product of two workspace matrices one output a lane at a
+  time, not in tiles of two rows (``_Emitter.ws_product``);
+- ``c4096``: the plain text at 4,096 chains (512 blocks), and
+  ``fglobal4096`` / ``fshared4096`` those texts there: one block an SM
+  against two at a count that fills the card more than once.
 
 Run from the root of a checkout (this script stays in the tree; ``--tree``
 takes the package from another checkout, say a parent commit unpacked into
@@ -27,9 +46,17 @@ takes the package from another checkout, say a parent commit unpacked into
 
     python profiling/decompose_generic.py [--tree DIR] [--out FILE]
         [--names flagship,cell,probit100,softmax_reg] [--chains N]
+        [--variants base,probe,noload,wsshared,l2,fglobal,fshared,untiled,
+                    c4096,fglobal4096,fshared4096]
+
+``--names gp_se64,gp_se64_logdet`` (S1, S2) runs kernels 1 and 3 (and
+kernel 2 on S1, 4 draws) at chip_smoke.py's phase 54 cell: 1,024 chains,
+ε 0.02, K 4.
 
 The package is copied into ``scratch/decompose/<tag>/`` and given the
-profile buffer there; nothing of the tree itself changes.  Prints one JSON
+profile buffer there (``--reuse`` keeps an earlier run's copy and
+libraries: parent, change, change, parent in one session builds each tree
+once); nothing of the tree itself changes.  Prints one JSON
 line per run and writes them all to ``--out`` (default
 ``profiling/out/decompose.json``, which git ignores).
 """
@@ -43,15 +70,24 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KINDS = ["chol", "trsolve_1", "trsolve_n", "lusolve", "slogdet", "lufactor",
+         "ws_mm"]
 CATS = ["we_loop", "we_sum", "loop_contract", "loop_elem", "loop_post",
-        "chunk_wait", "sequential", "scalar", "total", "between", "calls"]
+        "chunk_wait", "sequential", "scalar", *KINDS, "total", "between",
+        "calls"]
 C = {name: i for i, name in enumerate(CATS)}
-SLOTS = 16  # counters a warp; slot 15 holds the warp's last exit stamp
+DRAWS_K2 = 4  # kernel 2's draws (chip_smoke.py's OPS_SAMPLING_DRAWS)
+SLOTS = 32  # counters a warp; the last holds the warp's last exit stamp
+LAST = SLOTS - 1
 
 
-def stage(tree, tag):
-    """A copy of ``tree``'s package with the profile buffer and readers."""
+def stage(tree, tag, reuse=False):
+    """A copy of ``tree``'s package with the profile buffer and readers
+    (with ``reuse``, the copy an earlier run of the same tag staged, and
+    the libraries it built)."""
     dst = os.path.join(ROOT, "scratch", "decompose", tag)
+    if reuse and os.path.isdir(dst):
+        return dst
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "aehmc_tpu_torch"),
                     os.path.join(dst, "aehmc_tpu_torch"),
@@ -62,7 +98,7 @@ def stage(tree, tag):
     text = text.replace(
         "namespace aehmc {\nnamespace generic {",
         "namespace aehmc {\nstatic __device__ unsigned long long "
-        f"gpg_prof[2048 * 8 * {SLOTS}];\nnamespace generic {{", 1)
+        f"gpg_prof[4096 * 8 * {SLOTS}];\nnamespace generic {{", 1)
     open(path, "w").write(text)
     for name, tag_ in (("nuts_generic.cu", "nuts"), ("hmc_generic.cu", "hmc")):
         path = os.path.join(csrc, name)
@@ -141,15 +177,26 @@ def probe_text(text):
     out += ["    const long long _te = clock64();",
             "    unsigned long long* _pf = aehmc::gpg_prof + "
             f"((size_t)blockIdx.x * 8 + c) * {SLOTS};",
-            "    if (lane == 0) { if (_pf[15]) _pf[%d] += _te - _pf[15]; "
-            "_pf[%d] += 1; }" % (C["between"], C["calls"])]
+            "    if (lane == 0) { if (_pf[%d]) _pf[%d] += _te - _pf[%d]; "
+            "_pf[%d] += 1; }" % (LAST, C["between"], LAST, C["calls"])]
     n = 0
     blocks = _blocks(lines, body0, 4)
     end = blocks[-1][1] + 1
+    kind = None  # the node kind a marker opened (see marked_text)
     for a, b in blocks:
         block = lines[a:b + 1]
         first = block[0].strip()
         n += 1
+        if first.startswith("// @kind "):
+            kind = first.split()[-1]
+            continue
+        if first == "// @end":
+            kind = None
+            continue
+        if kind is not None:
+            out += [f"    long long _s{n} = clock64();"] + block + [
+                f"    if (lane == 0) _pf[{C[kind]}] += clock64() - _s{n};"]
+            continue
         if first.startswith(("for (int o0", "for (int ch", "for (int gi")):
             out += _split_loop(block, n)
             continue
@@ -167,9 +214,73 @@ def probe_text(text):
         out += [f"    long long _s{n} = clock64();"] + block + [
             f"    if (lane == 0) _pf[{C[cat]}] += clock64() - _s{n};"]
     out += ["    if (lane == 0) { const long long _tx = clock64(); "
-            f"_pf[{C['total']}] += _tx - _te; _pf[15] = _tx; }}"]
+            f"_pf[{C['total']}] += _tx - _te; _pf[{LAST}] = _tx; }}"]
     out += lines[end:]
     return "\n".join(out)
+
+
+def _ws_matrix(ir, nid, stored):
+    """Whether operand ``nid`` of a product is a workspace matrix seen
+    through views."""
+    from_views = nid
+    while ir.nodes[from_views].op in ("reshape", "permute", "expand",
+                                      "slice", "select", "flip"):
+        from_views = ir.nodes[from_views].args[0]
+    n = ir.nodes[from_views]
+    return from_views in stored and len([d for d in n.shape if d > 1]) >= 2
+
+
+def marked_text(gp, ir):
+    """The functor's text with each dense linear algebra node's statements
+    between ``// @kind <kind>`` and ``// @end`` comments (probe_text
+    attributes them to the kind): the emitter's node methods, and loop
+    groups holding a product of two workspace matrices, wrapped while it
+    emits.  Comments only: the code is the plain text's."""
+    E = gp._Emitter
+    saved = {}
+
+    def wrap(name, kind_of):
+        orig = getattr(E, name)
+        saved[name] = orig
+
+        def method(self, nid, lines, *a, **kw):
+            kind = kind_of(self, nid)
+            if kind:
+                lines.append(f"// @kind {kind}")
+            res = orig(self, nid, lines, *a, **kw)
+            if kind:
+                lines.append("// @end")
+            return res
+        setattr(E, name, method)
+
+    def solve_kind(self, nid):
+        return "trsolve_1" if self.ir.nodes[nid].shape[-1] == 1 \
+            else "trsolve_n"
+
+    for name in ("chol", "lusolve", "slogdet", "lufactor"):
+        if hasattr(E, name):
+            wrap(name, lambda self, nid, name=name: name)
+    wrap("trsolve", solve_kind)
+
+    orig_group = E.loop_group
+    saved["loop_group"] = orig_group
+
+    def loop_group(self, n, roots, lines, unit=0):
+        mm = any(r != "g" and self.ir.nodes[r].op == "mm" and all(
+            _ws_matrix(self.ir, a, self.stored)
+            for a in self.ir.nodes[r].args) for r in roots)
+        if mm:
+            lines.append("// @kind ws_mm")
+        res = orig_group(self, n, roots, lines, unit)
+        if mm:
+            lines.append("// @end")
+        return res
+    E.loop_group = loop_group
+    try:
+        return gp.emit_cuda(ir)
+    finally:
+        for name, orig in saved.items():
+            setattr(E, name, orig)
 
 
 def _split_loop(block, n):
@@ -268,8 +379,12 @@ def main():
     ap.add_argument("--names", default="flagship,cell,probit100,softmax_reg")
     ap.add_argument("--variants", default="base,probe,noload,wsshared")
     ap.add_argument("--chains", type=int, default=10_240)
+    ap.add_argument("--l2-chains", type=int, default=128)
+    ap.add_argument("--reuse", action="store_true",
+                    help="keep the copy (and libraries) of an earlier run "
+                    "of the same --tag")
     args = ap.parse_args()
-    dst = stage(os.path.abspath(args.tree), args.tag)
+    dst = stage(os.path.abspath(args.tree), args.tag, args.reuse)
     sys.path.insert(0, dst)
     import numpy as np
     import torch
@@ -280,34 +395,72 @@ def main():
     from aehmc_tpu_torch.ops import generic_pg as gp
     from aehmc_tpu_torch.ops import launch_plan as lp
     from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
     from aehmc_tpu_torch.timing import kernel_ms
 
     assert gp.__file__.startswith(dst), gp.__file__
     dev = torch.device("cuda:0")
-    gen = cs.generic_potentials(torch, dev)
-    ops = cs.op_table_potentials(torch, dev)
-    rest = cs.rest_potentials(torch, dev)
-    cases = {
-        "flagship": (gen["binds"]["flagship"], (), gen["flagship_t"], 100,
-                     ("k7", "k3")),
-        "cell": (gen["binds"]["cell"], (gen["X"], gen["y"]), None, 100,
-                 ("k3",)),
-        "probit100": (ops["probit100"]["bound"], ops["probit100"]["rows"],
-                      ops["probit100"]["pot"], 100, ("k7", "k3")),
-        "softmax_reg": (rest["softmax_reg"]["bound"],
-                        rest["softmax_reg"]["rows"],
-                        rest["softmax_reg"]["pot"], 100, ("k7", "k3")),
-    }
     names = args.names.split(",")
+    flag = {"flagship", "cell", "probit100", "softmax_reg"} & set(names)
+    # name: (bound, rows, potential, dim, kernels, ε, K, chains)
+    cases = {}
+    if flag:
+        gen = cs.generic_potentials(torch, dev)
+        ops = cs.op_table_potentials(torch, dev)
+        rest = cs.rest_potentials(torch, dev)
+        cases.update({
+            "flagship": (gen["binds"]["flagship"], (), gen["flagship_t"],
+                         100, ("k7", "k3"), 0.05, 6, args.chains),
+            "cell": (gen["binds"]["cell"], (gen["X"], gen["y"]), None, 100,
+                     ("k3",), 0.05, 6, args.chains),
+            "probit100": (ops["probit100"]["bound"],
+                          ops["probit100"]["rows"], ops["probit100"]["pot"],
+                          100, ("k7", "k3"), 0.05, 6, args.chains),
+            "softmax_reg": (rest["softmax_reg"]["bound"],
+                            rest["softmax_reg"]["rows"],
+                            rest["softmax_reg"]["pot"], 100, ("k7", "k3"),
+                            0.05, 6, args.chains)})
+    last = (cs.last_potentials(torch, dev)
+            if {"gp_se64", "gp_se64_logdet"} & set(names) else {})
+    for name, kernels in (("gp_se64", ("k1", "k2", "k3")),
+                          ("gp_se64_logdet", ("k1", "k3"))):
+        if name in last:
+            dim, chains, eps, _, k = cs.LAST_CELLS[name]
+            cases[name] = (last[name]["bound"], last[name]["rows"],
+                           last[name]["pot"], dim, kernels, eps, k, chains)
     variants = args.variants.split(",")
+    chains_of = {"l2": args.l2_chains, "c4096": 4096, "fglobal4096": 4096,
+                 "fshared4096": 4096}
 
-    class SharedWs:
+    class Patch:
+        """``obj.attr`` replaced by ``fn`` while emitting and launching a
+        variant."""
+
+        def __init__(self, obj, attr, fn):
+            self.obj, self.attr, self.fn = obj, attr, fn
+
         def __enter__(self):
-            self.f = lp.generic_workspace_shared
-            lp.generic_workspace_shared = lambda dim, w, fixed=0: w > 0
+            self.f = getattr(self.obj, self.attr)
+            setattr(self.obj, self.attr, self.fn)
 
         def __exit__(self, *a):
-            lp.generic_workspace_shared = self.f
+            setattr(self.obj, self.attr, self.f)
+
+    one_block = getattr(lp, "generic_factor_shared", None)
+
+    def patch_of(v):
+        if v == "wsshared":
+            return Patch(lp, "generic_workspace_shared",
+                         lambda dim, w, fixed=0: w > 0)
+        if v.startswith("fglobal"):
+            return Patch(lp, "generic_factor_shared", lambda *a, **kw: False)
+        if v.startswith("fshared"):
+            return Patch(lp, "generic_factor_shared",
+                         lambda dim, f, fixed=0, lu=False:
+                         one_block(dim, f, fixed, True))
+        if v == "untiled":
+            return Patch(gp._Emitter, "ws_product", lambda self, nid: False)
+        return None
 
     def fits_hmc_shared(b):  # at one NUTS block an SM, if not two
         geo = getattr(b, "geometry", None)
@@ -322,13 +475,24 @@ def main():
         for v in variants:
             if v == "wsshared" and not fits_hmc_shared(b):
                 continue
-            if v == "wsshared":
-                with SharedWs():
+            if v.startswith("fglobal") and (
+                    one_block is None
+                    or not getattr(b.geometry, "factor_floats", 0)):
+                continue
+            if v.startswith("fshared") and (
+                    one_block is None
+                    or getattr(b.geometry, "factor_floats", 0)):
+                continue
+            if v == "untiled" and not hasattr(gp._Emitter, "ws_product"):
+                continue
+            if v in ("wsshared", "fglobal", "fglobal4096", "fshared",
+                     "fshared4096", "untiled"):
+                with patch_of(v):
                     texts[(name, v)] = gp.emit_cuda(b.ir)
                     if hasattr(gp, "geometry_of"):
                         geos[(name, v)] = gp.geometry_of(b.ir)
             elif v == "probe":
-                texts[(name, v)] = probe_text(b.source)
+                texts[(name, v)] = probe_text(marked_text(gp, b.ir))
             elif v == "noload":
                 texts[(name, v)] = noload_text(b.source)
             else:
@@ -340,52 +504,76 @@ def main():
     print(f"built {len(set(texts.values()))} libraries in "
           f"{res['build_s']:.1f} s", flush=True)
     rng = np.random.default_rng(19)
-    chains = args.chains
     for name in names:
-        b, rows, pot, dim, kernels = cases[name]
-        q = torch.tensor(0.1 * rng.standard_normal((chains, dim)),
-                         dtype=torch.float32, device=dev)
+        b, rows, pot, dim, kernels, eps, k, chains0 = cases[name]
         ops_b = b.operands(rows, dev)
-        u0, g0 = gp.run_plain(b.ir, q.T.contiguous(), ops_b)
-        u0, g0 = u0.reshape(-1), g0.T.contiguous()
         imm = torch.ones(dim, device=dev)
         steps = torch.full((), 10, dtype=torch.int32, device=dev)
         src0, geo0 = b.source, getattr(b, "geometry", None)
+        states = {}
         for v in variants:
             if (name, v) not in texts:
                 continue
+            chains = chains_of.get(v, chains0)
+            if chains not in states:
+                q = torch.tensor(0.1 * rng.standard_normal((chains, dim)),
+                                 dtype=torch.float32, device=dev)
+                u0, g0 = gp.run_plain(b.ir, q.T.contiguous(), ops_b)
+                states[chains] = (q, u0.reshape(-1), g0.T.contiguous())
+            q, u0, g0 = states[chains]
             b.source = texts[(name, v)]
-            if (name, v) in geos:
-                b.geometry = geos[(name, v)]
+            if geo0 is not None:
+                b.geometry = geos.get((name, v), geo0)
             lib = b.library()
-            ctx = SharedWs() if v == "wsshared" else None
+            ctx = patch_of(v)
             if ctx:
                 ctx.__enter__()
             try:
                 for kern in kernels:
                     if v == "noload" and kern != "k7":
                         continue
+                    gkw = (dict(potential_and_grad_t=None,
+                                potential_fn_t=pot) if pot else {})
                     if kern == "k7":
-                        kw = (dict(potential_and_grad_t=None,
-                                   potential_fn_t=pot) if pot else {})
-
-                        def f(kw=kw):
+                        def f(kw=gkw):
                             return cf.chees_transition_cuda(
-                                q, u0, g0, imm, 0.05, steps, rows, seed=7,
+                                q, u0, g0, imm, eps, steps, rows, seed=7,
                                 **kw)
                         tag = "hmc"
+                    elif kern == "k1":
+                        q_t, u_t, g_t = (q.T.contiguous(), u0.reshape(1, -1),
+                                         g0.T.contiguous())
+
+                        def f(kw=gkw):
+                            return nfs.nuts_transition_cuda(
+                                q_t, u_t, g_t, imm, eps, rows, max_exp=k,
+                                seed=7, **kw)
+                        tag = "nuts"
+                    elif kern == "k2":
+                        q_t, u_t, g_t = (q.T.contiguous(), u0.reshape(1, -1),
+                                         g0.T.contiguous())
+
+                        def f(kw=gkw):
+                            return nfs.nuts_sampling_cuda(
+                                q_t, u_t, g_t, imm, eps, rows, 9, DRAWS_K2,
+                                max_exp=k, **kw)
+                        tag = "nuts"
                     else:
                         def f():
                             return nf.nuts_transition_std_cuda(
-                                q, u0.reshape(-1, 1), g0, imm, 0.05, rows,
-                                max_exp=6, seed=7, bound=b)
+                                q, u0.reshape(-1, 1), g0, imm, eps, rows,
+                                max_exp=k, seed=7, bound=b)
                         tag = "nuts"
                     out = f()
                     torch.cuda.synchronize()
-                    rec = dict(ms=kernel_ms(f, 3))
+                    rec = dict(chains=chains,
+                               ms=(cs.cuda_ms(torch, f, 1) if kern == "k2"
+                                   else kernel_ms(f, 3)))
                     if kern == "k3":
                         rec["leaves"] = float(out[3][:, 3].sum())
-                    if v == "probe":
+                    elif kern == "k1":
+                        rec["leaves"] = float(out[3][3].sum())
+                    if v == "probe" and kern != "k2":
                         n = ((chains + 7) // 8) * 8 * SLOTS
                         buf = (ctypes.c_ulonglong * n)()
                         getattr(lib, f"gpg_prof_{tag}")(None, 0, 1)
@@ -395,9 +583,13 @@ def main():
                         a = np.frombuffer(buf, dtype=np.uint64).reshape(
                             -1, SLOTS).astype(np.float64)
                         tot = a[:, C["total"]].sum() + a[:, C["between"]].sum()
-                        rec["shares"] = {k: float(a[:, C[k]].sum() / tot)
-                                         for k in CATS[:-1]}
+                        rec["shares"] = {c: float(a[:, C[c]].sum() / tot)
+                                         for c in CATS[:-1]}
                         rec["calls_per_warp"] = float(a[:, C["calls"]].mean())
+                        calls = a[:, C["calls"]].sum()
+                        rec["cycles_per_call"] = {
+                            c: float(a[:, C[c]].sum() / calls)
+                            for c in CATS[:-2]}
                     res["runs"][f"{name}/{kern}/{v}"] = rec
                     print(args.tag, name, kern, v, json.dumps(rec),
                           flush=True)
@@ -407,6 +599,11 @@ def main():
         b.source = src0
         if geo0 is not None:
             b.geometry = geo0
+    if not flag:
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(res, fh, indent=1)
+        return
     # LogisticPGT on the same inputs, in the same process
     X, y = gen["X"], gen["y"]
     data = (X, X.T.contiguous(), y.reshape(-1, 1))

@@ -932,7 +932,8 @@ int main() {
   const int W = GenericPG::W > 0 ? GenericPG::W : 1;
   std::vector<float> global(8 * W, NAN);
   std::vector<float> smem(8 + GenericPG::RES_FLOATS +
-                          2 * GenericPG::TILE_FLOATS + 8 * W, NAN);
+                          2 * GenericPG::TILE_FLOATS + 8 * W +
+                          8 * GenericPG::FS_FLOATS, NAN);
   pg.ws_global = global.data();
   if (!pg.fits(GenericPG::DIM, Geometry{1, GenericPG::TILE_ROWS,
                                         GenericPG::TILE_STRIDE, 1, 8}))
@@ -969,18 +970,25 @@ int main() {
 '''
 
 
+_COMPILED = {}  # functor text -> its emulation's executable, a session
+
+
 def _emulate(source, operands, q, work):
     """(u (C,), g (C, dim)) of the emitted functor compiled for the CPU,
-    one block emulated by 256 threads: 8 warps, 8 chains at a time."""
-    (work / "hierarchical_pg.cuh").write_text(_MOCK)
-    shutil.copy(_build.CSRC / "generic_pg.cuh", work / "generic_pg.cuh")
-    (work / "functor.cu").write_text(source)
-    (work / "main.cpp").write_text(_MAIN)
-    exe = work / "emulated"
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-pthread", "-I", str(work), "-o", str(exe),
-                    str(work / "main.cpp")], check=True, capture_output=True,
-                   timeout=300)
+    one block emulated by 256 threads: 8 warps, 8 chains at a time (a text
+    compiled once a session)."""
+    exe = _COMPILED.get(source)
+    if exe is None or not exe.exists():
+        (work / "hierarchical_pg.cuh").write_text(_MOCK)
+        shutil.copy(_build.CSRC / "generic_pg.cuh", work / "generic_pg.cuh")
+        (work / "functor.cu").write_text(source)
+        (work / "main.cpp").write_text(_MAIN)
+        exe = work / "emulated"
+        subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                        "-pthread", "-I", str(work), "-o", str(exe),
+                        str(work / "main.cpp")], check=True,
+                       capture_output=True, timeout=300)
+        _COMPILED[source] = exe
     q = np.ascontiguousarray(q, F32)
     blob = [np.int32(q.shape[0]).tobytes(), np.int32(len(operands)).tobytes()]
     for d in operands:
