@@ -67,10 +67,15 @@
 
 #include "hierarchical_pg.cuh"
 
-// the factorisations' and the series' bodies are compiled once a source
-// rather than inlined at every functor call of the seven kernels (their
-// call costs nothing beside their work; nvcc's time on a functor that
-// holds them fell to a fraction)
+// the scalar series' bodies (gpg_bessel, gpg_trigamma, gpg_zeta) are
+// compiled once a source rather than inlined at every functor call of the
+// seven kernels: a call of a scalar costs little beside its series, and
+// nvcc's time on a functor that holds them falls to a fraction.  The dense
+// nodes' bodies (gpg_mexp, gpg_qr, gpg_svd) are templates on their sizes,
+// inlined: out of line, a body's sizes are runtime values (a division in
+// every element loop, sums over k that do not unroll) and its workspace
+// pointers generic: U3's kernel 1 took 47.2 ms so against 11.4 inlined on
+// the H100 (PERF.md §6)
 #ifdef __CUDACC__
 #define GPG_NOINLINE __noinline__
 #else
@@ -580,107 +585,171 @@ __device__ __forceinline__ float gpg_log_add_exp(float x, float y) {
 #define GPG_T8_X6 0x1.cdbb2a0000000p-7f
 #define GPG_T8_X7 0x1.711b820000000p-6f
 #define GPG_T8_Y2 0x1.157d080000000p-3f
-// ---- dense kernels of the factorisation nodes: one warp a matrix, in the
-// chain's workspace, every lane calling (each ends in a __syncwarp)
+// ---- the out-of-line factorisations' dense nodes, their sizes compile-time
+// constants (templates instantiated a size a functor uses) and inlined into
+// the functor, so the element loops divide by constants, the sums over k
+// unroll, and a pointer into the shared workspace keeps its address space.
+// Every lane calls each; each ends in a __syncwarp.
 
-// C = A B of n x n matrices, a lane an element of C, fmaf along k in order
-__device__ inline void gpg_mat_mul(float* C, const float* A, const float* B,
-                                   int n, int lane) {
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e % n;
-    float acc = 0.f;
-    for (int k = 0; k < n; ++k) acc = fmaf(A[i * n + k], B[k * n + j], acc);
-    C[e] = acc;
+// the elements a lane holds of G matrices of NN elements a warp pass: G ==
+// 1 strides the lanes over one matrix (PER elements a lane), G NN <= 32
+// gives a lane at most one element of one matrix
+template <int NN, int G>
+struct GpgLanes {
+  static_assert(G == 1 || G * NN <= 32, "a lane's elements in one matrix");
+  static constexpr int PER = G == 1 ? (NN + 31) / 32 : 1;
+  int lane;
+  bool mine;  // whether the lane's matrix is in the pass
+  // element t's index in the lane's matrix, and whether the lane holds it
+  __device__ __forceinline__ int e(int t) const {
+    return G == 1 ? lane + 32 * t : lane % NN;
   }
-  __syncwarp();
-}
-// out = sum_i coef[i] M_i (M_i at M + i n^2), in order from 0, as ATen's
-// _compute_linear_combination; out may not be among the M_i
-__device__ inline void gpg_mat_comb(float* out, const float* M,
-                                    const float* coef, int count, int n,
-                                    int lane) {
-  for (int e = lane; e < n * n; e += 32) {
-    float acc = 0.f;
-    for (int i = 0; i < count; ++i) acc = fmaf(coef[i], M[i * n * n + e], acc);
-    out[e] = acc;
+  __device__ __forceinline__ bool on(int t) const {
+    return mine && (G == 1 ? NN % 32 == 0 || lane + 32 * t < NN
+                           : lane < G * NN);
   }
-  __syncwarp();
+};
+// C = X Y of N x N matrices at the lane's elements: fmaf along k in order
+template <int N, int G>
+__device__ __forceinline__ void gpg_mx_mul(float* __restrict__ C,
+                                           const float* __restrict__ X,
+                                           const float* __restrict__ Y,
+                                           const GpgLanes<N * N, G>& L) {
+#pragma unroll
+  for (int t = 0; t < L.PER; ++t) {
+    if (!L.on(t)) continue;
+    const int i = L.e(t) / N, j = L.e(t) % N;
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc = fmaf(X[i * N + k], Y[k * N + j], acc);
+    C[L.e(t)] = acc;
+  }
 }
-// out = a + b elementwise (out may be a or b)
-__device__ inline void gpg_mat_add(float* out, const float* a, const float* b,
-                                   int n, int lane) {
-  for (int e = lane; e < n * n; e += 32) out[e] = a[e] + b[e];
-  __syncwarp();
+// sum_i c[i] X_i[e] from i = 0 in order (ATen's
+// _compute_linear_combination), X_i = X + i NN; with ID, X_0 is the
+// identity and X_i = X + (i - 1) NN
+template <int N, bool ID, int C>
+__device__ __forceinline__ float gpg_mx_comb(const float (&c)[C],
+                                             const float* X, int e) {
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < C; ++i) {
+    const float x = ID && i == 0 ? (e / N == e % N ? 1.f : 0.f)
+                                 : X[(i - (ID ? 1 : 0)) * N * N + e];
+    acc = fmaf(c[i], x, acc);
+  }
+  return acc;
 }
-// torch.linalg.matrix_exp of the n x n matrix at M + n^2 (ATen's mexp for
-// float: the 1-norm picks Bader, Blanes and Casas's Taylor polynomial of
-// degree 1, 2, 4, 8, 12 or 18, against ATen's float thresholds; beyond the
-// last, A / 2^s and s squarings), into out; M holds 11 n^2 floats: I, A,
-// A^2, A^3 (A^4), A^6 (A^8), five combinations and a product's buffer.  A
-// NaN norm gives NaN, as ATen's (no interval takes it), and so does an
-// infinite one (ATen's scale is then an int64 of +inf, whose squarings on
-// the card never end)
-__device__ GPG_NOINLINE inline void gpg_mexp(float* out, float* M, int n,
-                                             int lane) {
-  const int nn = n * n;
-  float* I = M;
-  float* A = M + nn;
-  float* A2 = M + 2 * nn;
-  float* A3 = M + 3 * nn;
-  float* A6 = M + 4 * nn;
-  float* B = M + 5 * nn;
-  float* T = M + 10 * nn;
+// ATen's mexp degree for a 1-norm (float thresholds): 0-5 for degree 1, 2,
+// 4, 8, 12, 18; -1 for a NaN or infinite norm, which no degree or scale
+// takes (ATen's gives NaN; its scale, an int64 of +inf, never ends its
+// squarings on the card)
+__device__ __forceinline__ int gpg_mexp_degree(float norm) {
+  if (!(norm <= 3.4e38f)) return -1;
+  if (norm <= 1.192092800768788e-07f) return 0;
+  if (norm <= 5.978858893805233e-04f) return 1;
+  if (norm <= 5.116619363445086e-02f) return 2;
+  if (norm <= 5.800524627688768e-01f) return 3;
+  if (norm < 1.461661507209034e+00f) return 4;
+  return 5;
+}
+// torch.linalg.matrix_exp of `count` (at most G) N x N matrices a warp
+// pass (ATen's mexp for float: the 1-norm picks Bader, Blanes and Casas's
+// Taylor polynomial of degree 1, 2, 4, 8, 12 or 18; beyond the last, A /
+// 2^s and s squarings), matrix g's argument at M + g 10 N^2 and its
+// exponential into out + g N^2.  M's 10 matrices a matrix: A, A^2, A^3
+// (A^4), A^6 (A^8), five combinations, a product's buffer; the identity is
+// computed, not stored.  Each matrix keeps its own degree and every
+// element's terms their order, so a pass computes the one-matrix body's
+// bits.  The degrees' steps run as nine phases with a __syncwarp after
+// each (then the squarings): in a phase each lane runs its matrix's step,
+// so matrices of different degrees share a pass, and every lane meets
+// every barrier
+template <int N, int G>
+__device__ __forceinline__ void gpg_mexp(float* out, float* M, int count,
+                                         int lane) {
+  constexpr int NN = N * N, S = 10 * NN;
+  const int g = G == 1 ? 0 : lane / NN;
+  const bool mine = g < count;
+  const GpgLanes<NN, G> L{lane, mine};
+  float* A = M + (mine ? g : 0) * S;
+  float* A2 = A + NN;
+  float* A3 = A + 2 * NN;
+  float* A6 = A + 3 * NN;
+  float* B = A + 4 * NN;
+  float* T = A + 9 * NN;
+  float* O = out + (mine ? g : 0) * NN;
+  // the 1-norm: each column's sum in order of rows, their maximum
   float norm = 0.f;
-  for (int j = lane; j < n; j += 32) {
+  if (G == 1) {
+    for (int j = lane; j < N; j += 32) {
+      float col = 0.f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) col = col + fabsf(A[i * N + j]);
+      norm = gpg_max(norm, col);
+    }
+    norm = gpg_warp_max(norm);
+  } else {  // lane h < G N sums column h % N of matrix h / N
     float col = 0.f;
-    for (int i = 0; i < n; ++i) col = col + fabsf(A[i * n + j]);
-    norm = gpg_max(norm, col);
+    if (lane < G * N && lane / N < count) {
+      const float* Ah = M + (lane / N) * S;
+#pragma unroll
+      for (int i = 0; i < N; ++i) col = col + fabsf(Ah[i * N + lane % N]);
+    }
+    const int from = (mine ? g : 0) * N;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      norm = gpg_max(norm, __shfl_sync(FULL, col, from + j));
   }
-  norm = gpg_warp_max(norm);
-  for (int e = lane; e < nn; e += 32) I[e] = e / n == e % n ? 1.f : 0.f;
+  const int deg = mine ? gpg_mexp_degree(norm) : -2;
+  int s = 0;
+  if (deg == 5) {  // s = max(0, ceil(log2(norm / theta_18)))
+    const float sc = ceilf(log2f(norm / 3.010066362817634e+00f));
+    s = sc > 0.f ? (int)sc : 0;
+  }
+  const int smax = (int)gpg_warp_max((float)s);
+  // 1: degree 18 scales A by 2^-s
+  if (s > 0) {
+    const float div = ldexpf(1.f, s);
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t)
+      if (L.on(t)) A[L.e(t)] = A[L.e(t)] / div;
+  }
   __syncwarp();
-  if (!(norm <= 3.4e38f)) {  // NaN or infinite: no degree or scale takes it
-    for (int e = lane; e < nn; e += 32) out[e] = __int_as_float(0x7fc00000);
-    __syncwarp();
-    return;
+  // 2: A^2
+  if (deg >= 1) gpg_mx_mul<N, G>(A2, A, A, L);
+  __syncwarp();
+  // 3: degrees 1 and 2 their result, 4 and 8 their first combination, 12
+  // and 18 A^3
+  if (deg >= 4) {
+    gpg_mx_mul<N, G>(A3, A, A2, L);
+  } else if (deg >= -1) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t) {
+      if (!L.on(t)) continue;
+      const int e = L.e(t);
+      if (deg == -1) {
+        O[e] = __int_as_float(0x7fc00000);
+      } else if (deg == 0) {
+        const float c[] = {1.f, 1.f};
+        O[e] = gpg_mx_comb<N, true>(c, A, e);
+      } else if (deg == 1) {
+        const float c[] = {1.f, 1.f, 0.5f};
+        O[e] = gpg_mx_comb<N, true>(c, A, e);
+      } else if (deg == 2) {
+        const float c[] = {1.f / 2.f, 1.f / 6.f, 1.f / 24.f};
+        B[e] = gpg_mx_comb<N, true>(c, A, e);
+      } else {
+        const float x[] = {GPG_T8_X1, GPG_T8_X2};
+        B[e] = gpg_mx_comb<N, false>(x, A, e);
+      }
+    }
   }
-  const float theta[] = {1.192092800768788e-07f, 5.978858893805233e-04f,
-                         5.116619363445086e-02f, 5.800524627688768e-01f,
-                         1.461661507209034e+00f, 3.010066362817634e+00f};
-  if (norm <= theta[0]) {
-    const float c[] = {1.f, 1.f};
-    gpg_mat_comb(out, I, c, 2, n, lane);
-    return;
-  }
-  gpg_mat_mul(A2, A, A, n, lane);
-  if (norm <= theta[1]) {
-    const float c[] = {1.f, 1.f, 0.5f};
-    gpg_mat_comb(out, I, c, 3, n, lane);
-    return;
-  }
-  if (norm <= theta[2]) {
-    const float c[] = {1.f / 2.f, 1.f / 6.f, 1.f / 24.f};
-    gpg_mat_comb(B, I, c, 3, n, lane);
-    gpg_mat_mul(A3, A2, B, n, lane);
-    const float d[] = {1.f, 1.f, 0.f, 1.f};
-    gpg_mat_comb(out, I, d, 4, n, lane);
-    return;
-  }
-  if (norm <= theta[3]) {  // A3 holds A^4, A6 A^8
-    const float x[] = {GPG_T8_X1, GPG_T8_X2};
-    gpg_mat_comb(B, A, x, 2, n, lane);
-    gpg_mat_mul(A3, A2, B, n, lane);
-    const float u[] = {GPG_T8_X3, 1.f};
-    gpg_mat_comb(B, A2, u, 2, n, lane);
-    const float v[] = {GPG_T8_X4, GPG_T8_X5, GPG_T8_X6, GPG_T8_X7};
-    gpg_mat_comb(B + nn, I, v, 4, n, lane);
-    gpg_mat_mul(A6, B, B + nn, n, lane);
-    const float d[] = {1.f, 1.f, GPG_T8_Y2, 0.f, 1.f};
-    gpg_mat_comb(out, I, d, 5, n, lane);
-    return;
-  }
-  gpg_mat_mul(A3, A, A2, n, lane);
-  if (norm < theta[4]) {
+  __syncwarp();
+  // 4: degrees 4 and 8 A^3 (A^4), 12 its combinations, 18 A^6
+  if (deg == 2 || deg == 3) {
+    gpg_mx_mul<N, G>(A3, A2, B, L);
+  } else if (deg == 4) {
     const float b[4][4] = {
         {9.0198e-16f, 0.46932117595418237389f, -0.20099424927047284052f,
          -0.04623946134063071740f},
@@ -690,63 +759,130 @@ __device__ GPG_NOINLINE inline void gpg_mexp(float* out, float* M, int n,
          0.09351590770535414968f, 0.00610700528898058230f},
         {-2.0861320e-13f, -0.13181061013830184015f,
          -0.02027855540589259079f, -0.00675951846863086359f}};
-    for (int i = 0; i < 4; ++i) gpg_mat_comb(B + i * nn, I, b[i], 4, n, lane);
-    gpg_mat_mul(T, B + 3 * nn, B + 3 * nn, n, lane);
-    gpg_mat_add(B + 2 * nn, B + 2 * nn, T, n, lane);
-    gpg_mat_add(B + nn, B + nn, B + 2 * nn, n, lane);
-    gpg_mat_mul(T, B + nn, B + 2 * nn, n, lane);
-    gpg_mat_add(out, B, T, n, lane);
-    return;
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t) {
+      if (!L.on(t)) continue;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        B[i * NN + L.e(t)] = gpg_mx_comb<N, true>(b[i], A, L.e(t));
+    }
+  } else if (deg == 5) {
+    gpg_mx_mul<N, G>(A6, A3, A3, L);
   }
-  // degree 18 on A / 2^s, s = max(0, ceil(log2(norm / theta_18)))
-  const float sc = ceilf(log2f(norm / theta[5]));
-  const int s = sc > 0.f ? (int)sc : 0;
-  if (s > 0) {
-    const float div = ldexpf(1.f, s);
-    for (int e = lane; e < nn; e += 32) A[e] = A[e] / div;
+  __syncwarp();
+  // 5: degree 4 its result, 8 its two combinations, 12 a product, 18 its
+  // combinations
+  if (deg == 4) {
+    gpg_mx_mul<N, G>(T, B + 3 * NN, B + 3 * NN, L);
+  } else if (deg >= 2) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t) {
+      if (!L.on(t)) continue;
+      const int e = L.e(t);
+      if (deg == 2) {
+        const float d[] = {1.f, 1.f, 0.f, 1.f};
+        O[e] = gpg_mx_comb<N, true>(d, A, e);
+      } else if (deg == 3) {  // A3 holds A^4
+        const float u[] = {GPG_T8_X3, 1.f};
+        const float v[] = {GPG_T8_X4, GPG_T8_X5, GPG_T8_X6, GPG_T8_X7};
+        B[e] = gpg_mx_comb<N, false>(u, A2, e);
+        B[NN + e] = gpg_mx_comb<N, true>(v, A, e);
+      } else {
+        const float b[5][5] = {
+            {0.f, -1.00365581030144618291e-01f, -8.02924648241156932449e-03f,
+             -8.92138498045658237863e-04f, 0.f},
+            {0.f, 3.97849749499645077844e-01f, 1.36783778460411720168e+00f,
+             4.98289622525382669416e-01f, -6.37898194594723280150e-04f},
+            {-1.09676396052962061844e+01f, 1.68015813878906206114e+00f,
+             5.71779846478865511061e-02f, -6.98210122488052056106e-03f,
+             3.34975017086070470649e-05f},
+            {-9.04316832390810593223e-02f, -6.76404519071381882256e-02f,
+             6.75961301770459654925e-02f, 2.95552570429315521194e-02f,
+             -1.39180257516060693404e-05f},
+            {0.f, 0.f, -9.23364619367118555360e-02f,
+             -1.69364939002081722752e-02f, -1.40086798182036094347e-05f}};
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          B[i * NN + e] = gpg_mx_comb<N, true>(b[i], A, e);
+      }
+    }
+  }
+  __syncwarp();
+  // 6: degree 8 A^8 (in A6), 12 two sums, 18 a product
+  if (deg == 3) {
+    gpg_mx_mul<N, G>(A6, B, B + NN, L);
+  } else if (deg == 4) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t) {
+      if (!L.on(t)) continue;
+      const int e = L.e(t);
+      B[2 * NN + e] = B[2 * NN + e] + T[e];
+      B[NN + e] = B[NN + e] + B[2 * NN + e];
+    }
+  } else if (deg == 5) {
+    gpg_mx_mul<N, G>(T, B, B + 4 * NN, L);
+  }
+  __syncwarp();
+  // 7: degree 8 its result, 12 a product, 18 two sums
+  if (deg == 3) {
+    const float d[] = {1.f, 1.f, GPG_T8_Y2, 0.f, 1.f};
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t)
+      if (L.on(t)) O[L.e(t)] = gpg_mx_comb<N, true>(d, A, L.e(t));
+  } else if (deg == 4) {
+    gpg_mx_mul<N, G>(T, B + NN, B + 2 * NN, L);
+  } else if (deg == 5) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t) {
+      if (!L.on(t)) continue;
+      const int e = L.e(t);
+      B[3 * NN + e] = B[3 * NN + e] + T[e];
+      B[2 * NN + e] = B[2 * NN + e] + B[3 * NN + e];
+    }
+  }
+  __syncwarp();
+  // 8: degree 12 its result, 18 a product
+  if (deg == 4) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t)
+      if (L.on(t)) O[L.e(t)] = B[L.e(t)] + T[L.e(t)];
+  } else if (deg == 5) {
+    gpg_mx_mul<N, G>(T, B + 2 * NN, B + 3 * NN, L);
+  }
+  __syncwarp();
+  // 9: degree 18 its result, then its s squarings
+  if (deg == 5) {
+#pragma unroll
+    for (int t = 0; t < L.PER; ++t)
+      if (L.on(t)) O[L.e(t)] = B[NN + L.e(t)] + T[L.e(t)];
+  }
+  __syncwarp();
+  for (int p = 0; p < smax; ++p) {
+    const bool sq = deg == 5 && p < s;
+    if (sq) gpg_mx_mul<N, G>(T, O, O, L);
     __syncwarp();
-    gpg_mat_mul(A2, A, A, n, lane);
-    gpg_mat_mul(A3, A, A2, n, lane);
-  }
-  gpg_mat_mul(A6, A3, A3, n, lane);
-  const float b[5][5] = {
-      {0.f, -1.00365581030144618291e-01f, -8.02924648241156932449e-03f,
-       -8.92138498045658237863e-04f, 0.f},
-      {0.f, 3.97849749499645077844e-01f, 1.36783778460411720168e+00f,
-       4.98289622525382669416e-01f, -6.37898194594723280150e-04f},
-      {-1.09676396052962061844e+01f, 1.68015813878906206114e+00f,
-       5.71779846478865511061e-02f, -6.98210122488052056106e-03f,
-       3.34975017086070470649e-05f},
-      {-9.04316832390810593223e-02f, -6.76404519071381882256e-02f,
-       6.75961301770459654925e-02f, 2.95552570429315521194e-02f,
-       -1.39180257516060693404e-05f},
-      {0.f, 0.f, -9.23364619367118555360e-02f, -1.69364939002081722752e-02f,
-       -1.40086798182036094347e-05f}};
-  for (int i = 0; i < 5; ++i) gpg_mat_comb(B + i * nn, I, b[i], 5, n, lane);
-  gpg_mat_mul(T, B, B + 4 * nn, n, lane);
-  gpg_mat_add(B + 3 * nn, B + 3 * nn, T, n, lane);
-  gpg_mat_add(B + 2 * nn, B + 2 * nn, B + 3 * nn, n, lane);
-  gpg_mat_mul(T, B + 2 * nn, B + 3 * nn, n, lane);
-  gpg_mat_add(out, B + nn, T, n, lane);
-  for (int p = 0; p < s; ++p) {
-    gpg_mat_mul(T, out, out, n, lane);
-    for (int e = lane; e < nn; e += 32) out[e] = T[e];
+    if (sq) {
+#pragma unroll
+      for (int t = 0; t < L.PER; ++t)
+        if (L.on(t)) O[L.e(t)] = T[L.e(t)];
+    }
     __syncwarp();
   }
 }
-// the reduced QR of the m x n (m >= n) matrix in W: Householder
+// the reduced QR of the M x N (M >= N) matrix in W: Householder
 // reflections with LAPACK's geqrf convention (beta = -sign(alpha) ||x||,
 // tau = (beta - alpha) / beta, none where x below the diagonal is 0), then
-// Q as orgqr forms it (H_0 ... H_{n-1} applied to I's first n columns,
-// the last first); out holds Q (m x n) over R (n x n); tau n floats
-__device__ GPG_NOINLINE inline void gpg_qr(float* out, float* W, float* tau,
-                                           int m, int n, int lane) {
-  for (int k = 0; k < n; ++k) {
+// Q as orgqr forms it (H_0 ... H_{N-1} applied to I's first N columns,
+// the last first); out holds Q (M x N) over R (N x N); tau N floats
+template <int M, int N>
+__device__ __forceinline__ void gpg_qr(float* out, float* W, float* tau,
+                                       int lane) {
+  for (int k = 0; k < N; ++k) {
     float s = 0.f;
-    for (int r = k + 1 + lane; r < m; r += 32)
-      s = fmaf(W[r * n + k], W[r * n + k], s);
+    for (int r = k + 1 + lane; r < M; r += 32)
+      s = fmaf(W[r * N + k], W[r * N + k], s);
     s = warp_sum(s);
-    const float alpha = W[k * n + k];
+    const float alpha = W[k * N + k];
     float beta = alpha, tk = 0.f, scal = 1.f;
     if (s > 0.f) {
       beta = -copysignf(sqrtf(fmaf(alpha, alpha, s)), alpha);
@@ -754,119 +890,141 @@ __device__ GPG_NOINLINE inline void gpg_qr(float* out, float* W, float* tau,
       scal = 1.f / (alpha - beta);
     }
     __syncwarp();  // every lane has read alpha
-    for (int r = k + 1 + lane; r < m; r += 32) W[r * n + k] *= scal;
+    for (int r = k + 1 + lane; r < M; r += 32) W[r * N + k] *= scal;
     if (lane == 0) {
-      W[k * n + k] = beta;
+      W[k * N + k] = beta;
       tau[k] = tk;
     }
     __syncwarp();
-    for (int j = k + 1 + lane; j < n; j += 32) {
-      float w = W[k * n + j];
-      for (int r = k + 1; r < m; ++r) w = fmaf(W[r * n + k], W[r * n + j], w);
+    for (int j = k + 1 + lane; j < N; j += 32) {
+      float w = W[k * N + j];
+      for (int r = k + 1; r < M; ++r) w = fmaf(W[r * N + k], W[r * N + j], w);
       w = w * tk;
-      W[k * n + j] -= w;
-      for (int r = k + 1; r < m; ++r)
-        W[r * n + j] = fmaf(-w, W[r * n + k], W[r * n + j]);
+      W[k * N + j] -= w;
+      for (int r = k + 1; r < M; ++r)
+        W[r * N + j] = fmaf(-w, W[r * N + k], W[r * N + j]);
     }
     __syncwarp();
   }
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e % n;
-    out[(m + i) * n + j] = j >= i ? W[i * n + j] : 0.f;
+  for (int e = lane; e < N * N; e += 32) {
+    const int i = e / N, j = e % N;
+    out[(M + i) * N + j] = j >= i ? W[i * N + j] : 0.f;
   }
-  for (int e = lane; e < m * n; e += 32) out[e] = e / n == e % n ? 1.f : 0.f;
+  for (int e = lane; e < M * N; e += 32) out[e] = e / N == e % N ? 1.f : 0.f;
   __syncwarp();
-  for (int k = n - 1; k >= 0; --k) {
-    for (int j = k + lane; j < n; j += 32) {
-      float w = out[k * n + j];
-      for (int r = k + 1; r < m; ++r) w = fmaf(W[r * n + k], out[r * n + j], w);
+  for (int k = N - 1; k >= 0; --k) {
+    for (int j = k + lane; j < N; j += 32) {
+      float w = out[k * N + j];
+      for (int r = k + 1; r < M; ++r) w = fmaf(W[r * N + k], out[r * N + j], w);
       w = w * tau[k];
-      out[k * n + j] -= w;
-      for (int r = k + 1; r < m; ++r)
-        out[r * n + j] = fmaf(-w, W[r * n + k], out[r * n + j]);
+      out[k * N + j] -= w;
+      for (int r = k + 1; r < M; ++r)
+        out[r * N + j] = fmaf(-w, W[r * N + k], out[r * N + j]);
     }
     __syncwarp();
   }
 }
-// the thin SVD of the m x n (m >= n) matrix in W by one-sided Jacobi:
-// sweeps over the column pairs p < q in order (their norms and inner
-// product over the lanes, warp_sum's order) rotating each pair whose
-// cosine exceeds sqrt(m) eps, until a sweep rotates none (or 30); then the
-// columns' norms are the singular values, descending (ties by index), U's
-// columns the normalised ones, V's the accumulated rotations, and each
-// column of U (of V, fix_v) has its largest component (the first of
-// equals) positive, its partner flipped with it; out holds U (m x n), the
-// singular values (n), V (n x n); V and sig (n) are workspace
-__device__ GPG_NOINLINE inline void gpg_svd(float* out, float* W, float* V,
-                                            float* sig, int m, int n,
-                                            bool fix_v, int lane) {
-  for (int e = lane; e < n * n; e += 32) V[e] = e / n == e % n ? 1.f : 0.f;
+// lanes a group for P pairs: the largest power of 2 at most 32 / P (1
+// from 17 pairs)
+__device__ constexpr int gpg_pair_lanes(int P) {
+  return P > 16 ? 1 : P > 8 ? 2 : P > 4 ? 4 : P > 2 ? 8 : P > 1 ? 16 : 32;
+}
+// the thin SVD of the M x N (M >= N) matrix in W by one-sided Jacobi in
+// Brent and Luk's parallel order: a sweep is NP - 1 rounds of NP / 2
+// disjoint column pairs (NP = N, or N + 1 with a column that pairs with
+// nothing: the round-robin of a tournament, column 0 fixed), each pair on
+// its own group of lanes, its norms and inner product summed over the
+// group's rows and then by shuffles within the group; a pair whose cosine
+// exceeds sqrt(M) eps rotates, until a sweep rotates none (or 30); then
+// the columns' norms are the singular values, descending (ties by index),
+// U's columns the normalised ones, V's the accumulated rotations, and each
+// column of U (of V, FIX_V) has its largest component (the first of
+// equals) positive, its partner flipped with it; out holds U (M x N), the
+// singular values (N), V (N x N); V and sig (N) are workspace
+template <int M, int N, bool FIX_V>
+__device__ __forceinline__ void gpg_svd(float* out, float* W, float* V,
+                                        float* sig, int lane) {
+  constexpr int NP = N + (N & 1), PAIRS = NP / 2;
+  constexpr int GL = gpg_pair_lanes(PAIRS), GROUPS = 32 / GL;
+  for (int e = lane; e < N * N; e += 32) V[e] = e / N == e % N ? 1.f : 0.f;
   __syncwarp();
-  const float tol = 1.1920929e-07f * sqrtf((float)m);
+  const float tol = 1.1920929e-07f * sqrtf((float)M);
+  const int grp = lane / GL, sub = lane % GL;
   for (int sweep = 0; sweep < 30; ++sweep) {
     bool rotated = false;
-    for (int p = 0; p < n - 1; ++p) {
-      for (int q = p + 1; q < n; ++q) {
+    for (int round = 0; round < NP - 1; ++round) {
+      for (int c = 0; c < (PAIRS + GROUPS - 1) / GROUPS; ++c) {
+        const int k = c * GROUPS + grp;  // every lane the same trips
+        // the columns at places k and NP - 1 - k of the round's order
+        const int x = k == 0 ? 0 : 1 + (k - 1 + round) % (NP - 1);
+        const int y = 1 + (NP - 2 - k + round) % (NP - 1);
+        const int p = x < y ? x : y, q = x < y ? y : x;
+        const bool live = k < PAIRS && q < N;
         float a = 0.f, b = 0.f, g = 0.f;
-        for (int r = lane; r < m; r += 32) {
-          const float wp = W[r * n + p], wq = W[r * n + q];
-          a = fmaf(wp, wp, a);
-          b = fmaf(wq, wq, b);
-          g = fmaf(wp, wq, g);
+        if (live) {
+          for (int r = sub; r < M; r += GL) {
+            const float wp = W[r * N + p], wq = W[r * N + q];
+            a = fmaf(wp, wp, a);
+            b = fmaf(wq, wq, b);
+            g = fmaf(wp, wq, g);
+          }
         }
-        a = warp_sum(a);
-        b = warp_sum(b);
-        g = warp_sum(g);
-        if (!(fabsf(g) > tol * sqrtf(a * b))) continue;
+#pragma unroll
+        for (int o = GL / 2; o > 0; o >>= 1) {
+          a += __shfl_xor_sync(FULL, a, o);
+          b += __shfl_xor_sync(FULL, b, o);
+          g += __shfl_xor_sync(FULL, g, o);
+        }
+        if (!live || !(fabsf(g) > tol * sqrtf(a * b))) continue;
         rotated = true;
         const float zeta = (b - a) / (2.f * g);
         const float t = copysignf(1.f, zeta) /
                         (fabsf(zeta) + sqrtf(fmaf(zeta, zeta, 1.f)));
         const float cs = 1.f / sqrtf(fmaf(t, t, 1.f));
         const float sn = cs * t;
-        // each lane rotates the rows whose sums it took: no barrier
-        for (int r = lane; r < m; r += 32) {
-          const float wp = W[r * n + p], wq = W[r * n + q];
-          W[r * n + p] = fmaf(cs, wp, -(sn * wq));
-          W[r * n + q] = fmaf(sn, wp, cs * wq);
+        // each lane rotates the rows whose sums it took
+        for (int r = sub; r < M; r += GL) {
+          const float wp = W[r * N + p], wq = W[r * N + q];
+          W[r * N + p] = fmaf(cs, wp, -(sn * wq));
+          W[r * N + q] = fmaf(sn, wp, cs * wq);
         }
-        for (int r = lane; r < n; r += 32) {
-          const float vp = V[r * n + p], vq = V[r * n + q];
-          V[r * n + p] = fmaf(cs, vp, -(sn * vq));
-          V[r * n + q] = fmaf(sn, vp, cs * vq);
+        for (int r = sub; r < N; r += GL) {
+          const float vp = V[r * N + p], vq = V[r * N + q];
+          V[r * N + p] = fmaf(cs, vp, -(sn * vq));
+          V[r * N + q] = fmaf(sn, vp, cs * vq);
         }
       }
+      __syncwarp();
     }
-    if (!rotated) break;
+    if (gpg_warp_max(rotated ? 1.f : 0.f) == 0.f) break;
   }
-  __syncwarp();
-  for (int j = lane; j < n; j += 32) {
+  for (int j = lane; j < N; j += 32) {
     float s = 0.f;
-    for (int r = 0; r < m; ++r) s = fmaf(W[r * n + j], W[r * n + j], s);
+    for (int r = 0; r < M; ++r) s = fmaf(W[r * N + j], W[r * N + j], s);
     sig[j] = sqrtf(s);
   }
   __syncwarp();
-  for (int j = lane; j < n; j += 32) {
+  for (int j = lane; j < N; j += 32) {
     const float sj = sig[j];
     int rank = 0;
-    for (int i = 0; i < n; ++i)
-      rank += gpg_sort_before(sig[i], i, sj, j, true, n) ? 1 : 0;
+    for (int i = 0; i < N; ++i)
+      rank += gpg_sort_before(sig[i], i, sj, j, true, N) ? 1 : 0;
     const float inv = sj > 0.f ? 1.f / sj : 0.f;
-    const float* F = fix_v ? V : W;
-    const int rows = fix_v ? n : m;
-    const float scale = fix_v ? 1.f : inv;
+    const float* F = FIX_V ? V : W;
+    const int rows = FIX_V ? N : M;
+    const float scale = FIX_V ? 1.f : inv;
     float big = -1.f, sg = 1.f;
     for (int r = 0; r < rows; ++r) {
-      const float v = F[r * n + j] * scale;
+      const float v = F[r * N + j] * scale;
       if (fabsf(v) > big) {
         big = fabsf(v);
         sg = v < 0.f ? -1.f : 1.f;
       }
     }
-    for (int r = 0; r < m; ++r) out[r * n + rank] = sg * (W[r * n + j] * inv);
-    out[m * n + rank] = sj;
-    for (int r = 0; r < n; ++r)
-      out[(m + 1 + r) * n + rank] = sg * V[r * n + j];
+    for (int r = 0; r < M; ++r) out[r * N + rank] = sg * (W[r * N + j] * inv);
+    out[M * N + rank] = sj;
+    for (int r = 0; r < N; ++r)
+      out[(M + 1 + r) * N + rank] = sg * V[r * N + j];
   }
   __syncwarp();
 }

@@ -33,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -131,6 +132,9 @@ GENERIC_SIGNATURES = {
 # seconds and compiler output of the builds this process ran (empty when
 # every library was already built; ptxas_log() reads every build's)
 BUILD_INFO = {}
+# library (a source, or a generated functor's file) -> seconds its nvcc took
+# from the start of the batch that built it (the builds run in parallel)
+BUILD_SECONDS = {}
 _libs = {}  # source -> loaded library
 # generated functor text -> loaded library: the wrappers look a potential's
 # library up at every launch, and its path hashes the headers read from
@@ -205,9 +209,22 @@ def _build_missing(sources, generated=(), nice=0) -> None:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             preexec_fn=(lambda: os.nice(nice)) if nice else None,
         ))
+    # each library's output, and its seconds from the batch's start to its
+    # nvcc's exit
+    said = {}
+
+    def wait(name, proc):
+        said[name] = (proc.communicate()[0], time.perf_counter() - t0)
+
+    waits = [threading.Thread(target=wait, args=(name, job[2]))
+             for name, job in jobs.items()]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     logs, failed = [], []
     for source, (out, tmp, proc) in jobs.items():
-        text, _ = proc.communicate()
+        text, BUILD_SECONDS[source] = said[source]
         logs.append(f"== {source}\n{text}")
         if proc.returncode:
             failed.append(f"nvcc failed on {source} ({proc.returncode}):\n{text}")
@@ -273,6 +290,12 @@ def generated_ptxas_log(text: str) -> str:
     a generated functor, or "" when this tree has not built it."""
     log = generated_path(text).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def generated_build_seconds(text: str):
+    """nvcc's seconds on the library of a generated functor, or None when
+    this process did not build it."""
+    return BUILD_SECONDS.get(_functor_file(text).name)
 
 
 def check_launch(lib, err: int, name: str) -> None:

@@ -84,9 +84,12 @@ time; a sort ranks by counting up to 32 elements and runs a bitonic
 network beyond; a reducing scatter reduces each output's inputs (a row
 the host builds) in input order in the output's lane, and so does a
 scatter by a per-chain index, each lane walking every input (a write: the
-last of a duplicate wins).  An LU factor, a QR, an SVD and a matrix
-exponential run a warp a matrix in the workspace (``gpg_qr``, ``gpg_svd``,
-``gpg_mexp`` in ``csrc/generic_pg.cuh``).  Gathers
+last of a duplicate wins).  An LU factor, a QR and an SVD run a warp a
+matrix in the workspace, the SVD's disjoint column pairs on groups of
+lanes at once (Brent and Luk's order); matrix exponentials run several
+small matrices a warp pass, each with its own degree (``gpg_qr``,
+``gpg_svd``, ``gpg_mexp`` in ``csrc/generic_pg.cuh``: templates on their
+sizes, inlined).  Gathers
 read their index operand at run time (an index is checked on the host
 to lie in ``[-n, n)`` and wrapped on the card), so the IR and its cache do
 not depend on index values.  Elementwise nodes are inlined into the loops
@@ -3165,6 +3168,13 @@ def _sort_width(length: int) -> int:
     return 0 if length <= 32 else 1 << (length - 1).bit_length()
 
 
+def _mexp_group(size: int, batch: int) -> int:
+    """Matrix exponentials of ``size`` x ``size`` a warp pass: as many as
+    the 32 lanes hold an element each of (two 4 x 4 matrices, three 3 x 3),
+    at most the batch; one from 6 x 6."""
+    return max(1, min(batch, 32 // (size * size)))
+
+
 def _scratch(ir, n: Node) -> int:
     """Workspace floats a sequential node keeps after its output: an LU's
     factors and pivots, a Jacobi's matrix and eigenvectors, a bitonic
@@ -3179,8 +3189,9 @@ def _scratch(ir, n: Node) -> int:
     if n.op in ("qr", "svd"):  # the working copy; tau, or V and the norms
         _, m, k = ir.nodes[n.args[0]].shape
         return m * k + (k if n.op == "qr" else k * k + k)
-    if n.op == "mexp":  # I, A, A^2, A^3, A^6, five combinations, a product
-        return 11 * n.shape[-1] ** 2
+    if n.op == "mexp":  # a pass's A, A^2, A^3, A^6, five combinations, a
+        size = n.shape[-1]  # product
+        return _mexp_group(size, n.shape[0]) * 10 * size * size
     if n.op == "scatter_reduce_chain":  # each output's count
         return n.shape[0]
     return 0
@@ -4912,7 +4923,7 @@ class _Emitter:
         """The reduced QR a matrix (``gpg_qr``): Q over R."""
         _, m, k = self.ir.nodes[self.ir.nodes[nid].args[0]].shape
         self._dense(nid, lines, lambda out, w: (
-            f"gpg_qr({out}, {w}, {w} + {m * k}, {m}, {k}, lane);"), m, k)
+            f"gpg_qr<{m}, {k}>({out}, {w}, {w} + {m * k}, lane);"), m, k)
 
     def svd(self, nid, lines):
         """The thin SVD a matrix (``gpg_svd``): U, the singular values,
@@ -4921,25 +4932,44 @@ class _Emitter:
         _, m, k = self.ir.nodes[n.args[0]].shape
         fix_v = _cbool(n.params[0])
         self._dense(nid, lines, lambda out, w: (
-            f"gpg_svd({out}, {w}, {w} + {m * k}, {w} + {m * k + k * k}, "
-            f"{m}, {k}, {fix_v}, lane);"), m, k)
+            f"gpg_svd<{m}, {k}, {fix_v}>({out}, {w}, {w} + {m * k}, "
+            f"{w} + {m * k + k * k}, lane);"), m, k)
 
     def mexp(self, nid, lines):
-        """The matrix exponential a matrix (``gpg_mexp``), its argument
-        copied into the scratch's second matrix."""
-        size = self.ir.nodes[nid].shape[-1]
+        """Matrix exponentials, ``_mexp_group`` matrices a warp pass
+        (``gpg_mexp``): the pass's arguments copied into their scratch
+        matrices, then the body."""
         n = self.ir.nodes[nid]
+        batch, size = n.shape[0], n.shape[-1]
+        nn = size * size
+        group = _mexp_group(size, batch)
         base = self.sched.slots[nid]
         w0 = base + _numel(n.shape)
+        ragged = batch % group != 0
         scope = _Scope(self)
-        i, j = _unflatten(Ix("e", size * size), (size, size))
-        v = self.value(n.args[0], (self._arg_batch(nid), i, j), scope)
-        body = [f"for (int e = lane; e < {size * size}; e += 32) {{",
-                *("  " + line for line in scope.lines),
-                f"  ws[{w0 + size * size} + e] = {v};", "}", "__syncwarp();",
-                f"gpg_mexp(ws + {base} + b * {size * size}, ws + {w0}, "
-                f"{size}, lane);"]
-        self._batch_loop(nid, lines, body)
+        if self.ir.nodes[n.args[0]].shape[0] == 1:
+            bb = _ic(0)
+        else:
+            bb = Ix("bb", batch) if group > 1 else Ix("b", batch)
+        e = Ix(f"(e % {nn})", nn) if group > 1 else Ix("e", nn)
+        i, j = _unflatten(e, (size, size))
+        v = self.value(n.args[0], (bb, i, j), scope)
+        body = [f"for (int e = lane; e < {group * nn}; e += 32) {{"]
+        if group > 1:
+            body.append(f"  const int bb = b + e / {nn};")
+            if ragged:
+                body.append(f"  if (bb >= {batch}) continue;")
+            dst = f"ws[{w0} + (e / {nn}) * {10 * nn} + e % {nn}]"
+        else:
+            dst = f"ws[{w0} + e]"
+        body += [*("  " + line for line in scope.lines), f"  {dst} = {v};",
+                 "}", "__syncwarp();"]
+        count = f"gpg_imin({group}, {batch} - b)" if ragged else str(group)
+        body.append(f"gpg_mexp<{size}, {group}>(ws + {base} + b * {nn}, "
+                    f"ws + {w0}, {count}, lane);")
+        lines.append(f"for (int b = 0; b < {batch}; b += {group}) {{")
+        lines.extend("  " + line for line in body)
+        lines.append("}")
 
     def scatter_reduce_chain(self, nid, lines):
         """scatter_add's loops, reducing: each output's lane starts from

@@ -3791,11 +3791,21 @@ def ptxas_most(_build, b):
     return max(regs, default=None), max(spill, default=None)
 
 
+def ptxas_frame(_build, b):
+    """The largest stack frame (bytes) over a built generated library's
+    functions, None before it is built."""
+    frames = [int(line.split("bytes stack frame")[0].split()[-1])
+              for line in _build.generated_ptxas_log(b.source).splitlines()
+              if "bytes stack frame" in line]
+    return max(frames, default=None)
+
+
 def functor_report(torch, _build, b, plan_dim, chains, k):
-    """ptxas's registers and spills of the generated kernels, their blocks
-    per SM at the launch plan's shared memory (two, or one where the
-    geometry gives the block a factor scratch two blocks cannot hold), and
-    the functor's geometry."""
+    """ptxas's registers, spills and stack frame of the generated kernels,
+    nvcc's seconds on their library (None where this process did not build
+    it), their blocks per SM at the launch plan's shared memory (two, or
+    one where the geometry gives the block a factor scratch two blocks
+    cannot hold), and the functor's geometry."""
     from aehmc_tpu_torch.ops.launch_plan import launch_plan, two_blocks_fit
 
     regs, spill = ptxas_most(_build, b)
@@ -3811,7 +3821,9 @@ def functor_report(torch, _build, b, plan_dim, chains, k):
     check(min(per_sm.values()) >= want, f"generic kernels: fewer than "
           f"{want} blocks per SM {per_sm}")
     return dict(geometry_fields(b, chains), registers=regs,
-                spill_bytes=spill, blocks_per_sm=per_sm, smem_bytes=plan.smem)
+                spill_bytes=spill, stack_frame_bytes=ptxas_frame(_build, b),
+                build_s=_build.generated_build_seconds(b.source),
+                blocks_per_sm=per_sm, smem_bytes=plan.smem)
 
 
 def mvn_limits(torch, diagnostics, positions, stats, what):
@@ -6052,8 +6064,12 @@ def op_kernel_phase(torch, pots, gen, record, card, phase=48,
                         f"{v['bound_ms']:.5f} ({v['bound_by']})"
                         for kn, v in res["kernels"].items())
             + f"; ptxas kernels 1-4 {nuts_rep['registers']} registers, "
-            f"{nuts_rep['spill_bytes']} B spills, blocks per SM "
-            f"{nuts_rep['blocks_per_sm']}; kernels 5-7 registers "
+            f"{nuts_rep['spill_bytes']} B spills, stack frames up to "
+            f"{nuts_rep['stack_frame_bytes']} B, blocks per SM "
+            f"{nuts_rep['blocks_per_sm']}; library built in "
+            + (f"{nuts_rep['build_s']:.1f} s" if nuts_rep['build_s']
+               else "(not built here)")
+            + "; kernels 5-7 registers "
             f"{hmc_rep['registers']}, spills {hmc_rep['spill_bytes']}, "
             f"blocks per SM {hmc_rep['blocks_per_sm']}"
             + "".join(f"; {kn} over {v['draws']} draws (equal to kernel "
@@ -8081,6 +8097,143 @@ def everyday_probe(torch, record, card):
     return res
 
 
+# phase 56's dense-node probe: each chain's q holds two 4 x 4 matrices (a
+# warp pass of the emitted matrix exponential), two 8 x 8 and one 10 x 10
+# (the emitted SVD, U4's size); the functor's rows are their exponentials,
+# the singular values, U Vᵀ and U diag(s) Uᵀ.  The exponentials' 1-norms:
+# one in each of ATen's six degree intervals and one beyond the last (2
+# squarings), a chain's two matrices in different intervals; the SVD's
+# matrices random, of rank 9 and with a repeated singular value in turn.
+DENSE_PROBE_DIM = 32 + 128 + 210
+DENSE_PROBE_CHAINS = 7 * 128
+DENSE_PROBE_NORMS = (5e-8, 2e-4, 0.02, 0.3, 1.0, 2.5, 12.0)
+# limits, fixed before the run: relative to each matrix's largest element
+# against float64 torch on the card (tests/test_torch_dense_nodes.py's
+# MEXP_F64_RTOL and SVD_F64_RTOL)
+DENSE_PROBE_MEXP_RTOL = 1e-5
+DENSE_PROBE_SVD_RTOL = 3e-5
+
+
+def dense_probe_pg(torch):
+    """The dense-node probe's potential and gradient, traced as it stands
+    (see DENSE_PROBE_DIM)."""
+
+    def pg(q_t):
+        q = q_t.T.contiguous()
+        e4 = torch.linalg.matrix_exp(
+            q[:, :32].contiguous().reshape(-1, 2, 4, 4))
+        e8 = torch.linalg.matrix_exp(
+            q[:, 32:160].contiguous().reshape(-1, 2, 8, 8))
+        U, S, Vh = torch.linalg.svd(q[:, 160:260].reshape(-1, 10, 10),
+                                    full_matrices=False)
+        g = torch.cat([e4.reshape(-1, 32), e8.reshape(-1, 128), S,
+                       (U @ Vh).reshape(-1, 100),
+                       ((U * S[:, None, :]) @ U.mT).reshape(-1, 100)], 1).T
+        return g.sum(0), g
+
+    return pg
+
+
+def dense_probe_binding(torch, dev):
+    """The dense-node probe's bound functor (one per device, built in phase
+    1 with the others)."""
+    from aehmc_tpu_torch.ops import generic_pg
+
+    if ("dense", dev) not in _PROBE:
+        pg = dense_probe_pg(torch)
+        _PROBE["dense", dev] = (pg, generic_pg.bind(
+            pg, (), DENSE_PROBE_DIM, with_grad=False, device=dev))
+    return _PROBE["dense", dev]
+
+
+def dense_probe_inputs(chains=DENSE_PROBE_CHAINS, seed=EVERYDAY_SEED + 6):
+    """q (DENSE_PROBE_DIM, chains) of the dense-node probe (float32)."""
+    rng = np.random.default_rng(seed)
+    q = np.zeros((chains, DENSE_PROBE_DIM))
+    nn = len(DENSE_PROBE_NORMS)
+    for c in range(chains):
+        at = 0
+        for n in (4, 8):
+            for k in range(2):
+                M = rng.standard_normal((n, n))
+                norm = DENSE_PROBE_NORMS[(c + 3 * k) % nn]
+                q[c, at:at + n * n] = (M * norm / np.abs(M).sum(0).max()
+                                       ).reshape(-1)
+                at += n * n
+        A = rng.standard_normal((10, 10))
+        if c % 3 == 1:
+            A[:, -1] = A[:, :-1] @ rng.standard_normal(9)
+        elif c % 3 == 2:
+            U, _ = np.linalg.qr(rng.standard_normal((10, 10)))
+            V, _ = np.linalg.qr(rng.standard_normal((10, 10)))
+            A = (U * np.array([3.0, 2.0, 2.0, *np.linspace(1.5, 0.5, 7)])
+                 ) @ V.T
+        q[c, 160:260] = A.reshape(-1)
+    return np.ascontiguousarray(q.T, np.float32)
+
+
+def dense_node_probe(torch, record, card):
+    """Phase 56 (c): the emitted matrix exponential (n 4, two matrices a
+    warp pass, and 8) and SVD (10 x 10) on the card (kernel 5 at ε 0, its
+    move accepted: its g is the functor's rows at q), against float64
+    torch on the card, relative to each matrix's largest element, held to
+    DENSE_PROBE_MEXP_RTOL and DENSE_PROBE_SVD_RTOL: each degree interval's
+    worst exponential, the SVD's worst singular values, U Vᵀ (full-rank
+    matrices) and U diag(s) Uᵀ."""
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+
+    dev = torch.device(DEVICE)
+    C = DENSE_PROBE_CHAINS
+    q = torch.tensor(dense_probe_inputs(), device=dev)
+    pg, _ = dense_probe_binding(torch, dev)
+    o = gf.ghmc_transition_cuda(q, torch.full((1, C), 1e30, device=dev),
+                                torch.zeros_like(q), torch.zeros_like(q), 0.0,
+                                0.0, torch.ones(DENSE_PROBE_DIM, device=dev),
+                                (), seed=5602, potential_and_grad_t=pg,
+                                potential_fn_t=None)
+    torch.cuda.synchronize()
+    check(torch.equal(o[0], q), "dense-node probe: q moved at ε 0")
+    g, q64 = o[2].T.double(), q.T.double()
+
+    def rel(a, b):  # (matrices,) of |a - b| over each b's largest element
+        a, b = a.flatten(1), b.flatten(1)
+        return ((a - b).abs().amax(1) / b.abs().amax(1)).cpu()
+
+    res, nn = {}, len(DENSE_PROBE_NORMS)
+    at = 0
+    for n in (4, 8):
+        for k in range(2):
+            A = q64[:, at:at + n * n].reshape(C, n, n)
+            err = rel(g[:, at:at + n * n].reshape(C, n, n),
+                      torch.linalg.matrix_exp(A))
+            cls = (torch.arange(C) + 3 * k) % nn
+            for i, norm in enumerate(DENSE_PROBE_NORMS):
+                key = f"mexp n {n}, norm {norm}"
+                res[key] = max(res.get(key, 0.0), float(err[cls == i].max()))
+            at += n * n
+    A = q64[:, 160:260].reshape(C, 10, 10)
+    U, S, Vh = torch.linalg.svd(A, full_matrices=False)
+    full = torch.arange(C) % 3 != 1
+    res["svd s"] = float(rel(g[:, 160:170], S).max())
+    res["svd U Vᵀ"] = float(rel(g[:, 170:270].reshape(C, 10, 10),
+                                U @ Vh)[full].max())
+    res["svd U diag(s) Uᵀ"] = float(rel(
+        g[:, 270:370].reshape(C, 10, 10), (U * S[:, None, :]) @ U.mT).max())
+    for key, err in res.items():
+        limit = (DENSE_PROBE_SVD_RTOL if key.startswith("svd")
+                 else DENSE_PROBE_MEXP_RTOL)
+        check(err <= limit, f"dense-node probe: {key} {err:.3g} of the "
+              f"largest element from float64 torch (limit {limit})")
+    log(f"phase 56: dense-node probe, {C} chains (kernel 5 at ε 0): the "
+        "emitted matrix exponential and SVD against float64 torch on the "
+        "card, worst error over each matrix's largest element: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in res.items())
+        + f" (limits {DENSE_PROBE_MEXP_RTOL}, svd {DENSE_PROBE_SVD_RTOL}) "
+        f"[{card}]")
+    record["phase56_dense_probe"] = dict(chains=C, max_rel_err=res)
+    return res
+
+
 def background_build(build, texts):
     """Build the generated functors ``texts`` in a thread, the compilers at
     nice 10; returns a function that waits for it and raises what it
@@ -8231,33 +8384,34 @@ def main():
     card = card_identity()
     kind = torch.cuda.get_device_name(0)
     # the six sources build while the potentials are traced (a trace is one
-    # core's work; the functors' builds, which would take every core from
-    # it, start after): in phase 1 those of phases 34-43 (phase 1 reports
-    # kernels 5-7 on three of them), the others of phases 48-57 at a low
-    # priority beside phases 18-47
+    # core's work), and so do phases 34-43's functors once traced (phase 1
+    # reports kernels 5-7 on three of them); the others of phases 48-57
+    # build at a low priority beside phases 18-47
     from concurrent.futures import ThreadPoolExecutor
     from aehmc_tpu_torch.ops import generic_pg
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         sources = pool.submit(_build.build_all)
         gen_pots = generic_potentials(torch, dev)  # phases 34-38's functors
+        functors = pool.submit(_build._build_missing, (), tuple(
+            dict.fromkeys(b.source for b in gen_pots["binds"].values())))
         op_pots = op_table_potentials(torch, dev)  # phases 48-50's
         rest_pots = rest_potentials(torch, dev)    # phases 51-52's
         last_pots = last_potentials(torch, dev)    # phases 54-55's
         every_pots = everyday_potentials(torch, dev)  # phases 56-57's
-        _, probe = probe_binding(torch, dev)       # phase 56's probe
+        _, probe = probe_binding(torch, dev)       # phase 56's probes
+        _, dense_probe = dense_probe_binding(torch, dev)
         lg = generic_pg.bind(*lgamma_binding(torch, dev), 1, device=dev)
         trace_s = time.perf_counter() - t0
-        _build._build_missing((), tuple(dict.fromkeys(
-            b.source for b in gen_pots["binds"].values())))
+        functors.result()
         sources.result()
     later = ([p["bound"].source for p in op_pots.values()]
              + [p["bound"].source for p in rest_pots.values()]
              + [p["bound"].source for p in last_pots.values()]
              + [lg.source]
              + [p["bound"].source for p in every_pots.values()]
-             + [probe.source])
+             + [probe.source, dense_probe.source])
     build_s = time.perf_counter() - t0
     log(card)
     log(f"phase 1: {kind}, torch {torch.__version__}, CUDA "
@@ -8714,6 +8868,7 @@ def main():
                             phase=56, cells=EVERYDAY_CELLS, sampling={},
                             starts=EVERYDAY_STARTS)
     everyday_probe(torch, record, card)
+    dense_node_probe(torch, record, card)
     doors57 = everyday_doors(torch, ops, diagnostics, every_pots, record,
                              card)
     stamp(record, "56-57")

@@ -17,13 +17,17 @@ tree changes) to the posterior; then
   kernel 1 on S2 ``gp_se64_logdet`` at phase 54's cell (1,024 chains from
   0.1·N(0, 1), seed 54, ε 0.02, K 4): their positions, potentials,
   gradients and statistics, through which a node whose order of terms
-  changed shows (``--only-last`` runs these alone).
+  changed shows (``--only-last`` runs these alone);
+- phase 56 (``--only-everyday``, alone): kernels 1 and 2 (4 draws) on U3
+  ``ctmc_cav`` and U4 ``ppca_qr`` at phase 56's cells (EVERYDAY_CELLS and
+  EVERYDAY_STARTS, seed 56), through their matrix exponentials, QR and
+  SVD.
 
 Run from the root of a checkout (``--pkg`` imports the package from
 another directory, say one that profiling/decompose_generic.py staged):
 
     python profiling/bits_vs_parent.py --out A.pt [--pkg DIR] [--against B.pt]
-        [--last] [--only-last]
+        [--last] [--only-last] [--only-everyday]
 """
 import argparse
 import os
@@ -42,6 +46,7 @@ def main():
     ap.add_argument("--against")
     ap.add_argument("--last", action="store_true")
     ap.add_argument("--only-last", action="store_true")
+    ap.add_argument("--only-everyday", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.pkg))
     sys.path.insert(1, ROOT)
@@ -58,7 +63,9 @@ def main():
     out = {}
     if args.last or args.only_last:
         out.update(last_kernels(torch, cs, dev))
-    if not args.only_last:
+    if args.only_everyday:
+        out.update(everyday_kernels(torch, cs, dev))
+    if not (args.only_last or args.only_everyday):
         out.update(doors(torch, cs, dev, aehmc_tpu_torch, ops, nf))
     torch.cuda.synchronize()
     out["launches"] = dict(ops.LAUNCHES)
@@ -107,6 +114,35 @@ def last_kernels(torch, cs, dev):
                                         **kw)
             out[f"phase54/{name}/k2/positions"] = o2[0].cpu()
             out[f"phase54/{name}/k2/stats"] = o2[1].cpu()
+    return out
+
+
+def everyday_kernels(torch, cs, dev):
+    """Phase 56's U3 and U4 launches (see the module)."""
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+
+    names = ("ctmc_cav", "ppca_qr")
+    pots = cs.everyday_potentials(torch, dev, names)
+    out = {}
+    for name in names:
+        dim, chains, eps, imm_v, k = cs.EVERYDAY_CELLS[name]
+        p = pots[name]
+        b, rows = p["bound"], p["rows"]
+        q = 0.1 * np.random.default_rng(56).standard_normal((dim, chains))
+        q += np.asarray(cs.EVERYDAY_STARTS.get(name, np.zeros(dim)))[:, None]
+        q_t = torch.tensor(q, dtype=torch.float32, device=dev)
+        u0, g0 = generic_pg.run_plain(b.ir, q_t, b.operands(rows, dev))
+        imm = torch.full((dim,), imm_v, device=dev)
+        kw = dict(potential_and_grad_t=None, potential_fn_t=p["pot"])
+        o1 = nfs.nuts_transition_cuda(q_t, u0, g0, imm, eps, rows,
+                                      max_exp=k, seed=561, **kw)
+        for i, part in enumerate(("q", "u", "g", "stats")):
+            out[f"phase56/{name}/k1/{part}"] = o1[i].cpu()
+        o2 = nfs.nuts_sampling_cuda(q_t, u0, g0, imm, eps, rows, 562,
+                                    cs.OPS_SAMPLING_DRAWS, max_exp=k, **kw)
+        out[f"phase56/{name}/k2/positions"] = o2[0].cpu()
+        out[f"phase56/{name}/k2/stats"] = o2[1].cpu()
     return out
 
 

@@ -16,8 +16,10 @@ of a generated functor's text and times them on the card:
   barrier).  The dense linear algebra is split by node kind (the emitter's
   methods are wrapped to mark each node's statements): ``chol``,
   ``trsolve_1`` (a triangular solve of one right side), ``trsolve_n``
-  (several), ``lusolve``, ``slogdet``, ``lufactor``, and ``ws_mm`` (a loop
-  group holding a matrix product of two workspace matrices);
+  (several), ``lusolve``, ``slogdet``, ``lufactor``, ``mexp`` (a batch of
+  matrix exponentials, its arguments' copies included), ``qr``, ``svd``,
+  and ``ws_mm`` (a loop group holding a matrix product of two workspace
+  matrices);
 - ``noload``: every read of a float data operand replaced by a value of
   its index (the loads' share, by difference; kernel 7 only, whose work
   does not depend on the values);
@@ -51,7 +53,14 @@ takes the package from another checkout, say a parent commit unpacked into
 
 ``--names gp_se64,gp_se64_logdet`` (S1, S2) runs kernels 1 and 3 (and
 kernel 2 on S1, 4 draws) at chip_smoke.py's phase 54 cell: 1,024 chains,
-ε 0.02, K 4.
+ε 0.02, K 4.  ``--names ctmc_cav,ppca_qr`` (U3, U4) runs kernels 1, 2 (4
+draws) and 3 at phase 56's cells (``EVERYDAY_CELLS``: U3 4,096 chains, ε
+0.01, its start at the data's log rates; U4 1,024 chains, ε 0.002; K 6).
+
+The base texts of the named potentials are built first, each library by
+its own nvcc and all at once, and each one's seconds are reported
+(``build_s_by_name``): nvcc's time on a functor, the cost an inlined body
+adds.
 
 The package is copied into ``scratch/decompose/<tag>/`` and given the
 profile buffer there (``--reuse`` keeps an earlier run's copy and
@@ -67,11 +76,12 @@ import os
 import re
 import shutil
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ["chol", "trsolve_1", "trsolve_n", "lusolve", "slogdet", "lufactor",
-         "ws_mm"]
+         "mexp", "qr", "svd", "ws_mm"]
 CATS = ["we_loop", "we_sum", "loop_contract", "loop_elem", "loop_post",
         "chunk_wait", "sequential", "scalar", *KINDS, "total", "between",
         "calls"]
@@ -257,7 +267,8 @@ def marked_text(gp, ir):
         return "trsolve_1" if self.ir.nodes[nid].shape[-1] == 1 \
             else "trsolve_n"
 
-    for name in ("chol", "lusolve", "slogdet", "lufactor"):
+    for name in ("chol", "lusolve", "slogdet", "lufactor", "mexp", "qr",
+                 "svd"):
         if hasattr(E, name):
             wrap(name, lambda self, nid, name=name: name)
     wrap("trsolve", solve_kind)
@@ -369,6 +380,25 @@ def noload_text(text):
     return head + body
 
 
+def ptxas_summary(log):
+    """{function: [registers or None, stack frame bytes, spill store bytes,
+    spill load bytes]} from nvcc's -Xptxas -v output: every entry function
+    and every function compiled out of line."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in line and fn:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)[:3]]
+            out.setdefault(fn, [None])[1:] = nums
+        elif "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "Used" in line and "registers" in line and fn:
+            out.setdefault(fn, [None, None, None, None])[0] = int(
+                line.split("Used")[1].split()[0])
+    return out
+
+
 # ------------------------------------------------------------ the runs --
 def main():
     ap = argparse.ArgumentParser()
@@ -428,6 +458,16 @@ def main():
             dim, chains, eps, _, k = cs.LAST_CELLS[name]
             cases[name] = (last[name]["bound"], last[name]["rows"],
                            last[name]["pot"], dim, kernels, eps, k, chains)
+    every = [n for n in ("ctmc_cav", "ppca_qr") if n in names]
+    every_pots = cs.everyday_potentials(torch, dev, every) if every else {}
+    starts = {}  # name: the state's mean (phase 56's EVERYDAY_STARTS)
+    for name in every:
+        dim, chains, eps, _, k = cs.EVERYDAY_CELLS[name]
+        cases[name] = (every_pots[name]["bound"], every_pots[name]["rows"],
+                       every_pots[name]["pot"], dim, ("k1", "k2", "k3"), eps,
+                       k, chains)
+        if name in cs.EVERYDAY_STARTS:
+            starts[name] = np.asarray(cs.EVERYDAY_STARTS[name], np.float64)
     variants = args.variants.split(",")
     chains_of = {"l2": args.l2_chains, "c4096": 4096, "fglobal4096": 4096,
                  "fshared4096": 4096}
@@ -497,10 +537,38 @@ def main():
                 texts[(name, v)] = noload_text(b.source)
             else:
                 texts[(name, v)] = b.source
+    # each named potential's base library by its own nvcc, all at once
+    build_s_by_name, failed = {}, []
+
+    def timed_build(name, text):
+        t = time.perf_counter()
+        try:
+            _build._build_missing((), (text,))
+        except Exception as err:  # noqa: BLE001 - raised after the join
+            failed.append(err)
+        build_s_by_name[name] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    base = {name: texts[(name, "base")] for name in names
+            if (name, "base") in texts}
+    threads = [threading.Thread(target=timed_build, args=item)
+               for item in base.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if failed:
+        raise failed[0]
+    print("built", ", ".join(f"{k} in {v:.1f} s"
+                             for k, v in build_s_by_name.items()), flush=True)
     _build.build_all(generated=tuple(set(texts.values())))
     res = dict(tree=args.tree, tag=args.tag, chains=args.chains,
-               build_s=time.perf_counter() - t0, runs={})
+               build_s=time.perf_counter() - t0,
+               build_s_by_name=build_s_by_name, runs={},
+               ptxas={name: ptxas_summary(_build.generated_ptxas_log(text))
+                      for name, text in base.items()})
+    for name, rep in res["ptxas"].items():
+        print(args.tag, name, "ptxas", json.dumps(rep), flush=True)
     print(f"built {len(set(texts.values()))} libraries in "
           f"{res['build_s']:.1f} s", flush=True)
     rng = np.random.default_rng(19)
@@ -516,7 +584,8 @@ def main():
                 continue
             chains = chains_of.get(v, chains0)
             if chains not in states:
-                q = torch.tensor(0.1 * rng.standard_normal((chains, dim)),
+                q = torch.tensor(0.1 * rng.standard_normal((chains, dim))
+                                 + starts.get(name, 0.0),
                                  dtype=torch.float32, device=dev)
                 u0, g0 = gp.run_plain(b.ir, q.T.contiguous(), ops_b)
                 states[chains] = (q, u0.reshape(-1), g0.T.contiguous())
