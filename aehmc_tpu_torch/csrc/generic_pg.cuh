@@ -85,7 +85,7 @@
 namespace aehmc {
 namespace generic {
 
-constexpr int MAX_DATA = 16;  // data operands (ops/generic_pg.py MAX_DATA)
+constexpr int MAX_DATA = 32;  // data operands (ops/generic_pg.py MAX_DATA)
 
 // the data operands: device pointers (contiguous float32, or int32 rows of
 // index or count data, which travel in the same slot and which the

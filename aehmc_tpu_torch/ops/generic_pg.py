@@ -77,7 +77,11 @@ one lane an output, sequential.  A scatter-add (the backward of
 a gather) starts from its base, and each output's owning lane (output
 j: lane j % 32) adds the values that land on it in input order, as
 torch's ``index_add``/``index_put(accumulate=True)`` on the CPU does; no
-atomics.  A cumulative sum (product) runs one lane a line, sequential.
+atomics.  By an index the host knows (data, or a row derived from them)
+the lane walks only its outputs' values, which the host's preimage row
+lists (:func:`_preimage`), and stores each sum once; by an index computed
+on the card every lane walks every value.  A cumulative sum (product) runs
+one lane a line, sequential.
 A Cholesky factor, the LU of a log-determinant and a cyclic Jacobi
 eigendecomposition run in the workspace, the warp over one matrix at a
 time; a sort ranks by counting up to 32 elements and runs a bitonic
@@ -94,13 +98,14 @@ read their index operand at run time (an index is checked on the host
 to lie in ``[-n, n)`` and wrapped on the card), so the IR and its cache do
 not depend on index values.  Elementwise nodes are inlined into the loops
 that read them and share register temporaries there; one is materialised
-only when a matrix product reads its elements more than once, when a
-scatter reads it, or when several loops read it and it costs more than a
-few operations.  Loops of one iteration count with no dependence between
-them fuse into one.  The materialised vectors live in a per-chain
-workspace of ``W`` floats, in shared memory when two blocks still fit an
-SM with it (:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`),
-else in a global buffer the wrapper allocates, indexed by block and warp.
+only when a matrix product reads its elements more than once, when every
+lane reads it (a scatter by an index computed on the card, a sort), or
+when several loops read it and it costs more than a few operations.  Loops
+of one iteration count with no dependence between them fuse into one.
+The materialised vectors live in a per-chain workspace of ``W`` floats,
+in shared memory when two blocks still fit an SM with it
+(:func:`aehmc_tpu_torch.ops.launch_plan.generic_workspace_shared`), else
+in a global buffer the wrapper allocates, indexed by block and warp.
 
 Data operands (:func:`geometry_of`, ``launch_plan.generic_geometry``).
 The small ones are resident: copied into shared memory at block entry and
@@ -143,7 +148,7 @@ import torch
 from aehmc_tpu_torch.ops.launch_plan import generic_geometry, odd_stride
 
 LAYOUTS = ("t", "std")   # the potential's batch: (dim, C) or (C, dim)
-MAX_DATA = 16            # data operands a functor takes (csrc/generic_pg.cuh)
+MAX_DATA = 32            # data operands a functor takes (csrc/generic_pg.cuh)
 SHARE_COST = 8           # ops above which a node read by two loops is stored
 WARP_OUTPUTS = 8         # outputs a warp sums at once (measured: PERF.md §6)
 # outputs of a warp-each product summing over a streamed operand's rows
@@ -1068,13 +1073,21 @@ def _flat_gather(c, x, pos, shape):
 
 def _scatter_add(c, base, axis, idx, values):
     """``base`` plus ``values`` added at ``idx`` along ``axis`` in input
-    order (torch's ``index_add``, ``index_put(accumulate=True)``)."""
+    order (torch's ``index_add``, ``index_put(accumulate=True)``).  By an
+    index the host knows (data, or a row derived from them), the node
+    carries a fourth argument, the preimage row of the flat positions the
+    values land on (:func:`_preimage`); the index stays its second, which
+    the plain version and the bind's check read."""
     shape = c.shape(base)
     expected = shape[:axis] + c.shape(idx) + shape[axis + 1:]
     values = c.expand(values, expected)
     if c.nodes[values].dtype != "f":
         values = c.make("float", (values,), expected)
-    return c.make("scatter_add", (base, idx, values), shape, "f", (axis,))
+    args = (base, idx, values)
+    if c.data_only([idx]):
+        pos = c.host(("fn", "scatter_positions", shape, axis), [idx])
+        args += (c.host(("fn", "preimage", math.prod(shape)), [pos]),)
+    return c.make("scatter_add", args, shape, "f", (axis,))
 
 
 def _flat_scatter(c, base, pos, values, accumulate):
@@ -2639,8 +2652,8 @@ def _plain_value(n: Node, args, dtype, dev):
                                tuple(range(axis, axis + rank)))
         return x.index_select(axis, _wrapped(k, x.shape[axis])).reshape(
             *n.shape, x.shape[-1])
-    if n.op == "scatter_add":
-        base, k, src = args
+    if n.op == "scatter_add":  # the preimage row, if any, unread
+        base, k, src = args[:3]
         axis = n.params[0]
         c = max(base.shape[-1], src.shape[-1], k.shape[-1])
         src = src.expand(*src.shape[:-1], c).reshape(
@@ -2862,6 +2875,21 @@ def _axis_positions(vals, shape, axis):
     return sum(k * st for k, st in zip(coords, _strides(shape)))
 
 
+def _scatter_positions(vals, shape, axis):
+    """The flat positions in an array of ``shape`` that a scatter-add along
+    ``axis`` by ``vals[0]`` (of any shape) adds its values to, in the
+    values' order: the index wrapped as ``gpg_wrap`` wraps it on the card,
+    through :func:`_axis_positions` on the array seen as (before, axis,
+    after)."""
+    (index,) = vals
+    length = shape[axis]
+    check_index(index, length)
+    index = torch.where(index < 0, index + length, index).reshape(1, -1, 1)
+    outer = (math.prod(shape[:axis]), length, math.prod(shape[axis + 1:]))
+    index = index.expand(outer[0], index.shape[1], outer[2])
+    return _axis_positions([index], outer, 1).reshape(-1)
+
+
 def _inverse(vals, numel, uniform=False):
     """Position -> the written value's flat index, or -1, of a writing
     scatter at the flat positions ``vals[0]``; a duplicate position raises
@@ -2909,7 +2937,7 @@ def _arange(vals, n, start=0):
 _HOST_FNS = {"index_positions": _index_positions, "arange": _arange,
              "axis_offsets": _axis_offsets,
              "axis_positions": _axis_positions, "inverse": _inverse,
-             "preimage": _preimage}
+             "preimage": _preimage, "scatter_positions": _scatter_positions}
 
 
 def _host_op(n: Node, vals, dtype=torch.float32):
@@ -3125,6 +3153,15 @@ def _virtual_deps(ir, args, stored):
     return deps, virt
 
 
+def _every_lane_reads(n: Node) -> bool:
+    """Whether every lane of the warp reads each of node ``n``'s values: a
+    scatter by an index computed on the card walks them all in each lane
+    (one through the host's preimage row reads each once, in its output's
+    lane), and a sort ranks each against all."""
+    return n.op in ("scatter_put", "scatter_reduce_chain", "sortidx") or (
+        n.op == "scatter_add" and len(n.args) == 3)
+
+
 def _stored_nodes(ir) -> set:
     """The nodes the functor materialises (registers or workspace)."""
     stored = set()
@@ -3133,9 +3170,7 @@ def _stored_nodes(ir) -> set:
                 _is_compute(n) and _numel(n.shape) == 1):
             stored.add(i)
     for i, n in enumerate(ir.nodes):
-        if n.op in ("scatter_add", "scatter_put", "scatter_reduce_chain",
-                    "sortidx"):
-            # every lane reads each value
+        if _every_lane_reads(n):
             base = _through_views(ir, n.args[0 if n.op == "sortidx"
                                            else 2])
             if _is_compute(ir.nodes[base]):
@@ -4578,11 +4613,20 @@ class _Emitter:
         lines.append("__syncwarp();")
 
     def scatter_add(self, nid, lines, update="+="):
-        """The base, lane-strided (output o in lane o % 32); then every lane
-        walks the values in input order and the lane that owns each one's
-        output adds it: each output sums its values in input order, with no
-        atomics and no barrier between the two loops."""
+        """Each output sums its base and the values that land on it in
+        input order, in its own lane (output o in lane o % 32), with no
+        atomics.  By an index the host knows, through its preimage row
+        (offsets, then the values by output, each output's in input
+        order): the lane starts from the base, adds its output's values
+        and stores once, reading no value another lane adds.  By an index
+        computed on the card, the base, lane-strided; then every lane walks
+        the values in input order and the lane that owns each one's output
+        adds it (``update``), with no barrier between the two loops."""
         n = self.ir.nodes[nid]
+        if len(n.args) == 4:
+            base, _, values, pre = n.args
+            self._preimage_loop(nid, lines, base, pre, values, "acc + v")
+            return
         base, index, values = n.args
         axis = n.params[0]
         out = _numel(n.shape)
@@ -5365,21 +5409,34 @@ class _Emitter:
         output), reduced by sum, product, maximum or minimum (NaN wins) or
         averaged over their count; an output no value lands on keeps its
         base."""
-        n = self.ir.nodes[nid]
-        base, pre, src = n.args
-        reduce, include_self = n.params
-        out = _numel(n.shape)
-        nsrc = _numel(self.ir.nodes[src].shape)
-        scope = _Scope(self)
-        b = self.value(base, (Ix("o", out),), scope)
-        lo = self.load(pre, (Ix("o", out + 1),))
-        hi = self.load(pre, (Ix("(o + 1)", out + 2),))
+        base, pre, src = self.ir.nodes[nid].args
+        reduce, include_self = self.ir.nodes[nid].params
         step = {"sum": "acc + v", "mean": "acc + v", "prod": "acc * v",
                 "amax": "gpg_max(acc, v)", "amin": "gpg_min(acc, v)"}[reduce]
-        first = "" if include_self else "e == lo ? v : "
+        mean = None
+        if reduce == "mean":
+            mean = "(hi - lo + 1)" if include_self else "(hi - lo)"
+        self._preimage_loop(nid, lines, base, pre, src, step,
+                            "" if include_self else "e == lo ? v : ", mean)
+
+    def _preimage_loop(self, nid, lines, base, pre, src, step, first="",
+                       mean=None):
+        """In output o's lane (o in lane o % 32): ``acc`` = its base, then
+        ``acc = step(acc, v)`` over the values ``src[pre[out + 1 + e]]``
+        for e in ``[pre[o], pre[o + 1])``, in that (input) order (``first``:
+        a prefix giving the first value itself), divided by the count
+        ``mean`` where given, stored once."""
+        n = self.ir.nodes[nid]
+        out = _numel(n.shape)
+        sshape = self.ir.nodes[src].shape
+        nsrc = _numel(sshape)
+        scope = _Scope(self)
+        b = self.value(base, _unflatten(Ix("o", out), n.shape), scope)
+        lo = self.load(pre, (Ix("o", out + 1),))
+        hi = self.load(pre, (Ix("(o + 1)", out + 2),))
         inner = _Scope(self)
         t = self.load(pre, (Ix(f"({out + 1} + e)", out + 1 + nsrc),))
-        v = self.value(src, (Ix("t", nsrc),), inner)
+        v = self.value(src, _unflatten(Ix("t", nsrc), sshape), inner)
         lines += [f"for (int o = lane; o < {out}; o += 32) {{",
                   *("  " + line for line in scope.lines),
                   f"  const int lo = {lo}, hi = {hi};",
@@ -5390,9 +5447,8 @@ class _Emitter:
                   f"    const float v = {v};",
                   f"    acc = {first}{step};",
                   "  }"]
-        if reduce == "mean":
-            count = "(hi - lo + 1)" if include_self else "(hi - lo)"
-            lines.append(f"  if (hi > lo) acc = acc / (float){count};")
+        if mean is not None:
+            lines.append(f"  if (hi > lo) acc = acc / (float){mean};")
         lines += [f"  {self.slot(nid, Ix('o', out))} = acc;", "}",
                   "__syncwarp();"]
 

@@ -203,9 +203,10 @@ logistic regression.  Then it drives the port's front door
   and 6 on S1 against kernels 1 and 5 draw by draw) and S1's kernel 1 on
   chains sent where K is not positive definite (divergent, not raised);
   phase 55 runs S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
-  doors (4,096 chains) each against the pooled XLA NUTS route on the same
-  model (512 chains), every run at §2's limits and the means within 4.5
-  combined MCSE.
+  doors (4,096 chains), S1's and S5's against the pooled XLA NUTS route on
+  the same model (512 chains), S3's against its fused NUTS door (4,096
+  chains), every run at §2's limits and the means within 4.5 combined
+  MCSE.
 
 Phase 1 prints each kernel's launch geometry (chains a block, points a
 chunk of X, shared memory a block, from ``ops/launch_plan.py``), ptxas's
@@ -6935,8 +6936,9 @@ def sampling_table_fields(kernels, *phases):
 # Phase 54 holds kernels 1, 3, 5 and 7 on each against their plain versions
 # (kernels 2 and 6 on S1 against kernels 1 and 5 draw by draw) and S1's
 # kernel 1 on chains sent where K is not positive definite; phase 55 runs
-# S1's fused NUTS, S3's fused ChEES and S5's fused MEADS doors against the
-# pooled XLA NUTS route on the same model.
+# S1's fused NUTS, S3's fused ChEES and S5's fused MEADS doors, S1's and
+# S5's against the pooled XLA NUTS route on the same model, S3's against
+# its fused NUTS door.
 LAST_SEED = 5454
 GP_POINTS, GP_JITTER = 64, 1e-6
 LKJ_COEF, LKJ_GROUPS, LKJ_OBS = 4, 30, 600
@@ -6974,9 +6976,7 @@ NON_PD_CHAINS = 64
 # of R-hat by draws (NVIDIA H100 80GB HBM3, 700 W):
 # S1's NUTS 1.0048 at 200 draws; S3's ChEES from 500 warmup steps 1.0104 /
 # 1.0052 / 1.0026 at 500 / 1,000 / 2,000 (4.2 ms a step); S5's MEADS
-# 1.0278 / 1.0137 / 1.0070 / 1.0034 at 500 / 1,000 / 2,000 / 4,000.  S3's
-# pooled reference (LAST_POOLED_S3) takes a dense M⁻¹ (R-hat 1.019 at K 4
-# and 100 + 200 against 1.028 with a diagonal one, 70-79 s a run)
+# 1.0278 / 1.0137 / 1.0070 / 1.0034 at 500 / 1,000 / 2,000 / 4,000.
 # S1's door, cut to 1,024 chains when it took 52.3 s at 4,096 (22.19 s at
 # 1,024), takes 9.51 s at 4,096 since the functor's dense linear algebra
 # was redesigned (PERF.md §6)
@@ -6985,9 +6985,14 @@ LAST_DOORS = {"gp_se64": ("nuts", 150, 200),
               "lkj_slopes": ("chees", 500, 1000),
               "matrix_log_cov": ("meads", 500, 3000)}
 LAST_POOLED = dict(chains=512, warmup=100, draws=100, k=4)
-# S3's reference: a dense M⁻¹, K 3 and 100 + 100 (its R-hat recorded, its
-# means held): at K 4 its trees end at the cap and a run takes 70-79 s
-LAST_POOLED_S3 = dict(chains=512, warmup=100, draws=100, k=3)
+# S3's reference: its fused NUTS door, held to R-hat below RHAT_MAX.  The
+# pooled XLA route did not mix within a run's time (R-hat 1.137 at K 3 and
+# 100 + 100 with a dense M⁻¹, 70-79 s a run).  Lengths from a probe of
+# R-hat by draws (NVIDIA H100 80GB HBM3, 700 W; the door's start and seed):
+# 1.0396 / 1.0197 / 1.0099 / 1.0051 at 100 / 200 / 400 / 800 draws after
+# 300 warmup steps (4.06 s a run); after 150, 1.0100 at 400 draws (a dense
+# M⁻¹ 1.0073, 7.28 s)
+LAST_REF_S3 = dict(chains=4096, warmup=300, draws=800, k=K, dense=False)
 
 
 def gp_data(num_points=GP_POINTS, seed=0):
@@ -7469,8 +7474,9 @@ def last_doors(torch, ops, diagnostics, pots, record, card):
     """Phase 55: S1's fused NUTS, S3's fused ChEES and S5's fused MEADS
     doors (LAST_DOOR_CHAINS chains; LAST_DOORS' lengths), each within
     §2's limits (R-hat below RHAT_MAX), launches exact, its means within
-    MCSE_Z combined MCSE of the pooled XLA NUTS route's on the same model
-    (LAST_POOLED), which holds §2's limits too."""
+    MCSE_Z combined MCSE of a reference's on the same model from the same
+    start, which holds §2's limits too: the pooled XLA NUTS route
+    (LAST_POOLED) on S1 and S5, S3's fused NUTS door (LAST_REF_S3)."""
     import aehmc_tpu_torch
     from aehmc_tpu_torch.ops.generic_pg import no_validation
 
@@ -7516,25 +7522,32 @@ def last_doors(torch, ops, diagnostics, pots, record, card):
                               for m in (d // 4, d // 2)}
         del x, res
         out[f"{name} {algo}"] = dict(wall_s=wall, launches=launches, **a)
-        pc = LAST_POOLED_S3 if name == "lkj_slopes" else LAST_POOLED
+        fused = name == "lkj_slopes"
+        route = "fused" if fused else "pooled"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with no_validation():  # torch.distributions' checks under vmap
+        if fused:
+            rc = LAST_REF_S3
             ref = aehmc_tpu_torch.sample(
-                torch.Generator().manual_seed(LAST_SEED + 40 + n),
-                pots[name].get("lp_xla", lp),
-                q0[:pc["chains"]], pc["draws"], pc["warmup"],
-                algorithm="nuts", path="pooled",
-                max_num_expansions=pc["k"],
-                is_mass_matrix_full=name == "lkj_slopes")
+                torch.Generator().manual_seed(LAST_SEED + 40 + n), lp,
+                q0[:rc["chains"]], rc["draws"], rc["warmup"],
+                algorithm="nuts", path="fused", max_num_expansions=rc["k"],
+                is_mass_matrix_full=rc["dense"])
+        else:
+            with no_validation():  # torch.distributions' checks under vmap
+                ref = aehmc_tpu_torch.sample(
+                    torch.Generator().manual_seed(LAST_SEED + 40 + n),
+                    pots[name].get("lp_xla", lp),
+                    q0[:LAST_POOLED["chains"]], LAST_POOLED["draws"],
+                    LAST_POOLED["warmup"], algorithm="nuts", path="pooled",
+                    max_num_expansions=LAST_POOLED["k"])
         torch.cuda.synchronize()
         wall_ref = time.perf_counter() - t0
-        b = door_limits(torch, diagnostics, ref, f"{name} pooled NUTS",
-                        (0.6, 0.95), rhat_max=(RHAT_MAX if name !=
-                                               "lkj_slopes" else None))
-        out[f"{name} pooled"] = dict(wall_s=wall_ref, **b)
-        z[name] = agree(torch, a, b, f"{name} fused {algo} against pooled "
-                        "XLA NUTS")
+        b = door_limits(torch, diagnostics, ref, f"{name} {route} NUTS",
+                        (0.7, 0.9) if fused else (0.6, 0.95))
+        out[f"{name} {route}"] = dict(wall_s=wall_ref, **b)
+        z[name] = agree(torch, a, b, f"{name} fused {algo} against {route} "
+                        "NUTS")
     wall = time.perf_counter() - t_phase
     for what, r in out.items():
         log(f"phase 55: {what}, {r['chains']} chains, {r['draws']} draws: "
@@ -7548,7 +7561,8 @@ def last_doors(torch, ops, diagnostics, pots, record, card):
         r["mean"], r["mcse"] = r["mean"].tolist(), r["mcse"].tolist()
     log("phase 55: means within " + ", ".join(
         f"{v:.2f} ({k})" for k, v in z.items()) + f" combined MCSE of the "
-        f"pooled XLA NUTS route (limit {MCSE_Z}); phase 55 in {wall:.1f} s "
+        f"reference route (pooled XLA NUTS on S1, S5; fused NUTS on S3; "
+        f"limit {MCSE_Z}); phase 55 in {wall:.1f} s "
         f"[{card}]")
     record["phase55"] = dict(wall_s=wall, z=z, **out)
     return out

@@ -21,13 +21,20 @@ tree changes) to the posterior; then
 - phase 56 (``--only-everyday``, alone): kernels 1 and 2 (4 draws) on U3
   ``ctmc_cav`` and U4 ``ppca_qr`` at phase 56's cells (EVERYDAY_CELLS and
   EVERYDAY_STARTS, seed 56), through their matrix exponentials, QR and
-  SVD.
+  SVD;
+- the scatter-adds (``--only-scatter``, alone): kernels 1, 2 (4 draws),
+  3, 5 and 7 (L 10) on the functors whose gradient adds by a data index,
+  P2 ``hier_negbin``, S3 ``lkj_slopes``, U1 ``zip_radon``, R1
+  ``softmax_reg``, R2 ``weibull_mice``, S4 ``ordinal_sorted`` and
+  ``op_extras``, at their phases' cells (seed 22), from a start whose
+  gradient the plain version computes on the CPU (on the card its
+  ``index_add`` adds with atomics, in an order that varies between runs).
 
 Run from the root of a checkout (``--pkg`` imports the package from
 another directory, say one that profiling/decompose_generic.py staged):
 
     python profiling/bits_vs_parent.py --out A.pt [--pkg DIR] [--against B.pt]
-        [--last] [--only-last] [--only-everyday]
+        [--last] [--only-last] [--only-everyday] [--only-scatter]
 """
 import argparse
 import os
@@ -47,6 +54,7 @@ def main():
     ap.add_argument("--last", action="store_true")
     ap.add_argument("--only-last", action="store_true")
     ap.add_argument("--only-everyday", action="store_true")
+    ap.add_argument("--only-scatter", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.pkg))
     sys.path.insert(1, ROOT)
@@ -65,7 +73,9 @@ def main():
         out.update(last_kernels(torch, cs, dev))
     if args.only_everyday:
         out.update(everyday_kernels(torch, cs, dev))
-    if not (args.only_last or args.only_everyday):
+    if args.only_scatter:
+        out.update(scatter_kernels(torch, cs, dev))
+    if not (args.only_last or args.only_everyday or args.only_scatter):
         out.update(doors(torch, cs, dev, aehmc_tpu_torch, ops, nf))
     torch.cuda.synchronize()
     out["launches"] = dict(ops.LAUNCHES)
@@ -143,6 +153,71 @@ def everyday_kernels(torch, cs, dev):
                                     cs.OPS_SAMPLING_DRAWS, max_exp=k, **kw)
         out[f"phase56/{name}/k2/positions"] = o2[0].cpu()
         out[f"phase56/{name}/k2/stats"] = o2[1].cpu()
+    return out
+
+
+SCATTER = ("hier_negbin", "lkj_slopes", "zip_radon", "softmax_reg",
+           "weibull_mice", "ordinal_sorted", "op_extras")
+
+
+def scatter_kernels(torch, cs, dev):
+    """Kernels 1, 2, 3, 5 and 7 on the scatter-add functors (see the
+    module)."""
+    from aehmc_tpu_torch.ops import chees_fused as cf
+    from aehmc_tpu_torch.ops import generic_pg
+    from aehmc_tpu_torch.ops import ghmc_fused as gf
+    from aehmc_tpu_torch.ops import nuts_fused as nf
+    from aehmc_tpu_torch.ops import nuts_fused_small as nfs
+
+    pots, cells, starts = {}, {}, {}
+    for group, cell, start in (
+            (cs.op_table_potentials(torch, dev), cs.OPS_CELLS, {}),
+            (cs.rest_potentials(torch, dev), cs.REST_CELLS, {}),
+            (cs.last_potentials(torch, dev), cs.LAST_CELLS, cs.LAST_STARTS),
+            (cs.everyday_potentials(torch, dev, ["zip_radon"]),
+             cs.EVERYDAY_CELLS, cs.EVERYDAY_STARTS)):
+        for name in SCATTER:
+            if name in group:
+                pots[name], cells[name] = group[name], cell[name]
+                starts[name] = start.get(name)
+    out = {}
+    for name in SCATTER:
+        dim, chains, eps, imm_v, k = cells[name]
+        p = pots[name]
+        b, rows = p["bound"], p["rows"]
+        rng = np.random.default_rng(22)
+        q = 0.1 * rng.standard_normal((dim, chains))
+        if starts[name] is not None:
+            q += np.asarray(starts[name], np.float64)[:, None]
+        q_t = torch.tensor(q, dtype=torch.float32, device=dev)
+        p0 = torch.tensor(rng.standard_normal((dim, chains)),
+                          dtype=torch.float32, device=dev)
+        # the start's gradient on the CPU: the plain index_add on the card
+        # adds with atomics, in an order that varies from run to run
+        u0, g0 = (x.to(dev) for x in generic_pg.run_plain(
+            b.ir, q_t.cpu(), b.operands(rows, "cpu")))
+        imm = torch.full((dim,), imm_v, device=dev)
+        kw = dict(potential_and_grad_t=None, potential_fn_t=p["pot"])
+        q_s, g_s = q_t.T.contiguous(), g0.T.contiguous()
+        steps = torch.full((), cs.LEAPFROG_STEPS, dtype=torch.int32,
+                           device=dev)
+        runs = {
+            "k1": nfs.nuts_transition_cuda(q_t, u0, g0, imm, eps, rows,
+                                           max_exp=k, seed=221, **kw),
+            "k2": nfs.nuts_sampling_cuda(q_t, u0, g0, imm, eps, rows, 222,
+                                         cs.OPS_SAMPLING_DRAWS, max_exp=k,
+                                         **kw),
+            "k3": nf.nuts_transition_std_cuda(q_s, u0.reshape(-1, 1), g_s,
+                                              imm, eps, rows, max_exp=k,
+                                              seed=223, bound=b),
+            "k5": gf.ghmc_transition_cuda(q_t, u0, g0, p0, eps, 0.0, imm,
+                                          rows, seed=225, **kw),
+            "k7": cf.chees_transition_cuda(q_s, u0.reshape(-1), g_s, imm,
+                                           eps, steps, rows, seed=227, **kw)}
+        for kern, o in runs.items():
+            for i, part in enumerate(o):
+                if isinstance(part, torch.Tensor):
+                    out[f"scatter/{name}/{kern}/{i}"] = part.cpu()
     return out
 
 

@@ -18,8 +18,9 @@ of a generated functor's text and times them on the card:
   ``trsolve_1`` (a triangular solve of one right side), ``trsolve_n``
   (several), ``lusolve``, ``slogdet``, ``lufactor``, ``mexp`` (a batch of
   matrix exponentials, its arguments' copies included), ``qr``, ``svd``,
-  and ``ws_mm`` (a loop group holding a matrix product of two workspace
-  matrices);
+  ``ws_mm`` (a loop group holding a matrix product of two workspace
+  matrices) and ``scatter_add`` (a scatter-add node: the base's copy and
+  the loop over its values);
 - ``noload``: every read of a float data operand replaced by a value of
   its index (the loads' share, by difference; kernel 7 only, whose work
   does not depend on the values);
@@ -49,8 +50,13 @@ takes the package from another checkout, say a parent commit unpacked into
     python profiling/decompose_generic.py [--tree DIR] [--out FILE]
         [--names flagship,cell,probit100,softmax_reg] [--chains N]
         [--variants base,probe,noload,wsshared,l2,fglobal,fshared,untiled,
-                    c4096,fglobal4096,fshared4096]
+                    c4096,fglobal4096,fshared4096,stored]
 
+``--names hier_negbin,lkj_slopes,zip_radon,softmax_reg`` (P2, S3, U1, R1)
+runs kernels 1, 3 and 7 at chip_smoke.py's cells (``OPS_CELLS``,
+``LAST_CELLS``, ``EVERYDAY_CELLS`` with ``EVERYDAY_STARTS``,
+``REST_CELLS``); the variant ``stored`` keeps the values of a scatter-add
+through the host's preimage row in the workspace, as the scan read them.
 ``--names gp_se64,gp_se64_logdet`` (S1, S2) runs kernels 1 and 3 (and
 kernel 2 on S1, 4 draws) at chip_smoke.py's phase 54 cell: 1,024 chains,
 ε 0.02, K 4.  ``--names ctmc_cav,ppca_qr`` (U3, U4) runs kernels 1, 2 (4
@@ -81,7 +87,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ["chol", "trsolve_1", "trsolve_n", "lusolve", "slogdet", "lufactor",
-         "mexp", "qr", "svd", "ws_mm"]
+         "mexp", "qr", "svd", "ws_mm", "scatter_add"]
 CATS = ["we_loop", "we_sum", "loop_contract", "loop_elem", "loop_post",
         "chunk_wait", "sequential", "scalar", *KINDS, "total", "between",
         "calls"]
@@ -272,6 +278,10 @@ def marked_text(gp, ir):
         if hasattr(E, name):
             wrap(name, lambda self, nid, name=name: name)
     wrap("trsolve", solve_kind)
+    # scatter_put reaches scatter_add's method in some trees: the node's
+    # own op decides
+    wrap("scatter_add", lambda self, nid: "scatter_add" if
+         self.ir.nodes[nid].op == "scatter_add" else None)
 
     orig_group = E.loop_group
     saved["loop_group"] = orig_group
@@ -431,13 +441,12 @@ def main():
     assert gp.__file__.startswith(dst), gp.__file__
     dev = torch.device("cuda:0")
     names = args.names.split(",")
-    flag = {"flagship", "cell", "probit100", "softmax_reg"} & set(names)
+    flag = {"flagship", "cell", "probit100"} & set(names)
     # name: (bound, rows, potential, dim, kernels, ε, K, chains)
     cases = {}
     if flag:
         gen = cs.generic_potentials(torch, dev)
         ops = cs.op_table_potentials(torch, dev)
-        rest = cs.rest_potentials(torch, dev)
         cases.update({
             "flagship": (gen["binds"]["flagship"], (), gen["flagship_t"],
                          100, ("k7", "k3"), 0.05, 6, args.chains),
@@ -445,27 +454,33 @@ def main():
                      ("k3",), 0.05, 6, args.chains),
             "probit100": (ops["probit100"]["bound"],
                           ops["probit100"]["rows"], ops["probit100"]["pot"],
-                          100, ("k7", "k3"), 0.05, 6, args.chains),
-            "softmax_reg": (rest["softmax_reg"]["bound"],
-                            rest["softmax_reg"]["rows"],
-                            rest["softmax_reg"]["pot"], 100, ("k7", "k3"),
-                            0.05, 6, args.chains)})
-    last = (cs.last_potentials(torch, dev)
-            if {"gp_se64", "gp_se64_logdet"} & set(names) else {})
-    for name, kernels in (("gp_se64", ("k1", "k2", "k3")),
-                          ("gp_se64_logdet", ("k1", "k3"))):
-        if name in last:
-            dim, chains, eps, _, k = cs.LAST_CELLS[name]
-            cases[name] = (last[name]["bound"], last[name]["rows"],
-                           last[name]["pot"], dim, kernels, eps, k, chains)
-    every = [n for n in ("ctmc_cav", "ppca_qr") if n in names]
+                          100, ("k7", "k3"), 0.05, 6, args.chains)})
+    scatter = ("k1", "k7", "k3")  # the scatter-add cells' kernels
+    built = {}
+    for name, builder, cells, kernels in (
+            ("softmax_reg", cs.rest_potentials, cs.REST_CELLS, scatter),
+            ("hier_negbin", cs.op_table_potentials, cs.OPS_CELLS, scatter),
+            ("lkj_slopes", cs.last_potentials, cs.LAST_CELLS, scatter),
+            ("gp_se64", cs.last_potentials, cs.LAST_CELLS,
+             ("k1", "k2", "k3")),
+            ("gp_se64_logdet", cs.last_potentials, cs.LAST_CELLS,
+             ("k1", "k3"))):
+        if name in names:
+            if builder not in built:
+                built[builder] = builder(torch, dev)
+            p = built[builder][name]
+            dim, chains, eps, _, k = cells[name]
+            cases[name] = (p["bound"], p["rows"], p["pot"], dim, kernels,
+                           eps, k, chains)
+    every = [n for n in ("ctmc_cav", "ppca_qr", "zip_radon") if n in names]
     every_pots = cs.everyday_potentials(torch, dev, every) if every else {}
     starts = {}  # name: the state's mean (phase 56's EVERYDAY_STARTS)
     for name in every:
         dim, chains, eps, _, k = cs.EVERYDAY_CELLS[name]
         cases[name] = (every_pots[name]["bound"], every_pots[name]["rows"],
-                       every_pots[name]["pot"], dim, ("k1", "k2", "k3"), eps,
-                       k, chains)
+                       every_pots[name]["pot"], dim,
+                       scatter if name == "zip_radon" else
+                       ("k1", "k2", "k3"), eps, k, chains)
         if name in cs.EVERYDAY_STARTS:
             starts[name] = np.asarray(cs.EVERYDAY_STARTS[name], np.float64)
     variants = args.variants.split(",")
@@ -500,7 +515,16 @@ def main():
                          one_block(dim, f, fixed, True))
         if v == "untiled":
             return Patch(gp._Emitter, "ws_product", lambda self, nid: False)
+        if v == "stored":
+            return Patch(gp, "_every_lane_reads",
+                         lambda n: n.op in ("scatter_add", "scatter_put",
+                                            "scatter_reduce_chain",
+                                            "sortidx"))
         return None
+
+    def preimage_scatter(ir):
+        return any(n.op == "scatter_add" and len(n.args) == 4
+                   for n in ir.nodes)
 
     def fits_hmc_shared(b):  # at one NUTS block an SM, if not two
         geo = getattr(b, "geometry", None)
@@ -509,7 +533,7 @@ def main():
                     + 8 * b.workspace)
         return smem <= lp.SMEM_LIMIT
 
-    texts, geos = {}, {}
+    texts, geos, works = {}, {}, {}
     for name in names:
         b = cases[name][0]
         for v in variants:
@@ -525,12 +549,15 @@ def main():
                 continue
             if v == "untiled" and not hasattr(gp._Emitter, "ws_product"):
                 continue
+            if v == "stored" and not preimage_scatter(b.ir):
+                continue
             if v in ("wsshared", "fglobal", "fglobal4096", "fshared",
-                     "fshared4096", "untiled"):
+                     "fshared4096", "untiled", "stored"):
                 with patch_of(v):
                     texts[(name, v)] = gp.emit_cuda(b.ir)
                     if hasattr(gp, "geometry_of"):
                         geos[(name, v)] = gp.geometry_of(b.ir)
+                    works[(name, v)] = gp.schedule(b.ir).workspace
             elif v == "probe":
                 texts[(name, v)] = probe_text(marked_text(gp, b.ir))
             elif v == "noload":
@@ -566,7 +593,10 @@ def main():
                build_s=time.perf_counter() - t0,
                build_s_by_name=build_s_by_name, runs={},
                ptxas={name: ptxas_summary(_build.generated_ptxas_log(text))
-                      for name, text in base.items()})
+                      for name, text in base.items()},
+               workspace={name: cases[name][0].workspace for name in names})
+    print(args.tag, "workspace floats a chain", json.dumps(res["workspace"]),
+          flush=True)
     for name, rep in res["ptxas"].items():
         print(args.tag, name, "ptxas", json.dumps(rep), flush=True)
     print(f"built {len(set(texts.values()))} libraries in "
@@ -577,7 +607,7 @@ def main():
         ops_b = b.operands(rows, dev)
         imm = torch.ones(dim, device=dev)
         steps = torch.full((), 10, dtype=torch.int32, device=dev)
-        src0, geo0 = b.source, getattr(b, "geometry", None)
+        src0, geo0, ws0 = b.source, getattr(b, "geometry", None), b.workspace
         states = {}
         for v in variants:
             if (name, v) not in texts:
@@ -593,6 +623,7 @@ def main():
             b.source = texts[(name, v)]
             if geo0 is not None:
                 b.geometry = geos.get((name, v), geo0)
+            b.workspace = works.get((name, v), ws0)
             lib = b.library()
             ctx = patch_of(v)
             if ctx:
@@ -635,7 +666,7 @@ def main():
                         tag = "nuts"
                     out = f()
                     torch.cuda.synchronize()
-                    rec = dict(chains=chains,
+                    rec = dict(chains=chains, workspace=b.workspace,
                                ms=(cs.cuda_ms(torch, f, 1) if kern == "k2"
                                    else kernel_ms(f, 3)))
                     if kern == "k3":
@@ -665,7 +696,7 @@ def main():
             finally:
                 if ctx:
                     ctx.__exit__()
-        b.source = src0
+        b.source, b.workspace = src0, ws0
         if geo0 is not None:
             b.geometry = geo0
     if not flag:

@@ -928,7 +928,9 @@ def test_a_scatter_sums_in_input_order_bit_for_bit(tmp_path):
     assert "scatter_add" in {n.op for n in traced.ir.nodes}
     q = rng.standard_normal((3, 7)).astype(F32)
     _, g = generic_pg.run_plain(traced.ir, torch.tensor(q.T), (idx, w))
-    _, ge = _emulate(generic_pg.emit_cuda(traced.ir), (idx, w), q, tmp_path)
+    # the derived rows after the data: the scatter's preimage row
+    operands = generic_pg.all_operands(traced.ir, (idx, w))
+    _, ge = _emulate(generic_pg.emit_cuda(traced.ir), operands, q, tmp_path)
     np.testing.assert_array_equal(ge, g.numpy().T)
     assert math.isfinite(float(ge.sum()))
 
